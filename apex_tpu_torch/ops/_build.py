@@ -1,0 +1,172 @@
+"""Build, load and count the port's CUDA kernels.
+
+At first use every source under ``apex_tpu_torch/csrc/`` is compiled by
+``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per source, all started
+together) and linked into ONE shared library under
+``build/apex_tpu_torch/``, named by a hash of the sources and flags so
+an edited kernel never loads a stale build.  The library exposes a
+plain C interface and is loaded with ``ctypes``: every entry takes raw
+device pointers and the CUDA stream as ``c_void_p``, launches on that
+stream and returns ``cudaGetLastError()``, which :func:`check` turns
+into an exception.
+
+Each kernel wrapper adds one to its launch counter where it launches
+its kernel and nowhere else (:func:`count`), so a run can show that
+its main path went through the kernels: :func:`reset_launch_counts`
+before the run, :func:`launch_counts` after it.
+
+Nothing here runs at import time: the CPU tests import every module of
+the port on a machine with no ``nvcc`` and no card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+__all__ = ["SOURCES", "BUILD_DIR", "build", "library", "check", "count",
+           "launch_counts", "reset_launch_counts", "stream_ptr"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch"
+#: the kernel sources, by the launch-counter name of the kernel each holds
+SOURCES = {
+    "layer_norm": "layer_norm.cu",
+    "flash_attention": "flash_attention.cu",
+    "paged_attention": "paged_attention.cu",
+}
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LOCK = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
+_LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_L = ctypes.c_longlong
+#: C signature of every entry point: (argtypes); all return int
+_SIGNATURES = {
+    # x, w, b, y, rows, hidden, eps, rms, x_dtype, w_dtype, stream
+    "apex_layer_norm_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
+    # q, k, v, o, lse, bh, sq, sk, d, causal, off, valid_q, valid_k,
+    # scale_log2, stream
+    "apex_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _F, _P],
+    # q, k_pages, v_pages, page_table, lengths, out, part_acc, part_ml,
+    # slots, h, kvh, ps, d, mpps, page_stride, nsplit, split_tokens,
+    # scale_log2, stream
+    "apex_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _L, _I, _I, _F, _P],
+}
+
+
+def _nvcc() -> str:
+    cands = [os.environ.get("CUDA_HOME"), "/usr/local/cuda"]
+    for home in cands:
+        if home and Path(home, "bin", "nvcc").exists():
+            return str(Path(home, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH): the port's CUDA kernels are built from source at first use")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for src in sorted(SOURCES.values()):
+        h.update(src.encode())
+        h.update((CSRC / src).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernel sources into the shared library (once per
+    source hash) and return its path.  Raises with the compiler's
+    output if any source fails to build.  ``ptxas`` register and
+    spill reports land in ``<build>/<source>.log``."""
+    so = BUILD_DIR / f"libapex_tpu_torch_{_digest()}.so"
+    if so.exists():
+        return so
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    try:
+        for src in SOURCES.values():
+            obj = BUILD_DIR / (Path(src).stem + f".{os.getpid()}.o")
+            cmd = [nvcc, *_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
+            with open(BUILD_DIR / f"{src}.log", "w") as log:
+                procs.append((src, obj, subprocess.Popen(
+                    cmd, stdout=log, stderr=subprocess.STDOUT)))
+    finally:
+        for _, _, proc in procs:        # every compile ends before we go on
+            proc.wait()
+    failed = [src for src, _, proc in procs if proc.returncode]
+    if failed:
+        msgs = "\n".join(f"--- {s}\n{(BUILD_DIR / f'{s}.log').read_text()}"
+                         for s in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{msgs}")
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+         "-o", str(tmp), *[str(o) for _, o, _ in procs]],
+        capture_output=True, text=True)
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    if link.returncode:
+        raise RuntimeError(f"linking the kernels failed:\n{link.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.apex_error_string.argtypes = [ctypes.c_int]
+            lib.apex_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err:
+        msg = library().apex_error_string(err).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
+                           f"{err} ({msg})")
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    """The current PyTorch stream of ``device`` as a C pointer."""
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def count(kernel: str) -> None:
+    """Record one launch of ``kernel`` (called by its wrapper only)."""
+    _LAUNCHES[kernel] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches per kernel since the last reset."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
