@@ -11,11 +11,14 @@ Every TPU (Pallas) kernel on a ported path is a CUDA C++ kernel for
 PyTorch version only for tensors on the CPU; on a CUDA tensor it
 launches the kernel or raises.
 
-Ported so far (the serving slice): LLaMA at tp = 1 through the paged
-``InferenceEngine`` and the ``SlotScheduler``, on three kernels —
-RMSNorm/LayerNorm forward, causal flash-attention forward and paged
-decode attention.  Importing this package imports neither ``jax`` nor
-``apex_tpu``.
+Ported so far: the serving slice — LLaMA at tp = 1 through the paged
+``InferenceEngine`` and the ``SlotScheduler``, on the RMSNorm/LayerNorm
+forward, causal flash-attention forward and paged decode-attention
+kernels — and the training slice — the LLaMA model trained at tp = 1
+by the flat-native ``train_step.make_train_step`` with dynamic loss
+scaling and fused Adam, adding the norm backward, flash backward,
+unscale and Adam kernels.  Importing this package imports neither
+``jax`` nor ``apex_tpu``.
 """
 from apex_tpu_torch.utils import cdiv, resolve_device, round_up
 

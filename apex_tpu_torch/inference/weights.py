@@ -7,6 +7,11 @@ arrays, or any array numpy can read; with or without the outer
 leaves under the same key paths.  Layouts are unchanged: linear weights
 stay ``[out, in]`` (the forwards compute ``x @ W.T``), the packed
 ``kv_proj`` keeps each kv head's k and v columns side by side.
+
+:func:`load_jax_params` copies the same tree into the training model of
+:mod:`apex_tpu_torch.transformer.testing.standalone_llama`, whose named
+parameters are the tree's key paths joined by dots: one JAX tree serves
+both the serving and the training path.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ import torch
 from apex_tpu_torch.inference.models import check_supported, model_dims
 from apex_tpu_torch.utils import resolve_device
 
-__all__ = ["params_from_jax", "llama_param_shapes"]
+__all__ = ["params_from_jax", "llama_param_shapes", "load_jax_params"]
 
 
 def _to_tensor(x, device, dtype):
@@ -78,3 +83,36 @@ def params_from_jax(kind: str, cfg, tree, *, device=None, dtype=None):
             raise ValueError(f"{'/'.join(path)} has shape "
                              f"{tuple(node.shape)}, expected {shape}")
     return out
+
+
+def load_jax_params(model, tree) -> None:
+    """Copy a JAX parameter tree (numpy leaves, with or without the
+    outer ``"params"`` key) into ``model``'s parameters in place, each
+    cast to the parameter's dtype.  Every parameter must be found in the
+    tree at its dotted name's key path, with its shape, and every tree
+    leaf must be a parameter."""
+    bare = tree["params"] if isinstance(tree.get("params"), dict) else tree
+    leaves = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        else:
+            leaves[path] = node
+
+    walk(bare, ())
+    named = dict(model.named_parameters())
+    want = {tuple(name.split(".")) for name in named}
+    if want != set(leaves):
+        missing = sorted("/".join(p) for p in want - set(leaves))
+        extra = sorted("/".join(p) for p in set(leaves) - want)
+        raise ValueError(f"tree and model disagree: missing {missing}, "
+                         f"unexpected {extra}")
+    with torch.no_grad():
+        for name, p in named.items():
+            t = _to_tensor(leaves[tuple(name.split("."))], p.device, None)
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{name} has shape {tuple(t.shape)} in the "
+                                 f"tree, {tuple(p.shape)} in the model")
+            p.copy_(t)

@@ -8,8 +8,11 @@ from apex_tpu_torch.ops.attention import (flash_attention, mha_reference,
                                           prefix_window_attention)
 from apex_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_reference,
                                            rms_norm, rms_norm_reference)
+from apex_tpu_torch.ops.fused_update import (adam_reference, fused_adam_flat,
+                                             fused_scale)
 from apex_tpu_torch.ops.paged_attention import paged_decode_attention
 
 __all__ = ["layer_norm", "rms_norm", "layer_norm_reference",
            "rms_norm_reference", "flash_attention", "mha_reference",
-           "prefix_window_attention", "paged_decode_attention"]
+           "prefix_window_attention", "paged_decode_attention",
+           "fused_scale", "fused_adam_flat", "adam_reference"]

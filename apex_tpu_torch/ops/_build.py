@@ -10,10 +10,13 @@ device pointers and the CUDA stream as ``c_void_p``, launches on that
 stream and returns ``cudaGetLastError()``, which :func:`check` turns
 into an exception.
 
-Each kernel wrapper adds one to its launch counter where it launches
-its kernel and nowhere else (:func:`count`), so a run can show that
-its main path went through the kernels: :func:`reset_launch_counts`
-before the run, :func:`launch_counts` after it.
+Each kernel wrapper adds one to its kernel's launch counter where it
+launches that kernel and nowhere else (:func:`count`), so a run can
+show that its main path went through the kernels:
+:func:`reset_launch_counts` before the run, :func:`launch_counts`
+after it.  Counters are per kernel, not per source: a source may hold
+several kernels (``layer_norm.cu`` the forward and the backward,
+``fused_update.cu`` the unscale and Adam).
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine with no ``nvcc`` and no card.
@@ -29,23 +32,32 @@ import threading
 from pathlib import Path
 from typing import Dict, Optional
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "library", "check", "count",
-           "launch_counts", "reset_launch_counts", "stream_ptr"]
+__all__ = ["SOURCES", "KERNELS", "BUILD_DIR", "build", "library", "check",
+           "count", "launch_counts", "reset_launch_counts", "stream_ptr"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch"
-#: the kernel sources, by the launch-counter name of the kernel each holds
+#: the kernel sources and, for each, its C entries by the launch-counter
+#: name of the kernel each launches
 SOURCES = {
-    "layer_norm": "layer_norm.cu",
-    "flash_attention": "flash_attention.cu",
-    "paged_attention": "paged_attention.cu",
+    "layer_norm.cu": {"layer_norm": "apex_layer_norm_fwd",
+                      "layer_norm_bwd": "apex_layer_norm_bwd"},
+    "flash_attention.cu": {"flash_attention": "apex_flash_attention_fwd"},
+    "flash_attention_bwd.cu": {
+        "flash_attention_bwd": "apex_flash_attention_bwd"},
+    "paged_attention.cu": {
+        "paged_attention": "apex_paged_decode_attention"},
+    "fused_update.cu": {"fused_scale": "apex_fused_scale",
+                        "fused_adam": "apex_fused_adam"},
 }
+#: the source of each kernel, by launch-counter name
+KERNELS = {name: src for src, entries in SOURCES.items() for name in entries}
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
-_LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,15 +67,27 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # x, w, b, y, rows, hidden, eps, rms, x_dtype, w_dtype, stream
     "apex_layer_norm_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
+    # x, w, dy, dx, dw_part, db_part, dw, db, rows, hidden, nblocks, eps,
+    # rms, x_dtype, w_dtype, stream
+    "apex_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                            _I, _I, _I, _P],
     # q, k, v, o, lse, bh, sq, sk, d, causal, off, valid_q, valid_k,
     # scale_log2, stream
     "apex_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _F, _P],
+    # q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d,
+    # causal, off, valid_q, valid_k, scale_log2, scale, stream
+    "apex_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     # q, k_pages, v_pages, page_table, lengths, out, part_acc, part_ml,
     # slots, h, kvh, ps, d, mpps, page_stride, nsplit, split_tokens,
     # scale_log2, stream
     "apex_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                     _I, _I, _I, _I, _L, _I, _I, _F, _P],
+    # x, out, scale, flag, n, x_dtype, out_dtype, stream
+    "apex_fused_scale": [_P, _P, _P, _P, _L, _I, _I, _P],
+    # p, g, m, v, hp, n, g_dtype, adam_w, stream
+    "apex_fused_adam": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
 }
 
 
@@ -82,7 +106,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in sorted(SOURCES.values()):
+    for src in sorted(SOURCES):
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return h.hexdigest()[:16]
@@ -100,7 +124,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     try:
-        for src in SOURCES.values():
+        for src in SOURCES:
             obj = BUILD_DIR / (Path(src).stem + f".{os.getpid()}.o")
             cmd = [nvcc, *_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
             with open(BUILD_DIR / f"{src}.log", "w") as log:

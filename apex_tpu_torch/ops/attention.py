@@ -1,16 +1,24 @@
-"""Flash-attention forward (CUDA kernel) and the plain attention
-functions the serving slice uses.
+"""Flash attention forward and backward (CUDA kernels) and the plain
+attention functions the serving and training slices use.
 
 Port of ``apex_tpu/ops/attention.py``, ``[b, h, s, d]`` layout:
 
-* :func:`flash_attention` — the fused forward.  On CUDA it always runs
+* :func:`flash_attention` — the fused attention, differentiable through
+  a ``torch.autograd.Function``.  On CUDA the forward always runs
   ``csrc/flash_attention.cu`` (the counterpart of the Pallas
   ``_fwd_kernel``): there is no short-sequence crossover to a plain
   path, so a 64-token prefill bucket goes through the kernel too.
   Causal attention honours the offset ``sk - sq``; the kernel's online
   softmax and the returned log-sum-exp are in BASE 2, exactly as
-  ``_fwd`` returns them (:func:`_fwd`).  The ``mask`` operand and
-  dropout come with the training slice: on CUDA they raise
+  ``_fwd`` returns them (:func:`_fwd`).  The backward (:func:`_bwd`)
+  computes ``delta = rowsum(dO * O)`` in plain PyTorch, as the JAX
+  ``_bwd_impl`` does outside its kernels, and runs
+  ``csrc/flash_attention_bwd.cu``, the counterpart of the one-pass
+  ``_bwd_fused_kernel``, which consumes that base-2 lse.  Its dq is
+  accumulated with atomics in fp32, so it takes every length (the TPU
+  kernel's 2 MB VMEM gate does not apply) and its last bits vary from
+  run to run.  The ``mask`` operand and dropout are not ported yet
+  (ROADMAP queue 1, "mask operand and dropout"): on CUDA they raise
   ``NotImplementedError`` (the CPU plain version takes a mask).
 * :func:`mha_reference` — the natural-log oracle.
 * :func:`prefix_window_attention` — the warm-prefill attention over a
@@ -66,14 +74,8 @@ def _fwd_reference(q3, k3, v3, causal, scale, causal_off=None, valid=None):
     off = (sk - sq) if causal_off is None else causal_off
     s = torch.matmul(q3.float(), k3.float().transpose(1, 2)) * (
         scale * _LOG2E)
-    rows = torch.arange(sq, device=q3.device)[:, None]
-    cols = torch.arange(sk, device=q3.device)[None, :]
-    live = torch.ones(sq, sk, dtype=torch.bool, device=q3.device)
-    if causal:
-        live &= rows + off >= cols
-    if valid is not None:
-        live &= (rows < valid[0]) & (cols < valid[1])
-    s = torch.where(live, s, torch.full_like(s, _NEG_INF))
+    s = torch.where(_live_mask(sq, sk, causal, off, valid, q3.device), s,
+                    torch.full_like(s, _NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m)
     p = torch.where(m <= _MASKED_ROW_THRESH, torch.zeros_like(p), p)
@@ -86,6 +88,125 @@ def _fwd_reference(q3, k3, v3, causal, scale, causal_off=None, valid=None):
     return out.to(q3.dtype), lse
 
 
+def _check_kernel_operands(kernel, q3, k3, v3, extra=()):
+    """What both flash kernels take: bf16 ``[bh, s, d]`` operands on one
+    card, contiguous and 16-byte aligned, head_dim 32/64/128."""
+    if q3.device.type != "cuda":
+        raise ValueError(f"{kernel} runs on cuda or cpu, got {q3.device}")
+    bh, sq, d = q3.shape
+    sk = k3.shape[1]
+    if k3.shape != (bh, sk, d) or v3.shape != k3.shape:
+        raise ValueError(f"k/v must be [{bh}, sk, {d}] and equal-shaped, "
+                         f"got k {tuple(k3.shape)} v {tuple(v3.shape)}")
+    for name, t in (("q", q3), ("k", k3), ("v", v3), *extra):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{kernel} kernel takes bfloat16, got "
+                            f"{name} {t.dtype}")
+        if t.device != q3.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q3.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{kernel} kernel needs a contiguous, "
+                             f"16-byte aligned {name}")
+    if d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"{kernel} kernel takes head_dim in "
+                         f"{_KERNEL_HEAD_DIMS}, got {d}")
+    if bh > 65535:
+        raise ValueError(f"b*h = {bh} exceeds the kernel grid (65535)")
+
+
+def _live_mask(sq, sk, causal, off, valid, device):
+    rows = torch.arange(sq, device=device)[:, None]
+    cols = torch.arange(sk, device=device)[None, :]
+    live = torch.ones(sq, sk, dtype=torch.bool, device=device)
+    if causal:
+        live &= rows + off >= cols
+    if valid is not None:
+        live &= (rows < valid[0]) & (cols < valid[1])
+    return live
+
+
+def _bwd_reference(q3, k3, v3, o3, lse, do3, causal, scale,
+                   causal_off=None, valid=None):
+    """Plain version of the backward kernel: ``(dq, dk, dv)`` in the
+    operands' dtype from the base-2 lse, with ``_recompute_p``'s masks
+    and fully-masked-row guard; p and ds round to the operand dtype
+    before their products, as the kernels feed their matrix units."""
+    sq, sk = q3.shape[1], k3.shape[1]
+    off = (sk - sq) if causal_off is None else causal_off
+    delta = (do3.float() * o3.float()).sum(dim=-1)
+    s = torch.matmul(q3.float(), k3.float().transpose(1, 2)) * (
+        scale * _LOG2E)
+    s = torch.where(_live_mask(sq, sk, causal, off, valid, q3.device), s,
+                    torch.full_like(s, _NEG_INF))
+    p = torch.exp2(s - lse[..., None])
+    p = torch.where(lse[..., None] <= _MASKED_ROW_THRESH,
+                    torch.zeros_like(p), p)
+    dv = torch.matmul(p.to(do3.dtype).float().transpose(1, 2), do3.float())
+    dp = torch.matmul(do3.float(), v3.float().transpose(1, 2))
+    ds = (p * (dp - delta[..., None])).to(q3.dtype).float()
+    dk = scale * torch.matmul(ds.transpose(1, 2), q3.float())
+    dq = scale * torch.matmul(ds, k3.float())
+    return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
+
+
+def _bwd(q3, k3, v3, o3, lse, do3, causal: bool, scale: float,
+         causal_off: Optional[int] = None,
+         valid: Optional[Tuple[int, int]] = None):
+    """Backward over ``[b*h, s, d]`` operands from the forward's output
+    and base-2 ``lse``: ``(dq, dk, dv)``.  The kernel on CUDA, the plain
+    version on the CPU."""
+    if q3.device.type == "cpu":
+        return _bwd_reference(q3, k3, v3, o3, lse, do3, causal, scale,
+                              causal_off, valid)
+    bh, sq, d = q3.shape
+    sk = k3.shape[1]
+    _check_kernel_operands("flash_attention_bwd", q3, k3, v3,
+                           (("out", o3), ("dout", do3)))
+    if o3.shape != q3.shape or do3.shape != q3.shape:
+        raise ValueError(f"out/dout must be {tuple(q3.shape)}")
+    if lse.shape != (bh, sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous fp32 [{bh}, {sq}]")
+    off = (sk - sq) if causal_off is None else int(causal_off)
+    vq, vk = (sq, sk) if valid is None else (int(valid[0]), int(valid[1]))
+    # delta outside the kernel, in fp32, as _bwd_impl computes it
+    delta = (do3.float() * o3.float()).sum(dim=-1)
+    dq_acc = torch.empty((bh, sq, d), dtype=torch.float32, device=q3.device)
+    dq = torch.empty_like(q3)
+    dk = torch.empty_like(k3)
+    dv = torch.empty_like(v3)
+    lib = _build.library()
+    _build.count("flash_attention_bwd")
+    err = lib.apex_flash_attention_bwd(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d, int(causal), off, vq,
+        vk, float(scale * _LOG2E), float(scale),
+        _build.stream_ptr(q3.device))
+    _build.check(err, "flash_attention_bwd")
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Counterpart of the JAX ``run`` custom VJP in ``flash_attention``:
+    the forward saves ``(q3, k3, v3, out, lse)``, the backward is
+    :func:`_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, causal, scale):
+        out, lse = _fwd(q3, k3, v3, causal, scale)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.save_for_backward(q3, k3, v3, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do3):
+        q3, k3, v3, out, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd(q3, k3, v3, out, lse, do3.contiguous(),
+                          ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def _fwd(q3, k3, v3, causal: bool, scale: float,
          causal_off: Optional[int] = None,
          valid: Optional[Tuple[int, int]] = None):
@@ -95,28 +216,9 @@ def _fwd(q3, k3, v3, causal: bool, scale: float,
     and columns ``>= vk`` (a padded bucket)."""
     if q3.device.type == "cpu":
         return _fwd_reference(q3, k3, v3, causal, scale, causal_off, valid)
-    if q3.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, got "
-                         f"{q3.device}")
     bh, sq, d = q3.shape
     sk = k3.shape[1]
-    if k3.shape != (bh, sk, d) or v3.shape != k3.shape:
-        raise ValueError(f"k/v must be [{bh}, sk, {d}] and equal-shaped, "
-                         f"got k {tuple(k3.shape)} v {tuple(v3.shape)}")
-    for name, t in (("q", q3), ("k", k3), ("v", v3)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention kernel takes bfloat16, got "
-                            f"{name} {t.dtype}")
-        if t.device != q3.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q3.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention kernel needs a contiguous, "
-                             f"16-byte aligned {name}")
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in "
-                         f"{_KERNEL_HEAD_DIMS}, got {d}")
-    if bh > 65535:
-        raise ValueError(f"b*h = {bh} exceeds the kernel grid (65535)")
+    _check_kernel_operands("flash_attention", q3, k3, v3)
     off = (sk - sq) if causal_off is None else int(causal_off)
     vq, vk = (sq, sk) if valid is None else (int(valid[0]), int(valid[1]))
     out = torch.empty_like(q3)
@@ -134,31 +236,34 @@ def _fwd(q3, k3, v3, causal: bool, scale: float,
 def flash_attention(q, k, v, *, causal: bool = False, mask=None,
                     sm_scale: Optional[float] = None,
                     dropout_rate: float = 0.0, dropout_seed=None):
-    """Blockwise attention forward, ``[b, h, s, d]`` layout.
+    """Blockwise attention, ``[b, h, s, d]`` layout, differentiable in
+    q, k and v.
 
     On CUDA: bf16 operands, head_dim 32/64/128, any sequence lengths
-    (the kernel masks the ragged edge itself).  ``mask`` and
+    (the kernels mask the ragged edge themselves).  ``mask`` and
     ``dropout_rate > 0`` raise ``NotImplementedError`` on CUDA: the
-    dropout mask must match the JAX package's murmur-hash bits, which
-    comes with the training slice (ROADMAP queue 1)."""
+    dropout mask must match the JAX package's murmur-hash bits, and the
+    kernels take no mask operand yet (ROADMAP queue 1, "mask operand
+    and dropout")."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = (d ** -0.5) if sm_scale is None else sm_scale
     if dropout_rate:
         raise NotImplementedError(
             "attention dropout (the murmur3 keep mask of apex_tpu's "
-            "_keep_mask) comes with the training slice")
+            "_keep_mask) is not ported yet (ROADMAP queue 1, 'mask "
+            "operand and dropout')")
     if mask is not None:
         if q.device.type == "cpu":
             return mha_reference(q, k, v, causal=causal, mask=mask,
                                  sm_scale=scale)
         raise NotImplementedError(
-            "the flash_attention kernel takes no mask operand yet "
-            "(training slice)")
+            "the flash_attention kernels take no mask operand yet "
+            "(ROADMAP queue 1, 'mask operand and dropout')")
     q3 = q.reshape(b * h, sq, d).contiguous()
     k3 = k.reshape(b * h, sk, d).contiguous()
     v3 = v.reshape(b * h, sk, d).contiguous()
-    out, _ = _fwd(q3, k3, v3, causal, scale)
+    out = _FlashAttention.apply(q3, k3, v3, causal, scale)
     return out.reshape(b, h, sq, d)
 
 

@@ -1,2 +1,2 @@
-"""Transformer building blocks of the port (serving slice: RoPE and the
-LLaMA config)."""
+"""Transformer building blocks of the port: RoPE, the tp = 1
+tensor-parallel layers and cross entropy, and the LLaMA model."""

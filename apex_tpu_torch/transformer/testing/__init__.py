@@ -1,3 +1,8 @@
-from apex_tpu_torch.transformer.testing.standalone_llama import LlamaConfig
+"""The standalone test models of the port (LLaMA)."""
+from apex_tpu_torch.transformer.testing.standalone_llama import (
+    LlamaConfig,
+    LlamaModel,
+    llama_model_provider,
+)
 
-__all__ = ["LlamaConfig"]
+__all__ = ["LlamaConfig", "LlamaModel", "llama_model_provider"]

@@ -1,4 +1,5 @@
-"""Small shared helpers: integer arithmetic and the device rule.
+"""Small shared helpers: integer arithmetic, the device rule, and the
+flat-buffer ravel of a parameter tree.
 
 Every entry point of the port runs on CUDA unless the caller asks for
 the CPU: ``resolve_device(None)`` is the current CUDA device and raises
@@ -7,9 +8,12 @@ the plain PyTorch versions silently.
 """
 from __future__ import annotations
 
+from typing import Callable, List, Tuple
+
 import torch
 
-__all__ = ["cdiv", "round_up", "resolve_device"]
+__all__ = ["cdiv", "round_up", "resolve_device", "tree_leaves_with_path",
+           "tree_ravel"]
 
 
 def cdiv(a: int, b: int) -> int:
@@ -40,3 +44,56 @@ def resolve_device(device=None) -> torch.device:
         raise ValueError(f"apex_tpu_torch runs on 'cuda' or 'cpu', got "
                          f"{dev}")
     return dev
+
+
+def tree_leaves_with_path(tree) -> List[Tuple[tuple, torch.Tensor]]:
+    """``(key path, tensor)`` of every leaf of ``tree`` in the order
+    ``jax.tree_util.tree_leaves`` gives the matching flax tree: keys
+    sorted at every level.  ``tree`` is an ``nn.Module`` (its named
+    parameters, ``a.b.c`` read as the path ``(a, b, c)``) or a nested
+    dict of tensors."""
+    if isinstance(tree, torch.nn.Module):
+        leaves = [(tuple(name.split(".")), p)
+                  for name, p in tree.named_parameters()]
+        return sorted(leaves, key=lambda kv: kv[0])
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key], path + (key,))
+        else:
+            out.append((path, node))
+
+    walk(tree, ())
+    return out
+
+
+def tree_ravel(tree) -> Tuple[torch.Tensor, Callable]:
+    """Flatten a parameter tree into one 1-D buffer plus an unravel
+    function — the counterpart of ``apex_tpu.utils.tree_ravel``
+    (``jax.flatten_util.ravel_pytree``): leaves in
+    :func:`tree_leaves_with_path` order, the buffer in the leaves'
+    promoted dtype, and ``unravel(flat)`` a nested dict of new tensors,
+    each cast back to its leaf's dtype and shape."""
+    leaves = tree_leaves_with_path(tree)
+    dtype = leaves[0][1].dtype if leaves else torch.float32
+    for _, t in leaves[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    flat = torch.cat([t.detach().reshape(-1).to(dtype) for _, t in leaves]) \
+        if leaves else torch.zeros((0,), dtype=dtype)
+    spec = [(path, t.dtype, tuple(t.shape), t.numel()) for path, t in leaves]
+
+    def unravel(buf: torch.Tensor) -> dict:
+        out: dict = {}
+        off = 0
+        for path, dt, shape, n in spec:
+            node = out
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = buf[off:off + n].reshape(shape).to(dt,
+                                                                copy=True)
+            off += n
+        return out
+
+    return flat, unravel

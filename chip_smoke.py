@@ -3,19 +3,25 @@
 
     python3 chip_smoke.py            # all phases, one card
 
+    python3 chip_smoke.py --phases kernels,train   # the training slice
+
 1. **Build.**  Prints the card's name and power limit, compiles the
    port's CUDA kernels from ``apex_tpu_torch/csrc`` (``nvcc``, sm_90a)
    and prints the build time and each kernel's ``ptxas`` resource line.
-2. **Kernels.**  Runs each kernel of the serving path against its plain
-   PyTorch version on the card, in bf16, at the shapes the main path
-   gives it (RMSNorm ``[2048, 4096]``; causal flash attention
+2. **Kernels.**  Runs each kernel of the serving and training paths
+   against its plain PyTorch version on the card at the shapes the
+   main paths give it (RMSNorm forward ``[2048, 4096]`` and its backward
+   with fp32 weights; causal flash attention forward and backward
    ``[1, 32, 2048, 128]`` with k/v broadcast from 8 kv heads; paged
    decode over 8 slots of page size 64 with lengths 0..4096 in a
-   32-layer pool).  Prints the max |diff| against its stated limit, the
-   kernel's time, its bound (the larger of bytes over 3.35 TB/s and
-   flops over 989 TFLOP/s, counted from this run's inputs), the plain
-   version's time and, where one PyTorch call computes the same
-   function, that call's time.
+   32-layer pool; the amp unscale and Adam over the 1.923e9-element
+   flat fp32 buffers of the 4-layer training model).  Prints the max
+   |diff| against its stated limit, the kernel's time, its bound (the
+   larger of bytes over 3.35 TB/s and operations over the peak rate of
+   their type — 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s fp32
+   — counted from this run's inputs), the plain version's time and,
+   where one PyTorch call computes the same function, that call's
+   time.
 3. **Serve.**  Llama-3-8B at full width and depth (random bf16 weights
    from a seeded ``torch.Generator``) served by ``InferenceEngine`` on
    the paged pool through ``engine.generate``: 8 seeded prompts of
@@ -28,7 +34,23 @@
 5. **Profile.**  Where the serve's time goes: one 2048-token prefill
    and one 8-slot decode step, each timed on the host clock and then
    under ``torch.profiler``: wall time, the device's busy share and the
-   kernels that take the most device time.
+   kernels that take the most device time.  With ``train``, the same
+   for one training step.
+6. **Train.**  After the serve's engine is freed: Llama-3-8B widths cut
+   to 4 layers (1.923e9 parameters; the fp32 master and Adam moments of
+   all 32 layers would not fit in 80 GB), bf16 parameters from a seeded
+   ``torch.Generator`` at the JAX package's init scales, an fp32
+   master, ``fused_adam(lr=1e-4)`` and ``loss_scale="dynamic"``, six
+   ``make_train_step`` steps on one fixed batch of 2048 seeded tokens;
+   the loss must fall and stay finite.  The segment from the end of the
+   backward to the new state runs under
+   ``torch.cuda.set_sync_debug_mode("error")``.  Prints step time
+   (median of steps 2-6), tokens/s, the model-flops share of the step,
+   peak device memory and the launches per step; every training kernel
+   must have launched.
+7. **Train-check.**  The same widths with 1 layer: one step's flat
+   grads and loss through the kernels against the same step recomputed
+   through the plain versions (relative L2 and absolute loss limits).
 
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed phase raises, so the
@@ -38,6 +60,7 @@ CUDA, or a directory without the ``apex_tpu_torch`` package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import itertools
 import json
@@ -51,6 +74,7 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32, outside the tensor cores
 FULL_CFG = dict(vocab_size=128256, hidden_size=4096, num_layers=32,
                 num_attention_heads=32, num_kv_heads=8,
                 ffn_hidden_size=14336, max_seq_length=8192,
@@ -65,6 +89,31 @@ TOL_RMS_REL = 2.0 ** -6          # x max|ref| (rows scaled by rsqrt)
 TOL_ATTN_OUT = 2e-2              # |out| <= ~3: weighted means of N(0,1)
 TOL_ATTN_LSE = 1e-3              # base-2 lse, fp32 on both sides
 TOL_PAGED_OUT = 2e-2
+#: training kernels: norm dx a few bf16 ulps, dw fp32 row sums in
+#: another order; flash dq/dk/dv fp32 accumulation with p and ds
+#: rounded to bf16 on both sides, dq summed by atomics in any order;
+#: the unscale is one fp32 multiply on both sides (exact); Adam may
+#: contract multiply-adds into FMAs (a few fp32 ulps of |p| <= ~5)
+TOL_NORM_DW_REL = 1e-3
+TOL_FLASH_BWD_REL = 2e-2         # x max(1, max|ref|)
+TOL_ADAM = 2e-6
+#: the kernels each main path must launch; a kernel's "launches" in the
+#: JSON line is the count of the path it was ported for (the forward
+#: norm and flash kernels: the serve)
+SERVE_KERNELS = ("layer_norm", "flash_attention", "paged_attention")
+TRAIN_KERNELS = ("layer_norm", "layer_norm_bwd", "flash_attention",
+                 "flash_attention_bwd", "fused_scale", "fused_adam")
+#: the 4-layer training model (Llama-3-8B widths) and its batch
+TRAIN_LAYERS = 4
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 6
+TRAIN_LR = 1e-4
+#: train-check (1 layer): flat grads through the kernels vs through the
+#: plain versions, bf16 activations rounded at different points in the
+#: two (and atomics in dq), so a relative L2 of a few 1e-3; the loss
+#: (~12 nats) within 2e-2
+TOL_TRAIN_GRAD_REL_L2 = 3e-2
+TOL_TRAIN_LOSS = 2e-2
 #: decode-vs-full-forward logit limit for the serve check: bf16
 #: activations rounded at every op of 32 layers, along two different
 #: kernel/matmul paths (paged decode vs causal flash prefill)
@@ -124,9 +173,9 @@ def _eager_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(nbytes: float, flops: float):
+def _bound(nbytes: float, flops: float, rate: float = BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -297,6 +346,8 @@ def phase_kernels(dev, gen):
         eager_ms=_eager_ms(lambda: pa.paged_decode_attention(
             qd, kp, vp, table, lengths), 50))
     del pool_k, pool_v, kp, vp, views
+    torch.cuda.empty_cache()
+    _train_kernels(dev, gen, recs)
     for r in recs.values():
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms (eager call, host "
               f"included, {r.pop('eager_ms'):.4f} ms), bound "
@@ -304,6 +355,217 @@ def phase_kernels(dev, gen):
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']}")
     torch.cuda.empty_cache()
     return recs
+
+
+def _lib_ms(name, fn, iters):
+    """Time a library yardstick; a call this PyTorch build lacks or
+    refuses gives ``None`` (printed), since the port never calls it."""
+    try:
+        return _time_ms(fn, iters)
+    except Exception as e:                       # noqa: BLE001
+        print(f"  library yardstick {name} not timed: {type(e).__name__}: "
+              f"{str(e).splitlines()[0][:160]}")
+        torch.cuda.synchronize()
+        return None
+
+
+def _chunked(fn, n: int, chunk: int) -> None:
+    """``fn(slice)`` over ``[0, n)`` in chunks, results dropped: a plain
+    version over a buffer whose full-size temporaries would not fit."""
+    for i in range(0, n, chunk):
+        fn(slice(i, i + chunk))
+
+
+def _train_numel() -> int:
+    """Elements of the 4-layer training model's flat master."""
+    h, f, v = 4096, 14336, 128256
+    hd, kvh, heads = 128, 8, 32
+    layer = (heads * hd * h + 2 * kvh * hd * h + h * heads * hd
+             + 3 * f * h + 2 * h)
+    return 2 * v * h + h + TRAIN_LAYERS * layer
+
+
+def _train_kernels(dev, gen, recs):
+    """The training path's four kernels against their plain versions at
+    the train phase's shapes."""
+    ln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    fu = importlib.import_module("apex_tpu_torch.ops.fused_update")
+    bf = torch.bfloat16
+
+    # -- RMSNorm backward [2048, 4096] bf16, fp32 weight ------------------
+    rows, hidden = TRAIN_SEQ, 4096
+    x = torch.randn(rows, hidden, generator=gen, device=dev).to(bf)
+    dy = torch.randn(rows, hidden, generator=gen, device=dev).to(bf)
+    w = 1 + 0.1 * torch.randn(hidden, generator=gen, device=dev)
+    dx, dw, _ = ln._bwd_2d(x, w, dy, 1e-5, True)
+    rdx, rdw, _ = ln._bwd_reference(x, w, dy, 1e-5, True)
+    print("rms_norm backward [2048, 4096] bf16, fp32 weight")
+    err = (dx.float() - rdx.float()).abs().max().item()
+    _check("rms_norm bwd dx", err, TOL_RMS_REL * rdx.float().abs().max()
+           .item())
+    _check("rms_norm bwd dw", (dw - rdw).abs().max().item(),
+           TOL_NORM_DW_REL * rdw.abs().max().item())
+    b = 0.1 * torch.randn(hidden, generator=gen, device=dev)
+    got, ref = ln._bwd_2d(x, w, dy, 1e-5, False), \
+        ln._bwd_reference(x, w, dy, 1e-5, False)
+    _check("layer_norm bwd dx", (got[0].float() - ref[0].float()).abs()
+           .max().item(), TOL_RMS_REL * ref[0].float().abs().max().item())
+    _check("layer_norm bwd db", (got[2] - ref[2]).abs().max().item(),
+           TOL_NORM_DW_REL * ref[2].abs().max().item())
+    del b, got, ref
+    nbytes = 3 * x.numel() * 2 + 2 * hidden * 4
+    bound, by = _bound(nbytes, 10 * x.numel(), FP32_FLOPS_PER_S)
+    xr = x.clone().requires_grad_()
+    wr = w.clone().requires_grad_()
+    lib_fb = _lib_ms("F.rms_norm fwd+bwd", lambda: torch.autograd.grad(
+        F.rms_norm(xr, (hidden,), wr, 1e-5), (xr, wr), dy), 48)
+    lib_f = _lib_ms("F.rms_norm fwd", lambda: F.rms_norm(
+        x, (hidden,), w, 1e-5), 48)
+    recs["layer_norm_bwd"] = dict(
+        name="rms_norm_bwd", route="cuda",
+        source="apex_tpu_torch/csrc/layer_norm.cu",
+        replaces="apex_tpu/ops/layer_norm.py:114", max_abs_err=err,
+        ms=_time_ms(lambda: ln._bwd_2d(x, w, dy, 1e-5, True), 48),
+        plain_ms=_time_ms(lambda: ln._bwd_reference(x, w, dy, 1e-5, True),
+                          10),
+        bound_ms=bound, bound_by=by,
+        library_ms=(None if lib_fb is None or lib_f is None
+                    else lib_fb - lib_f),
+        eager_ms=_eager_ms(lambda: ln._bwd_2d(x, w, dy, 1e-5, True), 50))
+    del x, dy, w, dx, dw, rdx, rdw, xr, wr
+
+    # -- flash backward, causal [1, 32, 2048, 128], kv from 8 heads -------
+    b_, h, kvh, s, d = 1, 32, 8, TRAIN_SEQ, 128
+    q = torch.randn(b_, h, s, d, generator=gen, device=dev).to(bf)
+    kk = torch.randn(b_, kvh, s, d, generator=gen, device=dev).to(bf)
+    vv = torch.randn(b_, kvh, s, d, generator=gen, device=dev).to(bf)
+    do = torch.randn(b_, h, s, d, generator=gen, device=dev).to(bf)
+    k, v = (t[:, :, None].expand(b_, kvh, h // kvh, s, d)
+            .reshape(b_, h, s, d) for t in (kk, vv))
+    scale = d ** -0.5
+    q3, k3, v3, do3 = (t.reshape(b_ * h, s, d).contiguous()
+                       for t in (q, k, v, do))
+    out, lse = attn._fwd(q3, k3, v3, True, scale)
+    got = attn._bwd(q3, k3, v3, out, lse, do3, True, scale)
+    ref = attn._bwd_reference(q3, k3, v3, out, lse, do3, True, scale)
+    print("flash_attention backward causal [1, 32, 2048, 128] bf16")
+    err = 0.0
+    for nm, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+        e = (g_.float() - r_.float()).abs().max().item()
+        _check(f"flash bwd {nm}", e, TOL_FLASH_BWD_REL * max(
+            1.0, r_.float().abs().max().item()))
+        err = max(err, e)
+    del got, ref
+    nbytes = 8 * q3.numel() * 2 + 2 * b_ * h * s * 4
+    bound, by = _bound(nbytes, 5 * s * s * d * h)     # 5 products, causal
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_fb = _lib_ms("SDPA fwd+bwd", lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qr, kr, vr, is_causal=True),
+        (qr, kr, vr), do), 10)
+    lib_f = _lib_ms("SDPA fwd", lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 10)
+    recs["flash_attention_bwd"] = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="apex_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="apex_tpu/ops/attention.py:472", max_abs_err=err,
+        ms=_time_ms(lambda: attn._bwd(q3, k3, v3, out, lse, do3, True,
+                                      scale), 10),
+        plain_ms=_time_ms(lambda: attn._bwd_reference(
+            q3, k3, v3, out, lse, do3, True, scale), 3),
+        bound_ms=bound, bound_by=by,
+        library_ms=(None if lib_fb is None or lib_f is None
+                    else lib_fb - lib_f),
+        eager_ms=_eager_ms(lambda: attn._bwd(q3, k3, v3, out, lse, do3,
+                                             True, scale), 10))
+    del q, k, v, kk, vv, do, q3, k3, v3, do3, out, lse, qr, kr, vr
+    torch.cuda.empty_cache()
+
+    # -- the amp unscale over the flat fp32 grads [1.923e9] ----------------
+    n = _train_numel()
+    print(f"fused_scale (unscale) over the flat fp32 grads [{n}]")
+    g = torch.randn(n, generator=gen, device=dev).mul_(1000.0)
+    inv = torch.full((), 2.0 ** -16, device=dev)
+    outk, flag = fu.fused_scale(g, inv)
+    chunk = 1 << 27
+    err = 0.0
+    for i in range(0, n, chunk):
+        ref, _ = fu._scale_reference(g[i:i + chunk], inv, torch.float32)
+        err = max(err, (outk[i:i + chunk] - ref).abs().max().item())
+    _check("fused_scale out", err, 0.0)
+    if flag.item() != 0.0:
+        raise AssertionError("a finite buffer raised the overflow flag")
+    g[n - 5] = float("inf")                      # past 2^32 bytes
+    _, flag = fu.fused_scale(g, inv, out=outk)
+    if flag.item() != 1.0:
+        raise AssertionError("an inf past 2^32 bytes was not flagged")
+    g[n - 5] = 0.0
+    del outk
+    found = torch.zeros((), device=dev)
+    recs["fused_scale"] = dict(
+        name="fused_scale", route="cuda",
+        source="apex_tpu_torch/csrc/fused_update.cu",
+        replaces="apex_tpu/ops/fused_update.py:132", max_abs_err=err,
+        ms=_time_ms(lambda: fu.fused_scale(g, inv, out=g), 4),
+        plain_ms=_time_ms(lambda: _chunked(lambda sl: fu._scale_reference(
+            g[sl], inv, torch.float32), n, chunk), 1),
+        library_ms=_lib_ms(
+            "_amp_foreach_non_finite_check_and_unscale_",
+            lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+                [g], found, inv), 4),
+        eager_ms=_eager_ms(lambda: fu.fused_scale(g, inv, out=g), 4))
+    recs["fused_scale"]["bound_ms"], recs["fused_scale"]["bound_by"] = \
+        _bound(8 * n, n, FP32_FLOPS_PER_S)
+    del g
+    torch.cuda.empty_cache()
+
+    # -- Adam over the flat fp32 master, grads, moments [1.923e9] ----------
+    print(f"fused_adam_flat over flat fp32 p, g, m, v [{n}]")
+    p = torch.randn(n, generator=gen, device=dev)
+    g = torch.randn(n, generator=gen, device=dev)
+    m = 0.1 * torch.randn(n, generator=gen, device=dev)
+    v = torch.rand(n, generator=gen, device=dev).mul_(0.01)
+    kw = dict(lr=TRAIN_LR, beta1=0.9, beta2=0.999, eps=1e-8,
+              weight_decay=0.01, step=torch.full((), 3.0, device=dev))
+    p0, m0, v0 = p.clone(), m.clone(), v.clone()
+    fu.fused_adam_flat(p, g, m, v, **kw)
+    hp = fu._adam_hparams(dev, noop_flag=0.0, bias_correction=True,
+                          grad_scale=1.0, **{k_: kw[k_] for k_ in (
+                              "lr", "beta1", "beta2", "eps",
+                              "weight_decay", "step")})
+    err = 0.0
+    for i in range(0, n, chunk):
+        sl = slice(i, i + chunk)
+        rp, rm, rv = fu._adam_kernel_reference(p0[sl], g[sl], m0[sl],
+                                               v0[sl], hp, True)
+        err = max(err, (p[sl] - rp).abs().max().item(),
+                  (m[sl] - rm).abs().max().item(),
+                  (v[sl] - rv).abs().max().item())
+    _check("fused_adam p/m/v", err, TOL_ADAM)
+    snap = p.clone()
+    fu.fused_adam_flat(p, g, m, v, noop_flag=torch.ones((), device=dev),
+                       **kw)
+    if not torch.equal(p, snap):
+        raise AssertionError("the noop flag changed p")
+    del p0, m0, v0, snap
+    steps = torch.full((), 3.0, device=dev)
+    recs["fused_adam"] = dict(
+        name="fused_adam", route="cuda",
+        source="apex_tpu_torch/csrc/fused_update.cu",
+        replaces="apex_tpu/ops/fused_update.py:274", max_abs_err=err,
+        ms=_time_ms(lambda: fu.fused_adam_flat(p, g, m, v, **kw), 4),
+        plain_ms=_time_ms(lambda: _chunked(
+            lambda sl: fu._adam_kernel_reference(p[sl], g[sl], m[sl], v[sl],
+                                                 hp, True), n, chunk), 1),
+        library_ms=_lib_ms("_fused_adamw_", lambda: torch._fused_adamw_(
+            [p], [g], [m], [v], [], [steps], lr=TRAIN_LR, beta1=0.9,
+            beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+            maximize=False), 4),
+        eager_ms=_eager_ms(lambda: fu.fused_adam_flat(p, g, m, v, **kw), 4))
+    recs["fused_adam"]["bound_ms"], recs["fused_adam"]["bound_by"] = \
+        _bound(28 * n, 15 * n, FP32_FLOPS_PER_S)
+    del p, g, m, v
+    torch.cuda.empty_cache()
 
 
 def _random_llama(cfg, dev, seed: int):
@@ -376,7 +638,7 @@ def phase_serve(dev, seed: int, profile: bool = False):
                              f"got {[len(o) for o in outs]}")
     if any(not 0 <= t < cfg.vocab_size for o in outs for t in o):
         raise AssertionError("a generated token is outside the vocab")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in SERVE_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"the serve launched no {missing} kernel")
 
@@ -431,7 +693,172 @@ def phase_serve(dev, seed: int, profile: bool = False):
                 peak_bytes=peak, logit_err=worst)
 
 
-def _device_breakdown(label, fn, reps: int):
+def _train_setup(dev, seed: int, layers: int):
+    """The training model at Llama-3-8B widths and ``layers`` deep, bf16
+    parameters drawn from a seeded generator, its train state and step,
+    and one fixed batch of seeded tokens."""
+    from apex_tpu_torch import train_step
+    from apex_tpu_torch.optimizers import functional
+    from apex_tpu_torch.transformer.testing import (LlamaConfig,
+                                                    llama_model_provider)
+    cfg = LlamaConfig(**dict(FULL_CFG, num_layers=layers,
+                             params_dtype=torch.bfloat16))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = llama_model_provider(cfg, device=dev)
+    model.reset_parameters(generator=gen)
+    tx = functional.fused_adam(lr=TRAIN_LR)
+    state = train_step.init_train_state(tx, model, loss_scale="dynamic")
+    tokens = torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ + 1),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens[:, :-1].contiguous(),
+             "labels": tokens[:, 1:].contiguous()}
+    return cfg, model, tx, state, batch, train_step
+
+
+def _train_loss(model, batch):
+    return model(batch["tokens"], batch["labels"])
+
+
+def phase_train(dev, seed: int, profile: bool = False):
+    """Six steps of the 4-layer model; returns the launch counts."""
+    from apex_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    cfg, model, tx, state, batch, train_step = _train_setup(
+        dev, seed, TRAIN_LAYERS)
+    torch.cuda.synchronize()
+    n = state.opt.master.numel()
+    if n != _train_numel():
+        raise AssertionError(f"model has {n} parameters, the kernels phase "
+                             f"sized {_train_numel()}")
+    print(f"train: Llama-3-8B widths, {TRAIN_LAYERS} layers, {n} "
+          f"parameters (bf16 params, fp32 master), set up in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def strict(flat_grads):
+        # from here (the flat grads of the backward) to the new state:
+        # unscale, Adam and the scale update must not sync
+        torch.cuda.set_sync_debug_mode("error")
+        return flat_grads
+
+    step = train_step.make_train_step(_train_loss, tx, grad_transform=strict)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        try:
+            state, loss = step(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.median(times[1:]))
+    tokens = TRAIN_SEQ
+    heads = cfg.num_attention_heads
+    hd = cfg.hidden_size // heads
+    matmul_params = n - cfg.vocab_size * cfg.hidden_size \
+        - (2 * TRAIN_LAYERS + 1) * cfg.hidden_size
+    # 6 N T for the weight GEMMs (the embedding table and norms do no
+    # GEMM), and 3x the causal forward's two attention products
+    model_flops = 6 * matmul_params * tokens + 3 * (
+        4 * TRAIN_SEQ * TRAIN_SEQ * hd * heads / 2) * TRAIN_LAYERS
+    print(f"train on {_smi()}: losses {[round(x, 4) for x in losses]}")
+    print(f"  step times {[round(t, 4) for t in times]} s; median of steps "
+          f"2-{TRAIN_STEPS} {step_s:.4f} s = {tokens / step_s:.1f} tokens/s")
+    print(f"  model flops {model_flops / 1e12:.3f} TFLOP per step = "
+          f"{100 * model_flops / step_s / BF16_FLOPS_PER_S:.1f}% of 989 "
+          f"TFLOP/s")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB")
+    print(f"  kernel launches per step: "
+          f"{ {k: v / TRAIN_STEPS for k, v in launches.items()} }")
+    print(f"  loss scale {state.scaler.loss_scale.item()}, count "
+          f"{state.opt.count.item()}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    missing = [k for k in TRAIN_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the train steps launched no {missing} kernel")
+    if profile:
+        def one():
+            nonlocal state
+            state, _ = train_step.make_train_step(_train_loss, tx)(state,
+                                                                   batch)
+        _device_breakdown("train step (4 layers, 2048 tokens)", one, 2,
+                          top=16)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_s=step_s, peak_bytes=peak,
+                losses=losses)
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """Route the model's kernel calls to their plain versions (for the
+    train-check's reference step): the norm and flash dispatchers are
+    module functions looked up at call time."""
+    ln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    saved = (ln._fwd_2d, ln._bwd_2d, attn._fwd, attn._bwd)
+
+    def fwd_2d(x2, w, b, eps, rms):
+        return (ln.rms_norm_reference(x2, w, eps) if rms
+                else ln.layer_norm_reference(x2, w, b, eps))
+
+    ln._fwd_2d, ln._bwd_2d = fwd_2d, ln._bwd_reference
+    attn._fwd, attn._bwd = attn._fwd_reference, attn._bwd_reference
+    try:
+        yield
+    finally:
+        ln._fwd_2d, ln._bwd_2d, attn._fwd, attn._bwd = saved
+
+
+def phase_train_check(dev, seed: int):
+    """One step of the 1-layer model through the kernels against the
+    same step through the plain versions: flat grads and loss."""
+    from apex_tpu_torch.ops import _build
+    grads, losses = [], []
+    for plain in (False, True):
+        _, model, tx, state, batch, train_step = _train_setup(dev, seed, 1)
+        keep = []
+        step = train_step.make_train_step(
+            _train_loss, tx, grad_transform=lambda g: keep.append(
+                g.clone()) or g)
+        _build.reset_launch_counts()
+        if plain:
+            with _plain_kernels():
+                _, loss = step(state, batch)
+        else:
+            _, loss = step(state, batch)
+        counts = _build.launch_counts()
+        grads.append(keep[0])
+        losses.append(loss.item())
+        del model, state, step, keep
+        torch.cuda.empty_cache()
+        if plain and (counts["layer_norm_bwd"] or counts["flash_attention"]
+                      or counts["flash_attention_bwd"]):
+            raise AssertionError(f"the plain step launched kernels: {counts}")
+    rel = ((grads[0] - grads[1]).norm() / grads[1].norm()).item()
+    finite = bool(torch.isfinite(grads[0]).all())
+    print(f"train-check (1 layer): loss kernels {losses[0]:.6f} plain "
+          f"{losses[1]:.6f}; flat grads relative L2 {rel:.3e} "
+          f"(limit {TOL_TRAIN_GRAD_REL_L2}), finite {finite}")
+    del grads
+    torch.cuda.empty_cache()
+    if not finite or not rel <= TOL_TRAIN_GRAD_REL_L2:
+        raise AssertionError(f"flat grads off: relative L2 {rel}")
+    if abs(losses[0] - losses[1]) > TOL_TRAIN_LOSS:
+        raise AssertionError(f"losses differ: {losses}")
+    return dict(grad_rel_l2=rel, losses=losses)
+
+
+def _device_breakdown(label, fn, reps: int, top: int = 10):
     """Run ``fn`` ``reps`` times unprofiled (host clock, synchronised),
     then once more ``reps`` times under ``torch.profiler``; print the
     wall time per call, the device's busy share of it (kernel time over
@@ -460,7 +887,7 @@ def _device_breakdown(label, fn, reps: int):
     busy_ms = sum(r[1] for r in rows)
     print(f"profile {label}: {wall_ms:.3f} ms per call, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)")
-    for name, ms, n in sorted(rows, key=lambda r: -r[1])[:10]:
+    for name, ms, n in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"    {ms:9.4f} ms {n:6.0f}x  {name[:90]}")
 
 
@@ -492,9 +919,12 @@ def _profile(engine, prompts):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernels,serve,profile",
-                    help="comma list of kernels,serve,profile (build "
-                         "always runs; profile needs serve)")
+    ap.add_argument("--phases",
+                    default="kernels,serve,profile,train,train-check",
+                    help="comma list of kernels, serve, profile, train, "
+                         "train-check (build always runs; profile "
+                         "profiles the serve and the train phases that "
+                         "run)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -514,7 +944,17 @@ def main(argv=None) -> int:
     if "serve" in phases:
         served = phase_serve(dev, args.seed, "profile" in phases)
         for key, r in recs.items():
-            r["launches"] = served["launches"][key]
+            if key in SERVE_KERNELS:
+                r["launches"] = served["launches"][key]
+        del served
+        torch.cuda.empty_cache()
+    if "train" in phases:
+        trained = phase_train(dev, args.seed, "profile" in phases)
+        for key, r in recs.items():
+            if key not in SERVE_KERNELS:
+                r["launches"] = trained["launches"][key]
+    if "train-check" in phases:
+        phase_train_check(dev, args.seed)
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

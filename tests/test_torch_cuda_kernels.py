@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card, over the shapes and options the serving path does not reach
-(other head dims and query groups, small pages, q/k lengths that differ,
-padded validity windows, the fp32 LayerNorm paths).
+card, over the shapes and options the main paths do not reach (other
+head dims and query groups, small pages, q/k lengths that differ,
+padded validity windows, the fp32 LayerNorm paths, LayerNorm's
+backward, odd flat lengths and offset views for the unscale and Adam).
 
 A CUDA kernel has no CPU mode, so every test here takes the ``cuda``
 fixture and skips without a card.  On a machine with one (the package's
@@ -119,3 +120,157 @@ def test_norm_kernels_match_plain(cuda, hidden, x_dtype, w_dtype):
         assert got.dtype == x_dtype
         tol = 2.0 ** -6 * ref.float().abs().max().item()
         assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+# -- the training slice's kernels ----------------------------------------
+#
+# Tolerances: norm dx within 2^-6 of its magnitude (bf16 ulps), dw within
+# 1e-3 of its magnitude (fp32 sums over rows in another order, of
+# products of rounded inputs); flash dq/dk/dv within 2e-2 of their
+# magnitude (fp32 accumulation, p and ds rounded to bf16 on both sides,
+# dq summed by atomics in any order); the unscale exact (one fp32
+# multiply, the same on both sides); Adam within 1e-6 relative (the
+# kernel may contract multiply-adds into FMAs), and bit-identical under
+# the noop flag.
+
+
+def _maxdiff(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("hidden", [4096, 1001, 64])
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32)])
+@pytest.mark.parametrize("rms", [True, False])
+def test_norm_bwd_kernel_matches_plain(cuda, hidden, x_dtype, w_dtype, rms):
+    x = _randn((300, hidden), 20, cuda, x_dtype) * 2 + 0.3
+    w = 1 + 0.1 * _randn((hidden,), 21, cuda, w_dtype)
+    dy = _randn((300, hidden), 22, cuda, x_dtype)
+    before = _build.launch_counts()["layer_norm_bwd"]
+    dx, dw, db = ln._bwd_2d(x, w, dy, 1e-5, rms)
+    assert _build.launch_counts()["layer_norm_bwd"] == before + 1
+    rdx, rdw, rdb = ln._bwd_reference(x, w, dy, 1e-5, rms)
+    torch.cuda.synchronize()
+    assert dx.dtype == x_dtype and dw.dtype == torch.float32
+    assert _maxdiff(dx, rdx) <= 2.0 ** -6 * rdx.float().abs().max().item()
+    assert _maxdiff(dw, rdw) <= 1e-3 * rdw.abs().max().item()
+    if rms:
+        assert db is None
+    else:
+        assert _maxdiff(db, rdb) <= 1e-3 * rdb.abs().max().item()
+
+
+def test_norm_autograd_launches_the_backward_kernel(cuda):
+    x = _randn((64, 256), 23, cuda).requires_grad_()
+    w = (1 + 0.1 * _randn((256,), 24, cuda)).requires_grad_()
+    before = _build.launch_counts()["layer_norm_bwd"]
+    ln.rms_norm(x, w).float().square().sum().backward()
+    assert _build.launch_counts()["layer_norm_bwd"] == before + 1
+    assert x.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk", [(100, 100), (40, 200), (130, 64),
+                                   (256, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernel_matches_plain(cuda, d, sq, sk, causal):
+    q, k, v = (_randn((3, s, d), seed, cuda)
+               for seed, s in ((30, sq), (31, sk), (32, sk)))
+    do = _randn((3, sq, d), 33, cuda)
+    scale = d ** -0.5
+    out, lse = attn._fwd(q, k, v, causal, scale)
+    before = _build.launch_counts()["flash_attention_bwd"]
+    got = attn._bwd(q, k, v, out, lse, do, causal, scale)
+    assert _build.launch_counts()["flash_attention_bwd"] == before + 1
+    ref = attn._bwd_reference(q, k, v, out, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16
+        assert _maxdiff(g, r) <= 2e-2 * max(1.0, r.float().abs().max().item())
+
+
+def test_flash_bwd_kernel_validity_window_and_offset(cuda):
+    q, k, v, do = (_randn((2, 128, 64), seed, cuda) for seed in (34, 35, 36,
+                                                                37))
+    out, lse = attn._fwd(q, k, v, True, 0.125, causal_off=0, valid=(90, 90))
+    got = attn._bwd(q, k, v, out, lse, do, True, 0.125, causal_off=0,
+                    valid=(90, 90))
+    ref = attn._bwd_reference(q, k, v, out, lse, do, True, 0.125,
+                              causal_off=0, valid=(90, 90))
+    for g, r in zip(got, ref):
+        assert _maxdiff(g, r) <= 2e-2 * max(1.0, r.float().abs().max().item())
+    assert bool((got[0][:, 90:] == 0).all()) and bool((got[1][:, 90:] == 0)
+                                                      .all())
+
+
+def test_flash_autograd_sums_gqa_groups(cuda):
+    """k/v broadcast to the q heads before the kernel, as the model does:
+    autograd sums dk/dv over each group."""
+    q = _randn((1, 4, 96, 64), 38, cuda).requires_grad_()
+    kk = _randn((1, 2, 96, 64), 39, cuda).requires_grad_()
+    vv = _randn((1, 2, 96, 64), 40, cuda).requires_grad_()
+    k, v = (t[:, :, None].expand(1, 2, 2, 96, 64).reshape(1, 4, 96, 64)
+            for t in (kk, vv))
+    do = _randn((1, 4, 96, 64), 41, cuda)
+    attn.flash_attention(q, k, v, causal=True).backward(do)
+    q2, k2, v2 = (t.detach().float().requires_grad_() for t in (q, kk, vv))
+    kf, vf = (t[:, :, None].expand(1, 2, 2, 96, 64).reshape(1, 4, 96, 64)
+              for t in (k2, v2))
+    attn.mha_reference(q2, kf, vf, causal=True).backward(do.float())
+    for g, r in ((q.grad, q2.grad), (kk.grad, k2.grad), (vv.grad, v2.grad)):
+        assert _maxdiff(g, r) <= 3e-2 * max(1.0, r.abs().max().item())
+
+
+@pytest.mark.parametrize("n", [1 << 20, 1000003])
+@pytest.mark.parametrize("src_dtype", [torch.float32, torch.bfloat16])
+def test_fused_scale_kernel_matches_plain(cuda, n, src_dtype):
+    fu = importlib.import_module("apex_tpu_torch.ops.fused_update")
+    x = _randn((n,), 42, cuda, src_dtype) * 1000
+    scale = torch.full((), 2.0 ** -16, device=cuda)
+    before = _build.launch_counts()["fused_scale"]
+    out, flag = fu.fused_scale(x, scale, torch.float32)
+    assert _build.launch_counts()["fused_scale"] == before + 1
+    ref, rflag = fu._scale_reference(x, scale, torch.float32)
+    assert torch.equal(out, ref) and flag.item() == 0.0 == rflag.item()
+    x[n // 3] = float("inf")
+    _, flag = fu.fused_scale(x, scale, torch.float32)
+    assert flag.item() == 1.0
+    # in place, on an offset view (the scalar path of the kernel)
+    y = _randn((n + 1,), 43, cuda)[1:]
+    want = y * 0.5
+    y[7] = float("nan")
+    want[7] = float("nan")
+    got, flag = fu.fused_scale(y, 0.5, out=y)
+    assert got.data_ptr() == y.data_ptr() and flag.item() == 1.0
+    assert torch.equal(torch.nan_to_num(got, 9.0), torch.nan_to_num(want,
+                                                                     9.0))
+
+
+@pytest.mark.parametrize("adam_w", [True, False])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_fused_adam_kernel_matches_plain(cuda, adam_w, g_dtype):
+    fu = importlib.import_module("apex_tpu_torch.ops.fused_update")
+    n = 1000003
+    p, m = _randn((n,), 44, cuda, torch.float32), _randn((n,), 45, cuda,
+                                                         torch.float32)
+    v = _randn((n,), 46, cuda, torch.float32).abs()
+    g = _randn((n,), 47, cuda, g_dtype)
+    kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+              step=torch.full((), 3.0, device=cuda), adam_w_mode=adam_w,
+              grad_scale=0.5)
+    hp = fu._adam_hparams(cuda, noop_flag=0.0, bias_correction=True,
+                          **{k: kw[k] for k in ("lr", "beta1", "beta2", "eps",
+                                                "weight_decay", "step",
+                                                "grad_scale")})
+    ref = fu._adam_kernel_reference(p, g, m, v, hp, adam_w)
+    before = _build.launch_counts()["fused_adam"]
+    got = fu.fused_adam_flat(p, g, m, v, **kw)
+    assert _build.launch_counts()["fused_adam"] == before + 1
+    assert got[0].data_ptr() == p.data_ptr()
+    for a, b in zip(got, ref):
+        assert _maxdiff(a, b) <= 1e-6 * b.abs().max().item()
+    snap = [t.clone() for t in (p, m, v)]
+    fu.fused_adam_flat(p, g, m, v, noop_flag=torch.ones((), device=cuda),
+                       **kw)
+    assert all(torch.equal(a, b) for a, b in zip((p, m, v), snap))

@@ -15,6 +15,8 @@ import torch
 from apex_tpu.inference import kv_cache as jkv
 from apex_tpu_torch.inference import kv_cache as tkv
 
+from _torch_isolation import restore_torch_from_amp  # noqa: F401
+
 PAGES, LAYERS, KVH, PS, D, SLOTS, MPPS = 6, 2, 2, 4, 8, 2, 4
 
 

@@ -18,6 +18,8 @@ from apex_tpu.ops import layer_norm as jax_layer_norm
 from apex_tpu.ops import rms_norm as jax_rms_norm
 from apex_tpu_torch.ops import layer_norm, rms_norm
 
+from _torch_isolation import restore_torch_from_amp  # noqa: F401
+
 _DTYPES = {"float32": (jnp.float32, torch.float32),
            "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 

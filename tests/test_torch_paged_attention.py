@@ -20,6 +20,8 @@ from apex_tpu.ops.paged_attention import (
 )
 from apex_tpu_torch.ops.paged_attention import paged_decode_attention
 
+from _torch_isolation import restore_torch_from_amp  # noqa: F401
+
 SLOTS, H, KVH, D, PS, MPPS, LAYERS = 5, 4, 2, 32, 16, 4, 3
 LENGTHS = [0, 1, 16, 17, 64]
 

@@ -16,9 +16,11 @@ import torch
 from apex_tpu_torch.inference import InferenceEngine
 from apex_tpu_torch.inference.kv_cache import init_paged_cache
 from apex_tpu_torch.inference.weights import llama_param_shapes
-from apex_tpu_torch.ops import (_build, flash_attention,
-                                paged_decode_attention, rms_norm)
+from apex_tpu_torch.ops import (_build, flash_attention, fused_adam_flat,
+                                fused_scale, paged_decode_attention, rms_norm)
 from apex_tpu_torch.transformer.testing import LlamaConfig
+
+from _torch_isolation import restore_torch_from_amp  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "apex_tpu_torch"
@@ -91,16 +93,23 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
 
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     _build.reset_launch_counts()
-    x = torch.randn(4, 96)
-    rms_norm(x, torch.ones(96))
-    q = torch.randn(1, 2, 8, 16)
-    flash_attention(q, q, q, causal=True)
+    x = torch.randn(4, 96, requires_grad=True)
+    rms_norm(x, torch.ones(96)).sum().backward()
+    q = torch.randn(1, 2, 8, 16, requires_grad=True)
+    flash_attention(q, q, q, causal=True).sum().backward()
     pool = torch.randn(3, 2, 4, 16)
     paged_decode_attention(torch.randn(1, 2, 16), pool, pool,
                            torch.zeros(1, 2, dtype=torch.int32),
                            torch.tensor([5], dtype=torch.int32))
+    flat = torch.randn(100)
+    fused_scale(flat, 0.5)
+    fused_adam_flat(flat, torch.randn(100), torch.zeros(100),
+                    torch.zeros(100), lr=1e-3, beta1=0.9, beta2=0.999,
+                    eps=1e-8, weight_decay=0.0, step=1.0)
     assert _build.launch_counts() == {
-        "layer_norm": 0, "flash_attention": 0, "paged_attention": 0}
+        "layer_norm": 0, "layer_norm_bwd": 0, "flash_attention": 0,
+        "flash_attention_bwd": 0, "paged_attention": 0, "fused_scale": 0,
+        "fused_adam": 0}
     assert _build._LIB is None              # nothing was built or loaded
 
 
@@ -132,16 +141,20 @@ def test_env_knobs_cannot_silently_select_an_unported_path(monkeypatch):
 
 
 def test_every_kernel_source_exists_and_exports_its_entry():
-    text = {name: (PORT / "csrc" / src).read_text()
-            for name, src in _build.SOURCES.items()}
-    entries = {"layer_norm": "apex_layer_norm_fwd",
-               "flash_attention": "apex_flash_attention_fwd",
-               "paged_attention": "apex_paged_decode_attention"}
-    for name, entry in entries.items():
-        assert re.search(r'extern "C" int ' + entry + r"\(", text[name])
-        assert entry in _build._SIGNATURES
-        assert "Replaces: apex_tpu/ops/" in text[name]
-    assert "apex_error_string" in text["layer_norm"]
+    """Every source in ``_build.SOURCES`` exports each of its entries
+    with a ctypes signature, names the TPU kernels it replaces, and
+    every kernel has its own launch counter."""
+    assert sorted(_build.KERNELS) == sorted(_build.launch_counts())
+    assert len(_build.KERNELS) == 7
+    for src, entries in _build.SOURCES.items():
+        text = (PORT / "csrc" / src).read_text()
+        assert "Replaces: apex_tpu/ops/" in text
+        for entry in entries.values():
+            assert re.search(r'extern "C" int ' + entry + r"\(", text)
+            assert entry in _build._SIGNATURES
+    assert sorted(e for es in _build.SOURCES.values() for e in es.values()) \
+        == sorted(_build._SIGNATURES)
+    assert "apex_error_string" in (PORT / "csrc" / "layer_norm.cu").read_text()
 
 
 def test_engine_geometry_and_cache_bytes():
@@ -154,3 +167,91 @@ def test_engine_geometry_and_cache_bytes():
     cache = eng.init_cache()
     assert tuple(cache.k.shape) == (6, 1, 2, 16, 8)
     assert np.all(cache.page_table.numpy() == 5)
+
+
+def _tiny_train(**cfg_kw):
+    from apex_tpu_torch import train_step
+    from apex_tpu_torch.optimizers import functional
+    from apex_tpu_torch.transformer.testing import llama_model_provider
+    cfg = LlamaConfig(**dict(dict(vocab_size=64, hidden_size=32,
+                                  num_layers=1, num_attention_heads=4,
+                                  num_kv_heads=2, max_seq_length=64),
+                             **cfg_kw))
+    model = llama_model_provider(cfg, device="cpu")
+    tx = functional.fused_adam()
+    return model, tx, train_step
+
+
+def test_training_out_of_slice_options_raise(monkeypatch):
+    from apex_tpu_torch.amp.scaler import init_loss_scale, unscale_flat_grads
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+        vocab_parallel_cross_entropy)
+    model, tx, train_step = _tiny_train()
+    loss = lambda m, b: m(b["tokens"], b["labels"])   # noqa: E731
+    with pytest.raises(NotImplementedError, match="item 6"):
+        train_step.make_train_step(loss, tx, zero=True)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        train_step.make_train_step(loss, tx, numerics=True)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        train_step.init_train_state(tx, model, shard=("data", 2))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        unscale_flat_grads(torch.zeros(4), init_loss_scale(device="cpu"),
+                           axis_name="data")
+    for layer in (ColumnParallelLinear, RowParallelLinear):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            layer(8, 8, tensor_model_parallel_size=2, device="cpu")
+        with pytest.raises(NotImplementedError, match="item 6"):
+            layer(8, 8, sequence_parallel_enabled=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        VocabParallelEmbedding(8, 8, tensor_model_parallel_size=2)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        vocab_parallel_cross_entropy(torch.zeros(2, 8), torch.zeros(2),
+                                     tensor_model_parallel_size=2)
+    tokens = torch.zeros(1, 8, dtype=torch.int32)
+    fused, _, _ = _tiny_train(fused_head_xent=16)
+    with pytest.raises(NotImplementedError, match="fused LM head"):
+        fused(tokens, tokens)
+    monkeypatch.setenv("APEX_TPU_XENT_CHUNK", "16")
+    with pytest.raises(NotImplementedError, match="fused LM head"):
+        model(tokens, tokens)
+    with pytest.raises(NotImplementedError, match="remat"):
+        _tiny_train(remat=True)
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    from apex_tpu_torch.amp.scaler import init_loss_scale
+    from apex_tpu_torch.transformer.testing import llama_model_provider
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        llama_model_provider(CFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_loss_scale("dynamic")
+
+
+def test_train_step_params_are_views_of_the_flat_buffers():
+    """The flat-native property: every parameter and every grad is a
+    view of one flat buffer (a step zeroes and casts whole buffers, no
+    per-leaf concatenate), and bf16 linears keep fp32 norm weights."""
+    model, tx, train_step = _tiny_train(params_dtype=torch.bfloat16)
+    state = train_step.init_train_state(tx, model, loss_scale="dynamic")
+    flat = state.flat
+    base = flat.param_bytes.untyped_storage().data_ptr()
+    gbase = flat.grad_bytes.untyped_storage().data_ptr()
+    for name, p in model.named_parameters():
+        assert p.untyped_storage().data_ptr() == base, name
+        assert p.grad.untyped_storage().data_ptr() == gbase, name
+        want = torch.float32 if "norm" in name else torch.bfloat16
+        assert p.dtype == want, name
+    # runs of same-dtype leaves: embedding, final_norm, then per layer
+    # [attention projections], input_norm, [mlp projections], post norm,
+    # and the head
+    assert [r.dtype for r in flat.runs] == [
+        torch.bfloat16, torch.float32, torch.bfloat16, torch.float32,
+        torch.bfloat16, torch.float32, torch.bfloat16]
+    step = train_step.make_train_step(
+        lambda m, b: m(b["tokens"], b["labels"]), tx)
+    tokens = torch.randint(0, 64, (2, 16))
+    state, loss = step(state, {"tokens": tokens,
+                               "labels": torch.roll(tokens, -1, 1)})
+    assert torch.isfinite(loss) and float(state.opt.count) == 1.0

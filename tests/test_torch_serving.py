@@ -33,6 +33,8 @@ from apex_tpu_torch.inference.sampling import (SamplingConfig,
 from apex_tpu_torch.observability import MetricsRegistry, ServeTelemetry
 from apex_tpu_torch.transformer.testing import LlamaConfig
 
+from _torch_isolation import restore_torch_from_amp  # noqa: F401
+
 CFG = dict(vocab_size=256, hidden_size=128, num_layers=2,
            num_attention_heads=4, num_kv_heads=2, ffn_hidden_size=256,
            max_seq_length=128)
