@@ -11,7 +11,10 @@ through :meth:`InferenceEngine.generate` and the copied
   the slot's pages, the first token sampled from the last real row.
 * **Decode** — one token for every slot: per layer RMSNorm, qkv + RoPE,
   the pool append, paged decode attention, the MLP; then the LM head,
-  sampling and the length advance.
+  sampling and the length advance.  Under fused-block decode
+  (``decode_fusion="1"``, or ``"auto"`` with a window of at least
+  ``fusion_min_pages`` pages) each layer is one launch of the
+  fused-block kernel followed by the pool append.
 
 PyTorch runs eagerly, so where the JAX engine compiles one donated
 executable per step, this engine runs the same ops in order and updates
@@ -21,8 +24,7 @@ the continuous-batching control loop's one host read per step.
 
 Not in this slice (each raises ``NotImplementedError`` naming its
 ROADMAP item): GPT and BERT, the dense slot cache, tensor-parallel
-serving, speculative decoding, fused-block decode and the host-DRAM
-page tier.
+serving, speculative decoding and the host-DRAM page tier.
 """
 from __future__ import annotations
 
@@ -36,12 +38,12 @@ from apex_tpu_torch import observability as obs
 from apex_tpu_torch.inference import kv_cache, models
 from apex_tpu_torch.inference.sampling import SamplingConfig, sample_token
 from apex_tpu_torch.inference.speculative import default_spec_k
+from apex_tpu_torch.ops.paged_attention import resolve_decode_fusion
 from apex_tpu_torch.utils import resolve_device
 
 __all__ = ["InferenceEngine", "prefill_bucket"]
 
 _TP_ENV = "APEX_TPU_SERVE_TP"
-_FUSION_ENV = "APEX_TPU_DECODE_FUSION"
 _HOST_TIER_ENV = "APEX_TPU_HOST_KV_TIER_BYTES"
 
 
@@ -81,7 +83,14 @@ class InferenceEngine:
     weights.params_from_jax` returns (or any tree with its key paths);
     it is cast to ``dtype`` when given and moved to the engine's
     device.  ``device=None`` is CUDA and raises without a card;
-    ``device="cpu"`` runs the kernels' plain versions."""
+    ``device="cpu"`` runs the kernels' plain versions.
+
+    ``decode_fusion`` ("0", "1" or "auto"; default
+    ``APEX_TPU_DECODE_FUSION``, else "0") and ``fusion_min_pages`` are
+    resolved once here (:func:`~apex_tpu_torch.ops.paged_attention.
+    resolve_decode_fusion`); a fused engine keeps a second copy of the
+    layer weights in the fused layout (:func:`~apex_tpu_torch.inference.
+    models.fused_layer_params`) beside the tree that prefill reads."""
 
     def __init__(self, kind: str, cfg, params, *, slots: int = 4,
                  max_seq: Optional[int] = None, dtype=None,
@@ -90,7 +99,8 @@ class InferenceEngine:
                  seed: int = 0, paged: bool = False,
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
-                 decode_fusion=None, spec_k: Optional[int] = None,
+                 decode_fusion=None, fusion_min_pages=None,
+                 spec_k: Optional[int] = None,
                  tp: Optional[int] = None,
                  host_tier_bytes: Optional[int] = None, device=None):
         models.check_supported(kind, cfg)
@@ -106,12 +116,6 @@ class InferenceEngine:
         if self.spec_k:
             raise _later_slice(f"speculative decoding (spec_k="
                                f"{self.spec_k})", "tp and spec")
-        fusion = str(decode_fusion if decode_fusion is not None
-                     else (os.environ.get(_FUSION_ENV) or "0"))
-        if fusion.strip().lower() not in ("0", "false", "off", ""):
-            raise _later_slice("fused-block decode (_fused_block_kernel)",
-                               "decode fusion")
-        self.decode_fused = False
         self.host_tier_bytes = int(host_tier_bytes if host_tier_bytes
                                    is not None else _env_int(_HOST_TIER_ENV))
         if self.host_tier_bytes:
@@ -144,6 +148,12 @@ class InferenceEngine:
         self.dims = models.model_dims(kind, cfg)
         self.tp_dims = models.tp_dims(kind, cfg, 1)
         self.params = self._place(params, dtype)
+        self.decode_fused = resolve_decode_fusion(
+            decode_fusion, paged=True, max_pages=self.max_pages_per_slot,
+            min_pages=fusion_min_pages)
+        self._fused_layers = (
+            models.fused_layer_params(kind, cfg, self.params)
+            if self.decode_fused else None)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
         self._tel_registry = None
@@ -166,6 +176,8 @@ class InferenceEngine:
             self._decode_dispatches = reg.declared(
                 "infer_decode_dispatch_total")
             self._cow_dispatches = reg.declared("infer_cow_dispatch_total")
+            self._fused_decode_dispatches = reg.declared(
+                "infer_decode_fused_dispatch_total")
 
     # -- cache ---------------------------------------------------------------
     def init_cache(self) -> kv_cache.PagedKVCache:
@@ -268,14 +280,16 @@ class InferenceEngine:
             active = np.ones((self.slots,), bool)
         self._refresh_dispatch_counters()
         self._decode_dispatches.inc()
+        if self.decode_fused:
+            self._fused_decode_dispatches.inc()
         toks_in = torch.from_numpy(
             np.asarray(last_tokens, np.int32).reshape(-1)).to(self.device)
         act = torch.from_numpy(np.asarray(active, bool)).to(self.device)
         with torch.no_grad(), torch.profiler.record_function(
                 "apex_tpu_torch.inference.decode"):
-            logits, cache = models.decode_forward(self.kind, self.cfg,
-                                                  self.params, cache,
-                                                  toks_in)
+            logits, cache = models.decode_forward(
+                self.kind, self.cfg, self.params, cache, toks_in,
+                fused=self._fused_layers)
             logits = logits.float()
             toks = sample_token(logits, self._gen, self.sampling)
             cache, truncated = kv_cache.advance(cache, act)

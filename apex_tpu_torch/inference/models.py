@@ -10,8 +10,10 @@ JAX package on the same weights.
 
 Where the JAX forwards branch on traced values inside one compiled
 program (``lax.cond`` on the prefill start), these branch in Python:
-PyTorch runs eagerly.  GPT and BERT, tensor-parallel serving, the fused
-decode block and speculative verify are later slices (ROADMAP queue 1).
+PyTorch runs eagerly.  With ``fused`` (the layout of
+:func:`fused_layer_params`) every decode layer is one launch of the
+fused-block kernel instead.  GPT and BERT, tensor-parallel serving and
+speculative verify are later slices (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from apex_tpu_torch.inference import kv_cache
 from apex_tpu_torch.ops import rms_norm
 from apex_tpu_torch.ops.attention import (flash_attention,
                                           prefix_window_attention)
-from apex_tpu_torch.ops.paged_attention import paged_decode_attention
+from apex_tpu_torch.ops.paged_attention import (fused_block_decode,
+                                                paged_decode_attention)
 from apex_tpu_torch.transformer.functional.fused_rope import (
     fused_apply_rotary_pos_emb_cached,
 )
@@ -31,7 +34,7 @@ from apex_tpu_torch.transformer.testing.standalone_llama import (
 )
 
 __all__ = ["model_dims", "tp_dims", "check_supported", "prefill_forward",
-           "decode_forward"]
+           "decode_forward", "fused_layer_params"]
 
 
 def model_dims(kind: str, cfg) -> dict:
@@ -141,6 +144,43 @@ def _llama_mlp(lp, h):
     return _linear(lp["mlp"]["down_proj"], F.silu(gate) * up)
 
 
+def fused_layer_params(kind: str, cfg, params):
+    """The per-layer weights in the fused-block layout, built once at
+    engine construction: matmul-ready ``[in, out]`` matrices ``wq``,
+    ``wk``, ``wv``, ``wo``, ``wg``, ``wu``, ``wd`` (``wk``/``wv`` split
+    from the packed ``kv_proj``, whose kv heads each hold their k and v
+    columns side by side) and the RMSNorm weights ``ln1_w``/``ln2_w``
+    as ``[1, hidden]``.  A contiguous copy of every layer: the engine
+    then holds both layouts (prefill reads the original tree)."""
+    check_supported(kind, cfg)
+    p = _params_subtree(params)
+    d = model_dims(kind, cfg)["head_dim"]
+    hidden = cfg.hidden_size
+
+    def io(w):                                  # [out, in] -> [in, out]
+        return w.T.contiguous()
+
+    out = []
+    for i in range(cfg.num_layers):
+        lp = p[f"layer_{i}"]
+        att = lp["attention"]
+        kvw = att["kv_proj"]["weight"].T
+        kvh = kvw.shape[1] // (2 * d)
+        kvw = kvw.reshape(hidden, kvh, 2, d)
+        out.append({
+            "ln1_w": lp["input_norm"]["weight"].reshape(1, hidden),
+            "wq": io(att["q_proj"]["weight"]),
+            "wk": kvw[:, :, 0, :].reshape(hidden, kvh * d).contiguous(),
+            "wv": kvw[:, :, 1, :].reshape(hidden, kvh * d).contiguous(),
+            "wo": io(att["o_proj"]["weight"]),
+            "ln2_w": lp["post_attention_norm"]["weight"].reshape(1, hidden),
+            "wg": io(lp["mlp"]["gate_proj"]["weight"]),
+            "wu": io(lp["mlp"]["up_proj"]["weight"]),
+            "wd": io(lp["mlp"]["down_proj"]["weight"]),
+        })
+    return out
+
+
 def _llama_prefill(cfg, params, tokens, length=None, cache=None, row=None,
                    start=0):
     p = _params_subtree(params)
@@ -201,10 +241,28 @@ def _llama_prefill(cfg, params, tokens, length=None, cache=None, row=None,
     return logits, torch.stack(ks), torch.stack(vs)
 
 
-def _llama_decode(cfg, params, cache, tokens):
+def _llama_decode_layer(lp, h, cache, i, cos, sin, live, targets, dims,
+                        eps):
+    """One unfused decode layer: RMSNorm, q/kv, RoPE, the pool append,
+    paged attention over ``live`` tokens, o-proj, RMSNorm, the MLP."""
+    heads, kv_heads = dims["heads_local"], dims["kv_heads_local"]
+    x = h
+    h1 = rms_norm(x, lp["input_norm"]["weight"], eps=eps)
+    q, k_tok, v_tok = _llama_proj(lp, h1, heads, kv_heads, dims["head_dim"])
+    q = fused_apply_rotary_pos_emb_cached(q, cos, sin)
+    k_tok = fused_apply_rotary_pos_emb_cached(k_tok, cos, sin)
+    cache = kv_cache.append_layer(cache, i, k_tok, v_tok, targets)
+    # grouped-query scoring straight off the per-kv-head pool
+    ctx = paged_decode_attention(q, cache.k[:, i], cache.v[:, i],
+                                 cache.page_table, live)
+    x = x + _linear(lp["attention"]["o_proj"], ctx.reshape(ctx.shape[0], -1))
+    h1 = rms_norm(x, lp["post_attention_norm"]["weight"], eps=eps)
+    return x + _llama_mlp(lp, h1), cache
+
+
+def _llama_decode(cfg, params, cache, tokens, fused=None):
     p = _params_subtree(params)
     dims = tp_dims("llama", cfg, 1)
-    heads, kv_heads = dims["heads_local"], dims["kv_heads_local"]
     head_dim = dims["head_dim"]
     # a slot at the end of its window computes garbage that is never
     # appended (advance flags it); clamp so the table read stays in range
@@ -214,29 +272,24 @@ def _llama_decode(cfg, params, cache, tokens):
     h = p["embed_tokens"]["weight"][tokens.long()]          # [slots, h]
     cos_t, sin_t = _rope_cos_sin(cache.max_seq, head_dim, cfg.rope_theta,
                                  device=dev)
-    cos_t = cos_t.reshape(cache.max_seq, head_dim)
-    sin_t = sin_t.reshape(cache.max_seq, head_dim)
-    cos = cos_t[positions][:, None, :]                      # [slots, 1, d]
-    sin = sin_t[positions][:, None, :]
+    cos2 = cos_t.reshape(cache.max_seq, head_dim)[positions]  # [slots, d]
+    sin2 = sin_t.reshape(cache.max_seq, head_dim)[positions]
+    cos, sin = cos2[:, None, :], sin2[:, None, :]           # [slots, 1, d]
 
     live = cache.lengths + 1            # incl. the token written now
     targets = kv_cache.append_targets(cache)  # same rows every layer
     for i in range(cfg.num_layers):
-        lp = p[f"layer_{i}"]
-        x = h
-        h1 = rms_norm(x, lp["input_norm"]["weight"], eps=cfg.rms_eps)
-        q, k_tok, v_tok = _llama_proj(lp, h1, heads, kv_heads, head_dim)
-        q = fused_apply_rotary_pos_emb_cached(q, cos, sin)
-        k_tok = fused_apply_rotary_pos_emb_cached(k_tok, cos, sin)
-        cache = kv_cache.append_layer(cache, i, k_tok, v_tok, targets)
-        # grouped-query scoring straight off the per-kv-head pool
-        ctx = paged_decode_attention(q, cache.k[:, i], cache.v[:, i],
-                                     cache.page_table, live)
-        x = x + _linear(lp["attention"]["o_proj"],
-                        ctx.reshape(ctx.shape[0], -1))
-        h1 = rms_norm(x, lp["post_attention_norm"]["weight"],
-                      eps=cfg.rms_eps)
-        h = x + _llama_mlp(lp, h1)
+        if fused is not None:
+            # one kernel for the layer: it reads the pool at the
+            # pre-append lengths and folds the current token in itself
+            h, k_tok, v_tok = fused_block_decode(
+                h, fused[i], cache.k[:, i], cache.v[:, i], cache.page_table,
+                cache.lengths, kind="llama", eps=cfg.rms_eps, cos=cos2,
+                sin=sin2)
+            cache = kv_cache.append_layer(cache, i, k_tok, v_tok, targets)
+            continue
+        h, cache = _llama_decode_layer(p[f"layer_{i}"], h, cache, i, cos,
+                                       sin, live, targets, dims, cfg.rms_eps)
 
     h = rms_norm(h, p["final_norm"]["weight"], eps=cfg.rms_eps)
     logits = _linear(p["lm_head"], h)                       # [slots, v]
@@ -272,9 +325,16 @@ def prefill_forward(kind: str, cfg, params, tokens, length=None, *,
                           row=row, start=int(prefill_from))
 
 
-def decode_forward(kind: str, cfg, params, cache, tokens):
+def decode_forward(kind: str, cfg, params, cache, tokens, fused=None):
     """One-token step for every slot: ``tokens [slots]`` -> ``(logits
     [slots, v], cache)`` with the new k/v appended (in place) at each
-    slot's position.  Lengths do not advance here."""
+    slot's position.  Lengths do not advance here.
+
+    ``fused`` is the per-layer layout of :func:`fused_layer_params`:
+    with it every decoder layer is one fused-block kernel launch
+    instead of the per-op sequence — the same embedding, LM head and
+    pool append, logits within tolerance of the unfused path (the
+    kernel keeps the residual in fp32 inside a layer, where the per-op
+    path rounds it at each sublayer)."""
     check_supported(kind, cfg)
-    return _llama_decode(cfg, params, cache, tokens)
+    return _llama_decode(cfg, params, cache, tokens, fused=fused)

@@ -16,7 +16,9 @@ show that its main path went through the kernels:
 :func:`reset_launch_counts` before the run, :func:`launch_counts`
 after it.  Counters are per kernel, not per source: a source may hold
 several kernels (``layer_norm.cu`` the forward and the backward,
-``fused_update.cu`` the unscale and Adam).
+``fused_update.cu`` the unscale and Adam).  ``fused_block_decode.cu``
+is one cooperative launch per decoder layer; its entry, called with a
+null workspace, reports the workspace size without launching.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine with no ``nvcc`` and no card.
@@ -49,6 +51,8 @@ SOURCES = {
         "paged_attention": "apex_paged_decode_attention"},
     "fused_update.cu": {"fused_scale": "apex_fused_scale",
                         "fused_adam": "apex_fused_adam"},
+    "fused_block_decode.cu": {
+        "fused_block_decode": "apex_fused_block_decode"},
 }
 #: the source of each kernel, by launch-counter name
 KERNELS = {name: src for src, entries in SOURCES.items() for name in entries}
@@ -63,6 +67,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_LP = ctypes.POINTER(ctypes.c_longlong)
 #: C signature of every entry point: (argtypes); all return int
 _SIGNATURES = {
     # x, w, b, y, rows, hidden, eps, rms, x_dtype, w_dtype, stream
@@ -88,6 +93,12 @@ _SIGNATURES = {
     "apex_fused_scale": [_P, _P, _P, _P, _L, _I, _I, _P],
     # p, g, m, v, hp, n, g_dtype, adam_w, stream
     "apex_fused_adam": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
+    # x, cos, sin, ln1_w, wq, wk, wv, wo, ln2_w, wg, wu, wd, k_pages,
+    # v_pages, page_table, lengths, y, kt, vt, ws, ws_bytes, clock, slots,
+    # hidden, heads, kvh, d, ffn, ps, mpps, page_stride, fuse_mlp, ln_fp32,
+    # eps, scale_log2, stream
+    "apex_fused_block_decode": [_P] * 20 + [_LP, _P] + [_I] * 8
+                               + [_L, _I, _I, _F, _F, _P],
 }
 
 

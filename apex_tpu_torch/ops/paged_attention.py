@@ -19,17 +19,30 @@ operands are usually one layer's strided view of the engine's
 takes the page stride and reads the pool in place, so no call copies
 the pool.  A CPU tensor takes the plain version, which gathers the
 slots' windows and scores them in fp32.
+
+Fused-block decode, port of ``fused_block_decode`` and its dispatch
+knobs (``decode_fusion``, ``fusion_min_pages``,
+``resolve_decode_fusion``): a whole LLaMA decoder layer for every slot
+— norm, q/k/v, RoPE, paged attention with the current token folded in,
+o-proj, norm, SwiGLU — as one launch of ``csrc/fused_block_decode.cu``
+(the counterpart of the Pallas ``_fused_block_kernel``).  GPT blocks
+and the tensor-parallel ``partial_out`` variant are later slices.
 """
 from __future__ import annotations
 
+import ctypes
+import os
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops.attention import _LOG2E, _NEG_INF
 
-__all__ = ["paged_decode_attention", "paged_decode_reference"]
+__all__ = ["paged_decode_attention", "paged_decode_reference",
+           "decode_fusion", "fusion_min_pages", "resolve_decode_fusion",
+           "fused_block_decode", "fused_block_reference"]
 
 #: query rows per kv head and head dims the kernel is instantiated for
 _KERNEL_GROUPS = (1, 2, 4, 8)
@@ -178,3 +191,325 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         raise ValueError(f"paged_decode_attention runs on cuda or cpu, got "
                          f"{q3.device}")
     return out if squeezed else out[:, :, None, :]
+
+
+# --------------------------------------------------------------------------
+# fused-block decode
+# --------------------------------------------------------------------------
+
+_DECODE_FUSION_ENV = "APEX_TPU_DECODE_FUSION"
+#: fused/unfused crossover in pages per slot for ``"auto"``; override
+#: with ``APEX_TPU_FUSION_MIN_PAGES`` (the JAX package's default)
+_FUSION_MIN_PAGES = 8
+_FUSION_MIN_PAGES_ENV = "APEX_TPU_FUSION_MIN_PAGES"
+
+
+def decode_fusion(override=None) -> str:
+    """Effective fused-block decode mode: explicit override >
+    ``APEX_TPU_DECODE_FUSION`` > ``"0"``.  ``"0"`` is the per-op path,
+    ``"1"`` the fused-block kernel, ``"auto"`` fuses when the engine's
+    window is at least :func:`fusion_min_pages` pages."""
+    val = override if override is not None \
+        else (os.environ.get(_DECODE_FUSION_ENV) or "0")
+    val = str(val).strip().lower() or "0"
+    if val in ("0", "false", "off"):
+        return "0"
+    if val in ("1", "true", "on"):
+        return "1"
+    if val == "auto":
+        return "auto"
+    raise ValueError(
+        f"{_DECODE_FUSION_ENV} must be 0, 1 or auto, got {val!r}")
+
+
+def fusion_min_pages(override=None) -> int:
+    """Effective auto-fusion crossover: explicit override >
+    ``APEX_TPU_FUSION_MIN_PAGES`` > 8."""
+    if override is not None:
+        return int(override)
+    env = os.environ.get(_FUSION_MIN_PAGES_ENV)
+    if env:
+        try:
+            return int(env)
+        except ValueError as e:
+            raise ValueError(
+                f"{_FUSION_MIN_PAGES_ENV} must be an int, got "
+                f"{env!r}") from e
+    return _FUSION_MIN_PAGES
+
+
+def resolve_decode_fusion(mode=None, *, paged: bool,
+                          max_pages: Optional[int] = None,
+                          min_pages: Optional[int] = None) -> bool:
+    """Does this engine run the fused-block decode kernel?  The kernel
+    reads the slot's pages through the page table, so ``"1"`` on a
+    non-paged engine is a configuration error, while ``"auto"`` there
+    resolves to the unfused path."""
+    mode = decode_fusion(mode)
+    if mode == "0":
+        return False
+    if not paged:
+        if mode == "1":
+            raise ValueError(
+                "fused-block decode streams the slot's KV pages via "
+                "the page table (APEX_TPU_DECODE_FUSION=1 needs a "
+                "paged engine); this engine runs the dense slot cache")
+        return False
+    if mode == "1":
+        return True
+    return int(max_pages or 0) >= fusion_min_pages(min_pages)
+
+
+def _fused_geometry(x, blk, k_pages, v_pages, page_table, lengths, kind,
+                    cos, sin, partial_out):
+    """The JAX checks; returns ``(kvh, ps, d, h)``."""
+    if kind == "gpt":
+        raise NotImplementedError(
+            "the fused GPT block is not ported yet: ROADMAP queue 1, "
+            "'the dense cache and GPT serving'")
+    if kind != "llama":
+        raise ValueError(f"unknown block kind {kind!r}")
+    if partial_out:
+        raise NotImplementedError(
+            "the tensor-parallel partial_out block is not ported yet: "
+            "ROADMAP queue 1, 'tp and spec'")
+    slots = x.shape[0]
+    if k_pages.shape != v_pages.shape or k_pages.dim() != 4:
+        raise ValueError(
+            f"k/v pages must be [pages, kv_heads, page_size, d] and "
+            f"equal-shaped; got k {tuple(k_pages.shape)} v "
+            f"{tuple(v_pages.shape)}")
+    _, kvh, ps, d = k_pages.shape
+    hd = blk["wq"].shape[1]
+    if hd % d:
+        raise ValueError(f"wq width {hd} must be a multiple of head_dim {d}")
+    h = hd // d
+    if h % kvh:
+        raise ValueError(f"kv_heads ({kvh}) must divide query heads ({h})")
+    if page_table.dim() != 2 or page_table.shape[0] != slots \
+            or tuple(lengths.shape) != (slots,):
+        raise ValueError(
+            f"page_table/lengths must cover {slots} slots; got "
+            f"{tuple(page_table.shape)} / {tuple(lengths.shape)}")
+    if cos is None or sin is None:
+        raise ValueError("llama fused block needs cos/sin RoPE rows")
+    return kvh, ps, d, h
+
+
+def fused_block_reference(x, blk, k_pages, v_pages, page_table, lengths, *,
+                          kind: str, eps: float, cos=None, sin=None,
+                          sm_scale: Optional[float] = None,
+                          fuse_mlp: bool = True, partial_out: bool = False):
+    """Plain version of :func:`fused_block_decode`, with the kernel's
+    rounding points: fp32 norms and residual, bf16 matmul operands with
+    fp32 sums, fp32 RoPE, scores from the rounded q over the gathered
+    window in base 2, p rounded for P.V (normaliser from fp32 p), then
+    the current token folded in as one more column from the unrounded
+    fp32 q, k, v."""
+    kvh, ps, d, h = _fused_geometry(x, blk, k_pages, v_pages, page_table,
+                                    lengths, kind, cos, sin, partial_out)
+    slots = x.shape[0]
+    group = h // kvh
+    mpps = page_table.shape[1]
+    scale = (d ** -0.5) if sm_scale is None else sm_scale
+    f32 = torch.float32
+
+    def norm(v, w):
+        ms = (v * v).mean(dim=1, keepdim=True)
+        return v * torch.rsqrt(ms + eps) * w.reshape(1, -1).to(f32)
+
+    def matmul(a, w):
+        return torch.matmul(a.to(w.dtype).to(f32), w.to(f32))
+
+    def rope(t):                                  # t [slots, n, d]
+        c = cos.to(f32)[:, None, :]
+        s = sin.to(f32)[:, None, :]
+        t1, t2 = torch.chunk(t, 2, dim=-1)
+        return t * c + torch.cat((-t2, t1), dim=-1) * s
+
+    xv = x.to(f32)
+    h1 = norm(xv, blk["ln1_w"])
+    q = rope(matmul(h1, blk["wq"]).reshape(slots, h, d))
+    k_new = rope(matmul(h1, blk["wk"]).reshape(slots, kvh, d))
+    v_new = matmul(h1, blk["wv"]).reshape(slots, kvh, d)
+
+    # the live pages, as the unfused path's plain version gathers them
+    idx = page_table.long()
+    kw = k_pages[idx].permute(0, 2, 1, 3, 4).reshape(slots, kvh, mpps * ps, d)
+    vw = v_pages[idx].permute(0, 2, 1, 3, 4).reshape(slots, kvh, mpps * ps, d)
+    qg = q.reshape(slots, kvh, group, d)
+    s = torch.einsum("bkgd,bkwd->bkgw", qg.to(k_pages.dtype).to(f32),
+                     kw.to(f32)) * (scale * _LOG2E)
+    live = (torch.arange(mpps * ps, device=x.device)[None, :]
+            < lengths.long()[:, None])[:, None, None, :]
+    s = torch.where(live, s, torch.full_like(s, _NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp2(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bkgw,bkwd->bkgd", p.to(v_pages.dtype).to(f32),
+                       vw.to(f32))
+    # the current token: one more column, from the fp32 q, k, v
+    s_new = (qg * k_new[:, :, None, :]).sum(-1, keepdim=True) \
+        * (scale * _LOG2E)
+    m_new = torch.maximum(m, s_new)
+    alpha = torch.exp2(m - m_new)
+    p_new = torch.exp2(s_new - m_new)
+    l = l * alpha + p_new
+    acc = acc * alpha + p_new * v_new[:, :, None, :]
+    ctx = (acc / l).reshape(slots, h * d)
+
+    x2 = xv + matmul(ctx, blk["wo"])
+    if fuse_mlp:
+        h2 = norm(x2, blk["ln2_w"])
+        act = F.silu(matmul(h2, blk["wg"])) * matmul(h2, blk["wu"])
+        y = x2 + matmul(act, blk["wd"])
+    else:
+        y = x2
+    return (y.to(x.dtype), k_new.to(x.dtype), v_new.to(x.dtype))
+
+
+#: workspace bytes of each launch geometry, asked of the library once
+_WS_BYTES: dict = {}
+
+
+def _fused_kernel_call(x, blk, k_pages, v_pages, page_table, lengths, cos,
+                       sin, eps, scale, fuse_mlp, kvh, ps, d, h, clock=None):
+    """Launch the kernel.  ``clock``: ``None``, or a zeroed int64 CUDA
+    tensor of 10 that receives the launch's phase times in ns (the start,
+    the end of each of the 8 phases that end in a grid barrier, and the
+    last block's end)."""
+    slots, hidden = x.shape
+    bf = torch.bfloat16
+    names = ["wq", "wk", "wv", "wo"] + (["wg", "wu", "wd"] if fuse_mlp
+                                        else [])
+    ffn = blk["wg"].shape[1] if fuse_mlp else 0
+    shapes = {"wq": (hidden, h * d), "wk": (hidden, kvh * d),
+              "wv": (hidden, kvh * d), "wo": (h * d, hidden),
+              "wg": (hidden, ffn), "wu": (hidden, ffn), "wd": (ffn, hidden)}
+    if x.dtype != bf or k_pages.dtype != bf or v_pages.dtype != bf \
+            or any(blk[n].dtype != bf for n in names):
+        raise TypeError(
+            f"fused block kernel takes bfloat16 x, weights and pool, got x "
+            f"{x.dtype}, pool {k_pages.dtype}, weights "
+            f"{sorted({str(blk[n].dtype) for n in names})}")
+    norms = ["ln1_w"] + (["ln2_w"] if fuse_mlp else [])
+    ln_dtypes = {blk[n].dtype for n in norms}
+    if len(ln_dtypes) != 1 or not ln_dtypes <= {bf, torch.float32}:
+        raise TypeError(f"norm weights must all be bfloat16 or all float32, "
+                        f"got {sorted(map(str, ln_dtypes))}")
+    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("page_table and lengths must be int32")
+    tensors = [("x", x), ("k_pages", k_pages), ("v_pages", v_pages),
+               ("page_table", page_table), ("lengths", lengths),
+               ("cos", cos), ("sin", sin)] + [(n, blk[n])
+                                              for n in names + norms]
+    for name, t in tensors:
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    for n in names:
+        if tuple(blk[n].shape) != shapes[n]:
+            raise ValueError(f"{n} must be {shapes[n]}, got "
+                             f"{tuple(blk[n].shape)}")
+    for n in norms:
+        if blk[n].numel() != hidden:
+            raise ValueError(f"{n} must hold {hidden} weights, got "
+                             f"{tuple(blk[n].shape)}")
+    if h // kvh not in _KERNEL_GROUPS or d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"fused block kernel takes group (h / kv_heads) in "
+            f"{_KERNEL_GROUPS} and head_dim in {_KERNEL_HEAD_DIMS}, got "
+            f"group {h // kvh}, head_dim {d}")
+    if hidden % 8 or ffn % 8:
+        raise ValueError(f"fused block kernel takes hidden and ffn in "
+                         f"multiples of 8, got {hidden} and {ffn}")
+    inner = (ps * d, d, 1)
+    if k_pages.stride()[1:] != inner or v_pages.stride() != k_pages.stride() \
+            or k_pages.stride(0) % 8:
+        raise ValueError(
+            f"k/v pages must have inner strides {inner}, equal strides and "
+            f"a page stride that is a multiple of 8; got k "
+            f"{k_pages.stride()} v {v_pages.stride()}")
+    cos = cos.to(torch.float32).contiguous()
+    sin = sin.to(torch.float32).contiguous()
+    if tuple(cos.shape) != (slots, d) or tuple(sin.shape) != (slots, d):
+        raise ValueError(f"cos/sin must be [{slots}, {d}], got "
+                         f"{tuple(cos.shape)} / {tuple(sin.shape)}")
+    ops = [x, page_table, lengths] + [blk[n] for n in names + norms]
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("x, page_table, lengths and the weights must be "
+                         "contiguous")
+    if any(t.data_ptr() % 16 for t in ops + [k_pages, v_pages]):
+        raise ValueError("x, the weights and the pool must be 16-byte "
+                         "aligned")
+    ln2 = blk["ln2_w"] if fuse_mlp else None
+    mlp = [blk[n] for n in ("wg", "wu", "wd")] if fuse_mlp else [None] * 3
+    y = torch.empty_like(x)
+    kt = torch.empty((slots, kvh, d), dtype=bf, device=x.device)
+    vt = torch.empty_like(kt)
+    lib = _build.library()
+    stream = _build.stream_ptr(x.device)
+
+    def launch(ws, ws_bytes):
+        ptr = (lambda t: None if t is None else t.data_ptr())
+        return lib.apex_fused_block_decode(
+            x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            blk["ln1_w"].data_ptr(), blk["wq"].data_ptr(),
+            blk["wk"].data_ptr(), blk["wv"].data_ptr(),
+            blk["wo"].data_ptr(), ptr(ln2), *map(ptr, mlp),
+            k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+            lengths.data_ptr(), y.data_ptr(), kt.data_ptr(), vt.data_ptr(),
+            ws, ws_bytes, ptr(clock), slots, hidden, h, kvh, d, ffn, ps,
+            page_table.shape[1], k_pages.stride(0), int(fuse_mlp),
+            int(blk["ln1_w"].dtype == torch.float32), float(eps),
+            float(scale * _LOG2E), stream)
+
+    key = (x.device, slots, hidden, h, kvh, d, ffn, ps, page_table.shape[1],
+           bool(fuse_mlp))
+    if key not in _WS_BYTES:
+        need = ctypes.c_longlong(0)
+        _build.check(launch(None, ctypes.byref(need)), "fused_block_decode")
+        _WS_BYTES[key] = need.value
+    ws = torch.empty(_WS_BYTES[key], dtype=torch.uint8, device=x.device)
+    _build.count("fused_block_decode")
+    _build.check(launch(ws.data_ptr(), None), "fused_block_decode")
+    return y, kt, vt
+
+
+def fused_block_decode(x, blk, k_pages, v_pages, page_table, lengths, *,
+                       kind: str, eps: float, cos=None, sin=None,
+                       sm_scale: Optional[float] = None,
+                       fuse_mlp: bool = True, partial_out: bool = False):
+    """One fused decoder-block step against the paged pool.
+
+    * ``x``: ``[slots, hidden]``, the block's input (one token a slot).
+    * ``blk``: the layer in the fused layout (:func:`apex_tpu_torch.
+      inference.models.fused_layer_params`): ``[in, out]`` matrices
+      ``wq [hidden, h*d]``, ``wk``/``wv [hidden, kv_heads*d]``, ``wo [h*d,
+      hidden]``, RMSNorm ``ln1_w``/``ln2_w [1, hidden]``, and the SwiGLU
+      ``wg``/``wu [hidden, ffn]``, ``wd [ffn, hidden]``.
+    * ``k_pages``/``v_pages``: one layer's ``[pages, kv_heads,
+      page_size, d]`` view of the pool; ``page_table``/``lengths`` as in
+      :func:`paged_decode_attention`, ``lengths`` BEFORE this token is
+      appended (the kernel folds the current token in itself).
+    * ``cos``/``sin``: ``[slots, d]`` RoPE rows at each slot's position.
+
+    Returns ``(y [slots, hidden], k_tok [slots, kv_heads, d], v_tok)``:
+    the block output and the current token's k (after RoPE) and v for
+    the caller's pool append.  ``fuse_mlp=False`` returns ``y = x +
+    attention``.  On CUDA one launch of ``csrc/fused_block_decode.cu``
+    (bf16 x, weights and pool; group 1/2/4/8; head_dim 64/128; anything
+    else raises); a CPU tensor takes :func:`fused_block_reference`.
+    ``kind="gpt"`` and ``partial_out=True`` are later slices and raise
+    ``NotImplementedError``."""
+    kvh, ps, d, h = _fused_geometry(x, blk, k_pages, v_pages, page_table,
+                                    lengths, kind, cos, sin, partial_out)
+    scale = (d ** -0.5) if sm_scale is None else sm_scale
+    if x.device.type == "cpu":
+        return fused_block_reference(
+            x, blk, k_pages, v_pages, page_table, lengths, kind=kind,
+            eps=eps, cos=cos, sin=sin, sm_scale=sm_scale, fuse_mlp=fuse_mlp)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_block_decode runs on cuda or cpu, got "
+                         f"{x.device}")
+    return _fused_kernel_call(x, blk, k_pages, v_pages, page_table, lengths,
+                              cos, sin, eps, scale, fuse_mlp, kvh, ps, d, h)

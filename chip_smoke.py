@@ -14,28 +14,38 @@
    with fp32 weights; causal flash attention forward and backward
    ``[1, 32, 2048, 128]`` with k/v broadcast from 8 kv heads; paged
    decode over 8 slots of page size 64 with lengths 0..4096 in a
-   32-layer pool; the amp unscale and Adam over the 1.923e9-element
+   32-layer pool; the fused decode block, one random Llama-3-8B layer
+   over the same pool; the amp unscale and Adam over the 1.923e9-element
    flat fp32 buffers of the 4-layer training model).  Prints the max
    |diff| against its stated limit, the kernel's time, its bound (the
    larger of bytes over 3.35 TB/s and operations over the peak rate of
    their type — 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s fp32
    — counted from this run's inputs), the plain version's time and,
    where one PyTorch call computes the same function, that call's
-   time.
+   time.  The fused block is timed over back-to-back eager calls
+   between CUDA events (its cooperative launch is not captured into a
+   graph); beside it, on a line of its own, the port's unfused layer on
+   the same inputs.
 3. **Serve.**  Llama-3-8B at full width and depth (random bf16 weights
    from a seeded ``torch.Generator``) served by ``InferenceEngine`` on
    the paged pool through ``engine.generate``: 8 seeded prompts of
    128..2048 tokens, 32 new tokens each, greedy.  The kernels' launch
    counters are zeroed just before and read just after; each must be
-   above 0.  Prints TTFT, decode tokens/s and peak device memory.
+   above 0.  Prints TTFT, decode tokens/s and peak device memory.  Then
+   the same prompts through a second engine on the same weights with
+   ``decode_fusion="1"``: every decode layer must be one fused-block
+   launch (32 per decode step) and paged attention must not launch.
 4. **Check.**  For two of the requests, the decode logits of an
    engine prefill + decode run are held against the port's own
-   full-forward prefill of prompt + generated tokens.
+   full-forward prefill of prompt + generated tokens, for both engines
+   (and, for one request, the fused engine with the fused block's plain
+   version in place of its kernel); the fused decode logits are also
+   printed against the unfused ones.
 5. **Profile.**  Where the serve's time goes: one 2048-token prefill
-   and one 8-slot decode step, each timed on the host clock and then
-   under ``torch.profiler``: wall time, the device's busy share and the
-   kernels that take the most device time.  With ``train``, the same
-   for one training step.
+   and one 8-slot decode step of each engine, each timed on the host
+   clock and then under ``torch.profiler``: wall time, the device's
+   busy share and the kernels that take the most device time.  With
+   ``train``, the same for one training step.
 6. **Train.**  After the serve's engine is freed: Llama-3-8B widths cut
    to 4 layers (1.923e9 parameters; the fp32 master and Adam moments of
    all 32 layers would not fit in 80 GB), bf16 parameters from a seeded
@@ -90,6 +100,12 @@ TOL_RMS_REL = 2.0 ** -6          # x max|ref| (rows scaled by rsqrt)
 TOL_ATTN_OUT = 2e-2              # |out| <= ~3: weighted means of N(0,1)
 TOL_ATTN_LSE = 1e-3              # base-2 lse, fp32 on both sides
 TOL_PAGED_OUT = 2e-2
+#: the fused decode block (y, k_tok, v_tok, bf16): a few ulps of each
+#: output's magnitude, and a relative L2 (the kernel and its plain
+#: version round the same values at the same points; sums run in
+#: another order and p rounds against a split's running maximum)
+TOL_FUSED_REL = 2.0 ** -6
+TOL_FUSED_REL_L2 = 1e-2
 #: training kernels: norm dx a few bf16 ulps, dw fp32 row sums in
 #: another order; the unscale is one fp32 multiply on both sides
 #: (exact); Adam may contract multiply-adds into FMAs (a few fp32 ulps
@@ -107,7 +123,11 @@ TOL_FLASH_BWD_REL_L2 = 1e-2
 #: the kernels each main path must launch; a kernel's "launches" in the
 #: JSON line is the count of the path it was ported for (the forward
 #: norm and flash kernels: the serve)
-SERVE_KERNELS = ("layer_norm", "flash_attention", "paged_attention")
+SERVE_KERNELS = ("layer_norm", "flash_attention", "paged_attention",
+                 "fused_block_decode")
+#: the serve kernels only the fused engine launches, and those it must not
+FUSED_ONLY = ("fused_block_decode",)
+UNFUSED_ONLY = ("paged_attention",)
 TRAIN_KERNELS = ("layer_norm", "layer_norm_bwd", "flash_attention",
                  "flash_attention_bwd", "fused_scale", "fused_adam")
 #: the 4-layer training model (Llama-3-8B widths) and its batch
@@ -124,7 +144,8 @@ TOL_TRAIN_GRAD_REL_L2 = 3e-2
 TOL_TRAIN_LOSS = 2e-2
 #: decode-vs-full-forward logit limit for the serve check: bf16
 #: activations rounded at every op of 32 layers, along two different
-#: kernel/matmul paths (paged decode vs causal flash prefill)
+#: kernel/matmul paths (paged decode vs causal flash prefill); the
+#: fused engine is held to the same limit
 TOL_LOGITS = 0.25
 
 
@@ -381,7 +402,12 @@ def phase_kernels(dev, gen):
         bound_ms=bound, bound_by=by, library_ms=None,
         eager_ms=_eager_ms(lambda: pa.paged_decode_attention(
             qd, kp, vp, table, lengths), 50))
-    del pool_k, pool_v, kp, vp, views
+    del views
+    # its own generator: the later kernels keep the inputs they had
+    fgen = torch.Generator(device=dev)
+    fgen.manual_seed(gen.initial_seed() + 1)
+    _fused_kernel(dev, fgen, recs, pool_k, pool_v, table, lengths)
+    del pool_k, pool_v, kp, vp
     torch.cuda.empty_cache()
     _train_kernels(dev, gen, recs)
     for r in recs.values():
@@ -391,6 +417,127 @@ def phase_kernels(dev, gen):
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']}")
     torch.cuda.empty_cache()
     return recs
+
+
+def _fused_kernel(dev, gen, recs, pool_k, pool_v, table, lengths):
+    """The fused decode block at Llama-3-8B width: one random layer
+    (built in the model tree's layout and re-laid-out by
+    ``fused_layer_params``, as the engine does) over one layer of the
+    paged case's 32-layer pool, 8 slots, against its plain version; and
+    the port's unfused layer on the same inputs, for comparison."""
+    from apex_tpu_torch.inference import kv_cache, models
+    from apex_tpu_torch.transformer.testing import LlamaConfig
+    from apex_tpu_torch.transformer.testing.standalone_llama import (
+        _rope_cos_sin)
+    pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    cfg = LlamaConfig(**dict(FULL_CFG, num_layers=1))
+    lp = _random_llama(cfg, dev, int(torch.randint(1 << 30, (1,),
+                                                    generator=gen,
+                                                    device=dev)),
+                       only="layer_0")["layer_0"]
+    blk = models.fused_layer_params("llama", cfg, {"layer_0": lp})[0]
+    slots, hidden = table.shape[0], cfg.hidden_size
+    d, kvh = pool_k.shape[4], pool_k.shape[2]
+    h = cfg.num_attention_heads
+    window = table.shape[1] * pool_k.shape[3]
+    x = torch.randn(slots, hidden, generator=gen, device=dev).to(torch.bfloat16)
+    cos_t, sin_t = _rope_cos_sin(window, d, cfg.rope_theta, device=dev)
+    pos = torch.clamp(lengths.long(), max=window - 1)
+    cos, sin = cos_t.reshape(window, d)[pos], sin_t.reshape(window, d)[pos]
+    layer = 9
+    kp, vp = pool_k[:, layer], pool_v[:, layer]
+    kw = dict(kind="llama", eps=cfg.rms_eps, cos=cos, sin=sin)
+    got = pa.fused_block_decode(x, blk, kp, vp, table, lengths, **kw)
+    ref = pa.fused_block_reference(x, blk, kp, vp, table, lengths, **kw)
+    print(f"fused_block_decode: one Llama-3-8B layer (hidden {hidden}, "
+          f"{h} heads over {kvh}, ffn {cfg.ffn}), 8 slots, lengths "
+          f"{lengths.tolist()}, layer {layer} of the pool")
+    err = 0.0
+    for name, g_, r_ in zip(("y", "k_tok", "v_tok"), got, ref):
+        e = (g_.float() - r_.float()).abs().max().item()
+        rel = ((g_.float() - r_.float()).norm() / r_.float().norm()).item()
+        _check(f"fused {name}", e,
+               TOL_FUSED_REL * r_.float().abs().max().item())
+        print(f"    relative L2 {rel:.4g} (limit {TOL_FUSED_REL_L2})")
+        if rel > TOL_FUSED_REL_L2:
+            raise AssertionError(f"fused {name}: relative L2 {rel}")
+        err = max(err, e)
+    del got, ref
+    weights = sum(t.numel() for t in blk.values())
+    live = int(torch.clamp(lengths, max=window).sum())
+    nbytes = 2 * weights + live * kvh * d * 2 * 2 + 2 * 2 * x.numel() \
+        + 2 * 2 * slots * kvh * d + 2 * 4 * cos.numel() \
+        + 4 * table.numel() + 4 * slots
+    flops = 2 * slots * weights + 4 * (live + slots) * h * d
+    bound, by = _bound(nbytes, flops)
+    # four layers of the pool in turn, as a decode step reads them; the
+    # 436 MB of weights never fit in the 50 MB L2
+    views = itertools.cycle([(pool_k[:, i], pool_v[:, i])
+                             for i in range(layer, layer + 4)])
+    ms = _eager_ms(lambda: pa.fused_block_decode(
+        x, blk, *next(views), table, lengths, **kw), 40)
+    plain_ms = _eager_ms(lambda: pa.fused_block_reference(
+        x, blk, *next(views), table, lengths, **kw), 3)
+    print(f"  fused_block_decode: {weights} weights ({2 * weights / 1e6:.1f} "
+          f"MB) + {live} live tokens' k/v; {ms:.4f} ms per call (CUDA "
+          f"events around 40 eager calls), bound {bound:.4f} ms ({by}), "
+          f"{nbytes / ms / 1e6:.1f} GB/s")
+    _fused_phases(pa, x, blk, kp, vp, table, lengths, kw)
+    # the port's unfused layer on the same inputs: the per-op path with
+    # the pool append (which writes each slot's next row, so it runs
+    # last) and paged attention over lengths + 1
+    cache = kv_cache.PagedKVCache(
+        k=pool_k, v=pool_v, page_table=table, lengths=lengths.clone(),
+        capacity=torch.full_like(lengths, window))
+    dims = models.tp_dims("llama", cfg, 1)
+    targets = kv_cache.append_targets(cache)
+
+    def unfused():
+        return models._llama_decode_layer(
+            lp, x, cache, layer, cos[:, None], sin[:, None], lengths + 1,
+            targets, dims, cfg.rms_eps)
+
+    un_eager = _eager_ms(unfused, 40)
+    un_graph = _time_ms(unfused, 20)
+    print(f"  unfused layer (the port's per-op decode layer, same inputs): "
+          f"{un_eager:.4f} ms per eager call, {un_graph:.4f} ms per call "
+          f"in CUDA-graph replay; fused / unfused eager "
+          f"{ms / un_eager:.3f}")
+    recs["fused_block_decode"] = dict(
+        name="fused_block_decode", route="cuda",
+        source="apex_tpu_torch/csrc/fused_block_decode.cu",
+        replaces="apex_tpu/ops/paged_attention.py:445", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=None, eager_ms=ms)
+    del blk, lp, cache, views
+    torch.cuda.empty_cache()
+
+
+FUSED_PHASES = ("q/k/v", "q/k/v sums + RoPE", "attention", "merge + fold",
+                "o", "x2 + norm2", "gate/up", "down", "y")
+
+
+def _fused_phases(pa, x, blk, kp, vp, table, lengths, kw):
+    """Where the fused block's time goes: the kernel's phase clock (block
+    0 reads the global timer as it leaves each grid barrier; the last
+    block to finish sets the end), the median over 10 launches."""
+    kvh, ps, d, h = pa._fused_geometry(x, blk, kp, vp, table, lengths,
+                                       kw["kind"], kw["cos"], kw["sin"],
+                                       False)
+    clock = torch.zeros(len(FUSED_PHASES) + 1, dtype=torch.int64,
+                        device=x.device)
+    runs = []
+    for _ in range(10):
+        clock.zero_()
+        pa._fused_kernel_call(x, blk, kp, vp, table, lengths, kw["cos"],
+                              kw["sin"], kw["eps"], d ** -0.5, True, kvh, ps,
+                              d, h, clock=clock)
+        runs.append(np.diff(np.asarray(clock.tolist(), np.int64)) / 1e3)
+    us = np.median(np.stack(runs), axis=0)
+    print(f"  fused_block_decode phases (phase clock, median of 10 launches, "
+          f"{us.sum():.1f} us in all): " + ", ".join(
+              f"{n} {t:.1f} us" for n, t in zip(FUSED_PHASES, us)))
+    return dict(zip(FUSED_PHASES, us.tolist()))
 
 
 def _chunked(fn, n: int, chunk: int) -> None:
@@ -597,15 +744,17 @@ def _train_kernels(dev, gen, recs):
     torch.cuda.empty_cache()
 
 
-def _random_llama(cfg, dev, seed: int):
+def _random_llama(cfg, dev, seed: int, only=None):
     """Llama-3-8B-shaped tree of random bf16 weights from a seeded
     generator: linears N(0, 1/fan_in), norms 1 + N(0, 0.1^2), the
-    embedding N(0, 1)."""
+    embedding N(0, 1).  ``only``: the one top-level key to build."""
     from apex_tpu_torch.inference.weights import llama_param_shapes
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     tree: dict = {}
     for path, shape in sorted(llama_param_shapes(cfg).items()):
+        if only is not None and path[0] != only:
+            continue
         if len(shape) == 1:
             t = 1 + 0.1 * torch.randn(shape, generator=gen, device=dev)
         elif path[0] == "embed_tokens":
@@ -621,23 +770,12 @@ def _random_llama(cfg, dev, seed: int):
     return tree
 
 
-def phase_serve(dev, seed: int, profile: bool = False):
+def _serve(engine, prompts, label: str):
+    """``engine.generate`` over the prompts with the launch counters and
+    the telemetry registry zeroed just before; returns the outputs, the
+    launch counts, the registry and the peak device memory."""
     from apex_tpu_torch import observability as obs
-    from apex_tpu_torch.inference import InferenceEngine, models
     from apex_tpu_torch.ops import _build
-    from apex_tpu_torch.transformer.testing import LlamaConfig
-
-    cfg = LlamaConfig(**FULL_CFG)
-    t0 = time.perf_counter()
-    params = _random_llama(cfg, dev, seed)
-    torch.cuda.synchronize()
-    print(f"serve: Llama-3-8B random bf16 weights in "
-          f"{time.perf_counter() - t0:.1f} s")
-    engine = InferenceEngine("llama", cfg, params, slots=8, max_seq=4096,
-                             page_size=64, num_pages=512, device=dev)
-    rng = np.random.RandomState(seed)
-    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
-               for n in PROMPT_LENS]
     reg = obs.reset_global_registry()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -653,7 +791,7 @@ def phase_serve(dev, seed: int, profile: bool = False):
     gen_tokens = sum(len(o) for o in outs)
     decode_tokens = gen_tokens - len(outs)
     decode_s = dec.sum()
-    print(f"serve: {len(prompts)} requests, prompts {list(PROMPT_LENS)}, "
+    print(f"{label}: {len(prompts)} requests, prompts {list(PROMPT_LENS)}, "
           f"{gen_tokens} tokens in {wall:.3f} s")
     print(f"  TTFT mean {ttft.sum() / ttft.count():.4f} s, p50<= "
           f"{ttft.quantile(0.5)} s, p99<= {ttft.quantile(0.99)} s")
@@ -665,61 +803,168 @@ def phase_serve(dev, seed: int, profile: bool = False):
     if any(len(o) != NEW_TOKENS for o in outs):
         raise AssertionError(f"expected {NEW_TOKENS} tokens per request, "
                              f"got {[len(o) for o in outs]}")
-    if any(not 0 <= t < cfg.vocab_size for o in outs for t in o):
+    if any(not 0 <= t < engine.cfg.vocab_size for o in outs for t in o):
         raise AssertionError("a generated token is outside the vocab")
-    missing = [k for k in SERVE_KERNELS if launches[k] <= 0]
+    return dict(outs=outs, launches=launches, reg=reg, peak_bytes=peak,
+                ttft_mean_s=ttft.sum() / ttft.count(),
+                decode_tokens_per_s=decode_tokens / decode_s)
+
+
+N_CHECK = 8
+
+
+def _decode_logits(engine, prompt, forced=None):
+    """Prefill one prompt into slot 0 and decode ``N_CHECK - 1`` steps:
+    the ``[N_CHECK, vocab]`` logits, the engine's greedy token at each
+    step, and the tokens fed (``forced`` when given, else its own)."""
+    cache = engine.init_cache()
+    alloc = engine.new_allocator()
+    pages = alloc.acquire(alloc.pages_needed(len(prompt) + N_CHECK))
+    cache, tok, last = engine.prefill(cache, prompt, 0, pages=pages)
+    dec_logits, toks = [last], [int(tok)]
+    fed = [forced[0] if forced else toks[0]]
+    active = np.zeros((engine.slots,), bool)
+    active[0] = True
+    for i in range(1, N_CHECK):
+        feed = np.zeros((engine.slots,), np.int32)
+        feed[0] = fed[-1]
+        cache, nxt, logits, _ = engine.decode(cache, feed, active)
+        dec_logits.append(logits[0])
+        toks.append(int(nxt[0]))
+        fed.append(forced[i] if forced else toks[-1])
+    return torch.stack(dec_logits), toks, fed
+
+
+def _check_logits(label, engine, prompt, outs_row, limit, forced=None):
+    """Hold one request's engine decode logits against the port's own
+    full-forward prefill of the prompt and the tokens fed; returns the
+    decode logits, the distance and the tokens fed."""
+    from apex_tpu_torch.inference import models
+    got, toks, fed = _decode_logits(engine, prompt, forced)
+    seq = torch.tensor([prompt + fed[:-1]], dtype=torch.int32,
+                       device=engine.device)
+    with torch.no_grad():
+        full, _, _ = models.prefill_forward("llama", engine.cfg,
+                                            engine.params, seq)
+    ref = full[len(prompt) - 1:, 0].float()              # [N_CHECK, v]
+    del full
+    if not torch.isfinite(got).all() or got.shape != ref.shape:
+        raise AssertionError(f"{label}: decode logits not finite or "
+                             f"misshaped")
+    diff = (got - ref).abs().max().item()
+    top2 = ref.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * limit
+    agree = ref.argmax(-1).cpu() == torch.tensor(toks)
+    print(f"check {label} (prompt {len(prompt)}): max|decode - full| "
+          f"{diff:.4f} (limit {limit}), tokens equal at "
+          f"{int(agree.sum())}/{N_CHECK} positions, {int(decided.sum())} "
+          f"with top-2 margin > {2 * limit}; engine.generate tokens equal: "
+          f"{toks == outs_row[:N_CHECK]}")
+    if diff > limit:
+        raise AssertionError(f"{label}: decode logits off by {diff}")
+    if not bool(agree[decided.cpu()].all()):
+        raise AssertionError(f"{label}: a token with a clear top-2 margin "
+                             f"differs")
+    return got, diff, fed
+
+
+@contextlib.contextmanager
+def _plain_fused_block():
+    """Route the fused decode layers to the fused block's plain version
+    (looked up by the model module at call time)."""
+    from apex_tpu_torch.inference import models
+    pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    saved = models.fused_block_decode
+    models.fused_block_decode = pa.fused_block_reference
+    try:
+        yield
+    finally:
+        models.fused_block_decode = saved
+
+
+def phase_serve(dev, seed: int, profile: bool = False):
+    from apex_tpu_torch.inference import InferenceEngine
+    from apex_tpu_torch.transformer.testing import LlamaConfig
+
+    cfg = LlamaConfig(**FULL_CFG)
+    t0 = time.perf_counter()
+    params = _random_llama(cfg, dev, seed)
+    torch.cuda.synchronize()
+    print(f"serve: Llama-3-8B random bf16 weights in "
+          f"{time.perf_counter() - t0:.1f} s")
+    geometry = dict(slots=8, max_seq=4096, page_size=64, num_pages=512,
+                    device=dev)
+    engine = InferenceEngine("llama", cfg, params, **geometry)
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
+               for n in PROMPT_LENS]
+    served = _serve(engine, prompts, "serve")
+    launches = served["launches"]
+    missing = [k for k in SERVE_KERNELS
+               if k not in FUSED_ONLY and launches[k] <= 0]
     if missing:
         raise AssertionError(f"the serve launched no {missing} kernel")
 
+    # -- the same prompts through a fused engine on the same weights ------
+    t0 = time.perf_counter()
+    fused = InferenceEngine("llama", cfg, engine.params, decode_fusion="1",
+                            **geometry)
+    torch.cuda.synchronize()
+    layer_bytes = sum(t.numel() * t.element_size()
+                      for t in fused._fused_layers[0].values())
+    print(f"fused engine: fused layout built in "
+          f"{time.perf_counter() - t0:.1f} s, {layer_bytes / 1e6:.1f} MB a "
+          f"layer, {cfg.num_layers * layer_bytes / 1e9:.2f} GB in all")
+    fserved = _serve(fused, prompts, "fused serve")
+    flaunch = fserved["launches"]
+    steps = int(fserved["reg"].declared(
+        "infer_decode_fused_dispatch_total").total())
+    print(f"  fused decode steps {steps}: fused_block_decode launched "
+          f"{flaunch['fused_block_decode']} times (want "
+          f"{cfg.num_layers} x {steps}), paged_attention "
+          f"{flaunch['paged_attention']} times (want 0)")
+    if steps <= 0 or flaunch["fused_block_decode"] != cfg.num_layers * steps:
+        raise AssertionError("the fused serve did not run one fused block "
+                             "per layer per decode step")
+    if any(flaunch[k] for k in UNFUSED_ONLY):
+        raise AssertionError(f"the fused serve launched the unfused path: "
+                             f"{flaunch}")
+    missing = [k for k in SERVE_KERNELS
+               if k not in UNFUSED_ONLY and flaunch[k] <= 0]
+    if missing:
+        raise AssertionError(f"the fused serve launched no {missing} kernel")
+    launches = dict(launches, **{k: flaunch[k] for k in FUSED_ONLY})
+
     # -- check: engine prefill + decode against the full forward --------
-    n_check = 8
-    worst = 0.0
+    # (the fused engine is fed the unfused engine's tokens, so the two
+    # decode the same stream and their logits compare position by position)
+    worst = worst_fused = 0.0
     for idx in (0, len(prompts) - 1):
-        prompt = prompts[idx]
-        cache = engine.init_cache()
-        alloc = engine.new_allocator()
-        pages = alloc.acquire(alloc.pages_needed(len(prompt) + n_check))
-        cache, tok, last = engine.prefill(cache, prompt, 0, pages=pages)
-        dec_logits, toks = [last], [int(tok)]
-        active = np.zeros((engine.slots,), bool)
-        active[0] = True
-        for _ in range(n_check - 1):
-            feed = np.zeros((engine.slots,), np.int32)
-            feed[0] = toks[-1]
-            cache, nxt, logits, _ = engine.decode(cache, feed, active)
-            dec_logits.append(logits[0])
-            toks.append(int(nxt[0]))
-        del cache
-        seq = torch.tensor([prompt + toks[:-1]], dtype=torch.int32,
-                           device=dev)
-        with torch.no_grad():
-            full, _, _ = models.prefill_forward("llama", cfg, engine.params,
-                                                seq)
-        ref = full[len(prompt) - 1:, 0].float()          # [n_check, v]
-        got = torch.stack(dec_logits)
-        if not torch.isfinite(got).all() or got.shape != ref.shape:
-            raise AssertionError("decode logits not finite or misshaped")
-        diff = (got - ref).abs().max().item()
-        top2 = ref.topk(2, dim=-1).values
-        margin = top2[:, 0] - top2[:, 1]
-        decided = margin > 2 * TOL_LOGITS
-        agree = ref.argmax(-1).cpu() == torch.tensor(toks)
-        print(f"check request {idx} (prompt {len(prompt)}): max|decode - "
-              f"full| {diff:.4f} (limit {TOL_LOGITS}), tokens equal at "
-              f"{int(agree.sum())}/{n_check} positions, {int(decided.sum())} "
-              f"with top-2 margin > {2 * TOL_LOGITS}; engine.generate "
-              f"tokens equal: {toks == outs[idx][:n_check]}")
-        if diff > TOL_LOGITS:
-            raise AssertionError(f"decode logits off by {diff}")
-        if not bool(agree[decided.cpu()].all()):
-            raise AssertionError("a token with a clear top-2 margin differs")
-        worst = max(worst, diff)
-        del full, ref, got
+        un, d_un, fed = _check_logits(f"request {idx}", engine, prompts[idx],
+                                      served["outs"][idx], TOL_LOGITS)
+        fu, d_fu, _ = _check_logits(f"request {idx}, fused", fused,
+                                    prompts[idx], fserved["outs"][idx],
+                                    TOL_LOGITS, forced=fed)
+        print(f"  request {idx}: max|fused - unfused decode logits| "
+              f"{(fu - un).abs().max().item():.4f} (same tokens fed)")
+        worst, worst_fused = max(worst, d_un), max(worst_fused, d_fu)
+        del un, fu
+    # the same check with the fused block's plain version in place of its
+    # kernel: the distance it reads is the algorithm's, not the kernel's
+    with _plain_fused_block():
+        _, d_plain, _ = _check_logits(
+            f"request {len(prompts) - 1}, fused, plain version", fused,
+            prompts[-1], fserved["outs"][-1], TOL_LOGITS, forced=fed)
     if profile:
-        _profile(engine, prompts)
-    return dict(launches=launches, ttft_mean_s=ttft.sum() / ttft.count(),
-                decode_tokens_per_s=decode_tokens / decode_s,
-                peak_bytes=peak, logit_err=worst)
+        _profile(engine, prompts, "unfused")
+        _profile(fused, prompts, "fused", prefill=False)
+    del fused
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ttft_mean_s=served["ttft_mean_s"],
+                decode_tokens_per_s=served["decode_tokens_per_s"],
+                peak_bytes=served["peak_bytes"], logit_err=worst,
+                fused_logit_err=worst_fused, plain_fused_logit_err=d_plain,
+                fused_decode_tokens_per_s=fserved["decode_tokens_per_s"])
 
 
 def _train_setup(dev, seed: int, layers: int):
@@ -935,7 +1180,7 @@ def _device_breakdown(label, fn, reps: int, top: int = 10):
         print(f"    {ms:9.4f} ms {n:6.0f}x  {name[:90]}")
 
 
-def _profile(engine, prompts):
+def _profile(engine, prompts, label: str, prefill: bool = True):
     """Where the serve's time goes: one 2048-token cold prefill, and a
     decode step with all eight slots live."""
     cache = engine.init_cache()
@@ -945,11 +1190,12 @@ def _profile(engine, prompts):
         pages = alloc.acquire(alloc.pages_needed(len(p) + 16))
         cache, tok, _ = engine.prefill(cache, p, slot, pages=pages)
         last[slot] = int(tok)
-    longest = max(prompts, key=len)
-    spare = alloc.acquire(alloc.pages_needed(len(longest) + 16))
-    _device_breakdown(f"prefill ({len(longest)} tokens)",
-                      lambda: engine.prefill(cache, longest, 0, pages=spare),
-                      3)
+    if prefill:
+        longest = max(prompts, key=len)
+        spare = alloc.acquire(alloc.pages_needed(len(longest) + 16))
+        _device_breakdown(f"prefill ({len(longest)} tokens)",
+                          lambda: engine.prefill(cache, longest, 0,
+                                                 pages=spare), 3)
     state = {"cache": cache, "last": last}
 
     def step():
@@ -957,7 +1203,7 @@ def _profile(engine, prompts):
         state["cache"], state["last"] = c, nxt.numpy()
 
     step()
-    _device_breakdown("decode step (8 slots)", step, 5)
+    _device_breakdown(f"decode step (8 slots, {label})", step, 5)
 
 
 def main(argv=None) -> int:

@@ -2,7 +2,9 @@
 card, over the shapes and options the main paths do not reach (other
 head dims and query groups, small pages, q/k lengths that differ,
 padded validity windows, the fp32 LayerNorm paths, LayerNorm's
-backward, odd flat lengths and offset views for the unscale and Adam).
+backward, odd flat lengths and offset views for the unscale and Adam,
+the fused decode block's query groups, head dims, edge lengths, slot
+groups and its attention-only variant).
 
 A CUDA kernel has no CPU mode, so every test here takes the ``cuda``
 fixture and skips without a card.  On a machine with one (the package's
@@ -287,3 +289,105 @@ def test_fused_adam_kernel_matches_plain(cuda, adam_w, g_dtype):
     fu.fused_adam_flat(p, g, m, v, noop_flag=torch.ones((), device=cuda),
                        **kw)
     assert all(torch.equal(a, b) for a, b in zip((p, m, v), snap))
+
+
+# -- the fused decode block ----------------------------------------------
+#
+# Tolerances: y, k_tok and v_tok within 2^-6 of each output's magnitude
+# (bf16 outputs, a few ulps: the kernel and the plain version round the
+# same values at the same points, and differ by fp32 sums in another
+# order and by p rounded against a split's running maximum instead of
+# the window's), and within a relative L2 of 1e-2 each.
+
+
+def _fused_case(cuda, group, d, lengths, ps=16, mpps=20, heads=8, ffn=1376):
+    kvh, slots = heads // group, len(lengths)
+    hidden = heads * d
+    pa_ = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    from apex_tpu_torch.transformer.testing.standalone_llama import (
+        _rope_cos_sin)
+
+    def lin(i, o, seed):
+        return _randn((i, o), seed, cuda) * i ** -0.5
+
+    blk = {"ln1_w": 1 + 0.1 * _randn((1, hidden), 50, cuda),
+           "wq": lin(hidden, heads * d, 51), "wk": lin(hidden, kvh * d, 52),
+           "wv": lin(hidden, kvh * d, 53), "wo": lin(heads * d, hidden, 54),
+           "ln2_w": 1 + 0.1 * _randn((1, hidden), 55, cuda),
+           "wg": lin(hidden, ffn, 56), "wu": lin(hidden, ffn, 57),
+           "wd": lin(ffn, hidden, 58)}
+    n_pages = slots * mpps
+    pool_k = _randn((n_pages + 1, 3, kvh, ps, d), 59, cuda)
+    pool_v = _randn((n_pages + 1, 3, kvh, ps, d), 60, cuda)
+    perm = np.random.RandomState(61).permutation(n_pages)
+    table = np.full((slots, mpps), n_pages, np.int32)
+    cursor = 0
+    for s_, n in enumerate(lengths):
+        need = min(-(-n // ps), mpps)
+        table[s_, :need] = perm[cursor:cursor + need]
+        cursor += need
+    cos_t, sin_t = _rope_cos_sin(mpps * ps, d, 500000.0, device=cuda)
+    pos = torch.clamp(torch.tensor(lengths, device=cuda), max=mpps * ps - 1)
+    return pa_, (_randn((slots, hidden), 62, cuda), blk, pool_k[:, 1],
+                 pool_v[:, 1], torch.from_numpy(table).to(cuda),
+                 torch.tensor(lengths, dtype=torch.int32, device=cuda)), \
+        dict(kind="llama", eps=1e-5, cos=cos_t.reshape(-1, d)[pos],
+             sin=sin_t.reshape(-1, d)[pos])
+
+
+def _assert_fused_close(got, ref):
+    for name, g, r in zip(("y", "k_tok", "v_tok"), got, ref):
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape, name
+        assert _maxdiff(g, r) <= 2.0 ** -6 * r.float().abs().max().item(), name
+        assert _rel_l2(g, r) <= 1e-2, name
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_fused_block_kernel_matches_plain(cuda, group, d):
+    """Lengths 0, 1, ps - 1, ps and the full window (two 256-token
+    splits, the second partial) of a strided 3-layer pool view."""
+    pa_, args, kw = _fused_case(cuda, group, d, [0, 1, 15, 16, 320])
+    before = _build.launch_counts()["fused_block_decode"]
+    got = pa_.fused_block_decode(*args, **kw)
+    assert _build.launch_counts()["fused_block_decode"] == before + 1
+    ref = pa_.fused_block_reference(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_fused_close(got, ref)
+
+
+@pytest.mark.parametrize("ln_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fuse_mlp", [True, False])
+def test_fused_block_kernel_slot_groups_and_attention_only(cuda, fuse_mlp,
+                                                           ln_dtype):
+    """Ten slots (two passes of eight over each weight tile), lengths past
+    the window clamp to it; without the MLP, y = x + attention; the norm
+    weights in bf16 or fp32."""
+    lengths = [0, 3, 64, 65, 100, 200, 319, 320, 400, 7]
+    pa_, args, kw = _fused_case(cuda, 4, 128, lengths)
+    blk = args[1]
+    for n in ("ln1_w", "ln2_w"):
+        blk[n] = blk[n].to(ln_dtype)
+    got = pa_.fused_block_decode(*args, fuse_mlp=fuse_mlp, **kw)
+    ref = pa_.fused_block_reference(*args, fuse_mlp=fuse_mlp, **kw)
+    torch.cuda.synchronize()
+    _assert_fused_close(got, ref)
+
+
+def test_fused_block_kernel_refuses_what_it_does_not_take(cuda):
+    pa_, (x, blk, kp, vp, table, lengths), kw = _fused_case(
+        cuda, 2, 64, [0, 5, 16])
+    before = _build.launch_counts()["fused_block_decode"]
+    with pytest.raises(TypeError, match="bfloat16"):
+        pa_.fused_block_decode(x.float(), blk, kp, vp, table, lengths, **kw)
+    bad = dict(blk, wq=blk["wq"].T.contiguous().T)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa_.fused_block_decode(x, bad, kp, vp, table, lengths, **kw)
+    _, (x3, blk3, kp3, vp3, t3, l3), kw3 = _fused_case(cuda, 3, 64,
+                                                        [0, 5, 16], heads=6)
+    with pytest.raises(ValueError, match="group"):
+        pa_.fused_block_decode(x3, blk3, kp3, vp3, t3, l3, **kw3)
+    with pytest.raises(NotImplementedError, match="GPT serving"):
+        pa_.fused_block_decode(x, blk, kp, vp, table, lengths,
+                               **dict(kw, kind="gpt"))
+    assert _build.launch_counts()["fused_block_decode"] == before

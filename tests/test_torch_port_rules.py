@@ -18,6 +18,7 @@ from apex_tpu_torch.inference.kv_cache import init_paged_cache
 from apex_tpu_torch.inference.weights import llama_param_shapes
 from apex_tpu_torch.ops import (_build, flash_attention, fused_adam_flat,
                                 fused_scale, paged_decode_attention, rms_norm)
+from apex_tpu_torch.ops.paged_attention import fused_block_decode
 from apex_tpu_torch.transformer.testing import LlamaConfig
 
 from _torch_isolation import restore_torch_from_amp  # noqa: F401
@@ -91,6 +92,25 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     assert eng.device.type == "cpu" and eng.init_cache().k.device.type == "cpu"
 
 
+def _fused_args(hidden=32, h=4, kvh=2, d=8, ffn=48):
+    """A tiny fused-layout layer on the CPU and its pool operands."""
+    g = torch.Generator().manual_seed(0)
+    blk = {n: torch.randn(shape, generator=g) for n, shape in (
+        ("ln1_w", (1, hidden)), ("wq", (hidden, h * d)),
+        ("wk", (hidden, kvh * d)), ("wv", (hidden, kvh * d)),
+        ("wo", (h * d, hidden)), ("ln2_w", (1, hidden)),
+        ("wg", (hidden, ffn)), ("wu", (hidden, ffn)), ("wd", (ffn, hidden)))}
+    pool = torch.randn(3, kvh, 4, d, generator=g)
+    return (torch.randn(1, hidden, generator=g), blk, pool, pool,
+            torch.zeros(1, 2, dtype=torch.int32),
+            torch.tensor([5], dtype=torch.int32))
+
+
+def _fused_kw(**kw):
+    return dict(dict(kind="llama", eps=1e-5, cos=torch.ones(1, 8),
+                     sin=torch.zeros(1, 8)), **kw)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     _build.reset_launch_counts()
     x = torch.randn(4, 96, requires_grad=True)
@@ -106,31 +126,42 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     fused_adam_flat(flat, torch.randn(100), torch.zeros(100),
                     torch.zeros(100), lr=1e-3, beta1=0.9, beta2=0.999,
                     eps=1e-8, weight_decay=0.0, step=1.0)
+    y, kt, vt = fused_block_decode(*_fused_args(), **_fused_kw())
+    assert tuple(y.shape) == (1, 32) and tuple(kt.shape) == (1, 2, 8)
     assert _build.launch_counts() == {
         "layer_norm": 0, "layer_norm_bwd": 0, "flash_attention": 0,
         "flash_attention_bwd": 0, "paged_attention": 0, "fused_scale": 0,
-        "fused_adam": 0}
+        "fused_adam": 0, "fused_block_decode": 0}
     assert _build._LIB is None              # nothing was built or loaded
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(kind="gpt"), "GPT serving"),
-    (dict(kind="bert"), "GPT serving"),
-    (dict(page_size=None), "dense cache"),
-    (dict(tp=2), "tp and spec"),
-    (dict(spec_k=2), "tp and spec"),
-    (dict(decode_fusion="1"), "decode fusion"),
-    (dict(decode_fusion="auto"), "decode fusion"),
-    (dict(host_tier_bytes=1 << 20), "host page tier"),
-])
-def test_out_of_slice_configurations_raise(kwargs, match):
+def _engine(**kwargs):
     kw = dict(kind="llama", slots=1, page_size=16, device="cpu")
     kw.update(kwargs)
     if kw["page_size"] is None:
         del kw["page_size"]
     kind = kw.pop("kind")
+    return lambda: InferenceEngine(kind, CFG, _params(), **kw)
+
+
+def _fused(**kwargs):
+    return lambda: fused_block_decode(*_fused_args(), **_fused_kw(**kwargs))
+
+
+@pytest.mark.parametrize("call,match", [
+    (_engine(kind="gpt"), "GPT serving"),
+    (_engine(kind="bert"), "GPT serving"),
+    (_engine(page_size=None), "dense cache"),
+    (_engine(tp=2), "tp and spec"),
+    (_engine(spec_k=2), "tp and spec"),
+    (_engine(decode_fusion="1", tp=2), "tp and spec"),
+    (_fused(partial_out=True, fuse_mlp=False), "tp and spec"),
+    (_fused(kind="gpt"), "GPT serving"),
+    (_engine(host_tier_bytes=1 << 20), "host page tier"),
+])
+def test_out_of_slice_configurations_raise(call, match):
     with pytest.raises(NotImplementedError, match=match):
-        InferenceEngine(kind, CFG, _params(), **kw)
+        call()
 
 
 def test_env_knobs_cannot_silently_select_an_unported_path(monkeypatch):
@@ -145,7 +176,7 @@ def test_every_kernel_source_exists_and_exports_its_entry():
     with a ctypes signature, names the TPU kernels it replaces, and
     every kernel has its own launch counter."""
     assert sorted(_build.KERNELS) == sorted(_build.launch_counts())
-    assert len(_build.KERNELS) == 7
+    assert len(_build.KERNELS) == 8
     for src, entries in _build.SOURCES.items():
         text = (PORT / "csrc" / src).read_text()
         assert "Replaces: apex_tpu/ops/" in text
