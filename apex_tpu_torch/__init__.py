@@ -17,7 +17,10 @@ forward, causal flash-attention forward and paged decode-attention
 kernels — and the training slice — the LLaMA model trained at tp = 1
 by the flat-native ``train_step.make_train_step`` with dynamic loss
 scaling and fused Adam, adding the norm backward, flash backward,
-unscale and Adam kernels.  Importing this package imports neither
+unscale and Adam kernels — fused-block decode (one kernel a decoder
+layer), and the optimizer family: the LAMB, SGD, Adagrad and NovoGrad
+rules and ``contrib.clip_grad_norm_``, on the L2 norm, LAMB phase-1,
+SGD and Adagrad kernels.  Importing this package imports neither
 ``jax`` nor ``apex_tpu``.
 """
 from apex_tpu_torch.utils import cdiv, resolve_device, round_up

@@ -16,7 +16,8 @@ show that its main path went through the kernels:
 :func:`reset_launch_counts` before the run, :func:`launch_counts`
 after it.  Counters are per kernel, not per source: a source may hold
 several kernels (``layer_norm.cu`` the forward and the backward,
-``fused_update.cu`` the unscale and Adam).  ``fused_block_decode.cu``
+``fused_update.cu`` the unscale, Adam, the L2 norm, LAMB's
+phase 1, SGD and Adagrad).  ``fused_block_decode.cu``
 is one cooperative launch per decoder layer; its entry, called with a
 null workspace, reports the workspace size without launching.
 
@@ -50,7 +51,11 @@ SOURCES = {
     "paged_attention.cu": {
         "paged_attention": "apex_paged_decode_attention"},
     "fused_update.cu": {"fused_scale": "apex_fused_scale",
-                        "fused_adam": "apex_fused_adam"},
+                        "fused_adam": "apex_fused_adam",
+                        "fused_l2norm": "apex_fused_l2norm",
+                        "fused_lamb1": "apex_fused_lamb1",
+                        "fused_sgd": "apex_fused_sgd",
+                        "fused_adagrad": "apex_fused_adagrad"},
     "fused_block_decode.cu": {
         "fused_block_decode": "apex_fused_block_decode"},
 }
@@ -93,6 +98,14 @@ _SIGNATURES = {
     "apex_fused_scale": [_P, _P, _P, _P, _L, _I, _I, _P],
     # p, g, m, v, hp, n, g_dtype, adam_w, stream
     "apex_fused_adam": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
+    # x, partials, out, n, parts_cap, x_dtype, stream
+    "apex_fused_l2norm": [_P, _P, _P, _L, _I, _I, _P],
+    # p, g, m, v, u, hp, n, g_dtype, stream
+    "apex_fused_lamb1": [_P, _P, _P, _P, _P, _P, _L, _I, _P],
+    # p, g, buf, hp, n, g_dtype, nesterov, wd_after, stream
+    "apex_fused_sgd": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+    # p, g, h, hp, n, g_dtype, w_mode, stream
+    "apex_fused_adagrad": [_P, _P, _P, _P, _L, _I, _I, _P],
     # x, cos, sin, ln1_w, wq, wk, wv, wo, ln2_w, wg, wu, wd, k_pages,
     # v_pages, page_table, lengths, y, kt, vt, ws, ws_bytes, clock, slots,
     # hidden, heads, kvh, d, ffn, ps, mpps, page_stride, fuse_mlp, ln_fp32,

@@ -22,14 +22,18 @@ from buffers (:class:`FlatParams`):
 amp runs on the device: the loss is scaled before the backward, the
 flat grads are unscaled in place by the fused non-finite-detecting
 kernel (:func:`apex_tpu_torch.amp.scaler.unscale_flat_grads`), the
-overflow flag is the Adam kernel's ``noop_flag``, and the scale
-schedule is device arithmetic — nothing is read back to the host
-between the end of the backward and the new state.
+overflow flag is the update's ``noop_flag``, and the scale schedule
+is device arithmetic — nothing is read back to the host between the
+end of the backward and the new state.  The step is rule-agnostic: it
+calls ``tx.update(opt, flat_grads, noop_flag=...)``, so any rule of
+:mod:`apex_tpu_torch.optimizers.functional` (Adam, LAMB, SGD,
+NovoGrad, Adagrad) drives it, and ``grad_transform`` may be the grad
+clipper (``lambda g: contrib.clip_grad_norm_(g, 1.0)[0]``).
 
 Typical use::
 
     model = llama_model_provider(cfg)                 # on the card
-    tx = functional.fused_adam(lr=1e-4)
+    tx = functional.fused_adam(lr=1e-4)               # or fused_lamb(...)
     state = init_train_state(tx, model, loss_scale="dynamic")
     step = make_train_step(lambda m, b: m(b["tokens"], b["labels"]), tx)
     state, loss = step(state, batch)

@@ -15,8 +15,10 @@
    ``[1, 32, 2048, 128]`` with k/v broadcast from 8 kv heads; paged
    decode over 8 slots of page size 64 with lengths 0..4096 in a
    32-layer pool; the fused decode block, one random Llama-3-8B layer
-   over the same pool; the amp unscale and Adam over the 1.923e9-element
-   flat fp32 buffers of the 4-layer training model).  Prints the max
+   over the same pool; the amp unscale, Adam, the L2 norm, LAMB's phase
+   1, SGD and Adagrad over the 1.923e9-element flat fp32 buffers of the
+   4-layer training model, with the norm's run-to-run bit identity and
+   the update kernels' noop bit identity).  Prints the max
    |diff| against its stated limit, the kernel's time, its bound (the
    larger of bytes over 3.35 TB/s and operations over the peak rate of
    their type — 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s fp32
@@ -52,16 +54,24 @@
    ``torch.Generator`` at the JAX package's init scales, an fp32
    master, ``fused_adam(lr=1e-4)`` and ``loss_scale="dynamic"``, six
    ``make_train_step`` steps on one fixed batch of 2048 seeded tokens;
-   the loss must fall and stay finite.  The segment from the end of the
-   backward to the new state runs under
-   ``torch.cuda.set_sync_debug_mode("error")``.  Prints step time
-   (median of steps 2-6), tokens/s, the model-flops share of the step,
-   peak device memory and the launches per step; every training kernel
-   must have launched.
+   the loss must fall and stay finite.  Then the same six steps under
+   ``fused_lamb(lr=1e-4, weight_decay=0.01, max_grad_norm=1.0)``, which
+   must launch its phase 1 once and the norm 1 + 2 per leaf times a
+   step; then 1 layer, three steps each, under ``fused_sgd`` (momentum
+   0.9, nesterov, no loss scale, ``contrib.clip_grad_norm_`` as the
+   grad transform) and ``fused_adagrad(lr=1e-2)``.  In every run the
+   segment from the end of the backward to the new state runs under
+   ``torch.cuda.set_sync_debug_mode("error")``.  Prints each run's step
+   time (median of steps 2 on), tokens/s, the model-flops share of the
+   step, peak device memory and the launches per step; each run's
+   kernels must have launched.
 7. **Train-check.**  The same widths with 1 layer: one step's flat
    grads and loss through the kernels against the same step recomputed
    through the plain versions (a relative L2 limit on every parameter's
-   slice of the flat grads, an absolute loss limit).
+   slice of the flat grads, an absolute loss limit).  Then for LAMB,
+   SGD and Adagrad: one update from two clones of a warm state, through
+   the kernels and through their plain versions, every leaf of master
+   and slots within a relative limit.
 
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed phase raises, so the
@@ -112,6 +122,12 @@ TOL_FUSED_REL_L2 = 1e-2
 #: of |p| <= ~5)
 TOL_NORM_DW_REL = 1e-3
 TOL_ADAM = 2e-6
+#: the optimizer family: the L2 norm's fp32 sum of squares over 1.9e9
+#: elements in another order than the plain version's (1e-6 relative);
+#: LAMB phase 1, SGD, Adagrad as Adam (a multiply-add contracted or
+#: not), each output within 1e-6 of its largest magnitude
+TOL_L2NORM_REL = 1e-6
+TOL_UPDATE_REL = 1e-6
 #: flash dq/dk/dv (fp32 accumulation, p and ds rounded to bf16 on both
 #: sides, dq summed by atomics in any order) are held element by
 #: element, |got - ref| <= RTOL |ref| + ATOL (two bf16 ulps of the
@@ -130,11 +146,31 @@ FUSED_ONLY = ("fused_block_decode",)
 UNFUSED_ONLY = ("paged_attention",)
 TRAIN_KERNELS = ("layer_norm", "layer_norm_bwd", "flash_attention",
                  "flash_attention_bwd", "fused_scale", "fused_adam")
+#: the optimizer runs of the train phase: the kernels each must launch,
+#: and the run whose launches each kernel reports (the rest: "adam")
+RULE_KERNELS = {"lamb": ("fused_l2norm", "fused_lamb1"),
+                "sgd": ("fused_l2norm", "fused_sgd"),
+                "adagrad": ("fused_adagrad",)}
+KERNEL_RUN = {"fused_l2norm": "lamb", "fused_lamb1": "lamb",
+              "fused_sgd": "sgd", "fused_adagrad": "adagrad"}
 #: the 4-layer training model (Llama-3-8B widths) and its batch
 TRAIN_LAYERS = 4
 TRAIN_SEQ = 2048
 TRAIN_STEPS = 6
 TRAIN_LR = 1e-4
+#: the LAMB run (4 layers, six steps) and the 1-layer SGD (with the grad
+#: clipper, no loss scale) and Adagrad runs, three steps each
+LAMB_KW = dict(lr=TRAIN_LR, weight_decay=0.01, max_grad_norm=1.0)
+SGD_KW = dict(lr=0.1, momentum=0.9, nesterov=True)
+ADAGRAD_KW = dict(lr=1e-2)
+SGD_CLIP = 1.0
+RULE_LAYERS, RULE_STEPS = 1, 3
+#: train-check of the update rules (1 layer): one update through the
+#: kernels vs the same update through the plain versions, from clones of
+#: one state, each leaf of master and slots within 1e-6 of its largest
+#: magnitude (the norms are summed in another order: LAMB's clip factor
+#: and trust ratios agree to a few fp32 ulps)
+TOL_RULE_CHECK_REL = 1e-6
 #: train-check (1 layer): flat grads through the kernels vs through the
 #: plain versions, bf16 activations rounded at different points in the
 #: two (and atomics in dq), so a relative L2 of a few 1e-3 in every
@@ -410,6 +446,10 @@ def phase_kernels(dev, gen):
     del pool_k, pool_v, kp, vp
     torch.cuda.empty_cache()
     _train_kernels(dev, gen, recs)
+    # its own generator again: the kernels above keep their inputs
+    ogen = torch.Generator(device=dev)
+    ogen.manual_seed(gen.initial_seed() + 2)
+    _optimizer_kernels(dev, ogen, recs)
     for r in recs.values():
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms (eager call, host "
               f"included, {r.pop('eager_ms'):.4f} ms), bound "
@@ -744,6 +784,172 @@ def _train_kernels(dev, gen, recs):
     torch.cuda.empty_cache()
 
 
+def _max_rel_err(pairs):
+    """``(max |got - ref|, max |ref|)`` over ``(got, ref)`` pairs."""
+    err = ref_max = 0.0
+    for got, ref in pairs:
+        err = max(err, (got - ref).abs().max().item())
+        ref_max = max(ref_max, ref.abs().max().item())
+    return err, ref_max
+
+
+def _check_update(name, fu_ref, outs, ins, hp, flags, n, chunk):
+    """Hold each output of an update kernel against its plain version,
+    slice by slice (``fu_ref(*ins, hp, *flags)`` on the same slices);
+    returns the largest max |diff|."""
+    worst = 0.0
+    for k, out in enumerate(outs):
+        err, ref_max = _max_rel_err(
+            (out[i:i + chunk],
+             fu_ref(*(t[i:i + chunk] for t in ins), hp, *flags)[k])
+            for i in range(0, n, chunk))
+        _check(f"{name} output {k}", err, TOL_UPDATE_REL * ref_max)
+        worst = max(worst, err)
+    return worst
+
+
+def _optimizer_kernels(dev, gen, recs):
+    """The optimizer family's four kernels against their plain versions
+    at the train phase's flat shape (1.923e9 fp32 elements), with the
+    noop bit-identity of the three update kernels."""
+    fu = importlib.import_module("apex_tpu_torch.ops.fused_update")
+    n = _train_numel()
+    chunk = 1 << 27
+    one = torch.ones((), device=dev)
+    src = "apex_tpu_torch/csrc/fused_update.cu"
+
+    # -- the L2 norm (LAMB's global and per-leaf norms, the clipper) ------
+    print(f"fused_l2norm over a flat fp32 buffer [{n}]")
+    x = torch.randn(n, generator=gen, device=dev)
+    got = fu.fused_l2norm(x)
+    ref = torch.empty((), device=dev)
+    fu._l2norm_plain(x, ref)
+    err = abs(got.item() - ref.item())
+    _check("fused_l2norm", err, TOL_L2NORM_REL * ref.item())
+    if not all(torch.equal(fu.fused_l2norm(x), got) for _ in range(3)):
+        raise AssertionError("fused_l2norm differs from run to run")
+    print(f"  norm {got.item():.9g}, the same bits in 3 more runs")
+    recs["fused_l2norm"] = dict(
+        name="fused_l2norm", route="cuda", source=src,
+        replaces="apex_tpu/ops/fused_update.py:206", max_abs_err=err,
+        ms=_time_ms(lambda: fu.fused_l2norm(x), 8),
+        plain_ms=_time_ms(lambda: fu._l2norm_plain(x, ref), 1),
+        library_ms=_time_ms(lambda: torch.linalg.vector_norm(x), 8),
+        eager_ms=_eager_ms(lambda: fu.fused_l2norm(x), 8))
+    recs["fused_l2norm"]["bound_ms"], recs["fused_l2norm"]["bound_by"] = \
+        _bound(4 * n, 2 * n, FP32_FLOPS_PER_S)
+    del x
+    torch.cuda.empty_cache()
+
+    # -- LAMB phase 1 over p, g, m, v -> m, v, u [1.923e9] -----------------
+    print(f"fused_lamb_phase1_flat over flat fp32 p, g, m, v, u [{n}]")
+    p = torch.randn(n, generator=gen, device=dev)
+    g = torch.randn(n, generator=gen, device=dev)
+    m = 0.1 * torch.randn(n, generator=gen, device=dev)
+    v = torch.rand(n, generator=gen, device=dev).mul_(0.01).add_(0.01)
+    u = torch.empty_like(p)
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01,
+              step=torch.full((), 3.0, device=dev),
+              grad_scale=torch.full((), 0.5, device=dev))
+    hp = fu._lamb1_hparams(dev, noop_flag=0.0, bias_correction=True,
+                           grad_averaging=True, **kw)
+    m0, v0 = m.clone(), v.clone()
+    fu.fused_lamb_phase1_flat(p, g, m, v, u=u, **kw)
+    err = _check_update("fused_lamb1", fu._lamb1_kernel_reference,
+                        (m, v, u), (p, g, m0, v0), hp, (), n, chunk)
+    m0.copy_(m)
+    v0.copy_(v)
+    fu.fused_lamb_phase1_flat(p, g, m, v, u=u, noop_flag=one, **kw)
+    if not (torch.equal(m, m0) and torch.equal(v, v0)
+            and not bool(u.any())):
+        raise AssertionError("the LAMB noop changed m or v, or left u")
+    del m0, v0
+    recs["fused_lamb1"] = dict(
+        name="fused_lamb_phase1", route="cuda", source=src,
+        replaces="apex_tpu/ops/fused_update.py:495", max_abs_err=err,
+        ms=_time_ms(lambda: fu.fused_lamb_phase1_flat(p, g, m, v, u=u, **kw),
+                    4),
+        plain_ms=_time_ms(lambda: _chunked(
+            lambda sl: fu._lamb1_kernel_reference(p[sl], g[sl], m[sl], v[sl],
+                                                  hp), n, chunk), 1),
+        library_ms=None,
+        eager_ms=_eager_ms(lambda: fu.fused_lamb_phase1_flat(
+            p, g, m, v, u=u, **kw), 4))
+    recs["fused_lamb1"]["bound_ms"], recs["fused_lamb1"]["bound_by"] = \
+        _bound(28 * n, 16 * n, FP32_FLOPS_PER_S)
+    del m, v, u
+    torch.cuda.empty_cache()
+
+    # -- SGD (momentum 0.9, nesterov) over p, g, buf [1.923e9] -------------
+    print(f"fused_sgd_flat over flat fp32 p, g, buf [{n}]")
+    buf = torch.randn(n, generator=gen, device=dev)
+    kw = dict(lr=SGD_KW["lr"], momentum=SGD_KW["momentum"], dampening=0.0,
+              weight_decay=0.0, first_run=torch.zeros((), device=dev),
+              grad_scale=1.0)
+    hp = fu._sgd_hparams(dev, noop_flag=0.0, **kw)
+    p0, b0 = p.clone(), buf.clone()
+    fu.fused_sgd_flat(p, g, buf, nesterov=True, **kw)
+    err = _check_update("fused_sgd", fu._sgd_kernel_reference, (p, buf),
+                        (p0, g, b0), hp, (True, False), n, chunk)
+    p0.copy_(p)
+    b0.copy_(buf)
+    fu.fused_sgd_flat(p, g, buf, nesterov=True, noop_flag=one, **kw)
+    if not (torch.equal(p, p0) and torch.equal(buf, b0)):
+        raise AssertionError("the SGD noop changed p or buf")
+    del p0, b0
+    recs["fused_sgd"] = dict(
+        name="fused_sgd", route="cuda", source=src,
+        replaces="apex_tpu/ops/fused_update.py:427", max_abs_err=err,
+        ms=_time_ms(lambda: fu.fused_sgd_flat(p, g, buf, nesterov=True,
+                                              **kw), 4),
+        plain_ms=_time_ms(lambda: _chunked(
+            lambda sl: fu._sgd_kernel_reference(p[sl], g[sl], buf[sl], hp,
+                                                True, False), n, chunk), 1),
+        library_ms=_time_ms(lambda: torch._fused_sgd_(
+            [p], [g], [buf], weight_decay=0.0, momentum=SGD_KW["momentum"],
+            lr=SGD_KW["lr"], dampening=0.0, nesterov=True, maximize=False,
+            is_first_step=False), 4),
+        eager_ms=_eager_ms(lambda: fu.fused_sgd_flat(p, g, buf,
+                                                     nesterov=True, **kw), 4))
+    recs["fused_sgd"]["bound_ms"], recs["fused_sgd"]["bound_by"] = \
+        _bound(20 * n, 7 * n, FP32_FLOPS_PER_S)
+    del buf
+    torch.cuda.empty_cache()
+
+    # -- Adagrad over p, g, h [1.923e9] ------------------------------------
+    print(f"fused_adagrad_flat over flat fp32 p, g, h [{n}]")
+    h = torch.rand(n, generator=gen, device=dev)
+    kw = dict(lr=ADAGRAD_KW["lr"], eps=1e-10, weight_decay=0.0,
+              grad_scale=1.0)
+    hp = fu._adagrad_hparams(dev, noop_flag=0.0, **kw)
+    p0, h0 = p.clone(), h.clone()
+    fu.fused_adagrad_flat(p, g, h, **kw)
+    err = _check_update("fused_adagrad", fu._adagrad_kernel_reference,
+                        (p, h), (p0, g, h0), hp, (False,), n, chunk)
+    p0.copy_(p)
+    h0.copy_(h)
+    fu.fused_adagrad_flat(p, g, h, noop_flag=one, **kw)
+    if not (torch.equal(p, p0) and torch.equal(h, h0)):
+        raise AssertionError("the Adagrad noop changed p or h")
+    del p0, h0
+    steps = torch.zeros((), device=dev)
+    recs["fused_adagrad"] = dict(
+        name="fused_adagrad", route="cuda", source=src,
+        replaces="apex_tpu/ops/fused_update.py:375", max_abs_err=err,
+        ms=_time_ms(lambda: fu.fused_adagrad_flat(p, g, h, **kw), 4),
+        plain_ms=_time_ms(lambda: _chunked(
+            lambda sl: fu._adagrad_kernel_reference(p[sl], g[sl], h[sl], hp,
+                                                    False), n, chunk), 1),
+        library_ms=_time_ms(lambda: torch._fused_adagrad_(
+            [p], [g], [h], [steps], lr=ADAGRAD_KW["lr"], lr_decay=0.0,
+            weight_decay=0.0, eps=1e-10, maximize=False), 4),
+        eager_ms=_eager_ms(lambda: fu.fused_adagrad_flat(p, g, h, **kw), 4))
+    recs["fused_adagrad"]["bound_ms"], recs["fused_adagrad"]["bound_by"] = \
+        _bound(20 * n, 7 * n, FP32_FLOPS_PER_S)
+    del p, g, h
+    torch.cuda.empty_cache()
+
+
 def _random_llama(cfg, dev, seed: int, only=None):
     """Llama-3-8B-shaped tree of random bf16 weights from a seeded
     generator: linears N(0, 1/fan_in), norms 1 + N(0, 0.1^2), the
@@ -967,10 +1173,11 @@ def phase_serve(dev, seed: int, profile: bool = False):
                 fused_decode_tokens_per_s=fserved["decode_tokens_per_s"])
 
 
-def _train_setup(dev, seed: int, layers: int):
+def _train_setup(dev, seed: int, layers: int, tx=None,
+                 loss_scale="dynamic"):
     """The training model at Llama-3-8B widths and ``layers`` deep, bf16
-    parameters drawn from a seeded generator, its train state and step,
-    and one fixed batch of seeded tokens."""
+    parameters drawn from a seeded generator, its train state for ``tx``
+    (default: Adam) and one fixed batch of seeded tokens."""
     from apex_tpu_torch import train_step
     from apex_tpu_torch.optimizers import functional
     from apex_tpu_torch.transformer.testing import (LlamaConfig,
@@ -981,8 +1188,8 @@ def _train_setup(dev, seed: int, layers: int):
     gen.manual_seed(seed)
     model = llama_model_provider(cfg, device=dev)
     model.reset_parameters(generator=gen)
-    tx = functional.fused_adam(lr=TRAIN_LR)
-    state = train_step.init_train_state(tx, model, loss_scale="dynamic")
+    tx = functional.fused_adam(lr=TRAIN_LR) if tx is None else tx
+    state = train_step.init_train_state(tx, model, loss_scale=loss_scale)
     tokens = torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ + 1),
                            generator=gen, device=dev)
     batch = {"tokens": tokens[:, :-1].contiguous(),
@@ -994,30 +1201,37 @@ def _train_loss(model, batch):
     return model(batch["tokens"], batch["labels"])
 
 
-def phase_train(dev, seed: int, profile: bool = False):
-    """Six steps of the 4-layer model; returns the launch counts."""
+def _train_run(dev, seed: int, label: str, tx, layers: int, steps: int,
+               loss_scale, kernels, transform=None, profile: bool = False):
+    """``steps`` steps of the ``layers``-deep model under ``tx`` with the
+    launch counters zeroed just before; the segment from the flat grads
+    (``transform``, then the unscale, the update and the scale update)
+    runs under ``set_sync_debug_mode("error")``.  Returns the launch
+    counts, step time, peak memory, losses and the leaf count."""
     from apex_tpu_torch.ops import _build
     t0 = time.perf_counter()
     cfg, model, tx, state, batch, train_step = _train_setup(
-        dev, seed, TRAIN_LAYERS)
+        dev, seed, layers, tx, loss_scale)
     torch.cuda.synchronize()
     n = state.opt.master.numel()
-    print(f"train: Llama-3-8B widths, {TRAIN_LAYERS} layers, {n} "
-          f"parameters (bf16 params, fp32 master), set up in "
-          f"{time.perf_counter() - t0:.1f} s")
+    leaves = len(state.opt.sizes)
+    print(f"train {label}: Llama-3-8B widths, {layers} layers, {n} "
+          f"parameters in {leaves} leaves (bf16 params, fp32 master), "
+          f"{type(tx).__name__.strip('_')}, loss scale {loss_scale}, set up "
+          f"in {time.perf_counter() - t0:.1f} s")
 
     def strict(flat_grads):
         # from here (the flat grads of the backward) to the new state:
-        # unscale, Adam and the scale update must not sync
+        # the transform, unscale, update and scale update must not sync
         torch.cuda.set_sync_debug_mode("error")
-        return flat_grads
+        return flat_grads if transform is None else transform(flat_grads)
 
     step = train_step.make_train_step(_train_loss, tx, grad_transform=strict)
     losses, times = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         try:
             state, loss = step(state, batch)
@@ -1033,40 +1247,78 @@ def phase_train(dev, seed: int, profile: bool = False):
     heads = cfg.num_attention_heads
     hd = cfg.hidden_size // heads
     matmul_params = n - cfg.vocab_size * cfg.hidden_size \
-        - (2 * TRAIN_LAYERS + 1) * cfg.hidden_size
+        - (2 * layers + 1) * cfg.hidden_size
     # 6 N T for the weight GEMMs (the embedding table and norms do no
     # GEMM), and 3x the causal forward's two attention products
     model_flops = 6 * matmul_params * tokens + 3 * (
-        4 * TRAIN_SEQ * TRAIN_SEQ * hd * heads / 2) * TRAIN_LAYERS
-    print(f"train on {_smi()}: losses {[round(x, 4) for x in losses]}")
+        4 * TRAIN_SEQ * TRAIN_SEQ * hd * heads / 2) * layers
+    print(f"train {label} on {_smi()}: losses "
+          f"{[round(x, 4) for x in losses]}")
     print(f"  step times {[round(t, 4) for t in times]} s; median of steps "
-          f"2-{TRAIN_STEPS} {step_s:.4f} s = {tokens / step_s:.1f} tokens/s")
+          f"2-{steps} {step_s:.4f} s = {tokens / step_s:.1f} tokens/s")
     print(f"  model flops {model_flops / 1e12:.3f} TFLOP per step = "
           f"{100 * model_flops / step_s / BF16_FLOPS_PER_S:.1f}% of 989 "
           f"TFLOP/s")
     print(f"  peak device memory {peak / 2**30:.2f} GiB")
     print(f"  kernel launches per step: "
-          f"{ {k: v / TRAIN_STEPS for k, v in launches.items()} }")
-    print(f"  loss scale {state.scaler.loss_scale.item()}, count "
-          f"{state.opt.count.item()}")
+          f"{ {k: v / steps for k, v in launches.items() if v} }")
+    scale = "none" if state.scaler is None else state.scaler.loss_scale.item()
+    print(f"  loss scale {scale}, count {state.opt.count.item()}")
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss: {losses}")
+        raise AssertionError(f"{label}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"the loss did not fall: {losses}")
-    missing = [k for k in TRAIN_KERNELS if launches[k] <= 0]
+        raise AssertionError(f"{label}: the loss did not fall: {losses}")
+    missing = [k for k in kernels if launches[k] <= 0]
     if missing:
-        raise AssertionError(f"the train steps launched no {missing} kernel")
+        raise AssertionError(f"{label}: the train steps launched no "
+                             f"{missing} kernel")
     if profile:
         def one():
             nonlocal state
             state, _ = train_step.make_train_step(_train_loss, tx)(state,
                                                                    batch)
-        _device_breakdown("train step (4 layers, 2048 tokens)", one, 2,
-                          top=16)
+        _device_breakdown(f"train step ({label}, {layers} layers, "
+                          f"{TRAIN_SEQ} tokens)", one, 2, top=16)
     del model, state, step
     torch.cuda.empty_cache()
     return dict(launches=launches, step_s=step_s, peak_bytes=peak,
-                losses=losses)
+                losses=losses, leaves=leaves)
+
+
+def phase_train(dev, seed: int, profile: bool = False):
+    """The 4-layer model six steps under Adam and under LAMB, then the
+    1-layer model three steps under SGD (nesterov, with the grad clipper
+    as the grad transform, no loss scale) and under Adagrad; returns each
+    run's record by rule."""
+    from apex_tpu_torch.contrib import clip_grad_norm_
+    from apex_tpu_torch.optimizers import functional
+    runs = {"adam": _train_run(
+        dev, seed, "adam", functional.fused_adam(lr=TRAIN_LR), TRAIN_LAYERS,
+        TRAIN_STEPS, "dynamic", TRAIN_KERNELS, profile=profile)}
+    runs["lamb"] = _train_run(
+        dev, seed, "lamb", functional.fused_lamb(**LAMB_KW), TRAIN_LAYERS,
+        TRAIN_STEPS, "dynamic", RULE_KERNELS["lamb"], profile=profile)
+    lamb = runs["lamb"]["launches"]
+    want = (1 + 2 * runs["lamb"]["leaves"]) * TRAIN_STEPS
+    print(f"  lamb: fused_l2norm launched {lamb['fused_l2norm']} times (want "
+          f"(1 + 2 x {runs['lamb']['leaves']} leaves) x {TRAIN_STEPS} = "
+          f"{want}), fused_lamb1 {lamb['fused_lamb1']} (want {TRAIN_STEPS})")
+    if lamb["fused_l2norm"] != want or lamb["fused_lamb1"] != TRAIN_STEPS:
+        raise AssertionError("the LAMB steps did not run one phase-1 and "
+                             "1 + 2 per leaf norm launches per step")
+    runs["sgd"] = _train_run(
+        dev, seed, "sgd", functional.fused_sgd(**SGD_KW), RULE_LAYERS,
+        RULE_STEPS, None, RULE_KERNELS["sgd"],
+        transform=lambda g: clip_grad_norm_(g, SGD_CLIP)[0])
+    runs["adagrad"] = _train_run(
+        dev, seed, "adagrad", functional.fused_adagrad(**ADAGRAD_KW),
+        RULE_LAYERS, RULE_STEPS, "dynamic", RULE_KERNELS["adagrad"])
+    print("train summary (step time, tokens/s, peak device memory):")
+    for label, r in runs.items():
+        print(f"  {label}: {r['step_s']:.4f} s, "
+              f"{TRAIN_SEQ / r['step_s']:.1f} tokens/s, "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB")
+    return runs
 
 
 @contextlib.contextmanager
@@ -1145,6 +1397,93 @@ def phase_train_check(dev, seed: int):
     if abs(losses[0] - losses[1]) > TOL_TRAIN_LOSS:
         raise AssertionError(f"losses differ: {losses}")
     return dict(grad_rel_l2=rels, losses=losses)
+
+
+@contextlib.contextmanager
+def _plain_updates():
+    """Route the optimizer kernels to their plain versions (the wrappers
+    look up their kernel functions at call time)."""
+    fu = importlib.import_module("apex_tpu_torch.ops.fused_update")
+    names = ("_l2norm", "_lamb1", "_sgd", "_adagrad")
+    saved = [getattr(fu, f"{nm}_kernel") for nm in names]
+    for nm in names:
+        setattr(fu, f"{nm}_kernel", getattr(fu, f"{nm}_plain"))
+    try:
+        yield
+    finally:
+        for nm, fn in zip(names, saved):
+            setattr(fu, f"{nm}_kernel", fn)
+
+
+def phase_rule_check(dev, seed: int):
+    """For LAMB, SGD and Adagrad: one step of the 1-layer model (no loss
+    scale) gives warm slots and its flat grads; then ``tx.update`` from
+    two clones of that state with those grads, once through the kernels
+    and once through their plain versions, master and slots held leaf by
+    leaf."""
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.optimizers import functional
+    from apex_tpu_torch.utils import tree_leaves_with_path
+    rules = (("lamb", functional.fused_lamb(**LAMB_KW)),
+             ("sgd", functional.fused_sgd(**SGD_KW)),
+             ("adagrad", functional.fused_adagrad(**ADAGRAD_KW)))
+    worst_all = {}
+    for label, tx in rules:
+        _, model, tx, state, batch, train_step = _train_setup(
+            dev, seed, RULE_LAYERS, tx, None)
+        leaves = [(".".join(path), t.numel())
+                  for path, t in tree_leaves_with_path(model)]
+        state, _ = train_step.make_train_step(_train_loss, tx)(state, batch)
+        grads = state.flat.flat_grads.clone()
+        opt = state.opt
+        del model, state
+        clones = [opt.replace(master=opt.master.clone(),
+                              slots={k: t.clone()
+                                     for k, t in opt.slots.items()})
+                  for _ in range(2)]
+        del opt
+        torch.cuda.empty_cache()
+        _build.reset_launch_counts()
+        got = tx.update(clones[0], grads)
+        counts = _build.launch_counts()
+        with _plain_updates():
+            ref = tx.update(clones[1], grads)
+        if _build.launch_counts() != counts or not any(counts.values()):
+            raise AssertionError(f"{label}: the kernel route launched "
+                                 f"{counts}, the plain route "
+                                 f"{_build.launch_counts()}")
+        worst = {}
+        for name, a, b in [("master", got.master, ref.master)] + [
+                (k, got.slots[k], ref.slots[k]) for k in sorted(got.slots)
+                if got.slots[k].dim() == 1]:
+            off, rel = 0, {}
+            for leaf, size in leaves:
+                ga, rb = a[off:off + size], b[off:off + size]
+                scale = max(rb.abs().max().item(), 1e-30)
+                rel[leaf] = (ga - rb).abs().max().item() / scale
+                off += size
+            key = max(rel, key=rel.get)
+            worst[name] = (key, rel[key])
+        for k in got.slots:
+            if got.slots[k].dim() == 0 and not torch.equal(got.slots[k],
+                                                           ref.slots[k]):
+                raise AssertionError(f"{label}: slot {k} differs")
+        print(f"rule check {label} (1 layer, one update from a warm state, "
+              f"kernels vs plain; launches "
+              f"{ {k: v for k, v in counts.items() if v} }): worst leaf "
+              f"max|diff| / "
+              f"max|ref| by buffer: "
+              + ", ".join(f"{nm} {v:.3e} ({leaf})"
+                          for nm, (leaf, v) in worst.items())
+              + f" (limit {TOL_RULE_CHECK_REL})")
+        del got, ref, clones, grads
+        torch.cuda.empty_cache()
+        bad = {nm: v for nm, v in worst.items()
+               if not v[1] <= TOL_RULE_CHECK_REL}
+        if bad:
+            raise AssertionError(f"{label}: update off its plain route: {bad}")
+        worst_all[label] = worst
+    return worst_all
 
 
 def _device_breakdown(label, fn, reps: int, top: int = 10):
@@ -1239,12 +1578,14 @@ def main(argv=None) -> int:
         del served
         torch.cuda.empty_cache()
     if "train" in phases:
-        trained = phase_train(dev, args.seed, "profile" in phases)
+        runs = phase_train(dev, args.seed, "profile" in phases)
         for key, r in recs.items():
             if key not in SERVE_KERNELS:
-                r["launches"] = trained["launches"][key]
+                r["launches"] = runs[KERNEL_RUN.get(key, "adam")][
+                    "launches"][key]
     if "train-check" in phases:
         phase_train_check(dev, args.seed)
+        phase_rule_check(dev, args.seed)
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -2,7 +2,9 @@
 card, over the shapes and options the main paths do not reach (other
 head dims and query groups, small pages, q/k lengths that differ,
 padded validity windows, the fp32 LayerNorm paths, LayerNorm's
-backward, odd flat lengths and offset views for the unscale and Adam,
+backward, odd flat lengths and offset views for the unscale, Adam, the
+L2 norm, LAMB's phase 1, SGD and Adagrad, the L2 norm's run-to-run
+repeatability, the LAMB rule against its plain route,
 the fused decode block's query groups, head dims, edge lengths, slot
 groups and its attention-only variant).
 
@@ -289,6 +291,158 @@ def test_fused_adam_kernel_matches_plain(cuda, adam_w, g_dtype):
     fu.fused_adam_flat(p, g, m, v, noop_flag=torch.ones((), device=cuda),
                        **kw)
     assert all(torch.equal(a, b) for a, b in zip((p, m, v), snap))
+
+
+# -- the optimizer family: L2 norm, LAMB phase 1, SGD, Adagrad ------------
+#
+# Each at an odd length and on views that start one element in (LAMB's
+# per-leaf slices start anywhere: the kernels' scalar path), with fp32
+# and bf16 grads; the update kernels against their plain versions within
+# 1e-6 of the output's magnitude (one fp32 multiply-add contracted or
+# not), and a noop step bit for bit.
+
+def _fu():
+    return importlib.import_module("apex_tpu_torch.ops.fused_update")
+
+
+def _flat(n, seed, dev, offset, dtype=torch.float32):
+    """n elements starting ``offset`` elements into their allocation."""
+    return _randn((n + offset,), seed, dev, dtype)[offset:]
+
+
+@pytest.mark.parametrize("n", [5, 1000003, 1 << 22])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fused_l2norm_kernel_matches_plain_and_repeats(cuda, n, dtype,
+                                                       offset):
+    fu = _fu()
+    x = _flat(n, 48, cuda, offset, dtype) * 3
+    before = _build.launch_counts()["fused_l2norm"]
+    got = fu.fused_l2norm(x)
+    assert _build.launch_counts()["fused_l2norm"] == before + 1
+    ref = fu._l2norm_reference(x)
+    # fp32 sums of squares in another order
+    assert abs(got.item() - ref.item()) <= 1e-5 * ref.item()
+    # a fixed summation order: the same bits every run
+    for _ in range(3):
+        assert torch.equal(fu.fused_l2norm(x), got)
+    norms = torch.zeros(4, device=cuda)
+    fu.fused_l2norm(x, out=norms[2])
+    assert norms[2].item() == got.item() and norms[3].item() == 0.0
+    assert fu.fused_l2norm(x[:0]).item() == 0.0
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fused_lamb1_kernel_matches_plain(cuda, g_dtype, offset):
+    fu = _fu()
+    n = 1000003
+    p = _flat(n, 49, cuda, offset)
+    m = _flat(n, 50, cuda, offset) * 0.1
+    v = _flat(n, 51, cuda, offset).abs()
+    g = _flat(n, 52, cuda, offset, g_dtype)
+    u = torch.empty(n + offset, device=cuda)[offset:]
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01,
+              step=torch.full((), 3.0, device=cuda), bias_correction=True,
+              grad_scale=0.5, grad_averaging=True)
+    hp = fu._lamb1_hparams(cuda, noop_flag=0.0, **kw)
+    ref = fu._lamb1_kernel_reference(p, g, m, v, hp)
+    before = _build.launch_counts()["fused_lamb1"]
+    got = fu.fused_lamb_phase1_flat(p, g, m, v, u=u, **kw)
+    assert _build.launch_counts()["fused_lamb1"] == before + 1
+    assert got[2].data_ptr() == u.data_ptr()
+    for a, b in zip(got, ref):
+        assert _maxdiff(a, b) <= 1e-6 * b.abs().max().item()
+    snap = [t.clone() for t in (m, v)]
+    fu.fused_lamb_phase1_flat(p, g, m, v, u=u,
+                              noop_flag=torch.ones((), device=cuda), **kw)
+    assert torch.equal(m, snap[0]) and torch.equal(v, snap[1])
+    assert torch.equal(u, torch.zeros_like(u))
+
+
+@pytest.mark.parametrize("nesterov,wd_after,first,momentum", [
+    (False, False, False, 0.9), (True, True, False, 0.9),
+    (True, False, True, 0.9), (False, False, False, 0.0)])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fused_sgd_kernel_matches_plain(cuda, nesterov, wd_after, first,
+                                        momentum, g_dtype, offset):
+    fu = _fu()
+    n = 1000003
+    p, b = _flat(n, 53, cuda, offset), _flat(n, 54, cuda, offset)
+    g = _flat(n, 55, cuda, offset, g_dtype)
+    kw = dict(lr=0.1, momentum=momentum, dampening=0.1, weight_decay=0.01,
+              first_run=torch.full((), float(first), device=cuda),
+              grad_scale=0.5)
+    hp = fu._sgd_hparams(cuda, noop_flag=0.0, **kw)
+    ref = fu._sgd_kernel_reference(p, g, b, hp, nesterov, wd_after)
+    before = _build.launch_counts()["fused_sgd"]
+    got = fu.fused_sgd_flat(p, g, b, nesterov=nesterov,
+                            wd_after_momentum=wd_after, **kw)
+    assert _build.launch_counts()["fused_sgd"] == before + 1
+    assert got[0].data_ptr() == p.data_ptr()
+    for a, r in zip(got, ref):
+        assert _maxdiff(a, r) <= 1e-6 * r.abs().max().item()
+    snap = [t.clone() for t in (p, b)]
+    fu.fused_sgd_flat(p, g, b, nesterov=nesterov, wd_after_momentum=wd_after,
+                      noop_flag=torch.ones((), device=cuda), **kw)
+    assert torch.equal(p, snap[0]) and torch.equal(b, snap[1])
+
+
+@pytest.mark.parametrize("w_mode", [False, True])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fused_adagrad_kernel_matches_plain(cuda, w_mode, g_dtype, offset):
+    fu = _fu()
+    n = 1000003
+    p = _flat(n, 56, cuda, offset)
+    h = _flat(n, 57, cuda, offset).abs()
+    g = _flat(n, 58, cuda, offset, g_dtype)
+    kw = dict(lr=1e-2, eps=1e-10, weight_decay=0.01, grad_scale=0.5)
+    hp = fu._adagrad_hparams(cuda, noop_flag=0.0, **kw)
+    ref = fu._adagrad_kernel_reference(p, g, h, hp, w_mode)
+    before = _build.launch_counts()["fused_adagrad"]
+    got = fu.fused_adagrad_flat(p, g, h, w_mode=w_mode, **kw)
+    assert _build.launch_counts()["fused_adagrad"] == before + 1
+    assert got[1].data_ptr() == h.data_ptr()
+    for a, r in zip(got, ref):
+        assert _maxdiff(a, r) <= 1e-6 * r.abs().max().item()
+    snap = [t.clone() for t in (p, h)]
+    fu.fused_adagrad_flat(p, g, h, w_mode=w_mode,
+                          noop_flag=torch.ones((), device=cuda), **kw)
+    assert torch.equal(p, snap[0]) and torch.equal(h, snap[1])
+
+
+def test_lamb_rule_on_the_card_matches_its_plain_route(cuda):
+    """One LAMB update of a 3-leaf flat state through the kernels (one
+    global norm, a weight and a direction norm per leaf, one phase-1
+    launch) against the same update with each kernel swapped for its
+    plain version."""
+    from apex_tpu_torch.optimizers import functional
+    fu = _fu()
+    sizes = {"a": 1001, "b": 4096, "c": 7}
+    tree = {k: _randn((n,), 59 + i, cuda, torch.float32)
+            for i, (k, n) in enumerate(sizes.items())}
+    tx = functional.fused_lamb(lr=1e-2, weight_decay=0.01)
+    g = _randn((sum(sizes.values()),), 63, cuda, torch.bfloat16)
+    states = [tx.init(tree) for _ in range(2)]
+    _build.reset_launch_counts()
+    states[0] = tx.update(states[0], g)
+    counts = _build.launch_counts()
+    assert counts["fused_l2norm"] == 1 + 2 * len(sizes)
+    assert counts["fused_lamb1"] == 1
+    saved = (fu._l2norm_kernel, fu._lamb1_kernel)
+    fu._l2norm_kernel, fu._lamb1_kernel = fu._l2norm_plain, fu._lamb1_plain
+    try:
+        states[1] = tx.update(states[1], g)
+    finally:
+        fu._l2norm_kernel, fu._lamb1_kernel = saved
+    assert _build.launch_counts() == counts
+    for a, b in ((states[0].master, states[1].master),
+                 (states[0].slots["exp_avg"], states[1].slots["exp_avg"]),
+                 (states[0].slots["exp_avg_sq"],
+                  states[1].slots["exp_avg_sq"])):
+        assert _maxdiff(a, b) <= 1e-6 * b.abs().max().item()
 
 
 # -- the fused decode block ----------------------------------------------

@@ -18,6 +18,10 @@ from apex_tpu_torch.inference.kv_cache import init_paged_cache
 from apex_tpu_torch.inference.weights import llama_param_shapes
 from apex_tpu_torch.ops import (_build, flash_attention, fused_adam_flat,
                                 fused_scale, paged_decode_attention, rms_norm)
+from apex_tpu_torch.ops.fused_update import (fused_adagrad_flat,
+                                             fused_l2norm,
+                                             fused_lamb_phase1_flat,
+                                             fused_sgd_flat)
 from apex_tpu_torch.ops.paged_attention import fused_block_decode
 from apex_tpu_torch.transformer.testing import LlamaConfig
 
@@ -126,12 +130,22 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     fused_adam_flat(flat, torch.randn(100), torch.zeros(100),
                     torch.zeros(100), lr=1e-3, beta1=0.9, beta2=0.999,
                     eps=1e-8, weight_decay=0.0, step=1.0)
+    fused_l2norm(flat)
+    fused_lamb_phase1_flat(flat, torch.randn(100), torch.zeros(100),
+                           torch.zeros(100), beta1=0.9, beta2=0.999,
+                           eps=1e-6, weight_decay=0.01, step=1.0)
+    fused_sgd_flat(flat, torch.randn(100), torch.zeros(100), lr=0.1,
+                   momentum=0.9, dampening=0.0, weight_decay=0.0,
+                   first_run=True)
+    fused_adagrad_flat(flat, torch.randn(100), torch.zeros(100), lr=0.1,
+                       eps=1e-10, weight_decay=0.0)
     y, kt, vt = fused_block_decode(*_fused_args(), **_fused_kw())
     assert tuple(y.shape) == (1, 32) and tuple(kt.shape) == (1, 2, 8)
     assert _build.launch_counts() == {
         "layer_norm": 0, "layer_norm_bwd": 0, "flash_attention": 0,
         "flash_attention_bwd": 0, "paged_attention": 0, "fused_scale": 0,
-        "fused_adam": 0, "fused_block_decode": 0}
+        "fused_adam": 0, "fused_block_decode": 0, "fused_l2norm": 0,
+        "fused_lamb1": 0, "fused_sgd": 0, "fused_adagrad": 0}
     assert _build._LIB is None              # nothing was built or loaded
 
 
@@ -176,7 +190,7 @@ def test_every_kernel_source_exists_and_exports_its_entry():
     with a ctypes signature, names the TPU kernels it replaces, and
     every kernel has its own launch counter."""
     assert sorted(_build.KERNELS) == sorted(_build.launch_counts())
-    assert len(_build.KERNELS) == 8
+    assert len(_build.KERNELS) == 12
     for src, entries in _build.SOURCES.items():
         text = (PORT / "csrc" / src).read_text()
         assert "Replaces: apex_tpu/ops/" in text
@@ -226,6 +240,13 @@ def test_training_out_of_slice_options_raise(monkeypatch):
         train_step.make_train_step(loss, tx, numerics=True)
     with pytest.raises(NotImplementedError, match="item 6"):
         train_step.init_train_state(tx, model, shard=("data", 2))
+    from apex_tpu_torch.optimizers import functional
+    for rule in (functional.fused_lamb(), functional.fused_sgd(0.1),
+                 functional.fused_adagrad(), functional.fused_novograd()):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            rule.init(model, shard=("data", 2))
+        with pytest.raises(NotImplementedError, match="item 6"):
+            rule.init(model, prefetch=2)
     with pytest.raises(NotImplementedError, match="item 6"):
         unscale_flat_grads(torch.zeros(4), init_loss_scale(device="cpu"),
                            axis_name="data")
