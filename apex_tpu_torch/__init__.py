@@ -20,9 +20,13 @@ scaling and fused Adam, adding the norm backward, flash backward,
 unscale and Adam kernels — fused-block decode (one kernel a decoder
 layer), and the optimizer family: the LAMB, SGD, Adagrad and NovoGrad
 rules and ``contrib.clip_grad_norm_``, on the L2 norm, LAMB phase-1,
-SGD and Adagrad kernels.  Importing this package imports neither
-``jax`` nor ``apex_tpu``.
+SGD and Adagrad kernels — and the last slice of kernels: Apex's
+``multi_tensor_applier`` entry point (:mod:`.multi_tensor_apply`) on
+the axpby and fused scale-and-norm kernels, and the split flash
+backward that trains at 8192 tokens.  Importing this package imports
+neither ``jax`` nor ``apex_tpu``.
 """
 from apex_tpu_torch.utils import cdiv, resolve_device, round_up
+from apex_tpu_torch import multi_tensor_apply
 
-__all__ = ["cdiv", "round_up", "resolve_device"]
+__all__ = ["cdiv", "round_up", "resolve_device", "multi_tensor_apply"]

@@ -1,8 +1,11 @@
-// Flash-attention backward for Hopper (sm_90a), bf16 in, fp32 accumulate.
+// Flash-attention backward for Hopper (sm_90a), bf16 in, fp32 accumulate:
+// the one-pass kernel and the split pair.
 //
 // Replaces: apex_tpu/ops/attention.py :: _bwd_fused_kernel (launched by
-// _bwd_impl through pl.pallas_call), the one-pass backward.  Same
-// function, per (batch * head): with lse the forward's BASE-2
+// _bwd_impl through pl.pallas_call), the one-pass backward, and the
+// split backward's _dq_kernel and _dkv_kernel (the same _bwd_impl takes
+// those when sq * d * 4 > _FUSED_BWD_MAX_BYTES, and so does the port's
+// _bwd).  Same function, per (batch * head): with lse the forward's BASE-2
 // log-sum-exp and delta = rowsum(dO * O) (computed by the caller),
 //   p   = exp2(scale * log2(e) * q k^T - lse)     (masked entries 0;
 //         rows whose lse is below -0.5e30 -- fully masked -- give 0),
@@ -24,6 +27,20 @@
 // length the forward takes is taken; the atomics make dq's last bits
 // depend on the order the blocks finish in.
 //
+// The split pair computes the same function in two launches, neither
+// with atomics, so dq, dk and dv repeat bit for bit from run to run:
+// - the dk/dv kernel is this kernel with its dq half compiled out
+//   (flash_bwd_kernel<D, false>): the same blocks, loops and products,
+//   so its dk and dv have the one-pass kernel's bits;
+// - the dq kernel is query-major, one block per (64-query tile, b*h):
+//   it keeps its queries' q and dO in shared memory, loops over the key
+//   tiles they can see (double-buffered k and v), recomputes
+//   S = Q K^T and dP = dO V^T, p and ds = p (dP - delta) with the same
+//   masks, and accumulates dq = scale * dS K in registers, written once.
+//   It recomputes S and dP, which the one-pass kernel shares with
+//   dk/dv: the pair does 7 tile products where the one-pass kernel does
+//   5, the price of owning every output in one block.
+//
 // What bounds it on the H100: operations.  A causal backward at s = 2048,
 // 32 heads, d = 128 is 2.5x the forward's flops (five products per tile
 // pair instead of two) over ~0.1 GB of q/k/v/o/dO/dq/dk/dv.  The design
@@ -36,8 +53,9 @@
 // with cp.async into a double buffer.  Not yet used: wgmma, TMA, warp
 // specialisation; PERF.md records this version's time.
 //
-// Plain C interface (loaded with ctypes): apex_flash_attention_bwd
-// launches on the caller's stream and returns cudaGetLastError().
+// Plain C interface (loaded with ctypes): apex_flash_attention_bwd,
+// apex_flash_attention_bwd_dq and apex_flash_attention_bwd_dkv launch on
+// the caller's stream and return cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,13 +75,26 @@ constexpr int kLDS = kBQ + 8;      // dS^T tile row stride (bf16)
 
 // Shared tiles, bf16, row stride D + 8 (16 bytes of padding, so the
 // eight rows an ldmatrix phase reads fall in distinct bank groups):
-// sK [kBK], sV [kBK], sQ [2][kBQ], sO [2][kBQ] (dO), sDS [kBK][kLDS].
+// sK [kBK], sV [kBK], sQ [2][kBQ], sO [2][kBQ] (dO), and with the dq half
+// sDS [kBK][kLDS].
 template <int D>
 struct Layout {
   static constexpr int LD = D + 8;
-  static constexpr size_t bytes =
-      sizeof(bf16) * ((2 * kBK + 4 * kBQ) * LD + kBK * kLDS);
+  static constexpr size_t bytes(bool dq) {
+    return sizeof(bf16) *
+           ((2 * kBK + 4 * kBQ) * LD + (dq ? kBK * kLDS : 0));
+  }
 };
+
+// The dq kernel's tiles: 64 queries a block (four warps of 16 rows), key
+// tiles of 64; sQ [kDqBQ], sO [kDqBQ] (dO), sK [2][kDqBK], sV [2][kDqBK].
+constexpr int kDqBQ = 64;
+constexpr int kDqBK = 64;
+static_assert(kDqBQ / 16 * 32 == kThreads, "one warp per 16 dq rows");
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(bf16) * (2 * kDqBQ + 4 * kDqBK) * Layout<D>::LD;
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -134,7 +165,9 @@ __device__ __forceinline__ void atomic_add2(float* p, float a, float b) {
 #endif
 }
 
-template <int D>
+// DQ: the one-pass kernel (dq added into dq_acc); without it the split
+// dk/dv kernel (dq_acc unused).
+template <int D, bool DQ>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -159,7 +192,7 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* ob = dout + bh * (size_t)sq * D;
   const float* lb = lse + bh * (size_t)sq;
   const float* db = delta + bh * (size_t)sq;
-  float* dqb = dq_acc + bh * (size_t)sq * D;
+  float* dqb = DQ ? dq_acc + bh * (size_t)sq * D : nullptr;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wrow = warp * 16;
   const int grp = lane >> 2, tig = lane & 3;
@@ -283,19 +316,21 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma_bf16(dka[2 * np + 1], da, b[2], b[3]);
       }
       // stage dS^T [keys][queries] for the query-major dq product
+      if constexpr (DQ) {
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
+        for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj)
-          *reinterpret_cast<unsigned*>(
-              sDS + (wrow + grp + hf * 8) * kLDS + (2 * t + jj) * 8 +
-              tig * 2) = da[jj * 2 + hf];
+          for (int jj = 0; jj < 2; ++jj)
+            *reinterpret_cast<unsigned*>(
+                sDS + (wrow + grp + hf * 8) * kLDS + (2 * t + jj) * 8 +
+                tig * 2) = da[jj * 2 + hf];
+      }
     }
-    __syncthreads();
 
     // dQ[32 q, D] += dS K: warp (mg, nh) owns query rows mg*16.. and the
     // d columns nh*D/2..; A is dS = (dS^T)^T through ldmatrix.trans
-    {
+    if constexpr (DQ) {
+      __syncthreads();
       const int mg = warp & 1, nh = warp >> 1;
       constexpr int kHT = D / 16;          // 8-wide tiles in half of D
       float acc[kHT][4];
@@ -350,6 +385,170 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// The split backward's dq: one block per (64-query tile, b*h), four
+// warps of 16 query rows.  The query tiles are taken heaviest first (the
+// last rows see the most keys under the causal mask), as the forward
+// does.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int sq, int sk, int causal, int off, int valid_q,
+                    int valid_k, float scale_log2, float scale) {
+  constexpr int LD = Layout<D>::LD;
+  constexpr int kDT = D / 8;        // 8-wide dq column tiles
+  constexpr int kST = kDqBK / 8;    // 8-wide key column tiles
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sO = sQ + kDqBQ * LD;
+  bf16* sK = sO + kDqBQ * LD;
+  bf16* sV = sK + 2 * kDqBK * LD;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqBQ;
+  const size_t bh = blockIdx.y;
+  const bf16* kb = k + bh * (size_t)sk * D;
+  const bf16* vb = v + bh * (size_t)sk * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wrow = warp * 16;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int mat = lane >> 3, mrow = lane & 7;
+
+  const int kv_end = min(sk, valid_k);
+  const int q_end = min(sq, valid_q);
+  // keys any query of this tile may see: [0, kend) -- the TPU kernel's
+  // run condition ki * bk <= qi * bq + bq - 1 + off
+  int kend = kv_end;
+  if (causal) kend = min(kend, q0 + kDqBQ + off);
+  const int nk = (kend > 0 && q0 < q_end) ? (kend + kDqBK - 1) / kDqBK : 0;
+
+  load_tile<D, kDqBQ>(sQ, q + bh * (size_t)sq * D, q0, sq);
+  load_tile<D, kDqBQ>(sO, dout + bh * (size_t)sq * D, q0, sq);
+  if (nk > 0) {
+    load_tile<D, kDqBK>(sK, kb, 0, sk);
+    load_tile<D, kDqBK>(sV, vb, 0, sk);
+  }
+  cp_async_commit();
+
+  // this thread's rows (grp and grp + 8 of its warp's 16): lse, delta
+  float lrow[2], drow[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = q0 + wrow + grp + hf * 8;
+    lrow[hf] = r < sq ? lse[bh * (size_t)sq + r] : kNegInf;
+    drow[hf] = r < sq ? delta[bh * (size_t)sq + r] : 0.f;
+  }
+
+  float acc[kDT][4];
+#pragma unroll
+  for (int j = 0; j < kDT; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kDqBK;
+    const int st = kt & 1;
+    if (kt + 1 < nk) {
+      load_tile<D, kDqBK>(sK + (st ^ 1) * kDqBK * LD, kb, k0 + kDqBK, sk);
+      load_tile<D, kDqBK>(sV + (st ^ 1) * kDqBK * LD, vb, k0 + kDqBK, sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* cK = sK + st * kDqBK * LD;
+    const bf16* cV = sV + st * kDqBK * LD;
+
+    // S = Q K^T and dP = dO V^T: 16 queries x 64 keys per warp
+    float s[kST][4], dp[kST][4];
+#pragma unroll
+    for (int j = 0; j < kST; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      unsigned qa[4], oa[4];
+      ldmatrix_x4(qa, sQ + (wrow + (mat & 1) * 8 + mrow) * LD + kk * 16 +
+                          (mat >> 1) * 8);
+      ldmatrix_x4(oa, sO + (wrow + (mat & 1) * 8 + mrow) * LD + kk * 16 +
+                          (mat >> 1) * 8);
+#pragma unroll
+      for (int jp = 0; jp < kST / 2; ++jp) {
+        unsigned b[4];
+        ldmatrix_x4(b, cK + (jp * 16 + (mat >> 1) * 8 + mrow) * LD +
+                           kk * 16 + (mat & 1) * 8);
+        mma_bf16(s[2 * jp], qa, b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], qa, b[2], b[3]);
+        ldmatrix_x4(b, cV + (jp * 16 + (mat >> 1) * 8 + mrow) * LD +
+                           kk * 16 + (mat & 1) * 8);
+        mma_bf16(dp[2 * jp], oa, b[0], b[1]);
+        mma_bf16(dp[2 * jp + 1], oa, b[2], b[3]);
+      }
+    }
+
+    // P = exp2(S * scale_log2 - lse) with the masks and the fully
+    // masked row guard, then dS = P (dP - delta), kept in s
+    const bool full = k0 + kDqBK <= kv_end && q0 + kDqBQ <= q_end &&
+                      (!causal || k0 + kDqBK - 1 <= q0 + off);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int qr = q0 + wrow + grp + hf * 8;
+#pragma unroll
+      for (int j = 0; j < kST; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kc = k0 + j * 8 + tig * 2 + e;
+          const bool live = full || (kc < kv_end && qr < q_end &&
+                                     (!causal || kc <= qr + off));
+          const float p = (live && lrow[hf] > kMaskedRowThresh)
+                              ? exp2f(s[j][hf * 2 + e] * scale_log2 -
+                                      lrow[hf])
+                              : 0.f;
+          s[j][hf * 2 + e] = p * (dp[j][hf * 2 + e] - drow[hf]);
+        }
+      }
+    }
+
+    // dQ += dS K: the dS fragments of key tiles 2t, 2t + 1 are the A
+    // fragment of key step t (rounded to bf16 here, as the TPU kernel
+    // feeds its MXU); K through the transposing ldmatrix
+#pragma unroll
+    for (int t = 0; t < kDqBK / 16; ++t) {
+      unsigned da[4];
+      da[0] = pack_bf16(s[2 * t][0], s[2 * t][1]);
+      da[1] = pack_bf16(s[2 * t][2], s[2 * t][3]);
+      da[2] = pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]);
+      da[3] = pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3]);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        unsigned b[4];
+        ldmatrix_x4_trans(b, cK + (t * 16 + (mat & 1) * 8 + mrow) * LD +
+                                 np * 16 + (mat >> 1) * 8);
+        mma_bf16(acc[2 * np], da, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], da, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this k/v stage
+  }
+  cp_async_wait<0>();  // nk == 0: the q/dO copies may still be in flight
+
+  // this block owns its queries' dq: plain stores, no atomics
+  bf16* dqb = dq + bh * (size_t)sq * D;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qr = q0 + wrow + grp + hf * 8;
+    if (qr < sq) {
+#pragma unroll
+      for (int j = 0; j < kDT; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)qr * D + j * 8 +
+                                           tig * 2) =
+            __floats2bfloat162_rn(scale * acc[j][hf * 2],
+                                  scale * acc[j][hf * 2 + 1]);
+    }
+  }
+}
+
 // dq (bf16) = the fp32 accumulator, 8 elements per thread (n % 8 == 0).
 __global__ void dq_cast_kernel(const float* __restrict__ src,
                                bf16* __restrict__ dst, size_t n8) {
@@ -373,9 +572,9 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            void* dk, void* dv, int bh, int sq, int sk, int causal, int off,
            int valid_q, int valid_k, float scale_log2, float scale,
            cudaStream_t stream) {
-  const size_t bytes = Layout<D>::bytes;
+  const size_t bytes = Layout<D>::bytes(true);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_kernel<D, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)bh * sq * D;
@@ -383,7 +582,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   if (err != cudaSuccess) return (int)err;
   if (sk > 0) {
     dim3 grid((sk + kBK - 1) / kBK, bh);
-    flash_bwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
+    flash_bwd_kernel<D, true><<<grid, kThreads, bytes, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -397,6 +596,48 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const int blocks = (int)((n8 + 255) / 256 < 4096 ? (n8 + 255) / 256 : 4096);
   dq_cast_kernel<<<blocks, 256, 0, stream>>>(
       static_cast<const float*>(dq_acc), static_cast<bf16*>(dq), n8);
+  return (int)cudaGetLastError();
+}
+
+// The split pair: dq from flash_bwd_dq_kernel, dk and dv from the
+// one-pass kernel without its dq half.
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int bh, int sq,
+              int sk, int causal, int off, int valid_q, int valid_k,
+              float scale_log2, float scale, cudaStream_t stream) {
+  const size_t bytes = dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sq + kDqBQ - 1) / kDqBQ, bh);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), sq, sk, causal, off, valid_q, valid_k,
+      scale_log2, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv, int bh,
+               int sq, int sk, int causal, int off, int valid_q, int valid_k,
+               float scale_log2, float scale, cudaStream_t stream) {
+  const size_t bytes = Layout<D>::bytes(false);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_kernel<D, false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sk + kBK - 1) / kBK, bh);
+  flash_bwd_kernel<D, false><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      nullptr, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk,
+      causal, off, valid_q, valid_k, scale_log2, scale);
   return (int)cudaGetLastError();
 }
 
@@ -428,6 +669,62 @@ extern "C" int apex_flash_attention_bwd(
       return launch<128>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh,
                          sq, sk, causal, off, valid_q, valid_k, scale_log2,
                          scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The split backward's dq: operands as apex_flash_attention_bwd's; dq
+// [bh, sq, d] bf16, written once (no scratch, no atomics).
+extern "C" int apex_flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
+    int d, int causal, int off, int valid_q, int valid_k, float scale_log2,
+    float scale, void* stream) {
+  cudaGetLastError();
+  if (bh <= 0 || sq <= 0) return 0;
+  if (bh > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32:
+      return launch_dq<32>(q, k, v, dout, lse, delta, dq, bh, sq, sk, causal,
+                           off, valid_q, valid_k, scale_log2, scale, s);
+    case 64:
+      return launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, sq, sk, causal,
+                           off, valid_q, valid_k, scale_log2, scale, s);
+    case 128:
+      return launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, sq, sk,
+                            causal, off, valid_q, valid_k, scale_log2, scale,
+                            s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The split backward's dk and dv: operands as apex_flash_attention_bwd's;
+// dk, dv [bh, sk, d] bf16.
+extern "C" int apex_flash_attention_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
+    int sk, int d, int causal, int off, int valid_q, int valid_k,
+    float scale_log2, float scale, void* stream) {
+  cudaGetLastError();
+  if (bh <= 0 || sk <= 0) return 0;
+  if (bh > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32:
+      return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
+                            causal, off, valid_q, valid_k, scale_log2, scale,
+                            s);
+    case 64:
+      return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
+                            causal, off, valid_q, valid_k, scale_log2, scale,
+                            s);
+    case 128:
+      return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
+                             causal, off, valid_q, valid_k, scale_log2, scale,
+                             s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,14 +1,20 @@
 // Flat-buffer optimizer kernels for Hopper (sm_90a): the amp unscale with
-// a non-finite flag, Adam/AdamW, the L2 norm, LAMB's first phase, SGD
-// and Adagrad.
+// a non-finite flag, axpby, Adam/AdamW, the L2 norm, the fused scale and
+// norm, LAMB's first phase, SGD and Adagrad.
 //
 // Replaces: apex_tpu/ops/fused_update.py :: _scale_kernel (launched by
-// fused_scale), _adam_kernel (fused_adam_flat), _l2norm_kernel
-// (fused_l2norm), _lamb1_kernel (fused_lamb_phase1_flat), _sgd_kernel
-// (fused_sgd_flat) and _adagrad_kernel (fused_adagrad_flat), all
-// through pl.pallas_call.  Same functions:
+// fused_scale), _axpby_kernel (fused_axpby), _adam_kernel
+// (fused_adam_flat), _l2norm_kernel (fused_l2norm), _l2norm_scale_kernel
+// (fused_l2norm_scale), _lamb1_kernel (fused_lamb_phase1_flat),
+// _sgd_kernel (fused_sgd_flat) and _adagrad_kernel (fused_adagrad_flat),
+// all through pl.pallas_call.  Same functions:
 //   scale:   out = x * scale (fp32 math, stored in out's dtype) and a
 //            device fp32 flag, 1.0 when any output is inf or nan;
+//   axpby:   out = a x + b y (fp32 math, each product rounded before the
+//            sum, as the plain version's separate multiplies are; x, y
+//            and out each fp32 or bf16) and the flag of the fp32 result;
+//   l2norm_scale: out = x * scale, the flag, and sqrt of the fp32 sum
+//            of squares of x * scale BEFORE its cast to out's dtype;
 //   adam:    fp32 math over flat p, g, m, v with the nine hyperparameters
 //            [lr, beta1, beta2, eps, weight_decay, 1/bc1, 1/sqrt(bc2),
 //            noop, grad_scale] read from a small DEVICE vector, so the
@@ -37,13 +43,16 @@
 // partial sum per block into a scratch vector and a second, one-block
 // kernel adds the partials in a fixed order: no atomics, so a norm (and
 // the LAMB trust ratios built from norms) repeats bit for bit from run
-// to run.  Every index is 64-bit: the slice's flat buffer holds 1.92e9
+// to run; the fused scale and norm does the same with its partials.
+// Every index is 64-bit: the slice's flat buffer holds 1.92e9
 // elements, and its fp32 bytes pass 2^32.  The unscale may write in
 // place (out == x), the port's counterpart of the JAX buffer donation;
 // the update kernels always update p and their slots in place.
 //
 // What bounds them all on the H100: bytes.  The unscale reads and writes
-// each element once (8 bytes per fp32 element, one flop); Adam reads
+// each element once (8 bytes per fp32 element, one flop); axpby reads
+// two and writes one (12 bytes, 3 flops); the fused scale and norm 8
+// bytes and 3 flops; Adam reads
 // p, g, m, v and writes p, m, v (28 bytes per element, ~15 flops); the
 // norm reads 4 bytes per element; LAMB's phase 1 28 (p, g, m, v in; m,
 // v, u out); SGD and Adagrad 20.  So the design only streams: 16-byte
@@ -240,6 +249,86 @@ l2norm_final_kernel(const float* __restrict__ partials, int nparts,
   if (threadIdx.x == 0) *out = sqrtf(sum);
 }
 
+// -- axpby and the fused scale and norm ----------------------------------
+
+// a x + b y with both products rounded (no FMA), as the plain version
+__device__ __forceinline__ float axpby1(float a, float x, float b, float y) {
+  return __fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y));
+}
+
+// out may alias x or y (each element is read before it is written, by
+// the same thread), so no pointer is __restrict__.
+template <typename TX, typename TY, typename TO>
+__global__ void __launch_bounds__(kThreads)
+axpby_kernel(const TX* x, const TY* y, TO* out, const float* __restrict__ ab,
+             float* __restrict__ flag, int64_t n, int vec) {
+  const float a = ab[0], b = ab[1];
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  bool any = false;
+  int64_t done = 0;
+  if (vec) {
+    const int64_t n4 = n / 4;
+    for (int64_t i = tid; i < n4; i += stride) {
+      const float4 xv = load4(x + 4 * i), yv = load4(y + 4 * i);
+      float4 o;
+      o.x = axpby1(a, xv.x, b, yv.x);
+      o.y = axpby1(a, xv.y, b, yv.y);
+      o.z = axpby1(a, xv.z, b, yv.z);
+      o.w = axpby1(a, xv.w, b, yv.w);
+      any |= bad(o.x) | bad(o.y) | bad(o.z) | bad(o.w);
+      store4(out + 4 * i, o);
+    }
+    done = n4 * 4;
+  }
+  for (int64_t i = done + tid; i < n; i += stride) {
+    const float o = axpby1(a, to_f(x[i]), b, to_f(y[i]));
+    any |= bad(o);
+    out[i] = from_f<TO>(o);
+  }
+  if (__syncthreads_or(any) && threadIdx.x == 0) *flag = 1.f;
+}
+
+// out = x * scale and one fp32 partial sum of squares of the fp32
+// products per block (partials[blockIdx.x]), as l2norm_partial_kernel;
+// l2norm_final_kernel then adds the partials in a fixed order.
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(kThreads)
+l2norm_scale_partial_kernel(const TI* x, TO* out,
+                            const float* __restrict__ scale_ptr,
+                            float* __restrict__ partials,
+                            float* __restrict__ flag, int64_t n, int vec) {
+  const float s = *scale_ptr;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  bool any = false;
+  int64_t done = 0;
+  if (vec) {
+    const int64_t n4 = n / 4;
+    for (int64_t i = tid; i < n4; i += stride) {
+      float4 v = load4(x + 4 * i);
+      v.x *= s; v.y *= s; v.z *= s; v.w *= s;
+      any |= bad(v.x) | bad(v.y) | bad(v.z) | bad(v.w);
+      a0 += v.x * v.x;
+      a1 += v.y * v.y;
+      a2 += v.z * v.z;
+      a3 += v.w * v.w;
+      store4(out + 4 * i, v);
+    }
+    done = n4 * 4;
+  }
+  for (int64_t i = done + tid; i < n; i += stride) {
+    const float v = to_f(x[i]) * s;
+    any |= bad(v);
+    a0 += v * v;
+    out[i] = from_f<TO>(v);
+  }
+  const float sum = block_sum((a0 + a1) + (a2 + a3));
+  if (threadIdx.x == 0) partials[blockIdx.x] = sum;
+  if (__syncthreads_or(any) && threadIdx.x == 0) *flag = 1.f;
+}
+
 // -- LAMB phase 1 ----------------------------------------------------------
 
 struct LambHp {
@@ -415,27 +504,34 @@ bool g_aligned(const void* g, int g_dtype) {
   return aligned(g, g_dtype ? 8 : 16);
 }
 
+bool dtype_codes_ok(int a, int b = 0, int c = 0) {
+  return (a == 0 || a == 1) && (b == 0 || b == 1) && (c == 0 || c == 1);
+}
+
+// f(T{}) for a dtype code already checked to be 0 (float32) or 1
+// (bfloat16).
+template <typename F>
+void with_type(int code, F f) {
+  if (code == 0)
+    f(float{});
+  else
+    f(__nv_bfloat16{});
+}
+
 // Launch f(TG{}) for the grads' element type; cudaErrorInvalidValue for
 // any other dtype code.
 template <typename F>
 int with_grad_type(int g_dtype, F f) {
-  if (g_dtype == 0)
-    f(float{});
-  else if (g_dtype == 1)
-    f(__nv_bfloat16{});
-  else
-    return (int)cudaErrorInvalidValue;
+  if (!dtype_codes_ok(g_dtype)) return (int)cudaErrorInvalidValue;
+  with_type(g_dtype, f);
   return (int)cudaGetLastError();
 }
 
-template <typename TI, typename TO>
-void launch_scale(const void* x, void* out, const float* scale, float* flag,
-                  int64_t n, cudaStream_t s) {
-  // four elements per access: 16 bytes of fp32, 8 bytes of bf16
-  const int vec = reinterpret_cast<uintptr_t>(x) % (4 * sizeof(TI)) == 0 &&
-                  reinterpret_cast<uintptr_t>(out) % (4 * sizeof(TO)) == 0;
-  scale_kernel<TI, TO><<<blocks_for(n), kThreads, 0, s>>>(
-      static_cast<const TI*>(x), static_cast<TO*>(out), scale, flag, n, vec);
+// four elements per access are 4 * sizeof(T) bytes (16 of fp32, 8 of
+// bf16): aligned to that
+template <typename T>
+bool aligned4(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
 }
 
 }  // namespace
@@ -452,17 +548,17 @@ extern "C" int apex_fused_scale(const void* x, void* out, const void* scale,
   cudaError_t err = cudaMemsetAsync(f, 0, sizeof(float), s);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return 0;
-  const float* sc = static_cast<const float*>(scale);
-  if (x_dtype == 0 && out_dtype == 0)
-    launch_scale<float, float>(x, out, sc, f, n, s);
-  else if (x_dtype == 1 && out_dtype == 0)
-    launch_scale<__nv_bfloat16, float>(x, out, sc, f, n, s);
-  else if (x_dtype == 0 && out_dtype == 1)
-    launch_scale<float, __nv_bfloat16>(x, out, sc, f, n, s);
-  else if (x_dtype == 1 && out_dtype == 1)
-    launch_scale<__nv_bfloat16, __nv_bfloat16>(x, out, sc, f, n, s);
-  else
-    return (int)cudaErrorInvalidValue;
+  if (!dtype_codes_ok(x_dtype, out_dtype)) return (int)cudaErrorInvalidValue;
+  with_type(x_dtype, [&](auto ti) {
+    with_type(out_dtype, [&](auto to) {
+      using TI = decltype(ti);
+      using TO = decltype(to);
+      const int vec = aligned4<TI>(x) && aligned4<TO>(out);
+      scale_kernel<TI, TO><<<blocks_for(n), kThreads, 0, s>>>(
+          static_cast<const TI*>(x), static_cast<TO*>(out),
+          static_cast<const float*>(scale), f, n, vec);
+    });
+  });
   return (int)cudaGetLastError();
 }
 
@@ -512,6 +608,76 @@ extern "C" int apex_fused_l2norm(const void* x, void* partials, void* out,
         static_cast<const T*>(x), part, n, g_aligned(x, x_dtype));
   });
   if (err) return err;
+  l2norm_final_kernel<<<1, kThreads, 0, s>>>(part, blocks, o);
+  return (int)cudaGetLastError();
+}
+
+// out = a * x + b * y over n elements, ab the device vector [a, b]; flag
+// (one fp32 on the device) = 1.0 if any fp32 result is not finite, else
+// 0.0.  dtype codes (0 = float32, 1 = bfloat16) for x, y and out; out
+// may equal x or y.
+extern "C" int apex_fused_axpby(const void* x, const void* y, void* out,
+                                const void* ab, void* flag, long long n,
+                                int x_dtype, int y_dtype, int out_dtype,
+                                void* stream) {
+  cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* f = static_cast<float*>(flag);
+  cudaError_t err = cudaMemsetAsync(f, 0, sizeof(float), s);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0) return 0;
+  if (!dtype_codes_ok(x_dtype, y_dtype, out_dtype))
+    return (int)cudaErrorInvalidValue;
+  with_type(x_dtype, [&](auto tx) {
+    with_type(y_dtype, [&](auto ty) {
+      with_type(out_dtype, [&](auto to) {
+        using TX = decltype(tx);
+        using TY = decltype(ty);
+        using TO = decltype(to);
+        const int vec = aligned4<TX>(x) && aligned4<TY>(y) &&
+                        aligned4<TO>(out);
+        axpby_kernel<TX, TY, TO><<<blocks_for(n), kThreads, 0, s>>>(
+            static_cast<const TX*>(x), static_cast<const TY*>(y),
+            static_cast<TO*>(out), static_cast<const float*>(ab), f, n,
+            vec);
+      });
+    });
+  });
+  return (int)cudaGetLastError();
+}
+
+// out = x * (*scale) over n elements; norm (one fp32 on the device) =
+// sqrt of the fp32 sum of squares of x * scale, 0 for n = 0; flag = 1.0
+// if any x * scale is not finite, else 0.0.  partials is device scratch
+// of parts_cap floats (one per block).  dtype codes for x and out.
+extern "C" int apex_fused_l2norm_scale(const void* x, void* out,
+                                       const void* scale, void* partials,
+                                       void* norm, void* flag, long long n,
+                                       int parts_cap, int x_dtype,
+                                       int out_dtype, void* stream) {
+  cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* f = static_cast<float*>(flag);
+  float* o = static_cast<float*>(norm);
+  cudaError_t err = cudaMemsetAsync(f, 0, sizeof(float), s);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0) return (int)cudaMemsetAsync(o, 0, sizeof(float), s);
+  if (parts_cap < 1 || !dtype_codes_ok(x_dtype, out_dtype))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = blocks_for(n) < parts_cap ? blocks_for(n) : parts_cap;
+  float* part = static_cast<float*>(partials);
+  with_type(x_dtype, [&](auto ti) {
+    with_type(out_dtype, [&](auto to) {
+      using TI = decltype(ti);
+      using TO = decltype(to);
+      const int vec = aligned4<TI>(x) && aligned4<TO>(out);
+      l2norm_scale_partial_kernel<TI, TO><<<blocks, kThreads, 0, s>>>(
+          static_cast<const TI*>(x), static_cast<TO*>(out),
+          static_cast<const float*>(scale), part, f, n, vec);
+    });
+  });
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   l2norm_final_kernel<<<1, kThreads, 0, s>>>(part, blocks, o);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,9 @@ from apex_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_reference,
                                            rms_norm, rms_norm_reference)
 from apex_tpu_torch.ops.fused_update import (adam_reference,
                                              fused_adagrad_flat,
-                                             fused_adam_flat, fused_l2norm,
+                                             fused_adam_flat, fused_axpby,
+                                             fused_l2norm,
+                                             fused_l2norm_scale,
                                              fused_lamb_phase1_flat,
                                              fused_scale, fused_sgd_flat)
 from apex_tpu_torch.ops.paged_attention import paged_decode_attention
@@ -18,6 +20,6 @@ from apex_tpu_torch.ops.paged_attention import paged_decode_attention
 __all__ = ["layer_norm", "rms_norm", "layer_norm_reference",
            "rms_norm_reference", "flash_attention", "mha_reference",
            "prefix_window_attention", "paged_decode_attention",
-           "fused_scale", "fused_adam_flat", "adam_reference",
-           "fused_l2norm", "fused_lamb_phase1_flat", "fused_sgd_flat",
-           "fused_adagrad_flat"]
+           "fused_scale", "fused_axpby", "fused_adam_flat",
+           "adam_reference", "fused_l2norm", "fused_l2norm_scale",
+           "fused_lamb_phase1_flat", "fused_sgd_flat", "fused_adagrad_flat"]

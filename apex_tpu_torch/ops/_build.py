@@ -16,8 +16,9 @@ show that its main path went through the kernels:
 :func:`reset_launch_counts` before the run, :func:`launch_counts`
 after it.  Counters are per kernel, not per source: a source may hold
 several kernels (``layer_norm.cu`` the forward and the backward,
-``fused_update.cu`` the unscale, Adam, the L2 norm, LAMB's
-phase 1, SGD and Adagrad).  ``fused_block_decode.cu``
+``flash_attention_bwd.cu`` the one-pass backward and the split pair,
+``fused_update.cu`` the unscale, axpby, Adam, the L2 norm, the fused
+scale and norm, LAMB's phase 1, SGD and Adagrad).  ``fused_block_decode.cu``
 is one cooperative launch per decoder layer; its entry, called with a
 null workspace, reports the workspace size without launching.
 
@@ -47,12 +48,16 @@ SOURCES = {
                       "layer_norm_bwd": "apex_layer_norm_bwd"},
     "flash_attention.cu": {"flash_attention": "apex_flash_attention_fwd"},
     "flash_attention_bwd.cu": {
-        "flash_attention_bwd": "apex_flash_attention_bwd"},
+        "flash_attention_bwd": "apex_flash_attention_bwd",
+        "flash_attention_bwd_dq": "apex_flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv": "apex_flash_attention_bwd_dkv"},
     "paged_attention.cu": {
         "paged_attention": "apex_paged_decode_attention"},
     "fused_update.cu": {"fused_scale": "apex_fused_scale",
+                        "fused_axpby": "apex_fused_axpby",
                         "fused_adam": "apex_fused_adam",
                         "fused_l2norm": "apex_fused_l2norm",
+                        "fused_l2norm_scale": "apex_fused_l2norm_scale",
                         "fused_lamb1": "apex_fused_lamb1",
                         "fused_sgd": "apex_fused_sgd",
                         "fused_adagrad": "apex_fused_adagrad"},
@@ -89,6 +94,12 @@ _SIGNATURES = {
     # causal, off, valid_q, valid_k, scale_log2, scale, stream
     "apex_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    # q, k, v, dout, lse, delta, dq, bh, sq, sk, d, causal, off, valid_q,
+    # valid_k, scale_log2, scale, stream
+    "apex_flash_attention_bwd_dq": [_P] * 7 + [_I] * 8 + [_F, _F, _P],
+    # q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, causal, off,
+    # valid_q, valid_k, scale_log2, scale, stream
+    "apex_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _F, _P],
     # q, k_pages, v_pages, page_table, lengths, out, part_acc, part_ml,
     # slots, h, kvh, ps, d, mpps, page_stride, nsplit, split_tokens,
     # scale_log2, stream
@@ -96,6 +107,11 @@ _SIGNATURES = {
                                     _I, _I, _I, _I, _L, _I, _I, _F, _P],
     # x, out, scale, flag, n, x_dtype, out_dtype, stream
     "apex_fused_scale": [_P, _P, _P, _P, _L, _I, _I, _P],
+    # x, y, out, ab, flag, n, x_dtype, y_dtype, out_dtype, stream
+    "apex_fused_axpby": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    # x, out, scale, partials, norm, flag, n, parts_cap, x_dtype,
+    # out_dtype, stream
+    "apex_fused_l2norm_scale": [_P] * 6 + [_L, _I, _I, _I, _P],
     # p, g, m, v, hp, n, g_dtype, adam_w, stream
     "apex_fused_adam": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
     # x, partials, out, n, parts_cap, x_dtype, stream

@@ -12,12 +12,16 @@ Port of ``apex_tpu/ops/attention.py``, ``[b, h, s, d]`` layout:
   softmax and the returned log-sum-exp are in BASE 2, exactly as
   ``_fwd`` returns them (:func:`_fwd`).  The backward (:func:`_bwd`)
   computes ``delta = rowsum(dO * O)`` in plain PyTorch, as the JAX
-  ``_bwd_impl`` does outside its kernels, and runs
-  ``csrc/flash_attention_bwd.cu``, the counterpart of the one-pass
-  ``_bwd_fused_kernel``, which consumes that base-2 lse.  Its dq is
-  accumulated with atomics in fp32, so it takes every length (the TPU
-  kernel's 2 MB VMEM gate does not apply) and its last bits vary from
-  run to run.  The ``mask`` operand and dropout are not ported yet
+  ``_bwd_impl`` does outside its kernels, and takes the JAX package's
+  route: while ``sq * d * 4 <= _FUSED_BWD_MAX_BYTES`` (2 MiB: every
+  sequence up to 4096 tokens at head_dim 128) the one-pass kernel of
+  ``csrc/flash_attention_bwd.cu`` (the counterpart of
+  ``_bwd_fused_kernel``), beyond it the split pair in the same source,
+  the dq kernel and the dk/dv kernel (``_dq_kernel`` and
+  ``_dkv_kernel``).  All consume the base-2 lse.  The one-pass kernel
+  adds dq with fp32 atomics, so its dq's last bits vary from run to
+  run; the split pair writes every output once, and repeats bit for
+  bit.  The ``mask`` operand and dropout are not ported yet
   (ROADMAP queue 1, "mask operand and dropout"): on CUDA they raise
   ``NotImplementedError`` (the CPU plain version takes a mask).
 * :func:`mha_reference` — the natural-log oracle.
@@ -43,6 +47,11 @@ _LOG2E = 1.4426950408889634
 _MASKED_ROW_THRESH = _NEG_INF * 0.5
 #: head dims the kernel is instantiated for
 _KERNEL_HEAD_DIMS = (32, 64, 128)
+#: the JAX package's one-pass backward gate (``attention.py``): the
+#: one-pass kernel while its ``[sq, d]`` fp32 dq is at most this many
+#: bytes, the split pair beyond.  Module-level so tests can force either
+#: route.
+_FUSED_BWD_MAX_BYTES = 2 * 1024 * 1024
 
 
 def mha_reference(q, k, v, *, causal: bool = False, mask=None,
@@ -125,53 +134,138 @@ def _live_mask(sq, sk, causal, off, valid, device):
     return live
 
 
-def _bwd_reference(q3, k3, v3, o3, lse, do3, causal, scale,
-                   causal_off=None, valid=None):
-    """Plain version of the backward kernel: ``(dq, dk, dv)`` in the
-    operands' dtype from the base-2 lse, with ``_recompute_p``'s masks
-    and fully-masked-row guard; p and ds round to the operand dtype
-    before their products, as the kernels feed their matrix units."""
+def _recompute_p(q3, k3, lse, causal, scale, off, valid):
+    """``_recompute_p``'s plain version: ``p = exp2(s - lse)`` in fp32
+    with the kernels' masks and the fully-masked-row guard."""
     sq, sk = q3.shape[1], k3.shape[1]
-    off = (sk - sq) if causal_off is None else causal_off
-    delta = (do3.float() * o3.float()).sum(dim=-1)
     s = torch.matmul(q3.float(), k3.float().transpose(1, 2)) * (
         scale * _LOG2E)
     s = torch.where(_live_mask(sq, sk, causal, off, valid, q3.device), s,
                     torch.full_like(s, _NEG_INF))
     p = torch.exp2(s - lse[..., None])
-    p = torch.where(lse[..., None] <= _MASKED_ROW_THRESH,
-                    torch.zeros_like(p), p)
-    dv = torch.matmul(p.to(do3.dtype).float().transpose(1, 2), do3.float())
+    return torch.where(lse[..., None] <= _MASKED_ROW_THRESH,
+                       torch.zeros_like(p), p)
+
+
+def _ds(p, v3, do3, delta, dtype):
+    """``ds = p (dp - delta)`` with ``dp = dO V^T``, rounded to ``dtype``
+    (the matrix units' feed) and returned in fp32."""
     dp = torch.matmul(do3.float(), v3.float().transpose(1, 2))
-    ds = (p * (dp - delta[..., None])).to(q3.dtype).float()
+    return (p * (dp - delta[..., None])).to(dtype).float()
+
+
+def _dq_reference(q3, k3, v3, lse, delta, do3, causal, scale,
+                  causal_off=None, valid=None):
+    """Plain version of the split dq kernel: ``dq`` in q's dtype from
+    the base-2 lse and ``delta = rowsum(dO * O)``."""
+    sq, sk = q3.shape[1], k3.shape[1]
+    off = (sk - sq) if causal_off is None else causal_off
+    p = _recompute_p(q3, k3, lse, causal, scale, off, valid)
+    ds = _ds(p, v3, do3, delta, q3.dtype)
+    return (scale * torch.matmul(ds, k3.float())).to(q3.dtype)
+
+
+def _dkv_reference(q3, k3, v3, lse, delta, do3, causal, scale,
+                   causal_off=None, valid=None):
+    """Plain version of the split dk/dv kernel: ``(dk, dv)`` in the
+    operands' dtypes; p and ds round to the operand dtype before their
+    products, as the kernels feed their matrix units."""
+    sq, sk = q3.shape[1], k3.shape[1]
+    off = (sk - sq) if causal_off is None else causal_off
+    p = _recompute_p(q3, k3, lse, causal, scale, off, valid)
+    dv = torch.matmul(p.to(do3.dtype).float().transpose(1, 2), do3.float())
+    ds = _ds(p, v3, do3, delta, q3.dtype)
     dk = scale * torch.matmul(ds.transpose(1, 2), q3.float())
-    dq = scale * torch.matmul(ds, k3.float())
-    return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
+    return dk.to(k3.dtype), dv.to(v3.dtype)
 
 
-def _bwd(q3, k3, v3, o3, lse, do3, causal: bool, scale: float,
-         causal_off: Optional[int] = None,
-         valid: Optional[Tuple[int, int]] = None):
-    """Backward over ``[b*h, s, d]`` operands from the forward's output
-    and base-2 ``lse``: ``(dq, dk, dv)``.  The kernel on CUDA, the plain
-    version on the CPU."""
-    if q3.device.type == "cpu":
-        return _bwd_reference(q3, k3, v3, o3, lse, do3, causal, scale,
-                              causal_off, valid)
+def _delta(o3, do3):
+    """``rowsum(dO * O)`` in fp32, outside the kernels as in
+    ``_bwd_impl``."""
+    return (do3.float() * o3.float()).sum(dim=-1)
+
+
+def _bwd_reference(q3, k3, v3, o3, lse, do3, causal, scale,
+                   causal_off=None, valid=None):
+    """Plain version of the backward: ``(dq, dk, dv)`` in the operands'
+    dtype from the base-2 lse, with ``_recompute_p``'s masks and
+    fully-masked-row guard -- the composition of the split pair's plain
+    versions (the one-pass kernel computes the same function)."""
+    delta = _delta(o3, do3)
+    args = (q3, k3, v3, lse, delta, do3, causal, scale, causal_off, valid)
+    return (_dq_reference(*args), *_dkv_reference(*args))
+
+
+def _split_bwd(sq: int, d: int) -> bool:
+    """The JAX ``_bwd_impl``'s route: the split pair when the one-pass
+    kernel's ``[sq, d]`` fp32 dq would pass ``_FUSED_BWD_MAX_BYTES``."""
+    return sq * d * 4 > _FUSED_BWD_MAX_BYTES
+
+
+def _kernel_args(kernel, q3, k3, v3, lse, do3, causal, scale, causal_off,
+                 valid, extra=()):
+    """The backward kernels' checks; returns their shape and mask
+    arguments ``(bh, sq, sk, d, causal, off, valid_q, valid_k,
+    scale_log2, scale)``."""
     bh, sq, d = q3.shape
     sk = k3.shape[1]
-    _check_kernel_operands("flash_attention_bwd", q3, k3, v3,
-                           (("out", o3), ("dout", do3)))
-    if o3.shape != q3.shape or do3.shape != q3.shape:
-        raise ValueError(f"out/dout must be {tuple(q3.shape)}")
+    _check_kernel_operands(kernel, q3, k3, v3, (("dout", do3), *extra))
+    if do3.shape != q3.shape:
+        raise ValueError(f"dout must be {tuple(q3.shape)}")
     if lse.shape != (bh, sq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous fp32 [{bh}, {sq}]")
     off = (sk - sq) if causal_off is None else int(causal_off)
     vq, vk = (sq, sk) if valid is None else (int(valid[0]), int(valid[1]))
-    # delta outside the kernel, in fp32, as _bwd_impl computes it
-    delta = (do3.float() * o3.float()).sum(dim=-1)
-    dq_acc = torch.empty((bh, sq, d), dtype=torch.float32, device=q3.device)
+    return (bh, sq, sk, d, int(causal), off, vq, vk, float(scale * _LOG2E),
+            float(scale))
+
+
+def _dq_kernel(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
+               valid=None):
+    """The split backward's dq kernel (operands as
+    :func:`_dq_reference`'s): ``dq`` bf16, written once, no atomics."""
+    dims = _kernel_args("flash_attention_bwd_dq", q3, k3, v3, lse, do3,
+                        causal, scale, causal_off, valid)
+    dq = torch.empty_like(q3)
+    lib = _build.library()
+    _build.count("flash_attention_bwd_dq")
+    err = lib.apex_flash_attention_bwd_dq(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
+        _build.stream_ptr(q3.device))
+    _build.check(err, "flash_attention_bwd_dq")
+    return dq
+
+
+def _dkv_kernel(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
+                valid=None):
+    """The split backward's dk/dv kernel (operands as
+    :func:`_dkv_reference`'s): ``(dk, dv)`` bf16."""
+    dims = _kernel_args("flash_attention_bwd_dkv", q3, k3, v3, lse, do3,
+                        causal, scale, causal_off, valid)
+    dk = torch.empty_like(k3)
+    dv = torch.empty_like(v3)
+    lib = _build.library()
+    _build.count("flash_attention_bwd_dkv")
+    err = lib.apex_flash_attention_bwd_dkv(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *dims, _build.stream_ptr(q3.device))
+    _build.check(err, "flash_attention_bwd_dkv")
+    return dk, dv
+
+
+def _bwd_kernel(q3, k3, v3, o3, lse, do3, causal, scale, causal_off=None,
+                valid=None):
+    """The one-pass backward kernel: ``(dq, dk, dv)`` bf16, dq added
+    with fp32 atomics into a scratch buffer and then cast."""
+    dims = _kernel_args("flash_attention_bwd", q3, k3, v3, lse, do3, causal,
+                        scale, causal_off, valid, (("out", o3),))
+    if o3.shape != q3.shape:
+        raise ValueError(f"out must be {tuple(q3.shape)}")
+    delta = _delta(o3, do3)
+    dq_acc = torch.empty(q3.shape, dtype=torch.float32, device=q3.device)
     dq = torch.empty_like(q3)
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
@@ -180,10 +274,28 @@ def _bwd(q3, k3, v3, o3, lse, do3, causal: bool, scale: float,
     err = lib.apex_flash_attention_bwd(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d, int(causal), off, vq,
-        vk, float(scale * _LOG2E), float(scale),
-        _build.stream_ptr(q3.device))
+        dk.data_ptr(), dv.data_ptr(), *dims, _build.stream_ptr(q3.device))
     _build.check(err, "flash_attention_bwd")
+    return dq, dk, dv
+
+
+def _bwd(q3, k3, v3, o3, lse, do3, causal: bool, scale: float,
+         causal_off: Optional[int] = None,
+         valid: Optional[Tuple[int, int]] = None):
+    """Backward over ``[b*h, s, d]`` operands from the forward's output
+    and base-2 ``lse``: ``(dq, dk, dv)``.  The one-pass kernel while
+    ``sq * d * 4 <= _FUSED_BWD_MAX_BYTES``, else the split pair; each
+    kernel's plain version for CPU tensors."""
+    cpu = q3.device.type == "cpu"
+    if not _split_bwd(q3.shape[1], q3.shape[2]):
+        return (_bwd_reference if cpu else _bwd_kernel)(
+            q3, k3, v3, o3, lse, do3, causal, scale, causal_off, valid)
+    if o3.shape != q3.shape:
+        raise ValueError(f"out must be {tuple(q3.shape)}")
+    args = (q3, k3, v3, lse, _delta(o3, do3), do3, causal, scale,
+            causal_off, valid)
+    dq = (_dq_reference if cpu else _dq_kernel)(*args)
+    dk, dv = (_dkv_reference if cpu else _dkv_kernel)(*args)
     return dq, dk, dv
 
 

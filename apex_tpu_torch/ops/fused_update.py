@@ -5,7 +5,11 @@ Port of the training half of ``apex_tpu/ops/fused_update.py``:
 
 * :func:`fused_scale` — ``flat * scale`` with a fused non-finite flag
   (counterpart of the Pallas ``_scale_kernel``);
+* :func:`fused_axpby` — ``a * x + b * y`` with the flag
+  (``_axpby_kernel``);
 * :func:`fused_l2norm` — the L2 norm of a flat buffer (``_l2norm_kernel``);
+* :func:`fused_l2norm_scale` — ``flat * scale``, the L2 norm of the
+  scaled values and the flag in one pass (``_l2norm_scale_kernel``);
 * :func:`fused_adam_flat` — one Adam/AdamW step over flat fp32 state
   (``_adam_kernel``), with ``grad_scale`` and the ``noop_flag``
   overflow skip;
@@ -31,10 +35,10 @@ Port-only: :func:`fused_lamb_phase1_flat` takes ``noop_flag=`` (on a
 skipped step m and v stay bit-identical and u is zero) and writes u
 into a caller's buffer ``u=``.
 
-The remaining kernels of the JAX module (axpby and the fused
-scale-and-norm, reached only by the ``multi_tensor_apply`` shim) are not
-ported yet (ROADMAP queue 2).  A CPU tensor takes the plain versions; a
-CUDA tensor launches the kernel or raises.
+:func:`fused_axpby` and :func:`fused_l2norm_scale` return new buffers,
+as in JAX (their caller is the ``multi_tensor_apply`` shim).  A CPU
+tensor takes the plain versions; a CUDA tensor launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -44,7 +48,8 @@ import torch
 
 from apex_tpu_torch.ops import _build
 
-__all__ = ["fused_scale", "fused_l2norm", "fused_adam_flat",
+__all__ = ["fused_scale", "fused_axpby", "fused_l2norm",
+           "fused_l2norm_scale", "fused_adam_flat",
            "fused_lamb_phase1_flat", "fused_sgd_flat", "fused_adagrad_flat",
            "adam_reference", "ADAM_MODE_L2", "ADAM_MODE_ADAMW"]
 
@@ -96,6 +101,12 @@ def _check_kernel_operands(name: str, g, *bufs) -> None:
         raise ValueError(f"{name} kernel needs contiguous buffers")
 
 
+def _check_flat_kernel_dtypes(name, *dtypes) -> None:
+    if any(dt not in _DTYPE_CODE for dt in dtypes):
+        raise TypeError(f"{name} kernel takes float32/bfloat16, got "
+                        f"{' -> '.join(str(dt) for dt in dtypes)}")
+
+
 def _apply_plain(reference, outs, ins, *args) -> None:
     """``outs[k] <- reference(*ins, *args)[k]``, slice by slice."""
     n = ins[0].numel()
@@ -142,9 +153,7 @@ def fused_scale(flat: torch.Tensor, scale, out_dtype=None, *,
         return out, flag
     if dev.type != "cuda":
         raise ValueError(f"fused_scale runs on cuda or cpu, got {dev}")
-    if flat.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
-        raise TypeError(f"fused_scale kernel takes float32/bfloat16, got "
-                        f"{flat.dtype} -> {out_dtype}")
+    _check_flat_kernel_dtypes("fused_scale", flat.dtype, out_dtype)
     if not flat.is_contiguous() or (out is not None
                                     and not out.is_contiguous()):
         raise ValueError("fused_scale kernel needs contiguous buffers")
@@ -158,6 +167,61 @@ def fused_scale(flat: torch.Tensor, scale, out_dtype=None, *,
         flat.numel(), _DTYPE_CODE[flat.dtype], _DTYPE_CODE[out_dtype],
         _build.stream_ptr(dev))
     _build.check(err, "fused_scale")
+    return out, flag
+
+
+def _axpby_reference(x, y, ab, out_dtype):
+    """Plain version of the axpby kernel: ``(out, flag)``, the flag the
+    non-finite test of the fp32 result before the cast."""
+    a, b = ab.unbind()
+    o = a * x.float() + b * y.float()
+    flag = (~torch.isfinite(o)).any().to(torch.float32)
+    return o.to(out_dtype), flag
+
+
+def _axpby_plain(x, y, ab, out, flag) -> None:
+    for i in range(0, x.numel(), _PLAIN_CHUNK):
+        sl = slice(i, i + _PLAIN_CHUNK)
+        o, f = _axpby_reference(x[sl], y[sl], ab, out.dtype)
+        out[sl].copy_(o)
+        torch.maximum(flag, f, out=flag)
+
+
+def _axpby_kernel(x, y, ab, out, flag) -> None:
+    _check_flat_kernel_dtypes("fused_axpby", x.dtype, y.dtype, out.dtype)
+    if not (x.is_contiguous() and y.is_contiguous()):
+        raise ValueError("fused_axpby kernel needs contiguous buffers")
+    lib = _build.library()
+    _build.count("fused_axpby")
+    err = lib.apex_fused_axpby(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), ab.data_ptr(),
+        flag.data_ptr(), x.numel(), _DTYPE_CODE[x.dtype],
+        _DTYPE_CODE[y.dtype], _DTYPE_CODE[out.dtype],
+        _build.stream_ptr(x.device))
+    _build.check(err, "fused_axpby")
+
+
+def fused_axpby(a, x: torch.Tensor, b, y: torch.Tensor, out_dtype=None):
+    """``out = a * x + b * y`` with fused non-finite detection; returns
+    ``(out, found_inf)``, a new buffer in ``out_dtype`` (default x's) and
+    a 0-d fp32 flag (1.0 when any fp32 result is inf or nan) on the
+    buffers' device.  ``a`` and ``b`` are numbers or 0-d tensors; x and y
+    may differ in dtype.
+
+    Parity: ``amp_C.multi_tensor_axpby``."""
+    out_dtype = out_dtype or x.dtype
+    if x.dim() != 1 or y.shape != x.shape or y.device != x.device:
+        raise ValueError(f"fused_axpby takes two flat buffers of one shape "
+                         f"and device, got {tuple(x.shape)} on {x.device} "
+                         f"and {tuple(y.shape)} on {y.device}")
+    dev = x.device
+    flag = torch.zeros((), dtype=torch.float32, device=dev)
+    if x.numel() == 0:
+        return x.to(out_dtype), flag
+    ab = torch.stack([_scalar(a, dev), _scalar(b, dev)])
+    out = torch.empty(x.shape, dtype=out_dtype, device=dev)
+    _route(dev, "fused_axpby", _axpby_plain, _axpby_kernel)(x, y, ab, out,
+                                                            flag)
     return out, flag
 
 
@@ -190,9 +254,7 @@ def _l2norm_plain(flat, out) -> None:
 
 
 def _l2norm_kernel(flat, out) -> None:
-    if flat.dtype not in _DTYPE_CODE:
-        raise TypeError(f"fused_l2norm kernel takes float32/bfloat16, got "
-                        f"{flat.dtype}")
+    _check_flat_kernel_dtypes("fused_l2norm", flat.dtype)
     if not flat.is_contiguous():
         raise ValueError("fused_l2norm kernel needs a contiguous buffer")
     parts = torch.empty(_L2NORM_PARTS, dtype=torch.float32,
@@ -224,6 +286,68 @@ def fused_l2norm(flat: torch.Tensor, *,
         raise ValueError(f"out must be a 0-d float32 tensor on {dev}")
     _route(dev, "fused_l2norm", _l2norm_plain, _l2norm_kernel)(flat, out)
     return out
+
+
+def _l2norm_scale_reference(flat, scale, out_dtype):
+    """Plain version of the scale-and-norm kernel: ``(out, sumsq, flag)``
+    with the fp32 sum of squares and the flag of ``flat * scale`` before
+    its cast to ``out_dtype``."""
+    y = flat.float() * scale
+    flag = (~torch.isfinite(y)).any().to(torch.float32)
+    return y.to(out_dtype), torch.sum(y * y), flag
+
+
+def _l2norm_scale_plain(flat, scale, out, norm, flag) -> None:
+    sq = torch.zeros((), dtype=torch.float32, device=flat.device)
+    for i in range(0, flat.numel(), _PLAIN_CHUNK):
+        sl = slice(i, i + _PLAIN_CHUNK)
+        o, part, f = _l2norm_scale_reference(flat[sl], scale, out.dtype)
+        out[sl].copy_(o)
+        sq = sq + part
+        torch.maximum(flag, f, out=flag)
+    norm.copy_(torch.sqrt(sq))
+
+
+def _l2norm_scale_kernel(flat, scale, out, norm, flag) -> None:
+    _check_flat_kernel_dtypes("fused_l2norm_scale", flat.dtype, out.dtype)
+    if not flat.is_contiguous():
+        raise ValueError("fused_l2norm_scale kernel needs a contiguous "
+                         "buffer")
+    parts = torch.empty(_L2NORM_PARTS, dtype=torch.float32,
+                        device=flat.device)
+    lib = _build.library()
+    _build.count("fused_l2norm_scale")
+    err = lib.apex_fused_l2norm_scale(
+        flat.data_ptr(), out.data_ptr(), scale.data_ptr(), parts.data_ptr(),
+        norm.data_ptr(), flag.data_ptr(), flat.numel(), _L2NORM_PARTS,
+        _DTYPE_CODE[flat.dtype], _DTYPE_CODE[out.dtype],
+        _build.stream_ptr(flat.device))
+    _build.check(err, "fused_l2norm_scale")
+
+
+def fused_l2norm_scale(flat: torch.Tensor, scale, out_dtype=None):
+    """``out = flat * scale`` AND the L2 norm of the scaled values in one
+    pass; returns ``(out, norm, found_inf)``: a new buffer in
+    ``out_dtype`` (default flat's), the norm (sqrt of the fp32 sum of
+    squares of ``flat * scale`` before the cast) and the non-finite flag,
+    both 0-d fp32 tensors on the buffer's device.
+
+    Parity: ``amp_C.multi_tensor_l2norm_scale``.  On the card the sum
+    runs in a fixed order, so the same buffer gives the same bits every
+    run."""
+    out_dtype = out_dtype or flat.dtype
+    if flat.dim() != 1:
+        raise ValueError(f"fused_l2norm_scale takes a flat buffer, got "
+                         f"{tuple(flat.shape)}")
+    dev = flat.device
+    norm = torch.zeros((), dtype=torch.float32, device=dev)
+    flag = torch.zeros((), dtype=torch.float32, device=dev)
+    if flat.numel() == 0:
+        return flat.to(out_dtype), norm, flag
+    out = torch.empty(flat.shape, dtype=out_dtype, device=dev)
+    _route(dev, "fused_l2norm_scale", _l2norm_scale_plain,
+           _l2norm_scale_kernel)(flat, _scalar(scale, dev), out, norm, flag)
+    return out, norm, flag
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,14 @@
    over the same pool; the amp unscale, Adam, the L2 norm, LAMB's phase
    1, SGD and Adagrad over the 1.923e9-element flat fp32 buffers of the
    4-layer training model, with the norm's run-to-run bit identity and
-   the update kernels' noop bit identity).  Prints the max
+   the update kernels' noop bit identity; the split flash backward's dq
+   and dk/dv kernels at causal ``[1, 32, 8192, 128]``, held against
+   their plain halves 4 heads at a time, bit for bit from run to run,
+   and timed beside the one-pass kernel forced onto the same shape and
+   SDPA's backward; the ``multi_tensor_apply`` shim's axpby and fused
+   scale-and-norm kernels over the same flat length, fp32 and bf16,
+   with the norm's bit identity and an inf raising each flag).  Prints
+   the max
    |diff| against its stated limit, the kernel's time, its bound (the
    larger of bytes over 3.35 TB/s and operations over the peak rate of
    their type — 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s fp32
@@ -54,7 +61,11 @@
    ``torch.Generator`` at the JAX package's init scales, an fp32
    master, ``fused_adam(lr=1e-4)`` and ``loss_scale="dynamic"``, six
    ``make_train_step`` steps on one fixed batch of 2048 seeded tokens;
-   the loss must fall and stay finite.  Then the same six steps under
+   the loss must fall and stay finite.  Then three steps of the same
+   model and rule on 8192 seeded tokens (Llama-3-8B's context), whose
+   backward takes the split flash pair: each split kernel must launch
+   once per layer and step, the one-pass kernel never (and every
+   2048-token run the reverse).  Then the same six steps under
    ``fused_lamb(lr=1e-4, weight_decay=0.01, max_grad_norm=1.0)``, which
    must launch its phase 1 once and the norm 1 + 2 per leaf times a
    step; then 1 layer, three steps each, under ``fused_sgd`` (momentum
@@ -71,7 +82,15 @@
    slice of the flat grads, an absolute loss limit).  Then for LAMB,
    SGD and Adagrad: one update from two clones of a warm state, through
    the kernels and through their plain versions, every leaf of master
-   and slots within a relative limit.
+   and slots within a relative limit.  Then one 8192-token step of the
+   1-layer model through the split backward against the same step with
+   the gate raised so the one-pass kernel takes it (both on the card):
+   the loss and every leaf's flat grads within a relative L2 limit.
+8. **Shim.**  One backward of the 1-layer model, then
+   ``multi_tensor_applier`` with each of its four ops over the model's
+   real grad list (11 leaves, bf16 and fp32), one kernel launch a call,
+   against the same calls through the plain versions; ``noop_flag`` 1
+   and an inf in one grad must raise every flag.
 
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed phase raises, so the
@@ -85,6 +104,7 @@ import contextlib
 import importlib
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -136,6 +156,33 @@ TOL_UPDATE_REL = 1e-6
 TOL_FLASH_BWD_RTOL = 2.0 ** -6
 TOL_FLASH_BWD_ATOL = 2.0 ** -9
 TOL_FLASH_BWD_REL_L2 = 1e-2
+#: the split backward at causal [1, 32, 8192, 128] is held against the
+#: exact float64 gradient instead of element by element: the element
+#: rule's floor (2^-9) is smaller than one bf16 rounding step of a p in
+#: [0.5, 1) times |dO| ~ 1, and the kernels and the plain version, whose
+#: fp32 scores differ in their last bits, round a few such p to
+#: different sides (the one-pass kernel at this shape reads the same
+#: worst element).  Each output's error against the exact gradient must
+#: stay within 5% (relative L2) and 25% (max |err|) of the plain
+#: version's own error; both round the same values, so the ratios sit
+#: near 1, and an independent error of 7e-4 relative L2 moves the first
+#: past its limit.
+TOL_SPLIT_EXACT_L2 = 1.05
+TOL_SPLIT_EXACT_MAX = 1.25
+#: the shim's two kernels against their plain versions: axpby rounds
+#: each product before the sum, as the plain version's separate
+#: multiplies do, and the fused scale writes one fp32 multiply, so both
+#: outputs are exact; the fused norm is an fp32 sum in another order
+#: (as TOL_L2NORM_REL)
+TOL_AXPBY = 0.0
+TOL_L2NORM_SCALE_OUT = 0.0
+#: train-check of the split backward: one 8192-token step through the
+#: split pair against the same step through the one-pass kernel.  The
+#: forward is the same (the loss bit for bit), dk and dv are the same
+#: products; dq differs by the atomics' order of fp32 adds before its
+#: bf16 rounding (an ulp of some elements), which the rest of the
+#: backward carries into every leaf: each leaf within 1e-2 relative L2
+TOL_SPLIT_GRAD_REL_L2 = 1e-2
 #: the kernels each main path must launch; a kernel's "launches" in the
 #: JSON line is the count of the path it was ported for (the forward
 #: norm and flash kernels: the serve)
@@ -146,17 +193,31 @@ FUSED_ONLY = ("fused_block_decode",)
 UNFUSED_ONLY = ("paged_attention",)
 TRAIN_KERNELS = ("layer_norm", "layer_norm_bwd", "flash_attention",
                  "flash_attention_bwd", "fused_scale", "fused_adam")
+#: the split flash backward, which the 8192-token run must launch once
+#: each per layer and step in place of the one-pass kernel
+SPLIT_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+SPLIT_TRAIN_KERNELS = tuple(k for k in TRAIN_KERNELS
+                            if k != "flash_attention_bwd") + SPLIT_KERNELS
+#: the kernels only the multi_tensor_apply shim reaches
+SHIM_KERNELS = ("fused_axpby", "fused_l2norm_scale")
 #: the optimizer runs of the train phase: the kernels each must launch,
 #: and the run whose launches each kernel reports (the rest: "adam")
 RULE_KERNELS = {"lamb": ("fused_l2norm", "fused_lamb1"),
                 "sgd": ("fused_l2norm", "fused_sgd"),
                 "adagrad": ("fused_adagrad",)}
 KERNEL_RUN = {"fused_l2norm": "lamb", "fused_lamb1": "lamb",
-              "fused_sgd": "sgd", "fused_adagrad": "adagrad"}
+              "fused_sgd": "sgd", "fused_adagrad": "adagrad",
+              "flash_attention_bwd_dq": "adam8k",
+              "flash_attention_bwd_dkv": "adam8k"}
 #: the 4-layer training model (Llama-3-8B widths) and its batch
 TRAIN_LAYERS = 4
 TRAIN_SEQ = 2048
 TRAIN_STEPS = 6
+#: the 8192-token run (Llama-3-8B's published context): the same model
+#: and Adam, three steps; sq * d * 4 = 4 MiB passes the one-pass gate
+#: (2 MiB), so the split backward takes every layer
+SPLIT_SEQ = 8192
+SPLIT_STEPS = 3
 TRAIN_LR = 1e-4
 #: the LAMB run (4 layers, six steps) and the 1-layer SGD (with the grad
 #: clipper, no loss scale) and Adagrad runs, three steps each
@@ -280,18 +341,81 @@ def _check_flash_bwd(label, got, ref) -> float:
     return err
 
 
+def _exact_bwd(q3, k3, v3, do3, scale):
+    """The causal backward in float64 from the bf16 operands, with p and
+    ds unrounded: the exact gradient that the kernels and their plain
+    versions both approximate."""
+    q_, k_, v_, do_ = (t.double() for t in (q3, k3, v3, do3))
+    s_ = torch.matmul(q_, k_.transpose(1, 2)) * scale
+    sq, sk = s_.shape[1:]
+    live = torch.ones(sq, sk, dtype=torch.bool, device=q3.device).tril(sk - sq)
+    p = torch.softmax(s_.masked_fill_(~live, float("-inf")), dim=-1)
+    del s_
+    delta = (do_ * torch.matmul(p, v_)).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(do_, v_.transpose(1, 2)) - delta)
+    return (scale * torch.matmul(ds, k_),
+            scale * torch.matmul(ds.transpose(1, 2), q_),
+            torch.matmul(p.transpose(1, 2), do_))
+
+
+def _exact_errors(got, exact):
+    """Per output: (relative L2, max |err|) of ``got`` against ``exact``."""
+    out = []
+    for g_, x_ in zip(got, exact):
+        e = g_.double() - x_
+        out.append(((e.norm() / x_.norm()).item(), e.abs().max().item()))
+    return out
+
+
+def _check_flash_bwd_exact(label, got, ref, exact) -> float:
+    """The split backward at 8192 tokens: each output's error against the
+    exact float64 gradient within TOL_SPLIT_EXACT_* of the plain
+    version's own error, and within TOL_FLASH_BWD_REL_L2 of the plain
+    version; the 2048-token element rule's reading is printed beside.
+    Returns the largest max |diff| against the plain version."""
+    err, failed = 0.0, []
+    for nm, g_, r_, (gl2, gmax), (rl2, rmax) in zip(
+            ("dq", "dk", "dv"), got, ref, _exact_errors(got, exact),
+            _exact_errors(ref, exact)):
+        ratio, rel = _elementwise(g_, r_, TOL_FLASH_BWD_RTOL,
+                                  TOL_FLASH_BWD_ATOL)
+        e = (g_.float() - r_.float()).abs().max().item()
+        ok = gl2 <= TOL_SPLIT_EXACT_L2 * rl2 \
+            and gmax <= TOL_SPLIT_EXACT_MAX * rmax \
+            and rel <= TOL_FLASH_BWD_REL_L2
+        print(f"  {label} {nm}: against the exact gradient relative L2 "
+              f"{gl2:.5g} (plain {rl2:.5g}, limit x{TOL_SPLIT_EXACT_L2}), "
+              f"max|err| {gmax:.5g} (plain {rmax:.5g}, limit "
+              f"x{TOL_SPLIT_EXACT_MAX}); against the plain version max|diff| "
+              f"{e:.6g}, relative L2 {rel:.4g} (limit {TOL_FLASH_BWD_REL_L2}), "
+              f"worst |diff| / (2^-6 |ref| + 2^-9) {ratio:.4g} "
+              f"{'ok' if ok else 'FAIL'}")
+        failed += [] if ok else [nm]
+        err = max(err, e)
+    if failed:
+        raise AssertionError(f"{label} {failed}: less accurate than the plain "
+                             f"version")
+    return err
+
+
 def phase_build():
     from apex_tpu_torch.ops import _build
     t0 = time.perf_counter()
     so = _build.build()
     _build.library()
     print(f"build: {so.name} in {time.perf_counter() - t0:.1f} s")
-    for src in _build.SOURCES.values():
-        log = (_build.BUILD_DIR / f"{src}.log")
+    # ptxas's resource lines, one summary a source (each template
+    # instance is a function of its own)
+    for src in _build.SOURCES:
+        log = _build.BUILD_DIR / f"{src}.log"
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  {src}: {line.strip()}")
+            text = log.read_text()
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+            spills = sum(int(b) for b in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", text))
+            if regs:
+                print(f"  {src}: {len(regs)} functions, {min(regs)}-"
+                      f"{max(regs)} registers, {spills} bytes of spills")
 
 
 def phase_kernels(dev, gen):
@@ -450,6 +574,11 @@ def phase_kernels(dev, gen):
     ogen = torch.Generator(device=dev)
     ogen.manual_seed(gen.initial_seed() + 2)
     _optimizer_kernels(dev, ogen, recs)
+    # and for each of the last slice's kernel pairs
+    for off, check in ((3, _split_kernels), (4, _shim_kernels)):
+        sgen = torch.Generator(device=dev)
+        sgen.manual_seed(gen.initial_seed() + off)
+        check(dev, sgen, recs)
     for r in recs.values():
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms (eager call, host "
               f"included, {r.pop('eager_ms'):.4f} ms), bound "
@@ -950,6 +1079,261 @@ def _optimizer_kernels(dev, gen, recs):
     torch.cuda.empty_cache()
 
 
+def _by_heads(fn, n: int, step: int):
+    """``fn(slice)`` over ``[0, n)`` in slices of ``step`` heads, the
+    results concatenated (a tuple of outputs each along dim 0)."""
+    parts = [fn(slice(i, i + step)) for i in range(0, n, step)]
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts)
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def _split_kernels(dev, gen, recs):
+    """The split flash backward (#5 dq, #6 dk/dv) at causal [1, 32,
+    8192, 128] bf16 with k/v from 8 kv heads, the 8192-token training
+    run's shape: against their plain versions computed 4 heads at a time
+    (the plain version's [h, 8192, 8192] fp32 temporaries are 1 GiB
+    each at 4 heads) and the exact float64 gradient 2 heads at a time
+    (``_check_flash_bwd_exact``), with the one-pass backward's two wrong
+    backwards, which must fail that gate; two runs bit for bit; and the
+    route's time beside the one-pass kernel forced onto the same shape
+    and SDPA's backward."""
+    from apex_tpu_torch.ops import _build
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    bf = torch.bfloat16
+    b_, h, kvh, s, d = 1, 32, 8, SPLIT_SEQ, 128
+    q = torch.randn(b_, h, s, d, generator=gen, device=dev).to(bf)
+    kk = torch.randn(b_, kvh, s, d, generator=gen, device=dev).to(bf)
+    vv = torch.randn(b_, kvh, s, d, generator=gen, device=dev).to(bf)
+    do = torch.randn(b_, h, s, d, generator=gen, device=dev).to(bf)
+    k, v = (t[:, :, None].expand(b_, kvh, h // kvh, s, d)
+            .reshape(b_, h, s, d) for t in (kk, vv))
+    scale = d ** -0.5
+    q3, k3, v3, do3 = (t.reshape(b_ * h, s, d).contiguous()
+                       for t in (q, k, v, do))
+    out, lse = attn._fwd(q3, k3, v3, True, scale)
+    delta = attn._delta(out, do3)
+    args = (q3, k3, v3, lse, delta, do3, True, scale)
+    if not attn._split_bwd(s, d):
+        raise AssertionError(f"sq {s}, d {d} must take the split route")
+    before = _build.launch_counts()
+    got = attn._bwd(q3, k3, v3, out, lse, do3, True, scale)
+    counts = {k_: v_ - before[k_] for k_, v_ in _build.launch_counts().items()}
+    if counts["flash_attention_bwd_dq"] != 1 \
+            or counts["flash_attention_bwd_dkv"] != 1 \
+            or counts["flash_attention_bwd"] != 0:
+        raise AssertionError(f"the 8192 backward did not take the split "
+                             f"route: {counts}")
+
+    def plain(sl, **kw):
+        part = tuple(t[sl] for t in args[:6]) + args[6:]
+        return (attn._dq_reference(*part, **kw),
+                *attn._dkv_reference(*part, **kw))
+
+    step = 4
+    ref = _by_heads(plain, b_ * h, step)
+    exact = _by_heads(lambda sl: _exact_bwd(q3[sl], k3[sl], v3[sl], do3[sl],
+                                            scale), b_ * h, 2)
+    print(f"flash_attention backward, split route (dq kernel + dk/dv "
+          f"kernel), causal [{b_}, {h}, {s}, {d}] bf16, kv from {kvh} heads")
+    _check_flash_bwd_exact("flash bwd split", got, ref, exact)
+    errs = [(g_.float() - r_.float()).abs().max().item()
+            for g_, r_ in zip(got, ref)]
+    plain_err = _exact_errors(ref, exact)
+    for label, wrong in (("causal boundary +64", dict(causal_off=64)),
+                         (f"keys >= {s // 2} dropped",
+                          dict(valid=(s, s // 2)))):
+        bad = _by_heads(lambda sl: plain(sl, **wrong), b_ * h, step)
+        readings = [_elementwise(g_, r_, TOL_FLASH_BWD_RTOL,
+                                 TOL_FLASH_BWD_ATOL)
+                    for g_, r_ in zip(bad, ref)]
+        bad_err = _exact_errors(bad, exact)
+        print(f"  wrong backward ({label}): relative L2 against the exact "
+              f"gradient over the plain version's, of dq, dk, dv "
+              f"{[round(b2[0] / p2[0], 4) for b2, p2 in zip(bad_err, plain_err)]}; "
+              f"(worst element ratio, relative L2) against the plain version "
+              f"{[(round(a, 4), round(r, 4)) for a, r in readings]}")
+        if all(b2[0] <= TOL_SPLIT_EXACT_L2 * p2[0]
+               and b2[1] <= TOL_SPLIT_EXACT_MAX * p2[1]
+               and r <= TOL_FLASH_BWD_REL_L2
+               for b2, p2, (_, r) in zip(bad_err, plain_err, readings)):
+            raise AssertionError(f"the split backward's limits pass a wrong "
+                                 f"backward ({label})")
+        del bad
+    del ref, exact
+    again = attn._bwd(q3, k3, v3, out, lse, do3, True, scale)
+    same = [torch.equal(a_, b2) for a_, b2 in zip(got, again)]
+    print(f"  a second run of the split route: dq, dk, dv bit-identical "
+          f"{same}")
+    if not all(same):
+        raise AssertionError("the split backward differs from run to run")
+    saved = attn._FUSED_BWD_MAX_BYTES
+    attn._FUSED_BWD_MAX_BYTES = 1 << 62      # force the one-pass kernel
+    try:
+        one = attn._bwd(q3, k3, v3, out, lse, do3, True, scale)
+        one_ms = _time_ms(lambda: attn._bwd(q3, k3, v3, out, lse, do3, True,
+                                            scale), 4)
+    finally:
+        attn._FUSED_BWD_MAX_BYTES = saved
+    print("  split vs the one-pass kernel on the same inputs: "
+          + ", ".join(f"{nm} bit-identical {torch.equal(a_, b2)}, relative "
+                      f"L2 {((a_.float() - b2.float()).norm() / b2.float().norm()).item():.3e}"
+                      for nm, a_, b2 in zip(("dq", "dk", "dv"), got, one)))
+    del again, one
+    split_ms = _time_ms(lambda: attn._bwd(q3, k3, v3, out, lse, do3, True,
+                                          scale), 4)
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_fb = _time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qr, kr, vr, is_causal=True),
+        (qr, kr, vr), do), 4)
+    lib_f = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 4)
+    del qr, kr, vr
+    dq_ms = _time_ms(lambda: attn._dq_kernel(*args), 4)
+    dkv_ms = _time_ms(lambda: attn._dkv_kernel(*args), 4)
+    print(f"  the route on {_smi()}: split (delta, dq kernel, dk/dv kernel) "
+          f"{split_ms:.4f} ms = dq {dq_ms:.4f} + dk/dv {dkv_ms:.4f} ms; the "
+          f"one-pass kernel forced onto this shape {one_ms:.4f} ms; SDPA "
+          f"backward (fwd+bwd - fwd) {lib_fb - lib_f:.4f} ms")
+    # one causal product of the shape: 2 s^2 d h / 2 flops
+    product = s * s * d * h
+    elem = q3.numel() * 2
+    stats = 2 * b_ * h * s * 4                          # lse, delta
+    for name, fn, ref_fn, products, outs, ms, err in (
+            ("flash_attention_bwd_dq", attn._dq_kernel, attn._dq_reference,
+             3, 1, dq_ms, errs[0]),
+            ("flash_attention_bwd_dkv", attn._dkv_kernel,
+             attn._dkv_reference, 4, 2, dkv_ms, max(errs[1:]))):
+        bound, by = _bound(4 * elem + stats + outs * elem, products * product)
+        recs[name] = dict(
+            name=name, route="cuda",
+            source="apex_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces=("apex_tpu/ops/attention.py:376" if outs == 1 else
+                      "apex_tpu/ops/attention.py:408"),
+            max_abs_err=err, ms=ms,
+            plain_ms=_eager_ms(lambda: _by_heads(
+                lambda sl: ref_fn(*(t[sl] for t in args[:6]), *args[6:]),
+                b_ * h, step), 1),
+            bound_ms=bound, bound_by=by, library_ms=lib_fb - lib_f,
+            eager_ms=_eager_ms(lambda: fn(*args), 4))
+    del q, k, v, kk, vv, do, q3, k3, v3, do3, out, lse, delta, got, args
+    torch.cuda.empty_cache()
+
+
+def _shim_kernels(dev, gen, recs):
+    """The multi_tensor_apply shim's two kernels (#10 axpby, #12 the
+    fused scale and norm) over the 4-layer training model's flat length
+    (1.923e9 fp32 elements) against their plain versions slice by slice,
+    a bf16-in, bf16-out case of each, the norm's run-to-run bit
+    identity, and an inf past 2^32 bytes raising each flag."""
+    fu = importlib.import_module("apex_tpu_torch.ops.fused_update")
+    n = _train_numel()
+    chunk = 1 << 27
+    src = "apex_tpu_torch/csrc/fused_update.cu"
+    f32, bf = torch.float32, torch.bfloat16
+
+    # -- axpby: out = a x + b y ---------------------------------------------
+    print(f"fused_axpby over flat fp32 x, y [{n}]")
+    x = torch.randn(n, generator=gen, device=dev)
+    y = torch.randn(n, generator=gen, device=dev)
+    a_, b_ = torch.full((), 0.75, device=dev), torch.full((), -1.5, device=dev)
+    ab = torch.stack([a_, b_])
+
+    def held(label, out, flag, ref_of, limit):
+        err = 0.0
+        for i in range(0, n, chunk):
+            r = ref_of(slice(i, i + chunk))
+            err = max(err, (out[i:i + chunk].float() - r.float()).abs()
+                      .max().item())
+        _check(label, err, limit)
+        if flag.item() != 0.0:
+            raise AssertionError(f"{label}: a finite buffer raised the flag")
+        return err
+
+    out, flag = fu.fused_axpby(a_, x, b_, y)
+    err = held("fused_axpby fp32", out, flag, lambda sl: fu._axpby_reference(
+        x[sl], y[sl], ab, f32)[0], TOL_AXPBY)
+    del out
+    xb, yb = x.to(bf), y.to(bf)
+    out, flag = fu.fused_axpby(a_, xb, b_, yb)
+    err = max(err, held("fused_axpby bf16 -> bf16", out, flag,
+                        lambda sl: fu._axpby_reference(xb[sl], yb[sl], ab,
+                                                       bf)[0], TOL_AXPBY))
+    del out, xb, yb
+    y[n - 5] = float("inf")                      # past 2^32 bytes
+    _, flag = fu.fused_axpby(a_, x, b_, y)
+    if flag.item() != 1.0:
+        raise AssertionError("fused_axpby: an inf past 2^32 bytes was not "
+                             "flagged")
+    y[n - 5] = 0.0
+    add_ms = _time_ms(lambda: torch.add(x, y, alpha=-1.5), 4)
+    recs["fused_axpby"] = dict(
+        name="fused_axpby", route="cuda", source=src,
+        replaces="apex_tpu/ops/fused_update.py:167", max_abs_err=err,
+        ms=_time_ms(lambda: fu.fused_axpby(a_, x, b_, y), 4),
+        plain_ms=_time_ms(lambda: _chunked(lambda sl: fu._axpby_reference(
+            x[sl], y[sl], ab, f32), n, chunk), 1),
+        library_ms=None,
+        eager_ms=_eager_ms(lambda: fu.fused_axpby(a_, x, b_, y), 4))
+    recs["fused_axpby"]["bound_ms"], recs["fused_axpby"]["bound_by"] = \
+        _bound(12 * n, 3 * n, FP32_FLOPS_PER_S)
+    print(f"  for orientation only (no flag, a = 1): torch.add(x, y, "
+          f"alpha=b) {add_ms:.4f} ms")
+    del y
+    torch.cuda.empty_cache()
+
+    # -- the fused scale and norm: out = x * scale, ||x * scale|| -----------
+    print(f"fused_l2norm_scale over a flat fp32 buffer [{n}]")
+    x.mul_(1000.0)
+    inv = torch.full((), 2.0 ** -16, device=dev)
+    out, norm, flag = fu.fused_l2norm_scale(x, inv)
+    err = held("fused_l2norm_scale out", out, flag,
+               lambda sl: fu._l2norm_scale_reference(x[sl], inv, f32)[0],
+               TOL_L2NORM_SCALE_OUT)
+    rout = torch.empty_like(out)
+    rnorm, rflag = torch.empty((), device=dev), torch.zeros((), device=dev)
+    fu._l2norm_scale_plain(x, inv, rout, rnorm, rflag)
+    del rout
+    nerr = abs(norm.item() - rnorm.item())
+    _check("fused_l2norm_scale norm", nerr, TOL_L2NORM_REL * rnorm.item())
+    if not all(torch.equal(fu.fused_l2norm_scale(x, inv)[1], norm)
+               for _ in range(2)):
+        raise AssertionError("fused_l2norm_scale's norm differs from run to "
+                             "run")
+    print(f"  norm {norm.item():.9g}, the same bits in 2 more runs")
+    del out
+    xb = x.to(bf)
+    outb, normb, flag = fu.fused_l2norm_scale(xb, inv)
+    held("fused_l2norm_scale bf16 -> bf16 out", outb, flag,
+         lambda sl: fu._l2norm_scale_reference(xb[sl], inv, bf)[0],
+         TOL_L2NORM_SCALE_OUT)
+    rout = torch.empty_like(outb)
+    fu._l2norm_scale_plain(xb, inv, rout, rnorm, rflag)
+    _check("fused_l2norm_scale bf16 norm", abs(normb.item() - rnorm.item()),
+           TOL_L2NORM_REL * rnorm.item())
+    del outb, rout, xb
+    x[n - 5] = float("inf")
+    _, _, flag = fu.fused_l2norm_scale(x, inv)
+    if flag.item() != 1.0:
+        raise AssertionError("fused_l2norm_scale: an inf past 2^32 bytes was "
+                             "not flagged")
+    x[n - 5] = 0.0
+    recs["fused_l2norm_scale"] = dict(
+        name="fused_l2norm_scale", route="cuda", source=src,
+        replaces="apex_tpu/ops/fused_update.py:232", max_abs_err=max(err, nerr),
+        ms=_time_ms(lambda: fu.fused_l2norm_scale(x, inv), 4),
+        plain_ms=_time_ms(lambda: _chunked(
+            lambda sl: fu._l2norm_scale_reference(x[sl], inv, f32), n, chunk),
+            1),
+        library_ms=None,
+        eager_ms=_eager_ms(lambda: fu.fused_l2norm_scale(x, inv), 4))
+    recs["fused_l2norm_scale"]["bound_ms"], \
+        recs["fused_l2norm_scale"]["bound_by"] = \
+        _bound(8 * n, 3 * n, FP32_FLOPS_PER_S)
+    del x, rnorm, rflag
+    torch.cuda.empty_cache()
+
+
 def _random_llama(cfg, dev, seed: int, only=None):
     """Llama-3-8B-shaped tree of random bf16 weights from a seeded
     generator: linears N(0, 1/fan_in), norms 1 + N(0, 0.1^2), the
@@ -1173,13 +1557,10 @@ def phase_serve(dev, seed: int, profile: bool = False):
                 fused_decode_tokens_per_s=fserved["decode_tokens_per_s"])
 
 
-def _train_setup(dev, seed: int, layers: int, tx=None,
-                 loss_scale="dynamic"):
+def _train_model(dev, seed: int, layers: int, seq: int = TRAIN_SEQ):
     """The training model at Llama-3-8B widths and ``layers`` deep, bf16
-    parameters drawn from a seeded generator, its train state for ``tx``
-    (default: Adam) and one fixed batch of seeded tokens."""
-    from apex_tpu_torch import train_step
-    from apex_tpu_torch.optimizers import functional
+    parameters drawn from a seeded generator, and one fixed batch of
+    ``seq`` seeded tokens from the same generator."""
     from apex_tpu_torch.transformer.testing import (LlamaConfig,
                                                     llama_model_provider)
     cfg = LlamaConfig(**dict(FULL_CFG, num_layers=layers,
@@ -1188,12 +1569,22 @@ def _train_setup(dev, seed: int, layers: int, tx=None,
     gen.manual_seed(seed)
     model = llama_model_provider(cfg, device=dev)
     model.reset_parameters(generator=gen)
-    tx = functional.fused_adam(lr=TRAIN_LR) if tx is None else tx
-    state = train_step.init_train_state(tx, model, loss_scale=loss_scale)
-    tokens = torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ + 1),
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq + 1),
                            generator=gen, device=dev)
     batch = {"tokens": tokens[:, :-1].contiguous(),
              "labels": tokens[:, 1:].contiguous()}
+    return cfg, model, batch
+
+
+def _train_setup(dev, seed: int, layers: int, tx=None,
+                 loss_scale="dynamic", seq: int = TRAIN_SEQ):
+    """:func:`_train_model` and its train state for ``tx`` (default:
+    Adam)."""
+    from apex_tpu_torch import train_step
+    from apex_tpu_torch.optimizers import functional
+    cfg, model, batch = _train_model(dev, seed, layers, seq)
+    tx = functional.fused_adam(lr=TRAIN_LR) if tx is None else tx
+    state = train_step.init_train_state(tx, model, loss_scale=loss_scale)
     return cfg, model, tx, state, batch, train_step
 
 
@@ -1202,20 +1593,23 @@ def _train_loss(model, batch):
 
 
 def _train_run(dev, seed: int, label: str, tx, layers: int, steps: int,
-               loss_scale, kernels, transform=None, profile: bool = False):
-    """``steps`` steps of the ``layers``-deep model under ``tx`` with the
-    launch counters zeroed just before; the segment from the flat grads
-    (``transform``, then the unscale, the update and the scale update)
-    runs under ``set_sync_debug_mode("error")``.  Returns the launch
-    counts, step time, peak memory, losses and the leaf count."""
+               loss_scale, kernels, transform=None, profile: bool = False,
+               seq: int = TRAIN_SEQ):
+    """``steps`` steps of the ``layers``-deep model under ``tx`` on one
+    batch of ``seq`` tokens with the launch counters zeroed just before;
+    the segment from the flat grads (``transform``, then the unscale,
+    the update and the scale update) runs under
+    ``set_sync_debug_mode("error")``.  Returns the launch counts, step
+    time, peak memory, losses, the leaf count and the tokens a step."""
     from apex_tpu_torch.ops import _build
     t0 = time.perf_counter()
     cfg, model, tx, state, batch, train_step = _train_setup(
-        dev, seed, layers, tx, loss_scale)
+        dev, seed, layers, tx, loss_scale, seq)
     torch.cuda.synchronize()
     n = state.opt.master.numel()
     leaves = len(state.opt.sizes)
-    print(f"train {label}: Llama-3-8B widths, {layers} layers, {n} "
+    print(f"train {label}: Llama-3-8B widths, {layers} layers, {seq} "
+          f"tokens a step, {n} "
           f"parameters in {leaves} leaves (bf16 params, fp32 master), "
           f"{type(tx).__name__.strip('_')}, loss scale {loss_scale}, set up "
           f"in {time.perf_counter() - t0:.1f} s")
@@ -1243,7 +1637,7 @@ def _train_run(dev, seed: int, label: str, tx, layers: int, steps: int,
     launches = _build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     step_s = float(np.median(times[1:]))
-    tokens = TRAIN_SEQ
+    tokens = seq
     heads = cfg.num_attention_heads
     hd = cfg.hidden_size // heads
     matmul_params = n - cfg.vocab_size * cfg.hidden_size \
@@ -1251,7 +1645,7 @@ def _train_run(dev, seed: int, label: str, tx, layers: int, steps: int,
     # 6 N T for the weight GEMMs (the embedding table and norms do no
     # GEMM), and 3x the causal forward's two attention products
     model_flops = 6 * matmul_params * tokens + 3 * (
-        4 * TRAIN_SEQ * TRAIN_SEQ * hd * heads / 2) * layers
+        4 * seq * seq * hd * heads / 2) * layers
     print(f"train {label} on {_smi()}: losses "
           f"{[round(x, 4) for x in losses]}")
     print(f"  step times {[round(t, 4) for t in times]} s; median of steps "
@@ -1278,11 +1672,11 @@ def _train_run(dev, seed: int, label: str, tx, layers: int, steps: int,
             state, _ = train_step.make_train_step(_train_loss, tx)(state,
                                                                    batch)
         _device_breakdown(f"train step ({label}, {layers} layers, "
-                          f"{TRAIN_SEQ} tokens)", one, 2, top=16)
+                          f"{seq} tokens)", one, 2, top=16)
     del model, state, step
     torch.cuda.empty_cache()
     return dict(launches=launches, step_s=step_s, peak_bytes=peak,
-                losses=losses, leaves=leaves)
+                losses=losses, leaves=leaves, tokens=seq)
 
 
 def phase_train(dev, seed: int, profile: bool = False):
@@ -1295,6 +1689,22 @@ def phase_train(dev, seed: int, profile: bool = False):
     runs = {"adam": _train_run(
         dev, seed, "adam", functional.fused_adam(lr=TRAIN_LR), TRAIN_LAYERS,
         TRAIN_STEPS, "dynamic", TRAIN_KERNELS, profile=profile)}
+    # the 8192-token run: every layer's backward through the split pair
+    runs["adam8k"] = _train_run(
+        dev, seed, "adam 8192", functional.fused_adam(lr=TRAIN_LR),
+        TRAIN_LAYERS, SPLIT_STEPS, "dynamic", SPLIT_TRAIN_KERNELS,
+        profile=profile, seq=SPLIT_SEQ)
+    split = runs["adam8k"]["launches"]
+    want = TRAIN_LAYERS * SPLIT_STEPS
+    print(f"  adam 8192: flash_attention_bwd_dq launched "
+          f"{split['flash_attention_bwd_dq']} times, flash_attention_bwd_dkv "
+          f"{split['flash_attention_bwd_dkv']} (want {TRAIN_LAYERS} layers x "
+          f"{SPLIT_STEPS} steps = {want} each), flash_attention_bwd "
+          f"{split['flash_attention_bwd']} (want 0)")
+    if any(split[k] != want for k in SPLIT_KERNELS) \
+            or split["flash_attention_bwd"]:
+        raise AssertionError("the 8192-token steps did not run the split "
+                             "backward once per layer and step")
     runs["lamb"] = _train_run(
         dev, seed, "lamb", functional.fused_lamb(**LAMB_KW), TRAIN_LAYERS,
         TRAIN_STEPS, "dynamic", RULE_KERNELS["lamb"], profile=profile)
@@ -1313,10 +1723,15 @@ def phase_train(dev, seed: int, profile: bool = False):
     runs["adagrad"] = _train_run(
         dev, seed, "adagrad", functional.fused_adagrad(**ADAGRAD_KW),
         RULE_LAYERS, RULE_STEPS, "dynamic", RULE_KERNELS["adagrad"])
+    for label, r in runs.items():
+        if label != "adam8k" and (any(r["launches"][k] for k in SPLIT_KERNELS)
+                                  or not r["launches"]["flash_attention_bwd"]):
+            raise AssertionError(f"{label}: a {TRAIN_SEQ}-token run must take "
+                                 f"the one-pass backward: {r['launches']}")
     print("train summary (step time, tokens/s, peak device memory):")
     for label, r in runs.items():
         print(f"  {label}: {r['step_s']:.4f} s, "
-              f"{TRAIN_SEQ / r['step_s']:.1f} tokens/s, "
+              f"{r['tokens'] / r['step_s']:.1f} tokens/s, "
               f"{r['peak_bytes'] / 2**30:.2f} GiB")
     return runs
 
@@ -1342,61 +1757,224 @@ def _plain_kernels():
         ln._fwd_2d, ln._bwd_2d, attn._fwd, attn._bwd = saved
 
 
+def _step_grads(dev, seed: int, seq: int, route):
+    """One step of the 1-layer model on ``seq`` tokens inside the
+    context ``route``: its flat grads (cloned from the grad transform),
+    loss, launch counts and ``(leaf name, size)`` list."""
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.utils import tree_leaves_with_path
+    _, model, tx, state, batch, train_step = _train_setup(dev, seed, 1,
+                                                          seq=seq)
+    leaves = [(".".join(path), t.numel())
+              for path, t in tree_leaves_with_path(model)]
+    keep = []
+    step = train_step.make_train_step(
+        _train_loss, tx, grad_transform=lambda g: keep.append(
+            g.clone()) or g)
+    _build.reset_launch_counts()
+    with route:
+        _, loss = step(state, batch)
+    counts = _build.launch_counts()
+    grads, loss = keep[0], loss.item()
+    del model, state, step, keep
+    torch.cuda.empty_cache()
+    return grads, loss, counts, leaves
+
+
+def _hold_grads(label, got, ref, leaves, losses, limit):
+    """Hold the flat grads ``got`` against ``ref``: the relative L2 on
+    every leaf's slice (the worst within ``limit``), finite values, and
+    the two losses within TOL_TRAIN_LOSS; returns the leaves' readings."""
+    rels, off = {}, 0
+    for name, size in leaves:
+        g_, r_ = got[off:off + size], ref[off:off + size]
+        rels[name] = ((g_ - r_).norm() / r_.norm()).item()
+        off += size
+    rel = ((got - ref).norm() / ref.norm()).item()
+    worst = max(rels, key=rels.get)
+    finite = bool(torch.isfinite(got).all())
+    print(f"  losses {losses[0]:.6f} and {losses[1]:.6f}; flat grads "
+          f"relative L2 {rel:.3e} in all, by leaf:")
+    for name, r in rels.items():
+        print(f"    {r:.3e}  {name}")
+    print(f"  worst leaf {worst} {rels[worst]:.3e} (limit {limit}), finite "
+          f"{finite}")
+    if not finite or not rels[worst] <= limit:
+        raise AssertionError(f"{label}: flat grads off: relative L2 "
+                             f"{rels[worst]} in {worst}")
+    if abs(losses[0] - losses[1]) > TOL_TRAIN_LOSS:
+        raise AssertionError(f"{label}: losses differ: {losses}")
+    return rels
+
+
 def phase_train_check(dev, seed: int):
     """One step of the 1-layer model through the kernels against the
     same step through the plain versions: the flat grads leaf by leaf,
     and the loss."""
+    got, loss_k, _, leaves = _step_grads(dev, seed, TRAIN_SEQ,
+                                         contextlib.nullcontext())
+    ref, loss_p, counts, _ = _step_grads(dev, seed, TRAIN_SEQ,
+                                         _plain_kernels())
+    routed = [k for k in ("layer_norm", "layer_norm_bwd", "flash_attention",
+                          "flash_attention_bwd") + SPLIT_KERNELS
+              if counts[k]]
+    if routed:
+        raise AssertionError(f"the plain step launched {routed}: {counts}")
+    print("train-check (1 layer): kernels, then plain versions")
+    rels = _hold_grads("train-check", got, ref, leaves, [loss_k, loss_p],
+                       TOL_TRAIN_GRAD_REL_L2)
+    del got, ref
+    torch.cuda.empty_cache()
+    return dict(grad_rel_l2=rels, losses=[loss_k, loss_p])
+
+
+@contextlib.contextmanager
+def _one_pass_backward():
+    """Raise the flash backward's gate so the one-pass kernel takes every
+    length (the module reads it at call time)."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    saved = attn._FUSED_BWD_MAX_BYTES
+    attn._FUSED_BWD_MAX_BYTES = 1 << 62
+    try:
+        yield
+    finally:
+        attn._FUSED_BWD_MAX_BYTES = saved
+
+
+def phase_split_check(dev, seed: int):
+    """One 8192-token step of the 1-layer model through the split
+    backward against the same step with the gate raised, so the one-pass
+    kernel takes it: both on the card (the plain route would need tens
+    of GiB of score temporaries), the flat grads leaf by leaf and the
+    loss."""
+    got, loss_s, cs, leaves = _step_grads(dev, seed, SPLIT_SEQ,
+                                          contextlib.nullcontext())
+    ref, loss_o, co, _ = _step_grads(dev, seed, SPLIT_SEQ,
+                                     _one_pass_backward())
+    print(f"split-check (1 layer, {SPLIT_SEQ} tokens): split route launched "
+          f"{ {k: cs[k] for k in ('flash_attention_bwd',) + SPLIT_KERNELS} }, "
+          f"one-pass route "
+          f"{ {k: co[k] for k in ('flash_attention_bwd',) + SPLIT_KERNELS} }")
+    if any(cs[k] != 1 for k in SPLIT_KERNELS) or cs["flash_attention_bwd"] \
+            or co["flash_attention_bwd"] != 1 \
+            or any(co[k] for k in SPLIT_KERNELS):
+        raise AssertionError("the split check did not take its two routes")
+    print("  split route, then one-pass route")
+    rels = _hold_grads("split-check", got, ref, leaves, [loss_s, loss_o],
+                       TOL_SPLIT_GRAD_REL_L2)
+    del got, ref
+    torch.cuda.empty_cache()
+    return dict(grad_rel_l2=rels, losses=[loss_s, loss_o])
+
+
+@contextlib.contextmanager
+def _plain_shim():
+    """Route the shim's kernels to their plain versions: the axpby, norm
+    and fused scale-and-norm wrappers look up their kernel functions at
+    call time, and the shim looks up ``fused_scale``."""
+    fu = importlib.import_module("apex_tpu_torch.ops.fused_update")
+    names = ("_axpby", "_l2norm", "_l2norm_scale")
+    saved = [getattr(fu, f"{nm}_kernel") for nm in names] + [fu.fused_scale]
+    for nm in names:
+        setattr(fu, f"{nm}_kernel", getattr(fu, f"{nm}_plain"))
+    fu.fused_scale = lambda flat, scale, out_dtype=None: fu._scale_reference(
+        flat, fu._scalar(scale, flat.device), out_dtype or flat.dtype)
+    try:
+        yield
+    finally:
+        for nm, fn in zip(names, saved):
+            setattr(fu, f"{nm}_kernel", fn)
+        fu.fused_scale = saved[-1]
+
+
+def phase_shim(dev, seed: int):
+    """Apex's ``multi_tensor_applier`` over a real grad list: one
+    backward of the 1-layer model (2048 tokens), then each of the four
+    ops over its 11 grads (bf16 linears, fp32 norms) through the kernels,
+    against the same calls through the plain versions on the card; an
+    inf in one grad must raise every flag, and ``noop_flag`` must pass
+    through.  Returns the launch counts of the kernel calls."""
+    from apex_tpu_torch.multi_tensor_apply import (
+        multi_tensor_applier, multi_tensor_axpby, multi_tensor_l2norm,
+        multi_tensor_l2norm_scale, multi_tensor_scale)
     from apex_tpu_torch.ops import _build
     from apex_tpu_torch.utils import tree_leaves_with_path
-    grads, losses = [], []
-    for plain in (False, True):
-        _, model, tx, state, batch, train_step = _train_setup(dev, seed, 1)
-        leaves = [(".".join(path), t.numel())
-                  for path, t in tree_leaves_with_path(model)]
-        keep = []
-        step = train_step.make_train_step(
-            _train_loss, tx, grad_transform=lambda g: keep.append(
-                g.clone()) or g)
-        _build.reset_launch_counts()
-        if plain:
-            with _plain_kernels():
-                _, loss = step(state, batch)
-        else:
-            _, loss = step(state, batch)
-        counts = _build.launch_counts()
-        grads.append(keep[0])
-        losses.append(loss.item())
-        del model, state, step, keep
-        torch.cuda.empty_cache()
-        routed = [k for k in ("layer_norm", "layer_norm_bwd",
-                              "flash_attention", "flash_attention_bwd")
-                  if counts[k]]
-        if plain and routed:
-            raise AssertionError(f"the plain step launched {routed}: "
-                                 f"{counts}")
-    rels, off = {}, 0
-    for name, size in leaves:
-        got, ref = grads[0][off:off + size], grads[1][off:off + size]
-        rels[name] = ((got - ref).norm() / ref.norm()).item()
-        off += size
-    worst = max(rels, key=rels.get)
-    rel = ((grads[0] - grads[1]).norm() / grads[1].norm()).item()
-    finite = bool(torch.isfinite(grads[0]).all())
-    print(f"train-check (1 layer): loss kernels {losses[0]:.6f} plain "
-          f"{losses[1]:.6f}; flat grads relative L2 {rel:.3e} in all, "
-          f"by leaf:")
-    for name, r in rels.items():
-        print(f"    {r:.3e}  {name}")
-    print(f"  worst leaf {worst} {rels[worst]:.3e} (limit "
-          f"{TOL_TRAIN_GRAD_REL_L2}), finite {finite}")
-    del grads
+    _, model, batch = _train_model(dev, seed, 1)
+    _train_loss(model, batch).backward()
+    named = tree_leaves_with_path(model)
+    grads = [p.grad for _, p in named]
+    params = [p.detach() for _, p in named]
+    print(f"shim: multi_tensor_applier over the 1-layer model's "
+          f"{len(grads)} grads ({sum(g.numel() for g in grads)} elements; "
+          f"dtypes {sorted({str(g.dtype) for g in grads})})")
+    calls = (("multi_tensor_scale", multi_tensor_scale, [grads], (0.5,)),
+             ("multi_tensor_axpby", multi_tensor_axpby, [grads, params],
+              (2.0, -0.5)),
+             ("multi_tensor_l2norm", multi_tensor_l2norm, [grads], (True,)),
+             ("multi_tensor_l2norm_scale", multi_tensor_l2norm_scale,
+              [grads], (0.5, True)))
+
+    def run_all(noop=0.0):
+        return [multi_tensor_applier(op, noop, lists, *args)
+                for _, op, lists, args in calls]
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    got = run_all()
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    with _plain_shim():
+        ref = run_all()
+    if _build.launch_counts() != launches:
+        raise AssertionError("the plain shim route launched a kernel")
+    want = {"fused_scale": 1, "fused_axpby": 1, "fused_l2norm": 1,
+            "fused_l2norm_scale": 1}
+    print(f"  kernel launches of the four calls "
+          f"{ {k: v for k, v in launches.items() if v} } (want {want})")
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError("the shim did not launch one kernel a call")
+
+    def flat(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        if isinstance(x, (list, tuple)):
+            return [t for item in x for t in flat(item)]
+        return []
+
+    worst = {}
+    for (name, *_), g_, r_ in zip(calls, got, ref):
+        gt, rt = flat(g_), flat(r_)
+        if len(gt) != len(rt):
+            raise AssertionError(f"{name}: outputs differ in structure")
+        err = 0.0
+        for a_, b_ in zip(gt, rt):
+            if a_.shape != b_.shape or a_.dtype != b_.dtype:
+                raise AssertionError(f"{name}: {a_.shape} {a_.dtype} against "
+                                     f"{b_.shape} {b_.dtype}")
+            rel = ((a_.float() - b_.float()).abs().max()
+                   / b_.float().abs().max().clamp_min(1e-30)).item() \
+                if a_.numel() else 0.0
+            err = max(err, rel)
+        worst[name] = err
+        print(f"  {name}: worst max|diff| / max|ref| over its outputs "
+              f"{err:.3e} (limit {TOL_L2NORM_REL})")
+    if any(v > TOL_L2NORM_REL for v in worst.values()):
+        raise AssertionError(f"the shim is off its plain route: {worst}")
+    del got, ref
+    noop = run_all(torch.ones((), device=dev))
+    flags = [noop[0][1].item(), noop[1][1].item(), noop[3][3].item()]
+    grads[3].view(-1)[0] = float("inf")
+    poisoned = run_all()
+    pflags = [poisoned[0][1].item(), poisoned[1][1].item(),
+              poisoned[3][3].item()]
+    print(f"  noop_flag 1 passed through: found_inf {flags}; an inf in "
+          f"grad 3: found_inf of scale, axpby, l2norm_scale {pflags}, "
+          f"global norm {poisoned[2][0].item()}")
+    if flags != [1.0, 1.0, 1.0] or pflags != [1.0, 1.0, 1.0]:
+        raise AssertionError("a shim flag did not rise")
+    del model, grads, params, noop, poisoned
     torch.cuda.empty_cache()
-    if not finite or not rels[worst] <= TOL_TRAIN_GRAD_REL_L2:
-        raise AssertionError(f"flat grads off: relative L2 {rels[worst]} "
-                             f"in {worst}")
-    if abs(losses[0] - losses[1]) > TOL_TRAIN_LOSS:
-        raise AssertionError(f"losses differ: {losses}")
-    return dict(grad_rel_l2=rels, losses=losses)
+    return dict(launches=launches, worst=worst)
 
 
 @contextlib.contextmanager
@@ -1549,9 +2127,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="kernels,serve,profile,train,train-check",
+                    default="kernels,serve,profile,train,train-check,shim",
                     help="comma list of kernels, serve, profile, train, "
-                         "train-check (build always runs; profile "
+                         "train-check, shim (build always runs; profile "
                          "profiles the serve and the train phases that "
                          "run)")
     args = ap.parse_args(argv)
@@ -1580,12 +2158,18 @@ def main(argv=None) -> int:
     if "train" in phases:
         runs = phase_train(dev, args.seed, "profile" in phases)
         for key, r in recs.items():
-            if key not in SERVE_KERNELS:
+            if key not in SERVE_KERNELS + SHIM_KERNELS:
                 r["launches"] = runs[KERNEL_RUN.get(key, "adam")][
                     "launches"][key]
     if "train-check" in phases:
         phase_train_check(dev, args.seed)
+        phase_split_check(dev, args.seed)
         phase_rule_check(dev, args.seed)
+    if "shim" in phases:
+        shim = phase_shim(dev, args.seed)
+        for key in SHIM_KERNELS:
+            if key in recs:
+                recs[key]["launches"] = shim["launches"][key]
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -109,7 +109,7 @@ def test_mha_reference_with_mask_matches_jax():
     np.testing.assert_allclose(pub, ref, rtol=1e-5, atol=_ATOL)
 
 
-def test_dropout_waits_for_training_slice():
+def test_dropout_raises_not_implemented_naming_its_roadmap_item():
     q, k, v = _t(*_qkv(1, 1, 8, 8, 8))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         tattn.flash_attention(q, k, v, dropout_rate=0.1, dropout_seed=1)

@@ -4,7 +4,9 @@ head dims and query groups, small pages, q/k lengths that differ,
 padded validity windows, the fp32 LayerNorm paths, LayerNorm's
 backward, odd flat lengths and offset views for the unscale, Adam, the
 L2 norm, LAMB's phase 1, SGD and Adagrad, the L2 norm's run-to-run
-repeatability, the LAMB rule against its plain route,
+repeatability, the LAMB rule against its plain route, axpby and the
+fused scale and norm with the ``multi_tensor_applier`` shim over them,
+the split flash backward's two kernels and its route,
 the fused decode block's query groups, head dims, edge lengths, slot
 groups and its attention-only variant).
 
@@ -443,6 +445,200 @@ def test_lamb_rule_on_the_card_matches_its_plain_route(cuda):
                  (states[0].slots["exp_avg_sq"],
                   states[1].slots["exp_avg_sq"])):
         assert _maxdiff(a, b) <= 1e-6 * b.abs().max().item()
+
+
+# -- the multi_tensor_apply kernels: axpby and the fused scale and norm --
+#
+# Both outputs exactly as their plain versions (axpby rounds each product
+# before the sum, as the plain version's separate multiplies do; the
+# fused scale is one fp32 multiply), the norm within 1e-5 of its plain
+# fp32 sum (another order) and the same bits every run; odd lengths,
+# views one element in (the scalar path), every dtype mix.
+
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("n", [5, 1000003, 1 << 22])
+@pytest.mark.parametrize("x_dtype,y_dtype,out_dtype", [
+    (_F32, _F32, _F32), (_BF16, _BF16, _BF16), (_F32, _BF16, _F32),
+    (_BF16, _F32, _BF16)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fused_axpby_kernel_matches_plain(cuda, n, x_dtype, y_dtype,
+                                          out_dtype, offset):
+    fu = _fu()
+    x = _flat(n, 64, cuda, offset, x_dtype)
+    y = _flat(n, 65, cuda, offset, y_dtype)
+    a, b = 0.75, torch.full((), -1.5, device=cuda)
+    before = _build.launch_counts()["fused_axpby"]
+    out, flag = fu.fused_axpby(a, x, b, y, out_dtype)
+    assert _build.launch_counts()["fused_axpby"] == before + 1
+    ab = torch.stack([fu._scalar(a, cuda), fu._scalar(b, cuda)])
+    ref, rflag = fu._axpby_reference(x, y, ab, out_dtype)
+    assert out.dtype == out_dtype and torch.equal(out, ref)
+    assert flag.item() == 0.0 == rflag.item()
+    y[n // 2] = float("nan")
+    assert fu.fused_axpby(a, x, b, y, out_dtype)[1].item() == 1.0
+    empty, flag = fu.fused_axpby(a, x[:0], b, y[:0], out_dtype)
+    assert empty.shape == (0,) and flag.item() == 0.0
+    assert _build.launch_counts()["fused_axpby"] == before + 2
+
+
+@pytest.mark.parametrize("n", [5, 1000003, 1 << 22])
+@pytest.mark.parametrize("x_dtype,out_dtype", [
+    (_F32, _F32), (_BF16, _BF16), (_F32, _BF16), (_BF16, _F32)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fused_l2norm_scale_kernel_matches_plain_and_repeats(
+        cuda, n, x_dtype, out_dtype, offset):
+    fu = _fu()
+    x = _flat(n, 66, cuda, offset, x_dtype).mul_(300)
+    scale = torch.full((), 2.0 ** -8, device=cuda)
+    before = _build.launch_counts()["fused_l2norm_scale"]
+    out, norm, flag = fu.fused_l2norm_scale(x, scale, out_dtype)
+    assert _build.launch_counts()["fused_l2norm_scale"] == before + 1
+    ref, sumsq, rflag = fu._l2norm_scale_reference(x, scale, out_dtype)
+    assert out.dtype == out_dtype and torch.equal(out, ref)
+    want = torch.sqrt(sumsq).item()
+    assert abs(norm.item() - want) <= 1e-5 * want
+    assert flag.item() == 0.0 == rflag.item()
+    for _ in range(3):
+        assert torch.equal(fu.fused_l2norm_scale(x, scale, out_dtype)[1], norm)
+    x[n // 2] = float("inf")
+    assert fu.fused_l2norm_scale(x, scale, out_dtype)[2].item() == 1.0
+    before = _build.launch_counts()["fused_l2norm_scale"]
+    empty, norm, flag = fu.fused_l2norm_scale(x[:0], scale, out_dtype)
+    assert empty.shape == (0,) and norm.item() == 0.0 == flag.item()
+    assert _build.launch_counts()["fused_l2norm_scale"] == before
+
+
+def test_multi_tensor_applier_runs_the_kernels_on_the_card(cuda):
+    """The shim over a mixed bf16/fp32 list on the card: one launch a
+    call, outputs as the same calls on CPU copies."""
+    from apex_tpu_torch.multi_tensor_apply import (
+        multi_tensor_applier, multi_tensor_axpby, multi_tensor_l2norm,
+        multi_tensor_l2norm_scale, multi_tensor_scale)
+    xs = [_randn((37, 5), 67, cuda), _randn((1000,), 68, cuda, _F32),
+          _randn((3, 4, 5), 69, cuda)]
+    ys = [_randn(t.shape, 70 + i, cuda, t.dtype) for i, t in enumerate(xs)]
+    calls = ((multi_tensor_scale, [xs], (0.5,)),
+             (multi_tensor_axpby, [xs, ys], (2.0, -0.5)),
+             (multi_tensor_l2norm, [xs], (True,)),
+             (multi_tensor_l2norm_scale, [xs], (0.5, True)))
+    _build.reset_launch_counts()
+    got = [multi_tensor_applier(op, 0.0, lists, *args)
+           for op, lists, args in calls]
+    counts = _build.launch_counts()
+    for name in ("fused_scale", "fused_axpby", "fused_l2norm",
+                 "fused_l2norm_scale"):
+        assert counts[name] == 1, counts
+    cpu = [multi_tensor_applier(op, 0.0, [[t.cpu() for t in lst]
+                                          for lst in lists], *args)
+           for op, lists, args in calls]
+    for g, r in zip(got, cpu):
+        for a, b in zip(_leaves(g), _leaves(r)):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert _maxdiff(a.cpu(), b) <= 1e-6 * max(
+                1.0, b.float().abs().max().item())
+
+
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for item in x for t in _leaves(item)]
+    return []
+
+
+# -- the split flash backward: the dq kernel and the dk/dv kernel ---------
+#
+# Each against its plain version with the one-pass kernel's rule (two
+# bf16 ulps of each element and an absolute floor, relative L2 1e-2 per
+# output), and bit for bit from run to run (no atomics).
+
+def _split_case(cuda, bh, sq, sk, d, causal, seed, causal_off=None,
+                valid=None):
+    q, k, v = (_randn((bh, s, d), seed + i, cuda)
+               for i, s in enumerate((sq, sk, sk)))
+    do = _randn((bh, sq, d), seed + 3, cuda)
+    scale = d ** -0.5
+    out, lse = attn._fwd(q, k, v, causal, scale, causal_off=causal_off,
+                         valid=valid)
+    return (q, k, v, lse, attn._delta(out, do), do, causal, scale,
+            causal_off, valid), out
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk", [(100, 100), (40, 200), (130, 64),
+                                   (256, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_split_kernels_match_plain_and_repeat(cuda, d, sq, sk,
+                                                        causal):
+    args, _ = _split_case(cuda, 3, sq, sk, d, causal, 71)
+    before = _build.launch_counts()
+    dq = attn._dq_kernel(*args)
+    dk, dv = attn._dkv_kernel(*args)
+    after = _build.launch_counts()
+    assert after["flash_attention_bwd_dq"] == \
+        before["flash_attention_bwd_dq"] + 1
+    assert after["flash_attention_bwd_dkv"] == \
+        before["flash_attention_bwd_dkv"] + 1
+    ref = (attn._dq_reference(*args), *attn._dkv_reference(*args))
+    torch.cuda.synchronize()
+    _assert_flash_bwd_close((dq, dk, dv), ref)
+    assert torch.equal(attn._dq_kernel(*args), dq)
+    dk2, dv2 = attn._dkv_kernel(*args)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+@pytest.mark.parametrize("causal,valid", [(True, (90, 90)),
+                                          (False, (90, 70))])
+def test_flash_bwd_split_validity_window_and_offset(cuda, causal, valid):
+    """A padded bucket (explicit causal offset 0): padded rows get zero
+    dq, padded keys zero dk and dv."""
+    args, _ = _split_case(cuda, 2, 128, 128, 64, causal, 75, causal_off=0,
+                          valid=valid)
+    got = (attn._dq_kernel(*args), *attn._dkv_kernel(*args))
+    ref = (attn._dq_reference(*args), *attn._dkv_reference(*args))
+    _assert_flash_bwd_close(got, ref)
+    assert bool((got[0][:, valid[0]:] == 0).all())
+    assert bool((got[1][:, valid[1]:] == 0).all())
+    assert bool((got[2][:, valid[1]:] == 0).all())
+
+
+def test_flash_bwd_takes_the_jax_route_and_the_split_repeats(
+        cuda, monkeypatch):
+    """``_bwd`` runs the split pair exactly when sq * d * 4 passes the
+    gate (at the real 2 MiB: 4096 rows of d 128 one-pass, 4097 split),
+    the split route repeats bit for bit, and it agrees with the one-pass
+    kernel forced onto the same inputs."""
+    names = ("flash_attention_bwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+
+    def routed(*a):
+        before = _build.launch_counts()
+        got = attn._bwd(*a)
+        after = _build.launch_counts()
+        return got, tuple(after[k] - before[k] for k in names)
+
+    for s, want in ((4096, (1, 0, 0)), (4097, (0, 1, 1))):
+        args, out = _split_case(cuda, 1, s, s, 128, True, 76)
+        q, k, v, lse, _, do = args[:6]
+        assert routed(q, k, v, out, lse, do, True, 128 ** -0.5)[1] == want
+    args, out = _split_case(cuda, 4, 256, 256, 64, True, 80)
+    q, k, v, lse, _, do = args[:6]
+    bwd = (q, k, v, out, lse, do, True, 0.125)
+    monkeypatch.setattr(attn, "_FUSED_BWD_MAX_BYTES", 256 * 64 * 4 - 1)
+    split, counts = routed(*bwd)
+    assert counts == (0, 1, 1)
+    again, _ = routed(*bwd)
+    assert all(torch.equal(a, b) for a, b in zip(split, again))
+    monkeypatch.setattr(attn, "_FUSED_BWD_MAX_BYTES", 256 * 64 * 4)
+    one, counts = routed(*bwd)
+    assert counts == (1, 0, 0)
+    _assert_flash_bwd_close(split, one)
+    # dk and dv are the one-pass kernel's products with its dq half
+    # compiled out
+    assert _rel_l2(split[1], one[1]) <= 1e-2 and _rel_l2(split[2],
+                                                         one[2]) <= 1e-2
 
 
 # -- the fused decode block ----------------------------------------------

@@ -13,11 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from apex_tpu_torch import multi_tensor_apply as mta
 from apex_tpu_torch.inference import InferenceEngine
 from apex_tpu_torch.inference.kv_cache import init_paged_cache
 from apex_tpu_torch.inference.weights import llama_param_shapes
 from apex_tpu_torch.ops import (_build, flash_attention, fused_adam_flat,
                                 fused_scale, paged_decode_attention, rms_norm)
+from apex_tpu_torch.ops import attention as tattn
 from apex_tpu_torch.ops.fused_update import (fused_adagrad_flat,
                                              fused_l2norm,
                                              fused_lamb_phase1_flat,
@@ -80,6 +82,11 @@ def test_ast_scan_no_jax_or_apex_tpu_imports():
                           if n.split(".")[0] in banned]
     assert not offenders, offenders
     assert len(_sources()) >= 25
+    # the last slice's modules are among those scanned
+    scanned = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    assert {"apex_tpu_torch/multi_tensor_apply/__init__.py",
+            "apex_tpu_torch/ops/attention.py",
+            "apex_tpu_torch/ops/fused_update.py"} <= scanned
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
@@ -115,11 +122,15 @@ def _fused_kw(**kw):
                      sin=torch.zeros(1, 8)), **kw)
 
 
-def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
+def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(
+        monkeypatch):
     _build.reset_launch_counts()
     x = torch.randn(4, 96, requires_grad=True)
     rms_norm(x, torch.ones(96)).sum().backward()
     q = torch.randn(1, 2, 8, 16, requires_grad=True)
+    flash_attention(q, q, q, causal=True).sum().backward()
+    # the split backward's route too: the gate below this [8, 16] dq
+    monkeypatch.setattr(tattn, "_FUSED_BWD_MAX_BYTES", 8 * 16 * 4 - 1)
     flash_attention(q, q, q, causal=True).sum().backward()
     pool = torch.randn(3, 2, 4, 16)
     paged_decode_attention(torch.randn(1, 2, 16), pool, pool,
@@ -141,11 +152,21 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
                        eps=1e-10, weight_decay=0.0)
     y, kt, vt = fused_block_decode(*_fused_args(), **_fused_kw())
     assert tuple(y.shape) == (1, 32) and tuple(kt.shape) == (1, 2, 8)
+    grads = [torch.randn(3, 5), torch.randn(7).to(torch.bfloat16)]
+    for op, lists, args in (
+            (mta.multi_tensor_scale, [grads], (0.5,)),
+            (mta.multi_tensor_axpby, [grads, grads], (2.0, -1.0)),
+            (mta.multi_tensor_l2norm, [grads], (True,)),
+            (mta.multi_tensor_l2norm_scale, [grads], (0.5, True))):
+        mta.multi_tensor_applier(op, 0.0, lists, *args)
     assert _build.launch_counts() == {
         "layer_norm": 0, "layer_norm_bwd": 0, "flash_attention": 0,
-        "flash_attention_bwd": 0, "paged_attention": 0, "fused_scale": 0,
-        "fused_adam": 0, "fused_block_decode": 0, "fused_l2norm": 0,
-        "fused_lamb1": 0, "fused_sgd": 0, "fused_adagrad": 0}
+        "flash_attention_bwd": 0, "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dkv": 0, "paged_attention": 0,
+        "fused_scale": 0, "fused_axpby": 0, "fused_adam": 0,
+        "fused_block_decode": 0, "fused_l2norm": 0,
+        "fused_l2norm_scale": 0, "fused_lamb1": 0, "fused_sgd": 0,
+        "fused_adagrad": 0}
     assert _build._LIB is None              # nothing was built or loaded
 
 
@@ -190,7 +211,7 @@ def test_every_kernel_source_exists_and_exports_its_entry():
     with a ctypes signature, names the TPU kernels it replaces, and
     every kernel has its own launch counter."""
     assert sorted(_build.KERNELS) == sorted(_build.launch_counts())
-    assert len(_build.KERNELS) == 12
+    assert len(_build.KERNELS) == 16        # every TPU kernel
     for src, entries in _build.SOURCES.items():
         text = (PORT / "csrc" / src).read_text()
         assert "Replaces: apex_tpu/ops/" in text
