@@ -30,7 +30,8 @@ def clip_grad_norm_(grads, max_norm: float, norm_type: float = 2.0,
     Returns ``(clipped_grads, total_norm)``, the clipped grads in the
     form given (a new tree, or a new flat buffer for a flat one).  The
     total norm is computed by the fused kernel for ``norm_type == 2``
-    and by torch reductions otherwise (the reference fuses only the L2
+    (in fp32) and by torch reductions in the grads' dtype otherwise, as
+    the JAX package's jnp reductions (the reference fuses only the L2
     case); the clip is the fused scale kernel.  ``error_if_nonfinite``
     cannot raise without a host sync: as in the JAX package, it makes a
     non-finite norm NaN instead, on the device."""
@@ -42,10 +43,9 @@ def clip_grad_norm_(grads, max_norm: float, norm_type: float = 2.0,
     if norm_type == 2.0:
         total_norm = fused_l2norm(flat)
     elif norm_type == float("inf"):
-        total_norm = flat.float().abs().max()
+        total_norm = flat.abs().max()
     else:
-        total_norm = torch.sum(flat.float().abs() ** norm_type) \
-            ** (1.0 / norm_type)
+        total_norm = torch.sum(flat.abs() ** norm_type) ** (1.0 / norm_type)
     if error_if_nonfinite:
         total_norm = torch.where(torch.isfinite(total_norm), total_norm,
                                  torch.full_like(total_norm, float("nan")))

@@ -18,45 +18,63 @@
 //
 // Translation: the TPU kernel walks (key tile, query tile) pairs in a
 // sequential grid and carries a full-sequence [sq, d] fp32 dq in VMEM,
-// which limits it to sq * d * 4 <= 2 MB.  Here the grid is (key tile,
-// b*h), every block independent: a block keeps its 64 keys' k and v in
+// which limits it to sq * d * 4 <= 2 MB.  Here the grid is (key block,
+// b*h), every block independent and the heaviest (first) key blocks of
+// the causal mask launched first: a block keeps its 128 keys' k and v in
 // shared memory and its dk and dv accumulators in registers, loops over
-// the query tiles that can see those keys (k-major), and adds its dq
-// contributions into an fp32 [b*h, sq, d] buffer with vector atomics.
-// A last small kernel casts that buffer to bf16.  So every sequence
-// length the forward takes is taken; the atomics make dq's last bits
-// depend on the order the blocks finish in.
+// the 64-query steps that can see those keys (k-major), and adds its dq
+// contributions into an fp32 [b*h, sq, d] buffer (zeroed first; a last
+// small kernel casts it to bf16).  So every sequence length the forward
+// takes is taken; dq's last bits depend on the order the blocks add in.
 //
-// The split pair computes the same function in two launches, neither
-// with atomics, so dq, dk and dv repeat bit for bit from run to run:
-// - the dk/dv kernel is this kernel with its dq half compiled out
-//   (flash_bwd_kernel<D, false>): the same blocks, loops and products,
-//   so its dk and dv have the one-pass kernel's bits;
-// - the dq kernel is query-major, one block per (64-query tile, b*h):
-//   it keeps its queries' q and dO in shared memory, loops over the key
-//   tiles they can see (double-buffered k and v), recomputes
-//   S = Q K^T and dP = dO V^T, p and ds = p (dP - delta) with the same
-//   masks, and accumulates dq = scale * dS K in registers, written once.
-//   It recomputes S and dP, which the one-pass kernel shares with
-//   dk/dv: the pair does 7 tile products where the one-pass kernel does
-//   5, the price of owning every output in one block.
+// The one-pass kernel and the split dk/dv kernel are one template,
+// flash_bwd_kernel<D, DQ>: the dk/dv kernel is DQ = false, the same
+// blocks, loops and products without the dq half, so split and one-pass
+// dk and dv are the same bits and repeat from run to run.
 //
 // What bounds it on the H100: operations.  A causal backward at s = 2048,
 // 32 heads, d = 128 is 2.5x the forward's flops (five products per tile
-// pair instead of two) over ~0.1 GB of q/k/v/o/dO/dq/dk/dv.  The design
-// is FlashAttention-2's backward on mma.sync m16n8k16 (bf16 in, fp32
-// accumulate): four warps each own 16 keys; S^T, P^T, dP^T and dS^T of a
-// (64-key, 32-query) tile live in registers -- the S^T accumulator
-// fragment is the A operand of dV and dK, so P and dS never go through
-// shared memory for those -- and dS^T is staged once in shared memory
-// for the dq product, which is query-major.  q and dO tiles are copied
-// with cp.async into a double buffer.  Not yet used: wgmma, TMA, warp
-// specialisation; PERF.md records this version's time.
+// pair instead of two) over ~0.1 GB of q/k/v/o/dO/dq/dk/dv; the one-pass
+// kernel also moves its fp32 dq partials through L2 (64 x d x 4 bytes
+// per key block and query step: 0.29 GB at that shape).  The first
+// version ran FlashAttention-2's scheme on mma.sync m16n8k16 with four
+// warps of 16 keys and 32-query steps and added dq with per-thread fp32
+// atomics; it reached 10-15% of the bound (latency: small steps with
+// barriers, every B fragment re-read by each warp through ldmatrix, lse
+// and delta read from global memory inside the loop, twice the dq
+// traffic as per-thread reductions).  This design:
+// - all five products run on wgmma (the only path to the card's bf16
+//   rate): two warpgroups of 64 keys each, 64-query steps.  S^T = K Q^T
+//   and dP^T = V dO^T read both operands from shared memory (K-major);
+//   the bf16 P^T and dS^T fragments of those accumulators are the
+//   REGISTER A operand of dV += P^T dO and dK += dS^T Q (Q and dO read
+//   N-major from the same tiles); dk and dv stay in registers and are
+//   written once;
+// - q, dO and the step's lse and delta rows are copied with cp.async
+//   into a 2-stage ring, prefetched one step ahead; tiles are held in
+//   the 128-byte-swizzle layout wgmma reads (64-column chunks, the
+//   16-byte units of row r XORed by r mod 8), which the copies write;
+// - the softmax recompute is short: one ex2 instruction an element, and
+//   without the dq half S^T and dP^T are two commit groups, so P^T and
+//   the dV product run while dP^T is still on the tensor cores;
+// - dq: dS^T is staged once in shared memory (bf16, swizzled) and each
+//   warpgroup takes 64 of dq's d columns of dQ = dS K with one more
+//   wgmma (dS read M-major, K N-major); the scaled 64 x d fp32 partial
+//   goes to the accumulator as d / 32 bulk tensor reductions
+//   (cp.reduce.async.bulk.tensor .add, 64 x 32 boxes of a tensor map in
+//   the 128-byte swizzle, rows past sq clipped by the map) issued by one
+//   thread, in place of per-thread atomics.
+// Head dims 32, 64 and 128 share the template; a head dim under 64 is
+// held zero-padded to one 64-column chunk (the swizzle's row).  Not yet
+// used: TMA loads, a producer warp, setmaxnreg, overlap of one step's
+// softmax with the next step's S^T (no registers left: dk, dv, S^T and
+// dP^T hold 192 a thread).  PERF.md records the times.
 //
 // Plain C interface (loaded with ctypes): apex_flash_attention_bwd,
 // apex_flash_attention_bwd_dq and apex_flash_attention_bwd_dkv launch on
 // the caller's stream and return cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,36 +83,8 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBK = 64;            // keys per block
-constexpr int kBQ = 32;            // queries per inner step
-constexpr int kWarps = kBK / 16;   // each warp owns 16 keys
-constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskedRowThresh = -0.5e30f;
-constexpr int kLDS = kBQ + 8;      // dS^T tile row stride (bf16)
-
-// Shared tiles, bf16, row stride D + 8 (16 bytes of padding, so the
-// eight rows an ldmatrix phase reads fall in distinct bank groups):
-// sK [kBK], sV [kBK], sQ [2][kBQ], sO [2][kBQ] (dO), and with the dq half
-// sDS [kBK][kLDS].
-template <int D>
-struct Layout {
-  static constexpr int LD = D + 8;
-  static constexpr size_t bytes(bool dq) {
-    return sizeof(bf16) *
-           ((2 * kBK + 4 * kBQ) * LD + (dq ? kBK * kLDS : 0));
-  }
-};
-
-// The dq kernel's tiles: 64 queries a block (four warps of 16 rows), key
-// tiles of 64; sQ [kDqBQ], sO [kDqBQ] (dO), sK [2][kDqBK], sV [2][kDqBK].
-constexpr int kDqBQ = 64;
-constexpr int kDqBK = 64;
-static_assert(kDqBQ / 16 * 32 == kThreads, "one warp per 16 dq rows");
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(bf16) * (2 * kDqBQ + 4 * kDqBK) * Layout<D>::LD;
-}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -111,6 +101,546 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+// 2^x, one special-function-unit instruction (a result below 2^-126
+// flushes to 0); exp2f adds a denormal range path around it
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// ---------------------------------------------------------------------
+// The one-pass kernel and the split dk/dv kernel: wgmma
+
+constexpr int kBQ = 64;             // queries per step
+
+// Two warpgroups a block, 64 keys each (one warpgroup a block, two blocks
+// an SM, measured slower).
+constexpr int kBK = 128;            // keys per block
+constexpr int kThreads = 256;
+
+// Shared memory, byte offsets from a 1024-aligned base (the swizzle's
+// period).  Tiles of bf16 [rows][DP] are held as DP / 64 chunks of
+// [rows][64] in the 128-byte-swizzle layout: sK, sV [kBK], sQ, sO [2
+// stages][kBQ], then fp32 lse and delta [2 stages][kBQ] each, and with
+// the dq half dS^T [kBK keys][kBQ queries] (one chunk) and the fp32 dq
+// partial [kBQ][D] as D / 32 chunks of [kBQ][32] in the tensor map's
+// 128-byte swizzle.
+template <int D>
+struct Tiles {
+  static constexpr int DP = D < 64 ? 64 : D;
+  static constexpr int kKV = kBK * DP * 2;
+  static constexpr int kQ = kBQ * DP * 2;
+  static constexpr int kDS = kBK * kBQ * 2;
+  static constexpr int oK = 0, oV = kKV, oQ = 2 * kKV, oO = oQ + 2 * kQ,
+                       oStats = oO + 2 * kQ, oDS = oStats + 4 * kBQ * 4,
+                       oDQ = oDS + kDS;
+  static constexpr size_t bytes(bool dq) {
+    return 1024 + (dq ? oDQ + kBQ * D * 4 : oDS);
+  }
+};
+
+// Byte offset of 16-byte unit u of row r in a [ROWS][DP] tile held in
+// 64-column chunks, 128 bytes a row, units XORed by r mod 8.
+template <int ROWS>
+__device__ __forceinline__ uint32_t sw128(int r, int u) {
+  return (u >> 3) * (ROWS * 128) + r * 128 + (((u & 7) ^ (r & 7)) << 4);
+}
+
+// cp.async of 16 (4) bytes that writes zeros when !live (no read).
+__device__ __forceinline__ void cp_async16z(uint32_t dst, const void* src,
+                                            bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(live ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4z(uint32_t dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(live ? 4 : 0));
+}
+
+// Rows [r0, r0 + ROWS) of a contiguous [n, D] bf16 matrix into a swizzled
+// tile; rows >= n and the padding columns D..DP are zero.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_sw(uint32_t dst, const bf16* src, int r0,
+                                        int n) {
+  constexpr int kU = Tiles<D>::DP / 8;
+  for (int i = threadIdx.x; i < ROWS * kU; i += kThreads) {
+    const int r = i / kU, u = i % kU;
+    const bool live = u < D / 8 && r0 + r < n;
+    cp_async16z(dst + sw128<ROWS>(r, u),
+                live ? src + (size_t)(r0 + r) * D + u * 8 : src, live);
+  }
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, the
+// leading (LBO) and stride (SBO) byte offsets, all in 16-byte units.
+// K-major: SBO is the stride of 8-row groups (LBO unused); N- or M-major:
+// LBO is the stride of 64-column chunks, SBO that of 8-row groups.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N commit groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
+// Pin registers an asynchronous wgmma reads or writes to this point of the
+// program, so the compiler moves no access to them across a fence or wait.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void keep(unsigned (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (+)= A B for one m64nNk16 step (N = 64, 128), A and B from shared
+// memory (descriptors); TA / TB: A / B stored M- / N-major (transposed);
+// acc 0 overwrites d.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// d += A B for one m64nNk16 step, A from registers (the bf16 fragment of
+// an accumulator's layout), B from shared memory stored N-major.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const unsigned (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const unsigned (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// The dq map's box at (column c, row r, head bh) += the swizzled fp32
+// tile at src: one bulk tensor reduction (rows past sq are not written).
+__device__ __forceinline__ void tensor_add_f32(const CUtensorMap* map, int c,
+                                               int r, int bh, uint32_t src) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group"
+      " [%0, {%1, %2, %3}], [%4];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c), "r"(r), "r"(bh), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// DQ: the one-pass kernel (dq added into dq_acc through dq_map); without
+// it the split dk/dv kernel (dq_map unused).  Warpgroup wg owns keys
+// k0 + 64 wg .. + 63; within it warp w owns 16 of them, and a thread the
+// rows grp and grp + 8 of those, as wgmma's accumulator layout places
+// them.
+template <int D, bool DQ>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 const __grid_constant__ CUtensorMap dq_map,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
+                 int causal, int off, int valid_q, int valid_k,
+                 float scale_log2, float scale) {
+  using T = Tiles<D>;
+  constexpr int DP = T::DP;
+  constexpr int kKS = D / 16;        // k16 steps of S^T and dP^T over d
+  constexpr int kQS = kBQ / 16;      // k16 steps of dV and dK over queries
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sK = base + T::oK, sV = base + T::oV, sQ = base + T::oQ,
+                 sO = base + T::oO, sStats = base + T::oStats,
+                 sDS = base + T::oDS, sDQ = base + T::oDQ;
+  const float* stats = reinterpret_cast<const float*>(smem + T::oStats);
+
+  const int k0 = blockIdx.x * kBK;
+  const size_t bh = blockIdx.y;
+  const bf16* qb = q + bh * (size_t)sq * D;
+  const bf16* ob = dout + bh * (size_t)sq * D;
+  const float* lb = lse + bh * (size_t)sq;
+  const float* db = delta + bh * (size_t)sq;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int krow = wg * 64 + warp * 16 + grp;   // and krow + 8
+
+  const int kv_end = min(sk, valid_k);
+  const int q_end = min(sq, valid_q);
+  // query rows that can see any of this block's keys: [q_begin, q_end)
+  int q_begin = 0;
+  if (causal) q_begin = max(0, k0 - off);
+  q_begin = (q_begin / kBQ) * kBQ;
+  const int nq = (k0 < kv_end && q_begin < q_end)
+                     ? (q_end - q_begin + kBQ - 1) / kBQ : 0;
+
+  // one step's q, dO, lse and delta into stage st
+  auto load_step = [&](int q0, int st) {
+    load_sw<D, kBQ>(sQ + st * T::kQ, qb, q0, sq);
+    load_sw<D, kBQ>(sO + st * T::kQ, ob, q0, sq);
+    if (tid < 2 * kBQ) {
+      const int i = tid % kBQ, which = tid / kBQ;
+      const float* src = which ? db : lb;
+      const bool live = q0 + i < sq;
+      cp_async4z(sStats + ((which * 2 + st) * kBQ + i) * 4,
+                 live ? src + q0 + i : src, live);
+    }
+  };
+  load_sw<D, kBK>(sK, k + bh * (size_t)sk * D, k0, sk);
+  load_sw<D, kBK>(sV, v + bh * (size_t)sk * D, k0, sk);
+  if (nq > 0) load_step(q_begin, 0);
+  cp_async_commit();
+
+  float dka[DP / 2], dva[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
+  unsigned pa[kQS][4], da[kQS][4];
+
+  for (int it = 0; it < nq; ++it) {
+    const int q0 = q_begin + it * kBQ;
+    const int st = it & 1;
+    cp_async_wait<0>();
+    fence_async_smem();     // the copies, visible to wgmma's async reads
+    __syncthreads();
+    if (it + 1 < nq) load_step(q0 + kBQ, st ^ 1);
+    cp_async_commit();
+    const uint32_t cQ = sQ + st * T::kQ, cO = sO + st * T::kQ;
+
+    // S^T = K Q^T and dP^T = V dO^T over this warpgroup's 64 keys, one
+    // commit group each (the first k-step overwrites the accumulators)
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    keep(s);
+    keep(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      const uint32_t ko = (ks >> 2) * (kBK * 128) + wg * (64 * 128) +
+                          (ks & 3) * 32;
+      const uint32_t qo = (ks >> 2) * (kBQ * 128) + (ks & 3) * 32;
+      wgmma_ss<0, 0>(s, gmma_desc(sK + ko, 16, 1024),
+                     gmma_desc(cQ + qo, 16, 1024), ks > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      const uint32_t ko = (ks >> 2) * (kBK * 128) + wg * (64 * 128) +
+                          (ks & 3) * 32;
+      const uint32_t qo = (ks >> 2) * (kBQ * 128) + (ks & 3) * 32;
+      wgmma_ss<0, 0>(dp, gmma_desc(sV + ko, 16, 1024),
+                     gmma_desc(cO + qo, 16, 1024), ks > 0);
+    }
+    wgmma_commit();
+    // without the dq half, P^T and dV overlap the dP^T product; with it
+    // the step measured faster with both products done first (and dV
+    // issued beside dK)
+    constexpr bool kEarlyDV = !DQ;
+    wgmma_wait<kEarlyDV ? 1 : 0>();
+    keep(s);
+
+    // P^T = exp2(S^T * scale_log2 - lse[q]) with the masks; a tile inside
+    // every mask skips the per-element test
+    const float* cl = stats + st * kBQ;
+    const float* cd = stats + (2 + st) * kBQ;
+    const int wk0 = k0 + wg * 64;
+    const bool full = wk0 + 64 <= kv_end && q0 + kBQ <= q_end &&
+                      (!causal || wk0 + 63 <= q0 + off);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(cl + j * 8 + tig * 2);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qc = q0 + j * 8 + tig * 2 + e;
+        const float l = e ? l2.y : l2.x;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int kr = k0 + krow + hf * 8;
+          const bool live = full || (kr < kv_end && qc < q_end &&
+                                     (!causal || kr <= qc + off));
+          const int x = j * 4 + hf * 2 + e;
+          s[x] = (live && l > kMaskedRowThresh)
+                     ? exp2_ftz(s[x] * scale_log2 - l)
+                     : 0.f;
+        }
+      }
+    }
+    // the accumulator fragments of query columns 16t .. 16t + 15 are the
+    // A fragment of k-step t, rounded to bf16
+#pragma unroll
+    for (int t = 0; t < kQS; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[t][i] = pack_bf16(s[8 * t + 2 * i], s[8 * t + 2 * i + 1]);
+
+    // dV += P^T dO: A from registers, dO read N-major from the step's
+    // tile (LBO: the 64-column chunk stride)
+    auto issue_dv = [&] {
+#pragma unroll
+      for (int t = 0; t < kQS; ++t)
+        wgmma_rs(dva, pa[t], gmma_desc(cO + t * 16 * 128, kBQ * 128, 1024),
+                 1);
+    };
+    if constexpr (kEarlyDV) {
+      keep(dva);
+      keep(pa);
+      wgmma_fence();
+      issue_dv();
+      wgmma_commit();
+      wgmma_wait<1>();        // dP^T is done; dV may still run
+    }
+    keep(dp);
+
+    // dS^T = P^T (dP^T - delta[q])
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(cd + j * 8 + tig * 2);
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int x = j * 4 + hf * 2 + e;
+          dp[x] = s[x] * (dp[x] - (e ? d2.y : d2.x));
+        }
+    }
+#pragma unroll
+    for (int t = 0; t < kQS; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        da[t][i] = pack_bf16(dp[8 * t + 2 * i], dp[8 * t + 2 * i + 1]);
+    float dqa[32];     // dQ's partial (the dq half)
+    if constexpr (DQ) {
+      // stage dS^T [keys][queries] for dQ = dS K: query column pair
+      // (8j + 2 tig, +1) of key rows krow, krow + 8
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = krow + hf * 8;
+          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
+                           sDS + sw128<kBK>(r, j) + tig * 4),
+                       "r"(da[j >> 1][(j & 1) * 2 + hf]));
+        }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+      keep(dqa);
+    }
+
+    // dK += dS^T Q: as dV, Q read N-major
+    keep(dva);
+    keep(dka);
+    keep(pa);
+    keep(da);
+    wgmma_fence();
+    if constexpr (!kEarlyDV) issue_dv();
+#pragma unroll
+    for (int t = 0; t < kQS; ++t)
+      wgmma_rs(dka, da[t], gmma_desc(cQ + t * 16 * 128, kBQ * 128, 1024), 1);
+    wgmma_commit();
+
+    if constexpr (DQ) {
+      fence_async_smem();                 // dS^T, visible to wgmma
+      if (tid == 0) bulk_wait_read();     // the dq tile is free again
+      __syncthreads();
+      // dQ[:, 64 wg ..] = dS K: dS^T read M-major, K N-major (with
+      // DP = 64 the second warpgroup has no columns)
+      if (wg * 64 < DP) {
+        wgmma_fence();
+#pragma unroll
+        for (int kt = 0; kt < kBK / 16; ++kt)
+          wgmma_ss<1, 1>(
+              dqa, gmma_desc(sDS + kt * 16 * 128, kBK * 128, 1024),
+              gmma_desc(sK + wg * (kBK * 128) + kt * 16 * 128, kBK * 128,
+                        1024),
+              kt > 0);
+        wgmma_commit();
+      }
+      wgmma_wait_all();
+      keep(dqa);
+      keep(dva);
+      keep(dka);
+      keep(pa);
+      keep(da);
+      if (wg * 64 < DP) {
+        // the scaled partial into the tensor map's swizzled [32-column
+        // chunk][kBQ][32] tile
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = wg * 64 + j * 8 + tig * 2;
+          if (col < D) {
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int r = warp * 16 + grp + hf * 8, c = col & 31;
+              const uint32_t a = sDQ + (col >> 5) * (kBQ * 128) + r * 128 +
+                                 ((((c >> 2) ^ (r & 7))) << 4) + (c & 3) * 4;
+              asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(a),
+                           "f"(scale * dqa[j * 4 + hf * 2]),
+                           "f"(scale * dqa[j * 4 + hf * 2 + 1]));
+            }
+          }
+        }
+      }
+      fence_async_smem();                 // the dq tile, visible to the
+      if (tid < 32) {                     // bulk reductions
+        bar_sync(1, kThreads);
+        if (tid == 0) {
+#pragma unroll
+          for (int c = 0; c < D / 32; ++c)
+            tensor_add_f32(&dq_map, c * 32, q0, (int)bh,
+                           sDQ + c * (kBQ * 128));
+          bulk_commit();
+        }
+      } else {
+        bar_arrive(1, kThreads);
+      }
+    } else {
+      wgmma_wait_all();
+      keep(dva);
+      keep(dka);
+      keep(pa);
+      keep(da);
+    }
+  }
+  if (DQ && tid == 0) bulk_wait();
+  cp_async_wait<0>();  // nq == 0: the k/v copies may still be in flight
+
+  // this block owns its keys' dk and dv: plain stores, no atomics
+  bf16* dkb = dk + bh * (size_t)sk * D;
+  bf16* dvb = dv + bh * (size_t)sk * D;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int kr = k0 + krow + hf * 8;
+    if (kr < sk) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const size_t o = (size_t)kr * D + j * 8 + tig * 2;
+        *reinterpret_cast<__nv_bfloat162*>(dkb + o) = __floats2bfloat162_rn(
+            scale * dka[j * 4 + hf * 2], scale * dka[j * 4 + hf * 2 + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + o) = __floats2bfloat162_rn(
+            dva[j * 4 + hf * 2], dva[j * 4 + hf * 2 + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// The split backward's dq kernel: mma.sync
+
+constexpr int kDqBQ = 64;             // queries per block
+constexpr int kDqBK = 64;             // keys per step
+constexpr int kDqThreads = kDqBQ / 16 * 32;   // one warp per 16 rows
+
+// Shared tiles, bf16, row stride D + 8 (16 bytes of padding, so the eight
+// rows an ldmatrix phase reads fall in distinct bank groups): sQ
+// [kDqBQ], sO [kDqBQ] (dO), sK [2][kDqBK], sV [2][kDqBK].
+template <int D>
+struct DqLayout {
+  static constexpr int LD = D + 8;
+  static constexpr size_t bytes() {
+    return sizeof(bf16) * (2 * kDqBQ + 4 * kDqBK) * LD;
+  }
+};
+
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -135,10 +665,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
 
 // Rows [r0, r0 + ROWS) of a contiguous [n, D] bf16 matrix into a padded
 // shared tile with cp.async; rows >= n are zeroed.
@@ -146,242 +672,13 @@ template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
                                           int n) {
   constexpr int kPerRow = D / 8;
-  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kDqThreads) {
     const int r = i / kPerRow, c = (i % kPerRow) * 8;
-    bf16* d = dst + r * Layout<D>::LD + c;
+    bf16* d = dst + r * DqLayout<D>::LD + c;
     if (r0 + r < n)
       cp_async16(d, src + (size_t)(r0 + r) * D + c);
     else
       *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-__device__ __forceinline__ void atomic_add2(float* p, float a, float b) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-  atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
-#else
-  atomicAdd(p, a);
-  atomicAdd(p + 1, b);
-#endif
-}
-
-// DQ: the one-pass kernel (dq added into dq_acc); without it the split
-// dk/dv kernel (dq_acc unused).
-template <int D, bool DQ>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dq_acc,
-                 bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
-                 int causal, int off, int valid_q, int valid_k,
-                 float scale_log2, float scale) {
-  constexpr int LD = Layout<D>::LD;
-  constexpr int kDT = D / 8;       // 8-wide d column tiles
-  constexpr int kQT = kBQ / 8;     // 8-wide query column tiles
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kBK * LD;
-  bf16* sQ = sV + kBK * LD;
-  bf16* sO = sQ + 2 * kBQ * LD;
-  bf16* sDS = sO + 2 * kBQ * LD;
-
-  const int k0 = blockIdx.x * kBK;
-  const size_t bh = blockIdx.y;
-  const bf16* qb = q + bh * (size_t)sq * D;
-  const bf16* ob = dout + bh * (size_t)sq * D;
-  const float* lb = lse + bh * (size_t)sq;
-  const float* db = delta + bh * (size_t)sq;
-  float* dqb = DQ ? dq_acc + bh * (size_t)sq * D : nullptr;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wrow = warp * 16;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int mat = lane >> 3, mrow = lane & 7;
-
-  const int kv_end = min(sk, valid_k);
-  const int q_end = min(sq, valid_q);
-  // query rows that can see any of this block's keys: [q_begin, q_end)
-  int q_begin = 0;
-  if (causal) q_begin = max(0, k0 - off);
-  q_begin = (q_begin / kBQ) * kBQ;
-  const int nq = (k0 < kv_end && q_begin < q_end)
-                     ? (q_end - q_begin + kBQ - 1) / kBQ : 0;
-
-  load_tile<D, kBK>(sK, k + bh * (size_t)sk * D, k0, sk);
-  load_tile<D, kBK>(sV, v + bh * (size_t)sk * D, k0, sk);
-  if (nq > 0) {
-    load_tile<D, kBQ>(sQ, qb, q_begin, sq);
-    load_tile<D, kBQ>(sO, ob, q_begin, sq);
-  }
-  cp_async_commit();
-
-  float dka[kDT][4], dva[kDT][4];
-#pragma unroll
-  for (int j = 0; j < kDT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-
-  for (int it = 0; it < nq; ++it) {
-    const int q0 = q_begin + it * kBQ;
-    const int st = it & 1;
-    if (it + 1 < nq) {
-      load_tile<D, kBQ>(sQ + (st ^ 1) * kBQ * LD, qb, q0 + kBQ, sq);
-      load_tile<D, kBQ>(sO + (st ^ 1) * kBQ * LD, ob, q0 + kBQ, sq);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* cQ = sQ + st * kBQ * LD;
-    const bf16* cO = sO + st * kBQ * LD;
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries per warp
-    float s[kQT][4], dp[kQT][4];
-#pragma unroll
-    for (int j = 0; j < kQT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      unsigned ka[4], va[4];
-      ldmatrix_x4(ka, sK + (wrow + (mat & 1) * 8 + mrow) * LD + kk * 16 +
-                          (mat >> 1) * 8);
-      ldmatrix_x4(va, sV + (wrow + (mat & 1) * 8 + mrow) * LD + kk * 16 +
-                          (mat >> 1) * 8);
-#pragma unroll
-      for (int jp = 0; jp < kQT / 2; ++jp) {
-        unsigned b[4];
-        ldmatrix_x4(b, cQ + (jp * 16 + (mat >> 1) * 8 + mrow) * LD +
-                           kk * 16 + (mat & 1) * 8);
-        mma_bf16(s[2 * jp], ka, b[0], b[1]);
-        mma_bf16(s[2 * jp + 1], ka, b[2], b[3]);
-        ldmatrix_x4(b, cO + (jp * 16 + (mat >> 1) * 8 + mrow) * LD +
-                           kk * 16 + (mat & 1) * 8);
-        mma_bf16(dp[2 * jp], va, b[0], b[1]);
-        mma_bf16(dp[2 * jp + 1], va, b[2], b[3]);
-      }
-    }
-
-    // P^T = exp2(S^T * scale_log2 - lse[q]) with the masks, then
-    // dS^T = P^T (dP^T - delta[q]); a tile inside every mask skips the
-    // per-element test
-    const bool full = k0 + kBK <= kv_end && q0 + kBQ <= q_end &&
-                      (!causal || k0 + kBK - 1 <= q0 + off);
-#pragma unroll
-    for (int j = 0; j < kQT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int qc = q0 + j * 8 + tig * 2 + e;
-        const bool qin = qc < sq;
-        const float l = qin ? lb[qc] : kNegInf;
-        const float dl = qin ? db[qc] : 0.f;
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int kr = k0 + wrow + grp + hf * 8;
-          const bool live = full || (kr < kv_end && qc < q_end &&
-                                     (!causal || kr <= qc + off));
-          const float p = (live && l > kMaskedRowThresh)
-                              ? exp2f(s[j][hf * 2 + e] * scale_log2 - l)
-                              : 0.f;
-          s[j][hf * 2 + e] = p;
-          dp[j][hf * 2 + e] = p * (dp[j][hf * 2 + e] - dl);
-        }
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q: the accumulator fragments of query
-    // tiles 2t, 2t + 1 are the A fragment of query step t
-#pragma unroll
-    for (int t = 0; t < kBQ / 16; ++t) {
-      unsigned pa[4], da[4];
-      pa[0] = pack_bf16(s[2 * t][0], s[2 * t][1]);
-      pa[1] = pack_bf16(s[2 * t][2], s[2 * t][3]);
-      pa[2] = pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]);
-      pa[3] = pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3]);
-      da[0] = pack_bf16(dp[2 * t][0], dp[2 * t][1]);
-      da[1] = pack_bf16(dp[2 * t][2], dp[2 * t][3]);
-      da[2] = pack_bf16(dp[2 * t + 1][0], dp[2 * t + 1][1]);
-      da[3] = pack_bf16(dp[2 * t + 1][2], dp[2 * t + 1][3]);
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        unsigned b[4];
-        ldmatrix_x4_trans(b, cO + (t * 16 + (mat & 1) * 8 + mrow) * LD +
-                                 np * 16 + (mat >> 1) * 8);
-        mma_bf16(dva[2 * np], pa, b[0], b[1]);
-        mma_bf16(dva[2 * np + 1], pa, b[2], b[3]);
-        ldmatrix_x4_trans(b, cQ + (t * 16 + (mat & 1) * 8 + mrow) * LD +
-                                 np * 16 + (mat >> 1) * 8);
-        mma_bf16(dka[2 * np], da, b[0], b[1]);
-        mma_bf16(dka[2 * np + 1], da, b[2], b[3]);
-      }
-      // stage dS^T [keys][queries] for the query-major dq product
-      if constexpr (DQ) {
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj)
-            *reinterpret_cast<unsigned*>(
-                sDS + (wrow + grp + hf * 8) * kLDS + (2 * t + jj) * 8 +
-                tig * 2) = da[jj * 2 + hf];
-      }
-    }
-
-    // dQ[32 q, D] += dS K: warp (mg, nh) owns query rows mg*16.. and the
-    // d columns nh*D/2..; A is dS = (dS^T)^T through ldmatrix.trans
-    if constexpr (DQ) {
-      __syncthreads();
-      const int mg = warp & 1, nh = warp >> 1;
-      constexpr int kHT = D / 16;          // 8-wide tiles in half of D
-      float acc[kHT][4];
-#pragma unroll
-      for (int j = 0; j < kHT; ++j)
-        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        unsigned a[4];
-        ldmatrix_x4_trans(a, sDS + (kk * 16 + (mat >> 1) * 8 + mrow) * kLDS +
-                                 mg * 16 + (mat & 1) * 8);
-#pragma unroll
-        for (int np = 0; np < kHT / 2; ++np) {
-          unsigned b[4];
-          ldmatrix_x4_trans(b, sK + (kk * 16 + (mat & 1) * 8 + mrow) * LD +
-                                   nh * (D / 2) + np * 16 + (mat >> 1) * 8);
-          mma_bf16(acc[2 * np], a, b[0], b[1]);
-          mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-        }
-      }
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int qr = q0 + mg * 16 + grp + hf * 8;
-        if (qr < sq) {
-#pragma unroll
-          for (int j = 0; j < kHT; ++j)
-            atomic_add2(dqb + (size_t)qr * D + nh * (D / 2) + j * 8 + tig * 2,
-                        scale * acc[j][hf * 2], scale * acc[j][hf * 2 + 1]);
-        }
-      }
-    }
-    __syncthreads();  // sQ/sO stage and sDS are reused next step
-  }
-  cp_async_wait<0>();  // nq == 0: the k/v copies may still be in flight
-
-  // this block owns its keys' dk and dv: plain stores, no atomics
-  bf16* dkb = dk + bh * (size_t)sk * D;
-  bf16* dvb = dv + bh * (size_t)sk * D;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int kr = k0 + wrow + grp + hf * 8;
-    if (kr < sk) {
-#pragma unroll
-      for (int j = 0; j < kDT; ++j) {
-        const size_t o = (size_t)kr * D + j * 8 + tig * 2;
-        *reinterpret_cast<__nv_bfloat162*>(dkb + o) = __floats2bfloat162_rn(
-            scale * dka[j][hf * 2], scale * dka[j][hf * 2 + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dvb + o) = __floats2bfloat162_rn(
-            dva[j][hf * 2], dva[j][hf * 2 + 1]);
-      }
-    }
   }
 }
 
@@ -390,14 +687,14 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // last rows see the most keys under the causal mask), as the forward
 // does.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kDqThreads, 2)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dq,
                     int sq, int sk, int causal, int off, int valid_q,
                     int valid_k, float scale_log2, float scale) {
-  constexpr int LD = Layout<D>::LD;
+  constexpr int LD = DqLayout<D>::LD;
   constexpr int kDT = D / 8;        // 8-wide dq column tiles
   constexpr int kST = kDqBK / 8;    // 8-wide key column tiles
   extern __shared__ __align__(128) unsigned char smem[];
@@ -566,31 +863,85 @@ __global__ void dq_cast_kernel(const float* __restrict__ src,
   }
 }
 
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no link to libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of the fp32 dq accumulator [bh, sq, d] for the kernel's
+// bulk reductions: boxes of 64 rows x 32 columns, 128-byte swizzle.
+int dq_tensor_map(CUtensorMap* map, void* dq_acc, int bh, int sq, int d) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)sq, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 4,
+                                 (cuuint64_t)sq * d * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)kBQ, 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, dq_acc,
+                            dims, strides, box, one,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// flash_bwd_kernel<D, DQ> over (key block, b*h).
+template <int D, bool DQ>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, const CUtensorMap& map,
+               void* dk, void* dv, int bh, int sq, int sk, int causal,
+               int off, int valid_q, int valid_k, float scale_log2,
+               float scale, cudaStream_t stream) {
+  const size_t bytes = Tiles<D>::bytes(DQ);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_kernel<D, DQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sk + kBK - 1) / kBK, bh);
+  flash_bwd_kernel<D, DQ><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), map,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, causal, off,
+      valid_q, valid_k, scale_log2, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq_acc, void* dq,
            void* dk, void* dv, int bh, int sq, int sk, int causal, int off,
            int valid_q, int valid_k, float scale_log2, float scale,
            cudaStream_t stream) {
-  const size_t bytes = Layout<D>::bytes(true);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<D, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)bh * sq * D;
-  err = cudaMemsetAsync(dq_acc, 0, n * sizeof(float), stream);
+  cudaError_t err = cudaMemsetAsync(dq_acc, 0, n * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
   if (sk > 0) {
-    dim3 grid((sk + kBK - 1) / kBK, bh);
-    flash_bwd_kernel<D, true><<<grid, kThreads, bytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<float*>(dq_acc), static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), sq, sk, causal, off, valid_q, valid_k,
-        scale_log2, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    CUtensorMap map;
+    const int e = dq_tensor_map(&map, dq_acc, bh, sq, D);
+    if (e) return e;
+    const int r = launch_bwd<D, true>(
+        q, k, v, dout, lse, delta, map, dk, dv, bh, sq, sk, causal, off,
+        valid_q, valid_k, scale_log2, scale, stream);
+    if (r) return r;
   }
   const size_t n8 = n / 8;
   const int blocks = (int)((n8 + 255) / 256 < 4096 ? (n8 + 255) / 256 : 4096);
@@ -606,13 +957,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int sq,
               int sk, int causal, int off, int valid_q, int valid_k,
               float scale_log2, float scale, cudaStream_t stream) {
-  const size_t bytes = dq_smem_bytes<D>();
+  const size_t bytes = DqLayout<D>::bytes();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sq + kDqBQ - 1) / kDqBQ, bh);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  flash_bwd_dq_kernel<D><<<grid, kDqThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -626,19 +977,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int bh,
                int sq, int sk, int causal, int off, int valid_q, int valid_k,
                float scale_log2, float scale, cudaStream_t stream) {
-  const size_t bytes = Layout<D>::bytes(false);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<D, false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((sk + kBK - 1) / kBK, bh);
-  flash_bwd_kernel<D, false><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      nullptr, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk,
-      causal, off, valid_q, valid_k, scale_log2, scale);
-  return (int)cudaGetLastError();
+  CUtensorMap unused{};
+  return launch_bwd<D, false>(
+      q, k, v, dout, lse, delta, unused, dk, dv, bh, sq, sk, causal, off,
+      valid_q, valid_k, scale_log2, scale, stream);
 }
 
 }  // namespace

@@ -19,9 +19,9 @@ Port of ``apex_tpu/ops/attention.py``, ``[b, h, s, d]`` layout:
   ``_bwd_fused_kernel``), beyond it the split pair in the same source,
   the dq kernel and the dk/dv kernel (``_dq_kernel`` and
   ``_dkv_kernel``).  All consume the base-2 lse.  The one-pass kernel
-  adds dq with fp32 atomics, so its dq's last bits vary from run to
-  run; the split pair writes every output once, and repeats bit for
-  bit.  The ``mask`` operand and dropout are not ported yet
+  adds dq with fp32 bulk reductions in any order, so its dq's last bits
+  vary from run to run; the split pair writes every output once, and
+  repeats bit for bit.  The ``mask`` operand and dropout are not ported yet
   (ROADMAP queue 1, "mask operand and dropout"): on CUDA they raise
   ``NotImplementedError`` (the CPU plain version takes a mask).
 * :func:`mha_reference` — the natural-log oracle.
@@ -182,7 +182,7 @@ def _dkv_reference(q3, k3, v3, lse, delta, do3, causal, scale,
 def _delta(o3, do3):
     """``rowsum(dO * O)`` in fp32, outside the kernels as in
     ``_bwd_impl``."""
-    return (do3.float() * o3.float()).sum(dim=-1)
+    return (do3.float() * o3).sum(dim=-1)    # o3 promoted in the product
 
 
 def _bwd_reference(q3, k3, v3, o3, lse, do3, causal, scale,
@@ -259,7 +259,7 @@ def _dkv_kernel(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
 def _bwd_kernel(q3, k3, v3, o3, lse, do3, causal, scale, causal_off=None,
                 valid=None):
     """The one-pass backward kernel: ``(dq, dk, dv)`` bf16, dq added
-    with fp32 atomics into a scratch buffer and then cast."""
+    with fp32 bulk reductions into a scratch buffer and then cast."""
     dims = _kernel_args("flash_attention_bwd", q3, k3, v3, lse, do3, causal,
                         scale, causal_off, valid, (("out", o3),))
     if o3.shape != q3.shape:
@@ -352,7 +352,10 @@ def flash_attention(q, k, v, *, causal: bool = False, mask=None,
     q, k and v.
 
     On CUDA: bf16 operands, head_dim 32/64/128, any sequence lengths
-    (the kernels mask the ragged edge themselves).  ``mask`` and
+    (the kernels mask the ragged edge themselves).  The arguments are
+    checked first, as the JAX entry checks them (``ValueError``: a
+    ``dropout_rate`` outside [0, 1), a nonzero rate without
+    ``dropout_seed``, a mask not ``[b|1, h|1, sq|1, sk|1]``).  ``mask`` and
     ``dropout_rate > 0`` raise ``NotImplementedError`` on CUDA: the
     dropout mask must match the JAX package's murmur-hash bits, and the
     kernels take no mask operand yet (ROADMAP queue 1, "mask operand
@@ -360,6 +363,21 @@ def flash_attention(q, k, v, *, causal: bool = False, mask=None,
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = (d ** -0.5) if sm_scale is None else sm_scale
+    # the JAX entry's argument checks, in its order
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got "
+                         f"{dropout_rate}")
+    if dropout_rate and dropout_seed is None:
+        raise ValueError(
+            "dropout_rate > 0 requires dropout_seed (reusing an implicit "
+            "constant seed would repeat the same mask every training step)")
+    if mask is not None and not (
+            mask.dim() == 4 and mask.shape[0] in (1, b)
+            and mask.shape[1] in (1, h) and mask.shape[2] in (1, sq)
+            and mask.shape[3] in (1, sk)):
+        raise ValueError(
+            f"mask must be boolean [b|1, h|1, sq|1, sk|1] (broadcastable to "
+            f"[{b}, {h}, {sq}, {sk}]); got {tuple(mask.shape)}")
     if dropout_rate:
         raise NotImplementedError(
             "attention dropout (the murmur3 keep mask of apex_tpu's "

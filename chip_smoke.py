@@ -86,7 +86,12 @@
    1-layer model through the split backward against the same step with
    the gate raised so the one-pass kernel takes it (both on the card):
    the loss and every leaf's flat grads within a relative L2 limit.
-8. **Shim.**  One backward of the 1-layer model, then
+8. **A/B** (``--phases ab --baseline DIR``, not in the default run).
+   Another version's kernels (``DIR/apex_tpu_torch/csrc``) built into a
+   library of their own beside this tree's and swapped in turn, A B B A
+   in one process: the flash backward rows (#4 at 2048, #6 at 8192) and
+   the 4-layer Adam steps at 2048 and 8192 tokens.
+9. **Shim.**  One backward of the 1-layer model, then
    ``multi_tensor_applier`` with each of its four ops over the model's
    real grad list (11 leaves, bf16 and fp32), one kernel launch a call,
    against the same calls through the plain versions; ``noop_flag`` 1
@@ -108,6 +113,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -149,26 +155,25 @@ TOL_ADAM = 2e-6
 TOL_L2NORM_REL = 1e-6
 TOL_UPDATE_REL = 1e-6
 #: flash dq/dk/dv (fp32 accumulation, p and ds rounded to bf16 on both
-#: sides, dq summed by atomics in any order) are held element by
-#: element, |got - ref| <= RTOL |ref| + ATOL (two bf16 ulps of the
-#: element, and an absolute floor far below a typical |dq| ~ 0.03), and
-#: each output as a whole within a relative L2 difference
+#: sides, dq summed in any order) are held against the exact float64
+#: gradient at both lengths, causal [1, 32, 2048, 128] (the one-pass
+#: kernel) and [1, 32, 8192, 128] (the split pair), and each output as a
+#: whole within a relative L2 difference of the plain version.  The
+#: element rule |got - ref| <= RTOL |ref| + ATOL (two bf16 ulps of the
+#: element, and an absolute floor) is printed beside, not gated: its
+#: floor (2^-9) is smaller than one bf16 rounding step of a p in [0.5, 1)
+#: times |dO| ~ 1, and the kernels and the plain version, whose fp32
+#: scores differ in their last bits, round a few such p to different
+#: sides (at 8192 both the split and the one-pass kernel read 1.157 on
+#: dv).  Each output's error against the exact gradient must stay within
+#: 5% (relative L2) and 25% (max |err|) of the plain version's own
+#: error; both round the same values, so the ratios sit near 1, and an
+#: independent error of 7e-4 relative L2 moves the first past its limit.
 TOL_FLASH_BWD_RTOL = 2.0 ** -6
 TOL_FLASH_BWD_ATOL = 2.0 ** -9
 TOL_FLASH_BWD_REL_L2 = 1e-2
-#: the split backward at causal [1, 32, 8192, 128] is held against the
-#: exact float64 gradient instead of element by element: the element
-#: rule's floor (2^-9) is smaller than one bf16 rounding step of a p in
-#: [0.5, 1) times |dO| ~ 1, and the kernels and the plain version, whose
-#: fp32 scores differ in their last bits, round a few such p to
-#: different sides (the one-pass kernel at this shape reads the same
-#: worst element).  Each output's error against the exact gradient must
-#: stay within 5% (relative L2) and 25% (max |err|) of the plain
-#: version's own error; both round the same values, so the ratios sit
-#: near 1, and an independent error of 7e-4 relative L2 moves the first
-#: past its limit.
-TOL_SPLIT_EXACT_L2 = 1.05
-TOL_SPLIT_EXACT_MAX = 1.25
+TOL_FLASH_EXACT_L2 = 1.05
+TOL_FLASH_EXACT_MAX = 1.25
 #: the shim's two kernels against their plain versions: axpby rounds
 #: each product before the sum, as the plain version's separate
 #: multiplies do, and the fused scale writes one fp32 multiply, so both
@@ -179,7 +184,7 @@ TOL_L2NORM_SCALE_OUT = 0.0
 #: train-check of the split backward: one 8192-token step through the
 #: split pair against the same step through the one-pass kernel.  The
 #: forward is the same (the loss bit for bit), dk and dv are the same
-#: products; dq differs by the atomics' order of fp32 adds before its
+#: products; dq differs by the order of its fp32 adds before its
 #: bf16 rounding (an ulp of some elements), which the rest of the
 #: backward carries into every leaf: each leaf within 1e-2 relative L2
 TOL_SPLIT_GRAD_REL_L2 = 1e-2
@@ -234,8 +239,8 @@ RULE_LAYERS, RULE_STEPS = 1, 3
 TOL_RULE_CHECK_REL = 1e-6
 #: train-check (1 layer): flat grads through the kernels vs through the
 #: plain versions, bf16 activations rounded at different points in the
-#: two (and atomics in dq), so a relative L2 of a few 1e-3 in every
-#: leaf (the worst leaf is held to the limit); the loss (~12 nats)
+#: two (and dq's adds in any order), so a relative L2 of a few 1e-3 in
+#: every leaf (the worst leaf is held to the limit); the loss (~12 nats)
 #: within 2e-2
 TOL_TRAIN_GRAD_REL_L2 = 3e-2
 TOL_TRAIN_LOSS = 2e-2
@@ -321,26 +326,6 @@ def _elementwise(got, ref, rtol: float, atol: float):
     return ratio, ((g - r).norm() / r.norm()).item()
 
 
-def _check_flash_bwd(label, got, ref) -> float:
-    """Hold dq, dk, dv of ``got`` against ``ref`` element by element and
-    as wholes; returns the largest max |diff|."""
-    err, failed = 0.0, []
-    for nm, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
-        ratio, rel = _elementwise(g_, r_, TOL_FLASH_BWD_RTOL,
-                                  TOL_FLASH_BWD_ATOL)
-        e = (g_.float() - r_.float()).abs().max().item()
-        ok = ratio <= 1.0 and rel <= TOL_FLASH_BWD_REL_L2
-        print(f"  {label} {nm}: max|diff| {e:.6g}, worst |diff| / "
-              f"(2^-6 |ref| + 2^-9) {ratio:.4g} (limit 1), relative L2 "
-              f"{rel:.4g} (limit {TOL_FLASH_BWD_REL_L2}) "
-              f"{'ok' if ok else 'FAIL'}")
-        failed += [] if ok else [nm]
-        err = max(err, e)
-    if failed:
-        raise AssertionError(f"{label} {failed}: off the plain version")
-    return err
-
-
 def _exact_bwd(q3, k3, v3, do3, scale):
     """The causal backward in float64 from the bf16 operands, with p and
     ds unrounded: the exact gradient that the kernels and their plain
@@ -368,10 +353,10 @@ def _exact_errors(got, exact):
 
 
 def _check_flash_bwd_exact(label, got, ref, exact) -> float:
-    """The split backward at 8192 tokens: each output's error against the
-    exact float64 gradient within TOL_SPLIT_EXACT_* of the plain
-    version's own error, and within TOL_FLASH_BWD_REL_L2 of the plain
-    version; the 2048-token element rule's reading is printed beside.
+    """The flash backward gate (2048 and 8192 tokens): each output's
+    error against the exact float64 gradient within TOL_FLASH_EXACT_* of
+    the plain version's own error, and within TOL_FLASH_BWD_REL_L2 of the
+    plain version; the element rule's reading is printed beside.
     Returns the largest max |diff| against the plain version."""
     err, failed = 0.0, []
     for nm, g_, r_, (gl2, gmax), (rl2, rmax) in zip(
@@ -380,13 +365,13 @@ def _check_flash_bwd_exact(label, got, ref, exact) -> float:
         ratio, rel = _elementwise(g_, r_, TOL_FLASH_BWD_RTOL,
                                   TOL_FLASH_BWD_ATOL)
         e = (g_.float() - r_.float()).abs().max().item()
-        ok = gl2 <= TOL_SPLIT_EXACT_L2 * rl2 \
-            and gmax <= TOL_SPLIT_EXACT_MAX * rmax \
+        ok = gl2 <= TOL_FLASH_EXACT_L2 * rl2 \
+            and gmax <= TOL_FLASH_EXACT_MAX * rmax \
             and rel <= TOL_FLASH_BWD_REL_L2
         print(f"  {label} {nm}: against the exact gradient relative L2 "
-              f"{gl2:.5g} (plain {rl2:.5g}, limit x{TOL_SPLIT_EXACT_L2}), "
+              f"{gl2:.5g} (plain {rl2:.5g}, limit x{TOL_FLASH_EXACT_L2}), "
               f"max|err| {gmax:.5g} (plain {rmax:.5g}, limit "
-              f"x{TOL_SPLIT_EXACT_MAX}); against the plain version max|diff| "
+              f"x{TOL_FLASH_EXACT_MAX}); against the plain version max|diff| "
               f"{e:.6g}, relative L2 {rel:.4g} (limit {TOL_FLASH_BWD_REL_L2}), "
               f"worst |diff| / (2^-6 |ref| + 2^-9) {ratio:.4g} "
               f"{'ok' if ok else 'FAIL'}")
@@ -396,6 +381,34 @@ def _check_flash_bwd_exact(label, got, ref, exact) -> float:
         raise AssertionError(f"{label} {failed}: less accurate than the plain "
                              f"version")
     return err
+
+
+def _hold_wrong_backwards(plain, ref, exact, s: int) -> None:
+    """What the flash backward gate reads for two plainly wrong
+    backwards: ``plain(**kw)``, the plain version with its causal
+    boundary one 64-key tile late and with the keys of the second half
+    dropped.  Each must fail the gate."""
+    plain_err = _exact_errors(ref, exact)
+    for label, wrong in (("causal boundary +64", dict(causal_off=64)),
+                         (f"keys >= {s // 2} dropped",
+                          dict(valid=(s, s // 2)))):
+        bad = plain(**wrong)
+        readings = [_elementwise(g_, r_, TOL_FLASH_BWD_RTOL,
+                                 TOL_FLASH_BWD_ATOL)
+                    for g_, r_ in zip(bad, ref)]
+        bad_err = _exact_errors(bad, exact)
+        print(f"  wrong backward ({label}): relative L2 against the exact "
+              f"gradient over the plain version's, of dq, dk, dv "
+              f"{[round(b2[0] / p2[0], 4) for b2, p2 in zip(bad_err, plain_err)]}; "
+              f"(worst element ratio, relative L2) against the plain version "
+              f"{[(round(a, 4), round(r, 4)) for a, r in readings]}")
+        if all(b2[0] <= TOL_FLASH_EXACT_L2 * p2[0]
+               and b2[1] <= TOL_FLASH_EXACT_MAX * p2[1]
+               and r <= TOL_FLASH_BWD_REL_L2
+               for b2, p2, (_, r) in zip(bad_err, plain_err, readings)):
+            raise AssertionError(f"the flash backward gate passes a wrong "
+                                 f"backward ({label})")
+        del bad
 
 
 def phase_build():
@@ -786,25 +799,13 @@ def _train_kernels(dev, gen, recs):
     out, lse = attn._fwd(q3, k3, v3, True, scale)
     got = attn._bwd(q3, k3, v3, out, lse, do3, True, scale)
     ref = attn._bwd_reference(q3, k3, v3, out, lse, do3, True, scale)
+    exact = _by_heads(lambda sl: _exact_bwd(q3[sl], k3[sl], v3[sl], do3[sl],
+                                            scale), b_ * h, 8)
     print("flash_attention backward causal [1, 32, 2048, 128] bf16")
-    err = _check_flash_bwd("flash bwd", got, ref)
-    # what the rule reads for plainly wrong backwards (the plain version
-    # with its causal boundary one 64-key tile late, and with the keys
-    # of the second half dropped): each must fail it
-    for label, wrong in (("causal boundary +64", dict(causal_off=64)),
-                         ("keys >= 1024 dropped", dict(valid=(s, s // 2)))):
-        bad = attn._bwd_reference(q3, k3, v3, out, lse, do3, True, scale,
-                                  **wrong)
-        readings = [_elementwise(b_, r_, TOL_FLASH_BWD_RTOL,
-                                 TOL_FLASH_BWD_ATOL)
-                    for b_, r_ in zip(bad, ref)]
-        print(f"  wrong backward ({label}): (worst ratio, relative L2) of "
-              f"dq, dk, dv {[(round(a, 4), round(r, 4)) for a, r in readings]}")
-        if all(a <= 1.0 and r <= TOL_FLASH_BWD_REL_L2 for a, r in readings):
-            raise AssertionError(f"the flash backward limits pass a wrong "
-                                 f"backward ({label})")
-        del bad
-    del got, ref
+    err = _check_flash_bwd_exact("flash bwd", got, ref, exact)
+    _hold_wrong_backwards(lambda **kw: attn._bwd_reference(
+        q3, k3, v3, out, lse, do3, True, scale, **kw), ref, exact, s)
+    del got, ref, exact
     nbytes = 8 * q3.numel() * 2 + 2 * b_ * h * s * 4
     bound, by = _bound(nbytes, 5 * s * s * d * h)     # 5 products, causal
     qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -824,6 +825,11 @@ def _train_kernels(dev, gen, recs):
         bound_ms=bound, bound_by=by, library_ms=lib_fb - lib_f,
         eager_ms=_eager_ms(lambda: attn._bwd(q3, k3, v3, out, lse, do3,
                                              True, scale), 10))
+    # where the row's time goes: delta, the fp32 dq scratch, the kernel
+    # and the dq cast
+    _device_breakdown("flash backward causal [1, 32, 2048, 128] (_bwd)",
+                      lambda: attn._bwd(q3, k3, v3, out, lse, do3, True,
+                                        scale), 10, top=6)
     del q, k, v, kk, vv, do, q3, k3, v3, do3, out, lse, qr, kr, vr
     torch.cuda.empty_cache()
 
@@ -1139,27 +1145,9 @@ def _split_kernels(dev, gen, recs):
     _check_flash_bwd_exact("flash bwd split", got, ref, exact)
     errs = [(g_.float() - r_.float()).abs().max().item()
             for g_, r_ in zip(got, ref)]
-    plain_err = _exact_errors(ref, exact)
-    for label, wrong in (("causal boundary +64", dict(causal_off=64)),
-                         (f"keys >= {s // 2} dropped",
-                          dict(valid=(s, s // 2)))):
-        bad = _by_heads(lambda sl: plain(sl, **wrong), b_ * h, step)
-        readings = [_elementwise(g_, r_, TOL_FLASH_BWD_RTOL,
-                                 TOL_FLASH_BWD_ATOL)
-                    for g_, r_ in zip(bad, ref)]
-        bad_err = _exact_errors(bad, exact)
-        print(f"  wrong backward ({label}): relative L2 against the exact "
-              f"gradient over the plain version's, of dq, dk, dv "
-              f"{[round(b2[0] / p2[0], 4) for b2, p2 in zip(bad_err, plain_err)]}; "
-              f"(worst element ratio, relative L2) against the plain version "
-              f"{[(round(a, 4), round(r, 4)) for a, r in readings]}")
-        if all(b2[0] <= TOL_SPLIT_EXACT_L2 * p2[0]
-               and b2[1] <= TOL_SPLIT_EXACT_MAX * p2[1]
-               and r <= TOL_FLASH_BWD_REL_L2
-               for b2, p2, (_, r) in zip(bad_err, plain_err, readings)):
-            raise AssertionError(f"the split backward's limits pass a wrong "
-                                 f"backward ({label})")
-        del bad
+    _hold_wrong_backwards(lambda **kw: _by_heads(lambda sl: plain(sl, **kw),
+                                                 b_ * h, step),
+                          ref, exact, s)
     del ref, exact
     again = attn._bwd(q3, k3, v3, out, lse, do3, True, scale)
     same = [torch.equal(a_, b2) for a_, b2 in zip(got, again)]
@@ -1175,10 +1163,14 @@ def _split_kernels(dev, gen, recs):
                                             scale), 4)
     finally:
         attn._FUSED_BWD_MAX_BYTES = saved
+    same = [torch.equal(a_, b2) for a_, b2 in zip(got, one)]
     print("  split vs the one-pass kernel on the same inputs: "
-          + ", ".join(f"{nm} bit-identical {torch.equal(a_, b2)}, relative "
+          + ", ".join(f"{nm} bit-identical {eq}, relative "
                       f"L2 {((a_.float() - b2.float()).norm() / b2.float().norm()).item():.3e}"
-                      for nm, a_, b2 in zip(("dq", "dk", "dv"), got, one)))
+                      for nm, eq, a_, b2 in zip(("dq", "dk", "dv"), same, got,
+                                                one)))
+    if not (same[1] and same[2]):
+        raise AssertionError("split dk/dv differ from the one-pass kernel's")
     del again, one
     split_ms = _time_ms(lambda: attn._bwd(q3, k3, v3, out, lse, do3, True,
                                           scale), 4)
@@ -1195,6 +1187,9 @@ def _split_kernels(dev, gen, recs):
           f"{split_ms:.4f} ms = dq {dq_ms:.4f} + dk/dv {dkv_ms:.4f} ms; the "
           f"one-pass kernel forced onto this shape {one_ms:.4f} ms; SDPA "
           f"backward (fwd+bwd - fwd) {lib_fb - lib_f:.4f} ms")
+    _device_breakdown(f"flash backward split route causal [1, 32, {s}, 128] "
+                      f"(_bwd)", lambda: attn._bwd(q3, k3, v3, out, lse, do3,
+                                                   True, scale), 4, top=6)
     # one causal product of the shape: 2 s^2 d h / 2 flops
     product = s * s * d * h
     elem = q3.numel() * 2
@@ -2064,6 +2059,119 @@ def phase_rule_check(dev, seed: int):
     return worst_all
 
 
+def _library_of(csrc: Path, build_dir: Path):
+    """The kernel library built from another copy of the kernel sources
+    (``csrc``) into ``build_dir``; the current library is left as it
+    was."""
+    from apex_tpu_torch.ops import _build
+    saved = (_build.CSRC, _build.BUILD_DIR, _build._LIB)
+    _build.CSRC, _build.BUILD_DIR, _build._LIB = csrc, build_dir, None
+    try:
+        return _build.library()
+    finally:
+        _build.CSRC, _build.BUILD_DIR, _build._LIB = saved
+
+
+def _ab(libs, fn, turns: str = "ABBA"):
+    """``fn()`` (a time) with each library in turn, A B B A; the mean
+    of each library's two turns."""
+    from apex_tpu_torch.ops import _build
+    own = _build._LIB
+    got = {"A": [], "B": []}
+    try:
+        for turn in turns:
+            _build._LIB = libs[turn]
+            got[turn].append(fn())
+    finally:
+        _build._LIB = own
+    return {t: float(np.mean(v)) for t, v in got.items()}, got
+
+
+def phase_ab(dev, seed: int, baseline: Path):
+    """A/B of the flash backward kernels against another version of the
+    kernel sources (``baseline``, the root of a checkout holding
+    ``apex_tpu_torch/csrc``), in one process on one card: each version
+    built into a library of its own and swapped in turn, A (baseline)
+    B (this tree) B A.  Times #4 (``_bwd``, the row's time: delta, dq
+    scratch, kernel, cast) at causal [1, 32, 2048, 128] and #6 (the
+    split dk/dv kernel) at causal [1, 32, 8192, 128], the two versions'
+    outputs first held against each other, then three 4-layer Adam
+    steps a turn at 2048 and at 8192 tokens (median a turn)."""
+    from apex_tpu_torch.ops import _build
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    t0 = time.perf_counter()
+    libs = {"A": _library_of(baseline / "apex_tpu_torch" / "csrc",
+                             _build.BUILD_DIR.parent / "ab_baseline"),
+            "B": _build.library()}
+    print(f"ab: baseline {baseline} built in "
+          f"{time.perf_counter() - t0:.1f} s; A = baseline, B = this tree, "
+          f"on {_smi()}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 7)
+    bf = torch.bfloat16
+    for s, name in ((TRAIN_SEQ, "flash_attention_bwd"),
+                    (SPLIT_SEQ, "flash_attention_bwd_dkv")):
+        h, d = 32, 128
+        q3, k3, v3, do3 = (torch.randn(h, s, d, generator=gen, device=dev)
+                           .to(bf) for _ in range(4))
+        scale = d ** -0.5
+        out, lse = attn._fwd(q3, k3, v3, True, scale)
+        delta = attn._delta(out, do3)
+        if name == "flash_attention_bwd":
+            def call():
+                return attn._bwd(q3, k3, v3, out, lse, do3, True, scale)
+        else:
+            def call():
+                return attn._dkv_kernel(q3, k3, v3, lse, delta, do3, True,
+                                        scale)
+        # both versions against each other: dk and dv agree within the
+        # flash backward's relative L2 (their fp32 sums run in another
+        # order)
+        got = {}
+        for turn in "AB":
+            _build._LIB = libs[turn]
+            got[turn] = call()
+        _build._LIB = libs["B"]
+        torch.cuda.synchronize()
+        rel = [((a_.float() - b2.float()).norm() / a_.float().norm()).item()
+               for a_, b2 in zip(got["A"], got["B"])]
+        print(f"  {name} causal [1, {h}, {s}, {d}]: B against A relative L2 "
+              f"{[f'{r:.3e}' for r in rel]}")
+        if max(rel) > TOL_FLASH_BWD_REL_L2:
+            raise AssertionError(f"ab: {name} differs between the versions")
+        del got
+        iters = 10 if s == TRAIN_SEQ else 4
+        mean, each = _ab(libs, lambda: _time_ms(call, iters))
+        print(f"  {name} causal [1, {h}, {s}, {d}]: A {mean['A']:.4f} ms, "
+              f"B {mean['B']:.4f} ms (turns A B B A: "
+              f"{[round(x, 4) for x in each['A'][:1] + each['B'] + each['A'][1:]]})")
+        del q3, k3, v3, do3, out, lse, delta
+        torch.cuda.empty_cache()
+    for seq in (TRAIN_SEQ, SPLIT_SEQ):
+        cfg, model, tx, state, batch, train_step = _train_setup(
+            dev, seed, TRAIN_LAYERS, None, "dynamic", seq)
+        step = train_step.make_train_step(_train_loss, tx)
+        box = {"state": step(state, batch)[0]}
+        del state
+
+        def steps():
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                box["state"], _ = step(box["state"], batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+            return float(np.median(times))
+
+        mean, each = _ab(libs, steps)
+        print(f"  adam step, {TRAIN_LAYERS} layers, {seq} tokens: A "
+              f"{mean['A']:.4f} s, B {mean['B']:.4f} s (turns A B B A: "
+              f"{[round(x, 4) for x in each['A'][:1] + each['B'] + each['A'][1:]]})")
+        del model, box, step, batch
+        torch.cuda.empty_cache()
+
+
 def _device_breakdown(label, fn, reps: int, top: int = 10):
     """Run ``fn`` ``reps`` times unprofiled (host clock, synchronised),
     then once more ``reps`` times under ``torch.profiler``; print the
@@ -2129,9 +2237,13 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="kernels,serve,profile,train,train-check,shim",
                     help="comma list of kernels, serve, profile, train, "
-                         "train-check, shim (build always runs; profile "
+                         "train-check, shim, ab (build always runs; profile "
                          "profiles the serve and the train phases that "
                          "run)")
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="root of a checkout of another version: with the "
+                         "ab phase, time the flash backward and the Adam "
+                         "steps of both, A/B in this process")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2165,6 +2277,10 @@ def main(argv=None) -> int:
         phase_train_check(dev, args.seed)
         phase_split_check(dev, args.seed)
         phase_rule_check(dev, args.seed)
+    if "ab" in phases:
+        if args.baseline is None:
+            raise SystemExit("the ab phase needs --baseline")
+        phase_ab(dev, args.seed, args.baseline.resolve())
     if "shim" in phases:
         shim = phase_shim(dev, args.seed)
         for key in SHIM_KERNELS:

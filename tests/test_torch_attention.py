@@ -113,3 +113,26 @@ def test_dropout_raises_not_implemented_naming_its_roadmap_item():
     q, k, v = _t(*_qkv(1, 1, 8, 8, 8))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         tattn.flash_attention(q, k, v, dropout_rate=0.1, dropout_seed=1)
+
+
+@pytest.mark.parametrize("case", ["rate 1", "rate below 0", "no seed",
+                                  "2-D mask", "mask with sk + 1 columns"])
+def test_flash_attention_argument_checks_match_jax(case):
+    """The JAX entry's ValueError checks run first, in its order, before
+    the not-ported NotImplementedError: both entries raise ValueError on
+    the same inputs."""
+    q, k, v = _qkv(1, 2, 8, 8, 8, seed=13)
+    kw = {"rate 1": dict(dropout_rate=1.0, dropout_seed=1),
+          "rate below 0": dict(dropout_rate=-0.1, dropout_seed=1),
+          "no seed": dict(dropout_rate=0.1),
+          "2-D mask": dict(mask=np.zeros((8, 8), bool)),
+          "mask with sk + 1 columns": dict(
+              mask=np.zeros((1, 1, 8, 9), bool))}[case]
+    jkw = {n: jnp.asarray(x) if n == "mask" else x for n, x in kw.items()}
+    tkw = {n: torch.from_numpy(x) if n == "mask" else x
+           for n, x in kw.items()}
+    with pytest.raises(ValueError):
+        jattn.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              **jkw)
+    with pytest.raises(ValueError):
+        tattn.flash_attention(*_t(q, k, v), **tkw)

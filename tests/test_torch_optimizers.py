@@ -391,6 +391,26 @@ def test_clip_grad_norm_matches_jax(norm_type, max_norm):
                                  np.asarray(jout["b"]["c"]).reshape(-1)]))
 
 
+@pytest.mark.parametrize("norm_type", [float("inf"), 3.0])
+def test_clip_grad_norm_bf16_grads_keep_their_dtype_like_jax(norm_type):
+    """bf16 grads: the inf-norm and the p-norm are taken in the grads'
+    dtype, as the JAX package's jnp reductions take them (an fp32 norm
+    read 23.07 where JAX reads 23.25 on these 1000 grads at p = 3).  The
+    norm is bf16 on both sides and within one bf16 rounding step (2^-8
+    relative: the sums may round in another order); the clipped grads
+    within one bf16 step of the largest."""
+    g = (np.random.RandomState(12).randn(1000) * 2).astype(np.float32)
+    jout, jnorm = jclip(jnp.asarray(g, dtype=jnp.bfloat16), 1.0, norm_type)
+    tout, tnorm = clip_grad_norm_(_t(g).to(torch.bfloat16), 1.0, norm_type)
+    assert tnorm.dtype == torch.bfloat16 and jnorm.dtype == jnp.bfloat16
+    jn = float(jnorm)
+    assert abs(float(tnorm) - jn) <= 2.0 ** -8 * jn
+    assert tout.dtype == torch.bfloat16
+    want = np.asarray(jout, np.float32)
+    assert np.abs(tout.float().numpy() - want).max() <= \
+        2.0 ** -8 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("error_if_nonfinite", [False, True])
 def test_clip_grad_norm_nonfinite(error_if_nonfinite):
     g = np.ones(10, np.float32)
