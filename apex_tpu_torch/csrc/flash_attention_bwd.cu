@@ -70,48 +70,30 @@
 // softmax with the next step's S^T (no registers left: dk, dv, S^T and
 // dP^T hold 192 a thread).  PERF.md records the times.
 //
+// The split dq kernel is query-major: the forward's template with its
+// dq half, flash_qmajor_kernel<D, true, kDqBK> (flash_qmajor.cuh).  A
+// block keeps 128 queries' q and dO in shared memory (TMA loads by a
+// copying warpgroup) and their lse and delta in registers, streams the
+// key tiles they can see (64 keys a step, a 3-stage ring guarded by
+// mbarriers), runs S = Q K^T and dP = dO V^T on wgmma as two commit
+// groups (P's exp2 overlaps dP), and dQ += dS K with dS from registers
+// and K read N-major from the tile that was S's B; it writes its
+// queries' dq once (no atomics: the same bits from run to run).  Bound
+// at causal [1, 32, 8192, 128]: operations, three products, 0.834 ms.
+// The first version ran mma.sync m16n8k16 with four warps of 16
+// queries, lse and delta read from global memory, and each K tile
+// fetched twice through ldmatrix (plain and transposed): 3.51 ms there.
+// Measured slower or refused (PERF.md): 128-key steps (ptxas spills at
+// d = 128), the dQ product left in flight into the next step, the two
+// product warpgroups taking turns to issue their products.
+//
 // Plain C interface (loaded with ctypes): apex_flash_attention_bwd,
 // apex_flash_attention_bwd_dq and apex_flash_attention_bwd_dkv launch on
 // the caller's stream and return cudaGetLastError().
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_qmajor.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr float kNegInf = -1e30f;
-constexpr float kMaskedRowThresh = -0.5e30f;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(smem)),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-// 2^x, one special-function-unit instruction (a result below 2^-126
-// flushes to 0); exp2f adds a denormal range path around it
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
 
 // ---------------------------------------------------------------------
 // The one-pass kernel and the split dk/dv kernel: wgmma
@@ -132,7 +114,7 @@ constexpr int kThreads = 256;
 // 128-byte swizzle.
 template <int D>
 struct Tiles {
-  static constexpr int DP = D < 64 ? 64 : D;
+  static constexpr int DP = kDP<D>;
   static constexpr int kKV = kBK * DP * 2;
   static constexpr int kQ = kBQ * DP * 2;
   static constexpr int kDS = kBK * kBQ * 2;
@@ -143,162 +125,6 @@ struct Tiles {
     return 1024 + (dq ? oDQ + kBQ * D * 4 : oDS);
   }
 };
-
-// Byte offset of 16-byte unit u of row r in a [ROWS][DP] tile held in
-// 64-column chunks, 128 bytes a row, units XORed by r mod 8.
-template <int ROWS>
-__device__ __forceinline__ uint32_t sw128(int r, int u) {
-  return (u >> 3) * (ROWS * 128) + r * 128 + (((u & 7) ^ (r & 7)) << 4);
-}
-
-// cp.async of 16 (4) bytes that writes zeros when !live (no read).
-__device__ __forceinline__ void cp_async16z(uint32_t dst, const void* src,
-                                            bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(live ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4z(uint32_t dst, const void* src,
-                                           bool live) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(live ? 4 : 0));
-}
-
-// Rows [r0, r0 + ROWS) of a contiguous [n, D] bf16 matrix into a swizzled
-// tile; rows >= n and the padding columns D..DP are zero.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_sw(uint32_t dst, const bf16* src, int r0,
-                                        int n) {
-  constexpr int kU = Tiles<D>::DP / 8;
-  for (int i = threadIdx.x; i < ROWS * kU; i += kThreads) {
-    const int r = i / kU, u = i % kU;
-    const bool live = u < D / 8 && r0 + r < n;
-    cp_async16z(dst + sw128<ROWS>(r, u),
-                live ? src + (size_t)(r0 + r) * D + u * 8 : src, live);
-  }
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, the
-// leading (LBO) and stride (SBO) byte offsets, all in 16-byte units.
-// K-major: SBO is the stride of 8-row groups (LBO unused); N- or M-major:
-// LBO is the stride of 64-column chunks, SBO that of 8-row groups.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
-         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N commit groups of this warpgroup are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
-// Pin registers an asynchronous wgmma reads or writes to this point of the
-// program, so the compiler moves no access to them across a fence or wait.
-template <int N>
-__device__ __forceinline__ void keep(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-__device__ __forceinline__ void keep(unsigned (&r)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// d (+)= A B for one m64nNk16 step (N = 64, 128), A and B from shared
-// memory (descriptors); TA / TB: A / B stored M- / N-major (transposed);
-// acc 0 overwrites d.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int acc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, %36;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
-}
-
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                         uint64_t db, int acc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, %68;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
-}
-
-// d += A B for one m64nNk16 step, A from registers (the bf16 fragment of
-// an accumulator's layout), B from shared memory stored N-major.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const unsigned (&a)[4], uint64_t db,
-                                         int acc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const unsigned (&a)[4], uint64_t db,
-                                         int acc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
 
 // The dq map's box at (column c, row r, head bh) += the swizzled fp32
 // tile at src: one bulk tensor reduction (rows past sq are not written).
@@ -318,12 +144,6 @@ __device__ __forceinline__ void bulk_wait_read() {
 }
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // DQ: the one-pass kernel (dq added into dq_acc through dq_map); without
@@ -376,8 +196,8 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // one step's q, dO, lse and delta into stage st
   auto load_step = [&](int q0, int st) {
-    load_sw<D, kBQ>(sQ + st * T::kQ, qb, q0, sq);
-    load_sw<D, kBQ>(sO + st * T::kQ, ob, q0, sq);
+    load_sw<D, kBQ, kThreads>(sQ + st * T::kQ, qb, q0, sq);
+    load_sw<D, kBQ, kThreads>(sO + st * T::kQ, ob, q0, sq);
     if (tid < 2 * kBQ) {
       const int i = tid % kBQ, which = tid / kBQ;
       const float* src = which ? db : lb;
@@ -386,8 +206,8 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  live ? src + q0 + i : src, live);
     }
   };
-  load_sw<D, kBK>(sK, k + bh * (size_t)sk * D, k0, sk);
-  load_sw<D, kBK>(sV, v + bh * (size_t)sk * D, k0, sk);
+  load_sw<D, kBK, kThreads>(sK, k + bh * (size_t)sk * D, k0, sk);
+  load_sw<D, kBK, kThreads>(sV, v + bh * (size_t)sk * D, k0, sk);
   if (nq > 0) load_step(q_begin, 0);
   cp_async_commit();
 
@@ -623,229 +443,6 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------------
-// The split backward's dq kernel: mma.sync
-
-constexpr int kDqBQ = 64;             // queries per block
-constexpr int kDqBK = 64;             // keys per step
-constexpr int kDqThreads = kDqBQ / 16 * 32;   // one warp per 16 rows
-
-// Shared tiles, bf16, row stride D + 8 (16 bytes of padding, so the eight
-// rows an ldmatrix phase reads fall in distinct bank groups): sQ
-// [kDqBQ], sO [kDqBQ] (dO), sK [2][kDqBK], sV [2][kDqBK].
-template <int D>
-struct DqLayout {
-  static constexpr int LD = D + 8;
-  static constexpr size_t bytes() {
-    return sizeof(bf16) * (2 * kDqBQ + 4 * kDqBK) * LD;
-  }
-};
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-// d += a * b for one 16x8 fp32 tile: a 16x16 bf16 (row), b 16x8 (col).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Rows [r0, r0 + ROWS) of a contiguous [n, D] bf16 matrix into a padded
-// shared tile with cp.async; rows >= n are zeroed.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
-                                          int n) {
-  constexpr int kPerRow = D / 8;
-  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kDqThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * 8;
-    bf16* d = dst + r * DqLayout<D>::LD + c;
-    if (r0 + r < n)
-      cp_async16(d, src + (size_t)(r0 + r) * D + c);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// The split backward's dq: one block per (64-query tile, b*h), four
-// warps of 16 query rows.  The query tiles are taken heaviest first (the
-// last rows see the most keys under the causal mask), as the forward
-// does.
-template <int D>
-__global__ void __launch_bounds__(kDqThreads, 2)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int sq, int sk, int causal, int off, int valid_q,
-                    int valid_k, float scale_log2, float scale) {
-  constexpr int LD = DqLayout<D>::LD;
-  constexpr int kDT = D / 8;        // 8-wide dq column tiles
-  constexpr int kST = kDqBK / 8;    // 8-wide key column tiles
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sO = sQ + kDqBQ * LD;
-  bf16* sK = sO + kDqBQ * LD;
-  bf16* sV = sK + 2 * kDqBK * LD;
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqBQ;
-  const size_t bh = blockIdx.y;
-  const bf16* kb = k + bh * (size_t)sk * D;
-  const bf16* vb = v + bh * (size_t)sk * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wrow = warp * 16;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int mat = lane >> 3, mrow = lane & 7;
-
-  const int kv_end = min(sk, valid_k);
-  const int q_end = min(sq, valid_q);
-  // keys any query of this tile may see: [0, kend) -- the TPU kernel's
-  // run condition ki * bk <= qi * bq + bq - 1 + off
-  int kend = kv_end;
-  if (causal) kend = min(kend, q0 + kDqBQ + off);
-  const int nk = (kend > 0 && q0 < q_end) ? (kend + kDqBK - 1) / kDqBK : 0;
-
-  load_tile<D, kDqBQ>(sQ, q + bh * (size_t)sq * D, q0, sq);
-  load_tile<D, kDqBQ>(sO, dout + bh * (size_t)sq * D, q0, sq);
-  if (nk > 0) {
-    load_tile<D, kDqBK>(sK, kb, 0, sk);
-    load_tile<D, kDqBK>(sV, vb, 0, sk);
-  }
-  cp_async_commit();
-
-  // this thread's rows (grp and grp + 8 of its warp's 16): lse, delta
-  float lrow[2], drow[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int r = q0 + wrow + grp + hf * 8;
-    lrow[hf] = r < sq ? lse[bh * (size_t)sq + r] : kNegInf;
-    drow[hf] = r < sq ? delta[bh * (size_t)sq + r] : 0.f;
-  }
-
-  float acc[kDT][4];
-#pragma unroll
-  for (int j = 0; j < kDT; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kDqBK;
-    const int st = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile<D, kDqBK>(sK + (st ^ 1) * kDqBK * LD, kb, k0 + kDqBK, sk);
-      load_tile<D, kDqBK>(sV + (st ^ 1) * kDqBK * LD, vb, k0 + kDqBK, sk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* cK = sK + st * kDqBK * LD;
-    const bf16* cV = sV + st * kDqBK * LD;
-
-    // S = Q K^T and dP = dO V^T: 16 queries x 64 keys per warp
-    float s[kST][4], dp[kST][4];
-#pragma unroll
-    for (int j = 0; j < kST; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      unsigned qa[4], oa[4];
-      ldmatrix_x4(qa, sQ + (wrow + (mat & 1) * 8 + mrow) * LD + kk * 16 +
-                          (mat >> 1) * 8);
-      ldmatrix_x4(oa, sO + (wrow + (mat & 1) * 8 + mrow) * LD + kk * 16 +
-                          (mat >> 1) * 8);
-#pragma unroll
-      for (int jp = 0; jp < kST / 2; ++jp) {
-        unsigned b[4];
-        ldmatrix_x4(b, cK + (jp * 16 + (mat >> 1) * 8 + mrow) * LD +
-                           kk * 16 + (mat & 1) * 8);
-        mma_bf16(s[2 * jp], qa, b[0], b[1]);
-        mma_bf16(s[2 * jp + 1], qa, b[2], b[3]);
-        ldmatrix_x4(b, cV + (jp * 16 + (mat >> 1) * 8 + mrow) * LD +
-                           kk * 16 + (mat & 1) * 8);
-        mma_bf16(dp[2 * jp], oa, b[0], b[1]);
-        mma_bf16(dp[2 * jp + 1], oa, b[2], b[3]);
-      }
-    }
-
-    // P = exp2(S * scale_log2 - lse) with the masks and the fully
-    // masked row guard, then dS = P (dP - delta), kept in s
-    const bool full = k0 + kDqBK <= kv_end && q0 + kDqBQ <= q_end &&
-                      (!causal || k0 + kDqBK - 1 <= q0 + off);
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int qr = q0 + wrow + grp + hf * 8;
-#pragma unroll
-      for (int j = 0; j < kST; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kc = k0 + j * 8 + tig * 2 + e;
-          const bool live = full || (kc < kv_end && qr < q_end &&
-                                     (!causal || kc <= qr + off));
-          const float p = (live && lrow[hf] > kMaskedRowThresh)
-                              ? exp2f(s[j][hf * 2 + e] * scale_log2 -
-                                      lrow[hf])
-                              : 0.f;
-          s[j][hf * 2 + e] = p * (dp[j][hf * 2 + e] - drow[hf]);
-        }
-      }
-    }
-
-    // dQ += dS K: the dS fragments of key tiles 2t, 2t + 1 are the A
-    // fragment of key step t (rounded to bf16 here, as the TPU kernel
-    // feeds its MXU); K through the transposing ldmatrix
-#pragma unroll
-    for (int t = 0; t < kDqBK / 16; ++t) {
-      unsigned da[4];
-      da[0] = pack_bf16(s[2 * t][0], s[2 * t][1]);
-      da[1] = pack_bf16(s[2 * t][2], s[2 * t][3]);
-      da[2] = pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]);
-      da[3] = pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3]);
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        unsigned b[4];
-        ldmatrix_x4_trans(b, cK + (t * 16 + (mat & 1) * 8 + mrow) * LD +
-                                 np * 16 + (mat >> 1) * 8);
-        mma_bf16(acc[2 * np], da, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], da, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this k/v stage
-  }
-  cp_async_wait<0>();  // nk == 0: the q/dO copies may still be in flight
-
-  // this block owns its queries' dq: plain stores, no atomics
-  bf16* dqb = dq + bh * (size_t)sq * D;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int qr = q0 + wrow + grp + hf * 8;
-    if (qr < sq) {
-#pragma unroll
-      for (int j = 0; j < kDT; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)qr * D + j * 8 +
-                                           tig * 2) =
-            __floats2bfloat162_rn(scale * acc[j][hf * 2],
-                                  scale * acc[j][hf * 2 + 1]);
-    }
-  }
-}
-
 // dq (bf16) = the fp32 accumulator, 8 elements per thread (n % 8 == 0).
 __global__ void dq_cast_kernel(const float* __restrict__ src,
                                bf16* __restrict__ dst, size_t n8) {
@@ -861,27 +458,6 @@ __global__ void dq_cast_kernel(const float* __restrict__ src,
     h[3] = __floats2bfloat162_rn(b.z, b.w);
     reinterpret_cast<uint4*>(dst)[i] = raw;
   }
-}
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no link to libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // The tensor map of the fp32 dq accumulator [bh, sq, d] for the kernel's
@@ -950,26 +526,19 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// The split pair: dq from flash_bwd_dq_kernel, dk and dv from the
-// one-pass kernel without its dq half.
+// The split pair: dq from the query-major kernel (flash_qmajor.cuh, the
+// forward's template with its dq half), dk and dv from the one-pass
+// kernel without its dq half.
+constexpr int kDqBK = 64;    // keys a step of the dq kernel
+
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int sq,
               int sk, int causal, int off, int valid_q, int valid_k,
               float scale_log2, float scale, cudaStream_t stream) {
-  const size_t bytes = DqLayout<D>::bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((sq + kDqBQ - 1) / kDqBQ, bh);
-  flash_bwd_dq_kernel<D><<<grid, kDqThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), sq, sk, causal, off, valid_q, valid_k,
-      scale_log2, scale);
-  return (int)cudaGetLastError();
+  return launch_qmajor<D, true, kDqBK>(
+      q, k, v, dout, lse, delta, dq, nullptr, bh, sq, sk, causal, off,
+      valid_q, valid_k, scale_log2, scale, stream);
 }
 
 template <int D>

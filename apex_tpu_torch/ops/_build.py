@@ -3,8 +3,9 @@
 At first use every source under ``apex_tpu_torch/csrc/`` is compiled by
 ``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per source, all started
 together) and linked into ONE shared library under
-``build/apex_tpu_torch/``, named by a hash of the sources and flags so
-an edited kernel never loads a stale build.  The library exposes a
+``build/apex_tpu_torch/``, named by a hash of the sources, the headers
+they include and the flags, so an edited kernel never loads a stale
+build.  The library exposes a
 plain C interface and is loaded with ``ctypes``: every entry takes raw
 device pointers and the CUDA stream as ``c_void_p``, launches on that
 stream and returns ``cudaGetLastError()``, which :func:`check` turns
@@ -144,11 +145,20 @@ def _nvcc() -> str:
         "PATH): the port's CUDA kernels are built from source at first use")
 
 
+def _digest_files() -> list:
+    """The files the library's name hashes: every source of
+    :data:`SOURCES` and every header under ``CSRC`` (the sources include
+    them, so an edited header must not load a stale build)."""
+    headers = sorted(p.name for p in CSRC.iterdir()
+                     if p.suffix in (".cuh", ".h"))
+    return sorted(SOURCES) + headers
+
+
 def _digest() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in sorted(SOURCES):
-        h.update(src.encode())
-        h.update((CSRC / src).read_bytes())
+    for name in _digest_files():
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 

@@ -7,7 +7,9 @@
 
 1. **Build.**  Prints the card's name and power limit, compiles the
    port's CUDA kernels from ``apex_tpu_torch/csrc`` (``nvcc``, sm_90a)
-   and prints the build time and each kernel's ``ptxas`` resource line.
+   and prints the build time, each source's ``ptxas`` resource summary
+   and, for the flash sources, each template instance's registers and
+   spill bytes (and any note of ptxas serialising ``wgmma`` products).
 2. **Kernels.**  Runs each kernel of the serving and training paths
    against its plain PyTorch version on the card at the shapes the
    main paths give it (RMSNorm forward ``[2048, 4096]`` and its backward
@@ -24,7 +26,10 @@
    and timed beside the one-pass kernel forced onto the same shape and
    SDPA's backward; the ``multi_tensor_apply`` shim's axpby and fused
    scale-and-norm kernels over the same flat length, fp32 and bf16,
-   with the norm's bit identity and an inf raising each flag).  Prints
+   with the norm's bit identity and an inf raising each flag; the flash
+   forward again at causal ``[1, 32, 8192, 128]`` and ``[1, 32, 128,
+   128]``, held against its plain version a few heads at a time and
+   timed beside SDPA).  Prints
    the max
    |diff| against its stated limit, the kernel's time, its bound (the
    larger of bytes over 3.35 TB/s and operations over the peak rate of
@@ -89,8 +94,9 @@
 8. **A/B** (``--phases ab --baseline DIR``, not in the default run).
    Another version's kernels (``DIR/apex_tpu_torch/csrc``) built into a
    library of their own beside this tree's and swapped in turn, A B B A
-   in one process: the flash backward rows (#4 at 2048, #6 at 8192) and
-   the 4-layer Adam steps at 2048 and 8192 tokens.
+   in one process: the flash rows (#3 at 128, 2048 and 8192, #4 at 2048,
+   #5 and #6 at 8192) and the 4-layer Adam steps at 2048 and 8192
+   tokens.
 9. **Shim.**  One backward of the 1-layer model, then
    ``multi_tensor_applier`` with each of its four ops over the model's
    real grad list (11 leaves, bf16 and fp32), one kernel launch a call,
@@ -429,6 +435,37 @@ def phase_build():
             if regs:
                 print(f"  {src}: {len(regs)} functions, {min(regs)}-"
                       f"{max(regs)} registers, {spills} bytes of spills")
+            if src.startswith("flash_attention"):
+                for name, n_regs, n_spill in _ptxas_instances(text):
+                    print(f"    {name}: {n_regs} registers, {n_spill} "
+                          f"bytes of spills")
+                # ptxas's note where it had to serialise wgmma products
+                for line in sorted(set(re.findall(
+                        r".*Performance Loss.*", text))):
+                    print(f"    ptxas: {line.strip()[:200]}")
+
+
+def _ptxas_instances(text: str):
+    """``(instance, registers, spill bytes)`` for each kernel entry in an
+    ``nvcc -Xptxas -v`` log, the instance named by its kernel and its
+    template arguments read from the mangled name (``Li128E`` 128,
+    ``Lb0E`` false)."""
+    out = []
+    for part in text.split("Compiling entry function '")[1:]:
+        mangled = part.split("'", 1)[0]
+        m = re.search(r"\d([a-z][a-z_]*_kernel)I((?:L[ib]\d+E)+)E", mangled)
+        if m:
+            args = [{"b0": "false", "b1": "true"}.get(a, a[1:])
+                    for a in re.findall(r"L([ib]\d+)E", m.group(2))]
+            name = f"{m.group(1)}<{', '.join(args)}>"
+        else:
+            plain = re.search(r"\d([a-z][a-z_]*_kernel)", mangled)
+            name = plain.group(1) if plain else mangled
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = sum(int(b) for b in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", part))
+        out.append((name, int(regs.group(1)) if regs else -1, spill))
+    return out
 
 
 def phase_kernels(dev, gen):
@@ -587,8 +624,9 @@ def phase_kernels(dev, gen):
     ogen = torch.Generator(device=dev)
     ogen.manual_seed(gen.initial_seed() + 2)
     _optimizer_kernels(dev, ogen, recs)
-    # and for each of the last slice's kernel pairs
-    for off, check in ((3, _split_kernels), (4, _shim_kernels)):
+    # and for each of the last slices' kernel pairs and rows
+    for off, check in ((3, _split_kernels), (4, _shim_kernels),
+                       (5, _flash_fwd_rows)):
         sgen = torch.Generator(device=dev)
         sgen.manual_seed(gen.initial_seed() + off)
         check(dev, sgen, recs)
@@ -599,6 +637,47 @@ def phase_kernels(dev, gen):
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']}")
     torch.cuda.empty_cache()
     return recs
+
+
+def _flash_fwd_rows(dev, gen, recs):
+    """The flash forward (#3) at causal [1, 32, 8192, 128] (the 8192-token
+    training run's shape) and [1, 32, 128, 128] (the shortest serving
+    bucket), k/v from 8 kv heads: out and lse against the plain version
+    (4 heads at a time at 8192, whose [h, s, s] fp32 scores are 256 MiB a
+    head), then the kernel's time beside SDPA's and the bound.  The
+    kernel's record stays the 2048-token prefill's."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    bf = torch.bfloat16
+    b_, h, kvh, d = 1, 32, 8, 128
+    scale = d ** -0.5
+    for s in (SPLIT_SEQ, 128):
+        q = torch.randn(b_, h, s, d, generator=gen, device=dev).to(bf)
+        kk = torch.randn(b_, kvh, s, d, generator=gen, device=dev).to(bf)
+        vv = torch.randn(b_, kvh, s, d, generator=gen, device=dev).to(bf)
+        k, v = (t[:, :, None].expand(b_, kvh, h // kvh, s, d)
+                .reshape(b_, h, s, d) for t in (kk, vv))
+        q3, k3, v3 = (t.reshape(b_ * h, s, d).contiguous()
+                      for t in (q, k, v))
+        out, lse = attn._fwd(q3, k3, v3, True, scale)
+        ref_out, ref_lse = _by_heads(lambda sl: attn._fwd_reference(
+            q3[sl], k3[sl], v3[sl], True, scale), b_ * h, 4)
+        print(f"flash_attention causal [{b_}, {h}, {s}, {d}] bf16")
+        _check("flash out", (out.float() - ref_out.float()).abs().max()
+               .item(), TOL_ATTN_OUT)
+        _check("flash lse (base 2)", (lse - ref_lse).abs().max().item(),
+               TOL_ATTN_LSE)
+        del ref_out, ref_lse
+        bound, by = _bound(4 * q.numel() * 2 + b_ * h * s * 4,
+                           4 * s * s * d * h / 2)
+        iters = 10 if s == SPLIT_SEQ else 48
+        ms = _time_ms(lambda: attn._fwd(q3, k3, v3, True, scale), iters)
+        lib = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), iters)
+        print(f"  flash_attention causal [{b_}, {h}, {s}, {d}] on {_smi()}: "
+              f"kernel {ms:.4f} ms, SDPA {lib:.4f} ms, bound {bound:.4f} "
+              f"ms ({by}), {100 * bound / ms:.1f}% of the bound")
+        del q, kk, vv, k, v, q3, k3, v3, out, lse
+        torch.cuda.empty_cache()
 
 
 def _fused_kernel(dev, gen, recs, pool_k, pool_v, table, lengths):
@@ -2088,15 +2167,17 @@ def _ab(libs, fn, turns: str = "ABBA"):
 
 
 def phase_ab(dev, seed: int, baseline: Path):
-    """A/B of the flash backward kernels against another version of the
-    kernel sources (``baseline``, the root of a checkout holding
+    """A/B of the flash kernels against another version of the kernel
+    sources (``baseline``, the root of a checkout holding
     ``apex_tpu_torch/csrc``), in one process on one card: each version
     built into a library of its own and swapped in turn, A (baseline)
-    B (this tree) B A.  Times #4 (``_bwd``, the row's time: delta, dq
-    scratch, kernel, cast) at causal [1, 32, 2048, 128] and #6 (the
-    split dk/dv kernel) at causal [1, 32, 8192, 128], the two versions'
-    outputs first held against each other, then three 4-layer Adam
-    steps a turn at 2048 and at 8192 tokens (median a turn)."""
+    B (this tree) B A.  Times #3 (the forward, ``_fwd``) at causal
+    [1, 32, 128, 128], [1, 32, 2048, 128] and [1, 32, 8192, 128], #4
+    (``_bwd``, the row's time: delta, dq scratch, kernel, cast) at
+    2048, #5 (the split dq kernel) and #6 (the split dk/dv kernel) at
+    8192, the two versions' outputs first held against each other, then
+    three 4-layer Adam steps a turn at 2048 and at 8192 tokens (median a
+    turn)."""
     from apex_tpu_torch.ops import _build
     attn = importlib.import_module("apex_tpu_torch.ops.attention")
     t0 = time.perf_counter()
@@ -2109,7 +2190,11 @@ def phase_ab(dev, seed: int, baseline: Path):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 7)
     bf = torch.bfloat16
-    for s, name in ((TRAIN_SEQ, "flash_attention_bwd"),
+    for s, name in ((128, "flash_attention"),
+                    (TRAIN_SEQ, "flash_attention"),
+                    (SPLIT_SEQ, "flash_attention"),
+                    (TRAIN_SEQ, "flash_attention_bwd"),
+                    (SPLIT_SEQ, "flash_attention_bwd_dq"),
                     (SPLIT_SEQ, "flash_attention_bwd_dkv")):
         h, d = 32, 128
         q3, k3, v3, do3 = (torch.randn(h, s, d, generator=gen, device=dev)
@@ -2117,14 +2202,16 @@ def phase_ab(dev, seed: int, baseline: Path):
         scale = d ** -0.5
         out, lse = attn._fwd(q3, k3, v3, True, scale)
         delta = attn._delta(out, do3)
-        if name == "flash_attention_bwd":
-            def call():
-                return attn._bwd(q3, k3, v3, out, lse, do3, True, scale)
-        else:
-            def call():
-                return attn._dkv_kernel(q3, k3, v3, lse, delta, do3, True,
-                                        scale)
-        # both versions against each other: dk and dv agree within the
+        call = {
+            "flash_attention": lambda: attn._fwd(q3, k3, v3, True, scale),
+            "flash_attention_bwd": lambda: attn._bwd(q3, k3, v3, out, lse,
+                                                     do3, True, scale),
+            "flash_attention_bwd_dq": lambda: (attn._dq_kernel(
+                q3, k3, v3, lse, delta, do3, True, scale),),
+            "flash_attention_bwd_dkv": lambda: attn._dkv_kernel(
+                q3, k3, v3, lse, delta, do3, True, scale)}[name]
+        # both versions against each other first: the forward's out and
+        # lse within the kernel limits, the backward's outputs within the
         # flash backward's relative L2 (their fp32 sums run in another
         # order)
         got = {}
@@ -2133,19 +2220,30 @@ def phase_ab(dev, seed: int, baseline: Path):
             got[turn] = call()
         _build._LIB = libs["B"]
         torch.cuda.synchronize()
-        rel = [((a_.float() - b2.float()).norm() / a_.float().norm()).item()
-               for a_, b2 in zip(got["A"], got["B"])]
-        print(f"  {name} causal [1, {h}, {s}, {d}]: B against A relative L2 "
-              f"{[f'{r:.3e}' for r in rel]}")
-        if max(rel) > TOL_FLASH_BWD_REL_L2:
-            raise AssertionError(f"ab: {name} differs between the versions")
+        if name == "flash_attention":
+            err = [(got["A"][0].float() - got["B"][0].float()).abs().max()
+                   .item(), (got["A"][1] - got["B"][1]).abs().max().item()]
+            print(f"  {name} causal [1, {h}, {s}, {d}]: B against A max|diff| "
+                  f"out {err[0]:.3e}, lse {err[1]:.3e}")
+            if err[0] > TOL_ATTN_OUT or err[1] > TOL_ATTN_LSE:
+                raise AssertionError(f"ab: {name} differs between the "
+                                     f"versions")
+        else:
+            rel = [((a_.float() - b2.float()).norm()
+                    / a_.float().norm()).item()
+                   for a_, b2 in zip(got["A"], got["B"])]
+            print(f"  {name} causal [1, {h}, {s}, {d}]: B against A "
+                  f"relative L2 {[f'{r:.3e}' for r in rel]}")
+            if max(rel) > TOL_FLASH_BWD_REL_L2:
+                raise AssertionError(f"ab: {name} differs between the "
+                                     f"versions")
         del got
-        iters = 10 if s == TRAIN_SEQ else 4
+        iters = {128: 48, TRAIN_SEQ: 10}.get(s, 4)
         mean, each = _ab(libs, lambda: _time_ms(call, iters))
         print(f"  {name} causal [1, {h}, {s}, {d}]: A {mean['A']:.4f} ms, "
               f"B {mean['B']:.4f} ms (turns A B B A: "
               f"{[round(x, 4) for x in each['A'][:1] + each['B'] + each['A'][1:]]})")
-        del q3, k3, v3, do3, out, lse, delta
+        del q3, k3, v3, do3, out, lse, delta, call
         torch.cuda.empty_cache()
     for seq in (TRAIN_SEQ, SPLIT_SEQ):
         cfg, model, tx, state, batch, train_step = _train_setup(

@@ -6,8 +6,9 @@ backward, odd flat lengths and offset views for the unscale, Adam, the
 L2 norm, LAMB's phase 1, SGD and Adagrad, the L2 norm's run-to-run
 repeatability, the LAMB rule against its plain route, axpby and the
 fused scale and norm with the ``multi_tensor_applier`` shim over them,
-the split flash backward's two kernels and its route, both flash
-backward kernels at lengths and windows that cut their tiles, the
+the split flash backward's two kernels and its route, the flash forward
+and all three flash backward kernels at lengths and windows that cut
+their tiles (causal rows that see no key among them), the
 fused decode block's query groups, head dims, edge lengths, slot
 groups and its attention-only variant).
 
@@ -75,6 +76,66 @@ def test_flash_kernel_validity_window_and_offset(cuda):
     assert (out.float() - ref_out.float()).abs().max().item() <= 2e-2
     assert (lse - ref_lse).abs().max().item() <= 1e-3
     assert bool((out[:, 90:] == 0).all())
+
+
+# -- the forward across its tiles ----------------------------------------
+#
+# Lengths that cut the forward's 128-query blocks and its key tiles (1,
+# 2, 63, 65, 127, 129, 1000, sk 17 under 200 queries), causal sq > sk
+# (the leading rows see no key: 0 and lse -1e30), and validity windows
+# that end inside a tile; out and lse with the limits above.
+
+def _fwd_case(cuda, bh, sq, sk, d, causal, seed, causal_off=None,
+              valid=None):
+    q, k, v = (_randn((bh, s, d), seed + i, cuda)
+               for i, s in enumerate((sq, sk, sk)))
+    before = _build.launch_counts()["flash_attention"]
+    out, lse = attn._fwd(q, k, v, causal, d ** -0.5, causal_off=causal_off,
+                         valid=valid)
+    assert _build.launch_counts()["flash_attention"] == before + 1
+    ref_out, ref_lse = attn._fwd_reference(q, k, v, causal, d ** -0.5,
+                                           causal_off=causal_off,
+                                           valid=valid)
+    torch.cuda.synchronize()
+    assert (out.float() - ref_out.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    return out, lse
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (2, 2), (1, 1000), (63, 63),
+                                   (65, 65), (127, 127), (129, 129),
+                                   (127, 129), (1000, 1000), (200, 17)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_across_tile_edges(cuda, d, sq, sk, causal):
+    _fwd_case(cuda, 2, sq, sk, d, causal, 30)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk", [(200, 17), (1000, 129), (130, 1)])
+def test_flash_kernel_causal_rows_that_see_no_key(cuda, d, sq, sk):
+    """Causal with sq > sk (offset sk - sq < 0): the first sq - sk rows
+    see no key and emit 0 and lse -1e30; the rest match the plain
+    version."""
+    out, lse = _fwd_case(cuda, 2, sq, sk, d, True, 34)
+    dead = sq - sk
+    assert bool((out[:, :dead] == 0).all())
+    assert bool((lse[:, :dead] == -1e30).all())
+    assert bool((lse[:, dead:] > -1e29).all())
+
+
+@pytest.mark.parametrize("causal,valid", [(True, (150, 150)),
+                                          (False, (100, 190)),
+                                          (True, (129, 65)),
+                                          (False, (1, 1))])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kernel_validity_window_ends_mid_tile(cuda, causal, valid, d):
+    """Windows ending inside a 128-query block and a key tile: rows past
+    the window emit 0 and lse -1e30."""
+    out, lse = _fwd_case(cuda, 2, 256, 256, d, causal, 38, causal_off=0,
+                         valid=valid)
+    assert bool((out[:, valid[0]:] == 0).all())
+    assert bool((lse[:, valid[0]:] == -1e30).all())
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
@@ -739,6 +800,49 @@ def test_flash_bwd_validity_window_ends_mid_tile(cuda, causal, valid):
     assert bool((one[0][:, valid[0]:] == 0).all())
     assert bool((one[1][:, valid[1]:] == 0).all())
     assert bool((one[2][:, valid[1]:] == 0).all())
+
+
+# -- the split dq kernel across its tiles --------------------------------
+#
+# The same lengths for the query-major dq kernel (128-query blocks,
+# 64-key steps): against its plain version with the rule above, bit for
+# bit from run to run (each block writes its queries' dq once), and
+# within the flash backward's relative L2 (1e-2) of the one-pass
+# kernel's dq, whose adds run in another order.
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk", [(1, 2), (2, 2), (1, 1000), (1000, 2),
+                                   (63, 65), (65, 63), (127, 129),
+                                   (129, 127), (1000, 1000), (200, 17)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_dq_kernel_across_tile_edges(cuda, d, sq, sk, causal):
+    args, out = _split_case(cuda, 2, sq, sk, d, causal, 98)
+    q, k, v, lse, _, do, _, scale, _, _ = args
+    before = _build.launch_counts()["flash_attention_bwd_dq"]
+    dq = attn._dq_kernel(*args)
+    assert _build.launch_counts()["flash_attention_bwd_dq"] == before + 1
+    ref = attn._dq_reference(*args)
+    exact = _exact_of(args)[0]
+    torch.cuda.synchronize()
+    _assert_flash_bwd_close((dq,), (ref,), (exact,))
+    assert torch.equal(attn._dq_kernel(*args), dq)
+    one = attn._bwd_kernel(q, k, v, out, lse, do, causal, scale)[0]
+    if one.float().norm() > 0:
+        assert _rel_l2(dq, one) <= 1e-2
+
+
+@pytest.mark.parametrize("causal,valid", [(True, (150, 150)),
+                                          (False, (100, 190)),
+                                          (True, (129, 65))])
+def test_flash_dq_kernel_validity_window_ends_mid_tile(cuda, causal, valid):
+    """Rows past the window get zero dq."""
+    args, _ = _split_case(cuda, 2, 256, 256, 128, causal, 99, causal_off=0,
+                          valid=valid)
+    dq = attn._dq_kernel(*args)
+    _assert_flash_bwd_close((dq,), (attn._dq_reference(*args),),
+                            (_exact_of(args)[0],))
+    assert bool((dq[:, valid[0]:] == 0).all())
+    assert torch.equal(attn._dq_kernel(*args), dq)
 
 
 # -- the fused decode block ----------------------------------------------
