@@ -191,104 +191,370 @@ void launch(const void* x, const void* w, const void* b, void* y, int rows,
 //   dw = sum over rows of dy * xhat,  db = sum over rows of dy   (fp32).
 //
 // Translation: the TPU kernel carries dw/db across its sequential grid
-// in one accumulator.  Blocks here run in parallel, so each block walks
-// a strided set of rows and keeps its own fp32 column sums in shared
-// memory (every thread owns fixed columns, so the sums need no atomics),
-// writes them as one row of a [nblocks, hidden] partial, and a second
-// small kernel sums the partials down the rows.  No atomics into bf16.
+// in one accumulator.  Blocks here run in parallel, so a persistent grid
+// of one or two blocks an SM walks the rows, each thread owning the
+// same columns in every row it sees and summing dw and db for them in
+// registers; each block writes one row of a [nblocks, hidden] partial,
+// and ln_bwd_reduce_kernel adds the partials down the columns in a fixed
+// order (dw and db repeat bit for bit).  No atomics.
 //
 // What bounds it on the H100: bytes (x and dy read, dx written: 3 * 2 *
-// rows * hidden bytes in bf16, ~10 flops per element).  The passes of a
-// row after the first hit L1/L2, as in the forward.
+// rows * hidden bytes in bf16, ~10 flops per element).  So each row is
+// read once: a group of TG threads (a warp, 256 or 512 threads; a block
+// holds R groups, each walking its own rows) holds its row of x and dy
+// in registers, E elements a thread in 16-byte chunks (C = 8) or one at
+// a time (C = 1, any hidden), and loads its next row while this one's
+// reductions run.  The sums of a row reduce
+// together: for RMSNorm sum(x^2) and sum(w dy x) in one reduction
+// (c2 = rstd * mean(w dy x)); for LayerNorm the mean first, then the
+// centred sum of squares, sum(w dy) and sum(w dy (x - mean)) in one.
+// The weight is read per chunk where it is used (it stays in L1).
+// A hidden too wide for the registers takes the MULTI instance of the
+// same kernel: the row in passes of TG * E columns (the later passes
+// hit L2) and dw/db in shared memory, each thread again owning its
+// columns.
 // ---------------------------------------------------------------------------
 
-template <typename TX, typename TW, bool VEC>
-__global__ void __launch_bounds__(kThreads)
+// C consecutive elements of a row as loaded (16 bytes for bf16 C = 8).
+template <typename T, int C>
+struct Chunk;
+template <>
+struct Chunk<__nv_bfloat16, 8> {
+  uint4 r;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    r = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void zero() { r = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ void to(float* o) const {
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h2[j]);
+      o[2 * j] = f.x;
+      o[2 * j + 1] = f.y;
+    }
+  }
+};
+template <>
+struct Chunk<float, 8> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = *reinterpret_cast<const float4*>(p);
+    b = *reinterpret_cast<const float4*>(p + 4);
+  }
+  __device__ __forceinline__ void zero() {
+    a = b = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __device__ __forceinline__ void to(float* o) const {
+    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+    o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+  }
+};
+template <typename T>
+struct Chunk<T, 1> {
+  T v;
+  __device__ __forceinline__ void load(const T* p) { v = *p; }
+  __device__ __forceinline__ void zero() { v = from_f<T>(0.f); }
+  __device__ __forceinline__ void to(float* o) const { o[0] = to_f(v); }
+};
+
+template <typename T, int C>
+__device__ __forceinline__ void store_c(T* p, const float* v) {
+  if constexpr (C == 8) store8(p, v); else *p = from_f<T>(v[0]);
+}
+
+// The block's instance: TG threads a row and R rows in flight a block
+// (each group of TG threads walks its own rows), E elements a thread per
+// pass in chunks of C; MULTI: any number of passes, dw/db in shared
+// memory.
+template <typename TX, typename TW, int TG, int E, int C, bool MULTI, int R>
+__global__ void __launch_bounds__(TG * R, TG * R <= 256 ? 2 : 1)
 ln_bwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
               const TX* __restrict__ dy, TX* __restrict__ dx,
               float* __restrict__ dw_part, float* __restrict__ db_part,
               int rows, int hidden, float eps, int rms) {
-  extern __shared__ float acc[];  // dw sums [hidden], then db sums [hidden]
-  __shared__ float sh[33];
-  float* dw_acc = acc;
-  float* db_acc = acc + hidden;
+  constexpr int kBlock = TG * R;
+  constexpr int NC = E / C;                 // chunks a thread per pass
+  constexpr int kWarpsG = TG / 32;
+  static_assert(!MULTI || R == 1, "the multi-pass instance takes a row a block");
+  __shared__ float red[2][R][kWarpsG][4];   // by reduction parity
+  extern __shared__ float sacc[];
+  const int group = threadIdx.x / TG, gt = threadIdx.x % TG;
+  const int lane = threadIdx.x & 31, wg = gt >> 5;
   const float inv_n = 1.f / (float)hidden;
-  constexpr int kStep = VEC ? 8 : 1;
-  const int start = threadIdx.x * kStep, stride = blockDim.x * kStep;
-  for (int i = start; i < hidden; i += stride)
+  int par = 0;
+  // sums over the row's group: warp shuffles, then (TG > 32) one
+  // shared-memory hop behind the group's own barrier, added in warp
+  // order
+  auto group_sum = [&](float* v, int k) {
+    for (int i = 0; i < k; ++i) v[i] = warp_sum(v[i]);
+    if constexpr (TG > 32) {
+      if (lane == 0)
+        for (int i = 0; i < k; ++i) red[par][group][wg][i] = v[i];
+      if constexpr (R == 1)
+        __syncthreads();
+      else
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(TG)
+                     : "memory");
+      for (int i = 0; i < k; ++i) {
+        float t = 0.f;
 #pragma unroll
-    for (int j = 0; j < kStep; ++j) {
-      dw_acc[i + j] = 0.f;
-      if (!rms) db_acc[i + j] = 0.f;
+        for (int j = 0; j < kWarpsG; ++j) t += red[par][group][j][i];
+        v[i] = t;
+      }
+      par ^= 1;
     }
+  };
+  // first column of chunk j of pass s (its C columns are all in or all
+  // out of the row: hidden % C == 0)
+  auto col = [&](int s, int j) { return s * TG * E + (j * TG + gt) * C; };
+  auto load_pass = [&](Chunk<TX, C> (&cx)[NC], Chunk<TX, C> (&cg)[NC],
+                       size_t row, int s) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int c = col(s, j);
+      if (c < hidden) {
+        cx[j].load(x + row * hidden + c);
+        cg[j].load(dy + row * hidden + c);
+      } else {
+        cx[j].zero();
+        cg[j].zero();
+      }
+    }
+  };
+  // the weight of the chunk at column c, from L1 (zero past the row)
+  auto w_chunk = [&](float* wc, int c) {
+    if (c < hidden) {
+      Chunk<TW, C> cw;
+      cw.load(w + c);
+      cw.to(wc);
+    } else {
+#pragma unroll
+      for (int k = 0; k < C; ++k) wc[k] = 0.f;
+    }
+  };
+  auto load_w = [&](float (&wv)[E], int s) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) w_chunk(wv + j * C, col(s, j));
+  };
+  auto unpack = [&](const Chunk<TX, C> (&cx)[NC],
+                    const Chunk<TX, C> (&cg)[NC], float (&xv)[E],
+                    float (&gv)[E]) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      cx[j].to(xv + j * C);
+      cg[j].to(gv + j * C);
+    }
+  };
+  const size_t stride = (size_t)gridDim.x * R;
+  Chunk<TX, C> cx[NC], cg[NC];
+  float wv[E], xv[E], gv[E];
 
-  for (size_t row = blockIdx.x; row < (size_t)rows; row += gridDim.x) {
-    const TX* xr = x + row * hidden;
-    const TX* dyr = dy + row * hidden;
-    TX* dxr = dx + row * hidden;
-    float mean = 0.f;
-    if (!rms) {
-      float a = 0.f;
-      for (int i = start; i < hidden; i += stride) {
-        float v[8];
-        if (VEC) load8(xr + i, v); else v[0] = to_f(xr[i]);
+  if constexpr (!MULTI) {
+    // the row in registers, as loaded (unpacked to fp32 where used: the
+    // next row's loads are in flight meanwhile); dw and db in registers
+    float dwa[E], dba[E];
 #pragma unroll
-        for (int j = 0; j < kStep; ++j) a += v[j];
-      }
-      mean = block_sum(a, sh) * inv_n;
-    }
-    float ss = 0.f;
-    for (int i = start; i < hidden; i += stride) {
-      float v[8];
-      if (VEC) load8(xr + i, v); else v[0] = to_f(xr[i]);
+    for (int i = 0; i < E; ++i) dwa[i] = dba[i] = 0.f;
+    Chunk<TX, C> nx[NC], ng[NC];
+    size_t row = (size_t)blockIdx.x * R + group;
+    if (row < (size_t)rows) load_pass(nx, ng, row, 0);
+    for (; row < (size_t)rows; row += stride) {
 #pragma unroll
-      for (int j = 0; j < kStep; ++j) {
-        const float c = v[j] - mean;
-        ss += c * c;
+      for (int j = 0; j < NC; ++j) {
+        cx[j] = nx[j];
+        cg[j] = ng[j];
       }
-    }
-    const float rstd = rsqrtf(block_sum(ss, sh) * inv_n + eps);
-    // c1 = mean(wdy), c2 = mean(wdy * xhat)
-    float s1 = 0.f, s2 = 0.f;
-    for (int i = start; i < hidden; i += stride) {
-      float v[8], g[8], wv[8];
-      if (VEC) {
-        load8(xr + i, v); load8(dyr + i, g); load8(w + i, wv);
+      if (row + stride < (size_t)rows) load_pass(nx, ng, row + stride, 0);
+      float mean = 0.f, c1 = 0.f, rstd, c2;
+      if (rms) {
+        float s[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          float xc[C], gc[C], wc[C];
+          cx[j].to(xc);
+          cg[j].to(gc);
+          w_chunk(wc, col(0, j));
+#pragma unroll
+          for (int k = 0; k < C; ++k) {
+            s[0] += xc[k] * xc[k];
+            s[1] += wc[k] * gc[k] * xc[k];
+          }
+        }
+        group_sum(s, 2);
+        rstd = rsqrtf(s[0] * inv_n + eps);
+        c2 = rstd * (s[1] * inv_n);
       } else {
-        v[0] = to_f(xr[i]); g[0] = to_f(dyr[i]); wv[0] = to_f(w[i]);
+        float s[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          float xc[C];
+          cx[j].to(xc);
+#pragma unroll
+          for (int k = 0; k < C; ++k) s[0] += xc[k];
+        }
+        group_sum(s, 1);
+        mean = s[0] * inv_n;
+        s[0] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          float xc[C], gc[C], wc[C];
+          cx[j].to(xc);
+          cg[j].to(gc);
+          w_chunk(wc, col(0, j));
+          // a chunk past the row adds nothing (its x reads 0, not mean)
+          const float in = col(0, j) < hidden ? 1.f : 0.f;
+#pragma unroll
+          for (int k = 0; k < C; ++k) {
+            const float c = (xc[k] - mean) * in, wdy = wc[k] * gc[k];
+            s[0] += c * c;
+            s[1] += wdy;
+            s[2] += wdy * c;
+          }
+        }
+        group_sum(s, 3);
+        rstd = rsqrtf(s[0] * inv_n + eps);
+        c1 = s[1] * inv_n;
+        c2 = rstd * (s[2] * inv_n);
       }
 #pragma unroll
-      for (int j = 0; j < kStep; ++j) {
-        const float wdy = g[j] * wv[j];
-        s1 += wdy;
-        s2 += wdy * ((v[j] - mean) * rstd);
-      }
-    }
-    const float c1 = rms ? 0.f : block_sum(s1, sh) * inv_n;
-    const float c2 = block_sum(s2, sh) * inv_n;
-    for (int i = start; i < hidden; i += stride) {
-      float v[8], g[8], wv[8], o[8];
-      if (VEC) {
-        load8(xr + i, v); load8(dyr + i, g); load8(w + i, wv);
-      } else {
-        v[0] = to_f(xr[i]); g[0] = to_f(dyr[i]); wv[0] = to_f(w[i]);
-      }
+      for (int j = 0; j < NC; ++j) {
+        float xc[C], gc[C], wc[C], o[C];
+        cx[j].to(xc);
+        cg[j].to(gc);
+        w_chunk(wc, col(0, j));
 #pragma unroll
-      for (int j = 0; j < kStep; ++j) {
-        const float xhat = (v[j] - mean) * rstd;
-        o[j] = (g[j] * wv[j] - c1 - xhat * c2) * rstd;
-        dw_acc[i + j] += g[j] * xhat;
-        if (!rms) db_acc[i + j] += g[j];
+        for (int k = 0; k < C; ++k) {
+          const float xhat = (xc[k] - mean) * rstd;
+          o[k] = (gc[k] * wc[k] - c1 - xhat * c2) * rstd;
+          dwa[j * C + k] += gc[k] * xhat;
+          dba[j * C + k] += gc[k];
+        }
+        const int c = col(0, j);
+        if (c < hidden) store_c<TX, C>(dx + row * hidden + c, o);
       }
-      if (VEC) store8(dxr + i, o); else dxr[i] = from_f<TX>(o[0]);
     }
+    if constexpr (R == 1) {
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int c = col(0, j);
+        if (c < hidden)
+#pragma unroll
+          for (int k = 0; k < C; ++k) {
+            dw_part[(size_t)blockIdx.x * hidden + c + k] = dwa[j * C + k];
+            if (!rms) db_part[(size_t)blockIdx.x * hidden + c + k] =
+                dba[j * C + k];
+          }
+      }
+    } else {
+      // the block's R rows of sums through shared memory, in row order
+      constexpr int W = TG * E;
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int k = 0; k < C; ++k) {
+          const int lc = (j * TG + gt) * C + k;
+          sacc[group * W + lc] = dwa[j * C + k];
+          sacc[(R + group) * W + lc] = dba[j * C + k];
+        }
+      __syncthreads();
+      for (int i = threadIdx.x; i < hidden; i += kBlock) {
+        float a = 0.f, b = 0.f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          a += sacc[r * W + i];
+          b += sacc[(R + r) * W + i];
+        }
+        dw_part[(size_t)blockIdx.x * hidden + i] = a;
+        if (!rms) db_part[(size_t)blockIdx.x * hidden + i] = b;
+      }
+    }
+  } else {
+    // passes of TG * E columns; dw and db in shared memory, each thread
+    // reading and writing only its own columns
+    float* dwa = sacc;
+    float* dba = sacc + hidden;
+    const int npass = (hidden + TG * E - 1) / (TG * E);
+    for (int s = 0; s < npass; ++s)
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int c = col(s, j);
+        if (c < hidden)
+#pragma unroll
+          for (int k = 0; k < C; ++k) {
+            dwa[c + k] = 0.f;
+            if (!rms) dba[c + k] = 0.f;
+          }
+      }
+    for (size_t row = blockIdx.x; row < (size_t)rows; row += stride) {
+      float mean = 0.f;
+      if (!rms) {
+        float s1[1] = {0.f};
+        for (int s = 0; s < npass; ++s) {
+          load_pass(cx, cg, row, s);
+          unpack(cx, cg, xv, gv);
+#pragma unroll
+          for (int i = 0; i < E; ++i) s1[0] += xv[i];
+        }
+        group_sum(s1, 1);
+        mean = s1[0] * inv_n;
+      }
+      float sm[3] = {0.f, 0.f, 0.f};
+      for (int s = 0; s < npass; ++s) {
+        load_pass(cx, cg, row, s);
+        load_w(wv, s);
+        unpack(cx, cg, xv, gv);
+#pragma unroll
+        for (int i = 0; i < E; ++i) {
+          const float in = col(s, i / C) < hidden ? 1.f : 0.f;
+          const float c = (xv[i] - mean) * in, wdy = wv[i] * gv[i];
+          sm[0] += c * c;
+          sm[1] += wdy;
+          sm[2] += wdy * c;   // c = x for RMSNorm (mean 0)
+        }
+      }
+      group_sum(sm, 3);
+      const float rstd = rsqrtf(sm[0] * inv_n + eps);
+      const float c1 = rms ? 0.f : sm[1] * inv_n;
+      const float c2 = rstd * (sm[2] * inv_n);
+      for (int s = 0; s < npass; ++s) {
+        load_pass(cx, cg, row, s);
+        load_w(wv, s);
+        unpack(cx, cg, xv, gv);
+        float o[E];
+#pragma unroll
+        for (int i = 0; i < E; ++i) {
+          const float xhat = (xv[i] - mean) * rstd;
+          o[i] = (gv[i] * wv[i] - c1 - xhat * c2) * rstd;
+        }
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          const int c = col(s, j);
+          if (c < hidden) {
+            store_c<TX, C>(dx + row * hidden + c, o + j * C);
+#pragma unroll
+            for (int k = 0; k < C; ++k) {
+              const float g = gv[j * C + k];
+              dwa[c + k] += g * ((xv[j * C + k] - mean) * rstd);
+              if (!rms) dba[c + k] += g;
+            }
+          }
+        }
+      }
+    }
+    for (int s = 0; s < npass; ++s)
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int c = col(s, j);
+        if (c < hidden)
+#pragma unroll
+          for (int k = 0; k < C; ++k) {
+            dw_part[(size_t)blockIdx.x * hidden + c + k] = dwa[c + k];
+            if (!rms) db_part[(size_t)blockIdx.x * hidden + c + k] =
+                dba[c + k];
+          }
+      }
   }
-  for (int i = start; i < hidden; i += stride)
-#pragma unroll
-    for (int j = 0; j < kStep; ++j) {
-      dw_part[(size_t)blockIdx.x * hidden + i + j] = dw_acc[i + j];
-      if (!rms) db_part[(size_t)blockIdx.x * hidden + i + j] = db_acc[i + j];
-    }
 }
 
 // Column sums of the [nparts, hidden] partials: 32 columns per block,
@@ -316,25 +582,56 @@ ln_bwd_reduce_kernel(const float* __restrict__ dw_part,
   }
 }
 
-template <typename TX, typename TW>
-int launch_bwd(const void* x, const void* w, const void* dy, void* dx,
-               float* dw_part, float* db_part, int rows, int hidden,
-               int nblocks, float eps, int rms, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)hidden * (rms ? 1 : 2);
-  const uintptr_t bits = reinterpret_cast<uintptr_t>(x) |
-                         reinterpret_cast<uintptr_t>(w) |
-                         reinterpret_cast<uintptr_t>(dy) |
-                         reinterpret_cast<uintptr_t>(dx);
-  const bool vec = hidden % 8 == 0 && bits % 16 == 0;
-  auto kern = vec ? ln_bwd_kernel<TX, TW, true> : ln_bwd_kernel<TX, TW, false>;
+template <typename TX, typename TW, int TG, int E, int C, bool MULTI, int R>
+int launch_bwd_inst(const void* x, const void* w, const void* dy, void* dx,
+                    float* dw_part, float* db_part, int rows, int hidden,
+                    int nblocks, float eps, int rms, cudaStream_t stream) {
+  constexpr int kBlock = TG * R;
+  const size_t smem =
+      MULTI ? sizeof(float) * (size_t)hidden * (rms ? 1 : 2)
+            : (R > 1 ? sizeof(float) * 2 * R * TG * E : 0);
+  auto kern = ln_bwd_kernel<TX, TW, TG, E, C, MULTI, R>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<nblocks, kThreads, smem, stream>>>(
+  kern<<<nblocks, kBlock, smem, stream>>>(
       static_cast<const TX*>(x), static_cast<const TW*>(w),
       static_cast<const TX*>(dy), static_cast<TX*>(dx), dw_part, db_part,
       rows, hidden, eps, rms);
   return (int)cudaGetLastError();
+}
+
+// The instance the caller picked: (tg, e) for the row in registers
+// (hidden <= tg * e), multi for passes; vec: 16-byte chunks; r rows in
+// flight a block.
+template <typename TX, typename TW>
+int launch_bwd(const void* x, const void* w, const void* dy, void* dx,
+               float* dw_part, float* db_part, int rows, int hidden,
+               int nblocks, int tg, int e, int vec, int multi, int r,
+               float eps, int rms, cudaStream_t stream) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(w) |
+                         reinterpret_cast<uintptr_t>(dy) |
+                         reinterpret_cast<uintptr_t>(dx);
+  if (vec && (hidden % 8 || bits % 16)) return (int)cudaErrorInvalidValue;
+  if (!multi && hidden > tg * e) return (int)cudaErrorInvalidValue;
+#define APEX_LN_BWD(TG, E, C, M, R)                                     \
+  if (tg == TG && e == E && (vec ? 8 : 1) == C && (multi != 0) == M &&  \
+      r == R)                                                           \
+    return launch_bwd_inst<TX, TW, TG, E, C, M, R>(                   \
+        x, w, dy, dx, dw_part, db_part, rows, hidden, nblocks, eps, rms, \
+        stream);
+  APEX_LN_BWD(32, 8, 8, false, 8)
+  APEX_LN_BWD(32, 16, 8, false, 8)
+  APEX_LN_BWD(256, 8, 8, false, 2)
+  APEX_LN_BWD(256, 16, 8, false, 2)
+  APEX_LN_BWD(512, 8, 8, false, 1)
+  APEX_LN_BWD(512, 16, 8, false, 1)
+  APEX_LN_BWD(256, 8, 8, true, 1)
+  APEX_LN_BWD(256, 8, 1, false, 1)
+  APEX_LN_BWD(256, 8, 1, true, 1)
+#undef APEX_LN_BWD
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -364,10 +661,15 @@ extern "C" int apex_layer_norm_fwd(const void* x, const void* w,
 // x, dy, dx [rows, hidden] in x's dtype; w [hidden]; dw_part (and, for
 // LayerNorm, db_part) [nblocks, hidden] fp32 scratch; dw (and db)
 // [hidden] fp32 outputs.  For RMSNorm (rms = 1) db_part and db are null.
+// (tg, e, vec, multi, r) name the kernel's instance: tg threads a row,
+// e elements a thread per pass, in 16-byte chunks (vec: hidden % 8 == 0
+// and 16-byte aligned operands) or one at a time; without multi the
+// row is one pass (hidden <= tg * e); r rows in flight a block.
 extern "C" int apex_layer_norm_bwd(const void* x, const void* w,
                                    const void* dy, void* dx, void* dw_part,
                                    void* db_part, void* dw, void* db,
-                                   int rows, int hidden, int nblocks,
+                                   int rows, int hidden, int nblocks, int tg,
+                                   int e, int vec, int multi, int r,
                                    float eps, int rms, int x_dtype,
                                    int w_dtype, void* stream) {
   cudaGetLastError();
@@ -380,16 +682,20 @@ extern "C" int apex_layer_norm_bwd(const void* x, const void* w,
   int err;
   if (x_dtype == 1 && w_dtype == 1)
     err = launch_bwd<__nv_bfloat16, __nv_bfloat16>(
-        x, w, dy, dx, dwp, dbp, rows, hidden, nblocks, eps, rms, s);
+        x, w, dy, dx, dwp, dbp, rows, hidden, nblocks, tg, e, vec, multi, r,
+        eps, rms, s);
   else if (x_dtype == 1 && w_dtype == 0)
     err = launch_bwd<__nv_bfloat16, float>(
-        x, w, dy, dx, dwp, dbp, rows, hidden, nblocks, eps, rms, s);
+        x, w, dy, dx, dwp, dbp, rows, hidden, nblocks, tg, e, vec, multi, r,
+        eps, rms, s);
   else if (x_dtype == 0 && w_dtype == 1)
     err = launch_bwd<float, __nv_bfloat16>(
-        x, w, dy, dx, dwp, dbp, rows, hidden, nblocks, eps, rms, s);
+        x, w, dy, dx, dwp, dbp, rows, hidden, nblocks, tg, e, vec, multi, r,
+        eps, rms, s);
   else if (x_dtype == 0 && w_dtype == 0)
     err = launch_bwd<float, float>(
-        x, w, dy, dx, dwp, dbp, rows, hidden, nblocks, eps, rms, s);
+        x, w, dy, dx, dwp, dbp, rows, hidden, nblocks, tg, e, vec, multi, r,
+        eps, rms, s);
   else
     return (int)cudaErrorInvalidValue;
   if (err) return err;

@@ -83,10 +83,9 @@ _LP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     # x, w, b, y, rows, hidden, eps, rms, x_dtype, w_dtype, stream
     "apex_layer_norm_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
-    # x, w, dy, dx, dw_part, db_part, dw, db, rows, hidden, nblocks, eps,
-    # rms, x_dtype, w_dtype, stream
-    "apex_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                            _I, _I, _I, _P],
+    # x, w, dy, dx, dw_part, db_part, dw, db, rows, hidden, nblocks, tg,
+    # e, vec, multi, r, eps, rms, x_dtype, w_dtype, stream
+    "apex_layer_norm_bwd": [_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _P],
     # q, k, v, o, lse, bh, sq, sk, d, causal, off, valid_q, valid_k,
     # scale_log2, stream
     "apex_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -102,10 +101,10 @@ _SIGNATURES = {
     # valid_q, valid_k, scale_log2, scale, stream
     "apex_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _F, _P],
     # q, k_pages, v_pages, page_table, lengths, out, part_acc, part_ml,
-    # slots, h, kvh, ps, d, mpps, page_stride, nsplit, split_tokens,
-    # scale_log2, stream
-    "apex_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _I, _L, _I, _I, _F, _P],
+    # counters, slots, h, kvh, ps, d, mpps, pages, page_stride, nsplit,
+    # pages_per_split, scale_log2, stream
+    "apex_paged_decode_attention": [_P] * 9 + [_I] * 6 + [_L, _L, _I, _I,
+                                                           _F, _P],
     # x, out, scale, flag, n, x_dtype, out_dtype, stream
     "apex_fused_scale": [_P, _P, _P, _P, _L, _I, _I, _P],
     # x, y, out, ab, flag, n, x_dtype, y_dtype, out_dtype, stream

@@ -31,8 +31,9 @@ and the tensor-parallel ``partial_out`` variant are later slices.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,12 +45,81 @@ __all__ = ["paged_decode_attention", "paged_decode_reference",
            "decode_fusion", "fusion_min_pages", "resolve_decode_fusion",
            "fused_block_decode", "fused_block_reference"]
 
-#: query rows per kv head and head dims the kernel is instantiated for
+#: query rows per kv head, head dims and page sizes the kernel is
+#: instantiated for
 _KERNEL_GROUPS = (1, 2, 4, 8)
 _KERNEL_HEAD_DIMS = (64, 128)
-#: virtual-window positions per block (a multiple of the kernel's
-#: 64-token chunk): a 4096-token window runs as 16 splits
-_SPLIT_TOKENS = 256
+_KERNEL_PAGE_SIZES = (16, 32, 64)
+#: the fewest window positions a split covers: a shorter split ends
+#: before the kernel's ring of pages fills
+_MIN_SPLIT_TOKENS = 512
+#: blocks per SM the split plan aims for when every window is full (at
+#: page 64 and head dim 128 a block's 128 KB ring leaves no room for a
+#: second)
+_BLOCKS_PER_SM = 1
+#: the most splits a window runs as (the merging block holds each
+#: split's weights in shared memory)
+_MAX_SPLITS = 256
+
+
+class SplitPlan(NamedTuple):
+    """How one call runs the window: ``nsplit`` splits of
+    ``pages_per_split`` whole pages, one block per (split, kv head,
+    slot); with more than one split, fp32 partials of the shapes given
+    and one merge counter per (slot, kv head)."""
+    pages_per_split: int
+    nsplit: int
+    grid: Tuple[int, int, int]
+    part_acc: Optional[Tuple[int, int, int]]
+    part_ml: Optional[Tuple[int, int, int]]
+    counters: int
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_splits(slots: int, kvh: int, group: int, d: int, ps: int,
+                 mpps: int, sms: int) -> SplitPlan:
+    """Split the window over blocks from what the host knows (window,
+    slots, kv heads, group, head dim, SM count): enough splits that the
+    (slot, kv head) pairs fill ``_BLOCKS_PER_SM`` blocks an SM if every
+    window were full, none shorter than ``_MIN_SPLIT_TOKENS``.  The
+    lengths live on the device and are not read (reading them would
+    put a sync into every decode step); the kernel skips what is past
+    each slot's length."""
+    if min(slots, kvh, group, d, ps, mpps, sms) < 1:
+        raise ValueError("the split plan needs positive sizes")
+    want = -(-(_BLOCKS_PER_SM * sms) // (slots * kvh))
+    pps = max(-(-_MIN_SPLIT_TOKENS // ps), -(-mpps // want),
+              -(-mpps // _MAX_SPLITS))
+    pps = min(pps, mpps)
+    nsplit = -(-mpps // pps)
+    rows = slots * kvh * group
+    many = nsplit > 1
+    return SplitPlan(pps, nsplit, (nsplit, kvh, slots),
+                     (rows, nsplit, d) if many else None,
+                     (rows, nsplit, 2) if many else None,
+                     slots * kvh if many else 0)
+
+
+#: per device: the SM count, and the merge counters (zero between
+#: launches: the kernel's merging block resets its own; calls on one
+#: device share them, so two calls must not run at once on two streams)
+_SMS: dict = {}
+_COUNTERS: dict = {}
+
+
+def _sm_count(device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
+def _counters(device, n: int):
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
 
 
 def _check_operands(q3, k_pages, v_pages, page_table, lengths):
@@ -128,34 +198,40 @@ def _kernel_call(q3, k_pages, v_pages, page_table, lengths, scale):
             f"got k {k_pages.stride()} v {v_pages.stride()}")
     if slots > 65535:
         raise ValueError(f"{slots} slots exceed the kernel grid (65535)")
-    if h // kvh not in _KERNEL_GROUPS or d not in _KERNEL_HEAD_DIMS:
+    if h // kvh not in _KERNEL_GROUPS or d not in _KERNEL_HEAD_DIMS \
+            or ps not in _KERNEL_PAGE_SIZES:
         raise ValueError(
             f"paged attention kernel takes group (h / kv_heads) in "
-            f"{_KERNEL_GROUPS} and head_dim in {_KERNEL_HEAD_DIMS}, got "
-            f"group {h // kvh}, head_dim {d}")
+            f"{_KERNEL_GROUPS}, head_dim in {_KERNEL_HEAD_DIMS} and "
+            f"page_size in {_KERNEL_PAGE_SIZES}, got group {h // kvh}, "
+            f"head_dim {d}, page_size {ps}")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16 \
             or k_pages.stride(0) % 8:
         raise ValueError("k/v pages must be 16-byte aligned with a page "
                          "stride that is a multiple of 8 elements")
-    # split the virtual window over blocks (flash-decoding); the splits'
-    # partial softmax states merge in a second, small kernel
-    nsplit = -(-(mpps * ps) // _SPLIT_TOKENS)
+    if mpps == 0:
+        raise ValueError("page_table has no columns: the window is empty")
+    # split the window over blocks (flash-decoding); the last block of
+    # each (slot, kv head) to finish merges its splits' partial states
+    plan = _plan_splits(slots, kvh, h // kvh, d, ps, mpps,
+                        _sm_count(q3.device))
     out = torch.empty_like(q3)
-    part_acc = part_ml = None
-    if nsplit > 1:
-        part_acc = torch.empty((slots * h, nsplit, d), dtype=torch.float32,
-                               device=q3.device)
-        part_ml = torch.empty((slots * h, nsplit, 2), dtype=torch.float32,
-                              device=q3.device)
+    f32 = dict(dtype=torch.float32, device=q3.device)
+    part_acc = torch.empty(plan.part_acc, **f32) if plan.part_acc else None
+    part_ml = torch.empty(plan.part_ml, **f32) if plan.part_ml else None
+    counters = _counters(q3.device, plan.counters) if plan.counters \
+        else None
     lib = _build.library()
     _build.count("paged_attention")
     err = lib.apex_paged_decode_attention(
         q3.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         part_acc.data_ptr() if part_acc is not None else None,
-        part_ml.data_ptr() if part_ml is not None else None, slots, h, kvh,
-        ps, d, mpps, k_pages.stride(0), nsplit, _SPLIT_TOKENS,
-        float(scale * _LOG2E), _build.stream_ptr(q3.device))
+        part_ml.data_ptr() if part_ml is not None else None,
+        counters.data_ptr() if counters is not None else None, slots, h,
+        kvh, ps, d, mpps, k_pages.shape[0], k_pages.stride(0), plan.nsplit,
+        plan.pages_per_split, float(scale * _LOG2E),
+        _build.stream_ptr(q3.device))
     _build.check(err, "paged_attention")
     return out
 

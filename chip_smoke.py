@@ -94,9 +94,13 @@
 8. **A/B** (``--phases ab --baseline DIR``, not in the default run).
    Another version's kernels (``DIR/apex_tpu_torch/csrc``) built into a
    library of their own beside this tree's and swapped in turn, A B B A
-   in one process: the flash rows (#3 at 128, 2048 and 8192, #4 at 2048,
-   #5 and #6 at 8192) and the 4-layer Adam steps at 2048 and 8192
-   tokens.
+   in one process, with that version's paged-decode and norm-backward
+   wrappers while its library is in: the flash rows (#3 at 128, 2048
+   and 8192, #4 at 2048, #5 and #6 at 8192), paged decode #7 at the
+   kernels phase's lengths and at the serve's, the norm backward #2 at
+   ``[2048, 4096]`` (RMSNorm and LayerNorm), the unfused 8-slot decode
+   step and the 4-layer Adam steps at 2048 and 8192 tokens
+   (``--ab-rows`` picks among flash, paged, norm and steps).
 9. **Shim.**  One backward of the 1-layer model, then
    ``multi_tensor_applier`` with each of its four ops over the model's
    real grad list (11 leaves, bf16 and fp32), one kernel launch a call,
@@ -120,6 +124,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -578,11 +583,17 @@ def phase_kernels(dev, gen):
     got = pa.paged_decode_attention(qd, kp, vp, table, lengths)
     ref = pa.paged_decode_reference(qd, kp, vp, table, lengths, scale)
     err = (got.float() - ref.float()).abs().max().item()
+    plan = pa._plan_splits(slots, kvh, h // kvh, d, ps, mpps,
+                           pa._sm_count(qd.device))
     print("paged_decode_attention 8 slots, lengths "
-          f"{lengths_l}, page 64, pool [513, 32, 8, 64, 128] bf16")
+          f"{lengths_l}, page 64, pool [513, 32, 8, 64, 128] bf16 (splits "
+          f"of {plan.pages_per_split} pages, {plan.nsplit} a window)")
     _check("paged out", err, TOL_PAGED_OUT)
     if got[0].abs().max().item() != 0.0:
         raise AssertionError("a length-0 slot must emit zeros")
+    if not torch.equal(got, pa.paged_decode_attention(qd, kp, vp, table,
+                                                      lengths)):
+        raise AssertionError("paged decode did not repeat bit for bit")
     # a window of one split (8 pages): the kernel writes its output
     # without the merge pass
     short_len = torch.clamp(lengths, max=8 * ps)
@@ -838,6 +849,10 @@ def _train_kernels(dev, gen, recs):
            .item())
     _check("rms_norm bwd dw", (dw - rdw).abs().max().item(),
            TOL_NORM_DW_REL * rdw.abs().max().item())
+    dx2, dw2, _ = ln._bwd_2d(x, w, dy, 1e-5, True)
+    if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+        raise AssertionError("the norm backward did not repeat bit for bit")
+    del dx2, dw2
     b = 0.1 * torch.randn(hidden, generator=gen, device=dev)
     got, ref = ln._bwd_2d(x, w, dy, 1e-5, False), \
         ln._bwd_reference(x, w, dy, 1e-5, False)
@@ -862,6 +877,9 @@ def _train_kernels(dev, gen, recs):
                           10),
         bound_ms=bound, bound_by=by, library_ms=lib_fb - lib_f,
         eager_ms=_eager_ms(lambda: ln._bwd_2d(x, w, dy, 1e-5, True), 50))
+    # where the row's time goes: the row kernel and the partials' reduce
+    _device_breakdown("rms_norm backward [2048, 4096] (_bwd_2d)",
+                      lambda: ln._bwd_2d(x, w, dy, 1e-5, True), 20, top=3)
     del x, dy, w, dx, dw, rdx, rdw, xr, wr
 
     # -- flash backward, causal [1, 32, 2048, 128], kv from 8 heads -------
@@ -2138,64 +2156,122 @@ def phase_rule_check(dev, seed: int):
     return worst_all
 
 
-def _library_of(csrc: Path, build_dir: Path):
+def _library_of(csrc: Path, build_dir: Path, signatures=None):
     """The kernel library built from another copy of the kernel sources
-    (``csrc``) into ``build_dir``; the current library is left as it
-    was."""
+    (``csrc``) into ``build_dir``, its entries typed by ``signatures``
+    (that copy's ``_build._SIGNATURES``); the current library is left as
+    it was."""
     from apex_tpu_torch.ops import _build
     saved = (_build.CSRC, _build.BUILD_DIR, _build._LIB)
     _build.CSRC, _build.BUILD_DIR, _build._LIB = csrc, build_dir, None
     try:
-        return _build.library()
+        lib = _build.library()
     finally:
         _build.CSRC, _build.BUILD_DIR, _build._LIB = saved
+    for name, argtypes in (signatures or {}).items():
+        getattr(lib, name).argtypes = argtypes
+    return lib
 
 
-def _ab(libs, fn, turns: str = "ABBA"):
-    """``fn()`` (a time) with each library in turn, A B B A; the mean
-    of each library's two turns."""
+def _baseline_module(baseline: Path, name: str):
+    """``apex_tpu_torch/ops/<name>.py`` of another checkout, loaded under
+    a name of its own (it imports the rest from this tree's package)."""
+    import importlib.util
+    path = baseline / "apex_tpu_torch" / "ops" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_ab_baseline_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _Version(NamedTuple):
+    """One side of an A/B: its kernel library and the wrapper functions
+    it swaps into this tree's modules (``(module, name, function)``:
+    the wrappers whose C entries differ between the versions)."""
+    lib: object
+    patches: tuple = ()
+
+
+@contextlib.contextmanager
+def _as_version(version: _Version):
     from apex_tpu_torch.ops import _build
+    saved = [(m, n, getattr(m, n)) for m, n, _ in version.patches]
     own = _build._LIB
-    got = {"A": [], "B": []}
+    _build._LIB = version.lib
+    for m, n, f in version.patches:
+        setattr(m, n, f)
     try:
-        for turn in turns:
-            _build._LIB = libs[turn]
-            got[turn].append(fn())
+        yield
     finally:
         _build._LIB = own
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def _ab(versions, fn, turns: str = "ABBA"):
+    """``fn()`` (a time) under each version in turn, A B B A; the mean
+    of each version's two turns."""
+    got = {"A": [], "B": []}
+    for turn in turns:
+        with _as_version(versions[turn]):
+            got[turn].append(fn())
     return {t: float(np.mean(v)) for t, v in got.items()}, got
 
 
-def phase_ab(dev, seed: int, baseline: Path):
-    """A/B of the flash kernels against another version of the kernel
-    sources (``baseline``, the root of a checkout holding
-    ``apex_tpu_torch/csrc``), in one process on one card: each version
-    built into a library of its own and swapped in turn, A (baseline)
-    B (this tree) B A.  Times #3 (the forward, ``_fwd``) at causal
-    [1, 32, 128, 128], [1, 32, 2048, 128] and [1, 32, 8192, 128], #4
-    (``_bwd``, the row's time: delta, dq scratch, kernel, cast) at
-    2048, #5 (the split dq kernel) and #6 (the split dk/dv kernel) at
-    8192, the two versions' outputs first held against each other, then
-    three 4-layer Adam steps a turn at 2048 and at 8192 tokens (median a
-    turn)."""
+def _turns(each):
+    return [round(x, 5) for x in each["A"][:1] + each["B"] + each["A"][1:]]
+
+
+AB_ROWS = ("flash", "paged", "norm", "steps")
+
+
+def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
+    """A/B of the kernels against another version of the kernel sources
+    (``baseline``, the root of a checkout holding ``apex_tpu_torch``), in
+    one process on one card: each version built into a library of its
+    own and swapped in turn, A (baseline) B (this tree) B A, with the
+    baseline's paged-decode and norm-backward wrappers while its
+    library is in (their C entries changed in this tree).  ``rows``:
+    ``flash`` times #3 (the forward, ``_fwd``) at causal [1, 32, 128,
+    128], [1, 32, 2048, 128] and [1, 32, 8192, 128], #4 (``_bwd``, the
+    row's time: delta, dq scratch, kernel, cast) at 2048, #5 (the split
+    dq kernel) and #6 (the split dk/dv kernel) at 8192; ``paged`` #7 at
+    the kernels phase's lengths and at the serve's (8 slots, window
+    4096, lengths 160..2080); ``norm`` #2 at [2048, 4096] bf16 with an
+    fp32 weight, RMSNorm and LayerNorm; ``steps`` the unfused 8-slot
+    Llama-3-8B decode step (median of 8 a turn) and three 4-layer Adam
+    steps a turn at 2048 and at 8192 tokens (median a turn).  Each
+    row's two versions are held against each other (and, for #7 and
+    #2, against the plain version) before they are timed."""
     from apex_tpu_torch.ops import _build
     attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    ln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
     t0 = time.perf_counter()
-    libs = {"A": _library_of(baseline / "apex_tpu_torch" / "csrc",
-                             _build.BUILD_DIR.parent / "ab_baseline"),
-            "B": _build.library()}
+    base_pa = _baseline_module(baseline, "paged_attention")
+    base_ln = _baseline_module(baseline, "layer_norm")
+    versions = {
+        "A": _Version(
+            _library_of(baseline / "apex_tpu_torch" / "csrc",
+                        _build.BUILD_DIR.parent / "ab_baseline",
+                        _baseline_module(baseline, "_build")._SIGNATURES),
+            ((pa, "_kernel_call", base_pa._kernel_call),
+             (ln, "_bwd_2d", base_ln._bwd_2d))),
+        "B": _Version(_build.library())}
     print(f"ab: baseline {baseline} built in "
           f"{time.perf_counter() - t0:.1f} s; A = baseline, B = this tree, "
           f"on {_smi()}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 7)
     bf = torch.bfloat16
-    for s, name in ((128, "flash_attention"),
-                    (TRAIN_SEQ, "flash_attention"),
-                    (SPLIT_SEQ, "flash_attention"),
-                    (TRAIN_SEQ, "flash_attention_bwd"),
-                    (SPLIT_SEQ, "flash_attention_bwd_dq"),
-                    (SPLIT_SEQ, "flash_attention_bwd_dkv")):
+    flash_rows = ((128, "flash_attention"),
+                  (TRAIN_SEQ, "flash_attention"),
+                  (SPLIT_SEQ, "flash_attention"),
+                  (TRAIN_SEQ, "flash_attention_bwd"),
+                  (SPLIT_SEQ, "flash_attention_bwd_dq"),
+                  (SPLIT_SEQ, "flash_attention_bwd_dkv"))
+    for s, name in flash_rows if "flash" in rows else ():
         h, d = 32, 128
         q3, k3, v3, do3 = (torch.randn(h, s, d, generator=gen, device=dev)
                            .to(bf) for _ in range(4))
@@ -2216,9 +2292,8 @@ def phase_ab(dev, seed: int, baseline: Path):
         # order)
         got = {}
         for turn in "AB":
-            _build._LIB = libs[turn]
-            got[turn] = call()
-        _build._LIB = libs["B"]
+            with _as_version(versions[turn]):
+                got[turn] = call()
         torch.cuda.synchronize()
         if name == "flash_attention":
             err = [(got["A"][0].float() - got["B"][0].float()).abs().max()
@@ -2239,12 +2314,18 @@ def phase_ab(dev, seed: int, baseline: Path):
                                      f"versions")
         del got
         iters = {128: 48, TRAIN_SEQ: 10}.get(s, 4)
-        mean, each = _ab(libs, lambda: _time_ms(call, iters))
+        mean, each = _ab(versions, lambda: _time_ms(call, iters))
         print(f"  {name} causal [1, {h}, {s}, {d}]: A {mean['A']:.4f} ms, "
-              f"B {mean['B']:.4f} ms (turns A B B A: "
-              f"{[round(x, 4) for x in each['A'][:1] + each['B'] + each['A'][1:]]})")
+              f"B {mean['B']:.4f} ms (turns A B B A: {_turns(each)})")
         del q3, k3, v3, do3, out, lse, delta, call
         torch.cuda.empty_cache()
+    if "paged" in rows:
+        _ab_paged(dev, gen, versions)
+    if "norm" in rows:
+        _ab_norm(dev, gen, versions)
+    if "steps" not in rows:
+        return
+    _ab_decode_step(dev, seed, versions)
     for seq in (TRAIN_SEQ, SPLIT_SEQ):
         cfg, model, tx, state, batch, train_step = _train_setup(
             dev, seed, TRAIN_LAYERS, None, "dynamic", seq)
@@ -2262,12 +2343,195 @@ def phase_ab(dev, seed: int, baseline: Path):
                 times.append(time.perf_counter() - t1)
             return float(np.median(times))
 
-        mean, each = _ab(libs, steps)
+        mean, each = _ab(versions, steps)
         print(f"  adam step, {TRAIN_LAYERS} layers, {seq} tokens: A "
               f"{mean['A']:.4f} s, B {mean['B']:.4f} s (turns A B B A: "
-              f"{[round(x, 4) for x in each['A'][:1] + each['B'] + each['A'][1:]]})")
+              f"{_turns(each)})")
         del model, box, step, batch
         torch.cuda.empty_cache()
+
+
+def _paged_table(dev, gen, lengths_l, ps: int, mpps: int):
+    """A page table for the lengths over a pool of ``len(lengths) *
+    mpps`` pages (and the trash page after them), pages shuffled."""
+    slots = len(lengths_l)
+    n_pages = slots * mpps
+    perm = torch.randperm(n_pages, generator=gen, device=dev).to(torch.int32)
+    table = torch.full((slots, mpps), n_pages, dtype=torch.int32, device=dev)
+    cursor = 0
+    for i, n in enumerate(lengths_l):
+        need = min(-(-n // ps), mpps)
+        table[i, :need] = perm[cursor:cursor + need]
+        cursor += need
+    return table, torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+
+
+def _ab_paged(dev, gen, versions):
+    """#7 A/B: 8 slots of a 32-layer pool (page 64, window 4096), timed
+    over 4 layers in turn as the kernels phase times it, at the kernels
+    phase's lengths and at the serve's (each prompt plus its 32 new
+    tokens)."""
+    pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    bf = torch.bfloat16
+    slots, layers, h, kvh, ps, mpps, d = 8, 32, 32, 8, 64, 64, 128
+    scale = d ** -0.5
+    shape = (slots * mpps + 1, layers, kvh, ps, d)
+    pool_k = torch.randn(shape, generator=gen, device=dev).to(bf)
+    pool_v = torch.randn(shape, generator=gen, device=dev).to(bf)
+    qd = torch.randn(slots, h, d, generator=gen, device=dev).to(bf)
+    views = [(pool_k[:, i], pool_v[:, i]) for i in range(4)]
+    for label, lengths_l in (
+            ("kernels-phase lengths", [0, 1, 64, 65, 1500, 2048, 3000,
+                                       4096]),
+            ("serve lengths", [n + NEW_TOKENS for n in PROMPT_LENS])):
+        table, lengths = _paged_table(dev, gen, lengths_l, ps, mpps)
+
+        def call(kp, vp):
+            return pa.paged_decode_attention(qd, kp, vp, table, lengths)
+
+        got = {}
+        for turn in "AB":
+            with _as_version(versions[turn]):
+                got[turn] = call(*views[0])
+        ref = pa.paged_decode_reference(qd, *views[0], table, lengths, scale)
+        errs = [(got[t].float() - ref.float()).abs().max().item()
+                for t in "AB"]
+        ab_err = (got["A"].float() - got["B"].float()).abs().max().item()
+        print(f"  paged_decode_attention 8 slots, {label} {lengths_l}: "
+              f"against the plain version max|diff| A {errs[0]:.3e}, "
+              f"B {errs[1]:.3e}; B against A {ab_err:.3e}")
+        if max(errs) > TOL_PAGED_OUT:
+            raise AssertionError(f"ab: paged decode ({label}) is off its "
+                                 f"plain version")
+        live = sum(lengths_l)
+        bound, by = _bound(live * kvh * d * 2 * 2 + 2 * qd.numel() * 2
+                           + table.numel() * 4 + slots * 4,
+                           4 * live * h * d)
+        cyc = itertools.cycle(views)
+        mean, each = _ab(versions, lambda: _time_ms(
+            lambda: call(*next(cyc)), 48))
+        print(f"  paged_decode_attention 8 slots, {label}: A "
+              f"{mean['A']:.5f} ms, B {mean['B']:.5f} ms, bound "
+              f"{bound:.5f} ms ({by}) (turns A B B A: {_turns(each)})")
+        # the wrapper's host cost with it: eager calls, as a decode step
+        # makes them
+        mean, each = _ab(versions, lambda: _eager_ms(
+            lambda: call(*next(cyc)), 50))
+        print(f"  paged_decode_attention 8 slots, {label}, eager calls "
+              f"(host included): A {mean['A']:.5f} ms, B {mean['B']:.5f} "
+              f"ms (turns A B B A: {_turns(each)})")
+    del pool_k, pool_v, views
+    torch.cuda.empty_cache()
+
+
+def _ab_norm(dev, gen, versions):
+    """#2 A/B at [2048, 4096] bf16 with an fp32 weight, RMSNorm and
+    LayerNorm: one input timed again and again (as the kernels phase
+    times it; x and dy, 33.5 MB, stay in the 50 MB L2) and three inputs
+    in turn (100 MB, read from device memory as a training step
+    does)."""
+    ln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
+    rows, hidden = TRAIN_SEQ, 4096
+    ins = [(torch.randn(rows, hidden, generator=gen, device=dev)
+            .to(torch.bfloat16),
+            torch.randn(rows, hidden, generator=gen, device=dev)
+            .to(torch.bfloat16)) for _ in range(3)]
+    w = 1 + 0.1 * torch.randn(hidden, generator=gen, device=dev)
+    bound, by = _bound(3 * rows * hidden * 2 + 2 * hidden * 4,
+                       10 * rows * hidden, FP32_FLOPS_PER_S)
+    for rms in (True, False):
+        label = "rms_norm" if rms else "layer_norm"
+        x, dy = ins[0]
+        got = {}
+        for turn in "AB":
+            with _as_version(versions[turn]):
+                got[turn] = ln._bwd_2d(x, w, dy, 1e-5, rms)
+        ref = ln._bwd_reference(x, w, dy, 1e-5, rms)
+        for t in "AB":
+            dx, dw, db = got[t]
+            errs = [(dx.float() - ref[0].float()).abs().max().item()
+                    / ref[0].float().abs().max().item(),
+                    (dw - ref[1]).abs().max().item()
+                    / ref[1].abs().max().item()]
+            if not rms:
+                errs.append((db - ref[2]).abs().max().item()
+                            / ref[2].abs().max().item())
+            print(f"  {label} bwd [2048, 4096] {t}: against the plain "
+                  f"version max|diff| / max|ref| dx, dw(, db) "
+                  f"{[f'{e:.3e}' for e in errs]}")
+            if errs[0] > TOL_RMS_REL or max(errs[1:]) > TOL_NORM_DW_REL:
+                raise AssertionError(f"ab: {label} bwd ({t}) is off its "
+                                     f"plain version")
+        del got
+        for how, fn in (
+                ("one input", lambda: ln._bwd_2d(x, w, dy, 1e-5, rms)),
+                ("3 inputs in turn", lambda: ln._bwd_2d(
+                    *next(cyc_in), 1e-5, rms))):
+            cyc_in = itertools.cycle([(a, w, b) for a, b in ins])
+            mean, each = _ab(versions, lambda: _time_ms(fn, 48))
+            print(f"  {label} bwd [2048, 4096] bf16, fp32 weight, {how}: A "
+                  f"{mean['A']:.5f} ms, B {mean['B']:.5f} ms, bound "
+                  f"{bound:.5f} ms ({by}) (turns A B B A: {_turns(each)})")
+    del ins
+    torch.cuda.empty_cache()
+
+
+def _ab_decode_step(dev, seed: int, versions):
+    """The unfused 8-slot Llama-3-8B decode step (32 layers, the serve's
+    prompts prefilled once), eight steps a turn, turns A B B A A B B A,
+    the mean of a version's turn medians; each version's step must
+    launch #7 once per layer."""
+    from apex_tpu_torch.inference import InferenceEngine
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.transformer.testing import LlamaConfig
+    cfg = LlamaConfig(**FULL_CFG)
+    engine = InferenceEngine("llama", cfg, _random_llama(cfg, dev, seed),
+                             slots=8, max_seq=4096, page_size=64,
+                             num_pages=512, device=dev)
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
+               for n in PROMPT_LENS]
+    cache = engine.init_cache()
+    alloc = engine.new_allocator()
+    last = np.zeros((engine.slots,), np.int32)
+    for slot, p in enumerate(prompts):
+        pages = alloc.acquire(alloc.pages_needed(len(p) + 128))
+        cache, tok, _ = engine.prefill(cache, p, slot, pages=pages)
+        last[slot] = int(tok)
+    state = {"cache": cache, "last": last}
+
+    def step():
+        c, nxt, _, _ = engine.decode(state["cache"], state["last"])
+        state["cache"], state["last"] = c, nxt.numpy()
+
+    for turn in "AB":
+        with _as_version(versions[turn]):
+            _build.reset_launch_counts()
+            step()
+            n = _build.launch_counts()["paged_attention"]
+            for _ in range(4):              # warm-up off the clock
+                step()
+        if n != cfg.num_layers:
+            raise AssertionError(f"ab: the decode step ({turn}) launched "
+                                 f"paged attention {n} times")
+
+    def steps():
+        times = []
+        for _ in range(8):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        return float(np.median(times)) * 1e3
+
+    # the step is host-bound and its host time drifts: two rounds of
+    # turns, each turn's median
+    mean, each = _ab(versions, steps, "ABBAABBA")
+    print(f"  unfused decode step, 8 slots, Llama-3-8B: A {mean['A']:.3f} "
+          f"ms, B {mean['B']:.3f} ms (medians of 8 steps a turn, A {[round(x, 3) for x in each['A']]}, B {[round(x, 3) for x in each['B']]})")
+    del engine, state, cache
+    torch.cuda.empty_cache()
 
 
 def _device_breakdown(label, fn, reps: int, top: int = 10):
@@ -2340,8 +2604,11 @@ def main(argv=None) -> int:
                          "run)")
     ap.add_argument("--baseline", type=Path, default=None,
                     help="root of a checkout of another version: with the "
-                         "ab phase, time the flash backward and the Adam "
-                         "steps of both, A/B in this process")
+                         "ab phase, time its kernels and this tree's, A/B "
+                         "in this process")
+    ap.add_argument("--ab-rows", default=",".join(AB_ROWS),
+                    help=f"comma list of the ab phase's rows, of "
+                         f"{', '.join(AB_ROWS)}")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2378,7 +2645,8 @@ def main(argv=None) -> int:
     if "ab" in phases:
         if args.baseline is None:
             raise SystemExit("the ab phase needs --baseline")
-        phase_ab(dev, args.seed, args.baseline.resolve())
+        phase_ab(dev, args.seed, args.baseline.resolve(),
+                 tuple(args.ab_rows.split(",")))
     if "shim" in phases:
         shim = phase_shim(dev, args.seed)
         for key in SHIM_KERNELS:

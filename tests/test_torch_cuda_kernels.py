@@ -6,7 +6,11 @@ backward, odd flat lengths and offset views for the unscale, Adam, the
 L2 norm, LAMB's phase 1, SGD and Adagrad, the L2 norm's run-to-run
 repeatability, the LAMB rule against its plain route, axpby and the
 fused scale and norm with the ``multi_tensor_applier`` shim over them,
-the split flash backward's two kernels and its route, the flash forward
+the split flash backward's two kernels and its route, paged decode over
+every query group, head dim and page size with lengths on and across
+page and split edges, 8192-position windows and 1 to 256 slots (two
+calls the same bits), the norm backward on both sides of its
+register/multi-pass line, the flash forward
 and all three flash backward kernels at lengths and windows that cut
 their tiles (causal rows that see no key among them), the
 fused decode block's query groups, head dims, edge lengths, slot
@@ -177,6 +181,90 @@ def test_paged_kernel_matches_plain(cuda, group, d, ps):
     assert bool((got[0] == 0).all())
 
 
+def _paged_case(cuda, lengths, group, d, ps, mpps, kvh=2, seed=30):
+    """A pool holding only the live pages (and a trash page) for the
+    given lengths, one layer of two read through a strided view; q."""
+    slots = len(lengths)
+    need = [min(-(-max(n, 0) // ps), mpps) for n in lengths]
+    n_pages = sum(need)
+    pool_k = _randn((n_pages + 1, 2, kvh, ps, d), seed, cuda)
+    pool_v = _randn((n_pages + 1, 2, kvh, ps, d), seed + 1, cuda)
+    perm = np.random.RandomState(seed + 2).permutation(n_pages)
+    table = np.full((slots, mpps), n_pages, np.int32)
+    cursor = 0
+    for s, n in enumerate(need):
+        table[s, :n] = perm[cursor:cursor + n]
+        cursor += n
+    table = torch.from_numpy(table).to(cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = _randn((slots, kvh * group, d), seed + 3, cuda)
+    return q, pool_k[:, 1], pool_v[:, 1], table, lens
+
+
+def _assert_paged_kernel(case):
+    """One launch a call, within 2e-2 of the plain version, zeros for an
+    empty slot, the same bits from a second call."""
+    q, kp, vp, table, lens = case
+    before = _build.launch_counts()["paged_attention"]
+    got = pa.paged_decode_attention(q, kp, vp, table, lens)
+    assert _build.launch_counts()["paged_attention"] == before + 1
+    again = pa.paged_decode_attention(q, kp, vp, table, lens)
+    ref = pa.paged_decode_reference(q, kp, vp, table, lens,
+                                    q.shape[-1] ** -0.5)
+    torch.cuda.synchronize()
+    assert _maxdiff(got, ref) <= 2e-2
+    assert torch.equal(got, again)
+    empty = (lens <= 0).nonzero().flatten()
+    assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("ps", [16, 32, 64])
+def test_paged_kernel_every_instance_across_page_and_split_edges(
+        cuda, group, d, ps):
+    """A 1024-position window over 10 slots and 2 kv heads: lengths on
+    and across a page edge and the first split edge of the card's plan,
+    the full window, past it."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = pa._plan_splits(10, 2, group, d, ps, 1024 // ps, sms)
+    assert plan.nsplit > 1
+    b = plan.pages_per_split * ps
+    lengths = [0, 1, ps - 1, ps, ps + 1, b - 1, b, b + 1, 1024, 1100]
+    _assert_paged_kernel(_paged_case(cuda, lengths, group, d, ps,
+                                     1024 // ps))
+
+
+def test_paged_kernel_all_slots_empty(cuda):
+    q, kp, vp, table, lens = _paged_case(cuda, [0, 0, 0], 4, 128, 64, 16)
+    got = pa.paged_decode_attention(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    assert bool((got == 0).all())
+
+
+@pytest.mark.parametrize("lengths", [
+    [8192], [0, 100, 4095, 4096, 4097, 6000, 8192, 9000]])
+def test_paged_kernel_8192_position_window(cuda, lengths):
+    """Llama-3-8B's context: page 64, 128 pages a slot, 8 kv heads of
+    group 4 (the split plan's card-filling branch at 8 slots)."""
+    _assert_paged_kernel(_paged_case(cuda, lengths, 4, 128, 64, 128,
+                                     kvh=8, seed=31))
+
+
+@pytest.mark.parametrize("slots", [1, 64, 256])
+def test_paged_kernel_slot_counts(cuda, slots):
+    """1 and 64 slots run several splits of a 1024-position window, 256
+    fill the card with one split each (the kernel writes its output
+    with no merge)."""
+    rng = np.random.RandomState(slots)
+    lengths = [int(n) for n in rng.randint(0, 1100, size=slots)]
+    lengths[0] = 1024
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = pa._plan_splits(slots, 2, 4, 64, 16, 64, sms)
+    assert (plan.nsplit == 1) == (slots * 2 >= pa._BLOCKS_PER_SM * sms)
+    _assert_paged_kernel(_paged_case(cuda, lengths, 4, 64, 16, 64, seed=32))
+
+
 @pytest.mark.parametrize("hidden", [4096, 1001, 64])
 @pytest.mark.parametrize("x_dtype,w_dtype", [
     (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
@@ -277,6 +365,37 @@ def test_norm_bwd_kernel_matches_plain(cuda, hidden, x_dtype, w_dtype, rms):
         assert db is None
     else:
         assert _maxdiff(db, rdb) <= 1e-3 * rdb.abs().max().item()
+
+
+@pytest.mark.parametrize("hidden", [64, 1001, 4096, 8192, 8200, 16384])
+@pytest.mark.parametrize("rows", [1, 7, 2048])
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32)])
+@pytest.mark.parametrize("rms", [True, False])
+def test_norm_bwd_kernel_instances_match_plain_and_repeat(
+        cuda, hidden, rows, x_dtype, w_dtype, rms):
+    """Each instance the plan picks: rows in warps (64), in blocks (1001
+    one element at a time, 4096, 8192), in passes (8200, 16384); one
+    row, a few, a training step's; dw and db the same bits twice."""
+    x = _randn((rows, hidden), 25, cuda, x_dtype) * 2 + 0.3
+    w = 1 + 0.1 * _randn((hidden,), 26, cuda, w_dtype)
+    dy = _randn((rows, hidden), 27, cuda, x_dtype)
+    before = _build.launch_counts()["layer_norm_bwd"]
+    dx, dw, db = ln._bwd_2d(x, w, dy, 1e-5, rms)
+    assert _build.launch_counts()["layer_norm_bwd"] == before + 1
+    dx2, dw2, db2 = ln._bwd_2d(x, w, dy, 1e-5, rms)
+    rdx, rdw, rdb = ln._bwd_reference(x, w, dy, 1e-5, rms)
+    torch.cuda.synchronize()
+    assert dx.dtype == x_dtype and dw.dtype == torch.float32
+    assert _maxdiff(dx, rdx) <= 2.0 ** -6 * rdx.float().abs().max().item()
+    assert _maxdiff(dw, rdw) <= 1e-3 * rdw.abs().max().item()
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    if rms:
+        assert db is None
+    else:
+        assert _maxdiff(db, rdb) <= 1e-3 * rdb.abs().max().item()
+        assert torch.equal(db, db2)
 
 
 def test_norm_autograd_launches_the_backward_kernel(cuda):

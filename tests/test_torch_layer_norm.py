@@ -9,6 +9,8 @@ in a different reduction order); bf16 — one bf16 ulp of the output's
 magnitude (2^-7 relative: both round the same fp32 value, which may sit
 on either side of a rounding boundary).
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +21,10 @@ from apex_tpu.ops import rms_norm as jax_rms_norm
 from apex_tpu_torch.ops import layer_norm, rms_norm
 
 from _torch_isolation import restore_torch_from_amp  # noqa: F401
+
+# by module name: both packages re-export functions called layer_norm
+jln = importlib.import_module("apex_tpu.ops.layer_norm")
+tln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
 
 _DTYPES = {"float32": (jnp.float32, torch.float32),
            "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -76,3 +82,67 @@ def test_fp32_weight_on_bf16_input_matches_jax():
     got = rms_norm(tx, torch.from_numpy(w))
     assert got.dtype == torch.bfloat16
     _close(jax_rms_norm(jx, jnp.asarray(w)), got, "bfloat16")
+
+
+# -- the backward at the card kernel's edge shapes -----------------------
+#
+# One row and a few, at hidden 4096 and 8192 (the widest hidden the card
+# kernel holds in registers), through the JAX Pallas backward in
+# interpret mode and the port's plain version.  Tolerances as in the
+# training slice's backward test: dx 1e-5 relative (both fp32), dw and
+# db 1e-5 of their magnitude (sums over rows in another order).
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("hidden", [4096, 8192])
+@pytest.mark.parametrize("rms", [True, False])
+def test_norm_bwd_edge_shapes_match_jax(rows, hidden, rms):
+    rng = np.random.RandomState(hidden + rows)
+    x = (rng.randn(rows, hidden) * 2 + 0.5).astype(np.float32)
+    w = (1 + 0.1 * rng.randn(hidden)).astype(np.float32)
+    dy = rng.randn(rows, hidden).astype(np.float32)
+    jdx, jdw, jdb = jln._bwd_2d(jnp.asarray(x), jnp.asarray(w),
+                                jnp.asarray(dy), 1e-5, rms)
+    tdx, tdw, tdb = tln._bwd_2d(*(torch.from_numpy(a) for a in (x, w, dy)),
+                                1e-5, rms)
+    np.testing.assert_allclose(tdx.numpy(), np.asarray(jdx), rtol=1e-5,
+                               atol=2e-5)
+    for got, ref in ((tdw, jdw), (tdb, jdb)) if not rms else ((tdw, jdw),):
+        ref = np.asarray(ref).reshape(-1)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5,
+                                   atol=1e-5 * np.abs(ref).max())
+    assert (tdb is None) == rms
+
+
+# -- the backward's instance plan (host side of the card kernel) ---------
+
+@pytest.mark.parametrize("hidden", [1, 64, 256, 257, 1001, 2048, 4096,
+                                    4104, 8192, 8200, 16384, 29056])
+@pytest.mark.parametrize("x_bytes", [2, 4])
+@pytest.mark.parametrize("rows", [1, 7, 2048])
+def test_norm_bwd_plan_invariants(hidden, x_bytes, rows):
+    vec = hidden % 8 == 0
+    plan = tln._bwd_plan(rows, hidden, x_bytes, vec, 132)
+    block = plan.tg * plan.r
+    assert block in tln._BWD_BLOCKS_PER_SM and plan.tg % 32 == 0
+    assert plan.vec == vec and plan.e % 8 == 0
+    # a row in registers fits the group; only wider rows take passes
+    widest = max(tg * e for _, tg, e, _ in (
+        tln._BWD_ROW_IN_REGISTERS[x_bytes] if vec
+        else tln._BWD_ELEMENTWISE))
+    assert plan.multi == (hidden > widest)
+    if not plan.multi:
+        assert hidden <= plan.tg * plan.e
+    else:
+        assert (plan.tg, plan.e, plan.r) == tln._BWD_MULTI_PASS
+    # a persistent grid of one or two blocks an SM, no block without a
+    # row, so at most 264 partial rows on 132 SMs
+    per_sm = tln._BWD_BLOCKS_PER_SM[block]
+    assert 1 <= plan.nblocks <= per_sm * 132 <= 264
+    assert plan.nblocks <= -(-rows // plan.r)
+
+
+def test_norm_bwd_plan_puts_8192_in_registers_and_8200_in_passes():
+    assert not tln._bwd_plan(2048, 8192, 2, True, 132).multi
+    assert tln._bwd_plan(2048, 8200, 2, True, 132).multi
+    plan = tln._bwd_plan(2048, 4096, 2, True, 132)
+    assert (plan.tg, plan.e) == (256, 16) and plan.nblocks <= 264
