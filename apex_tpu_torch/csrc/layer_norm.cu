@@ -200,19 +200,19 @@ void launch(const void* x, const void* w, const void* b, void* y, int rows,
 //
 // What bounds it on the H100: bytes (x and dy read, dx written: 3 * 2 *
 // rows * hidden bytes in bf16, ~10 flops per element).  So each row is
-// read once: a group of TG threads (a warp, 256 or 512 threads; a block
-// holds R groups, each walking its own rows) holds its row of x and dy
-// in registers, E elements a thread in 16-byte chunks (C = 8) or one at
-// a time (C = 1, any hidden), and loads its next row while this one's
-// reductions run.  The sums of a row reduce
+// read once: a group of 256 threads holds its row of x and dy in
+// registers (bf16 rows up to 4096 wide, 16 elements a thread in 16-byte
+// chunks, two groups a block each walking its own rows; unaligned rows
+// up to 2048 wide, 8 elements a thread one at a time), and loads its
+// next row while this one's reductions run.  The sums of a row reduce
 // together: for RMSNorm sum(x^2) and sum(w dy x) in one reduction
 // (c2 = rstd * mean(w dy x)); for LayerNorm the mean first, then the
 // centred sum of squares, sum(w dy) and sum(w dy (x - mean)) in one.
 // The weight is read per chunk where it is used (it stays in L1).
-// A hidden too wide for the registers takes the MULTI instance of the
-// same kernel: the row in passes of TG * E columns (the later passes
-// hit L2) and dw/db in shared memory, each thread again owning its
-// columns.
+// Any other row (fp32, or too wide for the registers) takes the MULTI
+// instance of the same kernel: the row in passes of 2048 columns (the
+// later passes hit L2) and dw/db in shared memory, each thread again
+// owning its columns.  launch_bwd picks the instance.
 // ---------------------------------------------------------------------------
 
 // C consecutive elements of a row as loaded (16 bytes for bf16 C = 8).
@@ -582,56 +582,72 @@ ln_bwd_reduce_kernel(const float* __restrict__ dw_part,
   }
 }
 
+// One instance: TG * R threads a block, a persistent grid of at most
+// nblocks * 256 / (TG * R) blocks (no more than the rows need), then the
+// column sums of the grid's partials.
 template <typename TX, typename TW, int TG, int E, int C, bool MULTI, int R>
 int launch_bwd_inst(const void* x, const void* w, const void* dy, void* dx,
-                    float* dw_part, float* db_part, int rows, int hidden,
-                    int nblocks, float eps, int rms, cudaStream_t stream) {
+                    float* dw_part, float* db_part, float* dw, float* db,
+                    int rows, int hidden, int nblocks, float eps, int rms,
+                    cudaStream_t stream) {
   constexpr int kBlock = TG * R;
+  const int most = nblocks * 256 / kBlock;
+  const int want = (rows + R - 1) / R;
+  const int grid = want < most ? want : (most > 0 ? most : 1);
   const size_t smem =
       MULTI ? sizeof(float) * (size_t)hidden * (rms ? 1 : 2)
             : (R > 1 ? sizeof(float) * 2 * R * TG * E : 0);
   auto kern = ln_bwd_kernel<TX, TW, TG, E, C, MULTI, R>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<nblocks, kBlock, smem, stream>>>(
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kern<<<grid, kBlock, smem, stream>>>(
       static_cast<const TX*>(x), static_cast<const TW*>(w),
       static_cast<const TX*>(dy), static_cast<TX*>(dx), dw_part, db_part,
       rows, hidden, eps, rms);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ln_bwd_reduce_kernel<<<dim3((hidden + 31) / 32, rms ? 1 : 2), dim3(32, 8),
+                         0, stream>>>(dw_part, db_part, dw, db, grid,
+                                      hidden);
   return (int)cudaGetLastError();
 }
 
-// The instance the caller picked: (tg, e) for the row in registers
-// (hidden <= tg * e), multi for passes; vec: 16-byte chunks; r rows in
-// flight a block.
+// The instance for hidden and alignment (the plan lives here alone):
+// 16-byte chunks need hidden % 8 == 0 and 16-byte aligned operands.
+// bf16 rows up to 4096 wide (Llama-3-8B's hidden) stay in registers, 16
+// elements a thread, two rows in flight a 512-thread block; unaligned
+// rows up to 2048 wide likewise, one element at a time, a row a block;
+// every other row (fp32, wider) takes the multi-pass instance.
 template <typename TX, typename TW>
 int launch_bwd(const void* x, const void* w, const void* dy, void* dx,
-               float* dw_part, float* db_part, int rows, int hidden,
-               int nblocks, int tg, int e, int vec, int multi, int r,
-               float eps, int rms, cudaStream_t stream) {
+               float* dw_part, float* db_part, float* dw, float* db, int rows,
+               int hidden, int nblocks, float eps, int rms,
+               cudaStream_t stream) {
   const uintptr_t bits = reinterpret_cast<uintptr_t>(x) |
                          reinterpret_cast<uintptr_t>(w) |
                          reinterpret_cast<uintptr_t>(dy) |
                          reinterpret_cast<uintptr_t>(dx);
-  if (vec && (hidden % 8 || bits % 16)) return (int)cudaErrorInvalidValue;
-  if (!multi && hidden > tg * e) return (int)cudaErrorInvalidValue;
-#define APEX_LN_BWD(TG, E, C, M, R)                                     \
-  if (tg == TG && e == E && (vec ? 8 : 1) == C && (multi != 0) == M &&  \
-      r == R)                                                           \
-    return launch_bwd_inst<TX, TW, TG, E, C, M, R>(                   \
-        x, w, dy, dx, dw_part, db_part, rows, hidden, nblocks, eps, rms, \
-        stream);
-  APEX_LN_BWD(32, 8, 8, false, 8)
-  APEX_LN_BWD(32, 16, 8, false, 8)
-  APEX_LN_BWD(256, 8, 8, false, 2)
-  APEX_LN_BWD(256, 16, 8, false, 2)
-  APEX_LN_BWD(512, 8, 8, false, 1)
-  APEX_LN_BWD(512, 16, 8, false, 1)
-  APEX_LN_BWD(256, 8, 8, true, 1)
-  APEX_LN_BWD(256, 8, 1, false, 1)
-  APEX_LN_BWD(256, 8, 1, true, 1)
-#undef APEX_LN_BWD
-  return (int)cudaErrorInvalidValue;
+  const bool vec = hidden % 8 == 0 && bits % 16 == 0;
+  if (vec) {
+    if constexpr (sizeof(TX) == 2)
+      if (hidden <= 256 * 16)
+        return launch_bwd_inst<TX, TW, 256, 16, 8, false, 2>(
+            x, w, dy, dx, dw_part, db_part, dw, db, rows, hidden, nblocks,
+            eps, rms, stream);
+    return launch_bwd_inst<TX, TW, 256, 8, 8, true, 1>(
+        x, w, dy, dx, dw_part, db_part, dw, db, rows, hidden, nblocks, eps,
+        rms, stream);
+  }
+  if (hidden <= 256 * 8)
+    return launch_bwd_inst<TX, TW, 256, 8, 1, false, 1>(
+        x, w, dy, dx, dw_part, db_part, dw, db, rows, hidden, nblocks, eps,
+        rms, stream);
+  return launch_bwd_inst<TX, TW, 256, 8, 1, true, 1>(
+      x, w, dy, dx, dw_part, db_part, dw, db, rows, hidden, nblocks, eps, rms,
+      stream);
 }
 
 }  // namespace
@@ -659,17 +675,14 @@ extern "C" int apex_layer_norm_fwd(const void* x, const void* w,
 }
 
 // x, dy, dx [rows, hidden] in x's dtype; w [hidden]; dw_part (and, for
-// LayerNorm, db_part) [nblocks, hidden] fp32 scratch; dw (and db)
-// [hidden] fp32 outputs.  For RMSNorm (rms = 1) db_part and db are null.
-// (tg, e, vec, multi, r) name the kernel's instance: tg threads a row,
-// e elements a thread per pass, in 16-byte chunks (vec: hidden % 8 == 0
-// and 16-byte aligned operands) or one at a time; without multi the
-// row is one pass (hidden <= tg * e); r rows in flight a block.
+// LayerNorm, db_part) [nblocks, hidden] fp32 scratch, of which the
+// launch uses at most nblocks rows (one a block of 256 threads, one a
+// block of 512 for the row-in-registers instance); dw (and db) [hidden]
+// fp32 outputs.  For RMSNorm (rms = 1) db_part and db are null.
 extern "C" int apex_layer_norm_bwd(const void* x, const void* w,
                                    const void* dy, void* dx, void* dw_part,
                                    void* db_part, void* dw, void* db,
-                                   int rows, int hidden, int nblocks, int tg,
-                                   int e, int vec, int multi, int r,
+                                   int rows, int hidden, int nblocks,
                                    float eps, int rms, int x_dtype,
                                    int w_dtype, void* stream) {
   cudaGetLastError();
@@ -679,31 +692,21 @@ extern "C" int apex_layer_norm_bwd(const void* x, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* dwp = static_cast<float*>(dw_part);
   float* dbp = static_cast<float*>(db_part);
-  int err;
+  float* dwo = static_cast<float*>(dw);
+  float* dbo = static_cast<float*>(db);
   if (x_dtype == 1 && w_dtype == 1)
-    err = launch_bwd<__nv_bfloat16, __nv_bfloat16>(
-        x, w, dy, dx, dwp, dbp, rows, hidden, nblocks, tg, e, vec, multi, r,
-        eps, rms, s);
-  else if (x_dtype == 1 && w_dtype == 0)
-    err = launch_bwd<__nv_bfloat16, float>(
-        x, w, dy, dx, dwp, dbp, rows, hidden, nblocks, tg, e, vec, multi, r,
-        eps, rms, s);
-  else if (x_dtype == 0 && w_dtype == 1)
-    err = launch_bwd<float, __nv_bfloat16>(
-        x, w, dy, dx, dwp, dbp, rows, hidden, nblocks, tg, e, vec, multi, r,
-        eps, rms, s);
-  else if (x_dtype == 0 && w_dtype == 0)
-    err = launch_bwd<float, float>(
-        x, w, dy, dx, dwp, dbp, rows, hidden, nblocks, tg, e, vec, multi, r,
-        eps, rms, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  if (err) return err;
-  dim3 grid((hidden + 31) / 32, rms ? 1 : 2);
-  ln_bwd_reduce_kernel<<<grid, dim3(32, 8), 0, s>>>(
-      dwp, dbp, static_cast<float*>(dw), static_cast<float*>(db), nblocks,
-      hidden);
-  return (int)cudaGetLastError();
+    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(
+        x, w, dy, dx, dwp, dbp, dwo, dbo, rows, hidden, nblocks, eps, rms, s);
+  if (x_dtype == 1 && w_dtype == 0)
+    return launch_bwd<__nv_bfloat16, float>(
+        x, w, dy, dx, dwp, dbp, dwo, dbo, rows, hidden, nblocks, eps, rms, s);
+  if (x_dtype == 0 && w_dtype == 1)
+    return launch_bwd<float, __nv_bfloat16>(
+        x, w, dy, dx, dwp, dbp, dwo, dbo, rows, hidden, nblocks, eps, rms, s);
+  if (x_dtype == 0 && w_dtype == 0)
+    return launch_bwd<float, float>(
+        x, w, dy, dx, dwp, dbp, dwo, dbo, rows, hidden, nblocks, eps, rms, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Shared by every entry of the library: the text of a CUDA error code.

@@ -49,6 +49,9 @@
 // Plain C interface (loaded with ctypes): apex_paged_decode_attention
 // launches on the caller's stream and returns cudaGetLastError().
 
+#include <atomic>
+#include <mutex>
+
 #include "hopper.cuh"
 
 namespace {
@@ -452,6 +455,44 @@ int page_map(CUtensorMap* map, const void* p, int d, int ps, int kvh,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// The two tensor maps of each layer's pool view, encoded once: a decode
+// step asks for the same maps of every layer on every step, and the
+// step is bound by host time.  A map is kept under everything it
+// encodes (address, sizes, page stride), so a reused address with the
+// same view gets the same, still valid, map.
+struct MapKey {
+  const void* p;
+  long long pages, page_stride;
+  int d, ps, kvh;
+  bool operator==(const MapKey& o) const {
+    return p == o.p && pages == o.pages && page_stride == o.page_stride &&
+           d == o.d && ps == o.ps && kvh == o.kvh;
+  }
+};
+constexpr int kMapCache = 256;
+std::mutex g_map_mu;
+MapKey g_map_key[kMapCache];
+CUtensorMap g_map[kMapCache];
+int g_map_used = 0, g_map_next = 0;
+
+int cached_page_map(CUtensorMap* map, const void* p, int d, int ps, int kvh,
+                    long long pages, long long page_stride) {
+  const MapKey key{p, pages, page_stride, d, ps, kvh};
+  std::lock_guard<std::mutex> lock(g_map_mu);
+  for (int i = 0; i < g_map_used; ++i)
+    if (g_map_key[i] == key) {
+      *map = g_map[i];
+      return 0;
+    }
+  const int e = page_map(map, p, d, ps, kvh, pages, page_stride);
+  if (e) return e;
+  g_map_key[g_map_next] = key;
+  g_map[g_map_next] = *map;
+  g_map_next = (g_map_next + 1) % kMapCache;
+  if (g_map_used < kMapCache) ++g_map_used;
+  return 0;
+}
+
 struct Args {
   const void *q, *k, *v, *pt, *lengths;
   void *out, *part_acc, *part_ml, *counters;
@@ -463,19 +504,27 @@ struct Args {
 
 template <int G, int D, int PS>
 int launch(const Args& a) {
+  using S = PagedSmem<D, PS>;
+  if (a.nsplit > S::kMaxSplits) return (int)cudaErrorInvalidValue;
   CUtensorMap km, vm;
-  int e = page_map(&km, a.k, D, PS, a.kvh, a.pages, a.page_stride);
-  if (!e) e = page_map(&vm, a.v, D, PS, a.kvh, a.pages, a.page_stride);
+  int e = cached_page_map(&km, a.k, D, PS, a.kvh, a.pages, a.page_stride);
+  if (!e) e = cached_page_map(&vm, a.v, D, PS, a.kvh, a.pages, a.page_stride);
   if (e) return e;
-  if (a.nsplit > PagedSmem<D, PS>::kMaxSplits)
-    return (int)cudaErrorInvalidValue;
-  const size_t bytes = PagedSmem<D, PS>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<G, D, PS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  // the instance's shared memory allowed once per device (bit `dev`)
+  static std::atomic<unsigned> allowed{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (!(allowed.load() & bit)) {
+    err = cudaFuncSetAttribute(paged_decode_kernel<G, D, PS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)S::bytes);
+    if (err != cudaSuccess) return (int)err;
+    allowed.fetch_or(bit);
+  }
   const dim3 grid(a.nsplit, a.kvh, a.slots);
-  paged_decode_kernel<G, D, PS><<<grid, kThreads, bytes, a.stream>>>(
+  paged_decode_kernel<G, D, PS><<<grid, kThreads, S::bytes, a.stream>>>(
       km, vm, static_cast<const bf16*>(a.q), static_cast<const int*>(a.pt),
       static_cast<const int*>(a.lengths), static_cast<bf16*>(a.out),
       static_cast<float*>(a.part_acc), static_cast<float*>(a.part_ml),
@@ -500,6 +549,7 @@ int launch_ps(int group, int ps, const Args& a) {
     case 16: return launch_g<D, 16>(group, a);
     case 32: return launch_g<D, 32>(group, a);
     case 64: return launch_g<D, 64>(group, a);
+    case 128: return launch_g<D, 128>(group, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -514,8 +564,8 @@ int launch_ps(int group, int ps, const Args& a) {
 // (nsplit = ceil(mpps / pages_per_split)); with nsplit > 1, part_acc
 // [slots * h, nsplit, d] and part_ml [slots * h, nsplit, 2] are fp32
 // scratch and counters [slots * kvh] int32, zero before the launch, is
-// left zero by it; nsplit is at most 256.  group = h / kvh must be 1, 2, 4 or 8, d 64 or 128,
-// ps 16, 32 or 64.
+// left zero by it; nsplit is at most 256.  group = h / kvh must be 1,
+// 2, 4 or 8, d 64 or 128, ps 16, 32, 64 or 128.
 extern "C" int apex_paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* page_table, const void* lengths, void* out, void* part_acc,

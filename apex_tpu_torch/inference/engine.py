@@ -38,7 +38,8 @@ from apex_tpu_torch import observability as obs
 from apex_tpu_torch.inference import kv_cache, models
 from apex_tpu_torch.inference.sampling import SamplingConfig, sample_token
 from apex_tpu_torch.inference.speculative import default_spec_k
-from apex_tpu_torch.ops.paged_attention import resolve_decode_fusion
+from apex_tpu_torch.ops.paged_attention import (
+    check_kernel_page_size, resolve_decode_fusion)
 from apex_tpu_torch.utils import resolve_device
 
 __all__ = ["InferenceEngine", "prefill_bucket"]
@@ -145,12 +146,14 @@ class InferenceEngine:
         if self.num_pages < 1:
             raise ValueError(f"num_pages must be >= 1, got "
                              f"{self.num_pages}")
-        self.dims = models.model_dims(kind, cfg)
-        self.tp_dims = models.tp_dims(kind, cfg, 1)
-        self.params = self._place(params, dtype)
         self.decode_fused = resolve_decode_fusion(
             decode_fusion, paged=True, max_pages=self.max_pages_per_slot,
             min_pages=fusion_min_pages)
+        if self.device.type == "cuda" and not self.decode_fused:
+            check_kernel_page_size(self.page_size)
+        self.dims = models.model_dims(kind, cfg)
+        self.tp_dims = models.tp_dims(kind, cfg, 1)
+        self.params = self._place(params, dtype)
         self._fused_layers = (
             models.fused_layer_params(kind, cfg, self.params)
             if self.decode_fused else None)

@@ -83,9 +83,10 @@ _LP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     # x, w, b, y, rows, hidden, eps, rms, x_dtype, w_dtype, stream
     "apex_layer_norm_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
-    # x, w, dy, dx, dw_part, db_part, dw, db, rows, hidden, nblocks, tg,
-    # e, vec, multi, r, eps, rms, x_dtype, w_dtype, stream
-    "apex_layer_norm_bwd": [_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _P],
+    # x, w, dy, dx, dw_part, db_part, dw, db, rows, hidden, nblocks, eps,
+    # rms, x_dtype, w_dtype, stream
+    "apex_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                            _I, _I, _I, _P],
     # q, k, v, o, lse, bh, sq, sk, d, causal, off, valid_q, valid_k,
     # scale_log2, stream
     "apex_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

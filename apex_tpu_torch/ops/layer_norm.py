@@ -12,8 +12,8 @@ Port of ``apex_tpu/ops/layer_norm.py``.  The kernels are in
   saved, as the JAX custom VJPs do), ``dx`` comes out in x's dtype and
   ``dw``/``db`` as fp32 sums over the rows (per-block partials of a
   persistent grid, then a second reduction kernel), cast to the
-  weight's dtype by the caller; the kernel's instance is picked by
-  hidden (:func:`_bwd_plan`).
+  weight's dtype by the caller; the kernel picks its instance by hidden
+  and alignment.
 
 Unlike the TPU kernels they take any hidden size (the Pallas
 ``hidden % 128`` rule was a VMEM tiling rule).  :func:`layer_norm` and
@@ -25,7 +25,7 @@ CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
@@ -35,47 +35,11 @@ __all__ = ["layer_norm", "rms_norm", "layer_norm_reference",
            "rms_norm_reference"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: the backward's instances that hold a row in registers, by x's element
-#: size: (widest hidden, threads a row, elements a thread, rows a block)
-#: in 16-byte chunks; a hidden that is no multiple of 8 (or unaligned
-#: operands) takes elements one at a time; wider rows take the
-#: multi-pass instance
-_BWD_ROW_IN_REGISTERS = {
-    2: ((256, 32, 8, 8), (512, 32, 16, 8), (2048, 256, 8, 2),
-        (4096, 256, 16, 2), (8192, 512, 16, 1)),
-    4: ((256, 32, 8, 8), (2048, 256, 8, 2), (4096, 512, 8, 1)),
-}
-_BWD_ELEMENTWISE = ((2048, 256, 8, 1),)
-_BWD_MULTI_PASS = (256, 8, 1)
-#: backward blocks per SM, by threads a block; each block writes one row
-#: of the dw/db partials
-_BWD_BLOCKS_PER_SM = {256: 2, 512: 1}
-
-
-class BwdPlan(NamedTuple):
-    """The backward kernel's instance and grid: ``tg`` threads a row,
-    ``e`` elements a thread per pass, 16-byte chunks (``vec``) or one
-    element at a time, the row in one pass or in passes (``multi``),
-    ``r`` rows in flight a block; ``nblocks`` blocks, each writing one
-    row of the dw/db partials."""
-    tg: int
-    e: int
-    vec: bool
-    multi: bool
-    r: int
-    nblocks: int
-
-
-def _bwd_plan(rows: int, hidden: int, x_bytes: int, vec: bool,
-              sms: int) -> BwdPlan:
-    """Pick the backward's instance by hidden and a persistent grid of
-    ``_BWD_BLOCKS_PER_SM`` blocks an SM (no more than the rows need)."""
-    table = _BWD_ROW_IN_REGISTERS[x_bytes] if vec else _BWD_ELEMENTWISE
-    fits = [inst[1:] for inst in table if hidden <= inst[0]]
-    tg, e, r = fits[0] if fits else _BWD_MULTI_PASS
-    per_sm = _BWD_BLOCKS_PER_SM[tg * r]
-    nblocks = max(1, min(-(-rows // r), per_sm * sms))
-    return BwdPlan(tg, e, vec, not fits, r, nblocks)
+#: the backward's blocks of 256 threads per SM (a persistent grid; each
+#: block writes one row of the dw/db partials, and the kernel's
+#: instance, picked in ``csrc/layer_norm.cu`` by hidden and alignment,
+#: may use fewer, larger blocks)
+_BWD_BLOCKS_PER_SM = 2
 
 
 def layer_norm_reference(x, weight=None, bias=None, eps: float = 1e-5):
@@ -181,20 +145,18 @@ def _bwd_2d(x2, w, dy2, eps: float, rms: bool):
         raise ValueError(f"dy must match x: {tuple(x2.shape)} {x2.dtype}, "
                          f"got {tuple(dy2.shape)} {dy2.dtype}")
     rows, hidden = x2.shape
-    dx = torch.empty_like(x2)
-    vec = hidden % 8 == 0 and not any(
-        t.data_ptr() % 16 for t in (x2, w, dy2, dx))
-    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
-    plan = _bwd_plan(rows, hidden, x2.element_size(), vec, sms)
     n_acc = 1 if rms else 2
-    if plan.multi and hidden * 4 * n_acc > 227 * 1024:
+    if hidden * 4 * n_acc > 227 * 1024:
         raise ValueError(f"layer_norm_bwd kernel keeps {n_acc} fp32 column "
                          f"sums of hidden {hidden} in shared memory; at most "
                          f"{227 * 1024 // (4 * n_acc)} fit")
+    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
+    nblocks = max(1, min(rows, _BWD_BLOCKS_PER_SM * sms))
+    dx = torch.empty_like(x2)
     f32 = dict(dtype=torch.float32, device=x2.device)
-    dw_part = torch.empty((plan.nblocks, hidden), **f32)
+    dw_part = torch.empty((nblocks, hidden), **f32)
     dw = torch.empty((hidden,), **f32)
-    db_part = None if rms else torch.empty((plan.nblocks, hidden), **f32)
+    db_part = None if rms else torch.empty((nblocks, hidden), **f32)
     db = None if rms else torch.empty((hidden,), **f32)
     lib = _build.library()
     _build.count("layer_norm_bwd")
@@ -202,9 +164,8 @@ def _bwd_2d(x2, w, dy2, eps: float, rms: bool):
         x2.data_ptr(), w.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
         dw_part.data_ptr(), None if rms else db_part.data_ptr(),
         dw.data_ptr(), None if rms else db.data_ptr(), rows, hidden,
-        plan.nblocks, plan.tg, plan.e, int(plan.vec), int(plan.multi),
-        plan.r, float(eps), int(rms), _DTYPE_CODE[x2.dtype], _DTYPE_CODE[w.dtype],
-        _build.stream_ptr(x2.device))
+        nblocks, float(eps), int(rms), _DTYPE_CODE[x2.dtype],
+        _DTYPE_CODE[w.dtype], _build.stream_ptr(x2.device))
     _build.check(err, "layer_norm_bwd")
     return dx, dw, db
 

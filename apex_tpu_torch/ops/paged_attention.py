@@ -42,14 +42,15 @@ from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops.attention import _LOG2E, _NEG_INF
 
 __all__ = ["paged_decode_attention", "paged_decode_reference",
-           "decode_fusion", "fusion_min_pages", "resolve_decode_fusion",
-           "fused_block_decode", "fused_block_reference"]
+           "check_kernel_page_size", "decode_fusion", "fusion_min_pages",
+           "resolve_decode_fusion", "fused_block_decode",
+           "fused_block_reference"]
 
 #: query rows per kv head, head dims and page sizes the kernel is
 #: instantiated for
 _KERNEL_GROUPS = (1, 2, 4, 8)
 _KERNEL_HEAD_DIMS = (64, 128)
-_KERNEL_PAGE_SIZES = (16, 32, 64)
+_KERNEL_PAGE_SIZES = (16, 32, 64, 128)
 #: the fewest window positions a split covers: a shorter split ends
 #: before the kernel's ring of pages fills
 _MIN_SPLIT_TOKENS = 512
@@ -60,6 +61,15 @@ _BLOCKS_PER_SM = 1
 #: the most splits a window runs as (the merging block holds each
 #: split's weights in shared memory)
 _MAX_SPLITS = 256
+
+
+def check_kernel_page_size(page_size: int) -> None:
+    """Raise unless the kernel has an instance for ``page_size``: an
+    engine on the card checks its pool once, when it is built, not at
+    its first decode step."""
+    if page_size not in _KERNEL_PAGE_SIZES:
+        raise ValueError(f"paged attention kernel takes page_size in "
+                         f"{_KERNEL_PAGE_SIZES}, got {page_size}")
 
 
 class SplitPlan(NamedTuple):
@@ -100,9 +110,9 @@ def _plan_splits(slots: int, kvh: int, group: int, d: int, ps: int,
                      slots * kvh if many else 0)
 
 
-#: per device: the SM count, and the merge counters (zero between
-#: launches: the kernel's merging block resets its own; calls on one
-#: device share them, so two calls must not run at once on two streams)
+#: the SM count of each device, and the merge counters of each (device,
+#: stream): zero between launches (the kernel's merging block resets
+#: its own), so launches on one stream, which run in order, share them
 _SMS: dict = {}
 _COUNTERS: dict = {}
 
@@ -114,11 +124,12 @@ def _sm_count(device) -> int:
     return _SMS[device]
 
 
-def _counters(device, n: int):
-    buf = _COUNTERS.get(device)
+def _counters(device, stream, n: int):
+    key = (device, stream.value)
+    buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
+        _COUNTERS[key] = buf
     return buf
 
 
@@ -219,8 +230,9 @@ def _kernel_call(q3, k_pages, v_pages, page_table, lengths, scale):
     f32 = dict(dtype=torch.float32, device=q3.device)
     part_acc = torch.empty(plan.part_acc, **f32) if plan.part_acc else None
     part_ml = torch.empty(plan.part_ml, **f32) if plan.part_ml else None
-    counters = _counters(q3.device, plan.counters) if plan.counters \
-        else None
+    stream = _build.stream_ptr(q3.device)
+    counters = _counters(q3.device, stream, plan.counters) \
+        if plan.counters else None
     lib = _build.library()
     _build.count("paged_attention")
     err = lib.apex_paged_decode_attention(
@@ -230,8 +242,9 @@ def _kernel_call(q3, k_pages, v_pages, page_table, lengths, scale):
         part_ml.data_ptr() if part_ml is not None else None,
         counters.data_ptr() if counters is not None else None, slots, h,
         kvh, ps, d, mpps, k_pages.shape[0], k_pages.stride(0), plan.nsplit,
-        plan.pages_per_split, float(scale * _LOG2E),
-        _build.stream_ptr(q3.device))
+        plan.pages_per_split, float(scale * _LOG2E), stream)
+    if err and counters is not None:
+        counters.zero_()      # whatever a failed launch left behind
     _build.check(err, "paged_attention")
     return out
 

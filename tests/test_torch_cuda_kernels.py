@@ -201,9 +201,21 @@ def _paged_case(cuda, lengths, group, d, ps, mpps, kvh=2, seed=30):
     return q, pool_k[:, 1], pool_v[:, 1], table, lens
 
 
+def _slot_errors(got, ref):
+    """Each slot's max |diff| over its own max |ref|: a long slot's
+    outputs average many tokens and are small, so one limit for all
+    slots would let a dropped page of a long slot pass (0/0 reads 0, an
+    error on an empty slot inf)."""
+    diff = (got.float() - ref.float()).abs().flatten(1).amax(1)
+    mag = ref.float().abs().flatten(1).amax(1)
+    return torch.where(diff == 0, torch.zeros_like(diff), diff / mag)
+
+
 def _assert_paged_kernel(case):
-    """One launch a call, within 2e-2 of the plain version, zeros for an
-    empty slot, the same bits from a second call."""
+    """One launch a call, each slot within 2^-6 of its own magnitude of
+    the plain version (one bf16 ulp of the output is 2^-8 of it, p is
+    rounded in other places), zeros for an empty slot, the same bits from
+    a second call."""
     q, kp, vp, table, lens = case
     before = _build.launch_counts()["paged_attention"]
     got = pa.paged_decode_attention(q, kp, vp, table, lens)
@@ -212,7 +224,7 @@ def _assert_paged_kernel(case):
     ref = pa.paged_decode_reference(q, kp, vp, table, lens,
                                     q.shape[-1] ** -0.5)
     torch.cuda.synchronize()
-    assert _maxdiff(got, ref) <= 2e-2
+    assert _slot_errors(got, ref).max().item() <= 2.0 ** -6
     assert torch.equal(got, again)
     empty = (lens <= 0).nonzero().flatten()
     assert bool((got[empty] == 0).all())
@@ -220,7 +232,7 @@ def _assert_paged_kernel(case):
 
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("ps", [16, 32, 64])
+@pytest.mark.parametrize("ps", [16, 32, 64, 128])
 def test_paged_kernel_every_instance_across_page_and_split_edges(
         cuda, group, d, ps):
     """A 1024-position window over 10 slots and 2 kv heads: lengths on
@@ -249,6 +261,90 @@ def test_paged_kernel_8192_position_window(cuda, lengths):
     group 4 (the split plan's card-filling branch at 8 slots)."""
     _assert_paged_kernel(_paged_case(cuda, lengths, 4, 128, 64, 128,
                                      kvh=8, seed=31))
+
+
+def test_paged_kernel_drops_no_page_of_a_long_slot(cuda):
+    """The per-slot limit sees one 64-token page of a 4096-token slot
+    left out: the kernel holds it, a table that skips the page does
+    not."""
+    lengths = [4096, 1500, 64, 1]
+    q, kp, vp, table, lens = _paged_case(cuda, lengths, 4, 128, 64, 64,
+                                         kvh=8, seed=33)
+    got = pa.paged_decode_attention(q, kp, vp, table, lens)
+    ref = pa.paged_decode_reference(q, kp, vp, table, lens, 128 ** -0.5)
+    dropped = table.clone()
+    dropped[0, 20] = dropped[0, 21]
+    off = pa.paged_decode_reference(q, kp, vp, dropped, lens, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert _slot_errors(got, ref).max().item() <= 2.0 ** -6
+    assert _slot_errors(off, ref)[0].item() > 2.0 ** -6
+
+
+def test_paged_kernel_streams_keep_their_own_merge_counters(cuda):
+    """A call on a side stream and one on the default stream run several
+    splits each with counters of their own; both hold the plain
+    version."""
+    case = _paged_case(cuda, [1024, 700, 0, 513], 4, 128, 64, 16, kvh=2,
+                       seed=34)
+    ref = pa.paged_decode_reference(*case, 128 ** -0.5)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got_side = pa.paged_decode_attention(*case)
+    got = pa.paged_decode_attention(*case)
+    torch.cuda.synchronize()
+    keys = {k for k in pa._COUNTERS if k[0] == got.device}
+    assert (got.device, side.cuda_stream) in keys and len(keys) >= 2
+    for out in (got, got_side):
+        assert _slot_errors(out, ref).max().item() <= 2.0 ** -6
+    assert torch.equal(got, got_side)
+
+
+def test_paged_kernel_failed_launch_leaves_counters_zero(cuda, monkeypatch):
+    """A launch that fails leaves no count behind: the wrapper zeroes the
+    stream's counters, so the next call merges right."""
+    case = _paged_case(cuda, [1024, 700, 0, 513], 4, 128, 64, 16, kvh=2,
+                       seed=35)
+    ref = pa.paged_decode_reference(*case, 128 ** -0.5)
+    pa.paged_decode_attention(*case)
+    dev = case[0].device
+    counters = pa._counters(dev, _build.stream_ptr(dev), 1)
+    counters.fill_(3)     # what an aborted launch could leave
+
+    class Failing:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            return getattr(self._lib, name)
+
+        @staticmethod
+        def apex_paged_decode_attention(*args):
+            return 1      # cudaErrorInvalidValue
+
+    real = _build.library()
+    monkeypatch.setattr(_build, "library", lambda: Failing(real))
+    with pytest.raises(RuntimeError, match="paged_attention"):
+        pa.paged_decode_attention(*case)
+    monkeypatch.undo()
+    assert int(counters.abs().sum().item()) == 0
+    got = pa.paged_decode_attention(*case)
+    torch.cuda.synchronize()
+    assert _slot_errors(got, ref).max().item() <= 2.0 ** -6
+
+
+def test_cuda_engine_refuses_a_page_size_without_a_kernel_when_built(cuda):
+    """An unfused engine on the card checks its page size when it is
+    built, not at its first decode step."""
+    from apex_tpu_torch.inference import InferenceEngine
+    from apex_tpu_torch.transformer.testing import LlamaConfig
+    cfg = LlamaConfig(vocab_size=256, hidden_size=128, num_layers=1,
+                      num_attention_heads=4, num_kv_heads=2,
+                      ffn_hidden_size=256, max_seq_length=256)
+    for ps in (8, 256):
+        with pytest.raises(ValueError, match="page_size"):
+            InferenceEngine("llama", cfg, None, slots=2, max_seq=256,
+                            page_size=ps, device=cuda, decode_fusion="0")
 
 
 @pytest.mark.parametrize("slots", [1, 64, 256])

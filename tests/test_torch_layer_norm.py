@@ -86,63 +86,46 @@ def test_fp32_weight_on_bf16_input_matches_jax():
 
 # -- the backward at the card kernel's edge shapes -----------------------
 #
-# One row and a few, at hidden 4096 and 8192 (the widest hidden the card
-# kernel holds in registers), through the JAX Pallas backward in
-# interpret mode and the port's plain version.  Tolerances as in the
-# training slice's backward test: dx 1e-5 relative (both fp32), dw and
-# db 1e-5 of their magnitude (sums over rows in another order).
+# One row and a few, at hidden on both sides of each line where the card
+# kernel changes its instance (2048: the widest unaligned row it holds in
+# registers; 4096: the widest bf16 row; wider rows in passes), for each
+# dtype pair, through the JAX Pallas backward in interpret mode and the
+# port's plain version.  Tolerances as in the training slice's backward
+# test: fp32 dx 1e-5 relative, bf16 dx one bf16 ulp of its magnitude
+# (both round the same fp32 value), dw and db 1e-5 of their magnitude
+# (fp32 sums over rows in another order).
 
-@pytest.mark.parametrize("rows", [1, 3])
-@pytest.mark.parametrize("hidden", [4096, 8192])
+_PAIRS = {"fp32/fp32": ("float32", "float32"),
+          "bf16/fp32": ("bfloat16", "float32"),
+          "bf16/bf16": ("bfloat16", "bfloat16")}
+
+
+@pytest.mark.parametrize("pair", list(_PAIRS))
+@pytest.mark.parametrize("rows", [1, 7])
+@pytest.mark.parametrize("hidden", [64, 1001, 2048, 2056, 4096, 4104, 8192,
+                                    8200])
 @pytest.mark.parametrize("rms", [True, False])
-def test_norm_bwd_edge_shapes_match_jax(rows, hidden, rms):
+def test_norm_bwd_edge_shapes_match_jax(pair, rows, hidden, rms):
+    xd, wd = _PAIRS[pair]
     rng = np.random.RandomState(hidden + rows)
     x = (rng.randn(rows, hidden) * 2 + 0.5).astype(np.float32)
     w = (1 + 0.1 * rng.randn(hidden)).astype(np.float32)
     dy = rng.randn(rows, hidden).astype(np.float32)
-    jdx, jdw, jdb = jln._bwd_2d(jnp.asarray(x), jnp.asarray(w),
-                                jnp.asarray(dy), 1e-5, rms)
-    tdx, tdw, tdb = tln._bwd_2d(*(torch.from_numpy(a) for a in (x, w, dy)),
-                                1e-5, rms)
-    np.testing.assert_allclose(tdx.numpy(), np.asarray(jdx), rtol=1e-5,
-                               atol=2e-5)
+    jx, jw, jdy = (jnp.asarray(a, _DTYPES[d][0])
+                   for a, d in ((x, xd), (w, wd), (dy, xd)))
+    tx, tw, tdy = (torch.from_numpy(a).to(_DTYPES[d][1])
+                   for a, d in ((x, xd), (w, wd), (dy, xd)))
+    jdx, jdw, jdb = jln._bwd_2d(jx, jw, jdy, 1e-5, rms)
+    tdx, tdw, tdb = tln._bwd_2d(tx, tw, tdy, 1e-5, rms)
+    assert tdx.dtype == tx.dtype and tdw.dtype == torch.float32
+    ref = np.asarray(jdx.astype(jnp.float32))
+    if xd == "float32":
+        np.testing.assert_allclose(tdx.numpy(), ref, rtol=1e-5, atol=2e-5)
+    else:
+        np.testing.assert_allclose(tdx.float().numpy(), ref, rtol=0,
+                                   atol=2.0 ** -7 * np.abs(ref).max())
     for got, ref in ((tdw, jdw), (tdb, jdb)) if not rms else ((tdw, jdw),):
         ref = np.asarray(ref).reshape(-1)
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5,
                                    atol=1e-5 * np.abs(ref).max())
     assert (tdb is None) == rms
-
-
-# -- the backward's instance plan (host side of the card kernel) ---------
-
-@pytest.mark.parametrize("hidden", [1, 64, 256, 257, 1001, 2048, 4096,
-                                    4104, 8192, 8200, 16384, 29056])
-@pytest.mark.parametrize("x_bytes", [2, 4])
-@pytest.mark.parametrize("rows", [1, 7, 2048])
-def test_norm_bwd_plan_invariants(hidden, x_bytes, rows):
-    vec = hidden % 8 == 0
-    plan = tln._bwd_plan(rows, hidden, x_bytes, vec, 132)
-    block = plan.tg * plan.r
-    assert block in tln._BWD_BLOCKS_PER_SM and plan.tg % 32 == 0
-    assert plan.vec == vec and plan.e % 8 == 0
-    # a row in registers fits the group; only wider rows take passes
-    widest = max(tg * e for _, tg, e, _ in (
-        tln._BWD_ROW_IN_REGISTERS[x_bytes] if vec
-        else tln._BWD_ELEMENTWISE))
-    assert plan.multi == (hidden > widest)
-    if not plan.multi:
-        assert hidden <= plan.tg * plan.e
-    else:
-        assert (plan.tg, plan.e, plan.r) == tln._BWD_MULTI_PASS
-    # a persistent grid of one or two blocks an SM, no block without a
-    # row, so at most 264 partial rows on 132 SMs
-    per_sm = tln._BWD_BLOCKS_PER_SM[block]
-    assert 1 <= plan.nblocks <= per_sm * 132 <= 264
-    assert plan.nblocks <= -(-rows // plan.r)
-
-
-def test_norm_bwd_plan_puts_8192_in_registers_and_8200_in_passes():
-    assert not tln._bwd_plan(2048, 8192, 2, True, 132).multi
-    assert tln._bwd_plan(2048, 8200, 2, True, 132).multi
-    plan = tln._bwd_plan(2048, 4096, 2, True, 132)
-    assert (plan.tg, plan.e) == (256, 16) and plan.nblocks <= 264

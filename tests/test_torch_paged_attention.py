@@ -171,6 +171,7 @@ PLANS = [
     (256, 8, 4, 128, 64, 64, 132),
     (1, 8, 4, 128, 64, 128, 132),     # an 8192-position window
     (8, 8, 4, 128, 16, 512, 132),
+    (8, 8, 4, 128, 128, 32, 132),     # page 128
     (6, 2, 8, 64, 16, 44, 132),
     (3, 1, 1, 64, 32, 1, 132),        # a one-page window
     (65535, 1, 2, 64, 16, 3, 132),
@@ -227,3 +228,16 @@ def test_kernel_call_refuses_a_page_size_it_has_no_instance_for():
     lengths = torch.zeros(slots, dtype=torch.int32)
     with pytest.raises(ValueError, match="page_size"):
         tpa._kernel_call(q, pages, pages, table, lengths, 0.125)
+
+
+@pytest.mark.parametrize("ps", [1, 2, 4, 8, 16, 32, 64, 128, 256])
+def test_kernel_page_sizes_are_checked_by_one_rule(ps):
+    """The kernel's page sizes, as the card engine checks them when it is
+    built; the wrapper refuses the same ones."""
+    takes = ps in (16, 32, 64, 128)
+    if takes:
+        tpa.check_kernel_page_size(ps)
+    else:
+        with pytest.raises(ValueError, match="page_size"):
+            tpa.check_kernel_page_size(ps)
+    assert (ps in tpa._KERNEL_PAGE_SIZES) == takes
