@@ -23,10 +23,15 @@ rules and ``contrib.clip_grad_norm_``, on the L2 norm, LAMB phase-1,
 SGD and Adagrad kernels — and the last slice of kernels: Apex's
 ``multi_tensor_applier`` entry point (:mod:`.multi_tensor_apply`) on
 the axpby and fused scale-and-norm kernels, and the split flash
-backward that trains at 8192 tokens.  Importing this package imports
-neither ``jax`` nor ``apex_tpu``.
+backward that trains at 8192 tokens — and Apex's optimizer classes
+(:mod:`.optimizers`: ``FusedAdam(model.parameters())`` and its
+siblings, as ``torch.optim.Optimizer`` twins on the flat rules, or over
+a tree of tensors) with the train-to-serve handoff
+(``InferenceEngine.from_train_state`` / ``from_state_dict``).
+Importing this package imports neither ``jax`` nor ``apex_tpu``.
 """
 from apex_tpu_torch.utils import cdiv, resolve_device, round_up
-from apex_tpu_torch import multi_tensor_apply
+from apex_tpu_torch import multi_tensor_apply, optimizers
 
-__all__ = ["cdiv", "round_up", "resolve_device", "multi_tensor_apply"]
+__all__ = ["cdiv", "round_up", "resolve_device", "multi_tensor_apply",
+           "optimizers"]

@@ -22,6 +22,9 @@ the pool in place.  Sampled tokens and the ``truncated`` flags come
 back as CPU tensors: the scheduler reads them between steps, which is
 the continuous-batching control loop's one host read per step.
 
+A trained model enters through :meth:`InferenceEngine.from_train_state`
+or :meth:`InferenceEngine.from_state_dict`.
+
 Not in this slice (each raises ``NotImplementedError`` naming its
 ROADMAP item): GPT and BERT, the dense slot cache, tensor-parallel
 serving, speculative decoding and the host-DRAM page tier.
@@ -307,3 +310,25 @@ class InferenceEngine:
         return scheduler.generate(self, prompts,
                                   max_new_tokens=max_new_tokens,
                                   eos_id=eos_id)
+
+    # -- checkpoint boundaries ----------------------------------------------
+    @classmethod
+    def from_train_state(cls, kind: str, cfg, state, *,
+                         dtype=torch.bfloat16, **kwargs):
+        """Build from a :class:`~apex_tpu_torch.train_step.TrainState`
+        (or a bare ``FlatState``): the weights exported in ``dtype``
+        (bf16, the serving default) by ``FlatState.params(dtype=...)``;
+        every other keyword goes to ``__init__``."""
+        opt = getattr(state, "opt", state)
+        return cls(kind, cfg, opt.params(dtype=dtype), **kwargs)
+
+    @classmethod
+    def from_state_dict(cls, kind: str, cfg, sd, params_template, *,
+                        dtype=torch.bfloat16, **kwargs):
+        """Build from a state dict whose ``"master"`` is the full flat fp32
+        master, plus the param template (the model, or its tree) that
+        defines the leaf layout
+        (:func:`~apex_tpu_torch.optimizers.functional.export_params`)."""
+        from apex_tpu_torch.optimizers.functional import export_params
+        params = export_params(sd["master"], params_template, dtype=dtype)
+        return cls(kind, cfg, params, **kwargs)

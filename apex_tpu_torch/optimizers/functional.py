@@ -19,6 +19,9 @@ the kernels of :mod:`apex_tpu_torch.ops.fused_update`:
 * :func:`fused_novograd` — plain PyTorch, as its JAX rule reaches no
   Pallas kernel.
 
+:func:`export_params` turns a full flat master back into a parameter
+tree for serving (the train-to-serve boundary).
+
 The JAX ``update`` is pure and XLA donates the old buffers; here the
 kernels update master and slots IN PLACE and ``update`` returns a new
 :class:`FlatState` over the same buffers with the advanced count (a
@@ -42,10 +45,11 @@ from apex_tpu_torch.ops.fused_update import (_scalar, fused_adagrad_flat,
                                              fused_lamb_phase1_flat,
                                              fused_sgd_flat)
 from apex_tpu_torch.optimizers.base import broadcast_leaf_scalars
-from apex_tpu_torch.utils import tree_leaves_with_path, tree_ravel
+from apex_tpu_torch.utils import (ravel_layout, tree_leaves_with_path,
+                                  tree_ravel)
 
 __all__ = ["FlatState", "fused_adam", "fused_lamb", "fused_sgd",
-           "fused_novograd", "fused_adagrad"]
+           "fused_novograd", "fused_adagrad", "export_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +97,29 @@ class FlatState:
 def _cast_floating(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast_floating(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_floating(v, dtype) for v in tree)
     return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def export_params(flat, params_template, *, dtype=None):
+    """Inference weight export from a FULL flat master buffer.
+
+    ``flat`` is the fp32 master (``FlatState.master``); trailing padding
+    past the template's element count is sliced off.
+    ``params_template`` supplies the leaf layout and dtypes (an
+    ``nn.Module`` or a nested dict of tensors, as ``init`` takes; only
+    shapes and dtypes are read); ``dtype`` optionally casts the floating
+    leaves for serving (bf16)."""
+    n, flat_dtype, unravel = ravel_layout(params_template)
+    flat = torch.as_tensor(flat)
+    if flat.shape[0] < n:
+        raise ValueError(
+            f"flat master has {flat.shape[0]} elements < the template's "
+            f"{n} — wrong template, or a single SHARD was passed instead "
+            "of the reassembled full master")
+    tree = unravel(flat[:n].to(flat_dtype))
+    return tree if dtype is None else _cast_floating(tree, dtype)
 
 
 def _init_state(tx, params, shard=None, prefetch=None) -> FlatState:

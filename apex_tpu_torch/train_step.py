@@ -19,6 +19,9 @@ from buffers (:class:`FlatParams`):
 * the flat fp32 grads are the cast of that buffer (again one copy per
   run) — what JAX's cotangent through ``astype`` is.
 
+The torch-mode optimizers (``FusedAdam(model.parameters())``) bind each
+param group with the same :class:`FlatParams`.
+
 amp runs on the device: the loss is scaled before the backward, the
 flat grads are unscaled in place by the fused non-finite-detecting
 kernel (:func:`apex_tpu_torch.amp.scaler.unscale_flat_grads`), the
@@ -55,7 +58,7 @@ from apex_tpu_torch.optimizers.functional import FlatState
 from apex_tpu_torch.utils import round_up, tree_leaves_with_path
 
 __all__ = ["FlatParams", "TrainState", "init_train_state",
-           "make_train_step", "train_loop"]
+           "make_train_step", "train_loop", "leaf_offsets"]
 
 #: byte alignment of each same-dtype run inside the flat buffers
 _RUN_ALIGN = 256
@@ -70,23 +73,31 @@ class _Run:
 
 
 class FlatParams:
-    """Rebinds a module's parameters to views of one flat parameter
-    buffer and their grads to views of one flat grad buffer, both laid
-    out in the flax tree's leaf order (:func:`tree_leaves_with_path`).
+    """Rebinds parameters to views of one flat parameter buffer and their
+    grads to views of one flat grad buffer, both laid out in leaf order:
+    the flax tree's (:func:`tree_leaves_with_path`) for a module, the
+    list's own for a list of parameters (an optimizer's param group).
 
     Consecutive leaves of one dtype form a run; the buffers are bytes,
     each run starting at a 256-byte boundary and holding its leaves in
-    their own dtype."""
+    their own dtype.
 
-    def __init__(self, module: torch.nn.Module):
-        self.module = module
-        leaves = tree_leaves_with_path(module)
-        if not leaves:
-            raise ValueError("the module has no parameters")
-        device = leaves[0][1].device
+    ``master``, a flat fp32 buffer of the same element layout, makes
+    every fp32 leaf a view of its slice of the master (the parameter IS
+    its master, as in the torch-mode optimizers); :meth:`load` then
+    copies only the other runs."""
+
+    def __init__(self, params, master: Optional[torch.Tensor] = None):
+        self.module = params if isinstance(params, torch.nn.Module) else None
+        self.leaves = [p for _, p in tree_leaves_with_path(params)]
+        if not self.leaves:
+            raise ValueError("there are no parameters to bind")
+        if len({id(p) for p in self.leaves}) != len(self.leaves):
+            raise ValueError("a parameter appears twice in the leaves")
+        device = self.leaves[0].device
         runs: List[_Run] = []
         elem, nbytes = 0, 0
-        for _, p in leaves:
+        for p in self.leaves:
             if p.device != device:
                 raise ValueError("every parameter must be on one device")
             if not runs or runs[-1].dtype != p.dtype:
@@ -99,14 +110,25 @@ class FlatParams:
             nbytes += n * p.element_size()
         self.runs = tuple(runs)
         self.numel = elem
-        self.param_bytes = torch.empty(round_up(nbytes, _RUN_ALIGN),
-                                       dtype=torch.uint8, device=device)
-        self.grad_bytes = torch.zeros_like(self.param_bytes)
-        self._param_runs = [self._run_view(self.param_bytes, r) for r in runs]
+        if master is not None and (master.dtype != torch.float32
+                                   or master.shape != (elem,)):
+            raise ValueError(f"master must be a flat fp32 buffer of {elem} "
+                             f"elements")
+        self._aliased = [master is not None and r.dtype == torch.float32
+                         for r in runs]
+        self.param_bytes = None if all(self._aliased) else torch.empty(
+            round_up(nbytes, _RUN_ALIGN), dtype=torch.uint8, device=device)
+        self.grad_bytes = torch.zeros(round_up(nbytes, _RUN_ALIGN),
+                                      dtype=torch.uint8, device=device)
+        self._param_runs = [
+            master[r.start:r.stop] if alias
+            else self._run_view(self.param_bytes, r)
+            for r, alias in zip(runs, self._aliased)]
         self._grad_runs = [self._run_view(self.grad_bytes, r) for r in runs]
         self.flat_grads = torch.empty(elem, dtype=torch.float32,
                                       device=device)
-        self._bind(leaves)
+        self.grad_views: List[torch.Tensor] = []
+        self._bind()
 
     @staticmethod
     def _run_view(buf: torch.Tensor, r: _Run) -> torch.Tensor:
@@ -114,10 +136,10 @@ class FlatParams:
         n = r.stop - r.start
         return buf[r.byte_offset:r.byte_offset + n * es].view(r.dtype)
 
-    def _bind(self, leaves) -> None:
+    def _bind(self) -> None:
         run_i, elem = 0, 0
         with torch.no_grad():
-            for _, p in leaves:
+            for p in self.leaves:
                 while elem >= self.runs[run_i].stop:
                     run_i += 1
                 r = self.runs[run_i]
@@ -125,19 +147,31 @@ class FlatParams:
                 pv = self._param_runs[run_i][lo:hi].view(p.shape)
                 gv = self._grad_runs[run_i][lo:hi].view(p.shape)
                 pv.copy_(p)
+                if p.grad is not None:
+                    gv.copy_(p.grad)
                 p.data = pv
                 p.grad = gv
+                self.grad_views.append(gv)
                 elem += p.numel()
 
-    def load(self, master: torch.Tensor) -> None:
-        """Cast the fp32 master into the parameter buffer (one copy per
-        run)."""
+    def load(self, master: torch.Tensor, start: int = 0,
+             stop: Optional[int] = None) -> None:
+        """Cast the fp32 master's elements ``[start, stop)`` (all of them
+        by default) into the parameter buffer: one copy per run they
+        touch, none for a run that is a view of the master."""
+        stop = self.numel if stop is None else stop
         with torch.no_grad():
-            for r, view in zip(self.runs, self._param_runs):
-                view.copy_(master[r.start:r.stop])
+            for r, view, alias in zip(self.runs, self._param_runs,
+                                      self._aliased):
+                lo, hi = max(r.start, start), min(r.stop, stop)
+                if lo < hi and not alias:
+                    view[lo - r.start:hi - r.start].copy_(master[lo:hi])
 
     def zero_grad(self) -> None:
+        """Zero the grad buffer and make every leaf's grad its view."""
         self.grad_bytes.zero_()
+        for p, gv in zip(self.leaves, self.grad_views):
+            p.grad = gv
 
     def cast_grads(self) -> torch.Tensor:
         """The flat fp32 grads: the cast of the grad buffer (one copy per
@@ -252,3 +286,22 @@ def train_loop(loss_fn, tx, **step_kwargs):
         return state, metrics
 
     return run
+
+
+def leaf_offsets(tree) -> "dict[str, tuple[int, int, tuple]]":
+    """``{keystr: (offset, size, shape)}`` of each leaf inside the
+    raveled flat buffer, in the flat layout's leaf order.  The keys are
+    spelled as ``jax.tree_util.keystr`` spells them (``['a']['b']``,
+    ``[0]`` for a list index), so the JAX package gives the same dict
+    for the same tree.
+
+    The flat-native escape hatch for per-leaf grad fixups (tied
+    embeddings): slice the leaf out of the flat grads, fix it, write it
+    back, with no tree round-trip."""
+    out, off = {}, 0
+    for path, leaf in tree_leaves_with_path(tree):
+        size = leaf.numel()
+        out["".join(f"[{k!r}]" for k in path)] = (off, size,
+                                                  tuple(leaf.shape))
+        off += size
+    return out

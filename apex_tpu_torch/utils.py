@@ -13,7 +13,7 @@ from typing import Callable, List, Tuple
 import torch
 
 __all__ = ["cdiv", "round_up", "resolve_device", "tree_leaves_with_path",
-           "tree_ravel"]
+           "tree_ravel", "ravel_layout"]
 
 
 def cdiv(a: int, b: int) -> int:
@@ -102,20 +102,14 @@ def _rebuild(node, leaves):
     return next(leaves)
 
 
-def tree_ravel(tree) -> Tuple[torch.Tensor, Callable]:
-    """Flatten a parameter tree into one 1-D buffer plus an unravel
-    function — the counterpart of ``apex_tpu.utils.tree_ravel``
-    (``jax.flatten_util.ravel_pytree``): leaves in
-    :func:`tree_leaves_with_path` order, the buffer in the leaves'
-    promoted dtype (fp32 when there are none), and ``unravel(flat)`` the
-    tree's own containers (a nested dict for a module) holding new
-    tensors, each cast back to its leaf's dtype and shape."""
+def ravel_layout(tree) -> Tuple[int, torch.dtype, Callable]:
+    """``(numel, dtype, unravel)`` of :func:`tree_ravel` without building
+    the flat buffer: the element count, the buffer's dtype and the
+    unravel function.  Reads only the leaves' shapes and dtypes."""
     leaves = tree_leaves_with_path(tree)
     dtype = leaves[0][1].dtype if leaves else torch.float32
     for _, t in leaves[1:]:
         dtype = torch.promote_types(dtype, t.dtype)
-    flat = torch.cat([t.detach().reshape(-1).to(dtype) for _, t in leaves]) \
-        if leaves else torch.zeros((0,), dtype=dtype)
     spec = [(t.dtype, tuple(t.shape), t.numel()) for _, t in leaves]
     skeleton = _skeleton(tree)
 
@@ -127,4 +121,19 @@ def tree_ravel(tree) -> Tuple[torch.Tensor, Callable]:
                 off += n
         return _rebuild(skeleton, pieces())
 
+    return sum(n for _, _, n in spec), dtype, unravel
+
+
+def tree_ravel(tree) -> Tuple[torch.Tensor, Callable]:
+    """Flatten a parameter tree into one 1-D buffer plus an unravel
+    function — the counterpart of ``apex_tpu.utils.tree_ravel``
+    (``jax.flatten_util.ravel_pytree``): leaves in
+    :func:`tree_leaves_with_path` order, the buffer in the leaves'
+    promoted dtype (fp32 when there are none), and ``unravel(flat)`` the
+    tree's own containers (a nested dict for a module) holding new
+    tensors, each cast back to its leaf's dtype and shape."""
+    _, dtype, unravel = ravel_layout(tree)
+    leaves = tree_leaves_with_path(tree)
+    flat = torch.cat([t.detach().reshape(-1).to(dtype) for _, t in leaves]) \
+        if leaves else torch.zeros((0,), dtype=dtype)
     return flat, unravel

@@ -108,6 +108,29 @@
    against the same calls through the plain versions; ``noop_flag`` 1
    and an inf in one grad must raise every flag.
 
+10. **Optim** (after train).  Apex's optimizer classes
+   (:mod:`apex_tpu_torch.optimizers`) at Llama-3-8B widths, every
+   update kernel held to launch and no plain update version allowed to
+   run: ``FusedAdam(model.parameters(), lr=1e-4)`` must be the
+   ``FusedAdamTorch`` twin, six rounds of ``loss.backward();
+   opt.step(); opt.zero_grad()`` on the 4-layer model and the 2048-token
+   batch (the loss falls; one ``fused_adam`` launch a step; each step
+   under ``set_sync_debug_mode("error")``), its step time and peak
+   memory beside ``make_train_step``'s with no loss scale, and the
+   time of the twin's grad-buffer copy pass; one twin step against one
+   functional step from one warm state (1 layer: two optimizer states
+   side by side), fed the same grads, every leaf's master and moments
+   within 1e-6; the LAMB twin (decay and no-decay groups), SGD and
+   Adagrad twins at 1 layer with their launches a step; ``FusedLAMB``
+   over the 1-layer model's tree, three ``step(grads)`` calls against
+   the functional update; and the handoff: the 4-layer model trained
+   three ``make_train_step`` steps, served through
+   ``InferenceEngine.from_train_state`` (8 prompts, 32 greedy tokens,
+   page 64) with two requests' decode logits held against the full
+   forward, and an engine from ``from_state_dict`` giving the same
+   weights and tokens.  Its launches are added to the ``kernels``
+   line's counts.
+
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed phase raises, so the
 script exits non-zero and prints no result; so does a machine without
@@ -229,6 +252,16 @@ KERNEL_RUN = {"fused_l2norm": "lamb", "fused_lamb1": "lamb",
               "fused_sgd": "sgd", "fused_adagrad": "adagrad",
               "flash_attention_bwd_dq": "adam8k",
               "flash_attention_bwd_dkv": "adam8k"}
+#: the optim phase (Apex's optimizer classes): the 1-layer twins and
+#: the tree-class LAMB take three steps each; the handoff trains three
+#: steps before serving; a twin step and a tree step are held to the
+#: functional update within 1e-6 of each leaf's magnitude (the same
+#: kernel on the same values: bit for bit is expected)
+OPTIM_RULE_STEPS = 3
+OPTIM_TREE_STEPS = 3
+HANDOFF_STEPS = 3
+TOL_TWIN_REL = 1e-6
+HANDOFF_SERVE_KERNELS = ("layer_norm", "flash_attention", "paged_attention")
 #: the 4-layer training model (Llama-3-8B widths) and its batch
 TRAIN_LAYERS = 4
 TRAIN_SEQ = 2048
@@ -2171,6 +2204,408 @@ def phase_rule_check(dev, seed: int):
     return worst_all
 
 
+@contextlib.contextmanager
+def _plain_updates_refused():
+    """Make every plain version of the update kernels raise: a class-API
+    step on the card that reached one would fail the phase."""
+    fu = importlib.import_module("apex_tpu_torch.ops.fused_update")
+    saved = {n: getattr(fu, n) for n in dir(fu) if n.endswith("_plain")}
+
+    def refuse(name):
+        def plain(*args, **kwargs):
+            raise AssertionError(f"{name} ran on the card")
+        return plain
+
+    for name in saved:
+        setattr(fu, name, refuse(name))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(fu, name, fn)
+
+
+def _strict_step(opt, **kw):
+    """``opt.step()`` under ``set_sync_debug_mode("error")``: from the
+    end of the backward to the new parameters, nothing reads back."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        opt.step(**kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _twin_loop(dev, seed: int):
+    """Apex's own loop on the 4-layer model: ``FusedAdam(model.
+    parameters())``, then six rounds of ``loss.backward(); opt.step();
+    opt.zero_grad()``.  Returns the launch counts, step time, peak memory
+    and the time of the grad-buffer copy pass."""
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers._torch_mode import FusedAdamTorch
+    t0 = time.perf_counter()
+    cfg, model, batch = _train_model(dev, seed, TRAIN_LAYERS)
+    opt = FusedAdam(model.parameters(), lr=TRAIN_LR)
+    if type(opt) is not FusedAdamTorch:
+        raise AssertionError(f"FusedAdam(model.parameters()) gave "
+                             f"{type(opt).__name__}")
+    n = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    print(f"optim twin adam: FusedAdam(model.parameters()) is "
+          f"{type(opt).__name__}; Llama-3-8B widths, {TRAIN_LAYERS} layers, "
+          f"{n} parameters, {TRAIN_SEQ} tokens a step, set up in "
+          f"{time.perf_counter() - t0:.1f} s")
+    losses, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = _train_loss(model, batch)
+        loss.backward()
+        _strict_step(opt)
+        opt.zero_grad()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.median(times[1:]))
+    print(f"  losses {[round(x, 4) for x in losses]}")
+    print(f"  step times {[round(t, 4) for t in times]} s; median of steps "
+          f"2-{TRAIN_STEPS} {step_s:.4f} s = {TRAIN_SEQ / step_s:.1f} "
+          f"tokens/s; peak device memory {peak / 2**30:.2f} GiB")
+    print(f"  kernel launches per step: "
+          f"{ {k: v / TRAIN_STEPS for k, v in launches.items() if v} }")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"twin adam: the loss did not fall: {losses}")
+    if launches["fused_adam"] != TRAIN_STEPS:
+        raise AssertionError(f"twin adam: fused_adam launched "
+                             f"{launches['fused_adam']} times in "
+                             f"{TRAIN_STEPS} steps")
+    # the pass the functional step does not have: each fresh grad copied
+    # into its slot of the grad buffer (zero_grad set the grads to None)
+    _train_loss(model, batch).backward()
+    fg = opt._groups[0]
+    pairs = [(gv, p.grad) for p, gv in zip(fg.params, fg.flat.grad_views)]
+    grad_bytes = sum(g.numel() * g.element_size() for _, g in pairs)
+    copy_ms = _time_ms(lambda: [gv.copy_(g) for gv, g in pairs], 5)
+    cast_ms = _time_ms(fg.flat.cast_grads, 5)
+    load_ms = _time_ms(lambda: fg.flat.load(fg.master), 5)
+    print(f"  twin step passes: grad-buffer copy {copy_ms:.4f} ms ("
+          f"{len(pairs)} copies, {grad_bytes / 1e9:.3f} GB each way, bound "
+          f"{2 * grad_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms), grad cast "
+          f"{cast_ms:.4f} ms, master cast into the parameters "
+          f"{load_ms:.4f} ms")
+    del pairs, opt, model, fg
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_s=step_s, peak_bytes=peak,
+                losses=losses, copy_ms=copy_ms)
+
+
+def _leaf_key(name: str) -> str:
+    return "".join(f"[{k!r}]" for k in name.split("."))
+
+
+def _twin_against_functional(dev, seed: int):
+    """From one warm state (two functional Adam steps, no loss scale, on
+    the 1-layer model), one ``make_train_step`` step and one step of a
+    ``FusedAdam`` twin on a second copy of the model, fed the functional
+    step's grads (the one-pass flash backward adds dq in any order, so
+    two backwards differ in their last bits): master, ``exp_avg`` and
+    ``exp_avg_sq`` of every leaf, and the update launches, must agree."""
+    from apex_tpu_torch import train_step
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.optimizers import FusedAdam, functional
+    tx = functional.fused_adam(lr=TRAIN_LR)
+    _, model_f, batch = _train_model(dev, seed, RULE_LAYERS)
+    state = train_step.init_train_state(tx, model_f)
+    step = train_step.make_train_step(_train_loss, tx)
+    for _ in range(2):
+        state, _ = step(state, batch)
+    _, model_t, _ = _train_model(dev, seed, RULE_LAYERS)
+    opt = FusedAdam(model_t.parameters(), lr=TRAIN_LR)
+    offsets = train_step.leaf_offsets(model_f)
+    count = int(state.opt.count.item())
+    ref = {"master": state.opt.master, **state.opt.slots}
+    # each twin leaf's slice of the functional flat buffers
+    leaves = [(name, p, *offsets[_leaf_key(name)])
+              for name, p in model_t.named_parameters()]
+    sd = opt.state_dict()
+    for i, (_, p, off, size, shape) in enumerate(leaves):
+        sd["state"][i] = {"step": count, **{
+            k: buf[off:off + size].view(shape) for k, buf in ref.items()}}
+    opt.load_state_dict(sd)
+    with torch.no_grad():
+        for _, p, off, size, shape in leaves:
+            p.copy_(ref["master"][off:off + size].view(shape))
+    _build.reset_launch_counts()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    f_counts = _build.launch_counts()
+    # the functional step's grads, as autograd would hand them over
+    views = dict(zip(offsets, state.flat.grad_views))
+    for name, p, *_ in leaves:
+        p.grad = views[_leaf_key(name)]
+    _build.reset_launch_counts()
+    _strict_step(opt)
+    torch.cuda.synchronize()
+    t_counts = _build.launch_counts()
+    worst = {}
+    for name, p, off, size, shape in leaves:
+        st = opt.state[p]
+        for k, buf in ref.items():
+            a = st.get(k, p)                 # an fp32 leaf is its master
+            b = buf[off:off + size].view(shape)
+            rel = (a.float() - b).abs().max().item() / max(
+                b.abs().max().item(), 1e-30)
+            if rel >= worst.get(k, (-1.0,))[0]:
+                worst[k] = (rel, name)
+    upd = {k: (f_counts[k], t_counts[k]) for k in ("fused_adam",)}
+    print(f"optim twin vs functional (1 layer, one Adam step from a warm "
+          f"state at step {count}, the functional step's grads): worst "
+          f"leaf max|diff| / max|ref|: "
+          + ", ".join(f"{k} {v:.3e} ({leaf})" for k, (v, leaf)
+                      in worst.items())
+          + f" (limit {TOL_TWIN_REL}); update launches functional/twin "
+          f"{upd}; the twin step launched "
+          f"{ {k: v for k, v in t_counts.items() if v} }")
+    bad = {k: v for k, v in worst.items() if not v[0] <= TOL_TWIN_REL}
+    if bad:
+        raise AssertionError(f"twin step off the functional step: {bad}")
+    if not f_counts["fused_adam"] == t_counts["fused_adam"] == 1 or any(
+            v for k, v in t_counts.items() if k != "fused_adam"):
+        raise AssertionError(f"launches differ: functional {f_counts}, "
+                             f"twin {t_counts}")
+    del opt, model_t, model_f, state, step, views, ref, leaves
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _other_twins(dev, seed: int):
+    """LAMB (two groups: decay and no-decay), SGD and Adagrad twins on the
+    1-layer model, ``OPTIM_RULE_STEPS`` rounds each: each rule's kernel
+    once per group and step; LAMB's norm 2 per leaf plus at most 2 per
+    group a step."""
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.optimizers import FusedAdagrad, FusedLAMB, FusedSGD
+    out = {}
+    for label, cls, kw, kernel in (
+            ("lamb", FusedLAMB, LAMB_KW, "fused_lamb1"),
+            ("sgd", FusedSGD, SGD_KW, "fused_sgd"),
+            ("adagrad", FusedAdagrad, ADAGRAD_KW, "fused_adagrad")):
+        _, model, batch = _train_model(dev, seed, RULE_LAYERS)
+        named = list(model.named_parameters())
+        groups = [{"params": [p for n, p in named if "norm" not in n]},
+                  {"params": [p for n, p in named if "norm" in n],
+                   "weight_decay": 0.0}]
+        opt = cls(groups if label == "lamb" else model.parameters(), **kw)
+        n_groups = len(opt.param_groups)
+        losses = []
+        _build.reset_launch_counts()
+        for _ in range(OPTIM_RULE_STEPS):
+            loss = _train_loss(model, batch)
+            loss.backward()
+            _strict_step(opt)
+            opt.zero_grad()
+            losses.append(loss.item())
+        launches = _build.launch_counts()
+        per_step = {k: v / OPTIM_RULE_STEPS for k, v in launches.items()
+                    if v}
+        print(f"optim twin {label} ({type(opt).__name__}, 1 layer, "
+              f"{len(named)} leaves in {n_groups} group(s)): losses "
+              f"{[round(x, 4) for x in losses]}; launches per step "
+              f"{per_step}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"twin {label}: non-finite loss {losses}")
+        if launches[kernel] != n_groups * OPTIM_RULE_STEPS:
+            raise AssertionError(f"twin {label}: {kernel} launched "
+                                 f"{launches[kernel]} times")
+        if label == "lamb":
+            norms = launches["fused_l2norm"] / OPTIM_RULE_STEPS
+            if not 2 * len(named) < norms <= 2 * len(named) + 2 * n_groups:
+                raise AssertionError(f"twin lamb: {norms} norm launches a "
+                                     f"step for {len(named)} leaves")
+        out[label] = launches
+        del opt, model, groups, named
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tree_lamb(dev, seed: int):
+    """``FusedLAMB(tree).step(grads_tree)`` over the 1-layer model's
+    parameter tree, three steps, against the functional LAMB update on
+    the same flat grads from a clone of the same state."""
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.optimizers import FusedLAMB, functional
+    from apex_tpu_torch.utils import tree_leaves_with_path, tree_ravel
+    _, model, batch = _train_model(dev, seed, RULE_LAYERS)
+
+    def tree_of(tensors):
+        tree: dict = {}
+        for (path, _), t in zip(tree_leaves_with_path(model), tensors):
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = t
+        return tree
+
+    leaves = tree_leaves_with_path(model)
+    params = tree_of([p.detach() for _, p in leaves])
+    opt = FusedLAMB(params, **LAMB_KW)
+    if type(opt) is not FusedLAMB:
+        raise AssertionError(f"FusedLAMB(tree) gave {type(opt).__name__}")
+    tx = functional.fused_lamb(**LAMB_KW)
+    ref = tx.init(params)
+    launches, worst = {}, {}
+    for i in range(OPTIM_TREE_STEPS):
+        model.zero_grad(set_to_none=True)
+        _train_loss(model, batch).backward()
+        grads = tree_of([p.grad for _, p in leaves])
+        _build.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            opt.step(grads)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        _add_counts(launches, _build.launch_counts())
+        ref = tx.update(ref, tree_ravel(grads)[0])
+        group = opt.param_groups[0]
+        for k, a, b in [("master", group.master, ref.master)] + [
+                (k, group.state[k], ref.slots[k]) for k in ref.slots]:
+            off = 0
+            for (path, t) in leaves:
+                n = t.numel()
+                rb = b[off:off + n]
+                rel = (a[off:off + n] - rb).abs().max().item() / max(
+                    rb.abs().max().item(), 1e-30)
+                if rel >= worst.get(k, (-1.0,))[0]:
+                    worst[k] = (rel, ".".join(path))
+                off += n
+        del grads
+    per_step = {k: v / OPTIM_TREE_STEPS for k, v in launches.items() if v}
+    print(f"optim tree lamb (FusedLAMB(tree).step(grads), 1 layer, "
+          f"{len(leaves)} leaves, {OPTIM_TREE_STEPS} steps): launches per "
+          f"step {per_step}; against the functional update, worst leaf "
+          f"max|diff| / max|ref|: "
+          + ", ".join(f"{k} {v:.3e} ({leaf})" for k, (v, leaf)
+                      in worst.items()) + f" (limit {TOL_TWIN_REL})")
+    bad = {k: v for k, v in worst.items() if not v[0] <= TOL_TWIN_REL}
+    if bad:
+        raise AssertionError(f"tree lamb off the functional update: {bad}")
+    if launches["fused_lamb1"] != OPTIM_TREE_STEPS or launches[
+            "fused_l2norm"] != (1 + 2 * len(leaves)) * OPTIM_TREE_STEPS:
+        raise AssertionError(f"tree lamb launches: {launches}")
+    del opt, ref, model, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _handoff(dev, seed: int):
+    """Train the 4-layer model three ``make_train_step`` steps (Adam,
+    dynamic loss scale), hand the state to ``InferenceEngine.
+    from_train_state``, free the optimizer, serve the eight prompts; hold
+    two requests' decode logits against the full forward; an engine
+    from ``from_state_dict`` gives the same tokens."""
+    from apex_tpu_torch.inference import InferenceEngine
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.optimizers import functional
+    from apex_tpu_torch.utils import tree_leaves_with_path
+    cfg, model, tx, state, batch, train_step = _train_setup(
+        dev, seed, TRAIN_LAYERS, functional.fused_adam(lr=TRAIN_LR),
+        "dynamic")
+    step = train_step.make_train_step(_train_loss, tx)
+    _build.reset_launch_counts()
+    losses = []
+    for _ in range(HANDOFF_STEPS):
+        state, loss = step(state, batch)
+        losses.append(loss.item())
+    train_launches = _build.launch_counts()
+    print(f"optim handoff: trained {TRAIN_LAYERS} layers {HANDOFF_STEPS} "
+          f"steps (fused_adam, dynamic loss scale): losses "
+          f"{[round(x, 4) for x in losses]}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"handoff training: the loss did not fall "
+                             f"{losses}")
+    geometry = dict(slots=8, max_seq=4096, page_size=64, num_pages=512,
+                    device=dev)
+    t0 = time.perf_counter()
+    engine = InferenceEngine.from_train_state("llama", cfg, state,
+                                              **geometry)
+    torch.cuda.synchronize()
+    print(f"  InferenceEngine.from_train_state in "
+          f"{time.perf_counter() - t0:.2f} s")
+    # free the training state but the master (for from_state_dict) and
+    # the model (its template)
+    master = state.opt.master
+    for p in model.parameters():
+        p.grad = None
+    del state, step
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
+               for n in PROMPT_LENS]
+    served = _serve(engine, prompts, "handoff serve")
+    missing = [k for k in HANDOFF_SERVE_KERNELS if served["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"the handoff serve launched no {missing}")
+    worst = 0.0
+    for idx in (0, len(prompts) - 1):
+        _, d, _ = _check_logits(f"handoff request {idx}", engine,
+                                prompts[idx], served["outs"][idx],
+                                TOL_LOGITS)
+        worst = max(worst, d)
+    other = InferenceEngine.from_state_dict("llama", cfg, {"master": master},
+                                            model, **geometry)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        tree_leaves_with_path(engine.params),
+        tree_leaves_with_path(other.params)))
+    outs = other.generate(prompts, max_new_tokens=NEW_TOKENS)
+    print(f"  from_state_dict engine: weights equal {same}, greedy tokens "
+          f"equal {outs == served['outs']}")
+    if not same or outs != served["outs"]:
+        raise AssertionError("from_state_dict gave another engine than "
+                             "from_train_state")
+    del engine, other, master, model
+    torch.cuda.empty_cache()
+    launches = dict(train_launches)
+    _add_counts(launches, served["launches"])
+    return dict(launches=launches, ttft_mean_s=served["ttft_mean_s"],
+                decode_tokens_per_s=served["decode_tokens_per_s"],
+                peak_bytes=served["peak_bytes"], logit_err=worst)
+
+
+def phase_optim(dev, seed: int):
+    """Apex's optimizer classes on the card (see the module docstring,
+    phase 10); returns the launch counts of the phase's paths by kernel
+    and its records."""
+    from apex_tpu_torch.optimizers import functional
+    launches: dict = {}
+    with _plain_updates_refused():
+        twin = _twin_loop(dev, seed)
+        _add_counts(launches, twin["launches"])
+        func = _train_run(dev, seed, "adam, no loss scale (beside the twin)",
+                          functional.fused_adam(lr=TRAIN_LR), TRAIN_LAYERS,
+                          TRAIN_STEPS, None, ("fused_adam",))
+        print(f"optim: twin Adam step {twin['step_s']:.4f} s, peak "
+              f"{twin['peak_bytes'] / 2**30:.2f} GiB; functional step "
+              f"{func['step_s']:.4f} s, peak "
+              f"{func['peak_bytes'] / 2**30:.2f} GiB (no loss scale; "
+              f"{TRAIN_LAYERS} layers, {TRAIN_SEQ} tokens; {_smi()})")
+        _twin_against_functional(dev, seed)
+        for counts in _other_twins(dev, seed).values():
+            _add_counts(launches, counts)
+        _add_counts(launches, _tree_lamb(dev, seed))
+        handoff = _handoff(dev, seed)
+        _add_counts(launches, handoff["launches"])
+    return dict(launches=launches, twin=twin, functional=func,
+                handoff=handoff)
+
+
 def _library_of(csrc: Path, build_dir: Path, signatures=None):
     """The kernel library built from another copy of the kernel sources
     (``csrc``) into ``build_dir``, its entries typed by ``signatures``
@@ -2629,11 +3064,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="kernels,serve,profile,train,train-check,shim",
+                    default="kernels,serve,profile,train,optim,train-check,"
+                            "shim",
                     help="comma list of kernels, serve, profile, train, "
-                         "train-check, shim, ab (build always runs; profile "
-                         "profiles the serve and the train phases that "
-                         "run)")
+                         "optim, train-check, shim, ab (build always runs; "
+                         "profile profiles the serve and the train phases "
+                         "that run)")
     ap.add_argument("--baseline", type=Path, default=None,
                     help="root of a checkout of another version: with the "
                          "ab phase, time its kernels and this tree's, A/B "
@@ -2670,6 +3106,13 @@ def main(argv=None) -> int:
             if key not in SERVE_KERNELS + SHIM_KERNELS:
                 r["launches"] = runs[KERNEL_RUN.get(key, "adam")][
                     "launches"][key]
+    if "optim" in phases:
+        optim = phase_optim(dev, args.seed)
+        for key, r in recs.items():
+            r["launches"] = (r.get("launches") or 0) + optim["launches"].get(
+                key, 0)
+        del optim
+        torch.cuda.empty_cache()
     if "train-check" in phases:
         phase_train_check(dev, args.seed)
         phase_split_check(dev, args.seed)

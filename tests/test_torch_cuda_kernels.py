@@ -14,7 +14,9 @@ register/multi-pass line, the flash forward
 and all three flash backward kernels at lengths and windows that cut
 their tiles (causal rows that see no key among them), the
 fused decode block's query groups, head dims, edge lengths, slot
-groups and its attention-only variant).
+groups and its attention-only variant; the optimizer classes: each
+twin's and tree class's launches per step with no host sync, and a
+twin step equal to a functional step bit for bit).
 
 A CUDA kernel has no CPU mode, so every test here takes the ``cuda``
 fixture and skips without a card.  On a machine with one (the package's
@@ -1182,3 +1184,157 @@ def test_flash_bwd_kernels_one_key(cuda, d, causal):
     assert bool(((dv.float() - rdv).abs() <= 2.0 ** -6 * rdv.abs()
                  + 2.0 ** -9).all())
     assert _rel_l2(dv, rdv) <= 1e-2
+
+
+# -- the optimizer class API: twins and tree classes on the kernels --------
+#
+# A small LLaMA on the card (bf16 linears, fp32 norms): each twin's step
+# launches its rule's kernel once per group (LAMB: its norm 2 per leaf
+# plus at most 2 per group), reads nothing back from the end of the
+# backward to the new parameters, and equals the functional step bit
+# for bit when fed the same grads from the same state (the update
+# kernels are elementwise; the same values give the same bits).
+
+_SMALL_LLAMA = dict(vocab_size=256, hidden_size=128, num_layers=2,
+                    num_attention_heads=4, num_kv_heads=2,
+                    max_seq_length=64)
+
+
+def _small_llama(dev, seed=0):
+    from apex_tpu_torch.transformer.testing import (LlamaConfig,
+                                                    llama_model_provider)
+    cfg = LlamaConfig(**dict(_SMALL_LLAMA, params_dtype=torch.bfloat16))
+    model = llama_model_provider(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model.reset_parameters(generator=gen)
+    tokens = torch.randint(0, 256, (2, 65), generator=gen, device=dev)
+    return model, tokens[:, :-1].contiguous(), tokens[:, 1:].contiguous()
+
+
+def _twin_groups(model, split):
+    named = list(model.named_parameters())
+    if not split:
+        return [p for _, p in named]
+    return [{"params": [p for n, p in named if "norm" not in n]},
+            {"params": [p for n, p in named if "norm" in n],
+             "weight_decay": 0.0}]
+
+
+@pytest.mark.parametrize("name,kw,kernel,split", [
+    ("FusedAdam", dict(lr=1e-3), "fused_adam", False),
+    ("FusedAdam", dict(lr=1e-3), "fused_adam", True),
+    ("FusedLAMB", dict(lr=1e-3, max_grad_norm=1.0), "fused_lamb1", True),
+    ("FusedSGD", dict(lr=0.1, momentum=0.9, nesterov=True), "fused_sgd",
+     False),
+    ("FusedAdagrad", dict(lr=1e-2), "fused_adagrad", False),
+    ("FusedMixedPrecisionLamb", dict(lr=1e-3, step=2), "fused_lamb1",
+     False)])
+@pytest.mark.parametrize("set_to_none", [True, False])
+def test_twin_step_launches_its_kernel_once_per_group_without_sync(
+        cuda, name, kw, kernel, split, set_to_none):
+    import apex_tpu_torch.optimizers as topt
+    model, tokens, labels = _small_llama(cuda)
+    opt = getattr(topt, name)(_twin_groups(model, split), **kw)
+    assert isinstance(opt, torch.optim.Optimizer)
+    groups, leaves = len(opt.param_groups), len(list(model.parameters()))
+    for _ in range(2):
+        opt.zero_grad(set_to_none=set_to_none)
+        model(tokens, labels).backward()
+        _build.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            opt.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        counts = _build.launch_counts()
+        assert counts[kernel] == groups
+        if kernel == "fused_lamb1":
+            assert 2 * leaves < counts["fused_l2norm"] <= 2 * leaves \
+                + 2 * groups
+        assert not any(v for k, v in counts.items()
+                       if k not in (kernel, "fused_l2norm"))
+    torch.cuda.synchronize()
+    for p in model.parameters():
+        assert torch.isfinite(p).all()
+
+
+@pytest.mark.parametrize("name,kernels", [
+    ("FusedAdam", {"fused_adam": 1}),
+    ("FusedLAMB", {"fused_lamb1": 1, "fused_l2norm": None})])
+def test_tree_class_step_launches_its_kernels_without_sync(cuda, name,
+                                                          kernels):
+    import apex_tpu_torch.optimizers as topt
+    sizes = {"a": (64, 33), "b": (1001,), "c": (7,)}
+    tree = {k: _randn(s, 70 + i, cuda, torch.bfloat16 if len(s) == 2
+                      else torch.float32)
+            for i, (k, s) in enumerate(sizes.items())}
+    opt = getattr(topt, name)(tree, lr=1e-3)
+    assert type(opt) is getattr(topt, name)
+    grads = {k: _randn(t.shape, 80 + i, cuda, t.dtype)
+             for i, (k, t) in enumerate(tree.items())}
+    _build.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = opt.step(grads, noop_flag=torch.zeros((), device=cuda))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = _build.launch_counts()
+    want = {k: (1 + 2 * len(sizes) if v is None else v)
+            for k, v in kernels.items()}
+    assert {k: v for k, v in counts.items() if v} == want
+    assert {k: v.dtype for k, v in out.items()} == {
+        k: v.dtype for k, v in tree.items()}
+
+
+def test_twin_step_equals_functional_step_bit_for_bit(cuda):
+    """From one warm state (two functional Adam steps), one
+    ``make_train_step`` step and one step of a twin on a copy of the
+    model, loaded with that state and fed the functional step's grads:
+    master and moments equal bit for bit, one Adam launch each."""
+    from apex_tpu_torch import train_step
+    from apex_tpu_torch.optimizers import FusedAdam, functional
+    tx = functional.fused_adam(lr=1e-3)
+    model_f, tokens, labels = _small_llama(cuda)
+    batch = {"tokens": tokens, "labels": labels}
+    state = train_step.init_train_state(tx, model_f)
+    step = train_step.make_train_step(
+        lambda m, b: m(b["tokens"], b["labels"]), tx)
+    for _ in range(2):
+        state, _ = step(state, batch)
+    model_t, _, _ = _small_llama(cuda)
+    opt = FusedAdam(model_t.parameters(), lr=1e-3)
+    offsets = train_step.leaf_offsets(model_f)
+    keys = {name: "".join(f"[{k!r}]" for k in name.split("."))
+            for name, _ in model_t.named_parameters()}
+    master, slots = state.opt.master, state.opt.slots
+    sd = opt.state_dict()
+    for i, (name, p) in enumerate(model_t.named_parameters()):
+        off, size, shape = offsets[keys[name]]
+        sd["state"][i] = {"step": 2, "master": master[off:off + size].view(
+            shape), **{k: slots[k][off:off + size].view(shape)
+                       for k in ("exp_avg", "exp_avg_sq")}}
+    opt.load_state_dict(sd)
+    with torch.no_grad():
+        for name, p in model_t.named_parameters():
+            off, size, shape = offsets[keys[name]]
+            p.copy_(master[off:off + size].view(shape))
+    _build.reset_launch_counts()
+    state, _ = step(state, batch)
+    assert _build.launch_counts()["fused_adam"] == 1
+    views = dict(zip(offsets, state.flat.grad_views))
+    for name, p in model_t.named_parameters():
+        p.grad = views[keys[name]]
+    _build.reset_launch_counts()
+    opt.step()
+    assert {k: v for k, v in _build.launch_counts().items() if v} == {
+        "fused_adam": 1}
+    for name, p in model_t.named_parameters():
+        off, size, shape = offsets[keys[name]]
+        st = opt.state[p]
+        assert st["step"] == 3
+        assert torch.equal(st.get("master", p),
+                           master[off:off + size].view(shape)), name
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(st[k], slots[k][off:off + size].view(
+                shape)), (name, k)
