@@ -8,7 +8,10 @@
 // it; the ring merge and the backward of later slices consume that.
 // Masks: causal with the offset sk - sq (column c is visible to row r
 // when c <= r + off) and a validity window (rows >= valid_q and columns
-// >= valid_k are masked).  A fully masked row emits 0 and lse -1e30.
+// >= valid_k are masked); the masked instance also takes _fwd's boolean
+// mask3 operand ([nmask, sq, sk], True = masked; batch-head bh reads
+// mask bh / (b*h / nmask): per batch, per head, or one for all).  A
+// fully masked row emits 0 and lse -1e30.
 // p is rounded to bf16 for the P.V product (the TPU kernel feeds its
 // MXU the same way); the row sum keeps the fp32 p.
 //
@@ -41,8 +44,18 @@
 // barriers) to issue their products; heaviest first over all heads at
 // once (at 8192 tokens their k and v overflow the L2).
 //
-// Plain C interface (loaded with ctypes): apex_flash_attention_fwd
-// launches on the caller's stream and returns cudaGetLastError().
+// The masked instance (flash_qmajor_kernel<D, false, kFwdBK, true>) is
+// the same kernel with the per-element mask test on every tile: it reads
+// one mask byte per live (row, key) from device memory (L2 serves the
+// heads that share a mask) and never takes a tile as whole.  Its main
+// callers are decode_attention's kernel branch (sq = 1 against a long
+// dense cache: 127 of a block's 128 query rows are dead, as in the TPU
+// kernel's 128-row block, and the time is the k/v stream, bytes-bound)
+// and BERT's padding mask.
+//
+// Plain C interface (loaded with ctypes): apex_flash_attention_fwd and
+// apex_flash_attention_fwd_masked launch on the caller's stream and
+// return cudaGetLastError().
 
 #include "flash_qmajor.cuh"
 
@@ -58,6 +71,16 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   return launch_qmajor<D, false, kFwdBK>(
       q, k, v, nullptr, nullptr, nullptr, o, lse, bh, sq, sk, causal, off,
       valid_q, valid_k, scale_log2, 0.f, stream);
+}
+
+template <int D>
+int launch_masked(const void* q, const void* k, const void* v,
+                  const void* mask, void* o, void* lse, int bh, int sq,
+                  int sk, int causal, int off, int valid_q, int valid_k,
+                  int mask_hper, float scale_log2, cudaStream_t stream) {
+  return launch_qmajor<D, false, kFwdBK, true>(
+      q, k, v, nullptr, nullptr, nullptr, o, lse, bh, sq, sk, causal, off,
+      valid_q, valid_k, scale_log2, 0.f, stream, mask, mask_hper);
 }
 
 }  // namespace
@@ -84,6 +107,36 @@ extern "C" int apex_flash_attention_fwd(const void* q, const void* k,
     case 128:
       return launch<128>(q, k, v, o, lse, bh, sq, sk, causal, off, valid_q,
                          valid_k, scale_log2, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// As apex_flash_attention_fwd, with mask [bh / mask_hper, sq, sk] bytes
+// (nonzero = masked), contiguous; mask_hper divides bh.
+extern "C" int apex_flash_attention_fwd_masked(
+    const void* q, const void* k, const void* v, const void* mask, void* o,
+    void* lse, int bh, int sq, int sk, int d, int causal, int off,
+    int valid_q, int valid_k, int mask_hper, float scale_log2,
+    void* stream) {
+  cudaGetLastError();
+  if (bh <= 0 || sq <= 0) return 0;
+  if (bh > 65535 || mask_hper < 1 || bh % mask_hper)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32:
+      return launch_masked<32>(q, k, v, mask, o, lse, bh, sq, sk, causal,
+                               off, valid_q, valid_k, mask_hper, scale_log2,
+                               s);
+    case 64:
+      return launch_masked<64>(q, k, v, mask, o, lse, bh, sq, sk, causal,
+                               off, valid_q, valid_k, mask_hper, scale_log2,
+                               s);
+    case 128:
+      return launch_masked<128>(q, k, v, mask, o, lse, bh, sq, sk, causal,
+                                off, valid_q, valid_k, mask_hper, scale_log2,
+                                s);
     default:
       return (int)cudaErrorInvalidValue;
   }

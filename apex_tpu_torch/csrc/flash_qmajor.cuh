@@ -35,7 +35,10 @@
 // Masks and numbers as _fwd / _dq_reference: base-2 scores (log2(e)
 // folded into scale_log2), the causal offset (key c visible to query r
 // when c <= r + off) and the validity window; tiles with nothing visible
-// to the block are never loaded; p, and dS, are rounded to bf16 before
+// to the block are never loaded; the forward's MASK instance also reads
+// the boolean mask3 operand (_fwd_kernel's mask_ref), one byte a (row,
+// key), True = masked, batch-head bh reading mask bh / mask_hper, on
+// every element of every tile (no tile is taken as whole); p, and dS, are rounded to bf16 before
 // their product (the forward's row sum keeps the fp32 p); a fully masked
 // row emits 0 and lse -1e30, and gets dq 0 where its lse < -0.5e30.
 #pragma once
@@ -75,8 +78,9 @@ struct QmTiles {
 // fp32 [bh, sq], may be null); dout, lse_in, delta and scale unused.
 // DQ = true: out = dq [bh, sq, D] bf16, written once; lse_out unused.
 // The operands come as tensor maps (bf16_tile_map): q and dO with
-// 128-row boxes, k and v with BK-row boxes.
-template <int D, bool DQ, int BK>
+// 128-row boxes, k and v with BK-row boxes.  MASK (forward only): mask
+// [bh / mask_hper, sq, sk] bytes, nonzero = masked.
+template <int D, bool DQ, int BK, bool MASK = false>
 __global__ void __launch_bounds__(kQmThreads, 1)
 flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -86,7 +90,9 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
                     const float* __restrict__ delta, bf16* __restrict__ out,
                     float* __restrict__ lse_out, int nbh, int group, int sq,
                     int sk, int causal, int off, int valid_q, int valid_k,
-                    float scale_log2, float scale) {
+                    float scale_log2, float scale,
+                    const unsigned char* __restrict__ mask, int mask_hper) {
+  static_assert(!(MASK && DQ), "the mask operand is the forward's");
   using T = QmTiles<D, DQ, BK>;
   constexpr int DP = T::DP;
   constexpr int kKS = D / 16;     // k16 steps of S (and dP) over d
@@ -189,6 +195,15 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
   auto live = [&](int r, int c) {
     return c < kv_end && r < q_end && (!causal || c <= r + off);
   };
+  // this head's mask, read only where live() holds (inside [sq, sk])
+  const unsigned char* mrow =
+      MASK ? mask + (size_t)(bh / mask_hper) * sq * sk : nullptr;
+  auto visible = [&](int r, int c) {
+    if constexpr (MASK)
+      return live(r, c) && mrow[(size_t)r * sk + c] == 0;
+    else
+      return live(r, c);
+  };
 
   float acc[kON];                 // O, or dQ
 #pragma unroll
@@ -231,7 +246,7 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
       // warp's rows skips the per-element masks
       const int k0 = kt * BK;
       float alpha[2];
-      if (full_tile(k0)) {
+      if (!MASK && full_tile(k0)) {
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           // the max of the raw scores (scale_log2 > 0), in 4 chains
@@ -269,7 +284,7 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int x = j * 4 + hf * 2 + e;
-              s[x] = live(row + hf * 8, k0 + j * 8 + tig * 2 + e)
+              s[x] = visible(row + hf * 8, k0 + j * 8 + tig * 2 + e)
                          ? s[x] * scale_log2 : kNegInf;
               mx = fmaxf(mx, s[x]);
             }
@@ -425,14 +440,15 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// flash_qmajor_kernel<D, DQ, BK>, one block per (b*h, 128-query block);
-// the operands' tensor maps are encoded here.
-template <int D, bool DQ, int BK>
+// flash_qmajor_kernel<D, DQ, BK, MASK>, one block per (b*h, 128-query
+// block); the operands' tensor maps are encoded here.
+template <int D, bool DQ, int BK, bool MASK = false>
 int launch_qmajor(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse_in, const void* delta,
                   void* out, void* lse_out, int bh, int sq, int sk,
                   int causal, int off, int valid_q, int valid_k,
-                  float scale_log2, float scale, cudaStream_t stream) {
+                  float scale_log2, float scale, cudaStream_t stream,
+                  const void* mask = nullptr, int mask_hper = 1) {
   CUtensorMap tq, tk, tv, tdo;
   int e = bf16_tile_map(&tq, q, bh, sq, D, kQmBQ);
   // no keys: no block loads k or v, whose maps then describe q
@@ -443,9 +459,11 @@ int launch_qmajor(const void* q, const void* k, const void* v,
   if (!e) e = DQ ? bf16_tile_map(&tdo, dout, bh, sq, D, kQmBQ)
                  : bf16_tile_map(&tdo, q, bh, sq, D, kQmBQ);
   if (e) return e;
+  if (MASK && (mask == nullptr || mask_hper < 1 || bh % mask_hper))
+    return (int)cudaErrorInvalidValue;
   const size_t bytes = QmTiles<D, DQ, BK>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_qmajor_kernel<D, DQ, BK>,
+      flash_qmajor_kernel<D, DQ, BK, MASK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)bh * ((sq + kQmBQ - 1) / kQmBQ);
@@ -455,11 +473,12 @@ int launch_qmajor(const void* q, const void* k, const void* v,
   const long long ngroups = (kv_bytes + kL2Half - 1) / kL2Half;
   const int group = (int)((bh + ngroups - 1) / ngroups);
   const dim3 grid((unsigned)blocks);
-  flash_qmajor_kernel<D, DQ, BK><<<grid, kQmThreads, bytes, stream>>>(
+  flash_qmajor_kernel<D, DQ, BK, MASK><<<grid, kQmThreads, bytes, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse_in),
       static_cast<const float*>(delta), static_cast<bf16*>(out),
       static_cast<float*>(lse_out), bh, group, sq, sk, causal, off,
-      valid_q, valid_k, scale_log2, scale);
+      valid_q, valid_k, scale_log2, scale,
+      static_cast<const unsigned char*>(mask), mask_hper);
   return (int)cudaGetLastError();
 }
 

@@ -59,9 +59,21 @@
 // slices and L2 prefetch of the next product's weights each measured
 // slower (PERF.md).  No wgmma, no TMA yet.
 //
-// Plain C interface (loaded with ctypes): apex_fused_block_decode
-// launches on the caller's stream and returns cudaGetLastError(); with
-// a null workspace it only reports the workspace bytes it needs.
+// The GPT instance (fused_block_kernel<1, D, true>, kind="gpt" of the
+// TPU kernel): the same phases with LayerNorm in place of RMSNorm (two
+// statistics a norm: the mean, then the mean of squared deviations;
+// norm2's from per-256-column sums and squared deviations merged in a
+// fixed order), an fp32 bias added after each product's split-K sum
+// (q, k, v, o, up, down), no RoPE, and bf16(gelu(up)) as the down
+// product's input, GELU in its tanh approximation as jax.nn.gelu
+// computes it (phase 7 is one product, up; there is no gate).  Its
+// norm weights and biases are fp32.  A GPT-3 1.3B layer reads 50.3 M
+// bf16 weights (100.7 MB) plus the live pages.
+//
+// Plain C interface (loaded with ctypes): apex_fused_block_decode and
+// apex_fused_block_decode_gpt launch on the caller's stream and return
+// cudaGetLastError(); with a null workspace they only report the
+// workspace bytes they need.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,6 +119,16 @@ struct Params {
   const bf16* wg;           // [hidden, ffn]
   const bf16* wu;
   const bf16* wd;           // [ffn, hidden]
+  // GPT only (fp32): LayerNorm biases [hidden], q/k/v biases [h d] /
+  // [kvh d], the o, up and down biases [hidden] / [ffn] / [hidden]
+  const float* ln1_b;
+  const float* ln2_b;
+  const float* bq;
+  const float* bk;
+  const float* bv;
+  const float* bo;
+  const float* bu;
+  const float* bd;
   const bf16* kp;           // pool view [pages, kvh, ps, d], page stride
   const bf16* vp;
   const int* page_table;    // [slots, mpps]
@@ -124,8 +146,8 @@ struct Params {
   bf16* ctx;                // [slots, h d]
   float* p_o;               // [ks_o, slots, hidden]
   float* x2;                // [slots, hidden]
-  float* ss2;               // [slots, ceil(hidden / 256)]
-  float* p_gu;              // [ks_gu, slots, 2 ffn]
+  float* ss2;               // [slots, ceil(hidden / 256)] (GPT: x 2)
+  float* p_gu;              // [ks_gu, slots, 2 ffn] (GPT: ffn)
   float* p_d;               // [ks_d, slots, hidden]
   unsigned* work;           // the attention phase's item counter
   unsigned long long* clock;  // optional [kPhases + 1] phase end times (ns)
@@ -230,18 +252,31 @@ __device__ __forceinline__ float4 bf16x4(uint2 raw) {
 }
 
 // A = bf16(v * r[slot] * w[k]) with v from the bf16 x or the fp32 x2:
-// the normalised activations the q/k/v and gate/up products read.
+// the normalised activations the q/k/v and gate/up products read.  GPT:
+// A = bf16((v - mu[slot]) * r[slot] * w[k] + b[k]), w and b fp32.
+template <bool GPT>
 struct BuildNorm {
   const bf16* xb;
   const float* xf;
   const float* r;
   const void* w;
   int ln_fp32, hidden, slots;
+  const float* mu;
+  const float* b;
   __device__ float4 operator()(int slot, int k) const {
     const size_t i = (size_t)slot * hidden + k;
     const float4 v =
         xb ? bf16x4(__ldg(reinterpret_cast<const uint2*>(xb + i)))
            : __ldcg(reinterpret_cast<const float4*>(xf + i));
+    if constexpr (GPT) {
+      const float4 w4 = __ldg(reinterpret_cast<const float4*>(w) + k / 4);
+      const float4 b4 = __ldg(reinterpret_cast<const float4*>(b) + k / 4);
+      const float rs = r[slot], m = mu[slot];
+      return make_float4(bf16_round((v.x - m) * rs * w4.x + b4.x),
+                         bf16_round((v.y - m) * rs * w4.y + b4.y),
+                         bf16_round((v.z - m) * rs * w4.z + b4.z),
+                         bf16_round((v.w - m) * rs * w4.w + b4.w));
+    }
     const float4 w4 =
         ln_fp32 ? __ldg(reinterpret_cast<const float4*>(w) + k / 4)
                 : bf16x4(__ldg(reinterpret_cast<const uint2*>(
@@ -281,6 +316,31 @@ struct BuildAct {
   }
   __device__ static float silu_mul(float g, float u) {
     return bf16_round(g * (1.f / (1.f + expf(-g))) * u);
+  }
+};
+
+// GPT: A = bf16(gelu(up + bu)) from the up partials, the down product's
+// input; gelu in the tanh approximation (jax.nn.gelu)
+struct BuildGelu {
+  const float* p_u;
+  const float* bu;
+  int ks, ffn, slots;
+  __device__ float4 operator()(int slot, int k) const {
+    float4 u = __ldg(reinterpret_cast<const float4*>(bu + k));
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int c = 0; c < ks; ++c) {
+      const float4 uc = __ldcg(reinterpret_cast<const float4*>(
+          p_u + ((size_t)c * slots + slot) * ffn + k));
+      s.x += uc.x; s.y += uc.y; s.z += uc.z; s.w += uc.w;
+    }
+    return make_float4(gelu(s.x + u.x), gelu(s.y + u.y), gelu(s.z + u.z),
+                       gelu(s.w + u.w));
+  }
+  __device__ static float gelu(float x) {
+    const float cdf =
+        0.5f * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * (x * x * x))));
+    return bf16_round(x * cdf);
   }
 };
 
@@ -486,10 +546,11 @@ __device__ __forceinline__ void stage_chunk(
 }
 
 // q | k | v of every slot: the sums of the product's split-K partials,
-// RoPE on q and k in fp32 (half rotation: element e pairs with e ^ d/2);
-// q, k, v stay fp32 for the attention and the fold, k and v also leave
-// as bf16 for the caller's pool append.
-template <int D>
+// RoPE on q and k in fp32 (half rotation: element e pairs with e ^ d/2;
+// GPT: no RoPE, the fp32 bias added to the sum); q, k, v stay fp32 for
+// the attention and the fold, k and v also leave as bf16 for the
+// caller's pool append.
+template <int D, bool GPT>
 __device__ void qkv_phase(const Params& p, int h) {
   const int kvh = p.kvh;
   const int nqkv = (h + 2 * kvh) * D;
@@ -501,13 +562,18 @@ __device__ void qkv_phase(const Params& p, int h) {
     const float* part = p.p_qkv + (size_t)slot * nqkv;
     const size_t stride = (size_t)p.slots * nqkv;
     float a = 0.f, b = 0.f;
-    const bool roped = head < h + kvh;
+    const bool roped = !GPT && head < h + kvh;
 #pragma unroll 4
     for (int c = 0; c < p.ks_qkv; ++c) {
       a += __ldcg(part + c * stride + col);
       if (roped) b += __ldcg(part + c * stride + (col ^ (D / 2)));
     }
-    if (roped) {
+    if constexpr (GPT) {
+      const int hd = h * D, kvd = kvh * D;
+      a += head < h ? __ldg(p.bq + col)
+                    : head < h + kvh ? __ldg(p.bk + col - hd)
+                                     : __ldg(p.bv + col - hd - kvd);
+    } else if (roped) {
       a = a * __ldg(p.cos + (size_t)slot * D + e) +
           (e < D / 2 ? -b : b) * __ldg(p.sin + (size_t)slot * D + e);
     }
@@ -756,11 +822,36 @@ __device__ void merge_phase(const Params& p, int group) {
   }
 }
 
-// rsqrt(mean(x^2) + eps) of every slot's bf16 row (one warp a slot)
-__device__ void norm1_stats(const Params& p, float* sR) {
+// rsqrt(mean(x^2) + eps) of every slot's bf16 row (one warp a slot);
+// GPT: the mean into sMu, then rsqrt(mean((x - mean)^2) + eps)
+template <bool GPT>
+__device__ void norm1_stats(const Params& p, float* sR, float* sMu) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int s = warp; s < p.slots; s += kWarps) {
     const bf16* xr = p.x + (size_t)s * p.hidden;
+    if constexpr (GPT) {
+      float sum = 0.f;
+      for (int k = lane * 8; k < p.hidden; k += 32 * 8) {
+        float f[8];
+        unpack8(__ldg(reinterpret_cast<const uint4*>(xr + k)), f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sum += f[j];
+      }
+      const float mu = warp_sum(sum) / p.hidden;
+      float ss = 0.f;
+      for (int k = lane * 8; k < p.hidden; k += 32 * 8) {
+        float f[8];
+        unpack8(__ldg(reinterpret_cast<const uint4*>(xr + k)), f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) ss += (f[j] - mu) * (f[j] - mu);
+      }
+      ss = warp_sum(ss);
+      if (lane == 0) {
+        sMu[s] = mu;
+        sR[s] = rsqrtf(ss / p.hidden + p.eps);
+      }
+      continue;
+    }
     float ss = 0.f;
     for (int k = lane * 8; k < p.hidden; k += 32 * 8) {
       float f[8];
@@ -790,12 +881,13 @@ __device__ __forceinline__ void kernel_end(const Params& p) {
   if (p.clock && threadIdx.x == 0) atomicMax(p.clock + kPhases, globaltimer());
 }
 
-template <int G, int D>
+template <int G, int D, bool GPT>
 __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
 fused_block_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[kWarps];
   float* sR = reinterpret_cast<float*>(smem + p.r_off);  // [slots]
+  float* sMu = sR + p.slots;                              // GPT: [slots]
   const int S = p.slots, H = p.hidden, tid = threadIdx.x;
   const int h = p.kvh * G, hd = h * D, kvd = p.kvh * D;
   const int nqkv = hd + 2 * kvd;
@@ -806,16 +898,17 @@ fused_block_kernel(const Params p) {
     if (p.clock) p.clock[0] = globaltimer();
   }
   // 1. norm1 statistics, then q | k | v = bf16(h1) @ [wq | wk | wv]
-  norm1_stats(p, sR);
+  norm1_stats<GPT>(p, sR, sMu);
   __syncthreads();
   {
     const Seg segs[3] = {{p.wq, hd, 0}, {p.wk, kvd, hd}, {p.wv, kvd, hd + kvd}};
     gemv(segs, 3, H, p.ks_qkv, p.ch_qkv, p.p_qkv, nqkv, S, smem,
-         BuildNorm{p.x, nullptr, sR, p.ln1_w, p.ln_fp32, H, S});
+         BuildNorm<GPT>{p.x, nullptr, sR, p.ln1_w, p.ln_fp32, H, S, sMu,
+                        p.ln1_b});
   }
   phase_end(p, 1);
-  // 2. q, k, v: the partials' sums, RoPE
-  qkv_phase<D>(p, h);
+  // 2. q, k, v: the partials' sums, RoPE (GPT: the biases)
+  qkv_phase<D, GPT>(p, h);
   phase_end(p, 2);
   // 3. paged attention over the live pages, split by 256 tokens
   attention_phase<G, D>(p, smem);
@@ -829,26 +922,46 @@ fused_block_kernel(const Params p) {
     gemv(segs, 1, hd, p.ks_o, p.ch_o, p.p_o, H, S, smem, BuildCtx{p.ctx, hd});
   }
   phase_end(p, 5);
-  // 6. x2 = x + o (fp32); norm2's sums of squares per 256 columns.
-  //    Without the MLP, y = x2 and the layer ends here.
+  // 6. x2 = x + o (fp32; GPT: x + (o + bo)); norm2's sums of squares
+  //    per 256 columns (GPT: the sums and the squared deviations from
+  //    their own mean).  Without the MLP, y = x2 and the layer ends here.
   for (int it = blockIdx.x; it < S * nblk; it += gridDim.x) {
     const int slot = it / nblk, b = it % nblk;
     const int col = b * kRowBlock + tid;
     float v = 0.f;
     if (col < H) {
       const size_t i = (size_t)slot * H + col;
-      v = __bfloat162float(p.x[i]);
+      if constexpr (GPT) {
+        float o = 0.f;
 #pragma unroll 4
-      for (int c = 0; c < p.ks_o; ++c)
-        v += __ldcg(p.p_o + ((size_t)c * S + slot) * H + col);
+        for (int c = 0; c < p.ks_o; ++c)
+          o += __ldcg(p.p_o + ((size_t)c * S + slot) * H + col);
+        v = __bfloat162float(p.x[i]) + (o + __ldg(p.bo + col));
+      } else {
+        v = __bfloat162float(p.x[i]);
+#pragma unroll 4
+        for (int c = 0; c < p.ks_o; ++c)
+          v += __ldcg(p.p_o + ((size_t)c * S + slot) * H + col);
+      }
       if (p.fuse_mlp)
         __stcg(p.x2 + i, v);
       else
         p.y[i] = __float2bfloat16(v);
     }
     if (p.fuse_mlp) {
-      const float ss = block_sum(v * v, red);
-      if (tid == 0) __stcg(p.ss2 + (size_t)slot * nblk + b, ss);
+      if constexpr (GPT) {
+        const float sum = block_sum(v, red);
+        const int n = min(kRowBlock, H - b * kRowBlock);
+        const float dv = col < H ? v - sum / n : 0.f;
+        const float m2 = block_sum(dv * dv, red);
+        if (tid == 0) {
+          __stcg(p.ss2 + ((size_t)slot * nblk + b) * 2, sum);
+          __stcg(p.ss2 + ((size_t)slot * nblk + b) * 2 + 1, m2);
+        }
+      } else {
+        const float ss = block_sum(v * v, red);
+        if (tid == 0) __stcg(p.ss2 + (size_t)slot * nblk + b, ss);
+      }
     }
   }
   if (!p.fuse_mlp) {
@@ -856,34 +969,68 @@ fused_block_kernel(const Params p) {
     return;
   }
   phase_end(p, 6);
-  // 7. norm2 statistics, then g | u = bf16(h2) @ [wg | wu]
+  // 7. norm2 statistics, then g | u = bf16(h2) @ [wg | wu] (GPT: the
+  //    per-block sums and deviations merged in block order, then u =
+  //    bf16(h2) @ wu)
   for (int s = tid; s < S; s += kThreads) {
-    float ss = 0.f;
-    for (int b = 0; b < nblk; ++b) ss += __ldcg(p.ss2 + (size_t)s * nblk + b);
-    sR[s] = rsqrtf(ss / H + p.eps);
+    if constexpr (GPT) {
+      float sum = 0.f;
+      for (int b = 0; b < nblk; ++b)
+        sum += __ldcg(p.ss2 + ((size_t)s * nblk + b) * 2);
+      const float mu = sum / H;
+      float m2 = 0.f;
+      for (int b = 0; b < nblk; ++b) {
+        const int n = min(kRowBlock, H - b * kRowBlock);
+        const float dm = __ldcg(p.ss2 + ((size_t)s * nblk + b) * 2) / n - mu;
+        m2 += __ldcg(p.ss2 + ((size_t)s * nblk + b) * 2 + 1) + n * dm * dm;
+      }
+      sMu[s] = mu;
+      sR[s] = rsqrtf(m2 / H + p.eps);
+    } else {
+      float ss = 0.f;
+      for (int b = 0; b < nblk; ++b) ss += __ldcg(p.ss2 + (size_t)s * nblk + b);
+      sR[s] = rsqrtf(ss / H + p.eps);
+    }
   }
   __syncthreads();
-  {
+  if constexpr (GPT) {
+    const Seg segs[1] = {{p.wu, p.ffn, 0}};
+    gemv(segs, 1, H, p.ks_gu, p.ch_gu, p.p_gu, p.ffn, S, smem,
+         BuildNorm<true>{nullptr, p.x2, sR, p.ln2_w, 1, H, S, sMu, p.ln2_b});
+  } else {
     const Seg segs[2] = {{p.wg, p.ffn, 0}, {p.wu, p.ffn, p.ffn}};
     gemv(segs, 2, H, p.ks_gu, p.ch_gu, p.p_gu, 2 * p.ffn, S, smem,
-         BuildNorm{nullptr, p.x2, sR, p.ln2_w, p.ln_fp32, H, S});
+         BuildNorm<false>{nullptr, p.x2, sR, p.ln2_w, p.ln_fp32, H, S,
+                          nullptr, nullptr});
   }
   phase_end(p, 7);
-  // 8. down = bf16(silu(g) u) @ wd
+  // 8. down = bf16(silu(g) u) @ wd (GPT: bf16(gelu(u + bu)) @ wd)
   {
     const Seg segs[1] = {{p.wd, H, 0}};
-    gemv(segs, 1, p.ffn, p.ks_d, p.ch_d, p.p_d, H, S, smem,
-         BuildAct{p.p_gu, p.ks_gu, p.ffn, S});
+    if constexpr (GPT)
+      gemv(segs, 1, p.ffn, p.ks_d, p.ch_d, p.p_d, H, S, smem,
+           BuildGelu{p.p_gu, p.bu, p.ks_gu, p.ffn, S});
+    else
+      gemv(segs, 1, p.ffn, p.ks_d, p.ch_d, p.p_d, H, S, smem,
+           BuildAct{p.p_gu, p.ks_gu, p.ffn, S});
   }
   phase_end(p, 8);
-  // 9. y = x2 + down
+  // 9. y = x2 + down (GPT: x2 + (down + bd))
   for (int i = blockIdx.x * kThreads + tid; i < S * H; i += gridDim.x * kThreads) {
     const int slot = i / H, col = i % H;
-    float v = __ldcg(p.x2 + i);
+    if constexpr (GPT) {
+      float dn = 0.f;
 #pragma unroll 4
-    for (int c = 0; c < p.ks_d; ++c)
-      v += __ldcg(p.p_d + ((size_t)c * S + slot) * H + col);
-    p.y[i] = __float2bfloat16(v);
+      for (int c = 0; c < p.ks_d; ++c)
+        dn += __ldcg(p.p_d + ((size_t)c * S + slot) * H + col);
+      p.y[i] = __float2bfloat16(__ldcg(p.x2 + i) + (dn + __ldg(p.bd + col)));
+    } else {
+      float v = __ldcg(p.x2 + i);
+#pragma unroll 4
+      for (int c = 0; c < p.ks_d; ++c)
+        v += __ldcg(p.p_d + ((size_t)c * S + slot) * H + col);
+      p.y[i] = __float2bfloat16(v);
+    }
   }
   kernel_end(p);
 }
@@ -915,7 +1062,7 @@ struct Layout {
 
 // grid, split-K counts and workspace offsets (in p's pointers, relative
 // to `base`) of one geometry
-template <int G, int D>
+template <int G, int D, bool GPT>
 int plan(Params& p, unsigned char* base, Layout* out) {
   // per device (and per instantiation): the SM count, and the blocks per
   // SM at the shared-memory size last asked for
@@ -929,16 +1076,16 @@ int plan(Params& p, unsigned char* base, Layout* out) {
       kGemvRingBytes + sizeof(bf16) * kSlots * (kMaxChunk + 8);
   region = region > gemv_bytes ? region : gemv_bytes;
   p.r_off = (int)((region + 15) / 16 * 16);
-  const int smem = p.r_off + (int)sizeof(float) * p.slots;
+  const int smem = p.r_off + (int)sizeof(float) * p.slots * (GPT ? 2 : 1);
   if (smem_at[dev] != smem) {
     err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(fused_block_kernel<G, D>,
+    err = cudaFuncSetAttribute(fused_block_kernel<G, D, GPT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return (int)err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks_at[dev], fused_block_kernel<G, D>, kThreads, smem);
+        &blocks_at[dev], fused_block_kernel<G, D, GPT>, kThreads, smem);
     if (err != cudaSuccess) return (int)err;
     if (blocks_at[dev] < 1) return (int)cudaErrorInvalidConfiguration;
     smem_at[dev] = smem;
@@ -950,7 +1097,8 @@ int plan(Params& p, unsigned char* base, Layout* out) {
   const int hd = h * D, kvd = p.kvh * D;
   split_k(H, tiles_of(hd) + 2 * tiles_of(kvd), grid, &p.ks_qkv, &p.ch_qkv);
   split_k(hd, tiles_of(H), grid, &p.ks_o, &p.ch_o);
-  split_k(H, 2 * tiles_of(p.ffn), grid, &p.ks_gu, &p.ch_gu);
+  const int gu = GPT ? 1 : 2;    // up, or gate and up
+  split_k(H, gu * tiles_of(p.ffn), grid, &p.ks_gu, &p.ch_gu);
   split_k(p.ffn, tiles_of(H), grid, &p.ks_d, &p.ch_d);
   p.nsplit = (p.mpps * p.ps + kSplitTokens - 1) / kSplitTokens;
   const int nblk = (H + kRowBlock - 1) / kRowBlock;
@@ -970,8 +1118,8 @@ int plan(Params& p, unsigned char* base, Layout* out) {
   p.ctx = reinterpret_cast<bf16*>(take(sizeof(bf16) * S * hd));
   p.p_o = reinterpret_cast<float*>(take(f * p.ks_o * S * H));
   p.x2 = reinterpret_cast<float*>(take(f * S * H));
-  p.ss2 = reinterpret_cast<float*>(take(f * S * nblk));
-  p.p_gu = reinterpret_cast<float*>(take(f * p.ks_gu * S * 2 * p.ffn));
+  p.ss2 = reinterpret_cast<float*>(take(f * S * nblk * (GPT ? 2 : 1)));
+  p.p_gu = reinterpret_cast<float*>(take(f * p.ks_gu * S * gu * p.ffn));
   p.p_d = reinterpret_cast<float*>(take(f * p.ks_d * S * H));
   p.work = reinterpret_cast<unsigned*>(take(sizeof(unsigned)));
   out->grid = grid;
@@ -980,10 +1128,10 @@ int plan(Params& p, unsigned char* base, Layout* out) {
   return 0;
 }
 
-template <int G, int D>
+template <int G, int D, bool GPT = false>
 int run(Params& p, void* ws, long long* ws_bytes, cudaStream_t stream) {
   Layout lay;
-  int err = plan<G, D>(p, static_cast<unsigned char*>(ws), &lay);
+  int err = plan<G, D, GPT>(p, static_cast<unsigned char*>(ws), &lay);
   if (err) return err;
   if (ws == nullptr) {
     if (ws_bytes) *ws_bytes = (long long)lay.total;
@@ -991,7 +1139,7 @@ int run(Params& p, void* ws, long long* ws_bytes, cudaStream_t stream) {
   }
   void* args[] = {&p};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(fused_block_kernel<G, D>), dim3(lay.grid),
+      reinterpret_cast<void*>(fused_block_kernel<G, D, GPT>), dim3(lay.grid),
       dim3(kThreads), args, lay.smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -1074,6 +1222,72 @@ extern "C" int apex_fused_block_decode(
   switch (d) {
     case 64: return run_d<64>(group, p, ws, ws_bytes, s);
     case 128: return run_d<128>(group, p, ws, ws_bytes, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The GPT layer: x [slots, hidden] bf16; ln1_w/ln1_b/ln2_w/ln2_b
+// [hidden], bq/bk/bv [h d] / [kvh d], bo/bd [hidden], bu [ffn], all fp32;
+// wq, wk, wv, wo, wu [hidden, ffn], wd [ffn, hidden] bf16; the pool,
+// page table, lengths, outputs, workspace and clock as
+// apex_fused_block_decode's.  h = kvh (group 1); d 64 or 128.  With
+// fuse_mlp 0, y = x + (o + bo) and ln2, wu, bu, wd, bd are not read.
+extern "C" int apex_fused_block_decode_gpt(
+    const void* x, const void* ln1_w, const void* ln1_b, const void* wq,
+    const void* bq, const void* wk, const void* bk, const void* wv,
+    const void* bv, const void* wo, const void* bo, const void* ln2_w,
+    const void* ln2_b, const void* wu, const void* bu, const void* wd,
+    const void* bd, const void* k_pages, const void* v_pages,
+    const void* page_table, const void* lengths, void* y, void* kt,
+    void* vt, void* ws, long long* ws_bytes, void* clock, int slots,
+    int hidden, int heads, int kvh, int d, int ffn, int ps, int mpps,
+    long long page_stride, int fuse_mlp, float eps, float scale_log2,
+    void* stream) {
+  cudaGetLastError();
+  if (slots <= 0 || hidden <= 0 || hidden % 8 || kvh <= 0 || heads != kvh ||
+      ps <= 0 || mpps <= 0 || (fuse_mlp && (ffn <= 0 || ffn % 8)))
+    return (int)cudaErrorInvalidValue;
+  Params p = {};
+  p.x = static_cast<const bf16*>(x);
+  p.ln1_w = ln1_w;
+  p.ln2_w = ln2_w;
+  p.ln1_b = static_cast<const float*>(ln1_b);
+  p.ln2_b = static_cast<const float*>(ln2_b);
+  p.wq = static_cast<const bf16*>(wq);
+  p.wk = static_cast<const bf16*>(wk);
+  p.wv = static_cast<const bf16*>(wv);
+  p.wo = static_cast<const bf16*>(wo);
+  p.wu = static_cast<const bf16*>(wu);
+  p.wd = static_cast<const bf16*>(wd);
+  p.bq = static_cast<const float*>(bq);
+  p.bk = static_cast<const float*>(bk);
+  p.bv = static_cast<const float*>(bv);
+  p.bo = static_cast<const float*>(bo);
+  p.bu = static_cast<const float*>(bu);
+  p.bd = static_cast<const float*>(bd);
+  p.kp = static_cast<const bf16*>(k_pages);
+  p.vp = static_cast<const bf16*>(v_pages);
+  p.page_table = static_cast<const int*>(page_table);
+  p.lengths = static_cast<const int*>(lengths);
+  p.y = static_cast<bf16*>(y);
+  p.kt = static_cast<bf16*>(kt);
+  p.vt = static_cast<bf16*>(vt);
+  p.clock = static_cast<unsigned long long*>(clock);
+  p.page_stride = page_stride;
+  p.slots = slots;
+  p.hidden = hidden;
+  p.kvh = kvh;
+  p.ffn = fuse_mlp ? ffn : 8;
+  p.ps = ps;
+  p.mpps = mpps;
+  p.ln_fp32 = 1;
+  p.fuse_mlp = fuse_mlp;
+  p.eps = eps;
+  p.scale_log2 = scale_log2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return run<1, 64, true>(p, ws, ws_bytes, s);
+    case 128: return run<1, 128, true>(p, ws, ws_bytes, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,13 @@
-"""The paged KV pool: a dataclass of tensors updated in place.
+"""The KV caches: dataclasses of tensors updated in place.
 
-Port of the paged half of ``apex_tpu/inference/kv_cache.py``::
+Port of ``apex_tpu/inference/kv_cache.py``.  The dense slot cache
+(:class:`KVCache`, the JAX engine's default) provisions ``max_seq``
+rows for every slot::
+
+    k, v       : [slots, layers, kv_heads, max_seq, head_dim]
+    lengths    : [slots]  int32   live tokens per slot
+
+The paged pool (:class:`PagedKVCache`)::
 
     k, v       : [pages, layers, kv_heads, page_size, head_dim]
     page_table : [slots, max_pages_per_slot]  int32
@@ -13,11 +20,12 @@ physical page ``page_table[slot, t // page_size]``, row
 ``t % page_size``.
 
 Unlike the JAX package, whose pure updates return a new cache that the
-jitted step donates, every mutation here (:func:`insert_tokens`,
-:func:`append_layer`, :func:`advance`, :func:`evict`,
-:func:`cow_page`) UPDATES THE POOL IN PLACE and returns the same cache
-object, so the call sites read the same (``cache = f(cache, ...)``) and
-no step ever allocates a second pool.
+jitted step donates, every mutation here (:func:`insert`,
+:func:`insert_tokens`, :func:`append_layer`, :func:`advance`,
+:func:`set_lengths`, :func:`evict`, :func:`cow_page`) UPDATES THE
+CACHE IN PLACE and returns the same cache object, so the call sites
+read the same (``cache = f(cache, ...)``) and no step ever allocates a
+second cache.
 
 Design positions carried over unchanged:
 
@@ -29,6 +37,10 @@ Design positions carried over unchanged:
   beyond a slot's reservation point there, so writes that overrun a
   reservation land harmlessly.  Rows past a slot's whole virtual
   window are dropped, never clamped onto live rows.
+* **The dense clamp.**  A dense append at capacity (length ==
+  ``max_seq``) lands on row ``max_seq - 1``, where the JAX
+  ``dynamic_update_slice`` clamps its start; :func:`advance` flags the
+  slot ``truncated`` and the caller retires it.
 
 :class:`PageAllocator` and :class:`HostPageStore` are copied verbatim:
 they are host bookkeeping over ints.
@@ -44,10 +56,10 @@ import torch
 
 from apex_tpu_torch.utils import resolve_device
 
-__all__ = ["PagedKVCache", "init_paged_cache", "PageAllocator",
-           "HostPageStore", "default_page_size", "page_row",
-           "insert_tokens", "append_layer", "append_targets", "advance",
-           "evict", "cow_page"]
+__all__ = ["KVCache", "init_cache", "insert", "PagedKVCache",
+           "init_paged_cache", "PageAllocator", "HostPageStore",
+           "default_page_size", "page_row", "insert_tokens", "append_layer",
+           "append_targets", "advance", "set_lengths", "evict", "cow_page"]
 
 _PAGE_SIZE_ENV = "APEX_TPU_PAGE_SIZE"
 _DEFAULT_PAGE_SIZE = 64
@@ -70,6 +82,73 @@ def default_page_size() -> int:
                 f"got {val}")
         return val
     return _DEFAULT_PAGE_SIZE
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Static-shape slot cache: ``max_seq`` rows for every slot."""
+    k: torch.Tensor           # [slots, layers, kv_heads, max_seq, d]
+    v: torch.Tensor           # same shape/dtype as k
+    lengths: torch.Tensor     # [slots] int32: live tokens per slot
+
+    @property
+    def slots(self) -> int:
+        return self.k.shape[0]
+
+    @property
+    def layers(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def kv_heads(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def max_seq(self) -> int:
+        return self.k.shape[3]
+
+    @property
+    def head_dim(self) -> int:
+        return self.k.shape[4]
+
+    @property
+    def device(self) -> torch.device:
+        return self.k.device
+
+
+def init_cache(slots: int, layers: int, kv_heads: int, max_seq: int,
+               head_dim: int, dtype=torch.bfloat16, device=None) -> KVCache:
+    """Allocate an empty dense cache (every slot free, length 0);
+    ``device=None`` is CUDA."""
+    dev = resolve_device(device)
+    shape = (slots, layers, kv_heads, max_seq, head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                   v=torch.zeros(shape, dtype=dtype, device=dev),
+                   lengths=torch.zeros((slots,), dtype=torch.int32,
+                                       device=dev))
+
+
+def insert(cache: KVCache, slot: int, k, v, length: int) -> KVCache:
+    """Prefill write, in place: park a prompt's k/v ``[layers, kv_heads,
+    s, head_dim]`` (``s`` the possibly bucket-padded length, at most
+    ``max_seq``) in rows ``[0, s)`` of one slot, and set its length to
+    ``length`` real tokens (padding rows are stored but masked by the
+    length wherever they could be read)."""
+    s = k.shape[2]
+    if k.shape != v.shape or tuple(k.shape[:2]) != (cache.layers,
+                                                    cache.kv_heads) \
+            or k.shape[3] != cache.head_dim:
+        raise ValueError(
+            f"prefill k/v must be [layers={cache.layers}, "
+            f"kv_heads={cache.kv_heads}, s, head_dim={cache.head_dim}], "
+            f"got k {tuple(k.shape)} v {tuple(v.shape)}")
+    if s > cache.max_seq:
+        raise ValueError(
+            f"prompt length {s} exceeds cache max_seq {cache.max_seq}")
+    cache.k[int(slot), :, :, :s] = k.to(cache.k.dtype)
+    cache.v[int(slot), :, :, :s] = v.to(cache.v.dtype)
+    cache.lengths[int(slot)] = int(length)
+    return cache
 
 
 @dataclasses.dataclass
@@ -217,12 +296,17 @@ def insert_tokens(cache: PagedKVCache, slot: int, k, v, length: int, row,
     return cache
 
 
-def append_targets(cache: PagedKVCache):
-    """``(pages, offs)`` — where each slot's next token row goes: page
-    ``page_table[i, lengths[i] // page_size]`` at row ``lengths[i] %
-    page_size``, computed on the device (no host read).  At capacity the
-    write clamps into the last ordinal's page (the trash page for a slot
-    whose reservation is full) — bounded damage, off the live data."""
+def append_targets(cache):
+    """Where each slot's next token row goes, computed on the device (no
+    host read).  Paged: ``(pages, offs)``, page ``page_table[i,
+    lengths[i] // page_size]`` at row ``lengths[i] % page_size``; at
+    capacity the write clamps into the last ordinal's page (the trash
+    page for a slot whose reservation is full) — bounded damage, off the
+    live data.  Dense: ``(slots, rows)``, row ``lengths[i]`` clamped to
+    ``max_seq - 1`` as the JAX ``dynamic_update_slice`` clamps it."""
+    if isinstance(cache, KVCache):
+        rows = torch.clamp(cache.lengths.long(), max=cache.max_seq - 1)
+        return torch.arange(cache.slots, device=cache.device), rows
     ps, mpps = cache.page_size, cache.max_pages_per_slot
     pos = cache.lengths.long()
     ordinal = torch.clamp(pos // ps, max=mpps - 1)
@@ -231,46 +315,68 @@ def append_targets(cache: PagedKVCache):
     return pages, offs
 
 
-def append_layer(cache: PagedKVCache, layer: int, k_tok, v_tok,
-                 targets=None) -> PagedKVCache:
-    """Decode write for ONE layer, in place: each slot's token row
-    ``k_tok``/``v_tok [slots, kv_heads, head_dim]`` lands at that slot's
-    current length.  Lengths do NOT advance here (:func:`advance` runs
-    once after the last layer).  ``targets`` may pass this step's
-    :func:`append_targets` so the layers of one step share them."""
+def append_layer(cache, layer: int, k_tok, v_tok, targets=None):
+    """Decode write for ONE layer, in place, on either cache: each
+    slot's token row ``k_tok``/``v_tok [slots, kv_heads, head_dim]``
+    lands at that slot's current length.  Lengths do NOT advance here
+    (:func:`advance` runs once after the last layer).  ``targets`` may
+    pass this step's :func:`append_targets` so the layers of one step
+    share them."""
     if tuple(k_tok.shape) != (cache.slots, cache.kv_heads,
                               cache.head_dim):
         raise ValueError(
             f"token k/v must be [slots={cache.slots}, "
             f"kv_heads={cache.kv_heads}, head_dim={cache.head_dim}], "
             f"got {tuple(k_tok.shape)}")
-    pages, offs = append_targets(cache) if targets is None else targets
+    # paged: (page, row in page); dense: (slot, row); the same scatter
+    first, second = append_targets(cache) if targets is None else targets
     kl, vl = cache.k[:, layer], cache.v[:, layer]    # strided views
-    kl[pages, :, offs, :] = k_tok.to(cache.k.dtype)
-    vl[pages, :, offs, :] = v_tok.to(cache.v.dtype)
+    kl[first, :, second, :] = k_tok.to(cache.k.dtype)
+    vl[first, :, second, :] = v_tok.to(cache.v.dtype)
     return cache
 
 
-def advance(cache: PagedKVCache, active):
+def _capacity(cache):
+    """Each slot's capacity: ``max_seq`` (dense) or its owned pages'
+    rows (paged)."""
+    if isinstance(cache, KVCache):
+        return torch.full_like(cache.lengths, cache.max_seq)
+    return cache.capacity
+
+
+def advance(cache, active):
     """Advance the active slots' lengths by one, in place; returns
-    ``(cache, truncated)``.  Lengths clamp at the slot's capacity;
-    ``truncated`` ([slots] bool, on the device) is True where an active
-    slot was ALREADY at capacity, so its emitted token could not be
-    appended and the caller must retire it."""
+    ``(cache, truncated)``.  Lengths clamp at the slot's capacity
+    (``max_seq`` dense, the owned pages paged); ``truncated`` ([slots]
+    bool, on the device) is True where an active slot was ALREADY at
+    capacity, so its emitted token could not be appended and the caller
+    must retire it."""
     act = torch.as_tensor(active, device=cache.device).to(torch.bool)
-    cap = cache.capacity
+    cap = _capacity(cache)
     truncated = act & (cache.lengths >= cap) & (cap > 0)
     cache.lengths.copy_(torch.minimum(cache.lengths + act.to(torch.int32),
                                       cap))
     return cache, truncated
 
 
-def evict(cache: PagedKVCache, slot: int) -> PagedKVCache:
-    """Retire a slot, in place: zero its length and capacity and
-    re-park its page-table row on the trash page (so the idle slot's
-    masked decode appends never land in another request's pages).
-    Metadata only — the k/v pages are left as they are."""
+def set_lengths(cache, new_lengths):
+    """Set every slot's length, in place, clamped to ``[0, capacity]``:
+    the host-driven rollback of a draft engine (rows past the restored
+    length are dead by the mask)."""
+    new = torch.as_tensor(new_lengths, device=cache.device).to(torch.int32)
+    cache.lengths.copy_(torch.minimum(torch.clamp(new, min=0),
+                                      _capacity(cache)))
+    return cache
+
+
+def evict(cache, slot: int):
+    """Retire a slot, in place: zero its length; paged, also its
+    capacity, and re-park its page-table row on the trash page (so the
+    idle slot's masked decode appends never land in another request's
+    pages).  Metadata only — the k/v rows are left as they are."""
     cache.lengths[slot] = 0
+    if isinstance(cache, KVCache):
+        return cache
     cache.capacity[slot] = 0
     cache.page_table[slot] = cache.null_page
     return cache

@@ -1,19 +1,25 @@
-"""Prefill/decode forwards of LLaMA over the param tree, in PyTorch.
+"""Prefill/decode forwards of GPT and LLaMA over the param tree, in
+PyTorch.
 
-Port of the LLaMA, tp = 1 half of ``apex_tpu/inference/models.py``: the
-same parameter tree (``model.init``'s key paths, weights ``[out, in]``
-so a linear is ``x @ W.T``), the same op sequence call for call — the
-RMSNorm kernel, the causal flash-attention kernel for a cold prefill,
-the paged decode-attention kernel for every decode layer, RoPE, the
-packed ``kv_proj`` split, GQA — so prefill and decode logits track the
-JAX package on the same weights.
+Port of the tp = 1 half of ``apex_tpu/inference/models.py``: the same
+parameter trees (``model.init``'s key paths, weights ``[out, in]`` so a
+linear is ``x @ W.T``), the same op sequence call for call — the norm
+kernel (GPT's LayerNorm with bias, LLaMA's RMSNorm), the causal
+flash-attention kernel for a cold prefill, per decode layer the
+attention of whichever cache the engine runs (the dense slot cache's
+:func:`~apex_tpu_torch.ops.attention.decode_attention`, the paged
+pool's decode kernel), GPT's learned positions, interleaved qkv, biases
+and GELU MLP (tanh approximation) with logits tied to the word
+embedding, LLaMA's RoPE, packed ``kv_proj`` split and GQA — so prefill
+and decode logits track the JAX package on the same weights.
 
 Where the JAX forwards branch on traced values inside one compiled
 program (``lax.cond`` on the prefill start), these branch in Python:
 PyTorch runs eagerly.  With ``fused`` (the layout of
-:func:`fused_layer_params`) every decode layer is one launch of the
-fused-block kernel instead.  GPT and BERT, tensor-parallel serving and
-speculative verify are later slices (ROADMAP queue 1).
+:func:`fused_layer_params`, paged engines only) every decode layer is
+one launch of the fused-block kernel instead.  Tensor-parallel serving
+and speculative verify are later slices (ROADMAP queue 1, "tp and
+spec").
 """
 from __future__ import annotations
 
@@ -21,14 +27,15 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch.inference import kv_cache
-from apex_tpu_torch.ops import rms_norm
-from apex_tpu_torch.ops.attention import (flash_attention,
+from apex_tpu_torch.ops import layer_norm, rms_norm
+from apex_tpu_torch.ops.attention import (decode_attention, flash_attention,
                                           prefix_window_attention)
 from apex_tpu_torch.ops.paged_attention import (fused_block_decode,
                                                 paged_decode_attention)
 from apex_tpu_torch.transformer.functional.fused_rope import (
     fused_apply_rotary_pos_emb_cached,
 )
+from apex_tpu_torch.transformer.testing.standalone_gpt import gelu
 from apex_tpu_torch.transformer.testing.standalone_llama import (
     _rope_cos_sin,
 )
@@ -59,13 +66,9 @@ def tp_dims(kind: str, cfg, tp: int) -> dict:
 
 
 def check_supported(kind: str, cfg) -> None:
-    if kind in ("gpt", "bert"):
-        raise NotImplementedError(
-            f"{kind!r} serving is a later slice of the port (ROADMAP "
-            f"queue 1, 'the dense cache and GPT serving'); this slice "
-            f"serves 'llama'")
-    if kind != "llama":
-        raise ValueError(f"unknown generative model kind {kind!r}")
+    if kind not in ("gpt", "llama"):
+        raise ValueError(f"unknown generative model kind {kind!r} "
+                         "(expected 'gpt' or 'llama')")
     for flag in ("sequence_parallel", "context_parallel", "scan_layers"):
         if getattr(cfg, flag, False):
             raise ValueError(
@@ -95,6 +98,20 @@ def _last_row(h, length: int):
     """Hidden state at the last REAL position of a bucket-padded
     ``[s, b, hid]`` activation (sliced before the LM head)."""
     return h[int(length) - 1]                               # [b, hid]
+
+
+def _cache_attend(cache, layer: int, q, live):
+    """Single-token attention against ONE layer of whichever cache the
+    engine runs: the dense slot window (:func:`~apex_tpu_torch.ops.
+    attention.decode_attention`) or the paged pool through the slot
+    page table (:func:`~apex_tpu_torch.ops.paged_attention.
+    paged_decode_attention`).  Both score the pre-broadcast per-kv-head
+    cache (GQA/MQA grouped)."""
+    if isinstance(cache, kv_cache.PagedKVCache):
+        return paged_decode_attention(q, cache.k[:, layer],
+                                      cache.v[:, layer], cache.page_table,
+                                      live)
+    return decode_attention(q, cache.k[:, layer], cache.v[:, layer], live)
 
 
 def _suffix_attend(cache, layer: int, row, q, k, v, start: int):
@@ -144,17 +161,57 @@ def _llama_mlp(lp, h):
     return _linear(lp["mlp"]["down_proj"], F.silu(gate) * up)
 
 
+def _fused_vec(p, name, width):
+    """A norm parameter or a linear's bias as the fused layout's fp32
+    ``[1, width]`` row."""
+    return p[name].reshape(1, width).to(torch.float32)
+
+
+def _gpt_fused_layer(lp, cfg, heads, d):
+    """One GPT layer in the fused layout: the interleaved
+    ``query_key_value`` (per head ``[q(d), k(d), v(d)]``) deinterleaved
+    into ``wq``/``wk``/``wv`` and their biases, every vector fp32."""
+    hidden = cfg.hidden_size
+    att = lp["self_attention"]
+    qkv = att["query_key_value"]
+    w = qkv["weight"].T.reshape(hidden, heads, 3, d)
+    b = _fused_vec(qkv, "bias", 3 * heads * d).reshape(heads, 3, d)
+    ln1, ln2 = lp["input_layernorm"], lp["post_attention_layernorm"]
+    mlp = lp["mlp"]
+    blk = {"ln1_w": _fused_vec(ln1, "weight", hidden),
+           "ln1_b": _fused_vec(ln1, "bias", hidden),
+           "wo": att["dense"]["weight"].T.contiguous(),
+           "bo": _fused_vec(att["dense"], "bias", hidden),
+           "ln2_w": _fused_vec(ln2, "weight", hidden),
+           "ln2_b": _fused_vec(ln2, "bias", hidden),
+           "wu": mlp["dense_h_to_4h"]["weight"].T.contiguous(),
+           "bu": _fused_vec(mlp["dense_h_to_4h"], "bias", cfg.ffn),
+           "wd": mlp["dense_4h_to_h"]["weight"].T.contiguous(),
+           "bd": _fused_vec(mlp["dense_4h_to_h"], "bias", hidden)}
+    for j, n in enumerate("qkv"):
+        blk[f"w{n}"] = w[:, :, j, :].reshape(hidden, heads * d).contiguous()
+        blk[f"b{n}"] = b[:, j, :].reshape(1, heads * d).contiguous()
+    return blk
+
+
 def fused_layer_params(kind: str, cfg, params):
     """The per-layer weights in the fused-block layout, built once at
     engine construction: matmul-ready ``[in, out]`` matrices ``wq``,
-    ``wk``, ``wv``, ``wo``, ``wg``, ``wu``, ``wd`` (``wk``/``wv`` split
-    from the packed ``kv_proj``, whose kv heads each hold their k and v
-    columns side by side) and the RMSNorm weights ``ln1_w``/``ln2_w``
-    as ``[1, hidden]``.  A contiguous copy of every layer: the engine
-    then holds both layouts (prefill reads the original tree)."""
+    ``wk``, ``wv``, ``wo`` and the MLP's.  LLaMA: ``wk``/``wv`` split
+    from the packed ``kv_proj`` (each kv head's k and v columns side by
+    side), ``wg``, ``wu``, ``wd`` and the RMSNorm weights
+    ``ln1_w``/``ln2_w`` as ``[1, hidden]``.  GPT: ``wq``/``wk``/``wv``
+    deinterleaved from ``query_key_value`` with their biases
+    ``bq``/``bk``/``bv``, ``bo``, the LayerNorms ``ln1_w``/``ln1_b``/
+    ``ln2_w``/``ln2_b``, ``wu``/``bu``/``wd``/``bd``; every GPT vector
+    is an fp32 ``[1, n]`` row (the kernel computes them in fp32; the
+    JAX layout keeps their dtype).  A contiguous copy of every layer:
+    the engine then holds both layouts (prefill reads the original
+    tree)."""
     check_supported(kind, cfg)
     p = _params_subtree(params)
-    d = model_dims(kind, cfg)["head_dim"]
+    dims = model_dims(kind, cfg)
+    d = dims["head_dim"]
     hidden = cfg.hidden_size
 
     def io(w):                                  # [out, in] -> [in, out]
@@ -163,6 +220,9 @@ def fused_layer_params(kind: str, cfg, params):
     out = []
     for i in range(cfg.num_layers):
         lp = p[f"layer_{i}"]
+        if kind == "gpt":
+            out.append(_gpt_fused_layer(lp, cfg, dims["heads"], d))
+            continue
         att = lp["attention"]
         kvw = att["kv_proj"]["weight"].T
         kvh = kvw.shape[1] // (2 * d)
@@ -180,6 +240,117 @@ def fused_layer_params(kind: str, cfg, params):
         })
     return out
 
+
+# --------------------------------------------------------------------------
+# GPT (standalone_gpt mirror)
+# --------------------------------------------------------------------------
+
+def _gpt_attn_proj(lp, h, heads, head_dim):
+    """qkv projection + the model's reshape/split layout (per head
+    ``[q(d), k(d), v(d)]``): q/k/v with a trailing ``[..., heads,
+    head_dim]``."""
+    qkv = _linear(lp["self_attention"]["query_key_value"], h)
+    qkv = qkv.reshape(*h.shape[:-1], heads, 3 * head_dim)
+    return torch.split(qkv, head_dim, dim=-1)
+
+
+def _gpt_mlp(lp, h):
+    return _linear(lp["mlp"]["dense_4h_to_h"],
+                   gelu(_linear(lp["mlp"]["dense_h_to_4h"], h)))
+
+
+def _ln(p, x):
+    return layer_norm(x, p["weight"], p["bias"])
+
+
+def _gpt_prefill(cfg, params, tokens, length=None, cache=None, row=None,
+                 start=0):
+    p = _params_subtree(params)
+    b, s = tokens.shape
+    dims = model_dims("gpt", cfg)
+    heads, head_dim = dims["heads"], dims["head_dim"]
+    suffix = cache is not None
+    emb_w = p["embedding"]["word_embeddings"]["weight"]
+    pos_tab = p["embedding"]["position_embeddings"]
+    h = emb_w[tokens.long()]                                # [b, s, h]
+    if suffix:
+        # rows sit at absolute positions start + i (clamped: dead
+        # bucket-padding rows past the table stay in range)
+        positions = torch.clamp(
+            start + torch.arange(s, device=tokens.device),
+            max=pos_tab.shape[0] - 1)
+        h = h + pos_tab[positions][None]
+    else:
+        h = h + pos_tab[None, :s]
+    h = h.transpose(0, 1)                                   # [s, b, h]
+
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        lp = p[f"layer_{i}"]
+        x = h
+        h1 = _ln(lp["input_layernorm"], x)
+        q, k, v = _gpt_attn_proj(lp, h1, heads, head_dim)   # [s, b, n, d]
+        q, k, v = (t.permute(1, 2, 0, 3) for t in (q, k, v))
+        ks.append(k[0])                                     # [n, s, d]
+        vs.append(v[0])
+        if suffix:
+            ctx = _suffix_attend(cache, i, row, q, k, v, int(start))
+        else:
+            ctx = flash_attention(q, k, v, causal=True)
+        ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, -1)
+        x = x + _linear(lp["self_attention"]["dense"], ctx)
+        h = x + _gpt_mlp(lp, _ln(lp["post_attention_layernorm"], x))
+
+    h = _ln(p["final_layernorm"], h)
+    if length is not None:
+        last = length - start if suffix else length   # local slab index
+        logits = torch.matmul(_last_row(h, last), emb_w.T)    # [b, v]
+    else:
+        logits = torch.einsum("sbh,vh->sbv", h, emb_w)      # tied head
+    return logits, torch.stack(ks), torch.stack(vs)
+
+
+def _gpt_decode(cfg, params, cache, tokens, fused=None):
+    p = _params_subtree(params)
+    dims = model_dims("gpt", cfg)
+    heads, head_dim = dims["heads"], dims["head_dim"]
+    positions = cache.lengths                               # [slots]
+    emb_w = p["embedding"]["word_embeddings"]["weight"]
+    pos_tab = p["embedding"]["position_embeddings"]
+    # a slot at the end of the table (its length at capacity) reads the
+    # last row: its token is never appended (advance flags it), where
+    # the JAX take reads a row of NaN
+    rows = torch.clamp(positions.long(), max=pos_tab.shape[0] - 1)
+    h = emb_w[tokens.long()] + pos_tab[rows]                # [slots, h]
+
+    live = positions + 1                # incl. the token written now
+    targets = kv_cache.append_targets(cache)  # same rows every layer
+    for i in range(cfg.num_layers):
+        if fused is not None:
+            # the whole block in one kernel; only the pool append is
+            # left to the per-op path
+            h, k_tok, v_tok = fused_block_decode(
+                h, fused[i], cache.k[:, i], cache.v[:, i], cache.page_table,
+                positions, kind="gpt", eps=1e-5)
+            cache = kv_cache.append_layer(cache, i, k_tok, v_tok, targets)
+            continue
+        lp = p[f"layer_{i}"]
+        x = h
+        h1 = _ln(lp["input_layernorm"], x)
+        q, k_tok, v_tok = _gpt_attn_proj(lp, h1, heads, head_dim)
+        cache = kv_cache.append_layer(cache, i, k_tok, v_tok, targets)
+        ctx = _cache_attend(cache, i, q, live)
+        x = x + _linear(lp["self_attention"]["dense"],
+                        ctx.reshape(ctx.shape[0], -1))
+        h = x + _gpt_mlp(lp, _ln(lp["post_attention_layernorm"], x))
+
+    h = _ln(p["final_layernorm"], h)
+    return torch.matmul(h, emb_w.T), cache                 # [slots, v]
+
+
+# --------------------------------------------------------------------------
+# LLaMA (standalone_llama mirror; GQA/MQA cached once per kv head)
+# --------------------------------------------------------------------------
 
 def _llama_prefill(cfg, params, tokens, length=None, cache=None, row=None,
                    start=0):
@@ -252,9 +423,8 @@ def _llama_decode_layer(lp, h, cache, i, cos, sin, live, targets, dims,
     q = fused_apply_rotary_pos_emb_cached(q, cos, sin)
     k_tok = fused_apply_rotary_pos_emb_cached(k_tok, cos, sin)
     cache = kv_cache.append_layer(cache, i, k_tok, v_tok, targets)
-    # grouped-query scoring straight off the per-kv-head pool
-    ctx = paged_decode_attention(q, cache.k[:, i], cache.v[:, i],
-                                 cache.page_table, live)
+    # grouped-query scoring straight off the per-kv-head cache or pool
+    ctx = _cache_attend(cache, i, q, live)
     x = x + _linear(lp["attention"]["o_proj"], ctx.reshape(ctx.shape[0], -1))
     h1 = rms_norm(x, lp["post_attention_norm"]["weight"], eps=eps)
     return x + _llama_mlp(lp, h1), cache
@@ -306,29 +476,31 @@ def prefill_forward(kind: str, cfg, params, tokens, length=None, *,
     ``logits [1, v]``; without it every position is projected
     (``logits [s, 1, v]``, the full-forward shape).
 
-    Suffix mode: with ``cache`` (the :class:`~apex_tpu_torch.inference.
-    kv_cache.PagedKVCache`), ``row`` (the slot's page-table row) and
-    ``prefill_from`` (prompt tokens already cached), ``tokens`` is the
-    bucket-padded uncached tail at absolute positions ``prefill_from +
-    i`` and ``length`` is the TOTAL live length; ``prefill_from == 0``
-    is the cold path."""
+    Suffix mode (paged engines): with ``cache`` (the
+    :class:`~apex_tpu_torch.inference.kv_cache.PagedKVCache`), ``row``
+    (the slot's page-table row) and ``prefill_from`` (prompt tokens
+    already cached), ``tokens`` is the bucket-padded uncached tail at
+    absolute positions ``prefill_from + i`` and ``length`` is the TOTAL
+    live length; ``prefill_from == 0`` is the cold path."""
     if tokens.dim() != 2 or tokens.shape[0] != 1:
         raise ValueError(
             f"prefill takes one prompt [1, s], got {tuple(tokens.shape)}")
     check_supported(kind, cfg)
+    fn = _gpt_prefill if kind == "gpt" else _llama_prefill
     if cache is None:
-        return _llama_prefill(cfg, params, tokens, length)
+        return fn(cfg, params, tokens, length)
     if row is None or prefill_from is None or length is None:
         raise ValueError(
             "suffix prefill needs cache, row, prefill_from AND length")
-    return _llama_prefill(cfg, params, tokens, int(length), cache=cache,
-                          row=row, start=int(prefill_from))
+    return fn(cfg, params, tokens, int(length), cache=cache, row=row,
+              start=int(prefill_from))
 
 
 def decode_forward(kind: str, cfg, params, cache, tokens, fused=None):
     """One-token step for every slot: ``tokens [slots]`` -> ``(logits
     [slots, v], cache)`` with the new k/v appended (in place) at each
-    slot's position.  Lengths do not advance here.
+    slot's position, on the dense slot cache or the paged pool.
+    Lengths do not advance here.
 
     ``fused`` is the per-layer layout of :func:`fused_layer_params`:
     with it every decoder layer is one fused-block kernel launch
@@ -337,4 +509,5 @@ def decode_forward(kind: str, cfg, params, cache, tokens, fused=None):
     kernel keeps the residual in fp32 inside a layer, where the per-op
     path rounds it at each sublayer)."""
     check_supported(kind, cfg)
-    return _llama_decode(cfg, params, cache, tokens, fused=fused)
+    fn = _gpt_decode if kind == "gpt" else _llama_decode
+    return fn(cfg, params, cache, tokens, fused=fused)

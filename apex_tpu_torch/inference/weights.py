@@ -1,15 +1,20 @@
 """Weights into the port: the JAX ``model.init`` tree as tensors.
 
 :func:`params_from_jax` takes the nested-dict parameter tree the JAX
-package's ``llama_model_provider(cfg).init`` returns (leaves as numpy
-arrays, or any array numpy can read; with or without the outer
-``"params"`` key) and returns the same tree with ``torch.Tensor``
-leaves under the same key paths.  Layouts are unchanged: linear weights
-stay ``[out, in]`` (the forwards compute ``x @ W.T``), the packed
-``kv_proj`` keeps each kv head's k and v columns side by side.
+package's ``llama_model_provider(cfg).init``, ``gpt_model_provider``
+or ``bert_model_provider`` returns (leaves as numpy arrays, or any
+array numpy can read; with or without the outer ``"params"`` key) and
+returns the same tree with ``torch.Tensor`` leaves under the same key
+paths, every leaf's shape checked against the config
+(:func:`llama_param_shapes`, :func:`gpt_param_shapes`,
+:func:`bert_param_shapes`).  Layouts are unchanged: linear weights stay
+``[out, in]`` (the forwards compute ``x @ W.T``), LLaMA's packed
+``kv_proj`` keeps each kv head's k and v columns side by side, GPT's
+``query_key_value`` its per-head ``[q, k, v]`` interleave, BERT's
+flax ``Dense`` layers their ``kernel [in, out]``.
 
-:func:`load_jax_params` copies the same tree into the training model of
-:mod:`apex_tpu_torch.transformer.testing.standalone_llama`, whose named
+:func:`load_jax_params` copies the same tree into the port's standalone
+models (``LlamaModel``, ``GPTModel``, ``BertModel``), whose named
 parameters are the tree's key paths joined by dots: one JAX tree serves
 both the serving and the training path.
 """
@@ -18,10 +23,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from apex_tpu_torch.inference.models import check_supported, model_dims
+from apex_tpu_torch.inference.models import model_dims
 from apex_tpu_torch.utils import resolve_device
 
-__all__ = ["params_from_jax", "llama_param_shapes", "load_jax_params"]
+__all__ = ["params_from_jax", "llama_param_shapes", "gpt_param_shapes",
+           "bert_param_shapes", "load_jax_params"]
 
 
 def _to_tensor(x, device, dtype):
@@ -59,11 +65,63 @@ def llama_param_shapes(cfg) -> dict:
     return shapes
 
 
+def _gpt_layers(cfg, shapes: dict) -> dict:
+    """The transformer layers of GPT and BERT (the same block)."""
+    hid, ffn = cfg.hidden_size, cfg.ffn_hidden_size or 4 * cfg.hidden_size
+    for i in range(cfg.num_layers):
+        lay = f"layer_{i}"
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            shapes[(lay, norm, "weight")] = (hid,)
+            shapes[(lay, norm, "bias")] = (hid,)
+        for mod, (n_out, n_in) in (
+                (("self_attention", "query_key_value"), (3 * hid, hid)),
+                (("self_attention", "dense"), (hid, hid)),
+                (("mlp", "dense_h_to_4h"), (ffn, hid)),
+                (("mlp", "dense_4h_to_h"), (hid, ffn))):
+            shapes[(lay, *mod, "weight")] = (n_out, n_in)
+            shapes[(lay, *mod, "bias")] = (n_out,)
+    return shapes
+
+
+def gpt_param_shapes(cfg) -> dict:
+    """``{key path: shape}`` of a GPT tree at tp = 1 (the bare tree)."""
+    hid = cfg.hidden_size
+    return _gpt_layers(cfg, {
+        ("embedding", "word_embeddings", "weight"): (cfg.vocab_size, hid),
+        ("embedding", "position_embeddings"): (cfg.max_seq_length, hid),
+        ("final_layernorm", "weight"): (hid,),
+        ("final_layernorm", "bias"): (hid,)})
+
+
+def bert_param_shapes(cfg, binary_head: bool = False) -> dict:
+    """``{key path: shape}`` of a BERT tree at tp = 1 (the bare tree),
+    with the token-type table and, with ``binary_head``, the pooler and
+    the NSP head."""
+    hid = cfg.hidden_size
+    shapes = {("word_embeddings", "weight"): (cfg.vocab_size, hid),
+              ("position_embeddings",): (cfg.max_seq_length, hid),
+              ("tokentype_embeddings", "embedding"):
+                  (cfg.num_token_types, hid),
+              ("lm_head_dense", "kernel"): (hid, hid),
+              ("lm_head_dense", "bias"): (hid,)}
+    for norm in ("final_layernorm", "lm_head_layernorm"):
+        shapes[(norm, "weight")] = (hid,)
+        shapes[(norm, "bias")] = (hid,)
+    if binary_head:
+        shapes.update({("pooler", "kernel"): (hid, hid),
+                       ("pooler", "bias"): (hid,),
+                       ("binary_head", "kernel"): (hid, 2),
+                       ("binary_head", "bias"): (2,)})
+    return _gpt_layers(cfg, shapes)
+
+
 def params_from_jax(kind: str, cfg, tree, *, device=None, dtype=None):
     """The JAX param tree as tensors on ``device`` (CUDA unless
     ``"cpu"`` is asked for), optionally cast to ``dtype`` (floating
-    leaves only).  Checks every LLaMA leaf's shape against ``cfg``."""
-    check_supported(kind, cfg)
+    leaves only).  Checks every leaf's shape against ``cfg`` (for BERT
+    the pooler and NSP head too, where the tree has them)."""
+    if kind not in ("gpt", "llama", "bert"):
+        raise ValueError(f"unknown model kind {kind!r}")
     dev = resolve_device(device)
 
     def convert(node):
@@ -73,7 +131,13 @@ def params_from_jax(kind: str, cfg, tree, *, device=None, dtype=None):
 
     out = convert(dict(tree))
     bare = out["params"] if isinstance(out.get("params"), dict) else out
-    for path, shape in llama_param_shapes(cfg).items():
+    if kind == "llama":
+        shapes = llama_param_shapes(cfg)
+    elif kind == "gpt":
+        shapes = gpt_param_shapes(cfg)
+    else:
+        shapes = bert_param_shapes(cfg, binary_head="pooler" in bare)
+    for path, shape in shapes.items():
         node = bare
         for key in path:
             if not isinstance(node, dict) or key not in node:

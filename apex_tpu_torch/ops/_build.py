@@ -19,9 +19,12 @@ after it.  Counters are per kernel, not per source: a source may hold
 several kernels (``layer_norm.cu`` the forward and the backward,
 ``flash_attention_bwd.cu`` the one-pass backward and the split pair,
 ``fused_update.cu`` the unscale, axpby, Adam, the L2 norm, the fused
-scale and norm, LAMB's phase 1, SGD and Adagrad).  ``fused_block_decode.cu``
-is one cooperative launch per decoder layer; its entry, called with a
-null workspace, reports the workspace size without launching.
+scale and norm, LAMB's phase 1, SGD and Adagrad), and two have a
+second instance with a counter of its own: ``flash_attention.cu`` the
+masked forward (``flash_attention_masked``), ``fused_block_decode.cu``
+the GPT layer (``fused_block_decode_gpt``).  ``fused_block_decode.cu``
+is one cooperative launch per decoder layer; its entries, called with
+a null workspace, report the workspace size without launching.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine with no ``nvcc`` and no card.
@@ -47,7 +50,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch"
 SOURCES = {
     "layer_norm.cu": {"layer_norm": "apex_layer_norm_fwd",
                       "layer_norm_bwd": "apex_layer_norm_bwd"},
-    "flash_attention.cu": {"flash_attention": "apex_flash_attention_fwd"},
+    "flash_attention.cu": {
+        "flash_attention": "apex_flash_attention_fwd",
+        "flash_attention_masked": "apex_flash_attention_fwd_masked"},
     "flash_attention_bwd.cu": {
         "flash_attention_bwd": "apex_flash_attention_bwd",
         "flash_attention_bwd_dq": "apex_flash_attention_bwd_dq",
@@ -63,7 +68,8 @@ SOURCES = {
                         "fused_sgd": "apex_fused_sgd",
                         "fused_adagrad": "apex_fused_adagrad"},
     "fused_block_decode.cu": {
-        "fused_block_decode": "apex_fused_block_decode"},
+        "fused_block_decode": "apex_fused_block_decode",
+        "fused_block_decode_gpt": "apex_fused_block_decode_gpt"},
 }
 #: the source of each kernel, by launch-counter name
 KERNELS = {name: src for src, entries in SOURCES.items() for name in entries}
@@ -91,6 +97,9 @@ _SIGNATURES = {
     # scale_log2, stream
     "apex_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _F, _P],
+    # q, k, v, mask, o, lse, bh, sq, sk, d, causal, off, valid_q, valid_k,
+    # mask_hper, scale_log2, stream
+    "apex_flash_attention_fwd_masked": [_P] * 6 + [_I] * 9 + [_F, _P],
     # q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d,
     # causal, off, valid_q, valid_k, scale_log2, scale, stream
     "apex_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -129,6 +138,12 @@ _SIGNATURES = {
     # eps, scale_log2, stream
     "apex_fused_block_decode": [_P] * 20 + [_LP, _P] + [_I] * 8
                                + [_L, _I, _I, _F, _F, _P],
+    # x, ln1_w, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo, ln2_w, ln2_b, wu,
+    # bu, wd, bd, k_pages, v_pages, page_table, lengths, y, kt, vt, ws,
+    # ws_bytes, clock, slots, hidden, heads, kvh, d, ffn, ps, mpps,
+    # page_stride, fuse_mlp, eps, scale_log2, stream
+    "apex_fused_block_decode_gpt": [_P] * 25 + [_LP, _P] + [_I] * 8
+                                   + [_L, _I, _F, _F, _P],
 }
 
 

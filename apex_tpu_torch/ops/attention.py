@@ -21,9 +21,17 @@ Port of ``apex_tpu/ops/attention.py``, ``[b, h, s, d]`` layout:
   ``_dkv_kernel``).  All consume the base-2 lse.  The one-pass kernel
   adds dq with fp32 bulk reductions in any order, so its dq's last bits
   vary from run to run; the split pair writes every output once, and
-  repeats bit for bit.  The ``mask`` operand and dropout are not ported yet
-  (ROADMAP queue 1, "mask operand and dropout"): on CUDA they raise
-  ``NotImplementedError`` (the CPU plain version takes a mask).
+  repeats bit for bit.  A boolean ``mask`` (True = masked) becomes the
+  JAX package's ``mask3`` operand, ``[mb, sq, sk]`` for a mask of one
+  head or ``[b*h, sq, sk]`` per head, and the forward runs the masked
+  instance of the same kernel (launch counter
+  ``flash_attention_masked``); a fully masked row emits 0.  The
+  backward with a mask, and dropout, are not ported yet (ROADMAP queue
+  1, "mask operand and dropout"): they raise ``NotImplementedError``.
+* :func:`decode_attention` — single-token attention against the dense
+  slot cache: the JAX package's plain grouped chain at or below its
+  crossover (:func:`decode_xla_max_seq`, 4096 cached positions), the
+  masked flash forward above it.
 * :func:`mha_reference` — the natural-log oracle.
 * :func:`prefix_window_attention` — the warm-prefill attention over a
   cached prefix window plus the causal suffix; plain XLA in the JAX
@@ -34,13 +42,15 @@ launches the kernel or raises.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
 
 from apex_tpu_torch.ops import _build
 
-__all__ = ["flash_attention", "mha_reference", "prefix_window_attention"]
+__all__ = ["flash_attention", "decode_attention", "decode_xla_max_seq",
+           "mha_reference", "prefix_window_attention"]
 
 _NEG_INF = -1e30          # finite "masked" score, as in the JAX package
 _LOG2E = 1.4426950408889634
@@ -52,6 +62,13 @@ _KERNEL_HEAD_DIMS = (32, 64, 128)
 #: bytes, the split pair beyond.  Module-level so tests can force either
 #: route.
 _FUSED_BWD_MAX_BYTES = 2 * 1024 * 1024
+#: the JAX package's decode crossover: a dense cache of at most this
+#: many positions is scored by the plain grouped chain, a longer one by
+#: the masked flash forward; ``APEX_TPU_DECODE_XLA_MAX_SEQ`` or
+#: ``xla_max_seq=`` override it (0 forces the kernel branch)
+_DECODE_XLA_MAX_SEQ = 4096
+_DECODE_XLA_MAX_SEQ_ENV = "APEX_TPU_DECODE_XLA_MAX_SEQ"
+_MASK_ITEM = "ROADMAP queue 1, 'mask operand and dropout'"
 
 
 def mha_reference(q, k, v, *, causal: bool = False, mask=None,
@@ -75,16 +92,23 @@ def mha_reference(q, k, v, *, causal: bool = False, mask=None,
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
-def _fwd_reference(q3, k3, v3, causal, scale, causal_off=None, valid=None):
+def _fwd_reference(q3, k3, v3, causal, scale, causal_off=None, valid=None,
+                   mask3=None):
     """Plain version of the kernel: ``(out [bh, sq, d], lse [bh, sq])``
-    with the base-2 log-sum-exp and the kernel's masks."""
+    with the base-2 log-sum-exp and the kernel's masks (``mask3 [nmask,
+    sq, sk]`` bool, True = masked, batch-head ``i`` reading mask ``i //
+    (bh // nmask)``)."""
     bh, sq, d = q3.shape
     sk = k3.shape[1]
     off = (sk - sq) if causal_off is None else causal_off
     s = torch.matmul(q3.float(), k3.float().transpose(1, 2)) * (
         scale * _LOG2E)
-    s = torch.where(_live_mask(sq, sk, causal, off, valid, q3.device), s,
-                    torch.full_like(s, _NEG_INF))
+    live = _live_mask(sq, sk, causal, off, valid, q3.device)
+    if mask3 is not None:
+        nmask = mask3.shape[0]
+        live = live & ~mask3[:, None].expand(
+            nmask, bh // nmask, sq, sk).reshape(bh, sq, sk)
+    s = torch.where(live, s, torch.full_like(s, _NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m)
     p = torch.where(m <= _MASKED_ROW_THRESH, torch.zeros_like(p), p)
@@ -302,64 +326,108 @@ def _bwd(q3, k3, v3, o3, lse, do3, causal: bool, scale: float,
 class _FlashAttention(torch.autograd.Function):
     """Counterpart of the JAX ``run`` custom VJP in ``flash_attention``:
     the forward saves ``(q3, k3, v3, out, lse)``, the backward is
-    :func:`_bwd`."""
+    :func:`_bwd` (with a mask it raises: not ported yet)."""
 
     @staticmethod
-    def forward(ctx, q3, k3, v3, causal, scale):
-        out, lse = _fwd(q3, k3, v3, causal, scale)
+    def forward(ctx, q3, k3, v3, causal, scale, mask3):
+        out, lse = _fwd(q3, k3, v3, causal, scale, mask3=mask3)
         ctx.causal, ctx.scale = causal, scale
+        ctx.masked = mask3 is not None
         ctx.save_for_backward(q3, k3, v3, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, do3):
+        if ctx.masked:
+            raise NotImplementedError(
+                "the flash backward with a mask operand is not ported yet "
+                f"({_MASK_ITEM})")
         q3, k3, v3, out, lse = ctx.saved_tensors
         dq, dk, dv = _bwd(q3, k3, v3, out, lse, do3.contiguous(),
                           ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
+
+
+def _check_mask3(mask3, q3, sk):
+    bh, sq = q3.shape[0], q3.shape[1]
+    if mask3.dtype != torch.bool or mask3.dim() != 3 \
+            or tuple(mask3.shape[1:]) != (sq, sk) or mask3.shape[0] < 1 \
+            or bh % mask3.shape[0]:
+        raise ValueError(
+            f"mask3 must be bool [nmask, {sq}, {sk}] with nmask dividing "
+            f"b*h = {bh}; got {mask3.dtype} {tuple(mask3.shape)}")
+    if mask3.device != q3.device:
+        raise ValueError(f"mask3 is on {mask3.device}, q on {q3.device}")
 
 
 def _fwd(q3, k3, v3, causal: bool, scale: float,
          causal_off: Optional[int] = None,
-         valid: Optional[Tuple[int, int]] = None):
+         valid: Optional[Tuple[int, int]] = None, mask3=None):
     """Forward over ``[b*h, s, d]`` operands: ``(out, lse)`` with ``lse``
     the base-2 log-sum-exp ``[b*h, sq]`` (fp32).  ``causal_off``
     defaults to ``sk - sq``; ``valid = (vq, vk)`` masks rows ``>= vq``
-    and columns ``>= vk`` (a padded bucket)."""
-    if q3.device.type == "cpu":
-        return _fwd_reference(q3, k3, v3, causal, scale, causal_off, valid)
+    and columns ``>= vk`` (a padded bucket); ``mask3`` (bool ``[nmask,
+    sq, sk]``, True = masked, contiguous) masks batch-head ``i`` by
+    ``mask3[i // (b*h // nmask)]`` and takes the masked instance."""
     bh, sq, d = q3.shape
     sk = k3.shape[1]
+    if mask3 is not None:
+        _check_mask3(mask3, q3, sk)
+    if q3.device.type == "cpu":
+        return _fwd_reference(q3, k3, v3, causal, scale, causal_off, valid,
+                              mask3)
     _check_kernel_operands("flash_attention", q3, k3, v3)
     off = (sk - sq) if causal_off is None else int(causal_off)
     vq, vk = (sq, sk) if valid is None else (int(valid[0]), int(valid[1]))
     out = torch.empty_like(q3)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q3.device)
     lib = _build.library()
-    _build.count("flash_attention")
-    err = lib.apex_flash_attention_fwd(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), bh, sq, sk, d, int(causal), off, vq, vk,
-        float(scale * _LOG2E), _build.stream_ptr(q3.device))
-    _build.check(err, "flash_attention")
+    if mask3 is None:
+        _build.count("flash_attention")
+        err = lib.apex_flash_attention_fwd(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), bh, sq, sk, d, int(causal), off, vq, vk,
+            float(scale * _LOG2E), _build.stream_ptr(q3.device))
+        _build.check(err, "flash_attention")
+        return out, lse
+    if not mask3.is_contiguous():
+        raise ValueError("the masked flash kernel needs a contiguous mask3")
+    _build.count("flash_attention_masked")
+    err = lib.apex_flash_attention_fwd_masked(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), mask3.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), bh, sq, sk, d, int(causal), off, vq,
+        vk, bh // mask3.shape[0], float(scale * _LOG2E),
+        _build.stream_ptr(q3.device))
+    _build.check(err, "flash_attention_masked")
     return out, lse
+
+
+def _mask3(mask, b, h, sq, sk):
+    """The JAX entry's ``mask3``: ``[mb, sq, sk]`` for a mask of one head,
+    ``[b*h, sq, sk]`` for a per-head mask, bool and contiguous."""
+    mask = mask.to(torch.bool)
+    mb, mh = mask.shape[0], mask.shape[1]
+    if mh == 1:
+        return mask.expand(mb, 1, sq, sk).reshape(mb, sq, sk).contiguous()
+    return mask.expand(b, h, sq, sk).reshape(b * h, sq, sk).contiguous()
 
 
 def flash_attention(q, k, v, *, causal: bool = False, mask=None,
                     sm_scale: Optional[float] = None,
                     dropout_rate: float = 0.0, dropout_seed=None):
     """Blockwise attention, ``[b, h, s, d]`` layout, differentiable in
-    q, k and v.
+    q, k and v (without a mask).
 
     On CUDA: bf16 operands, head_dim 32/64/128, any sequence lengths
     (the kernels mask the ragged edge themselves).  The arguments are
     checked first, as the JAX entry checks them (``ValueError``: a
     ``dropout_rate`` outside [0, 1), a nonzero rate without
-    ``dropout_seed``, a mask not ``[b|1, h|1, sq|1, sk|1]``).  ``mask`` and
-    ``dropout_rate > 0`` raise ``NotImplementedError`` on CUDA: the
-    dropout mask must match the JAX package's murmur-hash bits, and the
-    kernels take no mask operand yet (ROADMAP queue 1, "mask operand
-    and dropout")."""
+    ``dropout_seed``, a mask not ``[b|1, h|1, sq|1, sk|1]``).  ``mask``
+    is boolean, True = masked; it is expanded to the JAX package's
+    ``mask3`` and the forward takes the masked kernel, whose backward is
+    not ported yet.  ``dropout_rate > 0`` raises ``NotImplementedError``:
+    the dropout mask must match the JAX package's murmur-hash bits
+    (ROADMAP queue 1, "mask operand and dropout")."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = (d ** -0.5) if sm_scale is None else sm_scale
@@ -381,20 +449,94 @@ def flash_attention(q, k, v, *, causal: bool = False, mask=None,
     if dropout_rate:
         raise NotImplementedError(
             "attention dropout (the murmur3 keep mask of apex_tpu's "
-            "_keep_mask) is not ported yet (ROADMAP queue 1, 'mask "
-            "operand and dropout')")
-    if mask is not None:
-        if q.device.type == "cpu":
-            return mha_reference(q, k, v, causal=causal, mask=mask,
-                                 sm_scale=scale)
-        raise NotImplementedError(
-            "the flash_attention kernels take no mask operand yet "
-            "(ROADMAP queue 1, 'mask operand and dropout')")
+            f"_keep_mask) is not ported yet ({_MASK_ITEM})")
+    mask3 = None if mask is None else _mask3(mask, b, h, sq, sk)
     q3 = q.reshape(b * h, sq, d).contiguous()
     k3 = k.reshape(b * h, sk, d).contiguous()
     v3 = v.reshape(b * h, sk, d).contiguous()
-    out = _FlashAttention.apply(q3, k3, v3, causal, scale)
+    out = _FlashAttention.apply(q3, k3, v3, causal, scale, mask3)
     return out.reshape(b, h, sq, d)
+
+
+def decode_xla_max_seq(override=None) -> int:
+    """Effective decode crossover: explicit override >
+    ``APEX_TPU_DECODE_XLA_MAX_SEQ`` > 4096."""
+    if override is not None:
+        return int(override)
+    env = os.environ.get(_DECODE_XLA_MAX_SEQ_ENV)
+    if env:
+        try:
+            return int(env)
+        except ValueError as e:
+            raise ValueError(f"{_DECODE_XLA_MAX_SEQ_ENV} must be an int, "
+                             f"got {env!r}") from e
+    return _DECODE_XLA_MAX_SEQ
+
+
+def decode_attention(q, k, v, lengths, *, sm_scale: Optional[float] = None,
+                     use_kernel: Optional[bool] = None,
+                     xla_max_seq: Optional[int] = None):
+    """Single-token attention against a per-slot KV cache.
+
+    * ``q``: ``[b, h, 1, d]`` (or ``[b, h, d]``), the current token's
+      query heads per slot.
+    * ``k``/``v``: ``[b, kv_heads, S, d]``, the cache, ``kv_heads``
+      dividing ``h`` (GQA/MQA).
+    * ``lengths``: ``[b]`` int32 live entries per slot; a slot of length
+      0 emits zeros.
+
+    ``use_kernel=None`` takes the JAX package's crossover: at or below
+    :func:`decode_xla_max_seq` cached positions the plain grouped chain
+    (fp32 scores from the operands, fp32 softmax, p rounded to the value
+    dtype for P·V, no kv broadcast materialized); above it k/v are
+    broadcast to the query heads and the length mask goes to
+    :func:`flash_attention` as its mask operand (the masked kernel on
+    CUDA)."""
+    squeezed = q.dim() == 3
+    if squeezed:
+        q = q[:, :, None, :]
+    b, h, q_len, d = q.shape
+    if q_len != 1:
+        raise ValueError(
+            f"decode_attention is the q_len == 1 path, got q_len {q_len}; "
+            "use flash_attention for prefill")
+    if k.shape != v.shape or k.dim() != 4 or k.shape[0] != b \
+            or k.shape[3] != d:
+        raise ValueError(
+            f"k/v must be [b, kv_heads, S, d] = [{b}, *, *, {d}] and "
+            f"equal-shaped; got k {tuple(k.shape)} v {tuple(v.shape)}")
+    kvh, s_cache = k.shape[1], k.shape[2]
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"kv_heads ({kvh}) must divide query heads ({h})")
+    if tuple(lengths.shape) != (b,):
+        raise ValueError(f"lengths must be [{b}], got "
+                         f"{tuple(lengths.shape)}")
+    scale = (d ** -0.5) if sm_scale is None else sm_scale
+    lengths = lengths.to(torch.int32)
+    if use_kernel is None:
+        use_kernel = s_cache > decode_xla_max_seq(xla_max_seq)
+    group = h // kvh
+    cols = torch.arange(s_cache, dtype=torch.int32, device=q.device)
+    if use_kernel:
+        if group > 1:
+            k, v = (t[:, :, None].expand(b, kvh, group, s_cache, d)
+                    .reshape(b, h, s_cache, d) for t in (k, v))
+        mask = cols[None, None, None, :] >= lengths[:, None, None, None]
+        out = flash_attention(q, k, v, mask=mask, sm_scale=scale)
+        return out[:, :, 0] if squeezed else out
+    # the plain grouped chain: no kv broadcast materialized
+    qg = q.reshape(b, kvh, group, d).float()
+    s = torch.einsum("bkgd,bksd->bkgs", qg, k.float()) * scale
+    live = cols[None, None, None, :] < lengths[:, None, None, None]
+    s = torch.where(live, s, torch.full_like(s, _NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = p / p.sum(dim=-1, keepdim=True)
+    # length-0 slots: every score is _NEG_INF -- emit 0, not uniform
+    p = torch.where(m <= _MASKED_ROW_THRESH, torch.zeros_like(p), p)
+    out = torch.einsum("bkgs,bksd->bkgd", p.to(v.dtype).float(), v.float())
+    out = out.reshape(b, h, 1, d).to(q.dtype)
+    return out[:, :, 0] if squeezed else out
 
 
 def prefix_window_attention(q, k, v, win_k, win_v, start,

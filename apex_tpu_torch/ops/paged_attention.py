@@ -22,11 +22,15 @@ slots' windows and scores them in fp32.
 
 Fused-block decode, port of ``fused_block_decode`` and its dispatch
 knobs (``decode_fusion``, ``fusion_min_pages``,
-``resolve_decode_fusion``): a whole LLaMA decoder layer for every slot
-— norm, q/k/v, RoPE, paged attention with the current token folded in,
-o-proj, norm, SwiGLU — as one launch of ``csrc/fused_block_decode.cu``
-(the counterpart of the Pallas ``_fused_block_kernel``).  GPT blocks
-and the tensor-parallel ``partial_out`` variant are later slices.
+``resolve_decode_fusion``): a whole decoder layer for every slot as one
+launch of ``csrc/fused_block_decode.cu`` (the counterpart of the Pallas
+``_fused_block_kernel``).  ``kind="llama"``: RMSNorm, q/k/v, RoPE,
+paged attention with the current token folded in, o-proj, RMSNorm,
+SwiGLU (launch counter ``fused_block_decode``).  ``kind="gpt"``:
+LayerNorm with bias, biased q/k/v, no RoPE, the same attention, biased
+o-proj, LayerNorm, ``gelu(h2 @ wu + bu) @ wd + bd`` with GELU in the
+tanh approximation (counter ``fused_block_decode_gpt``).  The
+tensor-parallel ``partial_out`` variant is a later slice.
 """
 from __future__ import annotations
 
@@ -350,14 +354,14 @@ def resolve_decode_fusion(mode=None, *, paged: bool,
 
 
 def _fused_geometry(x, blk, k_pages, v_pages, page_table, lengths, kind,
-                    cos, sin, partial_out):
+                    cos, sin, partial_out, fuse_mlp=True):
     """The JAX checks; returns ``(kvh, ps, d, h)``."""
-    if kind == "gpt":
-        raise NotImplementedError(
-            "the fused GPT block is not ported yet: ROADMAP queue 1, "
-            "'the dense cache and GPT serving'")
-    if kind != "llama":
+    if kind not in ("gpt", "llama"):
         raise ValueError(f"unknown block kind {kind!r}")
+    if partial_out and fuse_mlp:
+        raise ValueError(
+            "partial_out emits the pre-psum attention shard; the MLP "
+            "runs after the row-boundary reduction (fuse_mlp=False)")
     if partial_out:
         raise NotImplementedError(
             "the tensor-parallel partial_out block is not ported yet: "
@@ -380,7 +384,7 @@ def _fused_geometry(x, blk, k_pages, v_pages, page_table, lengths, kind,
         raise ValueError(
             f"page_table/lengths must cover {slots} slots; got "
             f"{tuple(page_table.shape)} / {tuple(lengths.shape)}")
-    if cos is None or sin is None:
+    if kind == "llama" and (cos is None or sin is None):
         raise ValueError("llama fused block needs cos/sin RoPE rows")
     return kvh, ps, d, h
 
@@ -391,24 +395,37 @@ def fused_block_reference(x, blk, k_pages, v_pages, page_table, lengths, *,
                           fuse_mlp: bool = True, partial_out: bool = False):
     """Plain version of :func:`fused_block_decode`, with the kernel's
     rounding points: fp32 norms and residual, bf16 matmul operands with
-    fp32 sums, fp32 RoPE, scores from the rounded q over the gathered
-    window in base 2, p rounded for P.V (normaliser from fp32 p), then
-    the current token folded in as one more column from the unrounded
-    fp32 q, k, v."""
+    fp32 sums (GPT: the fp32 bias added to each product), fp32 RoPE
+    (LLaMA), scores from the rounded q over the gathered window in base
+    2, p rounded for P.V (normaliser from fp32 p), then the current
+    token folded in as one more column from the unrounded fp32 q, k,
+    v."""
     kvh, ps, d, h = _fused_geometry(x, blk, k_pages, v_pages, page_table,
-                                    lengths, kind, cos, sin, partial_out)
+                                    lengths, kind, cos, sin, partial_out,
+                                    fuse_mlp)
+    gpt = kind == "gpt"
     slots = x.shape[0]
     group = h // kvh
     mpps = page_table.shape[1]
     scale = (d ** -0.5) if sm_scale is None else sm_scale
     f32 = torch.float32
 
-    def norm(v, w):
+    def norm(v, w, b=None):
+        w = w.reshape(1, -1).to(f32)
+        if gpt:
+            mu = v.mean(dim=1, keepdim=True)
+            var = ((v - mu) ** 2).mean(dim=1, keepdim=True)
+            return (v - mu) * torch.rsqrt(var + eps) * w \
+                + b.reshape(1, -1).to(f32)
         ms = (v * v).mean(dim=1, keepdim=True)
-        return v * torch.rsqrt(ms + eps) * w.reshape(1, -1).to(f32)
+        return v * torch.rsqrt(ms + eps) * w
 
-    def matmul(a, w):
-        return torch.matmul(a.to(w.dtype).to(f32), w.to(f32))
+    def matmul(a, w, b=None):
+        y = torch.matmul(a.to(w.dtype).to(f32), w.to(f32))
+        return y if b is None else y + b.reshape(1, -1).to(f32)
+
+    def bias(name):
+        return blk[name] if gpt else None
 
     def rope(t):                                  # t [slots, n, d]
         c = cos.to(f32)[:, None, :]
@@ -417,10 +434,12 @@ def fused_block_reference(x, blk, k_pages, v_pages, page_table, lengths, *,
         return t * c + torch.cat((-t2, t1), dim=-1) * s
 
     xv = x.to(f32)
-    h1 = norm(xv, blk["ln1_w"])
-    q = rope(matmul(h1, blk["wq"]).reshape(slots, h, d))
-    k_new = rope(matmul(h1, blk["wk"]).reshape(slots, kvh, d))
-    v_new = matmul(h1, blk["wv"]).reshape(slots, kvh, d)
+    h1 = norm(xv, blk["ln1_w"], bias("ln1_b"))
+    q = matmul(h1, blk["wq"], bias("bq")).reshape(slots, h, d)
+    k_new = matmul(h1, blk["wk"], bias("bk")).reshape(slots, kvh, d)
+    v_new = matmul(h1, blk["wv"], bias("bv")).reshape(slots, kvh, d)
+    if not gpt:
+        q, k_new = rope(q), rope(k_new)
 
     # the live pages, as the unfused path's plain version gathers them
     idx = page_table.long()
@@ -447,8 +466,12 @@ def fused_block_reference(x, blk, k_pages, v_pages, page_table, lengths, *,
     acc = acc * alpha + p_new * v_new[:, :, None, :]
     ctx = (acc / l).reshape(slots, h * d)
 
-    x2 = xv + matmul(ctx, blk["wo"])
-    if fuse_mlp:
+    x2 = xv + matmul(ctx, blk["wo"], bias("bo"))
+    if fuse_mlp and gpt:
+        h2 = norm(x2, blk["ln2_w"], blk["ln2_b"])
+        act = F.gelu(matmul(h2, blk["wu"], blk["bu"]), approximate="tanh")
+        y = x2 + matmul(act, blk["wd"], blk["bd"])
+    elif fuse_mlp:
         h2 = norm(x2, blk["ln2_w"])
         act = F.silu(matmul(h2, blk["wg"])) * matmul(h2, blk["wu"])
         y = x2 + matmul(act, blk["wd"])
@@ -462,16 +485,19 @@ _WS_BYTES: dict = {}
 
 
 def _fused_kernel_call(x, blk, k_pages, v_pages, page_table, lengths, cos,
-                       sin, eps, scale, fuse_mlp, kvh, ps, d, h, clock=None):
+                       sin, eps, scale, fuse_mlp, kvh, ps, d, h, clock=None,
+                       kind="llama"):
     """Launch the kernel.  ``clock``: ``None``, or a zeroed int64 CUDA
     tensor of 10 that receives the launch's phase times in ns (the start,
     the end of each of the 8 phases that end in a grid barrier, and the
     last block's end)."""
+    gpt = kind == "gpt"
     slots, hidden = x.shape
     bf = torch.bfloat16
-    names = ["wq", "wk", "wv", "wo"] + (["wg", "wu", "wd"] if fuse_mlp
-                                        else [])
-    ffn = blk["wg"].shape[1] if fuse_mlp else 0
+    mlp_w = (["wu", "wd"] if gpt else ["wg", "wu", "wd"]) if fuse_mlp \
+        else []
+    names = ["wq", "wk", "wv", "wo"] + mlp_w
+    ffn = blk["wu"].shape[1] if fuse_mlp else 0
     shapes = {"wq": (hidden, h * d), "wk": (hidden, kvh * d),
               "wv": (hidden, kvh * d), "wo": (h * d, hidden),
               "wg": (hidden, ffn), "wu": (hidden, ffn), "wd": (ffn, hidden)}
@@ -482,16 +508,36 @@ def _fused_kernel_call(x, blk, k_pages, v_pages, page_table, lengths, cos,
             f"{x.dtype}, pool {k_pages.dtype}, weights "
             f"{sorted({str(blk[n].dtype) for n in names})}")
     norms = ["ln1_w"] + (["ln2_w"] if fuse_mlp else [])
-    ln_dtypes = {blk[n].dtype for n in norms}
-    if len(ln_dtypes) != 1 or not ln_dtypes <= {bf, torch.float32}:
-        raise TypeError(f"norm weights must all be bfloat16 or all float32, "
-                        f"got {sorted(map(str, ln_dtypes))}")
+    if gpt:
+        if h != kvh:
+            raise ValueError(f"the GPT fused block kernel takes group 1 "
+                             f"(h == kv_heads), got {h} over {kvh}")
+        # every vector fp32, as fused_layer_params stores them
+        sizes = {"ln1_w": hidden, "ln1_b": hidden, "bq": h * d,
+                 "bk": kvh * d, "bv": kvh * d, "bo": hidden}
+        if fuse_mlp:
+            sizes.update(ln2_w=hidden, ln2_b=hidden, bu=ffn, bd=hidden)
+        if any(blk[n].dtype != torch.float32 for n in sizes):
+            raise TypeError(
+                f"the GPT fused block kernel takes float32 norm affines and "
+                f"biases, got {sorted({str(blk[n].dtype) for n in sizes})}")
+        vec = {n: blk[n].reshape(-1) for n in sizes}
+        for n, size in sizes.items():
+            if vec[n].numel() != size:
+                raise ValueError(f"{n} must hold {size} values, got "
+                                 f"{tuple(blk[n].shape)}")
+    else:
+        vec = {}
+        ln_dtypes = {blk[n].dtype for n in norms}
+        if len(ln_dtypes) != 1 or not ln_dtypes <= {bf, torch.float32}:
+            raise TypeError(f"norm weights must all be bfloat16 or all "
+                            f"float32, got {sorted(map(str, ln_dtypes))}")
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("page_table and lengths must be int32")
+    rope = [] if gpt else [("cos", cos), ("sin", sin)]
     tensors = [("x", x), ("k_pages", k_pages), ("v_pages", v_pages),
-               ("page_table", page_table), ("lengths", lengths),
-               ("cos", cos), ("sin", sin)] + [(n, blk[n])
-                                              for n in names + norms]
+               ("page_table", page_table), ("lengths", lengths)] + rope + [
+                   (n, blk[n]) for n in names + norms] + list(vec.items())
     for name, t in tensors:
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -518,49 +564,64 @@ def _fused_kernel_call(x, blk, k_pages, v_pages, page_table, lengths, cos,
             f"k/v pages must have inner strides {inner}, equal strides and "
             f"a page stride that is a multiple of 8; got k "
             f"{k_pages.stride()} v {v_pages.stride()}")
-    cos = cos.to(torch.float32).contiguous()
-    sin = sin.to(torch.float32).contiguous()
-    if tuple(cos.shape) != (slots, d) or tuple(sin.shape) != (slots, d):
-        raise ValueError(f"cos/sin must be [{slots}, {d}], got "
-                         f"{tuple(cos.shape)} / {tuple(sin.shape)}")
-    ops = [x, page_table, lengths] + [blk[n] for n in names + norms]
+    if not gpt:
+        cos = cos.to(torch.float32).contiguous()
+        sin = sin.to(torch.float32).contiguous()
+        if tuple(cos.shape) != (slots, d) or tuple(sin.shape) != (slots, d):
+            raise ValueError(f"cos/sin must be [{slots}, {d}], got "
+                             f"{tuple(cos.shape)} / {tuple(sin.shape)}")
+    ops = [x, page_table, lengths] + [blk[n] for n in names + norms] \
+        + list(vec.values())
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("x, page_table, lengths and the weights must be "
                          "contiguous")
     if any(t.data_ptr() % 16 for t in ops + [k_pages, v_pages]):
         raise ValueError("x, the weights and the pool must be 16-byte "
                          "aligned")
-    ln2 = blk["ln2_w"] if fuse_mlp else None
-    mlp = [blk[n] for n in ("wg", "wu", "wd")] if fuse_mlp else [None] * 3
     y = torch.empty_like(x)
     kt = torch.empty((slots, kvh, d), dtype=bf, device=x.device)
     vt = torch.empty_like(kt)
     lib = _build.library()
     stream = _build.stream_ptr(x.device)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    counter = "fused_block_decode_gpt" if gpt else "fused_block_decode"
+    pool = (k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+            lengths.data_ptr(), y.data_ptr(), kt.data_ptr(), vt.data_ptr())
 
     def launch(ws, ws_bytes):
-        ptr = (lambda t: None if t is None else t.data_ptr())
+        if gpt:
+            mv = (lambda n: ptr(vec.get(n)))
+            mw = (lambda n: ptr(blk[n]) if fuse_mlp else None)
+            return lib.apex_fused_block_decode_gpt(
+                x.data_ptr(), mv("ln1_w"), mv("ln1_b"), ptr(blk["wq"]),
+                mv("bq"), ptr(blk["wk"]), mv("bk"), ptr(blk["wv"]),
+                mv("bv"), ptr(blk["wo"]), mv("bo"), mv("ln2_w"),
+                mv("ln2_b"), mw("wu"), mv("bu"), mw("wd"), mv("bd"), *pool,
+                ws, ws_bytes, ptr(clock), slots, hidden, h, kvh, d, ffn, ps,
+                page_table.shape[1], k_pages.stride(0), int(fuse_mlp),
+                float(eps), float(scale * _LOG2E), stream)
+        ln2 = blk["ln2_w"] if fuse_mlp else None
+        mlp = [blk[n] for n in ("wg", "wu", "wd")] if fuse_mlp \
+            else [None] * 3
         return lib.apex_fused_block_decode(
             x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             blk["ln1_w"].data_ptr(), blk["wq"].data_ptr(),
             blk["wk"].data_ptr(), blk["wv"].data_ptr(),
-            blk["wo"].data_ptr(), ptr(ln2), *map(ptr, mlp),
-            k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-            lengths.data_ptr(), y.data_ptr(), kt.data_ptr(), vt.data_ptr(),
+            blk["wo"].data_ptr(), ptr(ln2), *map(ptr, mlp), *pool,
             ws, ws_bytes, ptr(clock), slots, hidden, h, kvh, d, ffn, ps,
             page_table.shape[1], k_pages.stride(0), int(fuse_mlp),
             int(blk["ln1_w"].dtype == torch.float32), float(eps),
             float(scale * _LOG2E), stream)
 
-    key = (x.device, slots, hidden, h, kvh, d, ffn, ps, page_table.shape[1],
-           bool(fuse_mlp))
+    key = (x.device, kind, slots, hidden, h, kvh, d, ffn, ps,
+           page_table.shape[1], bool(fuse_mlp))
     if key not in _WS_BYTES:
         need = ctypes.c_longlong(0)
-        _build.check(launch(None, ctypes.byref(need)), "fused_block_decode")
+        _build.check(launch(None, ctypes.byref(need)), counter)
         _WS_BYTES[key] = need.value
     ws = torch.empty(_WS_BYTES[key], dtype=torch.uint8, device=x.device)
-    _build.count("fused_block_decode")
-    _build.check(launch(ws.data_ptr(), None), "fused_block_decode")
+    _build.count(counter)
+    _build.check(launch(ws.data_ptr(), None), counter)
     return y, kt, vt
 
 
@@ -574,24 +635,29 @@ def fused_block_decode(x, blk, k_pages, v_pages, page_table, lengths, *,
     * ``blk``: the layer in the fused layout (:func:`apex_tpu_torch.
       inference.models.fused_layer_params`): ``[in, out]`` matrices
       ``wq [hidden, h*d]``, ``wk``/``wv [hidden, kv_heads*d]``, ``wo [h*d,
-      hidden]``, RMSNorm ``ln1_w``/``ln2_w [1, hidden]``, and the SwiGLU
-      ``wg``/``wu [hidden, ffn]``, ``wd [ffn, hidden]``.
+      hidden]`` and the MLP's; LLaMA: RMSNorm ``ln1_w``/``ln2_w [1,
+      hidden]`` and the SwiGLU ``wg``/``wu [hidden, ffn]``, ``wd [ffn,
+      hidden]``; GPT: LayerNorm ``ln1_w``/``ln1_b``/``ln2_w``/``ln2_b``,
+      the biases ``bq``/``bk``/``bv``/``bo`` as ``[1, n]`` rows and the
+      GELU MLP ``wu``/``bu``/``wd``/``bd``.
     * ``k_pages``/``v_pages``: one layer's ``[pages, kv_heads,
       page_size, d]`` view of the pool; ``page_table``/``lengths`` as in
       :func:`paged_decode_attention`, ``lengths`` BEFORE this token is
       appended (the kernel folds the current token in itself).
-    * ``cos``/``sin``: ``[slots, d]`` RoPE rows at each slot's position.
+    * ``cos``/``sin``: ``[slots, d]`` RoPE rows at each slot's position
+      (LLaMA only).
 
     Returns ``(y [slots, hidden], k_tok [slots, kv_heads, d], v_tok)``:
     the block output and the current token's k (after RoPE) and v for
     the caller's pool append.  ``fuse_mlp=False`` returns ``y = x +
     attention``.  On CUDA one launch of ``csrc/fused_block_decode.cu``
-    (bf16 x, weights and pool; group 1/2/4/8; head_dim 64/128; anything
-    else raises); a CPU tensor takes :func:`fused_block_reference`.
-    ``kind="gpt"`` and ``partial_out=True`` are later slices and raise
-    ``NotImplementedError``."""
+    (bf16 x, weights and pool; LLaMA group 1/2/4/8, GPT group 1; head_dim
+    64/128; anything else raises); a CPU tensor takes
+    :func:`fused_block_reference`.  ``partial_out=True`` is a later
+    slice and raises ``NotImplementedError``."""
     kvh, ps, d, h = _fused_geometry(x, blk, k_pages, v_pages, page_table,
-                                    lengths, kind, cos, sin, partial_out)
+                                    lengths, kind, cos, sin, partial_out,
+                                    fuse_mlp)
     scale = (d ** -0.5) if sm_scale is None else sm_scale
     if x.device.type == "cpu":
         return fused_block_reference(
@@ -601,4 +667,5 @@ def fused_block_decode(x, blk, k_pages, v_pages, page_table, lengths, *,
         raise ValueError(f"fused_block_decode runs on cuda or cpu, got "
                          f"{x.device}")
     return _fused_kernel_call(x, blk, k_pages, v_pages, page_table, lengths,
-                              cos, sin, eps, scale, fuse_mlp, kvh, ps, d, h)
+                              cos, sin, eps, scale, fuse_mlp, kvh, ps, d, h,
+                              kind=kind)

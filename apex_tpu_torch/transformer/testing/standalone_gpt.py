@@ -1,0 +1,270 @@
+"""Standalone Megatron-style GPT of the port, at tp = 1.
+
+Port of ``apex_tpu/transformer/testing/standalone_gpt.py``:
+:class:`GPTConfig` (with its ``ffn`` property), :class:`ParallelMLP`,
+:class:`ParallelAttention`, :class:`ParallelTransformerLayer`,
+:class:`GPTEmbedding`, :class:`GPTModel` and :func:`gpt_model_provider`
+as ``nn.Module``s whose named parameters map one to one onto the flax
+tree's key paths (``layer_0.self_attention.query_key_value.weight`` is
+``layer_0/self_attention/query_key_value/weight``,
+``embedding.position_embeddings`` the learned position table).  Same op
+sequence: activations ``[s, b, h]``; a vocab-parallel word embedding
+plus learned positions; pre-LN blocks on the fused LayerNorm (fp32
+affine parameters whatever ``params_dtype``); the qkv projection
+interleaved per head (``[q(d), k(d), v(d)]`` for each head); the flash
+kernels with the optional boolean mask (True = masked); a GELU MLP in
+the tanh approximation, as ``jax.nn.gelu`` computes it; a final
+LayerNorm and logits tied to the word embedding; the tp = 1 cross
+entropy over fp32 logits when labels are given.
+
+The forward is deterministic.  Not ported yet (each raises
+``NotImplementedError`` naming its ROADMAP queue-1 item): dropout in
+training mode (``deterministic=False`` with a nonzero rate; "mask
+operand and dropout"), ``remat`` and the chunked fused LM head
+(``fused_head_xent`` > 0 or ``APEX_TPU_XENT_CHUNK``; "chunked fused LM
+head and remat"), ``scan_layers``, sequence and context parallelism and
+the MoE FFN (item 6, "multi-GPU layers over NCCL").
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from apex_tpu_torch.normalization import FusedLayerNorm
+from apex_tpu_torch.ops.attention import flash_attention
+from apex_tpu_torch.transformer.tensor_parallel import (
+    ColumnParallelLinear,
+    RowParallelLinear,
+    VocabParallelEmbedding,
+    vocab_parallel_cross_entropy,
+)
+from apex_tpu_torch.utils import resolve_device
+
+__all__ = ["GPTConfig", "ParallelMLP", "ParallelAttention",
+           "ParallelTransformerLayer", "GPTEmbedding", "GPTModel",
+           "gpt_model_provider", "model_device"]
+
+_DROPOUT = "ROADMAP queue 1, 'mask operand and dropout'"
+_REMAT = "ROADMAP queue 1, 'chunked fused LM head and remat'"
+_MULTI = "ROADMAP queue 1, item 6 (multi-GPU layers over NCCL)"
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    """Megatron-style hyperparameters, the JAX package's defaults.
+    GPT-3 1.3B: hidden 2048, 24 layers, 16 heads, max_seq 2048, vocab
+    51200."""
+    vocab_size: int = 51200
+    hidden_size: int = 1024
+    ffn_hidden_size: Optional[int] = None      # default 4*hidden
+    num_layers: int = 12
+    num_attention_heads: int = 16
+    max_seq_length: int = 1024
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    params_dtype: Any = torch.float32
+    sequence_parallel: bool = False
+    context_parallel: bool = False
+    remat: bool = False
+    scan_layers: bool = False
+    embedding_grad_via_matmul: bool = False
+    ce_half_residuals: bool = False
+    # chunked fused LM head + cross entropy: None reads
+    # APEX_TPU_XENT_CHUNK (default 0, the unfused head); > 0 is not
+    # ported yet
+    fused_head_xent: Optional[int] = None
+    num_moe_experts: Optional[int] = None
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_load_balancing_type: str = "aux_loss"
+    expert_model_parallel: bool = False
+
+    @property
+    def ffn(self) -> int:
+        return self.ffn_hidden_size or 4 * self.hidden_size
+
+
+def model_device(device) -> torch.device:
+    """The device a standalone model is built on: CUDA unless ``"cpu"``
+    is asked for, or ``"meta"`` for a model with no storage, whose
+    forward is then run over a parameter tree with
+    ``torch.func.functional_call`` (the serving engines do)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
+def check_deterministic(cfg, deterministic: bool) -> None:
+    """Dropout in training mode is not ported: raise for it."""
+    if not deterministic and (cfg.hidden_dropout > 0.0
+                              or cfg.attention_dropout > 0.0):
+        raise NotImplementedError(
+            f"dropout in training mode (deterministic=False, hidden "
+            f"{cfg.hidden_dropout}, attention {cfg.attention_dropout}) is "
+            f"not ported yet ({_DROPOUT})")
+
+
+def gelu(x):
+    """``jax.nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+class ParallelMLP(nn.Module):
+    """h -> 4h (column) -> gelu -> h (row)."""
+
+    def __init__(self, cfg: GPTConfig, device=None):
+        super().__init__()
+        kw = dict(params_dtype=cfg.params_dtype, device=device)
+        self.dense_h_to_4h = ColumnParallelLinear(
+            cfg.hidden_size, cfg.ffn, gather_output=False, **kw)
+        self.dense_4h_to_h = RowParallelLinear(
+            cfg.ffn, cfg.hidden_size, input_is_parallel=True, **kw)
+
+    def forward(self, x, deterministic: bool = True):
+        h, _ = self.dense_h_to_4h(x)
+        out, _ = self.dense_4h_to_h(gelu(h))
+        return out
+
+
+class ParallelAttention(nn.Module):
+    """Self-attention: the interleaved qkv projection, the flash
+    kernels (causal or not, with the optional boolean mask), the output
+    projection."""
+
+    def __init__(self, cfg: GPTConfig, causal: bool = True, device=None):
+        super().__init__()
+        self.cfg, self.causal = cfg, causal
+        kw = dict(params_dtype=cfg.params_dtype, device=device)
+        self.query_key_value = ColumnParallelLinear(
+            cfg.hidden_size, 3 * cfg.hidden_size, gather_output=False, **kw)
+        self.dense = RowParallelLinear(
+            cfg.hidden_size, cfg.hidden_size, input_is_parallel=True, **kw)
+
+    def forward(self, x, attention_mask=None, deterministic: bool = True):
+        cfg = self.cfg
+        s, b = x.shape[0], x.shape[1]
+        heads = cfg.num_attention_heads
+        head_dim = cfg.hidden_size // heads
+        qkv, _ = self.query_key_value(x)
+        qkv = qkv.reshape(s, b, heads, 3 * head_dim)
+        q, k, v = torch.split(qkv, head_dim, dim=-1)
+        # [s, b, n, d] -> [b, n, s, d]
+        q, k, v = (t.permute(1, 2, 0, 3) for t in (q, k, v))
+        ctx = flash_attention(q, k, v, causal=self.causal,
+                              mask=attention_mask)
+        ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, -1)
+        out, _ = self.dense(ctx)
+        return out
+
+
+class ParallelTransformerLayer(nn.Module):
+    """Pre-LN transformer block."""
+
+    def __init__(self, cfg: GPTConfig, causal: bool = True, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.input_layernorm = FusedLayerNorm(cfg.hidden_size, device=device)
+        self.self_attention = ParallelAttention(cfg, causal=causal,
+                                                device=device)
+        self.post_attention_layernorm = FusedLayerNorm(cfg.hidden_size,
+                                                       device=device)
+        self.mlp = ParallelMLP(cfg, device=device)
+
+    def forward(self, x, attention_mask=None, deterministic: bool = True):
+        check_deterministic(self.cfg, deterministic)
+        x = x + self.self_attention(self.input_layernorm(x), attention_mask,
+                                    deterministic)
+        return x + self.mlp(self.post_attention_layernorm(x), deterministic)
+
+
+class GPTEmbedding(nn.Module):
+    """Vocab-parallel word embedding + learned positions; tokens ``[b,
+    s]`` -> hidden ``[s, b, h]``."""
+
+    def __init__(self, cfg: GPTConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.word_embeddings = VocabParallelEmbedding(
+            cfg.vocab_size, cfg.hidden_size, params_dtype=cfg.params_dtype,
+            device=device)
+        pos = torch.empty(cfg.max_seq_length, cfg.hidden_size,
+                          dtype=cfg.params_dtype, device=device)
+        with torch.no_grad():
+            pos.normal_(0.0, 0.02)
+        self.position_embeddings = nn.Parameter(pos)
+
+    def forward(self, tokens, deterministic: bool = True):
+        s = tokens.shape[1]
+        h = self.word_embeddings(tokens) + self.position_embeddings[None, :s]
+        return h.transpose(0, 1)                        # [s, b, h]
+
+
+def _check_config(cfg) -> None:
+    for flag in ("sequence_parallel", "context_parallel", "scan_layers",
+                 "expert_model_parallel"):
+        if getattr(cfg, flag, False):
+            raise NotImplementedError(
+                f"{flag} is not ported yet ({_MULTI})")
+    if getattr(cfg, "num_moe_experts", None):
+        raise NotImplementedError(f"the MoE FFN is not ported yet ({_MULTI})")
+    if cfg.remat:
+        raise NotImplementedError(
+            f"activation recompute (remat) is not ported yet ({_REMAT})")
+
+
+def _xent_chunk(cfg) -> int:
+    if cfg.fused_head_xent is not None:
+        return int(cfg.fused_head_xent)
+    return int(os.environ.get("APEX_TPU_XENT_CHUNK", "0"))
+
+
+class GPTModel(nn.Module):
+    """embedding -> N layers -> final LayerNorm -> logits tied to the
+    word embedding ``[s, b, vocab]``, or the mean cross entropy with
+    ``labels [b, s]``.  Built on CUDA unless ``device="cpu"`` (or
+    ``"meta"``, see :func:`model_device`)."""
+
+    def __init__(self, cfg: GPTConfig, device=None):
+        super().__init__()
+        device = model_device(device)
+        _check_config(cfg)
+        self.cfg = cfg
+        self.embedding = GPTEmbedding(cfg, device=device)
+        for i in range(cfg.num_layers):
+            setattr(self, f"layer_{i}",
+                    ParallelTransformerLayer(cfg, device=device))
+        self.final_layernorm = FusedLayerNorm(cfg.hidden_size, device=device)
+
+    def forward(self, tokens, labels=None, attention_mask=None,
+                deterministic: bool = True):
+        cfg = self.cfg
+        check_deterministic(cfg, deterministic)
+        if tokens.shape[1] > cfg.max_seq_length:
+            raise ValueError(
+                f"sequence length {tokens.shape[1]} exceeds "
+                f"max_seq_length {cfg.max_seq_length}")
+        if labels is not None and _xent_chunk(cfg) > 0:
+            raise NotImplementedError(
+                "the chunked fused LM head + cross entropy (fused_head_xent "
+                f"/ APEX_TPU_XENT_CHUNK > 0) is not ported yet ({_REMAT})")
+        h = self.embedding(tokens, deterministic)
+        for i in range(cfg.num_layers):
+            h = getattr(self, f"layer_{i}")(h, attention_mask, deterministic)
+        h = self.final_layernorm(h)
+        emb = self.embedding.word_embeddings.weight
+        logits = torch.einsum("sbh,vh->sbv", h, emb)
+        if labels is None:
+            return logits
+        loss = vocab_parallel_cross_entropy(
+            logits.float(), labels.T, half_residuals=cfg.ce_half_residuals)
+        return loss.mean()
+
+
+def gpt_model_provider(cfg: GPTConfig = GPTConfig(),
+                       device=None) -> GPTModel:
+    return GPTModel(cfg, device=device)

@@ -29,7 +29,13 @@
    with the norm's bit identity and an inf raising each flag; the flash
    forward again at causal ``[1, 32, 8192, 128]`` and ``[1, 32, 128,
    128]``, held against its plain version a few heads at a time and
-   timed beside SDPA).  Prints
+   timed beside SDPA; the flash forward's masked instance at the dense
+   decode shape ``[8, 32, 1, 8192]`` with a per-batch length mask, at
+   BERT-large's padding ``[8, 16, 512, 64]`` and with a per-head mask
+   under causal ``[1, 32, 2048, 128]``, each timed beside SDPA with
+   the boolean ``attn_mask``; the fused block's GPT instance, one
+   random GPT-3 1.3B layer over 8 slots of lengths 0..2048, page 64,
+   with its phase clock).  Prints
    the max
    |diff| against its stated limit, the kernel's time, its bound (the
    larger of bytes over 3.35 TB/s and operations over the peak rate of
@@ -49,9 +55,14 @@
    the same prompts through a second engine on the same weights with
    ``decode_fusion="1"``: every decode layer must be one fused-block
    launch (32 per decode step) and paged attention must not launch.
+   Then the same prompts on the dense slot cache at ``max_seq`` 8192
+   (no paged kwarg): past ``decode_attention``'s 4096 crossover every
+   decode layer must launch the masked flash forward once (32 per
+   step), and neither paged kernel.
 4. **Check.**  For two of the requests, the decode logits of an
    engine prefill + decode run are held against the port's own
-   full-forward prefill of prompt + generated tokens, for both engines
+   full-forward prefill of prompt + generated tokens, for all three
+   engines
    (and, for one request, the fused engine with the fused block's plain
    version in place of its kernel); the fused decode logits are also
    printed against the unfused ones.
@@ -131,6 +142,19 @@
    weights and tokens.  Its launches are added to the ``kernels``
    line's counts.
 
+11. **GPT** (after serve).  GPT-3 1.3B at full width and depth (hidden
+   2048, 24 layers, 16 heads, vocab 51200; random bf16 weights from a
+   seed) served by ``InferenceEngine("gpt", ...)`` three ways: the
+   paged pool (24 ``paged_attention`` launches a decode step), the
+   paged pool with ``decode_fusion="1"`` (24 ``fused_block_decode_gpt``)
+   and the dense cache (neither); 8 prompts of 128..1536 tokens, 32
+   greedy tokens each: TTFT, decode tokens/s, peak memory, and two
+   requests' decode logits against ``GPTModel``'s full forward.
+12. **BERT** (after GPT).  BERT-large ``encode`` on ``[8, 512]`` (24
+   flash launches) and ``BertModel`` with a padding mask over the same
+   weights (24 masked launches), each held against the same forward
+   through the plain versions.
+
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed phase raises, so the
 script exits non-zero and prints no result; so does a machine without
@@ -170,9 +194,10 @@ NEW_TOKENS = 32
 TOL_RMS_REL = 2.0 ** -6          # x max|ref| (rows scaled by rsqrt)
 TOL_ATTN_OUT = 2e-2              # |out| <= ~3: weighted means of N(0,1)
 TOL_ATTN_LSE = 1e-3              # base-2 lse, fp32 on both sides
-#: paged decode: x each slot's own max|ref| (a long slot's outputs
-#: average thousands of tokens and read ~0.05, so a dropped page of it
-#: moves them by more than this and less than any one absolute limit)
+#: paged decode and the masked flash forward: x each slot's (each query
+#: row's) own max|ref| (a long slot's outputs average thousands of tokens
+#: and read ~0.05, so a dropped page or tile of it moves them by more
+#: than this and less than any one absolute limit)
 TOL_PAGED_OUT = 2.0 ** -6
 #: the fused decode block (y, k_tok, v_tok, bf16): a few ulps of each
 #: output's magnitude, and a relative L2 (the kernel and its plain
@@ -243,6 +268,9 @@ SPLIT_TRAIN_KERNELS = tuple(k for k in TRAIN_KERNELS
                             if k != "flash_attention_bwd") + SPLIT_KERNELS
 #: the kernels only the multi_tensor_apply shim reaches
 SHIM_KERNELS = ("fused_axpby", "fused_l2norm_scale")
+#: the kernels only the serving paths of the dense cache and GPT reach:
+#: the masked flash forward (the dense LLaMA serve) and the GPT block
+SERVE_ONLY = ("flash_attention_masked", "fused_block_decode_gpt")
 #: the optimizer runs of the train phase: the kernels each must launch,
 #: and the run whose launches each kernel reports (the rest: "adam")
 RULE_KERNELS = {"lamb": ("fused_l2norm", "fused_lamb1"),
@@ -292,11 +320,29 @@ TOL_RULE_CHECK_REL = 1e-6
 #: within 2e-2
 TOL_TRAIN_GRAD_REL_L2 = 3e-2
 TOL_TRAIN_LOSS = 2e-2
+#: GPT-3 1.3B (the repo's GPT flagship: hidden 2048, 24 layers, 16 heads
+#: of 128, ffn 8192, context 2048, vocab 51200), its eight prompts, and
+#: the BERT-large encode batch; the dense LLaMA serve's window
+GPT_CFG = dict(vocab_size=51200, hidden_size=2048, num_layers=24,
+               num_attention_heads=16, max_seq_length=2048,
+               hidden_dropout=0.0, attention_dropout=0.0)
+GPT_PROMPT_LENS = (128, 256, 384, 512, 768, 1024, 1280, 1536)
+BERT_BATCH, BERT_SEQ = 8, 512
+DENSE_MAX_SEQ = 8192
 #: decode-vs-full-forward logit limit for the serve check: bf16
 #: activations rounded at every op of 32 layers, along two different
 #: kernel/matmul paths (paged decode vs causal flash prefill); the
 #: fused engine is held to the same limit
 TOL_LOGITS = 0.25
+#: BERT encode, kernels against plain versions on the same bf16 weights:
+#: beside TOL_LOGITS, each sequence's logits within this relative L2 of
+#: the plain route's.  The run prints the plain route's own distance
+#: from an fp32 control (bf16 alone) and forwards with one wrong layer:
+#: a wrong first layer must land past the limit; a wrong deeper one
+#: moves the logits less than bf16 rounding (with random weights every
+#: position carries nearly the same vector past the first layer, so
+#: attention there averages equal rows whatever its mask)
+TOL_BERT_REL_L2 = 3e-2
 
 
 def _smi():
@@ -685,7 +731,8 @@ def phase_kernels(dev, gen):
     _optimizer_kernels(dev, ogen, recs)
     # and for each of the last slices' kernel pairs and rows
     for off, check in ((3, _split_kernels), (4, _shim_kernels),
-                       (5, _flash_fwd_rows)):
+                       (5, _flash_fwd_rows), (6, _masked_rows),
+                       (7, _fused_gpt_kernel)):
         sgen = torch.Generator(device=dev)
         sgen.manual_seed(gen.initial_seed() + off)
         check(dev, sgen, recs)
@@ -737,6 +784,250 @@ def _flash_fwd_rows(dev, gen, recs):
               f"ms ({by}), {100 * bound / ms:.1f}% of the bound")
         del q, kk, vv, k, v, q3, k3, v3, out, lse
         torch.cuda.empty_cache()
+
+
+def _masked_case(attn, label, q, k, v, mask, causal, iters):
+    """One masked flash-forward shape: the public entry (one
+    ``flash_attention_masked`` launch, no unmasked one) and ``_fwd`` on
+    its mask3 against the plain version, fully masked rows 0; the
+    kernel's time, the plain version's and SDPA's with the boolean
+    ``attn_mask`` (True = keep, so the mask inverted, and the causal
+    triangle folded in: timed only, its fully masked rows are NaN).
+    Returns ``(max |err|, ms, plain_ms, library_ms)``."""
+    from apex_tpu_torch.ops import _build
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = d ** -0.5
+    counts = _build.launch_counts()
+    out = attn.flash_attention(q, k, v, causal=causal, mask=mask)
+    after = _build.launch_counts()
+    if after["flash_attention_masked"] != counts["flash_attention_masked"] \
+            + 1 or after["flash_attention"] != counts["flash_attention"]:
+        raise AssertionError(f"{label}: the masked entry did not take the "
+                             f"masked kernel alone")
+    mask3 = attn._mask3(mask, b, h, sq, sk)
+    q3, k3, v3 = (t.reshape(b * h, -1, d).contiguous() for t in (q, k, v))
+    got, lse = attn._fwd(q3, k3, v3, causal, scale, mask3=mask3)
+    ref, ref_lse = attn._fwd_reference(q3, k3, v3, causal, scale,
+                                       mask3=mask3)
+    out = out.reshape(b * h, sq, d)
+    err = max((got.float() - ref.float()).abs().max().item(),
+              (out.float() - ref.float()).abs().max().item())
+    rows = (lambda t: t.reshape(-1, d))
+    row_rel = max(_slot_rel(rows(got), rows(ref)),
+                  _slot_rel(rows(out), rows(ref)))
+    dead = ref_lse <= -0.5e30
+    print(f"flash_attention masked {label} [{b}, {h}, {sq}, {sk}] bf16, "
+          f"mask {tuple(mask.shape)}, {int(dead.sum())} fully masked rows")
+    _check("masked flash out", err, TOL_ATTN_OUT)
+    _check("masked flash out (x each row's max|ref|)", row_rel,
+           TOL_PAGED_OUT)
+    _check("masked flash lse (base 2)", (lse - ref_lse).abs().max().item(),
+           TOL_ATTN_LSE)
+    if not bool((got[dead] == 0).all()):
+        raise AssertionError(f"{label}: a fully masked row is not 0")
+    del ref, ref_lse, out
+    ms = _time_ms(lambda: attn._fwd(q3, k3, v3, causal, scale, mask3=mask3),
+                  iters)
+    plain_ms = _time_ms(lambda: attn._fwd_reference(
+        q3, k3, v3, causal, scale, mask3=mask3), 3)
+    keep = ~mask
+    if causal:
+        keep = keep & torch.ones(sq, sk, dtype=torch.bool,
+                                 device=q.device).tril(sk - sq)
+    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=keep), iters)
+    return err, ms, plain_ms, lib_ms
+
+
+def _masked_rows(dev, gen, recs):
+    """The masked flash forward (#3 with its mask3 operand) at the three
+    shapes its callers give it: dense-cache decode (``decode_attention``
+    above its crossover: sq = 1 against 8192 cached positions, 8 slots,
+    k/v broadcast from 8 kv heads to 32, a per-batch length mask with a
+    length-0 slot), BERT-large's padding mask (``[8, 16, 512, 64]``, non
+    causal, per-batch key padding) and a per-head mask under causal at
+    ``[1, 32, 2048, 128]``.  The decode shape is the kernel's record
+    (the dense LLaMA serve's path)."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    bf = torch.bfloat16
+    # -- decode: [8, 32, 1, 8192], lengths 0..8192 -----------------------
+    b, h, kvh, s, d = 8, 32, 8, 8192, 128
+    lengths_l = [0, 1, 100, 1000, 4097, 6000, 8000, 8192]
+    q = torch.randn(b, h, 1, d, generator=gen, device=dev).to(bf)
+    kk = torch.randn(b, kvh, s, d, generator=gen, device=dev).to(bf)
+    vv = torch.randn(b, kvh, s, d, generator=gen, device=dev).to(bf)
+    k, v = (t[:, :, None].expand(b, kvh, h // kvh, s, d).reshape(b, h, s, d)
+            for t in (kk, vv))
+    del kk, vv
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    mask = (torch.arange(s, device=dev)[None, None, None, :]
+            >= lengths[:, None, None, None])
+    err, ms, plain_ms, lib_ms = _masked_case(attn, "decode", q, k, v, mask,
+                                             False, 20)
+    # a 128-key tile of the 8192-key slot left out: its outputs move
+    # past the per-row limit
+    mask3 = attn._mask3(mask, b, h, 1, s)
+    q3, k3, v3 = (t.reshape(b * h, -1, d) for t in (q, k, v))
+    ref = attn._fwd_reference(q3, k3, v3, False, d ** -0.5, mask3=mask3)[0]
+    drop = mask3.clone()
+    drop[b - 1, :, 4096:4224] = True
+    off = attn._fwd_reference(q3, k3, v3, False, d ** -0.5, mask3=drop)[0]
+    off_rel = _slot_rel(off, ref)
+    print(f"  a dropped 128-key tile of the 8192-key slot: {off_rel:.4g} of "
+          f"each row's max|ref| (limit {TOL_PAGED_OUT}), max|diff| "
+          f"{(off.float() - ref.float()).abs().max().item():.4g}")
+    if off_rel <= TOL_PAGED_OUT:
+        raise AssertionError("masked decode: the per-row limit does not see "
+                             "a dropped tile")
+    del mask3, drop, ref, off
+    # bytes: the live keys' rows of the broadcast k/v (the function needs
+    # no other), q and out, the mask, lse
+    live = sum(lengths_l)
+    nbytes = 2 * live * h * d * 2 + 2 * q.numel() * 2 + b * s + b * h * 4
+    bound, by = _bound(nbytes, 4 * live * h * d)
+    print(f"  flash_attention masked decode on {_smi()}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound:.4f} "
+          f"ms ({by}; the live keys' k/v {2 * live * h * d * 2 / 1e9:.3f} "
+          f"of the broadcast {2 * k.numel() * 2 / 1e9:.3f} GB), "
+          f"{100 * bound / ms:.1f}% of the bound")
+    recs["flash_attention_masked"] = dict(
+        name="flash_attention_masked", route="cuda",
+        source="apex_tpu_torch/csrc/flash_attention.cu",
+        replaces="apex_tpu/ops/attention.py:210", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
+        eager_ms=_eager_ms(lambda: attn.decode_attention(
+            q, k, v, lengths, use_kernel=True), 10))
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+    # -- BERT-large padding: [8, 16, 512, 64], non causal ----------------
+    b, h, s, d = 8, 16, 512, 64
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev).to(bf)
+               for _ in range(3))
+    keep = torch.tensor([512, 500, 384, 256, 128, 64, 1, 0], device=dev)
+    mask = (torch.arange(s, device=dev)[None, None, None, :]
+            >= keep[:, None, None, None]).expand(b, 1, s, s)
+    err, ms, plain_ms, lib_ms = _masked_case(attn, "BERT padding", q, k, v,
+                                             mask, False, 48)
+    live_keys = int(keep.sum()) * s * h
+    # bytes: q and out, the live keys' k/v, mask3 ([8, 512, 512]), lse
+    bound, by = _bound(2 * q.numel() * 2 + 2 * int(keep.sum()) * h * d * 2
+                       + b * s * s + b * h * s * 4, 4 * live_keys * d)
+    print(f"  flash_attention masked BERT padding on {_smi()}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of the "
+          f"bound")
+    del q, k, v, mask
+    # -- a per-head mask under causal: [1, 32, 2048, 128] ----------------
+    b, h, s, d = 1, 32, 2048, 128
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev).to(bf)
+               for _ in range(3))
+    mask = torch.rand(b, h, s, s, generator=gen, device=dev) < 0.1
+    mask[:, :, 5] = True                        # a fully masked row a head
+    err, ms, plain_ms, lib_ms = _masked_case(attn, "per-head causal", q, k,
+                                             v, mask, True, 10)
+    bound, by = _bound(4 * q.numel() * 2 + mask.numel() + b * h * s * 4,
+                       4 * s * s * d * h / 2)
+    print(f"  flash_attention masked per-head causal on {_smi()}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of the "
+          f"bound")
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+
+
+def _fused_gpt_kernel(dev, gen, recs):
+    """The fused decode block's GPT instance at GPT-3 1.3B width (hidden
+    2048, 16 heads of 128, ffn 8192): one random layer in the model
+    tree's layout, re-laid-out by ``fused_layer_params``, 8 slots of
+    lengths 0..2048 over one layer of a 4-layer pool of page 64, against
+    its plain version; its time over the 4 layers in turn, its phase
+    clock."""
+    from apex_tpu_torch.inference import models
+    from apex_tpu_torch.transformer.testing import GPTConfig
+    pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    cfg = GPTConfig(**dict(GPT_CFG, num_layers=1))
+    tree = _random_gpt(cfg, dev, int(torch.randint(
+        1 << 30, (1,), generator=gen, device=dev)))
+    blk = models.fused_layer_params("gpt", cfg, tree)[0]
+    del tree
+    slots, ps, mpps, layers = 8, 64, 32, 4
+    hidden, h, d = cfg.hidden_size, cfg.num_attention_heads, 128
+    lengths_l = [0, 1, 64, 65, 700, 1024, 1500, 2048]
+    n_pages = slots * mpps
+    bf = torch.bfloat16
+    pool_k = torch.randn(n_pages + 1, layers, h, ps, d, generator=gen,
+                         device=dev).to(bf)
+    pool_v = torch.randn(n_pages + 1, layers, h, ps, d, generator=gen,
+                         device=dev).to(bf)
+    perm = torch.randperm(n_pages, generator=gen, device=dev).to(torch.int32)
+    table = torch.full((slots, mpps), n_pages, dtype=torch.int32, device=dev)
+    cursor = 0
+    for i, n in enumerate(lengths_l):
+        need = -(-n // ps)
+        table[i, :need] = perm[cursor:cursor + need]
+        cursor += need
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    x = torch.randn(slots, hidden, generator=gen, device=dev).to(bf)
+    kw = dict(kind="gpt", eps=1e-5)
+    kp, vp = pool_k[:, 0], pool_v[:, 0]
+    got = pa.fused_block_decode(x, blk, kp, vp, table, lengths, **kw)
+    ref = pa.fused_block_reference(x, blk, kp, vp, table, lengths, **kw)
+    print(f"fused_block_decode (GPT): one GPT-3 1.3B layer (hidden {hidden}, "
+          f"{h} heads of {d}, ffn {cfg.ffn}), 8 slots, lengths {lengths_l}, "
+          f"page {ps}")
+    err = 0.0
+    for name, g_, r_ in zip(("y", "k_tok", "v_tok"), got, ref):
+        e = (g_.float() - r_.float()).abs().max().item()
+        rel = ((g_.float() - r_.float()).norm() / r_.float().norm()).item()
+        _check(f"fused GPT {name}", e,
+               TOL_FUSED_REL * r_.float().abs().max().item())
+        print(f"    relative L2 {rel:.4g} (limit {TOL_FUSED_REL_L2})")
+        if rel > TOL_FUSED_REL_L2:
+            raise AssertionError(f"fused GPT {name}: relative L2 {rel}")
+        err = max(err, e)
+    del got, ref
+    mats = sum(t.numel() for n, t in blk.items() if n.startswith("w"))
+    vecs = sum(t.numel() for n, t in blk.items() if not n.startswith("w"))
+    live = sum(lengths_l)
+    nbytes = 2 * mats + 4 * vecs + live * h * d * 2 * 2 \
+        + 2 * 2 * x.numel() + 2 * 2 * slots * h * d + 4 * table.numel() \
+        + 4 * slots
+    bound, by = _bound(nbytes, 2 * slots * mats + 4 * (live + slots) * h * d)
+    views = itertools.cycle([(pool_k[:, i], pool_v[:, i])
+                             for i in range(layers)])
+    ms = _eager_ms(lambda: pa.fused_block_decode(
+        x, blk, *next(views), table, lengths, **kw), 40)
+    plain_ms = _eager_ms(lambda: pa.fused_block_reference(
+        x, blk, *next(views), table, lengths, **kw), 3)
+    print(f"  fused_block_decode (GPT) on {_smi()}: {mats} weights "
+          f"({2 * mats / 1e6:.1f} MB) + {live} live tokens' k/v; {ms:.4f} ms "
+          f"per call (CUDA events around 40 eager calls), plain "
+          f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+          f"{100 * bound / ms:.1f}% of the bound")
+    kvh, ps_, d_, h_ = pa._fused_geometry(x, blk, kp, vp, table, lengths,
+                                          "gpt", None, None, False)
+    clock = torch.zeros(len(FUSED_PHASES) + 1, dtype=torch.int64,
+                        device=dev)
+    runs = []
+    for _ in range(10):
+        clock.zero_()
+        pa._fused_kernel_call(x, blk, kp, vp, table, lengths, None, None,
+                              1e-5, d ** -0.5, True, kvh, ps_, d_, h_,
+                              clock=clock, kind="gpt")
+        runs.append(np.diff(np.asarray(clock.tolist(), np.int64)) / 1e3)
+    us = np.median(np.stack(runs), axis=0)
+    print(f"  fused_block_decode (GPT) phases (median of 10 launches, "
+          f"{us.sum():.1f} us in all): " + ", ".join(
+              f"{n} {t:.1f} us" for n, t in zip(GPT_FUSED_PHASES, us)))
+    recs["fused_block_decode_gpt"] = dict(
+        name="fused_block_decode_gpt", route="cuda",
+        source="apex_tpu_torch/csrc/fused_block_decode.cu",
+        replaces="apex_tpu/ops/paged_attention.py:445", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=None, eager_ms=ms)
+    del blk, pool_k, pool_v, views
+    torch.cuda.empty_cache()
 
 
 def _fused_kernel(dev, gen, recs, pool_k, pool_v, table, lengths):
@@ -835,6 +1126,9 @@ def _fused_kernel(dev, gen, recs, pool_k, pool_v, table, lengths):
 
 FUSED_PHASES = ("q/k/v", "q/k/v sums + RoPE", "attention", "merge + fold",
                 "o", "x2 + norm2", "gate/up", "down", "y")
+GPT_FUSED_PHASES = ("q/k/v", "q/k/v sums + biases", "attention",
+                    "merge + fold", "o", "x2 + norm2", "up",
+                    "gelu + down", "y")
 
 
 def _fused_phases(pa, x, blk, kp, vp, table, lengths, kw):
@@ -1500,6 +1794,48 @@ def _random_llama(cfg, dev, seed: int, only=None):
     return tree
 
 
+def _random_tree(shapes, dev, seed: int, embed_std: float = 1.0):
+    """A tree of random bf16 weights for ``{path: shape}`` from a seeded
+    generator: linear weights ``[out, in]`` N(0, 1/fan_in) (flax
+    ``Dense`` kernels ``[in, out]`` likewise), norm weights 1 + N(0,
+    0.1^2), biases (norm and linear) N(0, 0.02^2), embeddings and
+    position tables N(0, embed_std^2)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    tree: dict = {}
+    for path, shape in sorted(shapes.items()):
+        t = torch.randn(shape, generator=gen, device=dev)
+        if path[-1] == "bias":
+            t = 0.02 * t
+        elif len(shape) == 1:
+            t = 1 + 0.1 * t
+        elif "embed" in "/".join(path) or path[-1] == "embedding":
+            t = embed_std * t
+        elif path[-1] == "kernel":
+            t = t * shape[0] ** -0.5
+        else:
+            t = t * shape[1] ** -0.5
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = t.to(torch.bfloat16)
+        del t
+    return tree
+
+
+def _random_gpt(cfg, dev, seed: int):
+    """A GPT tree of random bf16 weights (:func:`_random_tree`); the word
+    embedding (the tied head) and the position table N(0, 0.02^2), the
+    JAX initialisers' scale, so the logits are of order 1."""
+    from apex_tpu_torch.inference.weights import gpt_param_shapes
+    return _random_tree(gpt_param_shapes(cfg), dev, seed, embed_std=0.02)
+
+
+def _random_bert(cfg, dev, seed: int):
+    from apex_tpu_torch.inference.weights import bert_param_shapes
+    return _random_tree(bert_param_shapes(cfg), dev, seed, embed_std=0.02)
+
+
 def _serve(engine, prompts, label: str):
     """``engine.generate`` over the prompts with the launch counters and
     the telemetry registry zeroed just before; returns the outputs, the
@@ -1521,8 +1857,8 @@ def _serve(engine, prompts, label: str):
     gen_tokens = sum(len(o) for o in outs)
     decode_tokens = gen_tokens - len(outs)
     decode_s = dec.sum()
-    print(f"{label}: {len(prompts)} requests, prompts {list(PROMPT_LENS)}, "
-          f"{gen_tokens} tokens in {wall:.3f} s")
+    print(f"{label}: {len(prompts)} requests, prompts "
+          f"{[len(p) for p in prompts]}, {gen_tokens} tokens in {wall:.3f} s")
     print(f"  TTFT mean {ttft.sum() / ttft.count():.4f} s, p50<= "
           f"{ttft.quantile(0.5)} s, p99<= {ttft.quantile(0.99)} s")
     print(f"  decode: {dec.count()} steps, {decode_tokens} tokens in "
@@ -1548,8 +1884,10 @@ def _decode_logits(engine, prompt, forced=None):
     the ``[N_CHECK, vocab]`` logits, the engine's greedy token at each
     step, and the tokens fed (``forced`` when given, else its own)."""
     cache = engine.init_cache()
-    alloc = engine.new_allocator()
-    pages = alloc.acquire(alloc.pages_needed(len(prompt) + N_CHECK))
+    pages = None
+    if engine.paged:
+        alloc = engine.new_allocator()
+        pages = alloc.acquire(alloc.pages_needed(len(prompt) + N_CHECK))
     cache, tok, last = engine.prefill(cache, prompt, 0, pages=pages)
     dec_logits, toks = [last], [int(tok)]
     fed = [forced[0] if forced else toks[0]]
@@ -1565,17 +1903,32 @@ def _decode_logits(engine, prompt, forced=None):
     return torch.stack(dec_logits), toks, fed
 
 
-def _check_logits(label, engine, prompt, outs_row, limit, forced=None):
-    """Hold one request's engine decode logits against the port's own
-    full-forward prefill of the prompt and the tokens fed; returns the
-    decode logits, the distance and the tokens fed."""
+def _full_forward(engine, seq):
+    """The full forward ``[s, 1, vocab]`` of a sequence over the engine's
+    weights: LLaMA through the port's own full-forward prefill, GPT
+    through ``GPTModel`` (built on the meta device, run over the
+    engine's tree with ``functional_call``)."""
     from apex_tpu_torch.inference import models
+    if engine.kind == "llama":
+        return models.prefill_forward("llama", engine.cfg, engine.params,
+                                      seq)[0]
+    from apex_tpu_torch.transformer.testing import gpt_model_provider
+    from apex_tpu_torch.utils import tree_leaves_with_path
+    model = gpt_model_provider(engine.cfg, device="meta")
+    state = {".".join(path): t for path, t in tree_leaves_with_path(
+        models._params_subtree(engine.params))}
+    return torch.func.functional_call(model, state, (seq,))
+
+
+def _check_logits(label, engine, prompt, outs_row, limit, forced=None):
+    """Hold one request's engine decode logits against the full forward
+    (:func:`_full_forward`) of the prompt and the tokens fed; returns the
+    decode logits, the distance and the tokens fed."""
     got, toks, fed = _decode_logits(engine, prompt, forced)
     seq = torch.tensor([prompt + fed[:-1]], dtype=torch.int32,
                        device=engine.device)
     with torch.no_grad():
-        full, _, _ = models.prefill_forward("llama", engine.cfg,
-                                            engine.params, seq)
+        full = _full_forward(engine, seq)
     ref = full[len(prompt) - 1:, 0].float()              # [N_CHECK, v]
     del full
     if not torch.isfinite(got).all() or got.shape != ref.shape:
@@ -1690,11 +2043,223 @@ def phase_serve(dev, seed: int, profile: bool = False):
         _profile(fused, prompts, "fused", prefill=False)
     del fused
     torch.cuda.empty_cache()
+
+    # -- the same prompts on the dense slot cache at max_seq 8192 ---------
+    # (above decode_attention's 4096 crossover: every decode layer is one
+    # launch of the masked flash forward over the broadcast k/v)
+    dense = InferenceEngine("llama", cfg, engine.params, slots=8,
+                            max_seq=DENSE_MAX_SEQ, device=dev)
+    dserved = _serve(dense, prompts, "dense serve")
+    dl = dserved["launches"]
+    steps = int(dserved["reg"].declared("infer_decode_dispatch_total")
+                .total())
+    print(f"  dense decode steps {steps}: flash_attention_masked launched "
+          f"{dl['flash_attention_masked']} times (want {cfg.num_layers} x "
+          f"{steps}), paged_attention {dl['paged_attention']} and "
+          f"fused_block_decode {dl['fused_block_decode']} (want 0)")
+    if steps <= 0 or dl["flash_attention_masked"] != cfg.num_layers * steps:
+        raise AssertionError("the dense serve did not run one masked flash "
+                             "forward per layer per decode step")
+    if dl["paged_attention"] or dl["fused_block_decode"] \
+            or not dl["layer_norm"] or not dl["flash_attention"]:
+        raise AssertionError(f"the dense serve's launches are off: {dl}")
+    worst_dense = 0.0
+    for idx in (0, len(prompts) - 1):
+        _, d_dense, _ = _check_logits(f"request {idx}, dense", dense,
+                                      prompts[idx], dserved["outs"][idx],
+                                      TOL_LOGITS)
+        worst_dense = max(worst_dense, d_dense)
+    launches["flash_attention_masked"] = dl["flash_attention_masked"]
+    del dense
+    torch.cuda.empty_cache()
     return dict(launches=launches, ttft_mean_s=served["ttft_mean_s"],
                 decode_tokens_per_s=served["decode_tokens_per_s"],
                 peak_bytes=served["peak_bytes"], logit_err=worst,
                 fused_logit_err=worst_fused, plain_fused_logit_err=d_plain,
-                fused_decode_tokens_per_s=fserved["decode_tokens_per_s"])
+                fused_decode_tokens_per_s=fserved["decode_tokens_per_s"],
+                dense_logit_err=worst_dense,
+                dense_decode_tokens_per_s=dserved["decode_tokens_per_s"])
+
+
+#: the three GPT serves: the paged pool unfused, the paged pool with
+#: fused-block decode, the dense slot cache; per decode step each must
+#: launch 24 (layers) of its path's kernel and none of the others'
+GPT_SERVES = (("gpt paged", dict(page_size=64), "paged_attention"),
+              ("gpt fused", dict(page_size=64, decode_fusion="1"),
+               "fused_block_decode_gpt"),
+              ("gpt dense", {}, None))
+GPT_DECODE_KERNELS = ("paged_attention", "fused_block_decode_gpt",
+                      "fused_block_decode", "flash_attention_masked")
+
+
+def phase_gpt(dev, seed: int):
+    """GPT-3 1.3B at full width and depth (random bf16 weights) served
+    three ways by ``InferenceEngine("gpt", ...)`` (:data:`GPT_SERVES`),
+    8 slots, max_seq 2048, page 64, 8 prompts of 128..1536 tokens, 32
+    greedy tokens each: TTFT, decode tokens/s, peak memory and the
+    kernels launched a decode step; then two requests' decode logits
+    against ``GPTModel``'s full forward (the later engines fed the first
+    one's tokens, so their logits also compare with each other)."""
+    from apex_tpu_torch.inference import InferenceEngine
+    from apex_tpu_torch.transformer.testing import GPTConfig
+    cfg = GPTConfig(**GPT_CFG)
+    t0 = time.perf_counter()
+    params = _random_gpt(cfg, dev, seed + 10)
+    torch.cuda.synchronize()
+    from apex_tpu_torch.utils import tree_leaves_with_path
+    n_params = sum(t.numel() for _, t in tree_leaves_with_path(params))
+    print(f"gpt: GPT-3 1.3B ({n_params / 1e9:.3f}e9 parameters) random bf16 "
+          f"weights in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(seed + 10)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
+               for n in GPT_PROMPT_LENS]
+    out, fed, first = {}, {}, {}
+    for label, kw, path_kernel in GPT_SERVES:
+        engine = InferenceEngine("gpt", cfg, params, slots=8,
+                                 max_seq=cfg.max_seq_length, device=dev,
+                                 **kw)
+        served = _serve(engine, prompts, label)
+        launches = served["launches"]
+        steps = int(served["reg"].declared("infer_decode_dispatch_total")
+                    .total())
+        want = {k: (cfg.num_layers * steps if k == path_kernel else 0)
+                for k in GPT_DECODE_KERNELS}
+        got = {k: launches[k] for k in GPT_DECODE_KERNELS}
+        print(f"  {label}: {steps} decode steps, launches {got} (want "
+              f"{want}); layer_norm {launches['layer_norm']}, "
+              f"flash_attention {launches['flash_attention']}")
+        if steps <= 0 or got != want or not launches["layer_norm"] \
+                or not launches["flash_attention"]:
+            raise AssertionError(f"{label}: launches off: {launches}")
+        for idx in (0, len(prompts) - 1):
+            logits, d_, fed_i = _check_logits(
+                f"{label} request {idx}", engine, prompts[idx],
+                served["outs"][idx], TOL_LOGITS, forced=fed.get(idx))
+            if idx in first:
+                print(f"  {label} request {idx}: max|decode logits - "
+                      f"{GPT_SERVES[0][0]}'s| "
+                      f"{(logits - first[idx]).abs().max().item():.4f} "
+                      f"(same tokens fed)")
+            else:
+                first[idx], fed[idx] = logits, fed_i
+            served[f"logit_err_{idx}"] = d_
+        out[label] = {k: served[k] for k in (
+            "launches", "ttft_mean_s", "decode_tokens_per_s", "peak_bytes",
+            "logit_err_0", f"logit_err_{len(prompts) - 1}")}
+        del engine, served
+        torch.cuda.empty_cache()
+    del params, first
+    torch.cuda.empty_cache()
+    return dict(runs=out, launches={
+        "fused_block_decode_gpt":
+            out["gpt fused"]["launches"]["fused_block_decode_gpt"]})
+
+
+def phase_bert(dev, seed: int):
+    """BERT-large (the ``BertConfig`` default, random bf16 weights):
+    ``InferenceEngine("bert", ...).encode`` on ``[8, 512]`` tokens, its
+    time and launches (one flash forward and LayerNorms a layer), its
+    logits against the same forward with every kernel swapped for its
+    plain version; then ``BertModel`` with a padding mask over the
+    engine's weights (one masked flash forward a layer), held the same
+    way."""
+    from apex_tpu_torch.inference import InferenceEngine
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.transformer.testing import BertConfig
+    cfg = BertConfig()
+    params = _random_bert(cfg, dev, seed + 20)
+    engine = InferenceEngine("bert", cfg, params, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 20)
+    tokens = torch.randint(0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ),
+                           generator=gen, device=dev, dtype=torch.int32)
+    types = torch.randint(0, 2, tokens.shape, generator=gen, device=dev,
+                          dtype=torch.int32)
+    engine.encode(tokens, types)                        # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, nsp = engine.encode(tokens, types)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"bert: BERT-large encode [{BERT_BATCH}, {BERT_SEQ}] in "
+          f"{wall * 1e3:.2f} ms ({BERT_BATCH * BERT_SEQ / wall:.0f} tokens/s), "
+          f"peak device memory {peak / 2**30:.2f} GiB; launches {launches}")
+    if nsp is not None or tuple(logits.shape) != (BERT_SEQ, BERT_BATCH,
+                                                  cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError("bert: encode's output is misshaped or not "
+                             "finite")
+    if launches["flash_attention"] != cfg.num_layers \
+            or launches["layer_norm"] <= 0 \
+            or launches["flash_attention_masked"]:
+        raise AssertionError(f"bert: encode's launches are off: {launches}")
+    # live lengths 512, 448, ..., 64 and, last, a single token
+    keep = torch.tensor([BERT_SEQ - i * BERT_SEQ // BERT_BATCH
+                         for i in range(BERT_BATCH - 1)] + [1], device=dev)
+    pad = (torch.arange(BERT_SEQ, device=dev)[None, :]
+           < keep[:, None]).to(torch.int32)
+
+    def padded():
+        return torch.func.functional_call(
+            engine._bert, engine._bert_state, (tokens, types, pad))[0]
+
+    def forwards(route, state=None):
+        """Both forwards (``encode``'s and the padded one), each inside a
+        context ``route()``: their logits as ``[b, s, vocab]``."""
+        state = engine._bert_state if state is None else state
+        outs = []
+        for args in ((tokens, types), (tokens, types, pad)):
+            with route(), torch.no_grad():
+                outs.append(torch.func.functional_call(
+                    engine._bert, state, args)[0].transpose(0, 1))
+        return outs
+
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        masked = padded()
+    plaunch = _build.launch_counts()
+    if plaunch["flash_attention_masked"] != cfg.num_layers \
+            or plaunch["flash_attention"]:
+        raise AssertionError(f"bert: the padded forward's launches are "
+                             f"off: {plaunch}")
+    _build.reset_launch_counts()
+    plain = forwards(_plain_kernels)
+    if any(_build.launch_counts().values()):
+        raise AssertionError("bert: the plain route launched a kernel")
+    kern = forwards(contextlib.nullcontext)
+    # the control: the plain route on the same weights in fp32
+    fp32 = forwards(_plain_kernels, {
+        n: t.float() for n, t in engine._bert_state.items()})
+    # one wrong layer on the kernels' route, the first or the 13th: its
+    # attention causal (encode), or without its padding mask (padded)
+    wrong = {n: [forwards(lambda: _wrong_attention(n, causal=True))[0],
+                 forwards(lambda: _wrong_attention(n, mask3=None))[1]]
+             for n in (0, 12)}
+    errs = []
+    for i, label in enumerate(("encode", "padded")):
+        g_, r_ = kern[i], plain[i]
+        e = (g_.float() - r_.float()).abs().max().item()
+        rel = _seq_rel_l2(g_, r_, BERT_BATCH)
+        off = {n: _seq_rel_l2(w[i], r_, BERT_BATCH) for n, w in wrong.items()}
+        print(f"  bert {label}: max|kernels - plain| {e:.4f} (limit "
+              f"{TOL_LOGITS}), relative L2 {rel:.4e} (the worst sequence; "
+              f"limit {TOL_BERT_REL_L2}); plain bf16 against plain fp32 "
+              f"{_seq_rel_l2(fp32[i], r_, BERT_BATCH):.4e}; a wrong layer 0 "
+              f"{off[0]:.4e}, a wrong layer 12 {off[12]:.4e}")
+        _check(f"bert {label} logits", e, TOL_LOGITS)
+        _check(f"bert {label} logits (relative L2)", rel, TOL_BERT_REL_L2)
+        if off[0] <= TOL_BERT_REL_L2:
+            raise AssertionError(f"bert {label}: the relative L2 limit does "
+                                 f"not see a wrong first layer")
+        errs.append(e)
+    del engine, params, logits, masked, plain, kern, fp32, wrong
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, peak_bytes=peak, logit_err=max(errs),
+                launches=launches)
 
 
 def _train_model(dev, seed: int, layers: int, seq: int = TRAIN_SEQ):
@@ -1874,6 +2439,35 @@ def phase_train(dev, seed: int, profile: bool = False):
               f"{r['tokens'] / r['step_s']:.1f} tokens/s, "
               f"{r['peak_bytes'] / 2**30:.2f} GiB")
     return runs
+
+
+def _seq_rel_l2(got, ref, b: int) -> float:
+    """The largest over the ``b`` sequences of the relative L2 difference
+    of their parts of a tensor that leads with them (``[b, s, vocab]``
+    logits, ``[b*h, s, d]`` flash outputs)."""
+    got, ref = got.float().reshape(b, -1), ref.float().reshape(b, -1)
+    return ((got - ref).norm(dim=1) / ref.norm(dim=1)).max().item()
+
+
+@contextlib.contextmanager
+def _wrong_attention(n: int, **override):
+    """The ``n``-th flash forward (from 0) inside the context runs with
+    ``override`` in its keyword arguments (``causal``, ``mask3``): one
+    wrong layer, for showing that a check sees it."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    fwd, calls = attn._fwd, itertools.count()
+
+    def wrong(q3, k3, v3, causal, scale, **kw):
+        if next(calls) == n:
+            kw = {**kw, "causal": causal, **override}
+            causal = kw.pop("causal")
+        return fwd(q3, k3, v3, causal, scale, **kw)
+
+    attn._fwd = wrong
+    try:
+        yield
+    finally:
+        attn._fwd = fwd
 
 
 @contextlib.contextmanager
@@ -3064,12 +3658,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="kernels,serve,profile,train,optim,train-check,"
-                            "shim",
-                    help="comma list of kernels, serve, profile, train, "
-                         "optim, train-check, shim, ab (build always runs; "
-                         "profile profiles the serve and the train phases "
-                         "that run)")
+                    default="kernels,serve,gpt,bert,profile,train,optim,"
+                            "train-check,shim",
+                    help="comma list of kernels, serve, gpt, bert, profile, "
+                         "train, optim, train-check, shim, ab (build always "
+                         "runs; profile profiles the serve and the train "
+                         "phases that run)")
     ap.add_argument("--baseline", type=Path, default=None,
                     help="root of a checkout of another version: with the "
                          "ab phase, time its kernels and this tree's, A/B "
@@ -3096,14 +3690,22 @@ def main(argv=None) -> int:
     if "serve" in phases:
         served = phase_serve(dev, args.seed, "profile" in phases)
         for key, r in recs.items():
-            if key in SERVE_KERNELS:
+            if key in SERVE_KERNELS + ("flash_attention_masked",):
                 r["launches"] = served["launches"][key]
         del served
         torch.cuda.empty_cache()
+    if "gpt" in phases:
+        gpt = phase_gpt(dev, args.seed)
+        if "fused_block_decode_gpt" in recs:
+            recs["fused_block_decode_gpt"]["launches"] = gpt["launches"][
+                "fused_block_decode_gpt"]
+        del gpt
+    if "bert" in phases:
+        phase_bert(dev, args.seed)
     if "train" in phases:
         runs = phase_train(dev, args.seed, "profile" in phases)
         for key, r in recs.items():
-            if key not in SERVE_KERNELS + SHIM_KERNELS:
+            if key not in SERVE_KERNELS + SHIM_KERNELS + SERVE_ONLY:
                 r["launches"] = runs[KERNEL_RUN.get(key, "adam")][
                     "launches"][key]
     if "optim" in phases:

@@ -103,7 +103,8 @@ def test_mha_reference_with_mask_matches_jax():
     got = tattn.mha_reference(*_t(q, k, v), causal=True,
                               mask=torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=_ATOL)
-    # the public entry takes the mask on the CPU through the same oracle
+    # the public entry takes the mask on the CPU through the masked
+    # kernel's plain version (the JAX entry's mask3)
     pub = tattn.flash_attention(*_t(q, k, v), causal=True,
                                 mask=torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(pub, ref, rtol=1e-5, atol=_ATOL)

@@ -6,7 +6,11 @@ backward, odd flat lengths and offset views for the unscale, Adam, the
 L2 norm, LAMB's phase 1, SGD and Adagrad, the L2 norm's run-to-run
 repeatability, the LAMB rule against its plain route, axpby and the
 fused scale and norm with the ``multi_tensor_applier`` shim over them,
-the split flash backward's two kernels and its route, paged decode over
+the split flash backward's two kernels and its route, the masked flash
+forward over per-batch, per-head, shared and key-only masks with fully
+masked rows, causal offsets and ragged windows (and
+``decode_attention``'s kernel branch against its plain chain), paged
+decode over
 every query group, head dim and page size with lengths on and across
 page and split edges, 8192-position windows and 1 to 256 slots (two
 calls the same bits), the norm backward on both sides of its
@@ -14,7 +18,8 @@ register/multi-pass line, the flash forward
 and all three flash backward kernels at lengths and windows that cut
 their tiles (causal rows that see no key among them), the
 fused decode block's query groups, head dims, edge lengths, slot
-groups and its attention-only variant; the optimizer classes: each
+groups and its attention-only variant, and its GPT instance over the
+same edges; the optimizer classes: each
 twin's and tree class's launches per step with no host sync, and a
 twin step equal to a functional step bit for bit).
 
@@ -148,13 +153,164 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q = _randn((1, 2, 16, 64), 7, cuda, torch.float32)
     with pytest.raises(TypeError, match="bfloat16"):
         attn.flash_attention(q, q, q, causal=True)
-    qb = q.to(torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        attn.flash_attention(qb, qb, qb, mask=torch.zeros(
-            1, 1, 16, 16, dtype=torch.bool, device=cuda))
+    qb = q.to(torch.bfloat16).requires_grad_()
+    # a mask takes the masked forward; its backward is not ported
+    before = _build.launch_counts()["flash_attention_masked"]
+    out = attn.flash_attention(qb, qb, qb, mask=torch.zeros(
+        1, 1, 16, 16, dtype=torch.bool, device=cuda))
+    assert _build.launch_counts()["flash_attention_masked"] == before + 1
+    with pytest.raises(NotImplementedError, match="mask operand"):
+        out.float().sum().backward()
+    qb = qb.detach()
     with pytest.raises(ValueError, match="mask must be"):
         attn.flash_attention(qb, qb, qb, mask=torch.zeros(
             16, 16, dtype=torch.bool, device=cuda))
+
+
+# -- the masked forward (the mask3 operand) --------------------------------
+#
+# flash_attention(mask=...) against the masked kernel's plain version on
+# the same mask3: per-batch [b, 1, sq, sk], one mask for all [1, 1, sq,
+# sk], per head [b, h, sq, sk] and key-only [b, 1, 1, sk] (the decode
+# and padding shapes), each with fully masked rows (0 out, lse -1e30),
+# causal or not, lengths that cut the tiles; out and lse as above, and
+# each query row's out within 2^-6 of its own max |ref| (as paged decode
+# holds each slot: a row over thousands of keys reads ~0.02, so a
+# dropped tile moves it by less than the absolute limit).
+
+def _row_errors(got, ref):
+    """Each query row's max |diff| over its own max |ref| (0/0 reads 0,
+    an error on a fully masked row inf)."""
+    d = ref.shape[-1]
+    got, ref = got.float().reshape(-1, d), ref.float().reshape(-1, d)
+    diff = (got - ref).abs().amax(1)
+    mag = ref.abs().amax(1)
+    return torch.where(diff == 0, torch.zeros_like(diff), diff / mag)
+
+
+def _masked_case(cuda, b, h, sq, sk, d, mask_shape, causal, seed):
+    q = _randn((b, h, sq, d), seed, cuda)
+    k = _randn((b, h, sk, d), seed + 1, cuda)
+    v = _randn((b, h, sk, d), seed + 2, cuda)
+    mask = np.random.RandomState(seed + 3).rand(*mask_shape) > 0.5
+    if mask_shape[2] > 1:
+        mask[..., 0, :] = True              # every first row fully masked
+    else:
+        mask[-1] = True                     # every key of the last mask
+    mask = torch.from_numpy(mask).to(cuda)
+    counts = _build.launch_counts()
+    out = attn.flash_attention(q, k, v, causal=causal, mask=mask)
+    after = _build.launch_counts()
+    assert after["flash_attention_masked"] == \
+        counts["flash_attention_masked"] + 1
+    assert after["flash_attention"] == counts["flash_attention"]
+    mask3 = attn._mask3(mask, b, h, sq, sk)
+    q3, k3, v3 = (t.reshape(b * h, -1, d) for t in (q, k, v))
+    got, lse = attn._fwd(q3, k3, v3, causal, d ** -0.5, mask3=mask3)
+    ref, ref_lse = attn._fwd_reference(q3, k3, v3, causal, d ** -0.5,
+                                       mask3=mask3)
+    torch.cuda.synchronize()
+    assert (out.reshape(b * h, sq, d).float() - ref.float()).abs().max() \
+        .item() <= 2e-2
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+    for g in (out, got):
+        assert _row_errors(g, ref).max().item() <= 2.0 ** -6
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    dead = ref_lse <= -0.5e30
+    assert bool((got[dead] == 0).all()) and bool((lse[dead] == -1e30).all())
+    return dead
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("kind", ["per-batch", "one", "per-head",
+                                  "key-only"])
+@pytest.mark.parametrize("sq,sk,causal", [(100, 100, True),
+                                          (130, 200, False),
+                                          (1, 1000, False),
+                                          (200, 130, True)])
+def test_masked_flash_kernel_matches_plain(cuda, d, kind, sq, sk, causal):
+    b, h = 2, 3
+    shape = {"per-batch": (b, 1, sq, sk), "one": (1, 1, sq, sk),
+             "per-head": (b, h, sq, sk), "key-only": (b, 1, 1, sk)}[kind]
+    dead = _masked_case(cuda, b, h, sq, sk, d, shape, causal, 70)
+    assert bool(dead.any())
+
+
+@pytest.mark.parametrize("valid", [(90, 90), (129, 65), (1, 200)])
+def test_masked_flash_kernel_validity_window(cuda, valid):
+    """The mask with a ragged validity window and an explicit causal
+    offset, through ``_fwd`` directly: rows past the window emit 0."""
+    bh, s, d = 4, 256, 64
+    q, k, v = (_randn((bh, s, d), seed, cuda) for seed in (80, 81, 82))
+    mask3 = torch.from_numpy(
+        np.random.RandomState(83).rand(2, s, s) > 0.7).to(cuda)
+    for causal in (True, False):
+        got, lse = attn._fwd(q, k, v, causal, 0.125, causal_off=0,
+                             valid=valid, mask3=mask3)
+        ref, ref_lse = attn._fwd_reference(q, k, v, causal, 0.125,
+                                           causal_off=0, valid=valid,
+                                           mask3=mask3)
+        torch.cuda.synchronize()
+        assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+        assert _row_errors(got, ref).max().item() <= 2.0 ** -6
+        assert (lse - ref_lse).abs().max().item() <= 1e-3
+        assert bool((got[:, valid[0]:] == 0).all())
+
+
+def test_unmasked_forward_launches_no_masked_kernel(cuda):
+    q = _randn((1, 2, 130, 64), 84, cuda)
+    counts = _build.launch_counts()
+    attn.flash_attention(q, q, q, causal=True)
+    after = _build.launch_counts()
+    assert after["flash_attention"] == counts["flash_attention"] + 1
+    assert after["flash_attention_masked"] == counts["flash_attention_masked"]
+
+
+@pytest.mark.parametrize("group", [1, 4])
+def test_decode_attention_kernel_branch_matches_its_plain_chain(cuda, group):
+    """Dense-cache decode, sq = 1 against 3000 cached positions with
+    lengths 0, 1, 1500 and 3000: the masked flash branch (k/v broadcast
+    to the query heads) against the plain grouped chain, on the card."""
+    b, kvh, s_cache, d = 4, 2, 3000, 128
+    h = kvh * group
+    q = _randn((b, h, d), 85, cuda)
+    k = _randn((b, kvh, s_cache, d), 86, cuda)
+    v = _randn((b, kvh, s_cache, d), 87, cuda)
+    lengths = torch.tensor([0, 1, 1500, 3000], dtype=torch.int32,
+                           device=cuda)
+    before = _build.launch_counts()["flash_attention_masked"]
+    got = attn.decode_attention(q, k, v, lengths, use_kernel=True)
+    assert _build.launch_counts()["flash_attention_masked"] == before + 1
+    ref = attn.decode_attention(q, k, v, lengths, use_kernel=False)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+    assert _row_errors(got, ref).max().item() <= 2.0 ** -6
+    assert bool((got[0] == 0).all())
+
+
+def test_masked_decode_drops_no_tile_of_a_long_slot(cuda):
+    """The per-row limit sees one 128-key tile of an 8192-key slot left
+    out: the kernel branch holds it, a mask that also hides the tile
+    does not."""
+    b, kvh, group, s_cache, d = 4, 8, 4, 8192, 128
+    h = kvh * group
+    q = _randn((b, h, 1, d), 88, cuda)
+    k = _randn((b, h, s_cache, d), 89, cuda)
+    v = _randn((b, h, s_cache, d), 90, cuda)
+    lengths = torch.tensor([8192, 4097, 100, 0], dtype=torch.int32,
+                           device=cuda)
+    mask = (torch.arange(s_cache, device=cuda)[None, None, None, :]
+            >= lengths[:, None, None, None])
+    got = attn.flash_attention(q, k, v, mask=mask)
+    mask3 = attn._mask3(mask, b, h, 1, s_cache)
+    q3, k3, v3 = (t.reshape(b * h, -1, d) for t in (q, k, v))
+    ref = attn._fwd_reference(q3, k3, v3, False, d ** -0.5, mask3=mask3)[0]
+    drop = mask3.clone()
+    drop[0, :, 4096:4224] = True
+    off = attn._fwd_reference(q3, k3, v3, False, d ** -0.5, mask3=drop)[0]
+    torch.cuda.synchronize()
+    assert _row_errors(got, ref).max().item() <= 2.0 ** -6
+    assert _row_errors(off, ref)[:h].min().item() > 2.0 ** -6
 
 
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
@@ -1158,10 +1314,77 @@ def test_fused_block_kernel_refuses_what_it_does_not_take(cuda):
                                                         [0, 5, 16], heads=6)
     with pytest.raises(ValueError, match="group"):
         pa_.fused_block_decode(x3, blk3, kp3, vp3, t3, l3, **kw3)
-    with pytest.raises(NotImplementedError, match="GPT serving"):
-        pa_.fused_block_decode(x, blk, kp, vp, table, lengths,
-                               **dict(kw, kind="gpt"))
+    # the GPT instance: group 1 only; partial_out is not ported
+    g_args, g_kw = _gpt_fused_case(cuda, 64, [0, 5, 16])
+    gbefore = _build.launch_counts()["fused_block_decode_gpt"]
+    gx, gblk, gkp, gvp, gt, gl = g_args
+    with pytest.raises(ValueError, match="group 1"):
+        pa_.fused_block_decode(gx, gblk, gkp[:, :4], gvp[:, :4], gt, gl,
+                               **g_kw)
+    with pytest.raises(NotImplementedError, match="tp and spec"):
+        pa_.fused_block_decode(*g_args, partial_out=True, fuse_mlp=False,
+                               **g_kw)
+    bf_vec = dict(gblk, bq=gblk["bq"].to(torch.bfloat16))
+    with pytest.raises(TypeError, match="float32"):
+        pa_.fused_block_decode(gx, bf_vec, gkp, gvp, gt, gl, **g_kw)
     assert _build.launch_counts()["fused_block_decode"] == before
+    assert _build.launch_counts()["fused_block_decode_gpt"] == gbefore
+
+
+def _gpt_fused_case(cuda, d, lengths, ps=16, mpps=24, heads=8, ffn=1024):
+    """A random GPT layer in the fused layout (bf16 matrices, fp32 norm
+    affines and biases) over one layer of a strided 3-layer pool."""
+    slots, hidden = len(lengths), heads * d
+
+    def lin(i, o, seed):
+        return _randn((i, o), seed, cuda) * i ** -0.5
+
+    def vec(n, seed, base=0.0):
+        return base + 0.1 * _randn((1, n), seed, cuda, torch.float32)
+
+    blk = {"ln1_w": vec(hidden, 90, 1.0), "ln1_b": vec(hidden, 91),
+           "wq": lin(hidden, hidden, 92), "bq": vec(hidden, 93),
+           "wk": lin(hidden, hidden, 94), "bk": vec(hidden, 95),
+           "wv": lin(hidden, hidden, 96), "bv": vec(hidden, 97),
+           "wo": lin(hidden, hidden, 98), "bo": vec(hidden, 99),
+           "ln2_w": vec(hidden, 100, 1.0), "ln2_b": vec(hidden, 101),
+           "wu": lin(hidden, ffn, 102), "bu": vec(ffn, 103),
+           "wd": lin(ffn, hidden, 104), "bd": vec(hidden, 105)}
+    n_pages = slots * mpps
+    pool_k = _randn((n_pages + 1, 3, heads, ps, d), 106, cuda)
+    pool_v = _randn((n_pages + 1, 3, heads, ps, d), 107, cuda)
+    perm = np.random.RandomState(108).permutation(n_pages)
+    table = np.full((slots, mpps), n_pages, np.int32)
+    cursor = 0
+    for s_, n in enumerate(lengths):
+        need = min(-(-n // ps), mpps)
+        table[s_, :need] = perm[cursor:cursor + need]
+        cursor += need
+    return (_randn((slots, hidden), 109, cuda), blk, pool_k[:, 1],
+            pool_v[:, 1], torch.from_numpy(table).to(cuda),
+            torch.tensor(lengths, dtype=torch.int32, device=cuda)), \
+        dict(kind="gpt", eps=1e-5)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("fuse_mlp", [True, False])
+def test_fused_gpt_block_kernel_matches_plain(cuda, d, fuse_mlp):
+    """The GPT instance over lengths on and across page (16) and split
+    (256) edges and past the 384-position window, ten slots (two passes
+    of eight over each weight tile): y, k and v against
+    ``fused_block_reference``; one ``fused_block_decode_gpt`` launch and
+    no LLaMA-instance launch."""
+    lengths = [0, 1, 15, 16, 255, 256, 257, 300, 384, 500]
+    args, kw = _gpt_fused_case(cuda, d, lengths)
+    counts = _build.launch_counts()
+    got = pa.fused_block_decode(*args, fuse_mlp=fuse_mlp, **kw)
+    after = _build.launch_counts()
+    assert after["fused_block_decode_gpt"] == \
+        counts["fused_block_decode_gpt"] + 1
+    assert after["fused_block_decode"] == counts["fused_block_decode"]
+    ref = pa.fused_block_reference(*args, fuse_mlp=fuse_mlp, **kw)
+    torch.cuda.synchronize()
+    _assert_fused_close(got, ref)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])

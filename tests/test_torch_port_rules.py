@@ -15,17 +15,21 @@ import torch
 
 from apex_tpu_torch import multi_tensor_apply as mta
 from apex_tpu_torch.inference import InferenceEngine
-from apex_tpu_torch.inference.kv_cache import init_paged_cache
-from apex_tpu_torch.inference.weights import llama_param_shapes
+from apex_tpu_torch.inference.kv_cache import init_cache, init_paged_cache
+from apex_tpu_torch.inference.weights import (bert_param_shapes,
+                                              gpt_param_shapes,
+                                              llama_param_shapes)
 from apex_tpu_torch.ops import (_build, flash_attention, fused_adam_flat,
                                 fused_scale, paged_decode_attention, rms_norm)
 from apex_tpu_torch.ops import attention as tattn
+from apex_tpu_torch.ops.attention import decode_attention
 from apex_tpu_torch.ops.fused_update import (fused_adagrad_flat,
                                              fused_l2norm,
                                              fused_lamb_phase1_flat,
                                              fused_sgd_flat)
 from apex_tpu_torch.ops.paged_attention import fused_block_decode
-from apex_tpu_torch.transformer.testing import LlamaConfig
+from apex_tpu_torch.transformer.testing import (BertConfig, GPTConfig,
+                                                LlamaConfig)
 
 from _torch_isolation import restore_torch_from_amp  # noqa: F401
 
@@ -33,15 +37,19 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "apex_tpu_torch"
 CFG = LlamaConfig(vocab_size=64, hidden_size=32, num_layers=1,
                   num_attention_heads=4, num_kv_heads=2, max_seq_length=64)
+GPT_CFG = GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                    num_attention_heads=4, max_seq_length=64)
+BERT_CFG = BertConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                      num_attention_heads=4, max_seq_length=64)
 
 
 def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
-def _params(cfg=CFG):
+def _params(cfg=CFG, shapes=llama_param_shapes):
     tree: dict = {}
-    for path, shape in llama_param_shapes(cfg).items():
+    for path, shape in shapes(cfg).items():
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
@@ -98,6 +106,8 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError):
         init_paged_cache(4, 1, 2, 16, 8, slots=1, max_pages_per_slot=4,
                          device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(1, 1, 2, 16, 8)
     eng = InferenceEngine("llama", CFG, _params(), slots=1, page_size=16,
                           device="cpu")
     assert eng.device.type == "cpu" and eng.init_cache().k.device.type == "cpu"
@@ -120,6 +130,23 @@ def _fused_args(hidden=32, h=4, kvh=2, d=8, ffn=48):
 def _fused_kw(**kw):
     return dict(dict(kind="llama", eps=1e-5, cos=torch.ones(1, 8),
                      sin=torch.zeros(1, 8)), **kw)
+
+
+def _gpt_fused_args(hidden=32, h=4, d=8, ffn=48):
+    """A tiny GPT layer in the fused layout, its pool operands as
+    :func:`_fused_args`'."""
+    x, _, pool, _, table, lengths = _fused_args(hidden, h, h, d, ffn)
+    g = torch.Generator().manual_seed(1)
+    blk = {n: torch.randn(shape, generator=g) for n, shape in (
+        ("ln1_w", (1, hidden)), ("ln1_b", (1, hidden)),
+        ("wq", (hidden, h * d)), ("bq", (1, h * d)),
+        ("wk", (hidden, h * d)), ("bk", (1, h * d)),
+        ("wv", (hidden, h * d)), ("bv", (1, h * d)),
+        ("wo", (h * d, hidden)), ("bo", (1, hidden)),
+        ("ln2_w", (1, hidden)), ("ln2_b", (1, hidden)),
+        ("wu", (hidden, ffn)), ("bu", (1, ffn)), ("wd", (ffn, hidden)),
+        ("bd", (1, hidden)))}
+    return x, blk, pool, pool, table, lengths
 
 
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(
@@ -152,6 +179,14 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(
                        eps=1e-10, weight_decay=0.0)
     y, kt, vt = fused_block_decode(*_fused_args(), **_fused_kw())
     assert tuple(y.shape) == (1, 32) and tuple(kt.shape) == (1, 2, 8)
+    y, kt, vt = fused_block_decode(*_gpt_fused_args(), kind="gpt", eps=1e-5)
+    assert tuple(y.shape) == (1, 32) and tuple(kt.shape) == (1, 4, 8)
+    # the masked flash forward and decode_attention's kernel branch
+    mask = torch.rand(1, 1, 8, 8) > 0.5
+    flash_attention(q, q, q, mask=mask)
+    decode_attention(torch.randn(2, 4, 16), torch.randn(2, 2, 40, 16),
+                     torch.randn(2, 2, 40, 16),
+                     torch.tensor([0, 7], dtype=torch.int32), use_kernel=True)
     grads = [torch.randn(3, 5), torch.randn(7).to(torch.bfloat16)]
     for op, lists, args in (
             (mta.multi_tensor_scale, [grads], (0.5,)),
@@ -161,10 +196,12 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(
         mta.multi_tensor_applier(op, 0.0, lists, *args)
     assert _build.launch_counts() == {
         "layer_norm": 0, "layer_norm_bwd": 0, "flash_attention": 0,
+        "flash_attention_masked": 0,
         "flash_attention_bwd": 0, "flash_attention_bwd_dq": 0,
         "flash_attention_bwd_dkv": 0, "paged_attention": 0,
         "fused_scale": 0, "fused_axpby": 0, "fused_adam": 0,
-        "fused_block_decode": 0, "fused_l2norm": 0,
+        "fused_block_decode": 0, "fused_block_decode_gpt": 0,
+        "fused_l2norm": 0,
         "fused_l2norm_scale": 0, "fused_lamb1": 0, "fused_sgd": 0,
         "fused_adagrad": 0}
     assert _build._LIB is None              # nothing was built or loaded
@@ -176,7 +213,10 @@ def _engine(**kwargs):
     if kw["page_size"] is None:
         del kw["page_size"]
     kind = kw.pop("kind")
-    return lambda: InferenceEngine(kind, CFG, _params(), **kw)
+    cfg, shapes = {"llama": (CFG, llama_param_shapes),
+                   "gpt": (GPT_CFG, gpt_param_shapes),
+                   "bert": (BERT_CFG, bert_param_shapes)}[kind]
+    return lambda: InferenceEngine(kind, cfg, _params(cfg, shapes), **kw)
 
 
 def _fused(**kwargs):
@@ -184,18 +224,28 @@ def _fused(**kwargs):
 
 
 @pytest.mark.parametrize("call,match", [
-    (_engine(kind="gpt"), "GPT serving"),
-    (_engine(kind="bert"), "GPT serving"),
-    (_engine(page_size=None), "dense cache"),
+    (_engine(kind="gpt", tp=2), "tp and spec"),
+    (_engine(kind="gpt", spec_k=2), "tp and spec"),
+    (_engine(kind="gpt", host_tier_bytes=1 << 20), "host page tier"),
     (_engine(tp=2), "tp and spec"),
     (_engine(spec_k=2), "tp and spec"),
     (_engine(decode_fusion="1", tp=2), "tp and spec"),
     (_fused(partial_out=True, fuse_mlp=False), "tp and spec"),
-    (_fused(kind="gpt"), "GPT serving"),
+    (_fused(kind="gpt", partial_out=True, fuse_mlp=False), "tp and spec"),
     (_engine(host_tier_bytes=1 << 20), "host page tier"),
 ])
 def test_out_of_slice_configurations_raise(call, match):
     with pytest.raises(NotImplementedError, match=match):
+        call()
+
+
+@pytest.mark.parametrize("call,match", [
+    (_engine(kind="bert", page_size=None, decode_fusion="1"), "encode-only"),
+    (_engine(page_size=None, tp=2), "does not shard"),
+])
+def test_configurations_the_jax_engine_refuses_raise_its_value_error(
+        call, match):
+    with pytest.raises(ValueError, match=match):
         call()
 
 
@@ -211,7 +261,11 @@ def test_every_kernel_source_exists_and_exports_its_entry():
     with a ctypes signature, names the TPU kernels it replaces, and
     every kernel has its own launch counter."""
     assert sorted(_build.KERNELS) == sorted(_build.launch_counts())
-    assert len(_build.KERNELS) == 16        # every TPU kernel
+    # every TPU kernel, and a second instance of two of them: the masked
+    # flash forward (#3) and the GPT fused block (#8)
+    assert len(_build.KERNELS) == 18
+    assert {"flash_attention_masked", "fused_block_decode_gpt"} \
+        <= set(_build.KERNELS)
     for src, entries in _build.SOURCES.items():
         text = (PORT / "csrc" / src).read_text()
         assert "Replaces: apex_tpu/ops/" in text
