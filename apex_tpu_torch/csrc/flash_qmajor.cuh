@@ -35,12 +35,19 @@
 // Masks and numbers as _fwd / _dq_reference: base-2 scores (log2(e)
 // folded into scale_log2), the causal offset (key c visible to query r
 // when c <= r + off) and the validity window; tiles with nothing visible
-// to the block are never loaded; the forward's MASK instance also reads
-// the boolean mask3 operand (_fwd_kernel's mask_ref), one byte a (row,
-// key), True = masked, batch-head bh reading mask bh / mask_hper, on
-// every element of every tile (no tile is taken as whole); p, and dS, are rounded to bf16 before
+// to the block are never loaded.  The forward's MASK instance also
+// applies the boolean mask3 operand (_fwd_kernel's mask_ref, True =
+// masked, batch-head bh reading mask bh / mask_hper) through what the
+// masked launch's pre-pass (mask_tiles_kernel, flash_attention.cu) made
+// of it: a class a (mask, 128-query block, key tile) and the tile's mask
+// bits in the product threads' order.  Both warpgroups walk only the
+// tiles that are not dead (the copies never load a dead tile), a full
+// tile takes the unmasked fast path where the causal and validity masks
+// allow, and a partial tile reads two 32-bit words a thread (its rows'
+// bits), not a byte an element.  p, and dS, are rounded to bf16 before
 // their product (the forward's row sum keeps the fp32 p); a fully masked
-// row emits 0 and lse -1e30, and gets dq 0 where its lse < -0.5e30.
+// row emits 0 and lse -1e30 (so does a block whose tiles are all dead),
+// and gets dq 0 where its lse < -0.5e30.
 #pragma once
 
 #include "hopper.cuh"
@@ -55,6 +62,12 @@ constexpr int kSmemMax = 232448;  // shared memory a block may take
 constexpr long long kL2Half = 25LL << 20;  // half the H100's 50 MB L2
 constexpr int kQmRegs = 240;      // registers of a product thread
 constexpr int kQmCopyRegs = 24;   // and of a copying thread
+// the mask pre-pass's tile classes, and its bits: a 32-bit word a (row,
+// tig) of a 128-query x 128-key tile, bit 2 j + e for key j * 8 + 2 tig
+// + e (the keys a product thread's accumulator holds), 1 = masked
+constexpr unsigned char kTileDead = 0, kTilePartial = 1, kTileFull = 2;
+constexpr int kMaskTile = 128;
+constexpr int kMaskWords = kQmBQ * 4;
 
 // Shared memory, byte offsets from a 1024-aligned base: sQ [128][DP],
 // with DQ sO (dO) [128][DP], then sK [stages][BK][DP] and sV
@@ -79,7 +92,9 @@ struct QmTiles {
 // DQ = true: out = dq [bh, sq, D] bf16, written once; lse_out unused.
 // The operands come as tensor maps (bf16_tile_map): q and dO with
 // 128-row boxes, k and v with BK-row boxes.  MASK (forward only): mask
-// [bh / mask_hper, sq, sk] bytes, nonzero = masked.
+// [bh / mask_hper, sq, sk] bytes, nonzero = masked, as the pre-pass's
+// classes cls [nmask, nqb, nkt] and bits [nmask, nqb, nkt, kMaskWords]
+// (nqb query blocks of 128, nkt key tiles of BK = 128).
 template <int D, bool DQ, int BK, bool MASK = false>
 __global__ void __launch_bounds__(kQmThreads, 1)
 flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
@@ -91,8 +106,11 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
                     float* __restrict__ lse_out, int nbh, int group, int sq,
                     int sk, int causal, int off, int valid_q, int valid_k,
                     float scale_log2, float scale,
-                    const unsigned char* __restrict__ mask, int mask_hper) {
+                    const unsigned char* __restrict__ cls,
+                    const unsigned* __restrict__ bits, int mask_hper,
+                    int nkt) {
   static_assert(!(MASK && DQ), "the mask operand is the forward's");
+  static_assert(!MASK || BK == kMaskTile, "the pre-pass's tiles are BK's");
   using T = QmTiles<D, DQ, BK>;
   constexpr int DP = T::DP;
   constexpr int kKS = D / 16;     // k16 steps of S (and dP) over d
@@ -124,6 +142,15 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
   int kend = kv_end;
   if (causal) kend = min(kend, q0 + kQmBQ + off);
   const int nk = (kend > 0 && q0 < q_end) ? (kend + BK - 1) / BK : 0;
+  // MASK: this block's tile classes and bits, and the tiles it loads
+  const size_t mtile = MASK ? ((size_t)(bh / mask_hper) * nqb + q0 / kQmBQ) *
+                                  nkt : 0;
+  const unsigned char* tcls = MASK ? cls + mtile : nullptr;
+  int nlive = nk;
+  if constexpr (MASK) {
+    nlive = 0;
+    for (int kt = 0; kt < nk; ++kt) nlive += tcls[kt] != kTileDead;
+  }
 
   if (tid == 0) {
     mbar_init(bQ, 1);
@@ -139,15 +166,19 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
     // the copying warpgroup: one thread issues every load (none where the
     // block sees no key: then nothing is in flight when it exits)
     reg_dealloc<kQmCopyRegs>();
-    if (tid == kQmConsumers && nk > 0) {
+    if (tid == kQmConsumers && nlive > 0) {
       mbar_expect_tx(bQ, (DQ ? 2 : 1) * T::kQ);
       for (int c = 0; c < DP / 64; ++c) {
         tma_load(sQ + c * (kQmBQ * 128), &tq, bQ, c * 64, q0, bh);
         if constexpr (DQ)
           tma_load(sO + c * (kQmBQ * 128), &tdo, bQ, c * 64, q0, bh);
       }
-      for (int kt = 0; kt < nk; ++kt) {
-        const int st = kt % T::kStages, use = kt / T::kStages;
+      // i: the ordinal of tile kt among those loaded (MASK: not dead)
+      for (int kt = 0, i = 0; kt < nk; ++kt) {
+        if constexpr (MASK)
+          if (tcls[kt] == kTileDead) continue;
+        const int st = i % T::kStages, use = i / T::kStages;
+        ++i;
         // the stage's last tile is released by every product thread
         if (use > 0) mbar_wait(bEmpty + 8 * st, (use - 1) & 1);
         mbar_expect_tx(bFull + 8 * st, 2 * T::kKV);
@@ -172,7 +203,7 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(bFull + 8 * (kt % T::kStages), (kt / T::kStages) & 1);
   };
   auto release_kv = [&](int kt) { mbar_arrive(bEmpty + 8 * (kt % T::kStages)); };
-  if (nk > 0) mbar_wait(bQ, 0);
+  if (nlive > 0) mbar_wait(bQ, 0);
 
   // A of S (and dP): this warpgroup's 64 rows of the resident tile, k-step
   // ks; B: the stage's K (V) tile, K-major over d
@@ -195,15 +226,9 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
   auto live = [&](int r, int c) {
     return c < kv_end && r < q_end && (!causal || c <= r + off);
   };
-  // this head's mask, read only where live() holds (inside [sq, sk])
-  const unsigned char* mrow =
-      MASK ? mask + (size_t)(bh / mask_hper) * sq * sk : nullptr;
-  auto visible = [&](int r, int c) {
-    if constexpr (MASK)
-      return live(r, c) && mrow[(size_t)r * sk + c] == 0;
-    else
-      return live(r, c);
-  };
+  // MASK: this thread's bits of rows row and row + 8 in each tile
+  const unsigned* tbits =
+      MASK ? bits + mtile * kMaskWords + (row - q0) * 4 + tig : nullptr;
 
   float acc[kON];                 // O, or dQ
 #pragma unroll
@@ -216,11 +241,24 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
     float s[kSN];
     float m[2] = {kNegInf, kNegInf};  // rows row, row + 8 (base 2, scaled)
     float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+    int taken = 0;                    // MASK: tiles taken so far
     for (int kt = 0; kt < nk; ++kt) {
-      const int st = kt % T::kStages;
-      wait_kv(kt);
+      const int i = MASK ? taken : kt;  // the tile's place in the ring
+      unsigned mw[2] = {0u, 0u};      // MASK: rows row, row + 8's bits
+      bool fast = full_tile(kt * BK);
+      if constexpr (MASK) {
+        const unsigned char c = tcls[kt];
+        if (c == kTileDead) continue;
+        fast = fast && c == kTileFull;
+        if (!fast) {
+          mw[0] = __ldg(tbits + (size_t)kt * kMaskWords);
+          mw[1] = __ldg(tbits + (size_t)kt * kMaskWords + 32);
+        }
+      }
+      const int st = i % T::kStages;
+      wait_kv(i);
 #pragma unroll
-      for (int i = 0; i < kSN; ++i) s[i] = 0.f;
+      for (int x = 0; x < kSN; ++x) s[x] = 0.f;
       keep(s);
       keep(acc);
       keep(pa);
@@ -230,8 +268,8 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_ss<0, 0>(s, a_desc(sQ, ks), b_desc(sK + st * T::kKV, ks),
                        ks > 0);
       wgmma_commit();
-      if (kt > 0) {
-        const uint32_t pV = sV + ((kt - 1) % T::kStages) * T::kKV;
+      if (i > 0) {
+        const uint32_t pV = sV + ((i - 1) % T::kStages) * T::kKV;
 #pragma unroll
         for (int t = 0; t < kPS; ++t) wgmma_rs(acc, pa[t], n_desc(pV, t), 1);
         wgmma_commit();
@@ -246,7 +284,7 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
       // warp's rows skips the per-element masks
       const int k0 = kt * BK;
       float alpha[2];
-      if (!MASK && full_tile(k0)) {
+      if (fast) {
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           // the max of the raw scores (scale_log2 > 0), in 4 chains
@@ -284,7 +322,8 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int x = j * 4 + hf * 2 + e;
-              s[x] = visible(row + hf * 8, k0 + j * 8 + tig * 2 + e)
+              s[x] = live(row + hf * 8, k0 + j * 8 + tig * 2 + e) &&
+                             !((mw[hf] >> (j * 2 + e)) & 1u)
                          ? s[x] * scale_log2 : kNegInf;
               mx = fmaxf(mx, s[x]);
             }
@@ -310,7 +349,7 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();        // P_{t-1} V_{t-1} is done: O and P are free
       keep(acc);
       keep(pa);
-      if (kt > 0) release_kv(kt - 1);
+      if (i > 0) release_kv(i - 1);
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
@@ -319,9 +358,11 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
           acc[j * 4 + hf * 2 + 1] *= alpha[hf];
         }
       to_a_frags(pa, s);
+      if constexpr (MASK) ++taken;
     }
-    if (nk > 0) {             // the last tile's P V
-      const uint32_t pV = sV + ((nk - 1) % T::kStages) * T::kKV;
+    const int ntaken = MASK ? taken : nk;
+    if (ntaken > 0) {         // the last tile's P V
+      const uint32_t pV = sV + ((ntaken - 1) % T::kStages) * T::kKV;
       keep(acc);
       keep(pa);
       wgmma_fence();
@@ -448,7 +489,8 @@ int launch_qmajor(const void* q, const void* k, const void* v,
                   void* out, void* lse_out, int bh, int sq, int sk,
                   int causal, int off, int valid_q, int valid_k,
                   float scale_log2, float scale, cudaStream_t stream,
-                  const void* mask = nullptr, int mask_hper = 1) {
+                  const void* cls = nullptr, const void* bits = nullptr,
+                  int mask_hper = 1) {
   CUtensorMap tq, tk, tv, tdo;
   int e = bf16_tile_map(&tq, q, bh, sq, D, kQmBQ);
   // no keys: no block loads k or v, whose maps then describe q
@@ -459,7 +501,8 @@ int launch_qmajor(const void* q, const void* k, const void* v,
   if (!e) e = DQ ? bf16_tile_map(&tdo, dout, bh, sq, D, kQmBQ)
                  : bf16_tile_map(&tdo, q, bh, sq, D, kQmBQ);
   if (e) return e;
-  if (MASK && (mask == nullptr || mask_hper < 1 || bh % mask_hper))
+  if (MASK && (cls == nullptr || bits == nullptr || mask_hper < 1 ||
+               bh % mask_hper))
     return (int)cudaErrorInvalidValue;
   const size_t bytes = QmTiles<D, DQ, BK>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -478,7 +521,9 @@ int launch_qmajor(const void* q, const void* k, const void* v,
       static_cast<const float*>(delta), static_cast<bf16*>(out),
       static_cast<float*>(lse_out), bh, group, sq, sk, causal, off,
       valid_q, valid_k, scale_log2, scale,
-      static_cast<const unsigned char*>(mask), mask_hper);
+      static_cast<const unsigned char*>(cls),
+      static_cast<const unsigned*>(bits), mask_hper,
+      (sk + kMaskTile - 1) / kMaskTile);
   return (int)cudaGetLastError();
 }
 

@@ -28,36 +28,49 @@
 //   3. paged attention, one item per (slot, kv head, 256-token split),
 //      taken from a counter, reading the strided pool view in place
 //      (csrc/paged_attention.cu's chunk loop);
-//   4. per (slot, head): merge the splits and fold the current token;
-//   5. the o product; 6. x2 = x + o, norm2 sums per 256 columns;
-//   7. norm2 statistics, the gate/up products; 8. silu(g) u, the down
-//      product; 9. y = x2 + down.
+//   4. the o product, whose input is built by merging each (slot,
+//      head)'s splits and folding the current token in: the merge has no
+//      phase and no barrier of its own, each block merges the heads of
+//      its chunk of the o product's rows;
+//   5. x2 = x + o, norm2 sums per 256 columns; 6. norm2 statistics, the
+//      gate/up products; 7. silu(g) u, the down product; 8. y = x2 +
+//      down.
 // Every product is a GEMV phase: a block owns a tile of 256 output
 // columns of the [in, out] weight and a chunk of its input rows
-// (split-K).  The tile streams through a ring of shared-memory stages
-// (cp.async, each warp copying whole 512-byte rows), and the tensor
-// cores multiply it into all 8 slots at once: ldmatrix.trans turns 16
-// rows x 16 columns of the [in, out] tile into the A operand of an
-// m16n8k16 mma.sync whose N = 8 are the slots (the activations sit in
-// shared memory as bf16 [8 slots][rows], the B operand).  Each warp
-// owns 32 of the 256 columns, so no warp's sum meets another's; each
-// split-K chunk writes an fp32 partial that the next phase sums in a
-// fixed order (no atomics: the result is the same from run to run).
-// More than 8 slots run as groups of 8 over each item.
+// (split-K).  The tile streams through a ring of shared-memory stages:
+// one thread issues TMA loads (a 2-d tensor map a weight, encoded once
+// per weight by the host, four boxes of 32 rows x 64 columns a stage in
+// the 128-byte swizzle) that complete on the stage's mbarrier, and a
+// block barrier a stage frees the stage before it for its refill.  The
+// tensor cores multiply the tile into all 8 slots at once: ldmatrix.trans
+// turns 16 rows x 16 columns of the [in, out] tile into the A operand of
+// an m16n8k16 mma.sync whose N = 8 are the slots (the activations sit in
+// shared memory as bf16 [8 slots][rows], the B operand).  Each warp owns
+// 32 of the 256 columns, so no warp's sum meets another's; each split-K
+// chunk writes an fp32 partial that the next phase sums in a fixed order
+// (no atomics: the result is the same from run to run).  More than 8
+// slots run as groups of 8 over each item.
 //
 // What bounds it on the H100: bytes.  A Llama-3-8B layer reads 218.1 M
 // bf16 weights (436.2 MB) plus the live k/v pages, and does 2 flops per
 // weight per slot: at 8 slots, 16 flops per 2 bytes, far below the
 // ~295 flop/byte balance point, so the floor is ~0.130 ms per layer at
-// 3.35 TB/s.  The design reads each weight byte once, in wide coalesced
-// 16-byte copies, keeps three ring stages (48 KB a block, two blocks an
-// SM) in flight, leaves the arithmetic to the tensor cores (on fp32
-// FMAs it is 4 FMAs per weight byte at 8 slots; that version was no
-// faster, so issue is not what limits), and keeps the intermediates
-// (partials, q, k, v, context, x2: a few MB) in L2.  On the H100 the
-// products stream at a little over 2 TB/s; a deeper ring, 1 KB row
-// slices and L2 prefetch of the next product's weights each measured
-// slower (PERF.md).  No wgmma, no TMA yet.
+// 3.35 TB/s.  The design reads each weight byte once, keeps three ring
+// stages of 16 KB in flight (two blocks an SM), leaves the arithmetic to
+// the tensor cores, and keeps the intermediates (partials, q, k, v, x2:
+// a few MB) in L2.  At GPT's widths a GEMV phase costs ~7 us beyond its
+// bytes (the barrier, the ring's first loads, the activations' build,
+// the slowest block), and the phases that move no weights (the sums,
+// x2, y) and attention (split by 256 tokens over ~1.5 items a block) are
+// what the layer's small products cannot hide.  Measured no faster on
+// the card, and left out: the first stages of the next product issued
+// before a grid barrier, or between a block's arrival and its wait
+// (cp.async, bulk row copies or TMA boxes: the issuing thread stalls
+// about as long as the loads then save); 128-token attention items; a
+// 3-stage attention ring; taking an attention item's successor, and
+// loading its first chunk, during its last chunk; a deeper ring (GPT's
+// 100.7 MB layer gives a block one item of at most 8 stages; 5 in
+// flight read the same as 3).
 //
 // The GPT instance (fused_block_kernel<1, D, true>, kind="gpt" of the
 // TPU kernel): the same phases with LayerNorm in place of RMSNorm (two
@@ -66,7 +79,7 @@
 // fixed order), an fp32 bias added after each product's split-K sum
 // (q, k, v, o, up, down), no RoPE, and bf16(gelu(up)) as the down
 // product's input, GELU in its tanh approximation as jax.nn.gelu
-// computes it (phase 7 is one product, up; there is no gate).  Its
+// computes it (phase 6 is one product, up; there is no gate).  Its
 // norm weights and biases are fp32.  A GPT-3 1.3B layer reads 50.3 M
 // bf16 weights (100.7 MB) plus the live pages.
 //
@@ -75,29 +88,30 @@
 // cudaGetLastError(); with a null workspace they only report the
 // workspace bytes they need.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <mutex>
+
+#include "hopper.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSlots = 8;          // slots per GEMV pass (accumulator rows)
 constexpr int kTile = 256;         // output columns per GEMV item: 8 warps x 32
 constexpr int kKS = 32;            // weight rows per GEMV ring stage
-constexpr int kStages = 4;         // ring stages (3 in flight)
-constexpr int kLDW = kTile + 8;    // bf16 per staged row: conflict-free ldmatrix
-constexpr int kGemvRingBytes = kStages * kKS * kLDW * 2;
-constexpr int kMaxChunk = 2048;    // input rows per GEMV item
+// a ring stage: the tile's 256 columns as 4 TMA boxes of [32 rows][64
+// columns] in the 128-byte swizzle
+constexpr int kBox = kKS * 64 * 2;
+constexpr int kStageBytes = 4 * kBox;
 constexpr int kChunk = 64;         // tokens per staged attention chunk
 constexpr int kSplitTokens = 256;  // window positions per attention item
+constexpr int kStages = 4;         // GEMV ring stages (3 in flight)
+constexpr int kRingBytes = kStages * kStageBytes;
+constexpr int kMaxChunk = 2048;    // input rows per GEMV item
+static_assert(kTile == 4 * 64, "a stage is four 64-column boxes");
 constexpr int kRowBlock = kThreads;  // columns per residual item
 constexpr int kMaxBlocksPerSM = 2;
-constexpr float kNegInf = -1e30f;  // attention.py _NEG_INF
-constexpr int kPhases = 9;         // clock: [0] start, [1..8] barriers, [9] end
+constexpr int kPhases = 8;         // clock: [0] start, [1..7] barriers, [8] end
 
 static_assert(kTile == 32 * kWarps, "a warp owns 32 columns of the tile");
 static_assert(kThreads / kChunk == 4, "four threads score one token");
@@ -105,6 +119,15 @@ static_assert(kThreads / kChunk == 4, "four threads score one token");
 // arrivals and generation of the grid barrier; zero when no launch is
 // inside a barrier (each barrier's last arrival resets the count)
 __device__ unsigned g_barrier[2];
+
+// The products' weights as 2-d tensor maps ([in, out], boxes of 32 rows
+// x 64 columns): q, k, v, o, gate, up, down (unused ones unset).  A
+// kernel parameter of its own (__grid_constant__, so the TMA reads it in
+// place), apart from Params, whose fields the phases read as ordinary
+// parameters.
+struct WeightMaps {
+  CUtensorMap q, k, v, o, g, u, d;
+};
 
 struct Params {
   const bf16* x;            // [slots, hidden]
@@ -143,7 +166,6 @@ struct Params {
   float* vn32;              // [slots, kvh, d]
   float* part_acc;          // [slots h, nsplit, d]
   float* part_ml;           // [slots h, nsplit, 2]
-  bf16* ctx;                // [slots, h d]
   float* p_o;               // [ks_o, slots, hidden]
   float* x2;                // [slots, hidden]
   float* ss2;               // [slots, ceil(hidden / 256)] (GPT: x 2)
@@ -156,6 +178,7 @@ struct Params {
   int ks_qkv, ks_o, ks_gu, ks_d;
   int ch_qkv, ch_o, ch_gu, ch_d;
   int ln_fp32, fuse_mlp, r_off;
+  int m_off, merge_nh;      // the merge factors' shared memory, its heads
   float eps, scale_log2;
 };
 
@@ -186,19 +209,22 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float* f) {
   }
 }
 
+// the box at (column c, row r) of a 2-d tensor map into shared memory at
+// dst, completing `bar`'s transactions
+__device__ __forceinline__ void tma_load2(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int c, int r) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
                "l"(gmem));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Grid-wide barrier.  Every block is resident (cooperative launch).
 // Thread 0 reads the generation, publishes the block's writes (fence),
 // arrives; the last arrival resets the count and advances the
@@ -237,9 +263,9 @@ __device__ float block_sum(float v, float* red) {
 // ---------------------------------------------------------------- GEMV
 
 struct Seg {
-  const bf16* w;  // [K, n] row-major ([in, out])
-  int n;          // columns (a multiple of 8)
-  int col_off;    // first column of this weight in the partial rows
+  const CUtensorMap* tm;  // the [K, n] row-major ([in, out]) weight
+  int n;                  // columns (a multiple of 8)
+  int col_off;            // first column of this weight in the partial rows
 };
 
 // The GEMV's activations, four consecutive inputs k .. k + 3 of one slot
@@ -263,6 +289,7 @@ struct BuildNorm {
   int ln_fp32, hidden, slots;
   const float* mu;
   const float* b;
+  __device__ void prepare(int, int, int) const {}
   __device__ float4 operator()(int slot, int k) const {
     const size_t i = (size_t)slot * hidden + k;
     const float4 v =
@@ -287,13 +314,96 @@ struct BuildNorm {
   }
 };
 
-// A = bf16(ctx), the o product's input
-struct BuildCtx {
-  const bf16* ctx;
-  int width;
+// A = bf16(ctx), the o product's input, merged here from the attention
+// phase's split partials (there is no merge phase, and no barrier
+// between attention and o).  prepare() computes, one warp a (slot, head)
+// of the pass's chunk, what the merge needs beside the partials: each
+// live split's weight 2^(m_s - max m), the current token's score folded
+// in as one more online-softmax column from the fp32 q, k, v (alpha and
+// p_new) and the normaliser l, into shared memory [8 slots][merge_nh
+// heads][4 + nsplit]; operator() then sums four columns' partials in
+// split order: ctx = bf16((sum_s w_s acc_s alpha + p_new v) / l), the
+// merge's arithmetic in its order (l > 0: the token is always live).
+// Every split below nlive was written by the attention phase.
+template <int D>
+struct BuildMerge {
+  const float* q32;
+  const float* kn32;
+  const float* vn32;
+  const float* part_acc;
+  const float* part_ml;
+  const int* lengths;
+  float* scratch;
+  int slots, h, kvh, group, nsplit, window, nh;
+  float scale_log2;
+
+  __device__ void prepare(int sb, int k0, int k1) const {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int h0 = k0 / D, nhead = (k1 - 1) / D - h0 + 1;
+    for (int it = warp; it < kSlots * nhead; it += kWarps) {
+      const int slot = sb + it / nhead, head = h0 + it % nhead;
+      if (slot >= slots) continue;
+      float* f = scratch + ((it / nhead) * nh + head % nh) * (4 + nsplit);
+      const int len = min(lengths[slot], window);
+      const int nlive = max(1, (len + kSplitTokens - 1) / kSplitTokens);
+      const size_t qrow = (size_t)slot * h + head;
+      const size_t kv_off = ((size_t)slot * kvh + head / group) * D;
+      float dot = 0.f;
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j)
+        dot += __ldcg(q32 + qrow * D + lane + 32 * j) *
+               __ldcg(kn32 + kv_off + lane + 32 * j);
+      const float s_new = warp_sum(dot) * scale_log2;
+      const float* ml = part_ml + qrow * nsplit * 2;
+      float mx = kNegInf;
+      for (int sp = lane; sp < nlive; sp += 32)
+        if (__ldcg(ml + 2 * sp + 1) > 0.f) mx = fmaxf(mx, __ldcg(ml + 2 * sp));
+      mx = warp_max(mx);
+      // each split's weight, and the normaliser summed in split order
+      float l = 0.f;
+      for (int s0 = 0; s0 < nlive; s0 += 32) {
+        const int sp = s0 + lane;
+        float wgt = 0.f, ls = 0.f;
+        if (sp < nlive) {
+          ls = __ldcg(ml + 2 * sp + 1);
+          if (ls > 0.f) wgt = exp2f(__ldcg(ml + 2 * sp) - mx);
+          f[4 + sp] = wgt;
+        }
+        const int n = min(32, nlive - s0);
+        for (int j = 0; j < n; ++j)
+          l += __shfl_sync(0xffffffffu, wgt * ls, j);
+      }
+      if (lane == 0) {
+        const float m_new = fmaxf(mx, s_new);
+        const float alpha = exp2f(mx - m_new);
+        const float p_new = exp2f(s_new - m_new);
+        f[0] = alpha;
+        f[1] = p_new;
+        f[2] = l * alpha + p_new;
+        f[3] = (float)nlive;
+      }
+    }
+  }
   __device__ float4 operator()(int slot, int k) const {
-    return bf16x4(__ldcg(
-        reinterpret_cast<const uint2*>(ctx + (size_t)slot * width + k)));
+    const int head = k / D, e = k % D;
+    const float* f = scratch + ((slot % kSlots) * nh + head % nh) * (4 + nsplit);
+    const float alpha = f[0], p_new = f[1], l = f[2];
+    const int nlive = (int)f[3];
+    const size_t qrow = (size_t)slot * h + head;
+    const float* a = part_acc + qrow * nsplit * D + e;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int sp = 0; sp < nlive; ++sp) {
+      const float w = f[4 + sp];
+      const float4 x = __ldcg(reinterpret_cast<const float4*>(a + (size_t)sp * D));
+      acc.x += w * x.x; acc.y += w * x.y; acc.z += w * x.z; acc.w += w * x.w;
+    }
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(
+        vn32 + ((size_t)slot * kvh + head / group) * D + e));
+    return make_float4(bf16_round((acc.x * alpha + p_new * v.x) / l),
+                       bf16_round((acc.y * alpha + p_new * v.y) / l),
+                       bf16_round((acc.z * alpha + p_new * v.z) / l),
+                       bf16_round((acc.w * alpha + p_new * v.w) / l));
   }
 };
 
@@ -301,6 +411,7 @@ struct BuildCtx {
 struct BuildAct {
   const float* p_gu;
   int ks, ffn, slots;
+  __device__ void prepare(int, int, int) const {}
   __device__ float4 operator()(int slot, int k) const {
     float4 g = make_float4(0.f, 0.f, 0.f, 0.f), u = g;
 #pragma unroll 4
@@ -325,6 +436,7 @@ struct BuildGelu {
   const float* p_u;
   const float* bu;
   int ks, ffn, slots;
+  __device__ void prepare(int, int, int) const {}
   __device__ float4 operator()(int slot, int k) const {
     float4 u = __ldg(reinterpret_cast<const float4*>(bu + k));
     float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -344,17 +456,7 @@ struct BuildGelu {
   }
 };
 
-// zero-filling 16-byte copy: `bytes` 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
-                                                 int bytes) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(bytes));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r,
-                                                  const void* smem) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, unsigned a) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -371,66 +473,105 @@ __device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// One GEMV item: the segment, its column tile and chunk kc of the input
+// rows [k0, k1), nst ring stages of kKS rows.  Items are dealt
+// tile-fastest, so blocks that run together read neighbouring slices of
+// the same weight rows.
+struct GemvItem {
+  Seg sg;
+  int c0, kc, k0, k1, nst;
+};
+
+__device__ __forceinline__ int gemv_items(const Seg* segs, int nseg, int ks,
+                                          int* total) {
+  *total = 0;
+  for (int i = 0; i < nseg; ++i) *total += (segs[i].n + kTile - 1) / kTile;
+  return *total * ks;
+}
+
+__device__ __forceinline__ GemvItem gemv_item(const Seg* segs, int total,
+                                              int K, int chunk, int it) {
+  int t = it % total, si = 0;
+  while (t >= (segs[si].n + kTile - 1) / kTile)
+    t -= (segs[si++].n + kTile - 1) / kTile;
+  GemvItem g;
+  g.sg = segs[si];
+  g.c0 = t * kTile;
+  g.kc = it / total;
+  g.k0 = g.kc * chunk;
+  g.k1 = min(K, g.k0 + chunk);
+  g.nst = (g.k1 - g.k0 + kKS - 1) / kKS;
+  return g;
+}
+
+// Stage st of item g into ring slot q % kStages (q: the stage's place in
+// the block's sequence of stages, which every thread counts alike), by
+// thread 0: one TMA box for each 64 columns of the tile that start
+// before n, weight rows k0 + st kKS .. + kKS, completing on the slot's
+// mbarrier.
+// Rows past K and columns past n read as zeros; rows past k1 (the next
+// chunk's) are read as they are and meet zero activations; the columns
+// of a box left out are never stored, and no other column's sum reads
+// them.
+__device__ __forceinline__ void gemv_stage(const GemvItem& g, int st,
+                                           unsigned q, uint32_t rbase,
+                                           uint32_t bar0) {
+  const unsigned slot = q % kStages, bar = bar0 + 8 * slot;
+  const int boxes = min(4, (g.sg.n - g.c0 + 63) / 64);
+  mbar_expect_tx(bar, boxes * kBox);
+  for (int b = 0; b < boxes; ++b)
+    tma_load2(rbase + slot * kStageBytes + b * kBox, g.sg.tm, bar,
+              g.c0 + b * 64, g.k0 + st * kKS);
+}
+
+// The ring's prologue of a pass (thread 0): the first kStages - 1 stages,
+// after a proxy fence (the ring's memory was last written by other
+// phases' plain stores)
+__device__ __forceinline__ void gemv_prologue(const GemvItem& g, unsigned q0,
+                                              uint32_t rbase, uint32_t bar0) {
+  fence_async_smem();
+  const int n = min(kStages - 1, g.nst);
+  for (int st = 0; st < n; ++st)
+    gemv_stage(g, st, q0 + st, rbase, bar0);
+}
+
 // part[kc][slot][col_off + c] = sum over k in chunk kc of A[slot][k] w[k][c]
 // for every segment; items (column tile, chunk) are dealt to the blocks.
 // The weight tile streams through a ring of kStages shared-memory stages
-// of kKS rows (cp.async, 16 bytes a thread, a warp's 32 copies one
-// 512-byte row); A sits in shared memory as bf16 [8 slots][chunk].  Each
-// warp owns 32 of the tile's 256 columns: per 16 rows, ldmatrix.trans
-// turns the [in, out] rows into the m16n8k16 A operand (16 columns x 16
-// rows) and the tensor cores multiply it into the 8 slots (N = 8), so a
-// warp's result needs no reduction with the others.
+// of kKS rows (TMA boxes issued by thread 0, each stage completing on its
+// mbarrier; a block barrier a stage frees the stage before for its
+// refill); A sits in shared memory as bf16 [8 slots][chunk].  Each warp
+// owns 32 of the tile's 256 columns: per 16 rows, ldmatrix.trans turns
+// the [in, out] rows (read through the boxes' 128-byte swizzle, so the
+// eight rows of a matrix hit eight banks) into the m16n8k16 A operand
+// (16 columns x 16 rows) and the tensor cores multiply it into the 8
+// slots (N = 8), so a warp's result needs no reduction with the others.
+// ring: the block's count of stages, advanced by each pass.
 template <class Build>
 __device__ void gemv(const Seg* segs, int nseg, int K, int ks, int chunk,
                      float* part, int ldo, int slots, unsigned char* smem,
-                     const Build& build) {
-  int tiles[3];
-  int total = 0;
-  for (int i = 0; i < nseg; ++i) {
-    tiles[i] = (segs[i].n + kTile - 1) / kTile;
-    total += tiles[i];
-  }
-  const int items = total * ks;
+                     uint32_t bar0, unsigned& ring, const Build& build) {
+  int total;
+  const int items = gemv_items(segs, nseg, ks, &total);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
   const int ldx = chunk + 8;   // bf16 per A row (4-bank shift per slot)
-  bf16* sW = reinterpret_cast<bf16*>(smem);
-  bf16* sX = reinterpret_cast<bf16*>(smem + kGemvRingBytes);
+  const uint32_t rbase = smem_addr(smem);   // the ring's shared address
+  bf16* sX = reinterpret_cast<bf16*>(smem + kStages * kStageBytes);
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    // tile-fastest: blocks that run together read neighbouring slices
-    // of the same weight rows
-    int t = it % total;
-    const int kc = it / total;
-    int si = 0;
-    while (t >= tiles[si]) t -= tiles[si++];
-    const Seg sg = segs[si];
-    const int c0 = t * kTile;
-    const int k0 = kc * chunk, k1 = min(K, k0 + chunk);
-    const int nst = (k1 - k0 + kKS - 1) / kKS;
-
-    // stage st: weight rows k0 + st kKS .. + kKS, tile columns; rows past
-    // k1 and columns past n are zero-filled
-    auto load_stage = [&](int st) {
-      bf16* dst = sW + (st % kStages) * kKS * kLDW;
-      for (int i = tid; i < kKS * (kTile / 8); i += kThreads) {
-        const int r = i / (kTile / 8), seg = (i % (kTile / 8)) * 8;
-        const int k = k0 + st * kKS + r, c = c0 + seg;
-        const bool ok = k < k1 && c < sg.n;
-        cp_async16_zfill(dst + r * kLDW + seg,
-                         ok ? sg.w + (size_t)k * sg.n + c : sg.w, ok ? 16 : 0);
-      }
-    };
+    const GemvItem gi = gemv_item(segs, total, K, chunk, it);
+    const Seg& sg = gi.sg;
+    const int c0 = gi.c0, kc = gi.kc, k0 = gi.k0, k1 = gi.k1, nst = gi.nst;
 
     for (int sb = 0; sb < slots; sb += kSlots) {
-#pragma unroll
-      for (int st = 0; st < kStages - 1; ++st) {
-        if (st < nst) load_stage(st);
-        cp_async_commit();
-      }
+      const unsigned q0 = ring;
+      if (tid == 0) gemv_prologue(gi, q0, rbase, bar0);
       // the activations of this chunk for slots sb..sb+7 as bf16 (their
       // values are bf16 already), zero past k1 and past the last slot;
       // four groups of four inputs a thread at a time, so their L2 reads
-      // overlap
+      // overlap (after what the build prepares for the pass)
+      build.prepare(sb, k0, k1);
+      __syncthreads();
       const int groups = chunk / 4 * kSlots;
       for (int i0 = tid; i0 < groups; i0 += 4 * kThreads) {
         float4 v[4];
@@ -461,27 +602,32 @@ __device__ void gemv(const Seg* segs, int nseg, int K, int ks, int chunk,
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
       for (int st = 0; st < nst; ++st) {
-        cp_async_wait<kStages - 2>();
-        __syncthreads();  // stage st landed for all; stage st - 1 is free
-        if (st + kStages - 1 < nst) load_stage(st + kStages - 1);
-        cp_async_commit();
-        const bf16* ws = sW + (st % kStages) * kKS * kLDW;
+        __syncthreads();  // A is built; stage st - 1's slot is free
+        if (tid == 0 && st + kStages - 1 < nst)
+          gemv_stage(gi, st + kStages - 1, q0 + st + kStages - 1, rbase,
+                     bar0);
+        const unsigned q = q0 + st;
+        mbar_wait(bar0 + 8 * (q % kStages), (q / kStages) & 1);
+        const uint32_t ws = rbase + (q % kStages) * kStageBytes;
 #pragma unroll
         for (int kk = 0; kk < kKS; kk += 16) {
           const bf16* xr = sX + g * ldx + st * kKS + kk + 2 * tig;
           const unsigned b0 = *reinterpret_cast<const unsigned*>(xr);
           const unsigned b1 = *reinterpret_cast<const unsigned*>(xr + 8);
+          const int r = kk + (lane & 7) + ((lane >> 4) << 3);
 #pragma unroll
           for (int m = 0; m < 2; ++m) {
+            // column c of the tile: box c / 64, 16-byte unit (c % 64) / 8
+            // of the row, XORed by the row (the 128-byte swizzle)
+            const int c = warp * 32 + m * 16 + ((lane >> 3) & 1) * 8;
             unsigned a[4];
-            ldmatrix_x4_trans(
-                a, ws + (kk + (lane & 7) + ((lane >> 4) << 3)) * kLDW +
-                       warp * 32 + m * 16 + ((lane >> 3) & 1) * 8);
+            ldmatrix_x4_trans(a, ws + (c >> 6) * kBox + r * 128 +
+                                     ((((c & 63) >> 3) ^ (r & 7)) << 4));
             mma_bf16(acc[m], a, b0, b1);
           }
         }
       }
-      cp_async_wait<0>();
+      ring = q0 + nst;
       // rows of acc: columns g and g + 8 of each 16; its columns: slots
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
@@ -516,7 +662,6 @@ struct AttnSmem {
   static_assert(sizeof(float) * (kThreads / (D / 2)) * G * D <= q_off,
                 "reduction scratch must fit in the k/v stages");
 };
-
 // Stage the k and v rows of tokens [c0, c0 + kChunk) into one stage;
 // rows at or past t_end are zeroed (a masked token still multiplies a
 // finite v row).
@@ -744,7 +889,8 @@ __device__ void attention_phase(const Params& p, unsigned char* smem) {
     }
 
     // merge the token stripes (in the k/v stages) and write this split's
-    // partial state; the merge phase folds the splits and the new token
+    // partial state; the o product's build merges the splits and folds
+    // the new token
     float* sRed = reinterpret_cast<float*>(smem);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -765,60 +911,6 @@ __device__ void attention_phase(const Params& p, unsigned char* smem) {
       }
     }
     __syncthreads();  // the next item restages this memory
-  }
-}
-
-// One warp per (slot, head): merge the live splits (m_s, l_s, acc_s),
-// then fold the current token as one more online-softmax column from
-// the fp32 q, k, v; ctx = acc / l (l > 0: the token is always live).
-template <int D>
-__device__ void merge_phase(const Params& p, int group) {
-  constexpr int kPer = D / 32;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kvh = p.kvh, h = kvh * group;
-  const int items = p.slots * h;
-  for (int it = blockIdx.x * kWarps + warp; it < items;
-       it += gridDim.x * kWarps) {
-    const int slot = it / h, head = it % h, kh = head / group;
-    const int len = min(p.lengths[slot], p.mpps * p.ps);
-    const int nlive = max(1, (len + kSplitTokens - 1) / kSplitTokens);
-    const size_t qrow = (size_t)slot * h + head;
-    const float* q = p.q32 + qrow * D;
-    const size_t kv_off = ((size_t)slot * kvh + kh) * D;
-    float dot = 0.f;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j)
-      dot += __ldcg(q + lane + 32 * j) * __ldcg(p.kn32 + kv_off + lane + 32 * j);
-    const float s_new = warp_sum(dot) * p.scale_log2;
-    const float* ml = p.part_ml + qrow * p.nsplit * 2;
-    float mx = kNegInf;
-#pragma unroll 4
-    for (int s = 0; s < nlive; ++s)
-      if (__ldcg(ml + 2 * s + 1) > 0.f) mx = fmaxf(mx, __ldcg(ml + 2 * s));
-    float l = 0.f, acc[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) acc[j] = 0.f;
-#pragma unroll 4
-    for (int s = 0; s < nlive; ++s) {
-      const float ls = __ldcg(ml + 2 * s + 1);
-      if (ls > 0.f) {
-        const float wgt = exp2f(__ldcg(ml + 2 * s) - mx);
-        l += wgt * ls;
-        const float* a = p.part_acc + (qrow * p.nsplit + s) * D;
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) acc[j] += wgt * __ldcg(a + lane + 32 * j);
-      }
-    }
-    const float m_new = fmaxf(mx, s_new);
-    const float alpha = exp2f(mx - m_new);
-    const float p_new = exp2f(s_new - m_new);
-    l = l * alpha + p_new;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int e = lane + 32 * j;
-      const float a = acc[j] * alpha + p_new * __ldcg(p.vn32 + kv_off + e);
-      p.ctx[(size_t)slot * h * D + (size_t)head * D + e] = __float2bfloat16(a / l);
-    }
   }
 }
 
@@ -883,29 +975,45 @@ __device__ __forceinline__ void kernel_end(const Params& p) {
 
 template <int G, int D, bool GPT>
 __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
-fused_block_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
+fused_block_kernel(const Params p, const __grid_constant__ WeightMaps tm) {
+  // dynamic shared memory from a 1024-byte boundary (the swizzled boxes')
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
   __shared__ float red[kWarps];
+  __shared__ __align__(8) unsigned long long ring_bar[kStages];
   float* sR = reinterpret_cast<float*>(smem + p.r_off);  // [slots]
   float* sMu = sR + p.slots;                              // GPT: [slots]
   const int S = p.slots, H = p.hidden, tid = threadIdx.x;
   const int h = p.kvh * G, hd = h * D, kvd = p.kvh * D;
   const int nqkv = hd + 2 * kvd;
   const int nblk = (H + kRowBlock - 1) / kRowBlock;
+  // the products' weights: q | k | v, o, gate | up (GPT: up), down
+  const Seg s_qkv[3] = {{&tm.q, hd, 0}, {&tm.k, kvd, hd},
+                        {&tm.v, kvd, hd + kvd}};
+  const Seg s_o[1] = {{&tm.o, H, 0}};
+  const Seg s_gu[2] = {{GPT ? &tm.u : &tm.g, p.ffn, 0}, {&tm.u, p.ffn, p.ffn}};
+  const Seg s_d[1] = {{&tm.d, H, 0}};
 
   if (blockIdx.x == 0 && tid == 0) {
     *p.work = 0u;        // published by the first barrier
     if (p.clock) p.clock[0] = globaltimer();
   }
+  // the GEMV ring's mbarriers (a full barrier a stage), and the block's
+  // count of stages through them
+  const uint32_t bar0 = smem_addr(ring_bar);
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(bar0 + 8 * i, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  unsigned ring = 0;
   // 1. norm1 statistics, then q | k | v = bf16(h1) @ [wq | wk | wv]
   norm1_stats<GPT>(p, sR, sMu);
   __syncthreads();
-  {
-    const Seg segs[3] = {{p.wq, hd, 0}, {p.wk, kvd, hd}, {p.wv, kvd, hd + kvd}};
-    gemv(segs, 3, H, p.ks_qkv, p.ch_qkv, p.p_qkv, nqkv, S, smem,
-         BuildNorm<GPT>{p.x, nullptr, sR, p.ln1_w, p.ln_fp32, H, S, sMu,
-                        p.ln1_b});
-  }
+  gemv(s_qkv, 3, H, p.ks_qkv, p.ch_qkv, p.p_qkv, nqkv, S, smem, bar0,
+           ring, BuildNorm<GPT>{p.x, nullptr, sR, p.ln1_w, p.ln_fp32, H, S,
+                                sMu, p.ln1_b});
   phase_end(p, 1);
   // 2. q, k, v: the partials' sums, RoPE (GPT: the biases)
   qkv_phase<D, GPT>(p, h);
@@ -913,16 +1021,16 @@ fused_block_kernel(const Params p) {
   // 3. paged attention over the live pages, split by 256 tokens
   attention_phase<G, D>(p, smem);
   phase_end(p, 3);
-  // 4. merge the splits, fold the current token: ctx
-  merge_phase<D>(p, G);
+  // 4. o = bf16(ctx) @ wo, ctx merged from the splits with the current
+  //    token folded in as the product's input is built
+  gemv(s_o, 1, hd, p.ks_o, p.ch_o, p.p_o, H, S, smem, bar0, ring,
+           BuildMerge<D>{p.q32, p.kn32, p.vn32, p.part_acc, p.part_ml,
+                         p.lengths,
+                         reinterpret_cast<float*>(smem + p.m_off), S, h,
+                         p.kvh, G, p.nsplit, p.mpps * p.ps, p.merge_nh,
+                         p.scale_log2});
   phase_end(p, 4);
-  // 5. o = bf16(ctx) @ wo
-  {
-    const Seg segs[1] = {{p.wo, H, 0}};
-    gemv(segs, 1, hd, p.ks_o, p.ch_o, p.p_o, H, S, smem, BuildCtx{p.ctx, hd});
-  }
-  phase_end(p, 5);
-  // 6. x2 = x + o (fp32; GPT: x + (o + bo)); norm2's sums of squares
+  // 5. x2 = x + o (fp32; GPT: x + (o + bo)); norm2's sums of squares
   //    per 256 columns (GPT: the sums and the squared deviations from
   //    their own mean).  Without the MLP, y = x2 and the layer ends here.
   for (int it = blockIdx.x; it < S * nblk; it += gridDim.x) {
@@ -968,8 +1076,8 @@ fused_block_kernel(const Params p) {
     kernel_end(p);
     return;
   }
-  phase_end(p, 6);
-  // 7. norm2 statistics, then g | u = bf16(h2) @ [wg | wu] (GPT: the
+  phase_end(p, 5);
+  // 6. norm2 statistics, then g | u = bf16(h2) @ [wg | wu] (GPT: the
   //    per-block sums and deviations merged in block order, then u =
   //    bf16(h2) @ wu)
   for (int s = tid; s < S; s += kThreads) {
@@ -993,29 +1101,24 @@ fused_block_kernel(const Params p) {
     }
   }
   __syncthreads();
-  if constexpr (GPT) {
-    const Seg segs[1] = {{p.wu, p.ffn, 0}};
-    gemv(segs, 1, H, p.ks_gu, p.ch_gu, p.p_gu, p.ffn, S, smem,
-         BuildNorm<true>{nullptr, p.x2, sR, p.ln2_w, 1, H, S, sMu, p.ln2_b});
-  } else {
-    const Seg segs[2] = {{p.wg, p.ffn, 0}, {p.wu, p.ffn, p.ffn}};
-    gemv(segs, 2, H, p.ks_gu, p.ch_gu, p.p_gu, 2 * p.ffn, S, smem,
-         BuildNorm<false>{nullptr, p.x2, sR, p.ln2_w, p.ln_fp32, H, S,
-                          nullptr, nullptr});
-  }
+  if constexpr (GPT)
+    gemv(s_gu, 1, H, p.ks_gu, p.ch_gu, p.p_gu, p.ffn, S, smem, bar0,
+             ring, BuildNorm<true>{nullptr, p.x2, sR, p.ln2_w, 1, H, S, sMu,
+                                   p.ln2_b});
+  else
+    gemv(s_gu, 2, H, p.ks_gu, p.ch_gu, p.p_gu, 2 * p.ffn, S, smem, bar0,
+             ring, BuildNorm<false>{nullptr, p.x2, sR, p.ln2_w, p.ln_fp32, H,
+                                    S, nullptr, nullptr});
+  phase_end(p, 6);
+  // 7. down = bf16(silu(g) u) @ wd (GPT: bf16(gelu(u + bu)) @ wd)
+  if constexpr (GPT)
+    gemv(s_d, 1, p.ffn, p.ks_d, p.ch_d, p.p_d, H, S, smem, bar0, ring,
+             BuildGelu{p.p_gu, p.bu, p.ks_gu, p.ffn, S});
+  else
+    gemv(s_d, 1, p.ffn, p.ks_d, p.ch_d, p.p_d, H, S, smem, bar0, ring,
+             BuildAct{p.p_gu, p.ks_gu, p.ffn, S});
   phase_end(p, 7);
-  // 8. down = bf16(silu(g) u) @ wd (GPT: bf16(gelu(u + bu)) @ wd)
-  {
-    const Seg segs[1] = {{p.wd, H, 0}};
-    if constexpr (GPT)
-      gemv(segs, 1, p.ffn, p.ks_d, p.ch_d, p.p_d, H, S, smem,
-           BuildGelu{p.p_gu, p.bu, p.ks_gu, p.ffn, S});
-    else
-      gemv(segs, 1, p.ffn, p.ks_d, p.ch_d, p.p_d, H, S, smem,
-           BuildAct{p.p_gu, p.ks_gu, p.ffn, S});
-  }
-  phase_end(p, 8);
-  // 9. y = x2 + down (GPT: x2 + (down + bd))
+  // 8. y = x2 + down (GPT: x2 + (down + bd))
   for (int i = blockIdx.x * kThreads + tid; i < S * H; i += gridDim.x * kThreads) {
     const int slot = i / H, col = i % H;
     if constexpr (GPT) {
@@ -1038,13 +1141,13 @@ fused_block_kernel(const Params p) {
 // ------------------------------------------------------------------ host
 
 // split-K of a K-row product over `tiles` column tiles: about one item
-// per block, chunks of at most kMaxChunk rows, a multiple of 32 rows
+// per block, chunks of at most max_chunk rows, a multiple of 32 rows
 // (8 warps x 4 rows) each, no empty chunk.  (More, smaller chunks to
 // even out the blocks' loads cost more in the consumer, which sums one
 // partial per chunk, than they save.)
-void split_k(int K, int tiles, int grid, int* ks, int* chunk) {
+void split_k(int K, int tiles, int grid, int max_chunk, int* ks, int* chunk) {
   int k = grid / tiles > 1 ? grid / tiles : 1;
-  k = k > (K + kMaxChunk - 1) / kMaxChunk ? k : (K + kMaxChunk - 1) / kMaxChunk;
+  k = k > (K + max_chunk - 1) / max_chunk ? k : (K + max_chunk - 1) / max_chunk;
   k = k < (K + 31) / 32 ? k : (K + 31) / 32;
   const int c = ((K + k - 1) / k + 31) / 32 * 32;
   *ks = (K + c - 1) / c;
@@ -1071,15 +1174,30 @@ int plan(Params& p, unsigned char* base, Layout* out) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  size_t region = AttnSmem<G, D>::bytes;
-  const size_t gemv_bytes =
-      kGemvRingBytes + sizeof(bf16) * kSlots * (kMaxChunk + 8);
-  region = region > gemv_bytes ? region : gemv_bytes;
-  p.r_off = (int)((region + 15) / 16 * 16);
-  const int smem = p.r_off + (int)sizeof(float) * p.slots * (GPT ? 2 : 1);
-  if (smem_at[dev] != smem) {
+  if (sms[dev] == 0) {
     err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
+  }
+  const int S = p.slots, H = p.hidden, h = p.kvh * G;
+  const int hd = h * D, kvd = p.kvh * D;
+  p.nsplit = (p.mpps * p.ps + kSplitTokens - 1) / kSplitTokens;
+  // the o product's merge factors: the heads one chunk of its input rows
+  // spans, at most, are those of the chunk at the smallest grid (one
+  // block an SM), plus one where a chunk starts inside a head
+  int ks_lo, ch_lo;
+  split_k(hd, tiles_of(H), sms[dev], kMaxChunk, &ks_lo, &ch_lo);
+  p.merge_nh = (ch_lo + D - 1) / D + 1;
+  const size_t sx_end = kRingBytes + sizeof(bf16) * kSlots * (kMaxChunk + 8);
+  p.m_off = (int)((sx_end + 15) / 16 * 16);
+  const size_t gemv_bytes =
+      p.m_off + sizeof(float) * kSlots * p.merge_nh * (4 + p.nsplit);
+  size_t region = AttnSmem<G, D>::bytes;
+  region = region > gemv_bytes ? region : gemv_bytes;
+  p.r_off = (int)((region + 15) / 16 * 16);
+  // + the slack that aligns the kernel's base to 1024 bytes
+  const int smem =
+      p.r_off + (int)sizeof(float) * p.slots * (GPT ? 2 : 1) + 1024;
+  if (smem_at[dev] != smem) {
     err = cudaFuncSetAttribute(fused_block_kernel<G, D, GPT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
@@ -1093,14 +1211,13 @@ int plan(Params& p, unsigned char* base, Layout* out) {
   const int blocks = blocks_at[dev];
   const int grid = (blocks < kMaxBlocksPerSM ? blocks : kMaxBlocksPerSM) * sms[dev];
 
-  const int S = p.slots, H = p.hidden, h = p.kvh * G;
-  const int hd = h * D, kvd = p.kvh * D;
-  split_k(H, tiles_of(hd) + 2 * tiles_of(kvd), grid, &p.ks_qkv, &p.ch_qkv);
-  split_k(hd, tiles_of(H), grid, &p.ks_o, &p.ch_o);
+  const int mc = kMaxChunk;
+  split_k(H, tiles_of(hd) + 2 * tiles_of(kvd), grid, mc, &p.ks_qkv,
+          &p.ch_qkv);
+  split_k(hd, tiles_of(H), grid, mc, &p.ks_o, &p.ch_o);
   const int gu = GPT ? 1 : 2;    // up, or gate and up
-  split_k(H, gu * tiles_of(p.ffn), grid, &p.ks_gu, &p.ch_gu);
-  split_k(p.ffn, tiles_of(H), grid, &p.ks_d, &p.ch_d);
-  p.nsplit = (p.mpps * p.ps + kSplitTokens - 1) / kSplitTokens;
+  split_k(H, gu * tiles_of(p.ffn), grid, mc, &p.ks_gu, &p.ch_gu);
+  split_k(p.ffn, tiles_of(H), grid, mc, &p.ks_d, &p.ch_d);
   const int nblk = (H + kRowBlock - 1) / kRowBlock;
   size_t off = 0;
   auto take = [&](size_t bytes) {
@@ -1115,7 +1232,6 @@ int plan(Params& p, unsigned char* base, Layout* out) {
   p.vn32 = reinterpret_cast<float*>(take(f * S * kvd));
   p.part_acc = reinterpret_cast<float*>(take(f * S * h * p.nsplit * D));
   p.part_ml = reinterpret_cast<float*>(take(f * S * h * p.nsplit * 2));
-  p.ctx = reinterpret_cast<bf16*>(take(sizeof(bf16) * S * hd));
   p.p_o = reinterpret_cast<float*>(take(f * p.ks_o * S * H));
   p.x2 = reinterpret_cast<float*>(take(f * S * H));
   p.ss2 = reinterpret_cast<float*>(take(f * S * nblk * (GPT ? 2 : 1)));
@@ -1128,6 +1244,47 @@ int plan(Params& p, unsigned char* base, Layout* out) {
   return 0;
 }
 
+// The tensor map of a bf16 [K, n] row-major weight for TMA boxes of 32
+// rows x 64 columns in the 128-byte swizzle, encoded once per (address,
+// shape): a decode step asks for the same maps of every layer on every
+// step, and the step is bound by host time.
+struct WeightKey {
+  const void* w;
+  int K, n;
+};
+constexpr int kWeightMaps = 1024;
+std::mutex g_wmap_mu;
+WeightKey g_wmap_key[kWeightMaps];
+CUtensorMap g_wmap[kWeightMaps];
+int g_wmap_used = 0, g_wmap_next = 0;
+
+int weight_map(CUtensorMap* map, const void* w, int K, int n) {
+  std::lock_guard<std::mutex> lock(g_wmap_mu);
+  for (int i = 0; i < g_wmap_used; ++i)
+    if (g_wmap_key[i].w == w && g_wmap_key[i].K == K && g_wmap_key[i].n == n) {
+      *map = g_wmap[i];
+      return 0;
+    }
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)K};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)kKS};
+  const cuuint32_t one[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                            const_cast<void*>(w), dims, strides, box, one,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  g_wmap_key[g_wmap_next] = WeightKey{w, K, n};
+  g_wmap[g_wmap_next] = *map;
+  g_wmap_next = (g_wmap_next + 1) % kWeightMaps;
+  if (g_wmap_used < kWeightMaps) ++g_wmap_used;
+  return 0;
+}
+
 template <int G, int D, bool GPT = false>
 int run(Params& p, void* ws, long long* ws_bytes, cudaStream_t stream) {
   Layout lay;
@@ -1137,7 +1294,19 @@ int run(Params& p, void* ws, long long* ws_bytes, cudaStream_t stream) {
     if (ws_bytes) *ws_bytes = (long long)lay.total;
     return 0;
   }
-  void* args[] = {&p};
+  const int H = p.hidden, hd = p.kvh * G * D, kvd = p.kvh * D;
+  WeightMaps tm = {};
+  err = weight_map(&tm.q, p.wq, H, hd);
+  if (!err) err = weight_map(&tm.k, p.wk, H, kvd);
+  if (!err) err = weight_map(&tm.v, p.wv, H, kvd);
+  if (!err) err = weight_map(&tm.o, p.wo, hd, H);
+  if (!err && p.fuse_mlp) {
+    if (!GPT) err = weight_map(&tm.g, p.wg, H, p.ffn);
+    if (!err) err = weight_map(&tm.u, p.wu, H, p.ffn);
+    if (!err) err = weight_map(&tm.d, p.wd, p.ffn, H);
+  }
+  if (err) return err;
+  void* args[] = {&p, &tm};
   const cudaError_t e = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(fused_block_kernel<G, D, GPT>), dim3(lay.grid),
       dim3(kThreads), args, lay.smem, stream);

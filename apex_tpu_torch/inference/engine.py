@@ -104,7 +104,10 @@ class InferenceEngine:
     params_from_jax` returns (or any tree with its key paths); it is
     cast to ``dtype`` when given and moved to the engine's device.
     ``device=None`` is CUDA and raises without a card; ``device="cpu"``
-    runs the kernels' plain versions.
+    runs the kernels' plain versions.  ``paged_attn_max_pages`` (a
+    paged engine's; None on the dense cache) goes onto the cache and
+    into every paged attention call as its ``xla_max_pages``, as in
+    JAX.
 
     ``decode_fusion`` ("0", "1" or "auto"; default
     ``APEX_TPU_DECODE_FUSION``, else "0") and ``fusion_min_pages`` are
@@ -122,6 +125,7 @@ class InferenceEngine:
                  seed: int = 0, paged: bool = False,
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
+                 paged_attn_max_pages: Optional[int] = None,
                  decode_fusion=None, fusion_min_pages=None,
                  spec_k: Optional[int] = None,
                  tp: Optional[int] = None,
@@ -160,7 +164,9 @@ class InferenceEngine:
                                "tp and spec")
         if self.paged:
             self._init_paged(page_size, num_pages, host_tier_bytes)
+            self.paged_attn_max_pages = paged_attn_max_pages
         else:
+            self.paged_attn_max_pages = None
             if host_tier_bytes:
                 raise ValueError(
                     "host_tier_bytes is the paged-mode host page tier; "
@@ -285,7 +291,8 @@ class InferenceEngine:
             self.num_pages, d["layers"], d["kv_heads"], self.page_size,
             d["head_dim"], slots=self.slots,
             max_pages_per_slot=self.max_pages_per_slot,
-            dtype=self.cache_dtype, device=self.device)
+            dtype=self.cache_dtype,
+            attn_max_pages=self.paged_attn_max_pages, device=self.device)
 
     def new_allocator(self) -> kv_cache.PageAllocator:
         """Fresh host-side page allocator matching the pool geometry."""

@@ -160,6 +160,9 @@ class PagedKVCache:
     page_table: torch.Tensor  # [slots, max_pages_per_slot] int32
     lengths: torch.Tensor     # [slots] int32: live tokens per slot
     capacity: torch.Tensor    # [slots] int32: page_size * owned pages
+    #: the engine's crossover override for ``paged_decode_attention``
+    #: (its ``xla_max_pages``; None = the env/default), as in JAX
+    attn_max_pages: Optional[int] = None
 
     @property
     def pages(self) -> int:
@@ -213,10 +216,13 @@ class PagedKVCache:
 def init_paged_cache(pages: int, layers: int, kv_heads: int,
                      page_size: int, head_dim: int, *, slots: int,
                      max_pages_per_slot: int, dtype=torch.bfloat16,
+                     attn_max_pages: Optional[int] = None,
                      device=None) -> PagedKVCache:
     """Allocate an empty pool: ``pages`` allocatable pages (+1 trash
     page appended), every page-table entry pointing at the trash page,
-    every slot empty.  ``device=None`` is CUDA."""
+    every slot empty.  ``attn_max_pages`` is kept on the cache for the
+    attention call (:attr:`PagedKVCache.attn_max_pages`).
+    ``device=None`` is CUDA."""
     if pages < 1 or page_size < 1 or max_pages_per_slot < 1:
         raise ValueError(
             f"pages ({pages}), page_size ({page_size}) and "
@@ -229,7 +235,8 @@ def init_paged_cache(pages: int, layers: int, kv_heads: int,
         v=torch.zeros(shape, dtype=dtype, device=dev),
         page_table=torch.full((slots, max_pages_per_slot), pages, **i32),
         lengths=torch.zeros((slots,), **i32),
-        capacity=torch.zeros((slots,), **i32))
+        capacity=torch.zeros((slots,), **i32),
+        attn_max_pages=attn_max_pages)
 
 
 def page_row(page_ids: Sequence[int], max_pages_per_slot: int,

@@ -110,7 +110,7 @@ def _cache_attend(cache, layer: int, q, live):
     if isinstance(cache, kv_cache.PagedKVCache):
         return paged_decode_attention(q, cache.k[:, layer],
                                       cache.v[:, layer], cache.page_table,
-                                      live)
+                                      live, xla_max_pages=cache.attn_max_pages)
     return decode_attention(q, cache.k[:, layer], cache.v[:, layer], live)
 
 

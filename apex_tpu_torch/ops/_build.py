@@ -21,8 +21,10 @@ several kernels (``layer_norm.cu`` the forward and the backward,
 ``fused_update.cu`` the unscale, axpby, Adam, the L2 norm, the fused
 scale and norm, LAMB's phase 1, SGD and Adagrad), and two have a
 second instance with a counter of its own: ``flash_attention.cu`` the
-masked forward (``flash_attention_masked``), ``fused_block_decode.cu``
-the GPT layer (``fused_block_decode_gpt``).  ``fused_block_decode.cu``
+masked forward (``flash_attention_masked``, whose counter also counts
+the dense cache's decode kernel, ``apex_flash_decode``: the masked
+forward's q_len-1 case), ``fused_block_decode.cu`` the GPT layer
+(``fused_block_decode_gpt``).  ``fused_block_decode.cu``
 is one cooperative launch per decoder layer; its entries, called with
 a null workspace, report the workspace size without launching.
 
@@ -46,13 +48,16 @@ __all__ = ["SOURCES", "KERNELS", "BUILD_DIR", "build", "library", "check",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch"
 #: the kernel sources and, for each, its C entries by the launch-counter
-#: name of the kernel each launches
+#: name of the kernel each launches (a tuple where one counter counts
+#: two entries: the masked flash forward and its q_len-1 case, the dense
+#: cache's decode)
 SOURCES = {
     "layer_norm.cu": {"layer_norm": "apex_layer_norm_fwd",
                       "layer_norm_bwd": "apex_layer_norm_bwd"},
     "flash_attention.cu": {
         "flash_attention": "apex_flash_attention_fwd",
-        "flash_attention_masked": "apex_flash_attention_fwd_masked"},
+        "flash_attention_masked": ("apex_flash_attention_fwd_masked",
+                                   "apex_flash_decode")},
     "flash_attention_bwd.cu": {
         "flash_attention_bwd": "apex_flash_attention_bwd",
         "flash_attention_bwd_dq": "apex_flash_attention_bwd_dq",
@@ -97,9 +102,13 @@ _SIGNATURES = {
     # scale_log2, stream
     "apex_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _F, _P],
-    # q, k, v, mask, o, lse, bh, sq, sk, d, causal, off, valid_q, valid_k,
-    # mask_hper, scale_log2, stream
-    "apex_flash_attention_fwd_masked": [_P] * 6 + [_I] * 9 + [_F, _P],
+    # q, k, v, mask, cls, bits, o, lse, bh, sq, sk, d, causal, off,
+    # valid_q, valid_k, mask_hper, scale_log2, stream
+    "apex_flash_attention_fwd_masked": [_P] * 8 + [_I] * 9 + [_F, _P],
+    # q, k, v, lengths, out, part_acc, part_ml, counters, b, kvh, group,
+    # d, s, head_stride, slot_stride, nsplit, tiles_per_split, scale_log2,
+    # stream
+    "apex_flash_decode": [_P] * 8 + [_I] * 5 + [_L, _L, _I, _I, _F, _P],
     # q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d,
     # causal, off, valid_q, valid_k, scale_log2, scale, stream
     "apex_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

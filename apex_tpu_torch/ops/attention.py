@@ -4,20 +4,25 @@ attention functions the serving and training slices use.
 Port of ``apex_tpu/ops/attention.py``, ``[b, h, s, d]`` layout:
 
 * :func:`flash_attention` — the fused attention, differentiable through
-  a ``torch.autograd.Function``.  On CUDA the forward always runs
-  ``csrc/flash_attention.cu`` (the counterpart of the Pallas
-  ``_fwd_kernel``): there is no short-sequence crossover to a plain
-  path, so a 64-token prefill bucket goes through the kernel too.
-  Causal attention honours the offset ``sk - sq``; the kernel's online
-  softmax and the returned log-sum-exp are in BASE 2, exactly as
-  ``_fwd`` returns them (:func:`_fwd`).  The backward (:func:`_bwd`)
-  computes ``delta = rowsum(dO * O)`` in plain PyTorch, as the JAX
-  ``_bwd_impl`` does outside its kernels, and takes the JAX package's
-  route: while ``sq * d * 4 <= _FUSED_BWD_MAX_BYTES`` (2 MiB: every
-  sequence up to 4096 tokens at head_dim 128) the one-pass kernel of
-  ``csrc/flash_attention_bwd.cu`` (the counterpart of
-  ``_bwd_fused_kernel``), beyond it the split pair in the same source,
-  the dq kernel and the dk/dv kernel (``_dq_kernel`` and
+  a ``torch.autograd.Function``.  It takes the JAX entry's routing
+  arguments: ``use_kernel=False`` runs the plain chain of the JAX
+  package's XLA route (:func:`_xla_attention`) on any device;
+  ``use_kernel=True``, explicit ``block_q``/``block_k`` and
+  ``use_kernel=None`` run the kernels on CUDA, as the JAX entry does on
+  a non-TPU backend (its short-sequence crossover,
+  :func:`xla_path_max_seq`, applies on TPUs only, so it is read and
+  checked here but sends nothing to the plain chain).  On CUDA the
+  forward runs ``csrc/flash_attention.cu`` (the counterpart of the
+  Pallas ``_fwd_kernel``).  Causal attention honours the offset
+  ``sk - sq``; the kernel's online softmax and the returned log-sum-exp
+  are in BASE 2, exactly as ``_fwd`` returns them (:func:`_fwd`).  The
+  backward (:func:`_bwd`) computes ``delta = rowsum(dO * O)`` in plain
+  PyTorch, as the JAX ``_bwd_impl`` does outside its kernels, and takes
+  the JAX package's route: while ``sq * d * 4 <= _FUSED_BWD_MAX_BYTES``
+  (2 MiB: every sequence up to 4096 tokens at head_dim 128) the
+  one-pass kernel of ``csrc/flash_attention_bwd.cu`` (the counterpart
+  of ``_bwd_fused_kernel``), beyond it the split pair in the same
+  source, the dq kernel and the dk/dv kernel (``_dq_kernel`` and
   ``_dkv_kernel``).  All consume the base-2 lse.  The one-pass kernel
   adds dq with fp32 bulk reductions in any order, so its dq's last bits
   vary from run to run; the split pair writes every output once, and
@@ -25,13 +30,17 @@ Port of ``apex_tpu/ops/attention.py``, ``[b, h, s, d]`` layout:
   JAX package's ``mask3`` operand, ``[mb, sq, sk]`` for a mask of one
   head or ``[b*h, sq, sk]`` per head, and the forward runs the masked
   instance of the same kernel (launch counter
-  ``flash_attention_masked``); a fully masked row emits 0.  The
-  backward with a mask, and dropout, are not ported yet (ROADMAP queue
-  1, "mask operand and dropout"): they raise ``NotImplementedError``.
+  ``flash_attention_masked``), after a pre-pass that sorts the mask's
+  tiles into dead, full and partial ones; a fully masked row emits 0.
+  The kernels' backward with a mask, and dropout, are not ported yet
+  (ROADMAP queue 1, "mask operand and dropout"): they raise
+  ``NotImplementedError``.
 * :func:`decode_attention` — single-token attention against the dense
   slot cache: the JAX package's plain grouped chain at or below its
   crossover (:func:`decode_xla_max_seq`, 4096 cached positions), the
-  masked flash forward above it.
+  decode kernel above it (``flash_attention_masked``'s q_len-1 kernel:
+  the query heads of a kv head scored together against the cache read
+  in place, no k/v broadcast; :func:`_decode_kernel`).
 * :func:`mha_reference` — the natural-log oracle.
 * :func:`prefix_window_attention` — the warm-prefill attention over a
   cached prefix window plus the causal suffix; plain XLA in the JAX
@@ -49,8 +58,8 @@ import torch
 
 from apex_tpu_torch.ops import _build
 
-__all__ = ["flash_attention", "decode_attention", "decode_xla_max_seq",
-           "mha_reference", "prefix_window_attention"]
+__all__ = ["flash_attention", "xla_path_max_seq", "decode_attention",
+           "decode_xla_max_seq", "mha_reference", "prefix_window_attention"]
 
 _NEG_INF = -1e30          # finite "masked" score, as in the JAX package
 _LOG2E = 1.4426950408889634
@@ -68,6 +77,21 @@ _FUSED_BWD_MAX_BYTES = 2 * 1024 * 1024
 #: ``xla_max_seq=`` override it (0 forces the kernel branch)
 _DECODE_XLA_MAX_SEQ = 4096
 _DECODE_XLA_MAX_SEQ_ENV = "APEX_TPU_DECODE_XLA_MAX_SEQ"
+#: the JAX entry's short-sequence crossover (TPU backends only): a
+#: padded length at or under it takes the XLA chain there;
+#: ``APEX_TPU_ATTN_XLA_MAX_SEQ`` or ``xla_max_seq=`` override it
+_XLA_PATH_MAX_SEQ = 256
+_XLA_MAX_SEQ_ENV = "APEX_TPU_ATTN_XLA_MAX_SEQ"
+#: query rows per kv head and head dims the decode kernel is
+#: instantiated for (csrc/kv_decode.cuh); other shapes take the masked
+#: flash forward over k/v broadcast to the query heads
+_DECODE_KERNEL_GROUPS = (1, 2, 4, 8)
+_DECODE_KERNEL_HEAD_DIMS = (64, 128)
+#: cache positions a ring stage of the decode kernel holds
+_DECODE_TILE = 64
+#: queries and keys of a tile of the masked forward's pre-pass (the
+#: kernel's query block and key tile)
+_MASK_TILE = 128
 _MASK_ITEM = "ROADMAP queue 1, 'mask operand and dropout'"
 
 
@@ -392,12 +416,18 @@ def _fwd(q3, k3, v3, causal: bool, scale: float,
         return out, lse
     if not mask3.is_contiguous():
         raise ValueError("the masked flash kernel needs a contiguous mask3")
+    # the pre-pass's scratch: a class a (mask, 128-query block, 128-key
+    # tile) and the tile's mask bits in the product threads' order
+    tiles = mask3.shape[0] * -(-sq // _MASK_TILE) * -(-sk // _MASK_TILE)
+    cls = torch.empty(tiles, dtype=torch.uint8, device=q3.device)
+    bits = torch.empty(tiles * _MASK_TILE * 4, dtype=torch.int32,
+                       device=q3.device)
     _build.count("flash_attention_masked")
     err = lib.apex_flash_attention_fwd_masked(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), mask3.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), bh, sq, sk, d, int(causal), off, vq,
-        vk, bh // mask3.shape[0], float(scale * _LOG2E),
-        _build.stream_ptr(q3.device))
+        cls.data_ptr(), bits.data_ptr(), out.data_ptr(), lse.data_ptr(), bh,
+        sq, sk, d, int(causal), off, vq, vk, bh // mask3.shape[0],
+        float(scale * _LOG2E), _build.stream_ptr(q3.device))
     _build.check(err, "flash_attention_masked")
     return out, lse
 
@@ -412,22 +442,95 @@ def _mask3(mask, b, h, sq, sk):
     return mask.expand(b, h, sq, sk).reshape(b * h, sq, sk).contiguous()
 
 
+def _int_knob(override, env_name: str, default: int) -> int:
+    """An int knob as the JAX package reads its crossovers: explicit
+    override > the environment variable (unset or empty: not set) >
+    ``default``."""
+    if override is not None:
+        return int(override)
+    env = os.environ.get(env_name)
+    if env:
+        try:
+            return int(env)
+        except ValueError as e:
+            raise ValueError(f"{env_name} must be an int, got "
+                             f"{env!r}") from e
+    return default
+
+
+def xla_path_max_seq(override=None) -> int:
+    """The JAX entry's short-sequence crossover: explicit override >
+    ``APEX_TPU_ATTN_XLA_MAX_SEQ`` > 256.  On a TPU the JAX entry sends a
+    padded length at or under it to its XLA chain; on any other backend,
+    and so here, ``use_kernel=None`` takes the kernel whatever it is."""
+    return _int_knob(override, _XLA_MAX_SEQ_ENV, _XLA_PATH_MAX_SEQ)
+
+
+def _xla_attention(q, k, v, *, causal, scale, mask):
+    """The JAX entry's XLA route (``use_kernel=False``) in plain
+    PyTorch: fp32 scores from the operands, the causal triangle at
+    offset ``sk - sq``, the boolean mask (True = masked), an fp32
+    natural-log softmax, fully masked rows 0 (with a causal triangle or
+    a mask), p rounded to the value dtype for P·V.  Differentiable by
+    autograd, mask included."""
+    sq, sk = q.shape[2], k.shape[2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None]
+        cols = torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(cols <= rows + (sk - sq), s,
+                        torch.full_like(s, _NEG_INF))
+    if mask is not None:
+        s = torch.where(mask.to(torch.bool), torch.full_like(s, _NEG_INF), s)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = p / p.sum(dim=-1, keepdim=True)
+    if causal or mask is not None:
+        p = torch.where(m <= _MASKED_ROW_THRESH, torch.zeros_like(p), p)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def _check_block(name, block):
+    if block is not None and (isinstance(block, bool)
+                              or not isinstance(block, int) or block < 1):
+        raise ValueError(f"{name} must be a positive int, got {block!r}")
+
+
 def flash_attention(q, k, v, *, causal: bool = False, mask=None,
                     sm_scale: Optional[float] = None,
-                    dropout_rate: float = 0.0, dropout_seed=None):
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None,
+                    dropout_rate: float = 0.0, dropout_seed=None,
+                    use_kernel: Optional[bool] = None,
+                    xla_max_seq: Optional[int] = None):
     """Blockwise attention, ``[b, h, s, d]`` layout, differentiable in
-    q, k and v (without a mask).
+    q, k and v (on the kernel route without a mask).
 
-    On CUDA: bf16 operands, head_dim 32/64/128, any sequence lengths
-    (the kernels mask the ragged edge themselves).  The arguments are
-    checked first, as the JAX entry checks them (``ValueError``: a
-    ``dropout_rate`` outside [0, 1), a nonzero rate without
-    ``dropout_seed``, a mask not ``[b|1, h|1, sq|1, sk|1]``).  ``mask``
-    is boolean, True = masked; it is expanded to the JAX package's
-    ``mask3`` and the forward takes the masked kernel, whose backward is
-    not ported yet.  ``dropout_rate > 0`` raises ``NotImplementedError``:
-    the dropout mask must match the JAX package's murmur-hash bits
-    (ROADMAP queue 1, "mask operand and dropout")."""
+    The arguments are checked first, as the JAX entry checks them
+    (``ValueError``: a ``dropout_rate`` outside [0, 1), a nonzero rate
+    without ``dropout_seed``, a mask not ``[b|1, h|1, sq|1, sk|1]``).
+    ``mask`` is boolean, True = masked.
+
+    Routing, the JAX entry's arguments: ``use_kernel=False`` is the JAX
+    package's XLA route, plain PyTorch on any device
+    (:func:`_xla_attention`, differentiable with a mask too).
+    ``use_kernel=True``, an explicit ``block_q`` or ``block_k``, and
+    ``use_kernel=None`` take the kernel route: on CUDA the kernels
+    (bf16 operands, head_dim 32/64/128, any sequence lengths), on the
+    CPU their plain versions.  The JAX entry's ``None`` applies the
+    short-sequence crossover (``xla_max_seq`` >
+    ``APEX_TPU_ATTN_XLA_MAX_SEQ`` > 256, :func:`xla_path_max_seq`) on
+    TPU backends only and takes the kernel on every other backend, so
+    here it takes the kernel whatever the crossover; the crossover is
+    still read, and a bad ``APEX_TPU_ATTN_XLA_MAX_SEQ`` raises as in
+    JAX.  The CUDA kernels' tiles are their own: ``block_q``/``block_k``
+    must be positive ints, force the kernel route and are otherwise
+    ignored.  On the kernel route a mask is expanded to the JAX
+    package's ``mask3`` and the forward takes the masked kernel, whose
+    backward is not ported yet; ``dropout_rate > 0`` raises
+    ``NotImplementedError`` on either route: the dropout mask must
+    match the JAX package's murmur-hash bits (ROADMAP queue 1, "mask
+    operand and dropout")."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = (d ** -0.5) if sm_scale is None else sm_scale
@@ -446,10 +549,22 @@ def flash_attention(q, k, v, *, causal: bool = False, mask=None,
         raise ValueError(
             f"mask must be boolean [b|1, h|1, sq|1, sk|1] (broadcastable to "
             f"[{b}, {h}, {sq}, {sk}]); got {tuple(mask.shape)}")
+    _check_block("block_q", block_q)
+    _check_block("block_k", block_k)
+    if use_kernel is None:
+        # the JAX entry's rule on a non-TPU backend: the kernel, with
+        # the crossover read (and a bad env value raising) unless a
+        # block size forced the kernel first
+        if block_q is None and block_k is None:
+            xla_path_max_seq(xla_max_seq)
+        use_kernel = True
     if dropout_rate:
         raise NotImplementedError(
             "attention dropout (the murmur3 keep mask of apex_tpu's "
             f"_keep_mask) is not ported yet ({_MASK_ITEM})")
+    if not use_kernel:
+        return _xla_attention(q, k, v, causal=causal, scale=scale,
+                              mask=mask)
     mask3 = None if mask is None else _mask3(mask, b, h, sq, sk)
     q3 = q.reshape(b * h, sq, d).contiguous()
     k3 = k.reshape(b * h, sk, d).contiguous()
@@ -461,16 +576,7 @@ def flash_attention(q, k, v, *, causal: bool = False, mask=None,
 def decode_xla_max_seq(override=None) -> int:
     """Effective decode crossover: explicit override >
     ``APEX_TPU_DECODE_XLA_MAX_SEQ`` > 4096."""
-    if override is not None:
-        return int(override)
-    env = os.environ.get(_DECODE_XLA_MAX_SEQ_ENV)
-    if env:
-        try:
-            return int(env)
-        except ValueError as e:
-            raise ValueError(f"{_DECODE_XLA_MAX_SEQ_ENV} must be an int, "
-                             f"got {env!r}") from e
-    return _DECODE_XLA_MAX_SEQ
+    return _int_knob(override, _DECODE_XLA_MAX_SEQ_ENV, _DECODE_XLA_MAX_SEQ)
 
 
 def decode_attention(q, k, v, lengths, *, sm_scale: Optional[float] = None,
@@ -488,10 +594,19 @@ def decode_attention(q, k, v, lengths, *, sm_scale: Optional[float] = None,
     ``use_kernel=None`` takes the JAX package's crossover: at or below
     :func:`decode_xla_max_seq` cached positions the plain grouped chain
     (fp32 scores from the operands, fp32 softmax, p rounded to the value
-    dtype for P·V, no kv broadcast materialized); above it k/v are
-    broadcast to the query heads and the length mask goes to
-    :func:`flash_attention` as its mask operand (the masked kernel on
-    CUDA)."""
+    dtype for P·V, no kv broadcast materialized); above it, as with
+    ``use_kernel=True``, the kernel branch.  The JAX package's kernel
+    branch broadcasts k/v to the query heads and runs the masked flash
+    kernel with a length mask; here the ``h / kv_heads`` query heads of
+    a kv head are the rows of one problem against that kv head's cache,
+    read in place (any slot and head strides: one layer's view of the
+    ``[slots, layers, kv_heads, S, d]`` cache), with the key-only mask
+    taken from ``lengths``: the same function with no broadcast and no
+    mask tensor (:func:`_decode_kernel` on CUDA, launch counter
+    ``flash_attention_masked``; :func:`_decode_reference` on the CPU).
+    Query groups and head dims the decode kernel has no instance for
+    (groups other than 1, 2, 4, 8; head_dim 32) take the JAX package's
+    branch, the broadcast and the masked flash forward."""
     squeezed = q.dim() == 3
     if squeezed:
         q = q[:, :, None, :]
@@ -518,11 +633,21 @@ def decode_attention(q, k, v, lengths, *, sm_scale: Optional[float] = None,
     group = h // kvh
     cols = torch.arange(s_cache, dtype=torch.int32, device=q.device)
     if use_kernel:
-        if group > 1:
-            k, v = (t[:, :, None].expand(b, kvh, group, s_cache, d)
-                    .reshape(b, h, s_cache, d) for t in (k, v))
-        mask = cols[None, None, None, :] >= lengths[:, None, None, None]
-        out = flash_attention(q, k, v, mask=mask, sm_scale=scale)
+        qg = q.reshape(b, kvh, group, d)
+        if q.device.type == "cpu":
+            out = _decode_reference(qg, k, v, lengths, scale)
+        elif group in _DECODE_KERNEL_GROUPS \
+                and d in _DECODE_KERNEL_HEAD_DIMS:
+            out = _decode_kernel(qg.contiguous(), k, v, lengths.contiguous(),
+                                 scale)
+        else:
+            # the JAX package's branch: k/v broadcast to the query heads
+            kb, vb = (t[:, :, None].expand(b, kvh, group, s_cache, d)
+                      .reshape(b, h, s_cache, d) for t in (k, v))
+            mask = cols[None, None, None, :] >= lengths[:, None, None, None]
+            out = flash_attention(q, kb, vb, mask=mask, sm_scale=scale,
+                                  use_kernel=True)
+        out = out.reshape(b, h, 1, d)
         return out[:, :, 0] if squeezed else out
     # the plain grouped chain: no kv broadcast materialized
     qg = q.reshape(b, kvh, group, d).float()
@@ -537,6 +662,83 @@ def decode_attention(q, k, v, lengths, *, sm_scale: Optional[float] = None,
     out = torch.einsum("bkgs,bksd->bkgd", p.to(v.dtype).float(), v.float())
     out = out.reshape(b, h, 1, d).to(q.dtype)
     return out[:, :, 0] if squeezed else out
+
+
+def _decode_reference(qg, k, v, lengths, scale):
+    """Plain version of the decode kernel, and the kernel branch's
+    function (the masked flash forward's on a key-only length mask):
+    ``qg [b, kvh, group, d]`` against ``k``/``v`` ``[b, kvh, S, d]``,
+    positions ``>= lengths[slot]`` masked; a base-2 softmax in fp32, p
+    rounded to the value dtype for P·V and the normalizer from the fp32
+    p; a slot of length 0 emits 0.  Returns ``[b, kvh, group, d]`` in
+    q's dtype."""
+    s = torch.einsum("bkgd,bksd->bkgs", qg.float(), k.float()) * (
+        scale * _LOG2E)
+    live = (torch.arange(k.shape[2], device=qg.device)[None, :]
+            < lengths.long()[:, None])[:, None, None, :]
+    s = torch.where(live, s, torch.full_like(s, _NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp2(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bksd->bkgd", p.to(v.dtype).float(), v.float())
+    return (out / torch.where(l == 0, torch.ones_like(l), l)).to(qg.dtype)
+
+
+def _decode_kernel(qg, k, v, lengths, scale):
+    """The decode kernel (``csrc/flash_attention.cu``,
+    ``apex_flash_decode``): ``qg [b, kvh, group, d]`` contiguous bf16
+    against the cache ``k``/``v`` ``[b, kvh, S, d]`` bf16 read in place
+    (rows contiguous; slot and head strides multiples of 8 elements),
+    ``lengths [b]`` int32.  The window runs as splits of whole
+    64-position tiles by paged decode's plan (from the shapes and the
+    SM count, never the lengths), merged inside the launch as paged
+    decode merges them.  Counted as ``flash_attention_masked``."""
+    from apex_tpu_torch.ops import paged_attention as pa
+    b, kvh, group, d = qg.shape
+    s_cache = k.shape[2]
+    for name, t in (("q", qg), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"decode kernel takes bfloat16, got {name} "
+                            f"{t.dtype}")
+        if t.device != qg.device:
+            raise ValueError(f"{name} is on {t.device}, q on {qg.device}")
+    if lengths.device != qg.device:
+        raise ValueError(f"lengths is on {lengths.device}, q on {qg.device}")
+    if k.stride() != v.stride() or k.stride(3) != 1 or k.stride(2) != d \
+            or k.stride(1) % 8 or k.stride(0) % 8:
+        raise ValueError(
+            f"k/v must have equal strides, contiguous [S, {d}] rows and "
+            f"slot and head strides that are multiples of 8 elements; got "
+            f"k {k.stride()} v {v.stride()}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("k/v must be 16-byte aligned")
+    if b > 65535 or kvh > 65535 or s_cache < 1:
+        raise ValueError(f"decode kernel takes up to 65535 slots and kv "
+                         f"heads and a nonempty cache, got b {b}, kv_heads "
+                         f"{kvh}, S {s_cache}")
+    tiles = -(-s_cache // _DECODE_TILE)
+    plan = pa._plan_splits(b, kvh, group, d, _DECODE_TILE, tiles,
+                           pa._sm_count(qg.device))
+    out = torch.empty_like(qg)
+    f32 = dict(dtype=torch.float32, device=qg.device)
+    part_acc = torch.empty(plan.part_acc, **f32) if plan.part_acc else None
+    part_ml = torch.empty(plan.part_ml, **f32) if plan.part_ml else None
+    stream = _build.stream_ptr(qg.device)
+    counters = pa._counters(qg.device, stream, plan.counters) \
+        if plan.counters else None
+    lib = _build.library()
+    _build.count("flash_attention_masked")
+    err = lib.apex_flash_decode(
+        qg.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), part_acc.data_ptr() if part_acc is not None
+        else None, part_ml.data_ptr() if part_ml is not None else None,
+        counters.data_ptr() if counters is not None else None, b, kvh,
+        group, d, s_cache, k.stride(1), k.stride(0), plan.nsplit,
+        plan.pages_per_split, float(scale * _LOG2E), stream)
+    if err and counters is not None:
+        counters.zero_()      # whatever a failed launch left behind
+    _build.check(err, "flash_attention_masked")
+    return out
 
 
 def prefix_window_attention(q, k, v, win_k, win_v, start,

@@ -10,15 +10,22 @@ Port of ``apex_tpu/ops/paged_attention.py :: paged_decode_attention``::
 virtual position ``t`` of a slot resolves to physical page
 ``page_table[slot, t // page_size]``, row ``t % page_size``.
 
-On CUDA the call always runs ``csrc/paged_attention.cu`` (the
-counterpart of the Pallas ``_paged_kernel``): the JAX package's
-``paged_xla_max_pages`` crossover, which sends windows of 64 pages or
-fewer to a gathered XLA path, has no counterpart here.  The k/v
-operands are usually one layer's strided view of the engine's
-``[pages, layers, kv_heads, page_size, head_dim]`` pool; the kernel
-takes the page stride and reads the pool in place, so no call copies
-the pool.  A CPU tensor takes the plain version, which gathers the
-slots' windows and scores them in fp32.
+The call takes the JAX entry's routing arguments.  ``use_kernel=True``,
+and ``use_kernel=None`` whatever the window, run
+``csrc/paged_attention.cu`` on CUDA (the counterpart of the Pallas
+``_paged_kernel``); ``use_kernel=False`` gathers the slots' windows and
+scores them through ``decode_attention(use_kernel=False)``, the JAX
+package's XLA route, on any device.  The JAX entry's ``None`` applies
+its crossover (:func:`paged_xla_max_pages`: ``xla_max_pages`` >
+``APEX_TPU_PAGED_XLA_MAX_PAGES`` > 64 pages a slot) on every backend;
+here it is read and checked but sends nothing to the gathered route,
+since on the H100 the kernel has not been measured against it at short
+windows (ROADMAP).  The k/v operands are usually one layer's strided
+view of the engine's ``[pages, layers, kv_heads, page_size, head_dim]``
+pool; the kernel takes the page stride and reads the pool in place, so
+no call copies the pool.  On the kernel route a CPU tensor takes the
+kernel's plain version, which gathers the slots' windows and scores
+them in fp32 in base 2.
 
 Fused-block decode, port of ``fused_block_decode`` and its dispatch
 knobs (``decode_fusion``, ``fusion_min_pages``,
@@ -43,9 +50,10 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops.attention import _LOG2E, _NEG_INF
+from apex_tpu_torch.ops.attention import _LOG2E, _NEG_INF, _int_knob
 
 __all__ = ["paged_decode_attention", "paged_decode_reference",
+           "paged_xla_max_pages",
            "check_kernel_page_size", "decode_fusion", "fusion_min_pages",
            "resolve_decode_fusion", "fused_block_decode",
            "fused_block_reference"]
@@ -65,6 +73,10 @@ _BLOCKS_PER_SM = 1
 #: the most splits a window runs as (the merging block holds each
 #: split's weights in shared memory)
 _MAX_SPLITS = 256
+#: the JAX entry's paged-decode crossover in pages a slot, and its
+#: environment override (read and checked here, not applied)
+_PAGED_XLA_MAX_PAGES = 64
+_PAGED_XLA_MAX_PAGES_ENV = "APEX_TPU_PAGED_XLA_MAX_PAGES"
 
 
 def check_kernel_page_size(page_size: int) -> None:
@@ -187,6 +199,24 @@ def paged_decode_reference(q3, k_pages, v_pages, page_table, lengths,
     return out.reshape(slots, h, d).to(q3.dtype)
 
 
+def _gathered_decode(q3, k_pages, v_pages, page_table, lengths, scale):
+    """The JAX entry's ``use_kernel=False`` route: the slots' virtual
+    windows gathered from the pool (``[slots, kvh, mpps * ps, d]``) and
+    scored by ``decode_attention``'s plain grouped chain."""
+    from apex_tpu_torch.ops.attention import decode_attention
+    slots, _, d = q3.shape
+    _, kvh, ps, _ = k_pages.shape
+    mpps = page_table.shape[1]
+    idx = page_table.long()
+
+    def window(pages):
+        g = pages[idx]                            # [slots, mpps, kvh, ps, d]
+        return g.permute(0, 2, 1, 3, 4).reshape(slots, kvh, mpps * ps, d)
+
+    return decode_attention(q3, window(k_pages), window(v_pages), lengths,
+                            sm_scale=scale, use_kernel=False)
+
+
 def _kernel_call(q3, k_pages, v_pages, page_table, lengths, scale):
     slots, h, d = q3.shape
     _, kvh, ps, _ = k_pages.shape
@@ -253,8 +283,16 @@ def _kernel_call(q3, k_pages, v_pages, page_table, lengths, scale):
     return out
 
 
+def paged_xla_max_pages(override=None) -> int:
+    """The JAX entry's paged-decode crossover, in pages a slot: explicit
+    override > ``APEX_TPU_PAGED_XLA_MAX_PAGES`` > 64."""
+    return _int_knob(override, _PAGED_XLA_MAX_PAGES_ENV, _PAGED_XLA_MAX_PAGES)
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
-                           sm_scale: Optional[float] = None):
+                           sm_scale: Optional[float] = None,
+                           use_kernel: Optional[bool] = None,
+                           xla_max_pages: Optional[int] = None):
     """Single-token attention against a paged KV pool.
 
     * ``q``: ``[slots, h, 1, d]`` (or ``[slots, h, d]``).
@@ -264,7 +302,14 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     * ``page_table``: ``[slots, max_pages_per_slot]`` int32; dead
       entries may hold any valid page (the trash page by convention).
     * ``lengths``: ``[slots]`` int32 live tokens; length 0 emits zeros.
-    """
+
+    ``use_kernel=False`` gathers the windows and scores them through
+    ``decode_attention(use_kernel=False)`` (the JAX package's XLA
+    route) on any device.  ``use_kernel=True`` or ``None``: the kernel
+    on CUDA, its plain version on the CPU.  Unlike the JAX entry,
+    ``None`` keeps the kernel on CUDA whatever the window: the
+    crossover (:func:`paged_xla_max_pages`, ``xla_max_pages`` first) is
+    read and checked, not applied (module docstring)."""
     squeezed = q.dim() == 3
     q3 = q if squeezed else q[:, :, 0, :]
     if not squeezed and q.shape[2] != 1:
@@ -274,7 +319,13 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     _check_operands(q3, k_pages, v_pages, page_table, lengths)
     d = q3.shape[-1]
     scale = (d ** -0.5) if sm_scale is None else sm_scale
-    if q3.device.type == "cpu":
+    if use_kernel is None:
+        paged_xla_max_pages(xla_max_pages)
+        use_kernel = True
+    if not use_kernel:
+        out = _gathered_decode(q3, k_pages, v_pages, page_table, lengths,
+                               scale)
+    elif q3.device.type == "cpu":
         out = paged_decode_reference(q3, k_pages, v_pages, page_table,
                                      lengths, scale)
     elif q3.device.type == "cuda":
@@ -318,17 +369,7 @@ def decode_fusion(override=None) -> str:
 def fusion_min_pages(override=None) -> int:
     """Effective auto-fusion crossover: explicit override >
     ``APEX_TPU_FUSION_MIN_PAGES`` > 8."""
-    if override is not None:
-        return int(override)
-    env = os.environ.get(_FUSION_MIN_PAGES_ENV)
-    if env:
-        try:
-            return int(env)
-        except ValueError as e:
-            raise ValueError(
-                f"{_FUSION_MIN_PAGES_ENV} must be an int, got "
-                f"{env!r}") from e
-    return _FUSION_MIN_PAGES
+    return _int_knob(override, _FUSION_MIN_PAGES_ENV, _FUSION_MIN_PAGES)
 
 
 def resolve_decode_fusion(mode=None, *, paged: bool,
@@ -488,8 +529,8 @@ def _fused_kernel_call(x, blk, k_pages, v_pages, page_table, lengths, cos,
                        sin, eps, scale, fuse_mlp, kvh, ps, d, h, clock=None,
                        kind="llama"):
     """Launch the kernel.  ``clock``: ``None``, or a zeroed int64 CUDA
-    tensor of 10 that receives the launch's phase times in ns (the start,
-    the end of each of the 8 phases that end in a grid barrier, and the
+    tensor of 9 that receives the launch's phase times in ns (the start,
+    the end of each of the 7 phases that end in a grid barrier, and the
     last block's end)."""
     gpt = kind == "gpt"
     slots, hidden = x.shape

@@ -29,11 +29,17 @@
    with the norm's bit identity and an inf raising each flag; the flash
    forward again at causal ``[1, 32, 8192, 128]`` and ``[1, 32, 128,
    128]``, held against its plain version a few heads at a time and
-   timed beside SDPA; the flash forward's masked instance at the dense
-   decode shape ``[8, 32, 1, 8192]`` with a per-batch length mask, at
+   timed beside SDPA; the flash forward's masked instance (with its
+   tile pre-pass) at the dense decode shape ``[8, 32, 1, 8192]`` with a
+   per-batch length mask over k/v broadcast to the query heads, at
    BERT-large's padding ``[8, 16, 512, 64]`` and with a per-head mask
    under causal ``[1, 32, 2048, 128]``, each timed beside SDPA with
-   the boolean ``attn_mask``; the fused block's GPT instance, one
+   the boolean ``attn_mask``; ``decode_attention``'s kernel branch at
+   the same decode shape over 8 kv heads, reading one layer of a
+   strided dense cache in place, its peak memory rise over the call
+   (under 64 MB: no broadcast), timed beside SDPA with ``enable_gqa``
+   on the same cache and bounded by the cache's live bytes (the
+   ``flash_attention_masked`` record); the fused block's GPT instance, one
    random GPT-3 1.3B layer over 8 slots of lengths 0..2048, page 64,
    with its phase clock).  Prints
    the max
@@ -42,10 +48,11 @@
    their type — 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s fp32
    — counted from this run's inputs), the plain version's time and,
    where one PyTorch call computes the same function, that call's
-   time.  The fused block is timed over back-to-back eager calls
-   between CUDA events (its cooperative launch is not captured into a
-   graph); beside it, on a line of its own, the port's unfused layer on
-   the same inputs.
+   time.  The fused block is timed over 40 calls queued behind a
+   sleeping card between CUDA events (its cooperative launch is not
+   captured into a graph, and its host cost can exceed its device
+   time), with the eager time, host included, beside it; on a line of
+   its own, the port's unfused layer on the same inputs.
 3. **Serve.**  Llama-3-8B at full width and depth (random bf16 weights
    from a seeded ``torch.Generator``) served by ``InferenceEngine`` on
    the paged pool through ``engine.generate``: 8 seeded prompts of
@@ -57,8 +64,9 @@
    launch (32 per decode step) and paged attention must not launch.
    Then the same prompts on the dense slot cache at ``max_seq`` 8192
    (no paged kwarg): past ``decode_attention``'s 4096 crossover every
-   decode layer must launch the masked flash forward once (32 per
-   step), and neither paged kernel.
+   decode layer must launch its decode kernel (counted as
+   ``flash_attention_masked``) once (32 per step), and neither paged
+   kernel.
 4. **Check.**  For two of the requests, the decode logits of an
    engine prefill + decode run are held against the port's own
    full-forward prefill of prompt + generated tokens, for all three
@@ -111,8 +119,14 @@
    kernels phase's lengths and at the serve's, the norm backward #2 at
    ``[2048, 4096]`` and ``[8192, 4096]`` (RMSNorm and LayerNorm), the
    unfused 8-slot decode step and the 4-layer Adam steps at 2048 and
-   8192 tokens
-   (``--ab-rows`` picks among flash, paged, norm and steps).
+   8192 tokens, the masked forward #3m at its three shapes and
+   ``decode_attention``'s whole kernel branch at ``[8, 32, 1, 8192]``
+   (with each version's peak memory rise; the version's own masked and
+   decode wrappers), the fused blocks #8 and #8g for one layer each
+   with their phase clocks, and the fused GPT-3 1.3B and dense
+   Llama-3-8B (8192 positions) decode steps
+   (``--ab-rows`` picks among flash, paged, norm, steps, masked and
+   fused).
 9. **Shim.**  One backward of the 1-layer model, then
    ``multi_tensor_applier`` with each of its four ops over the model's
    real grad list (11 leaves, bf16 and fp32), one kernel launch a call,
@@ -179,6 +193,9 @@ import torch
 import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
+#: the card's sleep before queued calls (``_queued_ms``): about 0.1 s at
+#: the H100's clocks, longer than the host takes to queue 40 fused blocks
+QUEUE_SLEEP_CYCLES = 200_000_000
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32, outside the tensor cores
 FULL_CFG = dict(vocab_size=128256, hidden_size=4096, num_layers=32,
@@ -390,6 +407,26 @@ def _eager_ms(fn, iters: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _queued_ms(fn, iters: int) -> float:
+    """Mean device time of one call of ``fn`` when the host is slower
+    than the card: the card sleeps (``torch.cuda._sleep``, about 0.1 s)
+    while the host queues ``iters`` calls behind it, so the calls run
+    back to back between two CUDA events.  For the fused block, whose
+    cooperative launch is not captured into a graph and whose host
+    cost a call can exceed its device time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -840,57 +877,188 @@ def _masked_case(attn, label, q, k, v, mask, causal, iters):
     return err, ms, plain_ms, lib_ms
 
 
-def _masked_rows(dev, gen, recs):
-    """The masked flash forward (#3 with its mask3 operand) at the three
-    shapes its callers give it: dense-cache decode (``decode_attention``
-    above its crossover: sq = 1 against 8192 cached positions, 8 slots,
-    k/v broadcast from 8 kv heads to 32, a per-batch length mask with a
-    length-0 slot), BERT-large's padding mask (``[8, 16, 512, 64]``, non
-    causal, per-batch key padding) and a per-head mask under causal at
-    ``[1, 32, 2048, 128]``.  The decode shape is the kernel's record
-    (the dense LLaMA serve's path)."""
-    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+DECODE_LENGTHS = [0, 1, 100, 1000, 4097, 6000, 8000, 8192]
+
+
+def _masked_shapes(dev, gen):
+    """The masked flash forward's (#3m) three shapes, one at a time:
+    ``(label, q, k, v, mask, causal, iters, bound_bytes, flops)``.
+    Dense-cache decode as the JAX package's kernel branch gives it (sq =
+    1 against 8192 cached positions, 8 slots, k/v broadcast from 8 kv
+    heads to 32, a per-batch length mask with a length-0 slot),
+    BERT-large's padding mask (``[8, 16, 512, 64]``, non causal,
+    per-batch key padding) and a per-head mask under causal at ``[1, 32,
+    2048, 128]``.  Bytes: q and out, the live keys' k/v, the mask, lse
+    (the decode shape's mask is key-only: one byte a key)."""
     bf = torch.bfloat16
-    # -- decode: [8, 32, 1, 8192], lengths 0..8192 -----------------------
     b, h, kvh, s, d = 8, 32, 8, 8192, 128
-    lengths_l = [0, 1, 100, 1000, 4097, 6000, 8000, 8192]
     q = torch.randn(b, h, 1, d, generator=gen, device=dev).to(bf)
     kk = torch.randn(b, kvh, s, d, generator=gen, device=dev).to(bf)
     vv = torch.randn(b, kvh, s, d, generator=gen, device=dev).to(bf)
     k, v = (t[:, :, None].expand(b, kvh, h // kvh, s, d).reshape(b, h, s, d)
             for t in (kk, vv))
     del kk, vv
-    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
     mask = (torch.arange(s, device=dev)[None, None, None, :]
             >= lengths[:, None, None, None])
-    err, ms, plain_ms, lib_ms = _masked_case(attn, "decode", q, k, v, mask,
-                                             False, 20)
-    # a 128-key tile of the 8192-key slot left out: its outputs move
-    # past the per-row limit
-    mask3 = attn._mask3(mask, b, h, 1, s)
-    q3, k3, v3 = (t.reshape(b * h, -1, d) for t in (q, k, v))
-    ref = attn._fwd_reference(q3, k3, v3, False, d ** -0.5, mask3=mask3)[0]
-    drop = mask3.clone()
-    drop[b - 1, :, 4096:4224] = True
-    off = attn._fwd_reference(q3, k3, v3, False, d ** -0.5, mask3=drop)[0]
-    off_rel = _slot_rel(off, ref)
-    print(f"  a dropped 128-key tile of the 8192-key slot: {off_rel:.4g} of "
-          f"each row's max|ref| (limit {TOL_PAGED_OUT}), max|diff| "
-          f"{(off.float() - ref.float()).abs().max().item():.4g}")
+    live = sum(DECODE_LENGTHS)
+    yield ("decode", q, k, v, mask, False, 20,
+           2 * live * h * d * 2 + 2 * q.numel() * 2 + b * s + b * h * 4,
+           4 * live * h * d)
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+    b, h, s, d = 8, 16, 512, 64
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev).to(bf)
+               for _ in range(3))
+    keep = torch.tensor([512, 500, 384, 256, 128, 64, 1, 0], device=dev)
+    mask = (torch.arange(s, device=dev)[None, None, None, :]
+            >= keep[:, None, None, None]).expand(b, 1, s, s)
+    live = int(keep.sum())
+    yield ("BERT padding", q, k, v, mask, False, 48,
+           2 * q.numel() * 2 + 2 * live * h * d * 2 + b * s * s
+           + b * h * s * 4, 4 * live * s * h * d)
+    del q, k, v, mask
+    b, h, s, d = 1, 32, 2048, 128
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev).to(bf)
+               for _ in range(3))
+    mask = torch.rand(b, h, s, s, generator=gen, device=dev) < 0.1
+    mask[:, :, 5] = True                        # a fully masked row a head
+    yield ("per-head causal", q, k, v, mask, True, 10,
+           4 * q.numel() * 2 + mask.numel() + b * h * s * 4,
+           4 * s * s * d * h / 2)
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+
+
+def _decode_case(dev, gen):
+    """Llama-3-8B's dense decode at 8192 positions: q ``[8, 32, 1, 128]``
+    against one layer's view of an 8-slot, 2-layer ``[slots, layers, 8,
+    8192, 128]`` cache (strided, read in place), lengths
+    :data:`DECODE_LENGTHS`.  Returns ``(q, k, v, lengths, bound_bytes,
+    flops)``: the bytes the function needs are the live keys' k and v
+    in the cache, q, out and the lengths."""
+    bf = torch.bfloat16
+    b, h, kvh, s, d = 8, 32, 8, 8192, 128
+    q = torch.randn(b, h, 1, d, generator=gen, device=dev).to(bf)
+    ck = torch.randn(b, 2, kvh, s, d, generator=gen, device=dev).to(bf)
+    cv = torch.randn(b, 2, kvh, s, d, generator=gen, device=dev).to(bf)
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
+    live = sum(DECODE_LENGTHS)
+    return (q, ck[:, 1], cv[:, 1], lengths,
+            2 * live * kvh * d * 2 + 2 * q.numel() * 2 + b * 4,
+            4 * live * h * d)
+
+
+def _masked_rows(dev, gen, recs):
+    """The masked flash forward (#3 with its mask3 operand, after its
+    tile pre-pass) at :func:`_masked_shapes`, and ``decode_attention``'s
+    kernel branch at Llama-3-8B's dense decode (:func:`_decode_case`),
+    the q_len-1 kernel that reads the cache in place with no broadcast:
+    the kernel record (the dense LLaMA serve's path).  Its yardsticks:
+    SDPA with ``enable_gqa=True`` on the same un-broadcast cache (the
+    record's), SDPA with ``attn_mask`` on the broadcast operands (the
+    JAX package's formulation), and the bound on the cache's own live
+    bytes beside the bound on the broadcast operands' live keys."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    for (label, q, k, v, mask, causal, iters, nbytes,
+         flops) in _masked_shapes(dev, gen):
+        err, ms, plain_ms, lib_ms = _masked_case(attn, label, q, k, v, mask,
+                                                 causal, iters)
+        bound, by = _bound(nbytes, flops)
+        print(f"  flash_attention masked {label} on {_smi()}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of the "
+              f"bound")
+        if label == "decode":
+            b, h, _, d = q.shape
+            s = k.shape[2]
+            broadcast_bound, sdpa_mask_ms = bound, lib_ms
+            # a 128-key tile of the 8192-key slot left out: its outputs
+            # move past the per-row limit
+            mask3 = attn._mask3(mask, b, h, 1, s)
+            q3, k3, v3 = (t.reshape(b * h, -1, d) for t in (q, k, v))
+            ref = attn._fwd_reference(q3, k3, v3, False, d ** -0.5,
+                                      mask3=mask3)[0]
+            drop = mask3.clone()
+            drop[b - 1, :, 4096:4224] = True
+            off = attn._fwd_reference(q3, k3, v3, False, d ** -0.5,
+                                      mask3=drop)[0]
+            off_rel = _slot_rel(off, ref)
+            print(f"  a dropped 128-key tile of the 8192-key slot: "
+                  f"{off_rel:.4g} of each row's max|ref| (limit "
+                  f"{TOL_PAGED_OUT}), max|diff| "
+                  f"{(off.float() - ref.float()).abs().max().item():.4g}")
+            if off_rel <= TOL_PAGED_OUT:
+                raise AssertionError("masked decode: the per-row limit does "
+                                     "not see a dropped tile")
+            del mask3, drop, ref, off, q3, k3, v3
+        del q, k, v, mask
+    torch.cuda.empty_cache()
+    # -- decode_attention's kernel branch: no broadcast ------------------
+    q, k, v, lengths, nbytes, flops = _decode_case(dev, gen)
+    b, h, _, d = q.shape
+    kvh, s = k.shape[1], k.shape[2]
+    scale = d ** -0.5
+    qg = q.reshape(b, kvh, h // kvh, d)
+    from apex_tpu_torch.ops import _build
+    counts = _build.launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    got = attn.decode_attention(q, k, v, lengths, use_kernel=True)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - start
+    after = _build.launch_counts()
+    if after["flash_attention_masked"] != \
+            counts["flash_attention_masked"] + 1 \
+            or after["flash_attention"] != counts["flash_attention"]:
+        raise AssertionError("decode_attention's kernel branch did not "
+                             "launch the decode kernel alone")
+    ref = attn._decode_reference(qg, k, v, lengths, scale)
+    got = got.reshape(ref.shape)
+    err = (got.float() - ref.float()).abs().max().item()
+    rows = (lambda t: t.reshape(-1, d))
+    print(f"decode_attention kernel branch [{b}, {h}, 1, {s}] over {kvh} kv "
+          f"heads, lengths {DECODE_LENGTHS}, one layer of a strided "
+          f"[{b}, 2, {kvh}, {s}, {d}] cache; peak memory rise over the call "
+          f"{rise / 2 ** 20:.2f} MiB (the broadcast k/v would be "
+          f"{2 * b * h * s * d * 2 / 2 ** 30:.2f} GiB)")
+    _check("decode kernel out", err, TOL_ATTN_OUT)
+    _check("decode kernel out (x each row's max|ref|)",
+           _slot_rel(rows(got), rows(ref)), TOL_PAGED_OUT)
+    if rise >= 64 * 2 ** 20:
+        raise AssertionError(f"the decode branch allocated {rise} bytes")
+    # a 64-position tile of the 8192-position slot left out
+    cut = slice(4096, 4160)
+    keep_cols = torch.cat([torch.arange(0, cut.start, device=dev),
+                           torch.arange(cut.stop, s, device=dev)])
+    off = attn._decode_reference(
+        qg, k[:, :, keep_cols], v[:, :, keep_cols],
+        torch.where(lengths > cut.start,
+                    lengths - (torch.clamp(lengths, max=cut.stop)
+                               - cut.start), lengths), scale)
+    off_rel = _slot_rel(rows(off[b - 1]), rows(ref[b - 1]))
+    print(f"  a dropped 64-position tile of the 8192-position slot: "
+          f"{off_rel:.4g} of each row's max|ref| (limit {TOL_PAGED_OUT})")
     if off_rel <= TOL_PAGED_OUT:
-        raise AssertionError("masked decode: the per-row limit does not see "
+        raise AssertionError("decode kernel: the per-row limit does not see "
                              "a dropped tile")
-    del mask3, drop, ref, off
-    # bytes: the live keys' rows of the broadcast k/v (the function needs
-    # no other), q and out, the mask, lse
-    live = sum(lengths_l)
-    nbytes = 2 * live * h * d * 2 + 2 * q.numel() * 2 + b * s + b * h * 4
-    bound, by = _bound(nbytes, 4 * live * h * d)
-    print(f"  flash_attention masked decode on {_smi()}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound:.4f} "
-          f"ms ({by}; the live keys' k/v {2 * live * h * d * 2 / 1e9:.3f} "
-          f"of the broadcast {2 * k.numel() * 2 / 1e9:.3f} GB), "
-          f"{100 * bound / ms:.1f}% of the bound")
+    del off, ref, got
+    bound, by = _bound(nbytes, flops)
+    ms = _time_ms(lambda: attn.decode_attention(q, k, v, lengths,
+                                                use_kernel=True), 20)
+    plain_ms = _time_ms(lambda: attn._decode_reference(qg, k, v, lengths,
+                                                       scale), 3)
+    keep = (torch.arange(s, device=dev)[None, None, None, :]
+            < lengths[:, None, None, None])
+    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=keep, enable_gqa=True), 20)
+    print(f"  decode_attention kernel branch on {_smi()}: {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, SDPA enable_gqa on the cache "
+          f"{lib_ms:.4f} ms, SDPA attn_mask on the broadcast k/v "
+          f"{sdpa_mask_ms:.4f} ms; bound {bound:.4f} ms ({by}: the cache's "
+          f"live k/v {nbytes / 1e9:.4f} GB), {100 * bound / ms:.1f}% of it; "
+          f"the broadcast operands' live-key bound {broadcast_bound:.4f} ms")
     recs["flash_attention_masked"] = dict(
         name="flash_attention_masked", route="cuda",
         source="apex_tpu_torch/csrc/flash_attention.cu",
@@ -898,41 +1066,7 @@ def _masked_rows(dev, gen, recs):
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
         eager_ms=_eager_ms(lambda: attn.decode_attention(
             q, k, v, lengths, use_kernel=True), 10))
-    del q, k, v, mask
-    torch.cuda.empty_cache()
-    # -- BERT-large padding: [8, 16, 512, 64], non causal ----------------
-    b, h, s, d = 8, 16, 512, 64
-    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev).to(bf)
-               for _ in range(3))
-    keep = torch.tensor([512, 500, 384, 256, 128, 64, 1, 0], device=dev)
-    mask = (torch.arange(s, device=dev)[None, None, None, :]
-            >= keep[:, None, None, None]).expand(b, 1, s, s)
-    err, ms, plain_ms, lib_ms = _masked_case(attn, "BERT padding", q, k, v,
-                                             mask, False, 48)
-    live_keys = int(keep.sum()) * s * h
-    # bytes: q and out, the live keys' k/v, mask3 ([8, 512, 512]), lse
-    bound, by = _bound(2 * q.numel() * 2 + 2 * int(keep.sum()) * h * d * 2
-                       + b * s * s + b * h * s * 4, 4 * live_keys * d)
-    print(f"  flash_attention masked BERT padding on {_smi()}: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-          f"bound {bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of the "
-          f"bound")
-    del q, k, v, mask
-    # -- a per-head mask under causal: [1, 32, 2048, 128] ----------------
-    b, h, s, d = 1, 32, 2048, 128
-    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev).to(bf)
-               for _ in range(3))
-    mask = torch.rand(b, h, s, s, generator=gen, device=dev) < 0.1
-    mask[:, :, 5] = True                        # a fully masked row a head
-    err, ms, plain_ms, lib_ms = _masked_case(attn, "per-head causal", q, k,
-                                             v, mask, True, 10)
-    bound, by = _bound(4 * q.numel() * 2 + mask.numel() + b * h * s * 4,
-                       4 * s * s * d * h / 2)
-    print(f"  flash_attention masked per-head causal on {_smi()}: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-          f"bound {bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of the "
-          f"bound")
-    del q, k, v, mask
+    del q, k, v, qg
     torch.cuda.empty_cache()
 
 
@@ -996,15 +1130,17 @@ def _fused_gpt_kernel(dev, gen, recs):
     bound, by = _bound(nbytes, 2 * slots * mats + 4 * (live + slots) * h * d)
     views = itertools.cycle([(pool_k[:, i], pool_v[:, i])
                              for i in range(layers)])
-    ms = _eager_ms(lambda: pa.fused_block_decode(
+    ms = _queued_ms(lambda: pa.fused_block_decode(
+        x, blk, *next(views), table, lengths, **kw), 40)
+    eager = _eager_ms(lambda: pa.fused_block_decode(
         x, blk, *next(views), table, lengths, **kw), 40)
     plain_ms = _eager_ms(lambda: pa.fused_block_reference(
         x, blk, *next(views), table, lengths, **kw), 3)
     print(f"  fused_block_decode (GPT) on {_smi()}: {mats} weights "
           f"({2 * mats / 1e6:.1f} MB) + {live} live tokens' k/v; {ms:.4f} ms "
-          f"per call (CUDA events around 40 eager calls), plain "
-          f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
-          f"{100 * bound / ms:.1f}% of the bound")
+          f"per call (40 calls queued behind a sleeping card; eager, host "
+          f"included, {eager:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of the bound")
     kvh, ps_, d_, h_ = pa._fused_geometry(x, blk, kp, vp, table, lengths,
                                           "gpt", None, None, False)
     clock = torch.zeros(len(FUSED_PHASES) + 1, dtype=torch.int64,
@@ -1025,7 +1161,7 @@ def _fused_gpt_kernel(dev, gen, recs):
         source="apex_tpu_torch/csrc/fused_block_decode.cu",
         replaces="apex_tpu/ops/paged_attention.py:445", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-        library_ms=None, eager_ms=ms)
+        library_ms=None, eager_ms=eager)
     del blk, pool_k, pool_v, views
     torch.cuda.empty_cache()
 
@@ -1085,13 +1221,16 @@ def _fused_kernel(dev, gen, recs, pool_k, pool_v, table, lengths):
     # 436 MB of weights never fit in the 50 MB L2
     views = itertools.cycle([(pool_k[:, i], pool_v[:, i])
                              for i in range(layer, layer + 4)])
-    ms = _eager_ms(lambda: pa.fused_block_decode(
+    ms = _queued_ms(lambda: pa.fused_block_decode(
+        x, blk, *next(views), table, lengths, **kw), 40)
+    eager = _eager_ms(lambda: pa.fused_block_decode(
         x, blk, *next(views), table, lengths, **kw), 40)
     plain_ms = _eager_ms(lambda: pa.fused_block_reference(
         x, blk, *next(views), table, lengths, **kw), 3)
     print(f"  fused_block_decode: {weights} weights ({2 * weights / 1e6:.1f} "
-          f"MB) + {live} live tokens' k/v; {ms:.4f} ms per call (CUDA "
-          f"events around 40 eager calls), bound {bound:.4f} ms ({by}), "
+          f"MB) + {live} live tokens' k/v; {ms:.4f} ms per call (40 calls "
+          f"queued behind a sleeping card; eager, host included, "
+          f"{eager:.4f} ms), bound {bound:.4f} ms ({by}), "
           f"{nbytes / ms / 1e6:.1f} GB/s")
     _fused_phases(pa, x, blk, kp, vp, table, lengths, kw)
     # the port's unfused layer on the same inputs: the per-op path with
@@ -1119,16 +1258,16 @@ def _fused_kernel(dev, gen, recs, pool_k, pool_v, table, lengths):
         source="apex_tpu_torch/csrc/fused_block_decode.cu",
         replaces="apex_tpu/ops/paged_attention.py:445", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-        library_ms=None, eager_ms=ms)
+        library_ms=None, eager_ms=eager)
     del blk, lp, cache, views
     torch.cuda.empty_cache()
 
 
-FUSED_PHASES = ("q/k/v", "q/k/v sums + RoPE", "attention", "merge + fold",
-                "o", "x2 + norm2", "gate/up", "down", "y")
+FUSED_PHASES = ("q/k/v", "q/k/v sums + RoPE", "attention",
+                "merge + fold + o", "x2 + norm2", "gate/up", "down", "y")
 GPT_FUSED_PHASES = ("q/k/v", "q/k/v sums + biases", "attention",
-                    "merge + fold", "o", "x2 + norm2", "up",
-                    "gelu + down", "y")
+                    "merge + fold + o", "x2 + norm2", "up", "gelu + down",
+                    "y")
 
 
 def _fused_phases(pa, x, blk, kp, vp, table, lengths, kw):
@@ -2046,7 +2185,8 @@ def phase_serve(dev, seed: int, profile: bool = False):
 
     # -- the same prompts on the dense slot cache at max_seq 8192 ---------
     # (above decode_attention's 4096 crossover: every decode layer is one
-    # launch of the masked flash forward over the broadcast k/v)
+    # launch of the decode kernel, counted as flash_attention_masked,
+    # reading the cache in place)
     dense = InferenceEngine("llama", cfg, engine.params, slots=8,
                             max_seq=DENSE_MAX_SEQ, device=dev)
     dserved = _serve(dense, prompts, "dense serve")
@@ -3206,15 +3346,14 @@ def _library_of(csrc: Path, build_dir: Path, signatures=None):
     (that copy's ``_build._SIGNATURES``); the current library is left as
     it was."""
     from apex_tpu_torch.ops import _build
-    saved = (_build.CSRC, _build.BUILD_DIR, _build._LIB)
+    saved = (_build.CSRC, _build.BUILD_DIR, _build._LIB, _build._SIGNATURES)
     _build.CSRC, _build.BUILD_DIR, _build._LIB = csrc, build_dir, None
+    _build._SIGNATURES = signatures or saved[3]
     try:
-        lib = _build.library()
+        return _build.library()
     finally:
-        _build.CSRC, _build.BUILD_DIR, _build._LIB = saved
-    for name, argtypes in (signatures or {}).items():
-        getattr(lib, name).argtypes = argtypes
-    return lib
+        (_build.CSRC, _build.BUILD_DIR, _build._LIB,
+         _build._SIGNATURES) = saved
 
 
 def _baseline_module(baseline: Path, name: str):
@@ -3267,7 +3406,7 @@ def _turns(each):
     return [round(x, 5) for x in each["A"][:1] + each["B"] + each["A"][1:]]
 
 
-AB_ROWS = ("flash", "paged", "norm", "steps")
+AB_ROWS = ("flash", "paged", "norm", "steps", "masked", "fused")
 
 
 def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
@@ -3286,9 +3425,16 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
     4096] bf16 with an fp32 weight, RMSNorm and LayerNorm; ``steps``
     the unfused 8-slot Llama-3-8B decode step (sixteen turns, median of
     8 a turn) and three 4-layer Adam steps a turn at 2048 and at 8192
-    tokens (eight turns, median a turn).  Each
-    row's two versions are held against each other (and, for #7 and
-    #2, against the plain version) before they are timed."""
+    tokens (eight turns, median a turn); ``masked`` #3m at its three
+    shapes and ``decode_attention``'s whole kernel branch at Llama-3-8B's
+    dense decode (with each version's peak memory rise); ``fused`` #8
+    and #8g for one layer each with their phase clocks, the fused GPT-3
+    1.3B decode step and the dense Llama-3-8B decode step at 8192
+    positions.  Each row's two versions are held against each other
+    (and against the plain version) before they are timed.  The
+    baseline's own wrappers stand in for this tree's where their C
+    entries differ (paged decode, the norm backward, the masked forward
+    and the decode branch)."""
     from apex_tpu_torch.ops import _build
     attn = importlib.import_module("apex_tpu_torch.ops.attention")
     pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
@@ -3296,13 +3442,21 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
     t0 = time.perf_counter()
     base_pa = _baseline_module(baseline, "paged_attention")
     base_ln = _baseline_module(baseline, "layer_norm")
+    base_attn = _baseline_module(baseline, "attention")
+    models = importlib.import_module("apex_tpu_torch.inference.models")
+    # the baseline's masked forward and decode branch, where it has them
+    attn_patches = tuple(
+        (mod, name, getattr(base_attn, name))
+        for mod, name in ((attn, "_fwd"), (attn, "decode_attention"),
+                          (models, "decode_attention"))
+        if hasattr(base_attn, name))
     versions = {
         "A": _Version(
             _library_of(baseline / "apex_tpu_torch" / "csrc",
                         _build.BUILD_DIR.parent / "ab_baseline",
                         _baseline_module(baseline, "_build")._SIGNATURES),
             ((pa, "_kernel_call", base_pa._kernel_call),
-             (ln, "_bwd_2d", base_ln._bwd_2d))),
+             (ln, "_bwd_2d", base_ln._bwd_2d)) + attn_patches),
         "B": _Version(_build.library())}
     print(f"ab: baseline {baseline} built in "
           f"{time.perf_counter() - t0:.1f} s; A = baseline, B = this tree, "
@@ -3368,6 +3522,10 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
         _ab_paged(dev, gen, versions)
     if "norm" in rows:
         _ab_norm(dev, gen, versions)
+    if "masked" in rows:
+        _ab_masked(dev, gen, versions)
+    if "fused" in rows:
+        _ab_fused(dev, seed, gen, versions)
     if "steps" not in rows:
         return
     _ab_decode_step(dev, seed, versions)
@@ -3532,27 +3690,41 @@ def _ab_norm_rows(ln, dev, gen, versions, rows, w):
 
 def _ab_decode_step(dev, seed: int, versions):
     """The unfused 8-slot Llama-3-8B decode step (32 layers, the serve's
-    prompts prefilled once), eight steps a turn, sixteen turns A B B A
-    A B B A ..., the mean of a version's turn medians and the median of
-    all its steps; each version's step must launch #7 once per layer."""
+    prompts prefilled once): each version's step must launch #7 once per
+    layer."""
     from apex_tpu_torch.inference import InferenceEngine
-    from apex_tpu_torch.ops import _build
     from apex_tpu_torch.transformer.testing import LlamaConfig
     cfg = LlamaConfig(**FULL_CFG)
     engine = InferenceEngine("llama", cfg, _random_llama(cfg, dev, seed),
                              slots=8, max_seq=4096, page_size=64,
                              num_pages=512, device=dev)
+    _ab_steps("unfused decode step, 8 slots, Llama-3-8B", engine,
+              PROMPT_LENS, seed, versions, "paged_attention")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def _ab_steps(label, engine, prompt_lens, seed: int, versions,
+              kernel: str):
+    """A decode step of ``engine`` (prompts of ``prompt_lens`` prefilled
+    once), eight steps a turn, sixteen turns A B B A A B B A ...: the
+    mean of a version's turn medians and the median of all its steps;
+    each version's step must launch ``kernel`` once per layer."""
+    from apex_tpu_torch.ops import _build
     rng = np.random.RandomState(seed)
-    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
-               for n in PROMPT_LENS]
+    prompts = [rng.randint(0, engine.cfg.vocab_size, size=n).tolist()
+               for n in prompt_lens]
     cache = engine.init_cache()
-    alloc = engine.new_allocator()
+    alloc = engine.new_allocator() if engine.paged else None
     last = np.zeros((engine.slots,), np.int32)
     for slot, p in enumerate(prompts):
-        pages = alloc.acquire(alloc.pages_needed(len(p) + 256))
-        cache, tok, _ = engine.prefill(cache, p, slot, pages=pages)
+        kw = {}
+        if alloc is not None:
+            kw["pages"] = alloc.acquire(alloc.pages_needed(len(p) + 256))
+        cache, tok, _ = engine.prefill(cache, p, slot, **kw)
         last[slot] = int(tok)
     state = {"cache": cache, "last": last}
+    layers = engine.cfg.num_layers
 
     def step():
         c, nxt, _, _ = engine.decode(state["cache"], state["last"])
@@ -3562,12 +3734,12 @@ def _ab_decode_step(dev, seed: int, versions):
         with _as_version(versions[turn]):
             _build.reset_launch_counts()
             step()
-            n = _build.launch_counts()["paged_attention"]
+            n = _build.launch_counts()[kernel]
             for _ in range(4):              # warm-up off the clock
                 step()
-        if n != cfg.num_layers:
-            raise AssertionError(f"ab: the decode step ({turn}) launched "
-                                 f"paged attention {n} times")
+        if n != layers:
+            raise AssertionError(f"ab: {label} ({turn}) launched {kernel} "
+                                 f"{n} times")
 
     # the step is host-bound and its host time drifts: four rounds of
     # turns, each turn's median, and the median of every step
@@ -3585,13 +3757,202 @@ def _ab_decode_step(dev, seed: int, versions):
         return float(np.median(times))
 
     mean, each = _ab(versions, steps, "ABBA" * 4)
-    print(f"  unfused decode step, 8 slots, Llama-3-8B: A {mean['A']:.3f} "
-          f"ms, B {mean['B']:.3f} ms (mean of 8 turn medians of 8 steps; "
-          f"median of all 64 steps A {np.median(every['A']):.3f}, B "
-          f"{np.median(every['B']):.3f}; turns A "
-          f"{[round(x, 3) for x in each['A']]}, B "
+    print(f"  {label}: A {mean['A']:.3f} ms, B {mean['B']:.3f} ms (mean of "
+          f"8 turn medians of 8 steps; median of all 64 steps A "
+          f"{np.median(every['A']):.3f}, B {np.median(every['B']):.3f}; "
+          f"{engine.slots / np.median(every['A']) * 1e3:.1f} / "
+          f"{engine.slots / np.median(every['B']) * 1e3:.1f} decode "
+          f"tokens/s; turns A {[round(x, 3) for x in each['A']]}, B "
           f"{[round(x, 3) for x in each['B']]})")
-    del engine, state, cache
+    del state, cache
+
+
+def _ab_masked(dev, gen, versions):
+    """#3m A/B at its three shapes (``_fwd`` on the mask3; the baseline's
+    own ``_fwd`` while its library is in), then ``decode_attention``'s
+    whole kernel branch at Llama-3-8B's dense decode: the baseline's
+    broadcast, mask and kernel against this tree's decode kernel, with
+    each version's peak memory rise over one call."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    for (label, q, k, v, mask, causal, iters, nbytes,
+         flops) in _masked_shapes(dev, gen):
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+        mask3 = attn._mask3(mask, b, h, sq, sk)
+        q3, k3, v3 = (t.reshape(b * h, -1, d).contiguous()
+                      for t in (q, k, v))
+        scale = d ** -0.5
+
+        def call():
+            return attn._fwd(q3, k3, v3, causal, scale, mask3=mask3)
+
+        got = {}
+        for turn in "AB":
+            with _as_version(versions[turn]):
+                got[turn] = call()
+        ref, _ = attn._fwd_reference(q3, k3, v3, causal, scale, mask3=mask3)
+        rows = (lambda t: t.reshape(-1, d))
+        errs = [_slot_rel(rows(got[t][0]), rows(ref)) for t in "AB"]
+        lse_err = (got["A"][1] - got["B"][1]).abs().max().item()
+        print(f"  flash_attention masked {label} [{b}, {h}, {sq}, {sk}]: "
+              f"against the plain version, each row's max|diff| / max|ref| "
+              f"A {errs[0]:.3e}, B {errs[1]:.3e}; B against A lse "
+              f"{lse_err:.3e}")
+        if max(errs) > TOL_PAGED_OUT or lse_err > TOL_ATTN_LSE:
+            raise AssertionError(f"ab: masked flash ({label}) is off")
+        del got, ref
+        bound, by = _bound(nbytes, flops)
+        mean, each = _ab(versions, lambda: _time_ms(call, iters))
+        print(f"  flash_attention masked {label}: A {mean['A']:.4f} ms, B "
+              f"{mean['B']:.4f} ms, bound {bound:.4f} ms ({by}) (turns A B "
+              f"B A: {_turns(each)})")
+        del q, k, v, mask, mask3, q3, k3, v3
+    torch.cuda.empty_cache()
+    q, k, v, lengths, nbytes, flops = _decode_case(dev, gen)
+    b, h, _, d = q.shape
+    kvh = k.shape[1]
+
+    def branch():
+        return attn.decode_attention(q, k, v, lengths, use_kernel=True)
+
+    ref = attn._decode_reference(q.reshape(b, kvh, h // kvh, d), k, v,
+                                 lengths, d ** -0.5)
+    for turn in "AB":
+        with _as_version(versions[turn]):
+            branch()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            got = branch()
+            torch.cuda.synchronize()
+            rise = torch.cuda.max_memory_allocated() - start
+        rel = _slot_rel(got.reshape(-1, d), ref.reshape(-1, d))
+        print(f"  decode_attention kernel branch [{b}, {h}, 1, "
+              f"{k.shape[2]}] ({turn}): each row's max|diff| / max|ref| "
+              f"{rel:.3e}; peak memory rise over the call "
+              f"{rise / 2 ** 20:.2f} MiB")
+        if rel > TOL_PAGED_OUT:
+            raise AssertionError(f"ab: the decode branch ({turn}) is off")
+    bound, by = _bound(nbytes, flops)
+    mean, each = _ab(versions, lambda: _time_ms(branch, 20))
+    print(f"  decode_attention kernel branch: A {mean['A']:.4f} ms, B "
+          f"{mean['B']:.4f} ms, bound {bound:.4f} ms ({by}: the cache's live "
+          f"k/v) (turns A B B A: {_turns(each)})")
+    del q, k, v, ref, got
+    torch.cuda.empty_cache()
+
+
+def _ab_fused(dev, seed: int, gen, versions):
+    """#8 and #8g A/B: one Llama-3-8B layer over a 4-layer pool (8 slots,
+    lengths 0..4096, page 64) and one GPT-3 1.3B layer (lengths 0..2048),
+    each version against the plain version, its time over the 4 layers
+    in turn (40 eager calls) and its phase clock; then the fused GPT-3
+    1.3B decode step and the dense Llama-3-8B decode step at 8192
+    positions (:func:`_ab_steps`)."""
+    from apex_tpu_torch.inference import InferenceEngine, models
+    from apex_tpu_torch.transformer.testing import GPTConfig, LlamaConfig
+    from apex_tpu_torch.transformer.testing.standalone_llama import (
+        _rope_cos_sin)
+    pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    bf = torch.bfloat16
+    slots, ps, layers = 8, 64, 4
+    for kind in ("llama", "gpt"):
+        if kind == "llama":
+            cfg = LlamaConfig(**dict(FULL_CFG, num_layers=1))
+            tree = {"layer_0": _random_llama(cfg, dev, seed, only="layer_0")[
+                "layer_0"]}
+            lengths_l, mpps = [0, 1, 64, 65, 1500, 2048, 3000, 4096], 64
+            kvh, d = cfg.num_kv_heads, cfg.hidden_size // \
+                cfg.num_attention_heads
+            phases = FUSED_PHASES
+        else:
+            cfg = GPTConfig(**dict(GPT_CFG, num_layers=1))
+            tree = _random_gpt(cfg, dev, seed + 10)
+            lengths_l, mpps = [0, 1, 64, 65, 700, 1024, 1500, 2048], 32
+            kvh, d = cfg.num_attention_heads, 128
+            phases = GPT_FUSED_PHASES
+        blk = models.fused_layer_params(kind, cfg, tree)[0]
+        del tree
+        table, lengths = _paged_table(dev, gen, lengths_l, ps, mpps)
+        shape = (slots * mpps + 1, layers, kvh, ps, d)
+        pool_k = torch.randn(shape, generator=gen, device=dev).to(bf)
+        pool_v = torch.randn(shape, generator=gen, device=dev).to(bf)
+        x = torch.randn(slots, cfg.hidden_size, generator=gen,
+                        device=dev).to(bf)
+        kw = dict(kind=kind, eps=1e-5)
+        cos = sin = None
+        if kind == "llama":
+            window = mpps * ps
+            cos_t, sin_t = _rope_cos_sin(window, d, cfg.rope_theta,
+                                         device=dev)
+            pos = torch.clamp(lengths.long(), max=window - 1)
+            cos = cos_t.reshape(window, d)[pos]
+            sin = sin_t.reshape(window, d)[pos]
+            kw.update(cos=cos, sin=sin, eps=cfg.rms_eps)
+        views = [(pool_k[:, i], pool_v[:, i]) for i in range(layers)]
+        ref = pa.fused_block_reference(x, blk, *views[0], table, lengths,
+                                       **kw)
+        for turn in "AB":
+            with _as_version(versions[turn]):
+                got = pa.fused_block_decode(x, blk, *views[0], table,
+                                            lengths, **kw)
+            rel = max(((g.float() - r.float()).norm() / r.float().norm())
+                      .item() for g, r in zip(got, ref))
+            err = max((g.float() - r.float()).abs().max().item()
+                      / r.float().abs().max().item()
+                      for g, r in zip(got, ref))
+            print(f"  fused_block_decode {kind} ({turn}) against the plain "
+                  f"version: max|diff| / max|ref| {err:.3e}, relative L2 "
+                  f"{rel:.3e}")
+            if err > TOL_FUSED_REL or rel > TOL_FUSED_REL_L2:
+                raise AssertionError(f"ab: fused {kind} ({turn}) is off")
+        del ref, got
+        cyc = itertools.cycle(views)
+        for how, timer in (("queued", _queued_ms), ("eager", _eager_ms)):
+            mean, each = _ab(versions, lambda: timer(
+                lambda: pa.fused_block_decode(x, blk, *next(cyc), table,
+                                              lengths, **kw), 40))
+            print(f"  fused_block_decode {kind}, one layer, {how}: A "
+                  f"{mean['A']:.4f} ms, B {mean['B']:.4f} ms (40 calls a "
+                  f"turn over 4 layers; turns A B B A: {_turns(each)})")
+        geo = pa._fused_geometry(x, blk, *views[0], table, lengths, kind,
+                                 cos, sin, False)
+        # room for either version's clock: a version writes its start,
+        # its phases' ends and its end, and leaves the rest 0
+        clock = torch.zeros(16, dtype=torch.int64, device=dev)
+        for turn in "AB":
+            with _as_version(versions[turn]):
+                runs = []
+                for _ in range(10):
+                    clock.zero_()
+                    pa._fused_kernel_call(x, blk, *views[0], table, lengths,
+                                          cos, sin, kw["eps"], d ** -0.5,
+                                          True, *geo, clock=clock,
+                                          kind=kind)
+                    t = np.asarray(clock.tolist(), np.int64)
+                    runs.append(np.diff(t[:int(np.count_nonzero(t))]) / 1e3)
+            us = np.median(np.stack(runs), axis=0)
+            names = phases if len(us) == len(phases) else [
+                f"phase {i + 1}" for i in range(len(us))]
+            print(f"  fused_block_decode {kind} phases ({turn}, median of 10 "
+                  f"launches, {us.sum():.1f} us in all): " + ", ".join(
+                      f"{n} {t:.1f} us" for n, t in zip(names, us)))
+        del blk, pool_k, pool_v, views, x
+        torch.cuda.empty_cache()
+    gcfg = GPTConfig(**GPT_CFG)
+    engine = InferenceEngine("gpt", gcfg, _random_gpt(gcfg, dev, seed + 10),
+                             slots=8, max_seq=gcfg.max_seq_length,
+                             page_size=64, decode_fusion="1", device=dev)
+    _ab_steps("fused decode step, 8 slots, GPT-3 1.3B", engine,
+              GPT_PROMPT_LENS, seed + 10, versions, "fused_block_decode_gpt")
+    del engine
+    torch.cuda.empty_cache()
+    lcfg = LlamaConfig(**FULL_CFG)
+    engine = InferenceEngine("llama", lcfg, _random_llama(lcfg, dev, seed),
+                             slots=8, max_seq=DENSE_MAX_SEQ, device=dev)
+    _ab_steps("dense decode step, 8 slots at 8192 positions, Llama-3-8B",
+              engine, PROMPT_LENS, seed, versions, "flash_attention_masked")
+    del engine
     torch.cuda.empty_cache()
 
 

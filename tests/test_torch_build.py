@@ -87,14 +87,23 @@ def test_flash_sources_take_the_shared_template(name):
     assert "wgmma.mma_async" in _code((CSRC / "hopper.cuh").read_text())
 
 
+def _paged_code() -> str:
+    """The paged decode source with the kernel template it includes
+    (``kv_decode.cuh``, shared with the dense cache's decode)."""
+    code = _code((CSRC / "paged_attention.cu").read_text())
+    assert '#include "kv_decode.cuh"' in code
+    return code + _code((CSRC / "kv_decode.cuh").read_text())
+
+
 def test_paged_source_takes_the_hopper_helpers_and_is_hashed_with_them(
         csrc_copy):
     """The paged decode kernel loads its pages with the TMA and mbarrier
     helpers of ``hopper.cuh``; an edit to the header rebuilds it."""
-    code = _code((CSRC / "paged_attention.cu").read_text())
+    code = _paged_code()
     assert '#include "hopper.cuh"' in code
     assert "paged_attention.cu" in _build.SOURCES
-    assert {"paged_attention.cu", "hopper.cuh"} <= set(_build._digest_files())
+    assert {"paged_attention.cu", "kv_decode.cuh",
+            "hopper.cuh"} <= set(_build._digest_files())
     before = _build._digest()
     path = csrc_copy / "hopper.cuh"
     path.write_bytes(path.read_bytes() + b"\n// edited\n")
@@ -102,6 +111,6 @@ def test_paged_source_takes_the_hopper_helpers_and_is_hashed_with_them(
 
 
 def test_paged_source_runs_its_products_on_the_tensor_cores():
-    code = _code((CSRC / "paged_attention.cu").read_text())
+    code = _paged_code()
     assert "mma.sync.aligned.m16n8k16" in code
     assert "cp.async.bulk.tensor" in code and "cp.async.cg" not in code

@@ -8,8 +8,11 @@ repeatability, the LAMB rule against its plain route, axpby and the
 fused scale and norm with the ``multi_tensor_applier`` shim over them,
 the split flash backward's two kernels and its route, the masked flash
 forward over per-batch, per-head, shared and key-only masks with fully
-masked rows, causal offsets and ragged windows (and
-``decode_attention``'s kernel branch against its plain chain), paged
+masked rows, causal offsets and ragged windows, and over masks with
+dead, full and partly dead tiles and dead query blocks (and
+``decode_attention``'s kernel branch against its plain chain, the
+decode kernel on a strided cache layer at every query group and head
+dim with no broadcast allocated), paged
 decode over
 every query group, head dim and page size with lengths on and across
 page and split edges, 8192-position windows and 1 to 256 slots (two
@@ -311,6 +314,153 @@ def test_masked_decode_drops_no_tile_of_a_long_slot(cuda):
     torch.cuda.synchronize()
     assert _row_errors(got, ref).max().item() <= 2.0 ** -6
     assert _row_errors(off, ref)[:h].min().item() > 2.0 ** -6
+
+
+# -- the masked forward's tile classes ---------------------------------
+#
+# The pre-pass sorts each (mask, 128-query block, 128-key tile) into
+# dead, full or partial; the kernel skips dead tiles, takes full ones
+# whole and reads a partial one's bits.  Masks built so that every kind
+# of tile occurs, over 3 query blocks (the last ragged) and 5 key tiles
+# (the last ragged), two masks over four heads, causal or not.
+
+def _tile_mask(kind, nmask, sq, sk, seed):
+    rng = np.random.RandomState(seed)
+    mask = rng.rand(nmask, sq, sk) < 0.05
+    if kind == "dead-middle":           # key tile 1 dead for every row
+        mask[:, :, 128:256] = True
+    elif kind == "dead-block":          # query block 1 of mask 0 all dead
+        mask[0, 128:256, :] = True
+    elif kind == "all-full":            # nothing masked: every tile full
+        mask[:] = False
+    elif kind == "dead-some-rows":      # tile 2 dead for rows 0..63 only,
+        mask[:, 0:64, 256:384] = True   # rows 128..191 fully masked
+        mask[:, 128:192, :] = True
+    return mask
+
+
+@pytest.mark.parametrize("kind", ["dead-middle", "dead-block", "all-full",
+                                  "dead-some-rows"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_masked_flash_kernel_tile_classes(cuda, kind, causal, d):
+    bh, sq, sk, nmask = 4, 300, 520, 2
+    q, k, v = (_randn((bh, s_, d), seed, cuda)
+               for s_, seed in ((sq, 110), (sk, 111), (sk, 112)))
+    mask3 = torch.from_numpy(_tile_mask(kind, nmask, sq, sk, 113)).to(cuda)
+    before = _build.launch_counts()["flash_attention_masked"]
+    got, lse = attn._fwd(q, k, v, causal, d ** -0.5, mask3=mask3)
+    assert _build.launch_counts()["flash_attention_masked"] == before + 1
+    ref, ref_lse = attn._fwd_reference(q, k, v, causal, d ** -0.5,
+                                       mask3=mask3)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+    assert _row_errors(got, ref).max().item() <= 2.0 ** -6
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    dead = ref_lse <= -0.5e30
+    assert bool((got[dead] == 0).all()) and bool((lse[dead] == -1e30).all())
+    if kind == "dead-block":
+        assert bool(dead[:2, 128:256].all())
+    if kind == "all-full":
+        plain, plain_lse = attn._fwd(q, k, v, causal, d ** -0.5)
+        torch.cuda.synchronize()
+        assert (got.float() - plain.float()).abs().max().item() <= 2e-2
+        assert (lse - plain_lse).abs().max().item() <= 1e-3
+
+
+# -- decode against the dense cache without the k/v broadcast -----------
+#
+# decode_attention's kernel branch on one layer's strided view of a
+# [slots, layers, kv_heads, S, d] cache: the query heads of a kv head as
+# the rows of one problem, the lengths as the mask; lengths on and
+# across the kernel's 64-position tiles and the flash tile's 128, and
+# the whole 8192-position cache.  Held against the decode kernel's plain
+# version per row (2^-6 of each row's own max) and absolutely.
+
+DENSE_LENGTHS = [0, 1, 63, 64, 65, 127, 128, 129, 8192]
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_decode_kernel_reads_the_strided_cache_without_broadcast(
+        cuda, group, d):
+    b, kvh, layers, s_cache = len(DENSE_LENGTHS), 2, 2, 8192
+    ck = _randn((b, layers, kvh, s_cache, d), 120, cuda)
+    cv = _randn((b, layers, kvh, s_cache, d), 121, cuda)
+    q = _randn((b, kvh * group, 1, d), 122, cuda)
+    lengths = torch.tensor(DENSE_LENGTHS, dtype=torch.int32, device=cuda)
+    kv, vv = ck[:, 1], cv[:, 1]
+    assert not kv.is_contiguous()
+    counts = _build.launch_counts()
+    got = attn.decode_attention(q, kv, vv, lengths, use_kernel=True)
+    after = _build.launch_counts()
+    assert after["flash_attention_masked"] == \
+        counts["flash_attention_masked"] + 1
+    assert after["flash_attention"] == counts["flash_attention"]
+    ref = attn._decode_reference(q.reshape(b, kvh, group, d), kv, vv,
+                                 lengths, d ** -0.5)
+    torch.cuda.synchronize()
+    got = got.reshape(b, kvh, group, d)
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+    assert _row_errors(got, ref).max().item() <= 2.0 ** -6
+    assert bool((got[0] == 0).all())
+
+
+def test_decode_kernel_drops_no_tile_of_a_long_slot(cuda):
+    """The per-row limit sees one 64-position tile of an 8192-position
+    slot left out; the kernel holds it."""
+    b, kvh, group, s_cache, d = 2, 8, 4, 8192, 128
+    k = _randn((b, kvh, s_cache, d), 123, cuda)
+    v = _randn((b, kvh, s_cache, d), 124, cuda)
+    q = _randn((b, kvh * group, d), 125, cuda)
+    lengths = torch.tensor([8192, 5000], dtype=torch.int32, device=cuda)
+    got = attn.decode_attention(q, k, v, lengths, use_kernel=True)
+    qg = q.reshape(b, kvh, group, d)
+    ref = attn._decode_reference(qg, k, v, lengths, d ** -0.5)
+    hole = k.clone()
+    hole[0, :, 4096:4160] = 0
+    off = attn._decode_reference(qg, hole, v, lengths, d ** -0.5)
+    torch.cuda.synchronize()
+    got = got.reshape(b, kvh, group, d)
+    assert _row_errors(got, ref).max().item() <= 2.0 ** -6
+    assert _row_errors(off[0], ref[0]).min().item() > 2.0 ** -6
+
+
+def test_decode_branch_allocates_no_broadcast(cuda):
+    """At Llama-3-8B's [8, 32, 1, 8192] over 8 kv heads the broadcast k/v
+    alone would be 1.07 GB: the kernel branch's peak rises by less than
+    64 MB over the call (its output and the split partials)."""
+    b, h, kvh, s_cache, d = 8, 32, 8, 8192, 128
+    k = _randn((b, kvh, s_cache, d), 126, cuda)
+    v = _randn((b, kvh, s_cache, d), 127, cuda)
+    q = _randn((b, h, 1, d), 128, cuda)
+    lengths = torch.tensor([0, 1, 100, 1000, 4097, 6000, 8000, 8192],
+                           dtype=torch.int32, device=cuda)
+    attn.decode_attention(q, k, v, lengths, use_kernel=True)   # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    start = torch.cuda.memory_allocated(cuda)
+    out = attn.decode_attention(q, k, v, lengths, use_kernel=True)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(cuda) - start
+    assert out.shape == (b, h, 1, d)
+    assert rise < 64 * 2 ** 20, rise
+
+
+@pytest.mark.parametrize("slots", [1, 8, 9])
+def test_fused_gpt_block_kernel_slot_counts(cuda, slots):
+    """The GPT instance at 1, 8 and 9 slots (one pass of eight, a full
+    pass, a second pass of one) over lengths up to past the window."""
+    lengths = [0, 1, 15, 16, 255, 256, 257, 384, 500][:slots]
+    if slots == 1:
+        lengths = [300]
+    args, kw = _gpt_fused_case(cuda, 128, lengths)
+    before = _build.launch_counts()["fused_block_decode_gpt"]
+    got = pa.fused_block_decode(*args, **kw)
+    assert _build.launch_counts()["fused_block_decode_gpt"] == before + 1
+    ref = pa.fused_block_reference(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_fused_close(got, ref)
 
 
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
