@@ -27,11 +27,14 @@ backward that trains at 8192 tokens — and Apex's optimizer classes
 (:mod:`.optimizers`: ``FusedAdam(model.parameters())`` and its
 siblings, as ``torch.optim.Optimizer`` twins on the flat rules, or over
 a tree of tensors) with the train-to-serve handoff
-(``InferenceEngine.from_train_state`` / ``from_state_dict``).
+(``InferenceEngine.from_train_state`` / ``from_state_dict``) — and
+GPT and BERT serving and training (:mod:`.models`, the flagship model
+zoo, with dropout and the padding mask in training mode on the flash
+kernels' mask and dropout instances).
 Importing this package imports neither ``jax`` nor ``apex_tpu``.
 """
 from apex_tpu_torch.utils import cdiv, resolve_device, round_up
-from apex_tpu_torch import multi_tensor_apply, optimizers
+from apex_tpu_torch import models, multi_tensor_apply, optimizers
 
-__all__ = ["cdiv", "round_up", "resolve_device", "multi_tensor_apply",
-           "optimizers"]
+__all__ = ["cdiv", "round_up", "resolve_device", "models",
+           "multi_tensor_apply", "optimizers"]

@@ -96,97 +96,15 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
       valid_q, valid_k, scale_log2, 0.f, stream);
 }
 
-// The mask pre-pass: block (kt, qb, m) classifies key tile kt of query
-// block qb of mask m (flash_qmajor.cuh: kTileDead / Partial / Full) over
-// the elements the causal and validity masks leave live, and writes the
-// tile's bits (1 = masked; out of range reads as masked).  Thread t
-// reads row t / 2, keys 64 (t % 2) .. + 64 (four 16-byte loads where
-// the rows are 16-byte aligned), and the two threads of a row combine
-// their halves of each word.  A tile the kernel never visits (past the
-// causal diagonal or the windows) is left alone.
-__global__ void __launch_bounds__(256)
-mask_tiles_kernel(const unsigned char* __restrict__ mask,
-                  unsigned char* __restrict__ cls,
-                  unsigned* __restrict__ bits, int sq, int sk, int causal,
-                  int off, int valid_q, int valid_k) {
-  const int kt = blockIdx.x, qb = blockIdx.y, m = blockIdx.z;
-  const int nkt = gridDim.x, nqb = gridDim.y;
-  const int q0 = qb * kQmBQ, k0 = kt * kMaskTile;
-  const int q_end = min(sq, valid_q), kv_end = min(sk, valid_k);
-  int kend = kv_end;
-  if (causal) kend = min(kend, q0 + kQmBQ + off);
-  if (q0 >= q_end || k0 >= kend) return;
-  const size_t tile = ((size_t)m * nqb + qb) * nkt + kt;
-  const int t = threadIdx.x, r = t >> 1, half = t & 1;
-  const int row = q0 + r, c0 = k0 + half * 64;
-  // the 64 mask bytes of this thread, 4 to a word (out of range: masked)
-  unsigned w[16];
-  const unsigned char* src = mask + ((size_t)m * sq + row) * sk + c0;
-  if (row < sq && c0 + 64 <= sk && (sk & 15) == 0 &&
-      (reinterpret_cast<uintptr_t>(mask) & 15) == 0) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const uint4 x = __ldg(reinterpret_cast<const uint4*>(src) + u);
-      w[4 * u] = x.x; w[4 * u + 1] = x.y; w[4 * u + 2] = x.z;
-      w[4 * u + 3] = x.w;
-    }
-  } else {
-#pragma unroll
-    for (int u = 0; u < 16; ++u) {
-      unsigned x = 0;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int c = c0 + 4 * u + b;
-        const unsigned byte = (row < sq && c < sk) ? src[4 * u + b] : 1u;
-        x |= (byte & 0xffu) << (8 * b);
-      }
-      w[u] = x;
-    }
-  }
-  // word tig: bit 2 j + e for key 8 j + 2 tig + e; this half holds keys
-  // 64 half .. + 64, that is j = 8 half .. + 8
-  unsigned word[4] = {0u, 0u, 0u, 0u};
-  int any_vis = 0, any_msk = 0;
-#pragma unroll
-  for (int cc = 0; cc < 64; ++cc) {
-    const int c = c0 + cc;
-    const bool masked = ((w[cc >> 2] >> (8 * (cc & 3))) & 0xffu) != 0;
-    const bool lv = row < q_end && c < kv_end && (!causal || c <= row + off);
-    any_vis |= lv && !masked;
-    any_msk |= lv && masked;
-    const int j = half * 8 + (cc >> 3), tig = (cc & 7) >> 1, e = cc & 1;
-    word[tig] |= (unsigned)masked << (2 * j + e);
-  }
-  unsigned* out = bits + tile * kMaskWords + r * 4;
-#pragma unroll
-  for (int tig = 0; tig < 4; ++tig) {
-    const unsigned both = word[tig] | __shfl_xor_sync(0xffffffffu,
-                                                      word[tig], 1);
-    if ((tig >> 1) == half) out[tig] = both;
-  }
-  any_vis = __syncthreads_or(any_vis);
-  any_msk = __syncthreads_or(any_msk);
-  if (t == 0)
-    cls[tile] = !any_vis ? kTileDead : any_msk ? kTilePartial : kTileFull;
-}
-
 template <int D>
 int launch_masked(const void* q, const void* k, const void* v,
                   const void* mask, void* cls, void* bits, void* o,
                   void* lse, int bh, int sq, int sk, int causal, int off,
                   int valid_q, int valid_k, int mask_hper, float scale_log2,
                   cudaStream_t stream) {
-  const int nqb = (sq + kQmBQ - 1) / kQmBQ;
-  const int nkt = (sk + kMaskTile - 1) / kMaskTile;
-  if (nkt > 0) {
-    const dim3 grid(nkt, nqb, bh / mask_hper);
-    mask_tiles_kernel<<<grid, 256, 0, stream>>>(
-        static_cast<const unsigned char*>(mask),
-        static_cast<unsigned char*>(cls), static_cast<unsigned*>(bits), sq,
-        sk, causal, off, valid_q, valid_k);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int e = launch_mask_tiles(mask, cls, bits, bh / mask_hper, sq, sk,
+                                  sk, causal, off, valid_q, valid_k, stream);
+  if (e) return e;
   return launch_qmajor<D, false, kFwdBK, true>(
       q, k, v, nullptr, nullptr, nullptr, o, lse, bh, sq, sk, causal, off,
       valid_q, valid_k, scale_log2, 0.f, stream, cls, bits, mask_hper);

@@ -38,7 +38,7 @@
 // to the block are never loaded.  The forward's MASK instance also
 // applies the boolean mask3 operand (_fwd_kernel's mask_ref, True =
 // masked, batch-head bh reading mask bh / mask_hper) through what the
-// masked launch's pre-pass (mask_tiles_kernel, flash_attention.cu) made
+// masked launch's pre-pass (mask_tiles_kernel, below) made
 // of it: a class a (mask, 128-query block, key tile) and the tile's mask
 // bits in the product threads' order.  Both warpgroups walk only the
 // tiles that are not dead (the copies never load a dead tile), a full
@@ -48,6 +48,17 @@
 // their product (the forward's row sum keeps the fp32 p); a fully masked
 // row emits 0 and lse -1e30 (so does a block whose tiles are all dead),
 // and gets dq 0 where its lse < -0.5e30.
+//
+// The split dq kernel takes the same mask through the same pre-pass
+// (MASK with DQ): its 64-key steps read half of a 128-key tile's class
+// and bits.  DROP (both kernels) is attention dropout with the JAX
+// package's keep mask (hopper.cuh, drop_keep) from the seed operand
+// [seed, row_off, col_off] read from device memory: the forward drops p
+// (and scales the survivors by 1 / (1 - rate)) after its row sums took
+// the clean p, before P is packed for the P V product, as _fwd_kernel
+// does; dq takes dS = P (keep ? dP / (1 - rate) : 0 - delta), as
+// _dropped_dp gives it.  Without MASK and DROP the instances are the
+// ones of the unmasked path, unchanged.
 #pragma once
 
 #include "hopper.cuh"
@@ -91,11 +102,13 @@ struct QmTiles {
 // fp32 [bh, sq], may be null); dout, lse_in, delta and scale unused.
 // DQ = true: out = dq [bh, sq, D] bf16, written once; lse_out unused.
 // The operands come as tensor maps (bf16_tile_map): q and dO with
-// 128-row boxes, k and v with BK-row boxes.  MASK (forward only): mask
-// [bh / mask_hper, sq, sk] bytes, nonzero = masked, as the pre-pass's
-// classes cls [nmask, nqb, nkt] and bits [nmask, nqb, nkt, kMaskWords]
-// (nqb query blocks of 128, nkt key tiles of BK = 128).
-template <int D, bool DQ, int BK, bool MASK = false>
+// 128-row boxes, k and v with BK-row boxes.  MASK: mask [bh / mask_hper,
+// sq, sk] bytes, nonzero = masked, as the pre-pass's classes cls [nmask,
+// nqb, nkt] and bits [nmask, nqb, nkt, kMaskWords] (nqb query blocks of
+// 128, nkt key tiles of 128; a BK-key step reads its tile's).  DROP:
+// seed3 [seed, row_off, col_off] int32 in device memory, the keep
+// threshold and inv_keep = 1 / (1 - rate).
+template <int D, bool DQ, int BK, bool MASK = false, bool DROP = false>
 __global__ void __launch_bounds__(kQmThreads, 1)
 flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -108,9 +121,11 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
                     float scale_log2, float scale,
                     const unsigned char* __restrict__ cls,
                     const unsigned* __restrict__ bits, int mask_hper,
-                    int nkt) {
-  static_assert(!(MASK && DQ), "the mask operand is the forward's");
-  static_assert(!MASK || BK == kMaskTile, "the pre-pass's tiles are BK's");
+                    int nkt, const int* __restrict__ seed3,
+                    unsigned threshold, float inv_keep) {
+  static_assert(kMaskTile % BK == 0, "a step lies inside a pre-pass tile");
+  // the pre-pass tiles hold kStepsPerTile key steps each
+  constexpr int kStepsPerTile = kMaskTile / BK;
   using T = QmTiles<D, DQ, BK>;
   constexpr int DP = T::DP;
   constexpr int kKS = D / 16;     // k16 steps of S (and dP) over d
@@ -149,7 +164,8 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
   int nlive = nk;
   if constexpr (MASK) {
     nlive = 0;
-    for (int kt = 0; kt < nk; ++kt) nlive += tcls[kt] != kTileDead;
+    for (int kt = 0; kt < nk; ++kt)
+      nlive += tcls[kt / kStepsPerTile] != kTileDead;
   }
 
   if (tid == 0) {
@@ -176,7 +192,7 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
       // i: the ordinal of tile kt among those loaded (MASK: not dead)
       for (int kt = 0, i = 0; kt < nk; ++kt) {
         if constexpr (MASK)
-          if (tcls[kt] == kTileDead) continue;
+          if (tcls[kt / kStepsPerTile] == kTileDead) continue;
         const int st = i % T::kStages, use = i / T::kStages;
         ++i;
         // the stage's last tile is released by every product thread
@@ -229,6 +245,31 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
   // MASK: this thread's bits of rows row and row + 8 in each tile
   const unsigned* tbits =
       MASK ? bits + mtile * kMaskWords + (row - q0) * 4 + tig : nullptr;
+  // MASK: false where key step kt is dead; else `fast` cleared unless the
+  // step is full, and rows row and row + 8's bits of a partial step in
+  // mw (bit 2 j + e for the step's key j * 8 + 2 tig + e)
+  auto step_mask = [&](int kt, bool& fast, unsigned (&mw)[2]) {
+    const unsigned char c = tcls[kt / kStepsPerTile];
+    fast = fast && c == kTileFull;
+    if (c != kTileDead && !fast) {
+      const size_t w = (size_t)(kt / kStepsPerTile) * kMaskWords;
+      const int sh = 2 * (BK / 8) * (kt % kStepsPerTile);
+      mw[0] = __ldg(tbits + w) >> sh;
+      mw[1] = __ldg(tbits + w + 32) >> sh;
+    }
+    return c != kTileDead;
+  };
+  // DROP: rows row and row + 8's part of the keep hash, and the column
+  // offset
+  uint32_t hrow[2] = {0u, 0u}, hcol0 = 0u;
+  if constexpr (DROP) {
+    const uint32_t seed = (uint32_t)__ldg(seed3);
+    const uint32_t roff = (uint32_t)__ldg(seed3 + 1);
+    hcol0 = (uint32_t)__ldg(seed3 + 2);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      hrow[hf] = drop_row(seed, (uint32_t)bh, roff + (uint32_t)(row + hf * 8));
+  }
 
   float acc[kON];                 // O, or dQ
 #pragma unroll
@@ -246,15 +287,8 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
       const int i = MASK ? taken : kt;  // the tile's place in the ring
       unsigned mw[2] = {0u, 0u};      // MASK: rows row, row + 8's bits
       bool fast = full_tile(kt * BK);
-      if constexpr (MASK) {
-        const unsigned char c = tcls[kt];
-        if (c == kTileDead) continue;
-        fast = fast && c == kTileFull;
-        if (!fast) {
-          mw[0] = __ldg(tbits + (size_t)kt * kMaskWords);
-          mw[1] = __ldg(tbits + (size_t)kt * kMaskWords + 32);
-        }
-      }
+      if constexpr (MASK)
+        if (!step_mask(kt, fast, mw)) continue;
       const int st = i % T::kStages;
       wait_kv(i);
 #pragma unroll
@@ -345,6 +379,23 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
           m[hf] = m_new;
         }
       }
+      if constexpr (DROP) {
+        // the row sums above took the clean p; P V takes the dropped,
+        // rescaled one
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const uint32_t ch =
+                drop_col(hcol0 + (uint32_t)(k0 + j * 8 + tig * 2 + e));
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int x = j * 4 + hf * 2 + e;
+              s[x] = drop_keep(hrow[hf], ch, threshold) ? s[x] * inv_keep
+                                                        : 0.f;
+            }
+          }
+      }
 
       wgmma_wait<0>();        // P_{t-1} V_{t-1} is done: O and P are free
       keep(acc);
@@ -402,11 +453,17 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
       lrow[hf] = r < sq ? lse_in[bh * (size_t)sq + r] : kNegInf;
       drow[hf] = r < sq ? delta[bh * (size_t)sq + r] : 0.f;
     }
+    int taken = 0;                    // MASK: tiles taken so far
     for (int kt = 0; kt < nk; ++kt) {
+      const int i = MASK ? taken : kt;  // the tile's place in the ring
+      unsigned mw[2] = {0u, 0u};      // MASK: rows row, row + 8's bits
+      bool fast = full_tile(kt * BK);
+      if constexpr (MASK)
+        if (!step_mask(kt, fast, mw)) continue;
       float s[kSN], dp[kSN];  // overwritten by their first k-step
-      const int st = kt % T::kStages;
+      const int st = i % T::kStages;
       const uint32_t cK = sK + st * T::kKV, cV = sV + st * T::kKV;
-      wait_kv(kt);
+      wait_kv(i);
 
       // S = Q K^T and dP = dO V^T, one commit group each
       wgmma_fence();
@@ -425,10 +482,10 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
       // every mask for this warp's rows, whose lse is then finite, skips
       // them)
       const int k0 = kt * BK;
-      if (full_tile(k0)) {
+      if (fast) {
 #pragma unroll
-        for (int i = 0; i < kSN; ++i)
-          s[i] = exp2_ftz(fmaf(s[i], scale_log2, -lrow[(i >> 1) & 1]));
+        for (int x = 0; x < kSN; ++x)
+          s[x] = exp2_ftz(fmaf(s[x], scale_log2, -lrow[(x >> 1) & 1]));
       } else {
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf)
@@ -438,6 +495,7 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
             for (int e = 0; e < 2; ++e) {
               const int x = j * 4 + hf * 2 + e;
               s[x] = (live(row + hf * 8, k0 + j * 8 + tig * 2 + e) &&
+                      !((mw[hf] >> (j * 2 + e)) & 1u) &&
                       lrow[hf] > kMaskedRowThresh)
                          ? exp2_ftz(s[x] * scale_log2 - lrow[hf])
                          : 0.f;
@@ -445,10 +503,28 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
       }
       wgmma_wait<0>();        // dP done
       keep(dp);
-      // dS = P (dP - delta), rounded to bf16 as dQ's A
+      // dS = P (dP - delta), rounded to bf16 as dQ's A (DROP: the dP of
+      // a dropped element is 0, of a kept one dP / (1 - rate))
+      if constexpr (DROP) {
 #pragma unroll
-      for (int i = 0; i < kSN; ++i)
-        dp[i] = s[i] * (dp[i] - drow[(i >> 1) & 1]);
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const uint32_t ch =
+                drop_col(hcol0 + (uint32_t)(k0 + j * 8 + tig * 2 + e));
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int x = j * 4 + hf * 2 + e;
+              const float g = drop_keep(hrow[hf], ch, threshold)
+                                  ? dp[x] * inv_keep : 0.f;
+              dp[x] = s[x] * (g - drow[hf]);
+            }
+          }
+      } else {
+#pragma unroll
+        for (int x = 0; x < kSN; ++x)
+          dp[x] = s[x] * (dp[x] - drow[(x >> 1) & 1]);
+      }
       to_a_frags(pa, dp);
 
       // dQ += dS K: K read N-major from this stage's tile
@@ -461,7 +537,8 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       keep(acc);
       keep(pa);
-      release_kv(kt);
+      release_kv(i);
+      if constexpr (MASK) ++taken;
     }
 
     // this block owns its queries' dq: plain stores, no atomics
@@ -481,16 +558,111 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// flash_qmajor_kernel<D, DQ, BK, MASK>, one block per (b*h, 128-query
-// block); the operands' tensor maps are encoded here.
-template <int D, bool DQ, int BK, bool MASK = false>
+// The mask pre-pass: block (kt, qb, m) classifies key tile kt of query
+// block qb of mask m (flash_qmajor.cuh: kTileDead / Partial / Full) over
+// the elements the causal and validity masks leave live, and writes the
+// tile's bits (1 = masked; out of range reads as masked).  Thread t
+// reads row t / 2, keys 64 (t % 2) .. + 64 (four 16-byte loads where
+// the rows are 16-byte aligned), and the two threads of a row combine
+// their halves of each word.  A tile the kernels never visit (past the
+// causal diagonal or the windows) is left alone.  The mask's rows are
+// ld bytes apart (ld >= sk).
+__global__ void __launch_bounds__(256)
+mask_tiles_kernel(const unsigned char* __restrict__ mask,
+                  unsigned char* __restrict__ cls,
+                  unsigned* __restrict__ bits, int sq, int sk, int ld,
+                  int causal, int off, int valid_q, int valid_k) {
+  const int kt = blockIdx.x, qb = blockIdx.y, m = blockIdx.z;
+  const int nkt = gridDim.x, nqb = gridDim.y;
+  const int q0 = qb * kQmBQ, k0 = kt * kMaskTile;
+  const int q_end = min(sq, valid_q), kv_end = min(sk, valid_k);
+  int kend = kv_end;
+  if (causal) kend = min(kend, q0 + kQmBQ + off);
+  if (q0 >= q_end || k0 >= kend) return;
+  const size_t tile = ((size_t)m * nqb + qb) * nkt + kt;
+  const int t = threadIdx.x, r = t >> 1, half = t & 1;
+  const int row = q0 + r, c0 = k0 + half * 64;
+  // the 64 mask bytes of this thread, 4 to a word (out of range: masked)
+  unsigned w[16];
+  const unsigned char* src = mask + ((size_t)m * sq + row) * ld + c0;
+  if (row < sq && c0 + 64 <= sk && (ld & 15) == 0 &&
+      (reinterpret_cast<uintptr_t>(mask) & 15) == 0) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(src) + u);
+      w[4 * u] = x.x; w[4 * u + 1] = x.y; w[4 * u + 2] = x.z;
+      w[4 * u + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      unsigned x = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int c = c0 + 4 * u + b;
+        const unsigned byte = (row < sq && c < sk) ? src[4 * u + b] : 1u;
+        x |= (byte & 0xffu) << (8 * b);
+      }
+      w[u] = x;
+    }
+  }
+  // word tig: bit 2 j + e for key 8 j + 2 tig + e; this half holds keys
+  // 64 half .. + 64, that is j = 8 half .. + 8
+  unsigned word[4] = {0u, 0u, 0u, 0u};
+  int any_vis = 0, any_msk = 0;
+#pragma unroll
+  for (int cc = 0; cc < 64; ++cc) {
+    const int c = c0 + cc;
+    const bool masked = ((w[cc >> 2] >> (8 * (cc & 3))) & 0xffu) != 0;
+    const bool lv = row < q_end && c < kv_end && (!causal || c <= row + off);
+    any_vis |= lv && !masked;
+    any_msk |= lv && masked;
+    const int j = half * 8 + (cc >> 3), tig = (cc & 7) >> 1, e = cc & 1;
+    word[tig] |= (unsigned)masked << (2 * j + e);
+  }
+  unsigned* out = bits + tile * kMaskWords + r * 4;
+#pragma unroll
+  for (int tig = 0; tig < 4; ++tig) {
+    const unsigned both = word[tig] | __shfl_xor_sync(0xffffffffu,
+                                                      word[tig], 1);
+    if ((tig >> 1) == half) out[tig] = both;
+  }
+  any_vis = __syncthreads_or(any_vis);
+  any_msk = __syncthreads_or(any_msk);
+  if (t == 0)
+    cls[tile] = !any_vis ? kTileDead : any_msk ? kTilePartial : kTileFull;
+}
+
+// The pre-pass over nmask masks of [sq, ld] bytes into cls [nmask, nqb,
+// nkt] and bits [nmask, nqb, nkt, kMaskWords].
+inline int launch_mask_tiles(const void* mask, void* cls, void* bits,
+                             int nmask, int sq, int sk, int ld, int causal,
+                             int off, int valid_q, int valid_k,
+                             cudaStream_t stream) {
+  const int nqb = (sq + kQmBQ - 1) / kQmBQ;
+  const int nkt = (sk + kMaskTile - 1) / kMaskTile;
+  if (nkt == 0) return 0;
+  if (mask == nullptr || cls == nullptr || bits == nullptr || ld < sk)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(nkt, nqb, nmask);
+  mask_tiles_kernel<<<grid, 256, 0, stream>>>(
+      static_cast<const unsigned char*>(mask),
+      static_cast<unsigned char*>(cls), static_cast<unsigned*>(bits), sq, sk,
+      ld, causal, off, valid_q, valid_k);
+  return (int)cudaGetLastError();
+}
+
+// flash_qmajor_kernel<D, DQ, BK, MASK, DROP>, one block per (b*h,
+// 128-query block); the operands' tensor maps are encoded here.
+template <int D, bool DQ, int BK, bool MASK = false, bool DROP = false>
 int launch_qmajor(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse_in, const void* delta,
                   void* out, void* lse_out, int bh, int sq, int sk,
                   int causal, int off, int valid_q, int valid_k,
                   float scale_log2, float scale, cudaStream_t stream,
                   const void* cls = nullptr, const void* bits = nullptr,
-                  int mask_hper = 1) {
+                  int mask_hper = 1, const void* seed3 = nullptr,
+                  unsigned threshold = 0, float inv_keep = 1.f) {
   CUtensorMap tq, tk, tv, tdo;
   int e = bf16_tile_map(&tq, q, bh, sq, D, kQmBQ);
   // no keys: no block loads k or v, whose maps then describe q
@@ -504,9 +676,10 @@ int launch_qmajor(const void* q, const void* k, const void* v,
   if (MASK && (cls == nullptr || bits == nullptr || mask_hper < 1 ||
                bh % mask_hper))
     return (int)cudaErrorInvalidValue;
+  if (DROP && seed3 == nullptr) return (int)cudaErrorInvalidValue;
   const size_t bytes = QmTiles<D, DQ, BK>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_qmajor_kernel<D, DQ, BK, MASK>,
+      flash_qmajor_kernel<D, DQ, BK, MASK, DROP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)bh * ((sq + kQmBQ - 1) / kQmBQ);
@@ -516,14 +689,16 @@ int launch_qmajor(const void* q, const void* k, const void* v,
   const long long ngroups = (kv_bytes + kL2Half - 1) / kL2Half;
   const int group = (int)((bh + ngroups - 1) / ngroups);
   const dim3 grid((unsigned)blocks);
-  flash_qmajor_kernel<D, DQ, BK, MASK><<<grid, kQmThreads, bytes, stream>>>(
+  flash_qmajor_kernel<D, DQ, BK, MASK, DROP>
+      <<<grid, kQmThreads, bytes, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse_in),
       static_cast<const float*>(delta), static_cast<bf16*>(out),
       static_cast<float*>(lse_out), bh, group, sq, sk, causal, off,
       valid_q, valid_k, scale_log2, scale,
       static_cast<const unsigned char*>(cls),
       static_cast<const unsigned*>(bits), mask_hper,
-      (sk + kMaskTile - 1) / kMaskTile);
+      (sk + kMaskTile - 1) / kMaskTile, static_cast<const int*>(seed3),
+      threshold, inv_keep);
   return (int)cudaGetLastError();
 }
 

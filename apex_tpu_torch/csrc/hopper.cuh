@@ -56,6 +56,32 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
+// Attention dropout: the JAX package's keep mask (attention.py ::
+// _keep_mask), murmur3's 32-bit finalizer over seed ^ bh * H1 ^ row * H2
+// ^ col * H3 at the GLOBAL query row and key column (the seed operand's
+// row_off and col_off added), uint32 arithmetic; an element survives
+// where the top 24 bits reach round(rate * 2^24), computed by the host as
+// JAX computes it.  The row part is per query row, the column part per
+// key; the finalizer is per element.
+constexpr uint32_t kH1 = 0x9E3779B9u, kH2 = 0x85EBCA6Bu, kH3 = 0xC2B2AE35u;
+__device__ __forceinline__ uint32_t drop_row(uint32_t seed, uint32_t bh,
+                                             uint32_t row) {
+  return seed ^ (bh * kH1) ^ (row * kH2);
+}
+__device__ __forceinline__ uint32_t drop_col(uint32_t col) {
+  return col * kH3;
+}
+__device__ __forceinline__ bool drop_keep(uint32_t row_h, uint32_t col_h,
+                                          uint32_t threshold) {
+  uint32_t h = row_h ^ col_h;
+  h ^= h >> 16;
+  h *= kH2;
+  h ^= h >> 13;
+  h *= kH3;
+  h ^= h >> 16;
+  return (h >> 8) >= threshold;
+}
+
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);

@@ -19,12 +19,20 @@ after it.  Counters are per kernel, not per source: a source may hold
 several kernels (``layer_norm.cu`` the forward and the backward,
 ``flash_attention_bwd.cu`` the one-pass backward and the split pair,
 ``fused_update.cu`` the unscale, axpby, Adam, the L2 norm, the fused
-scale and norm, LAMB's phase 1, SGD and Adagrad), and two have a
-second instance with a counter of its own: ``flash_attention.cu`` the
+scale and norm, LAMB's phase 1, SGD and Adagrad), and some kernels have
+further instances with counters of their own: ``flash_attention.cu`` the
 masked forward (``flash_attention_masked``, whose counter also counts
 the dense cache's decode kernel, ``apex_flash_decode``: the masked
 forward's q_len-1 case), ``fused_block_decode.cu`` the GPT layer
-(``fused_block_decode_gpt``).  ``fused_block_decode.cu``
+(``fused_block_decode_gpt``), and the flash kernels' mask and dropout
+instances: ``flash_attention_md.cu`` the forward with dropout, without
+and with a mask (``flash_attention_drop``,
+``flash_attention_masked_drop``), and the split dq kernel with a mask
+or dropout (``flash_attention_bwd_dq_md``); ``flash_attention_bwd_md.cu``
+the one-pass backward with a mask, with or without dropout
+(``flash_attention_bwd_masked``), with dropout alone
+(``flash_attention_bwd_drop``), and the split dk/dv kernel with a mask
+or dropout (``flash_attention_bwd_dkv_md``).  ``fused_block_decode.cu``
 is one cooperative launch per decoder layer; its entries, called with
 a null workspace, report the workspace size without launching.
 
@@ -62,6 +70,14 @@ SOURCES = {
         "flash_attention_bwd": "apex_flash_attention_bwd",
         "flash_attention_bwd_dq": "apex_flash_attention_bwd_dq",
         "flash_attention_bwd_dkv": "apex_flash_attention_bwd_dkv"},
+    "flash_attention_md.cu": {
+        "flash_attention_drop": "apex_flash_attention_fwd_drop",
+        "flash_attention_masked_drop": "apex_flash_attention_fwd_masked_drop",
+        "flash_attention_bwd_dq_md": "apex_flash_attention_bwd_dq_md"},
+    "flash_attention_bwd_md.cu": {
+        "flash_attention_bwd_masked": "apex_flash_attention_bwd_masked",
+        "flash_attention_bwd_drop": "apex_flash_attention_bwd_drop",
+        "flash_attention_bwd_dkv_md": "apex_flash_attention_bwd_dkv_md"},
     "paged_attention.cu": {
         "paged_attention": "apex_paged_decode_attention"},
     "fused_update.cu": {"fused_scale": "apex_fused_scale",
@@ -109,6 +125,27 @@ _SIGNATURES = {
     # d, s, head_stride, slot_stride, nsplit, tiles_per_split, scale_log2,
     # stream
     "apex_flash_decode": [_P] * 8 + [_I] * 5 + [_L, _L, _I, _I, _F, _P],
+    # q, k, v, mask, cls, bits, seed3, o, lse, bh, sq, sk, d, causal, off,
+    # valid_q, valid_k, mask_hper, mask_ld, threshold, inv_keep,
+    # scale_log2, stream
+    "apex_flash_attention_fwd_drop": [_P] * 9 + [_I] * 11 + [_F, _F, _P],
+    "apex_flash_attention_fwd_masked_drop": [_P] * 9 + [_I] * 11
+                                            + [_F, _F, _P],
+    # q, k, v, dout, lse, delta, mask, cls, bits, seed3, dq, bh, sq, sk, d,
+    # causal, off, valid_q, valid_k, mask_hper, mask_ld, threshold,
+    # inv_keep, scale_log2, scale, stream
+    "apex_flash_attention_bwd_dq_md": [_P] * 11 + [_I] * 11 + [_F] * 3
+                                      + [_P],
+    # q, k, v, dout, lse, delta, mask, cls, bits, seed3, dq_acc, dq, dk, dv,
+    # then as apex_flash_attention_bwd_dq_md's from bh
+    "apex_flash_attention_bwd_masked": [_P] * 14 + [_I] * 11 + [_F] * 3
+                                       + [_P],
+    "apex_flash_attention_bwd_drop": [_P] * 14 + [_I] * 11 + [_F] * 3
+                                     + [_P],
+    # q, k, v, dout, lse, delta, mask, cls, bits, seed3, dk, dv, then as
+    # above
+    "apex_flash_attention_bwd_dkv_md": [_P] * 12 + [_I] * 11 + [_F] * 3
+                                       + [_P],
     # q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d,
     # causal, off, valid_q, valid_k, scale_log2, scale, stream
     "apex_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -32,9 +32,22 @@ Port of ``apex_tpu/ops/attention.py``, ``[b, h, s, d]`` layout:
   instance of the same kernel (launch counter
   ``flash_attention_masked``), after a pre-pass that sorts the mask's
   tiles into dead, full and partial ones; a fully masked row emits 0.
-  The kernels' backward with a mask, and dropout, are not ported yet
-  (ROADMAP queue 1, "mask operand and dropout"): they raise
-  ``NotImplementedError``.
+  The backward takes the same ``mask3``.  ``dropout_rate > 0`` drops
+  attention probabilities inside the kernels with the JAX package's
+  keep mask (:func:`_keep_mask`: the murmur3 hash of the global
+  ``(batch*head, row, col)``, bit for bit) from the seed operand
+  ``[seed, row_off, col_off]`` (:func:`_seed_operand`, int32 on the
+  operands' device, read by the kernels: no host sync).  The forward's
+  row sums take the clean p and only the P·V product the dropped,
+  rescaled one; the backward regenerates the bits.  Each such instance
+  counts its launches apart from the plain ones:
+  ``flash_attention_drop`` and ``flash_attention_masked_drop`` (the
+  forward with dropout, without and with a mask),
+  ``flash_attention_bwd_masked`` and ``flash_attention_bwd_drop`` (the
+  one-pass backward with a mask, with or without dropout, and with
+  dropout alone), ``flash_attention_bwd_dq_md`` and
+  ``flash_attention_bwd_dkv_md`` (the split pair with a mask or
+  dropout).
 * :func:`decode_attention` — single-token attention against the dense
   slot cache: the JAX package's plain grouped chain at or below its
   crossover (:func:`decode_xla_max_seq`, 4096 cached positions), the
@@ -92,14 +105,101 @@ _DECODE_TILE = 64
 #: queries and keys of a tile of the masked forward's pre-pass (the
 #: kernel's query block and key tile)
 _MASK_TILE = 128
-_MASK_ITEM = "ROADMAP queue 1, 'mask operand and dropout'"
+#: head dims the mask and dropout instances (the backward with a mask,
+#: anything with dropout) are built for
+_MD_HEAD_DIMS = (64, 128)
+#: murmur3's fmix32 constants as unsigned 32-bit values (the JAX package
+#: writes the same bits as signed int32 literals)
+_H1 = 0x9E3779B9
+_H2 = 0x85EBCA6B
+_H3 = 0xC2B2AE35
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``x * c mod 2^32`` for int64 ``x`` in ``[0, 2^32)`` and a 32-bit
+    constant ``c``, in two 16-bit halves of ``c`` so no int64 product
+    overflows (the JAX package's wrapping int32 multiply)."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _drop_threshold(rate: float) -> int:
+    """The keep mask's cut on its 24-bit uniform, as JAX computes it."""
+    return int(round(rate * (1 << 24)))
+
+
+def _keep_mask(seed, bi, qi, ki, bq, bk, rate, row_off=0, col_off=0, *,
+               device=None):
+    """The JAX package's ``_keep_mask`` bit for bit: True where an
+    element of the ``(qi, ki)`` block ``[bq, bk]`` of batch-head ``bi``
+    survives dropout.  The bits are murmur3's finalizer over ``seed ^
+    bi*H1 ^ row*H2 ^ col*H3`` at the GLOBAL row ``row_off + qi*bq + i``
+    and column ``col_off + ki*bk + j`` (uint32 arithmetic, here in int64
+    masked to 32 bits); the top 24 bits are the uniform, kept at or
+    above ``round(rate * 2^24)``.  ``seed``, ``bi`` and the offsets are
+    ints or int tensors (``bi`` may be ``[n, 1, 1]`` for ``n``
+    batch-heads at once)."""
+    as64 = (lambda x: torch.as_tensor(x, dtype=torch.int64, device=device)
+            & _M32)
+    rows = as64(row_off) + qi * bq + torch.arange(bq, device=device)[:, None]
+    cols = as64(col_off) + ki * bk + torch.arange(bk, device=device)[None, :]
+    h = (as64(seed) ^ _mul32(as64(bi), _H1) ^ _mul32(rows & _M32, _H2)
+         ^ _mul32(cols & _M32, _H3))
+    h = h ^ (h >> 16)
+    h = _mul32(h, _H2)
+    h = h ^ (h >> 13)
+    h = _mul32(h, _H3)
+    h = h ^ (h >> 16)
+    return (h >> 8) >= _drop_threshold(rate)
+
+
+def _seed_operand(seed, row_off=0, col_off=0, *, device=None):
+    """The dropout operand ``[seed, row_off, col_off]``, int32 on
+    ``device`` (the kernels read it there).  ``seed`` is an int or an
+    int tensor of one element (drawn on the device, it stays there: no
+    host sync); the offsets are 0 unless a caller shards the sequence
+    (ring attention sets them per shard pair)."""
+    if isinstance(seed, torch.Tensor):
+        device = seed.device if device is None else device
+        s = seed.reshape(1).to(device=device, dtype=torch.int32)
+        return torch.cat([s] + [torch.full((1,), int(x), dtype=torch.int32,
+                                           device=device)
+                                for x in (row_off, col_off)])
+    return torch.tensor([seed, row_off, col_off], dtype=torch.int32,
+                        device=device)
+
+
+def _inv_keep(rate: float) -> float:
+    return 1.0 / (1.0 - rate)
+
+
+def _keep3(seed3, bh, sq, sk, rate, device, bh0=0):
+    """The keep mask ``[bh, sq, sk]`` of batch-heads ``bh0 ..
+    bh0 + bh`` (a slice of a larger call hashes its global batch-head
+    indices) from the seed operand."""
+    s = seed3.to(device=device, dtype=torch.int64)
+    bi = torch.arange(bh0, bh0 + bh, device=device)[:, None, None]
+    return _keep_mask(s[0], bi, 0, 0, sq, sk, rate, s[1], s[2],
+                      device=device)
+
+
+def _dropout_reference(p, *, rate, seed):
+    """Oracle twin of the kernels' dropout on a full ``[b, h, sq, sk]``
+    probability array (the JAX package's): the block-independent keep
+    mask of each batch-head, survivors scaled by ``1 / (1 - rate)``."""
+    b, h, sq, sk = p.shape
+    keep = _keep3(_seed_operand(seed), b * h, sq, sk, rate,
+                  p.device).reshape(b, h, sq, sk)
+    return torch.where(keep, p, torch.zeros_like(p)) * _inv_keep(rate)
 
 
 def mha_reference(q, k, v, *, causal: bool = False, mask=None,
-                  sm_scale: Optional[float] = None):
+                  sm_scale: Optional[float] = None,
+                  dropout_rate: float = 0.0, dropout_seed=None):
     """Plain oracle: softmax(scale·QKᵀ + mask)·V with fp32 math.
     ``mask`` is boolean, True = masked, broadcastable to
-    ``[b, h, sq, sk]``; fully masked rows emit 0."""
+    ``[b, h, sq, sk]``; fully masked rows emit 0.  With
+    ``dropout_rate``, the softmax THEN the kernels' exact dropout."""
     sq, d = q.shape[-2], q.shape[-1]
     sk = k.shape[-2]
     scale = (d ** -0.5) if sm_scale is None else sm_scale
@@ -113,31 +213,47 @@ def mha_reference(q, k, v, *, causal: bool = False, mask=None,
     p = torch.softmax(s, dim=-1)
     p = torch.where(s.amax(dim=-1, keepdim=True) <= _MASKED_ROW_THRESH,
                     torch.zeros_like(p), p)
+    if dropout_rate:
+        p = _dropout_reference(p, rate=dropout_rate, seed=dropout_seed)
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
+def _live3(bh, sq, sk, causal, off, valid, mask3, device):
+    """The elements the kernels score: the causal and validity masks
+    ``[sq, sk]``, and with ``mask3 [nmask, sq, sk]`` (True = masked,
+    batch-head ``i`` reading mask ``i // (bh // nmask)``) ``[bh, sq,
+    sk]``."""
+    live = _live_mask(sq, sk, causal, off, valid, device)
+    if mask3 is None:
+        return live
+    nmask = mask3.shape[0]
+    return live & ~mask3[:, None].expand(
+        nmask, bh // nmask, sq, sk).reshape(bh, sq, sk)
+
+
 def _fwd_reference(q3, k3, v3, causal, scale, causal_off=None, valid=None,
-                   mask3=None):
+                   mask3=None, rate=0.0, seed3=None, bh0=0):
     """Plain version of the kernel: ``(out [bh, sq, d], lse [bh, sq])``
     with the base-2 log-sum-exp and the kernel's masks (``mask3 [nmask,
     sq, sk]`` bool, True = masked, batch-head ``i`` reading mask ``i //
-    (bh // nmask)``)."""
+    (bh // nmask)``) and dropout (``rate``, ``seed3``; ``bh0`` the first
+    batch-head's global index when ``q3`` is a slice of a call)."""
     bh, sq, d = q3.shape
     sk = k3.shape[1]
     off = (sk - sq) if causal_off is None else causal_off
     s = torch.matmul(q3.float(), k3.float().transpose(1, 2)) * (
         scale * _LOG2E)
-    live = _live_mask(sq, sk, causal, off, valid, q3.device)
-    if mask3 is not None:
-        nmask = mask3.shape[0]
-        live = live & ~mask3[:, None].expand(
-            nmask, bh // nmask, sq, sk).reshape(bh, sq, sk)
+    live = _live3(bh, sq, sk, causal, off, valid, mask3, q3.device)
     s = torch.where(live, s, torch.full_like(s, _NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m)
     p = torch.where(m <= _MASKED_ROW_THRESH, torch.zeros_like(p), p)
     l = p.sum(dim=-1, keepdim=True)
     l1 = torch.where(l == 0, torch.ones_like(l), l)
+    if rate:
+        # the row sums above take the clean p; only P·V the dropped one
+        keep = _keep3(seed3, bh, sq, sk, rate, q3.device, bh0)
+        p = torch.where(keep, p, torch.zeros_like(p)) * _inv_keep(rate)
     # p rounds to the value dtype for the P·V product, as the kernel's
     # tensor-core feed does; the normalizer keeps the fp32 p
     out = torch.matmul(p.to(v3.dtype).float(), v3.float()) / l1
@@ -182,65 +298,88 @@ def _live_mask(sq, sk, causal, off, valid, device):
     return live
 
 
-def _recompute_p(q3, k3, lse, causal, scale, off, valid):
+def _recompute_p(q3, k3, lse, causal, scale, off, valid, mask3=None):
     """``_recompute_p``'s plain version: ``p = exp2(s - lse)`` in fp32
-    with the kernels' masks and the fully-masked-row guard."""
-    sq, sk = q3.shape[1], k3.shape[1]
+    with the kernels' masks (``mask3`` as :func:`_fwd_reference`'s) and
+    the fully-masked-row guard."""
+    bh, sq, sk = q3.shape[0], q3.shape[1], k3.shape[1]
     s = torch.matmul(q3.float(), k3.float().transpose(1, 2)) * (
         scale * _LOG2E)
-    s = torch.where(_live_mask(sq, sk, causal, off, valid, q3.device), s,
-                    torch.full_like(s, _NEG_INF))
+    s = torch.where(_live3(bh, sq, sk, causal, off, valid, mask3,
+                           q3.device), s, torch.full_like(s, _NEG_INF))
     p = torch.exp2(s - lse[..., None])
     return torch.where(lse[..., None] <= _MASKED_ROW_THRESH,
                        torch.zeros_like(p), p)
 
 
-def _ds(p, v3, do3, delta, dtype):
-    """``ds = p (dp - delta)`` with ``dp = dO V^T``, rounded to ``dtype``
-    (the matrix units' feed) and returned in fp32."""
+def _ds(p, v3, do3, delta, dtype, keep=None, rate=0.0):
+    """``ds = p (g - delta)`` with ``g = dO V^T`` (under dropout, the
+    JAX ``_dropped_dp``: ``g = keep ? dp / (1 - rate) : 0``), rounded to
+    ``dtype`` (the matrix units' feed) and returned in fp32."""
     dp = torch.matmul(do3.float(), v3.float().transpose(1, 2))
+    if keep is not None:
+        dp = torch.where(keep, dp * _inv_keep(rate), torch.zeros_like(dp))
     return (p * (dp - delta[..., None])).to(dtype).float()
 
 
-def _dq_reference(q3, k3, v3, lse, delta, do3, causal, scale,
-                  causal_off=None, valid=None):
-    """Plain version of the split dq kernel: ``dq`` in q's dtype from
-    the base-2 lse and ``delta = rowsum(dO * O)``."""
-    sq, sk = q3.shape[1], k3.shape[1]
+def _recompute(q3, k3, lse, causal, scale, causal_off, valid, mask3, rate,
+               seed3, bh0):
+    """The split pair's common recompute: ``(p, keep)``, keep None
+    without dropout."""
+    bh, sq, sk = q3.shape[0], q3.shape[1], k3.shape[1]
     off = (sk - sq) if causal_off is None else causal_off
-    p = _recompute_p(q3, k3, lse, causal, scale, off, valid)
-    ds = _ds(p, v3, do3, delta, q3.dtype)
+    p = _recompute_p(q3, k3, lse, causal, scale, off, valid, mask3)
+    keep = _keep3(seed3, bh, sq, sk, rate, q3.device, bh0) if rate else None
+    return p, keep
+
+
+def _dq_reference(q3, k3, v3, lse, delta, do3, causal, scale,
+                  causal_off=None, valid=None, mask3=None, rate=0.0,
+                  seed3=None, bh0=0):
+    """Plain version of the split dq kernel: ``dq`` in q's dtype from
+    the base-2 lse and ``delta = rowsum(dO * O)``, with ``mask3`` and
+    dropout as :func:`_fwd_reference` takes them."""
+    p, keep = _recompute(q3, k3, lse, causal, scale, causal_off, valid,
+                         mask3, rate, seed3, bh0)
+    ds = _ds(p, v3, do3, delta, q3.dtype, keep, rate)
     return (scale * torch.matmul(ds, k3.float())).to(q3.dtype)
 
 
 def _dkv_reference(q3, k3, v3, lse, delta, do3, causal, scale,
-                   causal_off=None, valid=None):
+                   causal_off=None, valid=None, mask3=None, rate=0.0,
+                   seed3=None, bh0=0):
     """Plain version of the split dk/dv kernel: ``(dk, dv)`` in the
-    operands' dtypes; p and ds round to the operand dtype before their
-    products, as the kernels feed their matrix units."""
-    sq, sk = q3.shape[1], k3.shape[1]
-    off = (sk - sq) if causal_off is None else causal_off
-    p = _recompute_p(q3, k3, lse, causal, scale, off, valid)
-    dv = torch.matmul(p.to(do3.dtype).float().transpose(1, 2), do3.float())
-    ds = _ds(p, v3, do3, delta, q3.dtype)
+    operands' dtypes; p (dropped and rescaled under dropout) and ds
+    round to the operand dtype before their products, as the kernels
+    feed their matrix units."""
+    p, keep = _recompute(q3, k3, lse, causal, scale, causal_off, valid,
+                         mask3, rate, seed3, bh0)
+    pv = p if keep is None else torch.where(
+        keep, p, torch.zeros_like(p)) * _inv_keep(rate)
+    dv = torch.matmul(pv.to(do3.dtype).float().transpose(1, 2), do3.float())
+    del pv
+    ds = _ds(p, v3, do3, delta, q3.dtype, keep, rate)
     dk = scale * torch.matmul(ds.transpose(1, 2), q3.float())
     return dk.to(k3.dtype), dv.to(v3.dtype)
 
 
 def _delta(o3, do3):
     """``rowsum(dO * O)`` in fp32, outside the kernels as in
-    ``_bwd_impl``."""
+    ``_bwd_impl`` (under dropout too: O is the dropped output)."""
     return (do3.float() * o3).sum(dim=-1)    # o3 promoted in the product
 
 
 def _bwd_reference(q3, k3, v3, o3, lse, do3, causal, scale,
-                   causal_off=None, valid=None):
+                   causal_off=None, valid=None, mask3=None, rate=0.0,
+                   seed3=None, bh0=0):
     """Plain version of the backward: ``(dq, dk, dv)`` in the operands'
     dtype from the base-2 lse, with ``_recompute_p``'s masks and
-    fully-masked-row guard -- the composition of the split pair's plain
-    versions (the one-pass kernel computes the same function)."""
+    fully-masked-row guard and the forward's dropout -- the composition
+    of the split pair's plain versions (the one-pass kernel computes the
+    same function)."""
     delta = _delta(o3, do3)
-    args = (q3, k3, v3, lse, delta, do3, causal, scale, causal_off, valid)
+    args = (q3, k3, v3, lse, delta, do3, causal, scale, causal_off, valid,
+            mask3, rate, seed3, bh0)
     return (_dq_reference(*args), *_dkv_reference(*args))
 
 
@@ -269,47 +408,121 @@ def _kernel_args(kernel, q3, k3, v3, lse, do3, causal, scale, causal_off,
             float(scale))
 
 
+def _mask_scratch(nmask, sq, sk, device):
+    """The mask pre-pass's scratch: a class a (mask, 128-query block,
+    128-key tile) and the tile's mask bits in the product threads'
+    order."""
+    tiles = nmask * -(-sq // _MASK_TILE) * -(-sk // _MASK_TILE)
+    return (torch.empty(tiles, dtype=torch.uint8, device=device),
+            torch.empty(tiles * _MASK_TILE * 4, dtype=torch.int32,
+                        device=device))
+
+
+def _md_operands(kernel, q3, sk, mask3, rate, seed3):
+    """The mask and dropout operands of the ``_md`` C entries: ``(ptrs,
+    ints, floats, keep)`` -- the pointers ``(mask, cls, bits, seed3)``
+    (null where absent), ``(mask_hper, mask_ld, threshold)``, ``(1 / (1
+    - rate),)`` and the tensors they point into.  The mask's rows are
+    read 16 bytes at a time, so a mask whose row length is no multiple
+    of 16 (or whose storage is not 16-byte aligned) is copied into rows
+    of the next multiple, padded with True."""
+    bh, sq, d = q3.shape
+    if d not in _MD_HEAD_DIMS:
+        raise ValueError(f"{kernel} (a mask in the backward, or dropout) "
+                         f"takes head_dim in {_MD_HEAD_DIMS}, got {d}")
+    mask = cls = bits = None
+    hper, ld = 1, sk
+    if mask3 is not None:
+        if not mask3.is_contiguous():
+            raise ValueError(f"{kernel} needs a contiguous mask3")
+        ld = -(-sk // 16) * 16
+        mask = mask3
+        if ld != sk or mask3.data_ptr() % 16:
+            mask = torch.ones(mask3.shape[0], sq, ld, dtype=torch.bool,
+                              device=q3.device)
+            mask[:, :, :sk] = mask3
+        cls, bits = _mask_scratch(mask3.shape[0], sq, sk, q3.device)
+        hper = bh // mask3.shape[0]
+    if rate and (seed3 is None or seed3.dtype != torch.int32
+                 or tuple(seed3.shape) != (3,) or seed3.device != q3.device
+                 or not seed3.is_contiguous()):
+        raise ValueError(f"{kernel} takes the dropout seed operand as a "
+                         f"contiguous int32 [3] on {q3.device}")
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    return ((ptr(mask), ptr(cls), ptr(bits), ptr(seed3) if rate else None),
+            (hper, ld, _drop_threshold(rate) if rate else 0),
+            (_inv_keep(rate) if rate else 1.0,), (mask, cls, bits))
+
+
 def _dq_kernel(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
-               valid=None):
+               valid=None, mask3=None, rate=0.0, seed3=None):
     """The split backward's dq kernel (operands as
-    :func:`_dq_reference`'s): ``dq`` bf16, written once, no atomics."""
-    dims = _kernel_args("flash_attention_bwd_dq", q3, k3, v3, lse, do3,
-                        causal, scale, causal_off, valid)
+    :func:`_dq_reference`'s): ``dq`` bf16, written once, no atomics.
+    With a mask or dropout, its ``_md`` instance."""
+    name = ("flash_attention_bwd_dq" if mask3 is None and not rate
+            else "flash_attention_bwd_dq_md")
+    dims = _kernel_args(name, q3, k3, v3, lse, do3, causal, scale,
+                        causal_off, valid)
     dq = torch.empty_like(q3)
     lib = _build.library()
-    _build.count("flash_attention_bwd_dq")
-    err = lib.apex_flash_attention_bwd_dq(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
-        _build.stream_ptr(q3.device))
-    _build.check(err, "flash_attention_bwd_dq")
+    ops = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    if name == "flash_attention_bwd_dq":
+        _build.count(name)
+        err = lib.apex_flash_attention_bwd_dq(
+            *ops, dq.data_ptr(), *dims, _build.stream_ptr(q3.device))
+    else:
+        ptrs, ints, floats, _keep = _md_operands(name, q3, k3.shape[1],
+                                                 mask3, rate, seed3)
+        _build.count(name)
+        err = lib.apex_flash_attention_bwd_dq_md(
+            *ops, *ptrs, dq.data_ptr(), *dims[:8], *ints, *floats,
+            *dims[8:], _build.stream_ptr(q3.device))
+    _build.check(err, name)
     return dq
 
 
 def _dkv_kernel(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
-                valid=None):
+                valid=None, mask3=None, rate=0.0, seed3=None):
     """The split backward's dk/dv kernel (operands as
-    :func:`_dkv_reference`'s): ``(dk, dv)`` bf16."""
-    dims = _kernel_args("flash_attention_bwd_dkv", q3, k3, v3, lse, do3,
-                        causal, scale, causal_off, valid)
+    :func:`_dkv_reference`'s): ``(dk, dv)`` bf16.  With a mask or
+    dropout, its ``_md`` instance."""
+    name = ("flash_attention_bwd_dkv" if mask3 is None and not rate
+            else "flash_attention_bwd_dkv_md")
+    dims = _kernel_args(name, q3, k3, v3, lse, do3, causal, scale,
+                        causal_off, valid)
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
     lib = _build.library()
-    _build.count("flash_attention_bwd_dkv")
-    err = lib.apex_flash_attention_bwd_dkv(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *dims, _build.stream_ptr(q3.device))
-    _build.check(err, "flash_attention_bwd_dkv")
+    ops = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    if name == "flash_attention_bwd_dkv":
+        _build.count(name)
+        err = lib.apex_flash_attention_bwd_dkv(
+            *ops, dk.data_ptr(), dv.data_ptr(), *dims,
+            _build.stream_ptr(q3.device))
+    else:
+        ptrs, ints, floats, _keep = _md_operands(name, q3, k3.shape[1],
+                                                 mask3, rate, seed3)
+        _build.count(name)
+        err = lib.apex_flash_attention_bwd_dkv_md(
+            *ops, *ptrs, dk.data_ptr(), dv.data_ptr(), *dims[:8], *ints,
+            *floats, *dims[8:], _build.stream_ptr(q3.device))
+    _build.check(err, name)
     return dk, dv
 
 
 def _bwd_kernel(q3, k3, v3, o3, lse, do3, causal, scale, causal_off=None,
-                valid=None):
+                valid=None, mask3=None, rate=0.0, seed3=None):
     """The one-pass backward kernel: ``(dq, dk, dv)`` bf16, dq added
-    with fp32 bulk reductions into a scratch buffer and then cast."""
-    dims = _kernel_args("flash_attention_bwd", q3, k3, v3, lse, do3, causal,
-                        scale, causal_off, valid, (("out", o3),))
+    with fp32 bulk reductions into a scratch buffer and then cast.  With
+    a mask its masked instance (``flash_attention_bwd_masked``, with or
+    without dropout), with dropout alone ``flash_attention_bwd_drop``."""
+    name = ("flash_attention_bwd" if mask3 is None and not rate
+            else "flash_attention_bwd_masked" if mask3 is not None
+            else "flash_attention_bwd_drop")
+    dims = _kernel_args(name, q3, k3, v3, lse, do3, causal, scale,
+                        causal_off, valid, (("out", o3),))
     if o3.shape != q3.shape:
         raise ValueError(f"out must be {tuple(q3.shape)}")
     delta = _delta(o3, do3)
@@ -318,58 +531,72 @@ def _bwd_kernel(q3, k3, v3, o3, lse, do3, causal, scale, causal_off=None,
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
     lib = _build.library()
-    _build.count("flash_attention_bwd")
-    err = lib.apex_flash_attention_bwd(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), *dims, _build.stream_ptr(q3.device))
-    _build.check(err, "flash_attention_bwd")
+    ops = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    outs = (dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    if name == "flash_attention_bwd":
+        _build.count(name)
+        err = lib.apex_flash_attention_bwd(*ops, *outs, *dims,
+                                           _build.stream_ptr(q3.device))
+    else:
+        ptrs, ints, floats, _keep = _md_operands(name, q3, k3.shape[1],
+                                                 mask3, rate, seed3)
+        entry = getattr(lib, "apex_" + name)
+        _build.count(name)
+        err = entry(*ops, *ptrs, *outs, *dims[:8], *ints, *floats,
+                    *dims[8:], _build.stream_ptr(q3.device))
+    _build.check(err, name)
     return dq, dk, dv
 
 
 def _bwd(q3, k3, v3, o3, lse, do3, causal: bool, scale: float,
          causal_off: Optional[int] = None,
-         valid: Optional[Tuple[int, int]] = None):
+         valid: Optional[Tuple[int, int]] = None, mask3=None,
+         rate: float = 0.0, seed3=None):
     """Backward over ``[b*h, s, d]`` operands from the forward's output
-    and base-2 ``lse``: ``(dq, dk, dv)``.  The one-pass kernel while
+    and base-2 ``lse``: ``(dq, dk, dv)``, with the forward's ``mask3``
+    and dropout (``rate``, ``seed3``).  The one-pass kernel while
     ``sq * d * 4 <= _FUSED_BWD_MAX_BYTES``, else the split pair; each
     kernel's plain version for CPU tensors."""
     cpu = q3.device.type == "cpu"
+    md = dict(mask3=mask3, rate=rate, seed3=seed3)
+    if mask3 is not None:
+        _check_mask3(mask3, q3, k3.shape[1])
     if not _split_bwd(q3.shape[1], q3.shape[2]):
         return (_bwd_reference if cpu else _bwd_kernel)(
-            q3, k3, v3, o3, lse, do3, causal, scale, causal_off, valid)
+            q3, k3, v3, o3, lse, do3, causal, scale, causal_off, valid,
+            **md)
     if o3.shape != q3.shape:
         raise ValueError(f"out must be {tuple(q3.shape)}")
     args = (q3, k3, v3, lse, _delta(o3, do3), do3, causal, scale,
             causal_off, valid)
-    dq = (_dq_reference if cpu else _dq_kernel)(*args)
-    dk, dv = (_dkv_reference if cpu else _dkv_kernel)(*args)
+    dq = (_dq_reference if cpu else _dq_kernel)(*args, **md)
+    dk, dv = (_dkv_reference if cpu else _dkv_kernel)(*args, **md)
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     """Counterpart of the JAX ``run`` custom VJP in ``flash_attention``:
-    the forward saves ``(q3, k3, v3, out, lse)``, the backward is
-    :func:`_bwd` (with a mask it raises: not ported yet)."""
+    the forward saves ``(q3, k3, v3, mask3, seed3, out, lse)`` (the mask
+    and the seed operand are carried as arguments, as ``run_fwd`` carries
+    them), the backward is :func:`_bwd` with both and gives them no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, q3, k3, v3, causal, scale, mask3):
-        out, lse = _fwd(q3, k3, v3, causal, scale, mask3=mask3)
-        ctx.causal, ctx.scale = causal, scale
-        ctx.masked = mask3 is not None
-        ctx.save_for_backward(q3, k3, v3, out, lse)
+    def forward(ctx, q3, k3, v3, causal, scale, mask3, seed3, rate):
+        out, lse = _fwd(q3, k3, v3, causal, scale, mask3=mask3, rate=rate,
+                        seed3=seed3)
+        ctx.causal, ctx.scale, ctx.rate = causal, scale, rate
+        ctx.save_for_backward(q3, k3, v3, mask3, seed3, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, do3):
-        if ctx.masked:
-            raise NotImplementedError(
-                "the flash backward with a mask operand is not ported yet "
-                f"({_MASK_ITEM})")
-        q3, k3, v3, out, lse = ctx.saved_tensors
+        q3, k3, v3, mask3, seed3, out, lse = ctx.saved_tensors
         dq, dk, dv = _bwd(q3, k3, v3, out, lse, do3.contiguous(),
-                          ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None, None
+                          ctx.causal, ctx.scale, mask3=mask3,
+                          rate=ctx.rate, seed3=seed3)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _check_mask3(mask3, q3, sk):
@@ -386,26 +613,44 @@ def _check_mask3(mask3, q3, sk):
 
 def _fwd(q3, k3, v3, causal: bool, scale: float,
          causal_off: Optional[int] = None,
-         valid: Optional[Tuple[int, int]] = None, mask3=None):
+         valid: Optional[Tuple[int, int]] = None, mask3=None,
+         rate: float = 0.0, seed3=None):
     """Forward over ``[b*h, s, d]`` operands: ``(out, lse)`` with ``lse``
     the base-2 log-sum-exp ``[b*h, sq]`` (fp32).  ``causal_off``
     defaults to ``sk - sq``; ``valid = (vq, vk)`` masks rows ``>= vq``
     and columns ``>= vk`` (a padded bucket); ``mask3`` (bool ``[nmask,
     sq, sk]``, True = masked, contiguous) masks batch-head ``i`` by
-    ``mask3[i // (b*h // nmask)]`` and takes the masked instance."""
+    ``mask3[i // (b*h // nmask)]`` and takes the masked instance;
+    ``rate > 0`` drops p for P·V with the keep mask of ``seed3``
+    (:func:`_seed_operand`) and takes a dropout instance."""
     bh, sq, d = q3.shape
     sk = k3.shape[1]
     if mask3 is not None:
         _check_mask3(mask3, q3, sk)
     if q3.device.type == "cpu":
         return _fwd_reference(q3, k3, v3, causal, scale, causal_off, valid,
-                              mask3)
+                              mask3, rate, seed3)
     _check_kernel_operands("flash_attention", q3, k3, v3)
     off = (sk - sq) if causal_off is None else int(causal_off)
     vq, vk = (sq, sk) if valid is None else (int(valid[0]), int(valid[1]))
     out = torch.empty_like(q3)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q3.device)
     lib = _build.library()
+    if rate:
+        name = ("flash_attention_drop" if mask3 is None
+                else "flash_attention_masked_drop")
+        ptrs, ints, floats, _keep = _md_operands(name, q3, sk, mask3, rate,
+                                                 seed3)
+        entry = (lib.apex_flash_attention_fwd_drop if mask3 is None
+                 else lib.apex_flash_attention_fwd_masked_drop)
+        _build.count(name)
+        err = entry(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), *ptrs,
+            out.data_ptr(), lse.data_ptr(), bh, sq, sk, d, int(causal), off,
+            vq, vk, *ints, *floats, float(scale * _LOG2E),
+            _build.stream_ptr(q3.device))
+        _build.check(err, name)
+        return out, lse
     if mask3 is None:
         _build.count("flash_attention")
         err = lib.apex_flash_attention_fwd(
@@ -416,12 +661,7 @@ def _fwd(q3, k3, v3, causal: bool, scale: float,
         return out, lse
     if not mask3.is_contiguous():
         raise ValueError("the masked flash kernel needs a contiguous mask3")
-    # the pre-pass's scratch: a class a (mask, 128-query block, 128-key
-    # tile) and the tile's mask bits in the product threads' order
-    tiles = mask3.shape[0] * -(-sq // _MASK_TILE) * -(-sk // _MASK_TILE)
-    cls = torch.empty(tiles, dtype=torch.uint8, device=q3.device)
-    bits = torch.empty(tiles * _MASK_TILE * 4, dtype=torch.int32,
-                       device=q3.device)
+    cls, bits = _mask_scratch(mask3.shape[0], sq, sk, q3.device)
     _build.count("flash_attention_masked")
     err = lib.apex_flash_attention_fwd_masked(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), mask3.data_ptr(),
@@ -466,14 +706,16 @@ def xla_path_max_seq(override=None) -> int:
     return _int_knob(override, _XLA_MAX_SEQ_ENV, _XLA_PATH_MAX_SEQ)
 
 
-def _xla_attention(q, k, v, *, causal, scale, mask):
+def _xla_attention(q, k, v, *, causal, scale, mask, rate=0.0, seed=None):
     """The JAX entry's XLA route (``use_kernel=False``) in plain
     PyTorch: fp32 scores from the operands, the causal triangle at
     offset ``sk - sq``, the boolean mask (True = masked), an fp32
     natural-log softmax, fully masked rows 0 (with a causal triangle or
-    a mask), p rounded to the value dtype for P·V.  Differentiable by
-    autograd, mask included."""
-    sq, sk = q.shape[2], k.shape[2]
+    a mask), the kernels' dropout (the same keep mask of the global
+    coordinates), p rounded to the value dtype for P·V.  Differentiable
+    by autograd, mask and dropout included."""
+    b, h, sq = q.shape[0], q.shape[1], q.shape[2]
+    sk = k.shape[2]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if causal:
         rows = torch.arange(sq, device=q.device)[:, None]
@@ -487,6 +729,10 @@ def _xla_attention(q, k, v, *, causal, scale, mask):
     p = p / p.sum(dim=-1, keepdim=True)
     if causal or mask is not None:
         p = torch.where(m <= _MASKED_ROW_THRESH, torch.zeros_like(p), p)
+    if rate:
+        keep = _keep3(_seed_operand(seed, device=q.device), b * h, sq, sk,
+                      rate, q.device).reshape(b, h, sq, sk)
+        p = torch.where(keep, p, torch.zeros_like(p)) * _inv_keep(rate)
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
@@ -504,7 +750,7 @@ def flash_attention(q, k, v, *, causal: bool = False, mask=None,
                     use_kernel: Optional[bool] = None,
                     xla_max_seq: Optional[int] = None):
     """Blockwise attention, ``[b, h, s, d]`` layout, differentiable in
-    q, k and v (on the kernel route without a mask).
+    q, k and v.
 
     The arguments are checked first, as the JAX entry checks them
     (``ValueError``: a ``dropout_rate`` outside [0, 1), a nonzero rate
@@ -526,11 +772,15 @@ def flash_attention(q, k, v, *, causal: bool = False, mask=None,
     JAX.  The CUDA kernels' tiles are their own: ``block_q``/``block_k``
     must be positive ints, force the kernel route and are otherwise
     ignored.  On the kernel route a mask is expanded to the JAX
-    package's ``mask3`` and the forward takes the masked kernel, whose
-    backward is not ported yet; ``dropout_rate > 0`` raises
-    ``NotImplementedError`` on either route: the dropout mask must
-    match the JAX package's murmur-hash bits (ROADMAP queue 1, "mask
-    operand and dropout")."""
+    package's ``mask3``, which the forward and the backward kernels
+    take.
+
+    ``dropout_rate`` > 0 drops attention probabilities on either route
+    with the JAX package's keep mask, bit for bit (softmax THEN
+    dropout, survivors scaled by ``1 / (1 - rate)``); ``dropout_seed``
+    (an int, or an int tensor of one element, which may stay on the
+    card) determines it, and the backward regenerates it.  Pass a fresh
+    seed each step."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = (d ** -0.5) if sm_scale is None else sm_scale
@@ -558,18 +808,18 @@ def flash_attention(q, k, v, *, causal: bool = False, mask=None,
         if block_q is None and block_k is None:
             xla_path_max_seq(xla_max_seq)
         use_kernel = True
-    if dropout_rate:
-        raise NotImplementedError(
-            "attention dropout (the murmur3 keep mask of apex_tpu's "
-            f"_keep_mask) is not ported yet ({_MASK_ITEM})")
     if not use_kernel:
         return _xla_attention(q, k, v, causal=causal, scale=scale,
-                              mask=mask)
+                              mask=mask, rate=dropout_rate,
+                              seed=dropout_seed)
     mask3 = None if mask is None else _mask3(mask, b, h, sq, sk)
+    seed3 = (_seed_operand(dropout_seed, device=q.device) if dropout_rate
+             else None)
     q3 = q.reshape(b * h, sq, d).contiguous()
     k3 = k.reshape(b * h, sk, d).contiguous()
     v3 = v.reshape(b * h, sk, d).contiguous()
-    out = _FlashAttention.apply(q3, k3, v3, causal, scale, mask3)
+    out = _FlashAttention.apply(q3, k3, v3, causal, scale, mask3, seed3,
+                                float(dropout_rate))
     return out.reshape(b, h, sq, d)
 
 

@@ -14,8 +14,12 @@ Named parameters are the flax tree's key paths: the ``nn.Dense``
 layers keep flax's ``kernel [in, out]`` and ``bias``, ``nn.Embed`` its
 ``embedding``.  The token-type table is always built (the flax module
 creates it when ``token_types`` is passed, as the serving engine's
-``encode`` always does).  The forward is deterministic; dropout in
-training mode and ``remat`` raise as in ``standalone_gpt``.
+``encode`` always does).  ``deterministic=False`` with ``generator=``
+is training mode, as in ``standalone_gpt``: hidden dropout after the
+embeddings and in each layer, attention dropout inside the flash
+kernels; the padding mask reaches them as the JAX package's ``mask3``
+``[b, s, s]``, read by the ``h`` heads of each sequence.  ``remat``
+raises as in ``standalone_gpt``.
 """
 from __future__ import annotations
 
@@ -35,8 +39,8 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import (
     GPTConfig,
     ParallelTransformerLayer,
     _check_config,
-    check_deterministic,
     gelu,
+    hidden_dropout,
     model_device,
 )
 
@@ -141,21 +145,24 @@ class BertModel(nn.Module):
             self.binary_head = _Dense(cfg.hidden_size, 2, dt, device)
 
     def forward(self, tokens, token_types=None, attention_mask=None,
-                lm_labels=None, deterministic: bool = True, loss_mask=None):
+                lm_labels=None, deterministic: bool = True, loss_mask=None,
+                generator=None):
         cfg = self.cfg
-        check_deterministic(cfg, deterministic)
         b, s = tokens.shape
         h = self.word_embeddings(tokens) + self.position_embeddings[None, :s]
         if token_types is not None:
             h = h + self.tokentype_embeddings(token_types)
-        h = h.transpose(0, 1)                           # [s, b, h]
-        # padding mask [b, s] (1 = keep) -> [b, 1, s, s], True = masked
+        h = hidden_dropout(h.transpose(0, 1), cfg.hidden_dropout,
+                           deterministic, generator)    # [s, b, h]
+        # padding mask [b, s] (1 = keep) -> [b, 1, s, s], True = masked,
+        # built once: every layer's kernels read it as mask3 [b, s, s]
         mask4 = None
         if attention_mask is not None:
             keep = attention_mask.to(torch.bool)
-            mask4 = (~keep)[:, None, None, :].expand(b, 1, s, s)
+            mask4 = (~keep)[:, None, None, :].expand(b, 1, s, s).contiguous()
         for i in range(cfg.num_layers):
-            h = getattr(self, f"layer_{i}")(h, mask4, deterministic)
+            h = getattr(self, f"layer_{i}")(h, mask4, deterministic,
+                                            generator)
         h = self.final_layernorm(h)
         t = self.lm_head_layernorm(gelu(self.lm_head_dense(h)))
         lm_logits = torch.einsum("sbh,vh->sbv", t,

@@ -17,10 +17,23 @@ the tanh approximation, as ``jax.nn.gelu`` computes it; a final
 LayerNorm and logits tied to the word embedding; the tp = 1 cross
 entropy over fp32 logits when labels are given.
 
-The forward is deterministic.  Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP queue-1 item): dropout in
-training mode (``deterministic=False`` with a nonzero rate; "mask
-operand and dropout"), ``remat`` and the chunked fused LM head
+Training mode (``deterministic=False``) applies the JAX module's
+dropout: hidden dropout after the embedding, after attention and after
+the MLP (``hidden_dropout``), and attention dropout on the
+probabilities inside the flash kernels (``attention_dropout``), one
+seed drawn for each layer and each call.  Randomness comes from the
+``torch.Generator`` the caller passes (``generator=``, the counterpart
+of flax's ``rngs={"dropout": key}``), which lives on the activations'
+device: the hidden masks are ``torch.rand`` draws from it, and each
+attention seed is an int32 drawn from it as a one-element tensor on
+that device and handed to the kernels as their seed operand, so a
+training step never syncs with the host for its randomness.  The
+attention keep mask is the JAX package's bit for bit given the same
+seed; the hidden masks cannot be (a ``torch.Generator`` does not draw
+flax's bits), so they are the same distribution.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+queue-1 item): ``remat`` and the chunked fused LM head
 (``fused_head_xent`` > 0 or ``APEX_TPU_XENT_CHUNK``; "chunked fused LM
 head and remat"), ``scan_layers``, sequence and context parallelism and
 the MoE FFN (item 6, "multi-GPU layers over NCCL").
@@ -47,9 +60,8 @@ from apex_tpu_torch.utils import resolve_device
 
 __all__ = ["GPTConfig", "ParallelMLP", "ParallelAttention",
            "ParallelTransformerLayer", "GPTEmbedding", "GPTModel",
-           "gpt_model_provider", "model_device"]
+           "gpt_model_provider", "model_device", "hidden_dropout"]
 
-_DROPOUT = "ROADMAP queue 1, 'mask operand and dropout'"
 _REMAT = "ROADMAP queue 1, 'chunked fused LM head and remat'"
 _MULTI = "ROADMAP queue 1, item 6 (multi-GPU layers over NCCL)"
 
@@ -99,14 +111,34 @@ def model_device(device) -> torch.device:
     return resolve_device(device)
 
 
-def check_deterministic(cfg, deterministic: bool) -> None:
-    """Dropout in training mode is not ported: raise for it."""
-    if not deterministic and (cfg.hidden_dropout > 0.0
-                              or cfg.attention_dropout > 0.0):
-        raise NotImplementedError(
-            f"dropout in training mode (deterministic=False, hidden "
-            f"{cfg.hidden_dropout}, attention {cfg.attention_dropout}) is "
-            f"not ported yet ({_DROPOUT})")
+def _need_generator(generator):
+    if generator is None:
+        raise ValueError(
+            "dropout in training mode (deterministic=False) needs "
+            "generator=, a torch.Generator on the activations' device (the "
+            "counterpart of flax's rngs={'dropout': key})")
+    return generator
+
+
+def hidden_dropout(x, rate: float, deterministic: bool, generator=None):
+    """flax ``nn.Dropout``: in training mode with ``rate > 0``, each
+    element kept with probability ``1 - rate`` (a ``torch.rand`` draw
+    from ``generator``) and scaled by ``1 / (1 - rate)``; else ``x``."""
+    if deterministic or rate <= 0.0:
+        return x
+    u = torch.rand(x.shape, generator=_need_generator(generator),
+                   device=x.device)
+    return torch.where(u < 1.0 - rate, x / (1.0 - rate),
+                       torch.zeros_like(x))
+
+
+def attention_seed(generator, device):
+    """One attention-dropout seed: an int32 drawn from ``generator`` as a
+    one-element tensor on ``device`` (no host sync), the counterpart of
+    ``jax.random.bits(make_rng("dropout"))``."""
+    return torch.randint(-2 ** 31, 2 ** 31, (1,),
+                         generator=_need_generator(generator), device=device,
+                         dtype=torch.int32)
 
 
 def gelu(x):
@@ -125,7 +157,7 @@ class ParallelMLP(nn.Module):
         self.dense_4h_to_h = RowParallelLinear(
             cfg.ffn, cfg.hidden_size, input_is_parallel=True, **kw)
 
-    def forward(self, x, deterministic: bool = True):
+    def forward(self, x, deterministic: bool = True, generator=None):
         h, _ = self.dense_h_to_4h(x)
         out, _ = self.dense_4h_to_h(gelu(h))
         return out
@@ -133,8 +165,9 @@ class ParallelMLP(nn.Module):
 
 class ParallelAttention(nn.Module):
     """Self-attention: the interleaved qkv projection, the flash
-    kernels (causal or not, with the optional boolean mask), the output
-    projection."""
+    kernels (causal or not, with the optional boolean mask, and in
+    training mode attention dropout from one seed drawn from
+    ``generator`` a call), the output projection."""
 
     def __init__(self, cfg: GPTConfig, causal: bool = True, device=None):
         super().__init__()
@@ -145,7 +178,8 @@ class ParallelAttention(nn.Module):
         self.dense = RowParallelLinear(
             cfg.hidden_size, cfg.hidden_size, input_is_parallel=True, **kw)
 
-    def forward(self, x, attention_mask=None, deterministic: bool = True):
+    def forward(self, x, attention_mask=None, deterministic: bool = True,
+                generator=None):
         cfg = self.cfg
         s, b = x.shape[0], x.shape[1]
         heads = cfg.num_attention_heads
@@ -155,8 +189,12 @@ class ParallelAttention(nn.Module):
         q, k, v = torch.split(qkv, head_dim, dim=-1)
         # [s, b, n, d] -> [b, n, s, d]
         q, k, v = (t.permute(1, 2, 0, 3) for t in (q, k, v))
+        rate = (cfg.attention_dropout
+                if not deterministic and cfg.attention_dropout > 0.0 else 0.0)
+        seed = attention_seed(generator, x.device) if rate else None
         ctx = flash_attention(q, k, v, causal=self.causal,
-                              mask=attention_mask)
+                              mask=attention_mask, dropout_rate=rate,
+                              dropout_seed=seed)
         ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, -1)
         out, _ = self.dense(ctx)
         return out
@@ -175,11 +213,14 @@ class ParallelTransformerLayer(nn.Module):
                                                        device=device)
         self.mlp = ParallelMLP(cfg, device=device)
 
-    def forward(self, x, attention_mask=None, deterministic: bool = True):
-        check_deterministic(self.cfg, deterministic)
-        x = x + self.self_attention(self.input_layernorm(x), attention_mask,
-                                    deterministic)
-        return x + self.mlp(self.post_attention_layernorm(x), deterministic)
+    def forward(self, x, attention_mask=None, deterministic: bool = True,
+                generator=None):
+        rate = self.cfg.hidden_dropout
+        h = self.self_attention(self.input_layernorm(x), attention_mask,
+                                deterministic, generator)
+        x = x + hidden_dropout(h, rate, deterministic, generator)
+        h = self.mlp(self.post_attention_layernorm(x), deterministic)
+        return x + hidden_dropout(h, rate, deterministic, generator)
 
 
 class GPTEmbedding(nn.Module):
@@ -198,10 +239,11 @@ class GPTEmbedding(nn.Module):
             pos.normal_(0.0, 0.02)
         self.position_embeddings = nn.Parameter(pos)
 
-    def forward(self, tokens, deterministic: bool = True):
+    def forward(self, tokens, deterministic: bool = True, generator=None):
         s = tokens.shape[1]
         h = self.word_embeddings(tokens) + self.position_embeddings[None, :s]
-        return h.transpose(0, 1)                        # [s, b, h]
+        return hidden_dropout(h.transpose(0, 1), self.cfg.hidden_dropout,
+                              deterministic, generator)     # [s, b, h]
 
 
 def _check_config(cfg) -> None:
@@ -227,7 +269,8 @@ class GPTModel(nn.Module):
     """embedding -> N layers -> final LayerNorm -> logits tied to the
     word embedding ``[s, b, vocab]``, or the mean cross entropy with
     ``labels [b, s]``.  Built on CUDA unless ``device="cpu"`` (or
-    ``"meta"``, see :func:`model_device`)."""
+    ``"meta"``, see :func:`model_device`).  ``deterministic=False``
+    with ``generator=`` is training mode (the module docstring)."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
@@ -241,9 +284,8 @@ class GPTModel(nn.Module):
         self.final_layernorm = FusedLayerNorm(cfg.hidden_size, device=device)
 
     def forward(self, tokens, labels=None, attention_mask=None,
-                deterministic: bool = True):
+                deterministic: bool = True, generator=None):
         cfg = self.cfg
-        check_deterministic(cfg, deterministic)
         if tokens.shape[1] > cfg.max_seq_length:
             raise ValueError(
                 f"sequence length {tokens.shape[1]} exceeds "
@@ -252,9 +294,10 @@ class GPTModel(nn.Module):
             raise NotImplementedError(
                 "the chunked fused LM head + cross entropy (fused_head_xent "
                 f"/ APEX_TPU_XENT_CHUNK > 0) is not ported yet ({_REMAT})")
-        h = self.embedding(tokens, deterministic)
+        h = self.embedding(tokens, deterministic, generator)
         for i in range(cfg.num_layers):
-            h = getattr(self, f"layer_{i}")(h, attention_mask, deterministic)
+            h = getattr(self, f"layer_{i}")(h, attention_mask, deterministic,
+                                            generator)
         h = self.final_layernorm(h)
         emb = self.embedding.word_embeddings.weight
         logits = torch.einsum("sbh,vh->sbv", h, emb)

@@ -41,7 +41,19 @@
    on the same cache and bounded by the cache's live bytes (the
    ``flash_attention_masked`` record); the fused block's GPT instance, one
    random GPT-3 1.3B layer over 8 slots of lengths 0..2048, page 64,
-   with its phase clock).  Prints
+   with its phase clock; the flash kernels' mask and dropout instances
+   at the training paths' shapes, dropout 0.1: the forward (#3d) and
+   one-pass backward (#4d) at GPT-3 1.3B's causal ``[4, 16, 2048,
+   128]``, the masked forward (#3md) and backward (#4md) at
+   BERT-large's ``[16, 16, 512, 64]`` with a padding mask of lengths
+   128..512, the split pair (#5md, #6md) at causal ``[1, 32, 8192,
+   128]`` with a per-head mask, each backward held by the flash
+   backward's gate against the exact gradient with the same keep mask
+   (two wrong plain backwards, the keep mask transposed and the seed +
+   1, must fail it) and each row within 2^-6 of its own max, timed
+   beside SDPA with ``dropout_p`` and the same family without dropout;
+   then each instance's keep pattern bit for bit against the plain
+   keep mask, with q = 0, v = I and dO = I).  Prints
    the max
    |diff| against its stated limit, the kernel's time, its bound (the
    larger of bytes over 3.35 TB/s and operations over the peak rate of
@@ -110,6 +122,10 @@
    1-layer model through the split backward against the same step with
    the gate raised so the one-pass kernel takes it (both on the card):
    the loss and every leaf's flat grads within a relative L2 limit.
+   Then one step of a 1-layer BERT-large-wide model with the padding
+   mask and dropout 0.1 through the kernels against the same step
+   through the plain versions, from the same seeds and generator
+   state: every leaf within the same relative L2 limit.
 8. **A/B** (``--phases ab --baseline DIR``, not in the default run).
    Another version's kernels (``DIR/apex_tpu_torch/csrc``) built into a
    library of their own beside this tree's and swapped in turn, A B B A
@@ -168,6 +184,22 @@
    flash launches) and ``BertModel`` with a padding mask over the same
    weights (24 masked launches), each held against the same forward
    through the plain versions.
+13. **BERT and GPT training** (``bert_train``, ``gpt_train``; after
+   BERT).  BERT-large pretraining as ``examples/bert/pretrain_bert.py``
+   runs it (``BertConfig()``, no NSP head, ``fused_lamb(lr=1e-4,
+   weight_decay=0.01, max_grad_norm=1.0)``) on one padded MLM batch of
+   16 x 512 tokens (lengths 128..512, 15% of each sequence's positions
+   predicted), and GPT-3 1.3B (``fused_adam(lr=1e-4)``) on 4 x 2048
+   tokens, both at full width and depth, bf16 parameters from their
+   initializers and a seed, dynamic loss scale, dropout 0.1 on hidden
+   activations and attention probabilities, six ``make_train_step``
+   steps with a fresh generator in each step's batch.  Every step must
+   launch the forward's dropout instance and the backward's mask or
+   dropout instance once a layer and no other flash kernel, no plain
+   attention version may run, the tail of the step runs under
+   ``set_sync_debug_mode("error")``, and the loss must fall.  Prints
+   step time, tokens/s (BERT: sequences/s), the model-flops share and
+   peak memory.
 
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed phase raises, so the
@@ -346,6 +378,24 @@ GPT_CFG = dict(vocab_size=51200, hidden_size=2048, num_layers=24,
 GPT_PROMPT_LENS = (128, 256, 384, 512, 768, 1024, 1280, 1536)
 BERT_BATCH, BERT_SEQ = 8, 512
 DENSE_MAX_SEQ = 8192
+#: BERT-large pretraining and GPT-3 1.3B training (the bert_train and
+#: gpt_train phases): full width and depth, dropout on the hidden
+#: activations and the attention probabilities (the reference recipe's
+#: 0.1), six steps; BERT's sequences are 128..512 tokens long in 512
+LM_DROPOUT = 0.1
+BERT_TRAIN_BATCH, BERT_TRAIN_SEQ, BERT_MIN_LEN = 16, 512, 128
+GPT_TRAIN_BATCH, GPT_TRAIN_SEQ = 4, 2048
+LM_TRAIN_STEPS = 6
+#: the flash instances each run launches once a layer and step (and no
+#: other flash kernel): the masked forward with dropout and the masked
+#: one-pass backward (BERT), the forward and one-pass backward with
+#: dropout (GPT); the split pair's mask/dropout instances run in the
+#: kernels phase only (past the 2 MiB gate)
+BERT_TRAIN_KERNELS = ("flash_attention_masked_drop",
+                      "flash_attention_bwd_masked")
+GPT_TRAIN_KERNELS = ("flash_attention_drop", "flash_attention_bwd_drop")
+MD_KERNELS = BERT_TRAIN_KERNELS + GPT_TRAIN_KERNELS + (
+    "flash_attention_bwd_dq_md", "flash_attention_bwd_dkv_md")
 #: decode-vs-full-forward logit limit for the serve check: bf16
 #: activations rounded at every op of 32 layers, along two different
 #: kernel/matmul paths (paged decode vs causal flash prefill); the
@@ -467,23 +517,6 @@ def _elementwise(got, ref, rtol: float, atol: float):
     return ratio, ((g - r).norm() / r.norm()).item()
 
 
-def _exact_bwd(q3, k3, v3, do3, scale):
-    """The causal backward in float64 from the bf16 operands, with p and
-    ds unrounded: the exact gradient that the kernels and their plain
-    versions both approximate."""
-    q_, k_, v_, do_ = (t.double() for t in (q3, k3, v3, do3))
-    s_ = torch.matmul(q_, k_.transpose(1, 2)) * scale
-    sq, sk = s_.shape[1:]
-    live = torch.ones(sq, sk, dtype=torch.bool, device=q3.device).tril(sk - sq)
-    p = torch.softmax(s_.masked_fill_(~live, float("-inf")), dim=-1)
-    del s_
-    delta = (do_ * torch.matmul(p, v_)).sum(-1, keepdim=True)
-    ds = p * (torch.matmul(do_, v_.transpose(1, 2)) - delta)
-    return (scale * torch.matmul(ds, k_),
-            scale * torch.matmul(ds.transpose(1, 2), q_),
-            torch.matmul(p.transpose(1, 2), do_))
-
-
 def _exact_errors(got, exact):
     """Per output: (relative L2, max |err|) of ``got`` against ``exact``."""
     out = []
@@ -528,28 +561,10 @@ def _hold_wrong_backwards(plain, ref, exact, s: int) -> None:
     """What the flash backward gate reads for two plainly wrong
     backwards: ``plain(**kw)``, the plain version with its causal
     boundary one 64-key tile late and with the keys of the second half
-    dropped.  Each must fail the gate."""
-    plain_err = _exact_errors(ref, exact)
-    for label, wrong in (("causal boundary +64", dict(causal_off=64)),
-                         (f"keys >= {s // 2} dropped",
-                          dict(valid=(s, s // 2)))):
-        bad = plain(**wrong)
-        readings = [_elementwise(g_, r_, TOL_FLASH_BWD_RTOL,
-                                 TOL_FLASH_BWD_ATOL)
-                    for g_, r_ in zip(bad, ref)]
-        bad_err = _exact_errors(bad, exact)
-        print(f"  wrong backward ({label}): relative L2 against the exact "
-              f"gradient over the plain version's, of dq, dk, dv "
-              f"{[round(b2[0] / p2[0], 4) for b2, p2 in zip(bad_err, plain_err)]}; "
-              f"(worst element ratio, relative L2) against the plain version "
-              f"{[(round(a, 4), round(r, 4)) for a, r in readings]}")
-        if all(b2[0] <= TOL_FLASH_EXACT_L2 * p2[0]
-               and b2[1] <= TOL_FLASH_EXACT_MAX * p2[1]
-               and r <= TOL_FLASH_BWD_REL_L2
-               for b2, p2, (_, r) in zip(bad_err, plain_err, readings)):
-            raise AssertionError(f"the flash backward gate passes a wrong "
-                                 f"backward ({label})")
-        del bad
+    dropped.  Each must fail the gate (:func:`_refuse_wrong`)."""
+    _refuse_wrong((("causal boundary +64", lambda: plain(causal_off=64)),
+                   (f"keys >= {s // 2} dropped",
+                    lambda: plain(valid=(s, s // 2)))), ref, exact)
 
 
 def phase_build():
@@ -769,13 +784,16 @@ def phase_kernels(dev, gen):
     # and for each of the last slices' kernel pairs and rows
     for off, check in ((3, _split_kernels), (4, _shim_kernels),
                        (5, _flash_fwd_rows), (6, _masked_rows),
-                       (7, _fused_gpt_kernel)):
+                       (7, _fused_gpt_kernel), (8, _md_rows)):
         sgen = torch.Generator(device=dev)
         sgen.manual_seed(gen.initial_seed() + off)
         check(dev, sgen, recs)
     for r in recs.values():
+        nodrop = r.pop("nodrop_ms", None)
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms (eager call, host "
-              f"included, {r.pop('eager_ms'):.4f} ms), bound "
+              f"included, {r.pop('eager_ms'):.4f} ms"
+              + ("" if nodrop is None else
+                 f"; without dropout {nodrop:.4f} ms") + "), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']}")
     torch.cuda.empty_cache()
@@ -1068,6 +1086,438 @@ def _masked_rows(dev, gen, recs):
             q, k, v, lengths, use_kernel=True), 10))
     del q, k, v, qg
     torch.cuda.empty_cache()
+
+
+def _exact_md(q3, k3, v3, do3, causal, scale, mask3=None, rate=0.0,
+              seed3=None, bh0=0):
+    """The backward in float64 from the bf16 operands, with the mask and
+    (``rate`` > 0) the keep mask, p, the dropped p and ds unrounded: the
+    exact gradient that the kernels and their plain versions both
+    approximate."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    bh, sq, sk = q3.shape[0], q3.shape[1], k3.shape[1]
+    q_, k_, v_, do_ = (t.double() for t in (q3, k3, v3, do3))
+    live = attn._live3(bh, sq, sk, causal, sk - sq, None, mask3, q3.device)
+    s_ = torch.matmul(q_, k_.transpose(1, 2)) * scale
+    p = torch.softmax(s_.masked_fill_(~live, float("-inf")), dim=-1)
+    del s_, live
+    p = p.nan_to_num_(0.0)
+    dp = torch.matmul(do_, v_.transpose(1, 2))
+    pv = p
+    if rate:
+        keep = attn._keep3(seed3, bh, sq, sk, rate, q3.device, bh0)
+        inv = 1.0 / (1.0 - rate)
+        pv = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+        del keep
+    delta = (do_ * torch.matmul(pv, v_)).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    del p, dp
+    return (scale * torch.matmul(ds, k_),
+            scale * torch.matmul(ds.transpose(1, 2), q_),
+            torch.matmul(pv.transpose(1, 2), do_))
+
+
+@contextlib.contextmanager
+def _keep_transposed():
+    """The plain versions' keep mask with its rows and columns swapped
+    (the key-major kernels' trap: their accumulators hold S^T)."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    keep3 = attn._keep3
+    attn._keep3 = (lambda seed3, bh, sq, sk, rate, device, bh0=0: keep3(
+        seed3, bh, sk, sq, rate, device, bh0).transpose(1, 2))
+    try:
+        yield
+    finally:
+        attn._keep3 = keep3
+
+
+def _check_md_bwd(label, got, ref, exact) -> float:
+    """The flash backward gate (:func:`_check_flash_bwd_exact`) and, per
+    row of each output (a query's dq, a key's dk and dv), its max |diff|
+    within 2^-6 of the row's own max |ref| (a dropped or misplaced
+    element moves its row by more).  Returns the largest max |diff|."""
+    err = _check_flash_bwd_exact(label, got, ref, exact)
+    for nm, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+        _check(f"{label} {nm} (x each row's max|ref|)",
+               _slot_rel(g_.reshape(-1, g_.shape[-1]),
+                         r_.reshape(-1, r_.shape[-1])), TOL_PAGED_OUT)
+    return err
+
+
+def _refuse_wrong(cases, ref, exact) -> None:
+    """Each ``(label, thunk)`` in ``cases`` computes a plainly wrong
+    backward; the flash backward gate must fail it."""
+    plain_err = _exact_errors(ref, exact)
+    for label, wrong in cases:
+        bad = wrong()
+        readings = [_elementwise(g_, r_, TOL_FLASH_BWD_RTOL,
+                                 TOL_FLASH_BWD_ATOL)
+                    for g_, r_ in zip(bad, ref)]
+        bad_err = _exact_errors(bad, exact)
+        print(f"  wrong backward ({label}): relative L2 against the exact "
+              f"gradient over the plain version's, of dq, dk, dv "
+              f"{[round(b2[0] / p2[0], 4) for b2, p2 in zip(bad_err, plain_err)]}; "
+              f"(worst element ratio, relative L2) against the plain version "
+              f"{[(round(a, 4), round(r, 4)) for a, r in readings]}")
+        if all(b2[0] <= TOL_FLASH_EXACT_L2 * p2[0]
+               and b2[1] <= TOL_FLASH_EXACT_MAX * p2[1]
+               and r <= TOL_FLASH_BWD_REL_L2
+               for b2, p2, (_, r) in zip(bad_err, plain_err, readings)):
+            raise AssertionError(f"the flash backward gate passes a wrong "
+                                 f"backward ({label})")
+        del bad
+
+
+def _bert_lengths(rng, b: int, s: int):
+    """Per-sequence lengths of a padded BERT batch: ``BERT_MIN_LEN`` to
+    ``s``, the first sequence full."""
+    lengths = rng.randint(BERT_MIN_LEN, s + 1, size=b)
+    lengths[0] = s
+    return lengths
+
+
+def _md_shapes(dev, gen):
+    """The mask and dropout instances' shapes on the training paths:
+    ``(tag, label, q3, k3, v3, do3, mask3, causal, mask_bytes, live_keys,
+    heads)``: GPT-3 1.3B's causal ``[4, 16, 2048, 128]`` (3d, 4d) and
+    BERT-large's ``[16, 16, 512, 64]`` with a padding mask of lengths
+    128..512 (3md, 4md)."""
+    bf = torch.bfloat16
+    b, h, s, d = GPT_TRAIN_BATCH, GPT_CFG["num_attention_heads"], \
+        GPT_TRAIN_SEQ, GPT_CFG["hidden_size"] // GPT_CFG["num_attention_heads"]
+    q3, k3, v3, do3 = (torch.randn(b * h, s, d, generator=gen, device=dev)
+                       .to(bf) for _ in range(4))
+    yield ("gpt", f"causal [{b}, {h}, {s}, {d}]", q3, k3, v3, do3, None,
+           True, 0, None, h)
+    del q3, k3, v3, do3
+    b, h, s, d = BERT_TRAIN_BATCH, 16, BERT_TRAIN_SEQ, 64
+    q3, k3, v3, do3 = (torch.randn(b * h, s, d, generator=gen, device=dev)
+                       .to(bf) for _ in range(4))
+    lengths = _bert_lengths(np.random.RandomState(int(gen.initial_seed())
+                                                  % 2 ** 31), b, s)
+    keep = torch.arange(s, device=dev)[None, :] < torch.as_tensor(
+        lengths, device=dev)[:, None]
+    mask3 = (~keep)[:, None, :].expand(b, s, s).contiguous()
+    yield ("bert", f"padding [{b}, {h}, {s}, {d}], lengths "
+           f"{sorted(lengths.tolist())}", q3, k3, v3, do3, mask3, False,
+           mask3.numel(), int(lengths.sum()), h)
+
+
+def _md_rows(dev, gen, recs):
+    """The flash kernels' mask and dropout instances at the training
+    paths' shapes (:func:`_md_shapes`, rate 0.1): the forward with
+    dropout (3d at GPT's, 3md at BERT's with its padding mask) and the
+    one-pass backward (4d, 4md), each against its plain version (the
+    forward as the masked forward is held, the backward by the flash
+    backward's gate against the exact float64 gradient with the same
+    keep mask, plus each row within 2^-6 of its own max), with two wrong
+    plain backwards (the keep mask transposed, the seed + 1) that the
+    gate must refuse; then the split pair's (5md, 6md) at causal [1, 32,
+    8192, 128] with a per-head mask and dropout; then the keep patterns
+    bit for bit (:func:`_keep_patterns`).  Each row's time beside its
+    bound, its plain version's, SDPA's with ``dropout_p=0.1`` (and the
+    boolean ``attn_mask`` where masked; time only, its bits differ) and
+    the same instance family's time without dropout."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    from apex_tpu_torch.ops import _build
+    rate = LM_DROPOUT
+    seed3 = attn._seed_operand(-2 ** 31 + 12345, device=dev)
+    for (tag, label, q3, k3, v3, do3, mask3, causal, mask_bytes, live,
+         h) in _md_shapes(dev, gen):
+        bh, s, d = q3.shape
+        b = bh // h
+        scale = d ** -0.5
+        md = dict(mask3=mask3, rate=rate, seed3=seed3)
+        fwd_name = "flash_attention_drop" if mask3 is None \
+            else "flash_attention_masked_drop"
+        bwd_name = "flash_attention_bwd_drop" if mask3 is None \
+            else "flash_attention_bwd_masked"
+        before = _build.launch_counts()
+        out, lse = attn._fwd(q3, k3, v3, causal, scale, **md)
+        got = attn._bwd(q3, k3, v3, out, lse, do3, causal, scale, **md)
+        counts = {k_: v_ - before[k_]
+                  for k_, v_ in _build.launch_counts().items()
+                  if v_ != before[k_]}
+        if counts != {fwd_name: 1, bwd_name: 1}:
+            raise AssertionError(f"{tag}: the md instances did not launch "
+                                 f"alone: {counts}")
+        step = 16 if tag == "gpt" else bh
+
+        def plain_fwd(sl):
+            m3 = None if mask3 is None else mask3[sl.start // h:
+                                                  sl.stop // h]
+            return attn._fwd_reference(q3[sl], k3[sl], v3[sl], causal, scale,
+                                       mask3=m3, rate=rate, seed3=seed3,
+                                       bh0=sl.start)
+
+        def plain_bwd(sl, seed_op=seed3):
+            m3 = None if mask3 is None else mask3[sl.start // h:
+                                                  sl.stop // h]
+            return attn._bwd_reference(
+                q3[sl], k3[sl], v3[sl], out[sl], lse[sl], do3[sl], causal,
+                scale, mask3=m3, rate=rate, seed3=seed_op, bh0=sl.start)
+
+        ref_out, ref_lse = _by_heads(plain_fwd, bh, step)
+        print(f"flash_attention with dropout {rate} ({tag}, {label}) bf16")
+        err_f = (out.float() - ref_out.float()).abs().max().item()
+        _check(f"{fwd_name} out", err_f, TOL_ATTN_OUT)
+        _check(f"{fwd_name} out (x each row's max|ref|)",
+               _slot_rel(out.reshape(-1, d), ref_out.reshape(-1, d)),
+               TOL_PAGED_OUT)
+        _check(f"{fwd_name} lse (base 2)",
+               (lse - ref_lse).abs().max().item(), TOL_ATTN_LSE)
+        del ref_out, ref_lse
+        ref = _by_heads(plain_bwd, bh, step)
+        exact = _by_heads(lambda sl: _exact_md(
+            q3[sl], k3[sl], v3[sl], do3[sl], causal, scale,
+            None if mask3 is None else mask3[sl.start // h:sl.stop // h],
+            rate, seed3, sl.start), bh, 8 if tag == "gpt" else 64)
+        err_b = _check_md_bwd(bwd_name, got, ref, exact)
+        wrong_seed = seed3 + torch.tensor([1, 0, 0], dtype=torch.int32,
+                                          device=dev)
+
+        def transposed():
+            with _keep_transposed():
+                return _by_heads(plain_bwd, bh, step)
+
+        _refuse_wrong((("keep mask transposed", transposed),
+                       ("seed + 1", lambda: _by_heads(
+                           lambda sl: plain_bwd(sl, wrong_seed), bh, step))),
+                      ref, exact)
+        del got, ref, exact
+        # times: the instance, its plain version, SDPA with dropout, the
+        # same family without dropout
+        q4, k4, v4, do4 = (t.reshape(b, h, s, d) for t in (q3, k3, v3, do3))
+        sdpa_mask = None
+        if mask3 is not None:
+            sdpa_mask = (~mask3)[:, None]              # True = keep
+        sdpa = dict(attn_mask=sdpa_mask, dropout_p=rate,
+                    is_causal=causal and sdpa_mask is None)
+        fwd_ms = _time_ms(lambda: attn._fwd(q3, k3, v3, causal, scale, **md),
+                          10)
+        fwd_nodrop = _time_ms(lambda: attn._fwd(q3, k3, v3, causal, scale,
+                                                mask3=mask3), 10)
+        fwd_plain = _eager_ms(lambda: _by_heads(plain_fwd, bh, step), 1)
+        lib_f = _time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, **sdpa), 10)
+        bwd_ms = _time_ms(lambda: attn._bwd(q3, k3, v3, out, lse, do3, causal,
+                                            scale, **md), 10)
+        bwd_nodrop = _time_ms(lambda: attn._bwd(q3, k3, v3, out, lse, do3,
+                                                causal, scale, mask3=mask3),
+                              10)
+        bwd_plain = _eager_ms(lambda: _by_heads(plain_bwd, bh, step), 1)
+        qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+        lib_fb = _time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qr, kr, vr, **sdpa), (qr, kr, vr),
+            do4), 10)
+        del qr, kr, vr
+        if mask3 is None:        # causal: half the score matrix
+            f_flops = 4 * s * s * d * bh / 2
+            b_flops = 5 * s * s * d * bh
+        else:                    # every query against its live keys
+            f_flops = 4 * s * live * h * d
+            b_flops = 10 * s * live * h * d
+        live_kv = 2 * (bh * s if mask3 is None else live * h) * d * 2
+        f_bound = _bound(2 * q3.numel() * 2 + live_kv + mask_bytes + bh * s * 4
+                         + 12, f_flops)
+        b_bound = _bound(4 * q3.numel() * 2 + 2 * live_kv + mask_bytes
+                         + 2 * bh * s * 4 + 12, b_flops)
+        rows = (("3" + ("md" if mask3 is not None else "d"), fwd_name,
+                 "apex_tpu_torch/csrc/flash_attention_md.cu",
+                 "apex_tpu/ops/attention.py:321", err_f, fwd_ms, fwd_plain,
+                 f_bound, lib_f, fwd_nodrop),
+                ("4" + ("md" if mask3 is not None else "d"), bwd_name,
+                 "apex_tpu_torch/csrc/flash_attention_bwd_md.cu",
+                 "apex_tpu/ops/attention.py:580", err_b, bwd_ms, bwd_plain,
+                 b_bound, lib_fb - lib_f, bwd_nodrop))
+        for (row, name, src, repl, err, ms, plain_ms, (bound, by), lib,
+             nodrop) in rows:
+            print(f"  #{row} {name} ({tag}) on {_smi()}: kernel {ms:.4f} ms, "
+                  f"without dropout {nodrop:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"SDPA (dropout_p {rate}) {lib:.4f} ms, bound {bound:.4f} ms "
+                  f"({by}), {100 * bound / ms:.1f}% of the bound")
+            recs[name] = dict(
+                name=name, route="cuda", source=src, replaces=repl,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib, nodrop_ms=nodrop,
+                eager_ms=_eager_ms(
+                    (lambda: attn._fwd(q3, k3, v3, causal, scale, **md))
+                    if row.startswith("3") else
+                    (lambda: attn._bwd(q3, k3, v3, out, lse, do3, causal,
+                                       scale, **md)), 4))
+        del q3, k3, v3, do3, q4, k4, v4, do4, out, lse, mask3
+        torch.cuda.empty_cache()
+    _md_split_rows(dev, gen, recs, seed3)
+    _keep_patterns(dev, seed3)
+    torch.cuda.empty_cache()
+
+
+def _md_split_rows(dev, gen, recs, seed3):
+    """The split pair's mask and dropout instances (5md, 6md) at causal
+    [1, 32, 8192, 128] with a per-head mask (10% of each head's elements
+    and one row masked) and dropout 0.1: the route (one launch of each,
+    none of the plain pair), the outputs against the plain halves 4
+    heads at a time and the exact gradient 2 at a time, the two wrong
+    plain backwards refused, two runs bit for bit, and each kernel's
+    time beside its bound, plain version, SDPA's backward with dropout
+    and the mask, and the same kernel without dropout."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    from apex_tpu_torch.ops import _build
+    bf = torch.bfloat16
+    rate = LM_DROPOUT
+    bh, s, d = 32, SPLIT_SEQ, 128
+    q3, k3, v3, do3 = (torch.randn(bh, s, d, generator=gen, device=dev)
+                       .to(bf) for _ in range(4))
+    mask3 = torch.rand(bh, s, s, generator=gen, device=dev) < 0.1
+    mask3[:, 5] = True
+    scale = d ** -0.5
+    md = dict(mask3=mask3, rate=rate, seed3=seed3)
+    out, lse = attn._fwd(q3, k3, v3, True, scale, **md)
+    delta = attn._delta(out, do3)
+    args = (q3, k3, v3, lse, delta, do3, True, scale)
+    if not attn._split_bwd(s, d):
+        raise AssertionError(f"sq {s}, d {d} must take the split route")
+    before = _build.launch_counts()
+    got = attn._bwd(q3, k3, v3, out, lse, do3, True, scale, **md)
+    counts = {k_: v_ - before[k_] for k_, v_ in _build.launch_counts().items()
+              if v_ != before[k_]}
+    if counts != {"flash_attention_bwd_dq_md": 1,
+                  "flash_attention_bwd_dkv_md": 1}:
+        raise AssertionError(f"the 8192 md backward did not take the split "
+                             f"md route: {counts}")
+
+    def plain(sl, seed_op=seed3):
+        part = tuple(t[sl] for t in args[:6]) + args[6:]
+        kw = dict(mask3=mask3[sl], rate=rate, seed3=seed_op, bh0=sl.start)
+        return (attn._dq_reference(*part, **kw),
+                *attn._dkv_reference(*part, **kw))
+
+    step = 4
+    ref = _by_heads(plain, bh, step)
+    exact = _by_heads(lambda sl: _exact_md(
+        q3[sl], k3[sl], v3[sl], do3[sl], True, scale, mask3[sl], rate, seed3,
+        sl.start), bh, 2)
+    print(f"flash_attention backward, split route with a per-head mask and "
+          f"dropout {rate}, causal [1, {bh}, {s}, {d}] bf16")
+    _check_md_bwd("flash bwd split md", got, ref, exact)
+    errs = [(g_.float() - r_.float()).abs().max().item()
+            for g_, r_ in zip(got, ref)]
+    wrong_seed = seed3 + torch.tensor([1, 0, 0], dtype=torch.int32,
+                                      device=dev)
+
+    def transposed():
+        with _keep_transposed():
+            return _by_heads(plain, bh, step)
+
+    _refuse_wrong((("keep mask transposed", transposed),
+                   ("seed + 1", lambda: _by_heads(
+                       lambda sl: plain(sl, wrong_seed), bh, step))),
+                  ref, exact)
+    del ref, exact
+    again = attn._bwd(q3, k3, v3, out, lse, do3, True, scale, **md)
+    same = [torch.equal(a_, b2) for a_, b2 in zip(got, again)]
+    print(f"  a second run of the split md route: dq, dk, dv bit-identical "
+          f"{same}")
+    if not all(same):
+        raise AssertionError("the split md backward differs from run to run")
+    del again
+    q4, k4, v4, do4 = (t[None] for t in (q3, k3, v3, do3))
+    keep4 = ~mask3[None] & torch.ones(s, s, dtype=torch.bool,
+                                      device=dev).tril()
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+    sdpa = dict(attn_mask=keep4, dropout_p=rate)
+    lib_fb = _time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qr, kr, vr, **sdpa), (qr, kr, vr),
+        do4), 2)
+    lib_f = _time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, **sdpa), 2)
+    del qr, kr, vr, keep4
+    product = s * s * d * bh
+    elem = q3.numel() * 2
+    stats = 2 * bh * s * 4
+    for name, fn, ref_fn, products, outs, err in (
+            ("flash_attention_bwd_dq_md", attn._dq_kernel, attn._dq_reference,
+             3, 1, errs[0]),
+            ("flash_attention_bwd_dkv_md", attn._dkv_kernel,
+             attn._dkv_reference, 4, 2, max(errs[1:]))):
+        ms = _time_ms(lambda: fn(*args, **md), 4)
+        nodrop = _time_ms(lambda: fn(*args, mask3=mask3), 4)
+        bound, by = _bound(4 * elem + stats + outs * elem + mask3.numel() + 12,
+                           products * product)
+        print(f"  #{'5' if outs == 1 else '6'}md {name} on {_smi()}: kernel "
+              f"{ms:.4f} ms, without dropout {nodrop:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of the bound; "
+              f"SDPA backward (fwd+bwd - fwd, dropout_p {rate}, attn_mask) "
+              f"{lib_fb - lib_f:.4f} ms")
+        recs[name] = dict(
+            name=name, route="cuda",
+            source=("apex_tpu_torch/csrc/flash_attention_md.cu" if outs == 1
+                    else "apex_tpu_torch/csrc/flash_attention_bwd_md.cu"),
+            replaces=("apex_tpu/ops/attention.py:622" if outs == 1 else
+                      "apex_tpu/ops/attention.py:636"),
+            max_abs_err=err, ms=ms,
+            plain_ms=_eager_ms(lambda: _by_heads(
+                lambda sl: ref_fn(*(t[sl] for t in args[:6]), *args[6:],
+                                  mask3=mask3[sl], rate=rate, seed3=seed3,
+                                  bh0=sl.start), bh, step), 1),
+            bound_ms=bound, bound_by=by, library_ms=lib_fb - lib_f,
+            nodrop_ms=nodrop, eager_ms=_eager_ms(lambda: fn(*args, **md), 2))
+    del q3, k3, v3, do3, q4, k4, v4, do4, out, lse, delta, got, args, mask3
+    torch.cuda.empty_cache()
+
+
+def _keep_patterns(dev, seed3) -> None:
+    """The keep mask of each instance, bit for bit: with q = 0 every live
+    p of a row is equal, so with v = I (sk = d) the forward's out[i, j]
+    is positive exactly where (i, j) is kept and live, and with dO = I
+    (sq = d) the backward's dv[j, i] is.  At d 128 without a mask (the
+    GPT instances) and d 64 with a per-batch padding mask read by 16
+    heads (BERT's): #3 and #3m by out, #4 (one-pass) and #6 (split) by
+    dv, each equal to the plain keep mask; #5 (split dq) against its
+    plain version."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    rate = LM_DROPOUT
+    for d, bh, masked in ((128, 64, False), (64, 256, True)):
+        s = d
+        q = torch.zeros(bh, s, d, dtype=torch.bfloat16, device=dev)
+        k = torch.randn(bh, s, d, device=dev).to(torch.bfloat16)
+        eye = torch.eye(d, dtype=torch.bfloat16, device=dev).expand(
+            bh, d, d).contiguous()
+        keep = attn._keep3(seed3, bh, s, s, rate, dev)
+        mask3 = None
+        if masked:
+            lengths = torch.arange(bh // 16, device=dev) * 3 % s + 1
+            mask3 = (torch.arange(s, device=dev)[None, None, :]
+                     >= lengths[:, None, None]).expand(bh // 16, s, s)
+            mask3 = mask3.contiguous()
+            keep = keep & ~mask3.repeat_interleave(16, dim=0)
+        md = dict(mask3=mask3, rate=rate, seed3=seed3)
+        out, lse = attn._fwd(q, k, eye, False, d ** -0.5, **md)
+        res = {"#3m" if masked else "#3": torch.equal(out > 0, keep)}
+        saved = attn._FUSED_BWD_MAX_BYTES
+        for split in (False, True):
+            attn._FUSED_BWD_MAX_BYTES = 0 if split else saved
+            try:
+                dq, _, dv = attn._bwd(q, k, eye, out, lse, eye, False,
+                                      d ** -0.5, **md)
+            finally:
+                attn._FUSED_BWD_MAX_BYTES = saved
+            res["#6" if split else "#4"] = torch.equal(
+                dv.transpose(1, 2) > 0, keep)
+            if split:
+                ref_dq = attn._dq_reference(q, k, eye, lse,
+                                            attn._delta(out, eye), eye, False,
+                                            d ** -0.5, **md)
+                rel = ((dq.float() - ref_dq.float()).norm()
+                       / ref_dq.float().norm()).item()
+                res["#5 dq relative L2 <= 1e-2"] = rel <= TOL_FLASH_BWD_REL_L2
+        print(f"keep patterns (d {d}, {bh} batch-heads, "
+              f"{'a padding mask, ' if masked else ''}rate {rate}, "
+              f"{int(keep.sum())} of {keep.numel()} kept): {res}")
+        if not all(res.values()):
+            raise AssertionError(f"a kernel's keep pattern differs from the "
+                                 f"plain keep mask: {res}")
 
 
 def _fused_gpt_kernel(dev, gen, recs):
@@ -1377,8 +1827,8 @@ def _train_kernels(dev, gen, recs):
     out, lse = attn._fwd(q3, k3, v3, True, scale)
     got = attn._bwd(q3, k3, v3, out, lse, do3, True, scale)
     ref = attn._bwd_reference(q3, k3, v3, out, lse, do3, True, scale)
-    exact = _by_heads(lambda sl: _exact_bwd(q3[sl], k3[sl], v3[sl], do3[sl],
-                                            scale), b_ * h, 8)
+    exact = _by_heads(lambda sl: _exact_md(q3[sl], k3[sl], v3[sl], do3[sl],
+                                           True, scale), b_ * h, 8)
     print("flash_attention backward causal [1, 32, 2048, 128] bf16")
     err = _check_flash_bwd_exact("flash bwd", got, ref, exact)
     _hold_wrong_backwards(lambda **kw: attn._bwd_reference(
@@ -1716,8 +2166,8 @@ def _split_kernels(dev, gen, recs):
 
     step = 4
     ref = _by_heads(plain, b_ * h, step)
-    exact = _by_heads(lambda sl: _exact_bwd(q3[sl], k3[sl], v3[sl], do3[sl],
-                                            scale), b_ * h, 2)
+    exact = _by_heads(lambda sl: _exact_md(q3[sl], k3[sl], v3[sl], do3[sl],
+                                           True, scale), b_ * h, 2)
     print(f"flash_attention backward, split route (dq kernel + dk/dv "
           f"kernel), causal [{b_}, {h}, {s}, {d}] bf16, kv from {kvh} heads")
     _check_flash_bwd_exact("flash bwd split", got, ref, exact)
@@ -2400,6 +2850,267 @@ def phase_bert(dev, seed: int):
     torch.cuda.empty_cache()
     return dict(wall_s=wall, peak_bytes=peak, logit_err=max(errs),
                 launches=launches)
+
+
+def _lm_model(kind: str, dev, seed: int, layers=None):
+    """BERT-large (``BertConfig()``, no NSP head, as
+    ``examples/bert/pretrain_bert.py`` builds it) or GPT-3 1.3B
+    (``GPT_CFG``), bf16 parameters drawn by the modules' own initializers
+    from ``seed``, dropout ``LM_DROPOUT`` on hidden activations and on
+    attention probabilities; ``layers`` cuts the depth."""
+    from apex_tpu_torch.models import (BertConfig, GPTConfig,
+                                       bert_model_provider,
+                                       gpt_model_provider)
+    torch.manual_seed(seed)
+    kw = dict(hidden_dropout=LM_DROPOUT, attention_dropout=LM_DROPOUT,
+              params_dtype=torch.bfloat16)
+    if layers is not None:
+        kw["num_layers"] = layers
+    if kind == "bert":
+        cfg = BertConfig(**kw)
+        return cfg, bert_model_provider(cfg, add_binary_head=False,
+                                        device=dev)
+    cfg = GPTConfig(**dict(GPT_CFG, **kw))
+    return cfg, gpt_model_provider(cfg, device=dev)
+
+
+def _lm_batch(kind: str, cfg, dev, seed: int) -> dict:
+    """One fixed batch from ``seed``.  BERT: ``BERT_TRAIN_BATCH`` x
+    ``BERT_TRAIN_SEQ`` tokens shaped as ``examples/bert/pretrain_bert.py::
+    synthetic_mlm_batch`` makes them (15% of each sequence's positions
+    past the first replaced by the [MASK] id 3, their labels ``(7 p +
+    13) % vocab``, weighted by ``loss_mask``), with per-sequence lengths
+    ``BERT_MIN_LEN``..``BERT_TRAIN_SEQ`` (the rest padding, id 0, out of
+    the padding ``attention_mask``) and token types 0 then 1 from each
+    sequence's middle.  GPT: ``GPT_TRAIN_BATCH`` x ``GPT_TRAIN_SEQ``
+    tokens and their successors."""
+    rng = np.random.RandomState(seed)
+    v = cfg.vocab_size
+    if kind == "gpt":
+        toks = rng.randint(0, v, size=(GPT_TRAIN_BATCH, GPT_TRAIN_SEQ + 1))
+        toks = torch.from_numpy(toks.astype(np.int64)).to(dev)
+        return {"tokens": toks[:, :-1].contiguous(),
+                "labels": toks[:, 1:].contiguous()}
+    b, s = BERT_TRAIN_BATCH, BERT_TRAIN_SEQ
+    lengths = _bert_lengths(rng, b, s)
+    pos = np.arange(s)[None, :]
+    pad = pos < lengths[:, None]
+    toks = np.where(pad, rng.randint(4, v, size=(b, s)), 0)
+    labels = np.zeros((b, s), np.int64)
+    loss_mask = np.zeros((b, s), np.float32)
+    for i, n in enumerate(lengths):
+        at = rng.choice(np.arange(1, n), size=max(1, int(0.15 * n)),
+                        replace=False)
+        labels[i, at] = (7 * at + 13) % v
+        toks[i, at] = 3
+        loss_mask[i, at] = 1.0
+    types = (pos >= lengths[:, None] // 2) & pad
+    as_t = (lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(
+        dev, dt))
+    return {"tokens": as_t(toks, torch.int64),
+            "types": as_t(types, torch.int64),
+            "pad": as_t(pad, torch.int32),
+            "labels": as_t(labels, torch.int64),
+            "loss_mask": as_t(loss_mask, torch.float32),
+            "lengths": lengths}
+
+
+def _bert_loss(model, batch):
+    return model(batch["tokens"], batch["types"], batch["pad"],
+                 batch["labels"], deterministic=False,
+                 loss_mask=batch["loss_mask"],
+                 generator=batch["generator"])[0]
+
+
+def _gpt_loss(model, batch):
+    return model(batch["tokens"], batch["labels"], deterministic=False,
+                 generator=batch["generator"])
+
+
+@contextlib.contextmanager
+def _plain_attention_refused():
+    """Every plain version of the flash kernels (and the plain chain of
+    ``use_kernel=False``) raises inside the context: a training run on
+    the card must not reach one."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    names = ("_fwd_reference", "_bwd_reference", "_dq_reference",
+             "_dkv_reference", "_recompute_p", "_xla_attention",
+             "mha_reference")
+    saved = [(n, getattr(attn, n)) for n in names]
+
+    def refuse(name):
+        def f(*a, **k):
+            raise AssertionError(f"a plain attention version ran: {name}")
+        return f
+
+    for n in names:
+        setattr(attn, n, refuse(n))
+    try:
+        yield
+    finally:
+        for n, f in saved:
+            setattr(attn, n, f)
+
+
+def phase_lm_train(dev, seed: int, kind: str):
+    """BERT-large pretraining (``kind="bert"``: LAMB, ``LAMB_KW``) or
+    GPT-3 1.3B training (``"gpt"``: Adam, ``TRAIN_LR``) at full width and
+    depth through ``make_train_step`` with dynamic loss scaling and
+    dropout 0.1, ``LM_TRAIN_STEPS`` steps on one fixed batch
+    (:func:`_lm_batch`), each step with a generator of its own seed in the
+    batch.  Each step must launch the forward's dropout instance and the
+    backward's mask or dropout instance once a layer and no other flash
+    kernel, no plain attention version may run, and the segment from the
+    backward's flat grads to the new state runs under
+    ``set_sync_debug_mode("error")``.  The loss must fall and stay
+    finite.  Prints step time (median of steps 2 on), tokens/s (BERT:
+    sequences/s too), the model-flops share and peak memory."""
+    from apex_tpu_torch import train_step
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.optimizers import functional
+    t0 = time.perf_counter()
+    cfg, model = _lm_model(kind, dev, seed)
+    batch = _lm_batch(kind, cfg, dev, seed)
+    bert = kind == "bert"
+    tx = functional.fused_lamb(**LAMB_KW) if bert \
+        else functional.fused_adam(lr=TRAIN_LR)
+    state = train_step.init_train_state(tx, model, loss_scale="dynamic")
+    torch.cuda.synchronize()
+    n = state.opt.master.numel()
+    b, s = batch["tokens"].shape
+    layers = cfg.num_layers
+    label = ("BERT-large pretraining" if bert else "GPT-3 1.3B training")
+    print(f"{kind}_train: {label}, {layers} layers, hidden "
+          f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, vocab "
+          f"{cfg.vocab_size}, [{b}, {s}] tokens a step"
+          + (f" (lengths {sorted(batch['lengths'].tolist())})" if bert
+             else ", causal")
+          + f", dropout {LM_DROPOUT}, {n} parameters (bf16, fp32 master), "
+          f"{type(tx).__name__.strip('_')}, dynamic loss scale; set up in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def strict(flat_grads):
+        torch.cuda.set_sync_debug_mode("error")
+        return flat_grads
+
+    step = train_step.make_train_step(_bert_loss if bert else _gpt_loss, tx,
+                                      grad_transform=strict)
+    want = dict.fromkeys(BERT_TRAIN_KERNELS if bert else GPT_TRAIN_KERNELS,
+                         layers)
+    losses, times, off = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    with _plain_attention_refused():
+        for i in range(LM_TRAIN_STEPS):
+            before = _build.launch_counts()
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed * 1000 + i)
+            t1 = time.perf_counter()
+            try:
+                state, loss = step(state, dict(batch, generator=gen))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            losses.append(loss.item())
+            flash = {k: v - before[k]
+                     for k, v in _build.launch_counts().items()
+                     if k.startswith("flash_attention") and v != before[k]}
+            if flash != want:
+                off.append((i, flash))
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.median(times[1:]))
+    tokens = b * s
+    heads = cfg.num_attention_heads
+    hd = cfg.hidden_size // heads
+    matmul = sum(p.numel() for name, p in model.named_parameters()
+                 if p.dim() == 2 and "position" not in name
+                 and "tokentype" not in name)
+    attn_flops = 4 * s * s * hd * heads * b * (1 if bert else 0.5)
+    model_flops = 6 * matmul * tokens + 3 * attn_flops * layers
+    print(f"{kind}_train on {_smi()}: losses {[round(x, 4) for x in losses]}")
+    print(f"  step times {[round(t, 4) for t in times]} s; median of steps "
+          f"2-{LM_TRAIN_STEPS} {step_s:.4f} s = {tokens / step_s:.1f} "
+          f"tokens/s" + (f", {b / step_s:.2f} sequences/s" if bert else ""))
+    print(f"  model flops {model_flops / 1e12:.3f} TFLOP per step = "
+          f"{100 * model_flops / step_s / BF16_FLOPS_PER_S:.1f}% of 989 "
+          f"TFLOP/s; peak device memory {peak / 2**30:.2f} GiB")
+    print(f"  kernel launches per step: "
+          f"{ {k: v / LM_TRAIN_STEPS for k, v in launches.items() if v} }")
+    print(f"  loss scale {state.scaler.loss_scale.item()}, count "
+          f"{state.opt.count.item()}")
+    if off:
+        raise AssertionError(f"{kind}_train: the flash launches of a step "
+                             f"are not {want}: {off}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{kind}_train: non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{kind}_train: the loss did not fall: "
+                             f"{losses}")
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_s=step_s, peak_bytes=peak,
+                losses=losses, tokens=tokens)
+
+
+def _bert_step_grads(dev, seed: int, route):
+    """One LAMB step of the 1-layer BERT-large-wide model on
+    :func:`_lm_batch`'s padded batch with dropout, inside the context
+    ``route``, from a generator seeded alike on every call: its flat
+    grads, loss, launch counts and ``(leaf name, size)`` list."""
+    from apex_tpu_torch import train_step
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.optimizers import functional
+    from apex_tpu_torch.utils import tree_leaves_with_path
+    cfg, model = _lm_model("bert", dev, seed, layers=1)
+    batch = _lm_batch("bert", cfg, dev, seed)
+    tx = functional.fused_lamb(**LAMB_KW)
+    state = train_step.init_train_state(tx, model, loss_scale="dynamic")
+    leaves = [(".".join(path), t.numel())
+              for path, t in tree_leaves_with_path(model)]
+    keep = []
+    step = train_step.make_train_step(
+        _bert_loss, tx, grad_transform=lambda g: keep.append(
+            g.clone()) or g)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 5)
+    _build.reset_launch_counts()
+    with route:
+        _, loss = step(state, dict(batch, generator=gen))
+    counts = _build.launch_counts()
+    grads, loss = keep[0], loss.item()
+    del model, state, step, keep
+    torch.cuda.empty_cache()
+    return grads, loss, counts, leaves
+
+
+def phase_bert_train_check(dev, seed: int):
+    """One step of the 1-layer BERT-large-wide model with the padding
+    mask and dropout through the kernels against the same step through
+    the plain versions, from the same seeds and generator state: the
+    flat grads leaf by leaf and the loss."""
+    got, loss_k, ck, leaves = _bert_step_grads(dev, seed,
+                                               contextlib.nullcontext())
+    ref, loss_p, counts, _ = _bert_step_grads(dev, seed, _plain_kernels())
+    from apex_tpu_torch.ops import _build
+    flash = [k for k in _build.KERNELS if k.startswith("flash_attention")]
+    if any(counts[k] for k in flash) or counts["layer_norm"] \
+            or counts["layer_norm_bwd"]:
+        raise AssertionError(f"the plain BERT step launched a kernel: "
+                             f"{counts}")
+    if ck["flash_attention_masked_drop"] != 1 \
+            or ck["flash_attention_bwd_masked"] != 1:
+        raise AssertionError(f"the BERT step did not take the md "
+                             f"instances: {ck}")
+    print("train-check BERT (1 layer, BERT-large widths, padding mask, "
+          f"dropout {LM_DROPOUT}): kernels, then plain versions")
+    rels = _hold_grads("bert train-check", got, ref, leaves,
+                       [loss_k, loss_p], TOL_TRAIN_GRAD_REL_L2)
+    del got, ref
+    torch.cuda.empty_cache()
+    return dict(grad_rel_l2=rels, losses=[loss_k, loss_p])
 
 
 def _train_model(dev, seed: int, layers: int, seq: int = TRAIN_SEQ):
@@ -3340,20 +4051,23 @@ def phase_optim(dev, seed: int):
                 handoff=handoff)
 
 
-def _library_of(csrc: Path, build_dir: Path, signatures=None):
+def _library_of(csrc: Path, build_dir: Path, signatures=None,
+                sources=None):
     """The kernel library built from another copy of the kernel sources
-    (``csrc``) into ``build_dir``, its entries typed by ``signatures``
-    (that copy's ``_build._SIGNATURES``); the current library is left as
-    it was."""
+    (``csrc``, its sources ``sources``: that copy's ``_build.SOURCES``)
+    into ``build_dir``, its entries typed by ``signatures`` (that copy's
+    ``_build._SIGNATURES``); the current library is left as it was."""
     from apex_tpu_torch.ops import _build
-    saved = (_build.CSRC, _build.BUILD_DIR, _build._LIB, _build._SIGNATURES)
+    saved = (_build.CSRC, _build.BUILD_DIR, _build._LIB, _build._SIGNATURES,
+             _build.SOURCES)
     _build.CSRC, _build.BUILD_DIR, _build._LIB = csrc, build_dir, None
     _build._SIGNATURES = signatures or saved[3]
+    _build.SOURCES = sources or saved[4]
     try:
         return _build.library()
     finally:
-        (_build.CSRC, _build.BUILD_DIR, _build._LIB,
-         _build._SIGNATURES) = saved
+        (_build.CSRC, _build.BUILD_DIR, _build._LIB, _build._SIGNATURES,
+         _build.SOURCES) = saved
 
 
 def _baseline_module(baseline: Path, name: str):
@@ -3450,11 +4164,12 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
         for mod, name in ((attn, "_fwd"), (attn, "decode_attention"),
                           (models, "decode_attention"))
         if hasattr(base_attn, name))
+    base_build = _baseline_module(baseline, "_build")
     versions = {
         "A": _Version(
             _library_of(baseline / "apex_tpu_torch" / "csrc",
                         _build.BUILD_DIR.parent / "ab_baseline",
-                        _baseline_module(baseline, "_build")._SIGNATURES),
+                        base_build._SIGNATURES, base_build.SOURCES),
             ((pa, "_kernel_call", base_pa._kernel_call),
              (ln, "_bwd_2d", base_ln._bwd_2d)) + attn_patches),
         "B": _Version(_build.library())}
@@ -4019,12 +4734,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="kernels,serve,gpt,bert,profile,train,optim,"
-                            "train-check,shim",
-                    help="comma list of kernels, serve, gpt, bert, profile, "
-                         "train, optim, train-check, shim, ab (build always "
-                         "runs; profile profiles the serve and the train "
-                         "phases that run)")
+                    default="kernels,serve,gpt,bert,bert_train,gpt_train,"
+                            "profile,train,optim,train-check,shim",
+                    help="comma list of kernels, serve, gpt, bert, "
+                         "bert_train, gpt_train, profile, train, optim, "
+                         "train-check, shim, ab (build always runs; profile "
+                         "profiles the serve and the train phases that run)")
     ap.add_argument("--baseline", type=Path, default=None,
                     help="root of a checkout of another version: with the "
                          "ab phase, time its kernels and this tree's, A/B "
@@ -4063,10 +4778,19 @@ def main(argv=None) -> int:
         del gpt
     if "bert" in phases:
         phase_bert(dev, args.seed)
+    for kind in ("bert", "gpt"):
+        if f"{kind}_train" in phases:
+            run = phase_lm_train(dev, args.seed, kind)
+            for key in MD_KERNELS:
+                if key in recs:
+                    recs[key]["launches"] = (recs[key].get("launches") or 0) \
+                        + run["launches"][key]
+            del run
     if "train" in phases:
         runs = phase_train(dev, args.seed, "profile" in phases)
         for key, r in recs.items():
-            if key not in SERVE_KERNELS + SHIM_KERNELS + SERVE_ONLY:
+            if key not in SERVE_KERNELS + SHIM_KERNELS + SERVE_ONLY \
+                    + MD_KERNELS:
                 r["launches"] = runs[KERNEL_RUN.get(key, "adam")][
                     "launches"][key]
     if "optim" in phases:
@@ -4078,6 +4802,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "train-check" in phases:
         phase_train_check(dev, args.seed)
+        phase_bert_train_check(dev, args.seed)
         phase_split_check(dev, args.seed)
         phase_rule_check(dev, args.seed)
     if "ab" in phases:

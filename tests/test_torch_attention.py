@@ -111,17 +111,24 @@ def test_mha_reference_with_mask_matches_jax():
 
 
 def test_dropout_raises_not_implemented_naming_its_roadmap_item():
-    q, k, v = _t(*_qkv(1, 1, 8, 8, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        tattn.flash_attention(q, k, v, dropout_rate=0.1, dropout_seed=1)
+    """(Named for the raise this call met before dropout was ported.)
+    The same call now drops attention probabilities: it equals the JAX
+    oracle ``mha_reference`` with the same rate and seed (the keep mask
+    is the same bits)."""
+    q, k, v = _qkv(1, 1, 8, 8, 8)
+    got = tattn.flash_attention(*_t(q, k, v), dropout_rate=0.1,
+                                dropout_seed=1).numpy()
+    ref = np.asarray(jattn.mha_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), dropout_rate=0.1,
+        dropout_seed=1))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=_ATOL)
 
 
 @pytest.mark.parametrize("case", ["rate 1", "rate below 0", "no seed",
                                   "2-D mask", "mask with sk + 1 columns"])
 def test_flash_attention_argument_checks_match_jax(case):
-    """The JAX entry's ValueError checks run first, in its order, before
-    the not-ported NotImplementedError: both entries raise ValueError on
-    the same inputs."""
+    """The JAX entry's ValueError checks, in its order: both entries
+    raise ValueError on the same inputs."""
     q, k, v = _qkv(1, 2, 8, 8, 8, seed=13)
     kw = {"rate 1": dict(dropout_rate=1.0, dropout_seed=1),
           "rate below 0": dict(dropout_rate=-0.1, dropout_seed=1),

@@ -129,7 +129,8 @@ def test_bert_engine_refuses_generative_kwargs_as_jax_does(model, kw):
 def test_bert_engine_generative_calls_and_training_dropout_raise(model):
     """``decode_fusion="auto"`` (an off spelling on a cache-less engine)
     builds, as in JAX; the generative calls raise ``ValueError`` naming
-    ``encode``; dropout in training mode is not ported."""
+    ``encode``; dropout in training mode runs (a generator given: a
+    finite loss, another seed another loss), and raises without one."""
     _, _, cfg, tree = model
     te = InferenceEngine("bert", cfg, params_from_jax("bert", cfg, tree,
                                                       device="cpu"),
@@ -140,5 +141,13 @@ def test_bert_engine_generative_calls_and_training_dropout_raise(model):
         te.decode(None, [0])
     drop = bert_model_provider(BertConfig(**dict(CFG, hidden_dropout=0.1)),
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="mask operand and dropout"):
+    toks = torch.arange(8, dtype=torch.int32)[None] % CFG["vocab_size"]
+
+    def loss(seed):
+        with torch.no_grad():
+            return drop(toks, lm_labels=toks, deterministic=False,
+                        generator=torch.Generator().manual_seed(seed))[0]
+
+    assert bool(torch.isfinite(loss(0))) and loss(0) != loss(1)
+    with pytest.raises(ValueError, match="generator"):
         drop(torch.zeros(1, 4, dtype=torch.int32), deterministic=False)

@@ -14,8 +14,9 @@ from apex_tpu_torch.ops import _build
 CSRC = _build.CSRC
 HEADERS = sorted(p.name for p in CSRC.glob("*.cuh"))
 FILES = sorted(p.name for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
-FLASH = ("flash_attention.cu", "flash_attention_bwd.cu", "flash_qmajor.cuh",
-         "hopper.cuh")
+FLASH = ("flash_attention.cu", "flash_attention_bwd.cu",
+         "flash_attention_md.cu", "flash_attention_bwd_md.cu",
+         "flash_qmajor.cuh", "flash_kmajor.cuh", "hopper.cuh")
 
 
 def _code(text: str) -> str:

@@ -24,7 +24,11 @@ fused decode block's query groups, head dims, edge lengths, slot
 groups and its attention-only variant, and its GPT instance over the
 same edges; the optimizer classes: each
 twin's and tree class's launches per step with no host sync, and a
-twin step equal to a functional step bit for bit).
+twin step equal to a functional step bit for bit; the flash kernels'
+mask and dropout instances: the forward with dropout, masked or not,
+and both backward routes with a mask and/or dropout against their
+plain versions on the same seed operand, and each instance's keep
+pattern equal to the plain keep mask bit for bit).
 
 A CUDA kernel has no CPU mode, so every test here takes the ``cuda``
 fixture and skips without a card.  On a machine with one (the package's
@@ -157,13 +161,25 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="bfloat16"):
         attn.flash_attention(q, q, q, causal=True)
     qb = q.to(torch.bfloat16).requires_grad_()
-    # a mask takes the masked forward; its backward is not ported
-    before = _build.launch_counts()["flash_attention_masked"]
-    out = attn.flash_attention(qb, qb, qb, mask=torch.zeros(
-        1, 1, 16, 16, dtype=torch.bool, device=cuda))
-    assert _build.launch_counts()["flash_attention_masked"] == before + 1
-    with pytest.raises(NotImplementedError, match="mask operand"):
-        out.float().sum().backward()
+    # a mask takes the masked forward, and its backward the masked
+    # one-pass instance: finite grads, the plain backward's within 1e-2
+    before = _build.launch_counts()
+    mask = torch.zeros(1, 1, 16, 16, dtype=torch.bool, device=cuda)
+    mask[..., 3:] = True
+    out = attn.flash_attention(qb, qb, qb, mask=mask)
+    assert _build.launch_counts()["flash_attention_masked"] == \
+        before["flash_attention_masked"] + 1
+    out.float().sum().backward()
+    assert _build.launch_counts()["flash_attention_bwd_masked"] == \
+        before["flash_attention_bwd_masked"] + 1
+    q3 = qb.detach().reshape(2, 16, 64)
+    mask3 = attn._mask3(mask, 1, 2, 16, 16)
+    o3, lse = attn._fwd_reference(q3, q3, q3, False, 0.125, mask3=mask3)
+    ref = attn._bwd_reference(q3, q3, q3, o3, lse, torch.ones_like(q3),
+                              False, 0.125, mask3=mask3)
+    want = (ref[0] + ref[1] + ref[2]).reshape(qb.shape)
+    assert bool(torch.isfinite(qb.grad).all())
+    assert _rel_l2(qb.grad, want) <= 1e-2
     qb = qb.detach()
     with pytest.raises(ValueError, match="mask must be"):
         attn.flash_attention(qb, qb, qb, mask=torch.zeros(
@@ -1711,3 +1727,186 @@ def test_twin_step_equals_functional_step_bit_for_bit(cuda):
         for k in ("exp_avg", "exp_avg_sq"):
             assert torch.equal(st[k], slots[k][off:off + size].view(
                 shape)), (name, k)
+
+
+
+# -- mask and dropout in the flash kernels ------------------------------
+#
+# The forward with dropout (#3d, #3md), the one-pass backward with a mask
+# and/or dropout (#4m, #4md, #4d) and the split pair's _md instances (#5,
+# #6) against their plain versions on the same operands and the same seed
+# operand (the keep mask bit for bit, so the only differences are
+# rounding: out within 2e-2 and 2^-6 of each row's max, lse 1e-3, grads
+# as _assert_flash_bwd_close, the exact float64 gradient with the same
+# keep mask); and the keep pattern itself, exactly: with q = 0 every
+# live p of a row is equal, so with v = I (sk = d) out[i, j] > 0 where
+# (i, j) is kept, and with dO = I (sq = d) dv[j, i] > 0 where (i, j) is
+# kept.
+
+def _exact_grads_md(q, k, v, do, causal, scale, mask3, rate, seed3):
+    """(dq, dk, dv) in float64 with the mask and the keep mask, p, p̃ and
+    ds unrounded."""
+    bh, sq, sk = q.shape[0], q.shape[1], k.shape[1]
+    q_, k_, v_, do_ = (t.double() for t in (q, k, v, do))
+    live = attn._live3(bh, sq, sk, causal, sk - sq, None, mask3, q.device)
+    s = (torch.matmul(q_, k_.transpose(1, 2)) * scale).masked_fill(
+        ~live, float("-inf"))
+    p = torch.softmax(s, dim=-1).nan_to_num(0.0)
+    keep = attn._keep3(seed3, bh, sq, sk, rate, q.device) if rate else \
+        torch.ones_like(p, dtype=torch.bool)
+    inv = 1.0 / (1.0 - rate)
+    pv = torch.where(keep, p * inv, 0.0)
+    delta = (do_ * torch.matmul(pv, v_)).sum(-1, keepdim=True)
+    g = torch.where(keep, torch.matmul(do_, v_.transpose(1, 2)) * inv, 0.0)
+    ds = p * (g - delta)
+    return (scale * torch.matmul(ds, k_),
+            scale * torch.matmul(ds.transpose(1, 2), q_),
+            torch.matmul(pv.transpose(1, 2), do_))
+
+
+def _md_mask3(kind, b, h, sq, sk, seed, cuda):
+    if kind is None:
+        return None
+    n = {"per-batch": b, "one": 1, "per-head": b * h}[kind]
+    m = np.random.RandomState(seed).rand(n, sq, sk) > 0.6
+    m[:, 2, :] = True                       # a fully masked row
+    m[0, :, sk // 2:] = True                # keys past a padding length
+    return torch.from_numpy(m).to(cuda)
+
+
+_MD_CASES = [(None, 0.1), ("per-batch", 0.0), ("per-batch", 0.1),
+             ("per-head", 0.5), ("one", 0.1)]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind,rate", _MD_CASES)
+@pytest.mark.parametrize("sq,sk,causal", [(100, 100, True),
+                                          (130, 200, False),
+                                          (256, 256, True)])
+def test_flash_md_forward_matches_plain(cuda, d, kind, rate, sq, sk, causal):
+    b, h = 2, 3
+    q, k, v = (_randn((b * h, s, d), seed, cuda)
+               for seed, s in ((90, sq), (91, sk), (92, sk)))
+    mask3 = _md_mask3(kind, b, h, sq, sk, 93, cuda)
+    seed3 = attn._seed_operand(-123457, device=cuda)
+    name = ("flash_attention_masked" if not rate
+            else "flash_attention_drop" if mask3 is None
+            else "flash_attention_masked_drop")
+    before = _build.launch_counts()[name]
+    got, lse = attn._fwd(q, k, v, causal, d ** -0.5, mask3=mask3, rate=rate,
+                         seed3=seed3)
+    assert _build.launch_counts()[name] == before + 1
+    ref, ref_lse = attn._fwd_reference(q, k, v, causal, d ** -0.5,
+                                       mask3=mask3, rate=rate, seed3=seed3)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+    assert _row_errors(got, ref).max().item() <= 2.0 ** -6
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind,rate", _MD_CASES)
+@pytest.mark.parametrize("sq,sk,causal", [(100, 100, True),
+                                          (130, 200, False),
+                                          (256, 256, True)])
+@pytest.mark.parametrize("split", [False, True])
+def test_flash_md_backward_matches_plain(cuda, d, kind, rate, sq, sk, causal,
+                                         split, monkeypatch):
+    b, h = 2, 3
+    q, k, v, do = (_randn((b * h, s, d), seed, cuda)
+                   for seed, s in ((94, sq), (95, sk), (96, sk), (97, sq)))
+    mask3 = _md_mask3(kind, b, h, sq, sk, 98, cuda)
+    seed3 = attn._seed_operand(2 ** 31 - 5, device=cuda)
+    scale = d ** -0.5
+    md = dict(mask3=mask3, rate=rate, seed3=seed3)
+    out, lse = attn._fwd(q, k, v, causal, scale, **md)
+    if split:
+        monkeypatch.setattr(attn, "_FUSED_BWD_MAX_BYTES", 0)
+    names = (("flash_attention_bwd_dq_md", "flash_attention_bwd_dkv_md")
+             if split else ("flash_attention_bwd_masked",) if mask3 is not None
+             else ("flash_attention_bwd_drop",))
+    before = _build.launch_counts()
+    got = attn._bwd(q, k, v, out, lse, do, causal, scale, **md)
+    after = _build.launch_counts()
+    assert all(after[n] == before[n] + 1 for n in names)
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"]
+    ref = attn._bwd_reference(q, k, v, out, lse, do, causal, scale, **md)
+    torch.cuda.synchronize()
+    _assert_flash_bwd_close(got, ref, _exact_grads_md(
+        q, k, v, do, causal, scale, mask3, rate, seed3))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("seed,bh", [(0, 3), (-1, 40), (2 ** 31 - 1, 300),
+                                     (-2 ** 31, 7)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_keep_pattern_is_the_plain_keep_mask(cuda, d, seed, bh,
+                                                   masked):
+    """The forward's (v = I) and the backward's (dO = I: dv) keep
+    patterns equal the plain keep mask exactly, on both backward routes;
+    the split dq kernel against its plain version."""
+    s = d
+    rate = 0.3
+    q = torch.zeros(bh, s, d, dtype=torch.bfloat16, device=cuda)
+    k = _randn((bh, s, d), 99, cuda)
+    eye = torch.eye(d, dtype=torch.bfloat16, device=cuda).expand(
+        bh, d, d).contiguous()
+    seed3 = attn._seed_operand(seed, device=cuda)
+    keep = attn._keep3(seed3, bh, s, s, rate, cuda)
+    mask3 = None
+    if masked:
+        mask3 = torch.zeros(1, s, s, dtype=torch.bool, device=cuda)
+        mask3[:, :, s - 5:] = True
+        keep = keep & ~mask3
+    md = dict(mask3=mask3, rate=rate, seed3=seed3)
+    out, lse = attn._fwd(q, k, eye, False, d ** -0.5, **md)
+    torch.cuda.synchronize()
+    assert torch.equal(out > 0, keep)
+    for split in (False, True):
+        saved = attn._FUSED_BWD_MAX_BYTES
+        attn._FUSED_BWD_MAX_BYTES = 0 if split else saved
+        try:
+            dq, dk, dv = attn._bwd(q, k, eye, out, lse, eye, False,
+                                   d ** -0.5, **md)
+        finally:
+            attn._FUSED_BWD_MAX_BYTES = saved
+        torch.cuda.synchronize()
+        assert torch.equal(dv.transpose(1, 2) > 0, keep)
+        if split:
+            ref_dq = attn._dq_reference(q, k, eye, lse, attn._delta(out, eye),
+                                        eye, False, d ** -0.5, **md)
+            assert _rel_l2(dq, ref_dq) <= 1e-2
+
+
+def test_flash_md_refuses_what_it_does_not_take(cuda):
+    q = _randn((2, 16, 32), 7, cuda)
+    seed3 = attn._seed_operand(1, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        attn._fwd(q, q, q, False, 0.2, rate=0.1, seed3=seed3)
+    q = _randn((2, 16, 64), 7, cuda)
+    with pytest.raises(ValueError, match="seed operand"):
+        attn._fwd(q, q, q, False, 0.2, rate=0.1, seed3=seed3.cpu())
+
+
+def test_flash_attention_dropout_autograd_launches_the_md_instances(cuda):
+    """The public entry with a mask and dropout, seeded by a tensor on
+    the card: one masked-dropout forward, one masked backward; grads
+    against the plain route's."""
+    b, h, s, d = 2, 2, 96, 64
+    q, k, v = (_randn((b, h, s, d), seed, cuda).requires_grad_()
+               for seed in (100, 101, 102))
+    mask = torch.zeros(b, 1, s, s, dtype=torch.bool, device=cuda)
+    mask[1, :, :, 60:] = True
+    seed = torch.tensor(77, dtype=torch.int32, device=cuda)
+    _build.reset_launch_counts()
+    out = attn.flash_attention(q, k, v, mask=mask, dropout_rate=0.1,
+                               dropout_seed=seed)
+    out.float().sum().backward()
+    counts = {n: c for n, c in _build.launch_counts().items() if c}
+    assert counts == {"flash_attention_masked_drop": 1,
+                      "flash_attention_bwd_masked": 1}
+    q2, k2, v2 = (t.detach().float().requires_grad_() for t in (q, k, v))
+    attn.flash_attention(q2, k2, v2, mask=mask, dropout_rate=0.1,
+                         dropout_seed=77, use_kernel=False).sum().backward()
+    for g_, r in ((q.grad, q2.grad), (k.grad, k2.grad), (v.grad, v2.grad)):
+        assert _rel_l2(g_, r) <= 2e-2

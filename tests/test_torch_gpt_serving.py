@@ -351,11 +351,20 @@ def test_gpt_model_logits_loss_and_mask_match_jax(model):
 
 
 def test_gpt_model_out_of_slice_options_raise(model):
+    """Training-mode dropout runs now (a finite loss that follows the
+    generator's seed; no generator raises ValueError); remat,
+    scan_layers, MoE and the fused head still raise."""
     _, _, cfg, _, _ = model
-    with pytest.raises(NotImplementedError, match="mask operand and dropout"):
-        gpt_model_provider(GPTConfig(**dict(CFG, hidden_dropout=0.1)),
-                           device="cpu")(torch.zeros(1, 4, dtype=torch.int32),
-                                         deterministic=False)
+    drop = gpt_model_provider(GPTConfig(**dict(CFG, hidden_dropout=0.1)),
+                              device="cpu")
+    toks = torch.arange(8, dtype=torch.int32)[None]
+    with torch.no_grad():
+        losses = [drop(toks, toks, deterministic=False,
+                       generator=torch.Generator().manual_seed(s)).item()
+                  for s in (0, 0, 1)]
+    assert np.isfinite(losses).all() and losses[0] == losses[1] != losses[2]
+    with pytest.raises(ValueError, match="generator"):
+        drop(torch.zeros(1, 4, dtype=torch.int32), deterministic=False)
     for kw, match in ((dict(remat=True), "remat"),
                       (dict(scan_layers=True), "item 6"),
                       (dict(num_moe_experts=4), "item 6")):

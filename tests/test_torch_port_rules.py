@@ -181,9 +181,14 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(
     assert tuple(y.shape) == (1, 32) and tuple(kt.shape) == (1, 2, 8)
     y, kt, vt = fused_block_decode(*_gpt_fused_args(), kind="gpt", eps=1e-5)
     assert tuple(y.shape) == (1, 32) and tuple(kt.shape) == (1, 4, 8)
-    # the masked flash forward and decode_attention's kernel branch
+    # the masked flash forward and backward, dropout on both routes of
+    # the backward, and decode_attention's kernel branch
     mask = torch.rand(1, 1, 8, 8) > 0.5
-    flash_attention(q, q, q, mask=mask)
+    flash_attention(q, q, q, mask=mask, dropout_rate=0.1,
+                    dropout_seed=3).sum().backward()
+    monkeypatch.setattr(tattn, "_FUSED_BWD_MAX_BYTES", 2 ** 21)
+    flash_attention(q, q, q, mask=mask, dropout_rate=0.1,
+                    dropout_seed=3).sum().backward()
     decode_attention(torch.randn(2, 4, 16), torch.randn(2, 2, 40, 16),
                      torch.randn(2, 2, 40, 16),
                      torch.tensor([0, 7], dtype=torch.int32), use_kernel=True)
@@ -198,7 +203,10 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(
         "layer_norm": 0, "layer_norm_bwd": 0, "flash_attention": 0,
         "flash_attention_masked": 0,
         "flash_attention_bwd": 0, "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkv": 0, "paged_attention": 0,
+        "flash_attention_bwd_dkv": 0, "flash_attention_drop": 0,
+        "flash_attention_masked_drop": 0, "flash_attention_bwd_masked": 0,
+        "flash_attention_bwd_drop": 0, "flash_attention_bwd_dq_md": 0,
+        "flash_attention_bwd_dkv_md": 0, "paged_attention": 0,
         "fused_scale": 0, "fused_axpby": 0, "fused_adam": 0,
         "fused_block_decode": 0, "fused_block_decode_gpt": 0,
         "fused_l2norm": 0,
@@ -261,10 +269,15 @@ def test_every_kernel_source_exists_and_exports_its_entry():
     with a ctypes signature, names the TPU kernels it replaces, and
     every kernel has its own launch counter."""
     assert sorted(_build.KERNELS) == sorted(_build.launch_counts())
-    # every TPU kernel, and a second instance of two of them: the masked
-    # flash forward (#3) and the GPT fused block (#8)
-    assert len(_build.KERNELS) == 18
-    assert {"flash_attention_masked", "fused_block_decode_gpt"} \
+    # every TPU kernel, and further instances: the masked flash forward
+    # (#3), the GPT fused block (#8), and the flash kernels' mask and
+    # dropout instances (#3 with dropout, masked or not; #4 with a mask or
+    # dropout; #5 and #6 with either)
+    assert len(_build.KERNELS) == 24
+    assert {"flash_attention_masked", "fused_block_decode_gpt",
+            "flash_attention_drop", "flash_attention_masked_drop",
+            "flash_attention_bwd_masked", "flash_attention_bwd_drop",
+            "flash_attention_bwd_dq_md", "flash_attention_bwd_dkv_md"} \
         <= set(_build.KERNELS)
     def flat(entries):    # a counter's entry, or its tuple of entries
         return [e for v in entries.values()

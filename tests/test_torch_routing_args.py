@@ -113,8 +113,8 @@ def test_flash_attention_routes_match_jax(route, masked):
 
 def test_plain_route_is_differentiable_with_a_mask_as_in_jax():
     """``use_kernel=False`` is plain PyTorch: autograd gives the JAX XLA
-    route's gradients, mask included (the kernels' masked backward is
-    not ported yet and raises)."""
+    route's gradients, mask included; the kernel route's masked backward
+    (its plain version here) gives the same gradients."""
     q, k, v = _qkv(1, 2, 24, 24, 16, seed=33)
     mask = np.random.RandomState(34).rand(1, 1, 24, 24) > 0.7
     mask[..., 2, :] = True
@@ -133,9 +133,13 @@ def test_plain_route_is_differentiable_with_a_mask_as_in_jax():
     for got, want in zip((tq.grad, tk.grad, tv.grad), ref):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=1e-4)
-    with pytest.raises(NotImplementedError, match="mask operand"):
-        tattn.flash_attention(tq, tk, tv, causal=True,
-                              mask=torch.from_numpy(mask)).sum().backward()
+    kq, kk, kv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = tattn.flash_attention(kq, kk, kv, causal=True,
+                                mask=torch.from_numpy(mask), use_kernel=True)
+    (out ** 2).sum().backward()
+    for got, want in zip((kq.grad, kk.grad, kv.grad), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-4)
 
 
 @pytest.mark.parametrize("block", [0, -128, 1.5, True])
