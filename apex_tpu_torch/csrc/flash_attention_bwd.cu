@@ -66,9 +66,13 @@
 //   thread, in place of per-thread atomics.
 // Head dims 32, 64 and 128 share the template; a head dim under 64 is
 // held zero-padded to one 64-column chunk (the swizzle's row).  Not yet
-// used: TMA loads, a producer warp, setmaxnreg, overlap of one step's
-// softmax with the next step's S^T (no registers left: dk, dv, S^T and
-// dP^T hold 192 a thread).  PERF.md records the times.
+// used by this kernel (#4): TMA loads, a producer warp, setmaxnreg,
+// overlap of one step's softmax with the next step's S^T (no registers
+// left: dk, dv, S^T and dP^T hold 192 a thread).  The mask and dropout
+// instances of the one-pass kernel (flash_attention_bwd_md.cu) took the
+// first three (flash_kmajor_ws.cuh: a TMA copying warpgroup, an mbarrier
+// ring, dq reductions off the product threads) and ran ~1.4x faster than
+// this template's instances of them; the same redesign is open for #4.  PERF.md records the times.
 //
 // The split dq kernel is query-major: the forward's template with its
 // dq half, flash_qmajor_kernel<D, true, kDqBK> (flash_qmajor.cuh).  A

@@ -17,13 +17,16 @@
 // (mask_tiles_kernel, flash_qmajor.cuh), whose class of each (128-query
 // block, 128-key tile) lets the kernel skip a dead 64-query step's
 // products (and a block whose steps are all dead altogether) and take a
-// full one without per-element tests; a partial step's 64 x 128 mask
-// bytes are copied with its q and dO (cp.async, 16 bytes a copy, rows
-// padded in shared memory so a warp's reads spread over the banks).  The
-// accumulators hold S^T, rows are keys: the keep hash takes the query as
-// its row and the key as its column, the key's part hashed once a
-// thread, the query's once a step, and the step's keep bits are held in
-// one register between the dV and dS halves.
+// full one without per-element tests.  The split dk/dv kernel copies a
+// partial step's 64 x 128 mask bytes with its q and dO (cp.async, 16
+// bytes a copy, rows padded in shared memory so a warp's reads spread
+// over the banks); the one-pass kernel (flash_kmajor_ws.cuh) has a
+// copying warpgroup bring the step's 1 KB of the pre-pass's bits with q
+// and dO by TMA.  The accumulators hold S^T, rows are keys:
+// the keep hash takes the query as its row and the key as its column,
+// the key's part hashed once a thread, the query's once a step, and the
+// step's keep bits are held in one register between the dV and dS
+// halves.
 //
 // What bounds it on the H100: operations, as the instances without them;
 // the hash adds integer work beside the tensor-core products.  Built for
@@ -36,6 +39,7 @@
 // either) launch on the caller's stream and return cudaGetLastError().
 
 #include "flash_kmajor.cuh"
+#include "flash_kmajor_ws.cuh"
 
 namespace {
 
@@ -61,9 +65,9 @@ int bwd_md(const void* q, const void* k, const void* v, const void* dout,
     if (e) return e;
   }
   if constexpr (DQ)
-    return launch_one_pass<D, MASK, DROP>(
+    return launch_one_pass_ws<D, MASK, DROP>(
         q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, causal,
-        off, valid_q, valid_k, scale_log2, scale, s, md);
+        off, valid_q, valid_k, scale_log2, scale, s, md, bits);
   CUtensorMap unused{};
   return launch_bwd<D, false, MASK, DROP>(
       q, k, v, dout, lse, delta, unused, dk, dv, bh, sq, sk, causal, off,

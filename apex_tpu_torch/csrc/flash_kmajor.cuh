@@ -1,9 +1,12 @@
 // The key-major flash-attention backward for Hopper (sm_90a):
 // flash_bwd_kernel<D, DQ, MASK, DROP>, the one-pass kernel (DQ) and the
 // split backward's dk/dv kernel, with the launch helpers shared by
-// flash_attention_bwd.cu (the instances without a mask and dropout) and
-// flash_attention_bwd_md.cu (those with them).  flash_attention_bwd.cu
-// describes the design.
+// flash_attention_bwd.cu (the instances without a mask and dropout: #4
+// and #6) and flash_attention_bwd_md.cu (the split dk/dv kernel with
+// them, #6md).  The one-pass kernel with a mask or dropout (#4m, #4md,
+// #4d) is a warp-specialized kernel of its own on the same blocks and
+// products (flash_kmajor_ws.cuh), so here MASK and DROP serve the dk/dv
+// kernel alone.  flash_attention_bwd.cu describes the design.
 #pragma once
 
 #include "flash_qmajor.cuh"
@@ -90,7 +93,9 @@ __device__ __forceinline__ void bulk_wait() {
 // rows grp and grp + 8 of those, as wgmma's accumulator layout places
 // them.
 //
-// MASK: a step (64 queries against the block's 128 keys) lies inside one
+// MASK (built with DQ = false: the split dk/dv kernel; the one-pass
+// kernel's mask and dropout instances are flash_kmajor_ws.cuh's): a step
+// (64 queries against the block's 128 keys) lies inside one
 // tile of the pre-pass's classes: a dead step is skipped (its q and dO
 // are still copied: the ring runs one step ahead), a full one takes the
 // causal and validity masks alone, and a partial one reads each
@@ -471,19 +476,22 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// dq (bf16) = the fp32 accumulator, 8 elements per thread (n % 8 == 0).
+// dq (bf16) = scale * the fp32 accumulator, 8 elements per thread (n % 8
+// == 0): scale 1 after the one-pass kernel, which scales its partials;
+// the softmax scale after the mask/dropout kernel, which does not.
 __global__ void dq_cast_kernel(const float* __restrict__ src,
-                               bf16* __restrict__ dst, size_t n8) {
+                               bf16* __restrict__ dst, size_t n8,
+                               float scale) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n8;
        i += (size_t)gridDim.x * blockDim.x) {
     const float4 a = reinterpret_cast<const float4*>(src)[2 * i];
     const float4 b = reinterpret_cast<const float4*>(src)[2 * i + 1];
     uint4 raw;
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-    h[0] = __floats2bfloat162_rn(a.x, a.y);
-    h[1] = __floats2bfloat162_rn(a.z, a.w);
-    h[2] = __floats2bfloat162_rn(b.x, b.y);
-    h[3] = __floats2bfloat162_rn(b.z, b.w);
+    h[0] = __floats2bfloat162_rn(scale * a.x, scale * a.y);
+    h[1] = __floats2bfloat162_rn(scale * a.z, scale * a.w);
+    h[2] = __floats2bfloat162_rn(scale * b.x, scale * b.y);
+    h[3] = __floats2bfloat162_rn(scale * b.z, scale * b.w);
     reinterpret_cast<uint4*>(dst)[i] = raw;
   }
 }
@@ -534,15 +542,25 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// The one-pass backward: dq_acc zeroed, the kernel adding into it, dq
-// cast from it.
-template <int D, bool MASK = false, bool DROP = false>
+// dq [n] (bf16) = scale * dq_acc [n] (fp32), n % 8 == 0.
+inline int launch_dq_cast(const void* dq_acc, void* dq, size_t n,
+                          float scale, cudaStream_t stream) {
+  const size_t n8 = n / 8;
+  const int blocks = (int)((n8 + 255) / 256 < 4096 ? (n8 + 255) / 256 : 4096);
+  dq_cast_kernel<<<blocks, 256, 0, stream>>>(
+      static_cast<const float*>(dq_acc), static_cast<bf16*>(dq), n8, scale);
+  return (int)cudaGetLastError();
+}
+
+// The one-pass backward without a mask and dropout: dq_acc zeroed, the
+// kernel adding into it, dq cast from it.
+template <int D>
 int launch_one_pass(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dq_acc, void* dq, void* dk, void* dv, int bh,
                     int sq, int sk, int causal, int off, int valid_q,
                     int valid_k, float scale_log2, float scale,
-                    cudaStream_t stream, const MdParams& md = {}) {
+                    cudaStream_t stream) {
   const size_t n = (size_t)bh * sq * D;
   cudaError_t err = cudaMemsetAsync(dq_acc, 0, n * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
@@ -550,16 +568,12 @@ int launch_one_pass(const void* q, const void* k, const void* v,
     CUtensorMap map;
     const int e = dq_tensor_map(&map, dq_acc, bh, sq, D);
     if (e) return e;
-    const int r = launch_bwd<D, true, MASK, DROP>(
+    const int r = launch_bwd<D, true>(
         q, k, v, dout, lse, delta, map, dk, dv, bh, sq, sk, causal, off,
-        valid_q, valid_k, scale_log2, scale, stream, md);
+        valid_q, valid_k, scale_log2, scale, stream);
     if (r) return r;
   }
-  const size_t n8 = n / 8;
-  const int blocks = (int)((n8 + 255) / 256 < 4096 ? (n8 + 255) / 256 : 4096);
-  dq_cast_kernel<<<blocks, 256, 0, stream>>>(
-      static_cast<const float*>(dq_acc), static_cast<bf16*>(dq), n8);
-  return (int)cudaGetLastError();
+  return launch_dq_cast(dq_acc, dq, n, 1.f, stream);
 }
 
 }  // namespace

@@ -139,10 +139,13 @@
    ``decode_attention``'s whole kernel branch at ``[8, 32, 1, 8192]``
    (with each version's peak memory rise; the version's own masked and
    decode wrappers), the fused blocks #8 and #8g for one layer each
-   with their phase clocks, and the fused GPT-3 1.3B and dense
-   Llama-3-8B (8192 positions) decode steps
-   (``--ab-rows`` picks among flash, paged, norm, steps, masked and
-   fused).
+   with their phase clocks, the fused GPT-3 1.3B and dense
+   Llama-3-8B (8192 positions) decode steps, and the mask and dropout
+   instances at the training paths' shapes (#4d and #4md through each
+   version's own ``_bwd``; #3d, #3md, #4 at 2048 and #6md at 8192 as
+   controls) with the full-depth ``gpt_train`` and ``bert_train``
+   steps (``--ab-rows`` picks among flash, paged, norm, steps, masked,
+   fused and md).
 9. **Shim.**  One backward of the 1-layer model, then
    ``multi_tensor_applier`` with each of its four ops over the model's
    real grad list (11 leaves, bf16 and fp32), one kernel launch a call,
@@ -4120,7 +4123,7 @@ def _turns(each):
     return [round(x, 5) for x in each["A"][:1] + each["B"] + each["A"][1:]]
 
 
-AB_ROWS = ("flash", "paged", "norm", "steps", "masked", "fused")
+AB_ROWS = ("flash", "paged", "norm", "steps", "masked", "fused", "md")
 
 
 def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
@@ -4144,11 +4147,14 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
     dense decode (with each version's peak memory rise); ``fused`` #8
     and #8g for one layer each with their phase clocks, the fused GPT-3
     1.3B decode step and the dense Llama-3-8B decode step at 8192
-    positions.  Each row's two versions are held against each other
-    (and against the plain version) before they are timed.  The
+    positions; ``md`` the mask and dropout instances at the training
+    paths' shapes and the training steps that run them
+    (:func:`_ab_md`).  Each row's two versions are held against each
+    other (and against the plain version) before they are timed.  The
     baseline's own wrappers stand in for this tree's where their C
     entries differ (paged decode, the norm backward, the masked forward
-    and the decode branch)."""
+    and the decode branch) and for the flash backward's (``_bwd``,
+    ``_dkv_kernel``)."""
     from apex_tpu_torch.ops import _build
     attn = importlib.import_module("apex_tpu_torch.ops.attention")
     pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
@@ -4162,7 +4168,8 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
     attn_patches = tuple(
         (mod, name, getattr(base_attn, name))
         for mod, name in ((attn, "_fwd"), (attn, "decode_attention"),
-                          (models, "decode_attention"))
+                          (models, "decode_attention"), (attn, "_bwd"),
+                          (attn, "_dkv_kernel"))
         if hasattr(base_attn, name))
     base_build = _baseline_module(baseline, "_build")
     versions = {
@@ -4241,6 +4248,8 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
         _ab_masked(dev, gen, versions)
     if "fused" in rows:
         _ab_fused(dev, seed, gen, versions)
+    if "md" in rows:
+        _ab_md(dev, seed, gen, versions)
     if "steps" not in rows:
         return
     _ab_decode_step(dev, seed, versions)
@@ -4269,6 +4278,204 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
               f"{[round(x, 5) for x in each['B']]})")
         del model, box, step, batch
         torch.cuda.empty_cache()
+
+
+def _rel_l2(got, ref) -> float:
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def _ab_md(dev, seed: int, gen, versions):
+    """The mask and dropout instances' A/B at the training paths' shapes
+    (:func:`_md_shapes`, rate 0.1): #3d and #3md (the forward, an
+    unchanged control) and #4d and #4md (the one-pass backward, each
+    version through its own ``_bwd``: delta, dq scratch, pre-pass,
+    kernel, cast), each version held against the plain version (the
+    forward's rows within 2^-6 of their max and lse within 1e-3; the
+    backward's outputs within the flash backward's relative L2 and each
+    row within 2^-6 of its max) and against the other version; then the
+    unchanged controls #4 at causal [1, 32, 2048, 128] and #6md at
+    causal [1, 32, 8192, 128] with a per-head mask and dropout (B's
+    first four heads against the plain version); then the ``gpt_train``
+    and ``bert_train`` steps at full depth (:func:`_ab_lm_steps`)."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    rate = LM_DROPOUT
+    seed3 = attn._seed_operand(-2 ** 31 + 12345, device=dev)
+    for (tag, label, q3, k3, v3, do3, mask3, causal, _mb, _live,
+         h) in _md_shapes(dev, gen):
+        bh, s, d = q3.shape
+        scale = d ** -0.5
+        md = dict(mask3=mask3, rate=rate, seed3=seed3)
+        step = 16 if tag == "gpt" else bh
+
+        def m3(sl):
+            return None if mask3 is None else mask3[sl.start // h:
+                                                    sl.stop // h]
+
+        out, lse = attn._fwd(q3, k3, v3, causal, scale, **md)
+        ref_f = _by_heads(lambda sl: attn._fwd_reference(
+            q3[sl], k3[sl], v3[sl], causal, scale, mask3=m3(sl), rate=rate,
+            seed3=seed3, bh0=sl.start), bh, step)
+        ref_b = _by_heads(lambda sl: attn._bwd_reference(
+            q3[sl], k3[sl], v3[sl], out[sl], lse[sl], do3[sl], causal, scale,
+            mask3=m3(sl), rate=rate, seed3=seed3, bh0=sl.start), bh, step)
+        sfx = "md" if mask3 is not None else "d"
+        calls = (("3" + sfx, lambda: attn._fwd(q3, k3, v3, causal, scale,
+                                               **md)),
+                 ("4" + sfx, lambda: attn._bwd(q3, k3, v3, out, lse, do3,
+                                               causal, scale, **md)))
+        for row, call in calls:
+            got = {}
+            for turn in "AB":
+                with _as_version(versions[turn]):
+                    got[turn] = call()
+            torch.cuda.synchronize()
+            if row.startswith("3"):
+                errs = [_slot_rel(got[t][0].reshape(-1, d),
+                                  ref_f[0].reshape(-1, d)) for t in "AB"]
+                lse_err = max((got[t][1] - ref_f[1]).abs().max().item()
+                              for t in "AB")
+                ok = max(errs) <= TOL_PAGED_OUT and lse_err <= TOL_ATTN_LSE
+                detail = (f"each row's max|diff| / max|ref| A {errs[0]:.3e}, "
+                          f"B {errs[1]:.3e}; lse max|diff| {lse_err:.3e}")
+            else:
+                rel = {t: [_rel_l2(g_, r_) for g_, r_ in zip(got[t], ref_b)]
+                       for t in "AB"}
+                rows_ = {t: max(_slot_rel(g_.reshape(-1, d),
+                                          r_.reshape(-1, d))
+                                for g_, r_ in zip(got[t], ref_b))
+                         for t in "AB"}
+                ab = [_rel_l2(b_, a_) for a_, b_ in zip(got["A"], got["B"])]
+                ok = (max(rel["A"] + rel["B"] + ab) <= TOL_FLASH_BWD_REL_L2
+                      and max(rows_.values()) <= TOL_PAGED_OUT)
+                detail = (f"relative L2 of dq, dk, dv against the plain "
+                          f"version A {[f'{r:.3e}' for r in rel['A']]}, B "
+                          f"{[f'{r:.3e}' for r in rel['B']]}, B against A "
+                          f"{[f'{r:.3e}' for r in ab]}; each row's max|diff| "
+                          f"/ max|ref| A {rows_['A']:.3e}, B {rows_['B']:.3e}")
+            print(f"  #{row} ({tag}, {label}): {detail}")
+            if not ok:
+                raise AssertionError(f"ab: #{row} ({tag}) is off")
+            del got
+            mean, each = _ab(versions, lambda: _time_ms(call, 10))
+            print(f"  #{row} ({tag}) dropout {rate}: A {mean['A']:.4f} ms, B "
+                  f"{mean['B']:.4f} ms (turns A B B A: {_turns(each)})")
+        del q3, k3, v3, do3, out, lse, ref_f, ref_b, mask3, calls
+        torch.cuda.empty_cache()
+    bf = torch.bfloat16
+    # the unchanged controls: #4 (no mask, no dropout) and #6md
+    for label, bh, s, masked in (("#4", 32, TRAIN_SEQ, False),
+                                 ("#6md", 32, SPLIT_SEQ, True)):
+        d = 128
+        scale = d ** -0.5
+        q3, k3, v3, do3 = (torch.randn(bh, s, d, generator=gen, device=dev)
+                           .to(bf) for _ in range(4))
+        md = {}
+        if masked:
+            mask3 = torch.rand(bh, s, s, generator=gen, device=dev) < 0.1
+            mask3[:, 5] = True
+            md = dict(mask3=mask3, rate=rate, seed3=seed3)
+        out, lse = attn._fwd(q3, k3, v3, True, scale, **md)
+        delta = attn._delta(out, do3)
+        if masked:
+            def call():
+                return attn._dkv_kernel(q3, k3, v3, lse, delta, do3, True,
+                                        scale, **md)
+        else:
+            def call():
+                return attn._bwd(q3, k3, v3, out, lse, do3, True, scale)
+        got = {}
+        for turn in "AB":
+            with _as_version(versions[turn]):
+                got[turn] = call()
+        torch.cuda.synchronize()
+        ab = [_rel_l2(b_, a_) for a_, b_ in zip(got["A"], got["B"])]
+        same = [torch.equal(a_, b_) for a_, b_ in zip(got["A"], got["B"])]
+        detail = ""
+        if masked:
+            sl = slice(0, 4)
+            ref = attn._dkv_reference(
+                q3[sl], k3[sl], v3[sl], lse[sl], delta[sl], do3[sl], True,
+                scale, mask3=mask3[sl], rate=rate, seed3=seed3)
+            plain = [_rel_l2(g_[sl], r_) for g_, r_ in zip(got["B"], ref)]
+            detail = (f"; B's first 4 heads against the plain version "
+                      f"{[f'{r:.3e}' for r in plain]}")
+            ab += plain
+            del ref
+        print(f"  {label} causal [1, {bh}, {s}, {d}]: B against A relative "
+              f"L2 {[f'{r:.3e}' for r in ab]}, bit-identical {same}{detail}")
+        if max(ab) > TOL_FLASH_BWD_REL_L2:
+            raise AssertionError(f"ab: {label} differs between the versions")
+        del got
+        mean, each = _ab(versions, lambda: _time_ms(
+            call, 10 if s == TRAIN_SEQ else 4))
+        print(f"  {label} causal [1, {bh}, {s}, {d}]: A {mean['A']:.4f} ms, "
+              f"B {mean['B']:.4f} ms (turns A B B A: {_turns(each)})")
+        del q3, k3, v3, do3, out, lse, delta, md, call
+        if masked:
+            del mask3
+        torch.cuda.empty_cache()
+    for kind in ("gpt", "bert"):
+        _ab_lm_steps(dev, seed, kind, versions)
+
+
+def _ab_lm_steps(dev, seed: int, kind: str, versions):
+    """The ``gpt_train`` / ``bert_train`` step (full depth, dropout 0.1,
+    the phase's batch and optimizer) under each version: each version's
+    step must launch the phase's two flash instances once a layer and no
+    other flash kernel; then eight turns A B B A A B B A of three steps,
+    each turn's median."""
+    from apex_tpu_torch import train_step
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.optimizers import functional
+    cfg, model = _lm_model(kind, dev, seed)
+    batch = _lm_batch(kind, cfg, dev, seed)
+    bert = kind == "bert"
+    tx = functional.fused_lamb(**LAMB_KW) if bert \
+        else functional.fused_adam(lr=TRAIN_LR)
+    box = {"state": train_step.init_train_state(tx, model,
+                                                loss_scale="dynamic"),
+           "i": 0}
+    step = train_step.make_train_step(_bert_loss if bert else _gpt_loss, tx)
+    want = dict.fromkeys(BERT_TRAIN_KERNELS if bert else GPT_TRAIN_KERNELS,
+                         cfg.num_layers)
+
+    def one():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed * 1000 + box["i"])
+        box["i"] += 1
+        box["state"], loss = step(box["state"], dict(batch, generator=gen))
+        return loss
+
+    for turn in "AB":
+        with _as_version(versions[turn]):
+            before = _build.launch_counts()
+            loss = one().item()
+            flash = {k: v - before[k]
+                     for k, v in _build.launch_counts().items()
+                     if k.startswith("flash_attention") and v != before[k]}
+        print(f"  {kind}_train step ({turn}): loss {loss:.4f}, flash "
+              f"launches {flash}")
+        if flash != want or not np.isfinite(loss):
+            raise AssertionError(f"ab: the {kind}_train step ({turn}) "
+                                 f"launched {flash}, loss {loss}")
+
+    def steps():
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        return float(np.median(times))
+
+    mean, each = _ab(versions, steps, "ABBAABBA")
+    print(f"  {kind}_train step, {cfg.num_layers} layers: A {mean['A']:.4f} "
+          f"s, B {mean['B']:.4f} s (turns A B B A A B B A, medians of 3 "
+          f"steps: A {[round(x, 5) for x in each['A']]}, B "
+          f"{[round(x, 5) for x in each['B']]})")
+    del model, box, step, batch
+    torch.cuda.empty_cache()
 
 
 def _paged_table(dev, gen, lengths_l, ps: int, mpps: int):

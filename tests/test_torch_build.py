@@ -16,7 +16,8 @@ HEADERS = sorted(p.name for p in CSRC.glob("*.cuh"))
 FILES = sorted(p.name for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 FLASH = ("flash_attention.cu", "flash_attention_bwd.cu",
          "flash_attention_md.cu", "flash_attention_bwd_md.cu",
-         "flash_qmajor.cuh", "flash_kmajor.cuh", "hopper.cuh")
+         "flash_qmajor.cuh", "flash_kmajor.cuh", "flash_kmajor_ws.cuh",
+         "hopper.cuh")
 
 
 def _code(text: str) -> str:
@@ -86,6 +87,29 @@ def test_flash_sources_take_the_shared_template(name):
     assert '#include "flash_qmajor.cuh"' in code
     assert re.search(r"launch_qmajor<D, (true|false), ", code)
     assert "wgmma.mma_async" in _code((CSRC / "hopper.cuh").read_text())
+
+
+def test_md_one_pass_takes_the_warp_specialized_kernel(csrc_copy):
+    """The one-pass backward's mask and dropout instances launch the
+    warp-specialized kernel (a copying warpgroup on TMA, an mbarrier
+    ring, no block-wide barrier in the loop), which the library's name
+    hashes; the split dk/dv instances keep the key-major template."""
+    md = _code((CSRC / "flash_attention_bwd_md.cu").read_text())
+    assert '#include "flash_kmajor_ws.cuh"' in md
+    assert "launch_one_pass_ws<D, MASK, DROP>" in md
+    assert "launch_bwd<D, false, MASK, DROP>" in md
+    assert "launch_one_pass<" not in md
+    ws = _code((CSRC / "flash_kmajor_ws.cuh").read_text())
+    for piece in ("tma_load(", "mbar_wait(", "reg_dealloc<", "reg_alloc<",
+                  "cp.async.mbarrier.arrive", "tensor_add_f32("):
+        assert piece in ws, piece
+    loop = ws[ws.index("reg_alloc<kWsRegs>();"):]
+    assert "__syncthreads" not in loop and "cp_async16z" not in loop
+    assert "flash_kmajor_ws.cuh" in _build._digest_files()
+    before = _build._digest()
+    path = csrc_copy / "flash_kmajor_ws.cuh"
+    path.write_text(path.read_text() + "\n// edited\n")
+    assert _build._digest() != before
 
 
 def _paged_code() -> str:

@@ -27,8 +27,11 @@ twin's and tree class's launches per step with no host sync, and a
 twin step equal to a functional step bit for bit; the flash kernels'
 mask and dropout instances: the forward with dropout, masked or not,
 and both backward routes with a mask and/or dropout against their
-plain versions on the same seed operand, and each instance's keep
-pattern equal to the plain keep mask bit for bit).
+plain versions on the same seed operand, the one-pass instances past
+their ring (2048 queries, causal offsets, key blocks with no live step,
+300 batch-heads; dk and dv the same bits on a second run), and each
+instance's keep pattern equal to the plain keep mask bit for bit, also
+where the one-pass kernel's ring wraps).
 
 A CUDA kernel has no CPU mode, so every test here takes the ``cuda``
 fixture and skips without a card.  On a machine with one (the package's
@@ -1743,12 +1746,13 @@ def test_twin_step_equals_functional_step_bit_for_bit(cuda):
 # (i, j) is kept, and with dO = I (sq = d) dv[j, i] > 0 where (i, j) is
 # kept.
 
-def _exact_grads_md(q, k, v, do, causal, scale, mask3, rate, seed3):
-    """(dq, dk, dv) in float64 with the mask and the keep mask, p, p̃ and
-    ds unrounded."""
+def _exact_grads_md(q, k, v, do, causal, scale, mask3, rate, seed3,
+                    valid=None):
+    """(dq, dk, dv) in float64 with the mask, the validity window and the
+    keep mask, p, p̃ and ds unrounded."""
     bh, sq, sk = q.shape[0], q.shape[1], k.shape[1]
     q_, k_, v_, do_ = (t.double() for t in (q, k, v, do))
-    live = attn._live3(bh, sq, sk, causal, sk - sq, None, mask3, q.device)
+    live = attn._live3(bh, sq, sk, causal, sk - sq, valid, mask3, q.device)
     s = (torch.matmul(q_, k_.transpose(1, 2)) * scale).masked_fill(
         ~live, float("-inf"))
     p = torch.softmax(s, dim=-1).nan_to_num(0.0)
@@ -1836,6 +1840,62 @@ def test_flash_md_backward_matches_plain(cuda, d, kind, rate, sq, sk, causal,
         q, k, v, do, causal, scale, mask3, rate, seed3))
 
 
+# The one-pass instances' ring and roles past the short cases above: more
+# query steps than ring stages (causal 2048; sq != sk with the causal
+# offset), key blocks with no live step (a batch all masked and keys past
+# a padding length; a validity window), more blocks than SMs (300
+# batch-heads).  Rate 0 without a mask is the plain one-pass kernel, so
+# there the mask is per batch.
+_MD_LONG = [
+    # label, b, h, sq, sk, causal, mask kind, valid
+    ("causal 2048", 1, 2, 2048, 2048, True, None, None),
+    ("causal offset", 1, 2, 1000, 1536, True, None, None),
+    ("a batch all masked", 2, 2, 700, 700, False, "dead batch", None),
+    ("validity window", 1, 2, 1100, 1300, True, None, (900, 1000)),
+    ("300 batch-heads", 100, 3, 256, 256, True, "per-batch", None),
+]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("label,b,h,sq,sk,causal,kind,valid", _MD_LONG,
+                         ids=[c[0] for c in _MD_LONG])
+def test_flash_md_one_pass_backward_long(cuda, d, rate, label, b, h, sq, sk,
+                                         causal, kind, valid):
+    """The one-pass mask/dropout backward against its plain version and
+    the exact gradient; dk and dv the same bits on a second run (each
+    block writes its keys' once), dq within the rule (its bulk
+    reductions add in any order)."""
+    if kind is None and not rate:
+        kind = "per-batch"
+    q, k, v, do = (_randn((b * h, s, d), seed, cuda)
+                   for seed, s in ((110, sq), (111, sk), (112, sk), (113, sq)))
+    if kind == "dead batch":
+        m = np.random.RandomState(114).rand(b, sq, sk) > 0.6
+        m[0, :, 300:] = True                # keys past a padding length
+        m[1] = True                         # a batch all masked
+        mask3 = torch.from_numpy(m).to(cuda)
+    else:
+        mask3 = _md_mask3(kind, b, h, sq, sk, 114, cuda)
+    seed3 = attn._seed_operand(-987654321, device=cuda)
+    scale = d ** -0.5
+    md = dict(valid=valid, mask3=mask3, rate=rate, seed3=seed3)
+    out, lse = attn._fwd(q, k, v, causal, scale, **md)
+    name = ("flash_attention_bwd_masked" if mask3 is not None
+            else "flash_attention_bwd_drop")
+    before = _build.launch_counts()
+    got = attn._bwd(q, k, v, out, lse, do, causal, scale, **md)
+    after = _build.launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {name: 1}
+    again = attn._bwd(q, k, v, out, lse, do, causal, scale, **md)
+    ref = attn._bwd_reference(q, k, v, out, lse, do, causal, scale, **md)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    _assert_flash_bwd_close(got, ref, _exact_grads_md(
+        q, k, v, do, causal, scale, mask3, rate, seed3, valid))
+
+
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("seed,bh", [(0, 3), (-1, 40), (2 ** 31 - 1, 300),
                                      (-2 ** 31, 7)])
@@ -1876,6 +1936,36 @@ def test_flash_keep_pattern_is_the_plain_keep_mask(cuda, d, seed, bh,
             ref_dq = attn._dq_reference(q, k, eye, lse, attn._delta(out, eye),
                                         eye, False, d ** -0.5, **md)
             assert _rel_l2(dq, ref_dq) <= 1e-2
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_keep_pattern_is_the_plain_keep_mask_causal_2048(cuda, d,
+                                                               masked):
+    """The one-pass backward's keep pattern where its ring wraps: causal,
+    2048 queries and keys, q = 0; dO one-hot on a window of d queries
+    (query w0 + i to column i), so dv[j, i] > 0 exactly where query w0 + i
+    keeps key j, window by window."""
+    bh, s, rate = 3, 2048, 0.3
+    q = torch.zeros(bh, s, d, dtype=torch.bfloat16, device=cuda)
+    k = _randn((bh, s, d), 115, cuda)
+    v = _randn((bh, s, d), 116, cuda)
+    seed3 = attn._seed_operand(-2 ** 31 + 7, device=cuda)
+    mask3 = None
+    if masked:
+        mask3 = torch.zeros(1, s, s, dtype=torch.bool, device=cuda)
+        mask3[:, :, s - 200:] = True        # keys past a padding length
+    live = attn._live3(bh, s, s, True, 0, None, mask3, cuda)
+    keep = attn._keep3(seed3, bh, s, s, rate, cuda) & live
+    md = dict(mask3=mask3, rate=rate, seed3=seed3)
+    out, lse = attn._fwd(q, k, v, True, d ** -0.5, **md)
+    eye = torch.eye(d, dtype=torch.bfloat16, device=cuda)
+    for w0 in range(0, s, d):
+        do = torch.zeros(bh, s, d, dtype=torch.bfloat16, device=cuda)
+        do[:, w0:w0 + d] = eye
+        _, _, dv = attn._bwd(q, k, v, out, lse, do, True, d ** -0.5, **md)
+        torch.cuda.synchronize()
+        assert torch.equal(dv.transpose(1, 2) > 0, keep[:, w0:w0 + d]), w0
 
 
 def test_flash_md_refuses_what_it_does_not_take(cuda):
