@@ -1,6 +1,8 @@
 // Flash attention with dropout, and the split backward's dq with a mask
-// or dropout, for Hopper (sm_90a): the query-major template's MASK and
-// DROP instances (flash_qmajor.cuh).
+// or dropout, for Hopper (sm_90a): the forward's instances are the
+// warp-specialized persistent kernel of flash_qmajor_ws.cuh (#3d, #3md),
+// the dq kernel's the query-major template's MASK and DROP instances
+// (flash_qmajor.cuh).
 //
 // Replaces: apex_tpu/ops/attention.py :: _fwd_kernel (launched by _fwd
 // through pl.pallas_call) with its dropout operand (rate > 0, the SMEM
@@ -18,11 +20,12 @@
 // grid step; here each product thread hashes the elements of its
 // accumulator fragment (rows row and row + 8, keys 8 j + 2 tig + e) in
 // registers, about ten integer operations an element, with the row part
-// hashed once a row.  The seed operand stays in device memory (read by
-// each thread at the start), so a seed drawn on the card needs no host
-// sync.  The masked instances take the forward's mask pre-pass
-// (mask_tiles_kernel) and walk only live tiles; the dq kernel's 64-key
-// steps read half of a 128-key tile's class and bits.
+// hashed once a row (the forward: while its S product runs).  The seed
+// operand stays in device memory (read by each thread at the start), so a
+// seed drawn on the card needs no host sync.  The masked instances take
+// the forward's mask pre-pass (mask_tiles_kernel) and walk only live
+// tiles; the dq kernel's 64-key steps read half of a 128-key tile's class
+// and bits.
 //
 // What bounds it on the H100: operations, as the instances without
 // dropout (flash_attention.cu, flash_attention_bwd.cu); the hash adds
@@ -35,11 +38,12 @@
 // launch on the caller's stream and return cudaGetLastError().
 
 #include "flash_qmajor.cuh"
+#include "flash_qmajor_ws.cuh"
 
 namespace {
 
-constexpr int kFwdBK = 128;   // keys a step: the forward's (flash_attention.cu)
-constexpr int kDqBK = 64;     // and the dq kernel's (flash_attention_bwd.cu)
+// keys a step of the dq kernel (flash_attention_bwd.cu's)
+constexpr int kDqBK = 64;
 
 struct MdArgs {
   const void *mask, *cls, *bits, *seed3;
@@ -65,10 +69,10 @@ int fwd_drop(const void* q, const void* k, const void* v, void* o, void* lse,
     const int e = pre_pass(a, bh, sq, sk, causal, off, valid_q, valid_k, s);
     if (e) return e;
   }
-  return launch_qmajor<D, false, kFwdBK, MASK, true>(
-      q, k, v, nullptr, nullptr, nullptr, o, lse, bh, sq, sk, causal, off,
-      valid_q, valid_k, scale_log2, 0.f, s, a.cls, a.bits, a.mask_hper,
-      a.seed3, a.threshold, a.inv_keep);
+  return launch_fwd_ws<D, MASK>(q, k, v, o, lse, bh, sq, sk, causal, off,
+                                valid_q, valid_k, scale_log2, s, a.cls,
+                                a.bits, a.mask_hper, a.seed3, a.threshold,
+                                a.inv_keep);
 }
 
 template <int D, bool MASK, bool DROP>

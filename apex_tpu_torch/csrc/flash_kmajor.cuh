@@ -77,15 +77,6 @@ __device__ __forceinline__ void tensor_add_f32(const CUtensorMap* map, int c,
       "r"(c), "r"(r), "r"(bh), "r"(src)
       : "memory");
 }
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
 
 // DQ: the one-pass kernel (dq added into dq_acc through dq_map); without
 // it the split dk/dv kernel (dq_map unused).  Warpgroup wg owns keys

@@ -118,30 +118,6 @@ struct WsTiles {
   static_assert(bytes <= kSmemMax, "the tiles fit in shared memory");
 };
 
-// drop_keep (hopper.cuh) with the row's and the column's parts each
-// passed through the finalizer's first xor-shift beforehand (it
-// distributes over their xor): two instructions an element fewer, the
-// same bits.
-__device__ __forceinline__ uint32_t fold16(uint32_t x) {
-  return x ^ (x >> 16);
-}
-__device__ __forceinline__ bool drop_keep_folded(uint32_t row_f,
-                                                 uint32_t col_f,
-                                                 uint32_t threshold) {
-  uint32_t h = (row_f ^ col_f) * kH2;
-  h ^= h >> 13;
-  h *= kH3;
-  h ^= h >> 16;
-  return (h >> 8) >= threshold;
-}
-
-// Declare registers that a wgmma overwrites (no instruction).
-template <int N>
-__device__ __forceinline__ void undef(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "=f"(r[i]));
-}
-
 // `bytes` of global memory at src into shared memory at dst, completing
 // `bar`'s transactions (both 16-byte aligned, bytes a multiple of 16).
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,

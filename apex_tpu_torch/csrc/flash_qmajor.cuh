@@ -51,14 +51,12 @@
 //
 // The split dq kernel takes the same mask through the same pre-pass
 // (MASK with DQ): its 64-key steps read half of a 128-key tile's class
-// and bits.  DROP (both kernels) is attention dropout with the JAX
-// package's keep mask (hopper.cuh, drop_keep) from the seed operand
-// [seed, row_off, col_off] read from device memory: the forward drops p
-// (and scales the survivors by 1 / (1 - rate)) after its row sums took
-// the clean p, before P is packed for the P V product, as _fwd_kernel
-// does; dq takes dS = P (keep ? dP / (1 - rate) : 0 - delta), as
-// _dropped_dp gives it.  Without MASK and DROP the instances are the
-// ones of the unmasked path, unchanged.
+// and bits.  DROP (the dq kernel only: the forward's dropout instances
+// are flash_qmajor_ws.cuh's) is attention dropout with the JAX package's
+// keep mask (hopper.cuh, drop_keep) from the seed operand [seed, row_off,
+// col_off] read from device memory: dq takes dS = P (keep ? dP / (1 -
+// rate) : 0 - delta), as _dropped_dp gives it.  Without MASK and DROP the
+// instances are the ones of the unmasked path, unchanged.
 #pragma once
 
 #include "hopper.cuh"
@@ -124,6 +122,8 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
                     int nkt, const int* __restrict__ seed3,
                     unsigned threshold, float inv_keep) {
   static_assert(kMaskTile % BK == 0, "a step lies inside a pre-pass tile");
+  static_assert(DQ || !DROP,
+                "the forward's dropout instances are flash_qmajor_ws.cuh's");
   // the pre-pass tiles hold kStepsPerTile key steps each
   constexpr int kStepsPerTile = kMaskTile / BK;
   using T = QmTiles<D, DQ, BK>;
@@ -379,24 +379,6 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
           m[hf] = m_new;
         }
       }
-      if constexpr (DROP) {
-        // the row sums above took the clean p; P V takes the dropped,
-        // rescaled one
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const uint32_t ch =
-                drop_col(hcol0 + (uint32_t)(k0 + j * 8 + tig * 2 + e));
-#pragma unroll
-            for (int hf = 0; hf < 2; ++hf) {
-              const int x = j * 4 + hf * 2 + e;
-              s[x] = drop_keep(hrow[hf], ch, threshold) ? s[x] * inv_keep
-                                                        : 0.f;
-            }
-          }
-      }
-
       wgmma_wait<0>();        // P_{t-1} V_{t-1} is done: O and P are free
       keep(acc);
       keep(pa);
@@ -653,7 +635,8 @@ inline int launch_mask_tiles(const void* mask, void* cls, void* bits,
 }
 
 // flash_qmajor_kernel<D, DQ, BK, MASK, DROP>, one block per (b*h,
-// 128-query block); the operands' tensor maps are encoded here.
+// 128-query block); the operands' tensor maps are encoded here (DROP
+// with DQ only).
 template <int D, bool DQ, int BK, bool MASK = false, bool DROP = false>
 int launch_qmajor(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse_in, const void* delta,

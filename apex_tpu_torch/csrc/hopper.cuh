@@ -81,6 +81,24 @@ __device__ __forceinline__ bool drop_keep(uint32_t row_h, uint32_t col_h,
   h ^= h >> 16;
   return (h >> 8) >= threshold;
 }
+// The same bits with the row's and the column's parts each passed
+// through the finalizer's first xor-shift beforehand (it distributes over
+// their xor; fold16): two instructions an element fewer.  drop_mix is the
+// rest of the finalizer.
+__device__ __forceinline__ uint32_t fold16(uint32_t x) {
+  return x ^ (x >> 16);
+}
+__device__ __forceinline__ uint32_t drop_mix(uint32_t x) {
+  uint32_t h = x * kH2;
+  h ^= h >> 13;
+  h *= kH3;
+  return h ^ (h >> 16);
+}
+__device__ __forceinline__ bool drop_keep_folded(uint32_t row_f,
+                                                 uint32_t col_f,
+                                                 uint32_t threshold) {
+  return (drop_mix(row_f ^ col_f) >> 8) >= threshold;
+}
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -146,6 +164,13 @@ __device__ __forceinline__ void keep(unsigned (&r)[M][4]) {
   for (int i = 0; i < M; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Declare registers that a wgmma overwrites (no instruction).
+template <int N>
+__device__ __forceinline__ void undef(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "=f"(r[i]));
 }
 
 // The bf16 A fragments of an m64 x 16M fp32 accumulator (rounded): its
@@ -295,6 +320,29 @@ __device__ __forceinline__ void reg_alloc() {
 template <int N>
 __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// TMA stores and bulk copies: commit the issued ones as a group, wait
+// until they have read shared memory, or until they are done.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// The swizzled tile at src in shared memory into the box at (column c,
+// row r, head h) of a 3-d tensor map (rows past the map's end are not
+// written).
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c, int r, int h) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3}], [%4];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c), "r"(r), "r"(h), "r"(src)
+      : "memory");
 }
 
 __device__ __forceinline__ void bar_sync(int id, int n) {

@@ -233,6 +233,22 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 QUEUE_SLEEP_CYCLES = 200_000_000
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32, outside the tensor cores
+#: The dropout instances' third bound term, the keep hash on the CUDA
+#: cores: instructions a live element needs, by the pipe that runs them.
+#: ``_keep_mask`` (attention.py) is murmur3's finalizer over seed ^ bh H1
+#: ^ row H2 ^ col H3; with the row's and the column's parts folded
+#: through its first xor-shift once a row and a column (fold16), an
+#: element takes the xor of the two parts, two multiplies, two shifts and
+#: two xors, the compare of the top 24 bits (h >= threshold << 8) and the
+#: select that zeroes a dropped p: 9 (flash_fwd_ws_kernel's SASS: LOP3,
+#: IMAD, SHF, LOP3, IMAD, SHF, LOP3, ISETP, FSEL).  The two IMADs issue on
+#: the FMA pipe, the other 7 on the integer ALU pipe (64 lanes an SM);
+#: all 9 take an issue slot (4 warp schedulers of 32 lanes an SM).  The
+#: term is the larger of the two.
+HASH_ALU_OPS = 7
+HASH_ALL_OPS = 9
+ALU_OPS_PER_CLOCK_SM = 64        # integer ALU lanes an SM (Hopper)
+DISPATCH_PER_CLOCK_SM = 128      # thread-instructions issued an SM a clock
 FULL_CFG = dict(vocab_size=128256, hidden_size=4096, num_layers=32,
                 num_attention_heads=32, num_kv_heads=8,
                 ffn_hidden_size=14336, max_seq_length=8192,
@@ -492,6 +508,38 @@ def _bound(nbytes: float, flops: float, rate: float = BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _sm_clock_hz() -> float:
+    """The SM clock the card reaches (``nvidia-smi``'s clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def _md_bound(nbytes: float, flops: float, live_elements: float):
+    """A dropout instance's bound: the largest of its bytes over the
+    memory rate, its products over the bf16 tensor-core rate and the keep
+    hash over the CUDA cores (``HASH_ALU_OPS`` a live element over the
+    card's SMs x 64 ALU lanes a clock, or ``HASH_ALL_OPS`` over x 128
+    issue slots, whichever is slower) at the SM clock: ``(ms, "bytes" or
+    "operations", (bytes ms, tensor ms, hash ms))``."""
+    sm_clocks = (torch.cuda.get_device_properties(0).multi_processor_count
+                 * _sm_clock_hz())
+    per_clock = max(HASH_ALU_OPS / ALU_OPS_PER_CLOCK_SM,
+                    HASH_ALL_OPS / DISPATCH_PER_CLOCK_SM)
+    hash_s = live_elements * per_clock / sm_clocks
+    terms = (nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3,
+             hash_s * 1e3)
+    by = "bytes" if terms[0] >= max(terms[1:]) else "operations"
+    return max(terms), by, terms
+
+
+def _terms(terms) -> str:
+    return (f"bytes {terms[0]:.4f}, tensor {terms[1]:.4f}, hash "
+            f"{terms[2]:.4f} ms")
 
 
 def _check(name: str, err: float, tol: float) -> None:
@@ -1318,14 +1366,16 @@ def _md_rows(dev, gen, recs):
         if mask3 is None:        # causal: half the score matrix
             f_flops = 4 * s * s * d * bh / 2
             b_flops = 5 * s * s * d * bh
+            elements = bh * s * (s + 1) / 2
         else:                    # every query against its live keys
             f_flops = 4 * s * live * h * d
             b_flops = 10 * s * live * h * d
+            elements = s * live * h
         live_kv = 2 * (bh * s if mask3 is None else live * h) * d * 2
-        f_bound = _bound(2 * q3.numel() * 2 + live_kv + mask_bytes + bh * s * 4
-                         + 12, f_flops)
-        b_bound = _bound(4 * q3.numel() * 2 + 2 * live_kv + mask_bytes
-                         + 2 * bh * s * 4 + 12, b_flops)
+        f_bound = _md_bound(2 * q3.numel() * 2 + live_kv + mask_bytes
+                            + bh * s * 4 + 12, f_flops, elements)
+        b_bound = _md_bound(4 * q3.numel() * 2 + 2 * live_kv + mask_bytes
+                            + 2 * bh * s * 4 + 12, b_flops, elements)
         rows = (("3" + ("md" if mask3 is not None else "d"), fwd_name,
                  "apex_tpu_torch/csrc/flash_attention_md.cu",
                  "apex_tpu/ops/attention.py:321", err_f, fwd_ms, fwd_plain,
@@ -1334,12 +1384,13 @@ def _md_rows(dev, gen, recs):
                  "apex_tpu_torch/csrc/flash_attention_bwd_md.cu",
                  "apex_tpu/ops/attention.py:580", err_b, bwd_ms, bwd_plain,
                  b_bound, lib_fb - lib_f, bwd_nodrop))
-        for (row, name, src, repl, err, ms, plain_ms, (bound, by), lib,
+        for (row, name, src, repl, err, ms, plain_ms, (bound, by, terms), lib,
              nodrop) in rows:
             print(f"  #{row} {name} ({tag}) on {_smi()}: kernel {ms:.4f} ms, "
                   f"without dropout {nodrop:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"SDPA (dropout_p {rate}) {lib:.4f} ms, bound {bound:.4f} ms "
-                  f"({by}), {100 * bound / ms:.1f}% of the bound")
+                  f"({by}; {_terms(terms)}), {100 * bound / ms:.1f}% of the "
+                  f"bound")
             recs[name] = dict(
                 name=name, route="cuda", source=src, replaces=repl,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
@@ -1439,6 +1490,11 @@ def _md_split_rows(dev, gen, recs, seed3):
     product = s * s * d * bh
     elem = q3.numel() * 2
     stats = 2 * bh * s * 4
+    # the elements the causal and per-head masks leave live (each kernel
+    # hashes each once)
+    tril = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    elements = sum(int((~mask3[i] & tril).sum()) for i in range(bh))
+    del tril
     for name, fn, ref_fn, products, outs, err in (
             ("flash_attention_bwd_dq_md", attn._dq_kernel, attn._dq_reference,
              3, 1, errs[0]),
@@ -1446,11 +1502,13 @@ def _md_split_rows(dev, gen, recs, seed3):
              attn._dkv_reference, 4, 2, max(errs[1:]))):
         ms = _time_ms(lambda: fn(*args, **md), 4)
         nodrop = _time_ms(lambda: fn(*args, mask3=mask3), 4)
-        bound, by = _bound(4 * elem + stats + outs * elem + mask3.numel() + 12,
-                           products * product)
+        bound, by, terms = _md_bound(
+            4 * elem + stats + outs * elem + mask3.numel() + 12,
+            products * product, elements)
         print(f"  #{'5' if outs == 1 else '6'}md {name} on {_smi()}: kernel "
               f"{ms:.4f} ms, without dropout {nodrop:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of the bound; "
+              f"{bound:.4f} ms ({by}; {_terms(terms)}), "
+              f"{100 * bound / ms:.1f}% of the bound; "
               f"SDPA backward (fwd+bwd - fwd, dropout_p {rate}, attn_mask) "
               f"{lib_fb - lib_f:.4f} ms")
         recs[name] = dict(
@@ -4286,17 +4344,19 @@ def _rel_l2(got, ref) -> float:
 
 def _ab_md(dev, seed: int, gen, versions):
     """The mask and dropout instances' A/B at the training paths' shapes
-    (:func:`_md_shapes`, rate 0.1): #3d and #3md (the forward, an
-    unchanged control) and #4d and #4md (the one-pass backward, each
-    version through its own ``_bwd``: delta, dq scratch, pre-pass,
-    kernel, cast), each version held against the plain version (the
+    (:func:`_md_shapes`, rate 0.1): the subjects #3d and #3md (the
+    forward with dropout, each version through its own ``_fwd``, the
+    pre-pass included) and the controls #4d and #4md (the one-pass
+    backward, each version through its own ``_bwd``: delta, dq scratch,
+    pre-pass, kernel, cast) and, at BERT's shape, #3m (the masked forward
+    without dropout), each version held against the plain version (the
     forward's rows within 2^-6 of their max and lse within 1e-3; the
     backward's outputs within the flash backward's relative L2 and each
     row within 2^-6 of its max) and against the other version; then the
-    unchanged controls #4 at causal [1, 32, 2048, 128] and #6md at
-    causal [1, 32, 8192, 128] with a per-head mask and dropout (B's
-    first four heads against the plain version); then the ``gpt_train``
-    and ``bert_train`` steps at full depth (:func:`_ab_lm_steps`)."""
+    controls #3 and #4 at causal [1, 32, 2048, 128] and #6md at causal
+    [1, 32, 8192, 128] with a per-head mask and dropout (B's first four
+    heads against the plain version); then the ``gpt_train`` and
+    ``bert_train`` steps at full depth (:func:`_ab_lm_steps`)."""
     attn = importlib.import_module("apex_tpu_torch.ops.attention")
     rate = LM_DROPOUT
     seed3 = attn._seed_operand(-2 ** 31 + 12345, device=dev)
@@ -4323,6 +4383,12 @@ def _ab_md(dev, seed: int, gen, versions):
                                                **md)),
                  ("4" + sfx, lambda: attn._bwd(q3, k3, v3, out, lse, do3,
                                                causal, scale, **md)))
+        if mask3 is not None:
+            ref_m = _by_heads(lambda sl: attn._fwd_reference(
+                q3[sl], k3[sl], v3[sl], causal, scale, mask3=m3(sl)), bh,
+                step)
+            calls += (("3m", lambda: attn._fwd(q3, k3, v3, causal, scale,
+                                               mask3=mask3)),)
         for row, call in calls:
             got = {}
             for turn in "AB":
@@ -4330,9 +4396,10 @@ def _ab_md(dev, seed: int, gen, versions):
                     got[turn] = call()
             torch.cuda.synchronize()
             if row.startswith("3"):
+                ref_ = ref_m if row == "3m" else ref_f
                 errs = [_slot_rel(got[t][0].reshape(-1, d),
-                                  ref_f[0].reshape(-1, d)) for t in "AB"]
-                lse_err = max((got[t][1] - ref_f[1]).abs().max().item()
+                                  ref_[0].reshape(-1, d)) for t in "AB"]
+                lse_err = max((got[t][1] - ref_[1]).abs().max().item()
                               for t in "AB")
                 ok = max(errs) <= TOL_PAGED_OUT and lse_err <= TOL_ATTN_LSE
                 detail = (f"each row's max|diff| / max|ref| A {errs[0]:.3e}, "
@@ -4357,12 +4424,15 @@ def _ab_md(dev, seed: int, gen, versions):
                 raise AssertionError(f"ab: #{row} ({tag}) is off")
             del got
             mean, each = _ab(versions, lambda: _time_ms(call, 10))
-            print(f"  #{row} ({tag}) dropout {rate}: A {mean['A']:.4f} ms, B "
+            what = "without dropout" if row == "3m" else f"dropout {rate}"
+            print(f"  #{row} ({tag}) {what}: A {mean['A']:.4f} ms, B "
                   f"{mean['B']:.4f} ms (turns A B B A: {_turns(each)})")
         del q3, k3, v3, do3, out, lse, ref_f, ref_b, mask3, calls
+        if sfx == "md":
+            del ref_m
         torch.cuda.empty_cache()
     bf = torch.bfloat16
-    # the unchanged controls: #4 (no mask, no dropout) and #6md
+    # the unchanged controls: #3 and #4 (no mask, no dropout) and #6md
     for label, bh, s, masked in (("#4", 32, TRAIN_SEQ, False),
                                  ("#6md", 32, SPLIT_SEQ, True)):
         d = 128
@@ -4383,6 +4453,24 @@ def _ab_md(dev, seed: int, gen, versions):
         else:
             def call():
                 return attn._bwd(q3, k3, v3, out, lse, do3, True, scale)
+
+            def fwd():
+                return attn._fwd(q3, k3, v3, True, scale)
+
+            got = {}
+            for turn in "AB":
+                with _as_version(versions[turn]):
+                    got[turn] = fwd()
+            torch.cuda.synchronize()
+            err = [(got["A"][0].float() - got["B"][0].float()).abs().max()
+                   .item(), (got["A"][1] - got["B"][1]).abs().max().item()]
+            print(f"  #3 causal [1, {bh}, {s}, {d}]: B against A max|diff| "
+                  f"out {err[0]:.3e}, lse {err[1]:.3e}")
+            if err[0] > TOL_ATTN_OUT or err[1] > TOL_ATTN_LSE:
+                raise AssertionError("ab: #3 differs between the versions")
+            mean, each = _ab(versions, lambda: _time_ms(fwd, 10))
+            print(f"  #3 causal [1, {bh}, {s}, {d}]: A {mean['A']:.4f} ms, "
+                  f"B {mean['B']:.4f} ms (turns A B B A: {_turns(each)})")
         got = {}
         for turn in "AB":
             with _as_version(versions[turn]):

@@ -16,8 +16,8 @@ HEADERS = sorted(p.name for p in CSRC.glob("*.cuh"))
 FILES = sorted(p.name for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 FLASH = ("flash_attention.cu", "flash_attention_bwd.cu",
          "flash_attention_md.cu", "flash_attention_bwd_md.cu",
-         "flash_qmajor.cuh", "flash_kmajor.cuh", "flash_kmajor_ws.cuh",
-         "hopper.cuh")
+         "flash_qmajor.cuh", "flash_qmajor_ws.cuh", "flash_kmajor.cuh",
+         "flash_kmajor_ws.cuh", "hopper.cuh")
 
 
 def _code(text: str) -> str:
@@ -108,6 +108,46 @@ def test_md_one_pass_takes_the_warp_specialized_kernel(csrc_copy):
     assert "flash_kmajor_ws.cuh" in _build._digest_files()
     before = _build._digest()
     path = csrc_copy / "flash_kmajor_ws.cuh"
+    path.write_text(path.read_text() + "\n// edited\n")
+    assert _build._digest() != before
+
+
+def _function(code: str, name: str) -> str:
+    """The body of the C++ function ``name`` in ``code`` (from its name to
+    its closing brace at column 0)."""
+    i = code.index(f" {name}(")
+    return code[i:code.index("\n}\n", i)]
+
+
+def test_md_forward_takes_the_persistent_warp_specialized_kernel(csrc_copy):
+    """The forward's dropout entries (#3d, #3md) launch the warp-specialized
+    persistent kernel of ``flash_qmajor_ws.cuh`` (a copying thread on TMA,
+    an mbarrier ring, the product warpgroups taking turns, O out by TMA
+    stores, no block-wide barrier past the prologue), which the library's
+    name hashes; the split dq kernel's mask and dropout instances (#5md)
+    and the forward's without dropout (#3, #3m) keep the query-major
+    template."""
+    md = _code((CSRC / "flash_attention_md.cu").read_text())
+    assert '#include "flash_qmajor_ws.cuh"' in md
+    fwd = _function(md, "fwd_drop")
+    assert "launch_fwd_ws<D, MASK>" in fwd
+    assert "launch_qmajor<" not in fwd
+    assert "launch_qmajor<D, true, kDqBK, MASK, DROP>" in _function(md,
+                                                                    "dq_md")
+    plain = _code((CSRC / "flash_attention.cu").read_text())
+    assert re.search(r"launch_qmajor<D, false, ", plain)
+    assert "launch_fwd_ws" not in plain
+    ws = _code((CSRC / "flash_qmajor_ws.cuh").read_text())
+    assert "flash_fwd_ws_kernel<D, MASK><<<" in ws
+    for piece in ("tma_load(", "tma_store(", "mbar_wait(", "reg_dealloc<",
+                  "reg_alloc<", "bar_sync(kFwTurn + wg", "bar_arrive(kFwTurn",
+                  "drop_mix(", "fold16("):
+        assert piece in ws, piece
+    loop = ws[ws.index("reg_dealloc<kQmCopyRegs>();"):]
+    assert "__syncthreads" not in loop and "cp_async16z" not in loop
+    assert "flash_qmajor_ws.cuh" in _build._digest_files()
+    before = _build._digest()
+    path = csrc_copy / "flash_qmajor_ws.cuh"
     path.write_text(path.read_text() + "\n// edited\n")
     assert _build._digest() != before
 

@@ -1808,6 +1808,105 @@ def test_flash_md_forward_matches_plain(cuda, d, kind, rate, sq, sk, causal):
     assert (lse - ref_lse).abs().max().item() <= 1e-3
 
 
+# The forward with dropout (#3d, #3md) is one persistent block an SM
+# walking the (batch-head, 128-query block) tiles in a schedule of its
+# own; its edges: lengths that cut the tiles and keys fewer than a tile
+# (validity windows), causal offsets other than sk - sq, fully masked rows
+# and a query block whose key tiles are all dead, fewer tiles than SMs and
+# many times more, both head dims, the seed operand's row and column
+# offsets and a seed drawn on the card; and the two places the schedule
+# changes its order: more (mask, query block) entries than the order
+# table holds (1100 per-head masks x 4 query blocks > 4096), and a mask
+# over more heads than one L2 group takes (64 heads of 2048 keys: k and v
+# over half the L2, so each mask's heads are cut into chunks).
+_MD_FWD_EDGES = [
+    # label, b, h, sq, sk, causal, causal_off, mask kind, valid, offsets
+    ("ragged", 1, 2, 300, 200, False, None, None, None, (0, 0)),
+    ("keys under a tile", 2, 3, 250, 77, False, None, "per-batch", None,
+     (0, 0)),
+    ("causal offset", 1, 2, 200, 300, True, 37, None, None, (0, 0)),
+    ("causal negative offset", 1, 2, 300, 300, True, -70, "per-batch",
+     None, (0, 0)),
+    ("validity window", 1, 3, 390, 330, True, None, "per-head", (260, 301),
+     (0, 0)),
+    ("a dead query block", 2, 2, 384, 384, False, None, "dead block", None,
+     (0, 0)),
+    ("few tiles", 1, 1, 256, 256, True, None, None, None, (0, 0)),
+    ("many tiles", 8, 40, 300, 300, True, None, "per-batch", None, (0, 0)),
+    ("row and column offsets", 2, 2, 200, 260, False, None, "one", None,
+     (1000, 77)),
+    ("past the order table", 275, 4, 512, 512, False, None, "per-head", None,
+     (0, 0)),
+    ("heads in chunks", 2, 64, 256, 2048, True, None, "per-batch", None,
+     (0, 0)),
+]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("label,b,h,sq,sk,causal,off,kind,valid,offs",
+                         _MD_FWD_EDGES, ids=[c[0] for c in _MD_FWD_EDGES])
+@pytest.mark.parametrize("device_seed", [False, True])
+def test_flash_md_forward_persistent_grid_edges(cuda, d, label, b, h, sq, sk,
+                                                causal, off, kind, valid,
+                                                offs, device_seed):
+    q, k, v = (_randn((b * h, s, d), seed, cuda)
+               for seed, s in ((120, sq), (121, sk), (122, sk)))
+    if kind == "dead block":
+        m = np.random.RandomState(123).rand(b, sq, sk) > 0.6
+        m[0, 128:256] = True                # query block 1 all dead
+        m[1, 5] = True                      # a fully masked row
+        mask3 = torch.from_numpy(m).to(cuda)
+    else:
+        mask3 = _md_mask3(kind, b, h, sq, sk, 123, cuda)
+    seed = (torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), dtype=torch.int32,
+                          device=cuda) if device_seed else -424242)
+    seed3 = attn._seed_operand(seed, *offs, device=cuda)
+    md = dict(causal_off=off, valid=valid, mask3=mask3, rate=0.1,
+              seed3=seed3)
+    name = ("flash_attention_drop" if mask3 is None
+            else "flash_attention_masked_drop")
+    before = _build.launch_counts()
+    got, lse = attn._fwd(q, k, v, causal, d ** -0.5, **md)
+    after = _build.launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {name: 1}
+    ref, ref_lse = attn._fwd_reference(q, k, v, causal, d ** -0.5, **md)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+    assert _row_errors(got, ref).max().item() <= 2.0 ** -6
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    dead = ref_lse <= -0.5e30
+    assert bool((got[dead] == 0).all()) and bool((lse[dead] == -1e30).all())
+    if kind == "dead block":
+        assert bool(dead[:h, 128:256].all())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq", [200, 300])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_forward_keep_pattern_ragged_queries(cuda, d, sq, masked):
+    """The forward's keep pattern at query counts that are no multiple of
+    128 (a persistent block's last query block cut short): q = 0, v = I
+    (sk = d), so out[i, j] > 0 exactly where (i, j) is kept and live."""
+    bh, s, rate = 5, d, 0.3
+    q = torch.zeros(bh, sq, d, dtype=torch.bfloat16, device=cuda)
+    k = _randn((bh, s, d), 124, cuda)
+    eye = torch.eye(d, dtype=torch.bfloat16, device=cuda).expand(
+        bh, d, d).contiguous()
+    seed3 = attn._seed_operand(2 ** 31 - 77, 3, 9, device=cuda)
+    keep = attn._keep3(seed3, bh, sq, s, rate, cuda)
+    mask3 = None
+    if masked:
+        mask3 = torch.zeros(1, sq, s, dtype=torch.bool, device=cuda)
+        mask3[:, :, s - 7:] = True
+        mask3[:, 150] = True                # a fully masked row
+        keep = keep & ~mask3
+    out, _ = attn._fwd(q, k, eye, False, d ** -0.5, mask3=mask3, rate=rate,
+                       seed3=seed3)
+    torch.cuda.synchronize()
+    assert torch.equal(out > 0, keep)
+
+
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("kind,rate", _MD_CASES)
 @pytest.mark.parametrize("sq,sk,causal", [(100, 100, True),

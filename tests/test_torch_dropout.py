@@ -46,6 +46,55 @@ def test_keep_mask_is_jax_bit_for_bit(seed, rate):
             np.testing.assert_array_equal(t, j)
 
 
+def _folded_keep(seed, bh, rows, cols, rate, row_off, col_off):
+    """The forward kernel's keep bits as a uint32 model: the row's and the
+    column's parts each folded through the finalizer's first xor-shift
+    (it distributes over their xor), the rest of the finalizer over their
+    xor, and the top 24 bits compared as ``h >= threshold << 8`` (a
+    threshold of 2^24 keeps nothing)."""
+    u = np.uint32
+    fold = (lambda x: x ^ (x >> u(16)))
+    rows = (u(row_off & 0xFFFFFFFF) + rows.astype(u)) * u(tattn._H2)
+    cols = (u(col_off & 0xFFFFFFFF) + cols.astype(u)) * u(tattn._H3)
+    row_part = fold(u(seed & 0xFFFFFFFF) ^ (u(bh) * u(tattn._H1)) ^ rows)
+    h = row_part[:, None] ^ fold(cols)[None, :]
+    h = h * u(tattn._H2)
+    h = h ^ (h >> u(13))
+    h = h * u(tattn._H3)
+    h = h ^ (h >> u(16))
+    threshold = tattn._drop_threshold(rate)
+    if threshold >= 1 << 24:
+        return np.zeros(h.shape, dtype=bool)
+    return h >= u(threshold << 8)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5, 2.0 ** -24, 3 * 2.0 ** -24,
+                                  (2 ** 23 + 1) * 2.0 ** -24,
+                                  (2 ** 24 - 1) * 2.0 ** -24])
+def test_folded_keep_bits_are_jax_bit_for_bit(rate):
+    """The forward kernel's arithmetic for the keep bits (``fold16`` on the
+    row's and the column's parts, ``h >= threshold << 8``) gives JAX's
+    ``_keep_mask`` bit for bit: random int32 seeds (negative ones among
+    them), batch-heads, query and key blocks and offsets."""
+    rng = np.random.RandomState(int(rate * 2 ** 24) % 2 ** 31)
+    seeds = [0, -1, -2 ** 31, 2 ** 31 - 1] + rng.randint(
+        -2 ** 31, 2 ** 31, size=4).tolist()
+    with np.errstate(over="ignore"):
+        for seed in seeds:
+            bi = int(rng.randint(0, 2 ** 20))
+            qi, ki = (int(x) for x in rng.randint(0, 64, size=2))
+            row_off, col_off = (int(x) for x in rng.randint(
+                -2 ** 31, 2 ** 31, size=2))
+            bq, bk = 24, 40
+            j = np.asarray(jattn._keep_mask(
+                jnp.int32(seed), bi, qi, ki, bq, bk, rate,
+                jnp.int32(row_off), jnp.int32(col_off)))
+            got = _folded_keep(seed, bi, qi * bq + np.arange(bq),
+                               ki * bk + np.arange(bk), rate, row_off,
+                               col_off)
+            np.testing.assert_array_equal(got, j)
+
+
 def test_keep_mask_of_many_batch_heads_and_its_rate():
     """``bi`` as ``[n, 1, 1]`` gives each batch-head's own mask (the
     plain versions' draw), and the kept share is 1 - rate within 3
