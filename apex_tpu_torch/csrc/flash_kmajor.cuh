@@ -1,12 +1,11 @@
 // The key-major flash-attention backward for Hopper (sm_90a):
-// flash_bwd_kernel<D, DQ, MASK, DROP>, the one-pass kernel (DQ) and the
-// split backward's dk/dv kernel, with the launch helpers shared by
-// flash_attention_bwd.cu (the instances without a mask and dropout: #4
-// and #6) and flash_attention_bwd_md.cu (the split dk/dv kernel with
-// them, #6md).  The one-pass kernel with a mask or dropout (#4m, #4md,
-// #4d) is a warp-specialized kernel of its own on the same blocks and
-// products (flash_kmajor_ws.cuh), so here MASK and DROP serve the dk/dv
-// kernel alone.  flash_attention_bwd.cu describes the design.
+// flash_bwd_kernel<D, DQ>, the one-pass kernel (DQ) and the split
+// backward's dk/dv kernel without a mask and dropout (#4 and #6,
+// flash_attention_bwd.cu), with the launch helpers the backward sources
+// share.  The instances with a mask or dropout (#4m, #4md, #4d, #6md)
+// are a warp-specialized kernel of their own on the same blocks and
+// products (flash_kmajor_ws.cuh).  flash_attention_bwd.cu describes the
+// design.
 #pragma once
 
 #include "flash_qmajor.cuh"
@@ -30,41 +29,19 @@ constexpr int kThreads = 256;
 // the dq half dS^T [kBK keys][kBQ queries] (one chunk) and the fp32 dq
 // partial [kBQ][D] as D / 32 chunks of [kBQ][32] in the tensor map's
 // 128-byte swizzle.
-// MASK adds, past those, the mask's bytes of the step [2 stages][kBQ
-// queries][kMRow] (128 keys, rows padded by 16 bytes so the rows that a
-// warp's reads touch fall in different banks).
 template <int D>
 struct Tiles {
   static constexpr int DP = kDP<D>;
   static constexpr int kKV = kBK * DP * 2;
   static constexpr int kQ = kBQ * DP * 2;
   static constexpr int kDS = kBK * kBQ * 2;
-  static constexpr int kMRow = kBK + 16;
-  static constexpr int kM = kBQ * kMRow;
   static constexpr int oK = 0, oV = kKV, oQ = 2 * kKV, oO = oQ + 2 * kQ,
                        oStats = oO + 2 * kQ, oDS = oStats + 4 * kBQ * 4,
                        oDQ = oDS + kDS;
   __host__ __device__ static constexpr int end(bool dq) {
     return dq ? oDQ + kBQ * D * 4 : oDS;
   }
-  static constexpr size_t bytes(bool dq, bool mask = false) {
-    return 1024 + end(dq) + (mask ? 2 * kM : 0);
-  }
-};
-
-// The mask and dropout operands of the MASK / DROP instances: mask
-// [nmask, sq, mask_ld] bytes (nonzero = masked; mask_ld a multiple of 16,
-// 16-byte aligned), batch-head bh reading mask bh / mask_hper, with the
-// pre-pass's tile classes cls [nmask, nqb, nkt] (flash_qmajor.cuh); the
-// seed operand seed3 [seed, row_off, col_off] int32, the keep threshold
-// and inv_keep = 1 / (1 - rate).
-struct MdParams {
-  const unsigned char* mask;
-  const unsigned char* cls;
-  const int* seed3;
-  int mask_hper, mask_ld;
-  unsigned threshold;
-  float inv_keep;
+  static constexpr size_t bytes(bool dq) { return 1024 + end(dq); }
 };
 
 // The dq map's box at (column c, row r, head bh) += the swizzled fp32
@@ -83,20 +60,7 @@ __device__ __forceinline__ void tensor_add_f32(const CUtensorMap* map, int c,
 // k0 + 64 wg .. + 63; within it warp w owns 16 of them, and a thread the
 // rows grp and grp + 8 of those, as wgmma's accumulator layout places
 // them.
-//
-// MASK (built with DQ = false: the split dk/dv kernel; the one-pass
-// kernel's mask and dropout instances are flash_kmajor_ws.cuh's): a step
-// (64 queries against the block's 128 keys) lies inside one
-// tile of the pre-pass's classes: a dead step is skipped (its q and dO
-// are still copied: the ring runs one step ahead), a full one takes the
-// causal and validity masks alone, and a partial one reads each
-// element's mask byte from the step's slab, copied with the step.  A
-// block all of whose steps are dead computes nothing (dk, dv 0).
-// DROP: the accumulators hold S^T, so an element's hash takes the query
-// (a column of the accumulator) as its row and the key as its column;
-// dV takes the dropped, rescaled P^T and dS^T = P^T (keep ? dP^T / (1 -
-// rate) : 0 - delta), as _dropped_dp.
-template <int D, bool DQ, bool MASK = false, bool DROP = false>
+template <int D, bool DQ>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -105,7 +69,7 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const __grid_constant__ CUtensorMap dq_map,
                  bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
                  int causal, int off, int valid_q, int valid_k,
-                 float scale_log2, float scale, const MdParams md) {
+                 float scale_log2, float scale) {
   using T = Tiles<D>;
   constexpr int DP = T::DP;
   constexpr int kKS = D / 16;        // k16 steps of S^T and dP^T over d
@@ -116,8 +80,7 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   unsigned char* smem = smem_raw + (base - raw);
   const uint32_t sK = base + T::oK, sV = base + T::oV, sQ = base + T::oQ,
                  sO = base + T::oO, sStats = base + T::oStats,
-                 sDS = base + T::oDS, sDQ = base + T::oDQ,
-                 sM = base + T::end(DQ);
+                 sDS = base + T::oDS, sDQ = base + T::oDQ;
   const float* stats = reinterpret_cast<const float*>(smem + T::oStats);
 
   const int k0 = blockIdx.x * kBK;
@@ -137,28 +100,10 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int q_begin = 0;
   if (causal) q_begin = max(0, k0 - off);
   q_begin = (q_begin / kBQ) * kBQ;
-  int nq = (k0 < kv_end && q_begin < q_end)
-               ? (q_end - q_begin + kBQ - 1) / kBQ : 0;
-  // MASK: the class of the step at query q0 (its 128-query block's, this
-  // block's key tile's), and the mask rows of this batch-head
-  const int nqb = (sq + kQmBQ - 1) / kQmBQ;
-  const unsigned char* tcls =
-      MASK ? md.cls + (size_t)(bh / md.mask_hper) * nqb * gridDim.x +
-                 blockIdx.x
-           : nullptr;
-  auto step_cls = [&](int q0) { return tcls[(q0 / kQmBQ) * gridDim.x]; };
-  const unsigned char* mrows =
-      MASK ? md.mask + (size_t)(bh / md.mask_hper) * sq * md.mask_ld
-           : nullptr;
-  if constexpr (MASK) {
-    bool any = false;
-    for (int it = 0; it < nq; ++it)
-      any = any || step_cls(q_begin + it * kBQ) != kTileDead;
-    if (!any) nq = 0;
-  }
+  const int nq = (k0 < kv_end && q_begin < q_end)
+                     ? (q_end - q_begin + kBQ - 1) / kBQ : 0;
 
-  // one step's q, dO, lse and delta into stage st (MASK: and, for a
-  // partial step, its mask slab)
+  // one step's q, dO, lse and delta into stage st
   auto load_step = [&](int q0, int st) {
     load_sw<D, kBQ, kThreads>(sQ + st * T::kQ, qb, q0, sq);
     load_sw<D, kBQ, kThreads>(sO + st * T::kQ, ob, q0, sq);
@@ -168,18 +113,6 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const bool live = q0 + i < sq;
       cp_async4z(sStats + ((which * 2 + st) * kBQ + i) * 4,
                  live ? src + q0 + i : src, live);
-    }
-    if constexpr (MASK) {
-      if (step_cls(q0) == kTilePartial) {
-        for (int i = tid; i < kBQ * (kBK / 16); i += kThreads) {
-          const int r = i / (kBK / 16), c = (i % (kBK / 16)) * 16;
-          const bool live = q0 + r < sq && k0 + c < md.mask_ld;
-          cp_async16z(sM + st * T::kM + r * T::kMRow + c,
-                      live ? mrows + (size_t)(q0 + r) * md.mask_ld + k0 + c
-                           : mrows,
-                      live);
-        }
-      }
     }
   };
   load_sw<D, kBK, kThreads>(sK, k + bh * (size_t)sk * D, k0, sk);
@@ -191,17 +124,6 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
   unsigned pa[kQS][4], da[kQS][4];
-  // DROP: the seed's and batch-head's part of the keep hash, the query
-  // offset, and the hash of this thread's two keys
-  uint32_t hseed = 0u, hroff = 0u, hkey[2] = {0u, 0u};
-  if constexpr (DROP) {
-    hseed = drop_row((uint32_t)__ldg(md.seed3), (uint32_t)bh, 0u);
-    hroff = (uint32_t)__ldg(md.seed3 + 1);
-    const uint32_t coff = (uint32_t)__ldg(md.seed3 + 2);
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-      hkey[hf] = drop_col(coff + (uint32_t)(k0 + krow + hf * 8));
-  }
 
   for (int it = 0; it < nq; ++it) {
     const int q0 = q_begin + it * kBQ;
@@ -211,12 +133,6 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     if (it + 1 < nq) load_step(q0 + kBQ, st ^ 1);
     cp_async_commit();
-    bool partial = false;   // MASK: this step reads its mask slab
-    if constexpr (MASK) {
-      const unsigned char c = step_cls(q0);
-      if (c == kTileDead) continue;
-      partial = c == kTilePartial;
-    }
     const uint32_t cQ = sQ + st * T::kQ, cO = sO + st * T::kQ;
 
     // S^T = K Q^T and dP^T = V dO^T over this warpgroup's 64 keys, one
@@ -253,13 +169,12 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     keep(s);
 
     // P^T = exp2(S^T * scale_log2 - lse[q]) with the masks; a tile inside
-    // every mask skips the per-element test
+    // both masks skips the per-element test
     const float* cl = stats + st * kBQ;
     const float* cd = stats + (2 + st) * kBQ;
     const int wk0 = k0 + wg * 64;
     const bool full = wk0 + 64 <= kv_end && q0 + kBQ <= q_end &&
                       (!causal || wk0 + 63 <= q0 + off);
-    const unsigned char* mslab = smem + T::end(DQ) + st * T::kM;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float2 l2 = *reinterpret_cast<const float2*>(cl + j * 8 + tig * 2);
@@ -270,11 +185,8 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int kr = k0 + krow + hf * 8;
-          bool live = full || (kr < kv_end && qc < q_end &&
-                               (!causal || kr <= qc + off));
-          if constexpr (MASK)
-            live = live && !(partial && mslab[(j * 8 + tig * 2 + e) *
-                                                  T::kMRow + krow + hf * 8]);
+          const bool live = full || (kr < kv_end && qc < q_end &&
+                                     (!causal || kr <= qc + off));
           const int x = j * 4 + hf * 2 + e;
           s[x] = (live && l > kMaskedRowThresh)
                      ? exp2_ftz(s[x] * scale_log2 - l)
@@ -282,37 +194,13 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
     }
-    // DROP: bit x of kbits keeps element x (query q0 + j * 8 + tig * 2 + e
-    // as the hash's row, key krow (+ 8) as its column)
-    unsigned kbits = 0u;
-    if constexpr (DROP) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const uint32_t hq =
-              hseed ^ ((hroff + (uint32_t)(q0 + j * 8 + tig * 2 + e)) * kH2);
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf)
-            kbits |= (unsigned)drop_keep(hq, hkey[hf], md.threshold)
-                     << (j * 4 + hf * 2 + e);
-        }
-    }
     // the accumulator fragments of query columns 16t .. 16t + 15 are the
-    // A fragment of k-step t, rounded to bf16 (DROP: dropped and
-    // rescaled, for dV alone)
+    // A fragment of k-step t, rounded to bf16
 #pragma unroll
     for (int t = 0; t < kQS; ++t)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int x = 8 * t + 2 * i;
-        if constexpr (DROP)
-          pa[t][i] = pack_bf16((kbits >> x) & 1u ? s[x] * md.inv_keep : 0.f,
-                               (kbits >> (x + 1)) & 1u
-                                   ? s[x + 1] * md.inv_keep : 0.f);
-        else
-          pa[t][i] = pack_bf16(s[x], s[x + 1]);
-      }
+      for (int i = 0; i < 4; ++i)
+        pa[t][i] = pack_bf16(s[8 * t + 2 * i], s[8 * t + 2 * i + 1]);
 
     // dV += P^T dO: A from registers, dO read N-major from the step's
     // tile (LBO: the 64-column chunk stride)
@@ -341,10 +229,7 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int x = j * 4 + hf * 2 + e;
-          float g = dp[x];
-          if constexpr (DROP)
-            g = (kbits >> x) & 1u ? g * md.inv_keep : 0.f;
-          dp[x] = s[x] * (g - (e ? d2.y : d2.x));
+          dp[x] = s[x] * (dp[x] - (e ? d2.y : d2.x));
         }
     }
 #pragma unroll
@@ -506,30 +391,25 @@ int dq_tensor_map(CUtensorMap* map, void* dq_acc, int bh, int sq, int d) {
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// flash_bwd_kernel<D, DQ, MASK, DROP> over (key block, b*h).
-template <int D, bool DQ, bool MASK = false, bool DROP = false>
+// flash_bwd_kernel<D, DQ> over (key block, b*h).
+template <int D, bool DQ>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, const CUtensorMap& map,
                void* dk, void* dv, int bh, int sq, int sk, int causal,
                int off, int valid_q, int valid_k, float scale_log2,
-               float scale, cudaStream_t stream, const MdParams& md = {}) {
-  if (MASK && (md.mask == nullptr || md.cls == nullptr || md.mask_hper < 1 ||
-               bh % md.mask_hper || md.mask_ld < sk || md.mask_ld % 16 ||
-               reinterpret_cast<uintptr_t>(md.mask) % 16))
-    return (int)cudaErrorInvalidValue;
-  if (DROP && md.seed3 == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t bytes = Tiles<D>::bytes(DQ, MASK);
+               float scale, cudaStream_t stream) {
+  const size_t bytes = Tiles<D>::bytes(DQ);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<D, DQ, MASK, DROP>,
+      flash_bwd_kernel<D, DQ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sk + kBK - 1) / kBK, bh);
-  flash_bwd_kernel<D, DQ, MASK, DROP><<<grid, kThreads, bytes, stream>>>(
+  flash_bwd_kernel<D, DQ><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta), map,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, causal, off,
-      valid_q, valid_k, scale_log2, scale, md);
+      valid_q, valid_k, scale_log2, scale);
   return (int)cudaGetLastError();
 }
 

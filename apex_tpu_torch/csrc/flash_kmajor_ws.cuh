@@ -1,16 +1,17 @@
-// The one-pass flash-attention backward's mask and dropout instances for
-// Hopper (sm_90a), warp-specialized: flash_bwd_ws_kernel<D, MASK, DROP>,
-// launched by flash_attention_bwd_md.cu for #4m, #4md and #4d.
+// The key-major flash-attention backward's mask and dropout instances for
+// Hopper (sm_90a), warp-specialized: flash_bwd_ws_kernel<D, DQ, MASK,
+// DROP>, launched by flash_attention_bwd_md.cu for the one-pass kernel
+// (DQ: #4m, #4md and #4d) and the split backward's dk/dv kernel (#6md).
 //
-// Replaces: apex_tpu/ops/attention.py :: _bwd_fused_kernel (launched by
-// _bwd_impl through pl.pallas_call) with its mask3 and dropout operands.
-// Same function, blocks and products as the key-major template's
-// one-pass kernel (flash_kmajor.cuh): a block owns 128 keys, keeps their
-// k and v in shared memory and their dk and dv in registers, and walks
-// the 64-query steps that can see them; S^T = K Q^T and dP^T = V dO^T,
-// then dV += P^T dO and dK += dS^T Q with P^T and dS^T as register A
-// fragments, and dQ = dS K added into an fp32 buffer by bulk tensor
-// reductions.  Arranged for this card:
+// Replaces: apex_tpu/ops/attention.py :: _bwd_fused_kernel and
+// _dkv_kernel (launched by _bwd_impl through pl.pallas_call) with their
+// mask3 and dropout operands.  Same function, blocks and products as the
+// key-major template's kernels (flash_kmajor.cuh): a block owns 128 keys,
+// keeps their k and v in shared memory and their dk and dv in registers,
+// and walks the 64-query steps that can see them; S^T = K Q^T and dP^T =
+// V dO^T, then dV += P^T dO and dK += dS^T Q with P^T and dS^T as
+// register A fragments, and (DQ) dQ = dS K added into an fp32 buffer by
+// bulk tensor reductions.  Arranged for this card:
 //
 // - A copying warpgroup.  Its first warp issues every load: k and v
 //   once, then each live step's q and dO as TMA boxes of tensor maps (the
@@ -47,6 +48,13 @@
 //   pre-folded through the finalizer's first xor-shift) are computed in
 //   the source after S^T and dP^T are issued.  A thread all of whose
 //   elements are live takes exp2 without a test.
+// - The dk/dv kernel (DQ false) is the same block without the dq half:
+//   no dS^T staging, no dq buffers, no reduction warp; the shared memory
+//   they held deepens the ring.  Its grid is one block a (key block,
+//   batch-head) in an order of its own, the longest key blocks first (for
+//   causal attention the first keys see every query, the last ones few)
+//   within groups of heads whose q and dO fit half the L2; it writes each
+//   block's dk and dv once, so a second run gives the same bits.
 //
 // Shared memory (d = 128): k, v 64 KB; dS^T 16 KB; two dq buffers 64 KB;
 // each ring stage q and dO 32 KB, lse/delta 0.5 KB and mask words 1 KB.
@@ -54,7 +62,8 @@
 // double-buffered dq tile was taken over a third stage (a reduction is
 // issued at the end of a step and its buffer is needed again two steps
 // later; the next step's q/dO are copied a whole step ahead).  At
-// d = 64 the same budget holds four stages.
+// d = 64 the same budget holds four stages, and so does the dk/dv
+// kernel's at both head dims.
 //
 // What bounds it on the H100: operations (five m64 products a step, 2.5x
 // the forward's flops), and beside them per-thread work that the
@@ -81,18 +90,31 @@ constexpr int kWsRegs = 240;        // registers of a product thread
 constexpr int kWsCopyRegs = 24;     // and of a copying thread
 constexpr int kWsMaxStages = 4;
 
+// The mask and dropout operands: the mask pre-pass's tile classes cls
+// [nmask, nqb, nkt] (flash_qmajor.cuh; its bits are a kernel argument of
+// their own), batch-head bh reading mask bh / mask_hper; the seed operand
+// seed3 [seed, row_off, col_off] int32, the keep threshold and inv_keep =
+// 1 / (1 - rate).
+struct MdParams {
+  const unsigned char* cls;
+  const int* seed3;
+  int mask_hper;
+  unsigned threshold;
+  float inv_keep;
+};
+
 // A step's mask words: rows q0 % 128 .. + 63 of the pre-pass's 128 x 128
 // tile, 4 words a row (bit 2 j + e of word (r, t): key 8 j + 2 t + e).
 constexpr int kWsBitsBytes = kBQ * 4 * 4;
 
 // Shared memory, byte offsets from a 1024-aligned base: sK, sV [kBK][DP];
-// dS^T [kBK keys][kBQ queries] (one 64-column chunk); the dq buffers [2]
-// [2 warpgroups][2 chunks of 32 columns][kBQ][32] fp32 in the dq map's
-// 128-byte swizzle; sQ [kStages][kBQ][DP] and sO likewise; lse and
-// delta [kStages][2][kBQ] fp32; the mask words [kStages][kBQ * 4]; the
-// mbarriers: k/v, each stage's full and empty, each (buffer,
+// (DQ) dS^T [kBK keys][kBQ queries] (one 64-column chunk) and the dq
+// buffers [2][2 warpgroups][2 chunks of 32 columns][kBQ][32] fp32 in the
+// dq map's 128-byte swizzle; sQ [kStages][kBQ][DP] and sO likewise; lse
+// and delta [kStages][2][kBQ] fp32; the mask words [kStages][kBQ * 4];
+// the mbarriers: k/v, each stage's full and empty, each (buffer,
 // warpgroup)'s dq full, each buffer's dq empty.
-template <int D>
+template <int D, bool DQ>
 struct WsTiles {
   static constexpr int DP = kDP<D>;
   static constexpr bool kSplitCols = DP == 128;
@@ -103,8 +125,9 @@ struct WsTiles {
   static constexpr int kDQ = 2 * kDQHalf;          // a buffer
   static constexpr int kStats = 2 * kBQ * 4;
   static constexpr int kBars = 1 + 2 * kWsMaxStages + 4 + 2;
-  static constexpr int oK = 0, oV = kKV, oDS = 2 * kKV, oDQ = oDS + kDS,
-                       oQ = oDQ + 2 * kDQ;
+  static constexpr int oK = 0, oV = kKV, oDS = 2 * kKV,
+                       oDQ = oDS + (DQ ? kDS : 0),
+                       oQ = oDQ + (DQ ? 2 * kDQ : 0);
   static constexpr int kStage = 2 * kQ + kStats + kWsBitsBytes;
   static constexpr int kFit =
       (kSmemMax - 1024 - oQ - kBars * 8 - kWsMaxStages * 4) / kStage;
@@ -138,8 +161,11 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 
 // Operands as flash_bwd_kernel's, with q, dO, k and v as tensor maps
 // (bf16_tile_map: kBQ-row boxes for q and dO, kBK-row boxes for k and
-// v) and, for MASK, the pre-pass's bits [nmask, nqb, nkt, kMaskWords].
-template <int D, bool MASK, bool DROP>
+// v), dq_map unused without DQ, and, for MASK, the pre-pass's bits
+// [nmask, nqb, nkt, kMaskWords].  DQ: the grid is (key block, batch-head);
+// without it one dimension of nbh x nkt blocks, the longest key blocks
+// first within groups of `group` heads.
+template <int D, bool DQ, bool MASK, bool DROP>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_bwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -151,9 +177,9 @@ flash_bwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
                     bf16* __restrict__ dv, int sq, int sk, int causal,
                     int off, int valid_q, int valid_k, float scale_log2,
                     float scale, const unsigned* __restrict__ bits,
-                    const MdParams md) {
+                    const MdParams md, int nbh, int group) {
   static_assert(D == 64 || D == 128, "the mask/dropout head dims");
-  using T = WsTiles<D>;
+  using T = WsTiles<D, DQ>;
   constexpr int DP = T::DP, S = T::kStages;
   constexpr int kKS = D / 16;        // k16 steps of S^T and dP^T over d
   constexpr int kQS = kBQ / 16;      // k16 steps of dV and dK over queries
@@ -168,8 +194,17 @@ flash_bwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
                  bEmpty = bFull + 8 * kWsMaxStages,
                  bDqFull = bEmpty + 8 * kWsMaxStages, bDqEmpty = bDqFull + 32;
 
-  const int k0 = blockIdx.x * kBK;
-  const int bh = blockIdx.y;
+  // this block's key block kb of batch-head bh, of nkt key blocks (the
+  // pre-pass's key tiles)
+  const int nkt = (sk + kBK - 1) / kBK;
+  int kb = blockIdx.x, bh = blockIdx.y;
+  if constexpr (!DQ) {
+    const int g = blockIdx.x / (group * nkt), r = blockIdx.x % (group * nkt);
+    const int gsize = min(group, nbh - g * group);
+    bh = g * group + r % gsize;
+    kb = r / gsize;
+  }
+  const int k0 = kb * kBK;
   const int tid = threadIdx.x;
   const int kv_end = min(sk, valid_k);
   const int q_end = min(sq, valid_q);
@@ -182,11 +217,9 @@ flash_bwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
   // MASK: the class of the step at query q0 (its 128-query block's, this
   // block's key tile's); the steps every role walks are the live ones
   const int nqb = (sq + kQmBQ - 1) / kQmBQ;
-  const size_t mtiles =
-      MASK ? (size_t)(bh / md.mask_hper) * nqb * gridDim.x : 0;
+  const size_t mtiles = MASK ? (size_t)(bh / md.mask_hper) * nqb * nkt : 0;
   auto step_cls = [&](int q0) -> unsigned char {
-    if constexpr (MASK)
-      return md.cls[mtiles + (q0 / kQmBQ) * gridDim.x + blockIdx.x];
+    if constexpr (MASK) return md.cls[mtiles + (q0 / kQmBQ) * nkt + kb];
     return kTileFull;
   };
   int nlive = nq;
@@ -202,8 +235,10 @@ flash_bwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(bFull + 8 * st, 1 + 32);   // the TMA arrival, 32 cp.async
       mbar_init(bEmpty + 8 * st, kWsConsumers);
     }
-    for (int i = 0; i < 4; ++i) mbar_init(bDqFull + 8 * i, 128);
-    for (int i = 0; i < 2; ++i) mbar_init(bDqEmpty + 8 * i, 1);
+    if constexpr (DQ) {
+      for (int i = 0; i < 4; ++i) mbar_init(bDqFull + 8 * i, 128);
+      for (int i = 0; i < 2; ++i) mbar_init(bDqEmpty + 8 * i, 1);
+    }
     mbar_init_fence();
   }
   __syncthreads();
@@ -211,7 +246,7 @@ flash_bwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
   if (tid >= kWsConsumers) {
     reg_dealloc<kWsCopyRegs>();
     const int w = (tid - kWsConsumers) >> 5, lane = tid & 31;
-    if (nlive == 0 || w > 1) return;
+    if (nlive == 0 || w > (DQ ? 1 : 0)) return;
     // every role walks the live steps in order: step i in stage i % S
     if (w == 0) {
       // the loads: k and v, then each live step's q, dO, lse, delta (and
@@ -255,8 +290,8 @@ flash_bwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
           }
           if (part)
             bulk_load(sBits + st * kWsBitsBytes,
-                      bits + ((mtiles + (q0 / kQmBQ) * gridDim.x +
-                               blockIdx.x) * kMaskWords +
+                      bits + ((mtiles + (q0 / kQmBQ) * nkt + kb) *
+                                  kMaskWords +
                               (q0 % kQmBQ) * 4),
                       kWsBitsBytes, full);
         }
@@ -474,6 +509,31 @@ flash_bwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int u = 0; u < 4; ++u)
         da[t][u] = pack_bf16(dp[8 * t + 2 * u], dp[8 * t + 2 * u + 1]);
+    if constexpr (!DQ) {
+      // the dk/dv kernel: dV += P^T dO and dK += dS^T Q, then the stage
+      // is released
+      keep(dva);
+      keep(dka);
+      keep(pa);
+      keep(da);
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < kQS; ++t)
+        wgmma_rs(dva, pa[t], gmma_desc(cO + t * 16 * 128, kBQ * 128, 1024),
+                 1);
+#pragma unroll
+      for (int t = 0; t < kQS; ++t)
+        wgmma_rs(dka, da[t], gmma_desc(cQ + t * 16 * 128, kBQ * 128, 1024),
+                 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      keep(dva);
+      keep(dka);
+      keep(pa);
+      keep(da);
+      mbar_arrive(bEmpty + 8 * st);          // q, dO, lse, delta read
+      continue;
+    }
 
     // stage dS^T [keys][queries] for dQ = dS K (d = 128: once the other
     // warpgroup's dQ product of the last step has read the tile)
@@ -578,6 +638,15 @@ flash_bwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// The operands the MASK and DROP instances need.
+template <bool MASK, bool DROP>
+bool ws_operands_ok(const MdParams& md, const void* bits, int bh) {
+  if (MASK && (md.cls == nullptr || bits == nullptr || md.mask_hper < 1 ||
+               bh % md.mask_hper))
+    return false;
+  return !DROP || md.seed3 != nullptr;
+}
+
 // The one-pass backward with a mask and/or dropout: dq_acc zeroed, the
 // kernel over (key block, b*h) adding into it, dq cast from it.
 template <int D, bool MASK, bool DROP>
@@ -588,10 +657,8 @@ int launch_one_pass_ws(const void* q, const void* k, const void* v,
                        int valid_k, float scale_log2, float scale,
                        cudaStream_t stream, const MdParams& md,
                        const void* bits) {
-  if (MASK && (md.mask == nullptr || md.cls == nullptr || bits == nullptr ||
-               md.mask_hper < 1 || bh % md.mask_hper))
+  if (!ws_operands_ok<MASK, DROP>(md, bits, bh))
     return (int)cudaErrorInvalidValue;
-  if (DROP && md.seed3 == nullptr) return (int)cudaErrorInvalidValue;
   const size_t n = (size_t)bh * sq * D;
   cudaError_t err = cudaMemsetAsync(dq_acc, 0, n * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
@@ -603,21 +670,65 @@ int launch_one_pass_ws(const void* q, const void* k, const void* v,
     if (!e) e = bf16_tile_map(&tk, k, bh, sk, D, kBK);
     if (!e) e = bf16_tile_map(&tv, v, bh, sk, D, kBK);
     if (e) return e;
-    const size_t bytes = WsTiles<D>::bytes;
-    err = cudaFuncSetAttribute(flash_bwd_ws_kernel<D, MASK, DROP>,
+    const size_t bytes = WsTiles<D, true>::bytes;
+    err = cudaFuncSetAttribute(flash_bwd_ws_kernel<D, true, MASK, DROP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)bytes);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((sk + kBK - 1) / kBK, bh);
-    flash_bwd_ws_kernel<D, MASK, DROP><<<grid, kWsThreads, bytes, stream>>>(
+    flash_bwd_ws_kernel<D, true, MASK, DROP>
+        <<<grid, kWsThreads, bytes, stream>>>(
         tq, tk, tv, tdo, tdq, static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), sq, sk, causal, off, valid_q, valid_k,
-        scale_log2, scale, static_cast<const unsigned*>(bits), md);
+        scale_log2, scale, static_cast<const unsigned*>(bits), md, bh, 1);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return launch_dq_cast(dq_acc, dq, n, scale, stream);   // unscaled partials
+}
+
+// The split backward's dk/dv kernel with a mask and/or dropout (the
+// pre-pass has run for MASK): one block a (key block, batch-head), the
+// longest key blocks first within groups of heads whose q and dO fit half
+// the L2.
+template <int D, bool MASK, bool DROP>
+int launch_dkv_ws(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dk, void* dv, int bh, int sq, int sk, int causal,
+                  int off, int valid_q, int valid_k, float scale_log2,
+                  float scale, cudaStream_t stream, const MdParams& md,
+                  const void* bits) {
+  if (!ws_operands_ok<MASK, DROP>(md, bits, bh))
+    return (int)cudaErrorInvalidValue;
+  if (sk <= 0) return 0;
+  CUtensorMap tq, tk, tv, tdo;
+  // no queries: no block loads q or dO, whose maps then describe k
+  int e = sq > 0 ? bf16_tile_map(&tq, q, bh, sq, D, kBQ)
+                 : bf16_tile_map(&tq, k, bh, sk, D, kBQ);
+  if (!e) e = sq > 0 ? bf16_tile_map(&tdo, dout, bh, sq, D, kBQ)
+                     : bf16_tile_map(&tdo, k, bh, sk, D, kBQ);
+  if (!e) e = bf16_tile_map(&tk, k, bh, sk, D, kBK);
+  if (!e) e = bf16_tile_map(&tv, v, bh, sk, D, kBK);
+  if (e) return e;
+  const size_t bytes = WsTiles<D, false>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_ws_kernel<D, false, MASK, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  // heads in groups of near-equal size whose q and dO fit half the L2
+  const long long qdo_bytes = 4LL * (sq > 0 ? sq : 1) * D * bh;
+  const long long ngroups = (qdo_bytes + kL2Half - 1) / kL2Half;
+  const int group = (int)((bh + ngroups - 1) / ngroups);
+  const long long blocks = (long long)bh * ((sk + kBK - 1) / kBK);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_bwd_ws_kernel<D, false, MASK, DROP>
+      <<<(unsigned)blocks, kWsThreads, bytes, stream>>>(
+      tq, tk, tv, tdo, tq, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), sq, sk, causal, off, valid_q, valid_k,
+      scale_log2, scale, static_cast<const unsigned*>(bits), md, bh, group);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

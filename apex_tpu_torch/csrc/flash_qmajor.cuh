@@ -49,14 +49,8 @@
 // row emits 0 and lse -1e30 (so does a block whose tiles are all dead),
 // and gets dq 0 where its lse < -0.5e30.
 //
-// The split dq kernel takes the same mask through the same pre-pass
-// (MASK with DQ): its 64-key steps read half of a 128-key tile's class
-// and bits.  DROP (the dq kernel only: the forward's dropout instances
-// are flash_qmajor_ws.cuh's) is attention dropout with the JAX package's
-// keep mask (hopper.cuh, drop_keep) from the seed operand [seed, row_off,
-// col_off] read from device memory: dq takes dS = P (keep ? dP / (1 -
-// rate) : 0 - delta), as _dropped_dp gives it.  Without MASK and DROP the
-// instances are the ones of the unmasked path, unchanged.
+// MASK serves the forward alone: the mask and dropout instances of the
+// forward and of the split dq kernel are flash_qmajor_ws.cuh's.
 #pragma once
 
 #include "hopper.cuh"
@@ -100,13 +94,12 @@ struct QmTiles {
 // fp32 [bh, sq], may be null); dout, lse_in, delta and scale unused.
 // DQ = true: out = dq [bh, sq, D] bf16, written once; lse_out unused.
 // The operands come as tensor maps (bf16_tile_map): q and dO with
-// 128-row boxes, k and v with BK-row boxes.  MASK: mask [bh / mask_hper,
-// sq, sk] bytes, nonzero = masked, as the pre-pass's classes cls [nmask,
-// nqb, nkt] and bits [nmask, nqb, nkt, kMaskWords] (nqb query blocks of
-// 128, nkt key tiles of 128; a BK-key step reads its tile's).  DROP:
-// seed3 [seed, row_off, col_off] int32 in device memory, the keep
-// threshold and inv_keep = 1 / (1 - rate).
-template <int D, bool DQ, int BK, bool MASK = false, bool DROP = false>
+// 128-row boxes, k and v with BK-row boxes.  MASK (the forward only):
+// mask [bh / mask_hper, sq, sk] bytes, nonzero = masked, as the pre-pass's
+// classes cls [nmask, nqb, nkt] and bits [nmask, nqb, nkt, kMaskWords]
+// (nqb query blocks of 128, nkt key tiles of 128; a BK-key step reads its
+// tile's).
+template <int D, bool DQ, int BK, bool MASK = false>
 __global__ void __launch_bounds__(kQmThreads, 1)
 flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -119,11 +112,10 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
                     float scale_log2, float scale,
                     const unsigned char* __restrict__ cls,
                     const unsigned* __restrict__ bits, int mask_hper,
-                    int nkt, const int* __restrict__ seed3,
-                    unsigned threshold, float inv_keep) {
+                    int nkt) {
   static_assert(kMaskTile % BK == 0, "a step lies inside a pre-pass tile");
-  static_assert(DQ || !DROP,
-                "the forward's dropout instances are flash_qmajor_ws.cuh's");
+  static_assert(!(DQ && MASK),
+                "the dq kernel's mask instances are flash_qmajor_ws.cuh's");
   // the pre-pass tiles hold kStepsPerTile key steps each
   constexpr int kStepsPerTile = kMaskTile / BK;
   using T = QmTiles<D, DQ, BK>;
@@ -259,18 +251,6 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
     }
     return c != kTileDead;
   };
-  // DROP: rows row and row + 8's part of the keep hash, and the column
-  // offset
-  uint32_t hrow[2] = {0u, 0u}, hcol0 = 0u;
-  if constexpr (DROP) {
-    const uint32_t seed = (uint32_t)__ldg(seed3);
-    const uint32_t roff = (uint32_t)__ldg(seed3 + 1);
-    hcol0 = (uint32_t)__ldg(seed3 + 2);
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-      hrow[hf] = drop_row(seed, (uint32_t)bh, roff + (uint32_t)(row + hf * 8));
-  }
-
   float acc[kON];                 // O, or dQ
 #pragma unroll
   for (int i = 0; i < kON; ++i) acc[i] = 0.f;
@@ -435,13 +415,9 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
       lrow[hf] = r < sq ? lse_in[bh * (size_t)sq + r] : kNegInf;
       drow[hf] = r < sq ? delta[bh * (size_t)sq + r] : 0.f;
     }
-    int taken = 0;                    // MASK: tiles taken so far
     for (int kt = 0; kt < nk; ++kt) {
-      const int i = MASK ? taken : kt;  // the tile's place in the ring
-      unsigned mw[2] = {0u, 0u};      // MASK: rows row, row + 8's bits
-      bool fast = full_tile(kt * BK);
-      if constexpr (MASK)
-        if (!step_mask(kt, fast, mw)) continue;
+      const int i = kt;               // the tile's place in the ring
+      const bool fast = full_tile(kt * BK);
       float s[kSN], dp[kSN];  // overwritten by their first k-step
       const int st = i % T::kStages;
       const uint32_t cK = sK + st * T::kKV, cV = sV + st * T::kKV;
@@ -461,7 +437,7 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
       keep(s);
 
       // P = exp2(S * scale_log2 - lse) with the masks (a tile inside
-      // every mask for this warp's rows, whose lse is then finite, skips
+      // both masks for this warp's rows, whose lse is then finite, skips
       // them)
       const int k0 = kt * BK;
       if (fast) {
@@ -477,7 +453,6 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
             for (int e = 0; e < 2; ++e) {
               const int x = j * 4 + hf * 2 + e;
               s[x] = (live(row + hf * 8, k0 + j * 8 + tig * 2 + e) &&
-                      !((mw[hf] >> (j * 2 + e)) & 1u) &&
                       lrow[hf] > kMaskedRowThresh)
                          ? exp2_ftz(s[x] * scale_log2 - lrow[hf])
                          : 0.f;
@@ -485,28 +460,10 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
       }
       wgmma_wait<0>();        // dP done
       keep(dp);
-      // dS = P (dP - delta), rounded to bf16 as dQ's A (DROP: the dP of
-      // a dropped element is 0, of a kept one dP / (1 - rate))
-      if constexpr (DROP) {
+      // dS = P (dP - delta), rounded to bf16 as dQ's A
 #pragma unroll
-        for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const uint32_t ch =
-                drop_col(hcol0 + (uint32_t)(k0 + j * 8 + tig * 2 + e));
-#pragma unroll
-            for (int hf = 0; hf < 2; ++hf) {
-              const int x = j * 4 + hf * 2 + e;
-              const float g = drop_keep(hrow[hf], ch, threshold)
-                                  ? dp[x] * inv_keep : 0.f;
-              dp[x] = s[x] * (g - drow[hf]);
-            }
-          }
-      } else {
-#pragma unroll
-        for (int x = 0; x < kSN; ++x)
-          dp[x] = s[x] * (dp[x] - drow[(x >> 1) & 1]);
-      }
+      for (int x = 0; x < kSN; ++x)
+        dp[x] = s[x] * (dp[x] - drow[(x >> 1) & 1]);
       to_a_frags(pa, dp);
 
       // dQ += dS K: K read N-major from this stage's tile
@@ -520,7 +477,6 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
       keep(acc);
       keep(pa);
       release_kv(i);
-      if constexpr (MASK) ++taken;
     }
 
     // this block owns its queries' dq: plain stores, no atomics
@@ -634,18 +590,16 @@ inline int launch_mask_tiles(const void* mask, void* cls, void* bits,
   return (int)cudaGetLastError();
 }
 
-// flash_qmajor_kernel<D, DQ, BK, MASK, DROP>, one block per (b*h,
-// 128-query block); the operands' tensor maps are encoded here (DROP
-// with DQ only).
-template <int D, bool DQ, int BK, bool MASK = false, bool DROP = false>
+// flash_qmajor_kernel<D, DQ, BK, MASK>, one block per (b*h, 128-query
+// block); the operands' tensor maps are encoded here.
+template <int D, bool DQ, int BK, bool MASK = false>
 int launch_qmajor(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse_in, const void* delta,
                   void* out, void* lse_out, int bh, int sq, int sk,
                   int causal, int off, int valid_q, int valid_k,
                   float scale_log2, float scale, cudaStream_t stream,
                   const void* cls = nullptr, const void* bits = nullptr,
-                  int mask_hper = 1, const void* seed3 = nullptr,
-                  unsigned threshold = 0, float inv_keep = 1.f) {
+                  int mask_hper = 1) {
   CUtensorMap tq, tk, tv, tdo;
   int e = bf16_tile_map(&tq, q, bh, sq, D, kQmBQ);
   // no keys: no block loads k or v, whose maps then describe q
@@ -659,10 +613,9 @@ int launch_qmajor(const void* q, const void* k, const void* v,
   if (MASK && (cls == nullptr || bits == nullptr || mask_hper < 1 ||
                bh % mask_hper))
     return (int)cudaErrorInvalidValue;
-  if (DROP && seed3 == nullptr) return (int)cudaErrorInvalidValue;
   const size_t bytes = QmTiles<D, DQ, BK>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_qmajor_kernel<D, DQ, BK, MASK, DROP>,
+      flash_qmajor_kernel<D, DQ, BK, MASK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)bh * ((sq + kQmBQ - 1) / kQmBQ);
@@ -672,7 +625,7 @@ int launch_qmajor(const void* q, const void* k, const void* v,
   const long long ngroups = (kv_bytes + kL2Half - 1) / kL2Half;
   const int group = (int)((bh + ngroups - 1) / ngroups);
   const dim3 grid((unsigned)blocks);
-  flash_qmajor_kernel<D, DQ, BK, MASK, DROP>
+  flash_qmajor_kernel<D, DQ, BK, MASK>
       <<<grid, kQmThreads, bytes, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse_in),
       static_cast<const float*>(delta), static_cast<bf16*>(out),
@@ -680,8 +633,7 @@ int launch_qmajor(const void* q, const void* k, const void* v,
       valid_q, valid_k, scale_log2, scale,
       static_cast<const unsigned char*>(cls),
       static_cast<const unsigned*>(bits), mask_hper,
-      (sk + kMaskTile - 1) / kMaskTile, static_cast<const int*>(seed3),
-      threshold, inv_keep);
+      (sk + kMaskTile - 1) / kMaskTile);
   return (int)cudaGetLastError();
 }
 

@@ -1,12 +1,16 @@
-// The flash-attention forward's dropout instances for Hopper (sm_90a),
-// warp-specialized on a persistent grid: flash_fwd_ws_kernel<D, MASK>,
-// launched by flash_attention_md.cu for #3d and #3md (MASK).  It always
-// drops: the forwards without dropout (#3, #3m) stay on
-// flash_qmajor_kernel.
+// The flash-attention forward's dropout instances and the split
+// backward's dq kernel with a mask or dropout for Hopper (sm_90a),
+// warp-specialized on a persistent grid: flash_fwd_ws_kernel<D, MASK, DQ,
+// DROP>, launched by flash_attention_md.cu for #3d and #3md (the forward:
+// DQ false, always dropping) and #5md (DQ: mask and dropout, mask alone,
+// dropout alone).  The forwards without dropout (#3, #3m) and the dq
+// kernel without mask and dropout (#5) stay on flash_qmajor_kernel.
 //
 // Replaces: apex_tpu/ops/attention.py :: _fwd_kernel (launched by _fwd
 // through pl.pallas_call) with its dropout operand, with and without its
-// mask3 operand.  Same function, tiles and products as the query-major
+// mask3 operand, and _dq_kernel (launched by _bwd_impl past the 2 MiB
+// gate) with mask3 and dropout.  The forward: same function, tiles and
+// products as the query-major
 // template's forward (flash_qmajor.cuh): a tile is 128 queries of one
 // batch-head, two product warpgroups own 64 of them each and walk the
 // 128-key tiles they can see, S = Q K^T from shared memory, O += P V with
@@ -21,7 +25,12 @@
 //   its prologue (a stable counting sort of each group's (mask, query
 //   block) entries, kFwOrderCap of them at most; past that the order is
 //   the causal one).  Block b takes the group-ordered tiles b, 2G - 1 - b,
-//   2G + b, ... (G blocks, a snake: heavy and light tiles alternate).
+//   2G + b, ... (G blocks, a snake: heavy and light tiles alternate); the
+//   dq mode's blocks take the next tile in that order from a counter in
+//   device memory instead, each once its loads of the last one are
+//   issued (each block the heaviest left: 1.05 -> 0.88 ms against the
+//   snake at causal [1, 16, 8192, 128], whose windows of 2G tiles
+//   straddle the L2 groups; taken two tiles ahead, 1.03).
 // - Two copying warps.  One thread of the third warpgroup computes the
 //   schedule and hands each tile's (batch-head, query block, live tiles)
 //   to another through a two-entry queue in shared memory (each has only
@@ -57,11 +66,12 @@
 //   are not written), waited on only when the buffer is needed again a
 //   tile later.  lse (base 2) is stored directly.
 //
-// Shared memory: Q [128][D] and O [128][D] (the O store overlaps the next
-// tile), the K and V rings of 128-key stages, the MASK order table, the
-// mbarriers, the schedule words and the hash's slots.  d 128: 2 stages a
-// ring (a third does not fit beside separate Q and O buffers: 32 + 32 +
-// 3 x 64 KB > 227 KB); d 64: 4.
+// Shared memory: Q [128][D], (DQ) dO [128][D] and O [128][D] (the O store
+// overlaps the next tile), the K and V rings of 128-key stages (DQ: 64),
+// the MASK order table, the mbarriers, the schedule words and the hash's
+// slots.  d 128: 2 stages a ring (a third does not fit beside separate Q
+// and O buffers: 32 + 32 + 3 x 64 KB > 227 KB), 3 in the dq mode; d 64:
+// 4.
 //
 // Masks and numbers as flash_qmajor_kernel's forward: base-2 scores, the
 // causal offset and the validity window, the pre-pass's tile classes and
@@ -70,11 +80,27 @@
 // The keep mask is _keep_mask's bit for bit (hopper.cuh), from the seed
 // operand [seed, row_off, col_off] read on the device.
 //
+// The dq mode (DQ) runs the same schedule, loads and turns over the same
+// tiles (128 queries of a batch-head; Q and dO resident, lse and delta
+// read once a row) in 64-key steps (S, dP and dQ's accumulators and dS's
+// fragments fit a thread's registers; a 128-key step would spill), a
+// step's K and V loaded together into their rings.  In its turn a
+// warpgroup issues S_t = Q K_t^T, dP_t = dO V_t^T and dQ += dS_{t-1}
+// K_{t-1} (at a tile's first step dS is 0, against K_t), hashes step t's
+// keep bits while they run, takes P_t = exp2(S_t scale_log2 - lse) when S
+// is done and dS_t = P_t (keep ? dP_t / (1 - rate) : 0 - delta) when dP
+// and the last dQ product are (_dropped_dp).  V's stage is free once dP
+// is done, K's a step later, once its dQ product is.  dq = scale dQ
+// leaves as the forward's O does, written once a tile (no atomics: a
+// second run gives the same bits).  A 64-key step reads half of a
+// pre-pass tile's class and bits.
+//
 // What bounds it on the H100: the tensor-core products and, beside them,
 // the hash on the CUDA cores (nine instructions an element, seven of them
 // on the integer ALU); the design keeps the two in flight together.
 // PERF.md records its times, and tools/flash_bwd_probe.py --fwd its phase
-// clocks and what the sort of the masked tiles saves (nosort).
+// clocks and what the sort of the masked tiles saves (nosort), and
+// --split the dq mode's.
 #pragma once
 
 #include "flash_qmajor.cuh"
@@ -92,12 +118,13 @@ constexpr int kFwEpi = 3;            // 3, 4: a warpgroup's epilogue
 
 // Shared memory, byte offsets from a 1024-aligned base.  O is two
 // warpgroup halves of [DP / 64 chunks][64 rows][64], the TMA store's
-// boxes.
-template <int D, bool MASK>
+// boxes.  BK: keys a step.
+template <int D, bool MASK, bool DQ>
 struct FwTiles {
   static constexpr int DP = kDP<D>;
+  static constexpr int BK = DQ ? 64 : kMaskTile;
   static constexpr int kQ = kQmBQ * DP * 2;
-  static constexpr int kKV = kMaskTile * DP * 2;
+  static constexpr int kKV = BK * DP * 2;
   static constexpr int kOrder = MASK ? kFwOrderCap * 2 : 0;
   // Q full and empty, K's and V's full and empty a stage, the schedule
   // queue's full and empty a slot
@@ -106,7 +133,8 @@ struct FwTiles {
   // schedule's state (4)
   static constexpr int kInfo = (16 + kFwMaxStages) * 4;
   static constexpr int kAnchor = kFwConsumers * 8;   // the hash's slots
-  static constexpr int oQ = 0, oO = kQ, oK = 2 * kQ;
+  static constexpr int oQ = 0, oDO = kQ, oO = (DQ ? 2 : 1) * kQ,
+                       oK = oO + kQ;
   static constexpr int kFit = (kSmemMax - 1024 - oK - kOrder - kBars * 8 -
                                kInfo - kAnchor) / (2 * kKV);
   static constexpr int kStages = kFit < kFwMaxStages ? kFit : kFwMaxStages;
@@ -116,8 +144,8 @@ struct FwTiles {
   static constexpr size_t bytes = 1024 + oAnchor + kAnchor;
   static_assert(kStages >= 2, "a ring of two stages fits");
   static_assert(bytes <= kSmemMax, "the tiles fit in shared memory");
-  static_assert(!MASK || 12 * kFwScratch <= 2 * kStages * kKV,
-                "the sort's scratch fits in the ring");
+  static_assert(!MASK || 12 * kFwScratch <= oOrder,
+                "the sort's scratch fits below the order table");
 };
 
 // The launch's shapes, masks, dropout and schedule.  Tiles come in groups
@@ -126,13 +154,16 @@ struct FwTiles {
 // hper); without a mask every head is its own "mask" (hper 1, hc 1).
 struct FwParams {
   int nbh, sq, sk, causal, off, valid_q, valid_k;
-  float scale_log2;
+  float scale_log2, scale;
+  const float* lse_in;      // DQ: the forward's base-2 lse [nbh, sq]
+  const float* delta;       // and rowsum(dO * O) [nbh, sq]
   int nqb, nkt, hper, nmask, gm, hc, nch, sorted;
   const unsigned char* cls;
   const unsigned* bits;
   const int* seed3;
   unsigned threshold;
   float inv_keep;
+  int* next_tile;           // DQ: the tile counter, 0 at the launch
 };
 
 // 32-bit shared memory words by address (no 64-bit generic pointer held)
@@ -150,12 +181,15 @@ __device__ __forceinline__ int ld_shared_u16(uint32_t a) {
   return v;
 }
 
+// keys a tile of query block qb may see: [0, return)
+__device__ __forceinline__ int fw_kend(const FwParams& p, int qb) {
+  const int kend = min(p.sk, p.valid_k);
+  return p.causal ? min(kend, qb * kQmBQ + kQmBQ + p.off) : kend;
+}
 // key tiles a tile of query block qb may see: [0, return)
 __device__ __forceinline__ int fw_tiles_seen(const FwParams& p, int qb) {
-  const int q0 = qb * kQmBQ;
-  int kend = min(p.sk, p.valid_k);
-  if (p.causal) kend = min(kend, q0 + kQmBQ + p.off);
-  return (kend > 0 && q0 < min(p.sq, p.valid_q))
+  const int kend = fw_kend(p, qb);
+  return (kend > 0 && qb * kQmBQ < min(p.sq, p.valid_q))
              ? (kend + kMaskTile - 1) / kMaskTile : 0;
 }
 
@@ -185,16 +219,21 @@ __device__ __forceinline__ int fw_group_tiles(const FwParams& p, int g) {
   return (r.mb - r.ma) * p.nqb * (r.hb - r.ha);
 }
 
-template <int D, bool MASK>
+// DQ false: out = O, lse_out the base-2 lse (or null), tdo unused; DQ:
+// out = dq [nbh, sq, D] bf16 and tdo dO's map (128-row boxes), lse_out
+// unused.
+template <int D, bool MASK, bool DQ, bool DROP>
 __global__ void __launch_bounds__(kFwThreads, 1)
 flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     const __grid_constant__ CUtensorMap to,
+                    const __grid_constant__ CUtensorMap tdo,
                     float* __restrict__ lse_out, const FwParams p) {
   static_assert(D == 64 || D == 128, "the dropout instances' head dims");
-  using T = FwTiles<D, MASK>;
-  constexpr int DP = T::DP, S = T::kStages, BK = kMaskTile;
+  static_assert(DQ || DROP, "the forward's instances always drop");
+  using T = FwTiles<D, MASK, DQ>;
+  constexpr int DP = T::DP, S = T::kStages, BK = T::BK;
   constexpr int kKS = D / 16;     // k16 steps of S over d
   constexpr int kPS = BK / 16;    // k16 steps of P V over keys
   constexpr int kSN = BK / 2;     // registers of an m64 x BK accumulator
@@ -203,8 +242,8 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (base - raw);
-  const uint32_t sQ = base + T::oQ, sO = base + T::oO, sK = base + T::oK,
-                 sV = base + T::oV;
+  const uint32_t sQ = base + T::oQ, sDO = base + T::oDO, sO = base + T::oO,
+                 sK = base + T::oK, sV = base + T::oV;
   // mbarriers: Q full and empty, each K stage's full and empty, each V
   // stage's, the schedule queue's
   const uint32_t bQFull = base + T::oBar, bQEmpty = bQFull + 8,
@@ -241,9 +280,9 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
       // each warp sorts whole mask groups: entry e = (nqb - 1 - qb) gmc +
       // (m - ma) of group [ma, ma + gmc) by its live tiles, heaviest first,
       // stably, into order[ma nqb ..]; its histogram and weights in the
-      // ring (no copy has started)
+      // tiles' space (no copy has started)
       const int w = tid >> 5, lane = tid & 31;
-      int* hist = reinterpret_cast<int*>(smem + T::oK + w * kFwScratch);
+      int* hist = reinterpret_cast<int*>(smem + w * kFwScratch);
       uint16_t* wt = reinterpret_cast<uint16_t*>(hist + kFwHist);
       const int nmg = (p.nmask + p.gm - 1) / p.gm;
       for (int mg = w; mg < nmg; mg += kFwThreads / 32) {
@@ -320,6 +359,14 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
       st_shared(sState + 8, 0);
       st_shared(sState + 12, fw_group_tiles<MASK>(p, 0));
       for (int n = 0;; ++n) {
+        if constexpr (DQ) {
+          // the next tile from the counter once the loader is done with
+          // the last one's slot: a block holds the tile it computes and
+          // a few steps of the next
+          if (n >= 1)
+            mbar_wait(bDesc + 16 + 8 * ((n - 1) & 1), ((n - 1) >> 1) & 1);
+          st_shared(sState, atomicAdd(p.next_tile, 1));
+        }
         int bh = -1, qb = 0, m = 0;
         const int R = ld_shared(sState);
         if (R < p.nbh * p.nqb) {
@@ -345,8 +392,9 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
           bh = m * p.hper + hd;
         }
         // the snake: tiles b, 2G - 1 - b, 2G + b, ...
-        st_shared(sState, R + ((n & 1) ? 2 * b + 1
-                                       : 2 * ((int)gridDim.x - 1 - b) + 1));
+        if constexpr (!DQ)
+          st_shared(sState, R + ((n & 1) ? 2 * b + 1
+                                         : 2 * ((int)gridDim.x - 1 - b) + 1));
         const int nk = bh < 0 ? 0 : fw_tiles_seen(p, qb);
         const int cls0 = MASK ? (m * p.nqb + qb) * p.nkt : 0;  // its classes
         int nlive = nk;
@@ -356,7 +404,8 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
             nlive += p.cls[(size_t)cls0 + kt] != kTileDead;
         }
         const uint32_t d = sDesc + 16 * (n & 1);
-        if (n >= 2) mbar_wait(bDesc + 16 + 8 * (n & 1), ((n >> 1) - 1) & 1);
+        if (!DQ && n >= 2)
+          mbar_wait(bDesc + 16 + 8 * (n & 1), ((n >> 1) - 1) & 1);
         st_shared(d, bh);
         st_shared(d + 4, qb);
         st_shared(d + 8, cls0);
@@ -370,9 +419,11 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
     // every load.  Step c (the live steps of all tiles in turn) takes K
     // stage and V stage c % S.  A tile's first K goes before its Q (which
     // waits until the last tile's S products are done with Q), each later
-    // K beside the V of the step before, the last V after its K.  The
-    // tile's words are read from its queue slot where they are used (this
-    // thread has 24 registers); the slot is released after the last load.
+    // K beside the V of the step before, the last V after its K (DQ: each
+    // step's V right after its K, the tile's Q and dO between the first
+    // two).  The tile's words are read from its queue slot where they are
+    // used (this thread has 24 registers); the slot is released after the
+    // last load.
     int c = 0;                      // live steps so far
     for (int n = 0;; ++n) {
       const uint32_t d = sDesc + 16 * (n & 1);
@@ -388,14 +439,19 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
           mbar_arrive(bQFull);
           return;
         }
-        mbar_expect_tx(bQFull, T::kQ);
-        for (int cc = 0; cc < DP / 64; ++cc)
+        mbar_expect_tx(bQFull, (DQ ? 2 : 1) * T::kQ);
+        for (int cc = 0; cc < DP / 64; ++cc) {
           tma_load(sQ + cc * (kQmBQ * 128), &tq, bQFull, cc * 64,
                    ld_shared(d + 4) * kQmBQ, ld_shared(d));
+          if constexpr (DQ)
+            tma_load(sDO + cc * (kQmBQ * 128), &tdo, bQFull, cc * 64,
+                     ld_shared(d + 4) * kQmBQ, ld_shared(d));
+        }
       };
-      // V of step c - 1 (key tile k) once P V is done with its stage
-      auto load_v = [&](int k) {
-        const int st = (c - 1) % S, use = (c - 1) / S;
+      // V of step `step` (key block k) once its stage's last reader (P V;
+      // DQ: dP) is done with it
+      auto load_v = [&](int k, int step) {
+        const int st = step % S, use = step / S;
         if (use > 0) mbar_wait(bVEmpty + 8 * st, (use - 1) & 1);
         mbar_expect_tx(bVFull + 8 * st, T::kKV);
         for (int cc = 0; cc < DP / 64; ++cc)
@@ -403,7 +459,7 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
                    cc * 64, k * BK, ld_shared(d));
       };
       int left = ld_shared(d + 12);  // live key tiles not yet loaded
-      int prev = -1;                 // the last one loaded
+      int prev = -1;                 // the last key block loaded
       const int nk = left > 0 ? fw_tiles_seen(p, ld_shared(d + 4)) : 0;
       for (int kt = 0; kt < nk; ++kt) {
         int part = 0;
@@ -412,24 +468,38 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
           if (cl == kTileDead) continue;
           part = cl == kTilePartial;
         }
-        // K of step c once S is done with its stage; the step's words
-        // beside it
-        const int st = c % S, use = c / S;
-        if (use > 0) mbar_wait(bKEmpty + 8 * st, (use - 1) & 1);
-        st_shared(sInfo + 48 + 4 * st, kt * 4 + (--left == 0 ? 2 : 0) + part);
-        mbar_expect_tx(bKFull + 8 * st, T::kKV);
-        for (int cc = 0; cc < DP / 64; ++cc)
-          tma_load(sK + st * T::kKV + cc * (BK * 128), &tk, bKFull + 8 * st,
-                   cc * 64, kt * BK, ld_shared(d));
-        if (prev < 0)
-          begin_tile(true);
-        else
-          load_v(prev);
-        ++c;
-        prev = kt;
+        --left;
+        // the tile's steps: its BK-key blocks the tile sees
+        for (int h = 0; h < kMaskTile / BK; ++h) {
+          const int kb = kt * (kMaskTile / BK) + h;
+          bool last = left == 0;
+          if constexpr (DQ) {
+            // the last live tile's last step: its second half, or its
+            // first where the keys end inside it
+            const int kend = fw_kend(p, ld_shared(d + 4));
+            if (kb * BK >= kend) break;
+            last = last && (h == kMaskTile / BK - 1 || (kb + 1) * BK >= kend);
+          }
+          // K of step c once its stage's last reader (S; DQ: dQ) is done
+          // with it; the step's words beside it
+          const int st = c % S, use = c / S;
+          if (use > 0) mbar_wait(bKEmpty + 8 * st, (use - 1) & 1);
+          st_shared(sInfo + 48 + 4 * st, kb * 4 + (last ? 2 : 0) + part);
+          mbar_expect_tx(bKFull + 8 * st, T::kKV);
+          for (int cc = 0; cc < DP / 64; ++cc)
+            tma_load(sK + st * T::kKV + cc * (BK * 128), &tk,
+                     bKFull + 8 * st, cc * 64, kb * BK, ld_shared(d));
+          if (prev < 0)
+            begin_tile(true);
+          else if constexpr (!DQ)
+            load_v(prev, c - 1);
+          if constexpr (DQ) load_v(kb, c);
+          ++c;
+          prev = kb;
+        }
       }
       if (prev >= 0) {
-        load_v(prev);
+        if constexpr (!DQ) load_v(prev, c - 1);
       } else {
         begin_tile(false);
         if (ld_shared(d) < 0) break;
@@ -459,6 +529,249 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
   auto n_desc = [&](uint32_t tile, int t) {
     return gmma_desc(tile + t * 16 * 128, BK * 128, 1024);
   };
+  if constexpr (DQ) {
+    // the dq mode: A of dP, this warpgroup's 64 rows of dO
+    auto o_desc = [&](int ks) {
+      return gmma_desc(sDO + (ks >> 2) * (kQmBQ * 128) + wg * (64 * 128) +
+                           (ks & 3) * 32, 16, 1024);
+    };
+    uint32_t seed = 0u, roff = 0u, hcol0 = 0u, thr8 = 0u, kall = 0u;
+    if constexpr (DROP) {
+      seed = (uint32_t)__ldg(p.seed3);
+      roff = (uint32_t)__ldg(p.seed3 + 1);
+      hcol0 = (uint32_t)__ldg(p.seed3 + 2);
+      thr8 = p.threshold << 8;
+      // a threshold of 2^24 (rate within 2^-25 of 1) keeps nothing
+      kall = p.threshold >= (1u << 24) ? 0u : 0xffffffffu;
+    }
+    if (wg == 1) bar_arrive(kFwTurn, kFwConsumers);
+    int c = 0;                      // live steps so far: the ring's place
+    for (int n = 0;; ++n) {
+      mbar_wait(bQFull, n & 1);
+      const int bh = tinfo[0], qb = tinfo[1], nlive = tinfo[2];
+      if (bh < 0) break;
+      const int q0 = qb * kQmBQ, wq0 = q0 + wg * 64 + warp * 16;
+      const int row = q0 + r16;     // and row + 8
+      // is key block k0 inside every mask for this warp's 16 rows
+      auto full_step = [&](int k0) {
+        return k0 + BK <= kv_end && wq0 + 16 <= q_end &&
+               (!p.causal || k0 + BK - 1 <= wq0 + p.off);
+      };
+      auto visible = [&](int r, int cc) {
+        return cc < kv_end && r < q_end && (!p.causal || cc <= r + p.off);
+      };
+      // MASK: this thread's pre-pass bits of rows row and row + 8
+      const unsigned* tbits =
+          MASK ? p.bits + ((size_t)(bh / p.hper) * p.nqb + qb) * p.nkt *
+                              kMaskWords + r16 * 4 + tig
+               : nullptr;
+      // rows row and row + 8: the keep hash's part (folded), lse (a
+      // fully masked row's, and a row past sq's, as +inf: its p is 0
+      // with no test an element), delta
+      uint32_t hrow[2] = {0u, 0u};
+      float lrow[2], drow[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = row + hf * 8;
+        if constexpr (DROP)
+          hrow[hf] = fold16(drop_row(seed, (uint32_t)bh, roff + (uint32_t)r));
+        lrow[hf] = r < p.sq ? __ldg(p.lse_in + (size_t)bh * p.sq + r)
+                            : kNegInf;
+        if (!(lrow[hf] > kMaskedRowThresh))
+          lrow[hf] = __int_as_float(0x7f800000);
+        drow[hf] = r < p.sq ? __ldg(p.delta + (size_t)bh * p.sq + r) : 0.f;
+      }
+      float acc[kON];               // dQ
+#pragma unroll
+      for (int i = 0; i < kON; ++i) acc[i] = 0.f;
+      if (nlive > 0) {
+        unsigned pa[kPS][4];        // dS_{t-1} as dQ's A (0 at first)
+#pragma unroll
+        for (int u = 0; u < kPS; ++u)
+          pa[u][0] = pa[u][1] = pa[u][2] = pa[u][3] = 0u;
+        for (int i = 0;; ++i, ++c) {
+          const int st = c % S;
+          mbar_wait(bKFull + 8 * st, (c / S) & 1);
+          mbar_wait(bVFull + 8 * st, (c / S) & 1);
+          const int inf = sinfo[st];
+          const int k0 = (inf >> 2) * BK;
+          const bool last = inf & 2;
+          // every element live by the causal and validity masks; fast:
+          // and by the mask
+          const bool cvfull = full_step(k0);
+          bool fast = cvfull;
+          unsigned mw[2] = {0u, 0u};  // MASK: rows row, row + 8's bits
+          if constexpr (MASK) {
+            if (inf & 1) {
+              // the step's half of its pre-pass tile's words
+              fast = false;
+              const size_t w = (size_t)(k0 / kMaskTile) * kMaskWords;
+              const int sh = (k0 % kMaskTile) / 4;
+              mw[0] = __ldg(tbits + w) >> sh;
+              mw[1] = __ldg(tbits + w + 32) >> sh;
+            }
+          }
+          float s[kSN], dp[kSN];      // overwritten by their first k-step
+          undef(s);
+          undef(dp);
+          keep(acc);
+          keep(pa);
+          // DROP: the keep bits of this thread's 32 elements, bit 2 j + e
+          // of word hf for row row + 8 hf, key k0 + 8 j + 2 tig + e,
+          // through this thread's slot as the forward's
+          uint32_t kb[2] = {0u, 0u};
+          auto keep_bits = [&]() {
+#pragma unroll
+            for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const uint32_t cf = fold16(
+                    drop_col(hcol0 + (uint32_t)(k0 + j * 8 + tig * 2 + e)));
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf)
+                  kb[hf] |= (uint32_t)(drop_mix(hrow[hf] ^ cf) >= thr8)
+                            << (j * 2 + e);
+              }
+            kb[0] &= kall;
+            kb[1] &= kall;
+            asm volatile("st.shared.v2.u32 [%0], {%1, %2};\n" ::"r"(sAnchor),
+                         "r"(kb[0]), "r"(kb[1])
+                         : "memory");
+          };
+          // this warpgroup's turn: S_t, dP_t and dQ += dS_{t-1} K_{t-1}
+          // (at the tile's first step dS is 0, against K_t), the turn
+          // handed over, the hash while they run
+          const uint32_t pK = sK + ((i > 0 ? c - 1 : c) % S) * T::kKV;
+          bar_sync(kFwTurn + wg, kFwConsumers);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < kKS; ++ks)
+            wgmma_ss<0, 0>(s, a_desc(ks), b_desc(sK + st * T::kKV, ks),
+                           ks > 0);
+          wgmma_commit();
+#pragma unroll
+          for (int ks = 0; ks < kKS; ++ks)
+            wgmma_ss<0, 0>(dp, o_desc(ks), b_desc(sV + st * T::kKV, ks),
+                           ks > 0);
+          wgmma_commit();
+#pragma unroll
+          for (int t = 0; t < kPS; ++t) wgmma_rs(acc, pa[t], n_desc(pK, t), 1);
+          wgmma_commit();
+          bar_arrive(kFwTurn + 1 - wg, kFwConsumers);
+          if constexpr (DROP) keep_bits();
+          wgmma_wait<2>();            // S is done
+          if constexpr (DROP)
+            asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                         : "=r"(kb[0]), "=r"(kb[1])
+                         : "r"(sAnchor)
+                         : "memory");
+          keep(s);
+
+          // P = exp2(S * scale_log2 - lse) with the masks: a step inside
+          // every mask for this warp's rows skips them, a step the causal
+          // and validity masks leave whole tests the mask's bits alone
+          if (fast) {
+#pragma unroll
+            for (int x = 0; x < kSN; ++x)
+              s[x] = exp2_ftz(fmaf(s[x], p.scale_log2, -lrow[(x >> 1) & 1]));
+          } else {
+            unsigned dead[2] = {mw[0], mw[1]};
+            if (!cvfull) {
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+                for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+                  for (int e = 0; e < 2; ++e)
+                    dead[hf] |= (unsigned)!visible(
+                                    row + hf * 8, k0 + j * 8 + tig * 2 + e)
+                                << (j * 2 + e);
+            }
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+              for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int x = j * 4 + hf * 2 + e;
+                  s[x] = (dead[hf] >> (j * 2 + e)) & 1u
+                             ? 0.f
+                             : exp2_ftz(fmaf(s[x], p.scale_log2, -lrow[hf]));
+                }
+          }
+          wgmma_wait<1>();            // dP is done: V's stage is free
+          keep(dp);
+          mbar_arrive(bVEmpty + 8 * st);
+          if (last) mbar_arrive(bQEmpty);   // the tile's S and dP are done
+          wgmma_wait<0>();            // dQ_{t-1} is done: dQ and dS free
+          keep(acc);
+          keep(pa);
+          if (i > 0) mbar_arrive(bKEmpty + 8 * ((c - 1) % S));
+          // dS = P (dP - delta), the dP of a dropped element 0 and of a
+          // kept one dP / (1 - rate), rounded to bf16 as dQ's A
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+            for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int x = j * 4 + hf * 2 + e;
+                float g = dp[x];
+                if constexpr (DROP)
+                  g = (kb[hf] >> (j * 2 + e)) & 1u ? g * p.inv_keep : 0.f;
+                dp[x] = s[x] * (g - drow[hf]);
+              }
+          to_a_frags(pa, dp);
+          if (last) break;
+        }
+        // the last step's dQ += dS K, in turn
+        keep(acc);
+        keep(pa);
+        bar_sync(kFwTurn + wg, kFwConsumers);
+        wgmma_fence();
+        {
+          const uint32_t cK = sK + (c % S) * T::kKV;
+#pragma unroll
+          for (int t = 0; t < kPS; ++t) wgmma_rs(acc, pa[t], n_desc(cK, t), 1);
+        }
+        wgmma_commit();
+        bar_arrive(kFwTurn + 1 - wg, kFwConsumers);
+        wgmma_wait<0>();
+        keep(acc);
+        mbar_arrive(bKEmpty + 8 * (c % S));
+        ++c;
+      } else {
+        mbar_arrive(bQEmpty);       // nothing read Q and dO
+      }
+
+      // dq = scale dQ through this warpgroup's half of sO and a TMA store
+      if ((tid & 127) == 0) bulk_wait_read();   // the last tile's dq is out
+      bar_sync(kFwEpi + wg, 128);
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int rr = warp * 16 + grp + hf * 8;
+          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
+                           sOw + (j >> 3) * (64 * 128) + rr * 128 +
+                           (((j & 7) ^ (rr & 7)) << 4) + tig * 4),
+                       "r"(pack_bf16(p.scale * acc[j * 4 + hf * 2],
+                                     p.scale * acc[j * 4 + hf * 2 + 1])));
+        }
+      fence_async_smem();     // dq, visible to the TMA store
+      bar_sync(kFwEpi + wg, 128);
+      if ((tid & 127) == 0 && q0 + wg * 64 < p.sq) {
+#pragma unroll
+        for (int cc = 0; cc < DP / 64; ++cc)
+          tma_store(&to, sOw + cc * (64 * 128), cc * 64, q0 + wg * 64, bh);
+        bulk_commit();
+      }
+    }
+    // the first warpgroup's last turn was handed to it and never taken
+    if (wg == 0) bar_sync(kFwTurn, kFwConsumers);
+    if ((tid & 127) == 0) bulk_wait();
+    return;
+  }
   // p is exponentiated as p / (1 - rate) (log2 of the scale added to the
   // exponent's offset: no multiply an element), so the row sums l' = l /
   // (1 - rate) and P V's bf16 p's are those of the plain version; O's
@@ -739,27 +1052,36 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
   if ((tid & 127) == 0) bulk_wait();
 }
 
-// flash_fwd_ws_kernel<D, MASK> over bh batch-heads (the pre-pass has run
-// for MASK): the tensor maps, the groups and the grid.
-template <int D, bool MASK>
-int launch_fwd_ws(const void* q, const void* k, const void* v, void* out,
-                  void* lse, int bh, int sq, int sk, int causal, int off,
-                  int valid_q, int valid_k, float scale_log2,
-                  cudaStream_t stream, const void* cls, const void* bits,
-                  int mask_hper, const void* seed3, unsigned threshold,
-                  float inv_keep) {
+// flash_fwd_ws_kernel<D, MASK, DQ, DROP> over bh batch-heads (the
+// pre-pass has run for MASK): the tensor maps, the groups and the grid.
+// The forward: out = O, lse its lse (or null); DQ: out = dq, with dout,
+// lse_in, delta and next_tile (one int of scratch, zeroed here).
+template <int D, bool MASK, bool DQ, bool DROP>
+int launch_qm_ws(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse_in, const void* delta,
+                 void* out, void* lse, int bh, int sq, int sk, int causal,
+                 int off, int valid_q, int valid_k, float scale_log2,
+                 float scale, cudaStream_t stream, const void* cls,
+                 const void* bits, int mask_hper, const void* seed3,
+                 unsigned threshold, float inv_keep,
+                 void* next_tile = nullptr) {
+  using T = FwTiles<D, MASK, DQ>;
   if (MASK && (cls == nullptr || bits == nullptr || mask_hper < 1 ||
                bh % mask_hper))
     return (int)cudaErrorInvalidValue;
-  if (seed3 == nullptr) return (int)cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv, to;
+  if (DROP && seed3 == nullptr) return (int)cudaErrorInvalidValue;
+  if (DQ && (dout == nullptr || lse_in == nullptr || delta == nullptr ||
+             next_tile == nullptr))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, to, tdo;
   int e = bf16_tile_map(&tq, q, bh, sq, D, kQmBQ);
   // no keys: no tile loads k or v, whose maps then describe q
-  if (!e) e = sk > 0 ? bf16_tile_map(&tk, k, bh, sk, D, kMaskTile)
-                     : bf16_tile_map(&tk, q, bh, sq, D, kMaskTile);
-  if (!e) e = sk > 0 ? bf16_tile_map(&tv, v, bh, sk, D, kMaskTile)
-                     : bf16_tile_map(&tv, q, bh, sq, D, kMaskTile);
+  if (!e) e = sk > 0 ? bf16_tile_map(&tk, k, bh, sk, D, T::BK)
+                     : bf16_tile_map(&tk, q, bh, sq, D, T::BK);
+  if (!e) e = sk > 0 ? bf16_tile_map(&tv, v, bh, sk, D, T::BK)
+                     : bf16_tile_map(&tv, q, bh, sq, D, T::BK);
   if (!e) e = bf16_tile_map(&to, out, bh, sq, D, 64);
+  if (!e) e = bf16_tile_map(&tdo, DQ ? dout : q, bh, sq, D, kQmBQ);
   if (e) return e;
   FwParams p;
   p.nbh = bh;
@@ -770,6 +1092,9 @@ int launch_fwd_ws(const void* q, const void* k, const void* v, void* out,
   p.valid_q = valid_q;
   p.valid_k = valid_k;
   p.scale_log2 = scale_log2;
+  p.scale = scale;
+  p.lse_in = static_cast<const float*>(lse_in);
+  p.delta = static_cast<const float*>(delta);
   p.nqb = (sq + kQmBQ - 1) / kQmBQ;
   p.nkt = (sk + kMaskTile - 1) / kMaskTile;
   p.cls = static_cast<const unsigned char*>(cls);
@@ -777,6 +1102,7 @@ int launch_fwd_ws(const void* q, const void* k, const void* v, void* out,
   p.seed3 = static_cast<const int*>(seed3);
   p.threshold = threshold;
   p.inv_keep = inv_keep;
+  p.next_tile = static_cast<int*>(next_tile);
   // heads in groups of near-equal size whose k and v fit half the L2
   const long long kv_bytes = 4LL * (sk > 0 ? sk : 1) * D * bh;
   const long long ng = (kv_bytes + kL2Half - 1) / kL2Half;
@@ -806,9 +1132,9 @@ int launch_fwd_ws(const void* q, const void* k, const void* v, void* out,
   }
   const long long tiles = (long long)bh * p.nqb;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const size_t bytes = FwTiles<D, MASK>::bytes;
+  const size_t bytes = T::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_ws_kernel<D, MASK>,
+      flash_fwd_ws_kernel<D, MASK, DQ, DROP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   // one block an SM of the current device
@@ -817,9 +1143,14 @@ int launch_fwd_ws(const void* q, const void* k, const void* v, void* out,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
+  if (DQ) {
+    err = cudaMemsetAsync(next_tile, 0, sizeof(int), stream);
+    if (err != cudaSuccess) return (int)err;
+  }
   const int grid = (int)(tiles < sms ? tiles : sms);
-  flash_fwd_ws_kernel<D, MASK><<<grid, kFwThreads, bytes, stream>>>(
-      tq, tk, tv, to, static_cast<float*>(lse), p);
+  flash_fwd_ws_kernel<D, MASK, DQ, DROP>
+      <<<grid, kFwThreads, bytes, stream>>>(tq, tk, tv, to, tdo,
+                                            static_cast<float*>(lse), p);
   return (int)cudaGetLastError();
 }
 

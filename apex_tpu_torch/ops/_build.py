@@ -34,7 +34,10 @@ the one-pass backward with a mask, with or without dropout
 (``flash_attention_bwd_drop``), and the split dk/dv kernel with a mask
 or dropout (``flash_attention_bwd_dkv_md``).  ``fused_block_decode.cu``
 is one cooperative launch per decoder layer; its entries, called with
-a null workspace, report the workspace size without launching.
+a null workspace, report the workspace size without launching.  One
+entry launches no counted kernel: the mask pre-pass of the split
+backward (:data:`UNCOUNTED`), which the forward's masked entries run
+inside them, uncounted too.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine with no ``nvcc`` and no card.
@@ -50,8 +53,9 @@ import threading
 from pathlib import Path
 from typing import Dict, Optional
 
-__all__ = ["SOURCES", "KERNELS", "BUILD_DIR", "build", "library", "check",
-           "count", "launch_counts", "reset_launch_counts", "stream_ptr"]
+__all__ = ["SOURCES", "KERNELS", "UNCOUNTED", "BUILD_DIR", "build",
+           "library", "check", "count", "launch_counts",
+           "reset_launch_counts", "stream_ptr"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch"
@@ -94,6 +98,9 @@ SOURCES = {
 }
 #: the source of each kernel, by launch-counter name
 KERNELS = {name: src for src, entries in SOURCES.items() for name in entries}
+#: entries with no launch counter, by source: the mask pre-pass that the
+#: split backward runs once for its two kernels
+UNCOUNTED = {"flash_attention_md.cu": ("apex_flash_mask_tiles",)}
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -131,21 +138,25 @@ _SIGNATURES = {
     "apex_flash_attention_fwd_drop": [_P] * 9 + [_I] * 11 + [_F, _F, _P],
     "apex_flash_attention_fwd_masked_drop": [_P] * 9 + [_I] * 11
                                             + [_F, _F, _P],
-    # q, k, v, dout, lse, delta, mask, cls, bits, seed3, dq, bh, sq, sk, d,
-    # causal, off, valid_q, valid_k, mask_hper, mask_ld, threshold,
+    # q, k, v, dout, lse, delta, cls, bits, seed3, next_tile, dq, bh, sq,
+    # sk, d, causal, off, valid_q, valid_k, mask_hper, threshold,
     # inv_keep, scale_log2, scale, stream
-    "apex_flash_attention_bwd_dq_md": [_P] * 11 + [_I] * 11 + [_F] * 3
+    "apex_flash_attention_bwd_dq_md": [_P] * 11 + [_I] * 10 + [_F] * 3
                                       + [_P],
+    # q, k, v, dout, lse, delta, cls, bits, seed3, dk, dv, then as
+    # apex_flash_attention_bwd_dq_md's from bh
+    "apex_flash_attention_bwd_dkv_md": [_P] * 11 + [_I] * 10 + [_F] * 3
+                                       + [_P],
+    # mask, cls, bits, nmask, sq, sk, mask_ld, causal, off, valid_q,
+    # valid_k, stream
+    "apex_flash_mask_tiles": [_P] * 3 + [_I] * 8 + [_P],
     # q, k, v, dout, lse, delta, mask, cls, bits, seed3, dq_acc, dq, dk, dv,
-    # then as apex_flash_attention_bwd_dq_md's from bh
+    # bh, sq, sk, d, causal, off, valid_q, valid_k, mask_hper, mask_ld,
+    # threshold, inv_keep, scale_log2, scale, stream
     "apex_flash_attention_bwd_masked": [_P] * 14 + [_I] * 11 + [_F] * 3
                                        + [_P],
     "apex_flash_attention_bwd_drop": [_P] * 14 + [_I] * 11 + [_F] * 3
                                      + [_P],
-    # q, k, v, dout, lse, delta, mask, cls, bits, seed3, dk, dv, then as
-    # above
-    "apex_flash_attention_bwd_dkv_md": [_P] * 12 + [_I] * 11 + [_F] * 3
-                                       + [_P],
     # q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d,
     # causal, off, valid_q, valid_k, scale_log2, scale, stream
     "apex_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

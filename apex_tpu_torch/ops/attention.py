@@ -418,30 +418,26 @@ def _mask_scratch(nmask, sq, sk, device):
                         device=device))
 
 
-def _md_operands(kernel, q3, sk, mask3, rate, seed3):
+def _md_operands(kernel, q3, sk, mask3, rate, seed3, scratch=None):
     """The mask and dropout operands of the ``_md`` C entries: ``(ptrs,
     ints, floats, keep)`` -- the pointers ``(mask, cls, bits, seed3)``
     (null where absent), ``(mask_hper, mask_ld, threshold)``, ``(1 / (1
-    - rate),)`` and the tensors they point into.  The mask's rows are
-    read 16 bytes at a time, so a mask whose row length is no multiple
-    of 16 (or whose storage is not 16-byte aligned) is copied into rows
-    of the next multiple, padded with True."""
+    - rate),)`` and the tensors they point into.  The scratch ``(cls,
+    bits)`` is ``scratch`` where given (the split backward's, filled by
+    :func:`_mask_tiles`), else allocated for the entry's own pre-pass.
+    The mask's rows are ``sk`` bytes apart (the pre-pass reads any row
+    length; no kernel reads the mask's bytes)."""
     bh, sq, d = q3.shape
     if d not in _MD_HEAD_DIMS:
         raise ValueError(f"{kernel} (a mask in the backward, or dropout) "
                          f"takes head_dim in {_MD_HEAD_DIMS}, got {d}")
-    mask = cls = bits = None
-    hper, ld = 1, sk
+    cls = bits = None
+    hper = 1
     if mask3 is not None:
         if not mask3.is_contiguous():
             raise ValueError(f"{kernel} needs a contiguous mask3")
-        ld = -(-sk // 16) * 16
-        mask = mask3
-        if ld != sk or mask3.data_ptr() % 16:
-            mask = torch.ones(mask3.shape[0], sq, ld, dtype=torch.bool,
-                              device=q3.device)
-            mask[:, :, :sk] = mask3
-        cls, bits = _mask_scratch(mask3.shape[0], sq, sk, q3.device)
+        cls, bits = scratch if scratch is not None else _mask_scratch(
+            mask3.shape[0], sq, sk, q3.device)
         hper = bh // mask3.shape[0]
     if rate and (seed3 is None or seed3.dtype != torch.int32
                  or tuple(seed3.shape) != (3,) or seed3.device != q3.device
@@ -449,16 +445,50 @@ def _md_operands(kernel, q3, sk, mask3, rate, seed3):
         raise ValueError(f"{kernel} takes the dropout seed operand as a "
                          f"contiguous int32 [3] on {q3.device}")
     ptr = (lambda t: None if t is None else t.data_ptr())
-    return ((ptr(mask), ptr(cls), ptr(bits), ptr(seed3) if rate else None),
-            (hper, ld, _drop_threshold(rate) if rate else 0),
-            (_inv_keep(rate) if rate else 1.0,), (mask, cls, bits))
+    return ((ptr(mask3), ptr(cls), ptr(bits), ptr(seed3) if rate else None),
+            (hper, sk, _drop_threshold(rate) if rate else 0),
+            (_inv_keep(rate) if rate else 1.0,), (mask3, cls, bits))
+
+
+def _mask_tiles(q3, sk, mask3, causal, causal_off=None, valid=None):
+    """The mask pre-pass alone (``apex_flash_mask_tiles``; uncounted, as
+    inside the forward's masked entries): the scratch ``(cls, bits)``
+    filled for ``mask3`` and the causal and validity masks, which the
+    split backward hands to both of its kernels."""
+    sq = q3.shape[1]
+    if not mask3.is_contiguous():
+        raise ValueError("the mask pre-pass needs a contiguous mask3")
+    off = (sk - sq) if causal_off is None else int(causal_off)
+    vq, vk = (sq, sk) if valid is None else (int(valid[0]), int(valid[1]))
+    cls, bits = _mask_scratch(mask3.shape[0], sq, sk, q3.device)
+    err = _build.library().apex_flash_mask_tiles(
+        mask3.data_ptr(), cls.data_ptr(), bits.data_ptr(), mask3.shape[0],
+        sq, sk, sk, int(causal), off, vq, vk, _build.stream_ptr(q3.device))
+    _build.check(err, "the mask pre-pass")
+    return cls, bits
+
+
+def _split_md(kernel, q3, k3, mask3, rate, seed3, causal, causal_off, valid,
+              scratch):
+    """The split kernels' mask and dropout operands ``(ptrs, ints,
+    floats, keep)`` -- ``(cls, bits, seed3)``, ``(mask_hper, threshold)``,
+    ``(1 / (1 - rate),)`` and the tensors they point into, which the
+    caller holds until the launch -- with the pre-pass run first unless
+    the filled ``scratch`` is given."""
+    sk = k3.shape[1]
+    if mask3 is not None and scratch is None:
+        scratch = _mask_tiles(q3, sk, mask3, causal, causal_off, valid)
+    ptrs, ints, floats, keep = _md_operands(kernel, q3, sk, mask3, rate,
+                                            seed3, scratch)
+    return ptrs[1:], (ints[0], ints[2]), floats, keep
 
 
 def _dq_kernel(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
-               valid=None, mask3=None, rate=0.0, seed3=None):
+               valid=None, mask3=None, rate=0.0, seed3=None, scratch=None):
     """The split backward's dq kernel (operands as
     :func:`_dq_reference`'s): ``dq`` bf16, written once, no atomics.
-    With a mask or dropout, its ``_md`` instance."""
+    With a mask or dropout, its ``_md`` instance, after the mask pre-pass
+    unless ``scratch`` holds its filled result (:func:`_mask_tiles`)."""
     name = ("flash_attention_bwd_dq" if mask3 is None and not rate
             else "flash_attention_bwd_dq_md")
     dims = _kernel_args(name, q3, k3, v3, lse, do3, causal, scale,
@@ -472,21 +502,25 @@ def _dq_kernel(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
         err = lib.apex_flash_attention_bwd_dq(
             *ops, dq.data_ptr(), *dims, _build.stream_ptr(q3.device))
     else:
-        ptrs, ints, floats, _keep = _md_operands(name, q3, k3.shape[1],
-                                                 mask3, rate, seed3)
+        ptrs, ints, floats, _keep = _split_md(name, q3, k3, mask3, rate,
+                                              seed3, causal, causal_off,
+                                              valid, scratch)
+        # the persistent blocks' tile counter (zeroed by the C entry)
+        next_tile = torch.empty(1, dtype=torch.int32, device=q3.device)
         _build.count(name)
         err = lib.apex_flash_attention_bwd_dq_md(
-            *ops, *ptrs, dq.data_ptr(), *dims[:8], *ints, *floats,
-            *dims[8:], _build.stream_ptr(q3.device))
+            *ops, *ptrs, next_tile.data_ptr(), dq.data_ptr(), *dims[:8],
+            *ints, *floats, *dims[8:], _build.stream_ptr(q3.device))
     _build.check(err, name)
     return dq
 
 
 def _dkv_kernel(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
-                valid=None, mask3=None, rate=0.0, seed3=None):
+                valid=None, mask3=None, rate=0.0, seed3=None, scratch=None):
     """The split backward's dk/dv kernel (operands as
-    :func:`_dkv_reference`'s): ``(dk, dv)`` bf16.  With a mask or
-    dropout, its ``_md`` instance."""
+    :func:`_dkv_reference`'s): ``(dk, dv)`` bf16, each written once.
+    With a mask or dropout, its ``_md`` instance, after the mask pre-pass
+    unless ``scratch`` holds its filled result (:func:`_mask_tiles`)."""
     name = ("flash_attention_bwd_dkv" if mask3 is None and not rate
             else "flash_attention_bwd_dkv_md")
     dims = _kernel_args(name, q3, k3, v3, lse, do3, causal, scale,
@@ -502,8 +536,9 @@ def _dkv_kernel(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
             *ops, dk.data_ptr(), dv.data_ptr(), *dims,
             _build.stream_ptr(q3.device))
     else:
-        ptrs, ints, floats, _keep = _md_operands(name, q3, k3.shape[1],
-                                                 mask3, rate, seed3)
+        ptrs, ints, floats, _keep = _split_md(name, q3, k3, mask3, rate,
+                                              seed3, causal, causal_off,
+                                              valid, scratch)
         _build.count(name)
         err = lib.apex_flash_attention_bwd_dkv_md(
             *ops, *ptrs, dk.data_ptr(), dv.data_ptr(), *dims[:8], *ints,
@@ -556,8 +591,9 @@ def _bwd(q3, k3, v3, o3, lse, do3, causal: bool, scale: float,
     """Backward over ``[b*h, s, d]`` operands from the forward's output
     and base-2 ``lse``: ``(dq, dk, dv)``, with the forward's ``mask3``
     and dropout (``rate``, ``seed3``).  The one-pass kernel while
-    ``sq * d * 4 <= _FUSED_BWD_MAX_BYTES``, else the split pair; each
-    kernel's plain version for CPU tensors."""
+    ``sq * d * 4 <= _FUSED_BWD_MAX_BYTES``, else the split pair, whose
+    two kernels share one mask pre-pass; each kernel's plain version for
+    CPU tensors."""
     cpu = q3.device.type == "cpu"
     md = dict(mask3=mask3, rate=rate, seed3=seed3)
     if mask3 is not None:
@@ -570,9 +606,12 @@ def _bwd(q3, k3, v3, o3, lse, do3, causal: bool, scale: float,
         raise ValueError(f"out must be {tuple(q3.shape)}")
     args = (q3, k3, v3, lse, _delta(o3, do3), do3, causal, scale,
             causal_off, valid)
-    dq = (_dq_reference if cpu else _dq_kernel)(*args, **md)
-    dk, dv = (_dkv_reference if cpu else _dkv_kernel)(*args, **md)
-    return dq, dk, dv
+    if cpu:
+        return (_dq_reference(*args, **md), *_dkv_reference(*args, **md))
+    if mask3 is not None:
+        md["scratch"] = _mask_tiles(q3, k3.shape[1], mask3, causal,
+                                    causal_off, valid)
+    return (_dq_kernel(*args, **md), *_dkv_kernel(*args, **md))
 
 
 class _FlashAttention(torch.autograd.Function):

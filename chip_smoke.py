@@ -47,7 +47,10 @@
    128]``, the masked forward (#3md) and backward (#4md) at
    BERT-large's ``[16, 16, 512, 64]`` with a padding mask of lengths
    128..512, the split pair (#5md, #6md) at causal ``[1, 32, 8192,
-   128]`` with a per-head mask, each backward held by the flash
+   128]`` with a per-head mask (and the split route's whole time, one
+   mask pre-pass for both, beside the two kernels' called alone) and
+   with dropout alone at ``gpt_train_8k``'s causal ``[1, 16, 8192,
+   128]``, each backward held by the flash
    backward's gate against the exact gradient with the same keep mask
    (two wrong plain backwards, the keep mask transposed and the seed +
    1, must fail it) and each row within 2^-6 of its own max, timed
@@ -141,11 +144,14 @@
    decode wrappers), the fused blocks #8 and #8g for one layer each
    with their phase clocks, the fused GPT-3 1.3B and dense
    Llama-3-8B (8192 positions) decode steps, and the mask and dropout
-   instances at the training paths' shapes (#4d and #4md through each
-   version's own ``_bwd``; #3d, #3md, #4 at 2048 and #6md at 8192 as
-   controls) with the full-depth ``gpt_train`` and ``bert_train``
-   steps (``--ab-rows`` picks among flash, paged, norm, steps, masked,
-   fused and md).
+   instances at the training paths' shapes (#5md, #6md and the split
+   route through each version's own ``_dq_kernel``, ``_dkv_kernel`` and
+   ``_bwd`` at causal ``[1, 32, 8192, 128]`` with a per-head mask and
+   at ``[1, 16, 8192, 128]`` with dropout alone; #3d, #3md, #4d, #4md,
+   #3 and #4 at 2048, #5 and #6 at 8192 as controls) with the
+   full-depth ``gpt_train``, ``bert_train`` and ``gpt_train_8k`` steps
+   (``--ab-rows`` picks among flash, paged, norm, steps, masked, fused
+   and md).
 9. **Shim.**  One backward of the 1-layer model, then
    ``multi_tensor_applier`` with each of its four ops over the model's
    real grad list (11 leaves, bf16 and fp32), one kernel launch a call,
@@ -187,7 +193,8 @@
    flash launches) and ``BertModel`` with a padding mask over the same
    weights (24 masked launches), each held against the same forward
    through the plain versions.
-13. **BERT and GPT training** (``bert_train``, ``gpt_train``; after
+13. **BERT and GPT training** (``bert_train``, ``gpt_train``,
+   ``gpt_train_8k``; after
    BERT).  BERT-large pretraining as ``examples/bert/pretrain_bert.py``
    runs it (``BertConfig()``, no NSP head, ``fused_lamb(lr=1e-4,
    weight_decay=0.01, max_grad_norm=1.0)``) on one padded MLM batch of
@@ -202,7 +209,11 @@
    attention version may run, the tail of the step runs under
    ``set_sync_debug_mode("error")``, and the loss must fall.  Prints
    step time, tokens/s (BERT: sequences/s), the model-flops share and
-   peak memory.
+   peak memory.  ``gpt_train_8k``: the same GPT-3 1.3B run with its
+   context raised to 8192 on 1 x 8192 causal tokens, whose backward
+   takes the split pair: each step must launch the forward's dropout
+   instance and the split pair's dropout instances (#5md, #6md) once a
+   layer and no other flash kernel.
 
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed phase raises, so the
@@ -404,17 +415,31 @@ DENSE_MAX_SEQ = 8192
 LM_DROPOUT = 0.1
 BERT_TRAIN_BATCH, BERT_TRAIN_SEQ, BERT_MIN_LEN = 16, 512, 128
 GPT_TRAIN_BATCH, GPT_TRAIN_SEQ = 4, 2048
+#: GPT-3 1.3B's long-context training (gpt_train_8k): its widths and
+#: depth with the context alone raised to 8192 (the published context is
+#: 2048), one sequence of 8192 causal tokens a step; past the 2 MiB gate
+#: its backward runs the split pair
+GPT8K_TRAIN_BATCH, GPT8K_TRAIN_SEQ = 1, 8192
 LM_TRAIN_STEPS = 6
 #: the flash instances each run launches once a layer and step (and no
 #: other flash kernel): the masked forward with dropout and the masked
 #: one-pass backward (BERT), the forward and one-pass backward with
-#: dropout (GPT); the split pair's mask/dropout instances run in the
-#: kernels phase only (past the 2 MiB gate)
+#: dropout (GPT), the forward with dropout and the split pair's dropout
+#: instances (GPT at 8192)
 BERT_TRAIN_KERNELS = ("flash_attention_masked_drop",
                       "flash_attention_bwd_masked")
 GPT_TRAIN_KERNELS = ("flash_attention_drop", "flash_attention_bwd_drop")
+GPT8K_TRAIN_KERNELS = ("flash_attention_drop", "flash_attention_bwd_dq_md",
+                       "flash_attention_bwd_dkv_md")
 MD_KERNELS = BERT_TRAIN_KERNELS + GPT_TRAIN_KERNELS + (
     "flash_attention_bwd_dq_md", "flash_attention_bwd_dkv_md")
+#: the training phases with dropout: (phase, its kernels, batch, tokens)
+LM_RUNS = {"bert": ("bert_train", BERT_TRAIN_KERNELS, BERT_TRAIN_BATCH,
+                    BERT_TRAIN_SEQ),
+           "gpt": ("gpt_train", GPT_TRAIN_KERNELS, GPT_TRAIN_BATCH,
+                   GPT_TRAIN_SEQ),
+           "gpt8k": ("gpt_train_8k", GPT8K_TRAIN_KERNELS, GPT8K_TRAIN_BATCH,
+                     GPT8K_TRAIN_SEQ)}
 #: decode-vs-full-forward logit limit for the serve check: bf16
 #: activations rounded at every op of 32 layers, along two different
 #: kernel/matmul paths (paged decode vs causal flash prefill); the
@@ -1403,6 +1428,7 @@ def _md_rows(dev, gen, recs):
         del q3, k3, v3, do3, q4, k4, v4, do4, out, lse, mask3
         torch.cuda.empty_cache()
     _md_split_rows(dev, gen, recs, seed3)
+    _md_split_gpt8k(dev, gen, recs, seed3)
     _keep_patterns(dev, seed3)
     torch.cuda.empty_cache()
 
@@ -1524,7 +1550,106 @@ def _md_split_rows(dev, gen, recs, seed3):
                                   bh0=sl.start), bh, step), 1),
             bound_ms=bound, bound_by=by, library_ms=lib_fb - lib_f,
             nodrop_ms=nodrop, eager_ms=_eager_ms(lambda: fn(*args, **md), 2))
+    # the route runs the mask pre-pass once for both kernels
+    route = _time_ms(lambda: attn._bwd(q3, k3, v3, out, lse, do3, True,
+                                       scale, **md), 4)
+    alone = sum(recs[n]["ms"] for n in ("flash_attention_bwd_dq_md",
+                                        "flash_attention_bwd_dkv_md"))
+    print(f"  the split route (_bwd: delta, one pre-pass, both kernels) "
+          f"{route:.4f} ms; the two kernels called alone, each with its "
+          f"pre-pass, {alone:.4f} ms")
+    recs["flash_attention_bwd_dkv_md"]["route_ms"] = route
     del q3, k3, v3, do3, q4, k4, v4, do4, out, lse, delta, got, args, mask3
+    torch.cuda.empty_cache()
+
+
+def _md_split_gpt8k(dev, gen, recs, seed3):
+    """The split pair's dropout instances at ``gpt_train_8k``'s shape,
+    causal [1, 16, 8192, 128] with dropout 0.1 and no mask: the route
+    (one launch of each), the outputs against the plain halves 4 heads at
+    a time and the exact gradient 2 at a time, two runs bit for bit, and
+    each kernel's time beside its bound and SDPA's backward with
+    ``dropout_p`` (kept in the kernel's record as ``gpt8k_*``)."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    from apex_tpu_torch.ops import _build
+    bf = torch.bfloat16
+    rate = LM_DROPOUT
+    bh = GPT_CFG["num_attention_heads"]
+    s, d = GPT8K_TRAIN_SEQ, GPT_CFG["hidden_size"] // bh
+    q3, k3, v3, do3 = (torch.randn(bh, s, d, generator=gen, device=dev)
+                       .to(bf) for _ in range(4))
+    scale = d ** -0.5
+    md = dict(rate=rate, seed3=seed3)
+    out, lse = attn._fwd(q3, k3, v3, True, scale, **md)
+    delta = attn._delta(out, do3)
+    args = (q3, k3, v3, lse, delta, do3, True, scale)
+    before = _build.launch_counts()
+    got = attn._bwd(q3, k3, v3, out, lse, do3, True, scale, **md)
+    counts = {k_: v_ - before[k_] for k_, v_ in _build.launch_counts().items()
+              if v_ != before[k_]}
+    if counts != {"flash_attention_bwd_dq_md": 1,
+                  "flash_attention_bwd_dkv_md": 1}:
+        raise AssertionError(f"the gpt_train_8k backward did not take the "
+                             f"split md route: {counts}")
+
+    def plain(sl):
+        part = tuple(t[sl] for t in args[:6]) + args[6:]
+        kw = dict(rate=rate, seed3=seed3, bh0=sl.start)
+        return (attn._dq_reference(*part, **kw),
+                *attn._dkv_reference(*part, **kw))
+
+    ref = _by_heads(plain, bh, 4)
+    exact = _by_heads(lambda sl: _exact_md(
+        q3[sl], k3[sl], v3[sl], do3[sl], True, scale, None, rate, seed3,
+        sl.start), bh, 2)
+    print(f"flash_attention backward, split route with dropout {rate}, "
+          f"causal [1, {bh}, {s}, {d}] bf16 (gpt_train_8k's)")
+    _check_md_bwd("flash bwd split d", got, ref, exact)
+    errs = [(g_.float() - r_.float()).abs().max().item()
+            for g_, r_ in zip(got, ref)]
+    del ref, exact
+    again = attn._bwd(q3, k3, v3, out, lse, do3, True, scale, **md)
+    same = [torch.equal(a_, b2) for a_, b2 in zip(got, again)]
+    print(f"  a second run of the split d route: dq, dk, dv bit-identical "
+          f"{same}")
+    if not all(same):
+        raise AssertionError("the split d backward differs from run to run")
+    del again, got
+    q4, k4, v4, do4 = (t[None] for t in (q3, k3, v3, do3))
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+    sdpa = dict(is_causal=True, dropout_p=rate)
+    lib_fb = _time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qr, kr, vr, **sdpa), (qr, kr, vr),
+        do4), 2)
+    lib_f = _time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, **sdpa), 2)
+    del qr, kr, vr
+    product = s * s * d * bh
+    elem = q3.numel() * 2
+    stats = 2 * bh * s * 4
+    elements = bh * s * (s + 1) // 2          # causal: each hashed once
+    for name, fn, products, outs, err in (
+            ("flash_attention_bwd_dq_md", attn._dq_kernel, 3, 1, errs[0]),
+            ("flash_attention_bwd_dkv_md", attn._dkv_kernel, 4, 2,
+             max(errs[1:]))):
+        ms = _time_ms(lambda: fn(*args, **md), 4)
+        bound, by, terms = _md_bound(4 * elem + stats + outs * elem + 12,
+                                     products * product, elements)
+        print(f"  #{'5' if outs == 1 else '6'}md {name} (dropout alone) on "
+              f"{_smi()}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+              f"{_terms(terms)}), {100 * bound / ms:.1f}% of the bound; "
+              f"SDPA backward (fwd+bwd - fwd, dropout_p {rate}) "
+              f"{lib_fb - lib_f:.4f} ms")
+        recs[name].update(gpt8k_ms=ms, gpt8k_bound_ms=bound,
+                          gpt8k_library_ms=lib_fb - lib_f,
+                          gpt8k_max_abs_err=err)
+    route = _time_ms(lambda: attn._bwd(q3, k3, v3, out, lse, do3, True,
+                                       scale, **md), 4)
+    pair = sum(recs[n]["gpt8k_ms"] for n in ("flash_attention_bwd_dq_md",
+                                             "flash_attention_bwd_dkv_md"))
+    print(f"  the split route (_bwd) {route:.4f} ms; the two kernels "
+          f"{pair:.4f} ms")
+    del q3, k3, v3, do3, q4, k4, v4, do4, out, lse, delta, args
     torch.cuda.empty_cache()
 
 
@@ -2916,9 +3041,10 @@ def phase_bert(dev, seed: int):
 def _lm_model(kind: str, dev, seed: int, layers=None):
     """BERT-large (``BertConfig()``, no NSP head, as
     ``examples/bert/pretrain_bert.py`` builds it) or GPT-3 1.3B
-    (``GPT_CFG``), bf16 parameters drawn by the modules' own initializers
-    from ``seed``, dropout ``LM_DROPOUT`` on hidden activations and on
-    attention probabilities; ``layers`` cuts the depth."""
+    (``GPT_CFG``; ``"gpt8k"``: its context raised to 8192), bf16
+    parameters drawn by the modules' own initializers from ``seed``,
+    dropout ``LM_DROPOUT`` on hidden activations and on attention
+    probabilities; ``layers`` cuts the depth."""
     from apex_tpu_torch.models import (BertConfig, GPTConfig,
                                        bert_model_provider,
                                        gpt_model_provider)
@@ -2931,6 +3057,8 @@ def _lm_model(kind: str, dev, seed: int, layers=None):
         cfg = BertConfig(**kw)
         return cfg, bert_model_provider(cfg, add_binary_head=False,
                                         device=dev)
+    if kind == "gpt8k":
+        kw["max_seq_length"] = GPT8K_TRAIN_SEQ
     cfg = GPTConfig(**dict(GPT_CFG, **kw))
     return cfg, gpt_model_provider(cfg, device=dev)
 
@@ -2943,12 +3071,13 @@ def _lm_batch(kind: str, cfg, dev, seed: int) -> dict:
     13) % vocab``, weighted by ``loss_mask``), with per-sequence lengths
     ``BERT_MIN_LEN``..``BERT_TRAIN_SEQ`` (the rest padding, id 0, out of
     the padding ``attention_mask``) and token types 0 then 1 from each
-    sequence's middle.  GPT: ``GPT_TRAIN_BATCH`` x ``GPT_TRAIN_SEQ``
-    tokens and their successors."""
+    sequence's middle.  GPT: ``LM_RUNS[kind]``'s batch of sequences and
+    their successors (4 x 2048 tokens; ``"gpt8k"`` 1 x 8192)."""
     rng = np.random.RandomState(seed)
     v = cfg.vocab_size
-    if kind == "gpt":
-        toks = rng.randint(0, v, size=(GPT_TRAIN_BATCH, GPT_TRAIN_SEQ + 1))
+    if kind != "bert":
+        _, _, b, s = LM_RUNS[kind]
+        toks = rng.randint(0, v, size=(b, s + 1))
         toks = torch.from_numpy(toks.astype(np.int64)).to(dev)
         return {"tokens": toks[:, :-1].contiguous(),
                 "labels": toks[:, 1:].contiguous()}
@@ -3015,15 +3144,16 @@ def _plain_attention_refused():
 
 def phase_lm_train(dev, seed: int, kind: str):
     """BERT-large pretraining (``kind="bert"``: LAMB, ``LAMB_KW``) or
-    GPT-3 1.3B training (``"gpt"``: Adam, ``TRAIN_LR``) at full width and
-    depth through ``make_train_step`` with dynamic loss scaling and
-    dropout 0.1, ``LM_TRAIN_STEPS`` steps on one fixed batch
-    (:func:`_lm_batch`), each step with a generator of its own seed in the
-    batch.  Each step must launch the forward's dropout instance and the
-    backward's mask or dropout instance once a layer and no other flash
-    kernel, no plain attention version may run, and the segment from the
-    backward's flat grads to the new state runs under
-    ``set_sync_debug_mode("error")``.  The loss must fall and stay
+    GPT-3 1.3B training (``"gpt"``: Adam, ``TRAIN_LR``; ``"gpt8k"``: the
+    same at 1 x 8192 tokens, ``gpt_train_8k``) at full width and depth
+    through ``make_train_step`` with dynamic loss scaling and dropout 0.1,
+    ``LM_TRAIN_STEPS`` steps on one fixed batch (:func:`_lm_batch`), each
+    step with a generator of its own seed in the batch.  Each step must
+    launch the forward's dropout instance and the backward's mask or
+    dropout instance (at 8192 tokens the split pair's two) once a layer
+    and no other flash kernel, no plain attention version may run, and
+    the segment from the backward's flat grads to the new state runs
+    under ``set_sync_debug_mode("error")``.  The loss must fall and stay
     finite.  Prints step time (median of steps 2 on), tokens/s (BERT:
     sequences/s too), the model-flops share and peak memory."""
     from apex_tpu_torch import train_step
@@ -3040,8 +3170,11 @@ def phase_lm_train(dev, seed: int, kind: str):
     n = state.opt.master.numel()
     b, s = batch["tokens"].shape
     layers = cfg.num_layers
-    label = ("BERT-large pretraining" if bert else "GPT-3 1.3B training")
-    print(f"{kind}_train: {label}, {layers} layers, hidden "
+    phase, kernels, _, _ = LM_RUNS[kind]
+    label = ("BERT-large pretraining" if bert else "GPT-3 1.3B training"
+             if kind == "gpt" else "GPT-3 1.3B long-context training "
+             f"(context {cfg.max_seq_length})")
+    print(f"{phase}: {label}, {layers} layers, hidden "
           f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, vocab "
           f"{cfg.vocab_size}, [{b}, {s}] tokens a step"
           + (f" (lengths {sorted(batch['lengths'].tolist())})" if bert
@@ -3056,8 +3189,7 @@ def phase_lm_train(dev, seed: int, kind: str):
 
     step = train_step.make_train_step(_bert_loss if bert else _gpt_loss, tx,
                                       grad_transform=strict)
-    want = dict.fromkeys(BERT_TRAIN_KERNELS if bert else GPT_TRAIN_KERNELS,
-                         layers)
+    want = dict.fromkeys(kernels, layers)
     losses, times, off = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3091,7 +3223,7 @@ def phase_lm_train(dev, seed: int, kind: str):
                  and "tokentype" not in name)
     attn_flops = 4 * s * s * hd * heads * b * (1 if bert else 0.5)
     model_flops = 6 * matmul * tokens + 3 * attn_flops * layers
-    print(f"{kind}_train on {_smi()}: losses {[round(x, 4) for x in losses]}")
+    print(f"{phase} on {_smi()}: losses {[round(x, 4) for x in losses]}")
     print(f"  step times {[round(t, 4) for t in times]} s; median of steps "
           f"2-{LM_TRAIN_STEPS} {step_s:.4f} s = {tokens / step_s:.1f} "
           f"tokens/s" + (f", {b / step_s:.2f} sequences/s" if bert else ""))
@@ -3103,13 +3235,12 @@ def phase_lm_train(dev, seed: int, kind: str):
     print(f"  loss scale {state.scaler.loss_scale.item()}, count "
           f"{state.opt.count.item()}")
     if off:
-        raise AssertionError(f"{kind}_train: the flash launches of a step "
+        raise AssertionError(f"{phase}: the flash launches of a step "
                              f"are not {want}: {off}")
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"{kind}_train: non-finite loss: {losses}")
+        raise AssertionError(f"{phase}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"{kind}_train: the loss did not fall: "
-                             f"{losses}")
+        raise AssertionError(f"{phase}: the loss did not fall: {losses}")
     del model, state, step, batch
     torch.cuda.empty_cache()
     return dict(launches=launches, step_s=step_s, peak_bytes=peak,
@@ -4212,7 +4343,7 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
     baseline's own wrappers stand in for this tree's where their C
     entries differ (paged decode, the norm backward, the masked forward
     and the decode branch) and for the flash backward's (``_bwd``,
-    ``_dkv_kernel``)."""
+    ``_dq_kernel``, ``_dkv_kernel``)."""
     from apex_tpu_torch.ops import _build
     attn = importlib.import_module("apex_tpu_torch.ops.attention")
     pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
@@ -4227,7 +4358,7 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
         (mod, name, getattr(base_attn, name))
         for mod, name in ((attn, "_fwd"), (attn, "decode_attention"),
                           (models, "decode_attention"), (attn, "_bwd"),
-                          (attn, "_dkv_kernel"))
+                          (attn, "_dq_kernel"), (attn, "_dkv_kernel"))
         if hasattr(base_attn, name))
     base_build = _baseline_module(baseline, "_build")
     versions = {
@@ -4344,19 +4475,23 @@ def _rel_l2(got, ref) -> float:
 
 def _ab_md(dev, seed: int, gen, versions):
     """The mask and dropout instances' A/B at the training paths' shapes
-    (:func:`_md_shapes`, rate 0.1): the subjects #3d and #3md (the
+    (:func:`_md_shapes`, rate 0.1): the controls #3d and #3md (the
     forward with dropout, each version through its own ``_fwd``, the
-    pre-pass included) and the controls #4d and #4md (the one-pass
-    backward, each version through its own ``_bwd``: delta, dq scratch,
-    pre-pass, kernel, cast) and, at BERT's shape, #3m (the masked forward
-    without dropout), each version held against the plain version (the
-    forward's rows within 2^-6 of their max and lse within 1e-3; the
-    backward's outputs within the flash backward's relative L2 and each
-    row within 2^-6 of its max) and against the other version; then the
-    controls #3 and #4 at causal [1, 32, 2048, 128] and #6md at causal
-    [1, 32, 8192, 128] with a per-head mask and dropout (B's first four
-    heads against the plain version); then the ``gpt_train`` and
-    ``bert_train`` steps at full depth (:func:`_ab_lm_steps`)."""
+    pre-pass included), #4d and #4md (the one-pass backward, each version
+    through its own ``_bwd``: delta, dq scratch, pre-pass, kernel, cast)
+    and, at BERT's shape, #3m (the masked forward without dropout), each
+    version held against the plain version (the forward's rows within
+    2^-6 of their max and lse within 1e-3; the backward's outputs within
+    the flash backward's relative L2 and each row within 2^-6 of its max)
+    and against the other version; then the controls #3 and #4 at causal
+    [1, 32, 2048, 128] and #5 and #6 at causal [1, 32, 8192, 128]; the
+    subjects #5md and #6md (each version's own ``_dq_kernel`` and
+    ``_dkv_kernel``, each with its pre-pass) and the split route (its own
+    ``_bwd``) at causal [1, 32, 8192, 128] with a per-head mask and
+    dropout and at ``gpt_train_8k``'s causal [1, 16, 8192, 128] with
+    dropout (B's first four heads against the plain version); then the
+    ``gpt_train``, ``bert_train`` and ``gpt_train_8k`` steps at full depth
+    (:func:`_ab_lm_steps`)."""
     attn = importlib.import_module("apex_tpu_torch.ops.attention")
     rate = LM_DROPOUT
     seed3 = attn._seed_operand(-2 ** 31 + 12345, device=dev)
@@ -4432,28 +4567,35 @@ def _ab_md(dev, seed: int, gen, versions):
             del ref_m
         torch.cuda.empty_cache()
     bf = torch.bfloat16
-    # the unchanged controls: #3 and #4 (no mask, no dropout) and #6md
-    for label, bh, s, masked in (("#4", 32, TRAIN_SEQ, False),
-                                 ("#6md", 32, SPLIT_SEQ, True)):
+    # the controls #3 and #4 at causal [1, 32, 2048, 128], #5 and #6 at
+    # causal [1, 32, 8192, 128] (no mask, no dropout); the subjects #5md,
+    # #6md (each kernel called alone: its own pre-pass) and the split
+    # route (_bwd: delta, one pre-pass, both kernels) at the kernels
+    # phase's shape (a per-head mask, dropout) and at gpt_train_8k's
+    # (causal [1, 16, 8192, 128], dropout)
+    for tag, bh, s, masked, dropped in (
+            ("#4", 32, TRAIN_SEQ, False, False),
+            ("#5, #6", 32, SPLIT_SEQ, False, False),
+            ("md", 32, SPLIT_SEQ, True, True),
+            ("d", GPT_CFG["num_attention_heads"], GPT8K_TRAIN_SEQ, False,
+             True)):
         d = 128
         scale = d ** -0.5
         q3, k3, v3, do3 = (torch.randn(bh, s, d, generator=gen, device=dev)
                            .to(bf) for _ in range(4))
-        md = {}
+        mask3, md = None, {}
         if masked:
             mask3 = torch.rand(bh, s, s, generator=gen, device=dev) < 0.1
             mask3[:, 5] = True
+        if dropped:
             md = dict(mask3=mask3, rate=rate, seed3=seed3)
         out, lse = attn._fwd(q3, k3, v3, True, scale, **md)
         delta = attn._delta(out, do3)
-        if masked:
-            def call():
-                return attn._dkv_kernel(q3, k3, v3, lse, delta, do3, True,
-                                        scale, **md)
-        else:
-            def call():
-                return attn._bwd(q3, k3, v3, out, lse, do3, True, scale)
-
+        args = (q3, k3, v3, lse, delta, do3, True, scale)
+        shape = (f"causal [1, {bh}, {s}, {d}]"
+                 + (", a per-head mask" if masked else "")
+                 + (f", dropout {rate}" if dropped else ""))
+        if tag == "#4":
             def fwd():
                 return attn._fwd(q3, k3, v3, True, scale)
 
@@ -4464,54 +4606,70 @@ def _ab_md(dev, seed: int, gen, versions):
             torch.cuda.synchronize()
             err = [(got["A"][0].float() - got["B"][0].float()).abs().max()
                    .item(), (got["A"][1] - got["B"][1]).abs().max().item()]
-            print(f"  #3 causal [1, {bh}, {s}, {d}]: B against A max|diff| "
-                  f"out {err[0]:.3e}, lse {err[1]:.3e}")
+            print(f"  #3 {shape}: B against A max|diff| out {err[0]:.3e}, "
+                  f"lse {err[1]:.3e}")
             if err[0] > TOL_ATTN_OUT or err[1] > TOL_ATTN_LSE:
                 raise AssertionError("ab: #3 differs between the versions")
             mean, each = _ab(versions, lambda: _time_ms(fwd, 10))
-            print(f"  #3 causal [1, {bh}, {s}, {d}]: A {mean['A']:.4f} ms, "
-                  f"B {mean['B']:.4f} ms (turns A B B A: {_turns(each)})")
-        got = {}
-        for turn in "AB":
-            with _as_version(versions[turn]):
-                got[turn] = call()
-        torch.cuda.synchronize()
-        ab = [_rel_l2(b_, a_) for a_, b_ in zip(got["A"], got["B"])]
-        same = [torch.equal(a_, b_) for a_, b_ in zip(got["A"], got["B"])]
-        detail = ""
-        if masked:
-            sl = slice(0, 4)
-            ref = attn._dkv_reference(
-                q3[sl], k3[sl], v3[sl], lse[sl], delta[sl], do3[sl], True,
-                scale, mask3=mask3[sl], rate=rate, seed3=seed3)
-            plain = [_rel_l2(g_[sl], r_) for g_, r_ in zip(got["B"], ref)]
-            detail = (f"; B's first 4 heads against the plain version "
-                      f"{[f'{r:.3e}' for r in plain]}")
-            ab += plain
-            del ref
-        print(f"  {label} causal [1, {bh}, {s}, {d}]: B against A relative "
-              f"L2 {[f'{r:.3e}' for r in ab]}, bit-identical {same}{detail}")
-        if max(ab) > TOL_FLASH_BWD_REL_L2:
-            raise AssertionError(f"ab: {label} differs between the versions")
-        del got
-        mean, each = _ab(versions, lambda: _time_ms(
-            call, 10 if s == TRAIN_SEQ else 4))
-        print(f"  {label} causal [1, {bh}, {s}, {d}]: A {mean['A']:.4f} ms, "
-              f"B {mean['B']:.4f} ms (turns A B B A: {_turns(each)})")
-        del q3, k3, v3, do3, out, lse, delta, md, call
-        if masked:
-            del mask3
+            print(f"  #3 {shape}: A {mean['A']:.4f} ms, B {mean['B']:.4f} "
+                  f"ms (turns A B B A: {_turns(each)})")
+            calls = (("#4", lambda: attn._bwd(q3, k3, v3, out, lse, do3,
+                                              True, scale)),)
+        elif tag == "#5, #6":
+            calls = (("#5", lambda: (attn._dq_kernel(*args),)),
+                     ("#6", lambda: attn._dkv_kernel(*args)))
+        else:
+            calls = (("#5" + tag, lambda: (attn._dq_kernel(*args, **md),)),
+                     ("#6" + tag, lambda: attn._dkv_kernel(*args, **md)),
+                     ("the split route " + tag, lambda: attn._bwd(
+                         q3, k3, v3, out, lse, do3, True, scale, **md)))
+        for row, call in calls:
+            got = {}
+            for turn in "AB":
+                with _as_version(versions[turn]):
+                    got[turn] = call()
+            torch.cuda.synchronize()
+            ab = [_rel_l2(b_, a_) for a_, b_ in zip(got["A"], got["B"])]
+            same = [torch.equal(a_, b_) for a_, b_ in zip(got["A"], got["B"])]
+            detail = ""
+            if dropped:
+                sl = slice(0, 4)
+                part = tuple(t[sl] for t in args[:6]) + args[6:]
+                kw = dict(mask3=None if mask3 is None else mask3[sl],
+                          rate=rate, seed3=seed3)
+                ref = ()
+                if not row.startswith("#6"):
+                    ref += (attn._dq_reference(*part, **kw),)
+                if not row.startswith("#5"):
+                    ref += attn._dkv_reference(*part, **kw)
+                plain = [_rel_l2(g_[sl], r_) for g_, r_ in zip(got["B"], ref)]
+                detail = (f"; B's first 4 heads against the plain version "
+                          f"{[f'{r:.3e}' for r in plain]}")
+                ab += plain
+                del ref
+            print(f"  {row} {shape}: B against A relative L2 "
+                  f"{[f'{r:.3e}' for r in ab[:len(same)]]}, bit-identical "
+                  f"{same}{detail}")
+            if max(ab) > TOL_FLASH_BWD_REL_L2:
+                raise AssertionError(f"ab: {row} differs between the "
+                                     f"versions or from its plain version")
+            del got
+            mean, each = _ab(versions, lambda: _time_ms(
+                call, 10 if s == TRAIN_SEQ else 4))
+            print(f"  {row} {shape}: A {mean['A']:.4f} ms, B "
+                  f"{mean['B']:.4f} ms (turns A B B A: {_turns(each)})")
+        del q3, k3, v3, do3, out, lse, delta, md, calls, args, mask3
         torch.cuda.empty_cache()
-    for kind in ("gpt", "bert"):
+    for kind in ("gpt", "bert", "gpt8k"):
         _ab_lm_steps(dev, seed, kind, versions)
 
 
 def _ab_lm_steps(dev, seed: int, kind: str, versions):
-    """The ``gpt_train`` / ``bert_train`` step (full depth, dropout 0.1,
-    the phase's batch and optimizer) under each version: each version's
-    step must launch the phase's two flash instances once a layer and no
-    other flash kernel; then eight turns A B B A A B B A of three steps,
-    each turn's median."""
+    """The ``gpt_train`` / ``bert_train`` / ``gpt_train_8k`` step (full
+    depth, dropout 0.1, the phase's batch and optimizer) under each
+    version: each version's step must launch the phase's flash instances
+    once a layer and no other flash kernel; then eight turns A B B A A B
+    B A of three steps, each turn's median."""
     from apex_tpu_torch import train_step
     from apex_tpu_torch.ops import _build
     from apex_tpu_torch.optimizers import functional
@@ -4524,8 +4682,8 @@ def _ab_lm_steps(dev, seed: int, kind: str, versions):
                                                 loss_scale="dynamic"),
            "i": 0}
     step = train_step.make_train_step(_bert_loss if bert else _gpt_loss, tx)
-    want = dict.fromkeys(BERT_TRAIN_KERNELS if bert else GPT_TRAIN_KERNELS,
-                         cfg.num_layers)
+    phase, kernels, _, _ = LM_RUNS[kind]
+    want = dict.fromkeys(kernels, cfg.num_layers)
 
     def one():
         gen = torch.Generator(device=dev)
@@ -4541,10 +4699,10 @@ def _ab_lm_steps(dev, seed: int, kind: str, versions):
             flash = {k: v - before[k]
                      for k, v in _build.launch_counts().items()
                      if k.startswith("flash_attention") and v != before[k]}
-        print(f"  {kind}_train step ({turn}): loss {loss:.4f}, flash "
+        print(f"  {phase} step ({turn}): loss {loss:.4f}, flash "
               f"launches {flash}")
         if flash != want or not np.isfinite(loss):
-            raise AssertionError(f"ab: the {kind}_train step ({turn}) "
+            raise AssertionError(f"ab: the {phase} step ({turn}) "
                                  f"launched {flash}, loss {loss}")
 
     def steps():
@@ -4558,7 +4716,7 @@ def _ab_lm_steps(dev, seed: int, kind: str, versions):
         return float(np.median(times))
 
     mean, each = _ab(versions, steps, "ABBAABBA")
-    print(f"  {kind}_train step, {cfg.num_layers} layers: A {mean['A']:.4f} "
+    print(f"  {phase} step, {cfg.num_layers} layers: A {mean['A']:.4f} "
           f"s, B {mean['B']:.4f} s (turns A B B A A B B A, medians of 3 "
           f"steps: A {[round(x, 5) for x in each['A']]}, B "
           f"{[round(x, 5) for x in each['B']]})")
@@ -5030,11 +5188,13 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="kernels,serve,gpt,bert,bert_train,gpt_train,"
-                            "profile,train,optim,train-check,shim",
+                            "gpt_train_8k,profile,train,optim,train-check,"
+                            "shim",
                     help="comma list of kernels, serve, gpt, bert, "
-                         "bert_train, gpt_train, profile, train, optim, "
-                         "train-check, shim, ab (build always runs; profile "
-                         "profiles the serve and the train phases that run)")
+                         "bert_train, gpt_train, gpt_train_8k, profile, "
+                         "train, optim, train-check, shim, ab (build always "
+                         "runs; profile profiles the serve and the train "
+                         "phases that run)")
     ap.add_argument("--baseline", type=Path, default=None,
                     help="root of a checkout of another version: with the "
                          "ab phase, time its kernels and this tree's, A/B "
@@ -5073,8 +5233,8 @@ def main(argv=None) -> int:
         del gpt
     if "bert" in phases:
         phase_bert(dev, args.seed)
-    for kind in ("bert", "gpt"):
-        if f"{kind}_train" in phases:
+    for kind, (phase, *_) in LM_RUNS.items():
+        if phase in phases:
             run = phase_lm_train(dev, args.seed, kind)
             for key in MD_KERNELS:
                 if key in recs:

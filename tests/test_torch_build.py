@@ -93,11 +93,12 @@ def test_md_one_pass_takes_the_warp_specialized_kernel(csrc_copy):
     """The one-pass backward's mask and dropout instances launch the
     warp-specialized kernel (a copying warpgroup on TMA, an mbarrier
     ring, no block-wide barrier in the loop), which the library's name
-    hashes; the split dk/dv instances keep the key-major template."""
+    hashes; so do the split dk/dv instances (its dk/dv mode)."""
     md = _code((CSRC / "flash_attention_bwd_md.cu").read_text())
     assert '#include "flash_kmajor_ws.cuh"' in md
     assert "launch_one_pass_ws<D, MASK, DROP>" in md
-    assert "launch_bwd<D, false, MASK, DROP>" in md
+    assert "launch_dkv_ws<D, MASK, DROP>" in md
+    assert "launch_bwd<" not in md
     assert "launch_one_pass<" not in md
     ws = _code((CSRC / "flash_kmajor_ws.cuh").read_text())
     for piece in ("tma_load(", "mbar_wait(", "reg_dealloc<", "reg_alloc<",
@@ -116,7 +117,7 @@ def _function(code: str, name: str) -> str:
     """The body of the C++ function ``name`` in ``code`` (from its name to
     its closing brace at column 0)."""
     i = code.index(f" {name}(")
-    return code[i:code.index("\n}\n", i)]
+    return code[i:(code + "\n").index("\n}\n", i)]
 
 
 def test_md_forward_takes_the_persistent_warp_specialized_kernel(csrc_copy):
@@ -124,21 +125,20 @@ def test_md_forward_takes_the_persistent_warp_specialized_kernel(csrc_copy):
     persistent kernel of ``flash_qmajor_ws.cuh`` (a copying thread on TMA,
     an mbarrier ring, the product warpgroups taking turns, O out by TMA
     stores, no block-wide barrier past the prologue), which the library's
-    name hashes; the split dq kernel's mask and dropout instances (#5md)
-    and the forward's without dropout (#3, #3m) keep the query-major
-    template."""
+    name hashes; the forward's without dropout (#3, #3m) keep the
+    query-major template.  The split dq kernel's mask and dropout
+    instances (#5md) are the persistent kernel's dq mode
+    (:func:`test_md_dq_takes_the_persistent_kernel`)."""
     md = _code((CSRC / "flash_attention_md.cu").read_text())
     assert '#include "flash_qmajor_ws.cuh"' in md
     fwd = _function(md, "fwd_drop")
-    assert "launch_fwd_ws<D, MASK>" in fwd
+    assert "launch_qm_ws<D, MASK, false, true>" in fwd
     assert "launch_qmajor<" not in fwd
-    assert "launch_qmajor<D, true, kDqBK, MASK, DROP>" in _function(md,
-                                                                    "dq_md")
     plain = _code((CSRC / "flash_attention.cu").read_text())
     assert re.search(r"launch_qmajor<D, false, ", plain)
-    assert "launch_fwd_ws" not in plain
+    assert "launch_qm_ws" not in plain
     ws = _code((CSRC / "flash_qmajor_ws.cuh").read_text())
-    assert "flash_fwd_ws_kernel<D, MASK><<<" in ws
+    assert "flash_fwd_ws_kernel<D, MASK, DQ, DROP>\n      <<<" in ws
     for piece in ("tma_load(", "tma_store(", "mbar_wait(", "reg_dealloc<",
                   "reg_alloc<", "bar_sync(kFwTurn + wg", "bar_arrive(kFwTurn",
                   "drop_mix(", "fold16("):
@@ -179,3 +179,95 @@ def test_paged_source_runs_its_products_on_the_tensor_cores():
     code = _paged_code()
     assert "mma.sync.aligned.m16n8k16" in code
     assert "cp.async.bulk.tensor" in code and "cp.async.cg" not in code
+
+
+def test_md_dkv_takes_the_warp_specialized_key_major_kernel():
+    """``apex_flash_attention_bwd_dkv_md`` (#6md) reaches the
+    warp-specialized key-major kernel in its dk/dv mode: the pre-pass's
+    bits by a bulk copy (no mask byte is read), the folded keep hash,
+    ``setmaxnreg``, no block barrier in the loop, and an ordered grid,
+    the longest key blocks first."""
+    md = _code((CSRC / "flash_attention_bwd_md.cu").read_text())
+    entry = _function(md, "apex_flash_attention_bwd_dkv_md")
+    assert "entry<false>(" in entry
+    bwd = _function(md, "bwd_md")
+    assert "launch_dkv_ws<D, MASK, DROP>(" in bwd
+    ws = _code((CSRC / "flash_kmajor_ws.cuh").read_text())
+    launch = _function(ws, "launch_dkv_ws")
+    assert "flash_bwd_ws_kernel<D, false, MASK, DROP>" in launch
+    assert "group" in launch and "kL2Half" in launch
+    kernel = ws[ws.index("flash_bwd_ws_kernel(const"):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    for piece in ("bulk_load(", "fold16(", "drop_keep_folded(",
+                  "reg_dealloc<", "reg_alloc<", "kb = r / gsize"):
+        assert piece in kernel, piece
+    assert not re.search(r"md\.mask\b", ws) and "mask_ld" not in ws
+    loop = kernel[kernel.index("reg_alloc<kWsRegs>();"):]
+    assert "__syncthreads" not in loop and "cp_async16z" not in loop
+
+
+def test_md_dq_takes_the_persistent_kernel():
+    """``apex_flash_attention_bwd_dq_md`` (#5md) reaches the persistent
+    query-major kernel's dq mode: the scheduling and loading warps, the
+    turns, the hash under the S product, dq out by TMA stores."""
+    md = _code((CSRC / "flash_attention_md.cu").read_text())
+    entry = _function(md, "apex_flash_attention_bwd_dq_md")
+    assert "dq_entry<" in entry
+    assert "launch_qm_ws<D, MASK, true, DROP>(" in _function(md, "dq_md")
+    ws = _code((CSRC / "flash_qmajor_ws.cuh").read_text())
+    dq = ws[ws.index("auto o_desc = [&](int ks)"):]
+    dq = dq[:dq.index("\n    return;\n  }\n")]
+    for piece in ("bar_sync(kFwTurn + wg", "bar_arrive(kFwTurn + 1 - wg",
+                  "drop_mix(", "fold16(", "wgmma_rs(acc, pa[t]",
+                  "wgmma_wait<2>();", "tma_store("):
+        assert piece in dq, piece
+    # the hash sits between the products' issue and the wait on S
+    turn = dq.index("bar_arrive(kFwTurn + 1 - wg")
+    assert turn < dq.index("keep_bits();") < dq.index("wgmma_wait<2>();")
+
+
+@pytest.mark.parametrize("name,kernel", [
+    ("flash_kmajor.cuh", "flash_bwd_kernel"),
+    ("flash_qmajor.cuh", "flash_qmajor_kernel")])
+def test_the_older_templates_have_no_drop_instances(name, kernel):
+    """The key-major template serves #4 and #6 alone and the query-major
+    one #3, #3m and #5: no DROP parameter, no keep hash, and the
+    query-major dq kernel no mask."""
+    code = _code((CSRC / name).read_text())
+    assert "DROP" not in code and "drop_keep" not in code
+    assert "seed3" not in code
+    head = code[code.index(f"{kernel}(") - 200:code.index(f"{kernel}(")]
+    assert "DROP" not in head
+    if name == "flash_kmajor.cuh":
+        assert "MASK" not in code and "MdParams" not in code
+    else:
+        assert "static_assert(!(DQ && MASK)" in code
+
+
+@pytest.mark.parametrize("entry", ["apex_flash_attention_bwd_dq_md",
+                                   "apex_flash_attention_bwd_dkv_md"])
+def test_split_md_entries_run_no_pre_pass(entry):
+    """Handed the pre-pass's filled scratch, neither split entry runs the
+    pre-pass (``apex_flash_mask_tiles`` does, once for both): their C
+    entries and everything they call take no mask and launch no
+    ``mask_tiles_kernel``; the split backward's wrapper runs it once."""
+    src = "flash_attention_md.cu" if "dq" in entry \
+        else "flash_attention_bwd_md.cu"
+    code = _code((CSRC / src).read_text())
+    body = _function(code, entry)
+    assert "mask_ld" not in body.split("{", 1)[0]
+    assert "launch_mask_tiles" not in body and "pre_pass" not in body
+    if "dq" in entry:
+        for fn in ("dq_entry", "dq_md"):
+            assert "launch_mask_tiles" not in _function(code, fn)
+            assert "pre_pass" not in _function(code, fn)
+    else:
+        bwd = _function(code, "bwd_md")
+        # the pre-pass only in the one-pass branch
+        dkv = bwd[bwd.index("} else {"):]
+        assert "launch_mask_tiles" not in dkv
+    pre = _function(_code((CSRC / "flash_attention_md.cu").read_text()),
+                    "apex_flash_mask_tiles")
+    assert "launch_mask_tiles(" in pre
+    assert "apex_flash_mask_tiles" in _build.UNCOUNTED[
+        "flash_attention_md.cu"]

@@ -1747,12 +1747,14 @@ def test_twin_step_equals_functional_step_bit_for_bit(cuda):
 # kept.
 
 def _exact_grads_md(q, k, v, do, causal, scale, mask3, rate, seed3,
-                    valid=None):
-    """(dq, dk, dv) in float64 with the mask, the validity window and the
-    keep mask, p, p̃ and ds unrounded."""
+                    valid=None, causal_off=None):
+    """(dq, dk, dv) in float64 with the mask, the validity window, the
+    causal offset (default sk - sq) and the keep mask, p, p̃ and ds
+    unrounded."""
     bh, sq, sk = q.shape[0], q.shape[1], k.shape[1]
     q_, k_, v_, do_ = (t.double() for t in (q, k, v, do))
-    live = attn._live3(bh, sq, sk, causal, sk - sq, valid, mask3, q.device)
+    off = sk - sq if causal_off is None else causal_off
+    live = attn._live3(bh, sq, sk, causal, off, valid, mask3, q.device)
     s = (torch.matmul(q_, k_.transpose(1, 2)) * scale).masked_fill(
         ~live, float("-inf"))
     p = torch.softmax(s, dim=-1).nan_to_num(0.0)
@@ -1937,6 +1939,87 @@ def test_flash_md_backward_matches_plain(cuda, d, kind, rate, sq, sk, causal,
     torch.cuda.synchronize()
     _assert_flash_bwd_close(got, ref, _exact_grads_md(
         q, k, v, do, causal, scale, mask3, rate, seed3))
+
+
+# The split pair's mask and dropout instances (#5md: the persistent
+# query-major kernel's dq mode; #6md: the warp-specialized key-major
+# kernel's dk/dv mode, its key blocks longest first) at the edges of their
+# schedules: key counts that cut the 64-key steps and the 128-key blocks
+# (the longest-first order over a ragged last block), a key block and a
+# query block all dead, fully masked rows, per-batch, per-head and shared
+# masks, causal offsets and validity windows, more blocks than SMs and
+# heads in more than one L2 group, the seed operand's offsets and a seed
+# drawn on the card.  The split route runs the mask pre-pass once for
+# both kernels: its outputs equal the kernels' called alone (each with a
+# pre-pass of its own) and a second run's, bit for bit.
+_MD_SPLIT_EDGES = [
+    # label, b, h, sq, sk, causal, causal_off, mask kind, valid, offsets
+    ("ragged keys, longest first", 1, 2, 300, 333, True, None, None, None,
+     (0, 0)),
+    ("keys under a block", 2, 3, 250, 77, False, None, "per-batch", None,
+     (0, 0)),
+    ("a dead key block", 2, 2, 384, 384, False, None, "dead keys", None,
+     (0, 0)),
+    ("the last key tile dead", 2, 2, 256, 300, False, None, "per-batch",
+     None, (0, 0)),
+    ("a dead query block", 2, 2, 384, 384, False, None, "dead block", None,
+     (0, 0)),
+    ("per-head, fully masked rows", 1, 3, 256, 256, True, None, "per-head",
+     None, (0, 0)),
+    ("shared mask", 2, 2, 200, 260, False, None, "one", None, (1000, 77)),
+    ("causal offset", 1, 2, 200, 300, True, 37, None, None, (0, 0)),
+    ("validity window", 1, 3, 390, 330, True, None, "per-head", (260, 301),
+     (0, 0)),
+    ("many blocks", 8, 40, 300, 300, True, None, "per-batch", None, (0, 0)),
+    ("two L2 groups", 1, 56, 1024, 1024, True, None, None, None, (5, 0)),
+]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("label,b,h,sq,sk,causal,off,kind,valid,offs",
+                         _MD_SPLIT_EDGES, ids=[c[0] for c in _MD_SPLIT_EDGES])
+@pytest.mark.parametrize("device_seed", [False, True])
+def test_flash_md_split_backward_schedule_edges(cuda, d, label, b, h, sq, sk,
+                                                causal, off, kind, valid,
+                                                offs, device_seed,
+                                                monkeypatch):
+    q, k, v, do = (_randn((b * h, s, d), seed, cuda)
+                   for seed, s in ((130, sq), (131, sk), (132, sk), (133, sq)))
+    if kind in ("dead keys", "dead block"):
+        m = np.random.RandomState(134).rand(b, sq, sk) > 0.6
+        if kind == "dead keys":
+            m[:, :, 128:256] = True         # key block 1 dead for every row
+        else:
+            m[0, 128:256] = True            # query block 1 all dead
+        m[1, 5] = True                      # a fully masked row
+        mask3 = torch.from_numpy(m).to(cuda)
+    else:
+        mask3 = _md_mask3(kind, b, h, sq, sk, 134, cuda)
+    seed = (torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), dtype=torch.int32,
+                          device=cuda) if device_seed else 2 ** 31 - 99)
+    seed3 = attn._seed_operand(seed, *offs, device=cuda)
+    scale = d ** -0.5
+    md = dict(causal_off=off, valid=valid, mask3=mask3, rate=0.1,
+              seed3=seed3)
+    out, lse = attn._fwd(q, k, v, causal, scale, **md)
+    monkeypatch.setattr(attn, "_FUSED_BWD_MAX_BYTES", 0)
+    before = _build.launch_counts()
+    got = attn._bwd(q, k, v, out, lse, do, causal, scale, **md)
+    after = _build.launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {"flash_attention_bwd_dq_md": 1,
+                                          "flash_attention_bwd_dkv_md": 1}
+    again = attn._bwd(q, k, v, out, lse, do, causal, scale, **md)
+    delta = attn._delta(out, do)
+    args = (q, k, v, lse, delta, do, causal, scale)
+    alone = (attn._dq_kernel(*args, **md), *attn._dkv_kernel(*args, **md))
+    ref = attn._bwd_reference(q, k, v, out, lse, do, causal, scale, **md)
+    torch.cuda.synchronize()
+    for g_, a_, s_ in zip(got, again, alone):
+        assert torch.equal(g_, a_) and torch.equal(g_, s_)
+    _assert_flash_bwd_close(got, ref, _exact_grads_md(
+        q, k, v, do, causal, scale, mask3, 0.1, seed3, valid,
+        causal_off=off))
 
 
 # The one-pass instances' ring and roles past the short cases above: more

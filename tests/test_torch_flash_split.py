@@ -151,6 +151,34 @@ def test_cpu_split_route_runs_the_plain_halves_and_launches_nothing(
     assert _build._LIB is None
 
 
+def test_cpu_split_md_route_runs_the_plain_halves_and_no_pre_pass(
+        monkeypatch):
+    """With a mask and dropout, the split route on CPU tensors still runs
+    the two plain halves (each once, with the mask and the seed operand),
+    never the mask pre-pass, and launches nothing."""
+    rng = np.random.RandomState(11)
+    q, k, v, do = (_t(rng.randn(4, 40, 64).astype(np.float32))
+                   for _ in range(4))
+    mask3 = torch.from_numpy(rng.rand(2, 40, 40) > 0.7)
+    seed3 = tattn._seed_operand(7)
+    md = dict(mask3=mask3, rate=0.1, seed3=seed3)
+    o, lse = tattn._fwd(q, k, v, True, 0.125, **md)
+    seen = []
+    for name in ("_dq_reference", "_dkv_reference", "_bwd_reference",
+                 "_mask_tiles", "_dq_kernel", "_dkv_kernel"):
+        monkeypatch.setattr(tattn, name, _spy(seen, name,
+                                              getattr(tattn, name)))
+    monkeypatch.setattr(tattn, "_FUSED_BWD_MAX_BYTES", 0)
+    _build.reset_launch_counts()
+    split = tattn._bwd(q, k, v, o, lse, do, True, 0.125, **md)
+    assert seen == ["_dq_reference", "_dkv_reference"]
+    one = tattn._bwd_reference(q, k, v, o, lse, do, True, 0.125, **md)
+    for a, b in zip(one, split):
+        assert torch.equal(a, b)
+    assert set(_build.launch_counts().values()) == {0}
+    assert _build._LIB is None
+
+
 @pytest.fixture(scope="module")
 def llama():
     parallel_state.destroy_model_parallel()

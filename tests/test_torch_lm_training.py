@@ -18,7 +18,14 @@ rate), the same generator seed giving the same loss and another seed
 another loss.  ``make_train_step`` with ``fused_lamb`` on BERT (with
 padding) and ``fused_adam`` on GPT, both with dropout, lowers the loss
 over four steps, each with a fresh generator carried in the batch.
+A training-mode GPT step also runs with both packages'
+``_FUSED_BWD_MAX_BYTES`` at 0, so each backward takes its split pair
+(the JAX ``_dq_kernel`` and ``_dkv_kernel``, the port's plain halves),
+held at the same tolerance.
 """
+import functools
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +50,9 @@ from apex_tpu_torch.transformer.testing import (BertConfig, GPTConfig,
                                                 gpt_model_provider)
 
 from _torch_isolation import restore_torch_from_amp  # noqa: F401
+
+jattn = importlib.import_module("apex_tpu.ops.attention")
+tattn = importlib.import_module("apex_tpu_torch.ops.attention")
 
 CFG = dict(vocab_size=128, hidden_size=64, ffn_hidden_size=256,
            num_layers=2, num_attention_heads=4, max_seq_length=64,
@@ -122,6 +132,51 @@ def test_gpt_training_mode_loss_and_grads_match_jax(monkeypatch):
               deterministic=False, generator=torch.Generator().manual_seed(0))
     loss.backward()
     assert not seeds and not any(_build.launch_counts().values())
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=0, atol=ATOL)
+    _assert_grads(tm, jgrads)
+
+
+def _spy(seen, name, fn):
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        seen.append(name)
+        return fn(*args, **kwargs)
+    return wrapped
+
+
+def test_gpt_training_mode_on_the_split_backward_matches_jax(monkeypatch):
+    """Both gates at 0: every attention backward of both models takes the
+    split pair with dropout (the JAX ``_dq_kernel``/``_dkv_kernel``, the
+    port's ``_dq_reference``/``_dkv_reference`` with the seed operand);
+    loss and grads as the one-pass route's test holds them."""
+    seeds = _seed_relay(monkeypatch)
+    monkeypatch.setattr(jattn, "_FUSED_BWD_MAX_BYTES", 0)
+    monkeypatch.setattr(tattn, "_FUSED_BWD_MAX_BYTES", 0)
+    jseen, tseen = [], []
+    for name in ("_dq_kernel", "_dkv_kernel", "_bwd_fused_kernel"):
+        monkeypatch.setattr(jattn, name, _spy(jseen, name,
+                                              getattr(jattn, name)))
+    for name in ("_dq_reference", "_dkv_reference", "_bwd_reference"):
+        monkeypatch.setattr(tattn, name, _spy(tseen, name,
+                                              getattr(tattn, name)))
+    jcfg = JaxGPTConfig(**CFG)
+    jm = jax_gpt(jcfg)
+    jparams = jm.init(jax.random.PRNGKey(2), jnp.zeros((1, 4), jnp.int32))
+    toks, labels = _batch(6)
+    jloss, jgrads = jax.value_and_grad(lambda p: jm.apply(
+        p, toks, labels, deterministic=False,
+        rngs={"dropout": jax.random.PRNGKey(7)}))(jparams)
+    assert len(seeds) == CFG["num_layers"]
+    assert "_bwd_fused_kernel" not in jseen
+    assert {"_dq_kernel", "_dkv_kernel"} <= set(jseen)
+    tm = gpt_model_provider(GPTConfig(**CFG), device="cpu")
+    load_jax_params(tm, jax.tree_util.tree_map(np.asarray, jparams))
+    _build.reset_launch_counts()
+    loss = tm(torch.from_numpy(toks), torch.from_numpy(labels),
+              deterministic=False, generator=torch.Generator().manual_seed(0))
+    loss.backward()
+    assert not seeds and not any(_build.launch_counts().values())
+    assert tseen == ["_dq_reference", "_dkv_reference"] * CFG["num_layers"]
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=0, atol=ATOL)
     _assert_grads(tm, jgrads)
 
