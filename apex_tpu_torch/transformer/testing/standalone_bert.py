@@ -18,8 +18,8 @@ creates it when ``token_types`` is passed, as the serving engine's
 is training mode, as in ``standalone_gpt``: hidden dropout after the
 embeddings and in each layer, attention dropout inside the flash
 kernels; the padding mask reaches them as the JAX package's ``mask3``
-``[b, s, s]``, read by the ``h`` heads of each sequence.  ``remat``
-raises as in ``standalone_gpt``.
+``[b, s, s]``, read by the ``h`` heads of each sequence.  ``remat`` and
+``ce_half_residuals`` act as in ``standalone_gpt``.
 """
 from __future__ import annotations
 
@@ -42,6 +42,7 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import (
     gelu,
     hidden_dropout,
     model_device,
+    _run_layers,
 )
 
 __all__ = ["BertConfig", "BertModel", "bert_model_provider"]
@@ -160,9 +161,9 @@ class BertModel(nn.Module):
         if attention_mask is not None:
             keep = attention_mask.to(torch.bool)
             mask4 = (~keep)[:, None, None, :].expand(b, 1, s, s).contiguous()
-        for i in range(cfg.num_layers):
-            h = getattr(self, f"layer_{i}")(h, mask4, deterministic,
-                                            generator)
+        h = _run_layers([getattr(self, f"layer_{i}")
+                         for i in range(cfg.num_layers)], h, mask4,
+                        deterministic, generator, cfg.remat)
         h = self.final_layernorm(h)
         t = self.lm_head_layernorm(gelu(self.lm_head_dense(h)))
         lm_logits = torch.einsum("sbh,vh->sbv", t,

@@ -32,16 +32,21 @@ attention keep mask is the JAX package's bit for bit given the same
 seed; the hidden masks cannot be (a ``torch.Generator`` does not draw
 flax's bits), so they are the same distribution.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue-1 item): ``remat`` and the chunked fused LM head
-(``fused_head_xent`` > 0 or ``APEX_TPU_XENT_CHUNK``; "chunked fused LM
-head and remat"), ``scan_layers``, sequence and context parallelism and
-the MoE FFN (item 6, "multi-GPU layers over NCCL").
+With labels and ``fused_head_xent`` > 0 (or ``APEX_TPU_XENT_CHUNK``) the
+loss is the chunked fused head (:mod:`apex_tpu_torch.ops.fused_lm_xent`)
+on the tied word embedding; otherwise ``ce_half_residuals`` keeps the
+cross entropy's softmax residual in bf16.  ``remat`` recomputes each
+layer in the backward (:func:`apex_tpu_torch.utils.remat`), replaying
+the generator so the recompute draws the forward's masks and seeds.
+
+Not ported yet (each raises ``NotImplementedError`` naming ROADMAP
+queue 1, item 6, "multi-GPU layers over NCCL"): ``scan_layers`` (with
+or without ``remat``), sequence and context parallelism and the MoE
+FFN.
 """
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Any, Optional
 
 import torch
@@ -50,19 +55,20 @@ from torch import nn
 
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops.attention import flash_attention
+from apex_tpu_torch.ops.fused_lm_xent import (fused_lm_head_cross_entropy,
+                                              xent_chunk_default)
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
     vocab_parallel_cross_entropy,
 )
-from apex_tpu_torch.utils import resolve_device
+from apex_tpu_torch.utils import remat, resolve_device
 
 __all__ = ["GPTConfig", "ParallelMLP", "ParallelAttention",
            "ParallelTransformerLayer", "GPTEmbedding", "GPTModel",
            "gpt_model_provider", "model_device", "hidden_dropout"]
 
-_REMAT = "ROADMAP queue 1, 'chunked fused LM head and remat'"
 _MULTI = "ROADMAP queue 1, item 6 (multi-GPU layers over NCCL)"
 
 
@@ -86,9 +92,8 @@ class GPTConfig:
     scan_layers: bool = False
     embedding_grad_via_matmul: bool = False
     ce_half_residuals: bool = False
-    # chunked fused LM head + cross entropy: None reads
-    # APEX_TPU_XENT_CHUNK (default 0, the unfused head); > 0 is not
-    # ported yet
+    # chunked fused LM head + cross entropy: the token chunk; None reads
+    # APEX_TPU_XENT_CHUNK (default 0, the unfused head)
     fused_head_xent: Optional[int] = None
     num_moe_experts: Optional[int] = None
     moe_top_k: int = 2
@@ -254,15 +259,19 @@ def _check_config(cfg) -> None:
                 f"{flag} is not ported yet ({_MULTI})")
     if getattr(cfg, "num_moe_experts", None):
         raise NotImplementedError(f"the MoE FFN is not ported yet ({_MULTI})")
-    if cfg.remat:
-        raise NotImplementedError(
-            f"activation recompute (remat) is not ported yet ({_REMAT})")
 
 
-def _xent_chunk(cfg) -> int:
-    if cfg.fused_head_xent is not None:
-        return int(cfg.fused_head_xent)
-    return int(os.environ.get("APEX_TPU_XENT_CHUNK", "0"))
+def _run_layers(layers, h, attention_mask, deterministic: bool,
+                generator, recompute: bool):
+    """``h`` through each layer in turn; with ``recompute`` each layer
+    under :func:`apex_tpu_torch.utils.remat` (the generator replayed)."""
+    for layer in layers:
+        if recompute:
+            h = remat(layer, h, attention_mask, deterministic, generator,
+                      generator=generator)
+        else:
+            h = layer(h, attention_mask, deterministic, generator)
+    return h
 
 
 class GPTModel(nn.Module):
@@ -290,19 +299,22 @@ class GPTModel(nn.Module):
             raise ValueError(
                 f"sequence length {tokens.shape[1]} exceeds "
                 f"max_seq_length {cfg.max_seq_length}")
-        if labels is not None and _xent_chunk(cfg) > 0:
-            raise NotImplementedError(
-                "the chunked fused LM head + cross entropy (fused_head_xent "
-                f"/ APEX_TPU_XENT_CHUNK > 0) is not ported yet ({_REMAT})")
         h = self.embedding(tokens, deterministic, generator)
-        for i in range(cfg.num_layers):
-            h = getattr(self, f"layer_{i}")(h, attention_mask, deterministic,
-                                            generator)
+        h = _run_layers([getattr(self, f"layer_{i}")
+                         for i in range(cfg.num_layers)], h, attention_mask,
+                        deterministic, generator, cfg.remat)
         h = self.final_layernorm(h)
         emb = self.embedding.word_embeddings.weight
-        logits = torch.einsum("sbh,vh->sbv", h, emb)
         if labels is None:
-            return logits
+            return torch.einsum("sbh,vh->sbv", h, emb)
+        chunk = cfg.fused_head_xent
+        if chunk is None:
+            chunk = xent_chunk_default()
+        if chunk > 0:
+            loss = fused_lm_head_cross_entropy(h, emb, labels.T,
+                                               token_chunk=chunk)
+            return loss.mean()
+        logits = torch.einsum("sbh,vh->sbv", h, emb)
         loss = vocab_parallel_cross_entropy(
             logits.float(), labels.T, half_residuals=cfg.ce_half_residuals)
         return loss.mean()

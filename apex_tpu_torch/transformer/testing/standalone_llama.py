@@ -11,18 +11,18 @@ weight``).  Same op sequence: pre-norm fused RMSNorm (fp32 weights
 whatever ``params_dtype``), RoPE, the packed ``kv_proj`` (each kv
 head's k and v side by side), GQA by broadcasting k/v to the q heads
 before the causal flash kernels, SwiGLU, an untied LM head and the
-tp = 1 cross entropy over fp32 logits.  Serving runs the forwards in
+tp = 1 cross entropy over fp32 logits.  With labels and
+``fused_head_xent`` > 0 (or ``APEX_TPU_XENT_CHUNK``) the loss is the
+chunked fused head (:mod:`apex_tpu_torch.ops.fused_lm_xent`) on the same
+``lm_head.weight``, so no ``[tokens, vocab]`` logits are made; ``remat``
+recomputes each layer in the backward (:func:`apex_tpu_torch.utils.remat`).
+Neither changes a parameter name.  Serving runs the forwards in
 :mod:`apex_tpu_torch.inference.models` over the same parameter tree.
-
-Not ported yet: the chunked fused LM head + cross entropy
-(``fused_head_xent`` > 0, or ``APEX_TPU_XENT_CHUNK``; ROADMAP queue 1,
-"chunked fused LM head"), activation recompute (``remat``) and tp > 1;
-they raise ``NotImplementedError``.
+tp > 1 is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Any, Optional
 
 import torch
@@ -31,6 +31,8 @@ from torch import nn
 
 from apex_tpu_torch.normalization import FusedRMSNorm
 from apex_tpu_torch.ops.attention import flash_attention
+from apex_tpu_torch.ops.fused_lm_xent import (fused_lm_head_cross_entropy,
+                                              xent_chunk_default)
 from apex_tpu_torch.transformer.functional.fused_rope import (
     fused_apply_rotary_pos_emb_cached,
 )
@@ -41,7 +43,7 @@ from apex_tpu_torch.transformer.tensor_parallel import (
     vocab_parallel_cross_entropy,
 )
 from apex_tpu_torch.transformer.tensor_parallel.layers import glorot_normal_
-from apex_tpu_torch.utils import resolve_device
+from apex_tpu_torch.utils import remat, resolve_device
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaBlock",
            "LlamaModel", "llama_model_provider"]
@@ -63,9 +65,8 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     params_dtype: Any = torch.float32
     remat: bool = False
-    # chunked fused LM head + cross entropy: None reads
-    # APEX_TPU_XENT_CHUNK (default 0, the unfused head); > 0 is not
-    # ported yet
+    # chunked fused LM head + cross entropy: the token chunk; None reads
+    # APEX_TPU_XENT_CHUNK (default 0, the unfused head)
     fused_head_xent: Optional[int] = None
 
     def __post_init__(self):
@@ -96,12 +97,6 @@ def _rope_cos_sin(seq_len: int, dim: int, theta: float, device=None):
                                      device=device), inv)
     emb = torch.cat([freqs, freqs], dim=-1)[:, None, None, :]
     return torch.cos(emb), torch.sin(emb)
-
-
-def _xent_chunk(cfg) -> int:
-    if cfg.fused_head_xent is not None:
-        return int(cfg.fused_head_xent)
-    return int(os.environ.get("APEX_TPU_XENT_CHUNK", "0"))
 
 
 class LlamaAttention(nn.Module):
@@ -189,10 +184,6 @@ class LlamaModel(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         device = resolve_device(device)
-        if cfg.remat:
-            raise NotImplementedError(
-                "activation recompute (remat) is not ported yet (ROADMAP "
-                "queue 1, 'chunked fused LM head and remat')")
         self.cfg = cfg
         self.embed_tokens = VocabParallelEmbedding(
             cfg.vocab_size, cfg.hidden_size, params_dtype=cfg.params_dtype,
@@ -224,15 +215,18 @@ class LlamaModel(nn.Module):
             raise ValueError(
                 f"sequence length {tokens.shape[1]} exceeds "
                 f"max_seq_length {cfg.max_seq_length}")
-        if labels is not None and _xent_chunk(cfg) > 0:
-            raise NotImplementedError(
-                "the chunked fused LM head + cross entropy (fused_head_xent "
-                "/ APEX_TPU_XENT_CHUNK > 0) is not ported yet (ROADMAP "
-                "queue 1, 'chunked fused LM head and remat')")
         h = self.embed_tokens(tokens).transpose(0, 1)      # [s, b, h]
         for i in range(cfg.num_layers):
-            h = getattr(self, f"layer_{i}")(h)
+            layer = getattr(self, f"layer_{i}")
+            h = remat(layer, h) if cfg.remat else layer(h)
         h = self.final_norm(h)
+        chunk = cfg.fused_head_xent
+        if chunk is None:
+            chunk = xent_chunk_default()
+        if labels is not None and chunk > 0:
+            loss = fused_lm_head_cross_entropy(h, self.lm_head.weight,
+                                               labels.T, token_chunk=chunk)
+            return loss.mean()
         logits, _ = self.lm_head(h)
         if labels is None:
             return logits

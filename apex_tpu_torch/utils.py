@@ -1,5 +1,5 @@
-"""Small shared helpers: integer arithmetic, the device rule, and the
-flat-buffer ravel of a parameter tree.
+"""Small shared helpers: integer arithmetic, the device rule, the
+flat-buffer ravel of a parameter tree, and activation recompute.
 
 Every entry point of the port runs on CUDA unless the caller asks for
 the CPU: ``resolve_device(None)`` is the current CUDA device and raises
@@ -8,12 +8,14 @@ the plain PyTorch versions silently.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["cdiv", "round_up", "resolve_device", "tree_leaves_with_path",
-           "tree_ravel", "ravel_layout"]
+           "tree_ravel", "ravel_layout", "remat"]
 
 
 def cdiv(a: int, b: int) -> int:
@@ -137,3 +139,34 @@ def tree_ravel(tree) -> Tuple[torch.Tensor, Callable]:
     flat = torch.cat([t.detach().reshape(-1).to(dtype) for _, t in leaves]) \
         if leaves else torch.zeros((0,), dtype=dtype)
     return flat, unravel
+
+
+def remat(fn, *args, generator=None, **kwargs):
+    """``fn(*args, **kwargs)`` with its activations recomputed in the
+    backward instead of saved (flax's ``nn.remat``):
+    ``torch.utils.checkpoint.checkpoint`` without reentrance.
+
+    ``checkpoint`` replays only the default generators.  A layer that
+    draws its dropout masks and attention seeds from an explicit
+    ``generator`` would draw others in the recompute, and advance the
+    generator again.  So the generator's state before the call is kept,
+    set back for the recompute, and the state the recompute found
+    restored after it: the recompute draws what the forward drew and
+    the generator ends where a run without recompute leaves it.  A
+    generator's state lives on the host, CUDA's too: no device sync."""
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    before = generator.get_state()
+
+    @contextlib.contextmanager
+    def replay():
+        after = generator.get_state()
+        generator.set_state(before)
+        try:
+            yield
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), replay()),
+                      **kwargs)

@@ -214,6 +214,27 @@
    takes the split pair: each step must launch the forward's dropout
    instance and the split pair's dropout instances (#5md, #6md) once a
    layer and no other flash kernel.
+14. **Lean train** (``lean_train``, after train).  The loss side of
+   training.  The LM head alone at Llama-3-8B's shape (hidden ``[8192,
+   4096]``, ``lm_head`` ``[128256, 4096]`` bf16, seeded labels), forward
+   and backward: the unfused head (``lm_head_xentropy_reference``), the
+   chunked fused head at token chunk 1024, the same with the vocab in 8
+   slices, and ``F.linear`` + ``F.cross_entropy`` as a yardstick; each
+   one's time, its peak memory rise and (fused) its loss, dh and dW
+   against the unfused head's; each fused rise at most half the
+   unfused one.  Then ``adam 8192 lean``: the train phase's 8192-token
+   Adam run with ``fused_head_xent=1024`` and ``remat=True``, three
+   steps; its first loss against the same weights' unfused, non-remat
+   loss, #3 launched twice a layer and step and the split pair once,
+   its peak memory below ``adam 8192``'s of the same process.  Then
+   ``gpt_train lean`` (GPT-3 1.3B, ``remat`` and the fused head) and
+   ``bert_train lean`` (BERT-large, ``remat`` and
+   ``ce_half_residuals``), three steps each after three steps of the
+   plain route from the same weights and generator seeds: the first
+   steps' flat grads within 3e-2 relative L2 leaf by leaf and their
+   losses within 1e-3 relative, the forward's dropout instance launched
+   twice a layer.  Prints each run's step time, tokens/s and peak
+   memory beside the same process's plain runs.
 
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed phase raises, so the
@@ -454,6 +475,20 @@ TOL_LOGITS = 0.25
 #: position carries nearly the same vector past the first layer, so
 #: attention there averages equal rows whatever its mask)
 TOL_BERT_REL_L2 = 3e-2
+#: the loss side of training (lean_train): the chunked fused LM head at
+#: token chunk 1024 (8 chunks of Llama-3-8B's 8192 tokens), with and
+#: without the vocab in 8 slices of 128256 / 8, and remat on every
+#: layer; three steps a run.  The head alone is held to the unfused
+#: head: the loss within 1e-3 relative, dh and dW within 1.6e-2 of
+#: their largest element (the JAX suite's bf16 limit at unit scale);
+#: each fused version's peak rise at most half the unfused one's
+LEAN_CHUNK = 1024
+LEAN_VOCAB_CHUNK = 16032
+LEAN_STEPS = 3
+TOL_LEAN_LOSS_REL = 1e-3
+TOL_LEAN_HEAD_GRAD = 1.6e-2
+LEAN_HEAD_TOKENS = 8192
+LEAN_HEAD_W_STD = 0.03          # logits of order 2 from unit hidden rows
 
 
 def _smi():
@@ -3038,13 +3073,14 @@ def phase_bert(dev, seed: int):
                 launches=launches)
 
 
-def _lm_model(kind: str, dev, seed: int, layers=None):
+def _lm_model(kind: str, dev, seed: int, layers=None, cfg_kw=None):
     """BERT-large (``BertConfig()``, no NSP head, as
     ``examples/bert/pretrain_bert.py`` builds it) or GPT-3 1.3B
     (``GPT_CFG``; ``"gpt8k"``: its context raised to 8192), bf16
     parameters drawn by the modules' own initializers from ``seed``,
     dropout ``LM_DROPOUT`` on hidden activations and on attention
-    probabilities; ``layers`` cuts the depth."""
+    probabilities; ``layers`` cuts the depth, ``cfg_kw`` sets options
+    that draw no parameter (``remat``, the fused head, half residuals)."""
     from apex_tpu_torch.models import (BertConfig, GPTConfig,
                                        bert_model_provider,
                                        gpt_model_provider)
@@ -3053,6 +3089,7 @@ def _lm_model(kind: str, dev, seed: int, layers=None):
               params_dtype=torch.bfloat16)
     if layers is not None:
         kw["num_layers"] = layers
+    kw.update(cfg_kw or {})
     if kind == "bert":
         cfg = BertConfig(**kw)
         return cfg, bert_model_provider(cfg, add_binary_head=False,
@@ -3142,7 +3179,9 @@ def _plain_attention_refused():
             setattr(attn, n, f)
 
 
-def phase_lm_train(dev, seed: int, kind: str):
+def phase_lm_train(dev, seed: int, kind: str, cfg_kw=None,
+                   steps: int = LM_TRAIN_STEPS, keep=None, tag=None,
+                   profile: bool = False):
     """BERT-large pretraining (``kind="bert"``: LAMB, ``LAMB_KW``) or
     GPT-3 1.3B training (``"gpt"``: Adam, ``TRAIN_LR``; ``"gpt8k"``: the
     same at 1 x 8192 tokens, ``gpt_train_8k``) at full width and depth
@@ -3155,12 +3194,19 @@ def phase_lm_train(dev, seed: int, kind: str):
     the segment from the backward's flat grads to the new state runs
     under ``set_sync_debug_mode("error")``.  The loss must fall and stay
     finite.  Prints step time (median of steps 2 on), tokens/s (BERT:
-    sequences/s too), the model-flops share and peak memory."""
+    sequences/s too), the model-flops share and peak memory.
+
+    ``cfg_kw`` sets model options (the ``lean_train`` runs: ``remat``,
+    under which the forward's instance launches twice a layer, and the
+    fused head), ``steps`` the step count, ``keep``, a list, gets a host
+    copy of the first step's flat grads, ``tag`` names the run, and
+    ``profile`` breaks two more steps down by kernel."""
     from apex_tpu_torch import train_step
     from apex_tpu_torch.ops import _build
     from apex_tpu_torch.optimizers import functional
+    from apex_tpu_torch.utils import tree_leaves_with_path
     t0 = time.perf_counter()
-    cfg, model = _lm_model(kind, dev, seed)
+    cfg, model = _lm_model(kind, dev, seed, cfg_kw=cfg_kw)
     batch = _lm_batch(kind, cfg, dev, seed)
     bert = kind == "bert"
     tx = functional.fused_lamb(**LAMB_KW) if bert \
@@ -3174,6 +3220,10 @@ def phase_lm_train(dev, seed: int, kind: str):
     label = ("BERT-large pretraining" if bert else "GPT-3 1.3B training"
              if kind == "gpt" else "GPT-3 1.3B long-context training "
              f"(context {cfg.max_seq_length})")
+    if tag:
+        phase = f"{phase} {tag}"
+    if cfg_kw:
+        label += f" with {cfg_kw}"
     print(f"{phase}: {label}, {layers} layers, hidden "
           f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, vocab "
           f"{cfg.vocab_size}, [{b}, {s}] tokens a step"
@@ -3184,18 +3234,22 @@ def phase_lm_train(dev, seed: int, kind: str):
           f"{time.perf_counter() - t0:.1f} s")
 
     def strict(flat_grads):
+        if keep is not None and not keep:
+            keep.append(flat_grads.to("cpu"))
         torch.cuda.set_sync_debug_mode("error")
         return flat_grads
 
     step = train_step.make_train_step(_bert_loss if bert else _gpt_loss, tx,
                                       grad_transform=strict)
     want = dict.fromkeys(kernels, layers)
+    if cfg.remat:          # the forward again in each layer's recompute
+        want[kernels[0]] = 2 * layers
     losses, times, off = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     with _plain_attention_refused():
-        for i in range(LM_TRAIN_STEPS):
+        for i in range(steps):
             before = _build.launch_counts()
             gen = torch.Generator(device=dev)
             gen.manual_seed(seed * 1000 + i)
@@ -3225,13 +3279,13 @@ def phase_lm_train(dev, seed: int, kind: str):
     model_flops = 6 * matmul * tokens + 3 * attn_flops * layers
     print(f"{phase} on {_smi()}: losses {[round(x, 4) for x in losses]}")
     print(f"  step times {[round(t, 4) for t in times]} s; median of steps "
-          f"2-{LM_TRAIN_STEPS} {step_s:.4f} s = {tokens / step_s:.1f} "
+          f"2-{steps} {step_s:.4f} s = {tokens / step_s:.1f} "
           f"tokens/s" + (f", {b / step_s:.2f} sequences/s" if bert else ""))
     print(f"  model flops {model_flops / 1e12:.3f} TFLOP per step = "
           f"{100 * model_flops / step_s / BF16_FLOPS_PER_S:.1f}% of 989 "
           f"TFLOP/s; peak device memory {peak / 2**30:.2f} GiB")
     print(f"  kernel launches per step: "
-          f"{ {k: v / LM_TRAIN_STEPS for k, v in launches.items() if v} }")
+          f"{ {k: v / steps for k, v in launches.items() if v} }")
     print(f"  loss scale {state.scaler.loss_scale.item()}, count "
           f"{state.opt.count.item()}")
     if off:
@@ -3241,10 +3295,22 @@ def phase_lm_train(dev, seed: int, kind: str):
         raise AssertionError(f"{phase}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{phase}: the loss did not fall: {losses}")
+    if profile:
+        plain_step = train_step.make_train_step(
+            _bert_loss if bert else _gpt_loss, tx)
+
+        def one():
+            nonlocal state
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed * 1000 + steps)
+            state, _ = plain_step(state, dict(batch, generator=gen))
+        _device_breakdown(f"{phase} step", one, 2, top=12)
+    leaves = [(".".join(path), t.numel())
+              for path, t in tree_leaves_with_path(model)]
     del model, state, step, batch
     torch.cuda.empty_cache()
     return dict(launches=launches, step_s=step_s, peak_bytes=peak,
-                losses=losses, tokens=tokens)
+                losses=losses, tokens=tokens, leaves=leaves)
 
 
 def _bert_step_grads(dev, seed: int, route):
@@ -3305,14 +3371,16 @@ def phase_bert_train_check(dev, seed: int):
     return dict(grad_rel_l2=rels, losses=[loss_k, loss_p])
 
 
-def _train_model(dev, seed: int, layers: int, seq: int = TRAIN_SEQ):
+def _train_model(dev, seed: int, layers: int, seq: int = TRAIN_SEQ,
+                 cfg_kw=None):
     """The training model at Llama-3-8B widths and ``layers`` deep, bf16
     parameters drawn from a seeded generator, and one fixed batch of
-    ``seq`` seeded tokens from the same generator."""
+    ``seq`` seeded tokens from the same generator; ``cfg_kw`` sets
+    options that draw no parameter (``remat``, the fused head)."""
     from apex_tpu_torch.transformer.testing import (LlamaConfig,
                                                     llama_model_provider)
     cfg = LlamaConfig(**dict(FULL_CFG, num_layers=layers,
-                             params_dtype=torch.bfloat16))
+                             params_dtype=torch.bfloat16, **(cfg_kw or {})))
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     model = llama_model_provider(cfg, device=dev)
@@ -3325,12 +3393,12 @@ def _train_model(dev, seed: int, layers: int, seq: int = TRAIN_SEQ):
 
 
 def _train_setup(dev, seed: int, layers: int, tx=None,
-                 loss_scale="dynamic", seq: int = TRAIN_SEQ):
+                 loss_scale="dynamic", seq: int = TRAIN_SEQ, cfg_kw=None):
     """:func:`_train_model` and its train state for ``tx`` (default:
     Adam)."""
     from apex_tpu_torch import train_step
     from apex_tpu_torch.optimizers import functional
-    cfg, model, batch = _train_model(dev, seed, layers, seq)
+    cfg, model, batch = _train_model(dev, seed, layers, seq, cfg_kw)
     tx = functional.fused_adam(lr=TRAIN_LR) if tx is None else tx
     state = train_step.init_train_state(tx, model, loss_scale=loss_scale)
     return cfg, model, tx, state, batch, train_step
@@ -3342,7 +3410,7 @@ def _train_loss(model, batch):
 
 def _train_run(dev, seed: int, label: str, tx, layers: int, steps: int,
                loss_scale, kernels, transform=None, profile: bool = False,
-               seq: int = TRAIN_SEQ):
+               seq: int = TRAIN_SEQ, cfg_kw=None):
     """``steps`` steps of the ``layers``-deep model under ``tx`` on one
     batch of ``seq`` tokens with the launch counters zeroed just before;
     the segment from the flat grads (``transform``, then the unscale,
@@ -3352,12 +3420,12 @@ def _train_run(dev, seed: int, label: str, tx, layers: int, steps: int,
     from apex_tpu_torch.ops import _build
     t0 = time.perf_counter()
     cfg, model, tx, state, batch, train_step = _train_setup(
-        dev, seed, layers, tx, loss_scale, seq)
+        dev, seed, layers, tx, loss_scale, seq, cfg_kw)
     torch.cuda.synchronize()
     n = state.opt.master.numel()
     leaves = len(state.opt.sizes)
     print(f"train {label}: Llama-3-8B widths, {layers} layers, {seq} "
-          f"tokens a step, {n} "
+          f"tokens a step" + (f", {cfg_kw}" if cfg_kw else "") + f", {n} "
           f"parameters in {leaves} leaves (bf16 params, fp32 master), "
           f"{type(tx).__name__.strip('_')}, loss scale {loss_scale}, set up "
           f"in {time.perf_counter() - t0:.1f} s")
@@ -3484,6 +3552,223 @@ def phase_train(dev, seed: int, profile: bool = False):
     return runs
 
 
+def _head_row(label, fn, h, w, labels, iters: int, ref=None):
+    """One version of the LM head and its loss, forward and backward
+    (``fn(h, w, labels).sum()``): its peak device memory rise over what
+    is allocated before (the first call, the grads included), then its
+    time (CUDA events, median of ``iters`` calls).  Returns the row and
+    ``(loss, dh, dW)`` of the first call; held against ``ref``'s."""
+    def once():
+        hh = h.detach().requires_grad_()
+        ww = w.detach().requires_grad_()
+        loss = fn(hh, ww, labels).sum()
+        loss.backward()
+        return loss.detach(), hh.grad, ww.grad
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = once()
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        once()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    row = dict(label=label, ms=float(np.median(times)), rise_bytes=rise,
+               loss=out[0].item())
+    line = (f"  head {label}: {row['ms']:.4f} ms forward + backward, peak "
+            f"rise {rise / 1e9:.3f} GB, loss {row['loss']:.6f}")
+    if ref is not None:
+        row["loss_rel"] = abs(row["loss"] - ref[0].item()) / abs(
+            ref[0].item())
+        for name, got, want in (("dh", out[1], ref[1]), ("dW", out[2],
+                                                          ref[2])):
+            row[name] = ((got.float() - want.float()).abs().max()
+                         / want.float().abs().max()).item()
+        line += (f"; against unfused: loss {row['loss_rel']:.3e} relative, "
+                 f"dh {row['dh']:.3e}, dW {row['dW']:.3e} of max|ref|")
+    print(line)
+    return row, out
+
+
+def _lean_head(dev, seed: int):
+    """The LM head alone at Llama-3-8B's shape: hidden ``[8192, 4096]``
+    and ``lm_head`` ``[128256, 4096]`` bf16, seeded labels; unfused
+    (``lm_head_xentropy_reference`` + autograd), fused at token chunk
+    1024, fused with the vocab in 8 slices, and one PyTorch call chain
+    (``F.linear`` + ``F.cross_entropy``) as a yardstick."""
+    from apex_tpu_torch.ops import fused_lm_xent as fx
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 16)
+    v, hd, n = FULL_CFG["vocab_size"], FULL_CFG["hidden_size"], \
+        LEAN_HEAD_TOKENS
+    h = torch.randn(n, hd, generator=gen, device=dev).bfloat16()
+    w = (torch.randn(v, hd, generator=gen, device=dev)
+         * LEAN_HEAD_W_STD).bfloat16()
+    labels = torch.randint(0, v, (n,), generator=gen, device=dev)
+    torch.matmul(h[:128], w[:128].T)              # the GEMM library's set-up
+    flops = 3 * 2 * n * hd * v                    # logits, dh, dW
+    nbytes = 2 * (2 * n * hd + 2 * v * hd) + 8 * n
+    bound, by = _bound(nbytes, flops)
+    print(f"lean_train head on {_smi()}: [{n}, {hd}] x [{v}, {hd}] bf16, "
+          f"forward + backward of the summed loss; bound {bound:.4f} ms "
+          f"({by}: {flops / 1e12:.2f} TFLOP, {nbytes / 1e9:.3f} GB)")
+    rows = {}
+    rows["unfused"], ref = _head_row(
+        "unfused", fx.lm_head_xentropy_reference, h, w, labels, 3)
+    for label, vc in ((f"fused {LEAN_CHUNK}", 0),
+                      (f"fused {LEAN_CHUNK} + vocab {LEAN_VOCAB_CHUNK}",
+                       LEAN_VOCAB_CHUNK)):
+        rows[label], _ = _head_row(
+            label, lambda a, b, y, vc=vc: fx.fused_lm_head_cross_entropy(
+                a, b, y, token_chunk=LEAN_CHUNK, vocab_chunk=vc),
+            h, w, labels, 3, ref)
+    rows["torch"], _ = _head_row(
+        "F.linear + F.cross_entropy",
+        lambda a, b, y: F.cross_entropy(F.linear(a, b).float(), y,
+                                        reduction="none"),
+        h, w, labels, 3, ref)
+    del ref
+    torch.cuda.empty_cache()
+    unfused = rows["unfused"]["rise_bytes"]
+    for label, r in rows.items():
+        if not label.startswith("fused"):
+            continue
+        if not (r["loss_rel"] <= TOL_LEAN_LOSS_REL
+                and r["dh"] <= TOL_LEAN_HEAD_GRAD
+                and r["dW"] <= TOL_LEAN_HEAD_GRAD):
+            raise AssertionError(f"lean_train head {label} is off the "
+                                 f"unfused head: {r}")
+        if not r["rise_bytes"] <= unfused / 2:
+            raise AssertionError(
+                f"lean_train head {label}: peak rise {r['rise_bytes']} is "
+                f"not at most half the unfused head's {unfused}")
+    return dict(rows=rows, bound_ms=bound)
+
+
+def _lean_llama(dev, seed: int, adam8k=None, profile: bool = False):
+    """``adam 8192 lean``: the 4-layer Llama-3-8B-wide model on
+    ``SPLIT_SEQ`` tokens as the train phase's ``adam 8192``, with the
+    fused head at ``LEAN_CHUNK`` and ``remat``.  Its first loss within
+    1e-3 relative of the same weights' unfused, non-remat loss; each
+    step launches #3 twice a layer (forward and recompute), the split
+    pair once and the one-pass backward never."""
+    from apex_tpu_torch.optimizers import functional
+    _, model, batch = _train_model(dev, seed, TRAIN_LAYERS, SPLIT_SEQ)
+    with torch.no_grad():
+        ref_loss = _train_loss(model, batch).item()
+    del model, batch
+    torch.cuda.empty_cache()
+    run = _train_run(dev, seed, "adam 8192 lean",
+                     functional.fused_adam(lr=TRAIN_LR), TRAIN_LAYERS,
+                     LEAN_STEPS, "dynamic", SPLIT_TRAIN_KERNELS,
+                     profile=profile, seq=SPLIT_SEQ,
+                     cfg_kw=dict(fused_head_xent=LEAN_CHUNK, remat=True))
+    got = run["launches"]
+    want = {"flash_attention": 2 * TRAIN_LAYERS * LEAN_STEPS,
+            "flash_attention_bwd_dq": TRAIN_LAYERS * LEAN_STEPS,
+            "flash_attention_bwd_dkv": TRAIN_LAYERS * LEAN_STEPS,
+            "flash_attention_bwd": 0}
+    rel = abs(run["losses"][0] - ref_loss) / abs(ref_loss)
+    print(f"  adam 8192 lean: first loss {run['losses'][0]:.6f} against the "
+          f"unfused, non-remat loss {ref_loss:.6f} on the same weights: "
+          f"{rel:.3e} relative (limit {TOL_LEAN_LOSS_REL}); flash launches "
+          f"{ {k: got[k] for k in want} } (want {want})")
+    if rel > TOL_LEAN_LOSS_REL:
+        raise AssertionError(f"adam 8192 lean: first loss {rel} off the "
+                             f"unfused loss")
+    if any(got[k] != n for k, n in want.items()):
+        raise AssertionError(f"adam 8192 lean: the recompute's launches "
+                             f"are not {want}: {got}")
+    if adam8k is not None:
+        print(f"  adam 8192 (this process): {adam8k['step_s']:.4f} s, "
+              f"{adam8k['tokens'] / adam8k['step_s']:.1f} tokens/s, "
+              f"{adam8k['peak_bytes'] / 2**30:.2f} GiB; lean "
+              f"{run['step_s']:.4f} s, {run['tokens'] / run['step_s']:.1f} "
+              f"tokens/s, {run['peak_bytes'] / 2**30:.2f} GiB")
+        if not run["peak_bytes"] < adam8k["peak_bytes"]:
+            raise AssertionError("adam 8192 lean: its peak device memory is "
+                                 "not below adam 8192's")
+    return run
+
+
+def _lean_lm(dev, seed: int, kind: str, lean_kw: dict, lm=None,
+             profile: bool = False):
+    """GPT-3 1.3B (``gpt_train``'s batch, dropout and Adam) or BERT-large
+    (``bert_train``'s) for ``LEAN_STEPS`` steps twice from the same
+    weights and generator seeds: the plain route, then ``lean_kw``.  The
+    first steps' flat grads within ``TOL_TRAIN_GRAD_REL_L2`` leaf by leaf
+    and their losses within 1e-3 relative; each step's flash launches as
+    :func:`phase_lm_train` holds them (the forward's instance twice a
+    layer under ``remat``).  ``lm``: the six-step run of this process,
+    printed beside; ``profile`` breaks both routes' steps down."""
+    plain_g, lean_g = [], []
+    plain = phase_lm_train(dev, seed, kind, steps=LEAN_STEPS, keep=plain_g,
+                           tag=f"plain ({LEAN_STEPS} steps)", profile=profile)
+    lean = phase_lm_train(dev, seed, kind, cfg_kw=lean_kw, steps=LEAN_STEPS,
+                          keep=lean_g, tag="lean", profile=profile)
+    phase = LM_RUNS[kind][0]
+    print(f"{phase} lean against plain, first step:")
+    losses = [lean["losses"][0], plain["losses"][0]]
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    got, ref = lean_g[0].to(dev), plain_g[0].to(dev)
+    del lean_g, plain_g
+    rels = _hold_grads(f"{phase} lean", got, ref, lean["leaves"], losses,
+                       TOL_TRAIN_GRAD_REL_L2, top=8)
+    del got, ref
+    torch.cuda.empty_cache()
+    print(f"  first losses {rel:.3e} relative (limit {TOL_LEAN_LOSS_REL})")
+    if rel > TOL_LEAN_LOSS_REL:
+        raise AssertionError(f"{phase} lean: first loss {rel} off the plain "
+                             f"route's")
+    runs = dict(plain=plain, lean=lean)
+    if lm is not None:
+        runs[f"{LM_TRAIN_STEPS} steps"] = lm
+    for label, r in runs.items():
+        print(f"  {phase} {label}: {r['step_s']:.4f} s, "
+              f"{r['tokens'] / r['step_s']:.1f} tokens/s, "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB")
+    return dict(lean, grad_rel_l2=max(rels.values()), plain=plain)
+
+
+def phase_lean_train(dev, seed: int, adam8k=None, lm_runs=None,
+                     profile: bool = False):
+    """The loss side of training: the LM head alone (unfused, fused, fused
+    with vocab slices), ``adam 8192 lean`` (the fused head and remat on
+    the 4-layer Llama-3-8B-wide model at 8192 tokens), ``gpt_train lean``
+    (GPT-3 1.3B with remat and the fused head) and ``bert_train lean``
+    (BERT-large with remat and ``ce_half_residuals``), each of the last
+    two against its plain route (``profile``: each run's steps broken
+    down by kernel).  Returns the launch counts of the three runs, added
+    together, and each part's record."""
+    lm_runs = lm_runs or {}
+    head = _lean_head(dev, seed)
+    llama = _lean_llama(dev, seed, adam8k, profile)
+    gpt = _lean_lm(dev, seed, "gpt",
+                   dict(remat=True, fused_head_xent=LEAN_CHUNK),
+                   lm_runs.get("gpt"), profile)
+    bert = _lean_lm(dev, seed, "bert",
+                    dict(remat=True, ce_half_residuals=True),
+                    lm_runs.get("bert"), profile)
+    launches = {k: llama["launches"][k] + gpt["launches"][k]
+                + bert["launches"][k] for k in llama["launches"]}
+    print("lean_train summary (step time, tokens/s, peak device memory):")
+    for label, r in (("adam 8192 lean", llama), ("gpt_train lean", gpt),
+                     ("bert_train lean", bert)):
+        print(f"  {label}: {r['step_s']:.4f} s, "
+              f"{r['tokens'] / r['step_s']:.1f} tokens/s, "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB")
+    return dict(launches=launches, head=head, llama=llama, gpt=gpt,
+                bert=bert)
+
+
 def _seq_rel_l2(got, ref, b: int) -> float:
     """The largest over the ``b`` sequences of the relative L2 difference
     of their parts of a tensor that leads with them (``[b, s, vocab]``
@@ -3558,10 +3843,11 @@ def _step_grads(dev, seed: int, seq: int, route):
     return grads, loss, counts, leaves
 
 
-def _hold_grads(label, got, ref, leaves, losses, limit):
+def _hold_grads(label, got, ref, leaves, losses, limit, top=None):
     """Hold the flat grads ``got`` against ``ref``: the relative L2 on
     every leaf's slice (the worst within ``limit``), finite values, and
-    the two losses within TOL_TRAIN_LOSS; returns the leaves' readings."""
+    the two losses within TOL_TRAIN_LOSS; returns the leaves' readings.
+    ``top`` prints only that many of the worst leaves."""
     rels, off = {}, 0
     for name, size in leaves:
         g_, r_ = got[off:off + size], ref[off:off + size]
@@ -3571,8 +3857,11 @@ def _hold_grads(label, got, ref, leaves, losses, limit):
     worst = max(rels, key=rels.get)
     finite = bool(torch.isfinite(got).all())
     print(f"  losses {losses[0]:.6f} and {losses[1]:.6f}; flat grads "
-          f"relative L2 {rel:.3e} in all, by leaf:")
-    for name, r in rels.items():
+          f"relative L2 {rel:.3e} in all, by leaf"
+          + ("" if top is None else f" (the worst {top})") + ":")
+    shown = rels if top is None else dict(
+        sorted(rels.items(), key=lambda kv: -kv[1])[:top])
+    for name, r in shown.items():
         print(f"    {r:.3e}  {name}")
     print(f"  worst leaf {worst} {rels[worst]:.3e} (limit {limit}), finite "
           f"{finite}")
@@ -5188,11 +5477,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="kernels,serve,gpt,bert,bert_train,gpt_train,"
-                            "gpt_train_8k,profile,train,optim,train-check,"
-                            "shim",
+                            "gpt_train_8k,profile,train,lean_train,optim,"
+                            "train-check,shim",
                     help="comma list of kernels, serve, gpt, bert, "
                          "bert_train, gpt_train, gpt_train_8k, profile, "
-                         "train, optim, train-check, shim, ab (build always "
+                         "train, lean_train, optim, train-check, shim, ab "
+                         "(build always "
                          "runs; profile profiles the serve and the train "
                          "phases that run)")
     ap.add_argument("--baseline", type=Path, default=None,
@@ -5233,6 +5523,7 @@ def main(argv=None) -> int:
         del gpt
     if "bert" in phases:
         phase_bert(dev, args.seed)
+    lm_runs, adam8k = {}, None
     for kind, (phase, *_) in LM_RUNS.items():
         if phase in phases:
             run = phase_lm_train(dev, args.seed, kind)
@@ -5240,6 +5531,8 @@ def main(argv=None) -> int:
                 if key in recs:
                     recs[key]["launches"] = (recs[key].get("launches") or 0) \
                         + run["launches"][key]
+            lm_runs[kind] = {k: run[k] for k in ("step_s", "peak_bytes",
+                                                 "tokens")}
             del run
     if "train" in phases:
         runs = phase_train(dev, args.seed, "profile" in phases)
@@ -5248,6 +5541,16 @@ def main(argv=None) -> int:
                     + MD_KERNELS:
                 r["launches"] = runs[KERNEL_RUN.get(key, "adam")][
                     "launches"][key]
+        adam8k = runs["adam8k"]
+        del runs
+    if "lean_train" in phases:
+        lean = phase_lean_train(dev, args.seed, adam8k, lm_runs,
+                                "profile" in phases)
+        for key, r in recs.items():
+            r["launches"] = (r.get("launches") or 0) + lean["launches"].get(
+                key, 0)
+        del lean
+        torch.cuda.empty_cache()
     if "optim" in phases:
         optim = phase_optim(dev, args.seed)
         for key, r in recs.items():

@@ -2182,3 +2182,91 @@ def test_flash_attention_dropout_autograd_launches_the_md_instances(cuda):
                          dropout_seed=77, use_kernel=False).sum().backward()
     for g_, r in ((q.grad, q2.grad), (k.grad, k2.grad), (v.grad, v2.grad)):
         assert _rel_l2(g_, r) <= 2e-2
+
+
+# --- the loss side of training: no kernel of the library, plain PyTorch
+# on the card (the fused LM head's chunks, its fp32 weight grad, remat's
+# generator replay); nothing here needs the build
+
+
+def _head_case(n, h, v, seed, pad_every):
+    rng = np.random.RandomState(seed)
+    hid = torch.from_numpy(rng.randn(n, h).astype(np.float32))
+    w = torch.from_numpy((rng.randn(v, h) * 0.3).astype(np.float32))
+    lab = torch.from_numpy(rng.randint(0, v, size=n))
+    lab[::pad_every] = -100
+    return hid, w, lab
+
+
+def _head_grads(fx, hid, w, lab, dev, dtype, **kw):
+    h = hid.to(dev, dtype).requires_grad_()
+    wt = w.to(dev, dtype).requires_grad_()
+    loss = fx.fused_lm_head_cross_entropy(h, wt, lab.to(dev), **kw)
+    loss.sum().backward()
+    return [t.detach().float().cpu() for t in (loss, h.grad, wt.grad)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vocab_chunk", [0, 64])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_fused_lm_head_on_the_card_matches_the_cpu_route(cuda, dtype,
+                                                         vocab_chunk,
+                                                         smoothing):
+    """The fused head on CUDA tensors (the bf16 weight grad accumulated
+    in fp32 by the GEMM itself) against the same op on CPU tensors: 300
+    tokens in chunks of 64 (a padded last chunk), padding rows."""
+    fx = importlib.import_module("apex_tpu_torch.ops.fused_lm_xent")
+    hid, w, lab = _head_case(300, 64, 256, 5, 7)
+    kw = dict(token_chunk=64, vocab_chunk=vocab_chunk, smoothing=smoothing)
+    got = _head_grads(fx, hid, w, lab, cuda, dtype, **kw)
+    want = _head_grads(fx, hid, w, lab, torch.device("cpu"), dtype, **kw)
+    assert torch.all(got[0][::7] == 0) and torch.all(got[1][::7] == 0)
+    if dtype == torch.float32:
+        for g_, r in zip(got, want):
+            torch.testing.assert_close(g_, r, rtol=0, atol=1e-4)
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=1e-2, atol=2e-2)
+        for g_, r in zip(got[1:], want[1:]):
+            assert (g_ - r).abs().max() <= 1.6e-2 * r.abs().max()
+
+
+def test_fused_lm_head_weight_grad_is_an_fp32_gemm_in_place(cuda):
+    """``_wgrad_add_`` on bf16 operands: the GEMM writes fp32 into ``dw``
+    itself (no other buffer), ``dw + g^T h`` as the upcast product."""
+    fx = importlib.import_module("apex_tpu_torch.ops.fused_lm_xent")
+    g = _randn((512, 384), 41, cuda)
+    h = _randn((512, 256), 42, cuda)
+    dw = _randn((384, 256), 43, cuda, torch.float32)
+    want = dw.double() + g.double().T @ h.double()
+    ptr = dw.data_ptr()
+    out = fx._wgrad_add_(dw, g, h)
+    assert out.data_ptr() == ptr and out.dtype == torch.float32
+    torch.testing.assert_close(dw.double(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_remat_replays_a_cuda_generator(cuda):
+    """``utils.remat`` over a function drawing hidden-dropout masks and an
+    attention seed from a CUDA generator: the grads and the generator's
+    final state equal the run without recompute."""
+    from apex_tpu_torch.transformer.testing.standalone_gpt import (
+        attention_seed, hidden_dropout)
+    from apex_tpu_torch.utils import remat
+    w = _randn((64, 64), 44, cuda, torch.float32)
+
+    def layer(x, gen):
+        y = hidden_dropout(torch.tanh(x @ w), 0.1, False, gen)
+        return y * attention_seed(gen, x.device).float().sign()
+
+    def run(recompute):
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(9)
+        x = _randn((32, 64), 45, cuda, torch.float32).requires_grad_()
+        y = remat(layer, x, gen, generator=gen) if recompute else layer(x,
+                                                                        gen)
+        y = remat(layer, y, gen, generator=gen) if recompute else layer(y,
+                                                                        gen)
+        y.square().sum().backward()
+        return y.detach(), x.grad, gen.get_state()
+
+    for a, b in zip(run(True), run(False)):
+        assert torch.equal(a, b)

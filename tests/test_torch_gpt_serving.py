@@ -352,8 +352,9 @@ def test_gpt_model_logits_loss_and_mask_match_jax(model):
 
 def test_gpt_model_out_of_slice_options_raise(model):
     """Training-mode dropout runs now (a finite loss that follows the
-    generator's seed; no generator raises ValueError); remat,
-    scan_layers, MoE and the fused head still raise."""
+    generator's seed; no generator raises ValueError); remat and the
+    fused head run; scan_layers (with or without remat) and MoE still
+    raise."""
     _, _, cfg, _, _ = model
     drop = gpt_model_provider(GPTConfig(**dict(CFG, hidden_dropout=0.1)),
                               device="cpu")
@@ -365,13 +366,18 @@ def test_gpt_model_out_of_slice_options_raise(model):
     assert np.isfinite(losses).all() and losses[0] == losses[1] != losses[2]
     with pytest.raises(ValueError, match="generator"):
         drop(torch.zeros(1, 4, dtype=torch.int32), deterministic=False)
-    for kw, match in ((dict(remat=True), "remat"),
-                      (dict(scan_layers=True), "item 6"),
-                      (dict(num_moe_experts=4), "item 6")):
-        with pytest.raises(NotImplementedError, match=match):
+    for kw in (dict(scan_layers=True), dict(scan_layers=True, remat=True),
+               dict(num_moe_experts=4)):
+        with pytest.raises(NotImplementedError, match="item 6"):
             gpt_model_provider(GPTConfig(**dict(CFG, **kw)), device="cpu")
-    tm = gpt_model_provider(GPTConfig(**dict(CFG, fused_head_xent=16)),
-                            device="cpu")
-    toks = torch.zeros(1, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="fused LM head"):
-        tm(toks, toks)
+    # remat and the fused head run now, on the unfused model's weights
+    toks = torch.arange(8, dtype=torch.int32)[None]
+    with torch.no_grad():
+        want = drop(toks, toks)
+        for kw in (dict(remat=True), dict(fused_head_xent=3),
+                   dict(remat=True, fused_head_xent=3)):
+            tm = gpt_model_provider(GPTConfig(**dict(CFG, hidden_dropout=0.1,
+                                                     **kw)), device="cpu")
+            tm.load_state_dict(drop.state_dict())
+            torch.testing.assert_close(tm(toks, toks), want, rtol=0,
+                                       atol=1e-5)

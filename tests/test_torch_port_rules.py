@@ -356,15 +356,26 @@ def test_training_out_of_slice_options_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="item 6"):
         vocab_parallel_cross_entropy(torch.zeros(2, 8), torch.zeros(2),
                                      tensor_model_parallel_size=2)
-    tokens = torch.zeros(1, 8, dtype=torch.int32)
-    fused, _, _ = _tiny_train(fused_head_xent=16)
-    with pytest.raises(NotImplementedError, match="fused LM head"):
-        fused(tokens, tokens)
-    monkeypatch.setenv("APEX_TPU_XENT_CHUNK", "16")
-    with pytest.raises(NotImplementedError, match="fused LM head"):
-        model(tokens, tokens)
-    with pytest.raises(NotImplementedError, match="remat"):
-        _tiny_train(remat=True)
+    # the loss side is ported: the fused head (by fused_head_xent and by
+    # APEX_TPU_XENT_CHUNK) and remat run and give the unfused loss; only
+    # the fused head's tp > 1 still raises
+    from apex_tpu_torch.ops.fused_lm_xent import (
+        fused_lm_head_vocab_parallel_cross_entropy)
+    tokens = torch.arange(8, dtype=torch.int32)[None]
+    with torch.no_grad():
+        want = model(tokens, tokens)
+        for kw in (dict(fused_head_xent=3), dict(remat=True)):
+            other, _, _ = _tiny_train(**kw)
+            other.load_state_dict(model.state_dict())
+            torch.testing.assert_close(other(tokens, tokens), want,
+                                       rtol=0, atol=1e-6)
+        monkeypatch.setenv("APEX_TPU_XENT_CHUNK", "3")
+        torch.testing.assert_close(model(tokens, tokens), want, rtol=0,
+                                   atol=1e-6)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        fused_lm_head_vocab_parallel_cross_entropy(
+            torch.zeros(2, 32), model.lm_head.weight, torch.zeros(2),
+            token_chunk=1, tensor_model_parallel_size=2)
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch):
@@ -403,3 +414,25 @@ def test_train_step_params_are_views_of_the_flat_buffers():
     state, loss = step(state, {"tokens": tokens,
                                "labels": torch.roll(tokens, -1, 1)})
     assert torch.isfinite(loss) and float(state.opt.count) == 1.0
+
+
+def test_no_raise_names_the_ported_loss_side():
+    """The chunked fused LM head and remat are ported: no source of the
+    port still refuses them by that queue item's title."""
+    stale = [str(p) for p in _sources()
+             if "chunked fused LM head and remat" in p.read_text()]
+    assert not stale
+
+
+def test_chip_smoke_runs_the_lean_phase_by_default():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    defaults = [kw.value.value for node in ast.walk(tree)
+                if isinstance(node, ast.Call)
+                for kw in node.keywords
+                if kw.arg == "default" and node.args
+                and isinstance(node.args[0], ast.Constant)
+                and node.args[0].value == "--phases"]
+    assert len(defaults) == 1
+    phases = defaults[0].split(",")
+    assert "lean_train" in phases
+    assert phases.index("lean_train") == phases.index("train") + 1
