@@ -1,0 +1,517 @@
+// Wide flash attention for Hopper (sm_90a): fp32, bf16 and fp16 operands
+// at any head dim up to 256, computed on the CUDA cores in fp32.
+//
+// Replaces: apex_tpu/ops/attention.py :: _fwd_kernel (#3w, the forward),
+// _dq_kernel (#5w, the split dq) and _dkv_kernel (#6w, the split dk, dv), for
+// the calls the wgmma instances do not take (fp32 and fp16 operands, and bf16
+// past head dim 128).  #5w and #6w also take the one-pass _bwd_fused_kernel's
+// calls: the two JAX routes compute one function. The same function as those
+// kernels: the scores in base 2 (q k^T scale log2(e)), the causal triangle at
+// offset `off`, the validity window (rows < valid_q, columns < valid_k), the
+// boolean mask3 (batch-head i reads mask i / mask_hper; True = masked), a
+// masked score -1e30 and a fully masked row 0 (lse -1e30), an fp32 online
+// softmax returning the base-2 log-sum-exp, and dropout with the JAX package's
+// keep mask (hopper.cuh :: drop_keep, the global row and column, bit for bit),
+// survivors scaled by 1 / (1 - rate); the row sums take the clean p.  For
+// 16-bit operands p rounds to the value type before P.V and ds to the operand
+// type before dq and dk, as the plain versions (ops/attention.py) round them;
+// fp32 rounds nothing.
+//
+// Design, right first: the products run on the CUDA cores in full fp32
+// (TF32 wgmma keeps ~3 decimal digits, so it would not compute the fp32
+// function, and it takes only K-major B operands).  What bounds them is
+// the fp32 FMA rate (67 TFLOP/s on an H100 SXM), then the shared-memory
+// reads that feed it.  A block is 256 threads; each row of the block's
+// tile (a query for #3w/#5w, a key for #6w) is split along d over
+// D / 32 adjacent lanes, 32 columns each (column u + (D / 32) i), so a
+// d = 256 row of q, dO and the fp32 accumulators fits in registers;
+// the partial dot products meet by xor shuffles, which give every lane
+// of the row the same bits.  The other side's rows (k and v, or q and
+// dO) stream through shared memory in 32-row stages, double-buffered
+// with cp.async (element copies where a row is not 16-byte aligned);
+// all rows of the block read each staged element at once (a broadcast).
+// The head dim is a template bucket D (64, 128, 256: ROWS = 128, 64 or 32
+// rows a block) and the real d a run-time argument; shared-memory columns
+// past d stay zero.  Causal blocks skip the tiles past their last live
+// key (#3w, #5w) or before their first live query (#6w), and run
+// heaviest first.  No atomics: #5w and #6w each write every output once,
+// so the pair repeats bit for bit.
+//
+// Plain C interface (loaded with ctypes): each entry launches on the
+// caller's stream and returns cudaGetLastError().
+
+#include "wide.cuh"
+
+namespace {
+
+constexpr int kNT = 256;     // threads a block
+constexpr int kBK = 32;      // rows a shared-memory stage
+constexpr int kKC = 8;       // rows a register chunk
+
+struct FlashWide {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  const unsigned char* mask;   // mask3 [nmask, sq, sk] or null
+  const int* seed3;            // [seed, row_off, col_off] or null
+  void *o, *dq, *dk, *dv;
+  float* lse_out;
+  int bh, sq, sk, d, causal, off, vq, vk, mask_hper, threshold, vec;
+  float inv_keep, scale_log2, scale;
+};
+
+// Which (row, column) elements are scored, for one batch-head.
+struct Live {
+  int sq, sk, vq, vk, causal, off;
+  const unsigned char* mask;   // this batch-head's [sq, sk], or null
+  __device__ bool row(int r) const { return r < sq && r < vq; }
+  __device__ bool col(int c) const { return c < sk && c < vk; }
+  __device__ bool operator()(int r, int c) const {
+    return row(r) && col(c) && (!causal || r + off >= c) &&
+           (!mask || !mask[(size_t)r * sk + c]);
+  }
+};
+
+__device__ __forceinline__ Live make_live(const FlashWide& a, int bh) {
+  return Live{a.sq, a.sk, a.vq, a.vk, a.causal, a.off,
+              a.mask ? a.mask + (size_t)(bh / a.mask_hper) * a.sq * a.sk
+                     : nullptr};
+}
+
+// Dropout's keep bits for one batch-head (off: every element kept).
+struct Drop {
+  bool on;
+  uint32_t seed, roff, coff, threshold, bh;
+  __device__ uint32_t row(int r) const {
+    return drop_row(seed, bh, roff + (uint32_t)r);
+  }
+  __device__ bool keep(uint32_t row_h, int c) const {
+    return drop_keep(row_h, drop_col(coff + (uint32_t)c), threshold);
+  }
+};
+
+__device__ __forceinline__ Drop make_drop(const FlashWide& a, int bh) {
+  if (!a.seed3) return Drop{false, 0, 0, 0, 0, 0};
+  return Drop{true, (uint32_t)a.seed3[0], (uint32_t)a.seed3[1],
+              (uint32_t)a.seed3[2], (uint32_t)a.threshold, (uint32_t)bh};
+}
+
+// One past the last key any row of [r0, r0 + rows) scores.
+__device__ __forceinline__ int key_end(const FlashWide& a, int r0, int rows) {
+  const int r1 = min(r0 + rows, min(a.sq, a.vq));
+  if (r1 <= r0) return 0;
+  int end = min(a.sk, a.vk);
+  if (a.causal) end = min(end, r1 - 1 + a.off + 1);
+  return max(end, 0);
+}
+
+// The dot product of a thread's 32 register columns with the same
+// columns of a shared-memory row (`sm` at the thread's first column),
+// summed over the row's TPR lanes.
+template <typename T, int TPR>
+__device__ __forceinline__ float row_dot(const float (&x)[32], const T* sm) {
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc = fmaf(x[i], to_f<T>(sm[TPR * i]), acc);
+  return group_sum<TPR>(acc);
+}
+
+template <typename T, int TPR>
+__device__ __forceinline__ void axpy(float (&y)[32], float a, const T* sm) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) y[i] = fmaf(a, to_f<T>(sm[TPR * i]), y[i]);
+}
+
+// A thread's 32 columns of global row `row` (zero past n rows or d
+// columns), times `mul`.
+template <typename T, int TPR>
+__device__ __forceinline__ void load_cols(float (&x)[32], const T* base,
+                                          int row, int n, int d, int u,
+                                          float mul) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int c = u + TPR * i;
+    x[i] = row < n && c < d ? to_f<T>(base[(size_t)row * d + c]) * mul : 0.f;
+  }
+}
+
+template <typename T, int TPR>
+__device__ __forceinline__ void store_cols(const float (&x)[32], T* base,
+                                           int row, int n, int d, int u,
+                                           float mul) {
+  if (row >= n) return;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int c = u + TPR * i;
+    if (c < d) base[(size_t)row * d + c] = from_f<T>(x[i] * mul);
+  }
+}
+
+// Stage rows [j0, j0 + kBK) of two [n, d] matrices (rows >= end dead).
+template <typename T, int D>
+__device__ __forceinline__ void stage2(T* xs, T* ys, const T* x, const T* y,
+                                       int j0, int end, int d, bool vec) {
+  stage_rows<T, kNT>(xs, kBK, d, vec, D, x, [&](int j) -> const T* {
+    return j0 + j < end ? x + (size_t)(j0 + j) * d : nullptr;
+  });
+  stage_rows<T, kNT>(ys, kBK, d, vec, D, y, [&](int j) -> const T* {
+    return j0 + j < end ? y + (size_t)(j0 + j) * d : nullptr;
+  });
+}
+
+// #3w: one block per (batch-head, ROWS-query tile), tiles heaviest first.
+template <typename T, int D>
+__global__ void __launch_bounds__(kNT) wide_fwd_kernel(const FlashWide a) {
+  constexpr int TPR = D / 32, ROWS = kNT / TPR;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);     // [2][kBK][D]
+  T* vs = ks + 2 * kBK * D;               // [2][kBK][D]
+  const int bh = blockIdx.y, d = a.d;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * ROWS;
+  const int u = threadIdx.x % TPR, row = r0 + threadIdx.x / TPR;
+  const size_t qoff = (size_t)bh * a.sq * d, koff = (size_t)bh * a.sk * d;
+  const T* k = static_cast<const T*>(a.k) + koff;
+  const T* v = static_cast<const T*>(a.v) + koff;
+  const Live live = make_live(a, bh);
+  const Drop drop = make_drop(a, bh);
+  zero_smem<T, kNT>(ks, 4 * kBK * D);
+  float qr[32], acc[32];
+  load_cols<T, TPR>(qr, static_cast<const T*>(a.q) + qoff, row, a.sq, d, u,
+                    a.scale_log2);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  const bool rlive = live.row(row);
+  const uint32_t rh = drop.on ? drop.row(row) : 0u;
+  const int kend = key_end(a, r0, ROWS);
+  const int tiles = (kend + kBK - 1) / kBK;
+  float m = kNegInf, l = 0.f;
+  __syncthreads();                        // zeros before the copies
+  if (tiles > 0) {
+    stage2<T, D>(ks, vs, k, v, 0, kend, d, a.vec);
+    cp_async_commit();
+  }
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {
+      stage2<T, D>(ks + (buf ^ 1) * kBK * D, vs + (buf ^ 1) * kBK * D, k, v,
+                   (t + 1) * kBK, kend, d, a.vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* kt = ks + buf * kBK * D + u;
+    const T* vt = vs + buf * kBK * D + u;
+#pragma unroll 1
+    for (int jc = 0; jc < kBK; jc += kKC) {
+      const int c0 = t * kBK + jc;
+      float s[kKC];
+      float mx = m;
+#pragma unroll
+      for (int jj = 0; jj < kKC; ++jj) {
+        s[jj] = row_dot<T, TPR>(qr, kt + (jc + jj) * D);
+        if (!(rlive && live(row, c0 + jj))) s[jj] = kNegInf;
+        mx = fmaxf(mx, s[jj]);
+      }
+      const float alpha = exp2_ftz(m - mx);
+      l *= alpha;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] *= alpha;
+#pragma unroll
+      for (int jj = 0; jj < kKC; ++jj) {
+        const float p =
+            s[jj] > kMaskedRowThresh ? exp2_ftz(s[jj] - mx) : 0.f;
+        l += p;
+        float pv = round_to<T>(p);
+        if (drop.on)
+          pv = drop.keep(rh, c0 + jj) ? round_to<T>(p * a.inv_keep) : 0.f;
+        axpy<T, TPR>(acc, pv, vt + (jc + jj) * D);
+      }
+      m = mx;
+    }
+    __syncthreads();                      // before the next stage lands
+  }
+  const float l1 = l == 0.f ? 1.f : l;
+  store_cols<T, TPR>(acc, static_cast<T*>(a.o) + qoff, row, a.sq, d, u,
+                     1.f / l1);
+  if (row < a.sq && u == 0)
+    a.lse_out[(size_t)bh * a.sq + row] = m + log2f(l1);
+}
+
+// #5w: one block per (batch-head, ROWS-query tile); dq from the base-2
+// lse and delta = rowsum(o * dO), written once.
+template <typename T, int D>
+__global__ void __launch_bounds__(kNT) wide_dq_kernel(const FlashWide a) {
+  constexpr int TPR = D / 32, ROWS = kNT / TPR;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);     // [2][kBK][D]
+  T* vs = ks + 2 * kBK * D;               // [2][kBK][D]
+  const int bh = blockIdx.y, d = a.d;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * ROWS;
+  const int u = threadIdx.x % TPR, row = r0 + threadIdx.x / TPR;
+  const size_t qoff = (size_t)bh * a.sq * d, koff = (size_t)bh * a.sk * d;
+  const T* k = static_cast<const T*>(a.k) + koff;
+  const T* v = static_cast<const T*>(a.v) + koff;
+  const Live live = make_live(a, bh);
+  const Drop drop = make_drop(a, bh);
+  zero_smem<T, kNT>(ks, 4 * kBK * D);
+  float qr[32], dor[32], dqa[32];
+  load_cols<T, TPR>(qr, static_cast<const T*>(a.q) + qoff, row, a.sq, d, u,
+                    a.scale_log2);
+  load_cols<T, TPR>(dor, static_cast<const T*>(a.dout) + qoff, row, a.sq, d,
+                    u, 1.f);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+  const float lse = row < a.sq ? a.lse[(size_t)bh * a.sq + row] : kNegInf;
+  const float delta = row < a.sq ? a.delta[(size_t)bh * a.sq + row] : 0.f;
+  const bool rlive = live.row(row) && lse > kMaskedRowThresh;
+  const uint32_t rh = drop.on ? drop.row(row) : 0u;
+  const int kend = key_end(a, r0, ROWS);
+  const int tiles = (kend + kBK - 1) / kBK;
+  __syncthreads();
+  if (tiles > 0) {
+    stage2<T, D>(ks, vs, k, v, 0, kend, d, a.vec);
+    cp_async_commit();
+  }
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {
+      stage2<T, D>(ks + (buf ^ 1) * kBK * D, vs + (buf ^ 1) * kBK * D, k, v,
+                   (t + 1) * kBK, kend, d, a.vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* kt = ks + buf * kBK * D + u;
+    const T* vt = vs + buf * kBK * D + u;
+#pragma unroll 1
+    for (int jc = 0; jc < kBK; jc += kKC) {
+      const int c0 = t * kBK + jc;
+#pragma unroll
+      for (int jj = 0; jj < kKC; ++jj) {
+        const float s = row_dot<T, TPR>(qr, kt + (jc + jj) * D);
+        float g = row_dot<T, TPR>(dor, vt + (jc + jj) * D);
+        const int c = c0 + jj;
+        const float p = rlive && live(row, c) ? exp2_ftz(s - lse) : 0.f;
+        if (drop.on) g = drop.keep(rh, c) ? g * a.inv_keep : 0.f;
+        const float ds = round_to<T>(p * (g - delta));
+        axpy<T, TPR>(dqa, ds, kt + (jc + jj) * D);
+      }
+    }
+    __syncthreads();
+  }
+  store_cols<T, TPR>(dqa, static_cast<T*>(a.dq) + qoff, row, a.sq, d, u,
+                     a.scale);
+}
+
+// #6w: one block per (batch-head, ROWS-key tile), key tiles with the most
+// live queries first; dk and dv written once.
+template <typename T, int D>
+__global__ void __launch_bounds__(kNT) wide_dkv_kernel(const FlashWide a) {
+  constexpr int TPR = D / 32, ROWS = kNT / TPR;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);     // [2][kBK][D]
+  T* dos = qs + 2 * kBK * D;              // [2][kBK][D]
+  float* ls = reinterpret_cast<float*>(dos + 2 * kBK * D);   // [2][kBK]
+  float* des = ls + 2 * kBK;                                  // [2][kBK]
+  const int bh = blockIdx.y, d = a.d;
+  const int k0 = blockIdx.x * ROWS;
+  const int u = threadIdx.x % TPR, key = k0 + threadIdx.x / TPR;
+  const size_t qoff = (size_t)bh * a.sq * d, koff = (size_t)bh * a.sk * d;
+  const T* q = static_cast<const T*>(a.q) + qoff;
+  const T* dout = static_cast<const T*>(a.dout) + qoff;
+  const float* lse = a.lse + (size_t)bh * a.sq;
+  const float* delta = a.delta + (size_t)bh * a.sq;
+  const Live live = make_live(a, bh);
+  const Drop drop = make_drop(a, bh);
+  zero_smem<T, kNT>(qs, 4 * kBK * D);
+  float kr[32], vr[32], dka[32], dva[32];
+  load_cols<T, TPR>(kr, static_cast<const T*>(a.k) + koff, key, a.sk, d, u,
+                    a.scale_log2);
+  load_cols<T, TPR>(vr, static_cast<const T*>(a.v) + koff, key, a.sk, d, u,
+                    1.f);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+  const bool klive = live.col(key);
+  // the live queries of the block's keys: [rbeg, rend)
+  const int rend = k0 < min(a.sk, a.vk) ? min(a.sq, a.vq) : 0;
+  const int rbeg = a.causal ? min(max(k0 - a.off, 0), rend) : 0;
+  const int tiles = (rend - rbeg + kBK - 1) / kBK;
+  __syncthreads();
+  auto stage = [&](int t, int buf) {
+    const int j0 = rbeg + t * kBK;
+    stage2<T, D>(qs + buf * kBK * D, dos + buf * kBK * D, q, dout, j0, rend,
+                 d, a.vec);
+    if (threadIdx.x < 2 * kBK) {
+      const int j = threadIdx.x % kBK;
+      const float* src = threadIdx.x < kBK ? lse : delta;
+      float* dst = (threadIdx.x < kBK ? ls : des) + buf * kBK + j;
+      const bool in = j0 + j < rend;
+      cp_async4z(smem_addr(dst), in ? src + j0 + j : src, in);
+    }
+    cp_async_commit();
+  };
+  if (tiles > 0) stage(0, 0);
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {
+      stage(t + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* qt = qs + buf * kBK * D + u;
+    const T* dot = dos + buf * kBK * D + u;
+    const int j0 = rbeg + t * kBK;
+#pragma unroll 1
+    for (int jc = 0; jc < kBK; jc += kKC) {
+#pragma unroll
+      for (int jj = 0; jj < kKC; ++jj) {
+        const int j = jc + jj, r = j0 + j;
+        const float s = row_dot<T, TPR>(kr, qt + j * D);
+        float g = row_dot<T, TPR>(vr, dot + j * D);
+        const float lr = ls[buf * kBK + j];
+        const bool lv = klive && r < rend && lr > kMaskedRowThresh &&
+                        live(r, key);
+        const float p = lv ? exp2_ftz(s - lr) : 0.f;
+        float pv = round_to<T>(p);
+        if (drop.on) {
+          const bool kept = drop.keep(drop.row(r), key);
+          pv = kept ? round_to<T>(p * a.inv_keep) : 0.f;
+          g = kept ? g * a.inv_keep : 0.f;
+        }
+        const float ds = round_to<T>(p * (g - des[buf * kBK + j]));
+        axpy<T, TPR>(dva, pv, dot + j * D);
+        axpy<T, TPR>(dka, ds, qt + j * D);
+      }
+    }
+    __syncthreads();
+  }
+  store_cols<T, TPR>(dka, static_cast<T*>(a.dk) + koff, key, a.sk, d, u,
+                     a.scale);
+  store_cols<T, TPR>(dva, static_cast<T*>(a.dv) + koff, key, a.sk, d, u, 1.f);
+}
+
+enum Kind { kFwd, kDq, kDkv };
+
+template <typename T, int D>
+int launch(Kind kind, const FlashWide& a, cudaStream_t stream) {
+  constexpr int ROWS = kNT / (D / 32);
+  const size_t tiles = 4 * kBK * D * sizeof(T);
+  const int n = kind == kDkv ? a.sk : a.sq;
+  const dim3 grid((n + ROWS - 1) / ROWS, a.bh);
+  int e = 0;
+  if (kind == kFwd) {
+    static std::atomic<unsigned> allowed{0};
+    e = allow_wide_smem(wide_fwd_kernel<T, D>, tiles, allowed);
+    if (!e) wide_fwd_kernel<T, D><<<grid, kNT, tiles, stream>>>(a);
+  } else if (kind == kDq) {
+    static std::atomic<unsigned> allowed{0};
+    e = allow_wide_smem(wide_dq_kernel<T, D>, tiles, allowed);
+    if (!e) wide_dq_kernel<T, D><<<grid, kNT, tiles, stream>>>(a);
+  } else {
+    const size_t bytes = tiles + 4 * kBK * sizeof(float);
+    static std::atomic<unsigned> allowed{0};
+    e = allow_wide_smem(wide_dkv_kernel<T, D>, bytes, allowed);
+    if (!e) wide_dkv_kernel<T, D><<<grid, kNT, bytes, stream>>>(a);
+  }
+  return e ? e : (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_d(Kind kind, FlashWide a, cudaStream_t stream) {
+  const size_t row = (size_t)a.d * sizeof(T);
+  a.vec = row % 16 == 0 &&
+          !(((uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
+             (uintptr_t)a.dout) % 16);
+  if (a.d <= 64) return launch<T, 64>(kind, a, stream);
+  if (a.d <= 128) return launch<T, 128>(kind, a, stream);
+  return launch<T, 256>(kind, a, stream);
+}
+
+int run(Kind kind, FlashWide a, int dtype, void* stream) {
+  cudaGetLastError();
+  if (a.bh <= 0 || a.sq <= 0 || a.sk <= 0) return 0;
+  if (a.d < 1 || a.d > 256 || a.bh > 65535 || (a.mask && a.mask_hper < 1))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32: return launch_d<float>(kind, a, s);
+    case kBF16: return launch_d<bf16>(kind, a, s);
+    case kF16: return launch_d<__half>(kind, a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// q [bh, sq, d], k/v [bh, sk, d] contiguous, all of one type (dtype: 0
+// fp32, 1 bf16, 2 fp16), 1 <= d <= 256; mask3 [bh / mask_hper, sq, sk]
+// bool or null; seed3 [seed, row_off, col_off] int32 on the device or
+// null (no dropout; else threshold = round(rate 2^24), inv_keep = 1 /
+// (1 - rate)); o [bh, sq, d] of the operands' type, lse [bh, sq] fp32
+// (base 2).
+extern "C" int apex_flash_wide_fwd(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* seed3, void* o, void* lse, int bh, int sq, int sk, int d,
+    int causal, int off, int valid_q, int valid_k, int mask_hper,
+    int threshold, float inv_keep, float scale_log2, int dtype,
+    void* stream) {
+  FlashWide a{};
+  a.q = q; a.k = k; a.v = v; a.dout = q;
+  a.mask = static_cast<const unsigned char*>(mask);
+  a.seed3 = static_cast<const int*>(seed3);
+  a.o = o; a.lse_out = static_cast<float*>(lse);
+  a.bh = bh; a.sq = sq; a.sk = sk; a.d = d; a.causal = causal; a.off = off;
+  a.vq = valid_q; a.vk = valid_k; a.mask_hper = mask_hper;
+  a.threshold = threshold; a.inv_keep = inv_keep; a.scale_log2 = scale_log2;
+  return run(kFwd, a, dtype, stream);
+}
+
+// The backward's two kernels over the forward's operands, dout [bh, sq, d]
+// (the operands' type), the base-2 lse and delta = rowsum(o * dout), both
+// [bh, sq] fp32; dq [bh, sq, d] (apex_flash_wide_dq), dk and dv [bh, sk, d]
+// (apex_flash_wide_dkv), of the operands' type.  scale is the softmax
+// scale, scale_log2 = scale log2(e).
+extern "C" int apex_flash_wide_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* mask, const void* seed3,
+    void* dq, int bh, int sq, int sk, int d, int causal, int off,
+    int valid_q, int valid_k, int mask_hper, int threshold, float inv_keep,
+    float scale_log2, float scale, int dtype, void* stream) {
+  FlashWide a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.mask = static_cast<const unsigned char*>(mask);
+  a.seed3 = static_cast<const int*>(seed3);
+  a.dq = dq;
+  a.bh = bh; a.sq = sq; a.sk = sk; a.d = d; a.causal = causal; a.off = off;
+  a.vq = valid_q; a.vk = valid_k; a.mask_hper = mask_hper;
+  a.threshold = threshold; a.inv_keep = inv_keep; a.scale_log2 = scale_log2;
+  a.scale = scale;
+  return run(kDq, a, dtype, stream);
+}
+
+extern "C" int apex_flash_wide_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* mask, const void* seed3,
+    void* dk, void* dv, int bh, int sq, int sk, int d, int causal, int off,
+    int valid_q, int valid_k, int mask_hper, int threshold, float inv_keep,
+    float scale_log2, float scale, int dtype, void* stream) {
+  FlashWide a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.mask = static_cast<const unsigned char*>(mask);
+  a.seed3 = static_cast<const int*>(seed3);
+  a.dk = dk; a.dv = dv;
+  a.bh = bh; a.sq = sq; a.sk = sk; a.d = d; a.causal = causal; a.off = off;
+  a.vq = valid_q; a.vk = valid_k; a.mask_hper = mask_hper;
+  a.threshold = threshold; a.inv_keep = inv_keep; a.scale_log2 = scale_log2;
+  a.scale = scale;
+  return run(kDkv, a, dtype, stream);
+}

@@ -192,11 +192,14 @@ class InferenceEngine:
                 decode_fusion, paged=self.paged,
                 max_pages=self.max_pages_per_slot,
                 min_pages=fusion_min_pages)
-            # a page size the kernel has no instance for fails here, not
-            # at the first decode step
+            # a pool no paged kernel takes fails here, not at the first
+            # decode step
             if self.paged and self.device.type == "cuda" \
                     and not self.decode_fused:
-                check_kernel_page_size(self.page_size)
+                dims = models.model_dims(kind, cfg)
+                check_kernel_page_size(
+                    self.page_size, group=dims["heads"] // dims["kv_heads"],
+                    head_dim=dims["head_dim"], dtype=self.cache_dtype)
         self.params = self._place(params, dtype)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))

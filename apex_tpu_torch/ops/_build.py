@@ -32,7 +32,11 @@ or dropout (``flash_attention_bwd_dq_md``); ``flash_attention_bwd_md.cu``
 the one-pass backward with a mask, with or without dropout
 (``flash_attention_bwd_masked``), with dropout alone
 (``flash_attention_bwd_drop``), and the split dk/dv kernel with a mask
-or dropout (``flash_attention_bwd_dkv_md``).  ``fused_block_decode.cu``
+or dropout (``flash_attention_bwd_dkv_md``).  The wide family, for the
+operands and head dims those instances do not take: ``flash_wide.cu``
+the forward (``flash_attention_wide``), dq (``flash_attention_wide_dq``)
+and dk/dv (``flash_attention_wide_dkv``), ``paged_wide.cu`` paged decode
+(``paged_attention_wide``).  ``fused_block_decode.cu``
 is one cooperative launch per decoder layer; its entries, called with
 a null workspace, report the workspace size without launching.  One
 entry launches no counted kernel: the mask pre-pass of the split
@@ -95,6 +99,11 @@ SOURCES = {
     "fused_block_decode.cu": {
         "fused_block_decode": "apex_fused_block_decode",
         "fused_block_decode_gpt": "apex_fused_block_decode_gpt"},
+    "flash_wide.cu": {
+        "flash_attention_wide": "apex_flash_wide_fwd",
+        "flash_attention_wide_dq": "apex_flash_wide_dq",
+        "flash_attention_wide_dkv": "apex_flash_wide_dkv"},
+    "paged_wide.cu": {"paged_attention_wide": "apex_paged_wide"},
 }
 #: the source of each kernel, by launch-counter name
 KERNELS = {name: src for src, entries in SOURCES.items() for name in entries}
@@ -201,6 +210,19 @@ _SIGNATURES = {
     # page_stride, fuse_mlp, eps, scale_log2, stream
     "apex_fused_block_decode_gpt": [_P] * 25 + [_LP, _P] + [_I] * 8
                                    + [_L, _I, _F, _F, _P],
+    # q, k, v, mask, seed3, o, lse, bh, sq, sk, d, causal, off, valid_q,
+    # valid_k, mask_hper, threshold, inv_keep, scale_log2, dtype, stream
+    "apex_flash_wide_fwd": [_P] * 7 + [_I] * 10 + [_F, _F, _I, _P],
+    # q, k, v, dout, lse, delta, mask, seed3, dq, bh, sq, sk, d, causal,
+    # off, valid_q, valid_k, mask_hper, threshold, inv_keep, scale_log2,
+    # scale, dtype, stream
+    "apex_flash_wide_dq": [_P] * 9 + [_I] * 10 + [_F] * 3 + [_I, _P],
+    # as apex_flash_wide_dq's with dk, dv in place of dq
+    "apex_flash_wide_dkv": [_P] * 10 + [_I] * 10 + [_F] * 3 + [_I, _P],
+    # q (fp32), k_pages, v_pages, page_table, lengths, out (fp32),
+    # part_acc, part_ml, counters, slots, h, kvh, ps, d, mpps, pages,
+    # page_stride, nsplit, pages_per_split, scale_log2, dtype, stream
+    "apex_paged_wide": [_P] * 9 + [_I] * 6 + [_L, _L, _I, _I, _F, _I, _P],
 }
 
 

@@ -47,7 +47,14 @@ Port of ``apex_tpu/ops/attention.py``, ``[b, h, s, d]`` layout:
   one-pass backward with a mask, with or without dropout, and with
   dropout alone), ``flash_attention_bwd_dq_md`` and
   ``flash_attention_bwd_dkv_md`` (the split pair with a mask or
-  dropout).
+  dropout).  Those are the bf16 instances, at head dims 32, 64 and 128
+  (64 and 128 with a mask in the backward or with dropout); a bf16 call
+  between them is zero-padded to the next.  Every other call up to head
+  dim 256 -- fp32 and fp16 operands, bf16 past 128 -- takes the wide
+  kernels of ``csrc/flash_wide.cu`` on the CUDA cores: the forward
+  ``flash_attention_wide`` (#3w) and, for either JAX backward route,
+  the pair ``flash_attention_wide_dq`` and ``flash_attention_wide_dkv``
+  (#5w, #6w).  One predicate names the route (:func:`_flash_route`).
 * :func:`decode_attention` — single-token attention against the dense
   slot cache: the JAX package's plain grouped chain at or below its
   crossover (:func:`decode_xla_max_seq`, 4096 cached positions), the
@@ -108,6 +115,11 @@ _MASK_TILE = 128
 #: head dims the mask and dropout instances (the backward with a mask,
 #: anything with dropout) are built for
 _MD_HEAD_DIMS = (64, 128)
+#: the widest head dim a flash kernel takes: the wide kernels' largest
+#: bucket (ROADMAP V9 holds the head dims past it)
+_WIDE_MAX_HEAD_DIM = 256
+#: the wide kernels' operand types, by the code their C entries take
+_WIDE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: murmur3's fmix32 constants as unsigned 32-bit values (the JAX package
 #: writes the same bits as signed int32 literals)
 _H1 = 0x9E3779B9
@@ -287,6 +299,42 @@ def _check_kernel_operands(kernel, q3, k3, v3, extra=()):
         raise ValueError(f"b*h = {bh} exceeds the kernel grid (65535)")
 
 
+def _flash_route(dtype, d: int, masked: bool, rate: float):
+    """The kernel family a flash call takes, stated once for the
+    forward and the backward (either JAX route): ``("instance", dp)``
+    for bf16 operands at head dim ``d <= 128`` -- the wgmma instances at
+    ``dp``, the next head dim they are built for (:data:`_KERNEL_HEAD_DIMS`;
+    :data:`_MD_HEAD_DIMS` with a mask or dropout, whose backward instances
+    start at 64), the operands zero-padded to it by
+    :func:`flash_attention` -- and ``("wide", d)`` for the rest up to head
+    dim 256: fp32 and fp16 operands, and bf16 past 128 (#3w forward,
+    #5w + #6w backward, ``csrc/flash_wide.cu``).  A head dim past 256
+    raises (ROADMAP V9)."""
+    if not 1 <= d <= _WIDE_MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash attention kernels take head_dim 1..{_WIDE_MAX_HEAD_DIM}, "
+            f"got {d}: head dims past {_WIDE_MAX_HEAD_DIM} are ROADMAP V9")
+    if dtype == torch.bfloat16 and d <= _KERNEL_HEAD_DIMS[-1]:
+        dims = _MD_HEAD_DIMS if masked or rate else _KERNEL_HEAD_DIMS
+        return "instance", next(x for x in dims if x >= d)
+    return "wide", d
+
+
+def _window(sq, sk, causal_off, valid):
+    """``(off, valid_q, valid_k)`` as the kernels take them."""
+    off = (sk - sq) if causal_off is None else int(causal_off)
+    vq, vk = (sq, sk) if valid is None else (int(valid[0]), int(valid[1]))
+    return off, vq, vk
+
+
+def _check_seed3(kernel, seed3, device):
+    if seed3 is None or seed3.dtype != torch.int32 \
+            or tuple(seed3.shape) != (3,) or seed3.device != device \
+            or not seed3.is_contiguous():
+        raise ValueError(f"{kernel} takes the dropout seed operand as a "
+                         f"contiguous int32 [3] on {device}")
+
+
 def _live_mask(sq, sk, causal, off, valid, device):
     rows = torch.arange(sq, device=device)[:, None]
     cols = torch.arange(sk, device=device)[None, :]
@@ -402,8 +450,7 @@ def _kernel_args(kernel, q3, k3, v3, lse, do3, causal, scale, causal_off,
     if lse.shape != (bh, sq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous fp32 [{bh}, {sq}]")
-    off = (sk - sq) if causal_off is None else int(causal_off)
-    vq, vk = (sq, sk) if valid is None else (int(valid[0]), int(valid[1]))
+    off, vq, vk = _window(sq, sk, causal_off, valid)
     return (bh, sq, sk, d, int(causal), off, vq, vk, float(scale * _LOG2E),
             float(scale))
 
@@ -439,11 +486,8 @@ def _md_operands(kernel, q3, sk, mask3, rate, seed3, scratch=None):
         cls, bits = scratch if scratch is not None else _mask_scratch(
             mask3.shape[0], sq, sk, q3.device)
         hper = bh // mask3.shape[0]
-    if rate and (seed3 is None or seed3.dtype != torch.int32
-                 or tuple(seed3.shape) != (3,) or seed3.device != q3.device
-                 or not seed3.is_contiguous()):
-        raise ValueError(f"{kernel} takes the dropout seed operand as a "
-                         f"contiguous int32 [3] on {q3.device}")
+    if rate:
+        _check_seed3(kernel, seed3, q3.device)
     ptr = (lambda t: None if t is None else t.data_ptr())
     return ((ptr(mask3), ptr(cls), ptr(bits), ptr(seed3) if rate else None),
             (hper, sk, _drop_threshold(rate) if rate else 0),
@@ -458,8 +502,7 @@ def _mask_tiles(q3, sk, mask3, causal, causal_off=None, valid=None):
     sq = q3.shape[1]
     if not mask3.is_contiguous():
         raise ValueError("the mask pre-pass needs a contiguous mask3")
-    off = (sk - sq) if causal_off is None else int(causal_off)
-    vq, vk = (sq, sk) if valid is None else (int(valid[0]), int(valid[1]))
+    off, vq, vk = _window(sq, sk, causal_off, valid)
     cls, bits = _mask_scratch(mask3.shape[0], sq, sk, q3.device)
     err = _build.library().apex_flash_mask_tiles(
         mask3.data_ptr(), cls.data_ptr(), bits.data_ptr(), mask3.shape[0],
@@ -584,21 +627,156 @@ def _bwd_kernel(q3, k3, v3, o3, lse, do3, causal, scale, causal_off=None,
     return dq, dk, dv
 
 
+def _wide_operands(kernel, q3, k3, v3, mask3, rate, seed3, extra=()):
+    """The wide kernels' checks (fp32, bf16 or fp16 ``[bh, s, d]``
+    operands of one type on one card, contiguous, head_dim 1..256);
+    returns ``(mask3 pointer, seed3 pointer), (mask_hper, threshold),
+    inv_keep, dtype code``."""
+    if q3.device.type != "cuda":
+        raise ValueError(f"{kernel} runs on cuda or cpu, got {q3.device}")
+    bh, sq, d = q3.shape
+    sk = k3.shape[1]
+    if k3.shape != (bh, sk, d) or v3.shape != k3.shape:
+        raise ValueError(f"k/v must be [{bh}, sk, {d}] and equal-shaped, "
+                         f"got k {tuple(k3.shape)} v {tuple(v3.shape)}")
+    if q3.dtype not in _WIDE_DTYPES:
+        raise TypeError(f"{kernel} kernel takes float32, bfloat16 or "
+                        f"float16, got q {q3.dtype}")
+    for name, t in (("q", q3), ("k", k3), ("v", v3), *extra):
+        if t.dtype != q3.dtype:
+            raise TypeError(f"{kernel} kernel takes operands of one type, "
+                            f"got {name} {t.dtype} beside q {q3.dtype}")
+        if t.device != q3.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q3.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel} kernel needs a contiguous {name}")
+    _flash_route(q3.dtype, d, mask3 is not None, rate)     # head_dim <= 256
+    if bh > 65535:
+        raise ValueError(f"b*h = {bh} exceeds the kernel grid (65535)")
+    hper = 1
+    if mask3 is not None:
+        if not mask3.is_contiguous():
+            raise ValueError(f"{kernel} needs a contiguous mask3")
+        hper = bh // mask3.shape[0]
+    if rate:
+        _check_seed3(kernel, seed3, q3.device)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    return ((ptr(mask3), ptr(seed3) if rate else None),
+            (hper, _drop_threshold(rate) if rate else 0),
+            _inv_keep(rate) if rate else 1.0, _WIDE_DTYPES[q3.dtype])
+
+
+def _fwd_wide(q3, k3, v3, causal, scale, causal_off=None, valid=None,
+              mask3=None, rate=0.0, seed3=None):
+    """#3w, the wide forward (``apex_flash_wide_fwd``, counter
+    ``flash_attention_wide``): ``(out, lse)`` as :func:`_fwd_reference`
+    gives them, for fp32, bf16 and fp16 operands at head_dim 1..256, with
+    ``mask3`` read in place and dropout."""
+    bh, sq, d = q3.shape
+    sk = k3.shape[1]
+    ptrs, ints, inv_keep, code = _wide_operands(
+        "flash_attention_wide", q3, k3, v3, mask3, rate, seed3)
+    out = torch.empty_like(q3)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q3.device)
+    _build.count("flash_attention_wide")
+    err = _build.library().apex_flash_wide_fwd(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), *ptrs, out.data_ptr(),
+        lse.data_ptr(), bh, sq, sk, d, int(causal),
+        *_window(sq, sk, causal_off, valid), *ints, inv_keep,
+        float(scale * _LOG2E), code, _build.stream_ptr(q3.device))
+    _build.check(err, "flash_attention_wide")
+    return out, lse
+
+
+def _wide_bwd_args(kernel, q3, k3, v3, lse, delta, do3):
+    """The checks the wide backward kernels add: ``dout`` like q,
+    ``lse`` and ``delta`` contiguous fp32 ``[bh, sq]``."""
+    bh, sq = q3.shape[0], q3.shape[1]
+    if do3.shape != q3.shape:
+        raise ValueError(f"dout must be {tuple(q3.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (bh, sq) or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != q3.device:
+            raise ValueError(f"{kernel}: {name} must be a contiguous fp32 "
+                             f"[{bh}, {sq}] on {q3.device}")
+
+
+def _dq_wide(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
+             valid=None, mask3=None, rate=0.0, seed3=None):
+    """#5w, the wide dq (``apex_flash_wide_dq``, counter
+    ``flash_attention_wide_dq``; operands as :func:`_dq_reference`'s):
+    ``dq`` in q's type, written once, no atomics."""
+    name = "flash_attention_wide_dq"
+    bh, sq, d = q3.shape
+    sk = k3.shape[1]
+    ptrs, ints, inv_keep, code = _wide_operands(
+        name, q3, k3, v3, mask3, rate, seed3, (("dout", do3),))
+    _wide_bwd_args(name, q3, k3, v3, lse, delta, do3)
+    dq = torch.empty_like(q3)
+    _build.count(name)
+    err = _build.library().apex_flash_wide_dq(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *ptrs, dq.data_ptr(), bh, sq, sk,
+        d, int(causal), *_window(sq, sk, causal_off, valid), *ints, inv_keep,
+        float(scale * _LOG2E), float(scale), code,
+        _build.stream_ptr(q3.device))
+    _build.check(err, name)
+    return dq
+
+
+def _dkv_wide(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
+              valid=None, mask3=None, rate=0.0, seed3=None):
+    """#6w, the wide dk/dv (``apex_flash_wide_dkv``, counter
+    ``flash_attention_wide_dkv``; operands as :func:`_dkv_reference`'s):
+    ``(dk, dv)`` in the operands' type, each written once."""
+    name = "flash_attention_wide_dkv"
+    bh, sq, d = q3.shape
+    sk = k3.shape[1]
+    ptrs, ints, inv_keep, code = _wide_operands(
+        name, q3, k3, v3, mask3, rate, seed3, (("dout", do3),))
+    _wide_bwd_args(name, q3, k3, v3, lse, delta, do3)
+    dk = torch.empty_like(k3)
+    dv = torch.empty_like(v3)
+    _build.count(name)
+    err = _build.library().apex_flash_wide_dkv(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *ptrs, dk.data_ptr(),
+        dv.data_ptr(), bh, sq, sk, d, int(causal),
+        *_window(sq, sk, causal_off, valid), *ints, inv_keep,
+        float(scale * _LOG2E), float(scale), code,
+        _build.stream_ptr(q3.device))
+    _build.check(err, name)
+    return dk, dv
+
+
 def _bwd(q3, k3, v3, o3, lse, do3, causal: bool, scale: float,
          causal_off: Optional[int] = None,
          valid: Optional[Tuple[int, int]] = None, mask3=None,
-         rate: float = 0.0, seed3=None):
+         rate: float = 0.0, seed3=None, head_dim: Optional[int] = None):
     """Backward over ``[b*h, s, d]`` operands from the forward's output
     and base-2 ``lse``: ``(dq, dk, dv)``, with the forward's ``mask3``
-    and dropout (``rate``, ``seed3``).  The one-pass kernel while
-    ``sq * d * 4 <= _FUSED_BWD_MAX_BYTES``, else the split pair, whose
-    two kernels share one mask pre-pass; each kernel's plain version for
-    CPU tensors."""
+    and dropout (``rate``, ``seed3``).  On the route of
+    :func:`_flash_route`: the wide pair #5w + #6w for the operands the
+    instances do not take (both JAX routes compute one function); else
+    the one-pass kernel while ``sq * head_dim * 4 <=
+    _FUSED_BWD_MAX_BYTES``, and the split pair beyond, whose two kernels
+    share one mask pre-pass; each kernel's plain version for CPU tensors.
+    ``head_dim`` is the call's real head dim where the operands were
+    zero-padded to an instance's (the gate reads it, as the JAX gate
+    reads the unpadded one); by default the operands'."""
     cpu = q3.device.type == "cpu"
     md = dict(mask3=mask3, rate=rate, seed3=seed3)
     if mask3 is not None:
         _check_mask3(mask3, q3, k3.shape[1])
-    if not _split_bwd(q3.shape[1], q3.shape[2]):
+    family, _ = _flash_route(q3.dtype, q3.shape[2], mask3 is not None, rate)
+    if not cpu and family == "wide":
+        if o3.shape != q3.shape:
+            raise ValueError(f"out must be {tuple(q3.shape)}")
+        args = (q3, k3, v3, lse, _delta(o3, do3), do3, causal, scale,
+                causal_off, valid)
+        return (_dq_wide(*args, **md), *_dkv_wide(*args, **md))
+    if not _split_bwd(q3.shape[1], q3.shape[2] if head_dim is None
+                      else head_dim):
         return (_bwd_reference if cpu else _bwd_kernel)(
             q3, k3, v3, o3, lse, do3, causal, scale, causal_off, valid,
             **md)
@@ -622,10 +800,14 @@ class _FlashAttention(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, q3, k3, v3, causal, scale, mask3, seed3, rate):
+    def forward(ctx, q3, k3, v3, causal, scale, mask3, seed3, rate,
+                head_dim):
         out, lse = _fwd(q3, k3, v3, causal, scale, mask3=mask3, rate=rate,
                         seed3=seed3)
         ctx.causal, ctx.scale, ctx.rate = causal, scale, rate
+        # the real head dim, for the backward's gate, where q3 is padded
+        ctx.pad_kw = {} if head_dim == q3.shape[2] else {
+            "head_dim": head_dim}
         ctx.save_for_backward(q3, k3, v3, mask3, seed3, out, lse)
         return out
 
@@ -634,8 +816,8 @@ class _FlashAttention(torch.autograd.Function):
         q3, k3, v3, mask3, seed3, out, lse = ctx.saved_tensors
         dq, dk, dv = _bwd(q3, k3, v3, out, lse, do3.contiguous(),
                           ctx.causal, ctx.scale, mask3=mask3,
-                          rate=ctx.rate, seed3=seed3)
-        return dq, dk, dv, None, None, None, None, None
+                          rate=ctx.rate, seed3=seed3, **ctx.pad_kw)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def _check_mask3(mask3, q3, sk):
@@ -666,12 +848,15 @@ def _fwd(q3, k3, v3, causal: bool, scale: float,
     sk = k3.shape[1]
     if mask3 is not None:
         _check_mask3(mask3, q3, sk)
+    family, _ = _flash_route(q3.dtype, d, mask3 is not None, rate)
     if q3.device.type == "cpu":
         return _fwd_reference(q3, k3, v3, causal, scale, causal_off, valid,
                               mask3, rate, seed3)
+    if family == "wide":
+        return _fwd_wide(q3, k3, v3, causal, scale, causal_off, valid,
+                         mask3, rate, seed3)
     _check_kernel_operands("flash_attention", q3, k3, v3)
-    off = (sk - sq) if causal_off is None else int(causal_off)
-    vq, vk = (sq, sk) if valid is None else (int(valid[0]), int(valid[1]))
+    off, vq, vk = _window(sq, sk, causal_off, valid)
     out = torch.empty_like(q3)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q3.device)
     lib = _build.library()
@@ -800,10 +985,13 @@ def flash_attention(q, k, v, *, causal: bool = False, mask=None,
     package's XLA route, plain PyTorch on any device
     (:func:`_xla_attention`, differentiable with a mask too).
     ``use_kernel=True``, an explicit ``block_q`` or ``block_k``, and
-    ``use_kernel=None`` take the kernel route: on CUDA the kernels
-    (bf16 operands, head_dim 32/64/128, any sequence lengths), on the
-    CPU their plain versions.  The JAX entry's ``None`` applies the
-    short-sequence crossover (``xla_max_seq`` >
+    ``use_kernel=None`` take the kernel route: on CUDA the kernels, on
+    the CPU their plain versions, on :func:`_flash_route`'s route (any
+    sequence lengths): bf16 operands at head dim up to 128 run the wgmma
+    instances, zero-padded here to the next head dim an instance takes
+    (the scale from the real one); fp32 and fp16 operands, and bf16 past
+    128, the wide kernels; a head dim past 256 raises.  The JAX entry's
+    ``None`` applies the short-sequence crossover (``xla_max_seq`` >
     ``APEX_TPU_ATTN_XLA_MAX_SEQ`` > 256, :func:`xla_path_max_seq`) on
     TPU backends only and takes the kernel on every other backend, so
     here it takes the kernel whatever the crossover; the crossover is
@@ -851,15 +1039,21 @@ def flash_attention(q, k, v, *, causal: bool = False, mask=None,
         return _xla_attention(q, k, v, causal=causal, scale=scale,
                               mask=mask, rate=dropout_rate,
                               seed=dropout_seed)
+    _, dp = _flash_route(q.dtype, d, mask is not None, dropout_rate)
     mask3 = None if mask is None else _mask3(mask, b, h, sq, sk)
     seed3 = (_seed_operand(dropout_seed, device=q.device) if dropout_rate
              else None)
     q3 = q.reshape(b * h, sq, d).contiguous()
     k3 = k.reshape(b * h, sk, d).contiguous()
     v3 = v.reshape(b * h, sk, d).contiguous()
+    if dp != d:
+        # the instance's head dim: zero columns add nothing to a score
+        # and come out as zero columns of the output, sliced off
+        q3, k3, v3 = (torch.nn.functional.pad(t, (0, dp - d))
+                      for t in (q3, k3, v3))
     out = _FlashAttention.apply(q3, k3, v3, causal, scale, mask3, seed3,
-                                float(dropout_rate))
-    return out.reshape(b, h, sq, d)
+                                float(dropout_rate), d)
+    return out[..., :d].reshape(b, h, sq, d)
 
 
 def decode_xla_max_seq(override=None) -> int:
@@ -893,9 +1087,11 @@ def decode_attention(q, k, v, lengths, *, sm_scale: Optional[float] = None,
     taken from ``lengths``: the same function with no broadcast and no
     mask tensor (:func:`_decode_kernel` on CUDA, launch counter
     ``flash_attention_masked``; :func:`_decode_reference` on the CPU).
-    Query groups and head dims the decode kernel has no instance for
-    (groups other than 1, 2, 4, 8; head_dim 32) take the JAX package's
-    branch, the broadcast and the masked flash forward."""
+    Caches the decode kernel has no instance for (groups other than 1,
+    2, 4, 8; head dims other than 64 and 128; fp32 and fp16) take the
+    JAX package's branch, the broadcast and the masked flash forward on
+    :func:`_flash_route`'s route (the wide forward #3w, or a padded bf16
+    instance)."""
     squeezed = q.dim() == 3
     if squeezed:
         q = q[:, :, None, :]
@@ -926,16 +1122,22 @@ def decode_attention(q, k, v, lengths, *, sm_scale: Optional[float] = None,
         if q.device.type == "cpu":
             out = _decode_reference(qg, k, v, lengths, scale)
         elif group in _DECODE_KERNEL_GROUPS \
-                and d in _DECODE_KERNEL_HEAD_DIMS:
+                and d in _DECODE_KERNEL_HEAD_DIMS \
+                and q.dtype == k.dtype == v.dtype == torch.bfloat16:
             out = _decode_kernel(qg.contiguous(), k, v, lengths.contiguous(),
                                  scale)
         else:
-            # the JAX package's branch: k/v broadcast to the query heads
+            # the JAX package's branch: k/v broadcast to the query heads,
+            # then the flash route (#3w, or a padded instance), the three
+            # in their promoted type (the kernels take one type)
+            dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                     v.dtype)
             kb, vb = (t[:, :, None].expand(b, kvh, group, s_cache, d)
-                      .reshape(b, h, s_cache, d) for t in (k, v))
+                      .reshape(b, h, s_cache, d).to(dt) for t in (k, v))
             mask = cols[None, None, None, :] >= lengths[:, None, None, None]
-            out = flash_attention(q, kb, vb, mask=mask, sm_scale=scale,
-                                  use_kernel=True)
+            out = flash_attention(q.to(dt), kb, vb, mask=mask,
+                                  sm_scale=scale, use_kernel=True
+                                  ).to(q.dtype)
         out = out.reshape(b, h, 1, d)
         return out[:, :, 0] if squeezed else out
     # the plain grouped chain: no kv broadcast materialized

@@ -11,9 +11,13 @@ virtual position ``t`` of a slot resolves to physical page
 ``page_table[slot, t // page_size]``, row ``t % page_size``.
 
 The call takes the JAX entry's routing arguments.  ``use_kernel=True``,
-and ``use_kernel=None`` whatever the window, run
-``csrc/paged_attention.cu`` on CUDA (the counterpart of the Pallas
-``_paged_kernel``); ``use_kernel=False`` gathers the slots' windows and
+and ``use_kernel=None`` whatever the window, run a counterpart of the
+Pallas ``_paged_kernel`` on CUDA, on the route of :func:`_paged_route`:
+``csrc/paged_attention.cu`` for bf16 pools at groups 1/2/4/8, head dims
+64/128 and pages of 16 to 128 (counter ``paged_attention``), and the
+wide kernel ``csrc/paged_wide.cu`` (#7w, counter
+``paged_attention_wide``) for every other pool up to head dim 256 (fp32,
+bf16 or fp16; any group, page size and page stride); ``use_kernel=False`` gathers the slots' windows and
 scores them through ``decode_attention(use_kernel=False)``, the JAX
 package's XLA route, on any device.  The JAX entry's ``None`` applies
 its crossover (:func:`paged_xla_max_pages`: ``xla_max_pages`` >
@@ -50,7 +54,8 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops.attention import _LOG2E, _NEG_INF, _int_knob
+from apex_tpu_torch.ops.attention import (_LOG2E, _NEG_INF, _WIDE_DTYPES,
+                                          _WIDE_MAX_HEAD_DIM, _int_knob)
 
 __all__ = ["paged_decode_attention", "paged_decode_reference",
            "paged_xla_max_pages",
@@ -63,6 +68,9 @@ __all__ = ["paged_decode_attention", "paged_decode_reference",
 _KERNEL_GROUPS = (1, 2, 4, 8)
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_PAGE_SIZES = (16, 32, 64, 128)
+#: query rows a block of the wide kernel (#7w) takes: a group past it
+#: runs as several row chunks
+_WIDE_ROWS = 32
 #: the fewest window positions a split covers: a shorter split ends
 #: before the kernel's ring of pages fills
 _MIN_SPLIT_TOKENS = 512
@@ -79,13 +87,34 @@ _PAGED_XLA_MAX_PAGES = 64
 _PAGED_XLA_MAX_PAGES_ENV = "APEX_TPU_PAGED_XLA_MAX_PAGES"
 
 
-def check_kernel_page_size(page_size: int) -> None:
-    """Raise unless the kernel has an instance for ``page_size``: an
-    engine on the card checks its pool once, when it is built, not at
-    its first decode step."""
-    if page_size not in _KERNEL_PAGE_SIZES:
-        raise ValueError(f"paged attention kernel takes page_size in "
-                         f"{_KERNEL_PAGE_SIZES}, got {page_size}")
+def _paged_route(q_dtype, pool_dtype, group: int, d: int, ps: int) -> str:
+    """The kernel a paged decode call takes: ``"paged_attention"``, the
+    mma instance (bf16 query and pool, groups 1/2/4/8, head dims 64/128,
+    pages of 16 to 128), or ``"paged_attention_wide"`` (#7w,
+    ``csrc/paged_wide.cu``) for every other pool: fp32, bf16 or fp16,
+    any group and page size, head dims up to 256.  Past 256 raises
+    (ROADMAP V9), as does a page size below 1."""
+    if ps < 1:
+        raise ValueError(f"page_size must be positive, got {ps}")
+    if not 1 <= d <= _WIDE_MAX_HEAD_DIM:
+        raise ValueError(
+            f"paged attention kernels take head_dim 1..{_WIDE_MAX_HEAD_DIM}, "
+            f"got {d}: head dims past {_WIDE_MAX_HEAD_DIM} are ROADMAP V9")
+    if q_dtype == pool_dtype == torch.bfloat16 and group in _KERNEL_GROUPS \
+            and d in _KERNEL_HEAD_DIMS and ps in _KERNEL_PAGE_SIZES:
+        return "paged_attention"
+    return "paged_attention_wide"
+
+
+def check_kernel_page_size(page_size: int, *, group: int = 1,
+                           head_dim: int = 64,
+                           dtype=torch.bfloat16) -> None:
+    """Raise unless a paged kernel takes the pool (``page_size``, the
+    query ``group``, ``head_dim``, the pool's ``dtype``): an engine on
+    the card checks its pool once, when it is built, not at its first
+    decode step.  With the wide kernel, every page size, group and
+    float type is taken up to head dim 256 (:func:`_paged_route`)."""
+    _paged_route(dtype, dtype, group, head_dim, page_size)
 
 
 class SplitPlan(NamedTuple):
@@ -217,14 +246,14 @@ def _gathered_decode(q3, k_pages, v_pages, page_table, lengths, scale):
                             sm_scale=scale, use_kernel=False)
 
 
-def _kernel_call(q3, k_pages, v_pages, page_table, lengths, scale):
-    slots, h, d = q3.shape
-    _, kvh, ps, _ = k_pages.shape
-    mpps = page_table.shape[1]
-    if q3.dtype != torch.bfloat16 or k_pages.dtype != torch.bfloat16 \
-            or v_pages.dtype != torch.bfloat16:
-        raise TypeError(f"paged attention kernel takes bfloat16 q/k/v, got "
-                        f"{q3.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+def _check_pool_view(q3, k_pages, v_pages, page_table, lengths):
+    """What both paged kernels take of the operands' layout: int32
+    ``page_table`` and ``lengths`` on q's device, contiguous q, table and
+    lengths, a pool view with heads and rows contiguous inside a page and
+    any page stride (one layer of the ``[pages, layers, ...]`` pool),
+    at most 65535 slots and a nonempty window."""
+    slots, _, d = q3.shape
+    ps = k_pages.shape[2]
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("page_table and lengths must be int32")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
@@ -234,8 +263,6 @@ def _kernel_call(q3, k_pages, v_pages, page_table, lengths, scale):
     if not (q3.is_contiguous() and page_table.is_contiguous()
             and lengths.is_contiguous()):
         raise ValueError("q, page_table and lengths must be contiguous")
-    # the pool view: heads and rows contiguous inside a page, any page
-    # stride (one layer of the [pages, layers, ...] pool)
     inner = (ps * d, d, 1)
     if k_pages.stride()[1:] != inner or v_pages.stride() != k_pages.stride():
         raise ValueError(
@@ -243,6 +270,19 @@ def _kernel_call(q3, k_pages, v_pages, page_table, lengths, scale):
             f"got k {k_pages.stride()} v {v_pages.stride()}")
     if slots > 65535:
         raise ValueError(f"{slots} slots exceed the kernel grid (65535)")
+    if page_table.shape[1] == 0:
+        raise ValueError("page_table has no columns: the window is empty")
+
+
+def _kernel_call(q3, k_pages, v_pages, page_table, lengths, scale):
+    slots, h, d = q3.shape
+    _, kvh, ps, _ = k_pages.shape
+    mpps = page_table.shape[1]
+    if q3.dtype != torch.bfloat16 or k_pages.dtype != torch.bfloat16 \
+            or v_pages.dtype != torch.bfloat16:
+        raise TypeError(f"paged attention kernel takes bfloat16 q/k/v, got "
+                        f"{q3.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    _check_pool_view(q3, k_pages, v_pages, page_table, lengths)
     if h // kvh not in _KERNEL_GROUPS or d not in _KERNEL_HEAD_DIMS \
             or ps not in _KERNEL_PAGE_SIZES:
         raise ValueError(
@@ -254,8 +294,6 @@ def _kernel_call(q3, k_pages, v_pages, page_table, lengths, scale):
             or k_pages.stride(0) % 8:
         raise ValueError("k/v pages must be 16-byte aligned with a page "
                          "stride that is a multiple of 8 elements")
-    if mpps == 0:
-        raise ValueError("page_table has no columns: the window is empty")
     # split the window over blocks (flash-decoding); the last block of
     # each (slot, kv head) to finish merges its splits' partial states
     plan = _plan_splits(slots, kvh, h // kvh, d, ps, mpps,
@@ -283,6 +321,50 @@ def _kernel_call(q3, k_pages, v_pages, page_table, lengths, scale):
     return out
 
 
+def _wide_call(q3, k_pages, v_pages, page_table, lengths, scale):
+    """#7w, the wide paged decode (``csrc/paged_wide.cu``, counter
+    ``paged_attention_wide``): any float query (read in fp32, the output
+    cast back to its type) against an fp32, bf16 or fp16 pool at any
+    group, page size and page stride, head_dim 1..256.  The window runs
+    as :func:`_plan_splits`' splits; a group past 32 rows as several row
+    chunks, each with its own merge counter."""
+    slots, h, d = q3.shape
+    _, kvh, ps, _ = k_pages.shape
+    mpps = page_table.shape[1]
+    if k_pages.dtype not in _WIDE_DTYPES or v_pages.dtype != k_pages.dtype:
+        raise TypeError(f"wide paged kernel takes an fp32, bf16 or fp16 "
+                        f"pool of one type, got {k_pages.dtype}/"
+                        f"{v_pages.dtype}")
+    if not q3.is_floating_point():
+        raise TypeError(f"q must be a float tensor, got {q3.dtype}")
+    _check_pool_view(q3, k_pages, v_pages, page_table, lengths)
+    group = h // kvh
+    plan = _plan_splits(slots, kvh, group, d, ps, mpps, _sm_count(q3.device))
+    qf = q3.float().contiguous()
+    out = torch.empty(q3.shape, dtype=torch.float32, device=q3.device)
+    f32 = dict(dtype=torch.float32, device=q3.device)
+    part_acc = torch.empty(plan.part_acc, **f32) if plan.part_acc else None
+    part_ml = torch.empty(plan.part_ml, **f32) if plan.part_ml else None
+    stream = _build.stream_ptr(q3.device)
+    counters = _counters(q3.device, stream, plan.counters * -(
+        -group // _WIDE_ROWS)) if plan.counters else None
+    lib = _build.library()
+    _build.count("paged_attention_wide")
+    err = lib.apex_paged_wide(
+        qf.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        part_acc.data_ptr() if part_acc is not None else None,
+        part_ml.data_ptr() if part_ml is not None else None,
+        counters.data_ptr() if counters is not None else None, slots, h,
+        kvh, ps, d, mpps, k_pages.shape[0], k_pages.stride(0), plan.nsplit,
+        plan.pages_per_split, float(scale * _LOG2E),
+        _WIDE_DTYPES[k_pages.dtype], stream)
+    if err and counters is not None:
+        counters.zero_()      # whatever a failed launch left behind
+    _build.check(err, "paged_attention_wide")
+    return out.to(q3.dtype)
+
+
 def paged_xla_max_pages(override=None) -> int:
     """The JAX entry's paged-decode crossover, in pages a slot: explicit
     override > ``APEX_TPU_PAGED_XLA_MAX_PAGES`` > 64."""
@@ -305,8 +387,9 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
 
     ``use_kernel=False`` gathers the windows and scores them through
     ``decode_attention(use_kernel=False)`` (the JAX package's XLA
-    route) on any device.  ``use_kernel=True`` or ``None``: the kernel
-    on CUDA, its plain version on the CPU.  Unlike the JAX entry,
+    route) on any device.  ``use_kernel=True`` or ``None``: on CUDA the
+    kernel :func:`_paged_route` names (the instance, or #7w for every
+    other pool up to head dim 256), on the CPU their plain version.  Unlike the JAX entry,
     ``None`` keeps the kernel on CUDA whatever the window: the
     crossover (:func:`paged_xla_max_pages`, ``xla_max_pages`` first) is
     read and checked, not applied (module docstring)."""
@@ -329,8 +412,12 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         out = paged_decode_reference(q3, k_pages, v_pages, page_table,
                                      lengths, scale)
     elif q3.device.type == "cuda":
-        out = _kernel_call(q3.contiguous(), k_pages, v_pages, page_table,
-                           lengths, scale)
+        route = _paged_route(q3.dtype, k_pages.dtype,
+                             q3.shape[1] // k_pages.shape[1], d,
+                             k_pages.shape[2])
+        call = _kernel_call if route == "paged_attention" else _wide_call
+        out = call(q3.contiguous(), k_pages, v_pages, page_table, lengths,
+                   scale)
     else:
         raise ValueError(f"paged_decode_attention runs on cuda or cpu, got "
                          f"{q3.device}")

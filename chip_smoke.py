@@ -56,7 +56,17 @@
    1, must fail it) and each row within 2^-6 of its own max, timed
    beside SDPA with ``dropout_p`` and the same family without dropout;
    then each instance's keep pattern bit for bit against the plain
-   keep mask, with q = 0, v = I and dO = I).  Prints
+   keep mask, with q = 0, v = I and dO = I); the wide family (fp32
+   products with TF32 off, stated in the phase): #3w, #5w and #6w at
+   GPT-3 1.3B's causal ``[1, 16, 2048, 128]`` and BERT-large's padded
+   ``[16, 16, 512, 64]`` in fp32 with dropout 0.1, fp32 causal ``[1, 16,
+   8192, 128]`` (the split route's shape), bf16 at head dim 256 and fp16,
+   the pair twice bit for bit, their keep patterns in each type; the
+   padded bf16 routes (d 80 through #3d/#4d, d 32 with a mask through
+   #3md/#4md) against the plain versions at the real head dim, and d
+   80's time beside d 128's; #7w on GPT-3 1.3B's fp32 decode pool, a
+   bf16 pool at group 16 and head dim 64, head dim 80, pages 8 and 256.
+   Prints
    the max
    |diff| against its stated limit, the kernel's time, its bound (the
    larger of bytes over 3.35 TB/s and operations over the peak rate of
@@ -235,6 +245,19 @@
    losses within 1e-3 relative, the forward's dropout instance launched
    twice a layer.  Prints each run's step time, tokens/s and peak
    memory beside the same process's plain runs.
+
+15. **Width** (after train-check).  GPT-3 1.3B at the JAX package's
+   default fp32 parameters: served paged and unfused on an fp32 pool (8
+   requests, 128..1536 tokens, 32 greedy tokens; prefill on #3w, every
+   decode layer one #7w launch, logits against the full forward) and
+   trained six ``fused_adam`` steps on 1 x 2048 causal tokens with
+   dropout 0.1 (#3w, #5w, #6w once a layer and step, no other flash
+   kernel; the first step's flat grads within 3e-2 of the same step
+   through the plain versions); BERT-large at fp32 (the ``bert_train``
+   recipe: the wide family with the padding mask and dropout); GPT-3
+   2.7B (Brown et al. 2020, Table 2.1: d_head 80) in bf16, served at
+   full depth (prefill on the padded #3, decode on #7w) and trained six
+   steps at 4 layers, its only cut (the padded #3d, #4d).
 
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed phase raises, so the
@@ -461,6 +484,39 @@ LM_RUNS = {"bert": ("bert_train", BERT_TRAIN_KERNELS, BERT_TRAIN_BATCH,
                    GPT_TRAIN_SEQ),
            "gpt8k": ("gpt_train_8k", GPT8K_TRAIN_KERNELS, GPT8K_TRAIN_BATCH,
                      GPT8K_TRAIN_SEQ)}
+#: the width slice: the wide family (#3w, #5w, #6w, #7w) and the padded
+#: bf16 routes.  An fp32 kernel against its fp32 plain version (TF32 off,
+#: as ``main`` sets it): out and lse within 2e-5 of max|ref|, grads
+#: within 1e-4 (sums in another order, exp2 by ex2.approx)
+TOL_WIDE_OUT = 2e-5
+TOL_WIDE_GRAD = 1e-4
+WIDE_FLASH = ("flash_attention_wide", "flash_attention_wide_dq",
+              "flash_attention_wide_dkv")
+WIDE_KERNELS = WIDE_FLASH + ("paged_attention_wide",)
+#: GPT-3 2.7B (Brown et al. 2020, "Language Models are Few-Shot
+#: Learners", Table 2.1: 32 layers, d_model 2560, 32 heads of 80, context
+#: 2048); ffn 4 x d_model, the vocab padded to 51200 as GPT_CFG pads
+#: 50257; its training run cut to 4 layers
+GPT27_CFG = dict(vocab_size=51200, hidden_size=2560, num_layers=32,
+                 num_attention_heads=32, ffn_hidden_size=10240,
+                 max_seq_length=2048, hidden_dropout=0.0,
+                 attention_dropout=0.0)
+GPT27_TRAIN_LAYERS = 4
+#: the width phase's training runs, as LM_RUNS: GPT-3 1.3B and BERT-large
+#: at the JAX package's default fp32 parameters (the wide family, once a
+#: layer each), GPT-3 2.7B's d_head 80 in bf16 (the padded #3d and #4d)
+WIDTH_RUNS = {"gpt_fp32": ("width gpt fp32 train", WIDE_FLASH, 1,
+                           GPT_TRAIN_SEQ),
+              "bert_fp32": ("width bert fp32 train", WIDE_FLASH,
+                            BERT_TRAIN_BATCH, BERT_TRAIN_SEQ),
+              "gpt27": ("width gpt27 train", GPT_TRAIN_KERNELS,
+                        GPT_TRAIN_BATCH, GPT_TRAIN_SEQ)}
+WIDTH_MODEL = {"gpt_fp32": dict(params_dtype=torch.float32),
+               "bert_fp32": dict(params_dtype=torch.float32),
+               "gpt27": dict({k: v for k, v in GPT27_CFG.items()
+                              if "dropout" not in k},
+                             num_layers=GPT27_TRAIN_LAYERS)}
+_LM_ALL = {**LM_RUNS, **WIDTH_RUNS}
 #: decode-vs-full-forward logit limit for the serve check: bf16
 #: activations rounded at every op of 32 layers, along two different
 #: kernel/matmul paths (paged decode vs causal flash prefill); the
@@ -895,7 +951,8 @@ def phase_kernels(dev, gen):
     # and for each of the last slices' kernel pairs and rows
     for off, check in ((3, _split_kernels), (4, _shim_kernels),
                        (5, _flash_fwd_rows), (6, _masked_rows),
-                       (7, _fused_gpt_kernel), (8, _md_rows)):
+                       (7, _fused_gpt_kernel), (8, _md_rows),
+                       (9, _wide_rows)):
         sgen = torch.Generator(device=dev)
         sgen.manual_seed(gen.initial_seed() + off)
         check(dev, sgen, recs)
@@ -2604,7 +2661,8 @@ def _random_llama(cfg, dev, seed: int, only=None):
     return tree
 
 
-def _random_tree(shapes, dev, seed: int, embed_std: float = 1.0):
+def _random_tree(shapes, dev, seed: int, embed_std: float = 1.0,
+                 dtype=torch.bfloat16):
     """A tree of random bf16 weights for ``{path: shape}`` from a seeded
     generator: linear weights ``[out, in]`` N(0, 1/fan_in) (flax
     ``Dense`` kernels ``[in, out]`` likewise), norm weights 1 + N(0,
@@ -2628,17 +2686,18 @@ def _random_tree(shapes, dev, seed: int, embed_std: float = 1.0):
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = t.to(torch.bfloat16)
+        node[path[-1]] = t.to(dtype)
         del t
     return tree
 
 
-def _random_gpt(cfg, dev, seed: int):
+def _random_gpt(cfg, dev, seed: int, dtype=torch.bfloat16):
     """A GPT tree of random bf16 weights (:func:`_random_tree`); the word
     embedding (the tied head) and the position table N(0, 0.02^2), the
     JAX initialisers' scale, so the logits are of order 1."""
     from apex_tpu_torch.inference.weights import gpt_param_shapes
-    return _random_tree(gpt_param_shapes(cfg), dev, seed, embed_std=0.02)
+    return _random_tree(gpt_param_shapes(cfg), dev, seed, embed_std=0.02,
+                        dtype=dtype)
 
 
 def _random_bert(cfg, dev, seed: int):
@@ -3087,10 +3146,11 @@ def _lm_model(kind: str, dev, seed: int, layers=None, cfg_kw=None):
     torch.manual_seed(seed)
     kw = dict(hidden_dropout=LM_DROPOUT, attention_dropout=LM_DROPOUT,
               params_dtype=torch.bfloat16)
+    kw.update(WIDTH_MODEL.get(kind, {}))
     if layers is not None:
         kw["num_layers"] = layers
     kw.update(cfg_kw or {})
-    if kind == "bert":
+    if kind.startswith("bert"):
         cfg = BertConfig(**kw)
         return cfg, bert_model_provider(cfg, add_binary_head=False,
                                         device=dev)
@@ -3112,8 +3172,8 @@ def _lm_batch(kind: str, cfg, dev, seed: int) -> dict:
     their successors (4 x 2048 tokens; ``"gpt8k"`` 1 x 8192)."""
     rng = np.random.RandomState(seed)
     v = cfg.vocab_size
-    if kind != "bert":
-        _, _, b, s = LM_RUNS[kind]
+    if not kind.startswith("bert"):
+        _, _, b, s = _LM_ALL[kind]
         toks = rng.randint(0, v, size=(b, s + 1))
         toks = torch.from_numpy(toks.astype(np.int64)).to(dev)
         return {"tokens": toks[:, :-1].contiguous(),
@@ -3181,7 +3241,7 @@ def _plain_attention_refused():
 
 def phase_lm_train(dev, seed: int, kind: str, cfg_kw=None,
                    steps: int = LM_TRAIN_STEPS, keep=None, tag=None,
-                   profile: bool = False):
+                   profile: bool = False, plain: bool = False):
     """BERT-large pretraining (``kind="bert"``: LAMB, ``LAMB_KW``) or
     GPT-3 1.3B training (``"gpt"``: Adam, ``TRAIN_LR``; ``"gpt8k"``: the
     same at 1 x 8192 tokens, ``gpt_train_8k``) at full width and depth
@@ -3200,7 +3260,10 @@ def phase_lm_train(dev, seed: int, kind: str, cfg_kw=None,
     under which the forward's instance launches twice a layer, and the
     fused head), ``steps`` the step count, ``keep``, a list, gets a host
     copy of the first step's flat grads, ``tag`` names the run, and
-    ``profile`` breaks two more steps down by kernel."""
+    ``profile`` breaks two more steps down by kernel.  The width phase's
+    kinds (:data:`WIDTH_RUNS`): ``"gpt_fp32"`` and ``"bert_fp32"`` at
+    fp32 parameters, ``"gpt27"``; ``plain`` runs the steps through the
+    plain versions (:func:`_plain_kernels`) and holds no launch."""
     from apex_tpu_torch import train_step
     from apex_tpu_torch.ops import _build
     from apex_tpu_torch.optimizers import functional
@@ -3208,7 +3271,7 @@ def phase_lm_train(dev, seed: int, kind: str, cfg_kw=None,
     t0 = time.perf_counter()
     cfg, model = _lm_model(kind, dev, seed, cfg_kw=cfg_kw)
     batch = _lm_batch(kind, cfg, dev, seed)
-    bert = kind == "bert"
+    bert = kind.startswith("bert")
     tx = functional.fused_lamb(**LAMB_KW) if bert \
         else functional.fused_adam(lr=TRAIN_LR)
     state = train_step.init_train_state(tx, model, loss_scale="dynamic")
@@ -3216,10 +3279,13 @@ def phase_lm_train(dev, seed: int, kind: str, cfg_kw=None,
     n = state.opt.master.numel()
     b, s = batch["tokens"].shape
     layers = cfg.num_layers
-    phase, kernels, _, _ = LM_RUNS[kind]
-    label = ("BERT-large pretraining" if bert else "GPT-3 1.3B training"
-             if kind == "gpt" else "GPT-3 1.3B long-context training "
-             f"(context {cfg.max_seq_length})")
+    phase, kernels, _, _ = _LM_ALL[kind]
+    label = ("BERT-large pretraining" if bert
+             else "GPT-3 2.7B training (d_head 80)" if kind == "gpt27"
+             else "GPT-3 1.3B long-context training "
+             f"(context {cfg.max_seq_length})" if kind == "gpt8k"
+             else "GPT-3 1.3B training")
+    pdtype = next(model.parameters()).dtype
     if tag:
         phase = f"{phase} {tag}"
     if cfg_kw:
@@ -3229,7 +3295,8 @@ def phase_lm_train(dev, seed: int, kind: str, cfg_kw=None,
           f"{cfg.vocab_size}, [{b}, {s}] tokens a step"
           + (f" (lengths {sorted(batch['lengths'].tolist())})" if bert
              else ", causal")
-          + f", dropout {LM_DROPOUT}, {n} parameters (bf16, fp32 master), "
+          + f", dropout {LM_DROPOUT}, {n} parameters "
+          f"({str(pdtype).replace('torch.', '')}, fp32 master), "
           f"{type(tx).__name__.strip('_')}, dynamic loss scale; set up in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -3241,14 +3308,14 @@ def phase_lm_train(dev, seed: int, kind: str, cfg_kw=None,
 
     step = train_step.make_train_step(_bert_loss if bert else _gpt_loss, tx,
                                       grad_transform=strict)
-    want = dict.fromkeys(kernels, layers)
-    if cfg.remat:          # the forward again in each layer's recompute
+    want = {} if plain else dict.fromkeys(kernels, layers)
+    if cfg.remat and not plain:   # the forward again in each recompute
         want[kernels[0]] = 2 * layers
     losses, times, off = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    with _plain_attention_refused():
+    with _plain_kernels() if plain else _plain_attention_refused():
         for i in range(steps):
             before = _build.launch_counts()
             gen = torch.Generator(device=dev)
@@ -3268,7 +3335,7 @@ def phase_lm_train(dev, seed: int, kind: str, cfg_kw=None,
                 off.append((i, flash))
     launches = _build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    step_s = float(np.median(times[1:]))
+    step_s = float(np.median(times[1:] or times))
     tokens = b * s
     heads = cfg.num_attention_heads
     hd = cfg.hidden_size // heads
@@ -3277,13 +3344,18 @@ def phase_lm_train(dev, seed: int, kind: str, cfg_kw=None,
                  and "tokentype" not in name)
     attn_flops = 4 * s * s * hd * heads * b * (1 if bert else 0.5)
     model_flops = 6 * matmul * tokens + 3 * attn_flops * layers
+    # fp32 parameters run fp32 products (TF32 off): the CUDA cores' peak
+    peak_rate = FP32_FLOPS_PER_S if pdtype == torch.float32 \
+        else BF16_FLOPS_PER_S
     print(f"{phase} on {_smi()}: losses {[round(x, 4) for x in losses]}")
-    print(f"  step times {[round(t, 4) for t in times]} s; median of steps "
-          f"2-{steps} {step_s:.4f} s = {tokens / step_s:.1f} "
+    print(f"  step times {[round(t, 4) for t in times]} s; "
+          + (f"median of steps 2-{steps}" if steps > 1 else "the step")
+          + f" {step_s:.4f} s = {tokens / step_s:.1f} "
           f"tokens/s" + (f", {b / step_s:.2f} sequences/s" if bert else ""))
     print(f"  model flops {model_flops / 1e12:.3f} TFLOP per step = "
-          f"{100 * model_flops / step_s / BF16_FLOPS_PER_S:.1f}% of 989 "
-          f"TFLOP/s; peak device memory {peak / 2**30:.2f} GiB")
+          f"{100 * model_flops / step_s / peak_rate:.1f}% of "
+          f"{peak_rate / 1e12:.0f} TFLOP/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
     print(f"  kernel launches per step: "
           f"{ {k: v / steps for k, v in launches.items() if v} }")
     print(f"  loss scale {state.scaler.loss_scale.item()}, count "
@@ -3293,7 +3365,7 @@ def phase_lm_train(dev, seed: int, kind: str, cfg_kw=None,
                              f"are not {want}: {off}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{phase}: non-finite loss: {losses}")
-    if not losses[-1] < losses[0]:
+    if steps > 1 and not losses[-1] < losses[0]:
         raise AssertionError(f"{phase}: the loss did not fall: {losses}")
     if profile:
         plain_step = train_step.make_train_step(
@@ -3811,8 +3883,11 @@ def _plain_kernels():
         return (ln.rms_norm_reference(x2, w, eps) if rms
                 else ln.layer_norm_reference(x2, w, b, eps))
 
+    def bwd(*args, head_dim=None, **kw):    # the plain backward has no gate
+        return attn._bwd_reference(*args, **kw)
+
     ln._fwd_2d, ln._bwd_2d = fwd_2d, ln._bwd_reference
-    attn._fwd, attn._bwd = attn._fwd_reference, attn._bwd_reference
+    attn._fwd, attn._bwd = attn._fwd_reference, bwd
     try:
         yield
     finally:
@@ -5472,16 +5547,549 @@ def _profile(engine, prompts, label: str, prefill: bool = True):
     _device_breakdown(f"decode step (8 slots, {label})", step, 5)
 
 
+def _wide_flash_shapes():
+    """The wide forward and backward's shapes (#3w, #5w, #6w): ``(tag,
+    dtype, b, h, s, d, causal, masked, rate)``: GPT-3 1.3B's causal
+    ``[1, 16, 2048, 128]`` and BERT-large's ``[16, 16, 512, 64]`` with a
+    padding mask of lengths 137..512, both fp32 with dropout 0.1 (the
+    width phase's training runs); fp32 causal ``[1, 16, 8192, 128]``,
+    where ``sq * d * 4`` = 4 MiB takes the JAX split route; bf16 at
+    Gemma-7B's head dim 256 and fp16, causal ``[1, 16, 2048, ...]``."""
+    f32 = torch.float32
+    h = GPT_CFG["num_attention_heads"]
+    d = GPT_CFG["hidden_size"] // h
+    yield ("gpt fp32", f32, 1, h, GPT_TRAIN_SEQ, d, True, False, LM_DROPOUT)
+    yield ("bert fp32", f32, BERT_TRAIN_BATCH, 16, BERT_TRAIN_SEQ, 64, False,
+           True, LM_DROPOUT)
+    yield ("8192 fp32", f32, 1, h, GPT8K_TRAIN_SEQ, d, True, False, 0.0)
+    yield ("d 256 bf16", torch.bfloat16, 1, 16, GPT_TRAIN_SEQ, 256, True,
+           False, 0.0)
+    yield ("fp16", torch.float16, 1, 16, GPT_TRAIN_SEQ, 128, True, False, 0.0)
+
+
+def _row_rel(got, ref, floor: float = 1e-3) -> float:
+    """The largest over rows of a row's max |diff| over its own max |ref|,
+    that max taken no smaller than ``floor`` of the whole output's: a row
+    whose gradient is zero up to rounding (the first causal query's dq,
+    one key: ds = p (dp - delta) with out = v) reads its rounding against
+    the output's scale, not against 0."""
+    g, r = (t.float().reshape(-1, t.shape[-1]) for t in (got, ref))
+    mag = r.abs().amax(1).clamp_min(floor * r.abs().max())
+    return ((g - r).abs().amax(1) / mag).max().item()
+
+
+def _wide_grads_check(tag, got, ref, fp32: bool) -> float:
+    """fp32: each output within TOL_WIDE_GRAD of its max|ref|; 16-bit:
+    within TOL_FLASH_BWD_REL_L2 relative L2 and each row within 2^-6 of
+    its own max|ref| (:func:`_row_rel`).  Returns the largest max
+    |diff|."""
+    err = 0.0
+    for nm, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+        e = (g_.float() - r_.float()).abs().max().item()
+        err = max(err, e)
+        if fp32:
+            _check(f"{tag} {nm}", e,
+                   TOL_WIDE_GRAD * r_.float().abs().max().item())
+            continue
+        rel = ((g_.float() - r_.float()).norm() / r_.float().norm()).item()
+        _check(f"{tag} {nm} relative L2", rel, TOL_FLASH_BWD_REL_L2)
+        _check(f"{tag} {nm} (x each row's max|ref|, at least 1e-3 of "
+               f"the output's)", _row_rel(g_, r_), TOL_PAGED_OUT)
+    return err
+
+
+def _wide_rows(dev, gen, recs):
+    """The wide family's flash kernels (#3w, #5w, #6w) at
+    :func:`_wide_flash_shapes`, each against its plain version on the
+    same inputs (the backward's on the kernels' own out and lse; fp32
+    with TF32 off, stated by ``main``), the pair twice bit for bit, the
+    route (``_fwd`` and ``_bwd`` launch the wide kernels and no
+    instance); each kernel's time beside its bound (fp32 operands over
+    the CUDA cores' 67 TFLOP/s, 16-bit over 989), its plain version's
+    and SDPA's (forward, and forward + backward less the forward for
+    the backward pair).  The records are GPT-3 1.3B fp32's.  Then the
+    keep patterns (:func:`_wide_keep_patterns`), the padded bf16 routes
+    (:func:`_padded_rows`) and paged decode's #7w
+    (:func:`_wide_paged_rows`)."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    from apex_tpu_torch.ops import _build
+    print(f"wide kernels: fp32 products with TF32 "
+          f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'} "
+          f"(torch.backends.cuda.matmul.allow_tf32)")
+    seed3 = attn._seed_operand(-2 ** 31 + 777, device=dev)
+    for tag, dt, b, h, s, d, causal, masked, rate in _wide_flash_shapes():
+        bh, scale, fp32 = b * h, d ** -0.5, dt == torch.float32
+        q3, k3, v3, do3 = (torch.randn(bh, s, d, generator=gen, device=dev)
+                           .to(dt) for _ in range(4))
+        mask3, live, mask_bytes = None, None, 0
+        if masked:
+            lengths = _bert_lengths(np.random.RandomState(s), b, s)
+            keep = torch.arange(s, device=dev)[None, :] < torch.as_tensor(
+                lengths, device=dev)[:, None]
+            mask3 = (~keep)[:, None, :].expand(b, s, s).contiguous()
+            live, mask_bytes = int(lengths.sum()), mask3.numel()
+        md = dict(mask3=mask3, rate=rate, seed3=seed3 if rate else None)
+        before = _build.launch_counts()
+        out, lse = attn._fwd(q3, k3, v3, causal, scale, **md)
+        routed = attn._bwd(q3, k3, v3, out, lse, do3, causal, scale, **md)
+        counts = {k_: v_ - before[k_] for k_, v_ in
+                  _build.launch_counts().items() if v_ != before[k_]}
+        if counts != dict.fromkeys(WIDE_FLASH, 1):
+            raise AssertionError(f"wide {tag}: _fwd and _bwd did not take "
+                                 f"the wide kernels alone: {counts}")
+        delta = attn._delta(out, do3)
+        args = (q3, k3, v3, lse, delta, do3, causal, scale)
+        got = (attn._dq_wide(*args, **md), *attn._dkv_wide(*args, **md))
+        if not all(torch.equal(a, r) for a, r in zip(got, routed)):
+            raise AssertionError(f"wide {tag}: #5w + #6w differ from run to "
+                                 f"run")
+        del routed
+        step = h if masked else max(1, min(bh, 2 ** 28 // (s * s * 4)))
+
+        def sl_mask(sl):
+            return None if mask3 is None else mask3[sl.start // h:
+                                                    sl.stop // h]
+
+        def plain_fwd(sl):
+            return attn._fwd_reference(q3[sl], k3[sl], v3[sl], causal, scale,
+                                       mask3=sl_mask(sl), rate=rate,
+                                       seed3=seed3, bh0=sl.start)
+
+        def plain_bwd(sl):
+            a = (q3[sl], k3[sl], v3[sl], lse[sl], delta[sl], do3[sl], causal,
+                 scale)
+            kw = dict(mask3=sl_mask(sl), rate=rate, seed3=seed3,
+                      bh0=sl.start)
+            return (attn._dq_reference(*a, **kw),
+                    *attn._dkv_reference(*a, **kw))
+
+        ref_out, ref_lse = _by_heads(plain_fwd, bh, step)
+        label = (f"{'padding' if masked else 'causal'} [{b}, {h}, {s}, {d}] "
+                 f"{str(dt).replace('torch.', '')}"
+                 + (f", dropout {rate}" if rate else ""))
+        print(f"wide flash ({tag}: {label})")
+        livel = ref_lse > -1e29
+        err_f = (out.float() - ref_out.float()).abs().max().item()
+        if fp32:
+            _check("flash_attention_wide out", err_f,
+                   TOL_WIDE_OUT * ref_out.abs().max().item())
+            _check("flash_attention_wide lse (base 2)",
+                   (lse - ref_lse)[livel].abs().max().item(),
+                   TOL_WIDE_OUT * ref_lse[livel].abs().max().item())
+        else:
+            _check("flash_attention_wide out", err_f, TOL_ATTN_OUT)
+            _check("flash_attention_wide out (x each row's max|ref|)",
+                   _slot_rel(out.reshape(-1, d), ref_out.reshape(-1, d)),
+                   TOL_PAGED_OUT)
+            _check("flash_attention_wide lse (base 2)",
+                   (lse - ref_lse)[livel].abs().max().item(), TOL_ATTN_LSE)
+        if not torch.equal(livel, lse > -1e29):
+            raise AssertionError(f"wide {tag}: fully masked rows differ")
+        del ref_out, ref_lse
+        err_b = _wide_grads_check("flash_attention_wide_dq/dkv", got,
+                                  _by_heads(plain_bwd, bh, step), fp32)
+        # times: the kernels, their plain versions, SDPA
+        iters = 3 if s > 4096 else 10
+        fwd_ms = _time_ms(lambda: attn._fwd_wide(q3, k3, v3, causal, scale,
+                                                 **md), iters)
+        dq_ms = _time_ms(lambda: attn._dq_wide(*args, **md), iters)
+        dkv_ms = _time_ms(lambda: attn._dkv_wide(*args, **md), iters)
+        fwd_plain = _eager_ms(lambda: _by_heads(plain_fwd, bh, step), 1)
+        dq_plain = _eager_ms(lambda: _by_heads(
+            lambda sl: plain_bwd(sl)[0], bh, step), 1)
+        dkv_plain = _eager_ms(lambda: _by_heads(
+            lambda sl: plain_bwd(sl)[1:], bh, step), 1)
+        q4, k4, v4, do4 = (t.reshape(b, h, s, d) for t in (q3, k3, v3, do3))
+        sdpa = dict(attn_mask=None if mask3 is None else (~mask3)[:, None],
+                    dropout_p=rate, is_causal=causal and mask3 is None)
+        lib_f = _time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, **sdpa), iters)
+        qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+        lib_fb = _time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qr, kr, vr, **sdpa), (qr, kr, vr),
+            do4), iters)
+        del qr, kr, vr
+        # bounds: every operand read once, every output written once; the
+        # products of the live elements (causal: half the score matrix)
+        item = q3.element_size()
+        elems = (bh * s * (s + 1) / 2 if causal and mask3 is None
+                 else s * live * h if mask3 is not None else bh * s * s)
+        kv_bytes = 2 * (bh * s if mask3 is None else live * h) * d * item
+        rate_ops = FP32_FLOPS_PER_S if fp32 else BF16_FLOPS_PER_S
+        rows = (
+            ("3w", "flash_attention_wide", "apex_tpu/ops/attention.py:210",
+             fwd_ms, fwd_plain, _bound(2 * q3.numel() * item + kv_bytes
+                                       + bh * s * 4 + mask_bytes,
+                                       4 * d * elems, rate_ops), lib_f,
+             err_f),
+            ("5w", "flash_attention_wide_dq", "apex_tpu/ops/attention.py:376",
+             dq_ms, dq_plain, _bound(3 * q3.numel() * item + kv_bytes
+                                     + 2 * bh * s * 4 + mask_bytes,
+                                     6 * d * elems, rate_ops),
+             lib_fb - lib_f, err_b),
+            ("6w", "flash_attention_wide_dkv",
+             "apex_tpu/ops/attention.py:408", dkv_ms, dkv_plain,
+             _bound(2 * q3.numel() * item + 2 * kv_bytes + 2 * bh * s * 4
+                    + mask_bytes, 8 * d * elems, rate_ops),
+             lib_fb - lib_f, err_b))
+        for row, name, repl, ms, plain_ms, (bound, by), lib, err in rows:
+            print(f"  #{row} {name} ({tag}) on {_smi()}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, SDPA {lib:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of the "
+                  f"bound")
+            if tag == "gpt fp32":
+                recs[name] = dict(
+                    name=name, route="cuda",
+                    source="apex_tpu_torch/csrc/flash_wide.cu",
+                    replaces=repl, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=by, library_ms=lib,
+                    eager_ms=_eager_ms(
+                        (lambda: attn._fwd_wide(q3, k3, v3, causal, scale,
+                                                **md)) if row == "3w" else
+                        (lambda: attn._dq_wide(*args, **md)) if row == "5w"
+                        else (lambda: attn._dkv_wide(*args, **md)), 4))
+        del q3, k3, v3, do3, q4, k4, v4, do4, out, lse, delta, got, mask3
+        torch.cuda.empty_cache()
+    _wide_keep_patterns(dev, seed3)
+    _padded_rows(dev, gen)
+    _wide_paged_rows(dev, gen, recs)
+
+
+def _wide_keep_patterns(dev, seed3) -> None:
+    """#3w's, #6w's keep patterns bit for bit, as :func:`_keep_patterns`
+    holds the instances' (q = 0, v = I: out > 0 where kept; dO = I: dv),
+    with and without a padding mask, in each operand type; #5w's dq
+    against its plain version."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    rate, d, bh = LM_DROPOUT, 128, 32
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for masked in (False, True):
+            s = d
+            q = torch.zeros(bh, s, d, dtype=dt, device=dev)
+            k = torch.randn(bh, s, d, device=dev).to(dt)
+            eye = torch.eye(d, dtype=dt, device=dev).expand(
+                bh, d, d).contiguous()
+            keep = attn._keep3(seed3, bh, s, s, rate, dev)
+            mask3 = None
+            if masked:
+                lengths = torch.arange(bh // 16, device=dev) * 37 % s + 1
+                mask3 = (torch.arange(s, device=dev)[None, None, :]
+                         >= lengths[:, None, None]).expand(bh // 16, s, s)
+                mask3 = mask3.contiguous()
+                keep = keep & ~mask3.repeat_interleave(16, dim=0)
+            md = dict(mask3=mask3, rate=rate, seed3=seed3)
+            out, lse = attn._fwd_wide(q, k, eye, False, d ** -0.5, **md)
+            args = (q, k, eye, lse, attn._delta(out, eye), eye, False,
+                    d ** -0.5)
+            dq = attn._dq_wide(*args, **md)
+            _, dv = attn._dkv_wide(*args, **md)
+            ref_dq = attn._dq_reference(*args, **md)
+            rel = ((dq.float() - ref_dq.float()).norm()
+                   / ref_dq.float().norm()).item()
+            res = {"#3w": torch.equal(out > 0, keep),
+                   "#6w": torch.equal(dv.transpose(1, 2) > 0, keep),
+                   "#5w dq relative L2 <= 1e-2": rel <= TOL_FLASH_BWD_REL_L2}
+            print(f"wide keep patterns ({str(dt).replace('torch.', '')}, d "
+                  f"{d}, {bh} batch-heads, "
+                  f"{'a padding mask, ' if masked else ''}rate {rate}, {int(keep.sum())} of {keep.numel()} kept): "
+                  f"{res}")
+            if not all(res.values()):
+                raise AssertionError(f"a wide kernel's keep pattern differs "
+                                     f"from the plain keep mask: {res}")
+
+
+def _padded_rows(dev, gen) -> None:
+    """The padded bf16 routes through the public ``flash_attention``: d 80
+    causal with dropout 0.1 at GPT-3 2.7B's ``[1, 32, 2048, 80]`` (the
+    #3d and #4d instances at 128) and d 32 with a padding mask and
+    dropout at ``[16, 16, 512, 32]`` (#3md, #4md at 64), each held
+    against the plain versions at the real head dim (forward, and the
+    backward from the plain forward's out and lse); then the d 80 route's
+    time (forward, forward + backward) beside the same call at d 128."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    from apex_tpu_torch.ops import _build
+    bf, rate = torch.bfloat16, LM_DROPOUT
+    seed = torch.tensor(-99, dtype=torch.int32, device=dev)
+    seed3 = attn._seed_operand(seed)
+    h27 = GPT27_CFG["num_attention_heads"]
+    cases = (("d 80", 1, h27, GPT_TRAIN_SEQ, 80, True, False,
+              ("flash_attention_drop", "flash_attention_bwd_drop")),
+             ("d 32 masked", 16, 16, BERT_TRAIN_SEQ, 32, False, True,
+              ("flash_attention_masked_drop", "flash_attention_bwd_masked")))
+    for tag, b, h, s, d, causal, masked, names in cases:
+        q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=dev)
+                       .to(bf) for _ in range(4))
+        mask = mask3 = None
+        if masked:
+            lengths = _bert_lengths(np.random.RandomState(d), b, s)
+            keep = torch.arange(s, device=dev)[None, :] < torch.as_tensor(
+                lengths, device=dev)[:, None]
+            mask = (~keep)[:, None, None, :].expand(b, 1, s, s)
+            mask3 = attn._mask3(mask, b, h, s, s)
+        kw = dict(causal=causal, mask=mask, dropout_rate=rate,
+                  dropout_seed=seed)
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        _build.reset_launch_counts()
+        out = attn.flash_attention(qs, ks, vs, **kw)
+        grads = torch.autograd.grad(out, (qs, ks, vs), do)
+        counts = {k_: v_ for k_, v_ in _build.launch_counts().items() if v_}
+        if counts != dict.fromkeys(names, 1):
+            raise AssertionError(f"padded {tag}: launches {counts}, want "
+                                 f"{names}")
+        bh = b * h
+        q3, k3, v3, do3 = (t.reshape(bh, s, d) for t in (q, k, v, do))
+        step = h if masked else 8
+        scale = d ** -0.5
+
+        def plain(sl):
+            m3 = None if mask3 is None else mask3[sl.start // h:sl.stop // h]
+            o, lse = attn._fwd_reference(q3[sl], k3[sl], v3[sl], causal,
+                                         scale, mask3=m3, rate=rate,
+                                         seed3=seed3, bh0=sl.start)
+            return (o, *attn._bwd_reference(
+                q3[sl], k3[sl], v3[sl], o, lse, do3[sl], causal, scale,
+                mask3=m3, rate=rate, seed3=seed3, bh0=sl.start))
+
+        ref = _by_heads(plain, bh, step)
+        print(f"padded route ({tag}: [{b}, {h}, {s}, {d}] bf16, "
+              f"{'padding mask, ' if masked else 'causal, '}dropout {rate}; "
+              f"launches {counts})")
+        _check(f"padded {tag} out", (out.reshape(bh, s, d).float()
+                                     - ref[0].float()).abs().max().item(),
+               TOL_ATTN_OUT)
+        _wide_grads_check(f"padded {tag}", [g.reshape(bh, s, d)
+                                            for g in grads], ref[1:], False)
+        del ref, grads, out
+        if tag != "d 80":
+            continue
+        times = {}
+        for dd in (80, 128):
+            qq, kk, vv, dd_o = (t[..., :dd] if dd <= d else torch.randn(
+                b, h, s, dd, generator=gen, device=dev).to(bf)
+                for t in (q, k, v, do))
+            qq, kk, vv = (t.contiguous().requires_grad_()
+                          for t in (qq, kk, vv))
+            dd_o = dd_o.contiguous()
+            fwd = (lambda: attn.flash_attention(qq, kk, vv, **kw))
+            times[dd] = (_time_ms(fwd, 10), _time_ms(
+                lambda: torch.autograd.grad(fwd(), (qq, kk, vv), dd_o), 10))
+        print(f"  padded d 80 route on {_smi()}: forward {times[80][0]:.4f} "
+              f"ms, forward + backward {times[80][1]:.4f} ms; the same at d "
+              f"128: {times[128][0]:.4f} ms, {times[128][1]:.4f} ms")
+        torch.cuda.empty_cache()
+
+
+def _wide_paged_rows(dev, gen, recs) -> None:
+    """Paged decode's #7w against its plain version, 8 slots of lengths
+    0..2048 reading layer 1 of a two-layer pool in place: GPT-3 1.3B's
+    fp32 pool (16 kv heads, group 1, head dim 128, page 64: the record),
+    a bf16 pool at group 16 and head dim 64 (128 query heads over 8 kv
+    heads), GPT-3 2.7B's head dim 80 (bf16, 32 kv heads, page 64) and
+    GPT-3 1.3B's bf16 pool at pages of 8 and 256.  Each: the route (one
+    #7w launch, no #7), each slot within its own max (fp32 TOL_WIDE_OUT,
+    bf16 TOL_PAGED_OUT), a second call the same bits, an empty slot 0;
+    the time beside the bound (the live tokens' k and v read once: bytes)
+    and the plain version's.  No PyTorch call computes paged decode
+    through a page table (row #7's reason): library null."""
+    pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    from apex_tpu_torch.ops import _build
+    lengths_l = [0, 128, 300, 512, 1000, 1536, 1800, 2048]
+    gh = GPT_CFG["num_attention_heads"]
+    cases = (("gpt fp32", torch.float32, gh, 1, 128, 64),
+             ("group 16 bf16", torch.bfloat16, 8, 16, 64, 64),
+             ("d 80 bf16", torch.bfloat16, GPT27_CFG["num_attention_heads"],
+              1, 80, 64),
+             ("page 8 bf16", torch.bfloat16, gh, 1, 128, 8),
+             ("page 256 bf16", torch.bfloat16, gh, 1, 128, 256))
+    for tag, dt, kvh, group, d, ps in cases:
+        mpps = -(-2048 // ps)
+        need = [-(-n // ps) for n in lengths_l]
+        n_pages = sum(need) + 1
+        pool_k, pool_v = (torch.randn(n_pages, 2, kvh, ps, d, generator=gen,
+                                      device=dev).to(dt) for _ in range(2))
+        perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
+        table = torch.full((8, mpps), n_pages - 1, dtype=torch.int32,
+                           device=dev)
+        cursor = 0
+        for i, n in enumerate(need):
+            table[i, :n] = perm[cursor:cursor + n].to(torch.int32)
+            cursor += n
+        lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+        q = torch.randn(8, kvh * group, d, generator=gen, device=dev).to(dt)
+        kp, vp = pool_k[:, 1], pool_v[:, 1]
+        before = _build.launch_counts()
+        got = pa.paged_decode_attention(q, kp, vp, table, lengths)
+        again = pa.paged_decode_attention(q, kp, vp, table, lengths)
+        after = _build.launch_counts()
+        if after["paged_attention_wide"] - before["paged_attention_wide"] \
+                != 2 or after["paged_attention"] != before["paged_attention"]:
+            raise AssertionError(f"#7w {tag}: the route took another kernel")
+        ref = pa.paged_decode_reference(q, kp, vp, table, lengths, d ** -0.5)
+        print(f"wide paged decode ({tag}: 8 slots, {kvh} kv heads, group "
+              f"{group}, head dim {d}, page {ps}, lengths {lengths_l})")
+        fp32 = dt == torch.float32
+        _check("paged_attention_wide out (x each slot's max|ref|)",
+               _slot_rel(got, ref), TOL_WIDE_OUT if fp32 else TOL_PAGED_OUT)
+        if not torch.equal(got, again) or not bool((got[0] == 0).all()):
+            raise AssertionError(f"#7w {tag}: not the same bits twice, or an "
+                                 f"empty slot not 0")
+        err = (got.float() - ref.float()).abs().max().item()
+        ms = _time_ms(lambda: pa.paged_decode_attention(q, kp, vp, table,
+                                                        lengths), 50)
+        plain_ms = _eager_ms(lambda: pa.paged_decode_reference(
+            q, kp, vp, table, lengths, d ** -0.5), 5)
+        live = sum(lengths_l)
+        item = q.element_size()
+        bound, by = _bound(2 * live * kvh * d * item + 2 * q.numel() * item,
+                           4 * live * kvh * group * d, FP32_FLOPS_PER_S)
+        print(f"  #7w paged_attention_wide ({tag}) on {_smi()}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({by}), {100 * bound / ms:.1f}% of the bound")
+        if tag == "gpt fp32":
+            recs["paged_attention_wide"] = dict(
+                name="paged_attention_wide", route="cuda",
+                source="apex_tpu_torch/csrc/paged_wide.cu",
+                replaces="apex_tpu/ops/paged_attention.py:108",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None,
+                eager_ms=_eager_ms(lambda: pa.paged_decode_attention(
+                    q, kp, vp, table, lengths), 20))
+        del pool_k, pool_v, kp, vp, got, again, ref
+        torch.cuda.empty_cache()
+
+
+def _width_serve(dev, seed: int, label: str, cfg_kw: dict, dtype,
+                 prefill_kernel: str):
+    """One GPT model at full width and depth (random weights in
+    ``dtype`` from a seed) served paged and unfused with a pool of the
+    same type, page 64, 8 requests of 128..1536 tokens, 32 greedy tokens:
+    as :func:`phase_gpt`'s paged serve, with each decode step launching
+    #7w once a layer (and no other paged kernel) and the prefill the
+    flash route of its type; two requests' decode logits against the
+    full forward.  Returns the serve's record."""
+    from apex_tpu_torch.inference import InferenceEngine
+    from apex_tpu_torch.transformer.testing import GPTConfig
+    from apex_tpu_torch.utils import tree_leaves_with_path
+    cfg = GPTConfig(**cfg_kw)
+    t0 = time.perf_counter()
+    params = _random_gpt(cfg, dev, seed + 10, dtype=dtype)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in tree_leaves_with_path(params))
+    print(f"{label}: {n / 1e9:.3f}e9 parameters, random "
+          f"{str(dtype).replace('torch.', '')} weights in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(seed + 10)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n_).tolist()
+               for n_ in GPT_PROMPT_LENS]
+    engine = InferenceEngine("gpt", cfg, params, slots=8,
+                             max_seq=cfg.max_seq_length, device=dev,
+                             page_size=64, cache_dtype=dtype,
+                             decode_fusion="0")
+    served = _serve(engine, prompts, label)
+    launches = served["launches"]
+    steps = int(served["reg"].declared("infer_decode_dispatch_total").total())
+    want = dict.fromkeys(GPT_DECODE_KERNELS, 0)
+    want["paged_attention_wide"] = cfg.num_layers * steps
+    got = {k: launches[k] for k in want}
+    print(f"  {label}: {steps} decode steps, launches by kernel "
+          f"{ {k: v for k, v in launches.items() if v} } (decode: want "
+          f"{want}; prefill: {prefill_kernel})")
+    if steps <= 0 or got != want or not launches[prefill_kernel] \
+            or not launches["layer_norm"]:
+        raise AssertionError(f"{label}: launches off: {launches}")
+    for idx in (0, len(prompts) - 1):
+        _, d_, _ = _check_logits(f"{label} request {idx}", engine,
+                                 prompts[idx], served["outs"][idx],
+                                 TOL_LOGITS)
+        served[f"logit_err_{idx}"] = d_
+    rec = {k: served[k] for k in ("launches", "ttft_mean_s",
+                                  "decode_tokens_per_s", "peak_bytes")}
+    del engine, served, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_width(dev, seed: int):
+    """The width slice at full width: GPT-3 1.3B at the JAX package's
+    default fp32 parameters served (an fp32 pool; prefill on #3w, decode
+    on #7w) and trained (six ``fused_adam`` steps on 1 x 2048 causal
+    tokens, dropout 0.1, #3w, #5w and #6w once a layer and step; the
+    first step's flat grads against the same step through the plain
+    versions from the same weights and generator seed, within
+    TOL_TRAIN_GRAD_REL_L2 leaf by leaf); BERT-large at fp32 (the
+    ``bert_train`` recipe: ``fused_lamb``, 16 x 512 behind the padding
+    mask, dropout 0.1, six steps, the wide family with mask3 and
+    dropout); GPT-3 2.7B in bf16 (d_head 80) served at full depth
+    (prefill on the padded #3, decode on #7w) and trained six steps at 4
+    layers (:data:`GPT27_TRAIN_LAYERS`, the only cut) on 4 x 2048 tokens
+    with dropout 0.1 (the padded #3d and #4d).  Returns the launches of
+    the wide kernels over the phase and each run's record."""
+    from apex_tpu_torch.ops import _build
+    total = dict.fromkeys(WIDE_KERNELS, 0)
+    runs = {}
+
+    def add(launches):
+        for k_ in total:
+            total[k_] += launches[k_]
+
+    runs["gpt fp32 serve"] = _width_serve(dev, seed, "width gpt fp32 serve",
+                                          GPT_CFG, torch.float32,
+                                          "flash_attention_wide")
+    add(runs["gpt fp32 serve"]["launches"])
+    keep, plain_g = [], []
+    run = phase_lm_train(dev, seed, "gpt_fp32", keep=keep)
+    add(run["launches"])
+    plain = phase_lm_train(dev, seed, "gpt_fp32", steps=1, keep=plain_g,
+                           tag="plain (1 step)", plain=True)
+    if any(plain["launches"][k_] for k_ in WIDE_FLASH):
+        raise AssertionError("the plain step launched a wide kernel")
+    print("width gpt fp32 train against the plain step, first step:")
+    got, ref = keep[0].to(dev), plain_g[0].to(dev)
+    del keep, plain_g
+    rels = _hold_grads("width gpt fp32 train", got, ref, run["leaves"],
+                       [run["losses"][0], plain["losses"][0]],
+                       TOL_TRAIN_GRAD_REL_L2, top=8)
+    del got, ref
+    torch.cuda.empty_cache()
+    runs["gpt fp32 train"] = dict(run, grad_rel_l2=max(rels.values()))
+    run = phase_lm_train(dev, seed, "bert_fp32")
+    add(run["launches"])
+    runs["bert fp32 train"] = run
+    runs["gpt27 serve"] = _width_serve(dev, seed, "width gpt27 serve",
+                                       GPT27_CFG, torch.bfloat16,
+                                       "flash_attention")
+    add(runs["gpt27 serve"]["launches"])
+    run = phase_lm_train(dev, seed, "gpt27")
+    runs["gpt27 train"] = run
+    print("width summary:")
+    for label, r in runs.items():
+        if "step_s" in r:
+            print(f"  {label}: {r['step_s']:.4f} s a step, "
+                  f"{r['tokens'] / r['step_s']:.1f} tokens/s, peak "
+                  f"{r['peak_bytes'] / 2**30:.2f} GiB")
+        else:
+            print(f"  {label}: TTFT mean {r['ttft_mean_s']:.4f} s, decode "
+                  f"{r['decode_tokens_per_s']:.1f} tokens/s, peak "
+                  f"{r['peak_bytes'] / 2**30:.2f} GiB")
+    print(f"  wide kernel launches over the phase: {total}")
+    for k_, v_ in total.items():
+        if not v_:
+            raise AssertionError(f"width: {k_} never launched")
+    _build.reset_launch_counts()
+    return dict(launches=total, runs=runs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="kernels,serve,gpt,bert,bert_train,gpt_train,"
                             "gpt_train_8k,profile,train,lean_train,optim,"
-                            "train-check,shim",
+                            "train-check,width,shim",
                     help="comma list of kernels, serve, gpt, bert, "
                          "bert_train, gpt_train, gpt_train_8k, profile, "
-                         "train, lean_train, optim, train-check, shim, ab "
+                         "train, lean_train, optim, train-check, width, "
+                         "shim, ab "
                          "(build always "
                          "runs; profile profiles the serve and the train "
                          "phases that run)")
@@ -5563,6 +6171,13 @@ def main(argv=None) -> int:
         phase_bert_train_check(dev, args.seed)
         phase_split_check(dev, args.seed)
         phase_rule_check(dev, args.seed)
+    if "width" in phases:
+        width = phase_width(dev, args.seed)
+        for key in WIDE_KERNELS:
+            if key in recs:
+                recs[key]["launches"] = width["launches"][key]
+        del width
+        torch.cuda.empty_cache()
     if "ab" in phases:
         if args.baseline is None:
             raise SystemExit("the ab phase needs --baseline")

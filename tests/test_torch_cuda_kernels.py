@@ -160,9 +160,19 @@ def test_flash_kernel_validity_window_ends_mid_tile(cuda, causal, valid, d):
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    """fp32 operands take the wide forward (#3w) now, within 2e-5 of the
+    plain version's max; a head dim past 256 is refused (ROADMAP V9)."""
     q = _randn((1, 2, 16, 64), 7, cuda, torch.float32)
-    with pytest.raises(TypeError, match="bfloat16"):
-        attn.flash_attention(q, q, q, causal=True)
+    before = _build.launch_counts()["flash_attention_wide"]
+    out = attn.flash_attention(q, q, q, causal=True)
+    assert _build.launch_counts()["flash_attention_wide"] == before + 1
+    q3 = q.reshape(2, 16, 64)
+    ref, _ = attn._fwd_reference(q3, q3, q3, True, 0.125)
+    assert _maxdiff(out.reshape(2, 16, 64), ref) <= \
+        2e-5 * ref.abs().max().item()
+    wide = _randn((1, 2, 16, 320), 7, cuda)
+    with pytest.raises(ValueError, match="V9"):
+        attn.flash_attention(wide, wide, wide, causal=True)
     qb = q.to(torch.bfloat16).requires_grad_()
     # a mask takes the masked forward, and its backward the masked
     # one-pass instance: finite grads, the plain backward's within 1e-2
@@ -660,18 +670,45 @@ def test_paged_kernel_failed_launch_leaves_counters_zero(cuda, monkeypatch):
     assert _slot_errors(got, ref).max().item() <= 2.0 ** -6
 
 
-def test_cuda_engine_refuses_a_page_size_without_a_kernel_when_built(cuda):
-    """An unfused engine on the card checks its page size when it is
-    built, not at its first decode step."""
+def test_cuda_engine_refuses_only_a_pool_without_a_kernel_when_built(cuda):
+    """An unfused engine on the card checks its pool when it is built,
+    not at its first decode step: pages of 8 and 256 now build (the wide
+    kernel #7w takes them); a head dim past 256 is refused (V9)."""
     from apex_tpu_torch.inference import InferenceEngine
     from apex_tpu_torch.transformer.testing import LlamaConfig
     cfg = LlamaConfig(vocab_size=256, hidden_size=128, num_layers=1,
                       num_attention_heads=4, num_kv_heads=2,
                       ffn_hidden_size=256, max_seq_length=256)
     for ps in (8, 256):
-        with pytest.raises(ValueError, match="page_size"):
-            InferenceEngine("llama", cfg, None, slots=2, max_seq=256,
-                            page_size=ps, device=cuda, decode_fusion="0")
+        InferenceEngine("llama", cfg, _llama_tree(cfg, cuda), slots=2,
+                        max_seq=256, page_size=ps, device=cuda,
+                        decode_fusion="0")
+    wide = LlamaConfig(vocab_size=256, hidden_size=640, num_layers=1,
+                       num_attention_heads=2, num_kv_heads=1,
+                       ffn_hidden_size=256, max_seq_length=256)
+    with pytest.raises(ValueError, match="V9"):
+        InferenceEngine("llama", wide, None, slots=2, max_seq=256,
+                        page_size=16, device=cuda, decode_fusion="0")
+
+
+def _llama_tree(cfg, dev, dtype=torch.bfloat16, seed=0):
+    """Random LLaMA weights for ``cfg``: linears N(0, 1/fan_in), norms 1,
+    the embedding N(0, 1)."""
+    from apex_tpu_torch.inference.weights import llama_param_shapes
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    tree: dict = {}
+    for path, shape in sorted(llama_param_shapes(cfg).items()):
+        t = torch.randn(shape, generator=gen)
+        if len(shape) == 1:
+            t = torch.ones(shape)
+        elif path[0] != "embed_tokens":
+            t = t * shape[1] ** -0.5
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = t.to(dev, dtype)
+    return tree
 
 
 @pytest.mark.parametrize("slots", [1, 64, 256])
@@ -2270,3 +2307,336 @@ def test_remat_replays_a_cuda_generator(cuda):
 
     for a, b in zip(run(True), run(False)):
         assert torch.equal(a, b)
+
+
+# --- the wide family (#3w, #5w, #6w: csrc/flash_wide.cu; #7w:
+# csrc/paged_wide.cu): fp32, bf16 and fp16 operands at any head dim up
+# to 256 on the CUDA cores.  Tolerances: an fp32 kernel against its fp32
+# plain version (TF32 off) within 2e-5 of max|ref| for out and lse and
+# 1e-4 for the grads (the sums run in another order, exp2 is ex2.approx);
+# 16-bit operands as the bf16 instances' card tests hold them (out 2e-2
+# absolute, lse 1e-3; the grads within 1e-2 relative L2 of the plain
+# version, and by element or against the exact gradient).
+
+_WIDE_TYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
+               "fp16": torch.float16}
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _live_rows(lse):
+    return lse > -1e29
+
+
+def _assert_wide_fwd(out, lse, ref, ref_lse, dtype):
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    live = _live_rows(ref_lse)
+    assert torch.equal(_live_rows(lse), live)
+    assert bool((lse[~live] == -1e30).all())
+    assert bool((out[~live] == 0).all())
+    if dtype == torch.float32:
+        assert _maxdiff(out, ref) <= 2e-5 * ref.abs().max().item()
+        assert _maxdiff(lse[live], ref_lse[live]) <= \
+            2e-5 * ref_lse[live].abs().max().item()
+    else:
+        assert _maxdiff(out, ref) <= 2e-2
+        assert _maxdiff(lse[live], ref_lse[live]) <= 1e-3
+
+
+def _assert_wide_bwd(got, ref, exact, dtype):
+    for g, r, x in zip(got, ref, exact):
+        assert g.dtype == dtype
+        if dtype == torch.float32:
+            assert _maxdiff(g, r) <= 1e-4 * r.abs().max().item()
+            continue
+        assert _rel_l2(g, r) <= 1e-2
+        g32, r32 = g.float(), r.float()
+        by_element = bool(((g32 - r32).abs()
+                           <= 2.0 ** -6 * r32.abs() + 2.0 ** -9).all())
+        ge, re = g.double() - x, r.double() - x
+        by_exact = bool(ge.norm() <= 1.05 * re.norm()) and bool(
+            ge.abs().max() <= 1.25 * re.abs().max())
+        assert by_element or by_exact
+
+
+def _wide_run(q, k, v, do, causal, scale, **md):
+    """#3w, then #5w and #6w on its output: each launched once; the pair
+    a second time, the same bits."""
+    before = _build.launch_counts()
+    out, lse = attn._fwd_wide(q, k, v, causal, scale, **md)
+    delta = attn._delta(out, do)
+    args = (q, k, v, lse, delta, do, causal, scale)
+    dq = attn._dq_wide(*args, **md)
+    dk, dv = attn._dkv_wide(*args, **md)
+    after = _build.launch_counts()
+    for name in ("flash_attention_wide", "flash_attention_wide_dq",
+                 "flash_attention_wide_dkv"):
+        assert after[name] == before[name] + 1
+    again = (attn._dq_wide(*args, **md), *attn._dkv_wide(*args, **md))
+    torch.cuda.synchronize()
+    for a, b in zip((dq, dk, dv), again):
+        assert torch.equal(a, b)
+    return out, lse, (dq, dk, dv)
+
+
+_WIDE_MD = [(None, 0.0), ("per-batch", 0.0), ("one", 0.1), (None, 0.2)]
+
+
+@pytest.mark.parametrize("dt", list(_WIDE_TYPES))
+@pytest.mark.parametrize("d", [16, 48, 80, 96, 160, 256])
+@pytest.mark.parametrize("kind,rate", _WIDE_MD)
+def test_wide_flash_matches_plain(cuda, no_tf32, dt, d, kind, rate):
+    """Causal with the offset sk - sq = 30, a per-batch mask with a fully
+    masked row and dead keys, a shared mask broadcast over every
+    batch-head, dropout: #3w against ``_fwd_reference``, #5w and #6w
+    against ``_dq_reference`` / ``_dkv_reference``; the pair repeats bit
+    for bit."""
+    dtype = _WIDE_TYPES[dt]
+    b, h, sq, sk = 2, 3, 100, 130
+    q, k, v, do = (_randn((b * h, s, d), 110 + i, cuda, dtype)
+                   for i, s in enumerate((sq, sk, sk, sq)))
+    mask3 = _md_mask3(kind, b, h, sq, sk, 114, cuda)
+    seed3 = attn._seed_operand(-77, device=cuda) if rate else None
+    md = dict(mask3=mask3, rate=rate, seed3=seed3)
+    scale = d ** -0.5
+    out, lse, grads = _wide_run(q, k, v, do, True, scale, **md)
+    ref, ref_lse = attn._fwd_reference(q, k, v, True, scale, mask3=mask3,
+                                       rate=rate, seed3=seed3)
+    # the backward's plain versions on the kernels' own inputs
+    args = (q, k, v, lse, attn._delta(out, do), do, True, scale)
+    want = (attn._dq_reference(*args, **md), *attn._dkv_reference(*args,
+                                                                   **md))
+    torch.cuda.synchronize()
+    _assert_wide_fwd(out, lse, ref, ref_lse, dtype)
+    exact = _exact_grads_md(q, k, v, do, True, scale, mask3, rate, seed3)
+    _assert_wide_bwd(grads, want, exact, dtype)
+
+
+@pytest.mark.parametrize("dt", list(_WIDE_TYPES))
+@pytest.mark.parametrize("d", [80, 256])
+@pytest.mark.parametrize("causal,off,valid", [(True, -5, None),
+                                              (True, 40, (90, 120)),
+                                              (False, None, (70, 33))])
+def test_wide_flash_offsets_and_windows(cuda, no_tf32, dt, d, causal, off,
+                                        valid):
+    """Causal offsets either side of 0 and validity windows that cut the
+    tiles (rows past the window: 0 and lse -1e30)."""
+    dtype = _WIDE_TYPES[dt]
+    q, k, v, do = (_randn((4, s, d), 120 + i, cuda, dtype)
+                   for i, s in enumerate((100, 130, 130, 100)))
+    kw = dict(causal_off=off, valid=valid)
+    scale = 0.7 * d ** -0.5
+    out, lse = attn._fwd_wide(q, k, v, causal, scale, **kw)
+    ref, ref_lse = attn._fwd_reference(q, k, v, causal, scale, **kw)
+    args = (q, k, v, lse, attn._delta(out, do), do, causal, scale)
+    got = (attn._dq_wide(*args, **kw), *attn._dkv_wide(*args, **kw))
+    want = (attn._dq_reference(*args, **kw),
+            *attn._dkv_reference(*args, **kw))
+    torch.cuda.synchronize()
+    _assert_wide_fwd(out, lse, ref, ref_lse, dtype)
+    exact = _exact_grads_md(q, k, v, do, causal, scale, None, 0.0, None,
+                            valid=valid, causal_off=off)
+    _assert_wide_bwd(got, want, exact, dtype)
+
+
+@pytest.mark.parametrize("dt", list(_WIDE_TYPES))
+@pytest.mark.parametrize("d", [80, 256])
+@pytest.mark.parametrize("masked", [False, True])
+def test_wide_flash_keep_pattern_is_the_plain_keep_mask(cuda, dt, d, masked):
+    """#3w's (v = I), #6w's (dO = I: dv) keep patterns equal the plain
+    keep mask exactly; #5w's dq within 1e-2 relative L2 of its plain
+    version on the same bits."""
+    dtype = _WIDE_TYPES[dt]
+    s, bh, rate = d, 5, 0.3
+    q = torch.zeros(bh, s, d, dtype=dtype, device=cuda)
+    k = _randn((bh, s, d), 130, cuda, dtype)
+    eye = torch.eye(d, dtype=dtype, device=cuda).expand(bh, d, d).contiguous()
+    seed3 = attn._seed_operand(2 ** 31 - 9, 1000, 77, device=cuda)
+    keep = attn._keep3(seed3, bh, s, s, rate, cuda)
+    mask3 = None
+    if masked:
+        mask3 = torch.zeros(1, s, s, dtype=torch.bool, device=cuda)
+        mask3[:, :, s - 5:] = True
+        keep = keep & ~mask3
+    md = dict(mask3=mask3, rate=rate, seed3=seed3)
+    out, lse = attn._fwd_wide(q, k, eye, False, d ** -0.5, **md)
+    delta = attn._delta(out, eye)
+    args = (q, k, eye, lse, delta, eye, False, d ** -0.5)
+    dq = attn._dq_wide(*args, **md)
+    _, dv = attn._dkv_wide(*args, **md)
+    ref_dq = attn._dq_reference(*args, **md)
+    torch.cuda.synchronize()
+    assert torch.equal(out > 0, keep)
+    assert torch.equal(dv.transpose(1, 2) > 0, keep)
+    assert _rel_l2(dq, ref_dq) <= 1e-2
+
+
+@pytest.mark.parametrize("dt", list(_WIDE_TYPES))
+def test_flash_attention_takes_the_route(cuda, no_tf32, dt):
+    """The public entry on the route of ``_flash_route``: bf16 at d 80
+    pads to the 128 instances (#3d, then #4d, dropout), bf16 at d 32 with
+    a mask pads to 64 (#3md, #4md), fp32 and fp16 at any d and bf16 at
+    d 256 run #3w then #5w + #6w; grads against the plain route's."""
+    dtype = _WIDE_TYPES[dt]
+    cases = [(80, None, 0.1), (32, "mask", 0.1), (256, None, 0.0)]
+    for d, masked, rate in cases:
+        b, h, s = 2, 2, 96
+        q, k, v = (_randn((b, h, s, d), seed, cuda, dtype).requires_grad_()
+                   for seed in (140, 141, 142))
+        mask = None
+        if masked:
+            mask = torch.zeros(b, 1, s, s, dtype=torch.bool, device=cuda)
+            mask[1, :, :, 60:] = True
+        kw = dict(mask=mask, dropout_rate=rate, dropout_seed=5,
+                  causal=mask is None)
+        _build.reset_launch_counts()
+        attn.flash_attention(q, k, v, **kw).float().sum().backward()
+        counts = {n: c for n, c in _build.launch_counts().items() if c}
+        if dtype != torch.bfloat16 or d > 128:
+            want = {"flash_attention_wide": 1, "flash_attention_wide_dq": 1,
+                    "flash_attention_wide_dkv": 1}
+        elif masked:
+            want = {"flash_attention_masked_drop": 1,
+                    "flash_attention_bwd_masked": 1}
+        else:
+            want = {"flash_attention_drop": 1, "flash_attention_bwd_drop": 1}
+        assert counts == want, (d, counts)
+        q2, k2, v2 = (t.detach().float().requires_grad_() for t in (q, k, v))
+        attn.flash_attention(q2, k2, v2, use_kernel=False,
+                             **kw).sum().backward()
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        for g_, r in ((q.grad, q2.grad), (k.grad, k2.grad), (v.grad, v2.grad)):
+            assert g_.shape == r.shape and _rel_l2(g_, r) <= tol
+
+
+def _wide_paged_case(cuda, lengths, group, d, ps, mpps, dtype, kvh=2,
+                     seed=150):
+    """As ``_paged_case`` in ``dtype``: only the live pages (and a trash
+    page) in a pool of two layers, layer 1's strided view."""
+    slots = len(lengths)
+    need = [min(-(-max(n, 0) // ps), mpps) for n in lengths]
+    n_pages = sum(need)
+    pool_k = _randn((n_pages + 1, 2, kvh, ps, d), seed, cuda, dtype)
+    pool_v = _randn((n_pages + 1, 2, kvh, ps, d), seed + 1, cuda, dtype)
+    perm = np.random.RandomState(seed + 2).permutation(n_pages)
+    table = np.full((slots, mpps), n_pages, np.int32)
+    cursor = 0
+    for s, n in enumerate(need):
+        table[s, :n] = perm[cursor:cursor + n]
+        cursor += n
+    table = torch.from_numpy(table).to(cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = _randn((slots, kvh * group, d), seed + 3, cuda, dtype)
+    return q, pool_k[:, 1], pool_v[:, 1], table, lens
+
+
+@pytest.mark.parametrize("dt", list(_WIDE_TYPES))
+@pytest.mark.parametrize("group", [3, 5, 7, 16, 32])
+@pytest.mark.parametrize("d", [80, 96, 256])
+@pytest.mark.parametrize("ps", [8, 24, 256])
+def test_wide_paged_kernel_matches_plain(cuda, dt, group, d, ps):
+    """#7w over groups, head dims, page sizes and types the instance has
+    no kernel for, one layer's strided view of a two-layer pool: lengths
+    0, on and across page edges, the whole window and past it; each slot
+    within its own max (2e-5 fp32, 2^-6 16-bit), an empty slot 0, a
+    second call the same bits."""
+    dtype = _WIDE_TYPES[dt]
+    mpps = max(2, 1200 // ps)
+    win = mpps * ps
+    lengths = [0, 1, ps, ps + 1, win // 2, win, win + 9]
+    case = _wide_paged_case(cuda, lengths, group, d, ps, mpps, dtype)
+    q, kp, vp, table, lens = case
+    assert kp.stride(0) != kp[0].numel()          # a strided layer view
+    before = _build.launch_counts()
+    got = pa.paged_decode_attention(q, kp, vp, table, lens)
+    after = _build.launch_counts()
+    assert after["paged_attention_wide"] == before["paged_attention_wide"] + 1
+    assert after["paged_attention"] == before["paged_attention"]
+    again = pa.paged_decode_attention(q, kp, vp, table, lens)
+    ref = pa.paged_decode_reference(q, kp, vp, table, lens, d ** -0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -6
+    assert _slot_errors(got, ref).max().item() <= tol
+    assert torch.equal(got, again)
+    assert bool((got[0] == 0).all())
+
+
+@pytest.mark.parametrize("slots", [1, 64])
+def test_wide_paged_kernel_splits_and_a_float_query(cuda, slots):
+    """A long window in many splits (merged in the launch, the counters
+    left zero) and an fp32 query against a bf16 pool (read in fp32, the
+    output in the query's type)."""
+    rng = np.random.RandomState(slots)
+    lengths = [int(n) for n in rng.randint(0, 4100, size=slots)]
+    lengths[0] = 4096
+    q, kp, vp, table, lens = _wide_paged_case(cuda, lengths, 4, 64, 64, 64,
+                                              torch.bfloat16)
+    qf = q.float()
+    got = pa.paged_decode_attention(qf, kp, vp, table, lens)
+    ref = pa.paged_decode_reference(qf, kp, vp, table, lens, 0.125)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert _slot_errors(got, ref).max().item() <= 2.0 ** -6
+    stream = _build.stream_ptr(cuda)
+    assert int(pa._counters(cuda, stream, 1).abs().sum().item()) == 0
+
+
+@pytest.mark.parametrize("dt", ["fp32", "fp16"])
+@pytest.mark.parametrize("group,d", [(1, 64), (3, 80)])
+def test_decode_attention_wide_branch(cuda, dt, group, d):
+    """A dense fp32 or fp16 cache past the crossover (and a group and head
+    dim the decode kernel lacks) take the JAX branch onto #3w: a strided
+    layer view, lengths 0 and past the cache."""
+    dtype = _WIDE_TYPES[dt]
+    b, kvh, s = 3, 2, 300
+    cache = _randn((b, 2, kvh, s, d), 160, cuda, dtype)
+    k, v = cache[:, 0], cache[:, 1]
+    q = _randn((b, kvh * group, d), 161, cuda, dtype)
+    lens = torch.tensor([0, 17, 400], dtype=torch.int32, device=cuda)
+    before = _build.launch_counts()["flash_attention_wide"]
+    got = attn.decode_attention(q, k, v, lens, use_kernel=True)
+    assert _build.launch_counts()["flash_attention_wide"] == before + 1
+    qg = q.reshape(b, kvh, group, d)
+    ref = attn._decode_reference(qg, k, v, lens, d ** -0.5).reshape(
+        b, kvh * group, d)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -6
+    assert _slot_errors(got, ref).max().item() <= tol
+    assert bool((got[0] == 0).all())
+
+
+@pytest.mark.parametrize("params_dtype,cache_dtype,ps", [
+    (torch.float32, torch.float32, 64), (torch.bfloat16, torch.bfloat16, 8),
+    (torch.bfloat16, torch.float16, 64)])
+def test_wide_engine_builds_and_decodes(cuda, params_dtype, cache_dtype, ps):
+    """An fp32 engine (fp32 weights and pool), a page-8 bf16 engine and a
+    bf16 model over an fp16 pool: each builds, serves two prompts and
+    decodes on #7w (no other paged kernel), prefill on the flash route
+    of its weights' type."""
+    from apex_tpu_torch.inference import InferenceEngine
+    from apex_tpu_torch.transformer.testing import LlamaConfig
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, num_layers=2,
+                      num_attention_heads=4, num_kv_heads=2,
+                      ffn_hidden_size=512, max_seq_length=256)
+    params = _llama_tree(cfg, cuda, params_dtype)
+    engine = InferenceEngine("llama", cfg, params, slots=2, max_seq=256,
+                             page_size=ps, cache_dtype=cache_dtype,
+                             device=cuda, decode_fusion="0")
+    _build.reset_launch_counts()
+    outs = engine.generate([[1, 2, 3, 4, 5], list(range(7, 70))],
+                           max_new_tokens=6)
+    counts = _build.launch_counts()
+    assert [len(o) for o in outs] == [6, 6]
+    assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
+    assert counts["paged_attention_wide"] > 0
+    assert counts["paged_attention"] == 0
+    prefill = "flash_attention_wide" if params_dtype == torch.float32 \
+        else "flash_attention"
+    assert counts[prefill] > 0

@@ -232,12 +232,15 @@ def test_kernel_call_refuses_a_page_size_it_has_no_instance_for():
 
 @pytest.mark.parametrize("ps", [1, 2, 4, 8, 16, 32, 64, 128, 256])
 def test_kernel_page_sizes_are_checked_by_one_rule(ps):
-    """The kernel's page sizes, as the card engine checks them when it is
-    built; the wrapper refuses the same ones."""
+    """The pool check the card engine runs when it is built is the paged
+    route's: every page size has a kernel (the instance's four, the wide
+    kernel #7w for the rest), so none is refused; what the instance's
+    wrapper refuses, the route sends to #7w."""
     takes = ps in (16, 32, 64, 128)
-    if takes:
-        tpa.check_kernel_page_size(ps)
-    else:
-        with pytest.raises(ValueError, match="page_size"):
-            tpa.check_kernel_page_size(ps)
+    tpa.check_kernel_page_size(ps)
+    tpa.check_kernel_page_size(ps, group=4, head_dim=64,
+                               dtype=torch.float32)
+    bf = torch.bfloat16
+    assert tpa._paged_route(bf, bf, 4, 64, ps) == (
+        "paged_attention" if takes else "paged_attention_wide")
     assert (ps in tpa._KERNEL_PAGE_SIZES) == takes

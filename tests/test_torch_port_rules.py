@@ -163,6 +163,12 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(
     paged_decode_attention(torch.randn(1, 2, 16), pool, pool,
                            torch.zeros(1, 2, dtype=torch.int32),
                            torch.tensor([5], dtype=torch.int32))
+    # the wide family's routes: a padded bf16 head dim, a group of 3
+    qw = torch.randn(1, 2, 8, 80).to(torch.bfloat16).requires_grad_()
+    flash_attention(qw, qw, qw, causal=True).float().sum().backward()
+    paged_decode_attention(torch.randn(1, 6, 16), pool, pool,
+                           torch.zeros(1, 2, dtype=torch.int32),
+                           torch.tensor([5], dtype=torch.int32))
     flat = torch.randn(100)
     fused_scale(flat, 0.5)
     fused_adam_flat(flat, torch.randn(100), torch.zeros(100),
@@ -211,7 +217,9 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(
         "fused_block_decode": 0, "fused_block_decode_gpt": 0,
         "fused_l2norm": 0,
         "fused_l2norm_scale": 0, "fused_lamb1": 0, "fused_sgd": 0,
-        "fused_adagrad": 0}
+        "fused_adagrad": 0, "flash_attention_wide": 0,
+        "flash_attention_wide_dq": 0, "flash_attention_wide_dkv": 0,
+        "paged_attention_wide": 0}
     assert _build._LIB is None              # nothing was built or loaded
 
 
@@ -270,14 +278,17 @@ def test_every_kernel_source_exists_and_exports_its_entry():
     every kernel has its own launch counter."""
     assert sorted(_build.KERNELS) == sorted(_build.launch_counts())
     # every TPU kernel, and further instances: the masked flash forward
-    # (#3), the GPT fused block (#8), and the flash kernels' mask and
+    # (#3), the GPT fused block (#8), the flash kernels' mask and
     # dropout instances (#3 with dropout, masked or not; #4 with a mask or
-    # dropout; #5 and #6 with either)
-    assert len(_build.KERNELS) == 24
+    # dropout; #5 and #6 with either), and the wide family (#3w, #5w,
+    # #6w, #7w: fp32, fp16 and head dims the instances lack)
+    assert len(_build.KERNELS) == 28
     assert {"flash_attention_masked", "fused_block_decode_gpt",
             "flash_attention_drop", "flash_attention_masked_drop",
             "flash_attention_bwd_masked", "flash_attention_bwd_drop",
-            "flash_attention_bwd_dq_md", "flash_attention_bwd_dkv_md"} \
+            "flash_attention_bwd_dq_md", "flash_attention_bwd_dkv_md",
+            "flash_attention_wide", "flash_attention_wide_dq",
+            "flash_attention_wide_dkv", "paged_attention_wide"} \
         <= set(_build.KERNELS)
     def flat(entries):    # a counter's entry, or its tuple of entries
         return [e for v in entries.values()
