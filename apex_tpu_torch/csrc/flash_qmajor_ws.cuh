@@ -4,7 +4,10 @@
 // DROP>, launched by flash_attention_md.cu for #3d and #3md (the forward:
 // DQ false, always dropping) and #5md (DQ: mask and dropout, mask alone,
 // dropout alone).  The forwards without dropout (#3, #3m) and the dq
-// kernel without mask and dropout (#5) stay on flash_qmajor_kernel.
+// kernel without mask and dropout (#5) stay on flash_qmajor_kernel.  The
+// wide family's forward and dq (#3w, #5w: flash_wide.cu through
+// flash_wide_ws.cuh) are its other operand modes (OP, below): fp16
+// operands, bf16 at head dim 256, fp32 as three bf16 planes.
 //
 // Replaces: apex_tpu/ops/attention.py :: _fwd_kernel (launched by _fwd
 // through pl.pallas_call) with its dropout operand, with and without its
@@ -95,6 +98,32 @@
 // second run gives the same bits).  A 64-key step reads half of a
 // pre-pass tile's class and bits.
 //
+// The wide family's modes (OP != kOpBf16; launch_wide_ws in
+// flash_wide_ws.cuh).  The operands come at their real head dim d
+// (columns past d read as zero, the bucket D = 64, 128 or 256 being the
+// tile's width), O and dq leave straight from the accumulators (columns
+// < d, rows < sq: no O buffer), mask3 is read in place (a step's two
+// rows' bytes a thread; no pre-pass, whose scratch the wide entries do
+// not take) and the dq mode takes its tiles in the forward's snake (no
+// counter).  16-bit rows that are not 16-byte multiples (d % 8 != 0) or
+// not 16-byte aligned cannot be TMA boxes: the row-copying modes copy
+// them with three warps of the copying warpgroup into the same swizzled
+// tiles (copy_tile; the operands' addresses ride in the unused
+// tensor-map parameters), the "full" mbarriers counting their 96
+// arrivals.  fp16 runs the .f16
+// products, p and dS packed as fp16 fragments (rounded where the plain
+// versions round them).  fp32 (kOpWideF32) reads every operand as
+// three bf16 planes x ~ x0 + x1 + x2 (hopper.cuh split3, made by
+// flash_wide.cu's split kernel; a tile holds each operand's three) and
+// runs each product as six bf16 ones, a0 b0 + a0 b1 + a1 b0 + a0 b2 + a1 b1
+// + a2 b0, the small ones first, which keeps every term down to ~2^-16 of
+// the product and drops those near 2^-24 and below; p and dS become three
+// register planes.  Steps and stages (FwTiles): 16-bit d 256 64-key
+// steps (32 in the dq mode), two stages; fp32 a 64-key step at d 64 and 32
+// at d 128, whose dq mode runs ONE product warpgroup on 64-query tiles
+// (NWG = 1: Q and dO's six planes of 128 queries do not fit beside a
+// ring), no turns.
+//
 // What bounds it on the H100: the tensor-core products and, beside them,
 // the hash on the CUDA cores (nine instructions an element, seven of them
 // on the integer ALU); the design keeps the two in flight together.
@@ -102,6 +131,9 @@
 // clocks and what the sort of the masked tiles saves (nosort), and
 // --split the dq mode's.
 #pragma once
+
+#include <cstring>
+#include <type_traits>
 
 #include "flash_qmajor.cuh"
 
@@ -116,15 +148,53 @@ constexpr int kFwScratch = kFwHist * 4 + kFwOrderCap * 2;   // a warp's
 constexpr int kFwTurn = 1;           // named barriers 1, 2: the turns
 constexpr int kFwEpi = 3;            // 3, 4: a warpgroup's epilogue
 
+// Operand modes: the bf16 instances (operands zero-padded to D by the
+// wrapper, O and dq out by TMA stores, the dq mode's tiles from a
+// counter), and the wide family's bf16, fp16 and fp32 (three planes); its
+// 16-bit rows that TMA cannot copy (d % 8 != 0, or not 16-byte aligned)
+// by threads instead (kOpWideBf16Rows, kOpWideF16Rows).
+constexpr int kOpBf16 = 0, kOpWideBf16 = 1, kOpWideF16 = 2, kOpWideF32 = 3,
+              kOpWideBf16Rows = 4, kOpWideF16Rows = 5;
+template <int OP>
+constexpr int kOpPlanes = OP == kOpWideF32 ? 3 : 1;
+template <int OP>
+constexpr bool kOpRows = OP == kOpWideBf16Rows || OP == kOpWideF16Rows;
+// the row-copying modes' copying threads: warps 8, 10 and 11 (warp 9's
+// first thread schedules)
+constexpr int kFwCopiers = 96;
+// keys a step of a wide mode: the most whose accumulators fit the
+// registers and whose two stages fit beside Q (and dO)
+constexpr int wide_bk(int D, bool DQ, int planes) {
+  return planes == 3 ? (D <= 64 ? 64 : 32)
+         : DQ ? (D <= 128 ? 64 : 32) : (D <= 128 ? kMaskTile : 64);
+}
+// The six products of two three-plane operands, smallest terms first:
+// product i takes A's plane pair_a(i) and B's plane pair_b(i) (a1b1,
+// a0b2, a2b0, a0b1, a1b0, a0b0); one-plane operands take i = 5 alone.
+__host__ __device__ constexpr int pair_a(int i) {
+  return i == 0 ? 1 : i == 2 ? 2 : i == 4 ? 1 : 0;
+}
+__host__ __device__ constexpr int pair_b(int i) {
+  return i == 0 ? 1 : i == 1 ? 2 : i == 3 ? 1 : 0;
+}
+
 // Shared memory, byte offsets from a 1024-aligned base.  O is two
 // warpgroup halves of [DP / 64 chunks][64 rows][64], the TMA store's
-// boxes.  BK: keys a step.
-template <int D, bool MASK, bool DQ>
+// boxes (none in a wide mode).  BK: keys a step; BQ: queries a tile (64
+// a product warpgroup); a plane of Q, dO, or a K or V stage is kQP or
+// kKVP bytes, an operand NPL planes.
+template <int D, bool MASK, bool DQ, int OP = kOpBf16, int NWG = 2>
 struct FwTiles {
+  static constexpr bool WIDE = OP != kOpBf16;
+  static constexpr int NPL = kOpPlanes<OP>;
+  static constexpr int BQ = 64 * NWG, NC = 128 * NWG;
   static constexpr int DP = kDP<D>;
-  static constexpr int BK = DQ ? 64 : kMaskTile;
-  static constexpr int kQ = kQmBQ * DP * 2;
-  static constexpr int kKV = BK * DP * 2;
+  static constexpr int BK =
+      WIDE ? wide_bk(D, DQ, NPL) : DQ ? 64 : kMaskTile;
+  static constexpr int kQP = BQ * DP * 2;
+  static constexpr int kQ = NPL * kQP;
+  static constexpr int kKVP = BK * DP * 2;
+  static constexpr int kKV = NPL * kKVP;
   static constexpr int kOrder = MASK ? kFwOrderCap * 2 : 0;
   // Q full and empty, K's and V's full and empty a stage, the schedule
   // queue's full and empty a slot
@@ -132,9 +202,9 @@ struct FwTiles {
   // the tile's words (4), the queue (2 x 4), a word a K stage, the
   // schedule's state (4)
   static constexpr int kInfo = (16 + kFwMaxStages) * 4;
-  static constexpr int kAnchor = kFwConsumers * 8;   // the hash's slots
+  static constexpr int kAnchor = NC * 8;   // the hash's slots
   static constexpr int oQ = 0, oDO = kQ, oO = (DQ ? 2 : 1) * kQ,
-                       oK = oO + kQ;
+                       oK = oO + (WIDE ? 0 : kQ);
   static constexpr int kFit = (kSmemMax - 1024 - oK - kOrder - kBars * 8 -
                                kInfo - kAnchor) / (2 * kKV);
   static constexpr int kStages = kFit < kFwMaxStages ? kFit : kFwMaxStages;
@@ -146,25 +216,96 @@ struct FwTiles {
   static_assert(bytes <= kSmemMax, "the tiles fit in shared memory");
   static_assert(!MASK || 12 * kFwScratch <= oOrder,
                 "the sort's scratch fits below the order table");
+  static_assert(kMaskTile % BK == 0, "a step lies inside a pre-pass tile");
 };
 
 // The launch's shapes, masks, dropout and schedule.  Tiles come in groups
 // of heads: group g covers masks [mg gm, mg gm + gm) (mg = g / nch, at
 // most nmask) and, in each, heads [c hc, c hc + hc) (c = g % nch, at most
-// hper); without a mask every head is its own "mask" (hper 1, hc 1).
+// hper); without a mask every head is its own "mask" (hc 1).  A wide mode
+// (no MASK) holds its own operands in the slots of the pre-pass's: its
+// output [nbh, sq, d] (O or dq, of the operands' type; fp32 for three
+// planes) in `bits`'s, its head dim in `sorted`'s, mask3 [nbh / mhper,
+// sq, sk] bytes (or null) in `cls`'s and mhper in `nkt`'s.  The struct
+// stays 128 bytes: with the wide fields appended (152 bytes) #3d read
+// 3.5% and #3md 11.7% slower in chip_smoke.py's md A/B, their code
+// otherwise unchanged.
 struct FwParams {
   int nbh, sq, sk, causal, off, valid_q, valid_k;
   float scale_log2, scale;
   const float* lse_in;      // DQ: the forward's base-2 lse [nbh, sq]
   const float* delta;       // and rowsum(dO * O) [nbh, sq]
-  int nqb, nkt, hper, nmask, gm, hc, nch, sorted;
-  const unsigned char* cls;
-  const unsigned* bits;
+  int nqb;
+  union {
+    int nkt;
+    int mhper;
+  };
+  int hper, nmask, gm, hc, nch;
+  union {
+    int sorted;
+    int d;
+  };
+  union {
+    const unsigned char* cls;
+    const unsigned char* mask3;
+  };
+  union {
+    const unsigned* bits;
+    void* out;
+  };
   const int* seed3;
   unsigned threshold;
   float inv_keep;
   int* next_tile;           // DQ: the tile counter, 0 at the launch
 };
+static_assert(sizeof(FwParams) == 128, "the kernel's parameters as #3d's");
+
+// The row-copying modes' operands: their addresses ride in the tensor-map
+// parameters those modes do not use, as each map's first word.
+inline CUtensorMap address_map(const void* ptr) {
+  CUtensorMap m{};
+  std::memcpy(&m, &ptr, sizeof ptr);
+  return m;
+}
+__device__ __forceinline__ const uint16_t* map_address(const CUtensorMap& m) {
+  return *reinterpret_cast<const uint16_t* const*>(&m);
+}
+
+// A row-copying mode's tile: rows [r0, r0 + ROWS) of one batch-head's [n,
+// d] 16-bit matrix at src into the swizzled tile at dst (DP / 64 chunks of
+// [ROWS][64], as TMA writes them; zeros past n rows and d columns), by the
+// kFwCopiers copying threads (ci this one's index): element pairs where d
+// is even and src 4-byte aligned (then every pair is), single elements
+// otherwise; then the fence that shows these generic stores to the async
+// proxy wgmma reads through.
+template <int ROWS, int DP>
+__device__ __forceinline__ void copy_tile(uint32_t dst, const uint16_t* src,
+                                          int r0, int n, int d, int ci) {
+  auto at = [&](int r, int c) {
+    return dst + (c >> 6) * (ROWS * 128) + r * 128 +
+           ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
+  };
+  if (!(d & 1) && !(reinterpret_cast<uintptr_t>(src) & 3)) {
+    for (int i = ci; i < ROWS * DP / 2; i += kFwCopiers) {
+      const int r = i / (DP / 2), c = (i - r * (DP / 2)) * 2;
+      unsigned v = 0u;
+      if (r0 + r < n && c < d)
+        v = __ldg(reinterpret_cast<const unsigned*>(
+            src + (size_t)(r0 + r) * d + c));
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at(r, c)), "r"(v)
+                   : "memory");
+    }
+  } else {
+    for (int i = ci; i < ROWS * DP; i += kFwCopiers) {
+      const int r = i / DP, c = i - r * DP;
+      unsigned short v = 0;
+      if (r0 + r < n && c < d) v = __ldg(src + (size_t)(r0 + r) * d + c);
+      asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(at(r, c)), "h"(v)
+                   : "memory");
+    }
+  }
+  fence_async_smem();
+}
 
 // 32-bit shared memory words by address (no 64-bit generic pointer held)
 __device__ __forceinline__ void st_shared(uint32_t a, int v) {
@@ -181,15 +322,17 @@ __device__ __forceinline__ int ld_shared_u16(uint32_t a) {
   return v;
 }
 
-// keys a tile of query block qb may see: [0, return)
+// keys a tile of query block qb (BQ queries) may see: [0, return)
+template <int BQ = kQmBQ>
 __device__ __forceinline__ int fw_kend(const FwParams& p, int qb) {
   const int kend = min(p.sk, p.valid_k);
-  return p.causal ? min(kend, qb * kQmBQ + kQmBQ + p.off) : kend;
+  return p.causal ? min(kend, qb * BQ + BQ + p.off) : kend;
 }
 // key tiles a tile of query block qb may see: [0, return)
+template <int BQ = kQmBQ>
 __device__ __forceinline__ int fw_tiles_seen(const FwParams& p, int qb) {
-  const int kend = fw_kend(p, qb);
-  return (kend > 0 && qb * kQmBQ < min(p.sq, p.valid_q))
+  const int kend = fw_kend<BQ>(p, qb);
+  return (kend > 0 && qb * BQ < min(p.sq, p.valid_q))
              ? (kend + kMaskTile - 1) / kMaskTile : 0;
 }
 
@@ -221,8 +364,10 @@ __device__ __forceinline__ int fw_group_tiles(const FwParams& p, int g) {
 
 // DQ false: out = O, lse_out the base-2 lse (or null), tdo unused; DQ:
 // out = dq [nbh, sq, D] bf16 and tdo dO's map (128-row boxes), lse_out
-// unused.
-template <int D, bool MASK, bool DQ, bool DROP>
+// unused.  A wide mode (OP) writes p.out instead of `to`; NWG product
+// warpgroups (NWG 1: the second warpgroup only gives its registers up).
+template <int D, bool MASK, bool DQ, bool DROP, int OP = kOpBf16,
+          int NWG = 2>
 __global__ void __launch_bounds__(kFwThreads, 1)
 flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -230,9 +375,22 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap to,
                     const __grid_constant__ CUtensorMap tdo,
                     float* __restrict__ lse_out, const FwParams p) {
-  static_assert(D == 64 || D == 128, "the dropout instances' head dims");
-  static_assert(DQ || DROP, "the forward's instances always drop");
-  using T = FwTiles<D, MASK, DQ>;
+  static_assert(D == 64 || D == 128 || (OP != kOpBf16 && D == 256),
+                "the instances' head dims");
+  static_assert(DQ || DROP || OP != kOpBf16,
+                "the bf16 forward's instances always drop");
+  static_assert(!(MASK && OP != kOpBf16), "a wide mode reads mask3 itself");
+  static_assert(NWG == 2 || OP != kOpBf16, "the bf16 instances take turns");
+  using T = FwTiles<D, MASK, DQ, OP, NWG>;
+  constexpr bool WIDE = T::WIDE,
+                 F16 = OP == kOpWideF16 || OP == kOpWideF16Rows;
+  constexpr bool ROWS = kOpRows<OP>;
+  // arrivals that complete a load's "full" mbarrier, and the schedule
+  // queue's "empty" ones: the copying thread (its TMA bytes), or each of
+  // the row-copying threads
+  constexpr int kLoaders = ROWS ? kFwCopiers : 1;
+  constexpr int NPL = T::NPL, BQ = T::BQ, NC = T::NC;
+  constexpr int kPairs = NPL == 3 ? 6 : 1;   // products i in [6 - kPairs, 6)
   constexpr int DP = T::DP, S = T::kStages, BK = T::BK;
   constexpr int kKS = D / 16;     // k16 steps of S over d
   constexpr int kPS = BK / 16;    // k16 steps of P V over keys
@@ -264,15 +422,15 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
   const int tid = threadIdx.x;
 
   if (tid == 0) {
-    mbar_init(bQFull, 1);
-    mbar_init(bQEmpty, kFwConsumers);
+    mbar_init(bQFull, kLoaders);
+    mbar_init(bQEmpty, NC);
     for (int st = 0; st < S; ++st) {
-      mbar_init(bKFull + 8 * st, 1);
-      mbar_init(bKEmpty + 8 * st, kFwConsumers);
-      mbar_init(bVFull + 8 * st, 1);
-      mbar_init(bVEmpty + 8 * st, kFwConsumers);
+      mbar_init(bKFull + 8 * st, kLoaders);
+      mbar_init(bKEmpty + 8 * st, NC);
+      mbar_init(bVFull + 8 * st, kLoaders);
+      mbar_init(bVEmpty + 8 * st, NC);
     }
-    for (int i = 0; i < 4; ++i) mbar_init(bDesc + 8 * i, 1);
+    for (int i = 0; i < 4; ++i) mbar_init(bDesc + 8 * i, i < 2 ? 1 : kLoaders);
     mbar_init_fence();
   }
   if constexpr (MASK) {
@@ -343,6 +501,9 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
   fence_async_smem();   // the sort's scratch, before the ring's copies
   __syncthreads();
 
+  // the dq mode's tiles from the counter (the bf16 instances), else the
+  // snake
+  constexpr bool kCounter = DQ && !WIDE;
   if (tid >= kFwConsumers) {
     reg_dealloc<kQmCopyRegs>();
     if (tid == kFwConsumers + 32) {
@@ -359,7 +520,7 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
       st_shared(sState + 8, 0);
       st_shared(sState + 12, fw_group_tiles<MASK>(p, 0));
       for (int n = 0;; ++n) {
-        if constexpr (DQ) {
+        if constexpr (kCounter) {
           // the next tile from the counter once the loader is done with
           // the last one's slot: a block holds the tile it computes and
           // a few steps of the next
@@ -392,10 +553,10 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
           bh = m * p.hper + hd;
         }
         // the snake: tiles b, 2G - 1 - b, 2G + b, ...
-        if constexpr (!DQ)
+        if constexpr (!kCounter)
           st_shared(sState, R + ((n & 1) ? 2 * b + 1
                                          : 2 * ((int)gridDim.x - 1 - b) + 1));
-        const int nk = bh < 0 ? 0 : fw_tiles_seen(p, qb);
+        const int nk = bh < 0 ? 0 : fw_tiles_seen<BQ>(p, qb);
         const int cls0 = MASK ? (m * p.nqb + qb) * p.nkt : 0;  // its classes
         int nlive = nk;
         if constexpr (MASK) {
@@ -404,7 +565,7 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
             nlive += p.cls[(size_t)cls0 + kt] != kTileDead;
         }
         const uint32_t d = sDesc + 16 * (n & 1);
-        if (!DQ && n >= 2)
+        if (!kCounter && n >= 2)
           mbar_wait(bDesc + 16 + 8 * (n & 1), ((n >> 1) - 1) & 1);
         st_shared(d, bh);
         st_shared(d + 4, qb);
@@ -415,7 +576,13 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
       }
       return;
     }
-    if (tid != kFwConsumers) return;
+    if constexpr (ROWS) {
+      if (tid >> 5 == 9) return;    // warp 9 but its scheduling thread
+    } else {
+      if (tid != kFwConsumers) return;
+    }
+    // ROWS: this thread's index among the copying threads
+    const int ci = ((tid >> 5) == 8 ? 0 : (tid >> 5) - 9) * 32 + (tid & 31);
     // every load.  Step c (the live steps of all tiles in turn) takes K
     // stage and V stage c % S.  A tile's first K goes before its Q (which
     // waits until the last tile's S products are done with Q), each later
@@ -439,28 +606,50 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
           mbar_arrive(bQFull);
           return;
         }
-        mbar_expect_tx(bQFull, (DQ ? 2 : 1) * T::kQ);
-        for (int cc = 0; cc < DP / 64; ++cc) {
-          tma_load(sQ + cc * (kQmBQ * 128), &tq, bQFull, cc * 64,
-                   ld_shared(d + 4) * kQmBQ, ld_shared(d));
+        if constexpr (ROWS) {
+          const size_t off = (size_t)ld_shared(d) * p.sq * p.d;
+          copy_tile<BQ, DP>(sQ, map_address(tq) + off, ld_shared(d + 4) * BQ,
+                            p.sq, p.d, ci);
           if constexpr (DQ)
-            tma_load(sDO + cc * (kQmBQ * 128), &tdo, bQFull, cc * 64,
-                     ld_shared(d + 4) * kQmBQ, ld_shared(d));
+            copy_tile<BQ, DP>(sDO, map_address(tdo) + off,
+                              ld_shared(d + 4) * BQ, p.sq, p.d, ci);
+          mbar_arrive(bQFull);
+          return;
         }
+        mbar_expect_tx(bQFull, (DQ ? 2 : 1) * T::kQ);
+        // plane pl of batch-head bh is the map's batch-head bh + pl nbh
+        for (int pl = 0; pl < NPL; ++pl)
+          for (int cc = 0; cc < DP / 64; ++cc) {
+            tma_load(sQ + pl * T::kQP + cc * (BQ * 128), &tq, bQFull,
+                     cc * 64, ld_shared(d + 4) * BQ, ld_shared(d) + pl * p.nbh);
+            if constexpr (DQ)
+              tma_load(sDO + pl * T::kQP + cc * (BQ * 128), &tdo, bQFull,
+                       cc * 64, ld_shared(d + 4) * BQ,
+                       ld_shared(d) + pl * p.nbh);
+          }
       };
       // V of step `step` (key block k) once its stage's last reader (P V;
       // DQ: dP) is done with it
       auto load_v = [&](int k, int step) {
         const int st = step % S, use = step / S;
         if (use > 0) mbar_wait(bVEmpty + 8 * st, (use - 1) & 1);
+        if constexpr (ROWS) {
+          copy_tile<BK, DP>(sV + st * T::kKV,
+                            map_address(tv) + (size_t)ld_shared(d) * p.sk * p.d,
+                            k * BK, p.sk, p.d, ci);
+          mbar_arrive(bVFull + 8 * st);
+          return;
+        }
         mbar_expect_tx(bVFull + 8 * st, T::kKV);
-        for (int cc = 0; cc < DP / 64; ++cc)
-          tma_load(sV + st * T::kKV + cc * (BK * 128), &tv, bVFull + 8 * st,
-                   cc * 64, k * BK, ld_shared(d));
+        for (int pl = 0; pl < NPL; ++pl)
+          for (int cc = 0; cc < DP / 64; ++cc)
+            tma_load(sV + st * T::kKV + pl * T::kKVP + cc * (BK * 128), &tv,
+                     bVFull + 8 * st, cc * 64, k * BK,
+                     ld_shared(d) + pl * p.nbh);
       };
       int left = ld_shared(d + 12);  // live key tiles not yet loaded
       int prev = -1;                 // the last key block loaded
-      const int nk = left > 0 ? fw_tiles_seen(p, ld_shared(d + 4)) : 0;
+      const int nk = left > 0 ? fw_tiles_seen<BQ>(p, ld_shared(d + 4)) : 0;
       for (int kt = 0; kt < nk; ++kt) {
         int part = 0;
         if constexpr (MASK) {
@@ -473,10 +662,10 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
         for (int h = 0; h < kMaskTile / BK; ++h) {
           const int kb = kt * (kMaskTile / BK) + h;
           bool last = left == 0;
-          if constexpr (DQ) {
-            // the last live tile's last step: its second half, or its
-            // first where the keys end inside it
-            const int kend = fw_kend(p, ld_shared(d + 4));
+          if constexpr (BK < kMaskTile) {
+            // the last live tile's last step: its last, or the one where
+            // the keys end inside it
+            const int kend = fw_kend<BQ>(p, ld_shared(d + 4));
             if (kb * BK >= kend) break;
             last = last && (h == kMaskTile / BK - 1 || (kb + 1) * BK >= kend);
           }
@@ -485,10 +674,20 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
           const int st = c % S, use = c / S;
           if (use > 0) mbar_wait(bKEmpty + 8 * st, (use - 1) & 1);
           st_shared(sInfo + 48 + 4 * st, kb * 4 + (last ? 2 : 0) + part);
-          mbar_expect_tx(bKFull + 8 * st, T::kKV);
-          for (int cc = 0; cc < DP / 64; ++cc)
-            tma_load(sK + st * T::kKV + cc * (BK * 128), &tk,
-                     bKFull + 8 * st, cc * 64, kb * BK, ld_shared(d));
+          if constexpr (ROWS) {
+            copy_tile<BK, DP>(
+                sK + st * T::kKV,
+                map_address(tk) + (size_t)ld_shared(d) * p.sk * p.d, kb * BK,
+                p.sk, p.d, ci);
+            mbar_arrive(bKFull + 8 * st);
+          } else {
+            mbar_expect_tx(bKFull + 8 * st, T::kKV);
+            for (int pl = 0; pl < NPL; ++pl)
+              for (int cc = 0; cc < DP / 64; ++cc)
+                tma_load(sK + st * T::kKV + pl * T::kKVP + cc * (BK * 128),
+                         &tk, bKFull + 8 * st, cc * 64, kb * BK,
+                         ld_shared(d) + pl * p.nbh);
+          }
           if (prev < 0)
             begin_tile(true);
           else if constexpr (!DQ)
@@ -508,6 +707,12 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
     }
     return;
   }
+  if constexpr (NWG == 1) {
+    if (tid >= NC) {               // the idle warpgroup
+      reg_dealloc<kQmCopyRegs>();
+      return;
+    }
+  }
   reg_alloc<kQmRegs>();
 
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
@@ -519,7 +724,7 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
   // A of S: this warpgroup's 64 rows of Q, k-step ks; B: the stage's K
   // tile, K-major over d
   auto a_desc = [&](int ks) {
-    return gmma_desc(sQ + (ks >> 2) * (kQmBQ * 128) + wg * (64 * 128) +
+    return gmma_desc(sQ + (ks >> 2) * (BQ * 128) + wg * (64 * 128) +
                          (ks & 3) * 32, 16, 1024);
   };
   auto b_desc = [&](uint32_t tile, int ks) {
@@ -529,10 +734,109 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
   auto n_desc = [&](uint32_t tile, int t) {
     return gmma_desc(tile + t * 16 * 128, BK * 128, 1024);
   };
+  // plane pl of Q or dO: its descriptors moved by the plane's bytes (the
+  // start address field, in 16-byte units, never carries: shared memory
+  // addresses stay under 2^18)
+  auto qplane = [](int pl) { return (uint64_t)(pl * T::kQP) >> 4; };
+  // S (DQ: and dP) = A B^T into acc: A this warpgroup's rows from `adesc`
+  // (Q's or dO's), B the stage tile `tile` (K or V), K-major; the plane
+  // pairs' products smallest first
+  auto ss_product = [&](auto& acc, auto adesc, uint32_t tile) {
+#pragma unroll
+    for (int i = 6 - kPairs; i < 6; ++i)
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks)
+        wgmma_ss<0, 0, F16>(acc, adesc(ks) + qplane(pair_a(i)),
+                            b_desc(tile + pair_b(i) * T::kKVP, ks),
+                            i > 6 - kPairs || ks > 0);
+  };
+  // acc += A B: A the register fragments a[plane][k-step], B the stage
+  // tile `tile` (V, or K for dQ) read N-major
+  auto rs_product = [&](float (&acc)[DP / 2], unsigned (&a)[NPL][BK / 16][4],
+                        uint32_t tile) {
+#pragma unroll
+    for (int i = 6 - kPairs; i < 6; ++i)
+#pragma unroll
+      for (int t = 0; t < BK / 16; ++t)
+        wgmma_rs<F16>(acc, a[pair_a(i)][t],
+                      n_desc(tile + pair_b(i) * T::kKVP, t), 1);
+  };
+  // k-step t's A fragment u from an accumulator's two fp32 values: bf16
+  // or fp16 (rounded), or the three bf16 planes of fp32
+  auto pack_a = [&](unsigned (&a)[NPL][BK / 16][4], int t, int u, float lo,
+                    float hi) {
+    if constexpr (NPL == 3) {
+      float l3[3], h3[3];
+      split3(lo, l3);
+      split3(hi, h3);
+#pragma unroll
+      for (int pl = 0; pl < 3; ++pl) a[pl][t][u] = pack_bf16(l3[pl], h3[pl]);
+    } else if constexpr (F16) {
+      a[0][t][u] = pack_f16(lo, hi);
+    } else {
+      a[0][t][u] = pack_bf16(lo, hi);
+    }
+  };
+  // a wide mode's output row r (columns < d) from an accumulator's
+  // columns 8 j + 2 tig + e of row half hf, times mul
+  using Out = std::conditional_t<OP == kOpWideF32, float,
+                                 std::conditional_t<F16, __half, bf16>>;
+  auto store_row = [&](const float (&acc)[DP / 2], int bh, int r, int hf,
+                       float mul) {
+    if (r >= p.sq) return;
+    Out* o = static_cast<Out*>(p.out) + ((size_t)bh * p.sq + r) * p.d;
+    const bool pair = !(p.d & 1);   // element pairs 2-element aligned
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = j * 8 + tig * 2;
+      const float lo = acc[j * 4 + hf * 2] * mul,
+                  hi = acc[j * 4 + hf * 2 + 1] * mul;
+      if (c + 1 < p.d && pair) {
+        if constexpr (OP == kOpWideF32) {
+          *reinterpret_cast<float2*>(o + c) = make_float2(lo, hi);
+        } else if constexpr (F16) {
+          *reinterpret_cast<unsigned*>(o + c) = pack_f16(lo, hi);
+        } else {
+          *reinterpret_cast<unsigned*>(o + c) = pack_bf16(lo, hi);
+        }
+      } else {
+        if (c < p.d) o[c] = static_cast<Out>(lo);
+        if (c + 1 < p.d) o[c + 1] = static_cast<Out>(hi);
+      }
+    }
+  };
+  // a wide mode's mask3 bits of rows row and row + 8 for the BK keys from
+  // k0 (bit 2 j + e for key k0 + 8 j + 2 tig + e, 1 = masked), read in
+  // place: two bytes at once where sk is even
+  auto raw_bits = [&](const unsigned char* mrow, int row, int k0,
+                      unsigned (&mw)[2]) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = row + hf * 8;
+      unsigned w = 0u;
+      if (r < p.sq) {
+        const unsigned char* mr = mrow + (size_t)r * p.sk;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const int c = k0 + j * 8 + tig * 2;
+          if (!(p.sk & 1) && c < p.sk) {
+            const unsigned v = __ldg(
+                reinterpret_cast<const unsigned short*>(mr + c));
+            w |= ((unsigned)((v & 0xffu) != 0u) |
+                  (unsigned)((v >> 8) != 0u) << 1) << (j * 2);
+          } else {
+            if (c < p.sk && __ldg(mr + c)) w |= 1u << (j * 2);
+            if (c + 1 < p.sk && __ldg(mr + c + 1)) w |= 2u << (j * 2);
+          }
+        }
+      }
+      mw[hf] = w;
+    }
+  };
   if constexpr (DQ) {
     // the dq mode: A of dP, this warpgroup's 64 rows of dO
     auto o_desc = [&](int ks) {
-      return gmma_desc(sDO + (ks >> 2) * (kQmBQ * 128) + wg * (64 * 128) +
+      return gmma_desc(sDO + (ks >> 2) * (BQ * 128) + wg * (64 * 128) +
                            (ks & 3) * 32, 16, 1024);
     };
     uint32_t seed = 0u, roff = 0u, hcol0 = 0u, thr8 = 0u, kall = 0u;
@@ -544,13 +848,14 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
       // a threshold of 2^24 (rate within 2^-25 of 1) keeps nothing
       kall = p.threshold >= (1u << 24) ? 0u : 0xffffffffu;
     }
-    if (wg == 1) bar_arrive(kFwTurn, kFwConsumers);
+    if constexpr (NWG == 2)
+      if (wg == 1) bar_arrive(kFwTurn, NC);
     int c = 0;                      // live steps so far: the ring's place
     for (int n = 0;; ++n) {
       mbar_wait(bQFull, n & 1);
       const int bh = tinfo[0], qb = tinfo[1], nlive = tinfo[2];
       if (bh < 0) break;
-      const int q0 = qb * kQmBQ, wq0 = q0 + wg * 64 + warp * 16;
+      const int q0 = qb * BQ, wq0 = q0 + wg * 64 + warp * 16;
       const int row = q0 + r16;     // and row + 8
       // is key block k0 inside every mask for this warp's 16 rows
       auto full_step = [&](int k0) {
@@ -565,6 +870,10 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
           MASK ? p.bits + ((size_t)(bh / p.hper) * p.nqb + qb) * p.nkt *
                               kMaskWords + r16 * 4 + tig
                : nullptr;
+      // a wide mode's mask3 rows of this batch-head
+      const unsigned char* mrow =
+          WIDE && p.mask3 != nullptr
+              ? p.mask3 + (size_t)(bh / p.mhper) * p.sq * p.sk : nullptr;
       // rows row and row + 8: the keep hash's part (folded), lse (a
       // fully masked row's, and a row past sq's, as +inf: its p is 0
       // with no test an element), delta
@@ -585,10 +894,12 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int i = 0; i < kON; ++i) acc[i] = 0.f;
       if (nlive > 0) {
-        unsigned pa[kPS][4];        // dS_{t-1} as dQ's A (0 at first)
+        unsigned pa[NPL][kPS][4];   // dS_{t-1} as dQ's A (0 at first)
 #pragma unroll
-        for (int u = 0; u < kPS; ++u)
-          pa[u][0] = pa[u][1] = pa[u][2] = pa[u][3] = 0u;
+        for (int pl = 0; pl < NPL; ++pl)
+#pragma unroll
+          for (int u = 0; u < kPS; ++u)
+            pa[pl][u][0] = pa[pl][u][1] = pa[pl][u][2] = pa[pl][u][3] = 0u;
         for (int i = 0;; ++i, ++c) {
           const int st = c % S;
           mbar_wait(bKFull + 8 * st, (c / S) & 1);
@@ -609,6 +920,12 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
               const int sh = (k0 % kMaskTile) / 4;
               mw[0] = __ldg(tbits + w) >> sh;
               mw[1] = __ldg(tbits + w + 32) >> sh;
+            }
+          }
+          if constexpr (WIDE) {
+            if (mrow != nullptr) {
+              fast = false;
+              raw_bits(mrow, row, k0, mw);
             }
           }
           float s[kSN], dp[kSN];      // overwritten by their first k-step
@@ -642,22 +959,15 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
           // (at the tile's first step dS is 0, against K_t), the turn
           // handed over, the hash while they run
           const uint32_t pK = sK + ((i > 0 ? c - 1 : c) % S) * T::kKV;
-          bar_sync(kFwTurn + wg, kFwConsumers);
+          if constexpr (NWG == 2) bar_sync(kFwTurn + wg, NC);
           wgmma_fence();
-#pragma unroll
-          for (int ks = 0; ks < kKS; ++ks)
-            wgmma_ss<0, 0>(s, a_desc(ks), b_desc(sK + st * T::kKV, ks),
-                           ks > 0);
+          ss_product(s, a_desc, sK + st * T::kKV);
           wgmma_commit();
-#pragma unroll
-          for (int ks = 0; ks < kKS; ++ks)
-            wgmma_ss<0, 0>(dp, o_desc(ks), b_desc(sV + st * T::kKV, ks),
-                           ks > 0);
+          ss_product(dp, o_desc, sV + st * T::kKV);
           wgmma_commit();
-#pragma unroll
-          for (int t = 0; t < kPS; ++t) wgmma_rs(acc, pa[t], n_desc(pK, t), 1);
+          rs_product(acc, pa, pK);
           wgmma_commit();
-          bar_arrive(kFwTurn + 1 - wg, kFwConsumers);
+          if constexpr (NWG == 2) bar_arrive(kFwTurn + 1 - wg, NC);
           if constexpr (DROP) keep_bits();
           wgmma_wait<2>();            // S is done
           if constexpr (DROP)
@@ -708,7 +1018,8 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
           keep(pa);
           if (i > 0) mbar_arrive(bKEmpty + 8 * ((c - 1) % S));
           // dS = P (dP - delta), the dP of a dropped element 0 and of a
-          // kept one dP / (1 - rate), rounded to bf16 as dQ's A
+          // kept one dP / (1 - rate), rounded to the operand type as dQ's
+          // A (fp32: its three planes)
 #pragma unroll
           for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
@@ -721,21 +1032,21 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
                   g = (kb[hf] >> (j * 2 + e)) & 1u ? g * p.inv_keep : 0.f;
                 dp[x] = s[x] * (g - drow[hf]);
               }
-          to_a_frags(pa, dp);
+#pragma unroll
+          for (int t = 0; t < kPS; ++t)
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              pack_a(pa, t, u, dp[8 * t + 2 * u], dp[8 * t + 2 * u + 1]);
           if (last) break;
         }
         // the last step's dQ += dS K, in turn
         keep(acc);
         keep(pa);
-        bar_sync(kFwTurn + wg, kFwConsumers);
+        if constexpr (NWG == 2) bar_sync(kFwTurn + wg, NC);
         wgmma_fence();
-        {
-          const uint32_t cK = sK + (c % S) * T::kKV;
-#pragma unroll
-          for (int t = 0; t < kPS; ++t) wgmma_rs(acc, pa[t], n_desc(cK, t), 1);
-        }
+        rs_product(acc, pa, sK + (c % S) * T::kKV);
         wgmma_commit();
-        bar_arrive(kFwTurn + 1 - wg, kFwConsumers);
+        if constexpr (NWG == 2) bar_arrive(kFwTurn + 1 - wg, NC);
         wgmma_wait<0>();
         keep(acc);
         mbar_arrive(bKEmpty + 8 * (c % S));
@@ -744,6 +1055,13 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_arrive(bQEmpty);       // nothing read Q and dO
       }
 
+      if constexpr (WIDE) {
+        // dq = scale dQ straight from the accumulator
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          store_row(acc, bh, row + hf * 8, hf, p.scale);
+        continue;
+      }
       // dq = scale dQ through this warpgroup's half of sO and a TMA store
       if ((tid & 127) == 0) bulk_wait_read();   // the last tile's dq is out
       bar_sync(kFwEpi + wg, 128);
@@ -768,30 +1086,38 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
     // the first warpgroup's last turn was handed to it and never taken
-    if (wg == 0) bar_sync(kFwTurn, kFwConsumers);
+    if constexpr (NWG == 2)
+      if (wg == 0) bar_sync(kFwTurn, NC);
     if ((tid & 127) == 0) bulk_wait();
     return;
   }
   // p is exponentiated as p / (1 - rate) (log2 of the scale added to the
   // exponent's offset: no multiply an element), so the row sums l' = l /
   // (1 - rate) and P V's bf16 p's are those of the plain version; O's
-  // division and lse take the scale back out
-  const uint32_t seed = (uint32_t)__ldg(p.seed3),
-                 roff = (uint32_t)__ldg(p.seed3 + 1),
-                 hcol0 = (uint32_t)__ldg(p.seed3 + 2),
-                 thr8 = p.threshold << 8;
-  // a threshold of 2^24 (rate within 2^-25 of 1) keeps nothing
-  const uint32_t kall = p.threshold >= (1u << 24) ? 0u : 0xffffffffu;
-  const float out_scale = p.inv_keep, lc = log2f(p.inv_keep);
+  // division and lse take the scale back out.  Without dropout (a wide
+  // mode's DROP false) every element is kept and the scale is 1.
+  uint32_t seed = 0u, roff = 0u, hcol0 = 0u, thr8 = 0u, kall = 0u;
+  float out_scale = 1.f, lc = 0.f;
+  if constexpr (DROP) {
+    seed = (uint32_t)__ldg(p.seed3);
+    roff = (uint32_t)__ldg(p.seed3 + 1);
+    hcol0 = (uint32_t)__ldg(p.seed3 + 2);
+    thr8 = p.threshold << 8;
+    // a threshold of 2^24 (rate within 2^-25 of 1) keeps nothing
+    kall = p.threshold >= (1u << 24) ? 0u : 0xffffffffu;
+    out_scale = p.inv_keep;
+    lc = log2f(p.inv_keep);
+  }
   // the first warpgroup takes the first turn
-  if (wg == 1) bar_arrive(kFwTurn, kFwConsumers);
+  if constexpr (NWG == 2)
+    if (wg == 1) bar_arrive(kFwTurn, NC);
 
   int c = 0;                        // live steps so far: the ring's place
   for (int n = 0;; ++n) {
     mbar_wait(bQFull, n & 1);
     const int bh = tinfo[0], qb = tinfo[1], nlive = tinfo[2];
     if (bh < 0) break;
-    const int q0 = qb * kQmBQ, wq0 = q0 + wg * 64 + warp * 16;
+    const int q0 = qb * BQ, wq0 = q0 + wg * 64 + warp * 16;
     const int row = q0 + r16;       // and row + 8
     // is key tile k0 inside every mask for this warp's 16 rows
     auto full_tile = [&](int k0) {
@@ -806,22 +1132,30 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
         MASK ? p.bits + ((size_t)(bh / p.hper) * p.nqb + qb) * p.nkt *
                             kMaskWords + r16 * 4 + tig
              : nullptr;
+    // a wide mode's mask3 rows of this batch-head
+    const unsigned char* mrow =
+        WIDE && p.mask3 != nullptr
+            ? p.mask3 + (size_t)(bh / p.mhper) * p.sq * p.sk : nullptr;
     // rows row and row + 8's part of the keep hash, folded
-    uint32_t hrow[2];
+    uint32_t hrow[2] = {0u, 0u};
+    if constexpr (DROP) {
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-      hrow[hf] = fold16(drop_row(seed, (uint32_t)bh,
-                                 roff + (uint32_t)(row + hf * 8)));
+      for (int hf = 0; hf < 2; ++hf)
+        hrow[hf] = fold16(drop_row(seed, (uint32_t)bh,
+                                   roff + (uint32_t)(row + hf * 8)));
+    }
     float acc[kON];
 #pragma unroll
     for (int i = 0; i < kON; ++i) acc[i] = 0.f;
     float m[2] = {kNegInf, kNegInf};  // rows row, row + 8 (base 2, scaled)
     float l[2] = {0.f, 0.f};          // this thread's share of the row sums
     if (nlive > 0) {
-      unsigned pa[kPS][4];            // P as the next product's A
+      unsigned pa[NPL][kPS][4];       // P as the next product's A
 #pragma unroll
-      for (int u = 0; u < kPS; ++u)
-        pa[u][0] = pa[u][1] = pa[u][2] = pa[u][3] = 0u;
+      for (int pl = 0; pl < NPL; ++pl)
+#pragma unroll
+        for (int u = 0; u < kPS; ++u)
+          pa[pl][u][0] = pa[pl][u][1] = pa[pl][u][2] = pa[pl][u][3] = 0u;
       for (int i = 0;; ++i, ++c) {
         const int st = c % S;
         mbar_wait(bKFull + 8 * st, (c / S) & 1);
@@ -839,13 +1173,21 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
             mw[1] = __ldg(tbits + w + 32);
           }
         }
+        if constexpr (WIDE) {
+          if (mrow != nullptr) {
+            fast = false;
+            raw_bits(mrow, row, k0, mw);
+          }
+        }
         float s[kSN];                 // overwritten by the first k-step
         undef(s);
         keep(acc);
         keep(pa);
         // while S runs: the keep bits of this thread's 64 elements, bit
         // 2 j + e of word hf for row row + 8 hf, key k0 + 8 j + 2 tig + e
+        // (without dropout every bit set)
         uint32_t kb[2] = {0u, 0u};
+        if constexpr (!DROP) kb[0] = kb[1] = 0xffffffffu;
         // the words through this thread's slot: stored before the S wait,
         // loaded after it
         auto kb_load = [&]() {
@@ -874,26 +1216,22 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
         };
         // this warpgroup's turn: S_t, and P_{t-1} V_{t-1}, then the turn
         // handed over and the hash while they run
-        bar_sync(kFwTurn + wg, kFwConsumers);
+        if constexpr (NWG == 2) bar_sync(kFwTurn + wg, NC);
         wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < kKS; ++ks)
-          wgmma_ss<0, 0>(s, a_desc(ks), b_desc(sK + st * T::kKV, ks), ks > 0);
+        ss_product(s, a_desc, sK + st * T::kKV);
         wgmma_commit();
         if (i > 0) {
-          const uint32_t pV = sV + ((c - 1) % S) * T::kKV;
-#pragma unroll
-          for (int t = 0; t < kPS; ++t) wgmma_rs(acc, pa[t], n_desc(pV, t), 1);
+          rs_product(acc, pa, sV + ((c - 1) % S) * T::kKV);
           wgmma_commit();
-          bar_arrive(kFwTurn + 1 - wg, kFwConsumers);
-          hash();
+          if constexpr (NWG == 2) bar_arrive(kFwTurn + 1 - wg, NC);
+          if constexpr (DROP) hash();
           wgmma_wait<1>();            // S is done; P V may still run
         } else {
-          bar_arrive(kFwTurn + 1 - wg, kFwConsumers);
-          hash();
+          if constexpr (NWG == 2) bar_arrive(kFwTurn + 1 - wg, NC);
+          if constexpr (DROP) hash();
           wgmma_wait<0>();
         }
-        kb_load();
+        if constexpr (DROP) kb_load();
         keep(s);
         mbar_arrive(bKEmpty + 8 * st);    // S is done with K
         if (last) mbar_arrive(bQEmpty);   // this tile's S products are done
@@ -976,7 +1314,7 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
             acc[j * 4 + hf * 2] *= alpha[hf];
             acc[j * 4 + hf * 2 + 1] *= alpha[hf];
           }
-        // P_t as bf16 A fragments: columns 16 t .. 16 t + 15 of the
+        // P_t as A fragments: columns 16 t .. 16 t + 15 of the
         // accumulator are k-step t's A (a dropped element is 0)
 #pragma unroll
         for (int t = 0; t < kPS; ++t)
@@ -984,8 +1322,8 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
           for (int u = 0; u < 4; ++u) {
             const int x = 8 * t + 2 * u;
             const uint32_t kw = kb[u & 1] >> (2 * (2 * t + (u >> 1)));
-            pa[t][u] = pack_bf16((kw & 1u) ? s[x] : 0.f,
-                                 (kw & 2u) ? s[x + 1] : 0.f);
+            pack_a(pa, t, u, (kw & 1u) ? s[x] : 0.f,
+                   (kw & 2u) ? s[x + 1] : 0.f);
           }
         if (last) break;
       }
@@ -993,15 +1331,11 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(bVFull + 8 * (c % S), (c / S) & 1);
       keep(acc);
       keep(pa);
-      bar_sync(kFwTurn + wg, kFwConsumers);
+      if constexpr (NWG == 2) bar_sync(kFwTurn + wg, NC);
       wgmma_fence();
-      {
-        const uint32_t pV = sV + (c % S) * T::kKV;
-#pragma unroll
-        for (int t = 0; t < kPS; ++t) wgmma_rs(acc, pa[t], n_desc(pV, t), 1);
-      }
+      rs_product(acc, pa, sV + (c % S) * T::kKV);
       wgmma_commit();
-      bar_arrive(kFwTurn + 1 - wg, kFwConsumers);
+      if constexpr (NWG == 2) bar_arrive(kFwTurn + 1 - wg, NC);
       wgmma_wait<0>();
       keep(acc);
       mbar_arrive(bVEmpty + 8 * (c % S));
@@ -1012,7 +1346,8 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
 
     // out = O / l = O (1 / (1 - rate)) / l' (0 for fully masked rows),
     // lse = m + log2(l): lse stored directly, O through this warpgroup's
-    // half of sO and a TMA store
+    // half of sO and a TMA store (a wide mode: straight from the
+    // accumulator)
     float inv[2];
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
@@ -1024,6 +1359,12 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
       const int r = row + hf * 8;
       if (lse_out != nullptr && tig == 0 && r < p.sq)
         lse_out[(size_t)bh * p.sq + r] = m[hf] + (log2f(lt) - lc);
+    }
+    if constexpr (WIDE) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        store_row(acc, bh, row + hf * 8, hf, inv[hf]);
+      continue;
     }
     if ((tid & 127) == 0) bulk_wait_read();   // the last tile's O is out
     bar_sync(kFwEpi + wg, 128);
@@ -1048,7 +1389,8 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
     }
   }
   // the first warpgroup's last turn was handed to it and never taken
-  if (wg == 0) bar_sync(kFwTurn, kFwConsumers);
+  if constexpr (NWG == 2)
+    if (wg == 0) bar_sync(kFwTurn, NC);
   if ((tid & 127) == 0) bulk_wait();
 }
 

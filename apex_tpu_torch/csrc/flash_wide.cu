@@ -1,45 +1,73 @@
 // Wide flash attention for Hopper (sm_90a): fp32, bf16 and fp16 operands
-// at any head dim up to 256, computed on the CUDA cores in fp32.
+// at any head dim up to 256 -- the calls the bf16 instances do not take.
 //
 // Replaces: apex_tpu/ops/attention.py :: _fwd_kernel (#3w, the forward),
 // _dq_kernel (#5w, the split dq) and _dkv_kernel (#6w, the split dk, dv), for
-// the calls the wgmma instances do not take (fp32 and fp16 operands, and bf16
-// past head dim 128).  #5w and #6w also take the one-pass _bwd_fused_kernel's
-// calls: the two JAX routes compute one function. The same function as those
-// kernels: the scores in base 2 (q k^T scale log2(e)), the causal triangle at
-// offset `off`, the validity window (rows < valid_q, columns < valid_k), the
-// boolean mask3 (batch-head i reads mask i / mask_hper; True = masked), a
-// masked score -1e30 and a fully masked row 0 (lse -1e30), an fp32 online
-// softmax returning the base-2 log-sum-exp, and dropout with the JAX package's
-// keep mask (hopper.cuh :: drop_keep, the global row and column, bit for bit),
-// survivors scaled by 1 / (1 - rate); the row sums take the clean p.  For
-// 16-bit operands p rounds to the value type before P.V and ds to the operand
-// type before dq and dk, as the plain versions (ops/attention.py) round them;
-// fp32 rounds nothing.
+// the calls the bf16 wgmma instances do not take (fp32 and fp16 operands,
+// and bf16 past head dim 128).  #5w and #6w also take the one-pass
+// _bwd_fused_kernel's calls: the two JAX routes compute one function.  The
+// same function as those kernels: the scores in base 2 (q k^T scale
+// log2(e)), the causal triangle at offset `off`, the validity window (rows
+// < valid_q, columns < valid_k), the boolean mask3 (batch-head i reads mask
+// i / mask_hper; True = masked), a masked score -1e30 and a fully masked
+// row 0 (lse -1e30), an fp32 online softmax returning the base-2
+// log-sum-exp, and dropout with the JAX package's keep mask (hopper.cuh ::
+// drop_keep, the global row and column, bit for bit), survivors scaled by 1
+// / (1 - rate); the row sums take the clean p.  For 16-bit operands p
+// rounds to the value type before P.V and ds to the operand type before dq
+// and dk, as the plain versions (ops/attention.py) round them; fp32 rounds
+// nothing.
 //
-// Design, right first: the products run on the CUDA cores in full fp32
-// (TF32 wgmma keeps ~3 decimal digits, so it would not compute the fp32
-// function, and it takes only K-major B operands).  What bounds them is
-// the fp32 FMA rate (67 TFLOP/s on an H100 SXM), then the shared-memory
-// reads that feed it.  A block is 256 threads; each row of the block's
-// tile (a query for #3w/#5w, a key for #6w) is split along d over
-// D / 32 adjacent lanes, 32 columns each (column u + (D / 32) i), so a
-// d = 256 row of q, dO and the fp32 accumulators fits in registers;
-// the partial dot products meet by xor shuffles, which give every lane
-// of the row the same bits.  The other side's rows (k and v, or q and
-// dO) stream through shared memory in 32-row stages, double-buffered
-// with cp.async (element copies where a row is not 16-byte aligned);
-// all rows of the block read each staged element at once (a broadcast).
-// The head dim is a template bucket D (64, 128, 256: ROWS = 128, 64 or 32
-// rows a block) and the real d a run-time argument; shared-memory columns
-// past d stay zero.  Causal blocks skip the tiles past their last live
-// key (#3w, #5w) or before their first live query (#6w), and run
-// heaviest first.  No atomics: #5w and #6w each write every output once,
-// so the pair repeats bit for bit.
+// Two designs, chosen by the caller through the operand code (dtype):
+//
+// - #3w and #5w on the tensor cores (bf16, fp16, and fp32 handed over as
+//   planes): the wide operand modes of the persistent warp-specialized
+//   kernel that #3d and #5md run (flash_qmajor_ws.cuh, launched through
+//   flash_wide_ws.cuh; TMA rings, ping-pong product warpgroups, the keep
+//   hash under the S product).  fp16 runs its .f16 wgmma products at the
+//   buckets 64, 128 and 256; bf16 the bucket 256.  16-bit rows that TMA
+//   cannot read (d % 8 != 0, or an operand not 16-byte aligned) are copied
+//   into the same swizzled tiles by three warps of the copying warpgroup
+//   (the operands are not padded).  fp32 runs as three bf16 planes an
+//   operand (x ~ x0 + x1 + x2, made by wide_split_kernel below), each
+//   product as six bf16 products that keep every term down to ~2^-16 of
+//   the product and drop those near 2^-24 and below (a0b0 + a0b1 + a1b0 +
+//   a0b2 + a1b1 + a2b0, the small ones first).  Why planes and not TF32: a
+//   single TF32 product keeps ~3 decimal digits, so it would not compute
+//   the fp32 function; 3xTF32 reaches about the rate of six bf16 products
+//   (494 / 3 against 989 / 6 TFLOP/s) but needs 8 bytes an element against
+//   6, and .tf32 wgmma takes only K-major B operands, so V (in P.V) and K
+//   (in dS.K) would need transposed copies.  What bounds them: the
+//   tensor-core products (six times the 16-bit ones at fp32), then the
+//   hash and the softmax on the CUDA cores beside them.
+// - The CUDA-core kernels (fp32 FMAs): wide_fwd_kernel and wide_dq_kernel
+//   take fp32 as it is (dtype 0), which ops/attention.py hands over only
+//   past head dim 128, where no tile of three planes of Q (and dO) and two
+//   stages of K and V fits in shared memory; they are built at the bucket
+//   256 alone.  #6w (wide_dkv_kernel) takes every dk/dv call.  A block is
+//   256 threads; each row of the block's tile (a query for #3w/#5w, a key
+//   for #6w) is split along d over D / 32 adjacent lanes, 32 columns each
+//   (column u + (D / 32) i), so a d = 256 row of q, dO and the fp32
+//   accumulators fits in registers; the partial dot products meet by xor
+//   shuffles, which give every lane of the row the same bits.  The other
+//   side's rows (k and v, or q and dO) stream through shared memory in
+//   32-row stages, double-buffered with cp.async (element copies where a
+//   row is not 16-byte aligned); all rows of the block read each staged
+//   element at once (a broadcast).  What bounds them: the fp32 FMA rate
+//   (67 TFLOP/s on an H100 SXM), then the shared-memory reads that feed
+//   it.  The head dim is a template bucket D (#6w: 64, 128, 256: ROWS =
+//   128, 64 or 32 rows a block) and the real d a run-time argument;
+//   shared-memory columns past d stay zero.  Causal blocks skip the tiles
+//   past their last live key (#3w, #5w) or before their first live query
+//   (#6w), and run heaviest first.
+//
+// No atomics: #5w and #6w each write every output once, so the pair
+// repeats bit for bit.
 //
 // Plain C interface (loaded with ctypes): each entry launches on the
 // caller's stream and returns cudaGetLastError().
 
+#include "flash_wide_ws.cuh"
 #include "wide.cuh"
 
 namespace {
@@ -146,6 +174,9 @@ __device__ __forceinline__ void store_cols(const float (&x)[32], T* base,
   }
 }
 
+// the kept forward's and dq's head-dim bucket (fp32 past 128)
+constexpr int kF32D = 256;
+
 // Stage rows [j0, j0 + kBK) of two [n, d] matrices (rows >= end dead).
 template <typename T, int D>
 __device__ __forceinline__ void stage2(T* xs, T* ys, const T* x, const T* y,
@@ -158,10 +189,11 @@ __device__ __forceinline__ void stage2(T* xs, T* ys, const T* x, const T* y,
   });
 }
 
-// #3w: one block per (batch-head, ROWS-query tile), tiles heaviest first.
-template <typename T, int D>
+// #3w at fp32 past head dim 128: one block per (batch-head, ROWS-query
+// tile), tiles heaviest first.
 __global__ void __launch_bounds__(kNT) wide_fwd_kernel(const FlashWide a) {
-  constexpr int TPR = D / 32, ROWS = kNT / TPR;
+  using T = float;
+  constexpr int D = kF32D, TPR = D / 32, ROWS = kNT / TPR;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);     // [2][kBK][D]
   T* vs = ks + 2 * kBK * D;               // [2][kBK][D]
@@ -222,9 +254,8 @@ __global__ void __launch_bounds__(kNT) wide_fwd_kernel(const FlashWide a) {
         const float p =
             s[jj] > kMaskedRowThresh ? exp2_ftz(s[jj] - mx) : 0.f;
         l += p;
-        float pv = round_to<T>(p);
-        if (drop.on)
-          pv = drop.keep(rh, c0 + jj) ? round_to<T>(p * a.inv_keep) : 0.f;
+        float pv = p;
+        if (drop.on) pv = drop.keep(rh, c0 + jj) ? p * a.inv_keep : 0.f;
         axpy<T, TPR>(acc, pv, vt + (jc + jj) * D);
       }
       m = mx;
@@ -238,11 +269,11 @@ __global__ void __launch_bounds__(kNT) wide_fwd_kernel(const FlashWide a) {
     a.lse_out[(size_t)bh * a.sq + row] = m + log2f(l1);
 }
 
-// #5w: one block per (batch-head, ROWS-query tile); dq from the base-2
-// lse and delta = rowsum(o * dO), written once.
-template <typename T, int D>
+// #5w at fp32 past head dim 128: one block per (batch-head, ROWS-query
+// tile); dq from the base-2 lse and delta = rowsum(o * dO), written once.
 __global__ void __launch_bounds__(kNT) wide_dq_kernel(const FlashWide a) {
-  constexpr int TPR = D / 32, ROWS = kNT / TPR;
+  using T = float;
+  constexpr int D = kF32D, TPR = D / 32, ROWS = kNT / TPR;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);     // [2][kBK][D]
   T* vs = ks + 2 * kBK * D;               // [2][kBK][D]
@@ -296,7 +327,7 @@ __global__ void __launch_bounds__(kNT) wide_dq_kernel(const FlashWide a) {
         const int c = c0 + jj;
         const float p = rlive && live(row, c) ? exp2_ftz(s - lse) : 0.f;
         if (drop.on) g = drop.keep(rh, c) ? g * a.inv_keep : 0.f;
-        const float ds = round_to<T>(p * (g - delta));
+        const float ds = p * (g - delta);
         axpy<T, TPR>(dqa, ds, kt + (jc + jj) * D);
       }
     }
@@ -397,39 +428,87 @@ __global__ void __launch_bounds__(kNT) wide_dkv_kernel(const FlashWide a) {
 
 enum Kind { kFwd, kDq, kDkv };
 
+// whether cp.async may copy the operands' rows 16 bytes at a time
+template <typename T>
+bool vec_rows(const FlashWide& a) {
+  return (size_t)a.d * sizeof(T) % 16 == 0 &&
+         !(((uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
+            (uintptr_t)a.dout) % 16);
+}
+
+// #6w at the bucket D
 template <typename T, int D>
-int launch(Kind kind, const FlashWide& a, cudaStream_t stream) {
+int launch_dkv(const FlashWide& a, cudaStream_t stream) {
   constexpr int ROWS = kNT / (D / 32);
-  const size_t tiles = 4 * kBK * D * sizeof(T);
-  const int n = kind == kDkv ? a.sk : a.sq;
-  const dim3 grid((n + ROWS - 1) / ROWS, a.bh);
-  int e = 0;
-  if (kind == kFwd) {
-    static std::atomic<unsigned> allowed{0};
-    e = allow_wide_smem(wide_fwd_kernel<T, D>, tiles, allowed);
-    if (!e) wide_fwd_kernel<T, D><<<grid, kNT, tiles, stream>>>(a);
-  } else if (kind == kDq) {
-    static std::atomic<unsigned> allowed{0};
-    e = allow_wide_smem(wide_dq_kernel<T, D>, tiles, allowed);
-    if (!e) wide_dq_kernel<T, D><<<grid, kNT, tiles, stream>>>(a);
-  } else {
-    const size_t bytes = tiles + 4 * kBK * sizeof(float);
-    static std::atomic<unsigned> allowed{0};
-    e = allow_wide_smem(wide_dkv_kernel<T, D>, bytes, allowed);
-    if (!e) wide_dkv_kernel<T, D><<<grid, kNT, bytes, stream>>>(a);
-  }
+  const size_t bytes = 4 * kBK * D * sizeof(T) + 4 * kBK * sizeof(float);
+  const dim3 grid((a.sk + ROWS - 1) / ROWS, a.bh);
+  static std::atomic<unsigned> allowed{0};
+  const int e = allow_wide_smem(wide_dkv_kernel<T, D>, bytes, allowed);
+  if (!e) wide_dkv_kernel<T, D><<<grid, kNT, bytes, stream>>>(a);
   return e ? e : (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_d(Kind kind, FlashWide a, cudaStream_t stream) {
-  const size_t row = (size_t)a.d * sizeof(T);
-  a.vec = row % 16 == 0 &&
-          !(((uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
-             (uintptr_t)a.dout) % 16);
-  if (a.d <= 64) return launch<T, 64>(kind, a, stream);
-  if (a.d <= 128) return launch<T, 128>(kind, a, stream);
-  return launch<T, 256>(kind, a, stream);
+int launch_dkv_d(FlashWide a, cudaStream_t stream) {
+  a.vec = vec_rows<T>(a);
+  if (a.d <= 64) return launch_dkv<T, 64>(a, stream);
+  if (a.d <= 128) return launch_dkv<T, 128>(a, stream);
+  return launch_dkv<T, 256>(a, stream);
+}
+
+// #3w or #5w on fp32 operands as they are (the CUDA-core kernels)
+int launch_f32(Kind kind, FlashWide a, cudaStream_t stream) {
+  constexpr int ROWS = kNT / (kF32D / 32);
+  const size_t bytes = 4 * kBK * kF32D * sizeof(float);
+  const dim3 grid((a.sq + ROWS - 1) / ROWS, a.bh);
+  a.vec = vec_rows<float>(a);
+  static std::atomic<unsigned> fwd_allowed{0}, dq_allowed{0};
+  int e;
+  if (kind == kFwd) {
+    e = allow_wide_smem(wide_fwd_kernel, bytes, fwd_allowed);
+    if (!e) wide_fwd_kernel<<<grid, kNT, bytes, stream>>>(a);
+  } else {
+    e = allow_wide_smem(wide_dq_kernel, bytes, dq_allowed);
+    if (!e) wide_dq_kernel<<<grid, kNT, bytes, stream>>>(a);
+  }
+  return e ? e : (int)cudaGetLastError();
+}
+
+// The operand code of fp32 operands handed over as three bf16 planes each
+// ([3, bh, s, dp], dp = d rounded up to 8: apex_flash_wide_split).
+constexpr int kF32Planes = 3;
+
+// #3w or #5w on the tensor cores: 16-bit operands, or fp32 as planes.
+int tensor_cores(Kind kind, const FlashWide& a, int dtype, cudaStream_t s) {
+  WideTcArgs t{};
+  t.q = a.q; t.k = a.k; t.v = a.v; t.dout = a.dout;
+  t.lse = a.lse; t.delta = a.delta;
+  t.mask = a.mask; t.seed3 = a.seed3;
+  t.out = kind == kFwd ? a.o : a.dq;
+  t.lse_out = a.lse_out;
+  t.bh = a.bh; t.sq = a.sq; t.sk = a.sk; t.d = a.d;
+  t.dp = dtype == kF32Planes ? (a.d + 7) / 8 * 8 : a.d;
+  t.causal = a.causal; t.off = a.off; t.valid_q = a.vq; t.valid_k = a.vk;
+  t.mask_hper = a.mask ? a.mask_hper : 1;
+  t.threshold = (unsigned)a.threshold; t.inv_keep = a.inv_keep;
+  t.scale_log2 = a.scale_log2; t.scale = a.scale;
+  const bool dq = kind == kDq;
+  // TMA reads rows that are 16-byte multiples from 16-byte aligned
+  // operands (the forward's dout is q)
+  const bool tma = t.dp % 8 == 0 &&
+                   !(((uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
+                      (uintptr_t)a.dout) % 16);
+  switch (dtype) {
+    case kF32Planes:
+      if (!tma) return (int)cudaErrorInvalidValue;
+      return dq ? wide_tc_f32_dq(t, s) : wide_tc_f32_fwd(t, s);
+    case kBF16:
+      if (tma) return wide_tc_bf16(t, dq, s);
+      return dq ? wide_tc_rows_dq(t, false, s) : wide_tc_rows_fwd(t, false, s);
+    default:
+      if (tma) return dq ? wide_tc_f16_dq(t, s) : wide_tc_f16_fwd(t, s);
+      return dq ? wide_tc_rows_dq(t, true, s) : wide_tc_rows_fwd(t, true, s);
+  }
 }
 
 int run(Kind kind, FlashWide a, int dtype, void* stream) {
@@ -438,19 +517,58 @@ int run(Kind kind, FlashWide a, int dtype, void* stream) {
   if (a.d < 1 || a.d > 256 || a.bh > 65535 || (a.mask && a.mask_hper < 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind == kDkv) {
+    switch (dtype) {
+      case kF32: return launch_dkv_d<float>(a, s);
+      case kBF16: return launch_dkv_d<bf16>(a, s);
+      case kF16: return launch_dkv_d<__half>(a, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (dtype) {
-    case kF32: return launch_d<float>(kind, a, s);
-    case kBF16: return launch_d<bf16>(kind, a, s);
-    case kF16: return launch_d<__half>(kind, a, s);
+    case kF32: return launch_f32(kind, a, s);
+    case kBF16: case kF16: case kF32Planes:
+      return tensor_cores(kind, a, dtype, s);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// x [rows, d] fp32 into its bf16 planes [3, rows, dp] (hopper.cuh split3;
+// columns d..dp zero), eight columns a thread: the fp32 operands of the
+// tensor-core route.  Bound by bytes: 4 read and 6 written an element.
+__global__ void __launch_bounds__(256) wide_split_kernel(
+    const float* __restrict__ x, bf16* __restrict__ planes, long long rows,
+    int d, int dp) {
+  const int groups = dp / 8;
+  const long long n = rows * groups, plane = rows * dp;
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n;
+       i += (long long)gridDim.x * 256) {
+    const long long r = i / groups;
+    const int c0 = (int)(i - r * groups) * 8;
+    unsigned w[3][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float lo[3] = {0.f, 0.f, 0.f}, hi[3] = {0.f, 0.f, 0.f};
+      const int c = c0 + 2 * k;
+      if (c < d) split3(x[r * d + c], lo);
+      if (c + 1 < d) split3(x[r * d + c + 1], hi);
+#pragma unroll
+      for (int pl = 0; pl < 3; ++pl) w[pl][k] = pack_bf16(lo[pl], hi[pl]);
+    }
+#pragma unroll
+    for (int pl = 0; pl < 3; ++pl)
+      *reinterpret_cast<uint4*>(planes + pl * plane + r * dp + c0) =
+          make_uint4(w[pl][0], w[pl][1], w[pl][2], w[pl][3]);
   }
 }
 
 }  // namespace
 
 // q [bh, sq, d], k/v [bh, sk, d] contiguous, all of one type (dtype: 0
-// fp32, 1 bf16, 2 fp16), 1 <= d <= 256; mask3 [bh / mask_hper, sq, sk]
-// bool or null; seed3 [seed, row_off, col_off] int32 on the device or
+// fp32, run on the CUDA cores; 1 bf16, 2 fp16; 3 fp32 as three bf16
+// planes, each operand [3, bh, s, dp] from apex_flash_wide_split, 16-byte
+// aligned, d <= 128: the tensor cores), 1 <= d <= 256; mask3 [bh /
+// mask_hper, sq, sk] bool or null; seed3 [seed, row_off, col_off] int32 on the device or
 // null (no dropout; else threshold = round(rate 2^24), inv_keep = 1 /
 // (1 - rate)); o [bh, sq, d] of the operands' type, lse [bh, sq] fp32
 // (base 2).
@@ -475,7 +593,8 @@ extern "C" int apex_flash_wide_fwd(
 // (the operands' type), the base-2 lse and delta = rowsum(o * dout), both
 // [bh, sq] fp32; dq [bh, sq, d] (apex_flash_wide_dq), dk and dv [bh, sk, d]
 // (apex_flash_wide_dkv), of the operands' type.  scale is the softmax
-// scale, scale_log2 = scale log2(e).
+// scale, scale_log2 = scale log2(e).  dtype as apex_flash_wide_fwd's
+// (apex_flash_wide_dkv: 0, 1 or 2).
 extern "C" int apex_flash_wide_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* mask, const void* seed3,
@@ -514,4 +633,22 @@ extern "C" int apex_flash_wide_dkv(
   a.threshold = threshold; a.inv_keep = inv_keep; a.scale_log2 = scale_log2;
   a.scale = scale;
   return run(kDkv, a, dtype, stream);
+}
+
+// x [rows, d] fp32 contiguous into planes [3, rows, dp] bf16 (dp = d
+// rounded up to 8, 16-byte aligned): the three bf16 planes of every
+// element, the padding columns zero.
+extern "C" int apex_flash_wide_split(const void* x, void* planes,
+                                     long long rows, int d, void* stream) {
+  cudaGetLastError();
+  if (rows <= 0) return 0;
+  if (d < 1 || d > 256 || (uintptr_t)planes % 16)
+    return (int)cudaErrorInvalidValue;
+  const int dp = (d + 7) / 8 * 8;
+  const long long n = rows * (dp / 8);
+  const long long blocks = (n + 255) / 256;
+  wide_split_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<bf16*>(planes), rows, d, dp);
+  return (int)cudaGetLastError();
 }

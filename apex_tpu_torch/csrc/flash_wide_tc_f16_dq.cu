@@ -1,0 +1,12 @@
+// #5w's fp16 instances on the tensor cores (flash_wide_ws.cuh), in a
+// source of their own so that nvcc builds them beside the others.
+//
+// Replaces: apex_tpu/ops/attention.py :: _dq_kernel (#5w), for these operands;
+// flash_wide.cu says what bounds it.
+#include "flash_wide_ws.cuh"
+
+int wide_tc_f16_dq(const WideTcArgs& a, cudaStream_t s) {
+  if (a.dp <= 64) return launch_wide_d<kOpWideF16, true, 64>(a, s);
+  if (a.dp <= 128) return launch_wide_d<kOpWideF16, true, 128>(a, s);
+  return launch_wide_d<kOpWideF16, true, 256>(a, s);
+}

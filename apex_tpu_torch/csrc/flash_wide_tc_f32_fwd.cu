@@ -1,0 +1,14 @@
+// #3w's fp32 instances on the tensor cores (flash_wide_ws.cuh): the
+// operands as three bf16 planes, every product as six bf16 products;
+// head dims up to 128.
+//
+// Replaces: apex_tpu/ops/attention.py :: _fwd_kernel (#3w), for these operands;
+// flash_wide.cu says what bounds it.
+#include "flash_wide_ws.cuh"
+
+int wide_tc_f32_fwd(const WideTcArgs& a, cudaStream_t s) {
+  // no tile of three planes fits past 128
+  if (a.dp > 128) return (int)cudaErrorInvalidValue;
+  if (a.dp <= 64) return launch_wide_d<kOpWideF32, false, 64>(a, s);
+  return launch_wide_d<kOpWideF32, false, 128>(a, s);
+}

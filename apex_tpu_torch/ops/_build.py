@@ -36,12 +36,16 @@ or dropout (``flash_attention_bwd_dkv_md``).  The wide family, for the
 operands and head dims those instances do not take: ``flash_wide.cu``
 the forward (``flash_attention_wide``), dq (``flash_attention_wide_dq``)
 and dk/dv (``flash_attention_wide_dkv``), ``paged_wide.cu`` paged decode
-(``paged_attention_wide``).  ``fused_block_decode.cu``
+(``paged_attention_wide``); the forward's and dq's tensor-core instances
+sit in sources of their own (``flash_wide_tc_*.cu``, no entries) so that
+they compile in parallel.  ``fused_block_decode.cu``
 is one cooperative launch per decoder layer; its entries, called with
 a null workspace, report the workspace size without launching.  One
 entry launches no counted kernel: the mask pre-pass of the split
 backward (:data:`UNCOUNTED`), which the forward's masked entries run
-inside them, uncounted too.
+inside them, uncounted too; nor do the wide family's split of fp32
+operands into bf16 planes (run by the wrappers of the forward and dq,
+whose launches count) and its route query.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine with no ``nvcc`` and no card.
@@ -104,12 +108,25 @@ SOURCES = {
         "flash_attention_wide_dq": "apex_flash_wide_dq",
         "flash_attention_wide_dkv": "apex_flash_wide_dkv"},
     "paged_wide.cu": {"paged_attention_wide": "apex_paged_wide"},
+    # the wide forward's and dq's tensor-core instances, launched through
+    # flash_wide.cu's entries (their own sources: nvcc builds them beside
+    # one another)
+    "flash_wide_tc_f16_fwd.cu": {},
+    "flash_wide_tc_f16_dq.cu": {},
+    "flash_wide_tc_bf16.cu": {},
+    "flash_wide_tc_f32_fwd.cu": {},
+    "flash_wide_tc_f32_dq.cu": {},
+    "flash_wide_tc_rows_fwd.cu": {},
+    "flash_wide_tc_rows_dq.cu": {},
 }
 #: the source of each kernel, by launch-counter name
 KERNELS = {name: src for src, entries in SOURCES.items() for name in entries}
 #: entries with no launch counter, by source: the mask pre-pass that the
-#: split backward runs once for its two kernels
-UNCOUNTED = {"flash_attention_md.cu": ("apex_flash_mask_tiles",)}
+#: split backward runs once for its two kernels; the split of fp32
+#: operands into bf16 planes that the wide forward's and dq's wrappers run
+#: before their launch (its time is theirs)
+UNCOUNTED = {"flash_attention_md.cu": ("apex_flash_mask_tiles",),
+             "flash_wide.cu": ("apex_flash_wide_split",)}
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -219,6 +236,8 @@ _SIGNATURES = {
     "apex_flash_wide_dq": [_P] * 9 + [_I] * 10 + [_F] * 3 + [_I, _P],
     # as apex_flash_wide_dq's with dk, dv in place of dq
     "apex_flash_wide_dkv": [_P] * 10 + [_I] * 10 + [_F] * 3 + [_I, _P],
+    # x (fp32), planes (bf16), rows, d, stream
+    "apex_flash_wide_split": [_P, _P, _L, _I, _P],
     # q (fp32), k_pages, v_pages, page_table, lengths, out (fp32),
     # part_acc, part_ml, counters, slots, h, kvh, ps, d, mpps, pages,
     # page_stride, nsplit, pages_per_split, scale_log2, dtype, stream

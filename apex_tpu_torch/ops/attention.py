@@ -51,10 +51,14 @@ Port of ``apex_tpu/ops/attention.py``, ``[b, h, s, d]`` layout:
   (64 and 128 with a mask in the backward or with dropout); a bf16 call
   between them is zero-padded to the next.  Every other call up to head
   dim 256 -- fp32 and fp16 operands, bf16 past 128 -- takes the wide
-  kernels of ``csrc/flash_wide.cu`` on the CUDA cores: the forward
+  kernels of ``csrc/flash_wide.cu``: the forward
   ``flash_attention_wide`` (#3w) and, for either JAX backward route,
   the pair ``flash_attention_wide_dq`` and ``flash_attention_wide_dkv``
-  (#5w, #6w).  One predicate names the route (:func:`_flash_route`).
+  (#5w, #6w).  #3w and #5w run on the tensor cores (16-bit at every head
+  dim, fp32 up to 128 as three bf16 planes an operand, six bf16 products
+  a product; :func:`_wide_on_tensor_cores`), fp32 past 128 and #6w on the
+  CUDA cores.  One predicate names the route
+  (:func:`_flash_route`).
 * :func:`decode_attention` — single-token attention against the dense
   slot cache: the JAX package's plain grouped chain at or below its
   crossover (:func:`decode_xla_max_seq`, 4096 cached positions), the
@@ -120,6 +124,12 @@ _MD_HEAD_DIMS = (64, 128)
 _WIDE_MAX_HEAD_DIM = 256
 #: the wide kernels' operand types, by the code their C entries take
 _WIDE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the code of fp32 operands handed to the wide forward and dq as three
+#: bf16 planes each (:func:`_split_planes`), as the tensor cores take them
+_WIDE_F32_PLANES = 3
+#: the widest head dim the wide forward and dq take fp32 at on the tensor
+#: cores (past it no tile of three planes fits in shared memory)
+_WIDE_TC_F32_MAX_HEAD_DIM = 128
 #: murmur3's fmix32 constants as unsigned 32-bit values (the JAX package
 #: writes the same bits as signed int32 literals)
 _H1 = 0x9E3779B9
@@ -244,17 +254,18 @@ def _live3(bh, sq, sk, causal, off, valid, mask3, device):
 
 
 def _fwd_reference(q3, k3, v3, causal, scale, causal_off=None, valid=None,
-                   mask3=None, rate=0.0, seed3=None, bh0=0):
+                   mask3=None, rate=0.0, seed3=None, bh0=0, mm=torch.matmul):
     """Plain version of the kernel: ``(out [bh, sq, d], lse [bh, sq])``
     with the base-2 log-sum-exp and the kernel's masks (``mask3 [nmask,
     sq, sk]`` bool, True = masked, batch-head ``i`` reading mask ``i //
     (bh // nmask)``) and dropout (``rate``, ``seed3``; ``bh0`` the first
-    batch-head's global index when ``q3`` is a slice of a call)."""
+    batch-head's global index when ``q3`` is a slice of a call).  ``mm``
+    computes the two products (:func:`_matmul6`: as the fp32 tensor-core
+    route does)."""
     bh, sq, d = q3.shape
     sk = k3.shape[1]
     off = (sk - sq) if causal_off is None else causal_off
-    s = torch.matmul(q3.float(), k3.float().transpose(1, 2)) * (
-        scale * _LOG2E)
+    s = mm(q3.float(), k3.float().transpose(1, 2)) * (scale * _LOG2E)
     live = _live3(bh, sq, sk, causal, off, valid, mask3, q3.device)
     s = torch.where(live, s, torch.full_like(s, _NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
@@ -268,9 +279,39 @@ def _fwd_reference(q3, k3, v3, causal, scale, causal_off=None, valid=None,
         p = torch.where(keep, p, torch.zeros_like(p)) * _inv_keep(rate)
     # p rounds to the value dtype for the P·V product, as the kernel's
     # tensor-core feed does; the normalizer keeps the fp32 p
-    out = torch.matmul(p.to(v3.dtype).float(), v3.float()) / l1
+    out = mm(p.to(v3.dtype).float(), v3.float()) / l1
     lse = (m + torch.log2(l1))[..., 0]
     return out.to(q3.dtype), lse
+
+
+def _split_planes(x):
+    """Plain version of the split kernel (``apex_flash_wide_split``): fp32
+    ``x [..., d]`` as three bf16 planes ``[3, ..., dp]`` (``dp`` = d
+    rounded up to 8, the padding columns 0), ``x ~ x0 + x1 + x2`` with
+    ``x0 = bf16(x)``, ``x1 = bf16(x - x0)``, ``x2 = bf16(x - x0 - x1)``
+    (round to nearest; both differences are exact in fp32, and the sum is
+    within 2^-24 |x| of x while every plane is a normal number)."""
+    d = x.shape[-1]
+    x = torch.nn.functional.pad(x.float(), (0, -d % 8))
+    x0 = x.to(torch.bfloat16)
+    r = x - x0.float()
+    x1 = r.to(torch.bfloat16)
+    return torch.stack((x0, x1, (r - x1.float()).to(torch.bfloat16)))
+
+
+def _matmul6(a, b):
+    """``a @ b`` of fp32 operands as the wide kernels' fp32 tensor-core
+    route computes it: both split into three bf16 planes
+    (:func:`_split_planes`, without the padding), the six products that
+    keep every term down to ~2^-16 of the product -- a0 b0 + a0 b1 + a1 b0
+    + a0 b2 + a1 b1 + a2 b0 -- each exact in fp32 and summed in fp32, the
+    small ones first."""
+    pa, pb = (_split_planes(x)[..., :x.shape[-1]].float() for x in (a, b))
+    out = None
+    for i, j in ((1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0)):
+        term = torch.matmul(pa[i], pb[j])
+        out = term if out is None else out + term
+    return out
 
 
 def _check_kernel_operands(kernel, q3, k3, v3, extra=()):
@@ -346,13 +387,13 @@ def _live_mask(sq, sk, causal, off, valid, device):
     return live
 
 
-def _recompute_p(q3, k3, lse, causal, scale, off, valid, mask3=None):
+def _recompute_p(q3, k3, lse, causal, scale, off, valid, mask3=None,
+                 mm=torch.matmul):
     """``_recompute_p``'s plain version: ``p = exp2(s - lse)`` in fp32
     with the kernels' masks (``mask3`` as :func:`_fwd_reference`'s) and
     the fully-masked-row guard."""
     bh, sq, sk = q3.shape[0], q3.shape[1], k3.shape[1]
-    s = torch.matmul(q3.float(), k3.float().transpose(1, 2)) * (
-        scale * _LOG2E)
+    s = mm(q3.float(), k3.float().transpose(1, 2)) * (scale * _LOG2E)
     s = torch.where(_live3(bh, sq, sk, causal, off, valid, mask3,
                            q3.device), s, torch.full_like(s, _NEG_INF))
     p = torch.exp2(s - lse[..., None])
@@ -360,37 +401,37 @@ def _recompute_p(q3, k3, lse, causal, scale, off, valid, mask3=None):
                        torch.zeros_like(p), p)
 
 
-def _ds(p, v3, do3, delta, dtype, keep=None, rate=0.0):
+def _ds(p, v3, do3, delta, dtype, keep=None, rate=0.0, mm=torch.matmul):
     """``ds = p (g - delta)`` with ``g = dO V^T`` (under dropout, the
     JAX ``_dropped_dp``: ``g = keep ? dp / (1 - rate) : 0``), rounded to
     ``dtype`` (the matrix units' feed) and returned in fp32."""
-    dp = torch.matmul(do3.float(), v3.float().transpose(1, 2))
+    dp = mm(do3.float(), v3.float().transpose(1, 2))
     if keep is not None:
         dp = torch.where(keep, dp * _inv_keep(rate), torch.zeros_like(dp))
     return (p * (dp - delta[..., None])).to(dtype).float()
 
 
 def _recompute(q3, k3, lse, causal, scale, causal_off, valid, mask3, rate,
-               seed3, bh0):
+               seed3, bh0, mm=torch.matmul):
     """The split pair's common recompute: ``(p, keep)``, keep None
     without dropout."""
     bh, sq, sk = q3.shape[0], q3.shape[1], k3.shape[1]
     off = (sk - sq) if causal_off is None else causal_off
-    p = _recompute_p(q3, k3, lse, causal, scale, off, valid, mask3)
+    p = _recompute_p(q3, k3, lse, causal, scale, off, valid, mask3, mm)
     keep = _keep3(seed3, bh, sq, sk, rate, q3.device, bh0) if rate else None
     return p, keep
 
 
 def _dq_reference(q3, k3, v3, lse, delta, do3, causal, scale,
                   causal_off=None, valid=None, mask3=None, rate=0.0,
-                  seed3=None, bh0=0):
+                  seed3=None, bh0=0, mm=torch.matmul):
     """Plain version of the split dq kernel: ``dq`` in q's dtype from
     the base-2 lse and ``delta = rowsum(dO * O)``, with ``mask3`` and
-    dropout as :func:`_fwd_reference` takes them."""
+    dropout as :func:`_fwd_reference` takes them (and ``mm``)."""
     p, keep = _recompute(q3, k3, lse, causal, scale, causal_off, valid,
-                         mask3, rate, seed3, bh0)
-    ds = _ds(p, v3, do3, delta, q3.dtype, keep, rate)
-    return (scale * torch.matmul(ds, k3.float())).to(q3.dtype)
+                         mask3, rate, seed3, bh0, mm)
+    ds = _ds(p, v3, do3, delta, q3.dtype, keep, rate, mm)
+    return (scale * mm(ds, k3.float())).to(q3.dtype)
 
 
 def _dkv_reference(q3, k3, v3, lse, delta, do3, causal, scale,
@@ -666,21 +707,63 @@ def _wide_operands(kernel, q3, k3, v3, mask3, rate, seed3, extra=()):
             _inv_keep(rate) if rate else 1.0, _WIDE_DTYPES[q3.dtype])
 
 
+def _wide_on_tensor_cores(dtype, d: int) -> bool:
+    """Whether the wide forward and dq (#3w, #5w) run operands of
+    ``dtype`` at head dim ``d`` on the tensor cores, the one place that
+    decides it (the C entries run what the operand code says): 16-bit at
+    every head dim (rows TMA cannot read copied by threads), fp32 up to
+    head dim 128 (as three bf16 planes).  fp32 past 128, where no tile of
+    three planes fits, runs the CUDA-core kernels."""
+    return dtype != torch.float32 or d <= _WIDE_TC_F32_MAX_HEAD_DIM
+
+
+def _split_kernel(x3):
+    """fp32 ``x3 [bh, s, d]`` as its three bf16 planes ``[3, bh, s, dp]``
+    (``apex_flash_wide_split``, uncounted: part of #3w's and #5w's
+    launches); the plain version :func:`_split_planes` on the CPU."""
+    if x3.device.type == "cpu":
+        return _split_planes(x3)
+    bh, s, d = x3.shape
+    planes = torch.empty((3, bh, s, d + (-d % 8)), dtype=torch.bfloat16,
+                         device=x3.device)
+    err = _build.library().apex_flash_wide_split(
+        x3.data_ptr(), planes.data_ptr(), bh * s, d,
+        _build.stream_ptr(x3.device))
+    _build.check(err, "apex_flash_wide_split")
+    return planes
+
+
+def _wide_tc_operands(code, operands):
+    """What the wide forward's and dq's C entries take for ``operands``
+    (q, k, v and, for dq, dout) of type ``code``: fp32 as planes where
+    :func:`_wide_on_tensor_cores` says (:func:`_split_kernel`, code
+    :data:`_WIDE_F32_PLANES`), else as they are (16-bit at any alignment).
+    Returns ``(tensors, code)``; the tensors must outlive the launch's
+    enqueue."""
+    q3 = operands[0]
+    if q3.dtype == torch.float32 and _wide_on_tensor_cores(q3.dtype,
+                                                           q3.shape[2]):
+        return [_split_kernel(t) for t in operands], _WIDE_F32_PLANES
+    return operands, code
+
+
 def _fwd_wide(q3, k3, v3, causal, scale, causal_off=None, valid=None,
               mask3=None, rate=0.0, seed3=None):
     """#3w, the wide forward (``apex_flash_wide_fwd``, counter
     ``flash_attention_wide``): ``(out, lse)`` as :func:`_fwd_reference`
     gives them, for fp32, bf16 and fp16 operands at head_dim 1..256, with
-    ``mask3`` read in place and dropout."""
+    ``mask3`` read in place and dropout; on the tensor cores where
+    :func:`_wide_on_tensor_cores` says (fp32 split into planes first)."""
     bh, sq, d = q3.shape
     sk = k3.shape[1]
     ptrs, ints, inv_keep, code = _wide_operands(
         "flash_attention_wide", q3, k3, v3, mask3, rate, seed3)
+    ops, code = _wide_tc_operands(code, (q3, k3, v3))
     out = torch.empty_like(q3)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q3.device)
     _build.count("flash_attention_wide")
     err = _build.library().apex_flash_wide_fwd(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), *ptrs, out.data_ptr(),
+        *(t.data_ptr() for t in ops), *ptrs, out.data_ptr(),
         lse.data_ptr(), bh, sq, sk, d, int(causal),
         *_window(sq, sk, causal_off, valid), *ints, inv_keep,
         float(scale * _LOG2E), code, _build.stream_ptr(q3.device))
@@ -705,17 +788,19 @@ def _dq_wide(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
              valid=None, mask3=None, rate=0.0, seed3=None):
     """#5w, the wide dq (``apex_flash_wide_dq``, counter
     ``flash_attention_wide_dq``; operands as :func:`_dq_reference`'s):
-    ``dq`` in q's type, written once, no atomics."""
+    ``dq`` in q's type, written once, no atomics; on the tensor cores as
+    :func:`_fwd_wide`."""
     name = "flash_attention_wide_dq"
     bh, sq, d = q3.shape
     sk = k3.shape[1]
     ptrs, ints, inv_keep, code = _wide_operands(
         name, q3, k3, v3, mask3, rate, seed3, (("dout", do3),))
     _wide_bwd_args(name, q3, k3, v3, lse, delta, do3)
+    ops, code = _wide_tc_operands(code, (q3, k3, v3, do3))
     dq = torch.empty_like(q3)
     _build.count(name)
     err = _build.library().apex_flash_wide_dq(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+        *(t.data_ptr() for t in ops),
         lse.data_ptr(), delta.data_ptr(), *ptrs, dq.data_ptr(), bh, sq, sk,
         d, int(causal), *_window(sq, sk, causal_off, valid), *ints, inv_keep,
         float(scale * _LOG2E), float(scale), code,

@@ -56,7 +56,9 @@
    1, must fail it) and each row within 2^-6 of its own max, timed
    beside SDPA with ``dropout_p`` and the same family without dropout;
    then each instance's keep pattern bit for bit against the plain
-   keep mask, with q = 0, v = I and dO = I); the wide family (fp32
+   keep mask, with q = 0, v = I and dO = I); the wide family (#3w and
+   #5w on the tensor cores, fp32 as three bf16 planes and six bf16
+   products a product, #6w on the CUDA cores; the plain versions' fp32
    products with TF32 off, stated in the phase): #3w, #5w and #6w at
    GPT-3 1.3B's causal ``[1, 16, 2048, 128]`` and BERT-large's padded
    ``[16, 16, 512, 64]`` in fp32 with dropout 0.1, fp32 causal ``[1, 16,
@@ -752,7 +754,7 @@ def phase_build():
             if regs:
                 print(f"  {src}: {len(regs)} functions, {min(regs)}-"
                       f"{max(regs)} registers, {spills} bytes of spills")
-            if src.startswith("flash_attention"):
+            if src.startswith("flash_"):
                 for name, n_regs, n_spill in _ptxas_instances(text):
                     print(f"    {name}: {n_regs} registers, {n_spill} "
                           f"bytes of spills")
@@ -4676,7 +4678,8 @@ def _turns(each):
     return [round(x, 5) for x in each["A"][:1] + each["B"] + each["A"][1:]]
 
 
-AB_ROWS = ("flash", "paged", "norm", "steps", "masked", "fused", "md")
+AB_ROWS = ("flash", "paged", "norm", "steps", "masked", "fused", "md",
+           "wide")
 
 
 def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
@@ -4702,7 +4705,10 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
     1.3B decode step and the dense Llama-3-8B decode step at 8192
     positions; ``md`` the mask and dropout instances at the training
     paths' shapes and the training steps that run them
-    (:func:`_ab_md`).  Each row's two versions are held against each
+    (:func:`_ab_md`); ``wide`` the wide forward and dq (#3w, #5w) at
+    every :func:`_wide_flash_shapes` shape and the ``width gpt fp32
+    train`` step (:func:`_ab_wide`).  Each row's two versions are held
+    against each
     other (and against the plain version) before they are timed.  The
     baseline's own wrappers stand in for this tree's where their C
     entries differ (paged decode, the norm backward, the masked forward
@@ -4722,7 +4728,9 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
         (mod, name, getattr(base_attn, name))
         for mod, name in ((attn, "_fwd"), (attn, "decode_attention"),
                           (models, "decode_attention"), (attn, "_bwd"),
-                          (attn, "_dq_kernel"), (attn, "_dkv_kernel"))
+                          (attn, "_dq_kernel"), (attn, "_dkv_kernel"),
+                          (attn, "_fwd_wide"), (attn, "_dq_wide"),
+                          (attn, "_dkv_wide"))
         if hasattr(base_attn, name))
     base_build = _baseline_module(baseline, "_build")
     versions = {
@@ -4803,6 +4811,8 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
         _ab_fused(dev, seed, gen, versions)
     if "md" in rows:
         _ab_md(dev, seed, gen, versions)
+    if "wide" in rows:
+        _ab_wide(dev, seed, gen, versions)
     if "steps" not in rows:
         return
     _ab_decode_step(dev, seed, versions)
@@ -5039,14 +5049,14 @@ def _ab_lm_steps(dev, seed: int, kind: str, versions):
     from apex_tpu_torch.optimizers import functional
     cfg, model = _lm_model(kind, dev, seed)
     batch = _lm_batch(kind, cfg, dev, seed)
-    bert = kind == "bert"
+    bert = kind.startswith("bert")
     tx = functional.fused_lamb(**LAMB_KW) if bert \
         else functional.fused_adam(lr=TRAIN_LR)
     box = {"state": train_step.init_train_state(tx, model,
                                                 loss_scale="dynamic"),
            "i": 0}
     step = train_step.make_train_step(_bert_loss if bert else _gpt_loss, tx)
-    phase, kernels, _, _ = LM_RUNS[kind]
+    phase, kernels, _, _ = _LM_ALL[kind]
     want = dict.fromkeys(kernels, cfg.num_layers)
 
     def one():
@@ -5086,6 +5096,90 @@ def _ab_lm_steps(dev, seed: int, kind: str, versions):
           f"{[round(x, 5) for x in each['B']]})")
     del model, box, step, batch
     torch.cuda.empty_cache()
+
+
+def _ab_wide(dev, seed: int, gen, versions):
+    """The wide forward's and dq's A/B (#3w, #5w, each version through its
+    own ``_fwd_wide`` and ``_dq_wide``: B's fp32 calls with their split
+    into planes) at every :func:`_wide_flash_shapes` shape: both
+    versions' out and lse against the plain version, and both versions'
+    dq from B's out and lse against the plain dq on those (fp32 within
+    TOL_WIDE_OUT and TOL_WIDE_GRAD of max|ref|, 16-bit as
+    :func:`_wide_rows` holds them) and against each other; then each
+    timed in turns A B B A; then the ``width gpt fp32 train`` step, GPT-3
+    1.3B at fp32 parameters (:func:`_ab_lm_steps`)."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    seed3 = attn._seed_operand(-2 ** 31 + 777, device=dev)
+    for tag, dt, b, h, s, d, causal, masked, rate in _wide_flash_shapes():
+        bh, scale, fp32 = b * h, d ** -0.5, dt == torch.float32
+        q3, k3, v3, do3, mask3, _, _, md, step = _wide_inputs(
+            dev, gen, seed3, dt, b, h, s, d, masked, rate)
+
+        def sl_kw(sl):
+            return dict(mask3=None if mask3 is None else
+                        mask3[sl.start // h:sl.stop // h], rate=rate,
+                        seed3=seed3, bh0=sl.start)
+
+        fwd = {}
+        for turn in "AB":
+            with _as_version(versions[turn]):
+                fwd[turn] = attn._fwd_wide(q3, k3, v3, causal, scale, **md)
+        out, lse = fwd["B"]
+        delta = attn._delta(out, do3)
+        args = (q3, k3, v3, lse, delta, do3, causal, scale)
+        dq = {}
+        for turn in "AB":
+            with _as_version(versions[turn]):
+                dq[turn] = attn._dq_wide(*args, **md)
+        ref_out, ref_lse = _by_heads(lambda sl: attn._fwd_reference(
+            q3[sl], k3[sl], v3[sl], causal, scale, **sl_kw(sl)), bh, step)
+        ref_dq = _by_heads(lambda sl: attn._dq_reference(
+            q3[sl], k3[sl], v3[sl], lse[sl], delta[sl], do3[sl], causal,
+            scale, **sl_kw(sl)), bh, step)
+        label = (f"{'padding' if masked else 'causal'} [{b}, {h}, {s}, {d}] "
+                 f"{str(dt).replace('torch.', '')}"
+                 + (f", dropout {rate}" if rate else ""))
+        print(f"  wide ({tag}: {label}):")
+        livel = ref_lse > -1e29
+        for turn in "AB":
+            o_, l_ = fwd[turn]
+            err_o = (o_.float() - ref_out.float()).abs().max().item()
+            err_l = (l_ - ref_lse)[livel].abs().max().item()
+            err_q = (dq[turn].float() - ref_dq.float()).abs().max().item()
+            if fp32:
+                _check(f"{turn} #3w out", err_o,
+                       TOL_WIDE_OUT * ref_out.abs().max().item())
+                _check(f"{turn} #3w lse", err_l,
+                       TOL_WIDE_OUT * ref_lse[livel].abs().max().item())
+                _check(f"{turn} #5w dq", err_q,
+                       TOL_WIDE_GRAD * ref_dq.abs().max().item())
+            else:
+                _check(f"{turn} #3w out", err_o, TOL_ATTN_OUT)
+                _check(f"{turn} #3w lse", err_l, TOL_ATTN_LSE)
+                _check(f"{turn} #5w dq relative L2", _rel_l2(dq[turn], ref_dq),
+                       TOL_FLASH_BWD_REL_L2)
+                _check(f"{turn} #5w dq (x each row's max|ref|, at least "
+                       f"1e-3 of the output's)", _row_rel(dq[turn], ref_dq),
+                       TOL_PAGED_OUT)
+            if not torch.equal(l_ > -1e29, livel):
+                raise AssertionError(f"ab wide {tag}: {turn}'s fully masked "
+                                     f"rows differ")
+        print(f"    B against A max|diff|: out "
+              f"{(fwd['A'][0].float() - out.float()).abs().max().item():.3e}"
+              f", lse {(fwd['A'][1] - lse)[livel].abs().max().item():.3e}, "
+              f"dq {(dq['A'].float() - dq['B'].float()).abs().max().item():.3e}")
+        del fwd, dq, ref_out, ref_lse, ref_dq
+        iters = 3 if s > 4096 else 10
+        for row, fn in (("#3w", lambda: attn._fwd_wide(q3, k3, v3, causal,
+                                                       scale, **md)),
+                        ("#5w", lambda: attn._dq_wide(*args, **md))):
+            mean, each = _ab(versions, lambda: _time_ms(fn, iters))
+            print(f"    {row} on {_smi()}: A {mean['A']:.4f} ms, B "
+                  f"{mean['B']:.4f} ms, B/A {mean['B'] / mean['A']:.3f} "
+                  f"(turns A B B A: {_turns(each)})")
+        del q3, k3, v3, do3, out, lse, delta, args, mask3
+        torch.cuda.empty_cache()
+    _ab_lm_steps(dev, seed, "gpt_fp32", versions)
 
 
 def _paged_table(dev, gen, lengths_l, ps: int, mpps: int):
@@ -5554,7 +5648,8 @@ def _wide_flash_shapes():
     padding mask of lengths 137..512, both fp32 with dropout 0.1 (the
     width phase's training runs); fp32 causal ``[1, 16, 8192, 128]``,
     where ``sq * d * 4`` = 4 MiB takes the JAX split route; bf16 at
-    Gemma-7B's head dim 256 and fp16, causal ``[1, 16, 2048, ...]``."""
+    Gemma-7B's head dim 256 and fp16, causal ``[1, 16, 2048, ...]``; fp16
+    at head dim 100, rows TMA cannot copy (the row-copying route)."""
     f32 = torch.float32
     h = GPT_CFG["num_attention_heads"]
     d = GPT_CFG["hidden_size"] // h
@@ -5565,6 +5660,30 @@ def _wide_flash_shapes():
     yield ("d 256 bf16", torch.bfloat16, 1, 16, GPT_TRAIN_SEQ, 256, True,
            False, 0.0)
     yield ("fp16", torch.float16, 1, 16, GPT_TRAIN_SEQ, 128, True, False, 0.0)
+    yield ("fp16 d 100", torch.float16, 1, 16, GPT_TRAIN_SEQ, 100, True,
+           False, 0.0)
+
+
+def _wide_inputs(dev, gen, seed3, dt, b, h, s, d, masked, rate):
+    """One :func:`_wide_flash_shapes` row's operands: ``(q3, k3, v3, do3,
+    mask3, live, mask_bytes, md, step)``; BERT's padding mask3 ``[b, s,
+    s]`` from :func:`_bert_lengths` (``live`` its live keys over the
+    batch, ``mask_bytes`` its size; None, 0 and 0 without one), ``md``
+    the kernels' mask and dropout keywords, ``step`` the batch-heads a
+    plain version takes at a time (:func:`_by_heads`)."""
+    bh = b * h
+    q3, k3, v3, do3 = (torch.randn(bh, s, d, generator=gen, device=dev)
+                       .to(dt) for _ in range(4))
+    mask3, live, mask_bytes = None, 0, 0
+    if masked:
+        lengths = _bert_lengths(np.random.RandomState(s), b, s)
+        keep = torch.arange(s, device=dev)[None, :] < torch.as_tensor(
+            lengths, device=dev)[:, None]
+        mask3 = (~keep)[:, None, :].expand(b, s, s).contiguous()
+        live, mask_bytes = int(lengths.sum()), mask3.numel()
+    md = dict(mask3=mask3, rate=rate, seed3=seed3 if rate else None)
+    step = h if masked else max(1, min(bh, 2 ** 28 // (s * s * 4)))
+    return q3, k3, v3, do3, mask3, live, mask_bytes, md, step
 
 
 def _row_rel(got, ref, floor: float = 1e-3) -> float:
@@ -5604,8 +5723,10 @@ def _wide_rows(dev, gen, recs):
     same inputs (the backward's on the kernels' own out and lse; fp32
     with TF32 off, stated by ``main``), the pair twice bit for bit, the
     route (``_fwd`` and ``_bwd`` launch the wide kernels and no
-    instance); each kernel's time beside its bound (fp32 operands over
-    the CUDA cores' 67 TFLOP/s, 16-bit over 989), its plain version's
+    instance); each kernel's time beside its bound (16-bit over 989
+    TFLOP/s; fp32 on the tensor cores over 989 / 6, six bf16 products a
+    product, with the CUDA cores' 67 TFLOP/s beside it; fp32 on the CUDA
+    cores over 67), its plain version's
     and SDPA's (forward, and forward + backward less the forward for
     the backward pair).  The records are GPT-3 1.3B fp32's.  Then the
     keep patterns (:func:`_wide_keep_patterns`), the padded bf16 routes
@@ -5613,22 +5734,16 @@ def _wide_rows(dev, gen, recs):
     (:func:`_wide_paged_rows`)."""
     attn = importlib.import_module("apex_tpu_torch.ops.attention")
     from apex_tpu_torch.ops import _build
-    print(f"wide kernels: fp32 products with TF32 "
-          f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'} "
-          f"(torch.backends.cuda.matmul.allow_tf32)")
+    print(f"wide kernels: #3w and #5w on the tensor cores (fp32 up to head "
+          f"dim 128 as three bf16 planes, six bf16 products a product), "
+          f"#6w on the CUDA cores; the plain versions' fp32 products with "
+          f"TF32 {'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}"
+          f" (torch.backends.cuda.matmul.allow_tf32)")
     seed3 = attn._seed_operand(-2 ** 31 + 777, device=dev)
     for tag, dt, b, h, s, d, causal, masked, rate in _wide_flash_shapes():
         bh, scale, fp32 = b * h, d ** -0.5, dt == torch.float32
-        q3, k3, v3, do3 = (torch.randn(bh, s, d, generator=gen, device=dev)
-                           .to(dt) for _ in range(4))
-        mask3, live, mask_bytes = None, None, 0
-        if masked:
-            lengths = _bert_lengths(np.random.RandomState(s), b, s)
-            keep = torch.arange(s, device=dev)[None, :] < torch.as_tensor(
-                lengths, device=dev)[:, None]
-            mask3 = (~keep)[:, None, :].expand(b, s, s).contiguous()
-            live, mask_bytes = int(lengths.sum()), mask3.numel()
-        md = dict(mask3=mask3, rate=rate, seed3=seed3 if rate else None)
+        q3, k3, v3, do3, mask3, live, mask_bytes, md, step = _wide_inputs(
+            dev, gen, seed3, dt, b, h, s, d, masked, rate)
         before = _build.launch_counts()
         out, lse = attn._fwd(q3, k3, v3, causal, scale, **md)
         routed = attn._bwd(q3, k3, v3, out, lse, do3, causal, scale, **md)
@@ -5644,7 +5759,6 @@ def _wide_rows(dev, gen, recs):
             raise AssertionError(f"wide {tag}: #5w + #6w differ from run to "
                                  f"run")
         del routed
-        step = h if masked else max(1, min(bh, 2 ** 28 // (s * s * 4)))
 
         def sl_mask(sl):
             return None if mask3 is None else mask3[sl.start // h:
@@ -5667,7 +5781,9 @@ def _wide_rows(dev, gen, recs):
         label = (f"{'padding' if masked else 'causal'} [{b}, {h}, {s}, {d}] "
                  f"{str(dt).replace('torch.', '')}"
                  + (f", dropout {rate}" if rate else ""))
-        print(f"wide flash ({tag}: {label})")
+        on_tc = attn._wide_on_tensor_cores(dt, d)
+        print(f"wide flash ({tag}: {label}; #3w and #5w on the "
+              f"{'tensor' if on_tc else 'CUDA'} cores)")
         livel = ref_lse > -1e29
         err_f = (out.float() - ref_out.float()).abs().max().item()
         if fp32:
@@ -5715,32 +5831,42 @@ def _wide_rows(dev, gen, recs):
         elems = (bh * s * (s + 1) / 2 if causal and mask3 is None
                  else s * live * h if mask3 is not None else bh * s * s)
         kv_bytes = 2 * (bh * s if mask3 is None else live * h) * d * item
-        rate_ops = FP32_FLOPS_PER_S if fp32 else BF16_FLOPS_PER_S
         rows = (
             ("3w", "flash_attention_wide", "apex_tpu/ops/attention.py:210",
-             fwd_ms, fwd_plain, _bound(2 * q3.numel() * item + kv_bytes
-                                       + bh * s * 4 + mask_bytes,
-                                       4 * d * elems, rate_ops), lib_f,
-             err_f),
+             fwd_ms, fwd_plain, 2 * q3.numel() * item + kv_bytes
+             + bh * s * 4 + mask_bytes, 4 * d * elems, lib_f, err_f),
             ("5w", "flash_attention_wide_dq", "apex_tpu/ops/attention.py:376",
-             dq_ms, dq_plain, _bound(3 * q3.numel() * item + kv_bytes
-                                     + 2 * bh * s * 4 + mask_bytes,
-                                     6 * d * elems, rate_ops),
-             lib_fb - lib_f, err_b),
+             dq_ms, dq_plain, 3 * q3.numel() * item + kv_bytes
+             + 2 * bh * s * 4 + mask_bytes, 6 * d * elems, lib_fb - lib_f,
+             err_b),
             ("6w", "flash_attention_wide_dkv",
              "apex_tpu/ops/attention.py:408", dkv_ms, dkv_plain,
-             _bound(2 * q3.numel() * item + 2 * kv_bytes + 2 * bh * s * 4
-                    + mask_bytes, 8 * d * elems, rate_ops),
-             lib_fb - lib_f, err_b))
-        for row, name, repl, ms, plain_ms, (bound, by), lib, err in rows:
+             2 * q3.numel() * item + 2 * kv_bytes + 2 * bh * s * 4
+             + mask_bytes, 8 * d * elems, lib_fb - lib_f, err_b))
+        for row, name, repl, ms, plain_ms, nbytes, ops, lib, err in rows:
+            # fp32 on the tensor cores: the operations at the rate of six
+            # bf16 products (989 / 6 TFLOP/s), the CUDA cores' beside it
+            six = fp32 and row != "6w" and on_tc
+            bound, by = _bound(nbytes, ops, BF16_FLOPS_PER_S / 6 if six
+                               else FP32_FLOPS_PER_S if fp32
+                               else BF16_FLOPS_PER_S)
+            cores = ""
+            if six:
+                b67, by67 = _bound(nbytes, ops, FP32_FLOPS_PER_S)
+                cores = (f"; at the CUDA cores' 67 TFLOP/s {b67:.4f} ms "
+                         f"({by67}), {100 * b67 / ms:.1f}% of it")
             print(f"  #{row} {name} ({tag}) on {_smi()}: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, SDPA {lib:.4f} ms, bound "
-                  f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of the "
-                  f"bound")
+                  f"{bound:.4f} ms ({by}{', six bf16 products' if six else ''}"
+                  f"), {100 * bound / ms:.1f}% of the bound{cores}")
             if tag == "gpt fp32":
+                # #3w and #5w: flash_wide.cu's entries launch the
+                # persistent kernel's wide modes
                 recs[name] = dict(
                     name=name, route="cuda",
-                    source="apex_tpu_torch/csrc/flash_wide.cu",
+                    source="apex_tpu_torch/csrc/" + (
+                        "flash_wide.cu" if row == "6w"
+                        else "flash_qmajor_ws.cuh"),
                     replaces=repl, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound, bound_by=by, library_ms=lib,
                     eager_ms=_eager_ms(

@@ -218,9 +218,13 @@ def test_md_dq_takes_the_persistent_kernel():
     dq = ws[ws.index("auto o_desc = [&](int ks)"):]
     dq = dq[:dq.index("\n    return;\n  }\n")]
     for piece in ("bar_sync(kFwTurn + wg", "bar_arrive(kFwTurn + 1 - wg",
-                  "drop_mix(", "fold16(", "wgmma_rs(acc, pa[t]",
+                  "drop_mix(", "fold16(", "rs_product(acc, pa, ",
                   "wgmma_wait<2>();", "tma_store("):
         assert piece in dq, piece
+    # dQ += dS K: dS's register fragments as A (rs_product, shared with
+    # the forward's P V)
+    rs = ws[ws.index("auto rs_product = "):ws.index("auto pack_a = ")]
+    assert "wgmma_rs<F16>(acc, a[" in rs
     # the hash sits between the products' issue and the wait on S
     turn = dq.index("bar_arrive(kFwTurn + 1 - wg")
     assert turn < dq.index("keep_bits();") < dq.index("wgmma_wait<2>();")

@@ -2311,7 +2311,9 @@ def test_remat_replays_a_cuda_generator(cuda):
 
 # --- the wide family (#3w, #5w, #6w: csrc/flash_wide.cu; #7w:
 # csrc/paged_wide.cu): fp32, bf16 and fp16 operands at any head dim up
-# to 256 on the CUDA cores.  Tolerances: an fp32 kernel against its fp32
+# to 256; #3w and #5w on the tensor cores (16-bit at head dims that are
+# multiples of 8, fp32 up to 128 as three bf16 planes), the rest on the
+# CUDA cores.  Tolerances: an fp32 kernel against its fp32
 # plain version (TF32 off) within 2e-5 of max|ref| for out and lse and
 # 1e-4 for the grads (the sums run in another order, exp2 is ex2.approx);
 # 16-bit operands as the bf16 instances' card tests hold them (out 2e-2
@@ -2389,16 +2391,20 @@ _WIDE_MD = [(None, 0.0), ("per-batch", 0.0), ("one", 0.1), (None, 0.2)]
 
 
 @pytest.mark.parametrize("dt", list(_WIDE_TYPES))
-@pytest.mark.parametrize("d", [16, 48, 80, 96, 160, 256])
+@pytest.mark.parametrize("d", [16, 36, 48, 80, 96, 100, 160, 200, 256])
 @pytest.mark.parametrize("kind,rate", _WIDE_MD)
-def test_wide_flash_matches_plain(cuda, no_tf32, dt, d, kind, rate):
-    """Causal with the offset sk - sq = 30, a per-batch mask with a fully
+@pytest.mark.parametrize("sq,sk", [(100, 130), (130, 197)])
+def test_wide_flash_matches_plain(cuda, no_tf32, dt, d, kind, rate, sq, sk):
+    """Causal with the offset sk - sq, a per-batch mask with a fully
     masked row and dead keys, a shared mask broadcast over every
     batch-head, dropout: #3w against ``_fwd_reference``, #5w and #6w
     against ``_dq_reference`` / ``_dkv_reference``; the pair repeats bit
-    for bit."""
+    for bit.  Head dims 36 and 100 are rows TMA cannot copy at 16 bits
+    (copied by threads) and planes padded to 40 and 104 at fp32; 200 the
+    256 bucket (fp32: the CUDA-core kernels).  130 queries and 197 keys
+    end inside a tile and a step of every instance."""
     dtype = _WIDE_TYPES[dt]
-    b, h, sq, sk = 2, 3, 100, 130
+    b, h = 2, 3
     q, k, v, do = (_randn((b * h, s, d), 110 + i, cuda, dtype)
                    for i, s in enumerate((sq, sk, sk, sq)))
     mask3 = _md_mask3(kind, b, h, sq, sk, 114, cuda)
@@ -2475,6 +2481,92 @@ def test_wide_flash_keep_pattern_is_the_plain_keep_mask(cuda, dt, d, masked):
     assert torch.equal(out > 0, keep)
     assert torch.equal(dv.transpose(1, 2) > 0, keep)
     assert _rel_l2(dq, ref_dq) <= 1e-2
+
+
+@pytest.mark.parametrize("dt", list(_WIDE_TYPES))
+def test_wide_kernels_by_type_and_head_dim(cuda, dt):
+    """Which kernels #3w and #5w launch, by the operand code their
+    wrappers hand the C entries (``_wide_tc_operands``; the entries run
+    what the code says), at every head dim 1..256: the tensor cores
+    wherever ``_wide_on_tensor_cores`` says (16-bit as it is, fp32 up to
+    128 as three bf16 planes), the CUDA-core kernels kept for fp32 past
+    128 (fp32 as it is); fp32 planes past 128, which no tile holds, the C
+    entries refuse.  ``test_wide_flash_matches_plain`` holds both against
+    the plain versions (fp32 at d 160, 200, 256; 16-bit rows copied by
+    threads at d 36 and 100)."""
+    dtype = _WIDE_TYPES[dt]
+    code = attn._WIDE_DTYPES[dtype]
+    on_tc = []
+    for d in range(1, 257):
+        x = torch.zeros(1, 2, d, dtype=dtype, device=cuda)
+        ops, got = attn._wide_tc_operands(code, (x, x, x))
+        if got == attn._WIDE_F32_PLANES:
+            for t in ops:
+                assert t.dtype == torch.bfloat16 and t.is_cuda
+                assert tuple(t.shape) == (3, 1, 2, d + (-d % 8))
+        else:
+            assert got == code and all(t is x for t in ops)
+        if dtype != torch.float32 or got == attn._WIDE_F32_PLANES:
+            on_tc.append(d)
+    assert on_tc == [d for d in range(1, 257)
+                     if attn._wide_on_tensor_cores(dtype, d)]
+    assert on_tc == list(range(1, 129 if dtype == torch.float32 else 257))
+    if dtype == torch.float32:
+        x = torch.zeros(1, 2, 200, device=cuda)
+        planes = attn._split_kernel(x)
+        out = torch.empty_like(x)
+        lse = torch.empty(1, 2, device=cuda)
+        err = _build.library().apex_flash_wide_fwd(
+            planes.data_ptr(), planes.data_ptr(), planes.data_ptr(), None,
+            None, out.data_ptr(), lse.data_ptr(), 1, 2, 2, 200, 1, 0, 2, 2,
+            1, 0, 1.0, 1.0, attn._WIDE_F32_PLANES, _build.stream_ptr(cuda))
+        torch.cuda.synchronize()
+        assert err != 0
+
+
+@pytest.mark.parametrize("dt", ["bf16", "fp16"])
+@pytest.mark.parametrize("d", [36, 37, 64, 256])
+def test_wide_flash_operand_alignment(cuda, dt, d):
+    """16-bit operands one element past an aligned address take the
+    rows TMA cannot read (d 36: element pairs 2-byte aligned, d 37 odd;
+    d 64 and 256, 16-byte multiples at a 2-byte address) as they are,
+    copied by threads: #3w and #5w against the plain versions."""
+    dtype = _WIDE_TYPES[dt]
+    bh, s = 4, 70
+
+    def shifted(seed):
+        x = _randn((bh * s * d + 1,), seed, cuda, dtype)[1:]
+        return x.view(bh, s, d)
+
+    q, k, v, do = (shifted(160 + i) for i in range(4))
+    assert q.data_ptr() % 4 == 2 and q.is_contiguous()
+    scale = d ** -0.5
+    out, lse = attn._fwd_wide(q, k, v, True, scale)
+    ref, ref_lse = attn._fwd_reference(q, k, v, True, scale)
+    args = (q, k, v, lse, attn._delta(out, do), do, True, scale)
+    dq = attn._dq_wide(*args)
+    want = attn._dq_reference(*args)
+    torch.cuda.synchronize()
+    _assert_wide_fwd(out, lse, ref, ref_lse, dtype)
+    assert _rel_l2(dq, want) <= 1e-2
+
+
+@pytest.mark.parametrize("d", [1, 36, 64, 100, 128])
+def test_wide_split_kernel_is_the_plain_split(cuda, d):
+    """The fp32 operands' split into three bf16 planes on the card
+    (``apex_flash_wide_split``) against ``_split_planes`` bit for bit,
+    over values across the exponent range, zeros and signs; the padding
+    columns 0."""
+    rng = np.random.RandomState(d)
+    x = rng.randn(3, 77, d) * np.exp2(rng.randint(-40, 40, (3, 77, d)))
+    x[0, 0] = 0.0
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    got = attn._split_kernel(x)
+    want = attn._split_planes(x.cpu())
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (3, 3, 77, d + (-d % 8))
+    assert torch.equal(got.cpu().view(torch.int16),
+                       want.view(torch.int16))
 
 
 @pytest.mark.parametrize("dt", list(_WIDE_TYPES))
