@@ -20,46 +20,50 @@
 //
 // Two designs, chosen by the caller through the operand code (dtype):
 //
-// - #3w and #5w on the tensor cores (bf16, fp16, and fp32 handed over as
-//   planes): the wide operand modes of the persistent warp-specialized
-//   kernel that #3d and #5md run (flash_qmajor_ws.cuh, launched through
-//   flash_wide_ws.cuh; TMA rings, ping-pong product warpgroups, the keep
-//   hash under the S product).  fp16 runs its .f16 wgmma products at the
-//   buckets 64, 128 and 256; bf16 the bucket 256.  16-bit rows that TMA
-//   cannot read (d % 8 != 0, or an operand not 16-byte aligned) are copied
-//   into the same swizzled tiles by three warps of the copying warpgroup
-//   (the operands are not padded).  fp32 runs as three bf16 planes an
-//   operand (x ~ x0 + x1 + x2, made by wide_split_kernel below), each
-//   product as six bf16 products that keep every term down to ~2^-16 of
-//   the product and drop those near 2^-24 and below (a0b0 + a0b1 + a1b0 +
-//   a0b2 + a1b1 + a2b0, the small ones first).  Why planes and not TF32: a
-//   single TF32 product keeps ~3 decimal digits, so it would not compute
-//   the fp32 function; 3xTF32 reaches about the rate of six bf16 products
-//   (494 / 3 against 989 / 6 TFLOP/s) but needs 8 bytes an element against
-//   6, and .tf32 wgmma takes only K-major B operands, so V (in P.V) and K
-//   (in dS.K) would need transposed copies.  What bounds them: the
-//   tensor-core products (six times the 16-bit ones at fp32), then the
-//   hash and the softmax on the CUDA cores beside them.
-// - The CUDA-core kernels (fp32 FMAs): wide_fwd_kernel and wide_dq_kernel
-//   take fp32 as it is (dtype 0), which ops/attention.py hands over only
-//   past head dim 128, where no tile of three planes of Q (and dO) and two
-//   stages of K and V fits in shared memory; they are built at the bucket
-//   256 alone.  #6w (wide_dkv_kernel) takes every dk/dv call.  A block is
-//   256 threads; each row of the block's tile (a query for #3w/#5w, a key
-//   for #6w) is split along d over D / 32 adjacent lanes, 32 columns each
-//   (column u + (D / 32) i), so a d = 256 row of q, dO and the fp32
-//   accumulators fits in registers; the partial dot products meet by xor
-//   shuffles, which give every lane of the row the same bits.  The other
-//   side's rows (k and v, or q and dO) stream through shared memory in
-//   32-row stages, double-buffered with cp.async (element copies where a
-//   row is not 16-byte aligned); all rows of the block read each staged
-//   element at once (a broadcast).  What bounds them: the fp32 FMA rate
-//   (67 TFLOP/s on an H100 SXM), then the shared-memory reads that feed
-//   it.  The head dim is a template bucket D (#6w: 64, 128, 256: ROWS =
-//   128, 64 or 32 rows a block) and the real d a run-time argument;
-//   shared-memory columns past d stay zero.  Causal blocks skip the tiles
-//   past their last live key (#3w, #5w) or before their first live query
-//   (#6w), and run heaviest first.
+// - On the tensor cores (bf16, fp16, and fp32 handed over as planes):
+//   #3w and #5w as the wide operand modes of the persistent
+//   warp-specialized kernel that #3d and #5md run (flash_qmajor_ws.cuh;
+//   TMA rings, ping-pong product warpgroups, the keep hash under the S
+//   product), #6w as those of the key-major warp-specialized kernel that
+//   #6md runs (flash_kmajor_ws.cuh; k and v resident, a TMA ring of q and
+//   dO, setmaxnreg, the longest key blocks first; in the wide modes a
+//   block of 64 keys whose first product warpgroup accumulates dV and
+//   second dK, P^T handed from the first to the second through shared
+//   memory), both launched through flash_wide_ws.cuh.  fp16 runs its
+//   .f16 wgmma products at the buckets 64, 128 and 256; bf16 the bucket
+//   256.  16-bit rows that TMA cannot read (d % 8 != 0, or an operand not
+//   16-byte aligned) are copied into the same swizzled tiles by three
+//   warps of the copying warpgroup (the operands are not padded).  fp32
+//   runs as three bf16 planes an operand (x ~ x0 + x1 + x2, made by
+//   wide_split_kernel below), each product as six bf16 products that keep
+//   every term down to ~2^-16 of the product and drop those near 2^-24
+//   and below (a0b0 + a0b1 + a1b0 + a0b2 + a1b1 + a2b0, the small ones
+//   first); p and ds are split into planes in registers.  Why planes and
+//   not TF32: a single TF32 product keeps ~3 decimal digits, so it would
+//   not compute the fp32 function; 3xTF32 reaches about the rate of six
+//   bf16 products (494 / 3 against 989 / 6 TFLOP/s) but needs 8 bytes an
+//   element against 6, and .tf32 wgmma takes only K-major B operands, so
+//   V (in P.V) and K (in dS.K) would need transposed copies.  What bounds
+//   them: the tensor-core products (six times the 16-bit ones at fp32),
+//   then the hash and the softmax on the CUDA cores beside them.
+// - The CUDA-core kernels (fp32 FMAs): wide_fwd_kernel, wide_dq_kernel
+//   and wide_dkv_kernel take fp32 as it is (dtype 0), which
+//   ops/attention.py hands over only past head dim 128, where no tile of
+//   three planes of Q (and dO) and two stages of K and V fits in shared
+//   memory; they are built at the bucket 256 alone.  A block is 256
+//   threads; each row of the block's tile (a query for #3w/#5w, a key for
+//   #6w) is split along d over 8 adjacent lanes, 32 columns each (column
+//   u + 8 i), so a d = 256 row of q, dO and the fp32 accumulators fits in
+//   registers; the partial dot products meet by xor shuffles, which give
+//   every lane of the row the same bits.  The other side's rows (k and v,
+//   or q and dO) stream through shared memory in 32-row stages,
+//   double-buffered with cp.async (element copies where a row is not
+//   16-byte aligned); all rows of the block read each staged element at
+//   once (a broadcast).  What bounds them: the fp32 FMA rate (67 TFLOP/s
+//   on an H100 SXM), then the shared-memory reads that feed it.  The real
+//   d is a run-time argument; shared-memory columns past d stay zero.
+//   Causal blocks skip the tiles past their last live key (#3w, #5w) or
+//   before their first live query (#6w), and run heaviest first.
 //
 // No atomics: #5w and #6w each write every output once, so the pair
 // repeats bit for bit.
@@ -73,7 +77,7 @@
 namespace {
 
 constexpr int kNT = 256;     // threads a block
-constexpr int kBK = 32;      // rows a shared-memory stage
+constexpr int kRows = 32;     // rows a shared-memory stage
 constexpr int kKC = 8;       // rows a register chunk
 
 struct FlashWide {
@@ -177,14 +181,14 @@ __device__ __forceinline__ void store_cols(const float (&x)[32], T* base,
 // the kept forward's and dq's head-dim bucket (fp32 past 128)
 constexpr int kF32D = 256;
 
-// Stage rows [j0, j0 + kBK) of two [n, d] matrices (rows >= end dead).
+// Stage rows [j0, j0 + kRows) of two [n, d] matrices (rows >= end dead).
 template <typename T, int D>
 __device__ __forceinline__ void stage2(T* xs, T* ys, const T* x, const T* y,
                                        int j0, int end, int d, bool vec) {
-  stage_rows<T, kNT>(xs, kBK, d, vec, D, x, [&](int j) -> const T* {
+  stage_rows<T, kNT>(xs, kRows, d, vec, D, x, [&](int j) -> const T* {
     return j0 + j < end ? x + (size_t)(j0 + j) * d : nullptr;
   });
-  stage_rows<T, kNT>(ys, kBK, d, vec, D, y, [&](int j) -> const T* {
+  stage_rows<T, kNT>(ys, kRows, d, vec, D, y, [&](int j) -> const T* {
     return j0 + j < end ? y + (size_t)(j0 + j) * d : nullptr;
   });
 }
@@ -195,8 +199,8 @@ __global__ void __launch_bounds__(kNT) wide_fwd_kernel(const FlashWide a) {
   using T = float;
   constexpr int D = kF32D, TPR = D / 32, ROWS = kNT / TPR;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);     // [2][kBK][D]
-  T* vs = ks + 2 * kBK * D;               // [2][kBK][D]
+  T* ks = reinterpret_cast<T*>(smem);     // [2][kRows][D]
+  T* vs = ks + 2 * kRows * D;               // [2][kRows][D]
   const int bh = blockIdx.y, d = a.d;
   const int r0 = (gridDim.x - 1 - blockIdx.x) * ROWS;
   const int u = threadIdx.x % TPR, row = r0 + threadIdx.x / TPR;
@@ -205,7 +209,7 @@ __global__ void __launch_bounds__(kNT) wide_fwd_kernel(const FlashWide a) {
   const T* v = static_cast<const T*>(a.v) + koff;
   const Live live = make_live(a, bh);
   const Drop drop = make_drop(a, bh);
-  zero_smem<T, kNT>(ks, 4 * kBK * D);
+  zero_smem<T, kNT>(ks, 4 * kRows * D);
   float qr[32], acc[32];
   load_cols<T, TPR>(qr, static_cast<const T*>(a.q) + qoff, row, a.sq, d, u,
                     a.scale_log2);
@@ -214,7 +218,7 @@ __global__ void __launch_bounds__(kNT) wide_fwd_kernel(const FlashWide a) {
   const bool rlive = live.row(row);
   const uint32_t rh = drop.on ? drop.row(row) : 0u;
   const int kend = key_end(a, r0, ROWS);
-  const int tiles = (kend + kBK - 1) / kBK;
+  const int tiles = (kend + kRows - 1) / kRows;
   float m = kNegInf, l = 0.f;
   __syncthreads();                        // zeros before the copies
   if (tiles > 0) {
@@ -224,19 +228,19 @@ __global__ void __launch_bounds__(kNT) wide_fwd_kernel(const FlashWide a) {
   for (int t = 0; t < tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < tiles) {
-      stage2<T, D>(ks + (buf ^ 1) * kBK * D, vs + (buf ^ 1) * kBK * D, k, v,
-                   (t + 1) * kBK, kend, d, a.vec);
+      stage2<T, D>(ks + (buf ^ 1) * kRows * D, vs + (buf ^ 1) * kRows * D, k, v,
+                   (t + 1) * kRows, kend, d, a.vec);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* kt = ks + buf * kBK * D + u;
-    const T* vt = vs + buf * kBK * D + u;
+    const T* kt = ks + buf * kRows * D + u;
+    const T* vt = vs + buf * kRows * D + u;
 #pragma unroll 1
-    for (int jc = 0; jc < kBK; jc += kKC) {
-      const int c0 = t * kBK + jc;
+    for (int jc = 0; jc < kRows; jc += kKC) {
+      const int c0 = t * kRows + jc;
       float s[kKC];
       float mx = m;
 #pragma unroll
@@ -275,8 +279,8 @@ __global__ void __launch_bounds__(kNT) wide_dq_kernel(const FlashWide a) {
   using T = float;
   constexpr int D = kF32D, TPR = D / 32, ROWS = kNT / TPR;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);     // [2][kBK][D]
-  T* vs = ks + 2 * kBK * D;               // [2][kBK][D]
+  T* ks = reinterpret_cast<T*>(smem);     // [2][kRows][D]
+  T* vs = ks + 2 * kRows * D;               // [2][kRows][D]
   const int bh = blockIdx.y, d = a.d;
   const int r0 = (gridDim.x - 1 - blockIdx.x) * ROWS;
   const int u = threadIdx.x % TPR, row = r0 + threadIdx.x / TPR;
@@ -285,7 +289,7 @@ __global__ void __launch_bounds__(kNT) wide_dq_kernel(const FlashWide a) {
   const T* v = static_cast<const T*>(a.v) + koff;
   const Live live = make_live(a, bh);
   const Drop drop = make_drop(a, bh);
-  zero_smem<T, kNT>(ks, 4 * kBK * D);
+  zero_smem<T, kNT>(ks, 4 * kRows * D);
   float qr[32], dor[32], dqa[32];
   load_cols<T, TPR>(qr, static_cast<const T*>(a.q) + qoff, row, a.sq, d, u,
                     a.scale_log2);
@@ -298,7 +302,7 @@ __global__ void __launch_bounds__(kNT) wide_dq_kernel(const FlashWide a) {
   const bool rlive = live.row(row) && lse > kMaskedRowThresh;
   const uint32_t rh = drop.on ? drop.row(row) : 0u;
   const int kend = key_end(a, r0, ROWS);
-  const int tiles = (kend + kBK - 1) / kBK;
+  const int tiles = (kend + kRows - 1) / kRows;
   __syncthreads();
   if (tiles > 0) {
     stage2<T, D>(ks, vs, k, v, 0, kend, d, a.vec);
@@ -307,19 +311,19 @@ __global__ void __launch_bounds__(kNT) wide_dq_kernel(const FlashWide a) {
   for (int t = 0; t < tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < tiles) {
-      stage2<T, D>(ks + (buf ^ 1) * kBK * D, vs + (buf ^ 1) * kBK * D, k, v,
-                   (t + 1) * kBK, kend, d, a.vec);
+      stage2<T, D>(ks + (buf ^ 1) * kRows * D, vs + (buf ^ 1) * kRows * D, k, v,
+                   (t + 1) * kRows, kend, d, a.vec);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* kt = ks + buf * kBK * D + u;
-    const T* vt = vs + buf * kBK * D + u;
+    const T* kt = ks + buf * kRows * D + u;
+    const T* vt = vs + buf * kRows * D + u;
 #pragma unroll 1
-    for (int jc = 0; jc < kBK; jc += kKC) {
-      const int c0 = t * kBK + jc;
+    for (int jc = 0; jc < kRows; jc += kKC) {
+      const int c0 = t * kRows + jc;
 #pragma unroll
       for (int jj = 0; jj < kKC; ++jj) {
         const float s = row_dot<T, TPR>(qr, kt + (jc + jj) * D);
@@ -337,16 +341,17 @@ __global__ void __launch_bounds__(kNT) wide_dq_kernel(const FlashWide a) {
                      a.scale);
 }
 
-// #6w: one block per (batch-head, ROWS-key tile), key tiles with the most
-// live queries first; dk and dv written once.
-template <typename T, int D>
+// #6w at fp32 past head dim 128: one block per (batch-head, ROWS-key
+// tile), key tiles with the most live queries first; dk and dv written
+// once.
 __global__ void __launch_bounds__(kNT) wide_dkv_kernel(const FlashWide a) {
-  constexpr int TPR = D / 32, ROWS = kNT / TPR;
+  using T = float;
+  constexpr int D = kF32D, TPR = D / 32, ROWS = kNT / TPR;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);     // [2][kBK][D]
-  T* dos = qs + 2 * kBK * D;              // [2][kBK][D]
-  float* ls = reinterpret_cast<float*>(dos + 2 * kBK * D);   // [2][kBK]
-  float* des = ls + 2 * kBK;                                  // [2][kBK]
+  T* qs = reinterpret_cast<T*>(smem);     // [2][kRows][D]
+  T* dos = qs + 2 * kRows * D;              // [2][kRows][D]
+  float* ls = reinterpret_cast<float*>(dos + 2 * kRows * D);   // [2][kRows]
+  float* des = ls + 2 * kRows;                                  // [2][kRows]
   const int bh = blockIdx.y, d = a.d;
   const int k0 = blockIdx.x * ROWS;
   const int u = threadIdx.x % TPR, key = k0 + threadIdx.x / TPR;
@@ -357,7 +362,7 @@ __global__ void __launch_bounds__(kNT) wide_dkv_kernel(const FlashWide a) {
   const float* delta = a.delta + (size_t)bh * a.sq;
   const Live live = make_live(a, bh);
   const Drop drop = make_drop(a, bh);
-  zero_smem<T, kNT>(qs, 4 * kBK * D);
+  zero_smem<T, kNT>(qs, 4 * kRows * D);
   float kr[32], vr[32], dka[32], dva[32];
   load_cols<T, TPR>(kr, static_cast<const T*>(a.k) + koff, key, a.sk, d, u,
                     a.scale_log2);
@@ -369,16 +374,16 @@ __global__ void __launch_bounds__(kNT) wide_dkv_kernel(const FlashWide a) {
   // the live queries of the block's keys: [rbeg, rend)
   const int rend = k0 < min(a.sk, a.vk) ? min(a.sq, a.vq) : 0;
   const int rbeg = a.causal ? min(max(k0 - a.off, 0), rend) : 0;
-  const int tiles = (rend - rbeg + kBK - 1) / kBK;
+  const int tiles = (rend - rbeg + kRows - 1) / kRows;
   __syncthreads();
   auto stage = [&](int t, int buf) {
-    const int j0 = rbeg + t * kBK;
-    stage2<T, D>(qs + buf * kBK * D, dos + buf * kBK * D, q, dout, j0, rend,
+    const int j0 = rbeg + t * kRows;
+    stage2<T, D>(qs + buf * kRows * D, dos + buf * kRows * D, q, dout, j0, rend,
                  d, a.vec);
-    if (threadIdx.x < 2 * kBK) {
-      const int j = threadIdx.x % kBK;
-      const float* src = threadIdx.x < kBK ? lse : delta;
-      float* dst = (threadIdx.x < kBK ? ls : des) + buf * kBK + j;
+    if (threadIdx.x < 2 * kRows) {
+      const int j = threadIdx.x % kRows;
+      const float* src = threadIdx.x < kRows ? lse : delta;
+      float* dst = (threadIdx.x < kRows ? ls : des) + buf * kRows + j;
       const bool in = j0 + j < rend;
       cp_async4z(smem_addr(dst), in ? src + j0 + j : src, in);
     }
@@ -394,27 +399,27 @@ __global__ void __launch_bounds__(kNT) wide_dkv_kernel(const FlashWide a) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* qt = qs + buf * kBK * D + u;
-    const T* dot = dos + buf * kBK * D + u;
-    const int j0 = rbeg + t * kBK;
+    const T* qt = qs + buf * kRows * D + u;
+    const T* dot = dos + buf * kRows * D + u;
+    const int j0 = rbeg + t * kRows;
 #pragma unroll 1
-    for (int jc = 0; jc < kBK; jc += kKC) {
+    for (int jc = 0; jc < kRows; jc += kKC) {
 #pragma unroll
       for (int jj = 0; jj < kKC; ++jj) {
         const int j = jc + jj, r = j0 + j;
         const float s = row_dot<T, TPR>(kr, qt + j * D);
         float g = row_dot<T, TPR>(vr, dot + j * D);
-        const float lr = ls[buf * kBK + j];
+        const float lr = ls[buf * kRows + j];
         const bool lv = klive && r < rend && lr > kMaskedRowThresh &&
                         live(r, key);
         const float p = lv ? exp2_ftz(s - lr) : 0.f;
-        float pv = round_to<T>(p);
+        float pv = p;
         if (drop.on) {
           const bool kept = drop.keep(drop.row(r), key);
-          pv = kept ? round_to<T>(p * a.inv_keep) : 0.f;
+          pv = kept ? p * a.inv_keep : 0.f;
           g = kept ? g * a.inv_keep : 0.f;
         }
-        const float ds = round_to<T>(p * (g - des[buf * kBK + j]));
+        const float ds = p * (g - des[buf * kRows + j]);
         axpy<T, TPR>(dva, pv, dot + j * D);
         axpy<T, TPR>(dka, ds, qt + j * D);
       }
@@ -429,47 +434,31 @@ __global__ void __launch_bounds__(kNT) wide_dkv_kernel(const FlashWide a) {
 enum Kind { kFwd, kDq, kDkv };
 
 // whether cp.async may copy the operands' rows 16 bytes at a time
-template <typename T>
 bool vec_rows(const FlashWide& a) {
-  return (size_t)a.d * sizeof(T) % 16 == 0 &&
+  return (size_t)a.d * sizeof(float) % 16 == 0 &&
          !(((uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
             (uintptr_t)a.dout) % 16);
 }
 
-// #6w at the bucket D
-template <typename T, int D>
-int launch_dkv(const FlashWide& a, cudaStream_t stream) {
-  constexpr int ROWS = kNT / (D / 32);
-  const size_t bytes = 4 * kBK * D * sizeof(T) + 4 * kBK * sizeof(float);
-  const dim3 grid((a.sk + ROWS - 1) / ROWS, a.bh);
-  static std::atomic<unsigned> allowed{0};
-  const int e = allow_wide_smem(wide_dkv_kernel<T, D>, bytes, allowed);
-  if (!e) wide_dkv_kernel<T, D><<<grid, kNT, bytes, stream>>>(a);
-  return e ? e : (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_dkv_d(FlashWide a, cudaStream_t stream) {
-  a.vec = vec_rows<T>(a);
-  if (a.d <= 64) return launch_dkv<T, 64>(a, stream);
-  if (a.d <= 128) return launch_dkv<T, 128>(a, stream);
-  return launch_dkv<T, 256>(a, stream);
-}
-
-// #3w or #5w on fp32 operands as they are (the CUDA-core kernels)
+// #3w, #5w or #6w on fp32 operands as they are (the CUDA-core kernels)
 int launch_f32(Kind kind, FlashWide a, cudaStream_t stream) {
   constexpr int ROWS = kNT / (kF32D / 32);
-  const size_t bytes = 4 * kBK * kF32D * sizeof(float);
-  const dim3 grid((a.sq + ROWS - 1) / ROWS, a.bh);
-  a.vec = vec_rows<float>(a);
-  static std::atomic<unsigned> fwd_allowed{0}, dq_allowed{0};
+  const size_t bytes = 4 * kRows * kF32D * sizeof(float) +
+                       (kind == kDkv ? 4 * kRows * sizeof(float) : 0);
+  const dim3 grid(((kind == kDkv ? a.sk : a.sq) + ROWS - 1) / ROWS, a.bh);
+  a.vec = vec_rows(a);
+  static std::atomic<unsigned> fwd_allowed{0}, dq_allowed{0},
+      dkv_allowed{0};
   int e;
   if (kind == kFwd) {
     e = allow_wide_smem(wide_fwd_kernel, bytes, fwd_allowed);
     if (!e) wide_fwd_kernel<<<grid, kNT, bytes, stream>>>(a);
-  } else {
+  } else if (kind == kDq) {
     e = allow_wide_smem(wide_dq_kernel, bytes, dq_allowed);
     if (!e) wide_dq_kernel<<<grid, kNT, bytes, stream>>>(a);
+  } else {
+    e = allow_wide_smem(wide_dkv_kernel, bytes, dkv_allowed);
+    if (!e) wide_dkv_kernel<<<grid, kNT, bytes, stream>>>(a);
   }
   return e ? e : (int)cudaGetLastError();
 }
@@ -478,13 +467,15 @@ int launch_f32(Kind kind, FlashWide a, cudaStream_t stream) {
 // ([3, bh, s, dp], dp = d rounded up to 8: apex_flash_wide_split).
 constexpr int kF32Planes = 3;
 
-// #3w or #5w on the tensor cores: 16-bit operands, or fp32 as planes.
+// #3w, #5w or #6w on the tensor cores: 16-bit operands, or fp32 as
+// planes.
 int tensor_cores(Kind kind, const FlashWide& a, int dtype, cudaStream_t s) {
   WideTcArgs t{};
   t.q = a.q; t.k = a.k; t.v = a.v; t.dout = a.dout;
   t.lse = a.lse; t.delta = a.delta;
   t.mask = a.mask; t.seed3 = a.seed3;
-  t.out = kind == kFwd ? a.o : a.dq;
+  t.out = kind == kFwd ? a.o : kind == kDq ? a.dq : a.dk;
+  t.dv = a.dv;
   t.lse_out = a.lse_out;
   t.bh = a.bh; t.sq = a.sq; t.sk = a.sk; t.d = a.d;
   t.dp = dtype == kF32Planes ? (a.d + 7) / 8 * 8 : a.d;
@@ -492,7 +483,7 @@ int tensor_cores(Kind kind, const FlashWide& a, int dtype, cudaStream_t s) {
   t.mask_hper = a.mask ? a.mask_hper : 1;
   t.threshold = (unsigned)a.threshold; t.inv_keep = a.inv_keep;
   t.scale_log2 = a.scale_log2; t.scale = a.scale;
-  const bool dq = kind == kDq;
+  const bool dq = kind == kDq, dkv = kind == kDkv;
   // TMA reads rows that are 16-byte multiples from 16-byte aligned
   // operands (the forward's dout is q)
   const bool tma = t.dp % 8 == 0 &&
@@ -501,11 +492,16 @@ int tensor_cores(Kind kind, const FlashWide& a, int dtype, cudaStream_t s) {
   switch (dtype) {
     case kF32Planes:
       if (!tma) return (int)cudaErrorInvalidValue;
+      if (dkv) return wide_tc_dkv_f32(t, s);
       return dq ? wide_tc_f32_dq(t, s) : wide_tc_f32_fwd(t, s);
     case kBF16:
+      if (dkv)
+        return tma ? wide_tc_dkv_bf16(t, s) : wide_tc_dkv_rows(t, false, s);
       if (tma) return wide_tc_bf16(t, dq, s);
       return dq ? wide_tc_rows_dq(t, false, s) : wide_tc_rows_fwd(t, false, s);
     default:
+      if (dkv)
+        return tma ? wide_tc_dkv_f16(t, s) : wide_tc_dkv_rows(t, true, s);
       if (tma) return dq ? wide_tc_f16_dq(t, s) : wide_tc_f16_fwd(t, s);
       return dq ? wide_tc_rows_dq(t, true, s) : wide_tc_rows_fwd(t, true, s);
   }
@@ -517,14 +513,6 @@ int run(Kind kind, FlashWide a, int dtype, void* stream) {
   if (a.d < 1 || a.d > 256 || a.bh > 65535 || (a.mask && a.mask_hper < 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind == kDkv) {
-    switch (dtype) {
-      case kF32: return launch_dkv_d<float>(a, s);
-      case kBF16: return launch_dkv_d<bf16>(a, s);
-      case kF16: return launch_dkv_d<__half>(a, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
   switch (dtype) {
     case kF32: return launch_f32(kind, a, s);
     case kBF16: case kF16: case kF32Planes:
@@ -593,8 +581,7 @@ extern "C" int apex_flash_wide_fwd(
 // (the operands' type), the base-2 lse and delta = rowsum(o * dout), both
 // [bh, sq] fp32; dq [bh, sq, d] (apex_flash_wide_dq), dk and dv [bh, sk, d]
 // (apex_flash_wide_dkv), of the operands' type.  scale is the softmax
-// scale, scale_log2 = scale log2(e).  dtype as apex_flash_wide_fwd's
-// (apex_flash_wide_dkv: 0, 1 or 2).
+// scale, scale_log2 = scale log2(e).  dtype as apex_flash_wide_fwd's.
 extern "C" int apex_flash_wide_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* mask, const void* seed3,

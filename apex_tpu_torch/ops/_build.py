@@ -36,16 +36,16 @@ or dropout (``flash_attention_bwd_dkv_md``).  The wide family, for the
 operands and head dims those instances do not take: ``flash_wide.cu``
 the forward (``flash_attention_wide``), dq (``flash_attention_wide_dq``)
 and dk/dv (``flash_attention_wide_dkv``), ``paged_wide.cu`` paged decode
-(``paged_attention_wide``); the forward's and dq's tensor-core instances
-sit in sources of their own (``flash_wide_tc_*.cu``, no entries) so that
-they compile in parallel.  ``fused_block_decode.cu``
+(``paged_attention_wide``); the forward's, dq's and dk/dv's tensor-core
+instances sit in sources of their own (``flash_wide_tc_*.cu``, no
+entries) so that they compile in parallel.  ``fused_block_decode.cu``
 is one cooperative launch per decoder layer; its entries, called with
 a null workspace, report the workspace size without launching.  One
 entry launches no counted kernel: the mask pre-pass of the split
 backward (:data:`UNCOUNTED`), which the forward's masked entries run
 inside them, uncounted too; nor do the wide family's split of fp32
-operands into bf16 planes (run by the wrappers of the forward and dq,
-whose launches count) and its route query.
+operands into bf16 planes (run by the wrappers of the forward, dq and
+dk/dv, whose launches count) and its route query.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine with no ``nvcc`` and no card.
@@ -108,9 +108,9 @@ SOURCES = {
         "flash_attention_wide_dq": "apex_flash_wide_dq",
         "flash_attention_wide_dkv": "apex_flash_wide_dkv"},
     "paged_wide.cu": {"paged_attention_wide": "apex_paged_wide"},
-    # the wide forward's and dq's tensor-core instances, launched through
-    # flash_wide.cu's entries (their own sources: nvcc builds them beside
-    # one another)
+    # the wide forward's, dq's and dk/dv's tensor-core instances,
+    # launched through flash_wide.cu's entries (their own sources: nvcc
+    # builds them beside one another)
     "flash_wide_tc_f16_fwd.cu": {},
     "flash_wide_tc_f16_dq.cu": {},
     "flash_wide_tc_bf16.cu": {},
@@ -118,13 +118,17 @@ SOURCES = {
     "flash_wide_tc_f32_dq.cu": {},
     "flash_wide_tc_rows_fwd.cu": {},
     "flash_wide_tc_rows_dq.cu": {},
+    "flash_wide_tc_dkv_f16.cu": {},
+    "flash_wide_tc_dkv_bf16.cu": {},
+    "flash_wide_tc_dkv_f32.cu": {},
+    "flash_wide_tc_dkv_rows.cu": {},
 }
 #: the source of each kernel, by launch-counter name
 KERNELS = {name: src for src, entries in SOURCES.items() for name in entries}
 #: entries with no launch counter, by source: the mask pre-pass that the
 #: split backward runs once for its two kernels; the split of fp32
-#: operands into bf16 planes that the wide forward's and dq's wrappers run
-#: before their launch (its time is theirs)
+#: operands into bf16 planes that the wide forward's, dq's and dk/dv's
+#: wrappers run before their launch (its time is theirs)
 UNCOUNTED = {"flash_attention_md.cu": ("apex_flash_mask_tiles",),
              "flash_wide.cu": ("apex_flash_wide_split",)}
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -54,11 +54,11 @@ Port of ``apex_tpu/ops/attention.py``, ``[b, h, s, d]`` layout:
   kernels of ``csrc/flash_wide.cu``: the forward
   ``flash_attention_wide`` (#3w) and, for either JAX backward route,
   the pair ``flash_attention_wide_dq`` and ``flash_attention_wide_dkv``
-  (#5w, #6w).  #3w and #5w run on the tensor cores (16-bit at every head
-  dim, fp32 up to 128 as three bf16 planes an operand, six bf16 products
-  a product; :func:`_wide_on_tensor_cores`), fp32 past 128 and #6w on the
-  CUDA cores.  One predicate names the route
-  (:func:`_flash_route`).
+  (#5w, #6w).  All three run on the tensor cores (16-bit at every head
+  dim, fp32 up to 128 as three bf16 planes an operand, split once for
+  the backward's pair, six bf16 products a product;
+  :func:`_wide_on_tensor_cores`), fp32 past 128 on the CUDA cores.  One
+  predicate names the route (:func:`_flash_route`).
 * :func:`decode_attention` — single-token attention against the dense
   slot cache: the JAX package's plain grouped chain at or below its
   crossover (:func:`decode_xla_max_seq`, 4096 cached positions), the
@@ -436,19 +436,20 @@ def _dq_reference(q3, k3, v3, lse, delta, do3, causal, scale,
 
 def _dkv_reference(q3, k3, v3, lse, delta, do3, causal, scale,
                    causal_off=None, valid=None, mask3=None, rate=0.0,
-                   seed3=None, bh0=0):
+                   seed3=None, bh0=0, mm=torch.matmul):
     """Plain version of the split dk/dv kernel: ``(dk, dv)`` in the
     operands' dtypes; p (dropped and rescaled under dropout) and ds
     round to the operand dtype before their products, as the kernels
-    feed their matrix units."""
+    feed their matrix units; every product through ``mm``
+    (:func:`_matmul6`: the fp32 tensor-core route's six products)."""
     p, keep = _recompute(q3, k3, lse, causal, scale, causal_off, valid,
-                         mask3, rate, seed3, bh0)
+                         mask3, rate, seed3, bh0, mm)
     pv = p if keep is None else torch.where(
         keep, p, torch.zeros_like(p)) * _inv_keep(rate)
-    dv = torch.matmul(pv.to(do3.dtype).float().transpose(1, 2), do3.float())
+    dv = mm(pv.to(do3.dtype).float().transpose(1, 2), do3.float())
     del pv
-    ds = _ds(p, v3, do3, delta, q3.dtype, keep, rate)
-    dk = scale * torch.matmul(ds.transpose(1, 2), q3.float())
+    ds = _ds(p, v3, do3, delta, q3.dtype, keep, rate, mm)
+    dk = scale * mm(ds.transpose(1, 2), q3.float())
     return dk.to(k3.dtype), dv.to(v3.dtype)
 
 
@@ -708,19 +709,20 @@ def _wide_operands(kernel, q3, k3, v3, mask3, rate, seed3, extra=()):
 
 
 def _wide_on_tensor_cores(dtype, d: int) -> bool:
-    """Whether the wide forward and dq (#3w, #5w) run operands of
-    ``dtype`` at head dim ``d`` on the tensor cores, the one place that
-    decides it (the C entries run what the operand code says): 16-bit at
-    every head dim (rows TMA cannot read copied by threads), fp32 up to
-    head dim 128 (as three bf16 planes).  fp32 past 128, where no tile of
-    three planes fits, runs the CUDA-core kernels."""
+    """Whether the wide kernels (#3w, #5w, #6w) run operands of ``dtype``
+    at head dim ``d`` on the tensor cores, the one place that decides it
+    (the C entries run what the operand code says): 16-bit at every head
+    dim (rows TMA cannot read copied by threads), fp32 up to head dim 128
+    (as three bf16 planes).  fp32 past 128, where no tile of three planes
+    fits, runs the CUDA-core kernels."""
     return dtype != torch.float32 or d <= _WIDE_TC_F32_MAX_HEAD_DIM
 
 
 def _split_kernel(x3):
     """fp32 ``x3 [bh, s, d]`` as its three bf16 planes ``[3, bh, s, dp]``
-    (``apex_flash_wide_split``, uncounted: part of #3w's and #5w's
-    launches); the plain version :func:`_split_planes` on the CPU."""
+    (``apex_flash_wide_split``, uncounted: part of #3w's, #5w's and
+    #6w's launches); the plain version :func:`_split_planes` on the
+    CPU."""
     if x3.device.type == "cpu":
         return _split_planes(x3)
     bh, s, d = x3.shape
@@ -734,8 +736,8 @@ def _split_kernel(x3):
 
 
 def _wide_tc_operands(code, operands):
-    """What the wide forward's and dq's C entries take for ``operands``
-    (q, k, v and, for dq, dout) of type ``code``: fp32 as planes where
+    """What the wide kernels' C entries take for ``operands`` (q, k, v
+    and, for the backward, dout) of type ``code``: fp32 as planes where
     :func:`_wide_on_tensor_cores` says (:func:`_split_kernel`, code
     :data:`_WIDE_F32_PLANES`), else as they are (16-bit at any alignment).
     Returns ``(tensors, code)``; the tensors must outlive the launch's
@@ -785,18 +787,20 @@ def _wide_bwd_args(kernel, q3, k3, v3, lse, delta, do3):
 
 
 def _dq_wide(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
-             valid=None, mask3=None, rate=0.0, seed3=None):
+             valid=None, mask3=None, rate=0.0, seed3=None, tc=None):
     """#5w, the wide dq (``apex_flash_wide_dq``, counter
     ``flash_attention_wide_dq``; operands as :func:`_dq_reference`'s):
     ``dq`` in q's type, written once, no atomics; on the tensor cores as
-    :func:`_fwd_wide`."""
+    :func:`_fwd_wide`.  ``tc``: what :func:`_wide_tc_operands` gave for
+    ``(q3, k3, v3, do3)``, where the caller has it (one split for the
+    backward's pair); by default made here."""
     name = "flash_attention_wide_dq"
     bh, sq, d = q3.shape
     sk = k3.shape[1]
     ptrs, ints, inv_keep, code = _wide_operands(
         name, q3, k3, v3, mask3, rate, seed3, (("dout", do3),))
     _wide_bwd_args(name, q3, k3, v3, lse, delta, do3)
-    ops, code = _wide_tc_operands(code, (q3, k3, v3, do3))
+    ops, code = tc or _wide_tc_operands(code, (q3, k3, v3, do3))
     dq = torch.empty_like(q3)
     _build.count(name)
     err = _build.library().apex_flash_wide_dq(
@@ -810,21 +814,23 @@ def _dq_wide(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
 
 
 def _dkv_wide(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
-              valid=None, mask3=None, rate=0.0, seed3=None):
+              valid=None, mask3=None, rate=0.0, seed3=None, tc=None):
     """#6w, the wide dk/dv (``apex_flash_wide_dkv``, counter
     ``flash_attention_wide_dkv``; operands as :func:`_dkv_reference`'s):
-    ``(dk, dv)`` in the operands' type, each written once."""
+    ``(dk, dv)`` in the operands' type, each written once; on the tensor
+    cores as :func:`_fwd_wide` (``tc`` as :func:`_dq_wide`'s)."""
     name = "flash_attention_wide_dkv"
     bh, sq, d = q3.shape
     sk = k3.shape[1]
     ptrs, ints, inv_keep, code = _wide_operands(
         name, q3, k3, v3, mask3, rate, seed3, (("dout", do3),))
     _wide_bwd_args(name, q3, k3, v3, lse, delta, do3)
+    ops, code = tc or _wide_tc_operands(code, (q3, k3, v3, do3))
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
     _build.count(name)
     err = _build.library().apex_flash_wide_dkv(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+        *(t.data_ptr() for t in ops),
         lse.data_ptr(), delta.data_ptr(), *ptrs, dk.data_ptr(),
         dv.data_ptr(), bh, sq, sk, d, int(causal),
         *_window(sq, sk, causal_off, valid), *ints, inv_keep,
@@ -832,6 +838,23 @@ def _dkv_wide(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
         _build.stream_ptr(q3.device))
     _build.check(err, name)
     return dk, dv
+
+
+def _bwd_wide(q3, k3, v3, o3, lse, do3, causal, scale, causal_off=None,
+              valid=None, mask3=None, rate=0.0, seed3=None):
+    """The wide backward, #5w + #6w (:func:`_bwd`'s route for the
+    operands the instances do not take): the operands' checks, then fp32
+    split into planes once (:func:`_wide_tc_operands`) and the same
+    planes handed to both kernels."""
+    if o3.shape != q3.shape:
+        raise ValueError(f"out must be {tuple(q3.shape)}")
+    md = dict(mask3=mask3, rate=rate, seed3=seed3)
+    code = _wide_operands("flash_attention_wide_dq", q3, k3, v3, mask3,
+                          rate, seed3, (("dout", do3),))[3]
+    tc = _wide_tc_operands(code, (q3, k3, v3, do3))
+    args = (q3, k3, v3, lse, _delta(o3, do3), do3, causal, scale,
+            causal_off, valid)
+    return (_dq_wide(*args, **md, tc=tc), *_dkv_wide(*args, **md, tc=tc))
 
 
 def _bwd(q3, k3, v3, o3, lse, do3, causal: bool, scale: float,
@@ -842,12 +865,12 @@ def _bwd(q3, k3, v3, o3, lse, do3, causal: bool, scale: float,
     and base-2 ``lse``: ``(dq, dk, dv)``, with the forward's ``mask3``
     and dropout (``rate``, ``seed3``).  On the route of
     :func:`_flash_route`: the wide pair #5w + #6w for the operands the
-    instances do not take (both JAX routes compute one function); else
-    the one-pass kernel while ``sq * head_dim * 4 <=
-    _FUSED_BWD_MAX_BYTES``, and the split pair beyond, whose two kernels
-    share one mask pre-pass; each kernel's plain version for CPU tensors.
-    ``head_dim`` is the call's real head dim where the operands were
-    zero-padded to an instance's (the gate reads it, as the JAX gate
+    instances do not take (both JAX routes compute one function;
+    :func:`_bwd_wide`); else the one-pass kernel while ``sq * head_dim *
+    4 <= _FUSED_BWD_MAX_BYTES``, and the split pair beyond, whose two
+    kernels share one mask pre-pass; each kernel's plain version for CPU
+    tensors.  ``head_dim`` is the call's real head dim where the operands
+    were zero-padded to an instance's (the gate reads it, as the JAX gate
     reads the unpadded one); by default the operands'."""
     cpu = q3.device.type == "cpu"
     md = dict(mask3=mask3, rate=rate, seed3=seed3)
@@ -855,11 +878,8 @@ def _bwd(q3, k3, v3, o3, lse, do3, causal: bool, scale: float,
         _check_mask3(mask3, q3, k3.shape[1])
     family, _ = _flash_route(q3.dtype, q3.shape[2], mask3 is not None, rate)
     if not cpu and family == "wide":
-        if o3.shape != q3.shape:
-            raise ValueError(f"out must be {tuple(q3.shape)}")
-        args = (q3, k3, v3, lse, _delta(o3, do3), do3, causal, scale,
-                causal_off, valid)
-        return (_dq_wide(*args, **md), *_dkv_wide(*args, **md))
+        return _bwd_wide(q3, k3, v3, o3, lse, do3, causal, scale, causal_off,
+                         valid, **md)
     if not _split_bwd(q3.shape[1], q3.shape[2] if head_dim is None
                       else head_dim):
         return (_bwd_reference if cpu else _bwd_kernel)(

@@ -56,9 +56,9 @@
    1, must fail it) and each row within 2^-6 of its own max, timed
    beside SDPA with ``dropout_p`` and the same family without dropout;
    then each instance's keep pattern bit for bit against the plain
-   keep mask, with q = 0, v = I and dO = I); the wide family (#3w and
-   #5w on the tensor cores, fp32 as three bf16 planes and six bf16
-   products a product, #6w on the CUDA cores; the plain versions' fp32
+   keep mask, with q = 0, v = I and dO = I); the wide family (#3w, #5w
+   and #6w on the tensor cores, fp32 up to head dim 128 as three bf16
+   planes and six bf16 products a product; the plain versions' fp32
    products with TF32 off, stated in the phase): #3w, #5w and #6w at
    GPT-3 1.3B's causal ``[1, 16, 2048, 128]`` and BERT-large's padded
    ``[16, 16, 512, 64]`` in fp32 with dropout 0.1, fp32 causal ``[1, 16,
@@ -4705,9 +4705,9 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
     1.3B decode step and the dense Llama-3-8B decode step at 8192
     positions; ``md`` the mask and dropout instances at the training
     paths' shapes and the training steps that run them
-    (:func:`_ab_md`); ``wide`` the wide forward and dq (#3w, #5w) at
-    every :func:`_wide_flash_shapes` shape and the ``width gpt fp32
-    train`` step (:func:`_ab_wide`).  Each row's two versions are held
+    (:func:`_ab_md`); ``wide`` the wide forward, dq and dk/dv (#3w,
+    #5w, #6w) at every :func:`_wide_flash_shapes` shape and the ``width
+    gpt fp32 train`` step (:func:`_ab_wide`).  Each row's two versions are held
     against each
     other (and against the plain version) before they are timed.  The
     baseline's own wrappers stand in for this tree's where their C
@@ -5099,15 +5099,15 @@ def _ab_lm_steps(dev, seed: int, kind: str, versions):
 
 
 def _ab_wide(dev, seed: int, gen, versions):
-    """The wide forward's and dq's A/B (#3w, #5w, each version through its
-    own ``_fwd_wide`` and ``_dq_wide``: B's fp32 calls with their split
-    into planes) at every :func:`_wide_flash_shapes` shape: both
-    versions' out and lse against the plain version, and both versions'
-    dq from B's out and lse against the plain dq on those (fp32 within
-    TOL_WIDE_OUT and TOL_WIDE_GRAD of max|ref|, 16-bit as
-    :func:`_wide_rows` holds them) and against each other; then each
-    timed in turns A B B A; then the ``width gpt fp32 train`` step, GPT-3
-    1.3B at fp32 parameters (:func:`_ab_lm_steps`)."""
+    """The wide flash kernels' A/B (#3w, #5w, #6w, each version through
+    its own ``_fwd_wide``, ``_dq_wide`` and ``_dkv_wide``: B's fp32 calls
+    with their split into planes) at every :func:`_wide_flash_shapes`
+    shape: both versions' out and lse against the plain version, and
+    both versions' dq, dk and dv from B's out and lse against the plain
+    ones on those (fp32 within TOL_WIDE_OUT and TOL_WIDE_GRAD of
+    max|ref|, 16-bit as :func:`_wide_rows` holds them) and against each
+    other; then each timed in turns A B B A; then the ``width gpt fp32
+    train`` step, GPT-3 1.3B at fp32 parameters (:func:`_ab_lm_steps`)."""
     attn = importlib.import_module("apex_tpu_torch.ops.attention")
     seed3 = attn._seed_operand(-2 ** 31 + 777, device=dev)
     for tag, dt, b, h, s, d, causal, masked, rate in _wide_flash_shapes():
@@ -5127,13 +5127,17 @@ def _ab_wide(dev, seed: int, gen, versions):
         out, lse = fwd["B"]
         delta = attn._delta(out, do3)
         args = (q3, k3, v3, lse, delta, do3, causal, scale)
-        dq = {}
+        dq, dkv = {}, {}
         for turn in "AB":
             with _as_version(versions[turn]):
                 dq[turn] = attn._dq_wide(*args, **md)
+                dkv[turn] = attn._dkv_wide(*args, **md)
         ref_out, ref_lse = _by_heads(lambda sl: attn._fwd_reference(
             q3[sl], k3[sl], v3[sl], causal, scale, **sl_kw(sl)), bh, step)
         ref_dq = _by_heads(lambda sl: attn._dq_reference(
+            q3[sl], k3[sl], v3[sl], lse[sl], delta[sl], do3[sl], causal,
+            scale, **sl_kw(sl)), bh, step)
+        ref_dkv = _by_heads(lambda sl: attn._dkv_reference(
             q3[sl], k3[sl], v3[sl], lse[sl], delta[sl], do3[sl], causal,
             scale, **sl_kw(sl)), bh, step)
         label = (f"{'padding' if masked else 'causal'} [{b}, {h}, {s}, {d}] "
@@ -5161,18 +5165,24 @@ def _ab_wide(dev, seed: int, gen, versions):
                 _check(f"{turn} #5w dq (x each row's max|ref|, at least "
                        f"1e-3 of the output's)", _row_rel(dq[turn], ref_dq),
                        TOL_PAGED_OUT)
+            _wide_grads_check(f"{turn} #6w", dkv[turn], ref_dkv, fp32,
+                              ("dk", "dv"))
             if not torch.equal(l_ > -1e29, livel):
                 raise AssertionError(f"ab wide {tag}: {turn}'s fully masked "
                                      f"rows differ")
+        dkv_diff = max((a_.float() - b_.float()).abs().max().item()
+                       for a_, b_ in zip(dkv["A"], dkv["B"]))
         print(f"    B against A max|diff|: out "
               f"{(fwd['A'][0].float() - out.float()).abs().max().item():.3e}"
               f", lse {(fwd['A'][1] - lse)[livel].abs().max().item():.3e}, "
-              f"dq {(dq['A'].float() - dq['B'].float()).abs().max().item():.3e}")
-        del fwd, dq, ref_out, ref_lse, ref_dq
+              f"dq {(dq['A'].float() - dq['B'].float()).abs().max().item():.3e}"
+              f", dk/dv {dkv_diff:.3e}")
+        del fwd, dq, dkv, ref_out, ref_lse, ref_dq, ref_dkv
         iters = 3 if s > 4096 else 10
         for row, fn in (("#3w", lambda: attn._fwd_wide(q3, k3, v3, causal,
                                                        scale, **md)),
-                        ("#5w", lambda: attn._dq_wide(*args, **md))):
+                        ("#5w", lambda: attn._dq_wide(*args, **md)),
+                        ("#6w", lambda: attn._dkv_wide(*args, **md))):
             mean, each = _ab(versions, lambda: _time_ms(fn, iters))
             print(f"    {row} on {_smi()}: A {mean['A']:.4f} ms, B "
                   f"{mean['B']:.4f} ms, B/A {mean['B'] / mean['A']:.3f} "
@@ -5697,13 +5707,14 @@ def _row_rel(got, ref, floor: float = 1e-3) -> float:
     return ((g - r).abs().amax(1) / mag).max().item()
 
 
-def _wide_grads_check(tag, got, ref, fp32: bool) -> float:
+def _wide_grads_check(tag, got, ref, fp32: bool,
+                      names=("dq", "dk", "dv")) -> float:
     """fp32: each output within TOL_WIDE_GRAD of its max|ref|; 16-bit:
     within TOL_FLASH_BWD_REL_L2 relative L2 and each row within 2^-6 of
     its own max|ref| (:func:`_row_rel`).  Returns the largest max
     |diff|."""
     err = 0.0
-    for nm, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+    for nm, g_, r_ in zip(names, got, ref):
         e = (g_.float() - r_.float()).abs().max().item()
         err = max(err, e)
         if fp32:
@@ -5734,9 +5745,9 @@ def _wide_rows(dev, gen, recs):
     (:func:`_wide_paged_rows`)."""
     attn = importlib.import_module("apex_tpu_torch.ops.attention")
     from apex_tpu_torch.ops import _build
-    print(f"wide kernels: #3w and #5w on the tensor cores (fp32 up to head "
-          f"dim 128 as three bf16 planes, six bf16 products a product), "
-          f"#6w on the CUDA cores; the plain versions' fp32 products with "
+    print(f"wide kernels: #3w, #5w and #6w on the tensor cores (fp32 up to "
+          f"head dim 128 as three bf16 planes, six bf16 products a "
+          f"product); the plain versions' fp32 products with "
           f"TF32 {'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}"
           f" (torch.backends.cuda.matmul.allow_tf32)")
     seed3 = attn._seed_operand(-2 ** 31 + 777, device=dev)
@@ -5782,7 +5793,7 @@ def _wide_rows(dev, gen, recs):
                  f"{str(dt).replace('torch.', '')}"
                  + (f", dropout {rate}" if rate else ""))
         on_tc = attn._wide_on_tensor_cores(dt, d)
-        print(f"wide flash ({tag}: {label}; #3w and #5w on the "
+        print(f"wide flash ({tag}: {label}; #3w, #5w and #6w on the "
               f"{'tensor' if on_tc else 'CUDA'} cores)")
         livel = ref_lse > -1e29
         err_f = (out.float() - ref_out.float()).abs().max().item()
@@ -5846,7 +5857,7 @@ def _wide_rows(dev, gen, recs):
         for row, name, repl, ms, plain_ms, nbytes, ops, lib, err in rows:
             # fp32 on the tensor cores: the operations at the rate of six
             # bf16 products (989 / 6 TFLOP/s), the CUDA cores' beside it
-            six = fp32 and row != "6w" and on_tc
+            six = fp32 and on_tc
             bound, by = _bound(nbytes, ops, BF16_FLOPS_PER_S / 6 if six
                                else FP32_FLOPS_PER_S if fp32
                                else BF16_FLOPS_PER_S)
@@ -5860,12 +5871,13 @@ def _wide_rows(dev, gen, recs):
                   f"{bound:.4f} ms ({by}{', six bf16 products' if six else ''}"
                   f"), {100 * bound / ms:.1f}% of the bound{cores}")
             if tag == "gpt fp32":
-                # #3w and #5w: flash_wide.cu's entries launch the
-                # persistent kernel's wide modes
+                # flash_wide.cu's entries launch the wide modes of the
+                # persistent kernel (#3w, #5w) and of the key-major
+                # warp-specialized one (#6w)
                 recs[name] = dict(
                     name=name, route="cuda",
                     source="apex_tpu_torch/csrc/" + (
-                        "flash_wide.cu" if row == "6w"
+                        "flash_kmajor_ws.cuh" if row == "6w"
                         else "flash_qmajor_ws.cuh"),
                     replaces=repl, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound, bound_by=by, library_ms=lib,

@@ -104,13 +104,24 @@ def test_md_one_pass_takes_the_warp_specialized_kernel(csrc_copy):
     for piece in ("tma_load(", "mbar_wait(", "reg_dealloc<", "reg_alloc<",
                   "cp.async.mbarrier.arrive", "tensor_add_f32("):
         assert piece in ws, piece
-    loop = ws[ws.index("reg_alloc<kWsRegs>();"):]
-    assert "__syncthreads" not in loop and "cp_async16z" not in loop
+    for loop in _ws_loops(ws):
+        assert "__syncthreads" not in loop and "cp_async16z" not in loop
     assert "flash_kmajor_ws.cuh" in _build._digest_files()
     before = _build._digest()
     path = csrc_copy / "flash_kmajor_ws.cuh"
     path.write_text(path.read_text() + "\n// edited\n")
     assert _build._digest() != before
+
+
+def _ws_loops(ws: str) -> list:
+    """The key-major warp-specialized kernel's product threads' code, a
+    piece per branch of the kernel (the wide modes', the bf16
+    instances'): from the branch's ``reg_alloc`` to its end."""
+    kernel = ws[ws.index("flash_bwd_ws_kernel(const"):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    branches = kernel.split("\n  } else {\n")
+    assert len(branches) == 2
+    return [b[b.index("reg_alloc<kWsRegs>();"):] for b in branches]
 
 
 def _function(code: str, name: str) -> str:
@@ -202,8 +213,48 @@ def test_md_dkv_takes_the_warp_specialized_key_major_kernel():
                   "reg_dealloc<", "reg_alloc<", "kb = r / gsize"):
         assert piece in kernel, piece
     assert not re.search(r"md\.mask\b", ws) and "mask_ld" not in ws
-    loop = kernel[kernel.index("reg_alloc<kWsRegs>();"):]
-    assert "__syncthreads" not in loop and "cp_async16z" not in loop
+    for loop in _ws_loops(ws):
+        assert "__syncthreads" not in loop and "cp_async16z" not in loop
+
+
+def test_wide_dkv_takes_the_warp_specialized_key_major_kernel():
+    """``apex_flash_wide_dkv`` (#6w) on 16-bit operands and on fp32 as
+    planes reaches the key-major warp-specialized kernel's wide modes:
+    each dk/dv instance source (no entries of its own) launches
+    ``flash_bwd_ws_kernel`` through ``launch_wide_dkv_ws``, whose blocks
+    go the longest key blocks first; the wide branch copies on TMA (or
+    by threads for rows TMA cannot read), hashes the keep bits, splits
+    fp32 into planes and writes dk and dv once (no atomics).  The
+    CUDA-core ``wide_dkv_kernel`` is kept for fp32 at the bucket 256
+    alone."""
+    wide = _code((CSRC / "flash_wide.cu").read_text())
+    tc = _function(wide, "tensor_cores")
+    for fn in ("wide_tc_dkv_f32(", "wide_tc_dkv_bf16(", "wide_tc_dkv_f16(",
+               "wide_tc_dkv_rows("):
+        assert fn in tc, fn
+    assert "kDkv" not in _function(wide, "run")
+    assert "template <typename T, int D>\n__global__" not in wide
+    assert "round_to" not in wide
+    for src in ("flash_wide_tc_dkv_f16.cu", "flash_wide_tc_dkv_bf16.cu",
+                "flash_wide_tc_dkv_f32.cu", "flash_wide_tc_dkv_rows.cu"):
+        assert _build.SOURCES[src] == {}
+        code = _code((CSRC / src).read_text())
+        assert '#include "flash_wide_ws.cuh"' in code
+        assert "launch_wide_dkv_d<" in code
+    ws = _code((CSRC / "flash_wide_ws.cuh").read_text())
+    launch = _function(ws, "launch_wide_dkv_ws")
+    assert "flash_bwd_ws_kernel<D, false, false, DROP, OP>" in launch
+    assert "group" in launch and "kL2Half" in launch
+    kernel = _code((CSRC / "flash_kmajor_ws.cuh").read_text())
+    kernel = kernel[kernel.index("flash_bwd_ws_kernel(const"):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    branch = kernel[:kernel.index("\n  } else {\n")]
+    assert "if constexpr (OP != kOpBf16)" in branch
+    for piece in ("tma_load(", "mbar_wait(", "copy_tile<", "reg_dealloc<",
+                  "reg_alloc<", "fold16(", "drop_keep_folded(",
+                  "wgmma_rs<F16>(", "split3(", "hr / gsize"):
+        assert piece in branch, piece
+    assert "atomic" not in branch
 
 
 def test_md_dq_takes_the_persistent_kernel():

@@ -2484,16 +2484,50 @@ def test_wide_flash_keep_pattern_is_the_plain_keep_mask(cuda, dt, d, masked):
 
 
 @pytest.mark.parametrize("dt", list(_WIDE_TYPES))
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("sk", [130, 256])
+def test_wide_dkv_dead_key_blocks(cuda, no_tf32, dt, d, sk):
+    """#6w over a padding mask whose last key blocks are masked for every
+    query (each batch's length, 64-key blocks past it whole): those
+    blocks are skipped, their keys' dk and dv 0, the rest against
+    ``_dkv_reference``; at sk 256 the mask's rows are read four bytes at
+    a time, at 130 byte by byte."""
+    dtype = _WIDE_TYPES[dt]
+    b, h, sq = 2, 2, 96
+    q, k, v, do = (_randn((b * h, s, d), 170 + i, cuda, dtype)
+                   for i, s in enumerate((sq, sk, sk, sq)))
+    lengths = torch.tensor([60, sk - 70], device=cuda)
+    mask3 = (torch.arange(sk, device=cuda)[None, None, :]
+             >= lengths[:, None, None]).expand(b, sq, sk).contiguous()
+    seed3 = attn._seed_operand(5, device=cuda)
+    md = dict(mask3=mask3, rate=0.1, seed3=seed3)
+    scale = d ** -0.5
+    out, lse = attn._fwd_wide(q, k, v, False, scale, **md)
+    args = (q, k, v, lse, attn._delta(out, do), do, False, scale)
+    got = attn._dkv_wide(*args, **md)
+    want = attn._dkv_reference(*args, **md)
+    torch.cuda.synchronize()
+    dead = mask3[:, 0, :].repeat_interleave(h, dim=0)
+    for g, r in zip(got, want):
+        assert bool((g[dead] == 0).all())
+        if dtype == torch.float32:
+            assert _maxdiff(g, r) <= 1e-4 * r.abs().max().item()
+        else:
+            assert _rel_l2(g, r) <= 1e-2
+
+
+@pytest.mark.parametrize("dt", list(_WIDE_TYPES))
 def test_wide_kernels_by_type_and_head_dim(cuda, dt):
-    """Which kernels #3w and #5w launch, by the operand code their
+    """Which kernels #3w, #5w and #6w launch, by the operand code their
     wrappers hand the C entries (``_wide_tc_operands``; the entries run
     what the code says), at every head dim 1..256: the tensor cores
     wherever ``_wide_on_tensor_cores`` says (16-bit as it is, fp32 up to
     128 as three bf16 planes), the CUDA-core kernels kept for fp32 past
     128 (fp32 as it is); fp32 planes past 128, which no tile holds, the C
-    entries refuse.  ``test_wide_flash_matches_plain`` holds both against
-    the plain versions (fp32 at d 160, 200, 256; 16-bit rows copied by
-    threads at d 36 and 100)."""
+    entries of the forward and of dk/dv refuse.
+    ``test_wide_flash_matches_plain`` holds them against the plain
+    versions (fp32 at d 160, 200, 256; 16-bit rows copied by threads at d
+    36 and 100)."""
     dtype = _WIDE_TYPES[dt]
     code = attn._WIDE_DTYPES[dtype]
     on_tc = []
@@ -2522,6 +2556,15 @@ def test_wide_kernels_by_type_and_head_dim(cuda, dt):
             1, 0, 1.0, 1.0, attn._WIDE_F32_PLANES, _build.stream_ptr(cuda))
         torch.cuda.synchronize()
         assert err != 0
+        stats = torch.zeros(1, 2, device=cuda)
+        dk, dv = torch.empty_like(x), torch.empty_like(x)
+        err = _build.library().apex_flash_wide_dkv(
+            planes.data_ptr(), planes.data_ptr(), planes.data_ptr(),
+            planes.data_ptr(), stats.data_ptr(), stats.data_ptr(), None,
+            None, dk.data_ptr(), dv.data_ptr(), 1, 2, 2, 200, 1, 0, 2, 2, 1,
+            0, 1.0, 1.0, 1.0, attn._WIDE_F32_PLANES, _build.stream_ptr(cuda))
+        torch.cuda.synchronize()
+        assert err != 0
 
 
 @pytest.mark.parametrize("dt", ["bf16", "fp16"])
@@ -2530,7 +2573,7 @@ def test_wide_flash_operand_alignment(cuda, dt, d):
     """16-bit operands one element past an aligned address take the
     rows TMA cannot read (d 36: element pairs 2-byte aligned, d 37 odd;
     d 64 and 256, 16-byte multiples at a 2-byte address) as they are,
-    copied by threads: #3w and #5w against the plain versions."""
+    copied by threads: #3w, #5w and #6w against the plain versions."""
     dtype = _WIDE_TYPES[dt]
     bh, s = 4, 70
 
@@ -2546,9 +2589,13 @@ def test_wide_flash_operand_alignment(cuda, dt, d):
     args = (q, k, v, lse, attn._delta(out, do), do, True, scale)
     dq = attn._dq_wide(*args)
     want = attn._dq_reference(*args)
+    dkv = attn._dkv_wide(*args)
+    want_dkv = attn._dkv_reference(*args)
     torch.cuda.synchronize()
     _assert_wide_fwd(out, lse, ref, ref_lse, dtype)
     assert _rel_l2(dq, want) <= 1e-2
+    for got, ref_g in zip(dkv, want_dkv):
+        assert _rel_l2(got, ref_g) <= 1e-2
 
 
 @pytest.mark.parametrize("d", [1, 36, 64, 100, 128])

@@ -1,10 +1,12 @@
-"""The fp32 operands of the wide forward's and dq's tensor-core route
-(#3w, #5w), on the CPU: the split of an fp32 operand into three bf16
-planes (``attention._split_planes``, the plain version of the card's
-split kernel), which operands the wrappers hand the C entries
-(``_wide_tc_operands``), the six-product matmul (``_matmul6``), and a plain
-forward and dq that run each product as six against the JAX package's
-fp32 ``_fwd`` and ``_bwd_impl`` (Pallas in interpret mode).
+"""The fp32 operands of the wide kernels' tensor-core route (#3w, #5w,
+#6w), on the CPU: the split of an fp32 operand into three bf16 planes
+(``attention._split_planes``, the plain version of the card's split
+kernel), which operands the wrappers hand the C entries
+(``_wide_tc_operands``; the dk/dv wrapper's and the backward pair's
+hand-over with the library stubbed, nothing launched), the six-product
+matmul (``_matmul6``), and a plain forward, dq and dk/dv that run each
+product as six against the JAX package's fp32 ``_fwd`` and
+``_bwd_impl`` (Pallas in interpret mode).
 
 Tolerances: the planes' sum within 2^-24 |x| of x (each plane keeps 8
 bits, rounded to nearest, so what three leave is at most 2^-24 |x| while
@@ -13,8 +15,8 @@ six-product matmul within (k + 8) 2^-24 (|a| @ |b|) of the exact product
 (the dropped terms and the planes' remainders are at most 4 2^-24 |a_i
 b_i| a term, fp32 summation over k terms adds k 2^-24 of their
 magnitudes) and within 2^-20 (|a| @ |b|) of torch's fp32 matmul; the
-forward's out and lse within 2e-5 of their max|ref|, dq within 1e-4
-(the card tests' fp32 limits for the wide kernels).
+forward's out and lse within 2e-5 of their max|ref|, dq, dk and dv
+within 1e-4 (the card tests' fp32 limits for the wide kernels).
 """
 import importlib
 
@@ -74,16 +76,58 @@ def test_six_product_matmul_matches_fp32(m, k, n):
     assert torch.equal(got_t, got.float())
 
 
+class _FakeWideLibrary:
+    """Stands in for the kernel library: records each wide backward
+    entry's operand pointers and operand code, launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _entry(kernel):
+        def call(self, *args):
+            self.calls.append((kernel, args[:4], args[-2]))
+            return 0
+        return call
+
+    apex_flash_wide_dq = _entry("dq")
+    apex_flash_wide_dkv = _entry("dkv")
+
+
+def _fake_wide_launches(monkeypatch):
+    """The wide backward's wrappers on CPU tensors with nothing launched:
+    the library, the stream, the launch counter and the operands' device
+    check stubbed; the split into planes its plain version, each call
+    recorded as ``(operand, planes)``.  Returns ``(library, splits)``."""
+    lib, splits = _FakeWideLibrary(), []
+    split = tattn._split_kernel
+
+    def spy(x3):
+        planes = split(x3)
+        splits.append((x3, planes))
+        return planes
+
+    monkeypatch.setattr(tattn, "_split_kernel", spy)
+    monkeypatch.setattr(tattn._build, "library", lambda: lib)
+    monkeypatch.setattr(tattn._build, "stream_ptr", lambda device: None)
+    monkeypatch.setattr(tattn._build, "count", lambda kernel: None)
+    # no mask, no dropout: the pointers, ints, 1 / (1 - rate) and code
+    # _wide_operands returns once the operands are on a card
+    monkeypatch.setattr(tattn, "_wide_operands", lambda kernel, q3, *a, **k: (
+        (None, None), (1, 0), 1.0, tattn._WIDE_DTYPES[q3.dtype]))
+    return lib, splits
+
+
 @pytest.mark.parametrize("dtype,d,planes", [
     (torch.float32, 1, True), (torch.float32, 36, True),
     (torch.float32, 128, True), (torch.float32, 129, False),
     (torch.float32, 256, False), (torch.bfloat16, 200, False),
     (torch.float16, 37, False)])
-def test_wide_operands_by_type_and_head_dim(dtype, d, planes):
-    """What the wide forward's and dq's wrappers hand their C entries
-    (``_wide_tc_operands``, the one place that picks the kernel): fp32 up
-    to head dim 128 as its three bf16 planes (the tensor cores), fp32
-    past 128 and 16-bit operands as they are."""
+def test_wide_operands_by_type_and_head_dim(monkeypatch, dtype, d, planes):
+    """What the wide wrappers hand their C entries (``_wide_tc_operands``,
+    the one place that picks the kernel): fp32 up to head dim 128 as its
+    three bf16 planes (the tensor cores), fp32 past 128 and 16-bit
+    operands as they are; the dk/dv wrapper (``_dkv_wide``) hands its
+    entry the same."""
     rng = np.random.RandomState(d)
     ops = [torch.from_numpy(rng.randn(2, 5, d).astype(np.float32)).to(dtype)
            for _ in range(4)]
@@ -93,10 +137,47 @@ def test_wide_operands_by_type_and_head_dim(dtype, d, planes):
         planes or dtype != torch.float32)
     if not planes:
         assert got_code == code and all(g is t for g, t in zip(got, ops))
-        return
-    assert got_code == tattn._WIDE_F32_PLANES
-    for g, t in zip(got, ops):
-        assert torch.equal(g, tattn._split_planes(t))
+    else:
+        assert got_code == tattn._WIDE_F32_PLANES
+        for g, t in zip(got, ops):
+            assert torch.equal(g, tattn._split_planes(t))
+    lib, splits = _fake_wide_launches(monkeypatch)
+    stats = torch.zeros(2, 5)
+    tattn._dkv_wide(ops[0], ops[1], ops[2], stats, stats, ops[3], True,
+                    d ** -0.5)
+    (kernel, ptrs, entry_code), = lib.calls
+    assert kernel == "dkv" and entry_code == got_code
+    assert [x for x, _ in splits] == (ops if planes else [])
+    handed = [p for _, p in splits] if planes else ops
+    assert ptrs == tuple(t.data_ptr() for t in handed)
+    for t, g in zip(handed, got):
+        assert torch.equal(t, g)
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.float32, 48), (torch.float32, 128), (torch.float32, 200),
+    (torch.bfloat16, 200), (torch.float16, 100)])
+def test_wide_backward_splits_each_operand_once(monkeypatch, dtype, d):
+    """``_bwd``'s wide branch (``_bwd_wide``) splits fp32 q, k, v and dO
+    into planes once each where ``_wide_on_tensor_cores`` says and hands
+    the same planes (or the operands as they are) to #5w and #6w."""
+    lib, splits = _fake_wide_launches(monkeypatch)
+    rng = np.random.RandomState(d)
+    q, k, v, o, do = (torch.from_numpy(rng.randn(2, 9, d).astype(
+        np.float32)).to(dtype) for _ in range(5))
+    lse = torch.zeros(2, 9)
+    dq, dk, dv = tattn._bwd_wide(q, k, v, o, lse, do, True, d ** -0.5)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    on_tc = dtype == torch.float32 and tattn._wide_on_tensor_cores(dtype, d)
+    ops = [q, k, v, do]
+    assert len(splits) == (4 if on_tc else 0)
+    assert all(x is t for (x, _), t in zip(splits, ops))
+    handed = [p for _, p in splits] if on_tc else ops
+    (k1, ptrs1, code1), (k2, ptrs2, code2) = lib.calls
+    assert (k1, k2) == ("dq", "dkv")
+    assert ptrs1 == ptrs2 == tuple(t.data_ptr() for t in handed)
+    assert code1 == code2 == (tattn._WIDE_F32_PLANES if on_tc
+                              else tattn._WIDE_DTYPES[dtype])
 
 
 def _mask3(kind, sq, sk, rng):
@@ -142,3 +223,35 @@ def test_six_product_forward_and_dq_match_jax(d, kind):
                              causal, scale, mask3=tmask, mm=tattn._matmul6)
     dq_ref = np.asarray(dq_ref)
     assert np.abs(dq.numpy() - dq_ref).max() <= 1e-4 * np.abs(dq_ref).max()
+
+
+@pytest.mark.parametrize("d", [48, 128, 200])
+@pytest.mark.parametrize("kind", ["causal", "mask"])
+def test_six_product_dkv_matches_jax(d, kind):
+    """The plain dk/dv with every product as six (``mm=_matmul6``: the
+    fp32 tensor-core route's arithmetic) against the JAX fp32
+    ``_bwd_impl``'s dk and dv at ``[1, 2, 96, d]``: causal, or a per-head
+    mask with a fully masked row; from the JAX forward's out and lse, as
+    the kernels take them."""
+    rng = np.random.RandomState(2 * d + len(kind))
+    sq = sk = 96
+    q, k, v, do = (rng.randn(2, s, d).astype(np.float32)
+                   for s in (sq, sk, sk, sq))
+    mask = _mask3(kind, sq, sk, rng)
+    causal = kind == "causal"
+    scale = d ** -0.5
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    jmask = None if mask is None else jnp.asarray(mask)
+    o, lse = jattn._fwd(jq, jk, jv, jmask, causal, scale, 32, 32)
+    _, dk_ref, dv_ref = jattn._bwd_impl(jq, jk, jv, jmask, o, lse, jdo,
+                                        causal, scale, 32, 32)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    tmask = None if mask is None else torch.from_numpy(mask)
+    jo, jl = torch.from_numpy(np.array(o)), torch.from_numpy(np.array(lse))
+    dk, dv = tattn._dkv_reference(tq, tk, tv, jl, tattn._delta(jo, tdo), tdo,
+                                  causal, scale, mask3=tmask,
+                                  mm=tattn._matmul6)
+    for got, ref in ((dk, dk_ref), (dv, dv_ref)):
+        ref = np.asarray(ref)
+        assert got.dtype == torch.float32
+        assert np.abs(got.numpy() - ref).max() <= 1e-4 * np.abs(ref).max()
