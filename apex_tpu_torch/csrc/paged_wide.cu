@@ -1,23 +1,32 @@
-// Wide ragged paged decode attention for Hopper (sm_90a): fp32, bf16 and
-// fp16 pools at any query group, any head dim up to 256 and any page
-// size, computed on the CUDA cores in fp32.
+// Wide ragged paged decode attention for Hopper (sm_90a): the C entry of
+// #7w and its CUDA-core kernel.  The entry launches one of two modes, as
+// the wrapper (ops/paged_attention.py :: _wide_paged_tma, the one place
+// that decides) asks: the TMA modes, kv_decode.cuh :: paged_decode_kernel's
+// wide operand modes (fp16 and bf16 pools on the tensor cores, fp32 pools
+// up to head dim 128 on the CUDA cores; instances in paged_wide_tc_*.cu),
+// for every pool whose rows, page stride and page size TMA boxes can
+// address; and the kernel below, in fp32 on the CUDA cores, for the rest:
+// 16-bit rows with d % 8 != 0, fp32 rows with d % 4 != 0 or d past 128,
+// rows or a page stride that are not a multiple of 16 bytes or not
+// 16-byte aligned, pages that are not a multiple of 8 rows.
 //
 // Replaces: apex_tpu/ops/paged_attention.py :: _paged_kernel (#7w), for the
-// pools the mma instance of csrc/paged_attention.cu does not take. The same
-// function: one query token per slot against the slot's live tokens, which
-// live in fixed-size pages of a shared pool reached through the slot's row of
-// the page table; the `group` query rows of a kv head score its k rows once
-// (no broadcast); an fp32 online softmax in base 2 with an fp32 accumulator, p
-// rounded to the pool's type for P.V (fp32: not rounded), the normalizer from
-// the fp32 p; a slot of length 0 emits zeros; a length past the window scores
-// the whole window.  The query arrives in fp32 and the output leaves in fp32
-// (the wrapper casts both), so q is never rounded to the pool's type.
+// pools the mma instance of csrc/paged_attention.cu does not take. The
+// same function: one query token per slot against the slot's live tokens,
+// which live in fixed-size pages of a shared pool reached through the
+// slot's row of the page table; the `group` query rows of a kv head score
+// its k rows once (no broadcast); an fp32 online softmax in base 2 with an
+// fp32 accumulator, p rounded to the pool's type for P.V (fp32: not
+// rounded), the normalizer from the fp32 p; a slot of length 0 emits
+// zeros; a length past the window scores the whole window.  This kernel
+// takes the query in fp32 and leaves the output in fp32 (the wrapper
+// casts both), so q is never rounded to the pool's type.
 //
 // What bounds it on the H100: bytes.  Each live token's k and v rows are
 // read once per kv head (2 d sizeof(T) bytes) and scored with 4 group d
-// flops, far under the CUDA cores' rate for any group.  So the design
+// flops, far under the CUDA cores' rate for any group.  So this kernel
 // reads every page once for all the group's rows and keeps the cores'
-// share small:
+// share small (the TMA modes' notes are kv_decode.cuh's):
 // - one block per (split, kv head and row chunk, slot): a split is a run
 //   of whole pages of the window, planned on the host as paged decode's
 //   plan (ops/paged_attention.py :: _plan_splits, never from the
@@ -42,6 +51,7 @@
 // Plain C interface (loaded with ctypes): apex_paged_wide launches on the
 // caller's stream and returns cudaGetLastError().
 
+#include "paged_wide_tc.cuh"
 #include "wide.cuh"
 
 namespace {
@@ -264,29 +274,70 @@ int launch_d(PagedWide a, int slots, cudaStream_t stream) {
 
 }  // namespace
 
-// q [slots, h, d] contiguous fp32; k/v pages [pages, kvh, ps, d] of one
-// type (dtype: 0 fp32, 1 bf16, 2 fp16) with rows and heads contiguous
-// (head stride ps * d) and any page stride `page_stride` (elements);
-// page_table [slots, mpps] and lengths [slots] int32; out [slots, h, d]
-// fp32.  Any group h / kvh, 1 <= d <= 256, any ps.  The window runs as
-// nsplit splits of `pages_per_split` pages; with nsplit > 1, part_acc
+// q [slots, h, d] contiguous; k/v pages [pages, kvh, ps, d] of one type
+// (dtype: 0 fp32, 1 bf16, 2 fp16) with rows and heads contiguous (head
+// stride ps * d) and any page stride `page_stride` (elements);
+// page_table [slots, mpps] and lengths [slots] int32; out [slots, h, d].
+// tma 0: the CUDA-core kernel, q and out fp32 (q_dtype 0), any group h /
+// kvh, 1 <= d <= 256, any ps, counters a (slot, kv head, 32 query rows).
+// tma 1: the TMA modes (paged_wide_tc.cuh's arguments), q and out of
+// q_dtype, q in q_planes planes of the pool's type, `rows` query rows a
+// block, counters a (slot, kv head, `rows` query rows).  The window runs
+// as nsplit splits of `pages_per_split` pages; with nsplit > 1, part_acc
 // [slots * h, nsplit, d] and part_ml [slots * h, nsplit, 2] are fp32
-// scratch and counters [slots * kvh * ceil(group / 32)] int32, zero
-// before the launch, is left zero by it.
+// scratch and the counters int32, zero before the launch, are left zero
+// by it.
 extern "C" int apex_paged_wide(
     const void* q, const void* k_pages, const void* v_pages,
     const void* page_table, const void* lengths, void* out, void* part_acc,
     void* part_ml, void* counters, int slots, int h, int kvh, int ps, int d,
     int mpps, long long pages, long long page_stride, int nsplit,
-    int pages_per_split, float scale_log2, int dtype, void* stream) {
+    int pages_per_split, float scale_log2, int dtype, int tma, int q_dtype,
+    int q_planes, int rows, void* stream) {
   cudaGetLastError();
   if (slots <= 0) return 0;
   if (kvh <= 0 || h % kvh || d < 1 || d > 256 || ps < 1 || mpps <= 0 ||
       pages <= 0 || slots > 65535 || pages_per_split <= 0 || nsplit < 1 ||
       (long long)nsplit * pages_per_split < mpps ||
       (long long)(nsplit - 1) * pages_per_split >= mpps ||
-      (nsplit > 1 && (!part_acc || !part_ml || !counters)))
+      (nsplit > 1 && (!part_acc || !part_ml || !counters)) ||
+      q_dtype < kF32 || q_dtype > kF16 || (!tma && q_dtype != kF32))
     return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tma) {
+    if (((uintptr_t)k_pages | (uintptr_t)v_pages) % 16 || ps % 8)
+      return (int)cudaErrorInvalidValue;
+    PagedWideTcArgs t{};
+    t.q = q;
+    t.k = k_pages;
+    t.v = v_pages;
+    t.pt = static_cast<const int*>(page_table);
+    t.lengths = static_cast<const int*>(lengths);
+    t.out = out;
+    t.part_acc = static_cast<float*>(part_acc);
+    t.part_ml = static_cast<float*>(part_ml);
+    t.counters = static_cast<int*>(counters);
+    t.pages = pages;
+    t.page_stride = page_stride;
+    t.slots = slots;
+    t.kvh = kvh;
+    t.group = h / kvh;
+    t.ps = ps;
+    t.d = d;
+    t.mpps = mpps;
+    t.nsplit = nsplit;
+    t.pps = pages_per_split;
+    t.q_dtype = q_dtype;
+    t.q_planes = q_planes;
+    t.rows = rows;
+    t.scale_log2 = scale_log2;
+    switch (dtype) {
+      case kF32: return paged_wide_tc_f32(t, s);
+      case kBF16: return paged_wide_tc_bf16(t, s);
+      case kF16: return paged_wide_tc_f16(t, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   PagedWide a{};
   a.q = static_cast<const float*>(q);
   a.k = k_pages;
@@ -308,7 +359,6 @@ extern "C" int apex_paged_wide(
   a.rchunks = (a.group + kGR - 1) / kGR;
   a.scale_log2 = scale_log2;
   if ((long long)kvh * a.rchunks > 65535) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32: return launch_d<float>(a, slots, s);
     case kBF16: return launch_d<bf16>(a, slots, s);

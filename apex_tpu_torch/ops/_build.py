@@ -37,8 +37,9 @@ operands and head dims those instances do not take: ``flash_wide.cu``
 the forward (``flash_attention_wide``), dq (``flash_attention_wide_dq``)
 and dk/dv (``flash_attention_wide_dkv``), ``paged_wide.cu`` paged decode
 (``paged_attention_wide``); the forward's, dq's and dk/dv's tensor-core
-instances sit in sources of their own (``flash_wide_tc_*.cu``, no
-entries) so that they compile in parallel.  ``fused_block_decode.cu``
+instances and paged decode's TMA modes sit in sources of their own
+(``flash_wide_tc_*.cu``, ``paged_wide_tc_*.cu``, no entries) so that
+they compile in parallel.  ``fused_block_decode.cu``
 is one cooperative launch per decoder layer; its entries, called with
 a null workspace, report the workspace size without launching.  One
 entry launches no counted kernel: the mask pre-pass of the split
@@ -122,6 +123,11 @@ SOURCES = {
     "flash_wide_tc_dkv_bf16.cu": {},
     "flash_wide_tc_dkv_f32.cu": {},
     "flash_wide_tc_dkv_rows.cu": {},
+    # the wide paged decode's TMA modes, launched through paged_wide.cu's
+    # entry
+    "paged_wide_tc_bf16.cu": {},
+    "paged_wide_tc_f16.cu": {},
+    "paged_wide_tc_f32.cu": {},
 }
 #: the source of each kernel, by launch-counter name
 KERNELS = {name: src for src, entries in SOURCES.items() for name in entries}
@@ -242,10 +248,12 @@ _SIGNATURES = {
     "apex_flash_wide_dkv": [_P] * 10 + [_I] * 10 + [_F] * 3 + [_I, _P],
     # x (fp32), planes (bf16), rows, d, stream
     "apex_flash_wide_split": [_P, _P, _L, _I, _P],
-    # q (fp32), k_pages, v_pages, page_table, lengths, out (fp32),
-    # part_acc, part_ml, counters, slots, h, kvh, ps, d, mpps, pages,
-    # page_stride, nsplit, pages_per_split, scale_log2, dtype, stream
-    "apex_paged_wide": [_P] * 9 + [_I] * 6 + [_L, _L, _I, _I, _F, _I, _P],
+    # q, k_pages, v_pages, page_table, lengths, out, part_acc, part_ml,
+    # counters, slots, h, kvh, ps, d, mpps, pages, page_stride, nsplit,
+    # pages_per_split, scale_log2, dtype, tma, q_dtype, q_planes, rows,
+    # stream
+    "apex_paged_wide": [_P] * 9 + [_I] * 6 + [_L, _L, _I, _I, _F]
+                       + [_I] * 5 + [_P],
 }
 
 

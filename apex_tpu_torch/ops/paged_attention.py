@@ -14,10 +14,12 @@ The call takes the JAX entry's routing arguments.  ``use_kernel=True``,
 and ``use_kernel=None`` whatever the window, run a counterpart of the
 Pallas ``_paged_kernel`` on CUDA, on the route of :func:`_paged_route`:
 ``csrc/paged_attention.cu`` for bf16 pools at groups 1/2/4/8, head dims
-64/128 and pages of 16 to 128 (counter ``paged_attention``), and the
-wide kernel ``csrc/paged_wide.cu`` (#7w, counter
-``paged_attention_wide``) for every other pool up to head dim 256 (fp32,
-bf16 or fp16; any group, page size and page stride); ``use_kernel=False`` gathers the slots' windows and
+64/128 and pages of 16 to 128 (counter ``paged_attention``), and #7w
+(counter ``paged_attention_wide``) for every other pool up to head dim
+256 (fp32, bf16 or fp16; any group, page size and page stride): its TMA
+modes (``csrc/kv_decode.cuh``'s template, the wide operand modes) where
+:func:`_wide_paged_tma` says, else its CUDA-core kernel
+(``csrc/paged_wide.cu``); ``use_kernel=False`` gathers the slots' windows and
 scores them through ``decode_attention(use_kernel=False)``, the JAX
 package's XLA route, on any device.  The JAX entry's ``None`` applies
 its crossover (:func:`paged_xla_max_pages`: ``xla_max_pages`` >
@@ -68,9 +70,18 @@ __all__ = ["paged_decode_attention", "paged_decode_reference",
 _KERNEL_GROUPS = (1, 2, 4, 8)
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_PAGE_SIZES = (16, 32, 64, 128)
-#: query rows a block of the wide kernel (#7w) takes: a group past it
+#: query rows a block of #7w's CUDA-core kernel takes: a group past it
 #: runs as several row chunks
 _WIDE_ROWS = 32
+#: the most query rows a block of #7w's TMA modes takes on a 16-bit pool,
+#: by head-dim bucket (rows x bucket <= 2048: a warp's accumulator in 64
+#: registers a thread), and on an fp32 pool
+_WIDE_TMA_ROWS = {64: 32, 128: 16, 256: 8}
+_WIDE_TMA_F32_ROWS = 8
+#: the largest head dim of #7w's fp32 TMA mode (past it, two stages a
+#: warp group of eight warps' 8-row tiles would take 256 KB of shared
+#: memory)
+_WIDE_TMA_F32_MAX_HEAD_DIM = 128
 #: the fewest window positions a split covers: a shorter split ends
 #: before the kernel's ring of pages fills
 _MIN_SPLIT_TOKENS = 512
@@ -90,10 +101,10 @@ _PAGED_XLA_MAX_PAGES_ENV = "APEX_TPU_PAGED_XLA_MAX_PAGES"
 def _paged_route(q_dtype, pool_dtype, group: int, d: int, ps: int) -> str:
     """The kernel a paged decode call takes: ``"paged_attention"``, the
     mma instance (bf16 query and pool, groups 1/2/4/8, head dims 64/128,
-    pages of 16 to 128), or ``"paged_attention_wide"`` (#7w,
-    ``csrc/paged_wide.cu``) for every other pool: fp32, bf16 or fp16,
-    any group and page size, head dims up to 256.  Past 256 raises
-    (ROADMAP V9), as does a page size below 1."""
+    pages of 16 to 128), or ``"paged_attention_wide"`` (#7w) for every
+    other pool: fp32, bf16 or fp16, any group and page size, head dims
+    up to 256, on the mode :func:`_wide_paged_tma` picks.  Past 256
+    raises (ROADMAP V9), as does a page size below 1."""
     if ps < 1:
         raise ValueError(f"page_size must be positive, got {ps}")
     if not 1 <= d <= _WIDE_MAX_HEAD_DIM:
@@ -104,6 +115,37 @@ def _paged_route(q_dtype, pool_dtype, group: int, d: int, ps: int) -> str:
             and d in _KERNEL_HEAD_DIMS and ps in _KERNEL_PAGE_SIZES:
         return "paged_attention"
     return "paged_attention_wide"
+
+
+def _wide_paged_tma(pool_dtype, d: int, ps: int, page_stride: int,
+                    *ptrs: int) -> bool:
+    """Whether #7w runs a pool on its TMA modes (the wide operand modes
+    of ``csrc/kv_decode.cuh :: paged_decode_kernel``), the one place that
+    decides (the C entry runs what it is told): TMA boxes must address
+    the pool's rows and pages, so a row (``d`` elements) and the page
+    stride are multiples of 16 bytes, the bases (``ptrs``) 16-byte
+    aligned, and a page a multiple of 8 rows (the boxes' row count, so
+    that each lands on the 128-byte swizzle's period); fp32 pools up to
+    head dim 128.  Every other pool runs the CUDA-core kernel
+    (``csrc/paged_wide.cu``)."""
+    e = pool_dtype.itemsize
+    if pool_dtype == torch.float32 and d > _WIDE_TMA_F32_MAX_HEAD_DIM:
+        return False
+    return (d * e % 16 == 0 and ps % 8 == 0 and page_stride * e % 16 == 0
+            and all(p % 16 == 0 for p in ptrs))
+
+
+def _wide_rows(pool_dtype, d: int, group: int, tma: bool) -> int:
+    """Query rows a block of #7w takes: 32 on the CUDA-core kernel; on
+    the TMA modes the group rounded up to whole n = 8 tiles, at most
+    :data:`_WIDE_TMA_ROWS` of the head-dim bucket (16-bit) or 8 (fp32).
+    A group past it runs as row chunks, each reading the pages."""
+    if not tma:
+        return _WIDE_ROWS
+    if pool_dtype == torch.float32:
+        return _WIDE_TMA_F32_ROWS
+    cap = _WIDE_TMA_ROWS[64 if d <= 64 else 128 if d <= 128 else 256]
+    return min(cap, 8 * -(-group // 8))
 
 
 def check_kernel_page_size(page_size: int, *, group: int = 1,
@@ -322,12 +364,16 @@ def _kernel_call(q3, k_pages, v_pages, page_table, lengths, scale):
 
 
 def _wide_call(q3, k_pages, v_pages, page_table, lengths, scale):
-    """#7w, the wide paged decode (``csrc/paged_wide.cu``, counter
-    ``paged_attention_wide``): any float query (read in fp32, the output
-    cast back to its type) against an fp32, bf16 or fp16 pool at any
-    group, page size and page stride, head_dim 1..256.  The window runs
-    as :func:`_plan_splits`' splits; a group past 32 rows as several row
-    chunks, each with its own merge counter."""
+    """#7w, the wide paged decode (entry ``csrc/paged_wide.cu``, counter
+    ``paged_attention_wide``): any float query against an fp32, bf16 or
+    fp16 pool at any group, page size and page stride, head_dim 1..256,
+    on the mode :func:`_wide_paged_tma` names.  The TMA modes read q in
+    its own type (an fp32 or fp16 query against another 16-bit pool as
+    two planes of the pool's type) and write the output in it; the
+    CUDA-core kernel reads q in fp32 and its fp32 output is cast back.
+    The window runs as :func:`_plan_splits`' splits; a group past
+    :func:`_wide_rows` as several row chunks, each with its own merge
+    counter."""
     slots, h, d = q3.shape
     _, kvh, ps, _ = k_pages.shape
     mpps = page_table.shape[1]
@@ -339,26 +385,34 @@ def _wide_call(q3, k_pages, v_pages, page_table, lengths, scale):
         raise TypeError(f"q must be a float tensor, got {q3.dtype}")
     _check_pool_view(q3, k_pages, v_pages, page_table, lengths)
     group = h // kvh
+    tma = _wide_paged_tma(k_pages.dtype, d, ps, k_pages.stride(0),
+                          k_pages.data_ptr(), v_pages.data_ptr())
+    rows = _wide_rows(k_pages.dtype, d, group, tma)
     plan = _plan_splits(slots, kvh, group, d, ps, mpps, _sm_count(q3.device))
-    qf = q3.float().contiguous()
-    out = torch.empty(q3.shape, dtype=torch.float32, device=q3.device)
+    own = tma and q3.dtype in _WIDE_DTYPES    # q and out in q's own type
+    qk = q3 if own else q3.float().contiguous()
+    # a 16-bit pool's TMA mode takes another type's q as two planes
+    planes = 2 if tma and k_pages.dtype != torch.float32 \
+        and qk.dtype != k_pages.dtype else 1
+    out = torch.empty(q3.shape, dtype=qk.dtype, device=q3.device)
     f32 = dict(dtype=torch.float32, device=q3.device)
     part_acc = torch.empty(plan.part_acc, **f32) if plan.part_acc else None
     part_ml = torch.empty(plan.part_ml, **f32) if plan.part_ml else None
     stream = _build.stream_ptr(q3.device)
     counters = _counters(q3.device, stream, plan.counters * -(
-        -group // _WIDE_ROWS)) if plan.counters else None
+        -group // rows)) if plan.counters else None
     lib = _build.library()
     _build.count("paged_attention_wide")
     err = lib.apex_paged_wide(
-        qf.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        qk.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         part_acc.data_ptr() if part_acc is not None else None,
         part_ml.data_ptr() if part_ml is not None else None,
         counters.data_ptr() if counters is not None else None, slots, h,
         kvh, ps, d, mpps, k_pages.shape[0], k_pages.stride(0), plan.nsplit,
         plan.pages_per_split, float(scale * _LOG2E),
-        _WIDE_DTYPES[k_pages.dtype], stream)
+        _WIDE_DTYPES[k_pages.dtype], int(tma), _WIDE_DTYPES[qk.dtype],
+        planes, rows, stream)
     if err and counters is not None:
         counters.zero_()      # whatever a failed launch left behind
     _build.check(err, "paged_attention_wide")

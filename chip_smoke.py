@@ -67,7 +67,10 @@
    padded bf16 routes (d 80 through #3d/#4d, d 32 with a mask through
    #3md/#4md) against the plain versions at the real head dim, and d
    80's time beside d 128's; #7w on GPT-3 1.3B's fp32 decode pool, a
-   bf16 pool at group 16 and head dim 64, head dim 80, pages 8 and 256.
+   bf16 pool at group 16 and head dim 64, head dim 80, pages 8 and 256,
+   fp16 pools at GPT-3 1.3B's and Llama-3-8B's decode shapes (beside #7
+   on the same pools in bf16), each with the mode the host predicate
+   picks (TMA, or CUDA cores).
    Prints
    the max
    |diff| against its stated limit, the kernel's time, its bound (the
@@ -162,8 +165,10 @@
    at ``[1, 16, 8192, 128]`` with dropout alone; #3d, #3md, #4d, #4md,
    #3 and #4 at 2048, #5 and #6 at 8192 as controls) with the
    full-depth ``gpt_train``, ``bert_train`` and ``gpt_train_8k`` steps
-   (``--ab-rows`` picks among flash, paged, norm, steps, masked, fused
-   and md).
+   (``--ab-rows`` picks among flash, paged, norm, steps, masked, fused,
+   md, wide and wide_paged; ``wide_paged``: #7w at each of its rows,
+   #7 and the dense decode with the same bits from both versions, and
+   the ``width`` serves' decode steps).
 9. **Shim.**  One backward of the 1-layer model, then
    ``multi_tensor_applier`` with each of its four ops over the model's
    real grad list (11 leaves, bf16 and fp32), one kernel launch a call,
@@ -4679,7 +4684,7 @@ def _turns(each):
 
 
 AB_ROWS = ("flash", "paged", "norm", "steps", "masked", "fused", "md",
-           "wide")
+           "wide", "wide_paged")
 
 
 def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
@@ -4707,12 +4712,15 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
     paths' shapes and the training steps that run them
     (:func:`_ab_md`); ``wide`` the wide forward, dq and dk/dv (#3w,
     #5w, #6w) at every :func:`_wide_flash_shapes` shape and the ``width
-    gpt fp32 train`` step (:func:`_ab_wide`).  Each row's two versions are held
+    gpt fp32 train`` step (:func:`_ab_wide`); ``wide_paged`` #7w at every
+    :func:`_wide_paged_cases` row, #7 and the dense decode (their bits
+    the same from both versions) and the ``width`` serves' decode steps
+    (:func:`_ab_wide_paged`).  Each row's two versions are held
     against each
     other (and against the plain version) before they are timed.  The
     baseline's own wrappers stand in for this tree's where their C
-    entries differ (paged decode, the norm backward, the masked forward
-    and the decode branch) and for the flash backward's (``_bwd``,
+    entries differ (paged decode and #7w, the norm backward, the masked
+    forward and the decode branch) and for the flash backward's (``_bwd``,
     ``_dq_kernel``, ``_dkv_kernel``)."""
     from apex_tpu_torch.ops import _build
     attn = importlib.import_module("apex_tpu_torch.ops.attention")
@@ -4739,6 +4747,7 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
                         _build.BUILD_DIR.parent / "ab_baseline",
                         base_build._SIGNATURES, base_build.SOURCES),
             ((pa, "_kernel_call", base_pa._kernel_call),
+             (pa, "_wide_call", base_pa._wide_call),
              (ln, "_bwd_2d", base_ln._bwd_2d)) + attn_patches),
         "B": _Version(_build.library())}
     print(f"ab: baseline {baseline} built in "
@@ -4813,6 +4822,8 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
         _ab_md(dev, seed, gen, versions)
     if "wide" in rows:
         _ab_wide(dev, seed, gen, versions)
+    if "wide_paged" in rows:
+        _ab_wide_paged(dev, seed, gen, versions)
     if "steps" not in rows:
         return
     _ab_decode_step(dev, seed, versions)
@@ -5192,6 +5203,83 @@ def _ab_wide(dev, seed: int, gen, versions):
     _ab_lm_steps(dev, seed, "gpt_fp32", versions)
 
 
+def _ab_wide_paged(dev, seed: int, gen, versions):
+    """#7w's A/B at every :func:`_wide_paged_cases` row (each version
+    through its own ``_wide_call``): both against the plain version
+    (fp32 within TOL_WIDE_OUT, 16-bit TOL_PAGED_OUT of each slot's max),
+    then timed over four layers in turn, A B B A; then #7
+    (:func:`_ab_paged`: the kernels phase's and the serve's lengths, the
+    same bits from both versions) and the dense decode's kernel
+    (``decode_attention``'s branch at Llama-3-8B's dense decode, the
+    same bits); then the ``width`` serves' unfused decode steps, GPT-3
+    1.3B on an fp32 pool and GPT-3 2.7B on a bf16 one (:func:`_ab_steps`,
+    #7w once a layer)."""
+    from apex_tpu_torch.inference import InferenceEngine
+    from apex_tpu_torch.transformer.testing import GPTConfig
+    pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    for tag, dt, kvh, group, d, ps, lengths_l in _wide_paged_cases():
+        q, views, table, lengths = _wide_paged_inputs(
+            dev, gen, dt, kvh, group, d, ps, lengths_l)
+
+        def call(kp, vp):
+            return pa.paged_decode_attention(q, kp, vp, table, lengths)
+
+        got = {}
+        for turn in "AB":
+            with _as_version(versions[turn]):
+                got[turn] = call(*views[0])
+        ref = pa.paged_decode_reference(q, *views[0], table, lengths,
+                                        d ** -0.5)
+        errs = [_slot_rel(got[t], ref) for t in "AB"]
+        tol = TOL_WIDE_OUT if dt == torch.float32 else TOL_PAGED_OUT
+        print(f"  #7w {tag} ({_wide_paged_mode(pa, *views[0])} in B): "
+              f"against the plain version max|diff| / the slot's max|ref| "
+              f"A {errs[0]:.3e}, B {errs[1]:.3e}; B against A max|diff| "
+              f"{(got['A'].float() - got['B'].float()).abs().max().item():.3e}")
+        if max(errs) > tol:
+            raise AssertionError(f"ab: #7w ({tag}) is off its plain version")
+        cyc = itertools.cycle(views)
+        mean, each = _ab(versions, lambda: _time_ms(
+            lambda: call(*next(cyc)), 48))
+        print(f"  #7w {tag} on {_smi()}: A {mean['A']:.5f} ms, B "
+              f"{mean['B']:.5f} ms, B/A {mean['B'] / mean['A']:.3f} (turns "
+              f"A B B A: {_turns(each)})")
+        del q, views, got, ref, cyc
+        torch.cuda.empty_cache()
+    _ab_paged(dev, gen, versions)
+    q, k, v, lengths, nbytes, flops = _decode_case(dev, gen)
+
+    def branch():
+        return attn.decode_attention(q, k, v, lengths, use_kernel=True)
+
+    got = {}
+    for turn in "AB":
+        with _as_version(versions[turn]):
+            got[turn] = branch()
+    torch.cuda.synchronize()
+    if not torch.equal(got["A"], got["B"]):
+        raise AssertionError("ab: the dense decode's bits differ")
+    mean, each = _ab(versions, lambda: _time_ms(branch, 20))
+    print(f"  dense decode kernel (DENSE) [{q.shape[0]}, {q.shape[1]}, 1, "
+          f"{k.shape[2]}]: the same bits from A and B; A {mean['A']:.4f} ms,"
+          f" B {mean['B']:.4f} ms (turns A B B A: {_turns(each)})")
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    for label, cfg_kw, dtype in (
+            ("width gpt fp32 serve decode step", GPT_CFG, torch.float32),
+            ("width gpt27 serve decode step", GPT27_CFG, torch.bfloat16)):
+        cfg = GPTConfig(**cfg_kw)
+        engine = InferenceEngine(
+            "gpt", cfg, _random_gpt(cfg, dev, seed + 10, dtype=dtype),
+            slots=8, max_seq=cfg.max_seq_length, device=dev, page_size=64,
+            cache_dtype=dtype, decode_fusion="0")
+        _ab_steps(label, engine, GPT_PROMPT_LENS, seed, versions,
+                  "paged_attention_wide")
+        del engine
+        torch.cuda.empty_cache()
+
+
 def _paged_table(dev, gen, lengths_l, ps: int, mpps: int):
     """A page table for the lengths over a pool of ``len(lengths) *
     mpps`` pages (and the trash page after them), pages shuffled."""
@@ -5244,6 +5332,9 @@ def _ab_paged(dev, gen, versions):
         if max(errs) > TOL_PAGED_OUT:
             raise AssertionError(f"ab: paged decode ({label}) is off its "
                                  f"plain version")
+        if not torch.equal(got["A"], got["B"]):
+            raise AssertionError(f"ab: #7's bits ({label}) differ between "
+                                 f"the versions")
         live = sum(lengths_l)
         bound, by = _bound(live * kvh * d * 2 * 2 + 2 * qd.numel() * 2
                            + table.numel() * 4 + slots * 4,
@@ -6017,44 +6108,78 @@ def _padded_rows(dev, gen) -> None:
         torch.cuda.empty_cache()
 
 
+#: #7w's rows: (tag, pool type, kv heads, group, head dim, page, lengths)
+#: -- GPT-3 1.3B's fp32 pool (16 kv heads, group 1, head dim 128, page 64:
+#: the record), a bf16 pool at group 16 and head dim 64, GPT-3 2.7B's head
+#: dim 80 (32 kv heads), GPT-3 1.3B's bf16 pool at pages of 8 and 256,
+#: its fp16 pool at page 64, and an fp16 pool at #7's kernels-phase shape
+#: (Llama-3-8B: 8 kv heads of group 4, head dim 128, lengths 0..4096)
+def _wide_paged_cases():
+    gh = GPT_CFG["num_attention_heads"]
+    gpt = [0, 128, 300, 512, 1000, 1536, 1800, 2048]
+    bf, f16 = torch.bfloat16, torch.float16
+    return (("gpt fp32", torch.float32, gh, 1, 128, 64, gpt),
+            ("group 16 bf16", bf, 8, 16, 64, 64, gpt),
+            ("d 80 bf16", bf, GPT27_CFG["num_attention_heads"], 1, 80, 64,
+             gpt),
+            ("page 8 bf16", bf, gh, 1, 128, 8, gpt),
+            ("page 256 bf16", bf, gh, 1, 128, 256, gpt),
+            ("gpt fp16", f16, gh, 1, 128, 64, gpt),
+            ("llama fp16", f16, 8, 4, 128, 64,
+             [0, 1, 64, 65, 1500, 2048, 3000, 4096]))
+
+
+def _wide_paged_inputs(dev, gen, dt, kvh, group, d, ps, lengths_l,
+                       layers: int = 4):
+    """8 slots of ``lengths_l`` over a ``layers``-layer pool of ``dt``
+    holding only the live pages (and a trash page), pages shuffled: q,
+    each layer's strided view, the page table and the lengths."""
+    mpps = -(-max(lengths_l) // ps)
+    need = [-(-n // ps) for n in lengths_l]
+    n_pages = sum(need) + 1
+    pool_k, pool_v = (torch.randn(n_pages, layers, kvh, ps, d, generator=gen,
+                                  device=dev).to(dt) for _ in range(2))
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
+    table = torch.full((len(lengths_l), mpps), n_pages - 1,
+                       dtype=torch.int32, device=dev)
+    cursor = 0
+    for i, n in enumerate(need):
+        table[i, :n] = perm[cursor:cursor + n].to(torch.int32)
+        cursor += n
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    q = torch.randn(len(lengths_l), kvh * group, d, generator=gen,
+                    device=dev).to(dt)
+    views = [(pool_k[:, i], pool_v[:, i]) for i in range(layers)]
+    return q, views, table, lengths
+
+
+def _wide_paged_mode(pa, kp, vp) -> str:
+    """The mode the host predicate sends the pool to."""
+    tma = pa._wide_paged_tma(kp.dtype, kp.shape[3], kp.shape[2],
+                             kp.stride(0), kp.data_ptr(), vp.data_ptr())
+    return "TMA" if tma else "CUDA cores"
+
+
 def _wide_paged_rows(dev, gen, recs) -> None:
-    """Paged decode's #7w against its plain version, 8 slots of lengths
-    0..2048 reading layer 1 of a two-layer pool in place: GPT-3 1.3B's
-    fp32 pool (16 kv heads, group 1, head dim 128, page 64: the record),
-    a bf16 pool at group 16 and head dim 64 (128 query heads over 8 kv
-    heads), GPT-3 2.7B's head dim 80 (bf16, 32 kv heads, page 64) and
-    GPT-3 1.3B's bf16 pool at pages of 8 and 256.  Each: the route (one
-    #7w launch, no #7), each slot within its own max (fp32 TOL_WIDE_OUT,
-    bf16 TOL_PAGED_OUT), a second call the same bits, an empty slot 0;
-    the time beside the bound (the live tokens' k and v read once: bytes)
-    and the plain version's.  No PyTorch call computes paged decode
-    through a page table (row #7's reason): library null."""
+    """Paged decode's #7w against its plain version at
+    :func:`_wide_paged_cases`, reading one layer of a four-layer pool in
+    place.  Each: the mode the host predicate picks (printed), the route
+    (one #7w launch, no #7), each slot within its own max (fp32
+    TOL_WIDE_OUT, 16-bit TOL_PAGED_OUT), a second call the same bits, an
+    empty slot 0; the time over the four layers in turn (so each call
+    reads its pages from device memory, as a decode step does) beside the
+    bound (the live tokens' k and v read once: bytes; the products at the
+    CUDA cores' rate for fp32, the tensor cores' for 16-bit) and the
+    plain version's; the fp16 rows beside #7's bf16 instance on the same
+    pool cast to bf16.  No PyTorch call computes paged decode through a
+    page table (row #7's reason): library null."""
     pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
     from apex_tpu_torch.ops import _build
-    lengths_l = [0, 128, 300, 512, 1000, 1536, 1800, 2048]
-    gh = GPT_CFG["num_attention_heads"]
-    cases = (("gpt fp32", torch.float32, gh, 1, 128, 64),
-             ("group 16 bf16", torch.bfloat16, 8, 16, 64, 64),
-             ("d 80 bf16", torch.bfloat16, GPT27_CFG["num_attention_heads"],
-              1, 80, 64),
-             ("page 8 bf16", torch.bfloat16, gh, 1, 128, 8),
-             ("page 256 bf16", torch.bfloat16, gh, 1, 128, 256))
-    for tag, dt, kvh, group, d, ps in cases:
-        mpps = -(-2048 // ps)
-        need = [-(-n // ps) for n in lengths_l]
-        n_pages = sum(need) + 1
-        pool_k, pool_v = (torch.randn(n_pages, 2, kvh, ps, d, generator=gen,
-                                      device=dev).to(dt) for _ in range(2))
-        perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
-        table = torch.full((8, mpps), n_pages - 1, dtype=torch.int32,
-                           device=dev)
-        cursor = 0
-        for i, n in enumerate(need):
-            table[i, :n] = perm[cursor:cursor + n].to(torch.int32)
-            cursor += n
-        lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
-        q = torch.randn(8, kvh * group, d, generator=gen, device=dev).to(dt)
-        kp, vp = pool_k[:, 1], pool_v[:, 1]
+    for tag, dt, kvh, group, d, ps, lengths_l in _wide_paged_cases():
+        q, views, table, lengths = _wide_paged_inputs(
+            dev, gen, dt, kvh, group, d, ps, lengths_l)
+        kp, vp = views[1]
+        mode = _wide_paged_mode(pa, kp, vp)
         before = _build.launch_counts()
         got = pa.paged_decode_attention(q, kp, vp, table, lengths)
         again = pa.paged_decode_attention(q, kp, vp, table, lengths)
@@ -6064,7 +6189,8 @@ def _wide_paged_rows(dev, gen, recs) -> None:
             raise AssertionError(f"#7w {tag}: the route took another kernel")
         ref = pa.paged_decode_reference(q, kp, vp, table, lengths, d ** -0.5)
         print(f"wide paged decode ({tag}: 8 slots, {kvh} kv heads, group "
-              f"{group}, head dim {d}, page {ps}, lengths {lengths_l})")
+              f"{group}, head dim {d}, page {ps}, lengths {lengths_l}): "
+              f"{mode} mode")
         fp32 = dt == torch.float32
         _check("paged_attention_wide out (x each slot's max|ref|)",
                _slot_rel(got, ref), TOL_WIDE_OUT if fp32 else TOL_PAGED_OUT)
@@ -6072,27 +6198,41 @@ def _wide_paged_rows(dev, gen, recs) -> None:
             raise AssertionError(f"#7w {tag}: not the same bits twice, or an "
                                  f"empty slot not 0")
         err = (got.float() - ref.float()).abs().max().item()
-        ms = _time_ms(lambda: pa.paged_decode_attention(q, kp, vp, table,
-                                                        lengths), 50)
+        cyc = itertools.cycle(views)
+        ms = _time_ms(lambda: pa.paged_decode_attention(
+            q, *next(cyc), table, lengths), 48)
         plain_ms = _eager_ms(lambda: pa.paged_decode_reference(
             q, kp, vp, table, lengths, d ** -0.5), 5)
         live = sum(lengths_l)
         item = q.element_size()
         bound, by = _bound(2 * live * kvh * d * item + 2 * q.numel() * item,
-                           4 * live * kvh * group * d, FP32_FLOPS_PER_S)
-        print(f"  #7w paged_attention_wide ({tag}) on {_smi()}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-              f"({by}), {100 * bound / ms:.1f}% of the bound")
+                           4 * live * kvh * group * d,
+                           FP32_FLOPS_PER_S if fp32 else BF16_FLOPS_PER_S)
+        print(f"  #7w paged_attention_wide ({tag}, {mode}) on {_smi()}: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of the bound")
+        if dt == torch.float16:
+            bviews = [(k_.to(torch.bfloat16), v_.to(torch.bfloat16))
+                      for k_, v_ in views]
+            qb = q.to(torch.bfloat16)
+            if pa._paged_route(qb.dtype, qb.dtype, group, d, ps) \
+                    == "paged_attention":
+                bcyc = itertools.cycle(bviews)
+                bms = _time_ms(lambda: pa.paged_decode_attention(
+                    qb, *next(bcyc), table, lengths), 48)
+                print(f"  #7's bf16 instance on the same pool in bf16: "
+                      f"{bms:.4f} ms (fp16 / bf16 {ms / bms:.3f})")
+            del bviews
         if tag == "gpt fp32":
             recs["paged_attention_wide"] = dict(
                 name="paged_attention_wide", route="cuda",
-                source="apex_tpu_torch/csrc/paged_wide.cu",
+                source="apex_tpu_torch/csrc/kv_decode.cuh",
                 replaces="apex_tpu/ops/paged_attention.py:108",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=None,
                 eager_ms=_eager_ms(lambda: pa.paged_decode_attention(
                     q, kp, vp, table, lengths), 20))
-        del pool_k, pool_v, kp, vp, got, again, ref
+        del views, kp, vp, got, again, ref, cyc
         torch.cuda.empty_cache()
 
 

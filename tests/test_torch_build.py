@@ -192,6 +192,45 @@ def test_paged_source_runs_its_products_on_the_tensor_cores():
     assert "cp.async.bulk.tensor" in code and "cp.async.cg" not in code
 
 
+@pytest.mark.parametrize("src,op", [
+    ("paged_wide_tc_bf16.cu", "kDecWideBf16"),
+    ("paged_wide_tc_f16.cu", "kDecWideF16"),
+    ("paged_wide_tc_f32.cu", "kDecWideF32")])
+def test_wide_paged_takes_the_decode_template(src, op):
+    """#7w's TMA modes are wide operand modes of #7's kernel template:
+    each instance source (no entries of its own, launched through
+    ``apex_paged_wide``) launches ``paged_decode_kernel`` in its mode
+    through ``launch_paged_wide_d``; the template's wide branch loads its
+    stages on TMA into an mbarrier ring with no block barrier in the loop
+    (16-bit products on ``mma.sync``), and #7's bf16 instance is its
+    other branch, its launch as it was."""
+    assert _build.SOURCES[src] == {}
+    code = _code((CSRC / src).read_text())
+    assert '#include "kv_decode.cuh"' in code
+    assert f"launch_paged_wide_d<{op}>(" in code
+    entry = _function(_code((CSRC / "paged_wide.cu").read_text()),
+                      "apex_paged_wide")
+    assert f"{src[:-3]}(t, s)" in entry
+    dec = _code((CSRC / "kv_decode.cuh").read_text())
+    launch = _function(dec, "launch_paged_wide")
+    assert "paged_decode_kernel<R, D, SR, false, OP>" in launch
+    kernel = dec[dec.index("paged_decode_kernel(const"):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    branch = kernel[:kernel.index("\n  } else {\n")]
+    assert "if constexpr (OP != kDecBf16)" in branch
+    assert "paged_wide_body<OP, G, D, PS>(" in branch
+    body = dec[dec.index("void paged_wide_body("):]
+    body = body[:body.index("\n}\n")]
+    for piece in ("tma_load4(", "mbar_wait(", "mbar_expect_tx(",
+                  "mbar_arrive(", "ldsm_x4(", "mma16<F16>(", "movmatrix_t("):
+        assert piece in body, piece
+    loops = body[body.index("for (int i = grp; i < n;"):
+                 body.index("bar_sync(1, kWarps * 32)")]
+    assert "__syncthreads" not in loops and "cp_async" not in loops
+    paged = _code((CSRC / "paged_attention.cu").read_text())
+    assert "paged_decode_kernel<G, D, PS><<<" in paged
+
+
 def test_md_dkv_takes_the_warp_specialized_key_major_kernel():
     """``apex_flash_attention_bwd_dkv_md`` (#6md) reaches the
     warp-specialized key-major kernel in its dk/dv mode: the pre-pass's

@@ -2684,7 +2684,8 @@ def test_wide_paged_kernel_matches_plain(cuda, dt, group, d, ps):
     no kernel for, one layer's strided view of a two-layer pool: lengths
     0, on and across page edges, the whole window and past it; each slot
     within its own max (2e-5 fp32, 2^-6 16-bit), an empty slot 0, a
-    second call the same bits."""
+    second call the same bits.  The host predicate sends every such pool
+    to the TMA modes but fp32 past head dim 128."""
     dtype = _WIDE_TYPES[dt]
     mpps = max(2, 1200 // ps)
     win = mpps * ps
@@ -2692,6 +2693,9 @@ def test_wide_paged_kernel_matches_plain(cuda, dt, group, d, ps):
     case = _wide_paged_case(cuda, lengths, group, d, ps, mpps, dtype)
     q, kp, vp, table, lens = case
     assert kp.stride(0) != kp[0].numel()          # a strided layer view
+    assert pa._wide_paged_tma(dtype, d, ps, kp.stride(0), kp.data_ptr(),
+                              vp.data_ptr()) == (
+        dtype != torch.float32 or d <= 128)
     before = _build.launch_counts()
     got = pa.paged_decode_attention(q, kp, vp, table, lens)
     after = _build.launch_counts()
@@ -2725,6 +2729,140 @@ def test_wide_paged_kernel_splits_and_a_float_query(cuda, slots):
     assert _slot_errors(got, ref).max().item() <= 2.0 ** -6
     stream = _build.stream_ptr(cuda)
     assert int(pa._counters(cuda, stream, 1).abs().sum().item()) == 0
+
+
+def _assert_wide_paged(case, tma):
+    """#7w on the mode the host predicate names (``tma``): one
+    ``paged_attention_wide`` launch and no ``paged_attention`` launch a
+    call, the output in the query's type, each slot within its own max
+    (2e-5 for an fp32 query on an fp32 pool, else 2^-6: p is rounded to
+    the pool's type, or the output to the query's), an empty slot 0, the
+    same bits on a second call."""
+    q, kp, vp, table, lens = case
+    d, ps = kp.shape[3], kp.shape[2]
+    assert pa._wide_paged_tma(kp.dtype, d, ps, kp.stride(0), kp.data_ptr(),
+                              vp.data_ptr()) == tma
+    before = _build.launch_counts()
+    got = pa.paged_decode_attention(q, kp, vp, table, lens)
+    after = _build.launch_counts()
+    assert after["paged_attention_wide"] == before["paged_attention_wide"] + 1
+    assert after["paged_attention"] == before["paged_attention"]
+    again = pa.paged_decode_attention(q, kp, vp, table, lens)
+    ref = pa.paged_decode_reference(q, kp, vp, table, lens, d ** -0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype
+    fp32 = q.dtype == kp.dtype == torch.float32
+    assert _slot_errors(got, ref).max().item() <= (2e-5 if fp32
+                                                   else 2.0 ** -6)
+    assert torch.equal(got, again)
+    empty = (lens <= 0).nonzero().flatten()
+    assert bool((got[empty] == 0).all())
+
+
+def _wide_mode_case(cuda, pool, group, d, ps, query=None, seed=170):
+    """A pool of type ``pool`` (strided layer view, only the live pages),
+    lengths 0, on and across a page edge, across the split plan's first
+    split and the whole 1200-odd position window; q of type ``query``
+    (the pool's by default)."""
+    mpps = max(2, 1200 // ps)
+    win = mpps * ps
+    lengths = [0, 1, ps, ps + 1, 700, win - 1, win, win + 9]
+    q, kp, vp, table, lens = _wide_paged_case(
+        cuda, lengths, group, d, ps, mpps, _WIDE_TYPES[pool], seed=seed)
+    if query is not None:
+        q = _randn(tuple(q.shape), seed + 3, cuda, _WIDE_TYPES[query])
+    return q, kp, vp, table, lens
+
+
+# (pool, query, group, head dim, page): each new TMA mode -- fp16 at #7's
+# groups and head dims, groups past 8 (and row chunks past 32 or 16),
+# head dims #7 lacks, pages outside 16-128 and not powers of two, fp32
+# pools at 64 and 128 (with row chunks past 8), a query of another type
+# against 16-bit and fp32 pools
+_TMA_CASES = (
+    [("fp16", None, g, d, ps) for g in (1, 2, 4, 8) for d in (64, 128)
+     for ps in (16, 64)]
+    + [(t, None, g, d, 64) for t in ("bf16", "fp16") for g in (16, 32, 48)
+       for d in (64, 128)]
+    + [(t, None, 4, d, 64) for t in ("bf16", "fp16") for d in (80, 96, 256)]
+    + [(t, None, 2, 128, ps) for t in ("bf16", "fp16")
+       for ps in (8, 24, 48, 256)]
+    + [("fp32", None, g, d, ps) for g in (1, 4, 12) for d in (64, 128)
+       for ps in (8, 64)]
+    + [(t, "fp32", g, d, 64) for t in ("bf16", "fp16")
+       for g, d in ((4, 128), (16, 64))]
+    + [("fp16", "bf16", 4, 128, 64), ("bf16", "fp16", 2, 80, 24),
+       ("fp32", "bf16", 4, 128, 64)])
+
+
+@pytest.mark.parametrize("pool,query,group,d,ps", _TMA_CASES)
+def test_wide_paged_tma_modes_match_plain(cuda, pool, query, group, d, ps):
+    """Every shape class #7w's TMA modes take (``kv_decode.cuh``'s wide
+    operand modes), sent there by the host predicate, against the plain
+    version."""
+    _assert_wide_paged(_wide_mode_case(cuda, pool, group, d, ps, query),
+                       True)
+
+
+@pytest.mark.parametrize("pool,group,d,ps", [
+    ("bf16", 4, 100, 64), ("fp16", 2, 36, 16), ("fp32", 2, 256, 64),
+    ("fp32", 1, 98, 64), ("bf16", 4, 128, 20), ("fp16", 1, 64, 12)])
+def test_wide_paged_rows_tma_cannot_box_stay_on_the_cuda_cores(
+        cuda, pool, group, d, ps):
+    """16-bit rows with d % 8 != 0, fp32 rows past head dim 128 or with d
+    % 4 != 0, pages that are not a multiple of 8 rows: the host predicate
+    keeps them on #7w's CUDA-core kernel, which holds the plain version."""
+    _assert_wide_paged(_wide_mode_case(cuda, pool, group, d, ps), False)
+
+
+def test_wide_paged_unaligned_pool_stays_on_the_cuda_cores(cuda):
+    """A pool whose base is not 16-byte aligned (a view 8 bytes into its
+    buffer) cannot be a TMA box's source: the CUDA-core kernel takes it."""
+    q, kp, vp, table, lens = _wide_mode_case(cuda, "bf16", 16, 64, 64)
+    flat = torch.empty(kp.numel() + 4, dtype=kp.dtype, device=cuda)
+    kc = flat[4:].view(kp.shape)
+    kc.copy_(kp)
+    vc = vp.contiguous()
+    assert kc.data_ptr() % 16 == 8 and vc.data_ptr() % 16 == 0
+    _assert_wide_paged((q, kc, vc, table, lens), False)
+
+
+def _instance_runs(cuda):
+    """#7's bf16 instance (group 4, head dim 128, page 64, lengths across
+    its splits) and the dense decode's (``DENSE``: a strided cache layer,
+    group 4, head dim 128) on seeded inputs."""
+    lengths = [0, 1, 63, 64, 65, 700, 1023, 2048, 4096, 4100]
+    paged = pa.paged_decode_attention(
+        *_paged_case(cuda, lengths, 4, 128, 64, 64, kvh=8, seed=37))
+    b, kvh, s_cache, d = len(DENSE_LENGTHS), 2, 8192, 128
+    ck = _randn((b, 2, kvh, s_cache, d), 123, cuda)
+    cv = _randn((b, 2, kvh, s_cache, d), 124, cuda)
+    q = _randn((b, kvh * 4, 1, d), 125, cuda)
+    lens = torch.tensor(DENSE_LENGTHS, dtype=torch.int32, device=cuda)
+    dense = attn.decode_attention(q, ck[:, 1], cv[:, 1], lens,
+                                  use_kernel=True)
+    return {"paged": paged, "dense": dense}
+
+
+def _digest(t) -> str:
+    import hashlib
+    raw = t.detach().contiguous().view(torch.int16).cpu().numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()[:16]
+
+
+#: sha256 (first 16 hex digits) of :func:`_instance_runs`' outputs from
+#: the kernel library as it was before the wide modes joined the
+#: template, recorded on an H100 80GB HBM3
+_INSTANCE_DIGESTS = {"paged": "c1f353d06d4878e7",
+                     "dense": "aa8241c85fe98da8"}
+
+
+def test_paged_instance_bits_match_the_recorded_run(cuda):
+    """The wide modes joined #7's template under ``if constexpr``: #7's
+    bf16 instance and the dense decode's give the bits they gave
+    before."""
+    got = {k: _digest(v) for k, v in _instance_runs(cuda).items()}
+    assert got == _INSTANCE_DIGESTS
 
 
 @pytest.mark.parametrize("dt", ["fp32", "fp16"])
