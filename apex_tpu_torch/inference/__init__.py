@@ -2,8 +2,11 @@
 plane.
 
     engine        InferenceEngine (dense slot cache or paged pool,
-                  prefill / decode / generate; BERT encode) — ported
-    models        GPT and LLaMA prefill / decode forwards — ported
+                  prefill / decode / verify / generate; BERT encode)
+                  and the pure step factories make_prefill_fn,
+                  make_decode_fn, make_verify_fn — ported
+    models        GPT and LLaMA prefill / decode / verify forwards —
+                  ported
     kv_cache      the dense slot cache and the paged pool (in-place
                   updates), PageAllocator, HostPageStore — ported /
                   copied
@@ -11,17 +14,32 @@ plane.
     sampling      greedy / temperature / top-k over a torch.Generator
     scheduler     SlotScheduler — copied (only imports changed)
     prefix_cache  PrefixCache — copied
-    speculative   drafters — copied (EngineDrafter waits for its slice)
+    speculative   the drafters: NGramDrafter and ReplayDrafter copied,
+                  EngineDrafter ported (its rollback the in-place
+                  set_lengths)
 """
-from apex_tpu_torch.inference.engine import InferenceEngine, prefill_bucket
+from apex_tpu_torch.inference.engine import (InferenceEngine,
+                                             make_decode_fn,
+                                             make_prefill_fn,
+                                             make_verify_fn, prefill_bucket)
 from apex_tpu_torch.inference.kv_cache import (KVCache, PageAllocator,
-                                               PagedKVCache, init_cache,
+                                               PagedKVCache,
+                                               default_page_size, init_cache,
                                                init_paged_cache)
+from apex_tpu_torch.inference.prefix_cache import PrefixCache
 from apex_tpu_torch.inference.sampling import (SamplingConfig, greedy,
                                                sample_token)
-from apex_tpu_torch.inference.scheduler import SlotScheduler, generate
+from apex_tpu_torch.inference.scheduler import (Request, SlotScheduler,
+                                                generate)
+from apex_tpu_torch.inference.speculative import (Drafter, EngineDrafter,
+                                                  NGramDrafter,
+                                                  ReplayDrafter)
 from apex_tpu_torch.inference.weights import params_from_jax
 
-__all__ = ["InferenceEngine", "prefill_bucket", "KVCache", "init_cache",
-           "PageAllocator", "PagedKVCache", "init_paged_cache", "SamplingConfig", "greedy",
-           "sample_token", "SlotScheduler", "generate", "params_from_jax"]
+__all__ = ["Drafter", "EngineDrafter", "NGramDrafter", "ReplayDrafter",
+           "InferenceEngine", "KVCache", "init_cache", "PagedKVCache",
+           "init_paged_cache", "PageAllocator", "PrefixCache",
+           "default_page_size", "SamplingConfig", "greedy", "sample_token",
+           "Request", "SlotScheduler", "generate", "make_prefill_fn",
+           "make_decode_fn", "make_verify_fn", "prefill_bucket",
+           "params_from_jax"]

@@ -25,24 +25,40 @@ encode-only path (:meth:`InferenceEngine.encode`).
   ``decode_fusion="1"``, or ``"auto"`` with a window of at least
   ``fusion_min_pages`` pages) each layer is one launch of the
   fused-block kernel followed by the pool append.
+* **Verify** (``spec_k > 0``; ``APEX_TPU_SPEC_K``) — speculative
+  decoding, greedy only: one batched forward scores each slot's slab of
+  its last token and ``spec_k`` drafts (``models.verify_forward``: the
+  slab's k/v appended, then per layer the paged decode kernel over the
+  folded slab, or the dense cache's plain slab chain), accepts the
+  longest draft prefix that matches the target's own greedy tokens and
+  advances the lengths by the accepted count plus one
+  (``kv_cache.advance_by``): rejection is a length rollback.  The
+  scheduler drives it with a drafter
+  (:mod:`~apex_tpu_torch.inference.speculative`).
 * **Encode** (BERT) — one bidirectional forward of the port's
   ``BertModel`` over the engine's parameter tree: ``(lm_logits [s, b,
   vocab], None)``.
 
-PyTorch runs eagerly, so where the JAX engine compiles one donated
-executable per step, this engine runs the same ops in order and updates
-the cache in place.  Sampled tokens and the ``truncated`` flags come
-back as CPU tensors: the scheduler reads them between steps, which is
-the continuous-batching control loop's one host read per step.
+The step bodies are the pure step factories, as in JAX:
+:func:`make_prefill_fn`, :func:`make_decode_fn` and
+:func:`make_verify_fn` build ``(cache, params, ..., key, step) ->
+(cache, ...)`` functions, and :meth:`InferenceEngine.prefill`,
+:meth:`~InferenceEngine.decode` and :meth:`~InferenceEngine.verify`
+run them.  PyTorch runs eagerly, so where the JAX engine compiles each
+into one donated executable, this engine runs the same ops in order
+and updates the cache in place.  Sampled tokens, ``n_emit`` and the
+``truncated`` flags come back as CPU tensors: the scheduler reads them
+between steps, which is the continuous-batching control loop's one
+host read per step.
 
 A trained model enters through :meth:`InferenceEngine.from_train_state`
 or :meth:`InferenceEngine.from_state_dict`.
 
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): tensor-parallel serving, speculative decoding and the
-host-DRAM page tier.  Where the JAX package raises ``ValueError``
-(BERT with a paged, fused or speculative kwarg; the dense cache with
-``tp > 1`` or ``host_tier_bytes``), so does this engine.
+ROADMAP item): tensor-parallel serving (with or without speculative
+decoding) and the host-DRAM page tier.  Where the JAX package raises
+``ValueError`` (BERT with a paged, fused or speculative kwarg; the dense
+cache with ``tp > 1`` or ``host_tier_bytes``), so does this engine.
 """
 from __future__ import annotations
 
@@ -54,14 +70,16 @@ import torch
 
 from apex_tpu_torch import observability as obs
 from apex_tpu_torch.inference import kv_cache, models
-from apex_tpu_torch.inference.sampling import SamplingConfig, sample_token
+from apex_tpu_torch.inference.sampling import (SamplingConfig, greedy,
+                                               sample_token)
 from apex_tpu_torch.inference.speculative import default_spec_k
 from apex_tpu_torch.ops.paged_attention import (
     check_kernel_page_size, decode_fusion as resolve_fusion_mode,
     resolve_decode_fusion)
 from apex_tpu_torch.utils import resolve_device, tree_leaves_with_path
 
-__all__ = ["InferenceEngine", "prefill_bucket"]
+__all__ = ["InferenceEngine", "make_prefill_fn", "make_decode_fn",
+           "make_verify_fn", "prefill_bucket"]
 
 _TP_ENV = "APEX_TPU_SERVE_TP"
 _HOST_TIER_ENV = "APEX_TPU_HOST_KV_TIER_BYTES"
@@ -78,6 +96,124 @@ def _env_int(name: str) -> int:
         return int(raw)
     except ValueError:
         raise ValueError(f"{name} must be an integer, got {raw!r}")
+
+
+def _check_tp(tp) -> None:
+    """The step factories' ``tp`` operand: 1 runs, wider raises (a later
+    slice)."""
+    if int(tp) < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if int(tp) > 1:
+        raise _later_slice(f"tensor-parallel serving (tp={tp})",
+                           "tp and spec")
+
+
+def make_prefill_fn(kind: str, cfg, sampling: SamplingConfig,
+                    paged: bool = False, tp: int = 1):
+    """Pure prefill step, JAX's signature.  Dense: ``(cache, params,
+    tokens [s], slot, length, key, step) -> (cache, next_token,
+    last_logits)``; paged takes the slot's page-table ``row`` and
+    ``prefill_from`` after ``length``.
+
+    ``tokens`` is the bucket-padded prompt (paged: its uncached tail) as
+    an int32 tensor on the cache's device; ``length`` the slot's total
+    live length after the step; ``slot``, ``length`` and
+    ``prefill_from`` are host ints and ``row`` host ints
+    (:func:`~apex_tpu_torch.inference.kv_cache.page_row`).  ``key`` is
+    the ``torch.Generator`` sampling draws from; ``step`` keeps JAX's
+    signature and is not read (the generator carries its own state).
+    The cache is updated in place and returned; ``next_token`` is an
+    int32 scalar and ``last_logits`` the fp32 ``[vocab]`` row, both on
+    the device."""
+    _check_tp(tp)
+
+    def sample(logits, key):
+        last = logits[0].float()                            # [vocab]
+        return sample_token(last, key, sampling), last
+
+    @torch.no_grad()
+    def prefill_fn(cache, params, tokens, slot, length, key, step):
+        logits, ks, vs = models.prefill_forward(kind, cfg, params,
+                                                tokens[None], length)
+        cache = kv_cache.insert(cache, int(slot), ks, vs, length)
+        return (cache,) + sample(logits, key)
+
+    @torch.no_grad()
+    def prefill_paged_fn(cache, params, tokens, slot, length, row,
+                         prefill_from, key, step):
+        logits, ks, vs = models.prefill_forward(
+            kind, cfg, params, tokens[None], length, cache=cache, row=row,
+            prefill_from=prefill_from)
+        cache = kv_cache.insert_tokens(cache, int(slot), ks, vs, length,
+                                       row, prefill_from)
+        return (cache,) + sample(logits, key)
+
+    return prefill_paged_fn if paged else prefill_fn
+
+
+def make_decode_fn(kind: str, cfg, sampling: SamplingConfig,
+                   fused: bool = False, tp: int = 1):
+    """Pure decode step, JAX's signature: ``(cache, params, tokens
+    [slots], active [slots], key, step) -> (cache, next_tokens, logits,
+    truncated)``, all on the device.  Every slot computes; only active
+    slots advance, and ``truncated`` flags active slots already at
+    capacity, whose token was not appended (the caller retires them).
+    ``fused``: ``params`` is the pair ``(tree, fused_layers)`` and every
+    layer runs as one fused-block launch.  ``key`` and ``step`` as in
+    :func:`make_prefill_fn`."""
+    _check_tp(tp)
+
+    @torch.no_grad()
+    def decode_fn(cache, params, tokens, active, key, step):
+        tree, fused_layers = params if fused else (params, None)
+        logits, cache = models.decode_forward(kind, cfg, tree, cache, tokens,
+                                              fused=fused_layers)
+        logits = logits.float()
+        toks = sample_token(logits, key, sampling)
+        cache, truncated = kv_cache.advance(cache, active)
+        return cache, toks, logits, truncated
+
+    return decode_fn
+
+
+def make_verify_fn(kind: str, cfg, sampling: SamplingConfig, k: int,
+                   tp: int = 1):
+    """Pure speculative-verify step, JAX's signature: ``(cache, params,
+    slab [slots, k+1], active [slots], key, step) -> (cache, tokens
+    [slots, k+1], n_emit [slots], truncated)``, all on the device.
+
+    ``slab`` column 0 is each slot's last confirmed token, columns
+    ``1..k`` the drafts.  One batched forward scores every slab position
+    (:func:`~apex_tpu_torch.inference.models.verify_forward`); the
+    longest draft prefix matching the target's own greedy tokens is
+    accepted and ``tokens[:, :n_emit]`` is the emitted stream, the
+    accepted drafts and the target's next token: always the target's
+    greedy stream, ``n_emit`` in ``[1, k+1]``.  Lengths advance by
+    ``n_emit`` (:func:`~apex_tpu_torch.inference.kv_cache.advance_by`),
+    so the rejected rows are dead by the mask.  Greedy only, as in JAX:
+    rejection sampling would need the drafts' distribution."""
+    if k < 1:
+        raise ValueError(f"speculative verify needs k >= 1, got {k}")
+    if not sampling.is_greedy:
+        raise ValueError(
+            "speculative verify is greedy-only (acceptance compares "
+            "drafts against argmax; rejection sampling for "
+            "temperature > 0 needs draft probabilities the drafter "
+            "protocol does not carry)")
+    _check_tp(tp)
+
+    @torch.no_grad()
+    def verify_fn(cache, params, slab, active, key, step):
+        logits, cache = models.verify_forward(kind, cfg, params, cache, slab)
+        toks = greedy(logits.float())                      # [slots, k+1]
+        match = (toks[:, :-1] == slab[:, 1:]).to(torch.int32)
+        # the leading-match count: cumprod zeroes all after a mismatch
+        n_emit = (torch.cumprod(match, dim=1).sum(dim=1) + 1).to(
+            torch.int32)
+        cache, truncated = kv_cache.advance_by(cache, active, n_emit)
+        return cache, toks, n_emit, truncated
+
+    return verify_fn
 
 
 def prefill_bucket(n: int, max_seq: int, min_bucket: int = 64) -> int:
@@ -185,9 +321,6 @@ class InferenceEngine:
         else:
             self.spec_k = int(spec_k if spec_k is not None
                               else default_spec_k())
-            if self.spec_k:
-                raise _later_slice(f"speculative decoding (spec_k="
-                                   f"{self.spec_k})", "tp and spec")
             self.decode_fused = resolve_decode_fusion(
                 decode_fusion, paged=self.paged,
                 max_pages=self.max_pages_per_slot,
@@ -203,6 +336,7 @@ class InferenceEngine:
         self.params = self._place(params, dtype)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
+        self._step = 0
         self._tel_registry = None
         self._refresh_dispatch_counters()
         if kind == "bert":
@@ -214,6 +348,13 @@ class InferenceEngine:
         self._fused_layers = (
             models.fused_layer_params(kind, cfg, self.params)
             if self.decode_fused else None)
+        # the step bodies, one copy each: the pure factories' functions
+        self._prefill_raw = make_prefill_fn(kind, cfg, sampling,
+                                            paged=self.paged)
+        self._decode_raw = make_decode_fn(kind, cfg, sampling,
+                                          fused=self.decode_fused)
+        self._verify_raw = (make_verify_fn(kind, cfg, sampling, self.spec_k)
+                            if self.spec_k else None)
 
     def _init_paged(self, page_size, num_pages, host_tier_bytes):
         self.page_size = int(page_size if page_size is not None
@@ -275,6 +416,8 @@ class InferenceEngine:
             self._cow_dispatches = reg.declared("infer_cow_dispatch_total")
             self._fused_decode_dispatches = reg.declared(
                 "infer_decode_fused_dispatch_total")
+            self._verify_dispatches = reg.declared(
+                "infer_verify_dispatch_total")
 
     def _generative(self, what: str) -> None:
         if self.kind == "bert":
@@ -317,6 +460,11 @@ class InferenceEngine:
         return self.slots * self.max_seq * per_tok
 
     # -- generative path -----------------------------------------------------
+    def _next_step(self) -> int:
+        s = self._step
+        self._step += 1
+        return s
+
     def bucket_for(self, n: int) -> int:
         """The prefill bucket an ``n``-token prompt pads up to."""
         min_bucket = max(64, self.page_size) if self.paged else 64
@@ -367,21 +515,13 @@ class InferenceEngine:
         padded[:suffix.shape[0]] = suffix
         self._refresh_dispatch_counters()
         self._prefill_dispatches.inc()
-        toks = torch.from_numpy(padded).to(self.device)[None]
-        with torch.no_grad(), torch.profiler.record_function(
+        toks = torch.from_numpy(padded).to(self.device)
+        tail = (row, start) if self.paged else ()
+        with torch.profiler.record_function(
                 "apex_tpu_torch.inference.prefill"):
-            if self.paged:
-                logits, ks, vs = models.prefill_forward(
-                    self.kind, self.cfg, self.params, toks, n, cache=cache,
-                    row=row, prefill_from=start)
-                cache = kv_cache.insert_tokens(cache, int(slot), ks, vs, n,
-                                               row, start)
-            else:
-                logits, ks, vs = models.prefill_forward(
-                    self.kind, self.cfg, self.params, toks, n)
-                cache = kv_cache.insert(cache, int(slot), ks, vs, n)
-            last = logits[0].float()                        # [vocab]
-            tok = sample_token(last, self._gen, self.sampling)
+            cache, tok, last = self._prefill_raw(
+                cache, self.params, toks, int(slot), n, *tail, self._gen,
+                self._next_step())
         return cache, tok.cpu(), last
 
     def cow_page(self, cache, src, dst):
@@ -417,15 +557,45 @@ class InferenceEngine:
         toks_in = torch.from_numpy(
             np.asarray(last_tokens, np.int32).reshape(-1)).to(self.device)
         act = torch.from_numpy(np.asarray(active, bool)).to(self.device)
-        with torch.no_grad(), torch.profiler.record_function(
+        params = ((self.params, self._fused_layers) if self.decode_fused
+                  else self.params)
+        with torch.profiler.record_function(
                 "apex_tpu_torch.inference.decode"):
-            logits, cache = models.decode_forward(
-                self.kind, self.cfg, self.params, cache, toks_in,
-                fused=self._fused_layers)
-            logits = logits.float()
-            toks = sample_token(logits, self._gen, self.sampling)
-            cache, truncated = kv_cache.advance(cache, act)
+            cache, toks, logits, truncated = self._decode_raw(
+                cache, params, toks_in, act, self._gen, self._next_step())
         return cache, toks.cpu(), logits, truncated.cpu()
+
+    def verify(self, cache, slab, active=None):
+        """One speculative-verify step: ``slab [slots, spec_k + 1]``
+        (column 0 each slot's last confirmed token, the rest drafts) ->
+        ``(cache, tokens [slots, spec_k + 1], n_emit [slots],
+        truncated)``, the last three CPU tensors.  ``tokens[:, :n_emit]``
+        per slot is the emitted stream, the target's own greedy
+        continuation; lengths advance by ``n_emit``.  The same capacity
+        contract as :meth:`decode`: the caller clamps the emitted tokens
+        to the slot's remaining capacity and retires truncated slots."""
+        self._generative("verify")
+        if not self.spec_k:
+            raise ValueError(
+                "speculative decoding is off for this engine; build it "
+                "with spec_k > 0 (or APEX_TPU_SPEC_K)")
+        slab = np.asarray(slab, np.int32)
+        if slab.shape != (self.slots, self.spec_k + 1):
+            raise ValueError(
+                f"verify slab must be [{self.slots}, "
+                f"{self.spec_k + 1}] (last token + {self.spec_k} "
+                f"drafts), got {tuple(slab.shape)}")
+        if active is None:
+            active = np.ones((self.slots,), bool)
+        self._refresh_dispatch_counters()
+        self._verify_dispatches.inc()
+        act = torch.from_numpy(np.asarray(active, bool)).to(self.device)
+        with torch.profiler.record_function(
+                "apex_tpu_torch.inference.verify"):
+            cache, toks, n_emit, truncated = self._verify_raw(
+                cache, self.params, torch.from_numpy(slab).to(self.device),
+                act, self._gen, self._next_step())
+        return cache, toks.cpu(), n_emit.cpu(), truncated.cpu()
 
     def generate(self, prompts, max_new_tokens: int = 16,
                  eos_id: Optional[int] = None):

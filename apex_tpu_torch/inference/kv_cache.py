@@ -21,8 +21,9 @@ physical page ``page_table[slot, t // page_size]``, row
 
 Unlike the JAX package, whose pure updates return a new cache that the
 jitted step donates, every mutation here (:func:`insert`,
-:func:`insert_tokens`, :func:`append_layer`, :func:`advance`,
-:func:`set_lengths`, :func:`evict`, :func:`cow_page`) UPDATES THE
+:func:`insert_tokens`, :func:`append_layer`, :func:`append_slab`,
+:func:`advance`, :func:`advance_by`, :func:`set_lengths`,
+:func:`evict`, :func:`cow_page`) UPDATES THE
 CACHE IN PLACE and returns the same cache object, so the call sites
 read the same (``cache = f(cache, ...)``) and no step ever allocates a
 second cache.
@@ -36,11 +37,14 @@ Design positions carried over unchanged:
   ``pages - 1`` that the allocator never hands out; page-table entries
   beyond a slot's reservation point there, so writes that overrun a
   reservation land harmlessly.  Rows past a slot's whole virtual
-  window are dropped, never clamped onto live rows.
+  window are dropped by a prefill, never clamped onto live rows; a
+  verify slab's such rows (:func:`append_slab`) go to the trash page.
 * **The dense clamp.**  A dense append at capacity (length ==
   ``max_seq``) lands on row ``max_seq - 1``, where the JAX
   ``dynamic_update_slice`` clamps its start; :func:`advance` flags the
-  slot ``truncated`` and the caller retires it.
+  slot ``truncated`` and the caller retires it.  A verify slab's rows
+  past ``max_seq`` are dropped, never clamped: a clamp would overwrite
+  the slot's last live row.
 
 :class:`PageAllocator` and :class:`HostPageStore` are copied verbatim:
 they are host bookkeeping over ints.
@@ -59,7 +63,8 @@ from apex_tpu_torch.utils import resolve_device
 __all__ = ["KVCache", "init_cache", "insert", "PagedKVCache",
            "init_paged_cache", "PageAllocator", "HostPageStore",
            "default_page_size", "page_row", "insert_tokens", "append_layer",
-           "append_targets", "advance", "set_lengths", "evict", "cow_page"]
+           "append_targets", "append_slab", "advance", "advance_by",
+           "set_lengths", "evict", "cow_page"]
 
 _PAGE_SIZE_ENV = "APEX_TPU_PAGE_SIZE"
 _DEFAULT_PAGE_SIZE = 64
@@ -343,6 +348,59 @@ def append_layer(cache, layer: int, k_tok, v_tok, targets=None):
     return cache
 
 
+def append_slab(cache, layer: int, k_slab, v_slab):
+    """Speculative-verify write for ONE layer, in place: each slot's
+    ``S`` drafted rows ``k_slab``/``v_slab [slots, kv_heads, S,
+    head_dim]`` land at positions ``[lengths, lengths + S)``; ``S = 1``
+    is :func:`append_layer`'s write.  Lengths do NOT advance (the verify
+    step advances by the accepted count, :func:`advance_by`, so the
+    rejected rows are dead by the mask).
+
+    A row past the slot's window is never clamped onto a live row.
+    Paged: it goes to the trash page (as a row past the reservation
+    does).  Dense: it is dropped; the scatter then writes each slot's
+    rows past ``max_seq`` as copies of its last in-window row, or of the
+    old row ``max_seq - 1`` for a slot at capacity, onto that row, so the
+    one scatter carries no conflicting duplicates.  Everything stays on
+    the device (no host read)."""
+    slots, kvh, sq, d = k_slab.shape
+    if k_slab.shape != v_slab.shape or slots != cache.slots \
+            or kvh != cache.kv_heads or d != cache.head_dim:
+        raise ValueError(
+            f"slab k/v must be [slots={cache.slots}, "
+            f"kv_heads={cache.kv_heads}, S, head_dim={cache.head_dim}] "
+            f"and equal-shaped; got k {tuple(k_slab.shape)} v "
+            f"{tuple(v_slab.shape)}")
+    dev = cache.device
+    rows = torch.arange(sq, device=dev)
+    pos = cache.lengths.long()[:, None] + rows[None]          # [slots, S]
+    # [slots, S, kvh, d]: the advanced indices lead the indexed result
+    rows_k = k_slab.transpose(1, 2).to(cache.k.dtype)
+    rows_v = v_slab.transpose(1, 2).to(cache.v.dtype)
+    kl, vl = cache.k[:, layer], cache.v[:, layer]              # views
+    if isinstance(cache, PagedKVCache):
+        ps, mpps = cache.page_size, cache.max_pages_per_slot
+        ordinal = torch.clamp(pos // ps, max=mpps - 1)
+        pages = cache.page_table.long().gather(1, ordinal)
+        pages = torch.where(pos < mpps * ps, pages,
+                            torch.full_like(pages, cache.null_page))
+        offs = torch.clamp(pos - ordinal * ps, max=ps - 1)
+        kl[pages, :, offs, :] = rows_k
+        vl[pages, :, offs, :] = rows_v
+        return cache
+    top = cache.max_seq - 1
+    sid = torch.arange(slots, device=dev)[:, None]
+    # rows past max_seq repeat the last in-window row (row index src)
+    last = torch.clamp(top - cache.lengths.long(), min=0)      # [slots]
+    src = torch.minimum(rows[None], last[:, None])             # [slots, S]
+    full = (cache.lengths >= cache.max_seq)[:, None, None, None]
+    for buf, new in ((kl, rows_k), (vl, rows_v)):
+        vals = new[sid, src]                                   # [s, S, kvh, d]
+        old = buf[:, :, top][:, None]                          # [s, 1, kvh, d]
+        buf[sid, :, torch.clamp(pos, max=top)] = torch.where(full, old, vals)
+    return cache
+
+
 def _capacity(cache):
     """Each slot's capacity: ``max_seq`` (dense) or its owned pages'
     rows (paged)."""
@@ -363,6 +421,24 @@ def advance(cache, active):
     truncated = act & (cache.lengths >= cap) & (cap > 0)
     cache.lengths.copy_(torch.minimum(cache.lengths + act.to(torch.int32),
                                       cap))
+    return cache, truncated
+
+
+def advance_by(cache, active, delta):
+    """Advance the active slots' lengths by a per-slot count, in place:
+    the verify step's accept and rollback in one move.  ``delta[slot]``
+    is the number of tokens the slot confirmed (accepted drafts and the
+    bonus token), so the slab's rejected rows stay dead by the mask.
+    Returns ``(cache, truncated)`` with :func:`advance`'s clamp and flag
+    (``delta = 1`` everywhere is :func:`advance`): lengths clamp at the
+    capacity, and ``truncated`` flags the active slots whose confirmed
+    tokens did not all fit (never a slot of capacity 0)."""
+    act = torch.as_tensor(active, device=cache.device).to(torch.bool)
+    delta = torch.as_tensor(delta, device=cache.device).to(torch.int32)
+    cap = _capacity(cache)
+    want = cache.lengths + act.to(torch.int32) * delta
+    truncated = act & (want > cap) & (cap > 0)
+    cache.lengths.copy_(torch.minimum(want, cap))
     return cache, truncated
 
 

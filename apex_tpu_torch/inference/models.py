@@ -17,8 +17,17 @@ Where the JAX forwards branch on traced values inside one compiled
 program (``lax.cond`` on the prefill start), these branch in Python:
 PyTorch runs eagerly.  With ``fused`` (the layout of
 :func:`fused_layer_params`, paged engines only) every decode layer is
-one launch of the fused-block kernel instead.  Tensor-parallel serving
-and speculative verify are later slices (ROADMAP queue 1, "tp and
+one launch of the fused-block kernel instead.
+
+The speculative verify forward (:func:`verify_forward`) scores an
+``S``-token slab per slot in one batched step: the slab's k/v appended
+at ``[lengths, lengths + S)`` (:func:`~apex_tpu_torch.inference.
+kv_cache.append_slab`), then per layer the dense cache's
+:func:`~apex_tpu_torch.ops.attention.slab_decode_attention` or the
+paged pool's :func:`~apex_tpu_torch.ops.paged_attention.
+paged_slab_attention` (the paged decode kernel over the folded slab on
+CUDA).  A fused engine verifies through the unfused tree, as in JAX.
+Tensor-parallel serving is a later slice (ROADMAP queue 1, "tp and
 spec").
 """
 from __future__ import annotations
@@ -29,9 +38,11 @@ import torch.nn.functional as F
 from apex_tpu_torch.inference import kv_cache
 from apex_tpu_torch.ops import layer_norm, rms_norm
 from apex_tpu_torch.ops.attention import (decode_attention, flash_attention,
-                                          prefix_window_attention)
+                                          prefix_window_attention,
+                                          slab_decode_attention)
 from apex_tpu_torch.ops.paged_attention import (fused_block_decode,
-                                                paged_decode_attention)
+                                                paged_decode_attention,
+                                                paged_slab_attention)
 from apex_tpu_torch.transformer.functional.fused_rope import (
     fused_apply_rotary_pos_emb_cached,
 )
@@ -41,7 +52,7 @@ from apex_tpu_torch.transformer.testing.standalone_llama import (
 )
 
 __all__ = ["model_dims", "tp_dims", "check_supported", "prefill_forward",
-           "decode_forward", "fused_layer_params"]
+           "decode_forward", "verify_forward", "fused_layer_params"]
 
 
 def model_dims(kind: str, cfg) -> dict:
@@ -112,6 +123,20 @@ def _cache_attend(cache, layer: int, q, live):
                                       cache.v[:, layer], cache.page_table,
                                       live, xla_max_pages=cache.attn_max_pages)
     return decode_attention(q, cache.k[:, layer], cache.v[:, layer], live)
+
+
+def _slab_attend(cache, layer: int, q, lengths):
+    """Verify-slab attention against ONE layer of whichever cache the
+    engine runs: the dense slot window scored directly
+    (:func:`~apex_tpu_torch.ops.attention.slab_decode_attention`) or the
+    paged pool through the slot page table
+    (:func:`~apex_tpu_torch.ops.paged_attention.paged_slab_attention`).
+    ``lengths`` is the live count before the slab was appended."""
+    if isinstance(cache, kv_cache.PagedKVCache):
+        return paged_slab_attention(q, cache.k[:, layer], cache.v[:, layer],
+                                    cache.page_table, lengths)
+    return slab_decode_attention(q, cache.k[:, layer], cache.v[:, layer],
+                                 lengths)
 
 
 def _suffix_attend(cache, layer: int, row, q, k, v, start: int):
@@ -348,6 +373,38 @@ def _gpt_decode(cfg, params, cache, tokens, fused=None):
     return torch.matmul(h, emb_w.T), cache                 # [slots, v]
 
 
+def _gpt_verify(cfg, params, cache, tokens):
+    """Speculative verify: logits at every position of the ``[slots,
+    S]`` slab, its k/v appended at ``[lengths, lengths + S)``.  Lengths
+    do not advance here.  Positions past the table read its last row,
+    as in JAX."""
+    p = _params_subtree(params)
+    dims = model_dims("gpt", cfg)
+    heads, head_dim = dims["heads"], dims["head_dim"]
+    slots, s = tokens.shape
+    base = cache.lengths                                    # [slots]
+    pos = base.long()[:, None] + torch.arange(s, device=tokens.device)
+    emb_w = p["embedding"]["word_embeddings"]["weight"]
+    pos_tab = p["embedding"]["position_embeddings"]
+    h = emb_w[tokens.long()] + pos_tab[torch.clamp(
+        pos, max=pos_tab.shape[0] - 1)]                     # [b, S, hid]
+
+    for i in range(cfg.num_layers):
+        lp = p[f"layer_{i}"]
+        x = h
+        h1 = _ln(lp["input_layernorm"], x)
+        q, k, v = _gpt_attn_proj(lp, h1, heads, head_dim)   # [b, S, n, d]
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        cache = kv_cache.append_slab(cache, i, k, v)
+        ctx = _slab_attend(cache, i, q, base)               # [b, h, S, d]
+        ctx = ctx.transpose(1, 2).reshape(slots, s, -1)
+        x = x + _linear(lp["self_attention"]["dense"], ctx)
+        h = x + _gpt_mlp(lp, _ln(lp["post_attention_layernorm"], x))
+
+    h = _ln(p["final_layernorm"], h)
+    return torch.matmul(h, emb_w.T), cache                 # [b, S, v]
+
+
 # --------------------------------------------------------------------------
 # LLaMA (standalone_llama mirror; GQA/MQA cached once per kv head)
 # --------------------------------------------------------------------------
@@ -466,6 +523,46 @@ def _llama_decode(cfg, params, cache, tokens, fused=None):
     return logits, cache
 
 
+def _llama_verify(cfg, params, cache, tokens):
+    """LLaMA twin of :func:`_gpt_verify`: RoPE at each slab row's
+    position (clamped at ``max_seq - 1``, as in JAX), GQA slab scoring
+    straight off the per-kv-head cache or pool."""
+    p = _params_subtree(params)
+    dims = tp_dims("llama", cfg, 1)
+    heads, kv_heads = dims["heads_local"], dims["kv_heads_local"]
+    head_dim = dims["head_dim"]
+    slots, s = tokens.shape
+    dev = tokens.device
+    base = cache.lengths
+    pos = torch.clamp(base.long()[:, None] + torch.arange(s, device=dev),
+                      max=cache.max_seq - 1)                # [b, S]
+
+    h = p["embed_tokens"]["weight"][tokens.long()]          # [b, S, hid]
+    cos_t, sin_t = _rope_cos_sin(cache.max_seq, head_dim, cfg.rope_theta,
+                                 device=dev)
+    cos = cos_t.reshape(cache.max_seq, head_dim)[pos][:, :, None, :]
+    sin = sin_t.reshape(cache.max_seq, head_dim)[pos][:, :, None, :]
+
+    for i in range(cfg.num_layers):
+        lp = p[f"layer_{i}"]
+        x = h
+        h1 = rms_norm(x, lp["input_norm"]["weight"], eps=cfg.rms_eps)
+        q, k, v = _llama_proj(lp, h1, heads, kv_heads, head_dim)
+        q = fused_apply_rotary_pos_emb_cached(q, cos, sin)
+        k = fused_apply_rotary_pos_emb_cached(k, cos, sin)
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))   # [b, n, S, d]
+        cache = kv_cache.append_slab(cache, i, k, v)
+        ctx = _slab_attend(cache, i, q, base)               # [b, h, S, d]
+        ctx = ctx.transpose(1, 2).reshape(slots, s, -1)
+        x = x + _linear(lp["attention"]["o_proj"], ctx)
+        h1 = rms_norm(x, lp["post_attention_norm"]["weight"],
+                      eps=cfg.rms_eps)
+        h = x + _llama_mlp(lp, h1)
+
+    h = rms_norm(h, p["final_norm"]["weight"], eps=cfg.rms_eps)
+    return _linear(p["lm_head"], h), cache                  # [b, S, v]
+
+
 def prefill_forward(kind: str, cfg, params, tokens, length=None, *,
                     cache=None, row=None, prefill_from=None):
     """Full-prompt forward: ``tokens [1, s]`` -> ``(logits, k_stack,
@@ -511,3 +608,18 @@ def decode_forward(kind: str, cfg, params, cache, tokens, fused=None):
     check_supported(kind, cfg)
     fn = _gpt_decode if kind == "gpt" else _llama_decode
     return fn(cfg, params, cache, tokens, fused=fused)
+
+
+def verify_forward(kind: str, cfg, params, cache, tokens):
+    """Speculative-verify step: ``tokens [slots, S]`` (each slot's last
+    confirmed token followed by ``S - 1`` drafts) -> ``(logits [slots,
+    S, v], cache)`` with the slab's k/v appended (in place) at positions
+    ``[lengths, lengths + S)``.  Lengths do NOT advance: the verify step
+    advances by the accepted count, which is the rollback (the rejected
+    rows are dead by the mask; pages were reserved at admission)."""
+    if tokens.dim() != 2:
+        raise ValueError(
+            f"verify takes a [slots, S] slab, got {tuple(tokens.shape)}")
+    check_supported(kind, cfg)
+    fn = _gpt_verify if kind == "gpt" else _llama_verify
+    return fn(cfg, params, cache, tokens)

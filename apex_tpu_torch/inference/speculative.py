@@ -7,7 +7,7 @@ every emitted token at ``observe``) and proposes up to ``k``
 continuation tokens per decode round.  The DEVICE side never changes
 with the drafter: the target engine scores whatever was proposed in
 its one compiled verify executable
-(:func:`~apex_tpu.inference.engine.make_verify_fn`), accepts the
+(:func:`~apex_tpu_torch.inference.engine.make_verify_fn`), accepts the
 longest matching prefix, and emits the bonus token — so a weak draft
 can only cost speculation upside, never correctness (the emitted
 stream is the target's own greedy stream, always).
@@ -25,6 +25,13 @@ Drafters shipped:
   (non-speculative) run gives acceptance ~1.0 — the machinery ceiling
   any model-based drafter is bounded by — and a poisoned script
   deterministically exercises the reject/rollback path in tests.
+* :class:`EngineDrafter` — a SMALL draft model restored beside the
+  target: a second (dense-cache) :class:`~apex_tpu_torch.inference.
+  engine.InferenceEngine` drafts ``k`` tokens with ``k`` batched greedy
+  decode steps, then rolls its own cache back to the pre-draft
+  lengths (:func:`~apex_tpu_torch.inference.kv_cache.set_lengths`) so
+  only CONFIRMED tokens ever stay resident — the draft-side mirror of
+  the target's page-table rollback.
 """
 from __future__ import annotations
 
@@ -33,7 +40,10 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
-__all__ = ["default_spec_k", "Drafter", "NGramDrafter", "ReplayDrafter"]
+from apex_tpu_torch.inference import kv_cache
+
+__all__ = ["default_spec_k", "Drafter", "NGramDrafter", "ReplayDrafter",
+           "EngineDrafter"]
 
 _SPEC_K_ENV = "APEX_TPU_SPEC_K"
 
@@ -174,3 +184,99 @@ class ReplayDrafter(Drafter):
         pos = self._pos[slot]
         return seq[pos:pos + k]
 
+
+class EngineDrafter(Drafter):
+    """A small draft model beside the target: batched greedy decode
+    steps on a second (dense-cache) engine propose ``k`` tokens, then
+    the draft cache rolls back to the pre-draft lengths so only
+    confirmed tokens stay resident.
+
+    The draft engine must share the target's tokenizer/vocab, run the
+    DENSE cache (its rollback is a pure length reset — no page
+    bookkeeping to mirror), greedy sampling, and at least the target's
+    slot count.  Confirmed tokens the target emits land in a pending
+    queue and are fed through catch-up decode steps before the next
+    draft round (a reference implementation: it re-decodes accepted
+    tokens on the draft side rather than trusting draft-side rows
+    that may diverge from the confirmed stream).  The rollback is the
+    port's in-place :func:`~apex_tpu_torch.inference.kv_cache.
+    set_lengths`."""
+
+    def __init__(self, engine):
+        if engine.kind == "bert":
+            raise ValueError("the draft engine must be generative")
+        if engine.paged:
+            raise ValueError(
+                "EngineDrafter drafts on the DENSE slot cache (its "
+                "rollback is a pure length reset); build the draft "
+                "engine without paged kwargs")
+        if not engine.sampling.is_greedy:
+            raise ValueError("the draft engine must sample greedily")
+        self.engine = engine
+        self.cache = engine.init_cache()
+        self._len = np.zeros((engine.slots,), np.int32)
+        self._pending: Dict[int, List[int]] = {}
+
+    def begin(self, slot, prompt, first_token):
+        self.cache, _, _ = self.engine.prefill(
+            self.cache, list(prompt), slot)
+        self._len[slot] = len(prompt)
+        self._pending[slot] = [int(first_token)]
+
+    def observe(self, slot, tokens):
+        if slot in self._pending:
+            self._pending[slot].extend(int(t) for t in tokens)
+
+    def retire(self, slot):
+        self._pending.pop(slot, None)
+        self._len[slot] = 0
+
+    def _catch_up(self):
+        """Feed confirmed-but-unfed tokens (all but each slot's last)
+        through batched decode steps; outputs are discarded."""
+        slots = self.engine.slots
+        while True:
+            feed = np.zeros((slots,), np.int32)
+            act = np.zeros((slots,), bool)
+            for s, pend in self._pending.items():
+                if len(pend) > 1:
+                    feed[s] = pend.pop(0)
+                    act[s] = True
+            if not act.any():
+                return
+            self.cache, _, _, _ = self.engine.decode(self.cache, feed,
+                                                     act)
+            self._len[act] += 1
+
+    def draft(self, slot, k):           # pragma: no cover - use batch
+        out = self.draft_batch(
+            np.eye(self.engine.slots, dtype=bool)[slot], k)
+        return [int(t) for t in out[slot]]
+
+    def draft_batch(self, active, k) -> np.ndarray:
+        """``k`` greedy draft tokens for every active slot in ``k``
+        batched decode steps, cache rolled back afterwards."""
+        slots = self.engine.slots
+        act = np.zeros((slots,), bool)
+        feed = np.zeros((slots,), np.int32)
+        for s, pend in self._pending.items():
+            if active[s] and pend:
+                act[s] = True
+                feed[s] = pend[-1]
+        drafts = np.zeros((slots, k), np.int32)
+        if not act.any() or k < 1:
+            return drafts
+        self._catch_up()
+        for s, pend in self._pending.items():   # refresh post-catch-up
+            if act[s]:
+                feed[s] = pend[-1]
+        for j in range(k):
+            self.cache, toks, _, _ = self.engine.decode(self.cache,
+                                                        feed, act)
+            toks = np.asarray(toks)
+            drafts[:, j] = np.where(act, toks, 0)
+            feed = np.where(act, toks, feed).astype(np.int32)
+        # the rollback: drafted rows go dead-by-mask, pending stays
+        # intact (its last token is still the next confirmed input)
+        self.cache = kv_cache.set_lengths(self.cache, self._len.copy())
+        return drafts

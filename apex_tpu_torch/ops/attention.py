@@ -65,6 +65,13 @@ Port of ``apex_tpu/ops/attention.py``, ``[b, h, s, d]`` layout:
   decode kernel above it (``flash_attention_masked``'s q_len-1 kernel:
   the query heads of a kv head scored together against the cache read
   in place, no k/v broadcast; :func:`_decode_kernel`).
+  A cache layout the kernel cannot read in place (an unaligned base,
+  strides that are not whole 16-byte rows and slots) runs on a
+  contiguous copy of the layer (:func:`_decode_in_place`).
+* :func:`slab_decode_attention` — the speculative verify step's
+  attention: ``S`` drafted rows per slot against the slot's cache
+  window, causal within the slab; plain XLA in the JAX package, plain
+  PyTorch here on every device (the dense cache's verify path).
 * :func:`mha_reference` — the natural-log oracle.
 * :func:`prefix_window_attention` — the warm-prefill attention over a
   cached prefix window plus the causal suffix; plain XLA in the JAX
@@ -83,7 +90,8 @@ import torch
 from apex_tpu_torch.ops import _build
 
 __all__ = ["flash_attention", "xla_path_max_seq", "decode_attention",
-           "decode_xla_max_seq", "mha_reference", "prefix_window_attention"]
+           "decode_xla_max_seq", "mha_reference", "prefix_window_attention",
+           "slab_decode_attention"]
 
 _NEG_INF = -1e30          # finite "masked" score, as in the JAX package
 _LOG2E = 1.4426950408889634
@@ -1192,6 +1200,8 @@ def decode_attention(q, k, v, lengths, *, sm_scale: Optional[float] = None,
     taken from ``lengths``: the same function with no broadcast and no
     mask tensor (:func:`_decode_kernel` on CUDA, launch counter
     ``flash_attention_masked``; :func:`_decode_reference` on the CPU).
+    A bf16 cache the kernel cannot read in place
+    (:func:`_decode_in_place`) runs on a contiguous copy of k and v.
     Caches the decode kernel has no instance for (groups other than 1,
     2, 4, 8; head dims other than 64 and 128; fp32 and fp16) take the
     JAX package's branch, the broadcast and the masked flash forward on
@@ -1229,6 +1239,11 @@ def decode_attention(q, k, v, lengths, *, sm_scale: Optional[float] = None,
         elif group in _DECODE_KERNEL_GROUPS \
                 and d in _DECODE_KERNEL_HEAD_DIMS \
                 and q.dtype == k.dtype == v.dtype == torch.bfloat16:
+            if not _decode_in_place(k, v):
+                # a layout the kernel cannot step through: a fresh
+                # (aligned, contiguous) copy of the layer
+                k, v = (t.clone(memory_format=torch.contiguous_format)
+                        for t in (k, v))
             out = _decode_kernel(qg.contiguous(), k, v, lengths.contiguous(),
                                  scale)
         else:
@@ -1280,6 +1295,19 @@ def _decode_reference(qg, k, v, lengths, scale):
     return (out / torch.where(l == 0, torch.ones_like(l), l)).to(qg.dtype)
 
 
+def _decode_in_place(k, v) -> bool:
+    """Whether the decode kernel reads ``k``/``v`` ``[b, kv_heads, S,
+    d]`` where they lie: equal strides, contiguous ``[S, d]`` rows, slot
+    and head strides that are multiples of 8 elements (whole 16-byte
+    rows) and 16-byte aligned bases.  ``decode_attention`` copies any
+    other layout before the launch."""
+    d = k.shape[3]
+    return (k.stride() == v.stride() and k.stride(3) == 1
+            and k.stride(2) == d and k.stride(1) % 8 == 0
+            and k.stride(0) % 8 == 0 and k.data_ptr() % 16 == 0
+            and v.data_ptr() % 16 == 0)
+
+
 def _decode_kernel(qg, k, v, lengths, scale):
     """The decode kernel (``csrc/flash_attention.cu``,
     ``apex_flash_decode``): ``qg [b, kvh, group, d]`` contiguous bf16
@@ -1300,14 +1328,11 @@ def _decode_kernel(qg, k, v, lengths, scale):
             raise ValueError(f"{name} is on {t.device}, q on {qg.device}")
     if lengths.device != qg.device:
         raise ValueError(f"lengths is on {lengths.device}, q on {qg.device}")
-    if k.stride() != v.stride() or k.stride(3) != 1 or k.stride(2) != d \
-            or k.stride(1) % 8 or k.stride(0) % 8:
+    if not _decode_in_place(k, v):
         raise ValueError(
-            f"k/v must have equal strides, contiguous [S, {d}] rows and "
-            f"slot and head strides that are multiples of 8 elements; got "
-            f"k {k.stride()} v {v.stride()}")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("k/v must be 16-byte aligned")
+            f"k/v must have equal strides, contiguous [S, {d}] rows, slot "
+            f"and head strides that are multiples of 8 elements and "
+            f"16-byte aligned bases; got k {k.stride()} v {v.stride()}")
     if b > 65535 or kvh > 65535 or s_cache < 1:
         raise ValueError(f"decode kernel takes up to 65535 slots and kv "
                          f"heads and a nonempty cache, got b {b}, kv_heads "
@@ -1335,6 +1360,63 @@ def _decode_kernel(qg, k, v, lengths, scale):
         counters.zero_()      # whatever a failed launch left behind
     _build.check(err, "flash_attention_masked")
     return out
+
+
+def slab_decode_attention(q, win_k, win_v, lengths,
+                          *, sm_scale: Optional[float] = None):
+    """Verify-step attention: a slab of ``S`` drafted tokens per slot
+    scores the slot's cache window, causally within the slab.
+
+    The slab's own k/v have already been appended at positions
+    ``[lengths, lengths + S)``, so query row ``r`` (position ``lengths +
+    r``) sees window columns ``j <= lengths + r``; ``S = 1`` is
+    :func:`decode_attention`'s masking.
+
+    * ``q``: ``[slots, h, S, d]``.
+    * ``win_k``/``win_v``: ``[slots, kv_heads, W, d]``, the slot's whole
+      window (the dense cache's layer, or the paged pool's gathered
+      window).
+    * ``lengths``: ``[slots]`` int32, live tokens before the slab.
+
+    A row past the window (``lengths + r >= W``: its append was
+    dropped) is fully masked and emits 0.  Numerics are
+    :func:`decode_attention`'s plain grouped chain: fp32 scores from
+    the operands, an fp32 softmax, p rounded to the value type for
+    P·V, no kv broadcast materialized.  The JAX package computes this in
+    XLA with no Pallas kernel; here it is plain PyTorch on every
+    device."""
+    slots, h, sq, d = q.shape
+    if win_k.shape != win_v.shape or win_k.dim() != 4 \
+            or win_k.shape[0] != slots or win_k.shape[3] != d:
+        raise ValueError(
+            f"window k/v must be [{slots}, kv_heads, W, {d}] and "
+            f"equal-shaped; got win_k {tuple(win_k.shape)} win_v "
+            f"{tuple(win_v.shape)}")
+    kvh, w = win_k.shape[1], win_k.shape[2]
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"kv_heads ({kvh}) must divide query heads ({h})")
+    if tuple(lengths.shape) != (slots,):
+        raise ValueError(
+            f"lengths must be [{slots}], got {tuple(lengths.shape)}")
+    scale = (d ** -0.5) if sm_scale is None else sm_scale
+    group = h // kvh
+    qg = q.reshape(slots, kvh, group, sq, d).float()
+    s = torch.einsum("bkgqd,bkwd->bkgqw", qg, win_k.float()) * scale
+    col = torch.arange(w, device=q.device)[None, None, :]      # [1, 1, W]
+    row = torch.arange(sq, device=q.device)[None, :, None]     # [1, S, 1]
+    pos = lengths.long()[:, None, None] + row         # [slots, S, 1]
+    # a row past the window masks fully: without the pos < w term it
+    # would see the whole window and emit plausible garbage
+    live = ((col <= pos) & (pos < w))[:, None, None]   # [slots, 1, 1, S, W]
+    s = torch.where(live, s, torch.full_like(s, _NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = p / p.sum(dim=-1, keepdim=True)
+    # fully masked rows emit 0, not the softmax of a constant
+    p = torch.where(m <= _MASKED_ROW_THRESH, torch.zeros_like(p), p)
+    out = torch.einsum("bkgqw,bkwd->bkgqd", p.to(win_v.dtype).float(),
+                       win_v.float())
+    return out.reshape(slots, h, sq, d).to(q.dtype)
 
 
 def prefix_window_attention(q, k, v, win_k, win_v, start,

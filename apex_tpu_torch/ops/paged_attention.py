@@ -33,6 +33,15 @@ no call copies the pool.  On the kernel route a CPU tensor takes the
 kernel's plain version, which gathers the slots' windows and scores
 them in fp32 in base 2.
 
+Speculative verify, port of ``paged_slab_attention``: ``S`` drafted
+rows per slot against the slot's window, causal within the slab.  The
+JAX package gathers the window and scores it in XLA; here that is the
+plain version (the CPU's).  On CUDA the slab runs on the paged decode
+kernels: row ``r`` of slot ``b`` is a q_len-1 decode of a virtual slot
+with ``b``'s page-table row and ``lengths[b] + r + 1`` live tokens (0
+past the window), so ``slots * S`` virtual slots go through one call of
+:func:`paged_decode_attention`'s route, with no gather.
+
 Fused-block decode, port of ``fused_block_decode`` and its dispatch
 knobs (``decode_fusion``, ``fusion_min_pages``,
 ``resolve_decode_fusion``): a whole decoder layer for every slot as one
@@ -60,7 +69,7 @@ from apex_tpu_torch.ops.attention import (_LOG2E, _NEG_INF, _WIDE_DTYPES,
                                           _WIDE_MAX_HEAD_DIM, _int_knob)
 
 __all__ = ["paged_decode_attention", "paged_decode_reference",
-           "paged_xla_max_pages",
+           "paged_xla_max_pages", "paged_slab_attention",
            "check_kernel_page_size", "decode_fusion", "fusion_min_pages",
            "resolve_decode_fusion", "fused_block_decode",
            "fused_block_reference"]
@@ -98,21 +107,28 @@ _PAGED_XLA_MAX_PAGES = 64
 _PAGED_XLA_MAX_PAGES_ENV = "APEX_TPU_PAGED_XLA_MAX_PAGES"
 
 
-def _paged_route(q_dtype, pool_dtype, group: int, d: int, ps: int) -> str:
+def _paged_route(q_dtype, pool_dtype, group: int, d: int, ps: int,
+                 page_stride: Optional[int] = None, ptrs=()) -> str:
     """The kernel a paged decode call takes: ``"paged_attention"``, the
     mma instance (bf16 query and pool, groups 1/2/4/8, head dims 64/128,
-    pages of 16 to 128), or ``"paged_attention_wide"`` (#7w) for every
-    other pool: fp32, bf16 or fp16, any group and page size, head dims
-    up to 256, on the mode :func:`_wide_paged_tma` picks.  Past 256
-    raises (ROADMAP V9), as does a page size below 1."""
+    pages of 16 to 128, and a view it can read: a page stride that is a
+    multiple of 8 elements and 16-byte aligned bases ``ptrs``), or
+    ``"paged_attention_wide"`` (#7w) for every other pool: fp32, bf16 or
+    fp16, any group, page size and layout, head dims up to 256, on the
+    mode :func:`_wide_paged_tma` picks.  ``page_stride=None`` asks for
+    the engine's own pool, which is aligned.  Past 256 raises (ROADMAP
+    V9), as does a page size below 1."""
     if ps < 1:
         raise ValueError(f"page_size must be positive, got {ps}")
     if not 1 <= d <= _WIDE_MAX_HEAD_DIM:
         raise ValueError(
             f"paged attention kernels take head_dim 1..{_WIDE_MAX_HEAD_DIM}, "
             f"got {d}: head dims past {_WIDE_MAX_HEAD_DIM} are ROADMAP V9")
+    readable = (page_stride is None or page_stride % 8 == 0) \
+        and all(p % 16 == 0 for p in ptrs)
     if q_dtype == pool_dtype == torch.bfloat16 and group in _KERNEL_GROUPS \
-            and d in _KERNEL_HEAD_DIMS and ps in _KERNEL_PAGE_SIZES:
+            and d in _KERNEL_HEAD_DIMS and ps in _KERNEL_PAGE_SIZES \
+            and readable:
         return "paged_attention"
     return "paged_attention_wide"
 
@@ -240,25 +256,28 @@ def _check_operands(q3, k_pages, v_pages, page_table, lengths):
             f"lengths must be [{slots}], got {tuple(lengths.shape)}")
 
 
+def _window(pages, page_table):
+    """Each slot's virtual window gathered from one layer's pool
+    ``[pages, kvh, ps, d]`` through ``page_table [slots, mpps]``:
+    ``[slots, kvh, mpps * ps, d]``, position for position the dense
+    cache's layout."""
+    slots, mpps = page_table.shape
+    _, kvh, ps, d = pages.shape
+    g = pages[page_table.long()]                  # [slots, mpps, kvh, ps, d]
+    return g.permute(0, 2, 1, 3, 4).reshape(slots, kvh, mpps * ps, d)
+
+
 def paged_decode_reference(q3, k_pages, v_pages, page_table, lengths,
                            scale: float):
     """Plain version: gather each slot's virtual window and score it
     (fp32, base-2 softmax; p rounded to the value dtype for P·V, the
     normalizer from the fp32 p).  ``q3 [slots, h, d]``."""
     slots, h, d = q3.shape
-    _, kvh, ps, _ = k_pages.shape
-    mpps = page_table.shape[1]
-    group = h // kvh
-    idx = page_table.long()
-
-    def window(pages):
-        g = pages[idx]                            # [slots, mpps, kvh, ps, d]
-        return g.permute(0, 2, 1, 3, 4).reshape(slots, kvh, mpps * ps, d)
-
-    kw, vw = window(k_pages), window(v_pages)
-    qg = q3.reshape(slots, kvh, group, d).float()
+    kvh = k_pages.shape[1]
+    kw, vw = _window(k_pages, page_table), _window(v_pages, page_table)
+    qg = q3.reshape(slots, kvh, h // kvh, d).float()
     s = torch.einsum("bkgd,bkwd->bkgw", qg, kw.float()) * (scale * _LOG2E)
-    live = (torch.arange(mpps * ps, device=q3.device)[None, :]
+    live = (torch.arange(kw.shape[2], device=q3.device)[None, :]
             < lengths.long()[:, None])[:, None, None, :]
     s = torch.where(live, s, torch.full_like(s, _NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
@@ -275,16 +294,8 @@ def _gathered_decode(q3, k_pages, v_pages, page_table, lengths, scale):
     windows gathered from the pool (``[slots, kvh, mpps * ps, d]``) and
     scored by ``decode_attention``'s plain grouped chain."""
     from apex_tpu_torch.ops.attention import decode_attention
-    slots, _, d = q3.shape
-    _, kvh, ps, _ = k_pages.shape
-    mpps = page_table.shape[1]
-    idx = page_table.long()
-
-    def window(pages):
-        g = pages[idx]                            # [slots, mpps, kvh, ps, d]
-        return g.permute(0, 2, 1, 3, 4).reshape(slots, kvh, mpps * ps, d)
-
-    return decode_attention(q3, window(k_pages), window(v_pages), lengths,
+    return decode_attention(q3, _window(k_pages, page_table),
+                            _window(v_pages, page_table), lengths,
                             sm_scale=scale, use_kernel=False)
 
 
@@ -468,7 +479,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     elif q3.device.type == "cuda":
         route = _paged_route(q3.dtype, k_pages.dtype,
                              q3.shape[1] // k_pages.shape[1], d,
-                             k_pages.shape[2])
+                             k_pages.shape[2], k_pages.stride(0),
+                             (k_pages.data_ptr(), v_pages.data_ptr()))
         call = _kernel_call if route == "paged_attention" else _wide_call
         out = call(q3.contiguous(), k_pages, v_pages, page_table, lengths,
                    scale)
@@ -476,6 +488,69 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         raise ValueError(f"paged_decode_attention runs on cuda or cpu, got "
                          f"{q3.device}")
     return out if squeezed else out[:, :, None, :]
+
+
+def paged_slab_reference(q, k_pages, v_pages, page_table, lengths,
+                         scale: float):
+    """Plain version of :func:`paged_slab_attention`, the JAX package's
+    function: each slot's virtual window gathered from the pool
+    (``[slots, kv_heads, max_pages_per_slot * page_size, d]``) and scored
+    by :func:`~apex_tpu_torch.ops.attention.slab_decode_attention`."""
+    from apex_tpu_torch.ops.attention import slab_decode_attention
+    return slab_decode_attention(q, _window(k_pages, page_table),
+                                 _window(v_pages, page_table), lengths,
+                                 sm_scale=scale)
+
+
+def _slab_fold(q, page_table, lengths, window: int):
+    """The slab as ``slots * S`` virtual slots of a q_len-1 decode: q
+    ``[slots * S, h, d]`` (row ``r`` of slot ``b`` at ``b * S + r``),
+    each slot's page-table row repeated ``S`` times, and the lengths
+    ``lengths[b] + r + 1``, or 0 for a row past the ``window`` (computed
+    on the device: no host read)."""
+    slots, h, sq, d = q.shape
+    q3 = q.transpose(1, 2).reshape(slots * sq, h, d).contiguous()
+    table = page_table.repeat_interleave(sq, dim=0)
+    pos = lengths.to(torch.int32)[:, None] + torch.arange(
+        sq, dtype=torch.int32, device=q.device)[None]
+    live = torch.where(pos < window, pos + 1, torch.zeros_like(pos))
+    return q3, table, live.reshape(-1).contiguous()
+
+
+def paged_slab_attention(q, k_pages, v_pages, page_table, lengths, *,
+                         sm_scale: Optional[float] = None):
+    """Speculative-verify attention against the paged pool: ``S``
+    drafted tokens per slot, already appended at positions ``[lengths,
+    lengths + S)``, score the slot's virtual window, causally within the
+    slab.
+
+    * ``q``: ``[slots, h, S, d]``.
+    * ``k_pages``/``v_pages``: ``[pages, kv_heads, page_size, d]``, one
+      layer's (possibly strided) view of the pool.
+    * ``page_table``: ``[slots, max_pages_per_slot]`` int32.
+    * ``lengths``: ``[slots]`` int32, live tokens before the slab.
+
+    Returns ``[slots, h, S, d]``; a row past the window emits 0.  On the
+    CPU the plain version (:func:`paged_slab_reference`).  On CUDA the
+    slab folds into ``slots * S`` virtual slots of a q_len-1 decode
+    (:func:`_slab_fold`) and runs as one call of the paged decode
+    kernel :func:`_paged_route` names (#7, or #7w for every other pool),
+    which launches or raises: ``slots * S`` is limited to the kernels'
+    65535 slots."""
+    slots, h, sq, d = q.shape
+    _check_operands(q[:, :, 0], k_pages, v_pages, page_table, lengths)
+    scale = (d ** -0.5) if sm_scale is None else sm_scale
+    if q.device.type == "cpu":
+        return paged_slab_reference(q, k_pages, v_pages, page_table, lengths,
+                                    scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_slab_attention runs on cuda or cpu, got "
+                         f"{q.device}")
+    q3, table, live = _slab_fold(q, page_table, lengths,
+                                 page_table.shape[1] * k_pages.shape[2])
+    out = paged_decode_attention(q3, k_pages, v_pages, table, live,
+                                 sm_scale=scale, use_kernel=True)
+    return out.reshape(slots, sq, h, d).transpose(1, 2)
 
 
 # --------------------------------------------------------------------------

@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # all phases, one card
 
     python3 chip_smoke.py --phases kernels,train   # the training slice
+    python3 chip_smoke.py --phases spec            # speculative decoding
 
 1. **Build.**  Prints the card's name and power limit, compiles the
    port's CUDA kernels from ``apex_tpu_torch/csrc`` (``nvcc``, sm_90a)
@@ -70,7 +71,18 @@
    bf16 pool at group 16 and head dim 64, head dim 80, pages 8 and 256,
    fp16 pools at GPT-3 1.3B's and Llama-3-8B's decode shapes (beside #7
    on the same pools in bf16), each with the mode the host predicate
-   picks (TMA, or CUDA cores).
+   picks (TMA, or CUDA cores); the verify step's attention,
+   ``paged_slab_attention`` folded into 8 x 5 virtual slots of one paged
+   decode call, at Llama-3-8B's serve (#7: 8 slots, S = 5, lengths
+   0..4096, one slot ending within S rows of its window) and GPT-3 1.3B's
+   fp32 pool (#7w), against the kernel's plain version on the folded
+   operands and against the plain slab function, timed beside the plain
+   version, the same kernel's q_len-1 decode and a bound that reads the
+   live k/v once; and F4's layouts: a bf16 pool at #7's shape 8 bytes
+   into its buffer and with a page stride of 4 mod 8 (both on #7w's
+   CUDA-core mode), a dense bf16 cache at ``[8, 32, 1, 8192]`` whose slot
+   stride the decode kernel cannot step (the kernel on a contiguous
+   copy).
    Prints
    the max
    |diff| against its stated limit, the kernel's time, its bound (the
@@ -266,6 +278,25 @@
    full depth (prefill on the padded #3, decode on #7w) and trained six
    steps at 4 layers, its only cut (the padded #3d, #4d).
 
+16. **Spec** (after width).  Speculative decoding (``spec_k=4``)
+   through the scheduler's verify waves on the paged pool: Llama-3-8B
+   at full width and depth (the serve's seed, weights and geometry)
+   with the default n-gram drafter, with a ``ReplayDrafter`` scripted
+   from a non-spec serve of the same prompts and with one scripted from
+   the n-gram serve's own streams; GPT-3 1.3B in
+   fp32 (#7w) with an ``EngineDrafter`` on a dense fp32 engine over the
+   same weight tensors (a self-draft; the tensors shared, peak memory
+   printed).  Each serve: its path kernel launched once a layer and
+   verify step (the other paged kernel never), the streams equal the
+   non-spec serve's up to a first difference at a token of top-2 margin
+   at most 0.5, the first and last requests' verify logits (two rounds
+   of 5) within TOL_LOGITS of the full forward, the scheduler's
+   conservation law; prints the verify steps, acceptance, the verify
+   steps' and the end-to-end tokens/s beside the non-spec serve's, a
+   verify step's wall time and peak memory, each beside the card's name
+   and power limit.  Its launches are added to the ``kernels`` line's
+   counts.
+
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed phase raises, so the
 script exits non-zero and prints no result; so does a machine without
@@ -317,6 +348,15 @@ FULL_CFG = dict(vocab_size=128256, hidden_size=4096, num_layers=32,
                 rope_theta=500000.0, rms_eps=1e-5)
 PROMPT_LENS = (128, 256, 384, 512, 1024, 1536, 1800, 2048)
 NEW_TOKENS = 32
+#: speculative decoding (the spec phase and the verify rows): drafts a
+#: round, the verify slab's rows, and the verify rounds whose logits are
+#: held against the full forward
+SPEC_K = 4
+SPEC_S = SPEC_K + 1
+SPEC_CHECK_ROUNDS = 2
+#: the self-drafting GPT serve's acceptance floor (the JAX package's
+#: EngineDrafter test: only a request's last, short rounds reject)
+SPEC_SELF_ACCEPT = 0.7
 #: max |diff| limits, kernel vs plain version on the same bf16 inputs.
 #: Both compute in fp32 and round to bf16; they differ by reduction
 #: order and by one bf16 rounding of the output (2^-8 relative), so the
@@ -329,6 +369,14 @@ TOL_ATTN_LSE = 1e-3              # base-2 lse, fp32 on both sides
 #: and read ~0.05, so a dropped page or tile of it moves them by more
 #: than this and less than any one absolute limit)
 TOL_PAGED_OUT = 2.0 ** -6
+#: the folded verify slab against the plain slab function (the JAX
+#: package's: the window gathered, p normalised in base e, then rounded
+#: to the pool's type): the kernel's own plain version rounds p before
+#: normalising, in base 2, and the two plain versions alone differ by up
+#: to 2^-7 of a row's max at bf16 (2^-20 at fp32); the fold is also held
+#: to TOL_PAGED_OUT (TOL_WIDE_OUT at fp32) against the kernel's plain
+#: version on the folded operands
+TOL_SLAB_PLAIN = 2.0 ** -5
 #: the fused decode block (y, k_tok, v_tok, bf16): a few ulps of each
 #: output's magnitude, and a relative L2 (the kernel and its plain
 #: version round the same values at the same points; sums run in
@@ -959,7 +1007,7 @@ def phase_kernels(dev, gen):
     for off, check in ((3, _split_kernels), (4, _shim_kernels),
                        (5, _flash_fwd_rows), (6, _masked_rows),
                        (7, _fused_gpt_kernel), (8, _md_rows),
-                       (9, _wide_rows)):
+                       (9, _wide_rows), (10, _verify_rows)):
         sgen = torch.Generator(device=dev)
         sgen.manual_seed(gen.initial_seed() + off)
         check(dev, sgen, recs)
@@ -2749,7 +2797,7 @@ def _serve(engine, prompts, label: str):
         raise AssertionError("a generated token is outside the vocab")
     return dict(outs=outs, launches=launches, reg=reg, peak_bytes=peak,
                 ttft_mean_s=ttft.sum() / ttft.count(),
-                decode_tokens_per_s=decode_tokens / decode_s)
+                decode_tokens_per_s=decode_tokens / decode_s, wall_s=wall)
 
 
 N_CHECK = 8
@@ -2956,6 +3004,277 @@ def phase_serve(dev, seed: int, profile: bool = False):
                 fused_decode_tokens_per_s=fserved["decode_tokens_per_s"],
                 dense_logit_err=worst_dense,
                 dense_decode_tokens_per_s=dserved["decode_tokens_per_s"])
+
+
+def _spec_serve(engine, prompts, label: str, smi: str, drafter=None):
+    """The scheduler's speculative serve (``engine.spec_k`` > 0, the
+    drafter given or the default n-gram one) with the launch counters
+    and the telemetry registry zeroed just before: prints the verify
+    steps, the drafted, accepted and emitted tokens, the verify steps'
+    mean wall time and their tokens/s (emitted over the verify steps'
+    wall, the token read included, drafting not), the end-to-end
+    tokens/s (generated over the serve's wall) and peak memory, each
+    beside the card; holds the scheduler's conservation law (every
+    emitted token reached a request: emitted = generated - requests;
+    accepted <= drafted)."""
+    from apex_tpu_torch import observability as obs
+    from apex_tpu_torch.inference import SlotScheduler
+    from apex_tpu_torch.ops import _build
+    reg = obs.reset_global_registry()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched = SlotScheduler(engine, drafter=drafter)
+    uids = [sched.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    done = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = [done[u] for u in uids]
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tel = sched.telemetry
+    steps = int(reg.declared("infer_verify_dispatch_total").total())
+    drafted, accepted, emitted, generated = (
+        int(c.total()) for c in (tel.spec_drafted, tel.spec_accepted,
+                                 tel.spec_emitted, tel.tokens_generated))
+    verify_s = tel.spec_step_seconds
+    print(f"{label}: {len(prompts)} requests, prompts "
+          f"{[len(p) for p in prompts]}, spec_k {engine.spec_k}, drafter "
+          f"{type(sched.drafter).__name__}, {generated} tokens in "
+          f"{wall:.3f} s = {generated / wall:.1f} tokens/s end to end "
+          f"[{smi}]")
+    print(f"  {steps} verify steps: drafted {drafted}, accepted {accepted} "
+          f"(acceptance {accepted / max(drafted, 1):.3f}), emitted "
+          f"{emitted} ({emitted / steps:.2f} a step); a verify step "
+          f"{1e3 * verify_s / steps:.2f} ms, {emitted / verify_s:.1f} "
+          f"tokens/s over the verify steps [{smi}]")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB [{smi}]; kernel "
+          f"launches during the serve: {launches}")
+    if any(len(o) != NEW_TOKENS for o in outs) or any(
+            not 0 <= t < engine.cfg.vocab_size for o in outs for t in o):
+        raise AssertionError(f"{label}: expected {NEW_TOKENS} in-vocab "
+                             f"tokens per request")
+    if steps <= 0 or emitted != generated - len(prompts) \
+            or accepted > drafted:
+        raise AssertionError(f"{label}: the speculation counts break the "
+                             f"scheduler's conservation law")
+    return dict(outs=outs, launches=launches, reg=reg, peak_bytes=peak,
+                steps=steps, drafted=drafted, accepted=accepted,
+                emitted=emitted, wall_s=wall, verify_s=verify_s,
+                tokens_per_s=generated / wall,
+                verify_tokens_per_s=emitted / verify_s)
+
+
+def _hold_stream(label, engine, prompt, got, want) -> bool:
+    """The speculative stream against the non-spec serve's: equal, or
+    first differing at a token whose full-forward top-2 margin is at most
+    2 x TOL_LOGITS (the verify step's products run at another batch
+    shape and round differently, so a near tie may fall either way, and
+    the streams part there).  Returns whether the streams are equal."""
+    n = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             len(want))
+    if n == len(want):
+        return True
+    seq = torch.tensor([prompt + want[:n]], dtype=torch.int32,
+                       device=engine.device)
+    with torch.no_grad():
+        last = _full_forward(engine, seq)[-1, 0].float()
+    top2 = last.topk(2).values
+    margin = float(top2[0] - top2[1])
+    print(f"  {label} (prompt {len(prompt)}): streams part at token {n} "
+          f"(top-2 margin {margin:.4f}, limit {2 * TOL_LOGITS})")
+    if margin > 2 * TOL_LOGITS:
+        raise AssertionError(f"{label}: the speculative stream differs at a "
+                             f"decided token")
+    return False
+
+
+def _check_verify_logits(label, engine, prompt, fed):
+    """Prefill ``prompt`` into slot 0, then ``SPEC_CHECK_ROUNDS`` verify
+    forwards (the function the engine's verify step runs) of slabs of
+    the non-spec serve's tokens ``fed``, each followed by the slot's
+    advance by ``S``: the ``[rounds x S, vocab]`` verify logits against
+    the full forward of the prompt and those tokens (within TOL_LOGITS;
+    the argmax equal where the top-2 margin exceeds 2 x TOL_LOGITS)."""
+    from apex_tpu_torch.inference import kv_cache, models
+    n_fed = SPEC_CHECK_ROUNDS * SPEC_S
+    cache = engine.init_cache()
+    pages = None
+    if engine.paged:
+        alloc = engine.new_allocator()
+        pages = alloc.acquire(alloc.pages_needed(len(prompt) + n_fed))
+    cache, _, _ = engine.prefill(cache, prompt, 0, pages=pages)
+    active = torch.zeros(engine.slots, dtype=torch.bool, device=engine.device)
+    active[0] = True
+    rows = []
+    for r in range(SPEC_CHECK_ROUNDS):
+        slab = torch.zeros((engine.slots, SPEC_S), dtype=torch.int32,
+                           device=engine.device)
+        slab[0] = torch.tensor(fed[r * SPEC_S:(r + 1) * SPEC_S])
+        with torch.no_grad():
+            logits, cache = models.verify_forward(
+                engine.kind, engine.cfg, engine.params, cache, slab)
+        rows.append(logits[0].float())
+        cache, _ = kv_cache.advance_by(cache, active, SPEC_S)
+    got = torch.cat(rows)
+    seq = torch.tensor([prompt + list(fed[:n_fed])], dtype=torch.int32,
+                       device=engine.device)
+    with torch.no_grad():
+        ref = _full_forward(engine, seq)[len(prompt):, 0].float()
+    if not torch.isfinite(got).all() or got.shape != ref.shape:
+        raise AssertionError(f"{label}: verify logits not finite or "
+                             f"misshaped")
+    diff = (got - ref).abs().max().item()
+    top2 = ref.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * TOL_LOGITS
+    agree = ref.argmax(-1) == got.argmax(-1)
+    print(f"check {label} (prompt {len(prompt)}): {SPEC_CHECK_ROUNDS} "
+          f"verify rounds of {SPEC_S}: max|verify - full| {diff:.4f} (limit "
+          f"{TOL_LOGITS}), argmax equal at {int(agree.sum())}/{n_fed} "
+          f"positions, {int(decided.sum())} with top-2 margin > "
+          f"{2 * TOL_LOGITS}")
+    if diff > TOL_LOGITS:
+        raise AssertionError(f"{label}: verify logits off by {diff}")
+    if not bool(agree[decided].all()):
+        raise AssertionError(f"{label}: a token with a clear top-2 margin "
+                             f"differs")
+    return diff
+
+
+def _spec_gates(label, engine, prompts, spec, base, kernel, layers):
+    """What every speculative serve is held to: its path kernel launched
+    once a layer and verify step and the other paged kernel never, the
+    streams against the non-spec serve's (:func:`_hold_stream`), and the
+    first and last requests' verify logits against the full forward
+    (:func:`_check_verify_logits`)."""
+    other = ({"paged_attention", "paged_attention_wide"} - {kernel}).pop()
+    got = spec["launches"]
+    print(f"  {label}: {kernel} launched {got[kernel]} times (want "
+          f"{layers} x {spec['steps']} verify steps), {other} {got[other]} "
+          f"(want 0)")
+    if got[kernel] != layers * spec["steps"] or got[other]:
+        raise AssertionError(f"{label}: the verify steps did not run one "
+                             f"{kernel} launch a layer")
+    equal = sum(_hold_stream(f"{label} request {i}", engine, p, g, w)
+                for i, (p, g, w) in enumerate(zip(prompts, spec["outs"],
+                                                  base["outs"])))
+    print(f"  {label}: {equal}/{len(prompts)} streams equal the non-spec "
+          f"serve's whole")
+    return max(_check_verify_logits(f"{label} request {i}", engine,
+                                    prompts[i], base["outs"][i])
+               for i in (0, len(prompts) - 1))
+
+
+def phase_spec(dev, seed: int):
+    """Speculative decoding on the paged pool, ``spec_k`` = 4, through the
+    scheduler's verify waves (every decode token comes from a verify
+    step): Llama-3-8B at full width and depth (the serve phase's seed,
+    weights and geometry) with the default n-gram drafter, with a
+    ``ReplayDrafter`` scripted from the non-spec serve's own outputs and
+    with one scripted from the n-gram serve's (the verify path's own
+    stream: acceptance near its ceiling);
+    GPT-3 1.3B in fp32 (the JAX package's default parameters; its pool
+    runs #7w) with an ``EngineDrafter`` on a dense fp32 engine over the
+    same weight tensors (a self-draft).  Each beside a non-spec serve of
+    the same prompts on the same weights, held by :func:`_spec_gates`;
+    returns the launches of the speculative serves."""
+    from apex_tpu_torch.inference import (EngineDrafter, InferenceEngine,
+                                          ReplayDrafter)
+    from apex_tpu_torch.transformer.testing import GPTConfig, LlamaConfig
+    from apex_tpu_torch.utils import tree_leaves_with_path
+    smi = _smi()
+    total: dict = {}
+
+    def add(launches):
+        for k_, n in launches.items():
+            total[k_] = total.get(k_, 0) + n
+
+    cfg = LlamaConfig(**FULL_CFG)
+    params = _random_llama(cfg, dev, seed)
+    geometry = dict(slots=8, max_seq=4096, page_size=64, num_pages=512,
+                    device=dev)
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
+               for n in PROMPT_LENS]
+    base = _serve(InferenceEngine("llama", cfg, params, **geometry), prompts,
+                  "spec base (Llama-3-8B, no speculation)")
+    print(f"  spec base: decode {base['decode_tokens_per_s']:.1f} tokens/s, "
+          f"{sum(map(len, base['outs'])) / base['wall_s']:.1f} tokens/s end "
+          f"to end [{smi}]")
+    engine = InferenceEngine("llama", cfg, params, spec_k=SPEC_K, **geometry)
+    runs = {}
+    # the replayed scripts: the non-spec serve's streams, then the n-gram
+    # spec serve's own (random bf16 streams part at near ties, where the
+    # verify step's products at another batch shape round differently)
+    for label in ("spec llama ngram", "spec llama replay",
+                  "spec llama replay own"):
+        script = {"spec llama replay": base["outs"],
+                  "spec llama replay own": runs.get(
+                      "spec llama ngram", {}).get("outs")}.get(label)
+        drafter = None if script is None else ReplayDrafter(
+            dict(zip(map(tuple, prompts), script)))
+        spec = _spec_serve(engine, prompts, label, smi, drafter)
+        if int(spec["reg"].declared("infer_decode_dispatch_total").total()):
+            raise AssertionError(f"{label}: a decode step ran")
+        spec["logit_err"] = _spec_gates(label, engine, prompts, spec, base,
+                                        "paged_attention", cfg.num_layers)
+        add(spec["launches"])
+        runs[label] = spec
+    if runs["spec llama replay"]["accepted"] <= 0:
+        raise AssertionError("the replayed script was never accepted")
+    same = sum(a == b for a, b in zip(runs["spec llama replay own"]["outs"],
+                                      runs["spec llama ngram"]["outs"]))
+    print(f"  spec llama replay own: {same}/{len(prompts)} streams equal the "
+          f"n-gram spec serve's, whose streams it replayed")
+    del engine, params, base
+    torch.cuda.empty_cache()
+
+    gcfg = GPTConfig(**GPT_CFG)
+    gparams = _random_gpt(gcfg, dev, seed + 10, dtype=torch.float32)
+    rng = np.random.RandomState(seed + 10)
+    gprompts = [rng.randint(0, gcfg.vocab_size, size=n).tolist()
+                for n in GPT_PROMPT_LENS]
+    ggeo = dict(slots=8, max_seq=gcfg.max_seq_length,
+                cache_dtype=torch.float32, device=dev)
+    gbase = _serve(InferenceEngine("gpt", gcfg, gparams, page_size=64,
+                                   **ggeo), gprompts,
+                   "spec base (GPT-3 1.3B fp32, no speculation)")
+    print(f"  spec base: decode {gbase['decode_tokens_per_s']:.1f} "
+          f"tokens/s, {sum(map(len, gbase['outs'])) / gbase['wall_s']:.1f} "
+          f"tokens/s end to end [{smi}]")
+    target = InferenceEngine("gpt", gcfg, gparams, page_size=64,
+                             spec_k=SPEC_K, **ggeo)
+    draft = InferenceEngine("gpt", gcfg, gparams, **ggeo)
+    shared = all(a.data_ptr() == b.data_ptr() for (_, a), (_, b) in zip(
+        tree_leaves_with_path(draft.params),
+        tree_leaves_with_path(target.params)))
+    weights = sum(t.numel() * t.element_size()
+                  for _, t in tree_leaves_with_path(gparams))
+    print(f"spec gpt: the draft engine shares the target's weight tensors: "
+          f"{shared} ({weights / 2**30:.2f} GiB once); target pool "
+          f"{target.cache_hbm_bytes() / 2**30:.2f} GiB, draft cache "
+          f"{draft.cache_hbm_bytes() / 2**30:.2f} GiB")
+    if not shared:
+        raise AssertionError("the draft engine copied the weights")
+    spec = _spec_serve(target, gprompts, "spec gpt self-draft", smi,
+                       EngineDrafter(draft))
+    want_peak = weights + target.cache_hbm_bytes() + draft.cache_hbm_bytes()
+    print(f"  spec gpt self-draft: peak {spec['peak_bytes'] / 2**30:.2f} GiB "
+          f"against weights + pool + draft cache "
+          f"{want_peak / 2**30:.2f} GiB [{smi}]")
+    spec["logit_err"] = _spec_gates("spec gpt self-draft", target, gprompts,
+                                    spec, gbase, "paged_attention_wide",
+                                    gcfg.num_layers)
+    rate = spec["accepted"] / spec["drafted"]
+    if rate < SPEC_SELF_ACCEPT:
+        raise AssertionError(f"the self-draft's acceptance {rate:.3f} is "
+                             f"under {SPEC_SELF_ACCEPT}")
+    add(spec["launches"])
+    runs["spec gpt self-draft"] = spec
+    del target, draft, gparams, gbase
+    torch.cuda.empty_cache()
+    return dict(launches=total, runs=runs)
 
 
 #: the three GPT serves: the paged pool unfused, the paged pool with
@@ -6130,12 +6449,15 @@ def _wide_paged_cases():
 
 
 def _wide_paged_inputs(dev, gen, dt, kvh, group, d, ps, lengths_l,
-                       layers: int = 4):
+                       layers: int = 4, mpps=None, rows=None):
     """8 slots of ``lengths_l`` over a ``layers``-layer pool of ``dt``
     holding only the live pages (and a trash page), pages shuffled: q,
-    each layer's strided view, the page table and the lengths."""
-    mpps = -(-max(lengths_l) // ps)
-    need = [-(-n // ps) for n in lengths_l]
+    each layer's strided view, the page table and the lengths.  With
+    ``rows``, a verify slab of that many rows a slot: q ``[slots, h,
+    rows, d]`` and the pages its rows reach in a window of ``mpps``
+    pages."""
+    mpps = mpps or -(-max(lengths_l) // ps)
+    need = [-(-min(n + (rows or 0), mpps * ps) // ps) for n in lengths_l]
     n_pages = sum(need) + 1
     pool_k, pool_v = (torch.randn(n_pages, layers, kvh, ps, d, generator=gen,
                                   device=dev).to(dt) for _ in range(2))
@@ -6147,8 +6469,8 @@ def _wide_paged_inputs(dev, gen, dt, kvh, group, d, ps, lengths_l,
         table[i, :n] = perm[cursor:cursor + n].to(torch.int32)
         cursor += n
     lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
-    q = torch.randn(len(lengths_l), kvh * group, d, generator=gen,
-                    device=dev).to(dt)
+    q = torch.randn(len(lengths_l), kvh * group, *((rows,) if rows else ()),
+                    d, generator=gen, device=dev).to(dt)
     views = [(pool_k[:, i], pool_v[:, i]) for i in range(layers)]
     return q, views, table, lengths
 
@@ -6234,6 +6556,187 @@ def _wide_paged_rows(dev, gen, recs) -> None:
                     q, kp, vp, table, lengths), 20))
         del views, kp, vp, got, again, ref, cyc
         torch.cuda.empty_cache()
+
+
+def _slab_rows(t):
+    """``[slots, h, S, d]`` as ``[slots * S, h, d]``: a slab row a slot."""
+    return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3])
+
+
+#: the folded verify slab's rows: Llama-3-8B's serve (8 slots, group 4,
+#: page 64, a 4096-position window) on #7, GPT-3 1.3B's fp32 pool (group
+#: 1, page 64, 2048 positions) on #7w; one slot ends within S rows of its
+#: window, one at it
+VERIFY_CASES = (
+    ("llama bf16", torch.bfloat16, 8, 4, 128, 64, 64, "paged_attention",
+     [0, 1, 64, 1500, 2048, 3000, 4093, 4096]),
+    ("gpt fp32", torch.float32, 16, 1, 128, 64, 32, "paged_attention_wide",
+     [0, 1, 128, 512, 1000, 1536, 2045, 2048]))
+
+
+def _verify_rows(dev, gen, recs) -> None:
+    """The verify step's attention, :func:`paged_slab_attention` (the
+    slab folded into 8 x S virtual slots of one paged decode call), at
+    :data:`VERIFY_CASES`, one layer of a four-layer pool read in place:
+    one launch of the case's kernel and none of the other, each slab row
+    within its own max of the plain version (the gathered window through
+    ``slab_decode_attention``; fp32 TOL_WIDE_OUT, bf16 TOL_PAGED_OUT),
+    rows past the window 0, the same bits twice; the fold's time over
+    the four layers in turn beside the plain version's, the same
+    kernel's q_len-1 decode on the pool, and the bound: the live k/v
+    bytes (each slot's ``min(length + S, window)`` tokens) read once and
+    q and the output once over 3.35 TB/s, against each row's products at
+    the type's rate.  Then F4's layouts: a bf16 pool at #7's shape 8
+    bytes into its buffer, and with a page stride of a multiple of 4
+    elements and not 8, each on #7w (no #7 launch) against the plain
+    version, timed beside #7 on the aligned pool; a dense bf16 cache at
+    the decode kernel's ``[8, 32, 1, 8192]`` with a slot stride the
+    kernel cannot step, one decode-kernel launch on a contiguous copy,
+    timed (the copy included) beside the same cache read in place."""
+    pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    from apex_tpu_torch.ops import _build
+    smi = _smi()
+    for tag, dt, kvh, group, d, ps, mpps, kernel, lengths_l in VERIFY_CASES:
+        q, views, table, lengths = _wide_paged_inputs(
+            dev, gen, dt, kvh, group, d, ps, lengths_l, mpps=mpps,
+            rows=SPEC_S)
+        kp, vp = views[1]
+        other = ({"paged_attention", "paged_attention_wide"}
+                 - {kernel}).pop()
+        before = _build.launch_counts()
+        got = pa.paged_slab_attention(q, kp, vp, table, lengths)
+        again = pa.paged_slab_attention(q, kp, vp, table, lengths)
+        after = _build.launch_counts()
+        if after[kernel] - before[kernel] != 2 \
+                or after[other] != before[other]:
+            raise AssertionError(f"verify slab {tag}: the fold did not run "
+                                 f"one {kernel} launch a call")
+        ref = pa.paged_slab_reference(q, kp, vp, table, lengths, d ** -0.5)
+        win = mpps * ps
+        q3, fold_table, live_l = pa._slab_fold(q, table, lengths, win)
+        own = pa.paged_decode_reference(q3, kp, vp, fold_table, live_l,
+                                        d ** -0.5)
+        print(f"verify slab ({tag}: 8 slots x S {SPEC_S} rows, {kvh} kv "
+              f"heads, group {group}, head dim {d}, page {ps}, window "
+              f"{win}, lengths {lengths_l}): folded into "
+              f"{8 * SPEC_S} virtual slots on {kernel}")
+        fp32 = dt == torch.float32
+        _check("verify slab out against the kernel's plain version (x each "
+               "row's max|ref|)", _slot_rel(_slab_rows(got), own),
+               TOL_WIDE_OUT if fp32 else TOL_PAGED_OUT)
+        _check("verify slab out against plain paged_slab_attention (x each "
+               "row's max|ref|)", _slot_rel(_slab_rows(got), _slab_rows(ref)),
+               TOL_WIDE_OUT if fp32 else TOL_SLAB_PLAIN)
+        past = torch.tensor([[n + r >= win for r in range(SPEC_S)]
+                             for n in lengths_l], device=dev)
+        if not torch.equal(got, again) \
+                or not bool((got.transpose(1, 2)[past] == 0).all()):
+            raise AssertionError(f"verify slab {tag}: not the same bits "
+                                 f"twice, or a row past the window not 0")
+        cyc = itertools.cycle(views)
+        ms = _time_ms(lambda: pa.paged_slab_attention(
+            q, *next(cyc), table, lengths), 24)
+        plain_ms = _eager_ms(lambda: pa.paged_slab_reference(
+            q, kp, vp, table, lengths, d ** -0.5), 3)
+        q1 = q[:, :, 0].contiguous()
+        dec_ms = _time_ms(lambda: pa.paged_decode_attention(
+            q1, *next(cyc), table, lengths), 24)
+        live = sum(min(n + SPEC_S, win) for n in lengths_l)
+        rows = sum(min(n + r + 1, win) * (n + r < win)
+                   for n in lengths_l for r in range(SPEC_S))
+        item = q.element_size()
+        bound, by = _bound(2 * live * kvh * d * item + 2 * q.numel() * item,
+                           4 * rows * kvh * group * d,
+                           FP32_FLOPS_PER_S if fp32 else BF16_FLOPS_PER_S)
+        print(f"  verify slab ({tag}) on {smi}: fold {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; live k/v "
+              f"{2 * live * kvh * d * item / 1e6:.1f} MB once), "
+              f"{100 * bound / ms:.1f}% of the bound; the same kernel's "
+              f"q_len-1 decode on the pool {dec_ms:.4f} ms (fold / decode "
+              f"{ms / dec_ms:.2f})")
+        if tag == "llama bf16":
+            # F4: the same pool, at #7's shape, in layouts #7 cannot read
+            flat = [torch.empty(kp.numel() + 4, dtype=dt, device=dev)
+                    for _ in range(2)]
+            ku, vu = (f_[4:].view(kp.shape) for f_ in flat)
+            ku.copy_(kp)
+            vu.copy_(vp)
+            inner = kp[0].numel()
+            odd = [torch.empty(kp.shape[0], inner + 4, dtype=dt, device=dev)
+                   for _ in range(2)]
+            ks, vs = (b_.as_strided(kp.shape, (inner + 4,) + kp.stride()[1:])
+                      for b_ in odd)
+            ks.copy_(kp)
+            vs.copy_(vp)
+            for name, (k_, v_) in (("8 bytes into its buffer", (ku, vu)),
+                                   ("page stride % 8 == 4", (ks, vs))):
+                before = _build.launch_counts()
+                got1 = pa.paged_decode_attention(q1, k_, v_, table, lengths)
+                after = _build.launch_counts()
+                if after["paged_attention_wide"] \
+                        != before["paged_attention_wide"] + 1 \
+                        or after["paged_attention"] \
+                        != before["paged_attention"]:
+                    raise AssertionError(f"F4 pool {name}: not on #7w")
+                ref1 = pa.paged_decode_reference(q1, k_, v_, table, lengths,
+                                                 d ** -0.5)
+                print(f"F4: bf16 pool at #7's shape, {name}: #7w "
+                      f"{_wide_paged_mode(pa, k_, v_)} mode")
+                _check("paged_attention_wide out (x each slot's max|ref|)",
+                       _slot_rel(got1, ref1), TOL_PAGED_OUT)
+                f4_ms = _time_ms(lambda: pa.paged_decode_attention(
+                    q1, k_, v_, table, lengths), 24)
+                n_live = sum(lengths_l)
+                f4_bound, f4_by = _bound(
+                    2 * n_live * kvh * d * item + 2 * q1.numel() * item,
+                    4 * n_live * kvh * group * d)
+                print(f"  F4 pool ({name}) on {smi}: #7w {f4_ms:.4f} ms, "
+                      f"bound {f4_bound:.4f} ms ({f4_by}), #7 on the "
+                      f"aligned pool {dec_ms:.4f} ms")
+            del flat, ku, vu, odd, ks, vs, got1, ref1
+        del views, kp, vp, got, again, ref, cyc, q, q1
+        torch.cuda.empty_cache()
+    # F4, the dense decode: [8, 32, 1, 8192] over 8 kv heads, a slot
+    # stride 4 elements past whole rows
+    b, kvh, group, s_cache, d = 8, 8, 4, DENSE_MAX_SEQ, 128
+    lens = torch.tensor([0, 1, 100, 1000, 4097, 6000, 8000, 8192],
+                        dtype=torch.int32, device=dev)
+    inner = kvh * s_cache * d
+    bufs = [torch.randn(b, inner + 4, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2)]
+    k, v = (b_.as_strided((b, kvh, s_cache, d), (inner + 4, s_cache * d, d,
+                                                  1)) for b_ in bufs)
+    qd = torch.randn(b, kvh * group, 1, d, generator=gen, device=dev).to(
+        torch.bfloat16)
+    if attn._decode_in_place(k, v):
+        raise AssertionError("F4 dense: the layout is one the kernel reads")
+    before = _build.launch_counts()
+    got = attn.decode_attention(qd, k, v, lens, use_kernel=True)
+    after = _build.launch_counts()
+    if after["flash_attention_masked"] != \
+            before["flash_attention_masked"] + 1:
+        raise AssertionError("F4 dense: not one decode-kernel launch")
+    ref = attn._decode_reference(qd.reshape(b, kvh, group, d), k, v, lens,
+                                 d ** -0.5)
+    print("F4: dense decode [8, 32, 1, 8192] on a bf16 cache with a slot "
+          "stride 4 elements past whole rows: the decode kernel on a "
+          "contiguous copy")
+    _check("decode out (x each slot's max|ref|)",
+           _slot_rel(got.reshape(b, kvh, group, d), ref), TOL_PAGED_OUT)
+    kc, vc = k.contiguous(), v.contiguous()
+    copy_ms = _time_ms(lambda: attn.decode_attention(
+        qd, k, v, lens, use_kernel=True), 8)
+    place_ms = _time_ms(lambda: attn.decode_attention(
+        qd, kc, vc, lens, use_kernel=True), 8)
+    n_live = int(torch.clamp(lens, max=s_cache).sum())
+    bound, by = _bound(2 * n_live * kvh * d * 2 + 2 * qd.numel() * 2,
+                       4 * n_live * kvh * group * d)
+    print(f"  F4 dense decode on {smi}: {copy_ms:.4f} ms with the copy, "
+          f"{place_ms:.4f} ms on the same cache read in place, bound "
+          f"{bound:.4f} ms ({by}: the live k/v once)")
+    del bufs, k, v, kc, vc, got, ref
+    torch.cuda.empty_cache()
 
 
 def _width_serve(dev, seed: int, label: str, cfg_kw: dict, dtype,
@@ -6363,11 +6866,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="kernels,serve,gpt,bert,bert_train,gpt_train,"
                             "gpt_train_8k,profile,train,lean_train,optim,"
-                            "train-check,width,shim",
+                            "train-check,width,spec,shim",
                     help="comma list of kernels, serve, gpt, bert, "
                          "bert_train, gpt_train, gpt_train_8k, profile, "
                          "train, lean_train, optim, train-check, width, "
-                         "shim, ab "
+                         "spec, shim, ab "
                          "(build always "
                          "runs; profile profiles the serve and the train "
                          "phases that run)")
@@ -6455,6 +6958,13 @@ def main(argv=None) -> int:
             if key in recs:
                 recs[key]["launches"] = width["launches"][key]
         del width
+        torch.cuda.empty_cache()
+    if "spec" in phases:
+        spec = phase_spec(dev, args.seed)
+        for key, r in recs.items():
+            r["launches"] = (r.get("launches") or 0) + spec["launches"].get(
+                key, 0)
+        del spec
         torch.cuda.empty_cache()
     if "ab" in phases:
         if args.baseline is None:

@@ -2917,3 +2917,212 @@ def test_wide_engine_builds_and_decodes(cuda, params_dtype, cache_dtype, ps):
     prefill = "flash_attention_wide" if params_dtype == torch.float32 \
         else "flash_attention"
     assert counts[prefill] > 0
+
+
+# -- the verify slab on the paged decode kernels ----------------------------
+#
+# paged_slab_attention folds the slab into slots * S virtual slots of a
+# q_len-1 decode and makes one call of the paged route: #7 for a bf16
+# pool at its instance shapes, #7w for the rest.  Held per (slot, row)
+# against the kernel's plain version on the folded operands (2^-6 of
+# each row's own max for 16-bit, 2e-5 for fp32) and against the plain
+# slab function, the JAX package's (the window gathered, p normalised in
+# base e before it is rounded: the two plain versions alone differ by up
+# to 2^-7 of a row's max at bf16, so 2^-5 there).
+
+def _slab_pool_case(cuda, dtype, group, d, ps, mpps, lengths, kvh,
+                    sq=5, seed=180):
+    """Only the live pages (and a trash page) of a two-layer pool, each
+    slot's pages (with the slab's rows: lengths + S) in a random order,
+    layer 1's strided view; q ``[slots, h, S, d]``."""
+    win = mpps * ps
+    need = [min(-(-(n + sq) // ps), mpps) for n in lengths]
+    n_pages = sum(need)
+    pool_k = _randn((n_pages + 1, 2, kvh, ps, d), seed, cuda, dtype)
+    pool_v = _randn((n_pages + 1, 2, kvh, ps, d), seed + 1, cuda, dtype)
+    perm = np.random.RandomState(seed + 2).permutation(n_pages)
+    table = np.full((len(lengths), mpps), n_pages, np.int32)
+    cursor = 0
+    for s, n in enumerate(need):
+        table[s, :n] = perm[cursor:cursor + n]
+        cursor += n
+    assert max(lengths) <= win
+    q = _randn((len(lengths), kvh * group, sq, d), seed + 3, cuda, dtype)
+    return (q, pool_k[:, 1], pool_v[:, 1], torch.from_numpy(table).to(cuda),
+            torch.tensor(lengths, dtype=torch.int32, device=cuda))
+
+
+def _rows(t):
+    """``[slots, h, S, d]`` as ``[slots * S, h, d]``: one row a slab row."""
+    return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3])
+
+
+# (pool type, group, head dim, page, window pages, kernel): Llama-3-8B's
+# verify (group 4, d 128, page 64) on #7, GPT-3 1.3B's fp32 pool (group 1)
+# on #7w, a bf16 group #7 lacks on #7w, an fp16 pool on #7w
+_SLAB_CASES = [(torch.bfloat16, 4, 128, 64, 64, "paged_attention"),
+               (torch.bfloat16, 1, 64, 16, 40, "paged_attention"),
+               (torch.float32, 1, 128, 64, 32, "paged_attention_wide"),
+               (torch.bfloat16, 16, 64, 64, 16, "paged_attention_wide"),
+               (torch.float16, 4, 128, 32, 20, "paged_attention_wide")]
+
+
+@pytest.mark.parametrize("dtype,group,d,ps,mpps,kernel", _SLAB_CASES)
+def test_paged_slab_folds_onto_the_paged_kernels(cuda, dtype, group, d, ps,
+                                                 mpps, kernel):
+    """One launch of the route's kernel a call and none of the other;
+    lengths 0, on a page edge, mid-window, within S rows of the window's
+    end (rows past it emit 0) and at it; the same bits from a second
+    call."""
+    win = mpps * ps
+    lengths = [0, ps, 700 % win, win - 3, win - 1, win]
+    q, kp, vp, table, lens = _slab_pool_case(cuda, dtype, group, d, ps,
+                                             mpps, lengths, kvh=2)
+    other = ({"paged_attention", "paged_attention_wide"} - {kernel}).pop()
+    before = _build.launch_counts()
+    got = pa.paged_slab_attention(q, kp, vp, table, lens)
+    after = _build.launch_counts()
+    assert after[kernel] == before[kernel] + 1
+    assert after[other] == before[other]
+    again = pa.paged_slab_attention(q, kp, vp, table, lens)
+    q3, fold_table, live = pa._slab_fold(q, table, lens, win)
+    own = pa.paged_decode_reference(q3, kp, vp, fold_table, live, d ** -0.5)
+    ref = pa.paged_slab_reference(q, kp, vp, table, lens, d ** -0.5)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == dtype
+    fp32 = dtype == torch.float32
+    assert _slot_errors(_rows(got), own).max().item() <= (
+        2e-5 if fp32 else 2.0 ** -6)
+    assert _slot_errors(_rows(got), _rows(ref)).max().item() <= (
+        2e-5 if fp32 else 2.0 ** -5)
+    assert torch.equal(got, again)
+    for s, n in enumerate(lengths):
+        past = [r for r in range(q.shape[2]) if n + r >= win]
+        assert bool((got[s, :, past] == 0).all())
+
+
+def test_paged_slab_refuses_more_virtual_slots_than_the_grid_takes(cuda):
+    q, kp, vp, table, lens = _slab_pool_case(
+        cuda, torch.bfloat16, 1, 64, 16, 2, [1] * 13108, kvh=1, sq=5)
+    with pytest.raises(ValueError, match="65535"):
+        pa.paged_slab_attention(q, kp, vp, table, lens)
+
+
+def _diverges_undecided(engine, prompt, got, want, margin=0.5):
+    """Whether ``got`` equals ``want``, or first differs from it at a
+    token whose full-forward top-2 logits lie within ``margin`` (bf16
+    matmuls of another batch shape round differently: a near tie may
+    fall either way, and the streams part there)."""
+    from apex_tpu_torch.inference import models
+    n = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             len(want))
+    if n == len(want):
+        return True
+    seq = torch.tensor([prompt + want[:n]], device=engine.device)
+    with torch.no_grad():
+        logits = models.prefill_forward(engine.kind, engine.cfg,
+                                        engine.params, seq)[0][-1, 0]
+    top2 = logits.float().topk(2).values
+    return float(top2[0] - top2[1]) <= margin
+
+
+def test_spec_engine_verifies_on_the_paged_kernel(cuda):
+    """A bf16 LLaMA engine with spec_k 3 serves the plain greedy stream
+    (up to a near tie) and each verify step launches #7 once a layer (no
+    decode step runs)."""
+    from apex_tpu_torch import observability as obs
+    from apex_tpu_torch.inference import InferenceEngine
+    from apex_tpu_torch.transformer.testing import LlamaConfig
+    cfg = LlamaConfig(vocab_size=256, hidden_size=512, num_layers=2,
+                      num_attention_heads=4, num_kv_heads=1,
+                      ffn_hidden_size=512, max_seq_length=256)
+    params = _llama_tree(cfg, cuda)
+    prompts = [[1, 2, 3, 4, 5], list(range(7, 70)), [9] * 30]
+    outs = {}
+    for spec in (0, 3):
+        engine = InferenceEngine("llama", cfg, params, slots=4, max_seq=256,
+                                 page_size=64, device=cuda, spec_k=spec)
+        reg = obs.reset_global_registry()
+        _build.reset_launch_counts()
+        outs[spec] = engine.generate(prompts, max_new_tokens=12)
+        counts = _build.launch_counts()
+        if spec:
+            steps = int(reg.declared("infer_verify_dispatch_total").total())
+            assert steps > 0
+            assert int(reg.declared("infer_decode_dispatch_total")
+                       .total()) == 0
+            assert counts["paged_attention"] == cfg.num_layers * steps
+            assert counts["paged_attention_wide"] == 0
+    for p, got, want in zip(prompts, outs[3], outs[0]):
+        assert len(got) == len(want) == 12 and got[0] == want[0]
+        assert _diverges_undecided(engine, p, got, want)
+
+
+# -- F4: bf16 views the instances cannot read go to the kernels that can ----
+
+def test_misaligned_bf16_pool_at_the_instance_shape_runs_on_7w(cuda):
+    """#7's shape (group 4, head dim 128, page 64), its pool 8 bytes into
+    its buffer, and another with a page stride of a multiple of 4 but not
+    8: the route sends both to #7w's CUDA-core mode, which holds the
+    plain version."""
+    lengths = [0, 1, 64, 700, 2000, 4096]
+    q, kp, vp, table, lens = _paged_case(cuda, lengths, 4, 128, 64, 64,
+                                         kvh=8, seed=190)
+    flat = torch.empty(kp.numel() + 4, dtype=kp.dtype, device=cuda)
+    kc = flat[4:].view(kp.shape)
+    kc.copy_(kp)
+    vc = vp.contiguous()
+    assert kc.data_ptr() % 16 == 8
+    assert pa._paged_route(q.dtype, kc.dtype, 4, 128, 64, kc.stride(0),
+                           (kc.data_ptr(), vc.data_ptr())) \
+        == "paged_attention_wide"
+    _assert_wide_paged((q, kc, vc, table, lens), False)
+    inner = kp[0].numel()
+    buf = torch.empty(kp.shape[0], inner + 4, dtype=kp.dtype, device=cuda)
+    ks = buf.as_strided(kp.shape, (inner + 4,) + kp.stride()[1:])
+    ks.copy_(kp)
+    bv = torch.empty_like(buf)
+    vs = bv.as_strided(vp.shape, (inner + 4,) + vp.stride()[1:])
+    vs.copy_(vp)
+    assert ks.stride(0) % 8 == 4
+    _assert_wide_paged((q, ks, vs, table, lens), False)
+
+
+@pytest.mark.parametrize("layout", ["unaligned", "odd-slot-stride"])
+def test_strided_bf16_cache_at_the_decode_shape_runs_on_a_copy(cuda, layout):
+    """The dense decode kernel's shape (group 4, head dim 128) on a bf16
+    cache it cannot read in place: one launch of the decode kernel on a
+    contiguous copy, the plain version held per row."""
+    b, kvh, s_cache, d = len(DENSE_LENGTHS), 2, 8192, 128
+    k0 = _randn((b, kvh, s_cache, d), 191, cuda)
+    v0 = _randn((b, kvh, s_cache, d), 192, cuda)
+    q = _randn((b, kvh * 4, 1, d), 193, cuda)
+    lengths = torch.tensor(DENSE_LENGTHS, dtype=torch.int32, device=cuda)
+    if layout == "unaligned":
+        views = []
+        for t in (k0, v0):
+            flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=cuda)
+            views.append(flat[4:].view(t.shape))
+            views[-1].copy_(t)
+    else:
+        views = []
+        for t in (k0, v0):
+            inner = kvh * s_cache * d
+            buf = torch.empty(b, inner + 4, dtype=t.dtype, device=cuda)
+            views.append(buf.as_strided(t.shape, (inner + 4,)
+                                        + t.stride()[1:]))
+            views[-1].copy_(t)
+    k, v = views
+    assert not attn._decode_in_place(k, v)
+    counts = _build.launch_counts()
+    got = attn.decode_attention(q, k, v, lengths, use_kernel=True)
+    after = _build.launch_counts()
+    assert after["flash_attention_masked"] == \
+        counts["flash_attention_masked"] + 1
+    assert after["flash_attention"] == counts["flash_attention"]
+    ref = attn._decode_reference(q.reshape(b, kvh, 4, d), k0, v0, lengths,
+                                 d ** -0.5)
+    torch.cuda.synchronize()
+    got = got.reshape(b, kvh, 4, d)
+    assert _row_errors(got, ref).max().item() <= 2.0 ** -6
+    assert bool((got[0] == 0).all())

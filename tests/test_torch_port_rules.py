@@ -241,10 +241,10 @@ def _fused(**kwargs):
 
 @pytest.mark.parametrize("call,match", [
     (_engine(kind="gpt", tp=2), "tp and spec"),
-    (_engine(kind="gpt", spec_k=2), "tp and spec"),
+    (_engine(kind="gpt", tp=2, spec_k=2), "tp and spec"),
     (_engine(kind="gpt", host_tier_bytes=1 << 20), "host page tier"),
     (_engine(tp=2), "tp and spec"),
-    (_engine(spec_k=2), "tp and spec"),
+    (_engine(tp=2, spec_k=2), "tp and spec"),
     (_engine(decode_fusion="1", tp=2), "tp and spec"),
     (_fused(partial_out=True, fuse_mlp=False), "tp and spec"),
     (_fused(kind="gpt", partial_out=True, fuse_mlp=False), "tp and spec"),
@@ -267,7 +267,8 @@ def test_configurations_the_jax_engine_refuses_raise_its_value_error(
 
 def test_env_knobs_cannot_silently_select_an_unported_path(monkeypatch):
     monkeypatch.setenv("APEX_TPU_SPEC_K", "3")
-    with pytest.raises(NotImplementedError, match="speculative"):
+    monkeypatch.setenv("APEX_TPU_SERVE_TP", "2")
+    with pytest.raises(NotImplementedError, match="tp and spec"):
         InferenceEngine("llama", CFG, _params(), slots=1, page_size=16,
                         device="cpu")
 
