@@ -83,10 +83,20 @@
 // norm weights and biases are fp32.  A GPT-3 1.3B layer reads 50.3 M
 // bf16 weights (100.7 MB) plus the live pages.
 //
+// The rank-partial instance (partial_out=True of the TPU kernel, a
+// tensor-parallel rank's shard): the attention half alone (fuse_mlp 0)
+// on the rank's column slices of wq, wk, wv and its row slice of wo, so
+// h d is hidden / tp and not hidden (Llama-3-8B at tp = 2: wq [4096,
+// 2048], wo [2048, 4096], 16 heads over 4 kv heads); phase 5 stores
+// y = bf16(o) with no residual and no bo, and the caller all-reduces
+// it.  Every product sizes its rows and columns from hidden, h d and
+// kvh d separately, so the phases are the attention-only block's.
+//
 // Plain C interface (loaded with ctypes): apex_fused_block_decode and
-// apex_fused_block_decode_gpt launch on the caller's stream and return
-// cudaGetLastError(); with a null workspace they only report the
-// workspace bytes they need.
+// apex_fused_block_decode_gpt, and their rank-partial entries
+// apex_fused_block_decode_partial and apex_fused_block_decode_gpt_partial,
+// launch on the caller's stream and return cudaGetLastError(); with a
+// null workspace they only report the workspace bytes they need.
 
 #include <mutex>
 
@@ -177,7 +187,7 @@ struct Params {
   int slots, hidden, kvh, ffn, ps, mpps, nsplit;
   int ks_qkv, ks_o, ks_gu, ks_d;
   int ch_qkv, ch_o, ch_gu, ch_d;
-  int ln_fp32, fuse_mlp, r_off;
+  int ln_fp32, fuse_mlp, partial_out, r_off;
   int m_off, merge_nh;      // the merge factors' shared memory, its heads
   float eps, scale_log2;
 };
@@ -1032,7 +1042,8 @@ fused_block_kernel(const Params p, const __grid_constant__ WeightMaps tm) {
   phase_end(p, 4);
   // 5. x2 = x + o (fp32; GPT: x + (o + bo)); norm2's sums of squares
   //    per 256 columns (GPT: the sums and the squared deviations from
-  //    their own mean).  Without the MLP, y = x2 and the layer ends here.
+  //    their own mean).  Without the MLP, y = x2 and the layer ends here;
+  //    partial_out stores y = o (no x, no bo).
   for (int it = blockIdx.x; it < S * nblk; it += gridDim.x) {
     const int slot = it / nblk, b = it % nblk;
     const int col = b * kRowBlock + tid;
@@ -1044,9 +1055,10 @@ fused_block_kernel(const Params p, const __grid_constant__ WeightMaps tm) {
 #pragma unroll 4
         for (int c = 0; c < p.ks_o; ++c)
           o += __ldcg(p.p_o + ((size_t)c * S + slot) * H + col);
-        v = __bfloat162float(p.x[i]) + (o + __ldg(p.bo + col));
+        v = p.partial_out ? o
+                          : __bfloat162float(p.x[i]) + (o + __ldg(p.bo + col));
       } else {
-        v = __bfloat162float(p.x[i]);
+        v = p.partial_out ? 0.f : __bfloat162float(p.x[i]);
 #pragma unroll 4
         for (int c = 0; c < p.ks_o; ++c)
           v += __ldcg(p.p_o + ((size_t)c * S + slot) * H + col);
@@ -1326,30 +1338,18 @@ int run_d(int group, Params& p, void* ws, long long* ws_bytes,
   }
 }
 
-}  // namespace
-
-// x [slots, hidden] bf16; cos/sin [slots, d] fp32; ln1_w/ln2_w [hidden]
-// bf16 (fp32 with ln_fp32); wq [hidden, h d], wk/wv [hidden, kvh d], wo
-// [h d, hidden], wg/wu [hidden, ffn], wd [ffn, hidden] bf16, all
-// contiguous; k/v pages [pages, kvh, ps, d] bf16 with heads and rows
-// contiguous and page stride `page_stride` elements; page_table [slots,
-// mpps] and lengths [slots] int32 (lengths before this token's append);
-// y [slots, hidden], kt/vt [slots, kvh, d] bf16.  Group h / kvh 1, 2, 4
-// or 8; d 64 or 128; hidden, h d and ffn multiples of 8, pointers
-// 16-byte aligned.  With fuse_mlp 0, y = x + attention and the MLP
-// weights are not read.  ws: the workspace; with ws null nothing is
-// launched and *ws_bytes receives its size.  clock: null, or 10 uint64
-// that receive the start, the end of each phase as block 0 leaves its
-// barrier, and (atomicMax: zero it first) the last block's end, in ns.
-extern "C" int apex_fused_block_decode(
+// The entries' bodies: Params from the operands, the launch at the
+// geometry's instance.
+int llama_entry(
     const void* x, const void* cos, const void* sin, const void* ln1_w,
     const void* wq, const void* wk, const void* wv, const void* wo,
     const void* ln2_w, const void* wg, const void* wu, const void* wd,
     const void* k_pages, const void* v_pages, const void* page_table,
     const void* lengths, void* y, void* kt, void* vt, void* ws,
-    long long* ws_bytes, void* clock, int slots, int hidden, int heads, int kvh, int d,
-    int ffn, int ps, int mpps, long long page_stride, int fuse_mlp,
-    int ln_fp32, float eps, float scale_log2, void* stream) {
+    long long* ws_bytes, void* clock, int slots, int hidden, int heads,
+    int kvh, int d, int ffn, int ps, int mpps, long long page_stride,
+    int fuse_mlp, int ln_fp32, float eps, float scale_log2, void* stream,
+    int partial_out) {
   cudaGetLastError();
   if (slots <= 0 || hidden <= 0 || hidden % 8 || kvh <= 0 || heads % kvh ||
       ps <= 0 || mpps <= 0 || (fuse_mlp && (ffn <= 0 || ffn % 8)))
@@ -1384,6 +1384,7 @@ extern "C" int apex_fused_block_decode(
   p.mpps = mpps;
   p.ln_fp32 = ln_fp32;
   p.fuse_mlp = fuse_mlp;
+  p.partial_out = partial_out;
   p.eps = eps;
   p.scale_log2 = scale_log2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1395,13 +1396,7 @@ extern "C" int apex_fused_block_decode(
   }
 }
 
-// The GPT layer: x [slots, hidden] bf16; ln1_w/ln1_b/ln2_w/ln2_b
-// [hidden], bq/bk/bv [h d] / [kvh d], bo/bd [hidden], bu [ffn], all fp32;
-// wq, wk, wv, wo, wu [hidden, ffn], wd [ffn, hidden] bf16; the pool,
-// page table, lengths, outputs, workspace and clock as
-// apex_fused_block_decode's.  h = kvh (group 1); d 64 or 128.  With
-// fuse_mlp 0, y = x + (o + bo) and ln2, wu, bu, wd, bd are not read.
-extern "C" int apex_fused_block_decode_gpt(
+int gpt_entry(
     const void* x, const void* ln1_w, const void* ln1_b, const void* wq,
     const void* bq, const void* wk, const void* bk, const void* wv,
     const void* bv, const void* wo, const void* bo, const void* ln2_w,
@@ -1411,7 +1406,7 @@ extern "C" int apex_fused_block_decode_gpt(
     void* vt, void* ws, long long* ws_bytes, void* clock, int slots,
     int hidden, int heads, int kvh, int d, int ffn, int ps, int mpps,
     long long page_stride, int fuse_mlp, float eps, float scale_log2,
-    void* stream) {
+    void* stream, int partial_out) {
   cudaGetLastError();
   if (slots <= 0 || hidden <= 0 || hidden % 8 || kvh <= 0 || heads != kvh ||
       ps <= 0 || mpps <= 0 || (fuse_mlp && (ffn <= 0 || ffn % 8)))
@@ -1451,6 +1446,7 @@ extern "C" int apex_fused_block_decode_gpt(
   p.mpps = mpps;
   p.ln_fp32 = 1;
   p.fuse_mlp = fuse_mlp;
+  p.partial_out = partial_out;
   p.eps = eps;
   p.scale_log2 = scale_log2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1459,4 +1455,95 @@ extern "C" int apex_fused_block_decode_gpt(
     case 128: return run<1, 128, true>(p, ws, ws_bytes, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// x [slots, hidden] bf16; cos/sin [slots, d] fp32; ln1_w/ln2_w [hidden]
+// bf16 (fp32 with ln_fp32); wq [hidden, h d], wk/wv [hidden, kvh d], wo
+// [h d, hidden], wg/wu [hidden, ffn], wd [ffn, hidden] bf16, all
+// contiguous; k/v pages [pages, kvh, ps, d] bf16 with heads and rows
+// contiguous and page stride `page_stride` elements; page_table [slots,
+// mpps] and lengths [slots] int32 (lengths before this token's append);
+// y [slots, hidden], kt/vt [slots, kvh, d] bf16.  Group h / kvh 1, 2, 4
+// or 8; d 64 or 128; hidden, h d and ffn multiples of 8, pointers
+// 16-byte aligned.  With fuse_mlp 0, y = x + attention and the MLP
+// weights are not read.  ws: the workspace; with ws null nothing is
+// launched and *ws_bytes receives its size.  clock: null, or 10 uint64
+// that receive the start, the end of each phase as block 0 leaves its
+// barrier, and (atomicMax: zero it first) the last block's end, in ns.
+extern "C" int apex_fused_block_decode(
+    const void* x, const void* cos, const void* sin, const void* ln1_w,
+    const void* wq, const void* wk, const void* wv, const void* wo,
+    const void* ln2_w, const void* wg, const void* wu, const void* wd,
+    const void* k_pages, const void* v_pages, const void* page_table,
+    const void* lengths, void* y, void* kt, void* vt, void* ws,
+    long long* ws_bytes, void* clock, int slots, int hidden, int heads, int kvh, int d,
+    int ffn, int ps, int mpps, long long page_stride, int fuse_mlp,
+    int ln_fp32, float eps, float scale_log2, void* stream) {
+  return llama_entry(x, cos, sin, ln1_w, wq, wk, wv, wo, ln2_w, wg, wu, wd,
+                     k_pages, v_pages, page_table, lengths, y, kt, vt, ws,
+                     ws_bytes, clock, slots, hidden, heads, kvh, d, ffn, ps,
+                     mpps, page_stride, fuse_mlp, ln_fp32, eps, scale_log2,
+                     stream, 0);
+}
+
+// The rank-partial LLaMA layer: apex_fused_block_decode's operands
+// without the MLP's (a rank's wq [hidden, h d], wk/wv [hidden, kvh d],
+// wo [h d, hidden]), y [slots, hidden] = bf16(ctx @ wo): no residual.
+extern "C" int apex_fused_block_decode_partial(
+    const void* x, const void* cos, const void* sin, const void* ln1_w,
+    const void* wq, const void* wk, const void* wv, const void* wo,
+    const void* k_pages, const void* v_pages, const void* page_table,
+    const void* lengths, void* y, void* kt, void* vt, void* ws,
+    long long* ws_bytes, void* clock, int slots, int hidden, int heads,
+    int kvh, int d, int ps, int mpps, long long page_stride, int ln_fp32,
+    float eps, float scale_log2, void* stream) {
+  return llama_entry(x, cos, sin, ln1_w, wq, wk, wv, wo, nullptr, nullptr,
+                     nullptr, nullptr, k_pages, v_pages, page_table, lengths,
+                     y, kt, vt, ws, ws_bytes, clock, slots, hidden, heads,
+                     kvh, d, 0, ps, mpps, page_stride, 0, ln_fp32, eps,
+                     scale_log2, stream, 1);
+}
+
+// The GPT layer: x [slots, hidden] bf16; ln1_w/ln1_b/ln2_w/ln2_b
+// [hidden], bq/bk/bv [h d] / [kvh d], bo/bd [hidden], bu [ffn], all fp32;
+// wq, wk, wv, wo, wu [hidden, ffn], wd [ffn, hidden] bf16; the pool,
+// page table, lengths, outputs, workspace and clock as
+// apex_fused_block_decode's.  h = kvh (group 1); d 64 or 128.  With
+// fuse_mlp 0, y = x + (o + bo) and ln2, wu, bu, wd, bd are not read.
+extern "C" int apex_fused_block_decode_gpt(
+    const void* x, const void* ln1_w, const void* ln1_b, const void* wq,
+    const void* bq, const void* wk, const void* bk, const void* wv,
+    const void* bv, const void* wo, const void* bo, const void* ln2_w,
+    const void* ln2_b, const void* wu, const void* bu, const void* wd,
+    const void* bd, const void* k_pages, const void* v_pages,
+    const void* page_table, const void* lengths, void* y, void* kt,
+    void* vt, void* ws, long long* ws_bytes, void* clock, int slots,
+    int hidden, int heads, int kvh, int d, int ffn, int ps, int mpps,
+    long long page_stride, int fuse_mlp, float eps, float scale_log2,
+    void* stream) {
+  return gpt_entry(x, ln1_w, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo, ln2_w,
+                   ln2_b, wu, bu, wd, bd, k_pages, v_pages, page_table,
+                   lengths, y, kt, vt, ws, ws_bytes, clock, slots, hidden,
+                   heads, kvh, d, ffn, ps, mpps, page_stride, fuse_mlp, eps,
+                   scale_log2, stream, 0);
+}
+
+// The rank-partial GPT layer: apex_fused_block_decode_gpt's operands
+// without bo and the MLP's (a rank's heads), y [slots, hidden] =
+// bf16(ctx @ wo): no residual, no bo.
+extern "C" int apex_fused_block_decode_gpt_partial(
+    const void* x, const void* ln1_w, const void* ln1_b, const void* wq,
+    const void* bq, const void* wk, const void* bk, const void* wv,
+    const void* bv, const void* wo, const void* k_pages,
+    const void* v_pages, const void* page_table, const void* lengths,
+    void* y, void* kt, void* vt, void* ws, long long* ws_bytes, void* clock,
+    int slots, int hidden, int heads, int kvh, int d, int ps, int mpps,
+    long long page_stride, float eps, float scale_log2, void* stream) {
+  return gpt_entry(x, ln1_w, ln1_b, wq, bq, wk, bk, wv, bv, wo, nullptr,
+                   nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                   k_pages, v_pages, page_table, lengths, y, kt, vt, ws,
+                   ws_bytes, clock, slots, hidden, heads, kvh, d, 0, ps, mpps,
+                   page_stride, 0, eps, scale_log2, stream, 1);
 }

@@ -2,9 +2,10 @@
 plane.
 
     engine        InferenceEngine (dense slot cache or paged pool,
-                  prefill / decode / verify / generate; BERT encode)
-                  and the pure step factories make_prefill_fn,
-                  make_decode_fn, make_verify_fn — ported
+                  prefill / decode / verify / generate; BERT encode;
+                  tensor-parallel ranks over torch.distributed) and the
+                  pure step factories make_prefill_fn, make_decode_fn,
+                  make_verify_fn; serve_tp — ported
     models        GPT and LLaMA prefill / decode / verify forwards —
                   ported
     kv_cache      the dense slot cache and the paged pool (in-place

@@ -54,11 +54,29 @@ host read per step.
 A trained model enters through :meth:`InferenceEngine.from_train_state`
 or :meth:`InferenceEngine.from_state_dict`.
 
-Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): tensor-parallel serving (with or without speculative
-decoding) and the host-DRAM page tier.  Where the JAX package raises
-``ValueError`` (BERT with a paged, fused or speculative kwarg; the dense
-cache with ``tp > 1`` or ``host_tier_bytes``), so does this engine.
+* **Tensor-parallel serving** (``tp=N`` or ``APEX_TPU_SERVE_TP``; paged
+  GPT and LLaMA) runs one process a rank, as PyTorch serves: every rank
+  calls ``torch.distributed.init_process_group`` (and, on CUDA,
+  ``torch.cuda.set_device``), then builds ``InferenceEngine(kind, cfg,
+  params, tp=N)`` from the same full weights and calls the same entry
+  points.  The engine keeps the rank's shard (the column/row slices of
+  :func:`~apex_tpu_torch.inference.models.param_partition_specs`, GQA/MQA
+  kv heads replicated below tp, the fused layout's slices) and a pool of
+  ``kv_heads_pool / tp`` heads a page, and runs the JAX ``shard_map``
+  body with ``torch.distributed`` collectives on ``group`` (default: the
+  world group; its size must be ``tp``, and without an initialised
+  ``torch.distributed`` the engine raises ``RuntimeError``: it never
+  serves one rank's shard alone).  The caller picks the backend: NCCL
+  takes one card a rank; gloo also serves ranks that share a card.  The
+  scheduler runs on every rank unchanged: it reads no clock or random
+  source, and every rank samples the same token from the same gathered
+  logits, so all ranks admit, page and copy alike.
+
+Not in this slice: the host-DRAM page tier (raises
+``NotImplementedError`` naming its ROADMAP item, "host page tier").
+Where the JAX package raises ``ValueError`` (BERT with a paged, fused or
+speculative kwarg or ``tp > 1``; the dense cache with ``tp > 1`` or
+``host_tier_bytes``; a ``tp`` that splits a head), so does this engine.
 """
 from __future__ import annotations
 
@@ -67,6 +85,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from apex_tpu_torch import observability as obs
 from apex_tpu_torch.inference import kv_cache, models
@@ -76,12 +95,12 @@ from apex_tpu_torch.inference.speculative import default_spec_k
 from apex_tpu_torch.ops.paged_attention import (
     check_kernel_page_size, decode_fusion as resolve_fusion_mode,
     resolve_decode_fusion)
+from apex_tpu_torch.transformer.parallel_state import serving_group
 from apex_tpu_torch.utils import resolve_device, tree_leaves_with_path
 
 __all__ = ["InferenceEngine", "make_prefill_fn", "make_decode_fn",
-           "make_verify_fn", "prefill_bucket"]
+           "make_verify_fn", "prefill_bucket", "serve_tp"]
 
-_TP_ENV = "APEX_TPU_SERVE_TP"
 _HOST_TIER_ENV = "APEX_TPU_HOST_KV_TIER_BYTES"
 
 
@@ -98,18 +117,32 @@ def _env_int(name: str) -> int:
         raise ValueError(f"{name} must be an integer, got {raw!r}")
 
 
-def _check_tp(tp) -> None:
-    """The step factories' ``tp`` operand: 1 runs, wider raises (a later
-    slice)."""
+def serve_tp() -> int:
+    """Effective serving tensor-parallel width from ``APEX_TPU_SERVE_TP``:
+    unset or ``0`` means one rank; an explicit ``InferenceEngine(tp=)``
+    always wins."""
+    v = _env_int("APEX_TPU_SERVE_TP")
+    if v < 0:
+        raise ValueError(f"APEX_TPU_SERVE_TP must be >= 0, got {v}")
+    return v or 1
+
+
+def _tp_group(tp, group):
+    """The step factories' and the engine's ``tp`` and ``group``: no
+    group at tp = 1; at tp > 1 ``group`` (default: the world group),
+    checked by :func:`~apex_tpu_torch.transformer.parallel_state.
+    serving_group` (``RuntimeError`` without ``torch.distributed`` or
+    for a group of another size)."""
     if int(tp) < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
-    if int(tp) > 1:
-        raise _later_slice(f"tensor-parallel serving (tp={tp})",
-                           "tp and spec")
+    if int(tp) == 1:
+        return None
+    return serving_group(int(tp), dist.group.WORLD if group is None
+                         else group)
 
 
 def make_prefill_fn(kind: str, cfg, sampling: SamplingConfig,
-                    paged: bool = False, tp: int = 1):
+                    paged: bool = False, tp: int = 1, group=None):
     """Pure prefill step, JAX's signature.  Dense: ``(cache, params,
     tokens [s], slot, length, key, step) -> (cache, next_token,
     last_logits)``; paged takes the slot's page-table ``row`` and
@@ -124,8 +157,11 @@ def make_prefill_fn(kind: str, cfg, sampling: SamplingConfig,
     signature and is not read (the generator carries its own state).
     The cache is updated in place and returned; ``next_token`` is an
     int32 scalar and ``last_logits`` the fp32 ``[vocab]`` row, both on
-    the device."""
-    _check_tp(tp)
+    the device.  At ``tp > 1`` the step is one rank's (``params`` and
+    ``cache`` its shards, ``group`` the serving group, default the world
+    group); ``next_token`` and ``last_logits`` are the same on every
+    rank."""
+    group = _tp_group(tp, group)
 
     def sample(logits, key):
         last = logits[0].float()                            # [vocab]
@@ -134,7 +170,8 @@ def make_prefill_fn(kind: str, cfg, sampling: SamplingConfig,
     @torch.no_grad()
     def prefill_fn(cache, params, tokens, slot, length, key, step):
         logits, ks, vs = models.prefill_forward(kind, cfg, params,
-                                                tokens[None], length)
+                                                tokens[None], length, tp=tp,
+                                                group=group)
         cache = kv_cache.insert(cache, int(slot), ks, vs, length)
         return (cache,) + sample(logits, key)
 
@@ -143,7 +180,7 @@ def make_prefill_fn(kind: str, cfg, sampling: SamplingConfig,
                          prefill_from, key, step):
         logits, ks, vs = models.prefill_forward(
             kind, cfg, params, tokens[None], length, cache=cache, row=row,
-            prefill_from=prefill_from)
+            prefill_from=prefill_from, tp=tp, group=group)
         cache = kv_cache.insert_tokens(cache, int(slot), ks, vs, length,
                                        row, prefill_from)
         return (cache,) + sample(logits, key)
@@ -152,22 +189,24 @@ def make_prefill_fn(kind: str, cfg, sampling: SamplingConfig,
 
 
 def make_decode_fn(kind: str, cfg, sampling: SamplingConfig,
-                   fused: bool = False, tp: int = 1):
+                   fused: bool = False, tp: int = 1, group=None):
     """Pure decode step, JAX's signature: ``(cache, params, tokens
     [slots], active [slots], key, step) -> (cache, next_tokens, logits,
     truncated)``, all on the device.  Every slot computes; only active
     slots advance, and ``truncated`` flags active slots already at
     capacity, whose token was not appended (the caller retires them).
     ``fused``: ``params`` is the pair ``(tree, fused_layers)`` and every
-    layer runs as one fused-block launch.  ``key`` and ``step`` as in
-    :func:`make_prefill_fn`."""
-    _check_tp(tp)
+    layer runs as one fused-block launch (at ``tp > 1`` the block's
+    rank-partial instance).  ``key``, ``step``, ``tp`` and ``group`` as
+    in :func:`make_prefill_fn`."""
+    group = _tp_group(tp, group)
 
     @torch.no_grad()
     def decode_fn(cache, params, tokens, active, key, step):
         tree, fused_layers = params if fused else (params, None)
         logits, cache = models.decode_forward(kind, cfg, tree, cache, tokens,
-                                              fused=fused_layers)
+                                              fused=fused_layers, tp=tp,
+                                              group=group)
         logits = logits.float()
         toks = sample_token(logits, key, sampling)
         cache, truncated = kv_cache.advance(cache, active)
@@ -177,7 +216,7 @@ def make_decode_fn(kind: str, cfg, sampling: SamplingConfig,
 
 
 def make_verify_fn(kind: str, cfg, sampling: SamplingConfig, k: int,
-                   tp: int = 1):
+                   tp: int = 1, group=None):
     """Pure speculative-verify step, JAX's signature: ``(cache, params,
     slab [slots, k+1], active [slots], key, step) -> (cache, tokens
     [slots, k+1], n_emit [slots], truncated)``, all on the device.
@@ -191,7 +230,8 @@ def make_verify_fn(kind: str, cfg, sampling: SamplingConfig, k: int,
     greedy stream, ``n_emit`` in ``[1, k+1]``.  Lengths advance by
     ``n_emit`` (:func:`~apex_tpu_torch.inference.kv_cache.advance_by`),
     so the rejected rows are dead by the mask.  Greedy only, as in JAX:
-    rejection sampling would need the drafts' distribution."""
+    rejection sampling would need the drafts' distribution.  ``tp`` and
+    ``group`` as in :func:`make_prefill_fn`."""
     if k < 1:
         raise ValueError(f"speculative verify needs k >= 1, got {k}")
     if not sampling.is_greedy:
@@ -200,11 +240,12 @@ def make_verify_fn(kind: str, cfg, sampling: SamplingConfig, k: int,
             "drafts against argmax; rejection sampling for "
             "temperature > 0 needs draft probabilities the drafter "
             "protocol does not carry)")
-    _check_tp(tp)
+    group = _tp_group(tp, group)
 
     @torch.no_grad()
     def verify_fn(cache, params, slab, active, key, step):
-        logits, cache = models.verify_forward(kind, cfg, params, cache, slab)
+        logits, cache = models.verify_forward(kind, cfg, params, cache, slab,
+                                              tp=tp, group=group)
         toks = greedy(logits.float())                      # [slots, k+1]
         match = (toks[:, :-1] == slab[:, 1:]).to(torch.int32)
         # the leading-match count: cumprod zeroes all after a mismatch
@@ -252,7 +293,13 @@ class InferenceEngine:
     as in JAX); a fused engine keeps a second copy of the layer weights
     in the fused layout (:func:`~apex_tpu_torch.inference.models.
     fused_layer_params`) beside the tree that prefill reads.
-    ``kind="bert"`` builds the encode-only engine."""
+    ``kind="bert"`` builds the encode-only engine.
+
+    ``tp`` (default ``APEX_TPU_SERVE_TP``, else 1) and ``group``: at
+    ``tp > 1`` this process is one rank of a paged GPT or LLaMA engine
+    (module docstring); ``params`` is the full tree (the same on every
+    rank), of which the engine keeps the rank's shard, ``params`` the
+    shard; ``cache_hbm_bytes`` counts the rank's pool."""
 
     def __init__(self, kind: str, cfg, params, *, slots: int = 4,
                  max_seq: Optional[int] = None, dtype=None,
@@ -265,7 +312,8 @@ class InferenceEngine:
                  decode_fusion=None, fusion_min_pages=None,
                  spec_k: Optional[int] = None,
                  tp: Optional[int] = None,
-                 host_tier_bytes: Optional[int] = None, device=None):
+                 host_tier_bytes: Optional[int] = None, device=None,
+                 group=None):
         if kind not in ("gpt", "llama", "bert"):
             raise ValueError(f"unknown model kind {kind!r}")
         if kind != "bert":
@@ -283,7 +331,7 @@ class InferenceEngine:
         if kind == "bert" and self.paged:
             raise ValueError("BERT is the encode-only path (no KV "
                              "cache); paged kwargs do not apply")
-        self.tp = int(tp) if tp is not None else (_env_int(_TP_ENV) or 1)
+        self.tp = int(tp) if tp is not None else serve_tp()
         if self.tp < 1:
             raise ValueError(f"tp must be >= 1, got {self.tp}")
         if self.tp > 1:
@@ -296,8 +344,12 @@ class InferenceEngine:
                     "tensor-parallel serving shards the PAGED kv pool "
                     "over kv heads — pass page_size=/num_pages= (the "
                     "dense slot cache does not shard)")
-            raise _later_slice(f"tensor-parallel serving (tp={self.tp})",
-                               "tp and spec")
+            # the geometry first (tp | heads; tp | kv_heads or kv_heads |
+            # tp), as the JAX engine checks it, then the process group
+            models.tp_dims(kind, cfg, self.tp)
+        self.group = _tp_group(self.tp, group)
+        self.rank = dist.get_rank(self.group) if self.group is not None \
+            else 0
         if self.paged:
             self._init_paged(page_size, num_pages, host_tier_bytes)
             self.paged_attn_max_pages = paged_attn_max_pages
@@ -329,9 +381,10 @@ class InferenceEngine:
             # decode step
             if self.paged and self.device.type == "cuda" \
                     and not self.decode_fused:
-                dims = models.model_dims(kind, cfg)
+                dims = models.tp_dims(kind, cfg, self.tp)
                 check_kernel_page_size(
-                    self.page_size, group=dims["heads"] // dims["kv_heads"],
+                    self.page_size,
+                    group=dims["heads_local"] // dims["kv_heads_local"],
                     head_dim=dims["head_dim"], dtype=self.cache_dtype)
         self.params = self._place(params, dtype)
         self._gen = torch.Generator(device=self.device)
@@ -344,17 +397,41 @@ class InferenceEngine:
             self._bert, self._bert_state = self._bert_encoder()
             return
         self.dims = models.model_dims(kind, cfg)
-        self.tp_dims = models.tp_dims(kind, cfg, 1)
-        self._fused_layers = (
-            models.fused_layer_params(kind, cfg, self.params)
-            if self.decode_fused else None)
+        self.tp_dims = models.tp_dims(kind, cfg, self.tp)
+        if self.tp > 1:
+            self._shard()
+        else:
+            self._fused_layers = (
+                models.fused_layer_params(kind, cfg, self.params)
+                if self.decode_fused else None)
         # the step bodies, one copy each: the pure factories' functions
+        tp_kw = dict(tp=self.tp, group=self.group)
         self._prefill_raw = make_prefill_fn(kind, cfg, sampling,
-                                            paged=self.paged)
+                                            paged=self.paged, **tp_kw)
         self._decode_raw = make_decode_fn(kind, cfg, sampling,
-                                          fused=self.decode_fused)
-        self._verify_raw = (make_verify_fn(kind, cfg, sampling, self.spec_k)
+                                          fused=self.decode_fused, **tp_kw)
+        self._verify_raw = (make_verify_fn(kind, cfg, sampling, self.spec_k,
+                                           **tp_kw)
                             if self.spec_k else None)
+
+    def _shard(self) -> None:
+        """Keep the rank's shard of the weights: the kv heads expanded
+        below tp, the tree's column/row slices
+        (:func:`~apex_tpu_torch.inference.models.param_partition_specs`)
+        and, fused, each layer's fused layout built from the expanded
+        tree and sliced as it is built (the JAX engine's
+        ``fused_partition_specs``), so the whole layout is never alive
+        at once.  The engine holds no reference to the whole tree."""
+        kind, cfg, tp, rank = self.kind, self.cfg, self.tp, self.rank
+        full = models.expand_kv_for_tp(kind, cfg, self.params, tp)
+        self.params = models.shard_tree(
+            full, models.param_partition_specs(kind, cfg, full, tp), tp,
+            rank)
+        self._fused_layers = [
+            models.shard_tree(blk, models.fused_partition_specs([blk], tp)[0],
+                              tp, rank)
+            for blk in models._fused_layers(kind, cfg, full)] \
+            if self.decode_fused else None
 
     def _init_paged(self, page_size, num_pages, host_tier_bytes):
         self.page_size = int(page_size if page_size is not None
@@ -433,12 +510,18 @@ class InferenceEngine:
             return kv_cache.init_cache(
                 self.slots, d["layers"], d["kv_heads"], self.max_seq,
                 d["head_dim"], dtype=self.cache_dtype, device=self.device)
+        # at tp > 1 the rank's shard of the pool: kv_heads_pool / tp heads
+        # of every page (GQA/MQA heads replicated below tp)
         return kv_cache.init_paged_cache(
-            self.num_pages, d["layers"], d["kv_heads"], self.page_size,
+            self.num_pages, d["layers"], self._pool_heads(), self.page_size,
             d["head_dim"], slots=self.slots,
             max_pages_per_slot=self.max_pages_per_slot,
             dtype=self.cache_dtype,
             attn_max_pages=self.paged_attn_max_pages, device=self.device)
+
+    def _pool_heads(self) -> int:
+        """The kv heads of every page of this rank's pool."""
+        return self.tp_dims["kv_heads_pool"] // self.tp
 
     def new_allocator(self) -> kv_cache.PageAllocator:
         """Fresh host-side page allocator matching the pool geometry."""
@@ -451,12 +534,17 @@ class InferenceEngine:
 
     def cache_hbm_bytes(self) -> int:
         """Bytes the KV cache pins in device memory: the pool's pages
-        (incl. the trash page), or slots x max_seq (dense)."""
+        (incl. the trash page), or slots x max_seq (dense).  At ``tp >
+        1`` the rank's bytes: its ``kv_heads_pool / tp`` heads of every
+        page (1/tp of a pool that tp divides; an MQA pool replicated
+        below tp keeps its one kv head on every rank)."""
         d = self.dims
         itemsize = torch.empty((), dtype=self.cache_dtype).element_size()
-        per_tok = 2 * d["layers"] * d["kv_heads"] * d["head_dim"] * itemsize
         if self.paged:
+            per_tok = 2 * d["layers"] * self._pool_heads() * d["head_dim"] \
+                * itemsize
             return (self.num_pages + 1) * self.page_size * per_tok
+        per_tok = 2 * d["layers"] * d["kv_heads"] * d["head_dim"] * itemsize
         return self.slots * self.max_seq * per_tok
 
     # -- generative path -----------------------------------------------------
@@ -527,7 +615,9 @@ class InferenceEngine:
     def cow_page(self, cache, src, dst):
         """Copy-on-write page duplication: copy physical page ``src``
         into ``dst`` (the scheduler's write barrier before a slot writes
-        into a page it still shares)."""
+        into a page it still shares); at ``tp > 1`` each rank copies its
+        own heads of the page, as the page IDs are the same on every
+        rank."""
         if not self.paged:
             raise ValueError("cow_page is the paged-mode write barrier; "
                              "this engine runs the dense slot cache")

@@ -31,6 +31,12 @@ second cache.
 Design positions carried over unchanged:
 
 * **GQA/MQA-aware.**  The pool stores ``kv_heads`` (not query heads).
+* **Tensor-parallel ranks** (the JAX package's
+  ``paged_cache_partition_specs``): a rank's pool holds ``kv_heads_pool
+  / tp`` heads of every page (the engine's geometry); its page table,
+  lengths, capacity and page IDs are the same on every rank, so every
+  function here runs unchanged on each rank's own shard
+  (:func:`cow_page` copies the rank's heads of the page).
 * **Eviction is metadata.**  Retiring a slot zeroes its length and
   capacity and re-parks its page-table row on the trash page.
 * **The trash page.**  The pool carries ONE sacrificial page at index

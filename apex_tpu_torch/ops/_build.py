@@ -24,8 +24,10 @@ further instances with counters of their own: ``flash_attention.cu`` the
 masked forward (``flash_attention_masked``, whose counter also counts
 the dense cache's decode kernel, ``apex_flash_decode``: the masked
 forward's q_len-1 case), ``fused_block_decode.cu`` the GPT layer
-(``fused_block_decode_gpt``), and the flash kernels' mask and dropout
-instances: ``flash_attention_md.cu`` the forward with dropout, without
+(``fused_block_decode_gpt``) and each layer's tensor-parallel
+rank-partial instance (``fused_block_decode_partial``,
+``fused_block_decode_gpt_partial``), and the flash kernels' mask and
+dropout instances: ``flash_attention_md.cu`` the forward with dropout, without
 and with a mask (``flash_attention_drop``,
 ``flash_attention_masked_drop``), and the split dq kernel with a mask
 or dropout (``flash_attention_bwd_dq_md``); ``flash_attention_bwd_md.cu``
@@ -103,7 +105,10 @@ SOURCES = {
                         "fused_adagrad": "apex_fused_adagrad"},
     "fused_block_decode.cu": {
         "fused_block_decode": "apex_fused_block_decode",
-        "fused_block_decode_gpt": "apex_fused_block_decode_gpt"},
+        "fused_block_decode_gpt": "apex_fused_block_decode_gpt",
+        "fused_block_decode_partial": "apex_fused_block_decode_partial",
+        "fused_block_decode_gpt_partial":
+            "apex_fused_block_decode_gpt_partial"},
     "flash_wide.cu": {
         "flash_attention_wide": "apex_flash_wide_fwd",
         "flash_attention_wide_dq": "apex_flash_wide_dq",
@@ -237,6 +242,16 @@ _SIGNATURES = {
     # page_stride, fuse_mlp, eps, scale_log2, stream
     "apex_fused_block_decode_gpt": [_P] * 25 + [_LP, _P] + [_I] * 8
                                    + [_L, _I, _F, _F, _P],
+    # x, cos, sin, ln1_w, wq, wk, wv, wo, k_pages, v_pages, page_table,
+    # lengths, y, kt, vt, ws, ws_bytes, clock, slots, hidden, heads, kvh,
+    # d, ps, mpps, page_stride, ln_fp32, eps, scale_log2, stream
+    "apex_fused_block_decode_partial": [_P] * 16 + [_LP, _P] + [_I] * 7
+                                       + [_L, _I, _F, _F, _P],
+    # x, ln1_w, ln1_b, wq, bq, wk, bk, wv, bv, wo, k_pages, v_pages,
+    # page_table, lengths, y, kt, vt, ws, ws_bytes, clock, slots, hidden,
+    # heads, kvh, d, ps, mpps, page_stride, eps, scale_log2, stream
+    "apex_fused_block_decode_gpt_partial": [_P] * 18 + [_LP, _P] + [_I] * 7
+                                           + [_L, _F, _F, _P],
     # q, k, v, mask, seed3, o, lse, bh, sq, sk, d, causal, off, valid_q,
     # valid_k, mask_hper, threshold, inv_keep, scale_log2, dtype, stream
     "apex_flash_wide_fwd": [_P] * 7 + [_I] * 10 + [_F, _F, _I, _P],

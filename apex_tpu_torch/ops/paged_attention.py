@@ -51,8 +51,11 @@ paged attention with the current token folded in, o-proj, RMSNorm,
 SwiGLU (launch counter ``fused_block_decode``).  ``kind="gpt"``:
 LayerNorm with bias, biased q/k/v, no RoPE, the same attention, biased
 o-proj, LayerNorm, ``gelu(h2 @ wu + bu) @ wd + bd`` with GELU in the
-tanh approximation (counter ``fused_block_decode_gpt``).  The
-tensor-parallel ``partial_out`` variant is a later slice.
+tanh approximation (counter ``fused_block_decode_gpt``).  With
+``partial_out=True`` (a tensor-parallel rank's shard; ``fuse_mlp=False``)
+each instance stores the rank-partial out-projection alone, no residual
+and no bias, from entries of its own (counters
+``fused_block_decode_partial``, ``fused_block_decode_gpt_partial``).
 """
 from __future__ import annotations
 
@@ -619,10 +622,6 @@ def _fused_geometry(x, blk, k_pages, v_pages, page_table, lengths, kind,
         raise ValueError(
             "partial_out emits the pre-psum attention shard; the MLP "
             "runs after the row-boundary reduction (fuse_mlp=False)")
-    if partial_out:
-        raise NotImplementedError(
-            "the tensor-parallel partial_out block is not ported yet: "
-            "ROADMAP queue 1, 'tp and spec'")
     slots = x.shape[0]
     if k_pages.shape != v_pages.shape or k_pages.dim() != 4:
         raise ValueError(
@@ -656,7 +655,8 @@ def fused_block_reference(x, blk, k_pages, v_pages, page_table, lengths, *,
     (LLaMA), scores from the rounded q over the gathered window in base
     2, p rounded for P.V (normaliser from fp32 p), then the current
     token folded in as one more column from the unrounded fp32 q, k,
-    v."""
+    v.  ``partial_out``: ``y`` is ``ctx @ wo`` alone (no residual, no
+    ``bo``), rounded to x's type."""
     kvh, ps, d, h = _fused_geometry(x, blk, k_pages, v_pages, page_table,
                                     lengths, kind, cos, sin, partial_out,
                                     fuse_mlp)
@@ -723,6 +723,9 @@ def fused_block_reference(x, blk, k_pages, v_pages, page_table, lengths, *,
     acc = acc * alpha + p_new * v_new[:, :, None, :]
     ctx = (acc / l).reshape(slots, h * d)
 
+    if partial_out:
+        return (matmul(ctx, blk["wo"]).to(x.dtype), k_new.to(x.dtype),
+                v_new.to(x.dtype))
     x2 = xv + matmul(ctx, blk["wo"], bias("bo"))
     if fuse_mlp and gpt:
         h2 = norm(x2, blk["ln2_w"], blk["ln2_b"])
@@ -743,11 +746,12 @@ _WS_BYTES: dict = {}
 
 def _fused_kernel_call(x, blk, k_pages, v_pages, page_table, lengths, cos,
                        sin, eps, scale, fuse_mlp, kvh, ps, d, h, clock=None,
-                       kind="llama"):
-    """Launch the kernel.  ``clock``: ``None``, or a zeroed int64 CUDA
-    tensor of 9 that receives the launch's phase times in ns (the start,
-    the end of each of the 7 phases that end in a grid barrier, and the
-    last block's end)."""
+                       kind="llama", partial_out=False):
+    """Launch the kernel (``partial_out``: the rank-partial entry, which
+    takes no MLP and, GPT, no ``bo``).  ``clock``: ``None``, or a zeroed
+    int64 CUDA tensor of 9 that receives the launch's phase times in ns
+    (the start, the end of each of the 7 phases that end in a grid
+    barrier, and the last block's end)."""
     gpt = kind == "gpt"
     slots, hidden = x.shape
     bf = torch.bfloat16
@@ -771,7 +775,9 @@ def _fused_kernel_call(x, blk, k_pages, v_pages, page_table, lengths, cos,
                              f"(h == kv_heads), got {h} over {kvh}")
         # every vector fp32, as fused_layer_params stores them
         sizes = {"ln1_w": hidden, "ln1_b": hidden, "bq": h * d,
-                 "bk": kvh * d, "bv": kvh * d, "bo": hidden}
+                 "bk": kvh * d, "bv": kvh * d}
+        if not partial_out:
+            sizes["bo"] = hidden
         if fuse_mlp:
             sizes.update(ln2_w=hidden, ln2_b=hidden, bu=ffn, bd=hidden)
         if any(blk[n].dtype != torch.float32 for n in sizes):
@@ -841,11 +847,32 @@ def _fused_kernel_call(x, blk, k_pages, v_pages, page_table, lengths, cos,
     lib = _build.library()
     stream = _build.stream_ptr(x.device)
     ptr = (lambda t: None if t is None else t.data_ptr())
-    counter = "fused_block_decode_gpt" if gpt else "fused_block_decode"
+    counter = ("fused_block_decode_gpt" if gpt else "fused_block_decode") \
+        + ("_partial" if partial_out else "")
     pool = (k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
             lengths.data_ptr(), y.data_ptr(), kt.data_ptr(), vt.data_ptr())
+    geo = (slots, hidden, h, kvh, d)
+
+    def launch_partial(ws, ws_bytes):
+        tail = (ws, ws_bytes, ptr(clock), *geo, ps, page_table.shape[1],
+                k_pages.stride(0))
+        if gpt:
+            return lib.apex_fused_block_decode_gpt_partial(
+                x.data_ptr(), ptr(vec["ln1_w"]), ptr(vec["ln1_b"]),
+                ptr(blk["wq"]), ptr(vec["bq"]), ptr(blk["wk"]),
+                ptr(vec["bk"]), ptr(blk["wv"]), ptr(vec["bv"]),
+                ptr(blk["wo"]), *pool, *tail, float(eps),
+                float(scale * _LOG2E), stream)
+        return lib.apex_fused_block_decode_partial(
+            x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            blk["ln1_w"].data_ptr(), blk["wq"].data_ptr(),
+            blk["wk"].data_ptr(), blk["wv"].data_ptr(), blk["wo"].data_ptr(),
+            *pool, *tail, int(blk["ln1_w"].dtype == torch.float32),
+            float(eps), float(scale * _LOG2E), stream)
 
     def launch(ws, ws_bytes):
+        if partial_out:
+            return launch_partial(ws, ws_bytes)
         if gpt:
             mv = (lambda n: ptr(vec.get(n)))
             mw = (lambda n: ptr(blk[n]) if fuse_mlp else None)
@@ -871,7 +898,7 @@ def _fused_kernel_call(x, blk, k_pages, v_pages, page_table, lengths, cos,
             float(scale * _LOG2E), stream)
 
     key = (x.device, kind, slots, hidden, h, kvh, d, ffn, ps,
-           page_table.shape[1], bool(fuse_mlp))
+           page_table.shape[1], bool(fuse_mlp), bool(partial_out))
     if key not in _WS_BYTES:
         need = ctypes.c_longlong(0)
         _build.check(launch(None, ctypes.byref(need)), counter)
@@ -907,11 +934,15 @@ def fused_block_decode(x, blk, k_pages, v_pages, page_table, lengths, *,
     Returns ``(y [slots, hidden], k_tok [slots, kv_heads, d], v_tok)``:
     the block output and the current token's k (after RoPE) and v for
     the caller's pool append.  ``fuse_mlp=False`` returns ``y = x +
-    attention``.  On CUDA one launch of ``csrc/fused_block_decode.cu``
-    (bf16 x, weights and pool; LLaMA group 1/2/4/8, GPT group 1; head_dim
-    64/128; anything else raises); a CPU tensor takes
-    :func:`fused_block_reference`.  ``partial_out=True`` is a later
-    slice and raises ``NotImplementedError``."""
+    attention``.  ``partial_out=True`` (with ``fuse_mlp=False``; a
+    tensor-parallel rank's shard, ``blk`` its column/row slices, so
+    ``wq`` is ``[hidden, h_rank * d]`` and ``wo`` ``[h_rank * d,
+    hidden]``) returns the rank-partial ``y = ctx @ wo``: no residual,
+    no ``bo``; the caller all-reduces it and finishes the layer.  On
+    CUDA one launch of ``csrc/fused_block_decode.cu`` (bf16 x, weights
+    and pool; LLaMA group 1/2/4/8, GPT group 1; head_dim 64/128;
+    anything else raises); a CPU tensor takes
+    :func:`fused_block_reference`."""
     kvh, ps, d, h = _fused_geometry(x, blk, k_pages, v_pages, page_table,
                                     lengths, kind, cos, sin, partial_out,
                                     fuse_mlp)
@@ -919,10 +950,11 @@ def fused_block_decode(x, blk, k_pages, v_pages, page_table, lengths, *,
     if x.device.type == "cpu":
         return fused_block_reference(
             x, blk, k_pages, v_pages, page_table, lengths, kind=kind,
-            eps=eps, cos=cos, sin=sin, sm_scale=sm_scale, fuse_mlp=fuse_mlp)
+            eps=eps, cos=cos, sin=sin, sm_scale=sm_scale, fuse_mlp=fuse_mlp,
+            partial_out=partial_out)
     if x.device.type != "cuda":
         raise ValueError(f"fused_block_decode runs on cuda or cpu, got "
                          f"{x.device}")
     return _fused_kernel_call(x, blk, k_pages, v_pages, page_table, lengths,
                               cos, sin, eps, scale, fuse_mlp, kvh, ps, d, h,
-                              kind=kind)
+                              kind=kind, partial_out=partial_out)

@@ -297,6 +297,32 @@
    and power limit.  Its launches are added to the ``kernels`` line's
    counts.
 
+17. **TP** (after spec).  Tensor-parallel serving at tp = 2 on the one
+   card: two spawned ranks, both on cuda:0 over gloo (NCCL needs one
+   card a rank; the phase asks NCCL for two ranks on the card and
+   prints its answer), each building its engines one rank after the
+   other from the same seeded weights and keeping its shard:
+   Llama-3-8B (the serve phase's weights and geometry) unfused (#7 on
+   the rank's pool shard) and with ``decode_fusion="1"`` (the fused
+   block's rank-partial instance, V6: 16 heads over 4 kv heads a rank),
+   GPT-3 1.3B (the gpt phase's) fused (V6's GPT instance, 8 heads a
+   rank) and unfused with ``spec_k=4`` and the n-gram drafter (the
+   verify fold on the shard); the first four prompts, 16 greedy tokens.
+   Each serve: the ranks' streams equal bit for bit and equal to the
+   single card's (served first, in the parent) up to a first difference
+   at a top-2 margin of at most 0.5; the first and last requests'
+   decode (spec: verify) logits within TOL_LOGITS of the single card's
+   full forward; each rank's path kernel once a layer a step, #3 once a
+   layer a prefill, the other paths' kernels never; the spec serve's
+   conservation law.  Prints each rank's decode tokens/s, step time and
+   peak memory beside the single card's, and one gloo all_reduce at
+   ``[8, 4096]`` and ``[2048, 4096]`` bf16 (host-staged: not NCCL
+   figures), each beside the card.  The kernels phase holds V6 at both
+   shards (each rank's partial against its plain version, the two
+   partials summed against the whole attention-only block) with its
+   time, plain time and bound; the ranks' launches are added to the
+   ``kernels`` line's counts.
+
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed phase raises, so the
 script exits non-zero and prints no result; so does a machine without
@@ -383,6 +409,11 @@ TOL_SLAB_PLAIN = 2.0 ** -5
 #: another order and p rounds against a split's running maximum)
 TOL_FUSED_REL = 2.0 ** -6
 TOL_FUSED_REL_L2 = 1e-2
+#: the two tp ranks' partial out-projections (V6) summed, plus x (and
+#: bo), against the whole attention-only block: each partial rounds to
+#: bf16 once before the sum, the whole block once after it, so a few
+#: ulps of the output's magnitude
+TOL_PARTIAL_SUM = 2.0 ** -5
 #: training kernels: norm dx a few bf16 ulps, dw fp32 row sums in
 #: another order; the unscale is one fp32 multiply on both sides
 #: (exact); Adam may contract multiply-adds into FMAs (a few fp32 ulps
@@ -1945,6 +1976,8 @@ def _fused_gpt_kernel(dev, gen, recs):
         replaces="apex_tpu/ops/paged_attention.py:445", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
         library_ms=None, eager_ms=eager)
+    _partial_rows(dev, recs, "gpt", blk, x, pool_k, pool_v, 0, table,
+                  lengths, kw)
     del blk, pool_k, pool_v, views
     torch.cuda.empty_cache()
 
@@ -2016,6 +2049,8 @@ def _fused_kernel(dev, gen, recs, pool_k, pool_v, table, lengths):
           f"{eager:.4f} ms), bound {bound:.4f} ms ({by}), "
           f"{nbytes / ms / 1e6:.1f} GB/s")
     _fused_phases(pa, x, blk, kp, vp, table, lengths, kw)
+    _partial_rows(dev, recs, "llama", blk, x, pool_k, pool_v, layer, table,
+                  lengths, kw)
     # the port's unfused layer on the same inputs: the per-op path with
     # the pool append (which writes each slot's next row, so it runs
     # last) and paged attention over lengths + 1
@@ -2044,6 +2079,100 @@ def _fused_kernel(dev, gen, recs, pool_k, pool_v, table, lengths):
         library_ms=None, eager_ms=eager)
     del blk, lp, cache, views
     torch.cuda.empty_cache()
+
+
+def _partial_rows(dev, recs, kind, blk, x, pool_k, pool_v, layer, table,
+                  lengths, kw):
+    """The fused block's rank-partial instance (V6) at a tp = 2 shard of
+    the whole layer ``blk``: each rank's slice (``fused_partition_specs``,
+    ``shard_tree``, as the engine cuts it) and its half of the pool's kv
+    heads against ``fused_block_reference(partial_out=True)``; the two
+    partials summed, plus x (and bo), against the whole layer's
+    attention-only block (#8 / #8g, ``fuse_mlp=False``); rank 0's time
+    over four layers of the pool in turn, its plain time and its bound
+    (the rank's weight slices and its heads' live k/v once)."""
+    from apex_tpu_torch.inference import models
+    pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    name = ("fused_block_decode_gpt" if kind == "gpt"
+            else "fused_block_decode") + "_partial"
+    tp, kvh = 2, pool_k.shape[2]
+    half = kvh // tp
+    spec = models.fused_partition_specs([blk], tp)[0]
+    shards = [models.shard_tree(blk, spec, tp, r) for r in range(tp)]
+
+    def views(r, i=layer):
+        return (pool_k[:, i, r * half:(r + 1) * half],
+                pool_v[:, i, r * half:(r + 1) * half])
+
+    whole = pa.fused_block_decode(x, blk, pool_k[:, layer], pool_v[:, layer],
+                                  table, lengths, fuse_mlp=False, **kw)[0]
+    total = x.float() + (blk["bo"] if kind == "gpt" else 0)
+    err = 0.0
+    for r, shard in enumerate(shards):
+        got = pa.fused_block_decode(x, shard, *views(r), table, lengths,
+                                    fuse_mlp=False, partial_out=True, **kw)
+        ref = pa.fused_block_reference(x, shard, *views(r), table, lengths,
+                                       fuse_mlp=False, partial_out=True, **kw)
+        for out, g_, r_ in zip(("partial", "k_tok", "v_tok"), got, ref):
+            e = (g_.float() - r_.float()).abs().max().item()
+            rel = ((g_.float() - r_.float()).norm()
+                   / r_.float().norm()).item()
+            _check(f"{name} rank {r} {out}", e,
+                   TOL_FUSED_REL * r_.float().abs().max().item())
+            if rel > TOL_FUSED_REL_L2:
+                raise AssertionError(f"{name} rank {r} {out}: relative L2 "
+                                     f"{rel}")
+            err = max(err, e)
+        total = total + got[0].float()
+        del got, ref
+    d_sum = (total - whole.float()).abs().max().item()
+    rel_sum = ((total - whole.float()).norm() / whole.float().norm()).item()
+    print(f"  {name}: the two ranks' partials + x"
+          + (" + bo" if kind == "gpt" else "") + f" against the whole "
+          f"attention-only block: max|diff| {d_sum:.4g} (limit "
+          f"{TOL_PARTIAL_SUM * whole.float().abs().max().item():.4g}), "
+          f"relative L2 {rel_sum:.4g}")
+    if d_sum > TOL_PARTIAL_SUM * whole.float().abs().max().item() \
+            or rel_sum > TOL_FUSED_REL_L2:
+        raise AssertionError(f"{name}: the ranks' partials do not sum to "
+                             f"the block")
+    shard = shards[0]
+    d = pool_k.shape[4]
+    h = shard["wq"].shape[1] // d
+    slots = x.shape[0]
+    window = table.shape[1] * pool_k.shape[3]
+    live = int(torch.clamp(lengths, max=window).sum())
+    mats = sum(shard[n].numel() for n in ("wq", "wk", "wv", "wo"))
+    read = ("ln1_w", "ln1_b", "bq", "bk", "bv") if kind == "gpt" \
+        else ("ln1_w",)
+    vecs = sum(shard[n].numel() * shard[n].element_size() for n in read)
+    rope = 0 if kind == "gpt" else 2 * 4 * kw["cos"].numel()
+    nbytes = 2 * mats + vecs + live * half * d * 2 * 2 + 2 * 2 * x.numel() \
+        + 2 * 2 * slots * half * d + rope + 4 * table.numel() + 4 * slots
+    bound, by = _bound(nbytes, 2 * slots * mats + 4 * (live + slots) * h * d)
+    cyc = itertools.cycle([views(0, i) for i in range(layer, layer + 4)])
+    ms = _queued_ms(lambda: pa.fused_block_decode(
+        x, shard, *next(cyc), table, lengths, fuse_mlp=False,
+        partial_out=True, **kw), 40)
+    eager = _eager_ms(lambda: pa.fused_block_decode(
+        x, shard, *next(cyc), table, lengths, fuse_mlp=False,
+        partial_out=True, **kw), 40)
+    plain_ms = _eager_ms(lambda: pa.fused_block_reference(
+        x, shard, *next(cyc), table, lengths, fuse_mlp=False,
+        partial_out=True, **kw), 3)
+    print(f"  {name} on {_smi()}: a rank of tp = 2, {h} heads over {half} kv "
+          f"heads, {mats} weights ({2 * mats / 1e6:.1f} MB) + {live} live "
+          f"tokens' k/v of its heads; {ms:.4f} ms per call (40 calls queued "
+          f"behind a sleeping card; eager, host included, {eager:.4f} ms), "
+          f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+          f"{100 * bound / ms:.1f}% of the bound")
+    recs[name] = dict(
+        name=name, route="cuda",
+        source="apex_tpu_torch/csrc/fused_block_decode.cu",
+        replaces="apex_tpu/ops/paged_attention.py:445", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=None, eager_ms=eager)
+    del shards, whole, total, cyc
 
 
 FUSED_PHASES = ("q/k/v", "q/k/v sums + RoPE", "attention",
@@ -2760,7 +2889,7 @@ def _random_bert(cfg, dev, seed: int):
     return _random_tree(bert_param_shapes(cfg), dev, seed, embed_std=0.02)
 
 
-def _serve(engine, prompts, label: str):
+def _serve(engine, prompts, label: str, new_tokens: int = NEW_TOKENS):
     """``engine.generate`` over the prompts with the launch counters and
     the telemetry registry zeroed just before; returns the outputs, the
     launch counts, the registry and the peak device memory."""
@@ -2771,7 +2900,7 @@ def _serve(engine, prompts, label: str):
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    outs = engine.generate(prompts, max_new_tokens=NEW_TOKENS)
+    outs = engine.generate(prompts, max_new_tokens=new_tokens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _build.launch_counts()
@@ -2790,14 +2919,15 @@ def _serve(engine, prompts, label: str):
     print(f"  peak device memory {peak / 2**30:.2f} GiB "
           f"(KV pool {engine.cache_hbm_bytes() / 2**30:.2f} GiB)")
     print(f"  kernel launches during the serve: {launches}")
-    if any(len(o) != NEW_TOKENS for o in outs):
-        raise AssertionError(f"expected {NEW_TOKENS} tokens per request, "
+    if any(len(o) != new_tokens for o in outs):
+        raise AssertionError(f"expected {new_tokens} tokens per request, "
                              f"got {[len(o) for o in outs]}")
     if any(not 0 <= t < engine.cfg.vocab_size for o in outs for t in o):
         raise AssertionError("a generated token is outside the vocab")
     return dict(outs=outs, launches=launches, reg=reg, peak_bytes=peak,
                 ttft_mean_s=ttft.sum() / ttft.count(),
-                decode_tokens_per_s=decode_tokens / decode_s, wall_s=wall)
+                decode_tokens_per_s=decode_tokens / decode_s, wall_s=wall,
+                decode_step_s=decode_s / dec.count())
 
 
 N_CHECK = 8
@@ -3006,7 +3136,8 @@ def phase_serve(dev, seed: int, profile: bool = False):
                 dense_decode_tokens_per_s=dserved["decode_tokens_per_s"])
 
 
-def _spec_serve(engine, prompts, label: str, smi: str, drafter=None):
+def _spec_serve(engine, prompts, label: str, smi: str, drafter=None,
+                new_tokens: int = NEW_TOKENS):
     """The scheduler's speculative serve (``engine.spec_k`` > 0, the
     drafter given or the default n-gram one) with the launch counters
     and the telemetry registry zeroed just before: prints the verify
@@ -3026,7 +3157,7 @@ def _spec_serve(engine, prompts, label: str, smi: str, drafter=None):
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     sched = SlotScheduler(engine, drafter=drafter)
-    uids = [sched.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    uids = [sched.submit(p, max_new_tokens=new_tokens) for p in prompts]
     done = sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3051,9 +3182,9 @@ def _spec_serve(engine, prompts, label: str, smi: str, drafter=None):
           f"tokens/s over the verify steps [{smi}]")
     print(f"  peak device memory {peak / 2**30:.2f} GiB [{smi}]; kernel "
           f"launches during the serve: {launches}")
-    if any(len(o) != NEW_TOKENS for o in outs) or any(
+    if any(len(o) != new_tokens for o in outs) or any(
             not 0 <= t < engine.cfg.vocab_size for o in outs for t in o):
-        raise AssertionError(f"{label}: expected {NEW_TOKENS} in-vocab "
+        raise AssertionError(f"{label}: expected {new_tokens} in-vocab "
                              f"tokens per request")
     if steps <= 0 or emitted != generated - len(prompts) \
             or accepted > drafted:
@@ -3097,13 +3228,29 @@ def _check_verify_logits(label, engine, prompt, fed):
     advance by ``S``: the ``[rounds x S, vocab]`` verify logits against
     the full forward of the prompt and those tokens (within TOL_LOGITS;
     the argmax equal where the top-2 margin exceeds 2 x TOL_LOGITS)."""
-    from apex_tpu_torch.inference import kv_cache, models
     n_fed = SPEC_CHECK_ROUNDS * SPEC_S
+    got = _verify_logits(engine, prompt, fed)
+    seq = torch.tensor([prompt + list(fed[:n_fed])], dtype=torch.int32,
+                       device=engine.device)
+    with torch.no_grad():
+        ref = _full_forward(engine, seq)[len(prompt):, 0].float()
+    return _hold_rows(f"{label} (prompt {len(prompt)}): "
+                      f"{SPEC_CHECK_ROUNDS} verify rounds of {SPEC_S}",
+                      got, ref)
+
+
+def _verify_logits(engine, prompt, fed):
+    """Prefill ``prompt`` into slot 0, then ``SPEC_CHECK_ROUNDS`` verify
+    forwards of slabs of ``fed`` (the engine's own, at its ``tp``), each
+    followed by the slot's advance by ``S``: the ``[rounds x S, vocab]``
+    fp32 verify logits."""
+    from apex_tpu_torch.inference import kv_cache, models
     cache = engine.init_cache()
     pages = None
     if engine.paged:
         alloc = engine.new_allocator()
-        pages = alloc.acquire(alloc.pages_needed(len(prompt) + n_fed))
+        pages = alloc.acquire(alloc.pages_needed(
+            len(prompt) + SPEC_CHECK_ROUNDS * SPEC_S))
     cache, _, _ = engine.prefill(cache, prompt, 0, pages=pages)
     active = torch.zeros(engine.slots, dtype=torch.bool, device=engine.device)
     active[0] = True
@@ -3114,28 +3261,28 @@ def _check_verify_logits(label, engine, prompt, fed):
         slab[0] = torch.tensor(fed[r * SPEC_S:(r + 1) * SPEC_S])
         with torch.no_grad():
             logits, cache = models.verify_forward(
-                engine.kind, engine.cfg, engine.params, cache, slab)
+                engine.kind, engine.cfg, engine.params, cache, slab,
+                tp=engine.tp, group=engine.group)
         rows.append(logits[0].float())
         cache, _ = kv_cache.advance_by(cache, active, SPEC_S)
-    got = torch.cat(rows)
-    seq = torch.tensor([prompt + list(fed[:n_fed])], dtype=torch.int32,
-                       device=engine.device)
-    with torch.no_grad():
-        ref = _full_forward(engine, seq)[len(prompt):, 0].float()
+    return torch.cat(rows)
+
+
+def _hold_rows(label, got, ref, limit=TOL_LOGITS):
+    """Logit rows against the full forward's: within ``limit``, and the
+    argmax equal wherever the full forward's top-2 margin exceeds 2 x
+    ``limit``.  Returns the distance."""
     if not torch.isfinite(got).all() or got.shape != ref.shape:
-        raise AssertionError(f"{label}: verify logits not finite or "
-                             f"misshaped")
+        raise AssertionError(f"{label}: logits not finite or misshaped")
     diff = (got - ref).abs().max().item()
     top2 = ref.topk(2, dim=-1).values
-    decided = (top2[:, 0] - top2[:, 1]) > 2 * TOL_LOGITS
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * limit
     agree = ref.argmax(-1) == got.argmax(-1)
-    print(f"check {label} (prompt {len(prompt)}): {SPEC_CHECK_ROUNDS} "
-          f"verify rounds of {SPEC_S}: max|verify - full| {diff:.4f} (limit "
-          f"{TOL_LOGITS}), argmax equal at {int(agree.sum())}/{n_fed} "
-          f"positions, {int(decided.sum())} with top-2 margin > "
-          f"{2 * TOL_LOGITS}")
-    if diff > TOL_LOGITS:
-        raise AssertionError(f"{label}: verify logits off by {diff}")
+    print(f"check {label}: max|got - full| {diff:.4f} (limit {limit}), "
+          f"argmax equal at {int(agree.sum())}/{len(ref)} positions, "
+          f"{int(decided.sum())} with top-2 margin > {2 * limit}")
+    if diff > limit:
+        raise AssertionError(f"{label}: logits off by {diff}")
     if not bool(agree[decided].all()):
         raise AssertionError(f"{label}: a token with a clear top-2 margin "
                              f"differs")
@@ -3349,6 +3496,332 @@ def phase_gpt(dev, seed: int):
     return dict(runs=out, launches={
         "fused_block_decode_gpt":
             out["gpt fused"]["launches"]["fused_block_decode_gpt"]})
+
+
+#: tensor-parallel serving (the tp phase): two ranks on the one card,
+#: each serving the first four prompts, 16 greedy tokens a request
+TP = 2
+TP_PROMPTS = 4
+TP_NEW_TOKENS = 16
+#: Llama-3-8B and GPT-3 1.3B at the serve and gpt phases' geometry
+TP_LLAMA_GEO = dict(slots=8, max_seq=4096, page_size=64, num_pages=512)
+TP_GPT_GEO = dict(slots=8, max_seq=2048, page_size=64)
+#: the tp serves: (label, model, engine kwargs, the kernel each decode or
+#: verify step launches once a layer, the kernels it must not launch)
+TP_SERVES = (
+    ("tp llama", "llama", {}, "paged_attention",
+     ("fused_block_decode", "fused_block_decode_partial")),
+    ("tp llama fused", "llama", dict(decode_fusion="1"),
+     "fused_block_decode_partial", ("fused_block_decode", "paged_attention")),
+    ("tp gpt fused", "gpt", dict(decode_fusion="1"),
+     "fused_block_decode_gpt_partial",
+     ("fused_block_decode_gpt", "paged_attention")),
+    ("tp gpt spec", "gpt", dict(spec_k=SPEC_K), "paged_attention",
+     ("fused_block_decode_gpt_partial", "paged_attention_wide")))
+#: the gloo all_reduce timed in the ranks: a decode step's [8, 4096] and
+#: a 2048-token prefill's [2048, 4096] bf16
+TP_ALLREDUCE = ((8, 4096), (2048, 4096))
+
+
+def _tp_model(kind, dev, seed):
+    """The tp phase's weights and config: Llama-3-8B (the serve phase's
+    seed) or GPT-3 1.3B (the gpt phase's), random bf16 on the card."""
+    from apex_tpu_torch.transformer.testing import GPTConfig, LlamaConfig
+    if kind == "llama":
+        cfg = LlamaConfig(**FULL_CFG)
+        return cfg, _random_llama(cfg, dev, seed), TP_LLAMA_GEO
+    cfg = GPTConfig(**GPT_CFG)
+    return cfg, _random_gpt(cfg, dev, seed + 10), TP_GPT_GEO
+
+
+def _tp_prompts(kind, cfg, seed):
+    """The serve (Llama) or gpt phase's prompts, the first four."""
+    rng = np.random.RandomState(seed if kind == "llama" else seed + 10)
+    lens = PROMPT_LENS if kind == "llama" else GPT_PROMPT_LENS
+    return [rng.randint(0, cfg.vocab_size, size=n).tolist()
+            for n in lens][:TP_PROMPTS]
+
+
+def _tp_reference(kind, dev, seed):
+    """The single-card serve the ranks are held to: its streams, decode
+    tokens/s, step time and peak memory, and for every request the
+    full forward's logits along its stream (``[16, vocab]``: row j after
+    the prompt and the stream's first j tokens) as top-2 margins, whole
+    for the first and last request.  The engine and weights are freed
+    before it returns."""
+    from apex_tpu_torch.inference import InferenceEngine
+    cfg, params, geo = _tp_model(kind, dev, seed)
+    engine = InferenceEngine(kind, cfg, params, device=dev, **geo)
+    prompts = _tp_prompts(kind, cfg, seed)
+    served = _serve(engine, prompts, f"tp reference ({kind}, one rank)",
+                    TP_NEW_TOKENS)
+    margins, rows = [], {}
+    for i, (p, o) in enumerate(zip(prompts, served["outs"])):
+        seq = torch.tensor([p + o[:-1]], dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            full = _full_forward(engine, seq)[len(p) - 1:, 0].float()
+        top2 = full.topk(2, dim=-1).values
+        margins.append((top2[:, 0] - top2[:, 1]).cpu().tolist())
+        if i in (0, TP_PROMPTS - 1):
+            rows[i] = full.cpu()
+        del full
+    ref = dict(outs=served["outs"], margins=margins, rows=rows,
+               peak_bytes=served["peak_bytes"],
+               decode_tokens_per_s=served["decode_tokens_per_s"],
+               decode_step_s=served["decode_step_s"])
+    del engine, params, served
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _nccl_probe_rank(rank, store, queue):
+    """One of two NCCL ranks on cuda:0, one all_reduce; reports what NCCL
+    said (the tp phase's note on its backend)."""
+    import datetime
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", store=dist.FileStore(store, 2),
+                                rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=40))
+        t = torch.ones(4, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+        queue.put((rank, "took them", t.tolist()))
+    except Exception as e:      # the probe reports NCCL's refusal
+        queue.put((rank, "refused", f"{type(e).__name__}: {str(e)[:300]}"))
+
+
+def _nccl_probe(tmp: Path) -> str:
+    """Whether NCCL takes two ranks on the one card (it needs one card a
+    rank), answered by two spawned processes within 90 s; every process
+    it starts is ended before it returns."""
+    import queue as queue_mod
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_nccl_probe_rank,
+                         args=(r, str(tmp / "nccl_store"), q))
+             for r in range(2)]
+    for proc in procs:
+        proc.start()
+    got, t0 = [], time.perf_counter()
+    while len(got) < 2 and time.perf_counter() - t0 < 90:
+        try:
+            got.append(q.get(timeout=5))
+        except queue_mod.Empty:
+            pass
+    for proc in procs:
+        proc.join(timeout=10)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    return repr(sorted(got)) if got else "no answer in 90 s"
+
+
+def _tp_rank(rank, tmp, seed, refs):
+    """One rank of the tp phase, on cuda:0 over gloo: builds its engines
+    one rank after the other (a barrier between, so two whole Llama-3-8B
+    trees are never alive at once), times the gloo all_reduce, serves
+    each of :data:`TP_SERVES` and the checked requests' decode (spec:
+    verify) logits fed the single-card streams, and writes what it saw
+    to ``tmp/rank<rank>.pt`` for the parent to hold."""
+    import datetime
+    import torch.distributed as dist
+    from apex_tpu_torch.inference import InferenceEngine
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(tmp) / "store"), TP), rank=rank, world_size=TP,
+        timeout=datetime.timedelta(seconds=600))
+    smi = _smi()
+    out = {"serves": {}, "allreduce_ms": {}}
+    try:
+        for kind in ("llama", "gpt"):
+            engines = {}
+            for r in range(TP):
+                if r == rank:
+                    cfg, params, geo = _tp_model(kind, dev, seed)
+                    torch.cuda.reset_peak_memory_stats()
+                    for label, k_, kw, _, _ in TP_SERVES:
+                        if k_ == kind:
+                            engines[label] = InferenceEngine(
+                                kind, cfg, params, device=dev, tp=TP, **geo,
+                                **kw)
+                    out[f"{kind} build peak"] = \
+                        torch.cuda.max_memory_allocated()
+                    del params
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            if kind == "llama":
+                # on the card, and the same gloo call on a host tensor
+                # (what the card's staging adds)
+                for shape, where in itertools.product(TP_ALLREDUCE,
+                                                      (dev, "cpu")):
+                    t = torch.ones(shape, dtype=torch.bfloat16, device=where)
+                    n = 20 if shape[0] < 64 else 5
+                    dist.all_reduce(t)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(n):
+                        dist.all_reduce(t)
+                    torch.cuda.synchronize()
+                    out["allreduce_ms"][shape, t.device.type] = \
+                        1e3 * (time.perf_counter() - t0) / n
+            prompts = _tp_prompts(kind, cfg, seed)
+            for label, engine in engines.items():
+                tag = f"{label} (rank {rank}) [{smi}]"
+                if engine.spec_k:
+                    served = _spec_serve(engine, prompts, tag, smi,
+                                         new_tokens=TP_NEW_TOKENS)
+                else:
+                    served = _serve(engine, prompts, tag, TP_NEW_TOKENS)
+                reg = served["reg"]
+                res = {k: served[k] for k in served if k != "reg"}
+                res.update(
+                    decode_steps=int(reg.declared(
+                        "infer_decode_dispatch_total").total()),
+                    verify_steps=int(reg.declared(
+                        "infer_verify_dispatch_total").total()),
+                    prefills=int(reg.declared(
+                        "infer_prefill_dispatch_total").total()),
+                    pool_bytes=engine.cache_hbm_bytes(), logits={})
+                stream = refs[kind]["outs"]
+                for i in (0, TP_PROMPTS - 1):
+                    if engine.spec_k:
+                        got = _verify_logits(engine, prompts[i], stream[i])
+                    else:
+                        got = _decode_logits(engine, prompts[i],
+                                             forced=stream[i][:N_CHECK])[0]
+                    res["logits"][i] = got.float().cpu()
+                out["serves"][label] = res
+            del engines
+            torch.cuda.empty_cache()
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, Path(tmp) / f"rank{rank}.pt")
+
+
+def _tp_gates(label, ranks, ref, layers, kernel, never):
+    """What the parent holds each tp serve to: every rank's streams equal
+    bit for bit, and equal to the single card's up to a first difference
+    at a token of top-2 margin at most 2 x TOL_LOGITS; the checked
+    requests' logits within TOL_LOGITS of the single card's full forward;
+    each rank's kernel once a layer a decode (spec: verify) step and #3
+    once a layer a prefill, the other paths' kernels never.  Returns the
+    worst logit distance."""
+    first = ranks[0]["serves"][label]
+    for r in ranks[1:]:
+        if r["serves"][label]["outs"] != first["outs"]:
+            raise AssertionError(f"{label}: the ranks' streams differ")
+    equal = 0
+    for i, (got, want) in enumerate(zip(first["outs"], ref["outs"])):
+        n = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                 len(want))
+        if n == len(want):
+            equal += 1
+            continue
+        margin = ref["margins"][i][n]
+        print(f"  {label} request {i}: streams part at token {n} (top-2 "
+              f"margin {margin:.4f}, limit {2 * TOL_LOGITS})")
+        if margin > 2 * TOL_LOGITS:
+            raise AssertionError(f"{label}: the tp stream differs from the "
+                                 f"single card's at a decided token")
+    print(f"  {label}: {equal}/{len(ref['outs'])} streams equal the single "
+          f"card's whole; the {TP} ranks' streams equal bit for bit")
+    worst = 0.0
+    spec = "spec" in label
+    for i, got in first["logits"].items():
+        # decode row j follows the prompt and j stream tokens; verify
+        # row j follows j + 1 (the slab starts with the first token)
+        want = ref["rows"][i][int(spec):int(spec) + len(got)]
+        worst = max(worst, _hold_rows(
+            f"{label} request {i}, {'verify' if spec else 'decode'} logits "
+            f"against the single card's full forward", got, want))
+    for rank, r in enumerate(ranks):
+        res = r["serves"][label]
+        steps = res["verify_steps"] if spec else res["decode_steps"]
+        launches = res["launches"]
+        print(f"  {label} rank {rank}: {kernel} {launches[kernel]} (want "
+              f"{layers} x {steps} steps), flash_attention "
+              f"{launches['flash_attention']} (want {layers} x "
+              f"{res['prefills']} prefills), "
+              + ", ".join(f"{k} {launches[k]}" for k in never) + " (want 0)")
+        if steps <= 0 or launches[kernel] != layers * steps \
+                or launches["flash_attention"] != layers * res["prefills"] \
+                or any(launches[k] for k in never):
+            raise AssertionError(f"{label} rank {rank}: launches off: "
+                                 f"{launches}")
+        if spec and res["decode_steps"]:
+            raise AssertionError(f"{label} rank {rank}: a decode step ran")
+    return worst
+
+
+def phase_tp(dev, seed: int):
+    """Tensor-parallel serving, tp = 2, on the one card: both ranks on
+    cuda:0 over gloo (NCCL takes one card a rank; the phase asks it and
+    prints its answer).  The parent first serves the first four prompts
+    on one rank (Llama-3-8B, GPT-3 1.3B) for the streams, the full
+    forward's logits along them and the single card's tokens/s and peak
+    memory, frees everything, then spawns the two ranks
+    (:func:`_tp_rank`) and holds what they report (:func:`_tp_gates`).
+    Returns the ranks' launches of the serves, summed."""
+    import tempfile
+    import torch.multiprocessing as mp
+    smi = _smi()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp_dir:
+        tmp = Path(tmp_dir)
+        nccl = _nccl_probe(tmp)
+        print(f"tp: {TP} ranks on cuda:0 over gloo (one card: NCCL needs one "
+              f"card a rank; NCCL asked for two ranks on this card: {nccl}); "
+              f"gloo stages every collective through the host [{smi}]")
+        refs = {kind: _tp_reference(kind, dev, seed)
+                for kind in ("llama", "gpt")}
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mp.start_processes(
+            _tp_rank, nprocs=TP, start_method="spawn",
+            args=(str(tmp), seed,
+                  {k: {"outs": v["outs"]} for k, v in refs.items()}))
+        print(f"tp: the ranks ran in {time.perf_counter() - t0:.1f} s, the "
+              f"phase {time.perf_counter() - t_phase:.1f} s")
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(TP)]
+    layers = {"llama": FULL_CFG["num_layers"], "gpt": GPT_CFG["num_layers"]}
+    total: dict = {}
+    for (shape, where), ms in ranks[0]["allreduce_ms"].items():
+        print(f"tp: one gloo all_reduce of {list(shape)} bf16 "
+              + ("on the card (staged through the host; not an NCCL figure)"
+                 if where == "cuda" else "on a host tensor") + ": "
+              + ", ".join(f"rank {i} {r['allreduce_ms'][shape, where]:.3f} "
+                          f"ms" for i, r in enumerate(ranks)) + f" [{smi}]")
+    for label, kind, _, kernel, never in TP_SERVES:
+        ref = refs[kind]
+        worst = _tp_gates(label, ranks, ref, layers[kind], kernel, never)
+        for rank, r in enumerate(ranks):
+            res = r["serves"][label]
+            rate = res.get("tokens_per_s") if "spec" in label \
+                else res["decode_tokens_per_s"]
+            print(f"  {label} rank {rank}: "
+                  + (f"{rate:.1f} tokens/s end to end, verify steps "
+                     f"{res['steps']}, acceptance "
+                     f"{res['accepted'] / max(res['drafted'], 1):.3f}"
+                     if "spec" in label else
+                     f"decode {rate:.1f} tokens/s, a decode step "
+                     f"{1e3 * res['decode_step_s']:.2f} ms")
+                  + f" (one card: decode {ref['decode_tokens_per_s']:.1f} "
+                  f"tokens/s, a step {1e3 * ref['decode_step_s']:.2f} ms); "
+                  f"peak {res['peak_bytes'] / 2**30:.2f} GiB, pool "
+                  f"{res['pool_bytes'] / 2**30:.2f} GiB, built at "
+                  f"{r[f'{kind} build peak'] / 2**30:.2f} GiB (one card's "
+                  f"serve: peak {ref['peak_bytes'] / 2**30:.2f} GiB); logits "
+                  f"within {worst:.4f} [{smi}]")
+            for k, n in res["launches"].items():
+                total[k] = total.get(k, 0) + n
+    return dict(launches=total)
 
 
 def phase_bert(dev, seed: int):
@@ -6866,11 +7339,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="kernels,serve,gpt,bert,bert_train,gpt_train,"
                             "gpt_train_8k,profile,train,lean_train,optim,"
-                            "train-check,width,spec,shim",
+                            "train-check,width,spec,tp,shim",
                     help="comma list of kernels, serve, gpt, bert, "
                          "bert_train, gpt_train, gpt_train_8k, profile, "
                          "train, lean_train, optim, train-check, width, "
-                         "spec, shim, ab "
+                         "spec, tp, shim, ab "
                          "(build always "
                          "runs; profile profiles the serve and the train "
                          "phases that run)")
@@ -6965,6 +7438,13 @@ def main(argv=None) -> int:
             r["launches"] = (r.get("launches") or 0) + spec["launches"].get(
                 key, 0)
         del spec
+        torch.cuda.empty_cache()
+    if "tp" in phases:
+        tp = phase_tp(dev, args.seed)
+        for key, r in recs.items():
+            r["launches"] = (r.get("launches") or 0) + tp["launches"].get(
+                key, 0)
+        del tp
         torch.cuda.empty_cache()
     if "ab" in phases:
         if args.baseline is None:

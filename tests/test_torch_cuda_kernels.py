@@ -1520,15 +1520,16 @@ def test_fused_block_kernel_refuses_what_it_does_not_take(cuda):
                                                         [0, 5, 16], heads=6)
     with pytest.raises(ValueError, match="group"):
         pa_.fused_block_decode(x3, blk3, kp3, vp3, t3, l3, **kw3)
-    # the GPT instance: group 1 only; partial_out is not ported
+    # the GPT instance: group 1 only; the rank-partial instance runs
+    # without the MLP only
     g_args, g_kw = _gpt_fused_case(cuda, 64, [0, 5, 16])
     gbefore = _build.launch_counts()["fused_block_decode_gpt"]
     gx, gblk, gkp, gvp, gt, gl = g_args
     with pytest.raises(ValueError, match="group 1"):
         pa_.fused_block_decode(gx, gblk, gkp[:, :4], gvp[:, :4], gt, gl,
                                **g_kw)
-    with pytest.raises(NotImplementedError, match="tp and spec"):
-        pa_.fused_block_decode(*g_args, partial_out=True, fuse_mlp=False,
+    with pytest.raises(ValueError, match="fuse_mlp=False"):
+        pa_.fused_block_decode(*g_args, partial_out=True, fuse_mlp=True,
                                **g_kw)
     bf_vec = dict(gblk, bq=gblk["bq"].to(torch.bfloat16))
     with pytest.raises(TypeError, match="float32"):
@@ -3126,3 +3127,208 @@ def test_strided_bf16_cache_at_the_decode_shape_runs_on_a_copy(cuda, layout):
     got = got.reshape(b, kvh, 4, d)
     assert _row_errors(got, ref).max().item() <= 2.0 ** -6
     assert bool((got[0] == 0).all())
+
+
+# -- tensor-parallel serving: the fused blocks' rank-partial instance (V6) --
+
+def _partial_case(cuda, kind, hidden, heads, kvh, d, lengths, ps=64,
+                  mpps=32, seed=0):
+    """One rank's shard of a decode layer in the fused layout (``wq
+    [hidden, heads * d]``, ``wo [heads * d, hidden]``: ``heads * d`` is
+    hidden / tp, not hidden), bf16 matrices (GPT: fp32 norm affines and
+    biases, its ``bo`` whole), over one layer of a strided 2-layer pool."""
+    from apex_tpu_torch.transformer.testing.standalone_llama import (
+        _rope_cos_sin)
+    slots = len(lengths)
+
+    def lin(i, o, s):
+        return _randn((i, o), seed + s, cuda) * i ** -0.5
+
+    def vec(n, s, base=0.0):
+        return base + 0.1 * _randn((1, n), seed + s, cuda, torch.float32)
+
+    blk = {"wq": lin(hidden, heads * d, 1), "wk": lin(hidden, kvh * d, 2),
+           "wv": lin(hidden, kvh * d, 3), "wo": lin(heads * d, hidden, 4)}
+    if kind == "gpt":
+        blk.update(ln1_w=vec(hidden, 5, 1.0), ln1_b=vec(hidden, 6),
+                   bq=vec(heads * d, 7), bk=vec(kvh * d, 8),
+                   bv=vec(kvh * d, 9), bo=vec(hidden, 10))
+    else:
+        blk["ln1_w"] = 1 + 0.1 * _randn((1, hidden), seed + 5, cuda)
+    n_pages = slots * mpps
+    pool_k = _randn((n_pages + 1, 2, kvh, ps, d), seed + 11, cuda)
+    pool_v = _randn((n_pages + 1, 2, kvh, ps, d), seed + 12, cuda)
+    perm = np.random.RandomState(seed + 13).permutation(n_pages)
+    table = np.full((slots, mpps), n_pages, np.int32)
+    cursor = 0
+    for s_, n in enumerate(lengths):
+        need = min(-(-n // ps), mpps)
+        table[s_, :need] = perm[cursor:cursor + need]
+        cursor += need
+    kw = dict(kind=kind, eps=1e-5)
+    if kind == "llama":
+        cos_t, sin_t = _rope_cos_sin(mpps * ps, d, 500000.0, device=cuda)
+        pos = torch.clamp(torch.tensor(lengths, device=cuda),
+                          max=mpps * ps - 1)
+        kw.update(cos=cos_t.reshape(-1, d)[pos], sin=sin_t.reshape(-1, d)[pos])
+    return (_randn((slots, hidden), seed + 14, cuda), blk, pool_k[:, 1],
+            pool_v[:, 1], torch.from_numpy(table).to(cuda),
+            torch.tensor(lengths, dtype=torch.int32, device=cuda)), kw
+
+
+#: one tp = 2 rank's shard: Llama-3-8B (16 of 32 heads over 4 of 8 kv
+#: heads, wq [4096, 2048]) and GPT-3 1.3B (8 of 16 heads of 128, wq
+#: [2048, 1024]); lengths across pages (64) and attention items (256)
+PARTIAL_SHARDS = {"llama": dict(hidden=4096, heads=16, kvh=4, d=128),
+                  "gpt": dict(hidden=2048, heads=8, kvh=8, d=128)}
+PARTIAL_LENGTHS = [0, 1, 63, 64, 65, 700, 1500, 2048]
+
+
+@pytest.mark.parametrize("kind", ["llama", "gpt"])
+def test_partial_block_kernel_matches_plain(cuda, kind):
+    """The rank-partial instance at a tp = 2 shard: ``ctx @ wo`` alone
+    (and the current token's k and v) against ``fused_block_reference(
+    partial_out=True)``; one launch of its own counter and none of the
+    whole-layer instance's."""
+    args, kw = _partial_case(cuda, kind, lengths=PARTIAL_LENGTHS,
+                             **PARTIAL_SHARDS[kind])
+    name = "fused_block_decode_gpt" if kind == "gpt" else "fused_block_decode"
+    counts = _build.launch_counts()
+    got = pa.fused_block_decode(*args, fuse_mlp=False, partial_out=True,
+                                **kw)
+    after = _build.launch_counts()
+    assert after[f"{name}_partial"] == counts[f"{name}_partial"] + 1
+    assert after[name] == counts[name]
+    ref = pa.fused_block_reference(*args, fuse_mlp=False, partial_out=True,
+                                   **kw)
+    torch.cuda.synchronize()
+    _assert_fused_close(got, ref)
+
+
+@pytest.mark.parametrize("kind", ["llama", "gpt"])
+def test_partials_of_two_ranks_sum_to_the_attention_block(cuda, kind):
+    """A whole layer (8 heads of 128 over 4 kv heads; GPT 8 over 8) split
+    over two ranks: the two partials summed, plus x (and bo once), are
+    the whole attention-only block's y within a few bf16 ulps (each
+    partial rounds to bf16 once before the sum)."""
+    hidden, heads, d = 1024, 8, 128
+    kvh = heads if kind == "gpt" else 4
+    (x, blk, kp, vp, table, lengths), kw = _partial_case(
+        cuda, kind, hidden, heads, kvh, d, PARTIAL_LENGTHS, mpps=32, seed=40)
+    whole = pa.fused_block_decode(x, blk, kp, vp, table, lengths,
+                                  fuse_mlp=False, **kw)[0]
+    from apex_tpu_torch.inference import models
+    spec = models.fused_partition_specs([blk], 2)[0]
+    total = x.float() + (blk["bo"] if kind == "gpt" else 0)
+    for rank in range(2):
+        shard = models.shard_tree(blk, spec, 2, rank)
+        half = kvh // 2
+        kr, vr = (t[:, rank * half:(rank + 1) * half] for t in (kp, vp))
+        total = total + pa.fused_block_decode(
+            x, shard, kr, vr, table, lengths, fuse_mlp=False,
+            partial_out=True, **kw)[0].float()
+    torch.cuda.synchronize()
+    assert _maxdiff(total, whole) <= 2.0 ** -5 * whole.float().abs().max()
+    assert _rel_l2(total, whole) <= 1e-2
+
+
+def _fused_instance_runs(cuda):
+    """#8 (group 4, head dim 128) and #8g (head dim 128) whole layers,
+    with the MLP and without, on seeded inputs."""
+    out = {}
+    for fuse_mlp in (True, False):
+        pa_, args, kw = _fused_case(cuda, 4, 128, [0, 1, 15, 16, 320, 7, 64,
+                                                   100])
+        y, kt, vt = pa_.fused_block_decode(*args, fuse_mlp=fuse_mlp, **kw)
+        gargs, gkw = _gpt_fused_case(cuda, 128, [0, 1, 15, 16, 255, 256,
+                                                 300, 384])
+        gy, gkt, gvt = pa.fused_block_decode(*gargs, fuse_mlp=fuse_mlp,
+                                             **gkw)
+        tag = "mlp" if fuse_mlp else "attn"
+        out.update({f"llama {tag} y": y, f"llama {tag} k": kt,
+                    f"llama {tag} v": vt, f"gpt {tag} y": gy,
+                    f"gpt {tag} k": gkt, f"gpt {tag} v": gvt})
+    return out
+
+
+#: sha256 (first 16 hex digits) of :func:`_fused_instance_runs`' outputs
+#: from the kernel library as it was before the rank-partial entries
+#: joined it, recorded on an H100 80GB HBM3
+_FUSED_DIGESTS = {
+    "llama mlp y": "2924701b98894d0a", "llama mlp k": "db164ad27683db21",
+    "llama mlp v": "d7bb197bb94ca395", "gpt mlp y": "5b72da56e55683ee",
+    "gpt mlp k": "95d1ed66397dc056", "gpt mlp v": "5ae3c63b1c84bbdb",
+    "llama attn y": "cacd4781c3fd9a1e", "llama attn k": "db164ad27683db21",
+    "llama attn v": "d7bb197bb94ca395", "gpt attn y": "b081714c887e42f0",
+    "gpt attn k": "95d1ed66397dc056", "gpt attn v": "5ae3c63b1c84bbdb"}
+
+
+def test_fused_instance_bits_match_the_recorded_run(cuda):
+    """The rank-partial flag joined #8's and #8g's phase 5: both whole-layer
+    instances, with and without the MLP, give the bits they gave
+    before."""
+    got = {k: _digest(v) for k, v in _fused_instance_runs(cuda).items()}
+    assert got == _FUSED_DIGESTS
+
+
+def _tp_rank(rank, tp, store, cfg_kw, tree, prompts, out):
+    """One rank of a gloo-served tp engine on cuda:0: its streams and the
+    launches of its unfused and its fused serve."""
+    import datetime
+    import torch.distributed as dist
+    from apex_tpu_torch.inference import InferenceEngine
+    from apex_tpu_torch.transformer.testing import LlamaConfig
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, tp),
+                            rank=rank, world_size=tp,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        res = {}
+        for fusion in ("0", "1"):
+            engine = InferenceEngine(
+                "llama", LlamaConfig(**cfg_kw), tree, slots=4, max_seq=256,
+                page_size=64, device="cuda", tp=tp, decode_fusion=fusion)
+            _build.reset_launch_counts()
+            outs = engine.generate(prompts, max_new_tokens=12)
+            torch.cuda.synchronize()
+            res[fusion] = (outs, _build.launch_counts())
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, f"{out}.{rank}")
+
+
+def test_tp_engine_two_gloo_ranks_on_one_card(cuda, tmp_path):
+    """A small LLaMA-GQA (8 heads of 128 over 2 kv heads: a rank takes 4
+    over 1) served by two ranks on cuda:0 over gloo, unfused (#7 on each
+    rank's pool shard) and fused (V6): every rank the same streams, equal
+    to the single-card engine's up to a near tie, and the rank's kernels
+    launched."""
+    import torch.multiprocessing as mp
+    from apex_tpu_torch.inference import InferenceEngine
+    from apex_tpu_torch.transformer.testing import LlamaConfig
+    cfg_kw = dict(vocab_size=256, hidden_size=1024, num_layers=2,
+                  num_attention_heads=8, num_kv_heads=2, ffn_hidden_size=512,
+                  max_seq_length=256)
+    cfg = LlamaConfig(**cfg_kw)
+    tree = _llama_tree(cfg, "cpu")
+    prompts = [[1, 2, 3, 4, 5], list(range(7, 70)), [9] * 30]
+    one = InferenceEngine("llama", cfg, tree, slots=4, max_seq=256,
+                          page_size=64, device=cuda)
+    want = one.generate(prompts, max_new_tokens=12)
+    mp.start_processes(_tp_rank, nprocs=2, start_method="spawn",
+                       args=(2, str(tmp_path / "store"), cfg_kw, tree,
+                             prompts, str(tmp_path / "out")))
+    ranks = [torch.load(f"{tmp_path / 'out'}.{r}", weights_only=False)
+             for r in range(2)]
+    for fusion, kernel in (("0", "paged_attention"),
+                           ("1", "fused_block_decode_partial")):
+        outs, launches = ranks[0][fusion]
+        assert ranks[1][fusion][0] == outs
+        assert launches[kernel] > 0 and launches["flash_attention"] > 0
+        assert ranks[1][fusion][1] == launches
+        other = {"paged_attention", "fused_block_decode_partial",
+                 "fused_block_decode"} - {kernel}
+        assert not any(launches[k] for k in other), launches
+        for p, got, w in zip(prompts, outs, want):
+            assert len(got) == 12 and got[0] == w[0]
+            assert _diverges_undecided(one, p, got, w)

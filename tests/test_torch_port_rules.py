@@ -215,7 +215,8 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(
         "flash_attention_bwd_dkv_md": 0, "paged_attention": 0,
         "fused_scale": 0, "fused_axpby": 0, "fused_adam": 0,
         "fused_block_decode": 0, "fused_block_decode_gpt": 0,
-        "fused_l2norm": 0,
+        "fused_block_decode_partial": 0,
+        "fused_block_decode_gpt_partial": 0, "fused_l2norm": 0,
         "fused_l2norm_scale": 0, "fused_lamb1": 0, "fused_sgd": 0,
         "fused_adagrad": 0, "flash_attention_wide": 0,
         "flash_attention_wide_dq": 0, "flash_attention_wide_dkv": 0,
@@ -239,20 +240,47 @@ def _fused(**kwargs):
     return lambda: fused_block_decode(*_fused_args(), **_fused_kw(**kwargs))
 
 
-@pytest.mark.parametrize("call,match", [
-    (_engine(kind="gpt", tp=2), "tp and spec"),
-    (_engine(kind="gpt", tp=2, spec_k=2), "tp and spec"),
-    (_engine(kind="gpt", host_tier_bytes=1 << 20), "host page tier"),
-    (_engine(tp=2), "tp and spec"),
-    (_engine(tp=2, spec_k=2), "tp and spec"),
-    (_engine(decode_fusion="1", tp=2), "tp and spec"),
-    (_fused(partial_out=True, fuse_mlp=False), "tp and spec"),
-    (_fused(kind="gpt", partial_out=True, fuse_mlp=False), "tp and spec"),
-    (_engine(host_tier_bytes=1 << 20), "host page tier"),
+#: what a tp > 1 engine without an initialised torch.distributed says
+NO_GROUP = "init_process_group"
+
+
+@pytest.mark.parametrize("call,exc,match", [
+    (_engine(kind="gpt", tp=2), RuntimeError, NO_GROUP),
+    (_engine(kind="gpt", tp=2, spec_k=2), RuntimeError, NO_GROUP),
+    (_engine(kind="gpt", host_tier_bytes=1 << 20), NotImplementedError,
+     "host page tier"),
+    (_engine(tp=2), RuntimeError, NO_GROUP),
+    (_engine(tp=2, spec_k=2), RuntimeError, NO_GROUP),
+    (_engine(decode_fusion="1", tp=2), RuntimeError, NO_GROUP),
+    (_fused(partial_out=True, fuse_mlp=True), ValueError, "fuse_mlp=False"),
+    (_fused(kind="gpt", partial_out=True, fuse_mlp=True), ValueError,
+     "fuse_mlp=False"),
+    (_engine(host_tier_bytes=1 << 20), NotImplementedError, "host page tier"),
 ])
-def test_out_of_slice_configurations_raise(call, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_out_of_slice_configurations_raise(call, exc, match):
+    """The host page tier is a later slice; a tp > 1 engine never serves
+    one rank's shard without its process group; the rank-partial fused
+    block runs without the MLP only."""
+    with pytest.raises(exc, match=match):
         call()
+
+
+@pytest.mark.parametrize("kind", ["llama", "gpt"])
+def test_partial_out_returns_the_plain_partial(kind):
+    """On the CPU ``partial_out=True`` is the plain version's rank
+    partial, ``ctx @ wo``: the attention-only block's output less the
+    residual (and, GPT, less ``bo``), and no kernel launches."""
+    _build.reset_launch_counts()
+    args = _gpt_fused_args() if kind == "gpt" else _fused_args()
+    kw = _fused_kw(kind=kind, fuse_mlp=False)
+    part, k_tok, v_tok = fused_block_decode(*args, partial_out=True, **kw)
+    y, k_ref, v_ref = fused_block_decode(*args, **kw)
+    want = y - args[0]
+    if kind == "gpt":
+        want = want - args[1]["bo"]
+    torch.testing.assert_close(part, want, rtol=0, atol=1e-5)
+    assert torch.equal(k_tok, k_ref) and torch.equal(v_tok, v_ref)
+    assert not any(_build.launch_counts().values())
 
 
 @pytest.mark.parametrize("call,match", [
@@ -266,9 +294,11 @@ def test_configurations_the_jax_engine_refuses_raise_its_value_error(
 
 
 def test_env_knobs_cannot_silently_select_an_unported_path(monkeypatch):
+    """``APEX_TPU_SERVE_TP=2`` without a process group raises: the
+    engine never serves one rank's shard as if it were the model."""
     monkeypatch.setenv("APEX_TPU_SPEC_K", "3")
     monkeypatch.setenv("APEX_TPU_SERVE_TP", "2")
-    with pytest.raises(NotImplementedError, match="tp and spec"):
+    with pytest.raises(RuntimeError, match=NO_GROUP):
         InferenceEngine("llama", CFG, _params(), slots=1, page_size=16,
                         device="cpu")
 
@@ -281,10 +311,12 @@ def test_every_kernel_source_exists_and_exports_its_entry():
     # every TPU kernel, and further instances: the masked flash forward
     # (#3), the GPT fused block (#8), the flash kernels' mask and
     # dropout instances (#3 with dropout, masked or not; #4 with a mask or
-    # dropout; #5 and #6 with either), and the wide family (#3w, #5w,
-    # #6w, #7w: fp32, fp16 and head dims the instances lack)
-    assert len(_build.KERNELS) == 28
+    # dropout; #5 and #6 with either), the wide family (#3w, #5w, #6w,
+    # #7w: fp32, fp16 and head dims the instances lack) and the fused
+    # blocks' tensor-parallel rank-partial instances (V6)
+    assert len(_build.KERNELS) == 30
     assert {"flash_attention_masked", "fused_block_decode_gpt",
+            "fused_block_decode_partial", "fused_block_decode_gpt_partial",
             "flash_attention_drop", "flash_attention_masked_drop",
             "flash_attention_bwd_masked", "flash_attention_bwd_drop",
             "flash_attention_bwd_dq_md", "flash_attention_bwd_dkv_md",

@@ -691,6 +691,8 @@ def test_verify_requires_greedy_and_k(models):
 
 @pytest.mark.parametrize("which", ["prefill", "decode", "verify"])
 def test_factories_take_tp_1_and_name_the_later_slice(models, which):
+    """tp = 1 builds a step; tp = 2 without an initialised
+    torch.distributed raises, naming what the rank must call first."""
     cfg, greedy = models["gpt"]["cfg"], SamplingConfig()
     build = {"prefill": lambda tp: make_prefill_fn("gpt", cfg, greedy,
                                                    tp=tp),
@@ -698,8 +700,10 @@ def test_factories_take_tp_1_and_name_the_later_slice(models, which):
              "verify": lambda tp: make_verify_fn("gpt", cfg, greedy, 2,
                                                  tp=tp)}[which]
     assert callable(build(1))
-    with pytest.raises(NotImplementedError, match="tp and spec"):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         build(2)
+    with pytest.raises(ValueError):
+        build(0)
 
 
 def test_verify_step_histogram_sample_is_per_token():
