@@ -83,24 +83,17 @@
 // norm weights and biases are fp32.  A GPT-3 1.3B layer reads 50.3 M
 // bf16 weights (100.7 MB) plus the live pages.
 //
-// The rank-partial instance (partial_out=True of the TPU kernel, a
-// tensor-parallel rank's shard): the attention half alone (fuse_mlp 0)
-// on the rank's column slices of wq, wk, wv and its row slice of wo, so
-// h d is hidden / tp and not hidden (Llama-3-8B at tp = 2: wq [4096,
-// 2048], wo [2048, 4096], 16 heads over 4 kv heads); phase 5 stores
-// y = bf16(o) with no residual and no bo, and the caller all-reduces
-// it.  Every product sizes its rows and columns from hidden, h d and
-// kvh d separately, so the phases are the attention-only block's.
+// Every product sizes its rows and columns from hidden, h d and kvh d
+// apart.  A tensor-parallel rank's attention half (partial_out=True of
+// the TPU kernel) is a kernel of its own, csrc/fused_block_partial.cu;
+// the helpers both use are csrc/fused_block_common.cuh's.
 //
 // Plain C interface (loaded with ctypes): apex_fused_block_decode and
-// apex_fused_block_decode_gpt, and their rank-partial entries
-// apex_fused_block_decode_partial and apex_fused_block_decode_gpt_partial,
-// launch on the caller's stream and return cudaGetLastError(); with a
-// null workspace they only report the workspace bytes they need.
+// apex_fused_block_decode_gpt launch on the caller's stream and return
+// cudaGetLastError(); with a null workspace they only report the
+// workspace bytes they need.
 
-#include <mutex>
-
-#include "hopper.cuh"
+#include "fused_block_common.cuh"
 
 namespace {
 
@@ -187,48 +180,10 @@ struct Params {
   int slots, hidden, kvh, ffn, ps, mpps, nsplit;
   int ks_qkv, ks_o, ks_gu, ks_d;
   int ch_qkv, ch_o, ch_gu, ch_d;
-  int ln_fp32, fuse_mlp, partial_out, r_off;
+  int ln_fp32, fuse_mlp, r_off;
   int m_off, merge_nh;      // the merge factors' shared memory, its heads
   float eps, scale_log2;
 };
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ void unpack8(const uint4& raw, float* f) {
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 t = __bfloat1622float2(h2[j]);
-    f[2 * j] = t.x;
-    f[2 * j + 1] = t.y;
-  }
-}
-
-// the box at (column c, row r) of a 2-d tensor map into shared memory at
-// dst, completing `bar`'s transactions
-__device__ __forceinline__ void tma_load2(uint32_t dst, const CUtensorMap* map,
-                                          uint32_t bar, int c, int r) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(bar)
-      : "memory");
-}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -276,52 +231,6 @@ struct Seg {
   const CUtensorMap* tm;  // the [K, n] row-major ([in, out]) weight
   int n;                  // columns (a multiple of 8)
   int col_off;            // first column of this weight in the partial rows
-};
-
-// The GEMV's activations, four consecutive inputs k .. k + 3 of one slot
-// at a time (k a multiple of 4; K is a multiple of 8).
-
-__device__ __forceinline__ float4 bf16x4(uint2 raw) {
-  const float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// A = bf16(v * r[slot] * w[k]) with v from the bf16 x or the fp32 x2:
-// the normalised activations the q/k/v and gate/up products read.  GPT:
-// A = bf16((v - mu[slot]) * r[slot] * w[k] + b[k]), w and b fp32.
-template <bool GPT>
-struct BuildNorm {
-  const bf16* xb;
-  const float* xf;
-  const float* r;
-  const void* w;
-  int ln_fp32, hidden, slots;
-  const float* mu;
-  const float* b;
-  __device__ void prepare(int, int, int) const {}
-  __device__ float4 operator()(int slot, int k) const {
-    const size_t i = (size_t)slot * hidden + k;
-    const float4 v =
-        xb ? bf16x4(__ldg(reinterpret_cast<const uint2*>(xb + i)))
-           : __ldcg(reinterpret_cast<const float4*>(xf + i));
-    if constexpr (GPT) {
-      const float4 w4 = __ldg(reinterpret_cast<const float4*>(w) + k / 4);
-      const float4 b4 = __ldg(reinterpret_cast<const float4*>(b) + k / 4);
-      const float rs = r[slot], m = mu[slot];
-      return make_float4(bf16_round((v.x - m) * rs * w4.x + b4.x),
-                         bf16_round((v.y - m) * rs * w4.y + b4.y),
-                         bf16_round((v.z - m) * rs * w4.z + b4.z),
-                         bf16_round((v.w - m) * rs * w4.w + b4.w));
-    }
-    const float4 w4 =
-        ln_fp32 ? __ldg(reinterpret_cast<const float4*>(w) + k / 4)
-                : bf16x4(__ldg(reinterpret_cast<const uint2*>(
-                      static_cast<const bf16*>(w) + k)));
-    const float rs = r[slot];
-    return make_float4(bf16_round(v.x * rs * w4.x), bf16_round(v.y * rs * w4.y),
-                       bf16_round(v.z * rs * w4.z), bf16_round(v.w * rs * w4.w));
-  }
 };
 
 // A = bf16(ctx), the o product's input, merged here from the attention
@@ -465,23 +374,6 @@ struct BuildGelu {
     return bf16_round(x * cdf);
   }
 };
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, unsigned a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// d[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, fp32 sums (tensor cores)
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // One GEMV item: the segment, its column tile and chunk kc of the input
 // rows [k0, k1), nst ring stages of kKS rows.  Items are dealt
@@ -966,12 +858,6 @@ __device__ void norm1_stats(const Params& p, float* sR, float* sMu) {
   }
 }
 
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 // a grid barrier, and the phase clock's reading of it (block 0)
 __device__ __forceinline__ void phase_end(const Params& p, int i) {
   grid_sync();
@@ -1042,8 +928,7 @@ fused_block_kernel(const Params p, const __grid_constant__ WeightMaps tm) {
   phase_end(p, 4);
   // 5. x2 = x + o (fp32; GPT: x + (o + bo)); norm2's sums of squares
   //    per 256 columns (GPT: the sums and the squared deviations from
-  //    their own mean).  Without the MLP, y = x2 and the layer ends here;
-  //    partial_out stores y = o (no x, no bo).
+  //    their own mean).  Without the MLP, y = x2 and the layer ends here.
   for (int it = blockIdx.x; it < S * nblk; it += gridDim.x) {
     const int slot = it / nblk, b = it % nblk;
     const int col = b * kRowBlock + tid;
@@ -1055,10 +940,9 @@ fused_block_kernel(const Params p, const __grid_constant__ WeightMaps tm) {
 #pragma unroll 4
         for (int c = 0; c < p.ks_o; ++c)
           o += __ldcg(p.p_o + ((size_t)c * S + slot) * H + col);
-        v = p.partial_out ? o
-                          : __bfloat162float(p.x[i]) + (o + __ldg(p.bo + col));
+        v = __bfloat162float(p.x[i]) + (o + __ldg(p.bo + col));
       } else {
-        v = p.partial_out ? 0.f : __bfloat162float(p.x[i]);
+        v = __bfloat162float(p.x[i]);
 #pragma unroll 4
         for (int c = 0; c < p.ks_o; ++c)
           v += __ldcg(p.p_o + ((size_t)c * S + slot) * H + col);
@@ -1256,47 +1140,6 @@ int plan(Params& p, unsigned char* base, Layout* out) {
   return 0;
 }
 
-// The tensor map of a bf16 [K, n] row-major weight for TMA boxes of 32
-// rows x 64 columns in the 128-byte swizzle, encoded once per (address,
-// shape): a decode step asks for the same maps of every layer on every
-// step, and the step is bound by host time.
-struct WeightKey {
-  const void* w;
-  int K, n;
-};
-constexpr int kWeightMaps = 1024;
-std::mutex g_wmap_mu;
-WeightKey g_wmap_key[kWeightMaps];
-CUtensorMap g_wmap[kWeightMaps];
-int g_wmap_used = 0, g_wmap_next = 0;
-
-int weight_map(CUtensorMap* map, const void* w, int K, int n) {
-  std::lock_guard<std::mutex> lock(g_wmap_mu);
-  for (int i = 0; i < g_wmap_used; ++i)
-    if (g_wmap_key[i].w == w && g_wmap_key[i].K == K && g_wmap_key[i].n == n) {
-      *map = g_wmap[i];
-      return 0;
-    }
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)K};
-  const cuuint64_t strides[1] = {(cuuint64_t)n * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)kKS};
-  const cuuint32_t one[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                            const_cast<void*>(w), dims, strides, box, one,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
-  g_wmap_key[g_wmap_next] = WeightKey{w, K, n};
-  g_wmap[g_wmap_next] = *map;
-  g_wmap_next = (g_wmap_next + 1) % kWeightMaps;
-  if (g_wmap_used < kWeightMaps) ++g_wmap_used;
-  return 0;
-}
-
 template <int G, int D, bool GPT = false>
 int run(Params& p, void* ws, long long* ws_bytes, cudaStream_t stream) {
   Layout lay;
@@ -1308,14 +1151,14 @@ int run(Params& p, void* ws, long long* ws_bytes, cudaStream_t stream) {
   }
   const int H = p.hidden, hd = p.kvh * G * D, kvd = p.kvh * D;
   WeightMaps tm = {};
-  err = weight_map(&tm.q, p.wq, H, hd);
-  if (!err) err = weight_map(&tm.k, p.wk, H, kvd);
-  if (!err) err = weight_map(&tm.v, p.wv, H, kvd);
-  if (!err) err = weight_map(&tm.o, p.wo, hd, H);
+  err = weight_map(&tm.q, p.wq, H, hd, kKS);
+  if (!err) err = weight_map(&tm.k, p.wk, H, kvd, kKS);
+  if (!err) err = weight_map(&tm.v, p.wv, H, kvd, kKS);
+  if (!err) err = weight_map(&tm.o, p.wo, hd, H, kKS);
   if (!err && p.fuse_mlp) {
-    if (!GPT) err = weight_map(&tm.g, p.wg, H, p.ffn);
-    if (!err) err = weight_map(&tm.u, p.wu, H, p.ffn);
-    if (!err) err = weight_map(&tm.d, p.wd, p.ffn, H);
+    if (!GPT) err = weight_map(&tm.g, p.wg, H, p.ffn, kKS);
+    if (!err) err = weight_map(&tm.u, p.wu, H, p.ffn, kKS);
+    if (!err) err = weight_map(&tm.d, p.wd, p.ffn, H, kKS);
   }
   if (err) return err;
   void* args[] = {&p, &tm};
@@ -1338,18 +1181,30 @@ int run_d(int group, Params& p, void* ws, long long* ws_bytes,
   }
 }
 
-// The entries' bodies: Params from the operands, the launch at the
-// geometry's instance.
-int llama_entry(
+}  // namespace
+
+// x [slots, hidden] bf16; cos/sin [slots, d] fp32; ln1_w/ln2_w [hidden]
+// bf16 (fp32 with ln_fp32); wq [hidden, h d], wk/wv [hidden, kvh d], wo
+// [h d, hidden], wg/wu [hidden, ffn], wd [ffn, hidden] bf16, all
+// contiguous; k/v pages [pages, kvh, ps, d] bf16 with heads and rows
+// contiguous and page stride `page_stride` elements; page_table [slots,
+// mpps] and lengths [slots] int32 (lengths before this token's append);
+// y [slots, hidden], kt/vt [slots, kvh, d] bf16.  Group h / kvh 1, 2, 4
+// or 8; d 64 or 128; hidden, h d and ffn multiples of 8, pointers
+// 16-byte aligned.  With fuse_mlp 0, y = x + attention and the MLP
+// weights are not read.  ws: the workspace; with ws null nothing is
+// launched and *ws_bytes receives its size.  clock: null, or 10 uint64
+// that receive the start, the end of each phase as block 0 leaves its
+// barrier, and (atomicMax: zero it first) the last block's end, in ns.
+extern "C" int apex_fused_block_decode(
     const void* x, const void* cos, const void* sin, const void* ln1_w,
     const void* wq, const void* wk, const void* wv, const void* wo,
     const void* ln2_w, const void* wg, const void* wu, const void* wd,
     const void* k_pages, const void* v_pages, const void* page_table,
     const void* lengths, void* y, void* kt, void* vt, void* ws,
-    long long* ws_bytes, void* clock, int slots, int hidden, int heads,
-    int kvh, int d, int ffn, int ps, int mpps, long long page_stride,
-    int fuse_mlp, int ln_fp32, float eps, float scale_log2, void* stream,
-    int partial_out) {
+    long long* ws_bytes, void* clock, int slots, int hidden, int heads, int kvh, int d,
+    int ffn, int ps, int mpps, long long page_stride, int fuse_mlp,
+    int ln_fp32, float eps, float scale_log2, void* stream) {
   cudaGetLastError();
   if (slots <= 0 || hidden <= 0 || hidden % 8 || kvh <= 0 || heads % kvh ||
       ps <= 0 || mpps <= 0 || (fuse_mlp && (ffn <= 0 || ffn % 8)))
@@ -1384,7 +1239,6 @@ int llama_entry(
   p.mpps = mpps;
   p.ln_fp32 = ln_fp32;
   p.fuse_mlp = fuse_mlp;
-  p.partial_out = partial_out;
   p.eps = eps;
   p.scale_log2 = scale_log2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1396,7 +1250,13 @@ int llama_entry(
   }
 }
 
-int gpt_entry(
+// The GPT layer: x [slots, hidden] bf16; ln1_w/ln1_b/ln2_w/ln2_b
+// [hidden], bq/bk/bv [h d] / [kvh d], bo/bd [hidden], bu [ffn], all fp32;
+// wq, wk, wv, wo, wu [hidden, ffn], wd [ffn, hidden] bf16; the pool,
+// page table, lengths, outputs, workspace and clock as
+// apex_fused_block_decode's.  h = kvh (group 1); d 64 or 128.  With
+// fuse_mlp 0, y = x + (o + bo) and ln2, wu, bu, wd, bd are not read.
+extern "C" int apex_fused_block_decode_gpt(
     const void* x, const void* ln1_w, const void* ln1_b, const void* wq,
     const void* bq, const void* wk, const void* bk, const void* wv,
     const void* bv, const void* wo, const void* bo, const void* ln2_w,
@@ -1406,7 +1266,7 @@ int gpt_entry(
     void* vt, void* ws, long long* ws_bytes, void* clock, int slots,
     int hidden, int heads, int kvh, int d, int ffn, int ps, int mpps,
     long long page_stride, int fuse_mlp, float eps, float scale_log2,
-    void* stream, int partial_out) {
+    void* stream) {
   cudaGetLastError();
   if (slots <= 0 || hidden <= 0 || hidden % 8 || kvh <= 0 || heads != kvh ||
       ps <= 0 || mpps <= 0 || (fuse_mlp && (ffn <= 0 || ffn % 8)))
@@ -1446,7 +1306,6 @@ int gpt_entry(
   p.mpps = mpps;
   p.ln_fp32 = 1;
   p.fuse_mlp = fuse_mlp;
-  p.partial_out = partial_out;
   p.eps = eps;
   p.scale_log2 = scale_log2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1455,95 +1314,4 @@ int gpt_entry(
     case 128: return run<1, 128, true>(p, ws, ws_bytes, s);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-}  // namespace
-
-// x [slots, hidden] bf16; cos/sin [slots, d] fp32; ln1_w/ln2_w [hidden]
-// bf16 (fp32 with ln_fp32); wq [hidden, h d], wk/wv [hidden, kvh d], wo
-// [h d, hidden], wg/wu [hidden, ffn], wd [ffn, hidden] bf16, all
-// contiguous; k/v pages [pages, kvh, ps, d] bf16 with heads and rows
-// contiguous and page stride `page_stride` elements; page_table [slots,
-// mpps] and lengths [slots] int32 (lengths before this token's append);
-// y [slots, hidden], kt/vt [slots, kvh, d] bf16.  Group h / kvh 1, 2, 4
-// or 8; d 64 or 128; hidden, h d and ffn multiples of 8, pointers
-// 16-byte aligned.  With fuse_mlp 0, y = x + attention and the MLP
-// weights are not read.  ws: the workspace; with ws null nothing is
-// launched and *ws_bytes receives its size.  clock: null, or 10 uint64
-// that receive the start, the end of each phase as block 0 leaves its
-// barrier, and (atomicMax: zero it first) the last block's end, in ns.
-extern "C" int apex_fused_block_decode(
-    const void* x, const void* cos, const void* sin, const void* ln1_w,
-    const void* wq, const void* wk, const void* wv, const void* wo,
-    const void* ln2_w, const void* wg, const void* wu, const void* wd,
-    const void* k_pages, const void* v_pages, const void* page_table,
-    const void* lengths, void* y, void* kt, void* vt, void* ws,
-    long long* ws_bytes, void* clock, int slots, int hidden, int heads, int kvh, int d,
-    int ffn, int ps, int mpps, long long page_stride, int fuse_mlp,
-    int ln_fp32, float eps, float scale_log2, void* stream) {
-  return llama_entry(x, cos, sin, ln1_w, wq, wk, wv, wo, ln2_w, wg, wu, wd,
-                     k_pages, v_pages, page_table, lengths, y, kt, vt, ws,
-                     ws_bytes, clock, slots, hidden, heads, kvh, d, ffn, ps,
-                     mpps, page_stride, fuse_mlp, ln_fp32, eps, scale_log2,
-                     stream, 0);
-}
-
-// The rank-partial LLaMA layer: apex_fused_block_decode's operands
-// without the MLP's (a rank's wq [hidden, h d], wk/wv [hidden, kvh d],
-// wo [h d, hidden]), y [slots, hidden] = bf16(ctx @ wo): no residual.
-extern "C" int apex_fused_block_decode_partial(
-    const void* x, const void* cos, const void* sin, const void* ln1_w,
-    const void* wq, const void* wk, const void* wv, const void* wo,
-    const void* k_pages, const void* v_pages, const void* page_table,
-    const void* lengths, void* y, void* kt, void* vt, void* ws,
-    long long* ws_bytes, void* clock, int slots, int hidden, int heads,
-    int kvh, int d, int ps, int mpps, long long page_stride, int ln_fp32,
-    float eps, float scale_log2, void* stream) {
-  return llama_entry(x, cos, sin, ln1_w, wq, wk, wv, wo, nullptr, nullptr,
-                     nullptr, nullptr, k_pages, v_pages, page_table, lengths,
-                     y, kt, vt, ws, ws_bytes, clock, slots, hidden, heads,
-                     kvh, d, 0, ps, mpps, page_stride, 0, ln_fp32, eps,
-                     scale_log2, stream, 1);
-}
-
-// The GPT layer: x [slots, hidden] bf16; ln1_w/ln1_b/ln2_w/ln2_b
-// [hidden], bq/bk/bv [h d] / [kvh d], bo/bd [hidden], bu [ffn], all fp32;
-// wq, wk, wv, wo, wu [hidden, ffn], wd [ffn, hidden] bf16; the pool,
-// page table, lengths, outputs, workspace and clock as
-// apex_fused_block_decode's.  h = kvh (group 1); d 64 or 128.  With
-// fuse_mlp 0, y = x + (o + bo) and ln2, wu, bu, wd, bd are not read.
-extern "C" int apex_fused_block_decode_gpt(
-    const void* x, const void* ln1_w, const void* ln1_b, const void* wq,
-    const void* bq, const void* wk, const void* bk, const void* wv,
-    const void* bv, const void* wo, const void* bo, const void* ln2_w,
-    const void* ln2_b, const void* wu, const void* bu, const void* wd,
-    const void* bd, const void* k_pages, const void* v_pages,
-    const void* page_table, const void* lengths, void* y, void* kt,
-    void* vt, void* ws, long long* ws_bytes, void* clock, int slots,
-    int hidden, int heads, int kvh, int d, int ffn, int ps, int mpps,
-    long long page_stride, int fuse_mlp, float eps, float scale_log2,
-    void* stream) {
-  return gpt_entry(x, ln1_w, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo, ln2_w,
-                   ln2_b, wu, bu, wd, bd, k_pages, v_pages, page_table,
-                   lengths, y, kt, vt, ws, ws_bytes, clock, slots, hidden,
-                   heads, kvh, d, ffn, ps, mpps, page_stride, fuse_mlp, eps,
-                   scale_log2, stream, 0);
-}
-
-// The rank-partial GPT layer: apex_fused_block_decode_gpt's operands
-// without bo and the MLP's (a rank's heads), y [slots, hidden] =
-// bf16(ctx @ wo): no residual, no bo.
-extern "C" int apex_fused_block_decode_gpt_partial(
-    const void* x, const void* ln1_w, const void* ln1_b, const void* wq,
-    const void* bq, const void* wk, const void* bk, const void* wv,
-    const void* bv, const void* wo, const void* k_pages,
-    const void* v_pages, const void* page_table, const void* lengths,
-    void* y, void* kt, void* vt, void* ws, long long* ws_bytes, void* clock,
-    int slots, int hidden, int heads, int kvh, int d, int ps, int mpps,
-    long long page_stride, float eps, float scale_log2, void* stream) {
-  return gpt_entry(x, ln1_w, ln1_b, wq, bq, wk, bk, wv, bv, wo, nullptr,
-                   nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                   k_pages, v_pages, page_table, lengths, y, kt, vt, ws,
-                   ws_bytes, clock, slots, hidden, heads, kvh, d, 0, ps, mpps,
-                   page_stride, 0, eps, scale_log2, stream, 1);
 }

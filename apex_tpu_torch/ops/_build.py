@@ -24,8 +24,8 @@ further instances with counters of their own: ``flash_attention.cu`` the
 masked forward (``flash_attention_masked``, whose counter also counts
 the dense cache's decode kernel, ``apex_flash_decode``: the masked
 forward's q_len-1 case), ``fused_block_decode.cu`` the GPT layer
-(``fused_block_decode_gpt``) and each layer's tensor-parallel
-rank-partial instance (``fused_block_decode_partial``,
+(``fused_block_decode_gpt``), ``fused_block_partial.cu`` each layer's
+tensor-parallel rank-partial instance (``fused_block_decode_partial``,
 ``fused_block_decode_gpt_partial``), and the flash kernels' mask and
 dropout instances: ``flash_attention_md.cu`` the forward with dropout, without
 and with a mask (``flash_attention_drop``,
@@ -41,9 +41,10 @@ and dk/dv (``flash_attention_wide_dkv``), ``paged_wide.cu`` paged decode
 (``paged_attention_wide``); the forward's, dq's and dk/dv's tensor-core
 instances and paged decode's TMA modes sit in sources of their own
 (``flash_wide_tc_*.cu``, ``paged_wide_tc_*.cu``, no entries) so that
-they compile in parallel.  ``fused_block_decode.cu``
-is one cooperative launch per decoder layer; its entries, called with
-a null workspace, report the workspace size without launching.  One
+they compile in parallel.  ``fused_block_decode.cu`` and
+``fused_block_partial.cu`` are one cooperative launch per decoder layer;
+their entries, called with a null workspace, report the workspace size
+without launching.  One
 entry launches no counted kernel: the mask pre-pass of the split
 backward (:data:`UNCOUNTED`), which the forward's masked entries run
 inside them, uncounted too; nor do the wide family's split of fp32
@@ -105,7 +106,8 @@ SOURCES = {
                         "fused_adagrad": "apex_fused_adagrad"},
     "fused_block_decode.cu": {
         "fused_block_decode": "apex_fused_block_decode",
-        "fused_block_decode_gpt": "apex_fused_block_decode_gpt",
+        "fused_block_decode_gpt": "apex_fused_block_decode_gpt"},
+    "fused_block_partial.cu": {
         "fused_block_decode_partial": "apex_fused_block_decode_partial",
         "fused_block_decode_gpt_partial":
             "apex_fused_block_decode_gpt_partial"},

@@ -747,11 +747,14 @@ _WS_BYTES: dict = {}
 def _fused_kernel_call(x, blk, k_pages, v_pages, page_table, lengths, cos,
                        sin, eps, scale, fuse_mlp, kvh, ps, d, h, clock=None,
                        kind="llama", partial_out=False):
-    """Launch the kernel (``partial_out``: the rank-partial entry, which
-    takes no MLP and, GPT, no ``bo``).  ``clock``: ``None``, or a zeroed
-    int64 CUDA tensor of 9 that receives the launch's phase times in ns
-    (the start, the end of each of the 7 phases that end in a grid
-    barrier, and the last block's end)."""
+    """Launch the kernel (``partial_out``: the rank-partial entry,
+    ``csrc/fused_block_partial.cu``, which takes no MLP and, GPT, no
+    ``bo``).  ``clock``: ``None``, or a zeroed int64 CUDA tensor of 9
+    that receives the launch's phase times in ns: the whole layer's
+    start, the end of each of its 7 phases that end in a grid barrier,
+    and the last block's end; the rank-partial kernel's start, the last
+    end of each of its item classes (norm1 statistics, q/k/v, attention,
+    o) and the last block's end in its first 6."""
     gpt = kind == "gpt"
     slots, hidden = x.shape
     bf = torch.bfloat16
@@ -939,10 +942,10 @@ def fused_block_decode(x, blk, k_pages, v_pages, page_table, lengths, *,
     ``wq`` is ``[hidden, h_rank * d]`` and ``wo`` ``[h_rank * d,
     hidden]``) returns the rank-partial ``y = ctx @ wo``: no residual,
     no ``bo``; the caller all-reduces it and finishes the layer.  On
-    CUDA one launch of ``csrc/fused_block_decode.cu`` (bf16 x, weights
-    and pool; LLaMA group 1/2/4/8, GPT group 1; head_dim 64/128;
-    anything else raises); a CPU tensor takes
-    :func:`fused_block_reference`."""
+    CUDA one launch of ``csrc/fused_block_decode.cu`` (``partial_out``:
+    ``csrc/fused_block_partial.cu``; bf16 x, weights and pool; LLaMA
+    group 1/2/4/8, GPT group 1; head_dim 64/128; anything else raises);
+    a CPU tensor takes :func:`fused_block_reference`."""
     kvh, ps, d, h = _fused_geometry(x, blk, k_pages, v_pages, page_table,
                                     lengths, kind, cos, sin, partial_out,
                                     fuse_mlp)

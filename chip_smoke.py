@@ -178,9 +178,11 @@
    #3 and #4 at 2048, #5 and #6 at 8192 as controls) with the
    full-depth ``gpt_train``, ``bert_train`` and ``gpt_train_8k`` steps
    (``--ab-rows`` picks among flash, paged, norm, steps, masked, fused,
-   md, wide and wide_paged; ``wide_paged``: #7w at each of its rows,
-   #7 and the dense decode with the same bits from both versions, and
-   the ``width`` serves' decode steps).
+   md, wide, wide_paged and partial; ``wide_paged``: #7w at each of its
+   rows, #7 and the dense decode with the same bits from both versions,
+   and the ``width`` serves' decode steps; ``partial``: the fused
+   block's rank-partial instances, V6, at the tp = 2 and tp = 4 shards
+   of Llama-3-8B and GPT-3 1.3B with their phase clocks).
 9. **Shim.**  One backward of the 1-layer model, then
    ``multi_tensor_applier`` with each of its four ops over the model's
    real grad list (11 leaves, bf16 and fp32), one kernel launch a call,
@@ -320,8 +322,8 @@
    figures), each beside the card.  The kernels phase holds V6 at both
    shards (each rank's partial against its plain version, the two
    partials summed against the whole attention-only block) with its
-   time, plain time and bound; the ranks' launches are added to the
-   ``kernels`` line's counts.
+   time, plain time, bound and phase clock; the ranks' launches are
+   added to the ``kernels`` line's counts.
 
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed phase raises, so the
@@ -2089,8 +2091,9 @@ def _partial_rows(dev, recs, kind, blk, x, pool_k, pool_v, layer, table,
     heads against ``fused_block_reference(partial_out=True)``; the two
     partials summed, plus x (and bo), against the whole layer's
     attention-only block (#8 / #8g, ``fuse_mlp=False``); rank 0's time
-    over four layers of the pool in turn, its plain time and its bound
-    (the rank's weight slices and its heads' live k/v once)."""
+    over four layers of the pool in turn, its plain time, its bound
+    (the rank's weight slices and its heads' live k/v once) and its
+    phase clock (:func:`_partial_clock`)."""
     from apex_tpu_torch.inference import models
     pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
     name = ("fused_block_decode_gpt" if kind == "gpt"
@@ -2166,9 +2169,11 @@ def _partial_rows(dev, recs, kind, blk, x, pool_k, pool_v, layer, table,
           f"behind a sleeping card; eager, host included, {eager:.4f} ms), "
           f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
           f"{100 * bound / ms:.1f}% of the bound")
+    _print_partial_clock(f"{name} stages (phase clock)", _partial_clock(
+        x, shard, *views(0), table, lengths, kw))
     recs[name] = dict(
         name=name, route="cuda",
-        source="apex_tpu_torch/csrc/fused_block_decode.cu",
+        source="apex_tpu_torch/csrc/fused_block_partial.cu",
         replaces="apex_tpu/ops/paged_attention.py:445", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
         library_ms=None, eager_ms=eager)
@@ -2180,6 +2185,71 @@ FUSED_PHASES = ("q/k/v", "q/k/v sums + RoPE", "attention",
 GPT_FUSED_PHASES = ("q/k/v", "q/k/v sums + biases", "attention",
                     "merge + fold + o", "x2 + norm2", "up", "gelu + down",
                     "y")
+
+
+#: the rank-partial kernel's stages (csrc/fused_block_partial.cu), each
+#: from the one before: the last block's norm1 statistics and item plan
+#: (its attention items' size from the lengths); the last end of a q/k/v
+#: item, of an attention item (with the q/k/v sums, RoPE or biases it
+#: reads, and its (slot, kv head)'s merge and fold) and of an o item
+#: (with its tile's sums into y); the last block's exit
+PARTIAL_STAGES = ("norm1 stats + plan", "q/k/v", "q/k/v sums + attention",
+                  "o + y", "exit")
+#: the phases of the rank-partial instance as the whole layer's kernel
+#: ran it (fused_block_kernel with a partial_out flag, before the kernel
+#: of its own: its clock's slots 1-4 and its end in slot 8), for an A/B
+#: against such a library
+PARTIAL_PHASES_BARRIERS = ("q/k/v", "q/k/v sums", "attention",
+                           "merge + fold + o", "y")
+PARTIAL_ITEMS = ("q/k/v", "attention", "o")
+
+
+def _partial_clock(x, blk, kp, vp, table, lengths, kw, runs: int = 10):
+    """The rank-partial instance's phase clock, the median over ``runs``
+    launches: ``({stage: us}, {item class: (items, us working, us
+    waiting on counters, each a mean over the class's items)})``, for
+    whatever version of the kernel the library holds (the whole layer's
+    kernel with its partial_out flag fills its clock's slots 0-4 and 8,
+    and has no items; the kernel of its own slots 0-14)."""
+    pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    kvh, ps, d, h = pa._fused_geometry(x, blk, kp, vp, table, lengths,
+                                       kw["kind"], kw.get("cos"),
+                                       kw.get("sin"), True, False)
+    clock = torch.zeros(16, dtype=torch.int64, device=x.device)
+    got, items, old = [], [], False
+    for _ in range(runs):
+        clock.zero_()
+        pa._fused_kernel_call(x, blk, kp, vp, table, lengths, kw.get("cos"),
+                              kw.get("sin"), kw["eps"], d ** -0.5, False,
+                              kvh, ps, d, h, clock=clock, kind=kw["kind"],
+                              partial_out=True)
+        t = np.asarray(clock.tolist(), np.int64)
+        old = not t[5]
+        if old:
+            got.append(np.diff(t[t != 0]) / 1e3)
+        else:
+            got.append(np.diff(t[:6]) / 1e3)
+            sums = t[6:15].reshape(3, 3)
+            items.append([(c, w / c / 1e3, wt / c / 1e3) for w, wt, c in sums])
+    us = np.median(np.stack(got), axis=0)
+    names = PARTIAL_PHASES_BARRIERS if old else PARTIAL_STAGES
+    if len(us) != len(names):
+        names = [f"stage {i + 1}" for i in range(len(us))]
+    per = {} if old else {
+        n: tuple(np.median(np.asarray([r[i] for r in items]), axis=0))
+        for i, n in enumerate(PARTIAL_ITEMS)}
+    return dict(zip(names, us.tolist())), per
+
+
+def _print_partial_clock(label, clock):
+    stages, per = clock
+    print(f"  {label} (median of 10 launches, {sum(stages.values()):.1f} us "
+          f"in all): " + ", ".join(f"{n} {t:.1f} us"
+                                   for n, t in stages.items()))
+    if per:
+        print(f"    items (a mean an item: working, waiting on counters): "
+              + "; ".join(f"{n} x{int(c)} {w:.2f} us, {wt:.2f} us"
+                          for n, (c, w, wt) in per.items()))
 
 
 def _fused_phases(pa, x, blk, kp, vp, table, lengths, kw):
@@ -5476,7 +5546,7 @@ def _turns(each):
 
 
 AB_ROWS = ("flash", "paged", "norm", "steps", "masked", "fused", "md",
-           "wide", "wide_paged")
+           "wide", "wide_paged", "partial")
 
 
 def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
@@ -5507,8 +5577,10 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
     gpt fp32 train`` step (:func:`_ab_wide`); ``wide_paged`` #7w at every
     :func:`_wide_paged_cases` row, #7 and the dense decode (their bits
     the same from both versions) and the ``width`` serves' decode steps
-    (:func:`_ab_wide_paged`).  Each row's two versions are held
-    against each
+    (:func:`_ab_wide_paged`); ``partial`` the fused block's rank-partial
+    instances (V6) at the tp = 2 and tp = 4 shards of Llama-3-8B and
+    GPT-3 1.3B with their phase clocks (:func:`_ab_partial`).  Each row's
+    two versions are held against each
     other (and against the plain version) before they are timed.  The
     baseline's own wrappers stand in for this tree's where their C
     entries differ (paged decode and #7w, the norm backward, the masked
@@ -5540,7 +5612,9 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
                         base_build._SIGNATURES, base_build.SOURCES),
             ((pa, "_kernel_call", base_pa._kernel_call),
              (pa, "_wide_call", base_pa._wide_call),
-             (ln, "_bwd_2d", base_ln._bwd_2d)) + attn_patches),
+             (ln, "_bwd_2d", base_ln._bwd_2d),
+             # the fused blocks' workspace sizes, asked of each library
+             (pa, "_WS_BYTES", {})) + attn_patches),
         "B": _Version(_build.library())}
     print(f"ab: baseline {baseline} built in "
           f"{time.perf_counter() - t0:.1f} s; A = baseline, B = this tree, "
@@ -5616,6 +5690,8 @@ def phase_ab(dev, seed: int, baseline: Path, rows=AB_ROWS):
         _ab_wide(dev, seed, gen, versions)
     if "wide_paged" in rows:
         _ab_wide_paged(dev, seed, gen, versions)
+    if "partial" in rows:
+        _ab_partial(dev, seed, gen, versions)
     if "steps" not in rows:
         return
     _ab_decode_step(dev, seed, versions)
@@ -6359,6 +6435,111 @@ def _ab_masked(dev, gen, versions):
           f"k/v) (turns A B B A: {_turns(each)})")
     del q, k, v, ref, got
     torch.cuda.empty_cache()
+
+
+def _ab_partial(dev, seed: int, gen, versions):
+    """V6 A/B: the fused block's rank-partial instances (8p, 8gp) on rank
+    0 of a tp = 2 and a tp = 4 shard of one Llama-3-8B layer (8 slots,
+    lengths 0..4096, page 64) and of one GPT-3 1.3B layer (lengths
+    0..2048), cut as the engine cuts them (``fused_partition_specs``,
+    ``shard_tree``) over a 4-layer pool of the rank's kv heads: each
+    version against the plain version, its time over the 4 layers in
+    turn (40 queued calls a turn, A B B A) beside the bound (the shard's
+    weights and its heads' live k/v once), and its phase clock (median
+    of 10 launches)."""
+    from apex_tpu_torch.inference import models
+    from apex_tpu_torch.transformer.testing import GPTConfig, LlamaConfig
+    from apex_tpu_torch.transformer.testing.standalone_llama import (
+        _rope_cos_sin)
+    pa = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    bf = torch.bfloat16
+    slots, ps, layers = 8, 64, 4
+    for kind in ("llama", "gpt"):
+        if kind == "llama":
+            cfg = LlamaConfig(**dict(FULL_CFG, num_layers=1))
+            tree = {"layer_0": _random_llama(cfg, dev, seed, only="layer_0")[
+                "layer_0"]}
+            lengths_l, mpps = [0, 1, 64, 65, 1500, 2048, 3000, 4096], 64
+            kvh, d = cfg.num_kv_heads, cfg.hidden_size // \
+                cfg.num_attention_heads
+        else:
+            cfg = GPTConfig(**dict(GPT_CFG, num_layers=1))
+            tree = _random_gpt(cfg, dev, seed + 10)
+            lengths_l, mpps = [0, 1, 64, 65, 700, 1024, 1500, 2048], 32
+            kvh, d = cfg.num_attention_heads, 128
+        blk = models.fused_layer_params(kind, cfg, tree)[0]
+        del tree
+        table, lengths = _paged_table(dev, gen, lengths_l, ps, mpps)
+        x = torch.randn(slots, cfg.hidden_size, generator=gen,
+                        device=dev).to(bf)
+        kw = dict(kind=kind, eps=1e-5)
+        if kind == "llama":
+            window = mpps * ps
+            cos_t, sin_t = _rope_cos_sin(window, d, cfg.rope_theta,
+                                         device=dev)
+            pos = torch.clamp(lengths.long(), max=window - 1)
+            kw.update(cos=cos_t.reshape(window, d)[pos],
+                      sin=sin_t.reshape(window, d)[pos], eps=cfg.rms_eps)
+        for tp in (2, 4):
+            shard = models.shard_tree(
+                blk, models.fused_partition_specs([blk], tp)[0], tp, 0)
+            kvr = kvh // tp
+            shape = (slots * mpps + 1, layers, kvr, ps, d)
+            pool_k = torch.randn(shape, generator=gen, device=dev).to(bf)
+            pool_v = torch.randn(shape, generator=gen, device=dev).to(bf)
+            views = [(pool_k[:, i], pool_v[:, i]) for i in range(layers)]
+            h = shard["wq"].shape[1] // d
+            tag = f"{kind} tp = {tp} ({h} heads over {kvr} kv heads)"
+            ref = pa.fused_block_reference(x, shard, *views[0], table,
+                                           lengths, fuse_mlp=False,
+                                           partial_out=True, **kw)
+            for turn in "AB":
+                with _as_version(versions[turn]):
+                    got = pa.fused_block_decode(x, shard, *views[0], table,
+                                                lengths, fuse_mlp=False,
+                                                partial_out=True, **kw)
+                rel = max(_rel_l2(g, r) for g, r in zip(got, ref))
+                err = max((g.float() - r.float()).abs().max().item()
+                          / r.float().abs().max().item()
+                          for g, r in zip(got, ref))
+                print(f"  partial {tag} ({turn}) against the plain version: "
+                      f"max|diff| / max|ref| {err:.3e}, relative L2 "
+                      f"{rel:.3e}")
+                if err > TOL_FUSED_REL or rel > TOL_FUSED_REL_L2:
+                    raise AssertionError(f"ab: partial {tag} ({turn}) is "
+                                         f"off")
+            del ref, got
+            live = int(torch.clamp(lengths, max=mpps * ps).sum())
+            mats = sum(shard[n].numel() for n in ("wq", "wk", "wv", "wo"))
+            read = ("ln1_w", "ln1_b", "bq", "bk", "bv") if kind == "gpt" \
+                else ("ln1_w",)
+            vecs = sum(shard[n].numel() * shard[n].element_size()
+                       for n in read)
+            rope = 0 if kind == "gpt" else 2 * 4 * kw["cos"].numel()
+            nbytes = 2 * mats + vecs + live * kvr * d * 2 * 2 \
+                + 2 * 2 * x.numel() + 2 * 2 * slots * kvr * d + rope \
+                + 4 * table.numel() + 4 * slots
+            bound, by = _bound(nbytes,
+                               2 * slots * mats + 4 * (live + slots) * h * d)
+            cyc = itertools.cycle(views)
+            mean, each = _ab(versions, lambda: _queued_ms(
+                lambda: pa.fused_block_decode(
+                    x, shard, *next(cyc), table, lengths, fuse_mlp=False,
+                    partial_out=True, **kw), 40))
+            print(f"  partial {tag}: A {mean['A']:.4f} ms, B "
+                  f"{mean['B']:.4f} ms, bound {bound:.4f} ms ({by}; A "
+                  f"{100 * bound / mean['A']:.1f}%, B "
+                  f"{100 * bound / mean['B']:.1f}% of it; 40 queued calls a "
+                  f"turn over 4 layers; turns A B B A: {_turns(each)})")
+            for turn in "AB":
+                with _as_version(versions[turn]):
+                    clock = _partial_clock(x, shard, *views[0], table,
+                                           lengths, kw)
+                _print_partial_clock(f"partial {tag} stages ({turn})", clock)
+            del shard, pool_k, pool_v, views, cyc
+            torch.cuda.empty_cache()
+        del blk, x
+        torch.cuda.empty_cache()
 
 
 def _ab_fused(dev, seed: int, gen, versions):

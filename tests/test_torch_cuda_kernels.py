@@ -22,7 +22,11 @@ and all three flash backward kernels at lengths and windows that cut
 their tiles (causal rows that see no key among them), the
 fused decode block's query groups, head dims, edge lengths, slot
 groups and its attention-only variant, and its GPT instance over the
-same edges; the optimizer classes: each
+same edges; the rank-partial block's kernel at the tp = 2 and tp = 4
+shards, every query group and head dim, 3 and 12 slots, lengths on the
+edges of pages, stages and attention runs at page sizes 8 to 128 (and
+12 and 100), its launches the same bits, and 40 queued launches on
+changing inputs; the optimizer classes: each
 twin's and tree class's launches per step with no host sync, and a
 twin step equal to a functional step bit for bit; the flash kernels'
 mask and dropout instances: the forward with dropout, masked or not,
@@ -3203,6 +3207,120 @@ def test_partial_block_kernel_matches_plain(cuda, kind):
                                    **kw)
     torch.cuda.synchronize()
     _assert_fused_close(got, ref)
+
+
+#: one tp = 4 rank's shard: Llama-3-8B (8 of 32 heads over 2 of 8 kv
+#: heads, wq [4096, 1024]) and GPT-3 1.3B (4 of 16 heads of 128)
+PARTIAL_SHARDS_TP4 = {"llama": dict(hidden=4096, heads=8, kvh=2, d=128),
+                      "gpt": dict(hidden=2048, heads=4, kvh=4, d=128)}
+
+
+def _partial_run(args, kw):
+    return pa.fused_block_decode(*args, fuse_mlp=False, partial_out=True,
+                                 **kw)
+
+
+def _assert_partial_close(args, kw, got=None):
+    got = _partial_run(args, kw) if got is None else got
+    ref = pa.fused_block_reference(*args, fuse_mlp=False, partial_out=True,
+                                   **kw)
+    torch.cuda.synchronize()
+    _assert_fused_close(got, ref)
+
+
+@pytest.mark.parametrize("kind", ["llama", "gpt"])
+def test_partial_block_kernel_at_the_tp4_shards(cuda, kind):
+    """The rank-partial instance at a tp = 4 shard (fewer heads, the
+    same weights' widths): against its plain version."""
+    args, kw = _partial_case(cuda, kind, lengths=PARTIAL_LENGTHS,
+                             **PARTIAL_SHARDS_TP4[kind])
+    _assert_partial_close(args, kw)
+
+
+@pytest.mark.parametrize("kind", ["llama", "gpt"])
+def test_partial_block_kernel_repeats_bit_for_bit(cuda, kind):
+    """Ten launches on the same inputs give the same bits: every sum runs
+    in a fixed order (split-K chunks, splits, warps), whichever block
+    finishes last."""
+    args, kw = _partial_case(cuda, kind, lengths=PARTIAL_LENGTHS,
+                             **PARTIAL_SHARDS[kind])
+    first = [_digest(t) for t in _partial_run(args, kw)]
+    for _ in range(9):
+        assert [_digest(t) for t in _partial_run(args, kw)] == first
+
+
+@pytest.mark.parametrize("kind", ["llama", "gpt"])
+@pytest.mark.parametrize("lengths", [[5, 700, 64], [0, 1, 63, 64, 65, 255,
+                                                    256, 257, 1000, 2048, 7,
+                                                    300]])
+def test_partial_block_kernel_slot_counts(cuda, kind, lengths):
+    """3 slots (one pass of 8, five empty rows) and 12 (two passes over
+    each weight tile, the second with 4)."""
+    args, kw = _partial_case(cuda, kind, hidden=1024, heads=8,
+                             kvh=2 if kind == "llama" else 8, d=128,
+                             lengths=lengths)
+    _assert_partial_close(args, kw)
+
+
+@pytest.mark.parametrize("ps", [64, 16, 8, 24, 128, 12, 100])
+@pytest.mark.parametrize("kind", ["llama", "gpt"])
+def test_partial_block_kernel_edge_lengths_and_page_sizes(cuda, kind, ps):
+    """Lengths on and across the edges of a page, a 64-token stage and a
+    256-token run (0, 1, 63, 64, 65, 255, 256, 257), the window itself and
+    past it (clamped to the window), at page sizes that a stage holds
+    several of, one of, or part of, and at page sizes that are not a
+    multiple of 8 rows (a box past the page reads zeros, masked)."""
+    mpps = -(-600 // ps)
+    window = mpps * ps
+    lengths = [0, 1, 63, 64, 65, 255, 256, 257, window, window + 37]
+    args, kw = _partial_case(cuda, kind, hidden=1024, heads=8,
+                             kvh=2 if kind == "llama" else 8, d=128,
+                             lengths=lengths, ps=ps, mpps=mpps)
+    _assert_partial_close(args, kw)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_partial_block_kernel_groups_and_head_dims(cuda, group, d):
+    """Every LLaMA instance (query groups 1, 2, 4, 8; head dims 64, 128)
+    and the GPT instance at head dim 64, with bf16 and fp32 norm
+    weights."""
+    heads = 8
+    args, kw = _partial_case(cuda, "llama", hidden=512, heads=heads,
+                             kvh=heads // group, d=d,
+                             lengths=[0, 1, 63, 64, 65, 300, 900, 2048],
+                             seed=group)
+    _assert_partial_close(args, kw)
+    x, blk = args[0], args[1]
+    blk32 = dict(blk, ln1_w=blk["ln1_w"].float())
+    _assert_partial_close((x, blk32) + tuple(args[2:]), kw)
+    if group == 1:
+        gargs, gkw = _partial_case(cuda, "gpt", hidden=512, heads=heads,
+                                   kvh=heads, d=d, lengths=[0, 1, 65, 300,
+                                                            2048], seed=9)
+        _assert_partial_close(gargs, gkw)
+
+
+def test_partial_block_kernel_back_to_back_on_changing_inputs(cuda):
+    """40 launches queued back to back (no sync between them) on changing
+    inputs and lengths, each held against its plain version: the
+    kernel's device counters must be back at zero after every launch."""
+    args, kw = _partial_case(cuda, "llama", lengths=PARTIAL_LENGTHS,
+                             **PARTIAL_SHARDS["llama"])
+    x, blk, kp, vp, table, lengths = args
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    runs = []
+    for i in range(40):
+        xi = torch.randn(x.shape, generator=gen, device=cuda).to(x.dtype)
+        li = torch.roll(lengths, i) if i % 2 else lengths.flip(0)
+        a = (xi, blk, kp, vp, table, li)
+        kwi = dict(kw, cos=torch.roll(kw["cos"], i, 0),
+                   sin=torch.roll(kw["sin"], i, 0))
+        runs.append((a, kwi, _partial_run(a, kwi)))
+    torch.cuda.synchronize()
+    for a, kwi, got in runs:
+        _assert_partial_close(a, kwi, got)
 
 
 @pytest.mark.parametrize("kind", ["llama", "gpt"])
