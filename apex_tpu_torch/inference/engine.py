@@ -72,8 +72,17 @@ or :meth:`InferenceEngine.from_state_dict`.
   source, and every rank samples the same token from the same gathered
   logits, so all ranks admit, page and copy alike.
 
-Not in this slice: the host-DRAM page tier (raises
-``NotImplementedError`` naming its ROADMAP item, "host page tier").
+* **The host page tier** (``host_tier_bytes=`` or
+  ``APEX_TPU_HOST_KV_TIER_BYTES``; paged only): the scheduler's prefix
+  cache offloads evicted full prefix pages to host memory
+  (:meth:`InferenceEngine.swap_out_pages`, deferred) and uploads them
+  on a later hit (:meth:`InferenceEngine.swap_in_pages`) before the
+  suffix's first prefill chunk, in batches of ``swap_batch_pages``
+  (``APEX_TPU_SWAP_BATCH_PAGES``).  The host slabs are numpy arrays, a
+  bf16 pool's as ``uint16`` bits (numpy has no bfloat16 of its own), so
+  the copied :class:`~apex_tpu_torch.inference.kv_cache.HostPageStore`
+  and scheduler keep them unchanged.
+
 Where the JAX package raises ``ValueError`` (BERT with a paged, fused or
 speculative kwarg or ``tp > 1``; the dense cache with ``tp > 1`` or
 ``host_tier_bytes``; a ``tp`` that splits a head), so does this engine.
@@ -99,14 +108,10 @@ from apex_tpu_torch.transformer.parallel_state import serving_group
 from apex_tpu_torch.utils import resolve_device, tree_leaves_with_path
 
 __all__ = ["InferenceEngine", "make_prefill_fn", "make_decode_fn",
-           "make_verify_fn", "prefill_bucket", "serve_tp"]
+           "make_verify_fn", "prefill_bucket", "serve_tp",
+           "host_kv_tier_bytes"]
 
 _HOST_TIER_ENV = "APEX_TPU_HOST_KV_TIER_BYTES"
-
-
-def _later_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP queue 1, {item!r}")
 
 
 def _env_int(name: str) -> int:
@@ -125,6 +130,36 @@ def serve_tp() -> int:
     if v < 0:
         raise ValueError(f"APEX_TPU_SERVE_TP must be >= 0, got {v}")
     return v or 1
+
+
+def host_kv_tier_bytes() -> int:
+    """Host-memory KV page tier byte budget from
+    ``APEX_TPU_HOST_KV_TIER_BYTES``: unset or ``0`` disables the tier
+    (LRU eviction discards); an explicit
+    ``InferenceEngine(host_tier_bytes=)`` always wins."""
+    v = _env_int(_HOST_TIER_ENV)
+    if v < 0:
+        raise ValueError(f"{_HOST_TIER_ENV} must be >= 0, got {v}")
+    return v
+
+
+def _host_numpy(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor as a numpy array over the same memory; bf16 as its
+    ``uint16`` bits, since numpy has no bfloat16 without ``ml_dtypes``."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _host_tensor(a, dtype) -> torch.Tensor:
+    """A host slab as a CPU tensor of ``dtype``: ``uint16`` is read as
+    bf16 bits, then cast like any floating slab, as JAX's ``astype``
+    casts."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            dtype)
+    return torch.from_numpy(a).to(dtype)
 
 
 def _tp_group(tp, group):
@@ -270,6 +305,44 @@ def prefill_bucket(n: int, max_seq: int, min_bucket: int = 64) -> int:
     return min(b, max_seq)
 
 
+class PendingSwapOut:
+    """An in-flight device→host page copy (a deferred
+    :meth:`InferenceEngine.swap_out_pages`): the copies are queued,
+    ``resolve()`` waits for them (once; idempotent) and returns the
+    ``(k, v)`` numpy slabs ``[n, layers, kv_heads, page_size,
+    head_dim]``, a bf16 pool's as ``uint16`` bits.
+
+    Where JAX's deferred gather writes a fresh device buffer, the port's
+    cache is written in place, so ordering keeps the copy safe: the
+    gathers and the copies into this object's pinned host buffers were
+    queued on the current stream when the swap-out was called, so any
+    cache write queued after it (a prefill into a freed page that was
+    acquired again) runs after the read.  The event recorded behind the
+    copies is what ``resolve()`` waits on.  The host buffers belong to
+    this object alone: the returned arrays are views of them."""
+    __slots__ = ("_host", "_event", "_resolved")
+
+    def __init__(self, k_host: torch.Tensor, v_host: torch.Tensor,
+                 event=None):
+        self._host = (k_host, v_host)
+        self._event = event            # a torch.cuda.Event, or None (CPU)
+        self._resolved = None
+
+    @property
+    def done(self) -> bool:
+        """True once :meth:`resolve` has run (the wave-boundary drain or
+        a racing hit already waited for the copies)."""
+        return self._resolved is not None
+
+    def resolve(self):
+        if self._resolved is None:
+            if self._event is not None:
+                self._event.synchronize()
+            self._resolved = tuple(_host_numpy(t) for t in self._host)
+            self._host = self._event = None
+        return self._resolved
+
+
 class InferenceEngine:
     """Serving engine over a GPT/LLaMA/BERT param tree.
 
@@ -299,7 +372,13 @@ class InferenceEngine:
     ``tp > 1`` this process is one rank of a paged GPT or LLaMA engine
     (module docstring); ``params`` is the full tree (the same on every
     rank), of which the engine keeps the rank's shard, ``params`` the
-    shard; ``cache_hbm_bytes`` counts the rank's pool."""
+    shard; ``cache_hbm_bytes`` counts the rank's pool.
+
+    ``host_tier_bytes`` (default ``APEX_TPU_HOST_KV_TIER_BYTES``, else
+    0: off) and ``swap_batch_pages`` (default
+    ``APEX_TPU_SWAP_BATCH_PAGES``, else 8) arm a paged engine's host
+    page tier (module docstring); the dense cache with a tier is a
+    ``ValueError``, as in JAX."""
 
     def __init__(self, kind: str, cfg, params, *, slots: int = 4,
                  max_seq: Optional[int] = None, dtype=None,
@@ -312,7 +391,8 @@ class InferenceEngine:
                  decode_fusion=None, fusion_min_pages=None,
                  spec_k: Optional[int] = None,
                  tp: Optional[int] = None,
-                 host_tier_bytes: Optional[int] = None, device=None,
+                 host_tier_bytes: Optional[int] = None,
+                 swap_batch_pages: Optional[int] = None, device=None,
                  group=None):
         if kind not in ("gpt", "llama", "bert"):
             raise ValueError(f"unknown model kind {kind!r}")
@@ -351,7 +431,8 @@ class InferenceEngine:
         self.rank = dist.get_rank(self.group) if self.group is not None \
             else 0
         if self.paged:
-            self._init_paged(page_size, num_pages, host_tier_bytes)
+            self._init_paged(page_size, num_pages, host_tier_bytes,
+                             swap_batch_pages)
             self.paged_attn_max_pages = paged_attn_max_pages
         else:
             self.paged_attn_max_pages = None
@@ -362,6 +443,7 @@ class InferenceEngine:
             self.page_size = self.num_pages = None
             self.max_pages_per_slot = None
             self.host_tier_bytes = 0
+            self.swap_batch_pages = None
         if kind == "bert":
             if spec_k or (decode_fusion is not None
                           and resolve_fusion_mode(decode_fusion) == "1"):
@@ -433,7 +515,8 @@ class InferenceEngine:
             for blk in models._fused_layers(kind, cfg, full)] \
             if self.decode_fused else None
 
-    def _init_paged(self, page_size, num_pages, host_tier_bytes):
+    def _init_paged(self, page_size, num_pages, host_tier_bytes,
+                    swap_batch_pages):
         self.page_size = int(page_size if page_size is not None
                              else kv_cache.default_page_size())
         if self.page_size < 1 or (self.page_size & (self.page_size - 1)):
@@ -450,11 +533,19 @@ class InferenceEngine:
         if self.num_pages < 1:
             raise ValueError(f"num_pages must be >= 1, got "
                              f"{self.num_pages}")
+        # the host page tier: explicit kwargs win, else the env knobs;
+        # 0 bytes is the tier off (eviction discards)
         self.host_tier_bytes = int(host_tier_bytes if host_tier_bytes
-                                   is not None else _env_int(_HOST_TIER_ENV))
-        if self.host_tier_bytes:
-            raise _later_slice("the host-DRAM KV page tier",
-                               "host page tier")
+                                   is not None else host_kv_tier_bytes())
+        if self.host_tier_bytes < 0:
+            raise ValueError(f"host_tier_bytes must be >= 0, got "
+                             f"{self.host_tier_bytes}")
+        self.swap_batch_pages = int(
+            swap_batch_pages if swap_batch_pages is not None
+            else kv_cache.default_swap_batch_pages())
+        if self.swap_batch_pages < 1:
+            raise ValueError(f"swap_batch_pages must be >= 1, got "
+                             f"{self.swap_batch_pages}")
 
     def _bert_encoder(self):
         """The port's ``BertModel`` with no storage of its own (built on
@@ -495,6 +586,10 @@ class InferenceEngine:
                 "infer_decode_fused_dispatch_total")
             self._verify_dispatches = reg.declared(
                 "infer_verify_dispatch_total")
+            self._swap_out_dispatches = reg.declared(
+                "infer_swap_out_dispatch_total")
+            self._swap_in_dispatches = reg.declared(
+                "infer_swap_in_dispatch_total")
 
     def _generative(self, what: str) -> None:
         if self.kind == "bert":
@@ -629,6 +724,109 @@ class InferenceEngine:
         """Metadata evict of one slot: zero its length (paged: also
         re-park its page-table row on the trash page)."""
         return kv_cache.evict(cache, int(slot))
+
+    def page_host_bytes(self) -> int:
+        """Host bytes ONE page's k+v slabs occupy in the host tier: the
+        whole page (every kv head of the pool) even at ``tp > 1``, as
+        JAX counts it, so every rank's host store and prefix cache book
+        and choose alike (a rank's own slabs hold only its heads)."""
+        if not self.paged:
+            raise ValueError("page_host_bytes is the paged-mode host "
+                             "tier ledger; this engine runs the dense "
+                             "slot cache")
+        d = self.dims
+        itemsize = torch.empty((), dtype=self.cache_dtype).element_size()
+        return (2 * d["layers"] * self.tp_dims["kv_heads_pool"]
+                * self.page_size * d["head_dim"] * itemsize)
+
+    def swap_out_pages(self, cache, page_ids, defer: bool = False):
+        """Copy physical pages ``page_ids`` device→host (eviction
+        offload): returns the ``(k, v)`` numpy slabs ``[n, layers,
+        kv_heads, page_size, head_dim]`` (bf16 as ``uint16`` bits).  A
+        pure read: the cache stays valid.  Each batch of
+        ``swap_batch_pages`` is one gather into a fresh device slab
+        (:func:`~apex_tpu_torch.inference.kv_cache.extract_pages`) and
+        one copy a buffer into the call's host buffers (pinned on CUDA,
+        ``non_blocking``), all queued before any is waited for.
+
+        ``defer=True`` returns a :class:`PendingSwapOut` instead: the
+        copies are queued now, in stream order ahead of any later cache
+        write, and only its ``resolve()`` waits for them (the scheduler
+        drains it at the next wave boundary).  At ``tp > 1`` a rank's
+        slabs hold its own ``kv_heads_pool / tp`` heads (JAX's single
+        controller gathers every head): the ranks' slabs side by side on
+        the kv-head axis, in rank order, are the whole page."""
+        if not self.paged:
+            raise ValueError("swap_out_pages is the paged-mode host "
+                             "tier; this engine runs the dense slot "
+                             "cache")
+        ids = np.asarray(page_ids, np.int64).reshape(-1)
+        n, B = ids.shape[0], self.swap_batch_pages
+        if n == 0:
+            raise ValueError("swap_out_pages needs at least one page")
+        self._refresh_dispatch_counters()
+        pin = cache.device.type == "cuda"
+        shape = (n,) + tuple(cache.k.shape[1:])
+        k_host = torch.empty(shape, dtype=cache.k.dtype, pin_memory=pin)
+        v_host = torch.empty(shape, dtype=cache.v.dtype, pin_memory=pin)
+        event = None
+        with torch.profiler.record_function(
+                "apex_tpu_torch.inference.swap_out"):
+            for i in range(0, n, B):
+                self._swap_out_dispatches.inc()
+                k_s, v_s = kv_cache.extract_pages(cache, ids[i:i + B])
+                k_host[i:i + B].copy_(k_s, non_blocking=pin)
+                v_host[i:i + B].copy_(v_s, non_blocking=pin)
+            if pin:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(cache.device))
+        pending = PendingSwapOut(k_host, v_host, event)
+        return pending if defer else pending.resolve()
+
+    def swap_in_pages(self, cache, page_ids, k_slabs, v_slabs):
+        """Upload host-tier page slabs into freshly acquired physical
+        pages ``page_ids`` (a hit after eviction): returns the cache,
+        written in place.  The inverse of :meth:`swap_out_pages`, a
+        batch of ``swap_batch_pages`` at a time: ``uint16`` slabs are
+        read as bf16 bits, floating ones cast to the pool's dtype.  On
+        CUDA each batch is staged through a pinned buffer (one host
+        copy) and uploaded ``non_blocking``, so the host does not wait
+        for the card; the scheduler calls this before the suffix's first
+        prefill chunk, which the uploads precede in stream order.  At
+        ``tp > 1`` the slabs are the rank's own heads."""
+        if not self.paged:
+            raise ValueError("swap_in_pages is the paged-mode host "
+                             "tier; this engine runs the dense slot "
+                             "cache")
+        ids = np.asarray(page_ids, np.int64).reshape(-1)
+        n, B = ids.shape[0], self.swap_batch_pages
+        k_slabs = np.asarray(k_slabs)
+        v_slabs = np.asarray(v_slabs)
+        if n == 0:
+            raise ValueError("swap_in_pages needs at least one page")
+        if k_slabs.shape[0] != n or v_slabs.shape[0] != n:
+            raise ValueError(
+                f"swap-in slabs must carry one entry per page id "
+                f"({n}), got k {k_slabs.shape[0]} v {v_slabs.shape[0]}")
+        self._refresh_dispatch_counters()
+        pin = cache.device.type == "cuda"
+
+        def upload(slab):
+            t = _host_tensor(slab, cache.k.dtype)
+            if not pin:
+                return t
+            staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            staged.copy_(t)
+            return staged.to(cache.device, non_blocking=True)
+
+        with torch.profiler.record_function(
+                "apex_tpu_torch.inference.swap_in"):
+            for i in range(0, n, B):
+                self._swap_in_dispatches.inc()
+                cache = kv_cache.restore_pages(
+                    cache, ids[i:i + B], upload(k_slabs[i:i + B]),
+                    upload(v_slabs[i:i + B]))
+        return cache
 
     def decode(self, cache, last_tokens, active=None):
         """One token for every slot: returns ``(cache, next_tokens,

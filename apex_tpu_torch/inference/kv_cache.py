@@ -23,7 +23,7 @@ Unlike the JAX package, whose pure updates return a new cache that the
 jitted step donates, every mutation here (:func:`insert`,
 :func:`insert_tokens`, :func:`append_layer`, :func:`append_slab`,
 :func:`advance`, :func:`advance_by`, :func:`set_lengths`,
-:func:`evict`, :func:`cow_page`) UPDATES THE
+:func:`evict`, :func:`cow_page`, :func:`restore_pages`) UPDATES THE
 CACHE IN PLACE and returns the same cache object, so the call sites
 read the same (``cache = f(cache, ...)``) and no step ever allocates a
 second cache.
@@ -51,6 +51,11 @@ Design positions carried over unchanged:
   slot ``truncated`` and the caller retires it.  A verify slab's rows
   past ``max_seq`` are dropped, never clamped: a clamp would overwrite
   the slot's last live row.
+* **The host page tier.**  The pool is page-major, so a page's k (and
+  its v) is one contiguous block: :func:`extract_pages` gathers pages
+  into fresh slabs for the engine's device→host copy, and
+  :func:`restore_pages` writes uploaded slabs back into pages, with
+  JAX's clip and drop rules for ids outside the pool.
 
 :class:`PageAllocator` and :class:`HostPageStore` are copied verbatim:
 they are host bookkeeping over ints.
@@ -68,12 +73,15 @@ from apex_tpu_torch.utils import resolve_device
 
 __all__ = ["KVCache", "init_cache", "insert", "PagedKVCache",
            "init_paged_cache", "PageAllocator", "HostPageStore",
-           "default_page_size", "page_row", "insert_tokens", "append_layer",
-           "append_targets", "append_slab", "advance", "advance_by",
-           "set_lengths", "evict", "cow_page"]
+           "default_page_size", "default_swap_batch_pages", "page_row",
+           "insert_tokens", "append_layer", "append_targets", "append_slab",
+           "advance", "advance_by", "set_lengths", "evict", "cow_page",
+           "extract_pages", "restore_pages"]
 
 _PAGE_SIZE_ENV = "APEX_TPU_PAGE_SIZE"
 _DEFAULT_PAGE_SIZE = 64
+_SWAP_BATCH_ENV = "APEX_TPU_SWAP_BATCH_PAGES"
+_DEFAULT_SWAP_BATCH = 8
 
 
 def default_page_size() -> int:
@@ -93,6 +101,25 @@ def default_page_size() -> int:
                 f"got {val}")
         return val
     return _DEFAULT_PAGE_SIZE
+
+
+def default_swap_batch_pages() -> int:
+    """Pages a host-tier swap dispatch moves: ``APEX_TPU_SWAP_BATCH_PAGES``
+    env var > the built-in 8.  The engine's swap-out copies each batch
+    device→host in one transfer a buffer, and its swap-in uploads one
+    batch a transfer, so the knob sets the transfers' size."""
+    env = os.environ.get(_SWAP_BATCH_ENV)
+    if env:
+        try:
+            val = int(env)
+        except ValueError as e:
+            raise ValueError(
+                f"{_SWAP_BATCH_ENV} must be an int, got {env!r}") from e
+        if val < 1:
+            raise ValueError(
+                f"{_SWAP_BATCH_ENV} must be >= 1, got {val}")
+        return val
+    return _DEFAULT_SWAP_BATCH
 
 
 @dataclasses.dataclass
@@ -478,6 +505,60 @@ def cow_page(cache: PagedKVCache, src: int, dst: int) -> PagedKVCache:
     slot's full row through :func:`insert_tokens`."""
     cache.k[int(dst)].copy_(cache.k[int(src)])
     cache.v[int(dst)].copy_(cache.v[int(src)])
+    return cache
+
+
+def _page_ids(page_ids) -> np.ndarray:
+    """Host int64 copy of a rank-1 page-ID vector (host ints, a numpy
+    array or a tensor on any device)."""
+    if torch.is_tensor(page_ids):
+        page_ids = page_ids.cpu().numpy()
+    ids = np.asarray(page_ids)
+    if ids.ndim != 1:
+        raise ValueError(
+            f"page_ids must be a rank-1 int32 vector, got shape "
+            f"{tuple(ids.shape)}")
+    return ids.astype(np.int64)
+
+
+def extract_pages(cache: PagedKVCache, page_ids):
+    """Swap-out gather (the host page tier): pages ``page_ids``' k/v
+    rows as two fresh slabs ``[n, layers, kv_heads, page_size,
+    head_dim]`` in the order given, on the cache's device.  A pure read
+    into new tensors, so later in-place cache writes cannot reach the
+    slabs.  Ids outside the pool clamp into it, as JAX's ``mode="clip"``
+    does (a negative id reads page 0).  At ``tp > 1`` each rank reads its own
+    ``kv_heads_pool / tp`` heads of the pages."""
+    ids = _page_ids(page_ids)
+    idx = torch.from_numpy(np.clip(ids, 0, cache.pages - 1)).to(
+        cache.device)
+    return cache.k.index_select(0, idx), cache.v.index_select(0, idx)
+
+
+def restore_pages(cache: PagedKVCache, page_ids, k_slab,
+                  v_slab) -> PagedKVCache:
+    """Swap-in scatter (the host page tier), in place: write slab entry
+    ``i`` (``[n, layers, kv_heads, page_size, head_dim]``, on any
+    device, cast to the pool's dtype) into page ``page_ids[i]``.  Ids
+    outside the pool drop their entries, as JAX's ``mode="drop"`` does
+    (a negative id counts from the end first).  At ``tp > 1`` each rank
+    writes its own heads of the pages."""
+    ids = _page_ids(page_ids)
+    want = (ids.shape[0], cache.layers, cache.kv_heads, cache.page_size,
+            cache.head_dim)
+    if tuple(k_slab.shape) != want or tuple(v_slab.shape) != want:
+        raise ValueError(
+            f"swap-in slabs must be {want}, got k "
+            f"{tuple(k_slab.shape)} v {tuple(v_slab.shape)}")
+    ids = np.where(ids < 0, ids + cache.pages, ids)
+    keep = np.flatnonzero((ids >= 0) & (ids < cache.pages))
+    if keep.size == 0:
+        return cache
+    dst = torch.from_numpy(ids[keep]).to(cache.device)
+    for pool, slab in ((cache.k, k_slab), (cache.v, v_slab)):
+        if keep.size != ids.size:
+            slab = slab[torch.from_numpy(keep)]
+        pool.index_copy_(0, dst, slab.to(pool.device, pool.dtype))
     return cache
 
 

@@ -325,6 +325,41 @@
    time, plain time, bound and phase clock; the ranks' launches are
    added to the ``kernels`` line's counts.
 
+18. **Tier** (after tp).  The host page tier, prefix hits and chunked
+   prefill: Llama-3-8B at full width and depth (seeded bf16 weights), 8
+   slots, ``max_seq`` 4096, a pool of 128 pages of 64 (8 MiB a page)
+   and a 2 GiB host tier; 8 shared prefixes of 1024 tokens, each with a
+   suffix of 64..256 tokens, in two rounds (32 greedy tokens a
+   request).  Served unfused, then fused with ``prefill_chunk`` 256,
+   each beside the same traffic with the prefix cache off, under a swap
+   audit (device digests of every page at swap-out and after swap-in;
+   at each deferred ``resolve()``, of its pages on the card then and of
+   the host slabs it returns).  Gates: round 1 swaps out at least 64
+   pages and round 2 hits the host tier at least 4 times; one swap
+   dispatch a ``swap_batch_pages`` pages of each call; every page
+   swapped in equal to a page swapped out; deferred swap-outs whose
+   pages a prefill overwrote before ``resolve()`` still resolve to the
+   old bits; the books after each wave; the streams equal the
+   prefix-cache-off serve's up to a near tie; #1, #3 and #7 (#8 fused)
+   launched.  The unfused serve runs once more without the audit, on the
+   pinned blocks the first left cached.  Prints each serve's TTFT,
+   decode tokens/s and peak memory;
+   one request's TTFT cold, as an HBM hit and as a host hit; swap-out
+   and swap-in GB/s beside a pinned ``copy_`` of the same bytes; the
+   eviction path's host time, deferred (on fresh and on cached pinned
+   blocks) against eager; a host hit's host copies piece by piece;
+   ``prefix_window_attention``'s time a layer at the warm shapes.
+19. **Fleet** (after tier).  ``build_fleet`` over two unfused
+   Llama-3-8B engines on one weight tree (64 pages each) serves the
+   tier traffic, round 2 rotated by one prefix, under ``round_robin``
+   and then ``prefix_affinity``: the conservation law after every wave,
+   affinity routing more prefix tokens to hits than round robin, the
+   streams the single engine's up to a near tie.  Prints each policy's
+   TTFT and decode tokens/s, and ``required_replicas`` and
+   ``drift_ratio`` from a ``ServiceProfile`` of the run's own prefill
+   and decode times.  The tier and fleet serves' launches are added to
+   the ``kernels`` line's counts.
+
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed phase raises, so the
 script exits non-zero and prints no result; so does a machine without
@@ -7514,17 +7549,657 @@ def phase_width(dev, seed: int):
     return dict(launches=total, runs=runs)
 
 
+#: the host page tier (the tier and fleet phases): Llama-3-8B at the
+#: serve phase's widths and geometry but a pool of TIER_PAGES pages of 64
+#: (8 MiB a page), which round 1's later prefixes overflow (they push the
+#: earlier ones out of the pool), and a host tier of 2 GiB that holds
+#: them; 8 shared prefixes of 1024 tokens (16 pages), each followed by a
+#: suffix of 64..256 tokens, in two rounds of one request a prefix
+TIER_PREFIXES, TIER_PREFIX_LEN, TIER_SUFFIX = 8, 1024, (64, 256)
+TIER_GEOMETRY = dict(slots=8, max_seq=4096, page_size=64, num_pages=128,
+                     host_tier_bytes=2 << 30)
+#: the fleet's replicas: the same geometry with half the pool each, so
+#: each replica's share of the traffic overflows its pool too
+FLEET_GEOMETRY = dict(TIER_GEOMETRY, num_pages=64)
+#: the fused run's chunked prefill (tokens a chunk)
+TIER_CHUNK = 256
+#: round 1 must swap out at least this many pages, round 2 must hit the
+#: host tier at least this many times
+TIER_MIN_SWAP_OUT, TIER_MIN_HOST_HITS = 64, 4
+#: the bandwidth and eviction rows move one prefix's pages (128 MiB)
+TIER_SWAP_PAGES = 16
+TIER_TTFT_REPS = 3
+#: prefix_window_attention's warm shapes: the suffixes' lengths over a
+#: 1024-token prefix in a 4096-position window, Llama-3-8B's heads
+TIER_WINDOW_ROWS = (64, 256)
+_TIER_MODEL: dict = {}
+
+
+def _tier_model(dev, seed: int):
+    """Llama-3-8B's config and one tree of seeded bf16 weights, built once
+    for the tier and fleet phases."""
+    from apex_tpu_torch.transformer.testing import LlamaConfig
+    if not _TIER_MODEL:
+        cfg = LlamaConfig(**FULL_CFG)
+        t0 = time.perf_counter()
+        _TIER_MODEL.update(cfg=cfg, params=_random_llama(cfg, dev, seed))
+        torch.cuda.synchronize()
+        print(f"tier: Llama-3-8B random bf16 weights in "
+              f"{time.perf_counter() - t0:.1f} s")
+    return _TIER_MODEL["cfg"], _TIER_MODEL["params"]
+
+
+def _tier_traffic(vocab: int, seed: int):
+    """Two rounds of one request a shared prefix: the prefix (1024 seeded
+    tokens) and a suffix of 64..256 seeded tokens, new in each round."""
+    rng = np.random.RandomState(seed + 24)
+    prefixes = [rng.randint(0, vocab, TIER_PREFIX_LEN).tolist()
+                for _ in range(TIER_PREFIXES)]
+    return [[p + rng.randint(0, vocab, int(rng.randint(
+        TIER_SUFFIX[0], TIER_SUFFIX[1] + 1))).tolist() for p in prefixes]
+            for _ in range(2)]
+
+
+def _page_digests(cache, ids, w):
+    """``[n, 2]`` int64 fingerprints of pages ``ids`` (k, v) of a 16-bit
+    pool: each page's bits as int16 times fixed weights in [1, 2^16),
+    summed in int64 (exact, so equal bits give equal digests on any
+    device; a changed element moves the digest)."""
+    idx = torch.as_tensor(list(ids), device=cache.device)
+    return torch.stack([
+        (pool[idx].reshape(len(idx), -1).view(torch.int16).to(torch.int64)
+         * w).sum(dim=1) for pool in (cache.k, cache.v)], dim=1)
+
+
+class _SwapAudit:
+    """The tier phase's swap gates, by wrapping one engine's swap methods
+    and ``PendingSwapOut.resolve``: device digests of every page as its
+    swap-out is called and after each swap-in (every page swapped in must
+    equal a page swapped out), each swap-out call's page count and
+    dispatches (one a ``swap_batch_pages``), and at each deferred
+    swap-out's ``resolve()``: its pages' digests on the device then
+    (pages acquired again and overwritten by a prefill since) and of the
+    host slabs it returns, which must be the swap-out's."""
+
+    def __init__(self, engine):
+        page = engine.page_host_bytes() // (2 * torch.empty(
+            (), dtype=engine.cache_dtype).element_size())
+        gen = torch.Generator(device=engine.device)
+        gen.manual_seed(24)
+        self.w = torch.randint(1, 1 << 16, (page,), generator=gen,
+                               device=engine.device, dtype=torch.int64)
+        self.engine = engine
+        self.out, self.ins = [], []
+        self.calls = {"out": [], "in": []}
+        self.pending: dict = {}
+        self.resolved = dict(pages=0, overwritten=0, wrong=0)
+        self._out, self._in = engine.swap_out_pages, engine.swap_in_pages
+
+    def swap_out(self, cache, page_ids, defer=False):
+        d = _page_digests(cache, page_ids, self.w)
+        res = self._out(cache, page_ids, defer=defer)
+        self.out.append(d)
+        self.calls["out"].append(len(page_ids))
+        if defer:
+            self.pending[id(res)] = (cache, list(page_ids), d)
+        else:
+            self._hold_host(res, d, None)
+        return res
+
+    def swap_in(self, cache, page_ids, k, v):
+        cache = self._in(cache, page_ids, k, v)
+        self.ins.append(_page_digests(cache, page_ids, self.w))
+        self.calls["in"].append(len(page_ids))
+        return cache
+
+    def resolve(self, pending, original):
+        entry = None if pending.done else self.pending.pop(id(pending), None)
+        now = (None if entry is None
+               else _page_digests(entry[0], entry[1], self.w))
+        res = original(pending)
+        if entry is not None:
+            self._hold_host(res, entry[2], now)
+        return res
+
+    def _hold_host(self, slabs, want, now):
+        dev = self.engine.device
+        got = torch.stack([
+            (torch.from_numpy(s.view(np.int16).reshape(len(s), -1)).to(dev)
+             .to(torch.int64) * self.w).sum(dim=1) for s in slabs], dim=1)
+        self.resolved["pages"] += len(want)
+        self.resolved["wrong"] += int((got != want).any(dim=1).sum())
+        if now is not None:
+            self.resolved["overwritten"] += int((now != want).any(
+                dim=1).sum())
+
+    def dispatches(self, kind: str) -> int:
+        b = self.engine.swap_batch_pages
+        return sum(-(-n // b) for n in self.calls[kind])
+
+    def hold(self, label: str) -> None:
+        """Every page swapped in equals one swapped out, bit for bit (by
+        digest); no host slab differs from its swap-out."""
+        out = {tuple(d) for d in torch.cat(self.out).tolist()} \
+            if self.out else set()
+        ins = torch.cat(self.ins).tolist() if self.ins else []
+        bad = sum(tuple(d) not in out for d in ins)
+        r = self.resolved
+        print(f"  {label} swap audit: {len(ins)} pages swapped in, {bad} "
+              f"unlike every page swapped out; deferred swap-outs resolved "
+              f"{r['pages']} pages, {r['overwritten']} of them overwritten on "
+              f"the card before resolve(), {r['wrong']} host slabs unlike "
+              f"their swap-out")
+        if bad or r["wrong"]:
+            raise AssertionError(f"{label}: a swapped page changed")
+
+
+@contextlib.contextmanager
+def _audited(engine):
+    emod = importlib.import_module("apex_tpu_torch.inference.engine")
+    audit = _SwapAudit(engine)
+    original = emod.PendingSwapOut.resolve
+    engine.swap_out_pages, engine.swap_in_pages = (audit.swap_out,
+                                                   audit.swap_in)
+    emod.PendingSwapOut.resolve = lambda self: audit.resolve(self, original)
+    try:
+        yield audit
+    finally:
+        emod.PendingSwapOut.resolve = original
+        del engine.swap_out_pages, engine.swap_in_pages
+
+
+def _tier_serve(engine, rounds, label: str, prefix_cache: bool = True,
+                prefill_chunk: int = 0, audit=None):
+    """The rounds as waves of one scheduler (global registry zeroed just
+    before, launch counters too): each wave's books (``live + free ==
+    num_pages``; the host store's pages equal the prefix cache's host
+    edges) and swap counters; returns the streams by round, the
+    launches, the registry and the serve's TTFT, decode tokens/s and
+    peak memory."""
+    from apex_tpu_torch import observability as obs
+    from apex_tpu_torch.inference import SlotScheduler
+    from apex_tpu_torch.ops import _build
+    reg = obs.reset_global_registry()
+    sched = SlotScheduler(engine, prefix_cache=prefix_cache,
+                          prefill_chunk=prefill_chunk)
+    tel = sched.telemetry
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    outs, waves = [], []
+    t0 = time.perf_counter()
+    for i, prompts in enumerate(rounds):
+        uids = [sched.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        res = sched.run()
+        outs.append([res[u] for u in uids])
+        al = sched.alloc
+        w = dict(swap_out=int(tel.swap_out_pages.total()),
+                 swap_in=int(tel.swap_in_pages.total()),
+                 host_hits=int(tel.prefix_host_hits.total()),
+                 hits=int(tel.prefix_hits.total()),
+                 hit_tokens=int(tel.prefix_hit_tokens.total()),
+                 chunks=int(tel.prefill_chunks.total()),
+                 live=al.live_pages, free=al.free_pages,
+                 host_pages=(sched.host_store.pages
+                             if sched.host_store is not None else 0),
+                 host_edges=(sched.prefix.host_pages
+                             if sched.prefix is not None else 0))
+        waves.append(w)
+        print(f"  {label} round {i + 1}: swapped out {w['swap_out']} pages, "
+              f"in {w['swap_in']}, prefix hits {w['hits']} ({w['host_hits']} "
+              f"on the host tier, {w['hit_tokens']} tokens), prefill chunks "
+              f"{w['chunks']}; pages live {w['live']} + free {w['free']} "
+              f"(pool {al.num_pages}), host pages {w['host_pages']} (prefix "
+              f"cache host edges {w['host_edges']})")
+        if w["live"] + w["free"] != al.num_pages \
+                or w["host_pages"] != w["host_edges"]:
+            raise AssertionError(f"{label} round {i + 1}: the books do not "
+                                 f"balance")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ttft = reg.declared("serve_ttft_seconds")
+    dec = reg.declared("serve_decode_token_seconds")
+    tokens = sum(len(o) for r in outs for o in r)
+    decode_tokens = tokens - sum(len(r) for r in outs)
+    run = dict(outs=outs, waves=waves, launches=launches, reg=reg,
+               wall_s=wall, peak_bytes=peak,
+               ttft_mean_s=ttft.sum() / ttft.count(),
+               decode_tokens_per_s=decode_tokens / dec.sum(),
+               decode_step_s=dec.sum() / dec.count())
+    print(f"  {label}: {tokens} tokens in {wall:.3f} s, TTFT mean "
+          f"{run['ttft_mean_s']:.4f} s, decode {dec.count()} steps, "
+          f"{run['decode_tokens_per_s']:.1f} tokens/s, peak device memory "
+          f"{peak / 2**30:.2f} GiB{' (swap audit on)' if audit else ''}")
+    print(f"  {label}: kernel launches {launches}")
+    if any(len(o) != NEW_TOKENS for r in outs for o in r):
+        raise AssertionError(f"{label}: a request did not get "
+                             f"{NEW_TOKENS} tokens")
+    return run
+
+
+def _tier_run(engine, rounds, label: str, smi: str, kernel: str,
+              prefill_chunk: int = 0):
+    """One tier serve under the swap audit beside the same traffic with
+    the prefix cache off, and its gates."""
+    with _audited(engine) as audit:
+        run = _tier_serve(engine, rounds, label, prefill_chunk=prefill_chunk,
+                          audit=audit)
+        audit.hold(label)
+    reg, (w1, w2) = run["reg"], run["waves"]
+    dispatch = {k_: int(reg.declared(f"infer_swap_{k_}_dispatch_total")
+                        .total()) for k_ in ("out", "in")}
+    want = {k_: audit.dispatches(k_) for k_ in ("out", "in")}
+    print(f"  {label}: swap dispatches out {dispatch['out']}, in "
+          f"{dispatch['in']} (want {want['out']}, {want['in']}: one a "
+          f"{engine.swap_batch_pages} pages of each call) [{smi}]")
+    if dispatch != want or not dispatch["in"]:
+        raise AssertionError(f"{label}: the swap dispatches are off")
+    if w1["swap_out"] < TIER_MIN_SWAP_OUT \
+            or w2["host_hits"] - w1["host_hits"] < TIER_MIN_HOST_HITS \
+            or w2["swap_in"] <= w1["swap_in"]:
+        raise AssertionError(
+            f"{label}: round 1 swapped out {w1['swap_out']} pages (want >= "
+            f"{TIER_MIN_SWAP_OUT}), round 2 hit the host tier "
+            f"{w2['host_hits'] - w1['host_hits']} times (want >= "
+            f"{TIER_MIN_HOST_HITS})")
+    if not audit.resolved["overwritten"]:
+        raise AssertionError(f"{label}: no deferred swap-out saw its pages "
+                             f"overwritten before resolve()")
+    la = run["launches"]
+    never = "paged_attention" if kernel == "fused_block_decode" else \
+        "fused_block_decode"
+    if not (la["layer_norm"] and la["flash_attention"] and la[kernel]) \
+            or la[never]:
+        raise AssertionError(f"{label}: the launches are off: {la}")
+    if prefill_chunk and w2["chunks"] <= 2 * sum(map(len, rounds)):
+        raise AssertionError(f"{label}: chunked prefill did not chunk")
+    ref = _tier_serve(engine, rounds, f"{label} (prefix cache off)",
+                      prefix_cache=False, prefill_chunk=prefill_chunk)
+    parted = 0
+    for r, (got_r, want_r) in enumerate(zip(run["outs"], ref["outs"])):
+        for i, (got, want) in enumerate(zip(got_r, want_r)):
+            parted += not _hold_stream(f"{label} round {r + 1} request {i}",
+                                       engine, rounds[r][i], got, want)
+    print(f"  {label}: {sum(map(len, rounds)) - parted}/"
+          f"{sum(map(len, rounds))} streams equal the prefix-cache-off "
+          f"serve's, the rest part at a near tie")
+    return run, ref
+
+
+def _tier_ttft(engine, cfg, seed: int, smi: str):
+    """TTFT of one request (a 1024-token prefix and a 256-token suffix)
+    as a cold prefill, as an HBM hit (the prefix's pages in the pool) and
+    as a host hit (every page evicted to the host tier, the drains
+    resolved), each on a fresh scheduler's prefix cache, over
+    ``TIER_TTFT_REPS`` prefixes; returns the medians."""
+    from apex_tpu_torch import observability as obs
+    from apex_tpu_torch.inference import SlotScheduler
+    rng = np.random.RandomState(seed + 25)
+    got = {"cold": [], "HBM hit": [], "host hit": []}
+    for _ in range(TIER_TTFT_REPS):
+        obs.reset_global_registry()
+        sched = SlotScheduler(engine)
+        prefix = rng.randint(0, cfg.vocab_size, TIER_PREFIX_LEN).tolist()
+        for kind in got:
+            if kind == "host hit":
+                sched.prefix.evict_lru(engine.num_pages)
+                sched.drain_pending_swaps()
+            t = sched.telemetry.ttft
+            s0 = t.sum()
+            sched.submit(prefix + rng.randint(0, cfg.vocab_size,
+                                              256).tolist(),
+                         max_new_tokens=2)
+            sched.run()
+            got[kind].append(t.sum() - s0)
+        if int(sched.telemetry.prefix_host_hits.total()) != 1:
+            raise AssertionError("the host-hit request did not hit the "
+                                 "host tier")
+    med = {k_: float(np.median(v)) for k_, v in got.items()}
+    for k_, v in got.items():
+        print(f"  TTFT {k_} (prompt {TIER_PREFIX_LEN + 256}): "
+              f"{' '.join(f'{x * 1e3:.3f}' for x in v)} ms, median "
+              f"{med[k_] * 1e3:.3f} ms [{smi}]")
+    return med
+
+
+def _tier_bandwidth(engine, smi: str):
+    """Swap-out and swap-in GB/s of one prefix's pages beside a plain
+    pinned ``copy_`` of the same bytes each way; the host time of the
+    eviction path's swap-out, deferred against eager (medians of 5)."""
+    cache = engine.init_cache()
+    gen = torch.Generator(device=engine.device)
+    gen.manual_seed(26)
+    for pool in (cache.k, cache.v):
+        pool.copy_(torch.randn(pool.shape, generator=gen,
+                               device=engine.device))
+    ids = list(range(TIER_SWAP_PAGES))
+    dst = list(range(TIER_SWAP_PAGES, 2 * TIER_SWAP_PAGES))
+    nbytes = TIER_SWAP_PAGES * engine.page_host_bytes()
+
+    def timed(fn, reps=5):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return float(np.median(ts))
+
+    slabs = engine.swap_out_pages(cache, ids)
+    t_out = timed(lambda: engine.swap_out_pages(cache, ids))
+    t_in = timed(lambda: (engine.swap_in_pages(cache, dst, *slabs),
+                          torch.cuda.synchronize()))
+    for pool in (cache.k, cache.v):
+        if not torch.equal(pool[dst].view(torch.int16),
+                           pool[ids].view(torch.int16)):
+            raise AssertionError("tier: the swapped pages came back changed")
+    dev_buf = torch.empty(nbytes // 2, dtype=torch.bfloat16,
+                          device=engine.device)
+    host_buf = torch.empty(nbytes // 2, dtype=torch.bfloat16,
+                           pin_memory=True)
+    t_d2h = timed(lambda: (host_buf.copy_(dev_buf, non_blocking=True),
+                           torch.cuda.synchronize()))
+    t_h2d = timed(lambda: (dev_buf.copy_(host_buf, non_blocking=True),
+                           torch.cuda.synchronize()))
+    # the eviction path: deferred with fresh pinned buffers (the earlier
+    # drains still held, as a wave's evictions hold theirs), deferred
+    # with the allocator's cached blocks (each drain resolved and dropped
+    # first), eager
+    pend = []
+    t_fresh = timed(lambda: pend.append(engine.swap_out_pages(
+        cache, ids, defer=True)))
+    for p in pend:
+        p.resolve()
+    del pend[:]
+    ts = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = engine.swap_out_pages(cache, ids, defer=True)
+        ts.append(time.perf_counter() - t0)
+        p.resolve()
+        del p                       # its pinned blocks go back to the cache
+    t_defer = float(np.median(ts))
+    t_eager = timed(lambda: engine.swap_out_pages(cache, ids))
+    # a host hit's host copies, piece by piece: the store's materialize
+    # (a copy a page), the scheduler's np.stack, the upload
+    k_r, v_r = engine.swap_out_pages(cache, ids, defer=True).resolve()
+    t_mat = timed(lambda: [(k_r[i].copy(), v_r[i].copy())
+                           for i in range(TIER_SWAP_PAGES)])
+    pages = [(k_r[i].copy(), v_r[i].copy()) for i in range(TIER_SWAP_PAGES)]
+    t_stack = timed(lambda: (np.stack([p_[0] for p_ in pages]),
+                             np.stack([p_[1] for p_ in pages])))
+    gb = nbytes / 1e9
+    print(f"  swap of {TIER_SWAP_PAGES} pages ({nbytes / 2**20:.0f} MiB, "
+          f"batches of {engine.swap_batch_pages}): out {gb / t_out:.2f} GB/s "
+          f"({t_out * 1e3:.3f} ms), in {gb / t_in:.2f} GB/s "
+          f"({t_in * 1e3:.3f} ms); a pinned copy_ of the same bytes: "
+          f"device to host {gb / t_d2h:.2f} GB/s, host to device "
+          f"{gb / t_h2d:.2f} GB/s [{smi}]")
+    print(f"  eviction path host time, {TIER_SWAP_PAGES} pages: deferred "
+          f"{t_fresh * 1e3:.3f} ms with fresh pinned buffers, "
+          f"{t_defer * 1e3:.3f} ms on the allocator's cached blocks, eager "
+          f"{t_eager * 1e3:.3f} ms [{smi}]")
+    print(f"  a host hit's host copies, {TIER_SWAP_PAGES} pages: the store's "
+          f"materialize {t_mat * 1e3:.3f} ms ({gb / t_mat:.2f} GB/s), "
+          f"np.stack {t_stack * 1e3:.3f} ms ({gb / t_stack:.2f} GB/s), "
+          f"swap_in_pages {t_in * 1e3:.3f} ms [{smi}]")
+    del cache, dev_buf, host_buf, pend, pages, k_r, v_r
+    torch.cuda.empty_cache()
+    return dict(out_gbps=gb / t_out, in_gbps=gb / t_in,
+                d2h_gbps=gb / t_d2h, h2d_gbps=gb / t_h2d,
+                fresh_ms=t_fresh * 1e3, defer_ms=t_defer * 1e3,
+                eager_ms=t_eager * 1e3)
+
+
+def _window_rows(dev, cfg, smi: str) -> None:
+    """``prefix_window_attention`` (plain PyTorch: the JAX package
+    computes the warm suffix's attention in XLA) per layer at the warm
+    shapes: each suffix length over a 1024-token prefix in the slot's
+    4096-position window, Llama-3-8B's 32 heads over 8 kv heads of 128;
+    eager calls between CUDA events, beside a bound for the live work
+    (the prefix rows once, the causal suffix)."""
+    from apex_tpu_torch.ops.attention import prefix_window_attention
+    h, kvh, d = cfg.num_attention_heads, cfg.num_kv_heads, \
+        cfg.hidden_size // cfg.num_attention_heads
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(27)
+    win = TIER_GEOMETRY["max_seq"]
+    wk, wv = (torch.randn(1, kvh, win, d, generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    for s in TIER_WINDOW_ROWS:
+        q = torch.randn(1, h, s, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn(1, kvh, s, d, generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        out = prefix_window_attention(q, k, v, wk, wv, TIER_PREFIX_LEN)
+        if not torch.isfinite(out.float()).all():
+            raise AssertionError("prefix_window_attention: not finite")
+        ms = _eager_ms(lambda: prefix_window_attention(
+            q, k, v, wk, wv, TIER_PREFIX_LEN), 20)
+        live = TIER_PREFIX_LEN * s + s * (s + 1) / 2
+        nbytes = 2 * (2 * kvh * (TIER_PREFIX_LEN + s) * d + 2 * h * s * d)
+        bound, by = _bound(nbytes, 4 * h * d * live)
+        print(f"  prefix_window_attention, suffix {s} over prefix "
+              f"{TIER_PREFIX_LEN} (window {win}): {ms:.4f} ms a layer "
+              f"(eager), {ms * cfg.num_layers:.3f} ms over "
+              f"{cfg.num_layers} layers; bound {bound:.4f} ms ({by}) [{smi}]")
+
+
+def phase_tier(dev, seed: int):
+    """The host page tier on Llama-3-8B (:data:`TIER_GEOMETRY`, the
+    traffic of :func:`_tier_traffic`): served unfused, then fused
+    (``decode_fusion="1"``) with chunked prefill (``TIER_CHUNK``), each
+    under the swap audit and held by :func:`_tier_run` (the unfused
+    serve again without the audit); then one
+    request's TTFT cold, as an HBM hit and as a host hit, the swap
+    bandwidth beside pinned copies, the eviction path's host time, and
+    ``prefix_window_attention`` at the warm shapes.  Returns the tier
+    serves' launches and the unfused prefix-cache-off streams."""
+    from apex_tpu_torch.inference import InferenceEngine
+    smi = _smi()
+    cfg, params = _tier_model(dev, seed)
+    rounds = _tier_traffic(cfg.vocab_size, seed)
+    total: dict = {}
+
+    def add(launches):
+        for k_, n in launches.items():
+            total[k_] = total.get(k_, 0) + n
+
+    engine = InferenceEngine("llama", cfg, params, device=dev,
+                             **TIER_GEOMETRY)
+    print(f"tier: Llama-3-8B, pool {engine.num_pages} pages of "
+          f"{engine.page_size} ({engine.cache_hbm_bytes() / 2**30:.2f} GiB), "
+          f"a page {engine.page_host_bytes() / 2**20:.0f} MiB, host tier "
+          f"{engine.host_tier_bytes / 2**30:.0f} GiB, swap batches of "
+          f"{engine.swap_batch_pages}; prompts "
+          f"{[[len(p) for p in r] for r in rounds]}")
+    run, ref = _tier_run(engine, rounds, "tier unfused", smi,
+                         "paged_attention")
+    add(run["launches"])
+    # the same serve again without the audit, on the pinned blocks the
+    # first left in the caching host allocator
+    warm = _tier_serve(engine, rounds, "tier unfused, no audit, pinned "
+                       "blocks cached")
+    fused = InferenceEngine("llama", cfg, params, device=dev,
+                            decode_fusion="1", **TIER_GEOMETRY)
+    frun, _ = _tier_run(fused, rounds, "tier fused, chunked", smi,
+                        "fused_block_decode", prefill_chunk=TIER_CHUNK)
+    add(frun["launches"])
+    del fused
+    torch.cuda.empty_cache()
+    ttft = _tier_ttft(engine, cfg, seed, smi)
+    bw = _tier_bandwidth(engine, smi)
+    _window_rows(dev, cfg, smi)
+    print(f"tier summary [{smi}]: unfused TTFT mean {run['ttft_mean_s']:.4f} "
+          f"s, decode {run['decode_tokens_per_s']:.1f} tokens/s, peak "
+          f"{run['peak_bytes'] / 2**30:.2f} GiB (no audit, pinned blocks "
+          f"cached: {warm['ttft_mean_s']:.4f} s, "
+          f"{warm['decode_tokens_per_s']:.1f}; prefix cache off: "
+          f"{ref['ttft_mean_s']:.4f} s, {ref['decode_tokens_per_s']:.1f}); "
+          f"fused + chunked {frun['ttft_mean_s']:.4f} s, "
+          f"{frun['decode_tokens_per_s']:.1f} tokens/s, peak "
+          f"{frun['peak_bytes'] / 2**30:.2f} GiB; one request's TTFT cold "
+          f"{ttft['cold'] * 1e3:.3f} ms, HBM hit {ttft['HBM hit'] * 1e3:.3f}, "
+          f"host hit {ttft['host hit'] * 1e3:.3f}; swap out "
+          f"{bw['out_gbps']:.2f} GB/s, in {bw['in_gbps']:.2f} (pinned copies "
+          f"{bw['d2h_gbps']:.2f}, {bw['h2d_gbps']:.2f})")
+    del engine
+    torch.cuda.empty_cache()
+    return dict(launches=total, ref=ref["outs"])
+
+
+def _fleet_order(rounds):
+    """The fleet's waves: round 1 in prefix order, round 2 rotated by one
+    prefix, so round robin over two replicas sends each prefix's second
+    request to the replica its first did not go to."""
+    return [list(rounds[0]), rounds[1][1:] + rounds[1][:1]]
+
+
+def phase_fleet(dev, seed: int, ref=None):
+    """Two replicas on the one card (``build_fleet`` over two unfused
+    Llama-3-8B engines of :data:`FLEET_GEOMETRY` on one weight tree) serve
+    the tier phase's traffic (:func:`_fleet_order`) under
+    ``round_robin``, then ``prefix_affinity``: the conservation law after
+    every wave, affinity routing more prefix tokens to hits than round
+    robin, the streams the single engine's (the tier phase's
+    prefix-cache-off serve) up to a near tie.  Prints each policy's TTFT
+    and decode tokens/s, and ``required_replicas`` and ``drift_ratio``
+    from a ``ServiceProfile`` of this run's own prefill and decode
+    times.  Returns the fleet serves' launches."""
+    from apex_tpu_torch.fleet import (ServiceProfile, build_fleet,
+                                      drift_ratio, required_replicas,
+                                      simulate)
+    from apex_tpu_torch.inference import InferenceEngine
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.utils import tree_leaves_with_path
+    smi = _smi()
+    cfg, params = _tier_model(dev, seed)
+    rounds = _tier_traffic(cfg.vocab_size, seed)
+    engines = [InferenceEngine("llama", cfg, params, device=dev,
+                               **FLEET_GEOMETRY) for _ in range(2)]
+    leaves = [dict(tree_leaves_with_path(e.params)) for e in engines]
+    shared = all(t.data_ptr() == leaves[1][p].data_ptr() == s.data_ptr()
+                 for (p, t), (_, s) in zip(leaves[0].items(),
+                                           tree_leaves_with_path(params)))
+    print(f"fleet: 2 replicas on one card share one weight tree: {shared}")
+    if not shared:
+        raise AssertionError("fleet: a replica copied the weights")
+    if ref is None:
+        ref = _tier_serve(engines[0], rounds, "fleet reference (one "
+                          "engine, prefix cache off)", prefix_cache=False)[
+                              "outs"]
+    want = {tuple(p): o for r, outs in zip(rounds, ref)
+            for p, o in zip(r, outs)}
+    waves = _fleet_order(rounds)
+    total: dict = {}
+    runs = {}
+    for policy in ("round_robin", "prefix_affinity"):
+        fleet = build_fleet(engines, policy=policy)
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parted = 0
+        for w, prompts in enumerate(waves):
+            uids = [fleet.submit(p, max_new_tokens=NEW_TOKENS)
+                    for p in prompts]
+            out = fleet.run()
+            law = fleet.conservation()
+            if not law["holds"]:
+                raise AssertionError(f"fleet {policy} wave {w + 1}: the "
+                                     f"conservation law fails: {law}")
+            for u, p in zip(uids, prompts):
+                parted += not _hold_stream(f"fleet {policy} uid {u}",
+                                           engines[0], p, out[u],
+                                           want[tuple(p)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k_, n in _build.launch_counts().items():
+            total[k_] = total.get(k_, 0) + n
+        tels = [rep.telemetry for rep in fleet.replicas]
+        ttft_s = sum(t.ttft.sum() for t in tels)
+        ttft_n = sum(t.ttft.count() for t in tels)
+        dec_s = sum(t.decode_token_seconds.sum() for t in tels)
+        dec_n = sum(t.decode_token_seconds.count() for t in tels)
+        tokens = NEW_TOKENS * sum(map(len, waves))
+        decode_tokens = tokens - sum(map(len, waves))
+        prefill_s = sum(t.prefill_seconds.sum() for t in tels)
+        hit_tokens = sum(int(t.prefix_hit_tokens.total()) for t in tels)
+        r = dict(
+            ttft_mean_s=ttft_s / ttft_n, decode_tokens_per_s=decode_tokens
+            / dec_s, decode_step_us=dec_s / dec_n * 1e6, wall_s=wall,
+            hit_tokens=hit_tokens, host_hits=sum(
+                int(t.prefix_host_hits.total()) for t in tels),
+            routed_prefix_tokens=int(
+                fleet.telemetry.routed_prefix_tokens.total()),
+            affinity_hits=int(fleet.telemetry.affinity_hits.total()),
+            placements=[fleet.placements[u][0] for u in sorted(
+                fleet.placements)],
+            prefill_us_per_token=prefill_s * 1e6 / (sum(
+                len(p) for wv in waves for p in wv) - hit_tokens))
+        runs[policy] = r
+        print(f"fleet {policy}: placements {r['placements']}, {wall:.3f} s; "
+              f"TTFT mean {r['ttft_mean_s']:.4f} s, decode "
+              f"{r['decode_tokens_per_s']:.1f} tokens/s (the replicas run "
+              f"one after the other); replicas' prefix-hit tokens "
+              f"{hit_tokens} ({r['host_hits']} host hits), "
+              f"fleet_routed_prefix_tokens_total "
+              f"{r['routed_prefix_tokens']}, fleet_prefix_affinity_hits_total "
+              f"{r['affinity_hits']}; {sum(map(len, waves)) - parted}/"
+              f"{sum(map(len, waves))} streams equal the single engine's "
+              f"[{smi}]")
+        del fleet
+        torch.cuda.empty_cache()
+    rr, aff = runs["round_robin"], runs["prefix_affinity"]
+    if not (total["paged_attention"] and total["flash_attention"]):
+        raise AssertionError(f"fleet: the launches are off: {total}")
+    if not (aff["routed_prefix_tokens"] > rr["routed_prefix_tokens"]
+            and aff["affinity_hits"] > 0
+            and aff["hit_tokens"] > rr["hit_tokens"]):
+        raise AssertionError("fleet: prefix_affinity routed no more prefix "
+                             "tokens to hits than round_robin")
+    prompts = [len(p) for wv in waves for p in wv]
+    prof = ServiceProfile(rr["prefill_us_per_token"], rr["decode_step_us"],
+                          "measured:chip_smoke fleet round_robin")
+    slo_us = 4 * rr["ttft_mean_s"] * 1e6
+    need = required_replicas(prof, slots=TIER_GEOMETRY["slots"],
+                             slo_ttft_us=slo_us, n_requests=256,
+                             interarrival_us=20_000.0,
+                             prompt_tokens=prompts,
+                             decode_tokens=NEW_TOKENS, seed=seed)
+    pred = simulate(prof, replicas=2, slots=TIER_GEOMETRY["slots"],
+                    n_requests=len(prompts), interarrival_us=0.0,
+                    prompt_tokens=prompts, decode_tokens=NEW_TOKENS)
+    drift = drift_ratio(pred["ttft_p50_us"], aff["ttft_mean_s"] * 1e6)
+    print(f"fleet capacity ({prof.provenance}: prefill "
+          f"{prof.prefill_us_per_token:.2f} us a token, decode "
+          f"{prof.decode_us_per_token:.1f} us a token): required_replicas at "
+          f"a TTFT p99 SLO of {slo_us / 1e3:.1f} ms, 50 requests/s of these "
+          f"prompts: {need['replicas']} (simulated p99 "
+          f"{need['ttft_p99_us'] / 1e3:.3f} ms); "
+          f"simulated TTFT p50 of this run's {len(prompts)} requests on 2 "
+          f"replicas {pred['ttft_p50_us'] / 1e3:.3f} ms against the measured "
+          f"affinity mean {aff['ttft_mean_s'] * 1e3:.3f} ms: drift_ratio "
+          f"{drift:.3f} [{smi}]")
+    del engines
+    torch.cuda.empty_cache()
+    return dict(launches=total, runs=runs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="kernels,serve,gpt,bert,bert_train,gpt_train,"
                             "gpt_train_8k,profile,train,lean_train,optim,"
-                            "train-check,width,spec,tp,shim",
+                            "train-check,width,spec,tp,tier,fleet,shim",
                     help="comma list of kernels, serve, gpt, bert, "
                          "bert_train, gpt_train, gpt_train_8k, profile, "
                          "train, lean_train, optim, train-check, width, "
-                         "spec, tp, shim, ab "
+                         "spec, tp, tier, fleet, shim, ab "
                          "(build always "
                          "runs; profile profiles the serve and the train "
                          "phases that run)")
@@ -7627,6 +8302,20 @@ def main(argv=None) -> int:
                 key, 0)
         del tp
         torch.cuda.empty_cache()
+    tier_ref = None
+    for phase in ("tier", "fleet"):
+        if phase not in phases:
+            continue
+        run = (phase_tier(dev, args.seed) if phase == "tier"
+               else phase_fleet(dev, args.seed, tier_ref))
+        tier_ref = run.get("ref")
+        for key, r in recs.items():
+            r["launches"] = (r.get("launches") or 0) + run["launches"].get(
+                key, 0)
+        del run
+    _TIER_MODEL.clear()
+    tier_ref = None
+    torch.cuda.empty_cache()
     if "ab" in phases:
         if args.baseline is None:
             raise SystemExit("the ab phase needs --baseline")

@@ -3450,3 +3450,144 @@ def test_tp_engine_two_gloo_ranks_on_one_card(cuda, tmp_path):
         for p, got, w in zip(prompts, outs, want):
             assert len(got) == 12 and got[0] == w[0]
             assert _diverges_undecided(one, p, got, w)
+
+
+# -- the host page tier on the card ------------------------------------------
+#
+# The swaps are copies, not kernels: pages gathered into a fresh slab and
+# copied into pinned host buffers, non_blocking, in stream order; swap-in
+# staged through pinned memory.  What the card adds is the asynchrony:
+# a deferred swap-out must still read the bits from before a later
+# in-place write, and every pool type must come back bit for bit.
+
+def _tier_engine(cuda, cache_dtype=torch.bfloat16, **kw):
+    from apex_tpu_torch.inference import InferenceEngine
+    from apex_tpu_torch.transformer.testing import LlamaConfig
+    cfg = LlamaConfig(vocab_size=256, hidden_size=512, num_layers=4,
+                      num_attention_heads=8, num_kv_heads=8,
+                      ffn_hidden_size=512, max_seq_length=512)
+    return InferenceEngine("llama", cfg, _llama_tree(cfg, cuda), slots=4,
+                           max_seq=512, page_size=64, num_pages=24,
+                           cache_dtype=cache_dtype, device=cuda,
+                           host_tier_bytes=1 << 30, **kw)
+
+
+def _bits_of(t):
+    return t.view(torch.int16) if t.element_size() == 2 else \
+        t.view(torch.int32)
+
+
+def _fill_pool(cache, seed):
+    gen = torch.Generator(device=cache.device)
+    gen.manual_seed(seed)
+    for pool in (cache.k, cache.v):
+        pool.copy_(torch.randn(pool.shape, generator=gen,
+                               device=cache.device))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("n", [1, 4, 5, 11])
+def test_swap_round_trip_bit_for_bit(cuda, dtype, n):
+    """Pages out to the host and back into other pages at batch 4 (page
+    counts on and off the batch): the bits come back; a bf16 pool's host
+    slabs are its uint16 bits; ceil(n / 4) dispatches each way."""
+    eng = _tier_engine(cuda, dtype, swap_batch_pages=4)
+    cache = eng.init_cache()
+    _fill_pool(cache, 200 + n)
+    src = list(range(n))
+    dst = list(range(23, 23 - n, -1))          # disjoint from src
+    assert not set(src) & set(dst)
+    eng._refresh_dispatch_counters()
+    o0 = int(eng._swap_out_dispatches.total())
+    i0 = int(eng._swap_in_dispatches.total())
+    k, v = eng.swap_out_pages(cache, src)
+    want = {torch.bfloat16: np.uint16, torch.float16: np.float16,
+            torch.float32: np.float32}[dtype]
+    assert k.dtype == want and k.shape == (n,) + tuple(cache.k.shape[1:])
+    eng.swap_in_pages(cache, dst, k, v)
+    torch.cuda.synchronize()
+    idx_s = torch.tensor(src, device=cuda)
+    idx_d = torch.tensor(dst, device=cuda)
+    for pool in (cache.k, cache.v):
+        assert torch.equal(_bits_of(pool[idx_d]), _bits_of(pool[idx_s]))
+    assert int(eng._swap_out_dispatches.total()) - o0 == -(-n // 4)
+    assert int(eng._swap_in_dispatches.total()) - i0 == -(-n // 4)
+
+
+def test_deferred_swap_out_survives_an_overwrite_before_resolve(cuda):
+    """A deferred swap-out, then the same pages overwritten in place
+    (zeroed, then a prefill into them as into pages acquired again)
+    before ``resolve()``: it resolves to the bits before the overwrite,
+    and repeats them on a second call."""
+    eng = _tier_engine(cuda, swap_batch_pages=2)
+    cache = eng.init_cache()
+    _fill_pool(cache, 210)
+    ids = [3, 4, 5, 6, 7]
+    idx = torch.tensor(ids, device=cuda)
+    before_k, before_v = cache.k[idx].clone(), cache.v[idx].clone()
+    pending = eng.swap_out_pages(cache, ids, defer=True)
+    cache.k[idx] = 0
+    cache.v[idx] = 0
+    cache, _, _ = eng.prefill(cache, [t % 256 for t in range(1, 300)], 0,
+                              pages=ids)
+    assert not pending.done
+    k, v = pending.resolve()
+    assert pending.done and pending.resolve()[0] is k
+    assert np.array_equal(k, _bits_of(before_k).cpu().numpy().view(
+        np.uint16))
+    assert np.array_equal(v, _bits_of(before_v).cpu().numpy().view(
+        np.uint16))
+    assert not torch.equal(cache.k[idx], before_k)
+
+
+def test_swap_of_a_tp_shard_view(cuda):
+    """A rank's pool as a view of half the kv heads of a larger pool
+    (not contiguous): swap-out reads that shard's rows, swap-in writes
+    them and leaves the other heads as they were."""
+    from apex_tpu_torch.inference import kv_cache
+    eng = _tier_engine(cuda, swap_batch_pages=3)
+    full = kv_cache.init_paged_cache(24, 4, 16, 64, 64, slots=4,
+                                     max_pages_per_slot=8, device=cuda)
+    _fill_pool(full, 220)
+    shard = kv_cache.PagedKVCache(
+        k=full.k[:, :, 8:], v=full.v[:, :, 8:], page_table=full.page_table,
+        lengths=full.lengths, capacity=full.capacity)
+    other = full.k[:, :, :8].clone()
+    k, v = eng.swap_out_pages(shard, [0, 1, 2, 9])
+    want = full.k[[0, 1, 2, 9]][:, :, 8:].contiguous()
+    assert np.array_equal(k, _bits_of(want).cpu().numpy().view(np.uint16))
+    eng.swap_in_pages(shard, [20, 21, 22, 23], k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits_of(full.k[20:24, :, 8:]), _bits_of(want))
+    assert torch.equal(_bits_of(full.k[:, :, :8]), _bits_of(other))
+
+
+def test_host_tier_engine_serves_a_hit_after_eviction(cuda):
+    """The scheduler on the card: a prompt's prefix pages evicted to the
+    host tier, the same prompt again swaps them in (a host hit, #3 and #7
+    launched) and serves the cold run's stream up to a near tie."""
+    from apex_tpu_torch.inference import SlotScheduler
+    from apex_tpu_torch.observability import MetricsRegistry, ServeTelemetry
+    eng = _tier_engine(cuda)
+    prompt = list(range(5, 200)) + [7]
+    cold = SlotScheduler(eng, telemetry=ServeTelemetry(MetricsRegistry()),
+                         prefix_cache=False)
+    u = cold.submit(prompt, max_new_tokens=12)
+    want = cold.run()[u]
+    tel = ServeTelemetry(MetricsRegistry())
+    sched = SlotScheduler(eng, telemetry=tel)
+    sched.submit(prompt, max_new_tokens=12)
+    sched.run()
+    assert sched.prefix.evict_lru(eng.num_pages) > 0
+    assert sched.prefix.host_pages == 3
+    _build.reset_launch_counts()
+    u = sched.submit(prompt, max_new_tokens=12)
+    got = sched.run()[u]
+    counts = _build.launch_counts()
+    assert int(tel.swap_in_pages.total()) == 3
+    assert int(tel.prefix_host_hits.total()) == 1
+    assert counts["flash_attention"] == 0          # the suffix is warm
+    assert counts["paged_attention"] > 0
+    assert len(got) == 12 and got[0] == want[0]
+    assert _diverges_undecided(eng, prompt, got, want)

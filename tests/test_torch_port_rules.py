@@ -35,10 +35,12 @@ from _torch_isolation import restore_torch_from_amp  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "apex_tpu_torch"
-CFG = LlamaConfig(vocab_size=64, hidden_size=32, num_layers=1,
-                  num_attention_heads=4, num_kv_heads=2, max_seq_length=64)
-GPT_CFG = GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
-                    num_attention_heads=4, max_seq_length=64)
+LLAMA_KW = dict(vocab_size=64, hidden_size=32, num_layers=1,
+                num_attention_heads=4, num_kv_heads=2, max_seq_length=64)
+GPT_KW = dict(vocab_size=64, hidden_size=32, num_layers=1,
+              num_attention_heads=4, max_seq_length=64)
+CFG = LlamaConfig(**LLAMA_KW)
+GPT_CFG = GPTConfig(**GPT_KW)
 BERT_CFG = BertConfig(vocab_size=64, hidden_size=32, num_layers=1,
                       num_attention_heads=4, max_seq_length=64)
 
@@ -247,22 +249,40 @@ NO_GROUP = "init_process_group"
 @pytest.mark.parametrize("call,exc,match", [
     (_engine(kind="gpt", tp=2), RuntimeError, NO_GROUP),
     (_engine(kind="gpt", tp=2, spec_k=2), RuntimeError, NO_GROUP),
-    (_engine(kind="gpt", host_tier_bytes=1 << 20), NotImplementedError,
-     "host page tier"),
     (_engine(tp=2), RuntimeError, NO_GROUP),
     (_engine(tp=2, spec_k=2), RuntimeError, NO_GROUP),
     (_engine(decode_fusion="1", tp=2), RuntimeError, NO_GROUP),
     (_fused(partial_out=True, fuse_mlp=True), ValueError, "fuse_mlp=False"),
     (_fused(kind="gpt", partial_out=True, fuse_mlp=True), ValueError,
      "fuse_mlp=False"),
-    (_engine(host_tier_bytes=1 << 20), NotImplementedError, "host page tier"),
 ])
 def test_out_of_slice_configurations_raise(call, exc, match):
-    """The host page tier is a later slice; a tp > 1 engine never serves
-    one rank's shard without its process group; the rank-partial fused
-    block runs without the MLP only."""
+    """A tp > 1 engine never serves one rank's shard without its process
+    group; the rank-partial fused block runs without the MLP only."""
     with pytest.raises(exc, match=match):
         call()
+
+
+@pytest.mark.parametrize("kind", ["llama", "gpt"])
+def test_host_tier_engines_build_and_book_jax_page_bytes(kind):
+    """A paged engine with a host tier builds on the CPU and books JAX's
+    ``page_host_bytes`` (the JAX engine built on the same configuration
+    beside it)."""
+    import jax.numpy as jnp
+    from apex_tpu.inference import InferenceEngine as JaxEngine
+    from apex_tpu.transformer import parallel_state
+    from apex_tpu.transformer.testing import (GPTConfig as JGPTConfig,
+                                              LlamaConfig as JLlamaConfig)
+    eng = _engine(kind=kind, host_tier_bytes=1 << 20,
+                  swap_batch_pages=3)()
+    assert (eng.host_tier_bytes, eng.swap_batch_pages) == (1 << 20, 3)
+    parallel_state.destroy_model_parallel()
+    parallel_state.initialize_model_parallel(1)
+    jcfg = (JLlamaConfig(**LLAMA_KW) if kind == "llama"
+            else JGPTConfig(**GPT_KW))
+    jeng = JaxEngine(kind, jcfg, None, slots=1, page_size=16,
+                     cache_dtype=jnp.bfloat16, host_tier_bytes=1 << 20)
+    assert eng.page_host_bytes() == jeng.page_host_bytes() > 0
 
 
 @pytest.mark.parametrize("kind", ["llama", "gpt"])
@@ -286,6 +306,7 @@ def test_partial_out_returns_the_plain_partial(kind):
 @pytest.mark.parametrize("call,match", [
     (_engine(kind="bert", page_size=None, decode_fusion="1"), "encode-only"),
     (_engine(page_size=None, tp=2), "does not shard"),
+    (_engine(page_size=None, host_tier_bytes=1 << 20), "dense slot cache"),
 ])
 def test_configurations_the_jax_engine_refuses_raise_its_value_error(
         call, match):
