@@ -30,7 +30,11 @@ a tree of tensors) with the train-to-serve handoff
 (``InferenceEngine.from_train_state`` / ``from_state_dict``) — and
 GPT and BERT serving and training (:mod:`.models`, the flagship model
 zoo, with dropout and the padding mask in training mode on the flash
-kernels' mask and dropout instances).
+kernels' mask and dropout instances) — and data parallelism and ZeRO
+(:mod:`.parallel`: ``DistributedDataParallel``, ``SyncBatchNorm``,
+``LARC``; ``make_train_step(zero=True)`` and ``contrib.optimizers``'
+``DistributedFused{Adam,LAMB}`` over ``torch.distributed`` process
+groups that :mod:`.transformer.parallel_state` builds).
 Importing this package imports neither ``jax`` nor ``apex_tpu``.
 """
 from apex_tpu_torch.utils import cdiv, resolve_device, round_up

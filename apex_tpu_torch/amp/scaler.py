@@ -10,15 +10,17 @@ reads nothing back to the host between its backward and its update.
 
 Where the JAX functions return new arrays, :func:`unscale_flat_grads`
 unscales the flat grad buffer in place (the counterpart of donating
-it).  The cross-rank flag reduction (``axis_name=``) and the per-leaf
-nonfinite counts of the numerics probes are not ported (ROADMAP queue
-1, items 6 and 7).
+it).  Under ZeRO (``axis_name=``) the flag is all-reduced with ``MAX``
+over the group as a device tensor, so every rank skips together.  The
+per-leaf nonfinite counts of the numerics probes are not ported
+(ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from apex_tpu_torch.ops.fused_update import fused_scale
 from apex_tpu_torch.utils import resolve_device, tree_ravel
@@ -77,13 +79,20 @@ def unscale_grads(grads, state: LossScaleState):
 def unscale_flat_grads(flat_grads, state: LossScaleState, axis_name=None):
     """Flat-native unscale: ``flat_grads`` is multiplied by 1/scale IN
     PLACE by the fused kernel, which also sets the overflow flag.
+
+    ``axis_name`` (a mesh-axis name or a ``ProcessGroup``) all-reduces
+    the flag with ``MAX`` over that group: under ZeRO each rank unscales
+    only its own grad SHARD, but the skip must be replica-uniform — a
+    rank whose shard is finite still skips when any peer overflowed.
+    The flag stays a device tensor.
     Returns ``(flat_grads, new state with found_inf set)``."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "the cross-rank overflow flag (axis_name=, ZeRO) is not "
-            "ported yet (ROADMAP queue 1, item 6)")
     out, flag = fused_scale(flat_grads, 1.0 / state.loss_scale,
                             out=flat_grads)
+    if axis_name is not None:
+        from apex_tpu_torch.parallel import _comm
+        from apex_tpu_torch.transformer.parallel_state import resolve_group
+        flag = _comm.all_reduce(flag.reshape(1), resolve_group(axis_name),
+                                op=dist.ReduceOp.MAX).reshape(())
     return out, state.replace(found_inf=flag)
 
 

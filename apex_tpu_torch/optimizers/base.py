@@ -1,16 +1,23 @@
 """Shared machinery of the fused optimizers.
 
-Port of the dense half of ``apex_tpu/optimizers/base.py``: the per-leaf
-broadcast the flat rules use where a scalar per tensor meets the flat
-buffer, and the class API, :class:`FusedOptimizerBase`, the stateful
-torch-parity shell over the functional rules of
-:mod:`apex_tpu_torch.optimizers.functional` that ``FusedAdam`` and its
-siblings subclass.  Parameters that are ``torch.nn.Parameter``s
-(``FusedAdam(model.parameters())``) go to the torch-mode twins of
-:mod:`apex_tpu_torch.optimizers._torch_mode`; any other tree of tensors
-stays with the class itself.  The ZeRO span helpers
-(``shard_leaf_spans`` and friends) come with the sharded state (ROADMAP
-queue 1, item 6).
+Port of ``apex_tpu/optimizers/base.py``: the per-leaf broadcast the
+flat rules use where a scalar per tensor meets the flat buffer, the
+ZeRO span helpers that do the same for one rank's shard of it
+(:func:`shard_leaf_spans`, :func:`prefetch_leaf_spans`,
+:func:`sharded_leaf_reduce` and its square-norm and nonfinite-count
+forms, :func:`sharded_leaf_broadcast`), and the class API,
+:class:`FusedOptimizerBase`, the stateful torch-parity shell over the
+functional rules of :mod:`apex_tpu_torch.optimizers.functional` that
+``FusedAdam`` and its siblings subclass.  Parameters that are
+``torch.nn.Parameter``s (``FusedAdam(model.parameters())``) go to the
+torch-mode twins of :mod:`apex_tpu_torch.optimizers._torch_mode`; any
+other tree of tensors stays with the class itself.
+
+The JAX span helpers take the rank as a traced value and pick its spans
+with a ``lax.switch`` over every rank (above ``_SWITCH_MAX_DP`` ranks,
+with sums over a zero-padded global buffer instead).  A process here
+knows its rank on the host, so the helpers walk that rank's own static
+spans; the caller all-reduces the partials over the group.
 """
 from __future__ import annotations
 
@@ -18,9 +25,12 @@ from typing import Any, Sequence
 
 import torch
 
-from apex_tpu_torch.utils import tree_leaves_with_path, tree_ravel
+from apex_tpu_torch.utils import cdiv, tree_leaves_with_path, tree_ravel
 
-__all__ = ["broadcast_leaf_scalars", "FusedOptimizerBase"]
+__all__ = ["FusedOptimizerBase", "broadcast_leaf_scalars",
+           "shard_leaf_spans", "prefetch_leaf_spans",
+           "sharded_leaf_reduce", "sharded_leaf_sq_norms",
+           "sharded_leaf_nonfinite_counts", "sharded_leaf_broadcast"]
 
 
 def broadcast_leaf_scalars(scalars: torch.Tensor,
@@ -33,6 +43,163 @@ def broadcast_leaf_scalars(scalars: torch.Tensor,
         return torch.zeros((0,), dtype=scalars.dtype, device=scalars.device)
     return torch.cat([scalars[i].expand(int(s))
                       for i, s in enumerate(sizes)])
+
+
+def shard_leaf_spans(sizes: Sequence[int], dp: int, shard_len: int):
+    """Static leaf spans per rank: ``spans[r]`` lists ``(leaf_id, lo,
+    hi)``, the intersection of each leaf's ``[offset, offset+size)`` with
+    rank r's padded shard window, in shard-local coordinates.  The
+    padding tail is covered by no span."""
+    offs = [0]
+    for s in sizes:
+        offs.append(offs[-1] + int(s))
+    spans = []
+    for r in range(dp):
+        start, end = r * shard_len, (r + 1) * shard_len
+        spans.append([(i, max(o, start) - start, min(o + int(s), end) - start)
+                      for i, (o, s) in enumerate(zip(offs, sizes))
+                      if min(o + int(s), end) > max(o, start)])
+    return spans
+
+
+def prefetch_leaf_spans(sizes: Sequence[int], span_leaves: Sequence[int],
+                        dp: int):
+    """Per-rank leaf spans for the ZeRO *prefetch* shard layout
+    (``FlatState.spans``): each gather span (a group of consecutive
+    leaves, padded to a ``dp`` multiple) is split ``1/dp`` and rank r's
+    shard is the concatenation of its slice of every span.  The same
+    ``spans[r] = [(leaf_id, lo, hi)]`` structure as
+    :func:`shard_leaf_spans`, with padding gaps that can be INTERIOR
+    (each span's tail)."""
+    sizes = [int(s) for s in sizes]
+    out = [[] for _ in range(dp)]
+    leaf0 = 0
+    shard_off = 0                      # shard-local offset of this span
+    for count in span_leaves:
+        group = sizes[leaf0:leaf0 + count]
+        lk = cdiv(sum(group), dp)      # per-rank slice of this span
+        offs = [0]
+        for s in group:
+            offs.append(offs[-1] + s)
+        for r in range(dp):
+            start, end = r * lk, (r + 1) * lk
+            for j, (o, s) in enumerate(zip(offs, group)):
+                lo, hi = max(o, start), min(o + s, end)
+                if hi > lo:
+                    out[r].append((leaf0 + j, shard_off + lo - start,
+                                   shard_off + hi - start))
+        leaf0 += count
+        shard_off += lk
+    return out
+
+
+def rank_spans(sizes: Sequence[int], *, dp: int, shard_len: int, rank: int,
+               spans=None):
+    """``(leaf_id, lo, hi)`` windows of ``rank``'s shard, in shard order:
+    the block layout's (:func:`shard_leaf_spans`) or, given the
+    per-span leaf counts ``spans``, the prefetch layout's
+    (:func:`prefetch_leaf_spans`)."""
+    sizes = [int(s) for s in sizes]
+    if not 0 <= int(rank) < dp:
+        raise ValueError(f"rank {rank} is outside dp = {dp}")
+    if spans:
+        return prefetch_leaf_spans(sizes, tuple(spans), dp)[int(rank)]
+    return shard_leaf_spans(sizes, dp, shard_len)[int(rank)]
+
+
+def sharded_leaf_reduce(vecs: Sequence[torch.Tensor], sizes: Sequence[int],
+                        *, dp: int, shard_len: int, rank: int, spans=None,
+                        elem_fn) -> torch.Tensor:
+    """``[len(vecs), n_leaves]`` per-tensor partial SUMS of
+    ``elem_fn(shard slice)`` over ``rank``'s shard of each flat vector,
+    in the static leaf-span layout (``spans``: the per-span leaf counts
+    of the prefetch layout; ``None``: the contiguous block).  The caller
+    all-reduces the result over the group for the global per-leaf sums.
+
+    ``elem_fn`` maps a 1-D slice to values summed per leaf in fp32 (or
+    is a sequence of such callables, one per vector); it must send 0 to
+    0, as in JAX, whose fallback sums over a zero-padded buffer."""
+    fns = (tuple(elem_fn) if isinstance(elem_fn, (list, tuple))
+           else (elem_fn,) * len(vecs))
+    if len(fns) != len(vecs):
+        raise ValueError(f"elem_fn sequence has {len(fns)} entries for "
+                         f"{len(vecs)} vectors")
+    dev = vecs[0].device if vecs else None
+    out = torch.zeros((len(vecs), len(sizes)), dtype=torch.float32,
+                      device=dev)
+    for i, lo, hi in rank_spans(sizes, dp=dp, shard_len=shard_len,
+                                rank=rank, spans=spans):
+        for k, (vec, fn) in enumerate(zip(vecs, fns)):
+            out[k, i] += torch.sum(fn(vec[lo:hi]).float())
+    return out
+
+
+def _sq_f32(x):
+    return torch.square(x.float())
+
+
+def _nonfinite_f32(x):
+    return (~torch.isfinite(x)).float()
+
+
+def sharded_leaf_sq_norms(vecs: Sequence[torch.Tensor], sizes: Sequence[int],
+                          *, dp: int, shard_len: int, rank: int,
+                          spans=None) -> torch.Tensor:
+    """``[len(vecs), n_leaves]`` per-tensor partial sums of squares of
+    ``rank``'s shard of each flat vector (the layout contract of
+    :func:`sharded_leaf_reduce`); the caller all-reduces them over the
+    group.  Each window's sum is the square of the fused L2-norm
+    kernel's norm of it (:func:`apex_tpu_torch.ops.fused_update.
+    fused_l2norm`: one launch a window on the card, its plain version
+    on the CPU)."""
+    from apex_tpu_torch.ops.fused_update import fused_l2norm
+    dev = vecs[0].device if vecs else None
+    norms = torch.zeros((len(vecs), len(sizes)), dtype=torch.float32,
+                        device=dev)
+    for i, lo, hi in rank_spans(sizes, dp=dp, shard_len=shard_len,
+                                rank=rank, spans=spans):
+        for k, vec in enumerate(vecs):
+            fused_l2norm(vec[lo:hi], out=norms[k, i])
+    return torch.square(norms)
+
+
+def sharded_leaf_nonfinite_counts(vecs: Sequence[torch.Tensor],
+                                  sizes: Sequence[int], *, dp: int,
+                                  shard_len: int, rank: int,
+                                  spans=None) -> torch.Tensor:
+    """``[len(vecs), n_leaves]`` per-tensor partial COUNTS of nonfinite
+    (inf/nan) elements of ``rank``'s shard of each flat vector; padding
+    is finite and never counts.  The caller all-reduces over the group."""
+    return sharded_leaf_reduce(vecs, sizes, dp=dp, shard_len=shard_len,
+                               rank=rank, spans=spans,
+                               elem_fn=_nonfinite_f32)
+
+
+def sharded_leaf_broadcast(scalars: torch.Tensor, sizes: Sequence[int], *,
+                           dp: int, shard_len: int, rank: int,
+                           pad_value: float = 1.0,
+                           spans=None) -> torch.Tensor:
+    """Shard-local :func:`broadcast_leaf_scalars`: a ``(n_leaves,)``
+    vector expanded over ``rank``'s ``[shard_len]`` window of the flat
+    per-element buffer, padding gaps (the block layout's tail, the
+    prefetch layout's per-span tails) filled with ``pad_value``."""
+    vals, span_sizes, pos = [], [], 0
+    pad = torch.full((), pad_value, dtype=scalars.dtype,
+                     device=scalars.device)
+    for i, lo, hi in rank_spans(sizes, dp=dp, shard_len=shard_len,
+                                rank=rank, spans=spans):
+        if lo > pos:
+            vals.append(pad)
+            span_sizes.append(lo - pos)
+        vals.append(scalars[i])
+        span_sizes.append(hi - lo)
+        pos = hi
+    if pos < shard_len:
+        vals.append(pad)
+        span_sizes.append(shard_len - pos)
+    if not vals:
+        return torch.zeros((0,), dtype=scalars.dtype, device=scalars.device)
+    return broadcast_leaf_scalars(torch.stack(vals), span_sizes)
 
 
 def _leaf_sizes(tree) -> tuple[int, ...]:

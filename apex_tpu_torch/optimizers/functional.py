@@ -22,6 +22,25 @@ the kernels of :mod:`apex_tpu_torch.ops.fused_update`:
 :func:`export_params` turns a full flat master back into a parameter
 tree for serving (the train-to-serve boundary).
 
+**ZeRO.**  ``init(params, shard=(axis_name, dp[, rank]), prefetch=)``
+builds one rank's ``1/dp`` shard of the dp-padded master and of the
+flat slots, in JAX's two layouts: the contiguous block (the master
+zero-padded to a dp multiple, rank r's slice ``[r * L, (r + 1) * L)``),
+or with ``prefetch`` the per-span layout (:func:`prefetch_span_layout`:
+each span of consecutive leaves padded to a dp multiple on its own,
+rank r's shard the concatenation of its slice of every span).  The
+shard holds the same numbers in the same order as JAX's rank-r slice
+of ``init_zero_train_state``'s global view.  ``axis_name`` is a
+mesh-axis name or a ``ProcessGroup``
+(:func:`apex_tpu_torch.transformer.parallel_state.resolve_group`);
+``rank`` defaults to this process's rank in it.  Adam, SGD and
+Adagrad update the shard unchanged; LAMB's global grad norm and trust
+ratios and NovoGrad's per-tensor moments sum shard partials over the
+group (:mod:`apex_tpu_torch.optimizers.base`'s span helpers).
+:func:`shard_flat_grads` reduce-scatters full flat grads into a rank's
+shard, and :func:`shard_from_global_master` builds a rank's shard from
+an unpadded global master (a JAX checkpoint's, say).
+
 The JAX ``update`` is pure and XLA donates the old buffers; here the
 kernels update master and slots IN PLACE and ``update`` returns a new
 :class:`FlatState` over the same buffers with the advanced count (a
@@ -30,26 +49,97 @@ device).  As in JAX the count advances on a skipped (noop) step too,
 and every quantity between the grads and the new state (clip factor,
 norms, ratios, flags) stays a device tensor: nothing is read back.
 
-Not ported yet: the ZeRO layouts (``shard=``, ``prefetch=``; ROADMAP
-queue 1, item 6).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from apex_tpu_torch.ops.fused_update import (_scalar, fused_adagrad_flat,
                                              fused_adam_flat, fused_l2norm,
                                              fused_lamb_phase1_flat,
                                              fused_sgd_flat)
-from apex_tpu_torch.optimizers.base import broadcast_leaf_scalars
-from apex_tpu_torch.utils import (ravel_layout, tree_leaves_with_path,
+from apex_tpu_torch.optimizers.base import (broadcast_leaf_scalars,
+                                            rank_spans,
+                                            sharded_leaf_broadcast,
+                                            sharded_leaf_sq_norms)
+from apex_tpu_torch.parallel import _comm
+from apex_tpu_torch.utils import (cdiv, ravel_layout, tree_leaves_with_path,
                                   tree_ravel)
 
 __all__ = ["FlatState", "fused_adam", "fused_lamb", "fused_sgd",
-           "fused_novograd", "fused_adagrad", "export_params"]
+           "fused_novograd", "fused_adagrad", "shard_flat_grads",
+           "export_params", "prefetch_span_layout",
+           "shard_from_global_master"]
+
+
+def prefetch_span_layout(sizes, k: int) -> tuple:
+    """Group ``len(sizes)`` leaves into at most ``k`` gather spans of
+    roughly equal element counts, aligned to leaf boundaries: a tuple of
+    per-span LEAF COUNTS (``sum == len(sizes)``), the static
+    ``FlatState.spans`` layout.  Greedy: close a span once it reaches
+    ``total/k`` elements."""
+    sizes = [int(s) for s in sizes]
+    k = max(1, min(int(k), len(sizes)))
+    target = sum(sizes) / k
+    counts, run, acc = [], 0, 0
+    for i, s in enumerate(sizes):
+        run += 1
+        acc += s
+        remaining_leaves = len(sizes) - i - 1
+        if (acc >= target and len(counts) < k - 1) \
+                or remaining_leaves < (k - 1 - len(counts)):
+            counts.append(run)
+            run, acc = 0, 0
+    if run:
+        counts.append(run)
+    return tuple(counts)
+
+
+def _normalize_prefetch(prefetch, sizes) -> tuple:
+    """Resolve a ``prefetch=`` argument to the static ``FlatState.spans``
+    tuple: a tuple of per-span leaf counts passes through (checked), an
+    int > 1 is grouped by :func:`prefetch_span_layout`, and ``None``/0/1
+    mean the contiguous block layout (``()``)."""
+    if prefetch is None:
+        return ()
+    if isinstance(prefetch, tuple):
+        spans = tuple(int(c) for c in prefetch)
+        if spans and (min(spans) <= 0 or sum(spans) != len(sizes)):
+            raise ValueError(
+                f"prefetch span layout {spans} must be positive leaf "
+                f"counts summing to the number of leaves "
+                f"({len(sizes)}); got sum {sum(spans)}")
+        return spans
+    return (prefetch_span_layout(sizes, int(prefetch))
+            if int(prefetch) > 1 else ())
+
+
+def _span_sizes(sizes, spans) -> tuple:
+    out, leaf = [], 0
+    for count in spans:
+        out.append(sum(sizes[leaf:leaf + count]))
+        leaf += count
+    return tuple(out)
+
+
+def _layout_master(master, *, sizes, spans, dp: int):
+    """Pad a GLOBAL unpadded flat buffer to its dp-shardable layout:
+    zero-pad to the dp multiple (block layout), or per-span pad and
+    rank-major permute (:func:`_enspan`, prefetch layout)."""
+    if spans:
+        span_sizes = _span_sizes(sizes, spans)
+        span_padded = tuple(cdiv(s, dp) * dp for s in span_sizes)
+        return _enspan(master, span_sizes, span_padded, dp)
+    n = int(master.shape[0])
+    padded = cdiv(n, dp) * dp
+    if padded != n:
+        return torch.cat([master, master.new_zeros(padded - n)])
+    return master
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,19 +148,30 @@ class FlatState:
 
     ``sizes`` (per-leaf element counts, in the flax tree's leaf order),
     ``flat_dtype`` (the leaves' promoted dtype, the buffer dtype of
-    ``tree_ravel``) and ``unravel`` are static layout."""
-    master: torch.Tensor            # fp32 flat master buffer
+    ``tree_ravel``) and ``unravel`` are static layout.
+
+    ``shard`` is the ZeRO mode: ``()`` (dense) or ``(axis_name, dp)``,
+    this state holding one ``1/dp`` shard of the dp-padded master and of
+    the flat slots, owned by one rank of the group ``axis_name`` names
+    (a mesh-axis name or a ``ProcessGroup``).  ``spans`` is the
+    prefetch layout: ``()`` (the contiguous block) or the per-span leaf
+    counts, each span padded to a dp multiple on its own and split
+    ``1/dp`` (see the module docstring)."""
+    master: torch.Tensor            # fp32 flat master buffer (or shard)
     count: torch.Tensor             # 0-d f32: completed update count
     slots: dict                     # rule buffers, keyed like state_dict
     sizes: tuple = ()
     flat_dtype: torch.dtype = torch.float32
     unravel: Optional[Callable] = None
+    shard: tuple = ()
+    spans: tuple = ()
 
     def replace(self, **kw) -> "FlatState":
         return dataclasses.replace(self, **kw)
 
     @property
     def global_numel(self) -> int:
+        """Unpadded element count of the GLOBAL flat master."""
         return sum(self.sizes)
 
     @property
@@ -82,15 +183,97 @@ class FlatState:
             off += s
         return tuple(out)
 
+    # -- ZeRO shard layout (all static Python ints) ----------------------
+    @property
+    def shard_axis(self):
+        return self.shard[0] if self.shard else None
+
+    @property
+    def shard_dp(self) -> int:
+        return int(self.shard[1]) if self.shard else 1
+
+    @property
+    def span_sizes(self) -> tuple:
+        """Unpadded element count of each prefetch span (``()`` for the
+        block layout)."""
+        return _span_sizes(self.sizes, self.spans)
+
+    @property
+    def span_padded(self) -> tuple:
+        """Per-span dp-padded element counts."""
+        dp = self.shard_dp
+        return tuple(cdiv(s, dp) * dp for s in self.span_sizes)
+
+    @property
+    def padded_numel(self) -> int:
+        if self.spans:
+            return sum(self.span_padded)
+        return cdiv(self.global_numel, self.shard_dp) * self.shard_dp
+
+    @property
+    def shard_len(self) -> int:
+        """Per-rank shard length: ``padded_numel / dp`` elements."""
+        return self.padded_numel // self.shard_dp
+
+    def span_windows(self) -> list:
+        """``(global_start, size, padded)`` of each gather span: the
+        prefetch spans, or the whole master as one span (block layout)."""
+        if not self.spans:
+            return [(0, self.global_numel, self.padded_numel)]
+        out, start = [], 0
+        for size, padded in zip(self.span_sizes, self.span_padded):
+            out.append((start, size, padded))
+            start += size
+        return out
+
+    def group(self):
+        """The process group of a sharded state."""
+        from apex_tpu_torch.transformer.parallel_state import resolve_group
+        return resolve_group(self.shard_axis)
+
+    def shard_rank(self) -> int:
+        """This process's rank in :meth:`group`."""
+        return _group_rank(self.shard_axis, self.shard_dp)
+
+    def _despan(self, flat):
+        """Reassemble the GLOBAL unpadded flat master from a rank-major
+        span-layout padded buffer."""
+        dp, lt = self.shard_dp, self.shard_len
+        parts, off = [], 0
+        for size_k, padded_k in zip(self.span_sizes, self.span_padded):
+            lk = padded_k // dp
+            span = torch.cat([flat[r * lt + off:r * lt + off + lk]
+                              for r in range(dp)])
+            parts.append(span[:size_k])
+            off += lk
+        return torch.cat(parts)
+
+    def full_master(self, dtype=None) -> torch.Tensor:
+        """The GLOBAL unpadded flat master (JAX's ``_full_master``).  A
+        rank's shard is all-gathered over the group (collective: every
+        rank calls it), in ``dtype`` when given; a full-length buffer
+        (dense, or a padded global view) is only sliced."""
+        flat = self.master if dtype is None else self.master.to(dtype)
+        if self.shard and self.shard_dp > 1 \
+                and flat.shape[0] != self.padded_numel:
+            full = flat.new_empty(self.padded_numel)
+            _comm.all_gather(full, flat.contiguous(), self.group())
+            flat = full
+        if self.spans and self.shard_dp > 1:
+            return self._despan(flat)
+        n = self.global_numel
+        return flat[:n] if flat.shape[0] != n else flat
+
     def params(self, dtype=None) -> dict:
         """Materialize the params tree (the checkpoint/eval boundary):
         new tensors in the construction dtypes, or floating leaves cast
-        to ``dtype``."""
+        to ``dtype``.  A sharded state all-gathers its master in the
+        flat dtype (collective)."""
         if self.unravel is None:
             raise ValueError(
                 "FlatState was initialized from a flat buffer (no "
                 "unravel); read .master directly or init from a tree")
-        tree = self.unravel(self.master.to(self.flat_dtype))
+        tree = self.unravel(self.full_master(self.flat_dtype))
         return tree if dtype is None else _cast_floating(tree, dtype)
 
 
@@ -122,14 +305,94 @@ def export_params(flat, params_template, *, dtype=None):
     return tree if dtype is None else _cast_floating(tree, dtype)
 
 
+def _enspan(flat, span_sizes, span_padded, dp):
+    """Permute a GLOBAL unpadded flat buffer into the rank-major
+    prefetch layout: each span zero-padded to its dp multiple, then the
+    per-rank slices concatenated rank-major (rank r's shard is block r).
+    Inverse of :meth:`FlatState._despan`."""
+    padded_spans, off = [], 0
+    for size_k, padded_k in zip(span_sizes, span_padded):
+        span = flat[off:off + size_k]
+        if padded_k != size_k:
+            span = torch.cat([span, span.new_zeros(padded_k - size_k)])
+        padded_spans.append(span)
+        off += size_k
+    blocks = []
+    for r in range(dp):
+        for span, padded_k in zip(padded_spans, span_padded):
+            lk = padded_k // dp
+            blocks.append(span[r * lk:(r + 1) * lk])
+    return torch.cat(blocks)
+
+
+def shard_flat_grads(flat_grads: torch.Tensor, state: FlatState, *,
+                     mean: bool = True) -> torch.Tensor:
+    """Reduce-scatter a FULL per-rank flat grad buffer into this rank's
+    shard (the ZeRO-2 grad reduction): zero-pad to the padded length
+    (permuted rank-major per span under ``spans``), reduce-scatter over
+    the shard's group in the grads' dtype, and (by default) divide by dp.
+    Returns a new shard-length buffer; no-op (beyond the mean) when the
+    state is dense or dp == 1."""
+    if not state.shard or state.shard_dp == 1:
+        return flat_grads
+    if state.spans:
+        flat_grads = _enspan(flat_grads, state.span_sizes,
+                             state.span_padded, state.shard_dp)
+    else:
+        pad = state.padded_numel - state.global_numel
+        if pad:
+            flat_grads = torch.cat([flat_grads, flat_grads.new_zeros(pad)])
+    gshard = flat_grads.new_empty(state.shard_len)
+    _comm.reduce_scatter(gshard, flat_grads.contiguous(), state.group())
+    return gshard / state.shard_dp if mean else gshard
+
+
+def _shard_of(flat: torch.Tensor, shard_len: int, rank: int) -> torch.Tensor:
+    return flat[int(rank) * shard_len:(int(rank) + 1) * shard_len].clone()
+
+
+def _rank_shard(flat: torch.Tensor, *, sizes, spans, dp: int,
+                rank: int) -> torch.Tensor:
+    """Rank ``rank``'s shard of a GLOBAL unpadded flat buffer, built
+    without the padded global layout: ``_shard_of(_layout_master(flat),
+    shard_len, rank)``, element for element, in O(shard) memory."""
+    span_sizes = _span_sizes(sizes, spans) if spans else (int(flat.shape[0]),)
+    lks = [cdiv(size, dp) for size in span_sizes]
+    out = flat.new_zeros(sum(lks))
+    start = dst = 0
+    for size, lk in zip(span_sizes, lks):
+        lo, hi = min(rank * lk, size), min((rank + 1) * lk, size)
+        out[dst:dst + hi - lo].copy_(flat[start + lo:start + hi])
+        start += size
+        dst += lk
+    return out
+
+
+def _group_rank(axis_name, dp: int) -> int:
+    """This process's rank in the group ``axis_name`` names, which must
+    hold ``dp`` ranks."""
+    from apex_tpu_torch.transformer.parallel_state import resolve_group
+    group = resolve_group(axis_name)
+    size = dist.get_world_size(group)
+    if size != dp:
+        raise RuntimeError(f"shard dp={dp} needs a group of {dp} ranks; "
+                           f"{axis_name!r} has {size}")
+    return dist.get_rank(group)
+
+
 def _init_state(tx, params, shard=None, prefetch=None) -> FlatState:
     """Shared init: ravel a tree (an ``nn.Module`` or a nested dict of
     tensors), or take an already-flat buffer, into a fresh fp32 master
-    plus the rule's zero slots, on the parameters' device."""
-    if shard is not None or prefetch is not None:
-        raise NotImplementedError(
-            "ZeRO-sharded optimizer state (shard=, prefetch=) is not ported "
-            "yet (ROADMAP queue 1, item 6)")
+    plus the rule's zero slots, on the parameters' device.
+
+    ``shard=(axis_name, dp[, rank])`` keeps only ``rank``'s ``1/dp``
+    shard of the dp-padded master (and slots); ``rank`` defaults to this
+    process's rank in the group ``axis_name`` names (which must hold dp
+    ranks); pass an int to build one rank's shard without a group
+    (checkpoint resharding, tests).  ``prefetch`` (with ``shard``)
+    selects the layered-prefetch layout: an int asks for that many
+    gather spans, a tuple of per-span leaf counts is used as is;
+    ``None``/0/1 keep the contiguous block layout."""
     if isinstance(params, torch.Tensor) and params.dim() == 1:
         flat, unravel = params.detach(), None
         sizes = (int(flat.numel()),)
@@ -137,12 +400,50 @@ def _init_state(tx, params, shard=None, prefetch=None) -> FlatState:
         flat, unravel = tree_ravel(params)
         sizes = tuple(int(t.numel()) for _, t in
                       tree_leaves_with_path(params))
-    master = flat.to(torch.float32, copy=True)
+    flat_dtype = flat.dtype
+    shard_static: tuple = ()
+    spans: tuple = ()
+    if shard is None:
+        master = flat.to(torch.float32, copy=True)
+    else:
+        axis_name, dp, *rank_opt = shard
+        dp = int(dp)
+        shard_static = (axis_name, dp)
+        spans = _normalize_prefetch(prefetch, sizes)
+        rank = int(rank_opt[0]) if rank_opt else (
+            _group_rank(axis_name, dp) if dp > 1 else 0)
+        master = _rank_shard(flat.to(torch.float32), sizes=sizes,
+                             spans=spans, dp=dp, rank=rank)
     return FlatState(
         master=master,
         count=torch.zeros((), dtype=torch.float32, device=master.device),
         slots=tx.init_slots(master, sizes=sizes),
-        sizes=sizes, flat_dtype=flat.dtype, unravel=unravel)
+        sizes=sizes, flat_dtype=flat_dtype, unravel=unravel,
+        shard=shard_static, spans=spans)
+
+
+def shard_from_global_master(tx, master, params, *, shard,
+                             prefetch=None) -> FlatState:
+    """A rank's ZeRO state from an UNPADDED GLOBAL flat master (a numpy
+    array or tensor of ``sum(sizes)`` elements, e.g. the JAX package's
+    ravelled params or a ``DistributedFused*`` checkpoint's
+    ``"master"``): ``tx.init(params, shard=shard, prefetch=prefetch)``
+    with its master replaced by that rank's shard of ``master`` (fresh
+    slots).  ``params`` (a model or tree on the target device) supplies
+    the layout."""
+    state = _init_state(tx, params, shard=shard, prefetch=prefetch)
+    dp = state.shard_dp
+    rank = int(shard[2]) if len(shard) > 2 else (
+        _group_rank(shard[0], dp) if dp > 1 else 0)
+    if not isinstance(master, torch.Tensor):
+        master = torch.from_numpy(np.array(master, dtype=np.float32))
+    if master.shape != (state.global_numel,):
+        raise ValueError(f"the global master has {state.global_numel} "
+                         f"elements, got {tuple(master.shape)}")
+    state.master.copy_(_rank_shard(
+        master.to(device=state.master.device, dtype=torch.float32),
+        sizes=state.sizes, spans=state.spans, dp=dp, rank=rank))
+    return state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,8 +530,13 @@ class _LambTx:
         g = flat_grads
         if not (isinstance(grad_scale, (int, float)) and grad_scale == 1.0):
             g = flat_grads.float() * _scalar(grad_scale, dev)
-        # global grad norm clip (reference: the first multi_tensor_l2norm)
+        # global grad norm clip (reference: the first multi_tensor_l2norm);
+        # under ZeRO the shard's sum of squares is summed over the group
         gnorm = fused_l2norm(g)
+        sharded = bool(state.shard) and state.shard_dp > 1
+        if sharded:
+            group = state.group()
+            gnorm = torch.sqrt(_comm.all_reduce(gnorm * gnorm, group))
         clip = torch.where((mgn > 0) & (gnorm > mgn), mgn / (gnorm + 1e-6),
                            torch.ones_like(gnorm))
         _, _, u = fused_lamb_phase1_flat(
@@ -242,13 +548,26 @@ class _LambTx:
                           else weight_decay),
             step=t, bias_correction=self.bias_correction, grad_scale=clip,
             grad_averaging=self.grad_averaging, noop_flag=noop_flag)
-        leaves = _leaves(state)
-        norms = torch.empty((2, len(leaves)), dtype=torch.float32,
-                            device=dev)
-        for i, off, size in leaves:
-            fused_l2norm(p[off:off + size], out=norms[0, i])
-            fused_l2norm(u[off:off + size], out=norms[1, i])
-        w_norm, u_norm = norms
+        if sharded:
+            # EXACT per-tensor trust ratios across shards (reference:
+            # DistributedFusedLAMB's multi_tensor_l2norm + group
+            # all-reduce): per-leaf partial sums of squares over this
+            # rank's windows, summed over the group
+            layout = dict(dp=state.shard_dp, shard_len=state.shard_len,
+                          rank=state.shard_rank(), spans=state.spans)
+            sq = _comm.all_reduce(sharded_leaf_sq_norms(
+                (p, u), state.sizes, **layout), group)
+            w_norm, u_norm = torch.sqrt(sq)
+            leaves = [(i, lo, hi - lo) for i, lo, hi in
+                      rank_spans(state.sizes, **layout)]
+        else:
+            leaves = _leaves(state)
+            norms = torch.empty((2, len(leaves)), dtype=torch.float32,
+                                device=dev)
+            for i, off, size in leaves:
+                fused_l2norm(p[off:off + size], out=norms[0, i])
+                fused_l2norm(u[off:off + size], out=norms[1, i])
+            w_norm, u_norm = norms
         # NVLAMB applies the trust ratio to every param; default LAMB
         # skips params with zero norm (reference kernel's `use_nvlamb`)
         if self.use_nvlamb:
@@ -341,14 +660,26 @@ class _NovoGradTx:
         b1 = _scalar(self.beta1 if beta1 is None else beta1, dev)
         b2 = _scalar(self.beta2 if beta2 is None else beta2, dev)
         g32 = flat_grads.float() * _scalar(grad_scale, dev)
-        gsq = torch.stack([torch.sum(torch.square(g32[off:off + size]))
-                           for _, off, size in _leaves(state)])
+        sharded = bool(state.shard) and state.shard_dp > 1
+        if sharded:
+            # per-tensor ||g||^2 from grad SHARDS: this rank's window
+            # sums, summed over the group (the exp_avg_sq slot is one
+            # scalar per leaf, replicated, not sharded)
+            layout = dict(dp=state.shard_dp, shard_len=state.shard_len,
+                          rank=state.shard_rank(), spans=state.spans)
+            gsq = _comm.all_reduce(sharded_leaf_sq_norms(
+                (g32,), state.sizes, **layout)[0], state.group())
+        else:
+            gsq = torch.stack([torch.sum(torch.square(g32[off:off + size]))
+                               for _, off, size in _leaves(state)])
         first = t <= 1.0
         v_init = torch.zeros_like(gsq) if self.init_zero else gsq
         v_new = torch.where(first, v_init, b2 * v + (1.0 - b2) * gsq)
-        denom = broadcast_leaf_scalars(
-            torch.sqrt(v_new) + _scalar(self.eps if eps is None else eps,
-                                        dev), state.sizes)
+        denom_scalars = torch.sqrt(v_new) + _scalar(
+            self.eps if eps is None else eps, dev)
+        denom = (sharded_leaf_broadcast(denom_scalars, state.sizes, **layout)
+                 if sharded else
+                 broadcast_leaf_scalars(denom_scalars, state.sizes))
         ghat = g32 / denom + _scalar(
             self.weight_decay if weight_decay is None else weight_decay,
             dev) * p

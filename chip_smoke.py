@@ -5,6 +5,7 @@
 
     python3 chip_smoke.py --phases kernels,train   # the training slice
     python3 chip_smoke.py --phases spec            # speculative decoding
+    python3 chip_smoke.py --phases dp              # DDP and ZeRO, dp = 2
 
 1. **Build.**  Prints the card's name and power limit, compiles the
    port's CUDA kernels from ``apex_tpu_torch/csrc`` (``nvcc``, sm_90a)
@@ -359,6 +360,45 @@
    ``drift_ratio`` from a ``ServiceProfile`` of the run's own prefill
    and decode times.  The tier and fleet serves' launches are added to
    the ``kernels`` line's counts.
+
+20. **DP** (after tp, before tier).  Data parallelism and ZeRO at dp = 2 on the
+   one card: two spawned ranks on cuda:0 over gloo (the phase asks NCCL
+   for two ranks on the card, or reuses the tp phase's answer, and
+   prints it; then it asks gloo for an all-reduce, a reduce-scatter and
+   an all-gather on CUDA tensors and prints each answer: the port stages
+   nothing, so a refusal fails the phase).  Llama-3-8B widths at 2
+   layers (1.487e9 parameters: two ranks' dense DDP state at 4 layers
+   would not fit twice in 80 GB), bf16 parameters, dynamic loss scale.
+   The parent first takes 3 dense ``fused_adam`` steps on global
+   batches of 2 x 2048 tokens and 2 ``FusedLAMB`` steps (the class, over
+   the model's tree) from the same weights, keeping the losses and a
+   digest of the master (every 997th element), and frees them.  Each
+   rank takes its row of the same batches: (a) DDP, the dense step with
+   ``grad_transform=DistributedDataParallel().reduce_gradients`` (the
+   ranks' masters bit for bit, the mean loss and the master digest
+   against the reference); (b) ZeRO, ``init_train_state(...,
+   shard=("data", 2), prefetch=4)`` and ``make_train_step(zero=True)``
+   (the reassembled digest against DDP's); (c) one more ZeRO step whose
+   inf only rank 1's loss carries, landing in one rank's shard: master
+   and slots bit-identical on both ranks, the count advanced, the scale
+   halved; (d) ``DistributedFusedLAMB`` 2 steps against the one-card
+   ``FusedLAMB``; (e) ``SyncBatchNorm`` forward and backward on
+   ``[32, 56, 56, 256]`` fp32 channel-last a rank against torch's batch
+   norm over the 64 images.  Each step's averaged grads of ZeRO's
+   shards, and the first step's of ``DistributedFusedLAMB``'s (times
+   DDP's loss scale), are held against DDP's all-reduced grads of the
+   same batch as a least-squares scale (1 within TOL_DP_GRAD: a grad
+   left undivided by dp, or divided twice, is off by 2x), the first
+   step's also by its relative L2 error; each step's master digest is
+   printed against DDP's.  The
+   unscale (#9) and Adam (#13) must launch once a step a rank at the
+   shard's length (the whole master under DDP), LAMB's phase 1 (#16)
+   once a step at its shard's length and the norm (#11) 1 + 2 per leaf
+   window a step.  Prints each rank's step times, peak memory and shard
+   length, each step's gloo collectives (gloo copies CUDA tensors
+   through the host inside the call: not NCCL figures), the kernels'
+   launches, each beside the card's name and power limit; the ranks'
+   launches are added to the ``kernels`` line's counts.
 
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed phase raises, so the
@@ -3698,10 +3738,17 @@ def _nccl_probe_rank(rank, store, queue):
         queue.put((rank, "refused", f"{type(e).__name__}: {str(e)[:300]}"))
 
 
+#: NCCL's answer on this card, once asked (the tp and dp phases share it)
+_NCCL_ANSWER: dict = {}
+
+
 def _nccl_probe(tmp: Path) -> str:
     """Whether NCCL takes two ranks on the one card (it needs one card a
     rank), answered by two spawned processes within 90 s; every process
-    it starts is ended before it returns."""
+    it starts is ended before it returns.  Asked once a run: a later
+    call returns the first answer."""
+    if "answer" in _NCCL_ANSWER:
+        return _NCCL_ANSWER["answer"] + " (asked earlier in this run)"
     import queue as queue_mod
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
@@ -3722,7 +3769,9 @@ def _nccl_probe(tmp: Path) -> str:
         if proc.is_alive():
             proc.kill()
             proc.join()
-    return repr(sorted(got)) if got else "no answer in 90 s"
+    _NCCL_ANSWER["answer"] = repr(sorted(got)) if got else \
+        "no answer in 90 s"
+    return _NCCL_ANSWER["answer"]
 
 
 def _tp_rank(rank, tmp, seed, refs):
@@ -8189,17 +8238,751 @@ def phase_fleet(dev, seed: int, ref=None):
     return dict(launches=total, runs=runs)
 
 
+#: data parallelism and ZeRO (the dp phase): two ranks on the one card,
+#: Llama-3-8B widths at 2 layers (1.487e9 parameters).  Two ranks' dense
+#: DDP state at the train phase's 4 layers (fp32 master, m and v, bf16
+#: params and grads, the flat fp32 grads: ~38.5 GB a rank before
+#: activations) does not fit twice in 80 GB; at 2 layers it is ~30 GB.
+DP = 2
+DP_LAYERS = 2
+DP_STEPS = 3
+DP_LAMB_STEPS = 2
+#: the ZeRO state's prefetch spans (gathered and reduce-scattered one span
+#: at a time, so no full-length flat temporary is ever made)
+DP_PREFETCH = 4
+#: every DP_SAMPLE-th element of the master is the digest held against
+#: the reference (1.487e9 / 997 ~ 1.5e6 elements)
+DP_SAMPLE = 997
+#: ResNet-50's stage-1 width: [32, 56, 56, 256] fp32 channel-last a rank
+DP_BN_SHAPE = (32, 56, 56, 256)
+#: the masters against the one-rank reference: bf16 grads of another
+#: batch split move an element by at most ~lr a step (Adam's first steps
+#: move each by about lr * sign(g), so a grad near 0 whose sign the split
+#: flips moves it by 2 lr: the max is a bound, the share is the gate),
+#: and few elements by more than lr/8 (0.175% measured)
+TOL_DP_MASTER_MAX = 2 * TRAIN_LR * DP_STEPS
+TOL_DP_MASTER_SHARE = 0.01
+#: the mean losses against the reference's (4096 tokens' mean in fp32)
+TOL_DP_LOSS = 1e-3
+#: the averaged grad shards (ZeRO's each step, DistributedFusedLAMB's
+#: first) against DDP's all-reduced grads of the same batch: the
+#: least-squares scale within 1 +- this (a grad left undivided by dp, or
+#: divided twice, is off by 2x), and on the first step, from the same
+#: weights, the relative L2 error below it (the model's flat dtype is
+#: fp32, its norm weights': ZeRO's sums are DDP's).  ZeRO's master is
+#: held to DDP's, and to the reference, as DDP's is to the reference: the
+#: two-rank steps are not bit-reproducible from run to run (the per-step
+#: digests show where they part)
+TOL_DP_GRAD = 1e-2
+#: SyncBatchNorm against one rank's BatchNorm over the 64 images (fp32):
+#: y and dx within this share of their largest magnitude, dw and db
+#: relative L2
+TOL_SBN_REL = 1e-4
+#: the update kernels of the dp phase, by the counter their wrapper adds
+#: to
+DP_KERNELS = ("fused_scale", "fused_adam", "fused_lamb1", "fused_l2norm")
+
+
+@contextlib.contextmanager
+def _kernel_lengths():
+    """Record the length of every launch of the dp phase's update kernels
+    (the unscale, Adam, LAMB's phase 1 and the L2 norm) while the block
+    runs: ``{counter: [numel, ...]}``.  The wrappers still launch (and
+    count) as they do."""
+    import apex_tpu_torch.amp.scaler as scaler_mod
+    from apex_tpu_torch.ops import fused_update as fu
+    seen = {k: [] for k in DP_KERNELS}
+    saved = {}
+
+    def wrap(mod, attr, key):
+        orig = getattr(mod, attr)
+        saved[mod, attr] = orig
+
+        def rec(flat, *args, **kw):
+            if flat.is_cuda:
+                seen[key].append(flat.numel())
+            return orig(flat, *args, **kw)
+        setattr(mod, attr, rec)
+
+    wrap(scaler_mod, "fused_scale", "fused_scale")
+    wrap(fu, "_adam_kernel", "fused_adam")
+    wrap(fu, "_lamb1_kernel", "fused_lamb1")
+    wrap(fu, "_l2norm_kernel", "fused_l2norm")
+    try:
+        yield seen
+    finally:
+        for (mod, attr), orig in saved.items():
+            setattr(mod, attr, orig)
+
+
+@contextlib.contextmanager
+def _timed_collectives():
+    """Time every collective of ``apex_tpu_torch.parallel._comm`` while the
+    block runs (a ``torch.cuda.synchronize()`` before and after each):
+    ``[(collective, seconds), ...]``, which the caller may clear."""
+    from apex_tpu_torch.parallel import _comm
+    rec: list = []
+    run = _comm._run
+
+    def timed(name, out, inp, group, op):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(name, out, inp, group, op)
+        torch.cuda.synchronize()
+        rec.append((name, time.perf_counter() - t0))
+    _comm._run = timed
+    try:
+        yield rec
+    finally:
+        _comm._run = run
+
+
+def _dp_tokens(dev, seed: int):
+    """The phase's global batches: ``[DP_STEPS + 1, DP, TRAIN_SEQ + 1]``
+    seeded tokens (the last step's for the overflow step)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 25)
+    return torch.randint(0, FULL_CFG["vocab_size"],
+                         (DP_STEPS + 1, DP, TRAIN_SEQ + 1), generator=gen,
+                         device=dev)
+
+
+def _dp_batch(tokens, step: int, rows, poison: float = 0.0) -> dict:
+    t = tokens[step, rows]
+    return {"tokens": t[:, :-1].contiguous(), "labels": t[:, 1:].contiguous(),
+            "poison": poison}
+
+
+def _dp_loss(model, batch):
+    """The train loss, plus ``poison`` times the final norm's weights (0:
+    the loss itself; 1e38: an inf in that leaf's scaled grads)."""
+    return model(batch["tokens"], batch["labels"]) + \
+        model.final_norm.weight.sum() * batch["poison"]
+
+
+def _dp_sample_idx(n: int, dev):
+    return torch.arange(0, n, DP_SAMPLE, device=dev)
+
+
+def _dp_shard_sample(opt, buf, idx) -> torch.Tensor:
+    """Every ``idx`` element of the GLOBAL unpadded vector whose rank
+    shard is ``buf`` (a master or a grad shard in ``opt``'s layout), as
+    fp32 on the device: the elements this rank's span windows hold
+    (mapped back to global indices), zeros elsewhere.  The ranks'
+    partials sum to the whole sample."""
+    out = torch.zeros(idx.numel(), dtype=torch.float32, device=buf.device)
+    rank, dp, off = opt.shard_rank(), opt.shard_dp, 0
+    for start, size, padded in opt.span_windows():
+        lk = padded // dp
+        lo, hi = start + rank * lk, start + min((rank + 1) * lk, size)
+        sel = (idx >= lo) & (idx < hi)
+        out[sel] = buf[off + idx[sel] - lo].float()
+        off += lk
+    return out
+
+
+def _dp_sample(opt, dev) -> torch.Tensor:
+    """The digest: every DP_SAMPLE-th element of the GLOBAL unpadded
+    master, on the host (a sharded state's ranks sum their partials over
+    the group)."""
+    from apex_tpu_torch.parallel import _comm
+    idx = _dp_sample_idx(opt.global_numel, dev)
+    if not opt.shard or opt.shard_dp == 1:
+        return opt.master[idx].cpu()
+    return _comm.all_reduce(_dp_shard_sample(opt, opt.master, idx),
+                            opt.group()).cpu()
+
+
+def _bits_digest(t: torch.Tensor) -> tuple:
+    """Two int64 sums of a buffer's 32-bit words (plain and position
+    weighted), chunk by chunk: equal buffers give equal digests."""
+    words = t.view(torch.int32)
+    plain = weighted = 0
+    for i in range(0, words.numel(), 1 << 26):
+        w = words[i:i + (1 << 26)].to(torch.int64)
+        plain += int(w.sum())
+        pos = torch.arange(i, i + w.numel(), device=t.device) % 65521 + 1
+        weighted += int((w * pos).sum())
+    return plain, weighted
+
+
+def _dp_reference(dev, seed: int):
+    """The one-rank reference in the parent: 3 dense Adam steps on the
+    global batches (2 x 2048 tokens) of the 2-layer model, then 2
+    ``FusedLAMB`` steps (the class over the model's tree) from the same
+    weights; each one's losses and master digest.  Everything is freed
+    before it returns."""
+    from apex_tpu_torch import train_step
+    from apex_tpu_torch.optimizers import FusedLAMB, functional
+    tokens = _dp_tokens(dev, seed)
+    rows = slice(0, DP)
+    _, model, _ = _train_model(dev, seed, DP_LAYERS)
+    tx = functional.fused_adam(lr=TRAIN_LR)
+    state = train_step.init_train_state(tx, model, loss_scale="dynamic")
+    step = train_step.make_train_step(_dp_loss, tx)
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(DP_STEPS):
+        state, loss = step(state, _dp_batch(tokens, i, rows))
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    adam_s = (time.perf_counter() - t0) / DP_STEPS
+    ref = dict(losses=losses, sample=_dp_sample(state.opt, dev),
+               n=state.opt.global_numel, adam_s=adam_s)
+    del model, state, step
+    torch.cuda.empty_cache()
+    _, model, _ = _train_model(dev, seed, DP_LAYERS)
+    opt = FusedLAMB(_param_tree(model), **LAMB_KW)
+    lamb_losses = []
+    for i in range(DP_LAMB_STEPS):
+        model.zero_grad(set_to_none=True)
+        loss = _dp_loss(model, _dp_batch(tokens, i, rows))
+        loss.backward()
+        _load_tree(model, opt.step(_param_tree(model, grads=True)))
+        lamb_losses.append(loss.item())
+    ref.update(lamb_losses=lamb_losses, lamb_sample=opt.param_groups[0]
+               .master[_dp_sample_idx(ref["n"], dev)].cpu())
+    del model, opt
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _param_tree(model, grads: bool = False) -> dict:
+    """The model's parameters (or their grads) as the nested dict of its
+    key paths: the tree the optimizer classes take."""
+    from apex_tpu_torch.utils import tree_leaves_with_path
+    tree: dict = {}
+    for path, p in tree_leaves_with_path(model):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = p.grad if grads else p.detach()
+    return tree
+
+
+def _load_tree(model, tree) -> None:
+    from apex_tpu_torch.utils import tree_leaves_with_path
+    with torch.no_grad():
+        for (_, p), (_, t) in zip(tree_leaves_with_path(model),
+                                  tree_leaves_with_path(tree)):
+            p.copy_(t)
+
+
+def _dp_train(dev, seed: int, rank: int, tokens, zero: bool):
+    """(a) DDP or (b) ZeRO, then with ZeRO (c) the rank-local overflow:
+    ``DP_STEPS`` Adam steps on this rank's row of each global batch with
+    the launch counts zeroed just before and each update kernel's lengths
+    recorded; the collectives timed.  Each step's grads as they reach the
+    transform (DDP's all-reduced, or this rank's ZeRO shard, each
+    averaged over the ranks) and the master after it are sampled at the
+    digest's elements (a shard's as its partial of the global sample)."""
+    from apex_tpu_torch import train_step
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.optimizers import functional
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    t0 = time.perf_counter()
+    _, model, _ = _train_model(dev, seed, DP_LAYERS)
+    tx = functional.fused_adam(lr=TRAIN_LR)
+    finite, grads, masters = [], [], []
+    if zero:
+        state = train_step.init_train_state(
+            tx, model, loss_scale="dynamic", shard=("data", DP),
+            prefetch=DP_PREFETCH)
+
+        def transform(g):
+            finite.append(torch.isfinite(g).all())
+            grads.append(_dp_shard_sample(state.opt, g, idx))
+            return g
+    else:
+        state = train_step.init_train_state(tx, model, loss_scale="dynamic")
+        ddp = DistributedDataParallel()
+
+        def transform(g):
+            g = ddp.reduce_gradients(g)
+            grads.append(g[idx].clone())
+            return g
+    idx = _dp_sample_idx(state.opt.global_numel, dev)
+    step = train_step.make_train_step(_dp_loss, tx, grad_transform=transform,
+                                      zero=zero)
+    rows = slice(rank, rank + 1)
+    out = dict(setup_s=time.perf_counter() - t0, losses=[], step_s=[],
+               shard_len=state.opt.master.numel(), spans=state.opt.spans,
+               coll=[], scale0=state.scaler.loss_scale.item())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    with _kernel_lengths() as lengths, _timed_collectives() as coll:
+        for i in range(DP_STEPS):
+            coll.clear()
+            t0 = time.perf_counter()
+            state, loss = step(state, _dp_batch(tokens, i, rows))
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["losses"].append(loss.item())
+            out["coll"].append(list(coll))
+            masters.append(_dp_shard_sample(state.opt, state.opt.master, idx)
+                           if zero else state.opt.master[idx].clone())
+    out.update(launches=_build.launch_counts(), lengths=lengths,
+               peak=torch.cuda.max_memory_allocated(),
+               sample=_dp_sample(state.opt, dev),
+               digest=_bits_digest(state.opt.master),
+               scale=state.scaler.loss_scale.item(),
+               flat_dtype=str(state.opt.flat_dtype),
+               grads=[g.cpu() for g in grads],
+               masters=[m.cpu() for m in masters])
+    if zero:
+        out["overflow"] = _dp_overflow(state, step, tokens, rank, finite)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_overflow(state, step, tokens, rank: int, finite):
+    """(c) One more ZeRO step whose batch poisons rank 1's loss alone (an
+    inf in its final-norm grads): master and slots must come out
+    bit-identical on every rank, the count advanced, the scale halved."""
+    from apex_tpu_torch.ops import _build
+    bufs = (state.opt.master, state.opt.slots["exp_avg"],
+            state.opt.slots["exp_avg_sq"])
+    before = [b.clone() for b in bufs]      # on the card: no host copy
+    count, scale = state.opt.count.item(), state.scaler.loss_scale.item()
+    finite.clear()
+    _build.reset_launch_counts()
+    with _kernel_lengths() as lengths:
+        state, loss = step(state, _dp_batch(
+            tokens, DP_STEPS, slice(rank, rank + 1),
+            poison=1e38 if rank == 1 else 0.0))
+        torch.cuda.synchronize()
+    same = all(torch.equal(b, a) for b, a in zip(bufs, before))
+    del before
+    return dict(same=same, count=(count, state.opt.count.item()),
+                scale=(scale, state.scaler.loss_scale.item()),
+                shard_finite=bool(finite[0]), loss=loss.item(),
+                launches=_build.launch_counts(), lengths=lengths)
+
+
+def _dp_lamb(dev, seed: int, rank: int, tokens):
+    """(d) ``DistributedFusedLAMB`` for ``DP_LAMB_STEPS`` steps on this
+    rank's rows: the per-rank grads (no loss scale) reduce-scattered, the
+    LAMB update of the shard, the params all-gathered into the model.
+    The first step's averaged grad shard (what ``_shard_grads`` returns)
+    is sampled at the digest's elements."""
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedLAMB
+    from apex_tpu_torch.ops import _build
+    _, model, _ = _train_model(dev, seed, DP_LAYERS)
+    opt = DistributedFusedLAMB(DP, **LAMB_KW)
+    state = opt.init_state(_param_tree(model))
+    layout = opt._flat_state(state, opt._sizes)
+    idx = _dp_sample_idx(layout.global_numel, dev)
+    grads, shard_grads = [], opt._shard_grads
+
+    def record(tree):
+        gshard, n, unravel = shard_grads(tree)
+        if not grads:
+            grads.append(_dp_shard_sample(layout, gshard, idx))
+        return gshard, n, unravel
+    opt._shard_grads = record
+    out = dict(losses=[], step_s=[], coll=[],
+               shard_len=state["master"].numel())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    with _kernel_lengths() as lengths, _timed_collectives() as coll:
+        for i in range(DP_LAMB_STEPS):
+            coll.clear()
+            t0 = time.perf_counter()
+            model.zero_grad(set_to_none=True)
+            loss = _dp_loss(model, _dp_batch(tokens, i,
+                                             slice(rank, rank + 1)))
+            loss.backward()
+            params, state = opt.step(state, _param_tree(model, grads=True))
+            _load_tree(model, params)
+            del params
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["losses"].append(loss.item())
+            out["coll"].append(list(coll))
+    from apex_tpu_torch.optimizers.base import rank_spans
+    fs = opt._flat_state(state, opt._sizes)
+    out.update(launches=_build.launch_counts(), lengths=lengths,
+               peak=torch.cuda.max_memory_allocated(),
+               sample=_dp_sample(fs, dev), grads=[grads[0].cpu()],
+               windows=len(rank_spans(opt._sizes, dp=DP,
+                                      shard_len=fs.shard_len, rank=rank)))
+    del model, opt, state, fs, layout
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_syncbn(dev, seed: int, rank: int):
+    """(e) ``SyncBatchNorm`` forward and backward on this rank's 32 of 64
+    seeded images (``DP_BN_SHAPE`` channel-last, fp32) against torch's
+    batch norm over all 64 on this rank (the weight and bias grads summed
+    over the group); the running statistics too; its time."""
+    import torch.distributed as dist
+    from apex_tpu_torch.parallel import SyncBatchNorm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 26)
+    shape = (DP * DP_BN_SHAPE[0],) + DP_BN_SHAPE[1:]
+    x = torch.randn(shape, generator=gen, device=dev)
+    cot = torch.randn(shape, generator=gen, device=dev)
+    rows = slice(rank * DP_BN_SHAPE[0], (rank + 1) * DP_BN_SHAPE[0])
+    c = DP_BN_SHAPE[-1]
+    bn = SyncBatchNorm(c, device=dev)
+    times = []
+    for _ in range(3):
+        bn.weight.grad = bn.bias.grad = None
+        xr = x[rows].clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = bn(xr)
+        (y * cot[rows]).sum().backward()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    # the reference: BatchNorm over the 64 images, NCHW views of NHWC
+    xf = x.clone().requires_grad_()
+    w = torch.ones(c, device=dev, requires_grad=True)
+    b = torch.zeros(c, device=dev, requires_grad=True)
+    rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+    for _ in range(3):
+        yf = F.batch_norm(xf.permute(0, 3, 1, 2), rm, rv, w, b,
+                          training=True, momentum=0.1,
+                          eps=1e-5).permute(0, 2, 3, 1)
+    (yf * cot).sum().backward()
+    dw, db = bn.weight.grad.clone(), bn.bias.grad.clone()
+    dist.all_reduce(dw)
+    dist.all_reduce(db)
+
+    def rel_max(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    def rel_l2(got, want):
+        return float(torch.linalg.vector_norm(got - want)
+                     / torch.linalg.vector_norm(want))
+
+    return dict(y=rel_max(y.detach(), yf.detach()[rows]),
+                dx=rel_max(xr.grad, xf.grad[rows]), dw=rel_l2(dw, w.grad),
+                db=rel_l2(db, b.grad),
+                stats=max(rel_max(bn.running_mean, rm),
+                          rel_max(bn.running_var, rv)),
+                ms=1e3 * float(np.median(times[1:])))
+
+
+def _gloo_cuda_probe(group) -> dict:
+    """Ask gloo for each collective the port issues, on tiny CUDA tensors
+    of this rank's card: ``{collective: "takes CUDA tensors" | gloo's
+    refusal}``.  Printed only: the port stages nothing, so a collective
+    gloo refuses fails the sub-phase that issues it."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    out = {}
+    for name in ("all_reduce", "reduce_scatter_tensor",
+                 "all_gather_into_tensor"):
+        big = torch.ones(2 * n, device="cuda")
+        small = torch.ones(2, device="cuda")
+        try:
+            if name == "all_reduce":
+                dist.all_reduce(small, group=group)
+            elif name == "reduce_scatter_tensor":
+                dist.reduce_scatter_tensor(small, big, group=group)
+            else:
+                dist.all_gather_into_tensor(big, small, group=group)
+            torch.cuda.synchronize()
+            out[name] = "takes CUDA tensors"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = f"refused ({type(e).__name__}: {str(e)[:160]})"
+    return out
+
+
+def _dp_rank(rank, tmp, seed):
+    """One rank of the dp phase, on cuda:0 over gloo: probes gloo on CUDA
+    tensors, then runs (a) DDP, (b) ZeRO with (c) the rank-local overflow,
+    (d) DistributedFusedLAMB and (e) SyncBatchNorm, one after the other
+    (each frees what it built), and writes what it saw to
+    ``tmp/rank<rank>.pt`` for the parent to hold."""
+    import datetime
+    import os
+    import torch.distributed as dist
+    from apex_tpu_torch.transformer import parallel_state
+    # two ranks share the card: segments that grow in place keep the
+    # freed blocks of one sub-phase usable by the next one's large
+    # temporaries (gloo's copy of a collective's input among them)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(tmp) / "store"), DP), rank=rank, world_size=DP,
+        timeout=datetime.timedelta(seconds=900))
+    out = {}
+    try:
+        parallel_state.initialize_model_parallel()
+        out["probe"] = _gloo_cuda_probe(parallel_state.resolve_group("data"))
+        tokens = _dp_tokens(dev, seed)
+        for key, run in (
+                ("ddp", lambda: _dp_train(dev, seed, rank, tokens, False)),
+                ("zero", lambda: _dp_train(dev, seed, rank, tokens, True)),
+                ("lamb", lambda: _dp_lamb(dev, seed, rank, tokens)),
+                ("syncbn", lambda: _dp_syncbn(dev, seed, rank))):
+            out[key] = run()
+            res = out[key]
+            print(f"dp rank {rank}: {key} ran: "
+                  + (f"losses {[round(x, 4) for x in res['losses']]}, step "
+                     f"times {[round(t, 3) for t in res['step_s']]} s, peak "
+                     f"{res['peak'] / 2**30:.2f} GiB"
+                     if "losses" in res else f"{res}"), flush=True)
+    finally:
+        parallel_state.destroy_model_parallel()
+        dist.destroy_process_group()
+    torch.save(out, Path(tmp) / f"rank{rank}.pt")
+
+
+def _master_hold(label, got, want, max_tol, share_tol, share_at):
+    diff = (got - want).abs()
+    worst = float(diff.max())
+    share = float((diff > share_at).float().mean())
+    print(f"  {label}: master digest ({got.numel()} elements) max |diff| "
+          f"{worst:.3e} (limit {max_tol:.1e}), share above {share_at:.1e} "
+          f"{share:.5f} (limit {share_tol})")
+    if not worst <= max_tol or not share <= share_tol:
+        raise AssertionError(f"{label}: the master is off the reference")
+
+
+def _grad_hold(label, got, want, rel_gate: bool) -> None:
+    """A step's averaged grads, sampled, against DDP's all-reduced grads
+    of the same batch: the least-squares scale within TOL_DP_GRAD of 1,
+    and with ``rel_gate`` the relative L2 error below TOL_DP_GRAD."""
+    got, want = got.double(), want.double()
+    nonzero = int((want != 0).sum())
+    scale = float((got * want).sum() / (want * want).sum())
+    rel = float(torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want))
+    print(f"  {label}: averaged grads ({got.numel()} sampled, {nonzero} "
+          f"nonzero) against DDP's: scale {scale:.6f} (limit 1 +- "
+          f"{TOL_DP_GRAD}), relative L2 error {rel:.3e}"
+          + (f" (limit {TOL_DP_GRAD})" if rel_gate else ""))
+    if nonzero == 0 or not abs(scale - 1) <= TOL_DP_GRAD \
+            or (rel_gate and not rel <= TOL_DP_GRAD):
+        raise AssertionError(f"{label}: the grads are off DDP's averaged "
+                             f"grads")
+
+
+def _coll_line(rec) -> str:
+    """A step's gloo collectives: count and seconds by collective."""
+    by: dict = {}
+    for name, s in rec:
+        n, t = by.get(name, (0, 0.0))
+        by[name] = (n + 1, t + s)
+    return ", ".join(f"{name} x{n} {t:.3f} s" for name, (n, t) in
+                     sorted(by.items())) or "none"
+
+
+def _hold_lengths(label, run, want: dict) -> None:
+    """Each update kernel launched the wanted number of times a step at
+    the wanted lengths (``want[counter] = (launches, length or None)``)."""
+    for key, (n, length) in want.items():
+        got = run["lengths"][key]
+        print(f"  {label}: {key} launched {run['launches'][key]} times "
+              f"(want {n}), lengths {sorted(set(got))[:4]}"
+              + (f" (want {length})" if length else ""))
+        if run["launches"][key] != n or len(got) != n or (
+                length is not None and set(got) != {length}):
+            raise AssertionError(f"{label}: {key} did not run {n} times at "
+                                 f"the shard's length")
+
+
+def _card_memory(when: str) -> None:
+    """Collect the garbage (engines of earlier phases hold their weights
+    in reference cycles), return the cached blocks, and print what the
+    card has free (the dp phase's two ranks need ~67 GiB of it)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"memory: {when}: the card has {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB free; this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved)")
+
+
+def phase_dp(dev, seed: int):
+    """Data parallelism and ZeRO at dp = 2 on the one card: both ranks on
+    cuda:0 over gloo (NCCL takes one card a rank; the phase asks it and
+    prints its answer).  The parent first runs the one-rank reference
+    (:func:`_dp_reference`), frees it, then spawns the two ranks
+    (:func:`_dp_rank`) and holds what they report.  Returns the ranks'
+    launches, summed."""
+    import tempfile
+    import torch.multiprocessing as mp
+    smi = _smi()
+    t_phase = time.perf_counter()
+    _card_memory("dp, before the reference")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp_dir:
+        tmp = Path(tmp_dir)
+        nccl = _nccl_probe(tmp)
+        print(f"dp: {DP} ranks on cuda:0 over gloo (NCCL asked for two ranks "
+              f"on this card: {nccl}) [{smi}]")
+        ref = _dp_reference(dev, seed)
+        n = ref["n"]
+        print(f"dp reference (one rank, Llama-3-8B widths, {DP_LAYERS} "
+              f"layers, {n} parameters, global batch {DP} x {TRAIN_SEQ} "
+              f"tokens): Adam losses {[round(x, 4) for x in ref['losses']]}"
+              f", {ref['adam_s']:.3f} s a step; FusedLAMB losses "
+              f"{[round(x, 4) for x in ref['lamb_losses']]} [{smi}]")
+        _card_memory("dp, before the ranks")
+        t0 = time.perf_counter()
+        mp.start_processes(_dp_rank, nprocs=DP, start_method="spawn",
+                           args=(str(tmp), seed))
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(DP)]
+    for name, answer in ranks[0]["probe"].items():
+        print(f"dp: gloo {name} on CUDA tensors: {answer}")
+    print("dp: the port issues every collective on the CUDA tensors and "
+          "stages nothing; gloo copies them through the host inside the "
+          "call")
+    total: dict = {}
+    # (a) DDP
+    for rank, r in enumerate(ranks):
+        run = r["ddp"]
+        _hold_lengths(f"dp ddp rank {rank}", run, {
+            "fused_scale": (DP_STEPS, n), "fused_adam": (DP_STEPS, n)})
+    if ranks[0]["ddp"]["digest"] != ranks[1]["ddp"]["digest"]:
+        raise AssertionError("dp ddp: the ranks' masters differ")
+    print("dp ddp: the two ranks' masters are equal bit for bit (digest "
+          f"{ranks[0]['ddp']['digest']})")
+    ddp_losses = [sum(r["ddp"]["losses"][i] for r in ranks) / DP
+                  for i in range(DP_STEPS)]
+    worst = max(abs(a - b) for a, b in zip(ddp_losses, ref["losses"]))
+    print(f"  dp ddp: mean losses {[round(x, 4) for x in ddp_losses]} "
+          f"against the reference's: max |diff| {worst:.4f} (limit "
+          f"{TOL_DP_LOSS})")
+    if not worst <= TOL_DP_LOSS:
+        raise AssertionError("dp ddp: the losses are off the reference")
+    _master_hold("dp ddp against one rank", ranks[0]["ddp"]["sample"],
+                 ref["sample"], TOL_DP_MASTER_MAX, TOL_DP_MASTER_SHARE,
+                 TRAIN_LR / 8)
+    # (b) ZeRO
+    shard = ranks[0]["zero"]["shard_len"]
+    for rank, r in enumerate(ranks):
+        _hold_lengths(f"dp zero rank {rank}", r["zero"], {
+            "fused_scale": (DP_STEPS, shard), "fused_adam": (DP_STEPS, shard)})
+        if r["zero"]["losses"] != ranks[0]["zero"]["losses"]:
+            raise AssertionError("dp zero: the ranks report other losses")
+    ddp = ranks[0]["ddp"]
+    print(f"  dp: the flat dtype (of the reduce-scatter and the all-gather) "
+          f"{ranks[0]['zero']['flat_dtype']}")
+    for i in range(DP_STEPS):
+        _grad_hold(f"dp zero step {i}", sum(r["zero"]["grads"][i]
+                                            for r in ranks),
+                   ddp["grads"][i], rel_gate=i == 0)
+        diff = (sum(r["zero"]["masters"][i] for r in ranks)
+                - ddp["masters"][i]).abs()
+        print(f"  dp zero step {i}: the master after it against DDP's: max "
+              f"|diff| {float(diff.max()):.3e}, share above 1e-6 "
+              f"{float((diff > 1e-6).float().mean()):.5f}, above lr/8 "
+              f"{float((diff > TRAIN_LR / 8).float().mean()):.5f}")
+    _master_hold("dp zero against ddp", ranks[0]["zero"]["sample"],
+                 ddp["sample"], TOL_DP_MASTER_MAX, TOL_DP_MASTER_SHARE,
+                 TRAIN_LR / 8)
+    _master_hold("dp zero against one rank", ranks[0]["zero"]["sample"],
+                 ref["sample"], TOL_DP_MASTER_MAX, TOL_DP_MASTER_SHARE,
+                 TRAIN_LR / 8)
+    worst = max(abs(a - b) for a, b in zip(ranks[0]["zero"]["losses"],
+                                            ddp_losses))
+    print(f"  dp zero: losses {[round(x, 4) for x in ranks[0]['zero']['losses']]}"
+          f" (spans {ranks[0]['zero']['spans']}), against ddp's: max |diff| "
+          f"{worst:.2e} (limit {TOL_DP_LOSS})")
+    if not worst <= TOL_DP_LOSS:
+        raise AssertionError("dp zero: the losses are off ddp's")
+    # (c) the rank-local overflow
+    for rank, r in enumerate(ranks):
+        ov = r["zero"]["overflow"]
+        print(f"  dp zero overflow rank {rank}: shard finite "
+              f"{ov['shard_finite']}, master and slots unchanged "
+              f"{ov['same']}, count {ov['count']}, scale {ov['scale']}")
+        _hold_lengths(f"dp zero overflow rank {rank}", ov, {
+            "fused_scale": (1, shard), "fused_adam": (1, shard)})
+        if not ov["same"] or ov["count"][1] != ov["count"][0] + 1 \
+                or ov["scale"][1] != ov["scale"][0] / 2:
+            raise AssertionError(f"dp zero overflow rank {rank}: the step "
+                                 f"was not skipped")
+    if all(r["zero"]["overflow"]["shard_finite"] for r in ranks) or \
+            not any(r["zero"]["overflow"]["shard_finite"] for r in ranks):
+        raise AssertionError("dp zero overflow: the inf must land in one "
+                             "rank's shard alone")
+    # (d) DistributedFusedLAMB
+    lshard = ranks[0]["lamb"]["shard_len"]
+    for rank, r in enumerate(ranks):
+        run = r["lamb"]
+        _hold_lengths(f"dp lamb rank {rank}", run, {
+            "fused_lamb1": (DP_LAMB_STEPS, lshard),
+            "fused_l2norm": (DP_LAMB_STEPS * (1 + 2 * run["windows"]),
+                             None)})
+        if max(run["lengths"]["fused_l2norm"]) != lshard:
+            raise AssertionError("dp lamb: the grad norm is not over the "
+                                 "shard")
+    # LAMB's grads carry no loss scale: DDP's first step's, a power of 2
+    _grad_hold("dp lamb step 0", sum(r["lamb"]["grads"][0] for r in ranks)
+               * ddp["scale0"], ddp["grads"][0], rel_gate=True)
+    lamb_losses = [sum(r["lamb"]["losses"][i] for r in ranks) / DP
+                   for i in range(DP_LAMB_STEPS)]
+    worst = max(abs(a - b) for a, b in zip(lamb_losses, ref["lamb_losses"]))
+    print(f"  dp lamb: mean losses {[round(x, 4) for x in lamb_losses]} "
+          f"against FusedLAMB's: max |diff| {worst:.4f} (limit "
+          f"{TOL_DP_LOSS})")
+    if not worst <= TOL_DP_LOSS:
+        raise AssertionError("dp lamb: the losses are off FusedLAMB's")
+    _master_hold("dp lamb against FusedLAMB", ranks[0]["lamb"]["sample"],
+                 ref["lamb_sample"], 2 * TRAIN_LR * DP_LAMB_STEPS,
+                 TOL_DP_MASTER_SHARE, TRAIN_LR / 8)
+    # (e) SyncBatchNorm
+    for rank, r in enumerate(ranks):
+        sb = r["syncbn"]
+        print(f"  dp syncbn rank {rank} {list(DP_BN_SHAPE)} fp32: y "
+              f"{sb['y']:.2e}, dx {sb['dx']:.2e} (of their max), dw "
+              f"{sb['dw']:.2e}, db {sb['db']:.2e} (relative L2), running "
+              f"stats {sb['stats']:.2e}; limit {TOL_SBN_REL}; forward + "
+              f"backward {sb['ms']:.3f} ms [{smi}]")
+        if not max(sb["y"], sb["dx"], sb["dw"], sb["db"],
+                   sb["stats"]) <= TOL_SBN_REL:
+            raise AssertionError(f"dp syncbn rank {rank}: off BatchNorm "
+                                 f"over the whole batch")
+    # the numbers
+    for label, key in (("ddp", "ddp"), ("zero", "zero"), ("lamb", "lamb")):
+        for rank, r in enumerate(ranks):
+            run = r[key]
+            print(f"dp {label} rank {rank}: step times "
+                  f"{[round(t, 3) for t in run['step_s']]} s, peak "
+                  f"{run['peak'] / 2**30:.2f} GiB, shard length "
+                  f"{run['shard_len']} [{smi}]")
+            for i, rec in enumerate(run["coll"]):
+                print(f"  step {i}: gloo collectives (host copies inside "
+                      f"gloo; not an NCCL figure): {_coll_line(rec)}")
+            for k, v in run["launches"].items():
+                total[k] = total.get(k, 0) + v
+    for r in ranks:
+        for k, v in r["zero"]["overflow"]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    print(f"dp: launches of the update kernels in the ranks: "
+          f"{ {k: total.get(k, 0) for k in DP_KERNELS} }")
+    print(f"dp: the ranks ran in {ranks_s:.1f} s, the phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return dict(launches=total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="kernels,serve,gpt,bert,bert_train,gpt_train,"
                             "gpt_train_8k,profile,train,lean_train,optim,"
-                            "train-check,width,spec,tp,tier,fleet,shim",
+                            "train-check,width,spec,tp,dp,tier,fleet,shim",
                     help="comma list of kernels, serve, gpt, bert, "
                          "bert_train, gpt_train, gpt_train_8k, profile, "
                          "train, lean_train, optim, train-check, width, "
-                         "spec, tp, tier, fleet, shim, ab "
+                         "spec, tp, dp, tier, fleet, shim, ab "
                          "(build always "
                          "runs; profile profiles the serve and the train "
                          "phases that run)")
@@ -8222,10 +9005,20 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     phases = set(args.phases.split(","))
+    clock = [time.perf_counter(), time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Print the seconds since the last lap, under ``name``."""
+        now = time.perf_counter()
+        print(f"chip_smoke: {name} took {now - clock[1]:.1f} s "
+              f"({now - clock[0]:.1f} s in all)", flush=True)
+        clock[1] = now
     phase_build()
+    lap("build")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     recs = phase_kernels(dev, gen) if "kernels" in phases else {}
+    lap("kernels")
     if "serve" in phases:
         served = phase_serve(dev, args.seed, "profile" in phases)
         for key, r in recs.items():
@@ -8233,14 +9026,17 @@ def main(argv=None) -> int:
                 r["launches"] = served["launches"][key]
         del served
         torch.cuda.empty_cache()
+    lap("serve")
     if "gpt" in phases:
         gpt = phase_gpt(dev, args.seed)
         if "fused_block_decode_gpt" in recs:
             recs["fused_block_decode_gpt"]["launches"] = gpt["launches"][
                 "fused_block_decode_gpt"]
         del gpt
+    lap("gpt")
     if "bert" in phases:
         phase_bert(dev, args.seed)
+    lap("bert")
     lm_runs, adam8k = {}, None
     for kind, (phase, *_) in LM_RUNS.items():
         if phase in phases:
@@ -8252,6 +9048,7 @@ def main(argv=None) -> int:
             lm_runs[kind] = {k: run[k] for k in ("step_s", "peak_bytes",
                                                  "tokens")}
             del run
+    lap("the lm train phases")
     if "train" in phases:
         runs = phase_train(dev, args.seed, "profile" in phases)
         for key, r in recs.items():
@@ -8261,6 +9058,7 @@ def main(argv=None) -> int:
                     "launches"][key]
         adam8k = runs["adam8k"]
         del runs
+    lap("train")
     if "lean_train" in phases:
         lean = phase_lean_train(dev, args.seed, adam8k, lm_runs,
                                 "profile" in phases)
@@ -8269,6 +9067,7 @@ def main(argv=None) -> int:
                 key, 0)
         del lean
         torch.cuda.empty_cache()
+    lap("lean_train")
     if "optim" in phases:
         optim = phase_optim(dev, args.seed)
         for key, r in recs.items():
@@ -8276,11 +9075,13 @@ def main(argv=None) -> int:
                 key, 0)
         del optim
         torch.cuda.empty_cache()
+    lap("optim")
     if "train-check" in phases:
         phase_train_check(dev, args.seed)
         phase_bert_train_check(dev, args.seed)
         phase_split_check(dev, args.seed)
         phase_rule_check(dev, args.seed)
+    lap("train-check")
     if "width" in phases:
         width = phase_width(dev, args.seed)
         for key in WIDE_KERNELS:
@@ -8288,6 +9089,7 @@ def main(argv=None) -> int:
                 recs[key]["launches"] = width["launches"][key]
         del width
         torch.cuda.empty_cache()
+    lap("width")
     if "spec" in phases:
         spec = phase_spec(dev, args.seed)
         for key, r in recs.items():
@@ -8295,6 +9097,7 @@ def main(argv=None) -> int:
                 key, 0)
         del spec
         torch.cuda.empty_cache()
+    lap("spec")
     if "tp" in phases:
         tp = phase_tp(dev, args.seed)
         for key, r in recs.items():
@@ -8302,6 +9105,15 @@ def main(argv=None) -> int:
                 key, 0)
         del tp
         torch.cuda.empty_cache()
+    lap("tp")
+    if "dp" in phases:
+        dp = phase_dp(dev, args.seed)
+        for key, r in recs.items():
+            r["launches"] = (r.get("launches") or 0) + dp["launches"].get(
+                key, 0)
+        del dp
+        torch.cuda.empty_cache()
+    lap("dp")
     tier_ref = None
     for phase in ("tier", "fleet"):
         if phase not in phases:
@@ -8313,19 +9125,26 @@ def main(argv=None) -> int:
             r["launches"] = (r.get("launches") or 0) + run["launches"].get(
                 key, 0)
         del run
+    if phases & {"tier", "fleet"}:
+        _card_memory("after tier and fleet, their model still cached")
     _TIER_MODEL.clear()
     tier_ref = None
+    if phases & {"tier", "fleet"}:
+        _card_memory("after the tier model's cache is cleared")
     torch.cuda.empty_cache()
+    lap("tier and fleet")
     if "ab" in phases:
         if args.baseline is None:
             raise SystemExit("the ab phase needs --baseline")
         phase_ab(dev, args.seed, args.baseline.resolve(),
                  tuple(args.ab_rows.split(",")))
+    lap("ab")
     if "shim" in phases:
         shim = phase_shim(dev, args.seed)
         for key in SHIM_KERNELS:
             if key in recs:
                 recs[key]["launches"] = shim["launches"][key]
+    lap("shim")
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -1054,6 +1054,85 @@ def test_fused_lamb1_kernel_matches_plain(cuda, g_dtype, offset):
     assert torch.equal(u, torch.zeros_like(u))
 
 
+#: a ZeRO layout's leaf sizes: 1002577 elements, so a rank's shard is
+#: 501289 long at dp = 2 and 250645 at dp = 4 (odd, not a multiple of 4)
+#: and the prefetch spans start at odd offsets inside it
+ZERO_SIZES = (1000003, 7, 513, 2049, 5)
+
+
+def _zero_windows(dev, dp, prefetch):
+    """A rank's shard length and its prefetch spans' windows ``(offset,
+    length)`` inside the shard (one window, the whole shard, for the
+    block layout), from the port's own ZeRO layout."""
+    from apex_tpu_torch.optimizers import functional
+    tree = {f"l{i}": torch.zeros(s, device=dev)
+            for i, s in enumerate(ZERO_SIZES)}
+    st = functional.fused_adam().init(tree, shard=("data", dp, dp - 1),
+                                      prefetch=prefetch)
+    wins, off = [], 0
+    for _, _, padded in st.span_windows():
+        wins.append((off, padded // dp))
+        off += padded // dp
+    assert off == st.shard_len == st.master.numel()
+    return st.shard_len, wins
+
+
+@pytest.mark.parametrize("prefetch", [0, 3])
+@pytest.mark.parametrize("dp", [2, 4])
+def test_update_kernels_on_a_zero_shard_and_its_spans(cuda, dp, prefetch):
+    """The unscale (#9), Adam (#13) and LAMB's phase 1 (#16) on a rank's
+    ZeRO shard (odd length) and on each prefetch span's view of it (odd
+    offsets: the kernels' scalar path) against their plain versions, one
+    launch a call, a noop bit for bit."""
+    fu = _fu()
+    length, wins = _zero_windows(cuda, dp, prefetch)
+    assert length % 4 != 0
+    step = torch.full((), 3.0, device=cuda)
+    adam_kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                   weight_decay=0.01, step=step, adam_w_mode=True,
+                   grad_scale=0.5)
+    lamb_kw = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01,
+                   step=step, bias_correction=True, grad_scale=0.5,
+                   grad_averaging=True)
+    p = _randn((length,), 60, cuda, torch.float32)
+    m = _randn((length,), 61, cuda, torch.float32) * 0.1
+    v = _randn((length,), 62, cuda, torch.float32).abs()
+    g = _randn((length,), 63, cuda, torch.float32) * 1000
+    u = torch.empty(length, device=cuda)
+    for off, n in [(0, length)] + (wins if len(wins) > 1 else []):
+        sl = slice(off, off + n)
+        counts = _build.launch_counts()
+        gs = g[sl].clone()
+        got, flag = fu.fused_scale(gs, 2.0 ** -16, out=gs)
+        ref, rflag = fu._scale_reference(g[sl], torch.full(
+            (), 2.0 ** -16, device=cuda), torch.float32)
+        assert torch.equal(got, ref) and flag.item() == rflag.item() == 0.0
+        hp = fu._adam_hparams(cuda, noop_flag=0.0, bias_correction=True,
+                              **{k: adam_kw[k] for k in (
+                                  "lr", "beta1", "beta2", "eps",
+                                  "weight_decay", "step", "grad_scale")})
+        pa_, ma, va = (t[sl].clone() for t in (p, m, v))
+        want = fu._adam_kernel_reference(pa_, gs, ma, va, hp, True)
+        fu.fused_adam_flat(pa_, gs, ma, va, **adam_kw)
+        for a, b in zip((pa_, ma, va), want):
+            assert _maxdiff(a, b) <= 1e-6 * b.abs().max().item()
+        hp = fu._lamb1_hparams(cuda, noop_flag=0.0, **lamb_kw)
+        pl, ml, vl = (t[sl] for t in (p, m, v))
+        want = fu._lamb1_kernel_reference(pl, gs, ml, vl, hp)
+        got = fu.fused_lamb_phase1_flat(pl, gs, ml.clone(), vl.clone(),
+                                        u=u[sl], **lamb_kw)
+        for a, b in zip(got, want):
+            assert _maxdiff(a, b) <= 1e-6 * b.abs().max().item()
+        snap = [t.clone() for t in (pa_, ma, va)]
+        fu.fused_adam_flat(pa_, gs, ma, va, noop_flag=torch.ones(
+            (), device=cuda), **adam_kw)
+        assert all(torch.equal(a, b) for a, b in zip((pa_, ma, va), snap))
+        after = _build.launch_counts()
+        for key, k in (("fused_scale", 1), ("fused_adam", 2),
+                       ("fused_lamb1", 1)):
+            assert after[key] == counts[key] + k, key
+
+
 @pytest.mark.parametrize("nesterov,wd_after,first,momentum", [
     (False, False, False, 0.9), (True, True, False, 0.9),
     (True, False, True, 0.9), (False, False, False, 0.0)])

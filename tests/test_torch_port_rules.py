@@ -65,7 +65,8 @@ def test_fresh_process_imports_no_jax_and_no_apex_tpu():
         "import apex_tpu_torch\n"
         "for m in pkgutil.walk_packages(apex_tpu_torch.__path__,\n"
         "                                'apex_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "    if m.name != 'apex_tpu_torch.parallel.multiproc':\n"
+        "        importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'apex_tpu'))\n"
@@ -395,20 +396,28 @@ def test_training_out_of_slice_options_raise(monkeypatch):
         vocab_parallel_cross_entropy)
     model, tx, train_step = _tiny_train()
     loss = lambda m, b: m(b["tokens"], b["labels"])   # noqa: E731
-    with pytest.raises(NotImplementedError, match="item 6"):
-        train_step.make_train_step(loss, tx, zero=True)
+    # ZeRO is ported (item 6a): zero=True on a dense state raises JAX's
+    # ValueError, and a sharded state or a cross-rank flag without the
+    # topology raises, naming initialize_model_parallel: no rank quietly
+    # runs alone
+    zero_step = train_step.make_train_step(loss, tx, zero=True)
+    state = train_step.init_train_state(tx, model)
+    tokens = torch.arange(8, dtype=torch.int32)[None]
+    with pytest.raises(ValueError, match="dp-sharded"):
+        zero_step(state, {"tokens": tokens, "labels": tokens})
     with pytest.raises(NotImplementedError, match="item 7"):
         train_step.make_train_step(loss, tx, numerics=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(RuntimeError, match="initialize_model_parallel"):
         train_step.init_train_state(tx, model, shard=("data", 2))
     from apex_tpu_torch.optimizers import functional
     for rule in (functional.fused_lamb(), functional.fused_sgd(0.1),
                  functional.fused_adagrad(), functional.fused_novograd()):
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(RuntimeError, match="initialize_model_parallel"):
             rule.init(model, shard=("data", 2))
-        with pytest.raises(NotImplementedError, match="item 6"):
-            rule.init(model, prefetch=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
+        # one rank's shard by an explicit rank needs no group
+        shard = rule.init(model, shard=("data", 2, 1), prefetch=2)
+        assert shard.shard == ("data", 2) and len(shard.spans) == 2
+    with pytest.raises(RuntimeError, match="initialize_model_parallel"):
         unscale_flat_grads(torch.zeros(4), init_loss_scale(device="cpu"),
                            axis_name="data")
     for layer in (ColumnParallelLinear, RowParallelLinear):
