@@ -17,6 +17,14 @@ flax ``Dense`` layers their ``kernel [in, out]``.
 models (``LlamaModel``, ``GPTModel``, ``BertModel``), whose named
 parameters are the tree's key paths joined by dots: one JAX tree serves
 both the serving and the training path.
+
+:func:`shard_llama_params` gives tensor rank ``rank`` of ``tp`` its
+shard of a tp = 1 LLaMA tree, in the JAX layouts: the column-parallel
+weights (``q_proj``, ``gate_proj``, ``up_proj``, ``lm_head``,
+``embed_tokens``) by rows, the row-parallel ones (``o_proj``,
+``down_proj``) by columns, ``kv_proj`` by rows in whole kv heads (each
+kv head's k and v side by side) when tp divides ``kv_heads``, else
+whole (replicated), the norms whole.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ from apex_tpu_torch.inference.models import model_dims
 from apex_tpu_torch.utils import resolve_device
 
 __all__ = ["params_from_jax", "llama_param_shapes", "gpt_param_shapes",
-           "bert_param_shapes", "load_jax_params"]
+           "bert_param_shapes", "load_jax_params", "shard_llama_params"]
 
 
 def _to_tensor(x, device, dtype):
@@ -180,3 +188,50 @@ def load_jax_params(model, tree) -> None:
                 raise ValueError(f"{name} has shape {tuple(t.shape)} in the "
                                  f"tree, {tuple(p.shape)} in the model")
             p.copy_(t)
+
+
+_LLAMA_ROWS = ("q_proj", "gate_proj", "up_proj", "lm_head", "embed_tokens")
+_LLAMA_COLS = ("o_proj", "down_proj")
+
+
+def shard_llama_params(tree, cfg, tp: int, rank: int):
+    """Rank ``rank``'s shard of a tp = 1 LLaMA tree (numpy arrays or
+    tensors, with or without the outer ``"params"`` key) under the same
+    key paths (the port's parameter names), each sharded leaf a
+    contiguous copy of its slice (module docstring for the layouts).
+    Raises ``ValueError`` where tp does not divide a sharded dim."""
+    bare = tree["params"] if isinstance(tree.get("params"), dict) else tree
+    kv_dim = 0 if cfg.kv_heads % tp == 0 else None
+
+    def dim_of(path):
+        names = set(path[:-1])
+        if names & set(_LLAMA_ROWS):
+            return 0
+        if names & set(_LLAMA_COLS):
+            return 1
+        if "kv_proj" in names:
+            return kv_dim
+        return None
+
+    def one(path, leaf):
+        dim = dim_of(path) if tp > 1 else None
+        if dim is None:
+            return leaf
+        n = leaf.shape[dim]
+        if n % tp:
+            raise ValueError(f"tp={tp} does not divide dim {dim} of "
+                             f"{'/'.join(path)} {tuple(leaf.shape)}")
+        lo, hi = rank * (n // tp), (rank + 1) * (n // tp)
+        if isinstance(leaf, torch.Tensor):
+            return leaf.narrow(dim, lo, hi - lo).clone(
+                memory_format=torch.contiguous_format)
+        idx = [slice(None)] * leaf.ndim
+        idx[dim] = slice(lo, hi)
+        return np.ascontiguousarray(np.asarray(leaf)[tuple(idx)])
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return one(path, node)
+
+    return walk(bare, ())

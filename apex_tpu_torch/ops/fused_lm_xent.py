@@ -22,6 +22,15 @@ The JAX package computes all of this in XLA, outside any Pallas kernel,
 so the port's products are ``torch.matmul`` / ``torch.addmm`` and the
 rest plain PyTorch on any device.
 
+:func:`fused_lm_head_vocab_parallel_cross_entropy` over a tensor group
+of more than one rank takes this rank's ``[vocab / tp, hidden]`` head
+rows: per token chunk the per-token max (MAX), sum of exps, target logit
+and, with smoothing, logit sum (SUM) are all-reduced over the group, the
+algebra of the sharded ``vocab_parallel_cross_entropy``.  Its backward
+is collective-free by default (each rank's ``dhidden`` is its partial);
+``grad_input_psum=True`` all-reduces ``dhidden``, the contract of an
+untied ``ColumnParallelLinear`` head.
+
 Loss (:func:`apex_tpu_torch.ops.xentropy.softmax_cross_entropy_loss`)::
 
     loss = lse - (1-s) * logit[y] - s * sum(logits) / V
@@ -31,17 +40,16 @@ from __future__ import annotations
 import os
 
 import torch
+import torch.distributed as dist
 
 from apex_tpu_torch.ops.xentropy import (softmax_cross_entropy_loss,
                                          subtract_at_labels_)
+from apex_tpu_torch.parallel import _comm
 
 __all__ = ["fused_lm_head_cross_entropy",
            "fused_lm_head_vocab_parallel_cross_entropy",
            "lm_head_xentropy_reference",
            "xent_chunk_default", "xent_vocab_chunk_default"]
-
-_ROADMAP_TP = "ROADMAP queue 1, item 6 (multi-GPU layers over NCCL)"
-
 
 def xent_chunk_default() -> int:
     """``APEX_TPU_XENT_CHUNK``: the token chunk the loss heads use when
@@ -196,6 +204,24 @@ class _FusedLMHeadCE(torch.autograd.Function):
                 None, None, None, None, None, None)
 
 
+def _token_rows(hidden, labels, padding_idx: int, token_chunk: int):
+    """The heads' token rows: ``hidden`` as ``[n, hidden_size]`` and the
+    labels (``padding_idx`` rows as label 0) zero-padded to a multiple of
+    the chunk (the whole ``n`` for ``token_chunk <= 0``); returns those,
+    the ``[n]`` padding mask and the chunk."""
+    h2 = hidden.reshape(-1, hidden.shape[-1])
+    lab = labels.reshape(-1).long()
+    n = h2.shape[0]
+    c = min(int(token_chunk), n) if token_chunk > 0 else n
+    pad_mask = lab == padding_idx
+    safe_labels = torch.where(pad_mask, 0, lab)
+    n_pad = (-n) % c
+    if n_pad:
+        h2 = torch.cat([h2, h2.new_zeros(n_pad, h2.shape[1])])
+        safe_labels = torch.cat([safe_labels, safe_labels.new_zeros(n_pad)])
+    return h2, safe_labels, pad_mask, c
+
+
 def fused_lm_head_cross_entropy(hidden, head_w, labels, *,
                                 smoothing: float = 0.0,
                                 padding_idx: int = -100,
@@ -226,36 +252,102 @@ def fused_lm_head_cross_entropy(hidden, head_w, labels, *,
     if vocab_chunk and vocab_chunk > 0 and v % vocab_chunk:
         raise ValueError(f"vocab_chunk {vocab_chunk} must divide "
                          f"vocab {v}")
-    orig_shape = labels.shape
-    h2 = hidden.reshape(-1, hdim)
-    lab = labels.reshape(-1).long()
-    n = h2.shape[0]
-    c = min(int(token_chunk), n)
-    pad_mask = lab == padding_idx
-    safe_labels = torch.where(pad_mask, 0, lab)
-    n_pad = (-n) % c
-    if n_pad:
-        h2 = torch.cat([h2, h2.new_zeros(n_pad, hdim)])
-        safe_labels = torch.cat([safe_labels,
-                                 safe_labels.new_zeros(n_pad)])
+    h2, safe_labels, pad_mask, c = _token_rows(hidden, labels, padding_idx,
+                                               token_chunk)
     loss = _FusedLMHeadCE.apply(h2, head_w, safe_labels, pad_mask, c,
-                                float(smoothing), int(vocab_chunk or 0), n)
-    return torch.where(pad_mask, 0.0, loss).reshape(orig_shape)
+                                float(smoothing), int(vocab_chunk or 0),
+                                pad_mask.numel())
+    return torch.where(pad_mask, 0.0, loss).reshape(labels.shape)
+
+
+class _FusedVocabParallelCE(torch.autograd.Function):
+    """The vocab-parallel head over ``group`` (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, h2, w, labels, pad_mask, c: int, smoothing: float,
+                n: int, group, psum_dh: bool):
+        tp, rank = dist.get_world_size(group), dist.get_rank(group)
+        vp = w.shape[0]
+        v, start = vp * tp, rank * vp
+        losses, lses = [], []
+        for i in range(0, h2.shape[0], c):
+            hc, lc = h2[i:i + c], labels[i:i + c]
+            x = _project_f32(hc, w)                        # [C, V/tp]
+            m = _comm.all_reduce(x.amax(dim=-1), group, dist.ReduceOp.MAX)
+            shifted = x.sub_(m[:, None])
+            sum_exp = _comm.all_reduce(torch.exp(shifted).sum(dim=-1), group)
+            idx = lc - start
+            off = (idx < 0) | (idx >= vp)
+            pred = torch.gather(shifted, 1, idx.clamp(0, vp - 1)[:, None])[
+                :, 0]
+            pred = _comm.all_reduce(torch.where(off, 0.0, pred), group)
+            log_sum_exp = torch.log(sum_exp)
+            loss = log_sum_exp - pred
+            if smoothing > 0.0:
+                sum_log = _comm.all_reduce(shifted.sum(dim=-1), group) \
+                    - v * log_sum_exp
+                loss = (1.0 - smoothing) * loss + smoothing * (-sum_log / v)
+            losses.append(loss)
+            lses.append(m + log_sum_exp)
+            del x, shifted
+        ctx.save_for_backward(h2, w, labels, pad_mask, torch.cat(lses))
+        ctx.c, ctx.smoothing, ctx.n, ctx.v, ctx.start = (c, smoothing, n, v,
+                                                         start)
+        ctx.group, ctx.psum_dh = group, psum_dh
+        return torch.cat(losses)[:n]
+
+    @staticmethod
+    def backward(ctx, dloss):
+        h2, w, labels, pad_mask, lse = ctx.saved_tensors
+        c, s, n = ctx.c, ctx.smoothing, ctx.n
+        dt = torch.promote_types(h2.dtype, w.dtype)
+        d = torch.zeros(h2.shape[0], dtype=torch.float32, device=h2.device)
+        d[:n] = torch.where(pad_mask, 0.0, dloss.float())
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=h2.device)
+        dh = []
+        for i in range(0, h2.shape[0], c):
+            hc, lc, lse_c, d_c = (t[i:i + c] for t in (h2, labels, lse, d))
+            dh.append(_slice_grads(hc, lc, lse_c, d_c, w, ctx.start, s,
+                                   ctx.v, dt, dw))
+        dh2 = torch.cat(dh)
+        if ctx.psum_dh:
+            _comm.all_reduce(dh2, ctx.group)
+        # padded rows carry d == 0, so their dh rows are exact zeros
+        return (dh2.to(h2.dtype), dw.to(w.dtype), None, None, None, None,
+                None, None, None)
 
 
 def fused_lm_head_vocab_parallel_cross_entropy(
         hidden, head_w_shard, labels, *, smoothing: float = 0.0,
-        padding_idx: int = -100, token_chunk: int | None = None,
-        grad_input_psum: bool = False,
-        tensor_model_parallel_size: int = 1):
-    """The vocab-parallel head: at tp = 1 the local op with the whole
-    vocab a chunk (``vocab_chunk=0``), as in the JAX package; other
-    tensor-parallel sizes are not ported."""
-    if tensor_model_parallel_size != 1:
-        raise NotImplementedError(
-            f"the vocab-parallel fused LM head at tensor_model_parallel_size "
-            f"{tensor_model_parallel_size}: only tp = 1 is ported "
-            f"({_ROADMAP_TP})")
-    return fused_lm_head_cross_entropy(
-        hidden, head_w_shard, labels, smoothing=smoothing,
-        padding_idx=padding_idx, token_chunk=token_chunk, vocab_chunk=0)
+        padding_idx: int = -100, axis_name=None,
+        token_chunk: int | None = None, grad_input_psum: bool = False,
+        tensor_model_parallel_size=None):
+    """The vocab-parallel head: ``head_w_shard`` is this rank's ``[vocab
+    / tp, hidden]`` rows; ``labels`` global ids.  ``axis_name`` (default
+    the tensor axis) or a ``ProcessGroup`` names the group; the tp size
+    is its size where a topology or a group is at hand, else
+    ``tensor_model_parallel_size`` (default 1; above 1 without a group:
+    ``RuntimeError``).  At tp = 1 the local op with the whole vocab a
+    chunk (``vocab_chunk=0``), as in the JAX package.  ``padding_idx``
+    rows give 0 loss and 0 grad on every rank.  ``grad_input_psum=True``
+    all-reduces ``dhidden`` over the group; by default each rank's is
+    its partial."""
+    from apex_tpu_torch.transformer import parallel_state
+    from apex_tpu_torch.transformer.parallel_state import TENSOR_AXIS
+    from apex_tpu_torch.transformer.tensor_parallel import mappings
+    if axis_name is None:
+        axis_name = TENSOR_AXIS
+    tp = mappings.axis_size(axis_name, tensor_model_parallel_size)
+    if tp == 1:
+        return fused_lm_head_cross_entropy(
+            hidden, head_w_shard, labels, smoothing=smoothing,
+            padding_idx=padding_idx, token_chunk=token_chunk, vocab_chunk=0)
+    if token_chunk is None:
+        token_chunk = xent_chunk_default()
+    h2, safe_labels, pad_mask, c = _token_rows(hidden, labels, padding_idx,
+                                               token_chunk)
+    loss = _FusedVocabParallelCE.apply(
+        h2, head_w_shard, safe_labels, pad_mask, c, float(smoothing),
+        pad_mask.numel(), parallel_state.resolve_group(axis_name),
+        bool(grad_input_psum))
+    return torch.where(pad_mask, 0.0, loss).reshape(labels.shape)

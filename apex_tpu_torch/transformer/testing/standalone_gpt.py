@@ -57,6 +57,7 @@ from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.fused_lm_xent import (fused_lm_head_cross_entropy,
                                               xent_chunk_default)
+from apex_tpu_torch.transformer import parallel_state
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -252,6 +253,15 @@ class GPTEmbedding(nn.Module):
 
 
 def _check_config(cfg) -> None:
+    if parallel_state.model_parallel_is_initialized() and \
+            parallel_state.get_tensor_model_parallel_world_size() > 1:
+        raise NotImplementedError(
+            "GPT and BERT at tensor_model_parallel_size "
+            f"{parallel_state.get_tensor_model_parallel_world_size()} are "
+            f"not ported ({_MULTI}): the JAX reference's tied raw-einsum "
+            "head leaves each rank a rank-partial dhidden, so its grads at "
+            "tp > 1 are not tp = 1's (ROADMAP queue 3, \"tied heads at "
+            "tp > 1\")")
     for flag in ("sequence_parallel", "context_parallel", "scan_layers",
                  "expert_model_parallel"):
         if getattr(cfg, flag, False):

@@ -148,24 +148,29 @@ def remat(fn, *args, generator=None, **kwargs):
 
     ``checkpoint`` replays only the default generators.  A layer that
     draws its dropout masks and attention seeds from an explicit
-    ``generator`` would draw others in the recompute, and advance the
-    generator again.  So the generator's state before the call is kept,
-    set back for the recompute, and the state the recompute found
-    restored after it: the recompute draws what the forward drew and
-    the generator ends where a run without recompute leaves it.  A
-    generator's state lives on the host, CUDA's too: no device sync."""
+    ``generator`` (or a list of them) would draw others in the
+    recompute, and advance the generator again.  So each generator's
+    state before the call is kept, set back for the recompute, and the
+    state the recompute found restored after it: the recompute draws
+    what the forward drew and the generator ends where a run without
+    recompute leaves it.  A generator's state lives on the host, CUDA's
+    too: no device sync."""
     if generator is None:
         return checkpoint(fn, *args, use_reentrant=False, **kwargs)
-    before = generator.get_state()
+    gens = list(generator) if isinstance(generator, (list, tuple)) \
+        else [generator]
+    before = [g.get_state() for g in gens]
 
     @contextlib.contextmanager
     def replay():
-        after = generator.get_state()
-        generator.set_state(before)
+        after = [g.get_state() for g in gens]
+        for g, state in zip(gens, before):
+            g.set_state(state)
         try:
             yield
         finally:
-            generator.set_state(after)
+            for g, state in zip(gens, after):
+                g.set_state(state)
 
     return checkpoint(fn, *args, use_reentrant=False,
                       context_fn=lambda: (contextlib.nullcontext(), replay()),

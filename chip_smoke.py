@@ -369,8 +369,8 @@
    nothing, so a refusal fails the phase).  Llama-3-8B widths at 2
    layers (1.487e9 parameters: two ranks' dense DDP state at 4 layers
    would not fit twice in 80 GB), bf16 parameters, dynamic loss scale.
-   The parent first takes 3 dense ``fused_adam`` steps on global
-   batches of 2 x 2048 tokens and 2 ``FusedLAMB`` steps (the class, over
+   The parent first takes 2 dense ``fused_adam`` steps on global
+   batches of 2 x 2048 tokens and 1 ``FusedLAMB`` step (the class, over
    the model's tree) from the same weights, keeping the losses and a
    digest of the master (every 997th element), and frees them.  Each
    rank takes its row of the same batches: (a) DDP, the dense step with
@@ -381,7 +381,7 @@
    (the reassembled digest against DDP's); (c) one more ZeRO step whose
    inf only rank 1's loss carries, landing in one rank's shard: master
    and slots bit-identical on both ranks, the count advanced, the scale
-   halved; (d) ``DistributedFusedLAMB`` 2 steps against the one-card
+   halved; (d) ``DistributedFusedLAMB`` 1 step against the one-card
    ``FusedLAMB``; (e) ``SyncBatchNorm`` forward and backward on
    ``[32, 56, 56, 256]`` fp32 channel-last a rank against torch's batch
    norm over the 64 images.  Each step's averaged grads of ZeRO's
@@ -399,6 +399,51 @@
    through the host inside the call: not NCCL figures), the kernels'
    launches, each beside the card's name and power limit; the ranks'
    launches are added to the ``kernels`` line's counts.
+21. **TP train** (``tp_train``, after dp, before tier).  Tensor-parallel
+   training at tp = 2 on the one card: two spawned ranks on cuda:0 over
+   gloo, one process a rank (the phase prints NCCL's answer for two
+   ranks on the card, and what gloo's ``send``/``recv`` make of CUDA
+   tensors, asked in two processes of their own; the port's ring hop
+   copies through host tensors over gloo on CUDA, and the phase prints
+   that).  Llama-3-8B widths at 4 layers (1.923e9 parameters, ~9.6e8 a
+   rank), 2048 tokens a step, bf16 parameters, fp32 master,
+   ``fused_adam``, dynamic loss scale, through ``make_train_step``.
+   The parent first takes 3 steps at tp = 1 from the train phase's
+   seeded weights on the phase's 3 batches, keeping the losses, a
+   digest of the step-0 grads and of the master after the last step
+   (every 997th element of each leaf), and frees them.  Each rank builds
+   the same weights, one rank after the other, keeps its shard
+   (``shard_llama_params``) and gets the batches from tensor rank 0
+   (``broadcast_data``): (a) the column-parallel head, 3 steps; (b) the
+   fused vocab-parallel head (token chunk 1024), 2 steps; (c)
+   ``APEX_TPU_TP_OVERLAP_CHUNKS=2`` at construction, 1 step from (a)'s
+   first weights and batch; (d) ``RowParallelLinear`` alone at ``[2048,
+   1, 7168] -> 4096`` bf16, the ring against the fused all-reduce,
+   forward and backward, with and without
+   ``gradient_accumulation_fusion``, and ``ring_psum`` of a ``[2048,
+   4096]`` bf16 tensor against ``all_reduce``.  Gates: the ranks'
+   losses equal bit for bit; each loss within TOL_TP_LOSS of the
+   reference's; the step-0 grads (the ranks' shards put together at the
+   digest's elements) within TOL_TP_GRAD_REL relative L2 of the
+   reference's and their least-squares scale within 1 +- TOL_DP_GRAD;
+   at most TOL_DP_MASTER_SHARE of the master digest off the reference's
+   by more than lr/8 after the first step, and no element by more than
+   2 lr a step (and 2 fp32 ulps of 1) after each; the norm weights'
+   masters equal on both ranks bit
+   for bit after every run; (b)'s losses within TOL_TP_LOSS of (a)'s;
+   (c)'s loss within TOL_TP_LOSS of (a)'s first and its grads within
+   TOL_DP_GRAD of (a)'s first; (d)'s backward (dx, dw) equal bit for
+   bit, its forward within TOL_TP_RING_FWD of the fused one's max (and
+   whether it is equal bit for bit printed), the fp32 ``dw`` within
+   TOL_TP_WGRAD_FP32 relative L2 of an fp32 product of the same bf16
+   operands, ``ring_psum`` equal to ``all_reduce`` bit for bit; a rank
+   launches #3 and #4 once a layer a step, #1 and #2 2 x layers + 1
+   times a step, #9 and #13 once a step at the rank's flat length, #5
+   and #6 never.  Prints each rank's step times against the
+   reference's, peak memory against tp = 1's, each step's gloo
+   collectives (count and seconds by kind), the launches, each beside
+   the card's name and power limit; the ranks' launches are added to
+   the ``kernels`` line's counts.
 
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed phase raises, so the
@@ -412,6 +457,7 @@ import contextlib
 import importlib
 import itertools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -8245,8 +8291,8 @@ def phase_fleet(dev, seed: int, ref=None):
 #: activations) does not fit twice in 80 GB; at 2 layers it is ~30 GB.
 DP = 2
 DP_LAYERS = 2
-DP_STEPS = 3
-DP_LAMB_STEPS = 2
+DP_STEPS = 2
+DP_LAMB_STEPS = 1
 #: the ZeRO state's prefetch spans (gathered and reduce-scattered one span
 #: at a time, so no full-length flat temporary is ever made)
 DP_PREFETCH = 4
@@ -8407,9 +8453,10 @@ def _bits_digest(t: torch.Tensor) -> tuple:
 
 
 def _dp_reference(dev, seed: int):
-    """The one-rank reference in the parent: 3 dense Adam steps on the
-    global batches (2 x 2048 tokens) of the 2-layer model, then 2
-    ``FusedLAMB`` steps (the class over the model's tree) from the same
+    """The one-rank reference in the parent: ``DP_STEPS`` dense Adam
+    steps on the global batches (2 x 2048 tokens) of the 2-layer model,
+    then ``DP_LAMB_STEPS`` ``FusedLAMB`` steps (the class over the
+    model's tree) from the same
     weights; each one's losses and master digest.  Everything is freed
     before it returns."""
     from apex_tpu_torch import train_step
@@ -8749,23 +8796,24 @@ def _master_hold(label, got, want, max_tol, share_tol, share_at):
         raise AssertionError(f"{label}: the master is off the reference")
 
 
-def _grad_hold(label, got, want, rel_gate: bool) -> None:
-    """A step's averaged grads, sampled, against DDP's all-reduced grads
-    of the same batch: the least-squares scale within TOL_DP_GRAD of 1,
-    and with ``rel_gate`` the relative L2 error below TOL_DP_GRAD."""
+def _grad_hold(label, got, want, rel_gate: bool, against: str = "DDP's",
+               rel_tol: float = TOL_DP_GRAD) -> None:
+    """A step's grads, sampled, against ``against`` (DDP's all-reduced
+    grads of the same batch, by default): the least-squares scale within
+    TOL_DP_GRAD of 1, and with ``rel_gate`` the relative L2 error below
+    ``rel_tol``."""
     got, want = got.double(), want.double()
     nonzero = int((want != 0).sum())
     scale = float((got * want).sum() / (want * want).sum())
     rel = float(torch.linalg.vector_norm(got - want)
                 / torch.linalg.vector_norm(want))
-    print(f"  {label}: averaged grads ({got.numel()} sampled, {nonzero} "
-          f"nonzero) against DDP's: scale {scale:.6f} (limit 1 +- "
+    print(f"  {label}: grads ({got.numel()} sampled, {nonzero} "
+          f"nonzero) against {against}: scale {scale:.6f} (limit 1 +- "
           f"{TOL_DP_GRAD}), relative L2 error {rel:.3e}"
-          + (f" (limit {TOL_DP_GRAD})" if rel_gate else ""))
+          + (f" (limit {rel_tol})" if rel_gate else ""))
     if nonzero == 0 or not abs(scale - 1) <= TOL_DP_GRAD \
-            or (rel_gate and not rel <= TOL_DP_GRAD):
-        raise AssertionError(f"{label}: the grads are off DDP's averaged "
-                             f"grads")
+            or (rel_gate and not rel <= rel_tol):
+        raise AssertionError(f"{label}: the grads are off {against}")
 
 
 def _coll_line(rec) -> str:
@@ -8972,17 +9020,567 @@ def phase_dp(dev, seed: int):
     return dict(launches=total)
 
 
+#: tensor-parallel training (the tp_train phase): two ranks on the one
+#: card, Llama-3-8B widths at the train phase's 4 layers and 2048 tokens
+TP_TRAIN = 2
+#: (a) the column-parallel head's steps, (b) the fused head's, (c) the
+#: ring's (from (a)'s first weights and batch)
+TP_TRAIN_STEPS = 3
+TP_TRAIN_FUSED_STEPS = 2
+TP_TRAIN_FUSED_CHUNK = 1024
+TP_TRAIN_OVERLAP = 2
+#: a loss against another's (the reference's, (a)'s): the mean of 2048
+#: tokens' fp32 losses, which the row-parallel outputs' two bf16-rounded
+#: partials (tp = 1 rounds once) move by ~7e-5 on an H100 (PERF.md)
+TOL_TP_LOSS = TOL_DP_LOSS
+#: the step-0 grads against the tp = 1 reference's (relative L2 of the
+#: digest): two bf16 computations of the same grads, the row-parallel
+#: outputs rounded as two partials, part by 1.30-1.46% at hidden 64-1024
+#: (the port on the CPU), not by TOL_DP_GRAD's 1%; the scale is
+#: held to 1 +- TOL_DP_GRAD (a grad all-reduced twice, or not at all, is
+#: off by 2x)
+TOL_TP_GRAD_REL = 3e-2
+#: (d) the ring's forward against the fused all-reduce's, as a share of
+#: the fused output's max: the chunk GEMMs may take another cuBLAS
+#: algorithm than the whole GEMM (another M), a bf16 ulp of a partial
+TOL_TP_RING_FWD = 2.0 ** -6
+#: (d) the fp32 wgrad against an fp32 product of the same bf16 operands
+#: (relative L2): the same products, summed in fp32 in another order over
+#: K = 2048 tokens of random sign, part by ~sqrt(K) * 2^-24 ~ 3e-6 (2.14e-6
+#: on an H100, PERF.md); a wgrad rounded to bf16 is off by
+#: ~2^-9, 200x this limit
+TOL_TP_WGRAD_FP32 = 1e-5
+#: (d)'s shape: a 2048-token down projection's rank shard
+TP_ROW_SHAPE = (TRAIN_SEQ, 1, 14336 // 2)
+
+
+def _tp_train_tokens(dev, seed: int):
+    """The phase's batches: ``[TP_TRAIN_STEPS, 1, TRAIN_SEQ + 1]`` seeded
+    tokens."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 27)
+    return torch.randint(0, FULL_CFG["vocab_size"],
+                         (TP_TRAIN_STEPS, 1, TRAIN_SEQ + 1), generator=gen,
+                         device=dev)
+
+
+def _tp_batch(tokens, i: int) -> dict:
+    t = tokens[i]
+    return {"tokens": t[:, :-1].contiguous(), "labels": t[:, 1:].contiguous()}
+
+
+def _tp_sample_idx(gshapes, dev) -> dict:
+    """Every DP_SAMPLE-th element of each tp = 1 leaf of ``gshapes`` (its
+    flat row-major index), by leaf key."""
+    return {key: torch.arange(0, math.prod(shape), DP_SAMPLE, device=dev)
+            for key, shape in gshapes.items()}
+
+
+def _tp_sample(flat, offsets, gshapes, idx, rank: int) -> torch.Tensor:
+    """The digest's elements of a flat buffer (grads or master) in
+    ``offsets``' layout, as fp32: a rank's shard gives the elements it
+    holds and zeros elsewhere (a replicated leaf: rank 0's), so the
+    ranks' samples sum to the tp = 1 sample.  ``gshapes`` are the tp = 1
+    leaf shapes; at tp = 1 the layout is theirs."""
+    out = []
+    for key, (off, size, lshape) in offsets.items():
+        gshape, i = gshapes[key], idx[key]
+        leaf = flat[off:off + size]
+        if tuple(lshape) == tuple(gshape):
+            part = leaf[i].float() if rank == 0 else \
+                torch.zeros(i.numel(), device=flat.device)
+        else:
+            cols = gshape[1]
+            row, col = i // cols, i % cols
+            if lshape[0] != gshape[0]:
+                owner = row // lshape[0]
+                local = (row - owner * lshape[0]) * cols + col
+            else:
+                owner = col // lshape[1]
+                local = row * lshape[1] + (col - owner * lshape[1])
+            mine = owner == rank
+            part = torch.zeros(i.numel(), device=flat.device)
+            part[mine] = leaf[local[mine]].float()
+        out.append(part)
+    return torch.cat(out).cpu()
+
+
+def _tp_train_reference(dev, seed: int):
+    """The tp = 1 reference in the parent: TP_TRAIN_STEPS Adam steps of
+    the 4-layer model from the train phase's seeded weights on the
+    phase's batches; the losses, the digest of the step-0 grads and of
+    the master after each step, the step time and the peak memory.
+    Everything is freed before it returns."""
+    from apex_tpu_torch import train_step
+    from apex_tpu_torch.optimizers import functional
+    tokens = _tp_train_tokens(dev, seed)
+    _, model, _ = _train_model(dev, seed, TRAIN_LAYERS)
+    tx = functional.fused_adam(lr=TRAIN_LR)
+    state = train_step.init_train_state(tx, model, loss_scale="dynamic")
+    offsets = train_step.leaf_offsets(model)
+    gshapes = {k: shape for k, (_, _, shape) in offsets.items()}
+    idx = _tp_sample_idx(gshapes, dev)
+    grads = []
+    step = train_step.make_train_step(
+        _train_loss, tx, grad_transform=lambda g: grads.append(
+            _tp_sample(g, offsets, gshapes, idx, 0)) or g)
+    losses, times, masters = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TP_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, _tp_batch(tokens, i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        masters.append(_tp_sample(state.opt.master, offsets, gshapes, idx, 0))
+    ref = dict(losses=losses, grads=grads[0], gshapes=gshapes,
+               masters=masters, step_s=times,
+               peak=torch.cuda.max_memory_allocated(),
+               n=state.opt.global_numel)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _norm_digests(master, offsets) -> dict:
+    """The bits digest of each norm weight's master slice."""
+    return {k: _bits_digest(master[off:off + size])
+            for k, (off, size, _) in offsets.items() if "norm" in k}
+
+
+def _tp_run(label, model, batches, steps: int, rank: int, gshapes,
+            grads_at=(0,)):
+    """``steps`` Adam steps of the tp model (a fresh state from its
+    current weights) with the launch counters zeroed just before and
+    the update kernels' lengths and the collectives recorded; the
+    losses, step times, the digest of the grads at the steps
+    ``grads_at`` and of the master after each step, the norm weights'
+    master digests, launches and peak memory."""
+    from apex_tpu_torch import train_step
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.optimizers import functional
+    tx = functional.fused_adam(lr=TRAIN_LR)
+    state = train_step.init_train_state(tx, model, loss_scale="dynamic")
+    offsets = train_step.leaf_offsets(model)
+    idx = _tp_sample_idx(gshapes, batches[0]["tokens"].device)
+    grads, count = {}, [0]
+
+    def transform(g):
+        if count[0] in grads_at:
+            grads[count[0]] = _tp_sample(g, offsets, gshapes, idx, rank)
+        count[0] += 1
+        return g
+
+    step = train_step.make_train_step(_train_loss, tx,
+                                      grad_transform=transform)
+    out = dict(losses=[], step_s=[], coll=[], masters=[],
+               n=state.opt.global_numel)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    with _kernel_lengths() as lengths, _timed_collectives() as coll:
+        for i in range(steps):
+            coll.clear()
+            t0 = time.perf_counter()
+            state, loss = step(state, batches[i])
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["losses"].append(loss.item())
+            out["coll"].append(list(coll))
+            out["masters"].append(_tp_sample(state.opt.master, offsets,
+                                             gshapes, idx, rank))
+    out.update(launches=_build.launch_counts(), lengths=lengths,
+               peak=torch.cuda.max_memory_allocated(), grads=grads,
+               norms=_norm_digests(state.opt.master, offsets),
+               scale=state.scaler.loss_scale.item())
+    print(f"tp_train rank {rank}: {label}: losses "
+          f"{[round(x, 5) for x in out['losses']]}, step times "
+          f"{[round(t, 3) for t in out['step_s']]} s, peak "
+          f"{out['peak'] / 2**30:.2f} GiB", flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_row_linear(dev, seed: int, rank: int):
+    """(d) ``RowParallelLinear`` alone at TP_ROW_SHAPE -> 4096 bf16: the
+    ring (``overlap_chunks=2``) against the fused all-reduce, forward and
+    backward, with and without ``gradient_accumulation_fusion`` (an fp32
+    weight); ``ring_psum`` of a ``[2048, 4096]`` bf16 tensor against
+    ``dist.all_reduce``."""
+    import torch.distributed as dist
+    from apex_tpu_torch.parallel import _comm
+    from apex_tpu_torch.transformer import parallel_state
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        RowParallelLinear, mappings)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 28 + rank)
+    s, b, k = TP_ROW_SHAPE
+    hidden = FULL_CFG["hidden_size"]
+    x = torch.randn(TP_ROW_SHAPE, generator=gen, device=dev).to(
+        torch.bfloat16)
+    dy = torch.randn(s, b, hidden, generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = torch.randn(hidden, k, generator=gen, device=dev) * k ** -0.5
+    out = {"staged": _comm.hop_staged(x, parallel_state.resolve_group(
+        "tensor"))}
+    for fusion in (False, True):
+        res = {}
+        for chunks in (1, TP_TRAIN_OVERLAP):
+            layer = RowParallelLinear(
+                TP_TRAIN * k, hidden, bias=False, input_is_parallel=True,
+                params_dtype=torch.float32 if fusion else torch.bfloat16,
+                device=dev, gradient_accumulation_fusion=fusion,
+                overlap_chunks=chunks)
+            with torch.no_grad():
+                layer.weight.copy_(w)
+            xi = x.clone().requires_grad_()
+            y, _ = layer(xi)
+            y.backward(dy)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                yy, _ = layer(xi)
+            torch.cuda.synchronize()
+            res[chunks] = dict(y=y.detach(), dx=xi.grad, dw=layer.weight.grad,
+                               fwd_s=(time.perf_counter() - t0) / 3)
+            del layer, yy
+        f, r = res[1], res[TP_TRAIN_OVERLAP]
+        tag = "fused" if fusion else "bf16"
+        out[tag] = dict(
+            fwd_equal=torch.equal(r["y"], f["y"]),
+            fwd_err=float((r["y"].float() - f["y"].float()).abs().max()
+                          / f["y"].float().abs().max()),
+            dx_equal=torch.equal(r["dx"], f["dx"]),
+            dw_equal=torch.equal(r["dw"], f["dw"]),
+            dw_dtype=str(f["dw"].dtype), fwd_s=(f["fwd_s"], r["fwd_s"]))
+        if fusion:
+            want = dy.reshape(-1, hidden).float().T @ x.reshape(-1, k).float()
+            out[tag]["wgrad_rel"] = float(
+                torch.linalg.vector_norm(f["dw"] - want)
+                / torch.linalg.vector_norm(want))
+        del res, f, r
+    t = torch.randn(TRAIN_SEQ, hidden, generator=gen, device=dev).to(
+        torch.bfloat16)
+    want = t.clone()
+    dist.all_reduce(want, group=parallel_state.resolve_group("tensor"))
+    got = mappings.ring_psum(t, "tensor", chunks=TP_TRAIN_OVERLAP)
+    out["ring_psum_equal"] = torch.equal(got, want)
+    return out
+
+
+def _tp_train_rank(rank, tmp, seed):
+    """One rank of the tp_train phase, on cuda:0 over gloo: builds the
+    train phase's seeded tp = 1 weights and keeps its shard (one rank
+    after the other, a barrier between), initialises the topology, gets
+    the batches from tensor rank 0 (``broadcast_data``), runs (a)-(d)
+    and writes what it saw to ``tmp/rank<rank>.pt``."""
+    import dataclasses
+    import datetime
+    import os
+    import torch.distributed as dist
+    from apex_tpu_torch.inference.weights import shard_llama_params
+    from apex_tpu_torch.train_step import leaf_offsets
+    from apex_tpu_torch.transformer import parallel_state
+    from apex_tpu_torch.transformer.tensor_parallel import broadcast_data
+    from apex_tpu_torch.transformer.testing import llama_model_provider
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(tmp) / "store"), TP_TRAIN), rank=rank, world_size=TP_TRAIN,
+        timeout=datetime.timedelta(seconds=600))
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        for r in range(TP_TRAIN):
+            if r == rank:         # the tp = 1 weights, before the topology
+                cfg, model, _ = _train_model(dev, seed, TRAIN_LAYERS)
+                gshapes = {k: shape for k, (_, _, shape) in
+                           leaf_offsets(model).items()}
+                shard = shard_llama_params(_param_tree(model), cfg, TP_TRAIN,
+                                           rank)
+                del model
+                torch.cuda.empty_cache()
+            dist.barrier()
+        parallel_state.initialize_model_parallel(TP_TRAIN)
+        tokens = _tp_train_tokens(dev, seed) if rank == 0 else torch.zeros(
+            (TP_TRAIN_STEPS, 1, TRAIN_SEQ + 1), dtype=torch.int64, device=dev)
+        tokens = broadcast_data(["tokens"], {"tokens": tokens},
+                                torch.int64)["tokens"]
+        batches = [_tp_batch(tokens, i) for i in range(TP_TRAIN_STEPS)]
+        model = llama_model_provider(cfg, device=dev)
+        _load_tree(model, shard)
+        out["setup_s"] = time.perf_counter() - t0
+        out["a"] = _tp_run("(a) column-parallel head", model, batches,
+                           TP_TRAIN_STEPS, rank, gshapes)
+        _load_tree(model, shard)
+        model.cfg = dataclasses.replace(
+            cfg, fused_head_xent=TP_TRAIN_FUSED_CHUNK)
+        out["b"] = _tp_run("(b) fused vocab-parallel head", model, batches,
+                           TP_TRAIN_FUSED_STEPS, rank, gshapes, grads_at=())
+        del model
+        torch.cuda.empty_cache()
+        os.environ["APEX_TPU_TP_OVERLAP_CHUNKS"] = str(TP_TRAIN_OVERLAP)
+        model = llama_model_provider(cfg, device=dev)
+        del os.environ["APEX_TPU_TP_OVERLAP_CHUNKS"]
+        out["c_chunks"] = model.layer_0.mlp.down_proj.overlap_chunks
+        _load_tree(model, shard)
+        out["c"] = _tp_run(f"(c) overlap_chunks={TP_TRAIN_OVERLAP}", model,
+                           batches, 1, rank, gshapes)
+        del model, shard
+        torch.cuda.empty_cache()
+        out["d"] = _tp_row_linear(dev, seed, rank)
+    finally:
+        parallel_state.destroy_model_parallel()
+        dist.destroy_process_group()
+    torch.save(out, Path(tmp) / f"rank{rank}.pt")
+
+
+def _gloo_p2p_probe_rank(rank, store, queue):
+    """One of two gloo ranks on cuda:0: ``send``/``recv`` of a CUDA
+    tensor, unstaged; reports what arrived, or gloo's refusal."""
+    import datetime
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                                rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=30))
+        t = torch.full((4,), float(rank + 1), device="cuda")
+        if rank == 0:
+            dist.send(t, 1)
+            queue.put((rank, "sent", t.tolist()))
+        else:
+            dist.recv(t, 0)
+            torch.cuda.synchronize()
+            queue.put((rank, "delivered right" if t.tolist() == [1.0] * 4
+                       else "delivered wrong values", t.tolist()))
+        dist.destroy_process_group()
+    except Exception as e:      # the probe reports gloo's refusal
+        queue.put((rank, "refused", f"{type(e).__name__}: {str(e)[:300]}"))
+
+
+def _gloo_p2p_probe(tmp: Path) -> str:
+    """What gloo's ``send``/``recv`` do with CUDA tensors, asked by two
+    spawned processes within 60 s (a process that dies is reported by
+    its exit code); every process it starts is ended before it
+    returns."""
+    import queue as queue_mod
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_gloo_p2p_probe_rank,
+                         args=(r, str(tmp / "p2p_store"), q))
+             for r in range(2)]
+    for proc in procs:
+        proc.start()
+    got, t0 = [], time.perf_counter()
+    while len(got) < 2 and time.perf_counter() - t0 < 60:
+        if len(got) + sum(not p.is_alive() and p.exitcode not in (0, None)
+                          for p in procs) >= 2:
+            break
+        try:
+            got.append(q.get(timeout=2))
+        except queue_mod.Empty:
+            pass
+    for proc in procs:
+        proc.join(timeout=10)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    dead = [f"rank {r} exited {p.exitcode}" for r, p in enumerate(procs)
+            if p.exitcode not in (0, None)]
+    return repr(sorted(got)) + (f"; {', '.join(dead)}" if dead else "")
+
+
+def _tp_hold_losses(label, got, want, tol) -> None:
+    worst = max(abs(a - b) for a, b in zip(got, want))
+    print(f"  {label}: losses {[round(x, 5) for x in got]} against "
+          f"{[round(x, 5) for x in want]}: max |diff| {worst:.2e} (limit "
+          f"{tol})")
+    if not worst <= tol:
+        raise AssertionError(f"{label}: the losses are off")
+
+
+def _tp_hold_launches(label, run, steps: int, n_local: int) -> None:
+    """A rank's launches a step: #3 and #4 once a layer, #1 and #2 2 x
+    layers + 1 times, #9 and #13 once at the rank's flat length, #5 and
+    #6 never."""
+    want = {"flash_attention": TRAIN_LAYERS, "flash_attention_bwd":
+            TRAIN_LAYERS, "layer_norm": 2 * TRAIN_LAYERS + 1,
+            "layer_norm_bwd": 2 * TRAIN_LAYERS + 1}
+    got = {k: run["launches"][k] / steps for k in want}
+    print(f"  {label}: launches a step {got} (want {want}), "
+          + ", ".join(f"{k} {run['launches'][k]}" for k in SPLIT_KERNELS)
+          + " (want 0)")
+    if got != want or any(run["launches"][k] for k in SPLIT_KERNELS):
+        raise AssertionError(f"{label}: launches off: {run['launches']}")
+    _hold_lengths(label, run, {"fused_scale": (steps, n_local),
+                               "fused_adam": (steps, n_local)})
+
+
+def _tp_train_gates(ranks, ref, runs, smi) -> None:
+    """What the parent holds the tp_train ranks to (the module
+    docstring's item 21); ``runs`` maps each run to its steps."""
+    d0 = ranks[0]["d"]
+    print(f"tp_train: the ring hop over gloo on CUDA tensors copies through "
+          f"host tensors: {d0['staged']}")
+    for key, steps in runs.items():
+        if any(r[key]["losses"] != ranks[0][key]["losses"] for r in ranks):
+            raise AssertionError(f"tp_train ({key}): the ranks' losses differ")
+        for name in ranks[0][key]["norms"]:
+            if len({str(r[key]["norms"][name]) for r in ranks}) != 1:
+                raise AssertionError(f"tp_train ({key}): the norm master "
+                                     f"{name} differs between the ranks")
+        print(f"tp_train ({key}): the {TP_TRAIN} ranks' losses equal bit for "
+              f"bit; the {len(ranks[0][key]['norms'])} norm weights' masters "
+              f"equal bit for bit")
+        for rank, r in enumerate(ranks):
+            _tp_hold_launches(f"tp_train ({key}) rank {rank}", r[key], steps,
+                              r[key]["n"])
+    # (a) the column-parallel head
+    a = [r["a"] for r in ranks]
+    _tp_hold_losses("tp_train (a) against the tp = 1 reference",
+                    a[0]["losses"], ref["losses"], TOL_TP_LOSS)
+    _grad_hold("tp_train (a) step 0", sum(r["grads"][0] for r in a),
+               ref["grads"], rel_gate=True, against="the tp = 1 reference's",
+               rel_tol=TOL_TP_GRAD_REL)
+    # the first step moves an element by about lr * sign(g): only grads
+    # inside the bf16 noise band flip, and the share is held there; each
+    # later step flips such elements anew (1.37% after 3 steps on an
+    # H100, PERF.md), so later steps hold the bound and print the share
+    # an element moves at most ~lr a step, so two runs part by at most
+    # 2 lr a step, plus the fp32 rounding of a master near 1 (2 ulps)
+    slack = 2 * float(np.spacing(np.float32(1)))
+    _master_hold("tp_train (a) against tp = 1 after step 1",
+                 sum(r["masters"][0] for r in a), ref["masters"][0],
+                 2 * TRAIN_LR + slack, TOL_DP_MASTER_SHARE, TRAIN_LR / 8)
+    for i in range(1, TP_TRAIN_STEPS):
+        diff = (sum(r["masters"][i] for r in a) - ref["masters"][i]).abs()
+        worst, limit = float(diff.max()), 2 * TRAIN_LR * (i + 1) + slack
+        print(f"  tp_train (a) against tp = 1 after step {i + 1}: master "
+              f"digest max |diff| {worst:.3e} (limit {limit:.4e}), share "
+              f"above {TRAIN_LR / 8:.1e} "
+              f"{float((diff > TRAIN_LR / 8).float().mean()):.5f}")
+        if not worst <= limit:
+            raise AssertionError(f"tp_train (a): the master after step "
+                                 f"{i + 1} is off the reference")
+    # (b) the fused vocab-parallel head
+    _tp_hold_losses("tp_train (b) fused head against (a)",
+                    ranks[0]["b"]["losses"],
+                    a[0]["losses"][:TP_TRAIN_FUSED_STEPS], TOL_TP_LOSS)
+    # (c) the ring
+    print(f"tp_train (c): overlap_chunks read at construction: "
+          f"{ranks[0]['c_chunks']}")
+    if ranks[0]["c_chunks"] != TP_TRAIN_OVERLAP:
+        raise AssertionError("tp_train (c): the env knob was not read")
+    _tp_hold_losses("tp_train (c) ring against (a)'s first step",
+                    ranks[0]["c"]["losses"], a[0]["losses"][:1], TOL_TP_LOSS)
+    _grad_hold("tp_train (c) step 0", sum(r["c"]["grads"][0] for r in ranks),
+               sum(r["grads"][0] for r in a), rel_gate=True,
+               against="(a)'s")
+    # (d) RowParallelLinear alone and ring_psum
+    for rank, r in enumerate(ranks):
+        d = r["d"]
+        for tag in ("bf16", "fused"):
+            e = d[tag]
+            print(f"  tp_train (d) rank {rank} {tag}: ring forward equal "
+                  f"{e['fwd_equal']}, max |diff| / max {e['fwd_err']:.3e} "
+                  f"(limit {TOL_TP_RING_FWD:.3e}); dx equal {e['dx_equal']}, "
+                  f"dw ({e['dw_dtype']}) equal {e['dw_equal']}; forward "
+                  f"fused {1e3 * e['fwd_s'][0]:.2f} ms, ring "
+                  f"{1e3 * e['fwd_s'][1]:.2f} ms (gloo, staged hops) [{smi}]"
+                  + (f"; fp32 wgrad against the fp32 product: relative L2 "
+                     f"{e['wgrad_rel']:.2e} (limit {TOL_TP_WGRAD_FP32})"
+                     if tag == "fused" else ""))
+            if not (e["dx_equal"] and e["dw_equal"]
+                    and e["fwd_err"] <= TOL_TP_RING_FWD):
+                raise AssertionError(f"tp_train (d) {tag}: the ring is off "
+                                     f"the fused path")
+            if tag == "fused" and not (e["dw_dtype"] == "torch.float32"
+                                       and e["wgrad_rel"]
+                                       <= TOL_TP_WGRAD_FP32):
+                raise AssertionError("tp_train (d): the fp32 wgrad is off")
+        print(f"  tp_train (d) rank {rank}: ring_psum of [{TRAIN_SEQ}, "
+              f"{FULL_CFG['hidden_size']}] bf16 equals all_reduce bit for "
+              f"bit: {d['ring_psum_equal']}")
+        if not d["ring_psum_equal"]:
+            raise AssertionError("tp_train (d): ring_psum is not all_reduce")
+
+
+def phase_tp_train(dev, seed: int):
+    """Tensor-parallel training at tp = 2 on the one card (the module
+    docstring's item 21): the tp = 1 reference in the parent
+    (:func:`_tp_train_reference`), freed, then the two ranks
+    (:func:`_tp_train_rank`) on cuda:0 over gloo, held here.  Returns the
+    ranks' launches of (a)-(c), summed."""
+    import tempfile
+    import torch.multiprocessing as mp
+    smi = _smi()
+    t_phase = time.perf_counter()
+    _card_memory("tp_train, before the reference")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tpt_") as tmp_dir:
+        tmp = Path(tmp_dir)
+        nccl = _nccl_probe(tmp)
+        p2p = _gloo_p2p_probe(tmp)
+        print(f"tp_train: {TP_TRAIN} ranks on cuda:0 over gloo (NCCL asked "
+              f"for two ranks on this card: {nccl}); gloo send/recv of an "
+              f"unstaged CUDA tensor: {p2p} [{smi}]")
+        ref = _tp_train_reference(dev, seed)
+        print(f"tp_train reference (tp = 1, Llama-3-8B widths, "
+              f"{TRAIN_LAYERS} layers, {ref['n']} parameters, {TRAIN_SEQ} "
+              f"tokens a step): losses {[round(x, 5) for x in ref['losses']]}"
+              f", step times {[round(t, 3) for t in ref['step_s']]} s, peak "
+              f"{ref['peak'] / 2**30:.2f} GiB [{smi}]")
+        _card_memory("tp_train, before the ranks")
+        t0 = time.perf_counter()
+        mp.start_processes(_tp_train_rank, nprocs=TP_TRAIN,
+                           start_method="spawn", args=(str(tmp), seed))
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(TP_TRAIN)]
+    runs = {"a": TP_TRAIN_STEPS, "b": TP_TRAIN_FUSED_STEPS, "c": 1}
+    _tp_train_gates(ranks, ref, runs, smi)
+    # the numbers
+    total: dict = {}
+    for key, steps in runs.items():
+        for rank, r in enumerate(ranks):
+            run = r[key]
+            print(f"tp_train ({key}) rank {rank}: step times "
+                  f"{[round(t, 3) for t in run['step_s']]} s (tp = 1: "
+                  f"{[round(t, 3) for t in ref['step_s']]}), peak "
+                  f"{run['peak'] / 2**30:.2f} GiB (tp = 1: "
+                  f"{ref['peak'] / 2**30:.2f}), flat length {run['n']} "
+                  f"[{smi}]")
+            for i, rec in enumerate(run["coll"]):
+                print(f"  step {i}: gloo collectives (host copies inside "
+                      f"gloo or staged; not an NCCL figure): "
+                      f"{_coll_line(rec)}")
+            for k, v in run["launches"].items():
+                total[k] = total.get(k, 0) + v
+    print(f"tp_train: the ranks set up in "
+          f"{max(r['setup_s'] for r in ranks):.1f} s and ran in "
+          f"{ranks_s:.1f} s, the phase {time.perf_counter() - t_phase:.1f} s "
+          f"[{smi}]")
+    return dict(launches=total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="kernels,serve,gpt,bert,bert_train,gpt_train,"
                             "gpt_train_8k,profile,train,lean_train,optim,"
-                            "train-check,width,spec,tp,dp,tier,fleet,shim",
+                            "train-check,width,spec,tp,dp,tp_train,tier,"
+                            "fleet,shim",
                     help="comma list of kernels, serve, gpt, bert, "
                          "bert_train, gpt_train, gpt_train_8k, profile, "
                          "train, lean_train, optim, train-check, width, "
-                         "spec, tp, dp, tier, fleet, shim, ab "
+                         "spec, tp, dp, tp_train, tier, fleet, shim, ab "
                          "(build always "
                          "runs; profile profiles the serve and the train "
                          "phases that run)")
@@ -9114,6 +9712,14 @@ def main(argv=None) -> int:
         del dp
         torch.cuda.empty_cache()
     lap("dp")
+    if "tp_train" in phases:
+        tpt = phase_tp_train(dev, args.seed)
+        for key, r in recs.items():
+            r["launches"] = (r.get("launches") or 0) + tpt["launches"].get(
+                key, 0)
+        del tpt
+        torch.cuda.empty_cache()
+    lap("tp_train")
     tier_ref = None
     for phase in ("tier", "fleet"):
         if phase not in phases:

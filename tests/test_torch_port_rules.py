@@ -93,11 +93,16 @@ def test_ast_scan_no_jax_or_apex_tpu_imports():
                           if n.split(".")[0] in banned]
     assert not offenders, offenders
     assert len(_sources()) >= 25
-    # the last slice's modules are among those scanned
+    # the last slices' modules are among those scanned
     scanned = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    tp = "apex_tpu_torch/transformer/tensor_parallel/"
     assert {"apex_tpu_torch/multi_tensor_apply/__init__.py",
             "apex_tpu_torch/ops/attention.py",
-            "apex_tpu_torch/ops/fused_update.py"} <= scanned
+            "apex_tpu_torch/ops/fused_update.py",
+            "apex_tpu_torch/transformer/utils.py",
+            tp + "mappings.py", tp + "random.py", tp + "data.py",
+            tp + "memory.py", tp + "layers.py",
+            tp + "cross_entropy.py"} <= scanned
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
@@ -317,12 +322,31 @@ def test_configurations_the_jax_engine_refuses_raise_its_value_error(
 
 def test_env_knobs_cannot_silently_select_an_unported_path(monkeypatch):
     """``APEX_TPU_SERVE_TP=2`` without a process group raises: the
-    engine never serves one rank's shard as if it were the model."""
+    engine never serves one rank's shard as if it were the model.
+    ``APEX_TPU_TP_OVERLAP_CHUNKS`` is read once, at a layer's
+    construction: at tp = 1 it changes nothing (as in JAX, the ring runs
+    only at tp > 1), and a tp = 2 layer without its group raises, the
+    ring or not; ``ring_psum`` without a topology raises too."""
     monkeypatch.setenv("APEX_TPU_SPEC_K", "3")
     monkeypatch.setenv("APEX_TPU_SERVE_TP", "2")
     with pytest.raises(RuntimeError, match=NO_GROUP):
         InferenceEngine("llama", CFG, _params(), slots=1, page_size=16,
                         device="cpu")
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        RowParallelLinear, mappings)
+    monkeypatch.setenv("APEX_TPU_TP_OVERLAP_CHUNKS", "2")
+    layer = RowParallelLinear(8, 4, bias=False, device="cpu")
+    assert layer.overlap_chunks == 2 and layer.tp == 1
+    x = torch.randn(4, 8)
+    torch.testing.assert_close(layer(x)[0], x @ layer.weight.T, rtol=0,
+                               atol=0)
+    monkeypatch.delenv("APEX_TPU_TP_OVERLAP_CHUNKS")
+    assert RowParallelLinear(8, 4, device="cpu").overlap_chunks == 1
+    monkeypatch.setenv("APEX_TPU_TP_OVERLAP_CHUNKS", "2")
+    with pytest.raises(RuntimeError, match="initialize_model_parallel"):
+        RowParallelLinear(8, 4, tensor_model_parallel_size=2, device="cpu")
+    with pytest.raises(RuntimeError, match="initialize_model_parallel"):
+        mappings.ring_psum(x, chunks=2)
 
 
 def test_every_kernel_source_exists_and_exports_its_entry():
@@ -420,19 +444,22 @@ def test_training_out_of_slice_options_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="initialize_model_parallel"):
         unscale_flat_grads(torch.zeros(4), init_loss_scale(device="cpu"),
                            axis_name="data")
+    # tp > 1 is ported (item 6b): without a topology to run on, a tp = 2
+    # layer or loss raises, naming initialize_model_parallel (no rank
+    # quietly computes alone); sequence parallelism is still refused
     for layer in (ColumnParallelLinear, RowParallelLinear):
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(RuntimeError, match="initialize_model_parallel"):
             layer(8, 8, tensor_model_parallel_size=2, device="cpu")
         with pytest.raises(NotImplementedError, match="item 6"):
             layer(8, 8, sequence_parallel_enabled=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(RuntimeError, match="initialize_model_parallel"):
         VocabParallelEmbedding(8, 8, tensor_model_parallel_size=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(RuntimeError, match="initialize_model_parallel"):
         vocab_parallel_cross_entropy(torch.zeros(2, 8), torch.zeros(2),
                                      tensor_model_parallel_size=2)
     # the loss side is ported: the fused head (by fused_head_xent and by
-    # APEX_TPU_XENT_CHUNK) and remat run and give the unfused loss; only
-    # the fused head's tp > 1 still raises
+    # APEX_TPU_XENT_CHUNK) and remat run and give the unfused loss; the
+    # fused head at tp > 1 needs its process group
     from apex_tpu_torch.ops.fused_lm_xent import (
         fused_lm_head_vocab_parallel_cross_entropy)
     tokens = torch.arange(8, dtype=torch.int32)[None]
@@ -446,7 +473,7 @@ def test_training_out_of_slice_options_raise(monkeypatch):
         monkeypatch.setenv("APEX_TPU_XENT_CHUNK", "3")
         torch.testing.assert_close(model(tokens, tokens), want, rtol=0,
                                    atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(RuntimeError, match="initialize_model_parallel"):
         fused_lm_head_vocab_parallel_cross_entropy(
             torch.zeros(2, 32), model.lm_head.weight, torch.zeros(2),
             token_chunk=1, tensor_model_parallel_size=2)
@@ -510,3 +537,5 @@ def test_chip_smoke_runs_the_lean_phase_by_default():
     phases = defaults[0].split(",")
     assert "lean_train" in phases
     assert phases.index("lean_train") == phases.index("train") + 1
+    # tensor-parallel training runs by default, after the dp phase
+    assert phases.index("tp_train") == phases.index("dp") + 1

@@ -173,8 +173,11 @@ def test_half_residuals_save_the_softmax_in_bf16():
 
 
 def test_half_residuals_raise_only_at_tp_above_1():
+    """At tp > 1 the sharded loss runs over its process group
+    (tests/test_torch_tp_training.py); without a topology it raises,
+    naming initialize_model_parallel."""
     logits, labels, _ = _inputs(4, 16, 5)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(RuntimeError, match="initialize_model_parallel"):
         vocab_parallel_cross_entropy(torch.from_numpy(logits),
                                      torch.from_numpy(labels),
                                      half_residuals=True,
