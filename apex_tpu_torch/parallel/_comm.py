@@ -4,8 +4,9 @@ One function a collective (:func:`all_reduce`, :func:`reduce_scatter`,
 :func:`all_gather`, :func:`broadcast`), each the ``torch.distributed``
 call on the caller's tensors, whatever the backend (NCCL, or gloo where
 ranks share a card or run on the CPU), and :func:`ring_hop`, the
-tensor-parallel ring's point-to-point step.  All of them go through
-:func:`_run`, the one place that issues them.
+point-to-point step of the tensor-parallel ring and of the pipeline's
+ring, in either direction.  All of them go through :func:`_run`, the
+one place that issues them.
 
 gloo copies its collectives' CUDA tensors through the host inside the
 call, but its ``send`` and ``recv`` have no CUDA path: they would take
@@ -33,17 +34,23 @@ def hop_staged(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def _hop(out, inp, group) -> None:
-    """Send ``inp`` to the next rank of ``group`` and receive the
-    previous rank's into ``out``."""
+def _hop(out, inp, group, step: int) -> None:
+    """Send ``inp`` to rank r + ``step`` of ``group`` and receive rank
+    r - ``step``'s into ``out`` (ranks modulo the group's size; a group
+    of one copies ``inp``).  The two directions carry tags of their own:
+    at two ranks, r + 1 and r - 1 are the same peer."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
+    if n == 1:
+        out.copy_(inp)
+        return
     send, recv = inp, out
     if hop_staged(inp, group):
         send, recv = inp.cpu(), torch.empty(out.shape, dtype=out.dtype)
+    tag = 0 if step > 0 else 1
     ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(
-               group, (r + 1) % n), group),
+               group, (r + step) % n), group, tag),
            dist.P2POp(dist.irecv, recv, dist.get_global_rank(
-               group, (r + n - 1) % n), group)]
+               group, (r - step) % n), group, tag)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     if recv is not out:
@@ -51,8 +58,9 @@ def _hop(out, inp, group) -> None:
 
 
 def _run(name: str, out, inp, group, op) -> None:
-    """Issue collective ``name``; ``op`` is the reduction, or the
-    broadcast's source (a global rank)."""
+    """Issue collective ``name``; ``op`` is the reduction, the
+    broadcast's source (a global rank), or the ring hop's step (+1 or
+    -1)."""
     if name == "all_reduce":
         dist.all_reduce(out, op=op, group=group)
     elif name == "reduce_scatter":
@@ -62,7 +70,7 @@ def _run(name: str, out, inp, group, op) -> None:
     elif name == "broadcast":
         dist.broadcast(out, src=op, group=group)
     else:
-        _hop(out, inp, group)
+        _hop(out, inp, group, op)
 
 
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -100,9 +108,13 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     return t
 
 
-def ring_hop(t: torch.Tensor, group) -> torch.Tensor:
-    """One hop of the ring, rank r -> r + 1 of ``group``: returns the
-    previous rank's ``t`` (a new tensor of ``t``'s shape)."""
+def ring_hop(t: torch.Tensor, group, step: int = 1) -> torch.Tensor:
+    """One hop of the ring, rank r -> r + ``step`` of ``group`` (``step``
+    +1: forward, -1: backward): returns rank r - ``step``'s ``t`` (a new
+    tensor of ``t``'s shape).  Over gloo on CUDA the hop is staged
+    through host tensors (:func:`hop_staged`)."""
+    if step not in (1, -1):
+        raise ValueError(f"a ring hop steps +1 or -1, not {step}")
     out = torch.empty_like(t, memory_format=torch.contiguous_format)
-    _run("ring_hop", out, t.contiguous(), group, None)
+    _run("ring_hop", out, t.contiguous(), group, step)
     return out

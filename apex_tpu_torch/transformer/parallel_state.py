@@ -157,8 +157,11 @@ def initialize_model_parallel(
     ``new_group`` is collective.  The data-parallel size is
     ``world_size // (tp * pp * cp * ep)``.  ``default_backend`` is the
     groups' backend (``None``: the world's); ``p2p_backend`` is accepted
-    for signature parity (no pipeline schedule is ported yet).  Returns
-    the rank grid."""
+    for signature parity: the pipeline schedules' hops
+    (``pipeline_parallel.p2p_communication``) ride the pipe group, in
+    its backend.  ``virtual_pipeline_model_parallel_size_`` is the
+    interleaved executor's default chunk count.  Returns the rank
+    grid."""
     global _STATE, _VIRTUAL_PIPELINE_MODEL_PARALLEL_WORLD_SIZE
     _require_distributed("initialize_model_parallel")
     tp = tensor_model_parallel_size_

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases kernels,train   # the training slice
     python3 chip_smoke.py --phases spec            # speculative decoding
     python3 chip_smoke.py --phases dp              # DDP and ZeRO, dp = 2
+    python3 chip_smoke.py --phases pp_train        # pipelined, pp = 2
 
 1. **Build.**  Prints the card's name and power limit, compiles the
    port's CUDA kernels from ``apex_tpu_torch/csrc`` (``nvcc``, sm_90a)
@@ -369,11 +370,11 @@
    nothing, so a refusal fails the phase).  Llama-3-8B widths at 2
    layers (1.487e9 parameters: two ranks' dense DDP state at 4 layers
    would not fit twice in 80 GB), bf16 parameters, dynamic loss scale.
-   The parent first takes 2 dense ``fused_adam`` steps on global
-   batches of 2 x 2048 tokens and 1 ``FusedLAMB`` step (the class, over
+   The parent first takes 1 dense ``fused_adam`` step on a global
+   batch of 2 x 2048 tokens and 1 ``FusedLAMB`` step (the class, over
    the model's tree) from the same weights, keeping the losses and a
    digest of the master (every 997th element), and frees them.  Each
-   rank takes its row of the same batches: (a) DDP, the dense step with
+   rank takes its row of the same batch: (a) DDP, the dense step with
    ``grad_transform=DistributedDataParallel().reduce_gradients`` (the
    ranks' masters bit for bit, the mean loss and the master digest
    against the reference); (b) ZeRO, ``init_train_state(...,
@@ -408,13 +409,13 @@
    that).  Llama-3-8B widths at 4 layers (1.923e9 parameters, ~9.6e8 a
    rank), 2048 tokens a step, bf16 parameters, fp32 master,
    ``fused_adam``, dynamic loss scale, through ``make_train_step``.
-   The parent first takes 3 steps at tp = 1 from the train phase's
-   seeded weights on the phase's 3 batches, keeping the losses, a
+   The parent first takes 2 steps at tp = 1 from the train phase's
+   seeded weights on the phase's 2 batches, keeping the losses, a
    digest of the step-0 grads and of the master after the last step
    (every 997th element of each leaf), and frees them.  Each rank builds
    the same weights, one rank after the other, keeps its shard
    (``shard_llama_params``) and gets the batches from tensor rank 0
-   (``broadcast_data``): (a) the column-parallel head, 3 steps; (b) the
+   (``broadcast_data``): (a) the column-parallel head, 2 steps; (b) the
    fused vocab-parallel head (token chunk 1024), 2 steps; (c)
    ``APEX_TPU_TP_OVERLAP_CHUNKS=2`` at construction, 1 step from (a)'s
    first weights and batch; (d) ``RowParallelLinear`` alone at ``[2048,
@@ -444,6 +445,45 @@
    collectives (count and seconds by kind), the launches, each beside
    the card's name and power limit; the ranks' launches are added to
    the ``kernels`` line's counts.
+22. **PP train** (``pp_train``, after tp_train, before tier).  Pipelined
+   training at pp = 2 on the one card: two spawned ranks on cuda:0 over
+   gloo, one process a rank, the pipe ring's hops staged through host
+   tensors (``parallel._comm.ring_hop``).  Llama-3-8B widths at 4
+   layers, two a rank (the last rank also the final norm and the head),
+   built from ``LlamaBlock`` and applied with
+   ``torch.func.functional_call`` to the stage's param tree; the
+   embedding lookup is the frozen ``input_fn``; 8 microbatches of ``[1,
+   2048]`` tokens a step (16384 tokens).  The parent first runs
+   ``forward_backward_no_pipelining`` over all four layers on the same
+   seeded weights and batches, with ``GradScaler.unscale_`` (#9) and
+   ``FusedAdam`` (#13), 2 steps, keeping the losses, the digest of the
+   step-0 grads (every 997th element of each leaf) and of the master
+   after each step, and frees them.  Each rank, on the first weights and
+   batch: (b) the GPipe oracle (``use_1f1b=False``), (d)
+   ``forward_only``, (c) the interleaved executor at v = 2 (rank 0 holds
+   layers 0 and 2, rank 1 layers 1 and 3; the norm and head a frozen
+   closure of a 2-argument loss); then (a) 2 steps of
+   ``forward_backward_pipelining_without_interleaving``, the unscale and
+   ``FusedAdam`` over the rank's stage; and (e) one more step with an inf
+   written into rank 0's grads before the unscale.  Gates: the ranks'
+   losses equal; the losses of (a)'s first step, (b), (c) and (d) within
+   TOL_DP_LOSS of the reference's; the step-0 grads of (a) and (b), and
+   (c)'s layer grads, within TOL_PP_GRAD relative L2 of the reference's
+   (and their least-squares scale within 1 +- TOL_DP_GRAD); at most
+   2 (pp - 1) + 1 microbatch graphs in flight on a rank in (a), all 8 on
+   rank 0 in (b), and (a)'s executor adding less memory than (b)'s on
+   rank 0; each run's launches equal to those worked out from the stage
+   (#1 and #2 twice a layer and microbatch and the final norm once a
+   microbatch on the last rank, #3 and #4 once a layer and microbatch,
+   #9 and #13 once a step at the stage's flat length, #5 and #6 never);
+   (a)'s masters within 2 lr a step and 2 fp32 ulps of the reference's;
+   (e) skipped on both ranks (found_inf 1, master and moments unchanged
+   bit for bit, the step count advanced, the scale halved).  Prints each
+   rank's step times beside the reference's, each step's hops and 10
+   hops alone each way (gloo, staged: not an NCCL figure), the peak a
+   rank, and the measured bubble share of (a) and (c) beside the
+   schedule's, each beside the card's name and power limit; the ranks' launches are added to the
+   ``kernels`` line's counts.
 
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed phase raises, so the
@@ -8291,7 +8331,7 @@ def phase_fleet(dev, seed: int, ref=None):
 #: activations) does not fit twice in 80 GB; at 2 layers it is ~30 GB.
 DP = 2
 DP_LAYERS = 2
-DP_STEPS = 2
+DP_STEPS = 1
 DP_LAMB_STEPS = 1
 #: the ZeRO state's prefetch spans (gathered and reduce-scattered one span
 #: at a time, so no full-length flat temporary is ever made)
@@ -9025,7 +9065,7 @@ def phase_dp(dev, seed: int):
 TP_TRAIN = 2
 #: (a) the column-parallel head's steps, (b) the fused head's, (c) the
 #: ring's (from (a)'s first weights and batch)
-TP_TRAIN_STEPS = 3
+TP_TRAIN_STEPS = 2
 TP_TRAIN_FUSED_STEPS = 2
 TP_TRAIN_FUSED_CHUNK = 1024
 TP_TRAIN_OVERLAP = 2
@@ -9569,18 +9609,644 @@ def phase_tp_train(dev, seed: int):
     return dict(launches=total)
 
 
+#: pipelined training (the pp_train phase): two ranks on the one card,
+#: Llama-3-8B widths at the train phase's 4 layers, two a rank
+PP_TRAIN = 2
+#: microbatches of [1, TRAIN_SEQ] tokens a step: 16384 tokens a step
+PP_MICRO = 8
+#: (a)'s 1F1B steps (the second on the phase's second batch)
+PP_STEPS = 2
+#: (c)'s chunks a rank: chunk c of rank r is layer c * PP_TRAIN + r
+PP_V = 2
+#: the pipelined grads against the reference's (relative L2 of the
+#: digest; the least-squares scale within 1 +- TOL_DP_GRAD): both sides
+#: run the same kernels on the same operands in the same order, and the
+#: loss cotangent 1/8 and the scale 2^16 are powers of 2, so on the CPU
+#: (the port, bf16, same shapes cut to hidden 64) they agree bit for bit;
+#: on the card #4's dq, added by bulk reductions in any order, parts them
+#: (PERF.md).  TOL_DP_GRAD is the ceiling
+TOL_PP_GRAD = TOL_DP_GRAD
+
+
+def _pp_tokens(dev, seed: int):
+    """The phase's batches: ``[PP_STEPS, PP_MICRO, 1, TRAIN_SEQ + 1]``
+    seeded tokens (every rank draws the same)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 29)
+    return torch.randint(0, FULL_CFG["vocab_size"],
+                         (PP_STEPS, PP_MICRO, 1, TRAIN_SEQ + 1),
+                         generator=gen, device=dev)
+
+
+def _pp_batch(tokens, i: int) -> dict:
+    t = tokens[i]
+    return {"tokens": t[..., :-1].contiguous(),
+            "labels": t[..., 1:].contiguous()}
+
+
+#: the LlamaBlock whose parameters ``torch.func.functional_call`` swaps
+#: for a stage's
+_PP_BLOCK: list = []
+
+
+def _pp_flat(tree, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_pp_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _pp_stage(p, x, mb):
+    """A stage: its layers (``p["layers"]``, by global name, in order)."""
+    for layer in p["layers"].values():
+        x = torch.func.functional_call(_PP_BLOCK[0], _pp_flat(layer), (x,))
+    return x
+
+
+def _pp_chunk_stage(p, x, mb):
+    """An interleaved chunk: one layer."""
+    return torch.func.functional_call(_PP_BLOCK[0], _pp_flat(p["layer"]),
+                                      (x,))
+
+
+def _pp_head(y, mb, norm_w, head_w):
+    """The final RMSNorm, the head and the cross entropy of
+    ``LlamaModel.forward`` (fp32 logits)."""
+    from apex_tpu_torch.normalization import fused_rms_norm
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        vocab_parallel_cross_entropy)
+    h = fused_rms_norm(y, (FULL_CFG["hidden_size"],), norm_w, 1e-5)
+    logits = F.linear(h, head_w)
+    return vocab_parallel_cross_entropy(logits.float(),
+                                        mb["labels"].T).mean()
+
+
+def _pp_loss(scale):
+    """The 3-arg loss (the last stage's norm and head train), times the
+    loss scale."""
+    def loss(y, mb, p):
+        return _pp_head(y, mb, p["final_norm"]["weight"],
+                        p["lm_head"]["weight"]) * scale
+    return loss
+
+
+def _pp_input(embed):
+    """The frozen embedding lookup, ``[s, b, h]``."""
+    return lambda mb: F.embedding(mb["tokens"], embed).transpose(0, 1)
+
+
+def _pp_digest(tree, divide=1.0, prefix: str = "") -> dict:
+    """Every DP_SAMPLE-th element of each leaf of a grad tree (by dotted
+    name), over ``divide``, as fp32 on the host."""
+    return {k: (v.reshape(-1)[::DP_SAMPLE].float() / divide).cpu()
+            for k, v in _pp_flat(tree, prefix).items()}
+
+
+def _pp_master_digest(opt, tree) -> dict:
+    """The same elements of the optimizer's fp32 master, by the leaf
+    names of ``tree`` (the tree it was built on)."""
+    from apex_tpu_torch.utils import tree_leaves_with_path
+    g = opt.param_groups[0]
+    return {".".join(path): g.master[off:off + size][::DP_SAMPLE].cpu()
+            for (path, _), off, size in zip(tree_leaves_with_path(tree),
+                                            g.offsets, g.sizes)}
+
+
+def _pp_train_reference(dev, seed: int):
+    """The reference in the parent: ``forward_backward_no_pipelining``
+    over all four layers and the same 8 microbatches on the same seeded
+    weights, then ``GradScaler.unscale_`` and ``FusedAdam``, PP_STEPS
+    steps; the losses, the digest of the step-0 grads and of the master
+    after each step, the step times and the peak.  Everything is freed
+    before it returns."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer import pipeline_parallel as tpp
+    from apex_tpu_torch.transformer.amp import GradScaler
+    tokens = _pp_tokens(dev, seed)
+    _, model, _ = _train_model(dev, seed, TRAIN_LAYERS)
+    tree = _param_tree(model)
+    params = {"layers": {f"layer_{i}": tree[f"layer_{i}"]
+                         for i in range(TRAIN_LAYERS)},
+              "final_norm": tree["final_norm"], "lm_head": tree["lm_head"]}
+    input_fn = _pp_input(tree["embed_tokens"]["weight"])
+    _PP_BLOCK[:] = [model.layer_0]
+    scaler = GradScaler(device=dev)
+    st = scaler.init()
+    opt = FusedAdam(params, lr=TRAIN_LR)
+    out = dict(losses=[], step_s=[], masters=[])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(PP_STEPS):
+        t0 = time.perf_counter()
+        scale = st.loss_scale.item()
+        loss, grads = tpp.forward_backward_no_pipelining(
+            _pp_stage, _pp_loss(st.loss_scale), params, _pp_batch(tokens, i),
+            num_microbatches=PP_MICRO, input_fn=input_fn)
+        grads, st = scaler.unscale_(grads, st)
+        params = opt.step(grads, noop_flag=st.found_inf)
+        st = scaler.update(st)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(loss.item() / scale)
+        if i == 0:
+            out["grads"] = _pp_digest(grads)
+        out["masters"].append(_pp_master_digest(opt, params))
+        del grads
+    out.update(peak=torch.cuda.max_memory_allocated(),
+               n=opt.param_groups[0].numel)
+    _PP_BLOCK.clear()
+    del model, tree, params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_measure(fn) -> dict:
+    """``fn(timeline)`` (an executor call) with the collectives timed:
+    its seconds, the peak memory it added, its ticks' compute, the most
+    microbatch graphs it held, its collectives."""
+    from apex_tpu_torch.transformer.pipeline_parallel import schedules
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    timeline: list = []
+    with _timed_collectives() as coll:
+        t0 = time.perf_counter()
+        out = fn(timeline)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return dict(out=out, s=secs, timeline=timeline, coll=list(coll),
+                rise=torch.cuda.max_memory_allocated() - base,
+                in_flight=schedules.last_run_stats()["max_in_flight"])
+
+
+def _pp_runs(rank, stage, chunks, head, input_fn, tokens, dev):
+    """(b) the GPipe oracle, (d) forward only, (c) interleaved, all on
+    the first weights and batch; then (a) PP_STEPS 1F1B steps with
+    ``GradScaler`` and ``FusedAdam``, and (e) one step with an inf in
+    rank 0's grads.  Each run's launches counted from 0."""
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer import pipeline_parallel as tpp
+    from apex_tpu_torch.transformer.amp import GradScaler
+    f = tpp.forward_backward_pipelining_without_interleaving
+    kw = dict(num_microbatches=PP_MICRO, input_fn=input_fn)
+    batch0 = _pp_batch(tokens, 0)
+    scaler = GradScaler(device=dev)
+    st = scaler.init()
+    scale = st.loss_scale.item()
+    out = {}
+    # (b) the GPipe oracle
+    _build.reset_launch_counts()
+    m = _pp_measure(lambda tl: f(_pp_stage, _pp_loss(st.loss_scale), stage,
+                                 batch0, use_1f1b=False, timeline=tl, **kw))
+    loss, grads = m.pop("out")
+    out["b"] = dict(m, loss=loss.item() / scale,
+                    grads=_pp_digest(grads, scale),
+                    launches=_build.launch_counts())
+    del grads
+    # (d) forward only
+    _build.reset_launch_counts()
+    m = _pp_measure(lambda tl: f(_pp_stage, _pp_loss(st.loss_scale), stage,
+                                 batch0, forward_only=True, timeline=tl,
+                                 **kw))
+    loss, grads = m.pop("out")
+    out["d"] = dict(m, loss=loss.item() / scale, grads_none=grads is None,
+                    launches=_build.launch_counts())
+    # (c) interleaved, v = PP_V: the norm and head a frozen closure
+    _build.reset_launch_counts()
+    m = _pp_measure(lambda tl: tpp.forward_backward_pipelining_with_interleaving(
+        _pp_chunk_stage, lambda y, mb: _pp_head(y, mb, *head) * st.loss_scale,
+        chunks, batch0, virtual_pipeline_model_parallel_size=PP_V,
+        timeline=tl, **kw))
+    loss, grads = m.pop("out")
+    digest = {}
+    for c in range(PP_V):
+        layer = tpp.utils.tree_map(lambda g, c=c: g[c], grads["layer"])
+        digest.update(_pp_digest(
+            layer, scale, f"layers.layer_{c * PP_TRAIN + rank}."))
+    out["c"] = dict(m, loss=loss.item() / scale, grads=digest,
+                    launches=_build.launch_counts())
+    del grads, layer
+    # (a) 1F1B steps
+    opt = FusedAdam(stage, lr=TRAIN_LR)
+    n_local = opt.param_groups[0].numel
+    params = stage
+    a = dict(losses=[], step_s=[], steps=[], masters=[], n=n_local)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    peak = 0
+    with _kernel_lengths() as lengths:
+        for i in range(PP_STEPS):
+            t0 = time.perf_counter()
+            scale = st.loss_scale.item()
+            m = _pp_measure(lambda tl: f(
+                _pp_stage, _pp_loss(st.loss_scale), params,
+                _pp_batch(tokens, i), timeline=tl, **kw))
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            loss, grads = m.pop("out")
+            grads, st = scaler.unscale_(grads, st)
+            params = opt.step(grads, noop_flag=st.found_inf)
+            st = scaler.update(st)
+            torch.cuda.synchronize()
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            a["step_s"].append(time.perf_counter() - t0)
+            a["losses"].append(loss.item() / scale)
+            a["steps"].append(m)
+            if i == 0:
+                a["grads"] = _pp_digest(grads)
+            a["masters"].append(_pp_master_digest(opt, params))
+            del grads
+    a.update(launches=_build.launch_counts(), lengths=lengths, peak=peak,
+             scale=st.loss_scale.item())
+    out["a"] = a
+    # (e) the overflow: an inf in rank 0's grads before the unscale
+    g0 = opt.param_groups[0]
+    bufs = (g0.master, g0.state["exp_avg"], g0.state["exp_avg_sq"])
+    before = [b.clone() for b in bufs]
+    count, scale = opt.step_count, st.loss_scale.item()
+    _build.reset_launch_counts()
+    with _kernel_lengths() as lengths:
+        loss, grads = f(_pp_stage, _pp_loss(st.loss_scale), params, batch0,
+                        **kw)
+        if rank == 0:
+            first = tpp.utils.tree_leaves(grads)[0]
+            first.view(-1)[0] = float("inf")
+        grads, st = scaler.unscale_(grads, st)
+        found = st.found_inf.item()
+        opt.step(grads, noop_flag=st.found_inf)
+        st = scaler.update(st)
+        torch.cuda.synchronize()
+    g0 = opt.param_groups[0]
+    after = (g0.master, g0.state["exp_avg"], g0.state["exp_avg_sq"])
+    out["e"] = dict(same=all(torch.equal(x, y) for x, y in
+                             zip(after, before)),
+                    found_inf=found, count=(count, opt.step_count),
+                    scale=(scale, st.loss_scale.item()),
+                    launches=_build.launch_counts(), lengths=lengths,
+                    n=n_local)
+    del before, grads, opt, params
+    torch.cuda.empty_cache()
+    return out
+
+
+#: the timed hops of each direction, alone (a barrier first, the device
+#: synchronised around each), of one microbatch's activation
+PP_HOPS = 10
+
+
+def _pp_hop_times(dev) -> dict:
+    """Seconds of PP_HOPS back-to-back hops of a ``[TRAIN_SEQ, 1,
+    hidden]`` bf16 payload each way around the pipe ring, both ranks
+    starting together: the staged transfer without a peer to wait
+    for."""
+    import torch.distributed as dist
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        p2p_communication as p2p)
+    payload = torch.ones(TRAIN_SEQ, 1, FULL_CFG["hidden_size"],
+                         dtype=torch.bfloat16, device=dev)
+    out = {}
+    for name, hop in (("forward", p2p.send_forward_recv_forward),
+                      ("backward", p2p.send_backward_recv_backward)):
+        hop(payload)                                  # warm the pair
+        dist.barrier()
+        times = []
+        for _ in range(PP_HOPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hop(payload)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[name] = times
+    return out
+
+
+def _pp_train_rank(rank, tmp, seed):
+    """One rank of the pp_train phase, on cuda:0 over gloo: builds the
+    train phase's seeded weights and keeps its stage (layers 2r and
+    2r + 1; the last rank also the final norm and the head), its
+    interleaved chunks (layers r and r + 2, stacked) and the frozen
+    embedding, one rank after the other, initialises the topology at pp
+    = PP_TRAIN, runs (a)-(e) and writes what it saw to
+    ``tmp/rank<rank>.pt``."""
+    import datetime
+    import os
+    import torch.distributed as dist
+    from apex_tpu_torch.parallel import _comm
+    from apex_tpu_torch.transformer import parallel_state
+    from apex_tpu_torch.transformer import pipeline_parallel as tpp
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(tmp) / "store"), PP_TRAIN), rank=rank, world_size=PP_TRAIN,
+        timeout=datetime.timedelta(seconds=600))
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        per = TRAIN_LAYERS // PP_TRAIN
+        last = rank == PP_TRAIN - 1
+        for r in range(PP_TRAIN):
+            if r == rank:
+                _, model, _ = _train_model(dev, seed, TRAIN_LAYERS)
+                tree = _param_tree(model)
+                stage = {"layers": {f"layer_{rank * per + i}":
+                                    tree[f"layer_{rank * per + i}"]
+                                    for i in range(per)}}
+                if last:
+                    stage.update(final_norm=tree["final_norm"],
+                                 lm_head=tree["lm_head"])
+                chunks = {"layer": tpp.utils.tree_map(
+                    lambda *a: torch.stack(a),
+                    *[tree[f"layer_{c * PP_TRAIN + rank}"]
+                      for c in range(PP_V)])}
+                head = (tree["final_norm"]["weight"],
+                        tree["lm_head"]["weight"]) if last else None
+                input_fn = _pp_input(tree["embed_tokens"]["weight"])
+                _PP_BLOCK[:] = [model.layer_0]
+                del model, tree
+                torch.cuda.empty_cache()
+            dist.barrier()
+        parallel_state.initialize_model_parallel(1, PP_TRAIN)
+        group = parallel_state.get_pipeline_model_parallel_group()
+        tokens = _pp_tokens(dev, seed)
+        out["staged"] = _comm.hop_staged(tokens, group)
+        out["setup_s"] = time.perf_counter() - t0
+        out.update(_pp_runs(rank, stage, chunks, head, input_fn, tokens,
+                            dev))
+        out["hop_s"] = _pp_hop_times(dev)
+    finally:
+        parallel_state.destroy_model_parallel()
+        dist.destroy_process_group()
+    torch.save(out, Path(tmp) / f"rank{rank}.pt")
+
+
+def _pp_bubble(timelines) -> list:
+    """The measured bubble share of each rank: over the ticks, the time
+    a rank computes nothing while the busiest rank of the tick computes,
+    as a share of the busiest ranks' time (hops left out)."""
+    busy = [[(f or 0.0) + (b or 0.0) for _, f, b in tl] for tl in timelines]
+    crit = [max(ticks) for ticks in zip(*busy)]
+    total = sum(crit)
+    return [sum(c - x for c, x in zip(crit, ticks)) / total for ticks in busy]
+
+
+def _pp_hops(coll) -> str:
+    """A run's hops: count, median, range and sum (a hop's seconds
+    include its wait for the peer to reach it)."""
+    hops = [s for name, s in coll if name == "ring_hop"]
+    if not hops:
+        return "no hops"
+    return (f"{len(hops)} hops, {1e3 * float(np.median(hops)):.2f} ms "
+            f"median, {1e3 * min(hops):.2f}-{1e3 * max(hops):.2f} ms, "
+            f"{sum(hops):.3f} s in all")
+
+
+def _pp_want_launches(rank: int, steps: int, forward: bool = True,
+                      backward: bool = True, update: bool = False,
+                      chunks: bool = False) -> dict:
+    """A rank's launches for ``steps`` passes over PP_MICRO
+    microbatches: #1 (and, with the backward, #2) twice a layer and
+    microbatch, plus the final norm once a microbatch on the last rank;
+    #3 (and #4) once a layer and microbatch; #9 and #13 once a step with
+    ``update``; #5 and #6 never.  ``chunks``: the interleaved layout,
+    one layer a chunk."""
+    layers = PP_V if chunks else TRAIN_LAYERS // PP_TRAIN
+    norms = 2 * layers + (1 if rank == PP_TRAIN - 1 else 0)
+    per = PP_MICRO * steps
+    want = {"layer_norm": norms * per, "flash_attention": layers * per,
+            "layer_norm_bwd": norms * per if backward else 0,
+            "flash_attention_bwd": layers * per if backward else 0,
+            "fused_scale": steps if update else 0,
+            "fused_adam": steps if update else 0}
+    want.update({k: 0 for k in SPLIT_KERNELS})
+    return want
+
+
+def _pp_hold_launches(label, launches, want) -> None:
+    got = {k: launches[k] for k in want}
+    print(f"  {label}: launches {got} (worked out from the stage: {want})")
+    if got != want:
+        raise AssertionError(f"{label}: launches off")
+
+
+def _pp_hold_grads(label, ranks_digests, ref, keys) -> None:
+    got = {}
+    for d in ranks_digests:
+        got.update(d)
+    if set(got) != set(keys):
+        raise AssertionError(f"{label}: the ranks' grads cover "
+                             f"{sorted(set(got) ^ set(keys))[:4]} wrongly")
+    _grad_hold(label, torch.cat([got[k] for k in sorted(keys)]),
+               torch.cat([ref[k] for k in sorted(keys)]), rel_gate=True,
+               against="the reference's", rel_tol=TOL_PP_GRAD)
+
+
+def _pp_train_gates(ranks, ref, smi) -> None:
+    """What the parent holds the pp_train ranks to (the module
+    docstring's item 22)."""
+    print(f"pp_train: the pipe ring's hops over gloo on CUDA tensors copy "
+          f"through host tensors: {ranks[0]['staged']}")
+    if not ranks[0]["staged"]:
+        raise AssertionError("pp_train: the hop is not staged over gloo")
+    # the losses: every rank the same, each run against the reference
+    for key in "bcd":
+        if len({r[key]["loss"] for r in ranks}) != 1:
+            raise AssertionError(f"pp_train ({key}): the ranks' losses "
+                                 f"differ")
+    if len({tuple(r["a"]["losses"]) for r in ranks}) != 1:
+        raise AssertionError("pp_train (a): the ranks' losses differ")
+    for label, got in (("(a) 1F1B step 0", ranks[0]["a"]["losses"][0]),
+                       ("(b) GPipe", ranks[0]["b"]["loss"]),
+                       ("(c) interleaved", ranks[0]["c"]["loss"]),
+                       ("(d) forward only", ranks[0]["d"]["loss"])):
+        _tp_hold_losses(f"pp_train {label} against the reference",
+                        [got], ref["losses"][:1], TOL_DP_LOSS)
+    print(f"  pp_train (a) step 1: loss {ranks[0]['a']['losses'][1]:.5f} "
+          f"(the reference's {ref['losses'][1]:.5f})")
+    # the grads
+    all_keys = list(ref["grads"])
+    layer_keys = [k for k in all_keys if k.startswith("layers.")]
+    _pp_hold_grads("pp_train (a) step 0", [r["a"]["grads"] for r in ranks],
+                   ref["grads"], all_keys)
+    _pp_hold_grads("pp_train (b) GPipe", [r["b"]["grads"] for r in ranks],
+                   ref["grads"], all_keys)
+    _pp_hold_grads("pp_train (c) interleaved (layers)",
+                   [r["c"]["grads"] for r in ranks], ref["grads"], layer_keys)
+    # the in-flight graphs and the peaks
+    bound = 2 * (PP_TRAIN - 1) + 1
+    for rank, r in enumerate(ranks):
+        flights = [s["in_flight"] for s in r["a"]["steps"]]
+        print(f"  pp_train rank {rank}: in-flight microbatch graphs (a) "
+              f"{flights} (limit {bound}), (b) {r['b']['in_flight']}, (c) "
+              f"{r['c']['in_flight']} (limit {2 * PP_V * PP_TRAIN})")
+        if max(flights) > bound or r["c"]["in_flight"] > 2 * PP_V * PP_TRAIN:
+            raise AssertionError(f"pp_train rank {rank}: too many graphs in "
+                                 f"flight")
+    if ranks[0]["b"]["in_flight"] != PP_MICRO:
+        raise AssertionError("pp_train (b): the GPipe oracle must hold every "
+                             "microbatch on rank 0")
+    a_rise, b_rise = ranks[0]["a"]["steps"][0]["rise"], ranks[0]["b"]["rise"]
+    print(f"  pp_train rank 0: memory the executor added, (a) 1F1B "
+          f"{a_rise / 2**30:.2f} GiB, (b) GPipe {b_rise / 2**30:.2f} GiB")
+    if not a_rise < b_rise:
+        raise AssertionError("pp_train: 1F1B's peak is not below GPipe's")
+    # the launches
+    for rank, r in enumerate(ranks):
+        _pp_hold_launches(f"pp_train (a) rank {rank}", r["a"]["launches"],
+                          _pp_want_launches(rank, PP_STEPS, update=True))
+        _hold_lengths(f"pp_train (a) rank {rank}", r["a"], {
+            "fused_scale": (PP_STEPS, r["a"]["n"]),
+            "fused_adam": (PP_STEPS, r["a"]["n"])})
+        _pp_hold_launches(f"pp_train (b) rank {rank}", r["b"]["launches"],
+                          _pp_want_launches(rank, 1))
+        _pp_hold_launches(f"pp_train (c) rank {rank}", r["c"]["launches"],
+                          _pp_want_launches(rank, 1, chunks=True))
+        _pp_hold_launches(f"pp_train (d) rank {rank}", r["d"]["launches"],
+                          _pp_want_launches(rank, 1, backward=False))
+        _pp_hold_launches(f"pp_train (e) rank {rank}", r["e"]["launches"],
+                          _pp_want_launches(rank, 1, update=True))
+        if not r["d"]["grads_none"]:
+            raise AssertionError("pp_train (d): forward_only returned grads")
+    # the masters after (a)'s steps: at most 2 lr a step (and 2 fp32 ulps
+    # of 1) off the reference's
+    slack = 2 * float(np.spacing(np.float32(1)))
+    for i in range(PP_STEPS):
+        got = {}
+        for r in ranks:
+            got.update(r["a"]["masters"][i])
+        keys = sorted(ref["masters"][i])
+        if sorted(got) != keys:
+            raise AssertionError("pp_train (a): the masters' leaves differ")
+        diff = (torch.cat([got[k] for k in keys])
+                - torch.cat([ref["masters"][i][k] for k in keys])).abs()
+        worst, limit = float(diff.max()), 2 * TRAIN_LR * (i + 1) + slack
+        print(f"  pp_train (a) against the reference after step {i + 1}: "
+              f"master digest ({diff.numel()} elements) max |diff| "
+              f"{worst:.3e} (limit {limit:.4e}), share above "
+              f"{TRAIN_LR / 8:.1e} {float((diff > TRAIN_LR / 8).float().mean()):.5f}")
+        if not worst <= limit:
+            raise AssertionError(f"pp_train (a): the master after step "
+                                 f"{i + 1} is off the reference")
+    # (e) the overflow
+    for rank, r in enumerate(ranks):
+        e = r["e"]
+        print(f"  pp_train (e) rank {rank}: found_inf {e['found_inf']}, "
+              f"master and moments unchanged {e['same']}, step count "
+              f"{e['count']}, scale {e['scale']}")
+        _hold_lengths(f"pp_train (e) rank {rank}", e, {
+            "fused_scale": (1, e["n"]), "fused_adam": (1, e["n"])})
+        if not (e["same"] and e["found_inf"] == 1.0
+                and e["count"][1] == e["count"][0] + 1
+                and e["scale"][1] == e["scale"][0] / 2):
+            raise AssertionError(f"pp_train (e) rank {rank}: the step was "
+                                 f"not skipped")
+
+
+def phase_pp_train(dev, seed: int):
+    """Pipelined training at pp = 2 on the one card (the module
+    docstring's item 22): the reference in the parent
+    (:func:`_pp_train_reference`), freed, then the two ranks
+    (:func:`_pp_train_rank`) on cuda:0 over gloo, held here.  Returns the
+    ranks' launches, summed."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        interleaved_phase_ticks)
+    smi = _smi()
+    t_phase = time.perf_counter()
+    _card_memory("pp_train, before the reference")
+    ref = _pp_train_reference(dev, seed)
+    print(f"pp_train reference (forward_backward_no_pipelining, Llama-3-8B "
+          f"widths, {TRAIN_LAYERS} layers, {ref['n']} trained parameters, "
+          f"{PP_MICRO} microbatches of {TRAIN_SEQ} tokens a step): losses "
+          f"{[round(x, 5) for x in ref['losses']]}, step times "
+          f"{[round(t, 3) for t in ref['step_s']]} s, peak "
+          f"{ref['peak'] / 2**30:.2f} GiB [{smi}]")
+    _card_memory("pp_train, before the ranks")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ppt_") as tmp_dir:
+        tmp = Path(tmp_dir)
+        t0 = time.perf_counter()
+        mp.start_processes(_pp_train_rank, nprocs=PP_TRAIN,
+                           start_method="spawn", args=(str(tmp), seed))
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(PP_TRAIN)]
+    _pp_train_gates(ranks, ref, smi)
+    # the numbers
+    n, pp = PP_MICRO, PP_TRAIN
+    warm, steady, cool = interleaved_phase_ticks(n, pp, PP_V)
+    bubble_i = (warm + cool) / (2 * PP_V) + steady / PP_V - n
+    for label, tls, theory in (
+            ("(a) 1F1B, last step", [r["a"]["steps"][-1]["timeline"]
+                                     for r in ranks],
+             (pp - 1) / (n + pp - 1)),
+            (f"(c) interleaved v = {PP_V}", [r["c"]["timeline"]
+                                             for r in ranks],
+             bubble_i / (n + bubble_i))):
+        shares = _pp_bubble(tls)
+        work = [(sum(f or 0.0 for _, f, _ in tl), sum(b or 0.0 for *_, b in tl))
+                for tl in tls]
+        print(f"pp_train {label}: measured bubble share by rank "
+              f"{[round(s, 4) for s in shares]} (mean "
+              f"{sum(shares) / len(shares):.4f}; the schedule's "
+              f"{theory:.4f}; interleaved_phase_ticks({n}, {pp}, {PP_V}) = "
+              f"{(warm, steady, cool)}); each rank's compute, forwards and "
+              f"backwards: "
+              + ", ".join(f"rank {r} {f:.3f} + {b:.3f} s"
+                          for r, (f, b) in enumerate(work)) + f" [{smi}]")
+    for rank, r in enumerate(ranks):
+        print(f"pp_train rank {rank}: {PP_HOPS} hops alone of a [{TRAIN_SEQ}, "
+              f"1, {FULL_CFG['hidden_size']}] bf16 activation (gloo, staged "
+              f"through the host; not an NCCL figure): "
+              + ", ".join(f"{k} median {1e3 * float(np.median(v)):.2f} ms "
+                          f"({1e3 * min(v):.2f}-{1e3 * max(v):.2f})"
+                          for k, v in r["hop_s"].items()) + f" [{smi}]")
+    total: dict = {}
+    for rank, r in enumerate(ranks):
+        a = r["a"]
+        print(f"pp_train (a) rank {rank}: step times "
+              f"{[round(t, 3) for t in a['step_s']]} s (the executor "
+              f"{[round(s['s'], 3) for s in a['steps']]}; the reference "
+              f"{[round(t, 3) for t in ref['step_s']]}), peak "
+              f"{a['peak'] / 2**30:.2f} GiB (the reference "
+              f"{ref['peak'] / 2**30:.2f}), stage length {a['n']} [{smi}]")
+        for i, s in enumerate(a["steps"]):
+            print(f"  step {i}: the pipe ring (gloo, staged through the host; "
+                  f"not an NCCL figure): {_pp_hops(s['coll'])}; "
+                  f"collectives {_coll_line(s['coll'])}")
+        for key, label in (("b", "(b) GPipe"), ("c", "(c) interleaved"),
+                           ("d", "(d) forward only")):
+            print(f"pp_train {label} rank {rank}: {r[key]['s']:.3f} s, "
+                  f"{_pp_hops(r[key]['coll'])}, executor peak rise "
+                  f"{r[key]['rise'] / 2**30:.2f} GiB [{smi}]")
+        for key in "abcde":
+            for k, v in r[key]["launches"].items():
+                total[k] = total.get(k, 0) + v
+    print(f"pp_train: the ranks set up in "
+          f"{max(r['setup_s'] for r in ranks):.1f} s and ran in "
+          f"{ranks_s:.1f} s, the phase {time.perf_counter() - t_phase:.1f} s "
+          f"[{smi}]")
+    return dict(launches=total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="kernels,serve,gpt,bert,bert_train,gpt_train,"
                             "gpt_train_8k,profile,train,lean_train,optim,"
-                            "train-check,width,spec,tp,dp,tp_train,tier,"
-                            "fleet,shim",
+                            "train-check,width,spec,tp,dp,tp_train,"
+                            "pp_train,tier,fleet,shim",
                     help="comma list of kernels, serve, gpt, bert, "
                          "bert_train, gpt_train, gpt_train_8k, profile, "
                          "train, lean_train, optim, train-check, width, "
-                         "spec, tp, dp, tp_train, tier, fleet, shim, ab "
+                         "spec, tp, dp, tp_train, pp_train, tier, fleet, "
+                         "shim, ab "
                          "(build always "
                          "runs; profile profiles the serve and the train "
                          "phases that run)")
@@ -9720,6 +10386,14 @@ def main(argv=None) -> int:
         del tpt
         torch.cuda.empty_cache()
     lap("tp_train")
+    if "pp_train" in phases:
+        ppt = phase_pp_train(dev, args.seed)
+        for key, r in recs.items():
+            r["launches"] = (r.get("launches") or 0) + ppt["launches"].get(
+                key, 0)
+        del ppt
+        torch.cuda.empty_cache()
+    lap("pp_train")
     tier_ref = None
     for phase in ("tier", "fleet"):
         if phase not in phases:

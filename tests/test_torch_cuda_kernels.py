@@ -3670,3 +3670,155 @@ def test_host_tier_engine_serves_a_hit_after_eviction(cuda):
     assert counts["paged_attention"] > 0
     assert len(got) == 12 and got[0] == want[0]
     assert _diverges_undecided(eng, prompt, got, want)
+
+
+# -- the pipeline schedules on the card ---------------------------------------
+#
+# Two ranks on cuda:0 over gloo (NCCL takes one card a rank): the pipe
+# ring's hops are staged through host tensors, and what arrives must be
+# the bits sent.  A 1F1B step's grads are the rank's share of the same
+# step without pipelining within TOL_PP_GRAD relative L2: both run the
+# same kernels on the same operands, and only #4's dq, added by bulk
+# reductions in any order, can part them.
+
+TOL_PP_GRAD = 1e-2
+PP_CFG = dict(vocab_size=256, hidden_size=512, num_layers=2,
+              num_attention_heads=8, num_kv_heads=2, ffn_hidden_size=1024,
+              max_seq_length=256, params_dtype=torch.bfloat16)
+
+
+def _pp_stage(p, x, mb):
+    for layer in p["layers"].values():
+        flat = {".".join(k): v for k, v in _pp_paths(layer)}
+        x = torch.func.functional_call(_PP_BLOCKS[0], flat, (x,))
+    return x
+
+
+_PP_BLOCKS: list = []
+
+
+def _pp_paths(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _pp_paths(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _pp_loss(y, mb, p):
+    from apex_tpu_torch.normalization import fused_rms_norm
+    h = fused_rms_norm(y, (PP_CFG["hidden_size"],),
+                       p["final_norm"]["weight"], 1e-5)
+    logits = torch.nn.functional.linear(h, p["lm_head"]["weight"]).float()
+    return torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), mb["labels"].T.reshape(-1))
+
+
+def _pp_rank(rank, store, tree, batch, out):
+    """One pipe rank on cuda:0 over gloo: the staged hops both ways, the
+    no-pipelining run of both layers, and one 1F1B step of its layer."""
+    import datetime
+    import torch.distributed as dist
+    from apex_tpu_torch.parallel import _comm
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.transformer import pipeline_parallel as tpp
+    from apex_tpu_torch.transformer.pipeline_parallel import \
+        p2p_communication as p2p
+    from apex_tpu_torch.transformer.testing import LlamaConfig
+    from apex_tpu_torch.transformer.testing.standalone_llama import \
+        LlamaBlock
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        ps.initialize_model_parallel(1, 2)
+        dev = torch.device("cuda", 0)
+        res = {}
+        sent = [_randn((256, 2, 512), 90 + r, dev) for r in range(2)]
+        res["staged"] = _comm.hop_staged(sent[rank],
+                                         ps.get_pipeline_model_parallel_group())
+        fwd = p2p.send_forward_recv_forward(sent[rank])
+        bwd = p2p.send_backward_recv_backward(sent[rank] * 2)
+        pair = p2p.send_forward_recv_backward(sent[rank], sent[rank] * 4)
+        other = sent[1 - rank]
+        res["hops"] = [torch.equal(fwd, other), torch.equal(bwd, other * 2),
+                       torch.equal(pair[0], other),
+                       torch.equal(pair[1], other * 4)]
+        t = _to_dev(tree, dev)
+        _PP_BLOCKS[:] = [LlamaBlock(LlamaConfig(**PP_CFG), device=dev)]
+        mbs = {k: v.to(dev) for k, v in batch.items()}
+        embed = t["embed_tokens"]["weight"]
+
+        def input_fn(mb):
+            return torch.nn.functional.embedding(mb["tokens"],
+                                                 embed).transpose(0, 1)
+
+        full = {"layers": {"layer_0": t["layer_0"], "layer_1": t["layer_1"]},
+                "final_norm": t["final_norm"], "lm_head": t["lm_head"]}
+        ref_loss, ref = tpp.forward_backward_no_pipelining(
+            _pp_stage, _pp_loss, full, mbs, num_microbatches=4,
+            input_fn=input_fn)
+        stage = {"layers": {f"layer_{rank}": t[f"layer_{rank}"]}}
+        if rank == 1:
+            stage.update(final_norm=t["final_norm"], lm_head=t["lm_head"])
+        _build.reset_launch_counts()
+        loss, grads = tpp.forward_backward_pipelining_without_interleaving(
+            _pp_stage, _pp_loss, stage, mbs, num_microbatches=4,
+            input_fn=input_fn)
+        torch.cuda.synchronize()
+        res["launches"] = _build.launch_counts()
+        res["loss"] = (float(loss), float(ref_loss))
+        rel = {}
+        for path, g in _pp_paths(grads):
+            want = ref
+            for k in path:
+                want = want[k]
+            rel[".".join(path)] = float(
+                torch.linalg.vector_norm((g - want).float())
+                / torch.linalg.vector_norm(want.float()))
+        res["rel"] = rel
+    finally:
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()
+    torch.save(res, f"{out}.{rank}")
+
+
+def _to_dev(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_dev(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def test_pipeline_1f1b_two_gloo_ranks_on_one_card(cuda, tmp_path):
+    """A 2-layer bf16 LLaMA at pp = 2 on cuda:0 (a layer a rank; the last
+    rank also the norm and head, trained by the 3-argument loss): the
+    staged hop's payload arrives bit for bit in both directions and in
+    the steady tick's pair; one 1F1B step's loss is the no-pipelining
+    run's and each grad leaf within TOL_PP_GRAD relative L2 of it; the
+    rank launched #1-#4 for its layer (and the last rank's final norm)."""
+    import torch.multiprocessing as mp
+    from apex_tpu_torch.transformer.testing import LlamaConfig
+    cfg = LlamaConfig(**PP_CFG)
+    tree = _llama_tree(cfg, "cpu")
+    rng = np.random.RandomState(7)
+    tok = rng.randint(0, PP_CFG["vocab_size"], (4, 2, 129))
+    batch = {"tokens": torch.from_numpy(tok[..., :-1]),
+             "labels": torch.from_numpy(tok[..., 1:])}
+    mp.start_processes(_pp_rank, nprocs=2, start_method="spawn",
+                       args=(str(tmp_path / "store"), tree, batch,
+                             str(tmp_path / "out")))
+    ranks = [torch.load(f"{tmp_path / 'out'}.{r}", weights_only=False)
+             for r in range(2)]
+    for rank, res in enumerate(ranks):
+        assert res["staged"]
+        assert res["hops"] == [True] * 4, res["hops"]
+        loss, ref = res["loss"]
+        assert abs(loss - ref) <= 1e-3 * abs(ref), res["loss"]
+        assert res["rel"] and max(res["rel"].values()) <= TOL_PP_GRAD, \
+            res["rel"]
+        norms = 2 + (1 if rank == 1 else 0)
+        want = {"layer_norm": 4 * norms, "layer_norm_bwd": 4 * norms,
+                "flash_attention": 4, "flash_attention_bwd": 4}
+        assert {k: res["launches"][k] for k in want} == want, res["launches"]
+    assert ranks[0]["loss"][0] == ranks[1]["loss"][0]

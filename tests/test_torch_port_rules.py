@@ -96,13 +96,19 @@ def test_ast_scan_no_jax_or_apex_tpu_imports():
     # the last slices' modules are among those scanned
     scanned = {p.relative_to(ROOT).as_posix() for p in _sources()}
     tp = "apex_tpu_torch/transformer/tensor_parallel/"
+    pp = "apex_tpu_torch/transformer/pipeline_parallel/"
+    tr = "apex_tpu_torch/transformer/"
     assert {"apex_tpu_torch/multi_tensor_apply/__init__.py",
             "apex_tpu_torch/ops/attention.py",
             "apex_tpu_torch/ops/fused_update.py",
             "apex_tpu_torch/transformer/utils.py",
             tp + "mappings.py", tp + "random.py", tp + "data.py",
             tp + "memory.py", tp + "layers.py",
-            tp + "cross_entropy.py"} <= scanned
+            tp + "cross_entropy.py", pp + "__init__.py", pp + "common.py",
+            pp + "p2p_communication.py", pp + "schedules.py",
+            pp + "utils.py", tr + "microbatches.py", tr + "amp/__init__.py",
+            tr + "amp/grad_scaler.py", tr + "testing/batch_sampler.py",
+            tr + "testing/commons.py"} <= scanned
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
@@ -477,6 +483,34 @@ def test_training_out_of_slice_options_raise(monkeypatch):
         fused_lm_head_vocab_parallel_cross_entropy(
             torch.zeros(2, 32), model.lm_head.weight, torch.zeros(2),
             token_chunk=1, tensor_model_parallel_size=2)
+    # the pipeline schedules are ported (item 6c): a pipelined executor,
+    # a p2p hop or the embedding reduction on the pipe axis without a
+    # topology raises, naming initialize_model_parallel (no rank quietly
+    # runs the pipeline alone); no pipelining runs anywhere
+    from apex_tpu_torch.transformer import pipeline_parallel as tpp
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        p2p_communication as p2p)
+    stage = lambda p, x, mb: x * p["w"]                  # noqa: E731
+    mse = lambda y, mb: (y ** 2).mean()                  # noqa: E731
+    params, batch = {"w": torch.ones(4)}, torch.ones(2, 4)
+    for call in (
+            lambda: tpp.forward_backward_pipelining_without_interleaving(
+                stage, mse, params, batch, num_microbatches=2),
+            lambda: tpp.forward_backward_pipelining_without_interleaving(
+                stage, mse, params, batch, num_microbatches=2,
+                use_1f1b=False),
+            lambda: tpp.forward_backward_pipelining_with_interleaving(
+                stage, mse, {"w": torch.ones(2, 4)}, batch,
+                num_microbatches=2),
+            lambda: p2p.send_forward_recv_backward(torch.ones(2),
+                                                   torch.ones(2)),
+            lambda: p2p.recv_backward(torch.ones(2)),
+            lambda: tpp.embedding_grads_all_reduce(torch.ones(2))):
+        with pytest.raises(RuntimeError, match="initialize_model_parallel"):
+            call()
+    loss, grads = tpp.forward_backward_no_pipelining(
+        stage, mse, params, batch, num_microbatches=2)
+    assert float(loss) == 1.0 and grads["w"].tolist() == [0.5] * 4
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch):
@@ -537,5 +571,7 @@ def test_chip_smoke_runs_the_lean_phase_by_default():
     phases = defaults[0].split(",")
     assert "lean_train" in phases
     assert phases.index("lean_train") == phases.index("train") + 1
-    # tensor-parallel training runs by default, after the dp phase
+    # tensor-parallel training runs by default, after the dp phase, and
+    # pipelined training after it
     assert phases.index("tp_train") == phases.index("dp") + 1
+    assert phases.index("pp_train") == phases.index("tp_train") + 1
