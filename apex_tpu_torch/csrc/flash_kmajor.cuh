@@ -55,12 +55,40 @@ __device__ __forceinline__ void tensor_add_f32(const CUtensorMap* map, int c,
       : "memory");
 }
 
+// The fp32 dk (times scale) and dv of a product thread's key rows kr0
+// and kr0 + 8 (accumulator columns 8 j + 2 tig + e), rows < sk, into the
+// [bh, sk, D] buffers that dk and dv point at.
+template <int D, int N>
+__device__ __forceinline__ void store_dkv_f32(bf16* dk, bf16* dv, size_t bh,
+                                              int sk, int kr0, int tig,
+                                              const float (&dka)[N],
+                                              const float (&dva)[N],
+                                              float scale) {
+  float* dkb = reinterpret_cast<float*>(dk) + bh * (size_t)sk * D;
+  float* dvb = reinterpret_cast<float*>(dv) + bh * (size_t)sk * D;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int kr = kr0 + hf * 8;
+    if (kr < sk) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const size_t o = (size_t)kr * D + j * 8 + tig * 2;
+        *reinterpret_cast<float2*>(dkb + o) = make_float2(
+            scale * dka[j * 4 + hf * 2], scale * dka[j * 4 + hf * 2 + 1]);
+        *reinterpret_cast<float2*>(dvb + o) =
+            make_float2(dva[j * 4 + hf * 2], dva[j * 4 + hf * 2 + 1]);
+      }
+    }
+  }
+}
+
 // DQ: the one-pass kernel (dq added into dq_acc through dq_map); without
 // it the split dk/dv kernel (dq_map unused).  Warpgroup wg owns keys
 // k0 + 64 wg .. + 63; within it warp w owns 16 of them, and a thread the
 // rows grp and grp + 8 of those, as wgmma's accumulator layout places
-// them.
-template <int D, bool DQ>
+// them.  F32: dk and dv point at fp32 [bh, sk, D], stored from the
+// accumulators without a round to bf16 (ring attention's partials).
+template <int D, bool DQ, bool F32 = false>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -334,6 +362,10 @@ flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<0>();  // nq == 0: the k/v copies may still be in flight
 
   // this block owns its keys' dk and dv: plain stores, no atomics
+  if constexpr (F32) {
+    store_dkv_f32<D>(dk, dv, bh, sk, k0 + krow, tig, dka, dva, scale);
+    return;
+  }
   bf16* dkb = dk + bh * (size_t)sk * D;
   bf16* dvb = dv + bh * (size_t)sk * D;
 #pragma unroll
@@ -391,8 +423,8 @@ int dq_tensor_map(CUtensorMap* map, void* dq_acc, int bh, int sq, int d) {
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// flash_bwd_kernel<D, DQ> over (key block, b*h).
-template <int D, bool DQ>
+// flash_bwd_kernel<D, DQ, F32> over (key block, b*h).
+template <int D, bool DQ, bool F32 = false>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, const CUtensorMap& map,
                void* dk, void* dv, int bh, int sq, int sk, int causal,
@@ -400,11 +432,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                float scale, cudaStream_t stream) {
   const size_t bytes = Tiles<D>::bytes(DQ);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<D, DQ>,
+      flash_bwd_kernel<D, DQ, F32>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sk + kBK - 1) / kBK, bh);
-  flash_bwd_kernel<D, DQ><<<grid, kThreads, bytes, stream>>>(
+  flash_bwd_kernel<D, DQ, F32><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta), map,
@@ -424,8 +456,9 @@ inline int launch_dq_cast(const void* dq_acc, void* dq, size_t n,
 }
 
 // The one-pass backward without a mask and dropout: dq_acc zeroed, the
-// kernel adding into it, dq cast from it.
-template <int D>
+// kernel adding into it, dq cast from it.  F32: dq, dk and dv are fp32;
+// dq is the accumulator itself (dq_acc unused, no cast).
+template <int D, bool F32 = false>
 int launch_one_pass(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dq_acc, void* dq, void* dk, void* dv, int bh,
@@ -433,17 +466,19 @@ int launch_one_pass(const void* q, const void* k, const void* v,
                     int valid_k, float scale_log2, float scale,
                     cudaStream_t stream) {
   const size_t n = (size_t)bh * sq * D;
-  cudaError_t err = cudaMemsetAsync(dq_acc, 0, n * sizeof(float), stream);
+  void* acc = F32 ? dq : dq_acc;
+  cudaError_t err = cudaMemsetAsync(acc, 0, n * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
   if (sk > 0) {
     CUtensorMap map;
-    const int e = dq_tensor_map(&map, dq_acc, bh, sq, D);
+    const int e = dq_tensor_map(&map, acc, bh, sq, D);
     if (e) return e;
-    const int r = launch_bwd<D, true>(
+    const int r = launch_bwd<D, true, F32>(
         q, k, v, dout, lse, delta, map, dk, dv, bh, sq, sk, causal, off,
         valid_q, valid_k, scale_log2, scale, stream);
     if (r) return r;
   }
+  if (F32) return 0;
   return launch_dq_cast(dq_acc, dq, n, 1.f, stream);
 }
 

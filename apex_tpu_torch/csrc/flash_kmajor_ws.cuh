@@ -251,8 +251,13 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 // v), dq_map unused without DQ, and, for MASK, the pre-pass's bits
 // [nmask, nqb, nkt, kMaskWords].  DQ: the grid is (key block, batch-head);
 // without it one dimension of nbh x nkt blocks, the longest key blocks
-// first within groups of `group` heads.
-template <int D, bool DQ, bool MASK, bool DROP, int OP = kOpBf16>
+// first within groups of `group` heads.  F32 (the bf16 instances
+// without a mask): dk and dv point at fp32 [nbh, sk, D], stored from the
+// accumulators, and the dq partials are scaled here, so the fp32 dq
+// accumulator is dq itself (ring attention's partials, never rounded to
+// bf16).
+template <int D, bool DQ, bool MASK, bool DROP, int OP = kOpBf16,
+          bool F32 = false>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_bwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -269,6 +274,8 @@ flash_bwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
                 "the instances' head dims");
   static_assert(OP == kOpBf16 || (!DQ && !MASK),
                 "a wide mode is the dk/dv kernel and reads mask3 itself");
+  static_assert(!F32 || (OP == kOpBf16 && !MASK),
+                "fp32 outputs: the bf16 instances without a mask");
   if constexpr (OP != kOpBf16) {
     using T = WsWideTiles<D, OP>;
     constexpr bool F16 = OP == kOpWideF16 || OP == kOpWideF16Rows;
@@ -1112,7 +1119,10 @@ flash_bwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
           const uint32_t a = dst + (col >> 5) * (kBQ * 128) + r * 128 +
                              ((((c >> 2) ^ (r & 7))) << 4) + (c & 3) * 4;
           asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(a),
-                       "f"(dqa[j * 4 + hf * 2]), "f"(dqa[j * 4 + hf * 2 + 1]));
+                       "f"(F32 ? scale * dqa[j * 4 + hf * 2]
+                               : dqa[j * 4 + hf * 2]),
+                       "f"(F32 ? scale * dqa[j * 4 + hf * 2 + 1]
+                               : dqa[j * 4 + hf * 2 + 1]));
         }
       }
       fence_async_smem();     // the partial, visible to the reductions
@@ -1120,6 +1130,10 @@ flash_bwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
     }
 
     // this block owns its keys' dk and dv: plain stores, no atomics
+    if constexpr (F32) {
+      store_dkv_f32<D>(dk, dv, bh, sk, k0 + krow, tig, dka, dva, scale);
+      return;
+    }
     bf16* dkb = dk + (size_t)bh * sk * D;
     bf16* dvb = dv + (size_t)bh * sk * D;
   #pragma unroll
@@ -1149,8 +1163,10 @@ bool ws_operands_ok(const MdParams& md, const void* bits, int bh) {
 }
 
 // The one-pass backward with a mask and/or dropout: dq_acc zeroed, the
-// kernel over (key block, b*h) adding into it, dq cast from it.
-template <int D, bool MASK, bool DROP>
+// kernel over (key block, b*h) adding into it, dq cast from it.  F32
+// (dropout, no mask): dq, dk and dv fp32, dq the accumulator itself
+// (dq_acc unused, no cast: the kernel scales its partials).
+template <int D, bool MASK, bool DROP, bool F32 = false>
 int launch_one_pass_ws(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dq_acc, void* dq, void* dk, void* dv, int bh,
@@ -1160,24 +1176,26 @@ int launch_one_pass_ws(const void* q, const void* k, const void* v,
                        const void* bits) {
   if (!ws_operands_ok<MASK, DROP>(md, bits, bh))
     return (int)cudaErrorInvalidValue;
+  static_assert(!(F32 && MASK), "fp32 outputs: the instances without a mask");
   const size_t n = (size_t)bh * sq * D;
-  cudaError_t err = cudaMemsetAsync(dq_acc, 0, n * sizeof(float), stream);
+  void* acc = F32 ? dq : dq_acc;
+  cudaError_t err = cudaMemsetAsync(acc, 0, n * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
   if (sk > 0) {
     CUtensorMap tq, tk, tv, tdo, tdq;
-    int e = dq_tensor_map(&tdq, dq_acc, bh, sq, D);
+    int e = dq_tensor_map(&tdq, acc, bh, sq, D);
     if (!e) e = bf16_tile_map(&tq, q, bh, sq, D, kBQ);
     if (!e) e = bf16_tile_map(&tdo, dout, bh, sq, D, kBQ);
     if (!e) e = bf16_tile_map(&tk, k, bh, sk, D, kBK);
     if (!e) e = bf16_tile_map(&tv, v, bh, sk, D, kBK);
     if (e) return e;
     const size_t bytes = WsTiles<D, true>::bytes;
-    err = cudaFuncSetAttribute(flash_bwd_ws_kernel<D, true, MASK, DROP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
+    err = cudaFuncSetAttribute(
+        flash_bwd_ws_kernel<D, true, MASK, DROP, kOpBf16, F32>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((sk + kBK - 1) / kBK, bh);
-    flash_bwd_ws_kernel<D, true, MASK, DROP>
+    flash_bwd_ws_kernel<D, true, MASK, DROP, kOpBf16, F32>
         <<<grid, kWsThreads, bytes, stream>>>(
         tq, tk, tv, tdo, tdq, static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<bf16*>(dk),
@@ -1186,6 +1204,7 @@ int launch_one_pass_ws(const void* q, const void* k, const void* v,
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  if (F32) return 0;
   return launch_dq_cast(dq_acc, dq, n, scale, stream);   // unscaled partials
 }
 

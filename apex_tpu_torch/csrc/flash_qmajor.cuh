@@ -90,16 +90,33 @@ struct QmTiles {
   static_assert(bytes <= kSmemMax, "the tiles fit in shared memory");
 };
 
+// Row r of batch-head bh of an fp32 [bh, sq, D] output from a product
+// thread's accumulator half hf (columns 8 j + 2 tig + e), times mul.
+template <int D, int N>
+__device__ __forceinline__ void store_f32_row(float* out, int bh, int sq,
+                                              int r, int tig,
+                                              const float (&acc)[N], int hf,
+                                              float mul) {
+  float* o = out + ((size_t)bh * sq + r) * D + tig * 2;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+    *reinterpret_cast<float2*>(o + j * 8) =
+        make_float2(acc[j * 4 + hf * 2] * mul, acc[j * 4 + hf * 2 + 1] * mul);
+}
+
 // DQ = false: out = softmax(...) V [bh, sq, D] bf16 and lse_out (base 2,
 // fp32 [bh, sq], may be null); dout, lse_in, delta and scale unused.
 // DQ = true: out = dq [bh, sq, D] bf16, written once; lse_out unused.
+// F32: out holds fp32 [bh, sq, D] instead, stored from the fp32
+// accumulators without a round to bf16 (ring attention's partials); the
+// instances without it are unchanged.
 // The operands come as tensor maps (bf16_tile_map): q and dO with
 // 128-row boxes, k and v with BK-row boxes.  MASK (the forward only):
 // mask [bh / mask_hper, sq, sk] bytes, nonzero = masked, as the pre-pass's
 // classes cls [nmask, nqb, nkt] and bits [nmask, nqb, nkt, kMaskWords]
 // (nqb query blocks of 128, nkt key tiles of 128; a BK-key step reads its
 // tile's).
-template <int D, bool DQ, int BK, bool MASK = false>
+template <int D, bool DQ, int BK, bool MASK = false, bool F32 = false>
 __global__ void __launch_bounds__(kQmThreads, 1)
 flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -396,12 +413,17 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
       const float inv = 1.f / (lt == 0.f ? 1.f : lt);
       const int r = row + hf * 8;
       if (r < sq) {
+        if constexpr (F32) {
+          store_f32_row<D>(reinterpret_cast<float*>(out), bh, sq, r, tig,
+                           acc, hf, inv);
+        } else {
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r * D + j * 8 +
-                                             tig * 2) =
-              __floats2bfloat162_rn(acc[j * 4 + hf * 2] * inv,
-                                    acc[j * 4 + hf * 2 + 1] * inv);
+          for (int j = 0; j < D / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r * D + j * 8 +
+                                               tig * 2) =
+                __floats2bfloat162_rn(acc[j * 4 + hf * 2] * inv,
+                                      acc[j * 4 + hf * 2 + 1] * inv);
+        }
         if (lse_out != nullptr && tig == 0)
           lse_out[bh * (size_t)sq + r] = m[hf] + log2f(lt == 0.f ? 1.f : lt);
       }
@@ -485,12 +507,17 @@ flash_qmajor_kernel(const __grid_constant__ CUtensorMap tq,
     for (int hf = 0; hf < 2; ++hf) {
       const int r = row + hf * 8;
       if (r < sq) {
+        if constexpr (F32) {
+          store_f32_row<D>(reinterpret_cast<float*>(out), bh, sq, r, tig,
+                           acc, hf, scale);
+        } else {
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(qb + (size_t)r * D + j * 8 +
-                                             tig * 2) =
-              __floats2bfloat162_rn(scale * acc[j * 4 + hf * 2],
-                                    scale * acc[j * 4 + hf * 2 + 1]);
+          for (int j = 0; j < D / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(qb + (size_t)r * D + j * 8 +
+                                               tig * 2) =
+                __floats2bfloat162_rn(scale * acc[j * 4 + hf * 2],
+                                      scale * acc[j * 4 + hf * 2 + 1]);
+        }
       }
     }
   }
@@ -590,9 +617,9 @@ inline int launch_mask_tiles(const void* mask, void* cls, void* bits,
   return (int)cudaGetLastError();
 }
 
-// flash_qmajor_kernel<D, DQ, BK, MASK>, one block per (b*h, 128-query
-// block); the operands' tensor maps are encoded here.
-template <int D, bool DQ, int BK, bool MASK = false>
+// flash_qmajor_kernel<D, DQ, BK, MASK, F32>, one block per (b*h,
+// 128-query block); the operands' tensor maps are encoded here.
+template <int D, bool DQ, int BK, bool MASK = false, bool F32 = false>
 int launch_qmajor(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse_in, const void* delta,
                   void* out, void* lse_out, int bh, int sq, int sk,
@@ -615,7 +642,7 @@ int launch_qmajor(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const size_t bytes = QmTiles<D, DQ, BK>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_qmajor_kernel<D, DQ, BK, MASK>,
+      flash_qmajor_kernel<D, DQ, BK, MASK, F32>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)bh * ((sq + kQmBQ - 1) / kQmBQ);
@@ -625,7 +652,7 @@ int launch_qmajor(const void* q, const void* k, const void* v,
   const long long ngroups = (kv_bytes + kL2Half - 1) / kL2Half;
   const int group = (int)((bh + ngroups - 1) / ngroups);
   const dim3 grid((unsigned)blocks);
-  flash_qmajor_kernel<D, DQ, BK, MASK>
+  flash_qmajor_kernel<D, DQ, BK, MASK, F32>
       <<<grid, kQmThreads, bytes, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse_in),
       static_cast<const float*>(delta), static_cast<bf16*>(out),

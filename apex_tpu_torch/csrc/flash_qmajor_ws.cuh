@@ -182,8 +182,10 @@ __host__ __device__ constexpr int pair_b(int i) {
 // warpgroup halves of [DP / 64 chunks][64 rows][64], the TMA store's
 // boxes (none in a wide mode).  BK: keys a step; BQ: queries a tile (64
 // a product warpgroup); a plane of Q, dO, or a K or V stage is kQP or
-// kKVP bytes, an operand NPL planes.
-template <int D, bool MASK, bool DQ, int OP = kOpBf16, int NWG = 2>
+// kKVP bytes, an operand NPL planes.  F32 (fp32 O or dq, stored from the
+// accumulators) has no O buffer either.
+template <int D, bool MASK, bool DQ, int OP = kOpBf16, int NWG = 2,
+          bool F32 = false>
 struct FwTiles {
   static constexpr bool WIDE = OP != kOpBf16;
   static constexpr int NPL = kOpPlanes<OP>;
@@ -204,7 +206,7 @@ struct FwTiles {
   static constexpr int kInfo = (16 + kFwMaxStages) * 4;
   static constexpr int kAnchor = NC * 8;   // the hash's slots
   static constexpr int oQ = 0, oDO = kQ, oO = (DQ ? 2 : 1) * kQ,
-                       oK = oO + (WIDE ? 0 : kQ);
+                       oK = oO + (WIDE || F32 ? 0 : kQ);
   static constexpr int kFit = (kSmemMax - 1024 - oK - kOrder - kBars * 8 -
                                kInfo - kAnchor) / (2 * kKV);
   static constexpr int kStages = kFit < kFwMaxStages ? kFit : kFwMaxStages;
@@ -366,8 +368,11 @@ __device__ __forceinline__ int fw_group_tiles(const FwParams& p, int g) {
 // out = dq [nbh, sq, D] bf16 and tdo dO's map (128-row boxes), lse_out
 // unused.  A wide mode (OP) writes p.out instead of `to`; NWG product
 // warpgroups (NWG 1: the second warpgroup only gives its registers up).
+// F32 (bf16 operands, no mask): O or dq fp32 [nbh, sq, D] in p.out,
+// stored from the accumulators as a wide mode stores them (ring
+// attention's partials, never rounded to bf16).
 template <int D, bool MASK, bool DQ, bool DROP, int OP = kOpBf16,
-          int NWG = 2>
+          int NWG = 2, bool F32 = false>
 __global__ void __launch_bounds__(kFwThreads, 1)
 flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -381,7 +386,9 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
                 "the bf16 forward's instances always drop");
   static_assert(!(MASK && OP != kOpBf16), "a wide mode reads mask3 itself");
   static_assert(NWG == 2 || OP != kOpBf16, "the bf16 instances take turns");
-  using T = FwTiles<D, MASK, DQ, OP, NWG>;
+  static_assert(!F32 || (OP == kOpBf16 && !MASK),
+                "fp32 outputs: the bf16 instances without a mask");
+  using T = FwTiles<D, MASK, DQ, OP, NWG, F32>;
   constexpr bool WIDE = T::WIDE,
                  F16 = OP == kOpWideF16 || OP == kOpWideF16Rows;
   constexpr bool ROWS = kOpRows<OP>;
@@ -779,7 +786,7 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
   };
   // a wide mode's output row r (columns < d) from an accumulator's
   // columns 8 j + 2 tig + e of row half hf, times mul
-  using Out = std::conditional_t<OP == kOpWideF32, float,
+  using Out = std::conditional_t<OP == kOpWideF32 || F32, float,
                                  std::conditional_t<F16, __half, bf16>>;
   auto store_row = [&](const float (&acc)[DP / 2], int bh, int r, int hf,
                        float mul) {
@@ -792,7 +799,7 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
       const float lo = acc[j * 4 + hf * 2] * mul,
                   hi = acc[j * 4 + hf * 2 + 1] * mul;
       if (c + 1 < p.d && pair) {
-        if constexpr (OP == kOpWideF32) {
+        if constexpr (OP == kOpWideF32 || F32) {
           *reinterpret_cast<float2*>(o + c) = make_float2(lo, hi);
         } else if constexpr (F16) {
           *reinterpret_cast<unsigned*>(o + c) = pack_f16(lo, hi);
@@ -1055,7 +1062,7 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_arrive(bQEmpty);       // nothing read Q and dO
       }
 
-      if constexpr (WIDE) {
+      if constexpr (WIDE || F32) {
         // dq = scale dQ straight from the accumulator
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf)
@@ -1360,7 +1367,7 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
       if (lse_out != nullptr && tig == 0 && r < p.sq)
         lse_out[(size_t)bh * p.sq + r] = m[hf] + (log2f(lt) - lc);
     }
-    if constexpr (WIDE) {
+    if constexpr (WIDE || F32) {
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf)
         store_row(acc, bh, row + hf * 8, hf, inv[hf]);
@@ -1397,8 +1404,9 @@ flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
 // flash_fwd_ws_kernel<D, MASK, DQ, DROP> over bh batch-heads (the
 // pre-pass has run for MASK): the tensor maps, the groups and the grid.
 // The forward: out = O, lse its lse (or null); DQ: out = dq, with dout,
-// lse_in, delta and next_tile (one int of scratch, zeroed here).
-template <int D, bool MASK, bool DQ, bool DROP>
+// lse_in, delta and next_tile (one int of scratch, zeroed here).  F32:
+// out is fp32 (no mask).
+template <int D, bool MASK, bool DQ, bool DROP, bool F32 = false>
 int launch_qm_ws(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse_in, const void* delta,
                  void* out, void* lse, int bh, int sq, int sk, int causal,
@@ -1407,7 +1415,8 @@ int launch_qm_ws(const void* q, const void* k, const void* v,
                  const void* bits, int mask_hper, const void* seed3,
                  unsigned threshold, float inv_keep,
                  void* next_tile = nullptr) {
-  using T = FwTiles<D, MASK, DQ>;
+  static_assert(!(F32 && MASK), "fp32 outputs: the instances without a mask");
+  using T = FwTiles<D, MASK, DQ, kOpBf16, 2, F32>;
   if (MASK && (cls == nullptr || bits == nullptr || mask_hper < 1 ||
                bh % mask_hper))
     return (int)cudaErrorInvalidValue;
@@ -1422,7 +1431,8 @@ int launch_qm_ws(const void* q, const void* k, const void* v,
                      : bf16_tile_map(&tk, q, bh, sq, D, T::BK);
   if (!e) e = sk > 0 ? bf16_tile_map(&tv, v, bh, sk, D, T::BK)
                      : bf16_tile_map(&tv, q, bh, sq, D, T::BK);
-  if (!e) e = bf16_tile_map(&to, out, bh, sq, D, 64);
+  // F32: O leaves from the accumulators (`to` unused, then q's)
+  if (!e) e = bf16_tile_map(&to, F32 ? q : out, bh, sq, D, 64);
   if (!e) e = bf16_tile_map(&tdo, DQ ? dout : q, bh, sq, D, kQmBQ);
   if (e) return e;
   FwParams p;
@@ -1472,11 +1482,15 @@ int launch_qm_ws(const void* q, const void* k, const void* v,
     p.hc = 1;
     p.nch = 1;
   }
+  if (F32) {                // the wide modes' output slots (no mask)
+    p.out = out;
+    p.d = D;
+  }
   const long long tiles = (long long)bh * p.nqb;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const size_t bytes = T::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_ws_kernel<D, MASK, DQ, DROP>,
+      flash_fwd_ws_kernel<D, MASK, DQ, DROP, kOpBf16, 2, F32>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   // one block an SM of the current device
@@ -1490,7 +1504,7 @@ int launch_qm_ws(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return (int)err;
   }
   const int grid = (int)(tiles < sms ? tiles : sms);
-  flash_fwd_ws_kernel<D, MASK, DQ, DROP>
+  flash_fwd_ws_kernel<D, MASK, DQ, DROP, kOpBf16, 2, F32>
       <<<grid, kFwThreads, bytes, stream>>>(tq, tk, tv, to, tdo,
                                             static_cast<float*>(lse), p);
   return (int)cudaGetLastError();

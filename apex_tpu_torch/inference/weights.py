@@ -25,6 +25,11 @@ weights (``q_proj``, ``gate_proj``, ``up_proj``, ``lm_head``,
 ``down_proj``) by columns, ``kv_proj`` by rows in whole kv heads (each
 kv head's k and v side by side) when tp divides ``kv_heads``, else
 whole (replicated), the norms whole.
+
+:func:`to_scan_layout` and :func:`to_loop_layout` move a GPT tree
+between the loop layout (``layer_<i>/...``) and ``scan_layers``'s
+(``layers/layer/...``, each leaf stacked along a leading ``[num_layers]``
+dim), so one set of weights serves both.
 """
 from __future__ import annotations
 
@@ -35,15 +40,19 @@ from apex_tpu_torch.inference.models import model_dims
 from apex_tpu_torch.utils import resolve_device
 
 __all__ = ["params_from_jax", "llama_param_shapes", "gpt_param_shapes",
-           "bert_param_shapes", "load_jax_params", "shard_llama_params"]
+           "bert_param_shapes", "load_jax_params", "shard_llama_params",
+           "to_scan_layout", "to_loop_layout"]
 
 
 def _to_tensor(x, device, dtype):
-    a = np.array(x)                    # a writable, contiguous copy
-    if a.dtype.name == "bfloat16":     # ml_dtypes bfloat16: reinterpret
-        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    if isinstance(x, torch.Tensor):    # a tensor leaf, on any device
+        t = x.detach().clone(memory_format=torch.contiguous_format)
     else:
-        t = torch.from_numpy(a)
+        a = np.array(x)                # a writable, contiguous copy
+        if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret
+            t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
@@ -74,21 +83,90 @@ def llama_param_shapes(cfg) -> dict:
 
 
 def _gpt_layers(cfg, shapes: dict) -> dict:
-    """The transformer layers of GPT and BERT (the same block)."""
-    hid, ffn = cfg.hidden_size, cfg.ffn_hidden_size or 4 * cfg.hidden_size
-    for i in range(cfg.num_layers):
-        lay = f"layer_{i}"
-        for norm in ("input_layernorm", "post_attention_layernorm"):
-            shapes[(lay, norm, "weight")] = (hid,)
-            shapes[(lay, norm, "bias")] = (hid,)
-        for mod, (n_out, n_in) in (
-                (("self_attention", "query_key_value"), (3 * hid, hid)),
-                (("self_attention", "dense"), (hid, hid)),
-                (("mlp", "dense_h_to_4h"), (ffn, hid)),
-                (("mlp", "dense_4h_to_h"), (hid, ffn))):
-            shapes[(lay, *mod, "weight")] = (n_out, n_in)
-            shapes[(lay, *mod, "bias")] = (n_out,)
+    """``shapes`` plus the GPT layers' leaves: ``layer_<i>/...``, or
+    with ``cfg.scan_layers`` ``layers/layer/...`` stacked ``[num_layers,
+    ...]``."""
+    per = _gpt_layer_shapes(cfg)
+    if getattr(cfg, "scan_layers", False):
+        for path, shape in per.items():
+            shapes[("layers", "layer", *path)] = (cfg.num_layers, *shape)
+    else:
+        for i in range(cfg.num_layers):
+            for path, shape in per.items():
+                shapes[(f"layer_{i}", *path)] = shape
     return shapes
+
+
+def _gpt_layer_shapes(cfg) -> dict:
+    """``{path within a layer: shape}`` of the transformer layer GPT and
+    BERT share."""
+    hid, ffn = cfg.hidden_size, cfg.ffn_hidden_size or 4 * cfg.hidden_size
+    shapes = {}
+    for norm in ("input_layernorm", "post_attention_layernorm"):
+        shapes[(norm, "weight")] = (hid,)
+        shapes[(norm, "bias")] = (hid,)
+    for mod, (n_out, n_in) in (
+            (("self_attention", "query_key_value"), (3 * hid, hid)),
+            (("self_attention", "dense"), (hid, hid)),
+            (("mlp", "dense_h_to_4h"), (ffn, hid)),
+            (("mlp", "dense_4h_to_h"), (hid, ffn))):
+        shapes[(*mod, "weight")] = (n_out, n_in)
+        shapes[(*mod, "bias")] = (n_out,)
+    return shapes
+
+
+def _stack(leaves):
+    if isinstance(leaves[0], torch.Tensor):
+        return torch.stack(leaves)
+    return np.stack([np.asarray(x) for x in leaves])
+
+
+def _map_layer(node, fn):
+    """``node`` (a layer's subtree) with ``fn`` applied to each leaf."""
+    if isinstance(node, dict):
+        return {k: _map_layer(v, fn) for k, v in node.items()}
+    return fn(node)
+
+
+def _zip_layers(trees):
+    """The layers' subtrees ``trees`` (one key structure) as one subtree
+    of stacked leaves."""
+    if isinstance(trees[0], dict):
+        return {k: _zip_layers([t[k] for t in trees]) for k in trees[0]}
+    return _stack(trees)
+
+
+def to_scan_layout(tree, num_layers: int):
+    """A GPT tree (with or without the outer ``"params"`` key; numpy or
+    tensor leaves) with its ``layer_0 .. layer_<num_layers - 1>``
+    subtrees replaced by ``layers/layer/...``, each leaf the layers'
+    leaves stacked along a new leading dim: the ``scan_layers`` layout.
+    The other leaves are shared, not copied."""
+    if isinstance(tree.get("params"), dict):
+        return {**tree, "params": to_scan_layout(tree["params"], num_layers)}
+    names = [f"layer_{i}" for i in range(num_layers)]
+    if any(n not in tree for n in names) or f"layer_{num_layers}" in tree:
+        raise ValueError(f"the tree's layers are not layer_0 .. "
+                         f"layer_{num_layers - 1}")
+    out = {k: v for k, v in tree.items() if k not in names}
+    out["layers"] = {"layer": _zip_layers([tree[n] for n in names])}
+    return out
+
+
+def to_loop_layout(tree):
+    """The inverse of :func:`to_scan_layout`: ``layers/layer/...``
+    leaves ``[num_layers, ...]`` back into ``layer_<i>/...`` subtrees
+    (slices of the stacked leaves)."""
+    if isinstance(tree.get("params"), dict):
+        return {**tree, "params": to_loop_layout(tree["params"])}
+    body = tree["layers"]["layer"]
+    first = body
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    for i in range(first.shape[0]):
+        out[f"layer_{i}"] = _map_layer(body, lambda x, i=i: x[i])
+    return out
 
 
 def gpt_param_shapes(cfg) -> dict:

@@ -34,7 +34,12 @@ or dropout (``flash_attention_bwd_dq_md``); ``flash_attention_bwd_md.cu``
 the one-pass backward with a mask, with or without dropout
 (``flash_attention_bwd_masked``), with dropout alone
 (``flash_attention_bwd_drop``), and the split dk/dv kernel with a mask
-or dropout (``flash_attention_bwd_dkv_md``).  The wide family, for the
+or dropout (``flash_attention_bwd_dkv_md``); the fp32-output instances
+that ring attention runs on bf16 operands, ``flash_attention_f32out.cu``
+the forward without and with dropout (``flash_attention_f32out``,
+``flash_attention_drop_f32out``) and ``flash_attention_bwd_f32out.cu``
+the one-pass backward (``flash_attention_bwd_f32out``,
+``flash_attention_bwd_drop_f32out``).  The wide family, for the
 operands and head dims those instances do not take: ``flash_wide.cu``
 the forward (``flash_attention_wide``), dq (``flash_attention_wide_dq``)
 and dk/dv (``flash_attention_wide_dkv``), ``paged_wide.cu`` paged decode
@@ -94,6 +99,17 @@ SOURCES = {
         "flash_attention_bwd_masked": "apex_flash_attention_bwd_masked",
         "flash_attention_bwd_drop": "apex_flash_attention_bwd_drop",
         "flash_attention_bwd_dkv_md": "apex_flash_attention_bwd_dkv_md"},
+    # the fp32-output instances of the forward (#3, #3d) and of the
+    # one-pass backward (#4, #4d) that ring attention runs on bf16
+    # operands, their own sources so that they compile beside the rest
+    "flash_attention_f32out.cu": {
+        "flash_attention_f32out": "apex_flash_attention_fwd_f32out",
+        "flash_attention_drop_f32out":
+            "apex_flash_attention_fwd_drop_f32out"},
+    "flash_attention_bwd_f32out.cu": {
+        "flash_attention_bwd_f32out": "apex_flash_attention_bwd_f32out",
+        "flash_attention_bwd_drop_f32out":
+            "apex_flash_attention_bwd_drop_f32out"},
     "paged_attention.cu": {
         "paged_attention": "apex_paged_decode_attention"},
     "fused_update.cu": {"fused_scale": "apex_fused_scale",
@@ -207,6 +223,21 @@ _SIGNATURES = {
     # q, k, v, dout, lse, delta, dq, bh, sq, sk, d, causal, off, valid_q,
     # valid_k, scale_log2, scale, stream
     "apex_flash_attention_bwd_dq": [_P] * 7 + [_I] * 8 + [_F, _F, _P],
+    # as apex_flash_attention_fwd's, o fp32
+    "apex_flash_attention_fwd_f32out": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _I, _I, _I, _I, _F, _P],
+    # q, k, v, seed3, o, lse, bh, sq, sk, d, causal, off, valid_q, valid_k,
+    # threshold, inv_keep, scale_log2, stream
+    "apex_flash_attention_fwd_drop_f32out": [_P] * 6 + [_I] * 9
+                                            + [_F, _F, _P],
+    # q, k, v, dout, lse, delta, dq, dk, dv (fp32), bh, sq, sk, d, causal,
+    # off, valid_q, valid_k, scale_log2, scale, stream
+    "apex_flash_attention_bwd_f32out": [_P] * 9 + [_I] * 8 + [_F, _F, _P],
+    # q, k, v, dout, lse, delta, seed3, dq, dk, dv (fp32), bh, sq, sk, d,
+    # causal, off, valid_q, valid_k, threshold, inv_keep, scale_log2,
+    # scale, stream
+    "apex_flash_attention_bwd_drop_f32out": [_P] * 10 + [_I] * 9
+                                            + [_F] * 3 + [_P],
     # q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, causal, off,
     # valid_q, valid_k, scale_log2, scale, stream
     "apex_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _F, _P],

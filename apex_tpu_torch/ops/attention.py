@@ -144,6 +144,8 @@ _H1 = 0x9E3779B9
 _H2 = 0x85EBCA6B
 _H3 = 0xC2B2AE35
 _M32 = 0xFFFFFFFF
+#: the rank fold's multiplier (:func:`fold_rank_seed`), murmur3's c1
+_HF = 0xCC9E2D51
 
 
 def _mul32(x, c: int):
@@ -197,6 +199,33 @@ def _seed_operand(seed, row_off=0, col_off=0, *, device=None):
                                 for x in (row_off, col_off)])
     return torch.tensor([seed, row_off, col_off], dtype=torch.int32,
                         device=device)
+
+
+def _int32(x: int) -> int:
+    """``x`` wrapped to a signed 32-bit int (JAX's int32 arithmetic)."""
+    x &= _M32
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def fold_rank_seed(seed, axis_name):
+    """A per-rank dropout seed from one that every rank shares (the
+    JAX package's ``fold_rank_seed``, Megatron's per-tensor-rank stream):
+    ``seed ^ (rank * 0xCC9E2D51)`` in int32, the rank this process's in
+    ``axis_name``'s process group (a mesh-axis name, resolved by
+    ``parallel_state.resolve_group``, which raises ``RuntimeError``
+    without a topology; or a ``ProcessGroup``).  Rank 0 keeps ``seed``.
+    ``seed``: an int (an int comes back) or an int tensor of one element
+    (an int32 tensor on its device comes back: no host sync).  Do not
+    fold the context axis into ring attention's seed: its sharded result
+    equals the dense one only with one seed on every cp rank."""
+    import torch.distributed as dist
+    from apex_tpu_torch.transformer import parallel_state
+    rank = dist.get_rank(parallel_state.resolve_group(axis_name))
+    mix = _int32(rank * _HF)
+    if isinstance(seed, torch.Tensor):
+        return seed.to(torch.int32) ^ torch.tensor(mix, dtype=torch.int32,
+                                                   device=seed.device)
+    return _int32(int(seed)) ^ mix
 
 
 def _inv_keep(rate: float) -> float:
@@ -262,14 +291,16 @@ def _live3(bh, sq, sk, causal, off, valid, mask3, device):
 
 
 def _fwd_reference(q3, k3, v3, causal, scale, causal_off=None, valid=None,
-                   mask3=None, rate=0.0, seed3=None, bh0=0, mm=torch.matmul):
+                   mask3=None, rate=0.0, seed3=None, bh0=0, mm=torch.matmul,
+                   out_dtype=None):
     """Plain version of the kernel: ``(out [bh, sq, d], lse [bh, sq])``
     with the base-2 log-sum-exp and the kernel's masks (``mask3 [nmask,
     sq, sk]`` bool, True = masked, batch-head ``i`` reading mask ``i //
     (bh // nmask)``) and dropout (``rate``, ``seed3``; ``bh0`` the first
     batch-head's global index when ``q3`` is a slice of a call).  ``mm``
     computes the two products (:func:`_matmul6`: as the fp32 tensor-core
-    route does)."""
+    route does).  ``out`` is of ``out_dtype`` (default q's): fp32 keeps
+    the accumulator's value, never rounded to q's type."""
     bh, sq, d = q3.shape
     sk = k3.shape[1]
     off = (sk - sq) if causal_off is None else causal_off
@@ -289,7 +320,7 @@ def _fwd_reference(q3, k3, v3, causal, scale, causal_off=None, valid=None,
     # tensor-core feed does; the normalizer keeps the fp32 p
     out = mm(p.to(v3.dtype).float(), v3.float()) / l1
     lse = (m + torch.log2(l1))[..., 0]
-    return out.to(q3.dtype), lse
+    return out.to(out_dtype or q3.dtype), lse
 
 
 def _split_planes(x):
@@ -432,21 +463,23 @@ def _recompute(q3, k3, lse, causal, scale, causal_off, valid, mask3, rate,
 
 def _dq_reference(q3, k3, v3, lse, delta, do3, causal, scale,
                   causal_off=None, valid=None, mask3=None, rate=0.0,
-                  seed3=None, bh0=0, mm=torch.matmul):
-    """Plain version of the split dq kernel: ``dq`` in q's dtype from
-    the base-2 lse and ``delta = rowsum(dO * O)``, with ``mask3`` and
-    dropout as :func:`_fwd_reference` takes them (and ``mm``)."""
+                  seed3=None, bh0=0, mm=torch.matmul, out_dtype=None):
+    """Plain version of the split dq kernel: ``dq`` in ``out_dtype``
+    (default q's) from the base-2 lse and ``delta = rowsum(dO * O)``,
+    with ``mask3`` and dropout as :func:`_fwd_reference` takes them (and
+    ``mm``)."""
     p, keep = _recompute(q3, k3, lse, causal, scale, causal_off, valid,
                          mask3, rate, seed3, bh0, mm)
     ds = _ds(p, v3, do3, delta, q3.dtype, keep, rate, mm)
-    return (scale * mm(ds, k3.float())).to(q3.dtype)
+    return (scale * mm(ds, k3.float())).to(out_dtype or q3.dtype)
 
 
 def _dkv_reference(q3, k3, v3, lse, delta, do3, causal, scale,
                    causal_off=None, valid=None, mask3=None, rate=0.0,
-                   seed3=None, bh0=0, mm=torch.matmul):
-    """Plain version of the split dk/dv kernel: ``(dk, dv)`` in the
-    operands' dtypes; p (dropped and rescaled under dropout) and ds
+                   seed3=None, bh0=0, mm=torch.matmul, out_dtype=None):
+    """Plain version of the split dk/dv kernel: ``(dk, dv)`` in
+    ``out_dtype`` (default the operands' dtypes); p (dropped and rescaled
+    under dropout) and ds
     round to the operand dtype before their products, as the kernels
     feed their matrix units; every product through ``mm``
     (:func:`_matmul6`: the fp32 tensor-core route's six products)."""
@@ -458,7 +491,7 @@ def _dkv_reference(q3, k3, v3, lse, delta, do3, causal, scale,
     del pv
     ds = _ds(p, v3, do3, delta, q3.dtype, keep, rate, mm)
     dk = scale * mm(ds.transpose(1, 2), q3.float())
-    return dk.to(k3.dtype), dv.to(v3.dtype)
+    return dk.to(out_dtype or k3.dtype), dv.to(out_dtype or v3.dtype)
 
 
 def _delta(o3, do3):
@@ -469,16 +502,17 @@ def _delta(o3, do3):
 
 def _bwd_reference(q3, k3, v3, o3, lse, do3, causal, scale,
                    causal_off=None, valid=None, mask3=None, rate=0.0,
-                   seed3=None, bh0=0):
-    """Plain version of the backward: ``(dq, dk, dv)`` in the operands'
-    dtype from the base-2 lse, with ``_recompute_p``'s masks and
-    fully-masked-row guard and the forward's dropout -- the composition
-    of the split pair's plain versions (the one-pass kernel computes the
-    same function)."""
+                   seed3=None, bh0=0, out_dtype=None):
+    """Plain version of the backward: ``(dq, dk, dv)`` in ``out_dtype``
+    (default the operands' dtype) from the base-2 lse, with
+    ``_recompute_p``'s masks and fully-masked-row guard and the forward's
+    dropout -- the composition of the split pair's plain versions (the
+    one-pass kernel computes the same function)."""
     delta = _delta(o3, do3)
     args = (q3, k3, v3, lse, delta, do3, causal, scale, causal_off, valid,
             mask3, rate, seed3, bh0)
-    return (_dq_reference(*args), *_dkv_reference(*args))
+    return (_dq_reference(*args, out_dtype=out_dtype),
+            *_dkv_reference(*args, out_dtype=out_dtype))
 
 
 def _split_bwd(sq: int, d: int) -> bool:
@@ -677,6 +711,97 @@ def _bwd_kernel(q3, k3, v3, o3, lse, do3, causal, scale, causal_off=None,
     return dq, dk, dv
 
 
+#: where the fp32 outputs that no instance is built for are listed
+_V10 = ("ROADMAP queue 2, V10 (fp32 outputs of the split pair, the masked "
+        "instances and the wide family's 16-bit operands)")
+
+
+def _f32_out(out_dtype, dtype) -> bool:
+    """Whether a call asks for fp32 outputs from operands of another
+    type (``out_dtype`` None or the operands' type: no)."""
+    if out_dtype is None or out_dtype == dtype:
+        return False
+    if out_dtype != torch.float32:
+        raise ValueError(f"out_dtype is the operands' dtype or "
+                         f"torch.float32, got {out_dtype}")
+    return True
+
+
+def _no_f32_instance(what: str):
+    return NotImplementedError(
+        f"fp32 outputs of {what} have no kernel instance yet ({_V10}); "
+        "nothing rounds them through the operands' type or runs the plain "
+        "version on CUDA")
+
+
+def _fwd_f32_kernel(q3, k3, v3, causal, scale, causal_off=None, valid=None,
+                    rate=0.0, seed3=None):
+    """The forward's fp32-output instances on bf16 operands (no mask):
+    ``(out fp32, lse)``, out never rounded to bf16 (ring attention's
+    partials).  Without dropout ``flash_attention_f32out`` (#3's
+    instance), with it ``flash_attention_drop_f32out`` (#3d's), both in
+    ``csrc/flash_attention_f32out.cu``."""
+    name = "flash_attention_drop_f32out" if rate else "flash_attention_f32out"
+    _check_kernel_operands(name, q3, k3, v3)
+    bh, sq, d = q3.shape
+    sk = k3.shape[1]
+    off, vq, vk = _window(sq, sk, causal_off, valid)
+    out = torch.empty(q3.shape, dtype=torch.float32, device=q3.device)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q3.device)
+    lib = _build.library()
+    ops = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr())
+    dims = (bh, sq, sk, d, int(causal), off, vq, vk)
+    if rate:
+        ptrs, ints, floats, _keep = _md_operands(name, q3, sk, None, rate,
+                                                 seed3)
+        _build.count(name)
+        err = lib.apex_flash_attention_fwd_drop_f32out(
+            *ops, ptrs[3], out.data_ptr(), lse.data_ptr(), *dims, ints[2],
+            floats[0], float(scale * _LOG2E), _build.stream_ptr(q3.device))
+    else:
+        _build.count(name)
+        err = lib.apex_flash_attention_fwd_f32out(
+            *ops, out.data_ptr(), lse.data_ptr(), *dims,
+            float(scale * _LOG2E), _build.stream_ptr(q3.device))
+    _build.check(err, name)
+    return out, lse
+
+
+def _bwd_f32_kernel(q3, k3, v3, o3, lse, do3, causal, scale, causal_off=None,
+                    valid=None, rate=0.0, seed3=None):
+    """The one-pass backward's fp32-output instances on bf16 operands
+    (no mask): ``(dq, dk, dv)`` fp32, dq the kernel's fp32 accumulator
+    itself (no cast).  Without dropout ``flash_attention_bwd_f32out``
+    (#4's instance), with it ``flash_attention_bwd_drop_f32out`` (#4d's),
+    both in ``csrc/flash_attention_bwd_f32out.cu``."""
+    name = ("flash_attention_bwd_drop_f32out" if rate
+            else "flash_attention_bwd_f32out")
+    dims = _kernel_args(name, q3, k3, v3, lse, do3, causal, scale,
+                        causal_off, valid, (("out", o3),))
+    if o3.shape != q3.shape:
+        raise ValueError(f"out must be {tuple(q3.shape)}")
+    delta = _delta(o3, do3)
+    f32 = dict(dtype=torch.float32, device=q3.device)
+    dq, dk, dv = (torch.empty(t.shape, **f32) for t in (q3, k3, v3))
+    lib = _build.library()
+    ops = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    if rate:
+        ptrs, ints, floats, _keep = _md_operands(name, q3, k3.shape[1], None,
+                                                 rate, seed3)
+        _build.count(name)
+        err = lib.apex_flash_attention_bwd_drop_f32out(
+            *ops, ptrs[3], *outs, *dims[:8], ints[2], floats[0], *dims[8:],
+            _build.stream_ptr(q3.device))
+    else:
+        _build.count(name)
+        err = lib.apex_flash_attention_bwd_f32out(
+            *ops, *outs, *dims, _build.stream_ptr(q3.device))
+    _build.check(err, name)
+    return dq, dk, dv
+
+
 def _wide_operands(kernel, q3, k3, v3, mask3, rate, seed3, extra=()):
     """The wide kernels' checks (fp32, bf16 or fp16 ``[bh, s, d]``
     operands of one type on one card, contiguous, head_dim 1..256);
@@ -868,7 +993,8 @@ def _bwd_wide(q3, k3, v3, o3, lse, do3, causal, scale, causal_off=None,
 def _bwd(q3, k3, v3, o3, lse, do3, causal: bool, scale: float,
          causal_off: Optional[int] = None,
          valid: Optional[Tuple[int, int]] = None, mask3=None,
-         rate: float = 0.0, seed3=None, head_dim: Optional[int] = None):
+         rate: float = 0.0, seed3=None, head_dim: Optional[int] = None,
+         out_dtype=None):
     """Backward over ``[b*h, s, d]`` operands from the forward's output
     and base-2 ``lse``: ``(dq, dk, dv)``, with the forward's ``mask3``
     and dropout (``rate``, ``seed3``).  On the route of
@@ -879,26 +1005,48 @@ def _bwd(q3, k3, v3, o3, lse, do3, causal: bool, scale: float,
     kernels share one mask pre-pass; each kernel's plain version for CPU
     tensors.  ``head_dim`` is the call's real head dim where the operands
     were zero-padded to an instance's (the gate reads it, as the JAX gate
-    reads the unpadded one); by default the operands'."""
+    reads the unpadded one); by default the operands'.  ``out_dtype``
+    (JAX's argument; default the operands' type): ``torch.float32`` on
+    bf16 operands takes the one-pass kernel's fp32-output instances
+    (:func:`_bwd_f32_kernel`, no mask), whose dq, dk and dv are never
+    rounded to bf16; the plain versions return fp32 likewise.  A CUDA
+    route with no such instance (the split pair, a mask, the wide
+    family's 16-bit operands) raises ``NotImplementedError`` (ROADMAP
+    V10)."""
     cpu = q3.device.type == "cpu"
+    f32 = _f32_out(out_dtype, q3.dtype)
     md = dict(mask3=mask3, rate=rate, seed3=seed3)
     if mask3 is not None:
         _check_mask3(mask3, q3, k3.shape[1])
     family, _ = _flash_route(q3.dtype, q3.shape[2], mask3 is not None, rate)
     if not cpu and family == "wide":
+        if f32:
+            raise _no_f32_instance(f"the wide family's {q3.dtype} backward")
         return _bwd_wide(q3, k3, v3, o3, lse, do3, causal, scale, causal_off,
                          valid, **md)
     if not _split_bwd(q3.shape[1], q3.shape[2] if head_dim is None
                       else head_dim):
-        return (_bwd_reference if cpu else _bwd_kernel)(
-            q3, k3, v3, o3, lse, do3, causal, scale, causal_off, valid,
-            **md)
+        if cpu:
+            return _bwd_reference(q3, k3, v3, o3, lse, do3, causal, scale,
+                                  causal_off, valid, **md,
+                                  out_dtype=out_dtype)
+        if not f32:
+            return _bwd_kernel(q3, k3, v3, o3, lse, do3, causal, scale,
+                               causal_off, valid, **md)
+        if mask3 is not None:
+            raise _no_f32_instance("the masked one-pass backward")
+        return _bwd_f32_kernel(q3, k3, v3, o3, lse, do3, causal, scale,
+                               causal_off, valid, rate, seed3)
     if o3.shape != q3.shape:
         raise ValueError(f"out must be {tuple(q3.shape)}")
     args = (q3, k3, v3, lse, _delta(o3, do3), do3, causal, scale,
             causal_off, valid)
     if cpu:
-        return (_dq_reference(*args, **md), *_dkv_reference(*args, **md))
+        return (_dq_reference(*args, **md, out_dtype=out_dtype),
+                *_dkv_reference(*args, **md, out_dtype=out_dtype))
+    if f32:
+        raise _no_f32_instance("the split backward (sq * head_dim * 4 > "
+                               f"{_FUSED_BWD_MAX_BYTES} bytes)")
     if mask3 is not None:
         md["scratch"] = _mask_tiles(q3, k3.shape[1], mask3, causal,
                                     causal_off, valid)
@@ -948,7 +1096,7 @@ def _check_mask3(mask3, q3, sk):
 def _fwd(q3, k3, v3, causal: bool, scale: float,
          causal_off: Optional[int] = None,
          valid: Optional[Tuple[int, int]] = None, mask3=None,
-         rate: float = 0.0, seed3=None):
+         rate: float = 0.0, seed3=None, out_dtype=None):
     """Forward over ``[b*h, s, d]`` operands: ``(out, lse)`` with ``lse``
     the base-2 log-sum-exp ``[b*h, sq]`` (fp32).  ``causal_off``
     defaults to ``sk - sq``; ``valid = (vq, vk)`` masks rows ``>= vq``
@@ -956,15 +1104,28 @@ def _fwd(q3, k3, v3, causal: bool, scale: float,
     sq, sk]``, True = masked, contiguous) masks batch-head ``i`` by
     ``mask3[i // (b*h // nmask)]`` and takes the masked instance;
     ``rate > 0`` drops p for P·V with the keep mask of ``seed3``
-    (:func:`_seed_operand`) and takes a dropout instance."""
+    (:func:`_seed_operand`) and takes a dropout instance.  ``out_dtype``
+    (JAX's argument; default q's type): ``torch.float32`` on bf16
+    operands takes the fp32-output instances (:func:`_fwd_f32_kernel`,
+    no mask), whose out is never rounded to bf16; the plain version
+    returns fp32 likewise; a CUDA route with no such instance raises
+    ``NotImplementedError`` (ROADMAP V10)."""
     bh, sq, d = q3.shape
     sk = k3.shape[1]
+    f32 = _f32_out(out_dtype, q3.dtype)
     if mask3 is not None:
         _check_mask3(mask3, q3, sk)
     family, _ = _flash_route(q3.dtype, d, mask3 is not None, rate)
     if q3.device.type == "cpu":
         return _fwd_reference(q3, k3, v3, causal, scale, causal_off, valid,
-                              mask3, rate, seed3)
+                              mask3, rate, seed3, out_dtype=out_dtype)
+    if f32:
+        if family == "wide" or mask3 is not None:
+            raise _no_f32_instance(
+                "the masked forward" if mask3 is not None
+                else f"the wide family's {q3.dtype} forward")
+        return _fwd_f32_kernel(q3, k3, v3, causal, scale, causal_off, valid,
+                               rate, seed3)
     if family == "wide":
         return _fwd_wide(q3, k3, v3, causal, scale, causal_off, valid,
                          mask3, rate, seed3)

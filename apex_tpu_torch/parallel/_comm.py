@@ -1,12 +1,16 @@
-"""The collectives of data and tensor parallelism, over a process group.
+"""The collectives of data, tensor and context parallelism, over a
+process group.
 
 One function a collective (:func:`all_reduce`, :func:`reduce_scatter`,
-:func:`all_gather`, :func:`broadcast`), each the ``torch.distributed``
-call on the caller's tensors, whatever the backend (NCCL, or gloo where
-ranks share a card or run on the CPU), and :func:`ring_hop`, the
-point-to-point step of the tensor-parallel ring and of the pipeline's
-ring, in either direction.  All of them go through :func:`_run`, the
-one place that issues them.
+:func:`all_gather`, :func:`broadcast`, :func:`all_to_all`), each the
+``torch.distributed`` call on the caller's tensors, whatever the backend
+(NCCL, or gloo where ranks share a card or run on the CPU), and
+:func:`ring_hop`, the point-to-point step of the tensor-parallel ring,
+of the pipeline's ring and of ring attention's, in either direction.
+All of them go through :func:`_run`, the one place that issues them.
+The all-to-all is ``all_to_all_single`` on equal splits (Ulysses
+attention's reshards); gloo copies its CUDA tensors through the host
+inside the call, as it does its other collectives'.
 
 gloo copies its collectives' CUDA tensors through the host inside the
 call, but its ``send`` and ``recv`` have no CUDA path: they would take
@@ -20,7 +24,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_reduce", "reduce_scatter", "all_gather", "broadcast",
-           "ring_hop", "hop_staged"]
+           "all_to_all", "ring_hop", "hop_staged"]
 
 # ``reduce_scatter_single`` / ``all_gather_single`` are the newer names
 # of the same calls
@@ -60,7 +64,7 @@ def _hop(out, inp, group, step: int) -> None:
 def _run(name: str, out, inp, group, op) -> None:
     """Issue collective ``name``; ``op`` is the reduction, the
     broadcast's source (a global rank), or the ring hop's step (+1 or
-    -1)."""
+    -1); unused by the all-gather and the all-to-all."""
     if name == "all_reduce":
         dist.all_reduce(out, op=op, group=group)
     elif name == "reduce_scatter":
@@ -69,6 +73,8 @@ def _run(name: str, out, inp, group, op) -> None:
         _AG(out, inp, group=group)
     elif name == "broadcast":
         dist.broadcast(out, src=op, group=group)
+    elif name == "all_to_all":
+        dist.all_to_all_single(out, inp, group=group)
     else:
         _hop(out, inp, group, op)
 
@@ -106,6 +112,20 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     ``group``."""
     _run("broadcast", t, None, group, src)
     return t
+
+
+def all_to_all(out: torch.Tensor, inp: torch.Tensor, group) -> torch.Tensor:
+    """``out`` <- block r of every rank's ``inp``, in rank order: ``inp``
+    and ``out`` are ``n`` equal blocks along dim 0 (``n`` the group's
+    size), rank r's block j of ``inp`` landing as block r of rank j's
+    ``out``.  Both contiguous, of one shape."""
+    n = dist.get_world_size(group)
+    if out.shape != inp.shape or inp.shape[0] % n:
+        raise ValueError(f"all_to_all: {tuple(inp.shape)} into "
+                         f"{tuple(out.shape)} is not {n} equal blocks of "
+                         f"one shape along dim 0")
+    _run("all_to_all", out, inp, group, None)
+    return out
 
 
 def ring_hop(t: torch.Tensor, group, step: int = 1) -> torch.Tensor:

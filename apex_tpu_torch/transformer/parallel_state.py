@@ -20,6 +20,12 @@ static axis size       the group's size                  ``get_*_world_size``
 axis-name tuple        a group over those axes           ``get_dense_param_grad_axes``
 =====================  ================================  ====================
 
+The context group (``"context"``, cp ranks a sequence's shards) carries
+ring attention's K/V hops and Ulysses attention's all-to-alls
+(``apex_tpu_torch.ops``) and the GPT's ``context_parallel``; a dense
+grad is reduced over it with the data group's
+(:func:`get_dense_param_grad_axes`).
+
 The getters return process groups; :func:`get_dense_param_grad_axes`
 and :func:`get_expert_param_grad_axes` return axis NAMES, as in JAX, and
 :func:`resolve_group` turns a name (``"data"``), a tuple of names, or

@@ -33,7 +33,14 @@ seeded with the rank folded in, as JAX folds it into the key.
   same gradients bit for bit.  The weight GEMMs are cuBLAS
   (``torch.matmul``), as XLA computes them in the JAX package.
 
-Sequence parallelism is not ported (ROADMAP queue 1, item 6).
+Sequence parallelism (``sequence_parallel_enabled``, activations
+``[s/tp, b, h]`` between the layers): ColumnParallelLinear all-gathers
+the sequence in (``gather_from_sequence_parallel_region``, whose
+backward reduce-scatters the input grad) and refuses ``gather_output``;
+RowParallelLinear requires ``input_is_parallel`` and reduce-scatters its
+partial products out (``reduce_scatter_to_sequence_parallel_region``;
+the chunked ring stays off under it), the bias added after.  At tp = 1
+both regions are the identity.
 Initialisation draws normals with the variance of the JAX initialisers
 (Glorot ``fan_avg`` on the shard for the linears, N(0, 0.02^2) for the
 embedding); the JAX package's random bits cannot be reproduced, so
@@ -67,22 +74,12 @@ __all__ = [
     "glorot_normal_",
 ]
 
-_ROADMAP_TP = "ROADMAP queue 1, item 6 (multi-GPU layers over NCCL)"
-
-
 def glorot_normal_(w: torch.Tensor, generator=None) -> torch.Tensor:
     """Fill ``w [out, in]`` with N(0, 2 / (fan_in + fan_out)), the
     variance of flax's ``xavier_normal``."""
     std = math.sqrt(2.0 / (w.shape[0] + w.shape[1]))
     with torch.no_grad():
         return w.normal_(0.0, std, generator=generator)
-
-
-def _check_tp(layer: str, **unported) -> None:
-    on = [k for k, v in unported.items() if v]
-    if on:
-        raise NotImplementedError(
-            f"{layer}: {', '.join(on)} is not ported ({_ROADMAP_TP})")
 
 
 def _shard_generator(device, tp: int, axis_name):
@@ -205,13 +202,17 @@ def linear_with_grad_accumulation_and_async_allreduce(
     all-reduces the input grad; ``overlap_chunks > 1`` through the ring,
     ``None`` reads ``APEX_TPU_TP_OVERLAP_CHUNKS``).  The tp size is the
     ``axis_name`` group's when a topology or a group is at hand, else 1.
-    Sequence parallelism is not ported."""
-    _check_tp("linear_with_grad_accumulation_and_async_allreduce",
-              sequence_parallel_enabled=sequence_parallel_enabled)
+    With ``sequence_parallel_enabled`` the input ``[s/tp, b, h]`` is
+    all-gathered along the sequence first, the input grad
+    reduce-scattered back (``gather_from_sequence_parallel_region``)."""
     chunks = mappings.tp_overlap_chunks(overlap_chunks)
     tp = mappings.axis_size(axis_name)
     x = input
-    if async_grad_allreduce and tp > 1:
+    if sequence_parallel_enabled:
+        if tp > 1:
+            x = mappings.gather_from_sequence_parallel_region(
+                input, axis_name, tensor_parallel_output_grad=True)
+    elif async_grad_allreduce and tp > 1:
         x = mappings.copy_to_tensor_model_parallel_region(
             input, axis_name, chunks=chunks)
     out = _maybe_fused_matmul(x, weight, gradient_accumulation_fusion, tp)
@@ -223,7 +224,10 @@ def linear_with_grad_accumulation_and_async_allreduce(
 class ColumnParallelLinear(nn.Module):
     """Linear with out-features sharded over TP: ``Y_i = X @ A_i^T (+
     b_i)``.  Returns ``(output, output_bias)``; the bias is deferred
-    when ``skip_bias_add``; ``gather_output`` all-gathers the shards."""
+    when ``skip_bias_add``; ``gather_output`` all-gathers the shards.
+    ``sequence_parallel_enabled``: the input is ``[s/tp, b, h]``,
+    all-gathered along the sequence for the GEMM (``gather_output`` then
+    raises ``AssertionError``, as JAX's assert does)."""
 
     def __init__(self, input_size: int, output_size: int, bias: bool = True,
                  gather_output: bool = True, *, skip_bias_add: bool = False,
@@ -235,12 +239,11 @@ class ColumnParallelLinear(nn.Module):
                  axis_name=TENSOR_AXIS,
                  overlap_chunks: Optional[int] = None):
         super().__init__()
-        _check_tp("ColumnParallelLinear",
-                  sequence_parallel_enabled=sequence_parallel_enabled)
         self.tp = mappings.axis_size(axis_name, tensor_model_parallel_size)
         self.axis_name = axis_name
         self.input_size, self.output_size = input_size, output_size
         self.gather_output = gather_output
+        self.sequence_parallel_enabled = sequence_parallel_enabled
         self.skip_bias_add = skip_bias_add
         self.async_grad_allreduce = not no_async_tensor_model_parallel_allreduce
         self.gradient_accumulation_fusion = gradient_accumulation_fusion
@@ -261,10 +264,16 @@ class ColumnParallelLinear(nn.Module):
             bias=None if self.skip_bias_add else self.bias,
             gradient_accumulation_fusion=self.gradient_accumulation_fusion,
             async_grad_allreduce=self.async_grad_allreduce,
+            sequence_parallel_enabled=self.sequence_parallel_enabled,
             axis_name=self.axis_name, overlap_chunks=self.overlap_chunks)
-        if self.gather_output and self.tp > 1:
-            out = mappings.gather_from_tensor_model_parallel_region(
-                out, self.axis_name)
+        if self.gather_output:
+            if self.sequence_parallel_enabled:
+                raise AssertionError(
+                    "gather_output incompatible with sequence_parallel "
+                    "(reference asserts the same)")
+            if self.tp > 1:
+                out = mappings.gather_from_tensor_model_parallel_region(
+                    out, self.axis_name)
         return out, (self.bias if self.skip_bias_add else None)
 
 
@@ -272,7 +281,11 @@ class RowParallelLinear(nn.Module):
     """Linear with in-features sharded over TP: ``Y = sum_i X_i @
     A_i^T``, the partial products all-reduced (or, with
     ``overlap_chunks > 1``, reduced on the chunked ring); the bias is
-    added after the reduction.  Returns ``(output, output_bias)``."""
+    added after the reduction.  Returns ``(output, output_bias)``.
+    ``sequence_parallel_enabled``: the partial products are
+    reduce-scattered to sequence shards ``[s/tp, b, h]`` instead (the
+    ring stays off); ``input_is_parallel`` is required (JAX's assert,
+    ``AssertionError``)."""
 
     def __init__(self, input_size: int, output_size: int, bias: bool = True,
                  input_is_parallel: bool = False, *,
@@ -283,12 +296,11 @@ class RowParallelLinear(nn.Module):
                  axis_name=TENSOR_AXIS,
                  overlap_chunks: Optional[int] = None):
         super().__init__()
-        _check_tp("RowParallelLinear",
-                  sequence_parallel_enabled=sequence_parallel_enabled)
         self.tp = mappings.axis_size(axis_name, tensor_model_parallel_size)
         self.axis_name = axis_name
         self.input_size, self.output_size = input_size, output_size
         self.input_is_parallel = input_is_parallel
+        self.sequence_parallel_enabled = sequence_parallel_enabled
         self.skip_bias_add = skip_bias_add
         self.gradient_accumulation_fusion = gradient_accumulation_fusion
         self.overlap_chunks = mappings.tp_overlap_chunks(overlap_chunks)
@@ -303,13 +315,20 @@ class RowParallelLinear(nn.Module):
 
     def forward(self, input_):
         fused = self.gradient_accumulation_fusion
+        sp = self.sequence_parallel_enabled
+        if sp and not self.input_is_parallel:
+            raise AssertionError("sequence_parallel requires input_is_parallel")
         if self.tp == 1:
             out = _maybe_fused_matmul(input_, self.weight, fused, 1)
         else:
             x = input_ if self.input_is_parallel else \
                 mappings.scatter_to_tensor_model_parallel_region(
                     input_, self.axis_name)
-            if self.overlap_chunks > 1:
+            if sp:
+                out = mappings.reduce_scatter_to_sequence_parallel_region(
+                    _maybe_fused_matmul(x, self.weight, fused, self.tp),
+                    self.axis_name)
+            elif self.overlap_chunks > 1:
                 if fused:
                     _require_fp32_master(self.weight)
                 out = _RingRowMatmul.apply(

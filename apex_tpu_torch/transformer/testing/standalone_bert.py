@@ -19,7 +19,10 @@ is training mode, as in ``standalone_gpt``: hidden dropout after the
 embeddings and in each layer, attention dropout inside the flash
 kernels; the padding mask reaches them as the JAX package's ``mask3``
 ``[b, s, s]``, read by the ``h`` heads of each sequence.  ``remat`` and
-``ce_half_residuals`` act as in ``standalone_gpt``.
+``ce_half_residuals`` act as in ``standalone_gpt``.  ``sequence_parallel``
+places JAX's regions (the sequence scattered after the embeddings,
+gathered before the final LayerNorm) as the GPT does: at tp = 1, the
+only tensor-parallel size BERT takes, both are the identity.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from torch import nn
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.transformer.tensor_parallel import (
     VocabParallelEmbedding,
+    mappings,
     vocab_parallel_cross_entropy,
 )
 from apex_tpu_torch.transformer.tensor_parallel.layers import glorot_normal_
@@ -43,6 +47,7 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import (
     hidden_dropout,
     model_device,
     _run_layers,
+    _sequence_region,
 )
 
 __all__ = ["BertConfig", "BertModel", "bert_model_provider"]
@@ -153,8 +158,10 @@ class BertModel(nn.Module):
         h = self.word_embeddings(tokens) + self.position_embeddings[None, :s]
         if token_types is not None:
             h = h + self.tokentype_embeddings(token_types)
-        h = hidden_dropout(h.transpose(0, 1), cfg.hidden_dropout,
-                           deterministic, generator)    # [s, b, h]
+        h = _sequence_region(h.transpose(0, 1), cfg,
+                             mappings.scatter_to_sequence_parallel_region)
+        h = hidden_dropout(h, cfg.hidden_dropout, deterministic,
+                           generator)                   # [s, b, h]
         # padding mask [b, s] (1 = keep) -> [b, 1, s, s], True = masked,
         # built once: every layer's kernels read it as mask3 [b, s, s]
         mask4 = None
@@ -164,6 +171,9 @@ class BertModel(nn.Module):
         h = _run_layers([getattr(self, f"layer_{i}")
                          for i in range(cfg.num_layers)], h, mask4,
                         deterministic, generator, cfg.remat)
+        h = _sequence_region(h, cfg, lambda t: (
+            mappings.gather_from_sequence_parallel_region(
+                t, tensor_parallel_output_grad=False)))
         h = self.final_layernorm(h)
         t = self.lm_head_layernorm(gelu(self.lm_head_dense(h)))
         lm_logits = torch.einsum("sbh,vh->sbv", t,

@@ -1,4 +1,5 @@
-"""Standalone Megatron-style GPT of the port, at tp = 1.
+"""Standalone Megatron-style GPT of the port, at tp = 1, with context
+parallelism.
 
 Port of ``apex_tpu/transformer/testing/standalone_gpt.py``:
 :class:`GPTConfig` (with its ``ffn`` property), :class:`ParallelMLP`,
@@ -37,16 +38,42 @@ loss is the chunked fused head (:mod:`apex_tpu_torch.ops.fused_lm_xent`)
 on the tied word embedding; otherwise ``ce_half_residuals`` keeps the
 cross entropy's softmax residual in bf16.  ``remat`` recomputes each
 layer in the backward (:func:`apex_tpu_torch.utils.remat`), replaying
-the generator so the recompute draws the forward's masks and seeds.
+the generators so the recompute draws the forward's masks and seeds.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP
-queue 1, item 6, "multi-GPU layers over NCCL"): ``scan_layers`` (with
-or without ``remat``), sequence and context parallelism and the MoE
-FFN.
+``context_parallel`` (under a topology whose context group has cp > 1
+ranks; one rank: the plain model): the tokens ``[b, s]`` are this
+rank's shard of a ``cp * s`` sequence, positions start at ``rank * s``,
+attention runs over the ring (:func:`apex_tpu_torch.ops.ring_attention`,
+exact; a padding mask raises, as JAX's assert does).  The attention
+seeds come from ``generator`` on every rank alike (the ring's dropout is
+the dense run's only with one seed across the ranks); the hidden masks
+from a stream with the context rank folded in (:func:`_fold_generator`),
+so each rank's shard draws its own, as JAX folds the rank into the key.
+The loss is the rank's mean; the grads are reduced over the context
+group with the data group's (``parallel_state.get_dense_param_grad_axes``).
+
+``sequence_parallel``: the JAX regions, a scatter of the sequence after
+the embedding and a gather before the final LayerNorm, over the tensor
+axis; GPT and BERT refuse tp > 1 (ROADMAP queue 3, "tied heads at tp >
+1"), so on a model both are the identity and the layers' sequence
+parallelism (``tensor_parallel.layers``) runs at tp > 1 on its own.
+
+``scan_layers``: the layers' parameters stacked along a leading
+``[num_layers]`` dim under JAX's tree path ``layers.layer.<...>``
+(``inference.weights.to_scan_layout`` moves a loop-layout tree there),
+one layer body applied to each slice in turn
+(``torch.func.functional_call``; with ``remat`` each step recomputed).
+The layers draw their seeds and masks from the generators in layer
+order, as the loop does: the same weights and generator give the loop's
+loss (flax's ``split_rngs`` bits are not reproduced).
+
+The MoE FFN and ``expert_model_parallel`` raise ``NotImplementedError``
+naming ROADMAP queue 1, item 6.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any, Optional
 
 import torch
@@ -57,11 +84,13 @@ from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.fused_lm_xent import (fused_lm_head_cross_entropy,
                                               xent_chunk_default)
+from apex_tpu_torch.ops.ring_attention import ring_attention
 from apex_tpu_torch.transformer import parallel_state
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
+    mappings,
     vocab_parallel_cross_entropy,
 )
 from apex_tpu_torch.utils import remat, resolve_device
@@ -105,6 +134,49 @@ class GPTConfig:
     @property
     def ffn(self) -> int:
         return self.ffn_hidden_size or 4 * self.hidden_size
+
+
+def _tp() -> int:
+    if parallel_state.model_parallel_is_initialized():
+        return parallel_state.get_tensor_model_parallel_world_size()
+    return 1
+
+
+def _cp() -> int:
+    if parallel_state.model_parallel_is_initialized():
+        return parallel_state.get_context_parallel_world_size()
+    return 1
+
+
+def _context_parallel(cfg) -> bool:
+    """Whether the sequence is sharded over a context group of cp > 1."""
+    return bool(getattr(cfg, "context_parallel", False)) and _cp() > 1
+
+
+def _sequence_region(h, cfg, region):
+    """``region`` (a sequence-parallel mapping over the tensor axis)
+    under ``sequence_parallel`` at tp > 1; the identity at tp = 1, as
+    JAX's regions are on an axis of one rank."""
+    if getattr(cfg, "sequence_parallel", False) and _tp() > 1:
+        return region(h)
+    return h
+
+
+def _fold_generator(generator, rank: int):
+    """A hidden-dropout stream of this context rank's own: a generator on
+    ``generator``'s device seeded from ``generator``'s current state with
+    ``rank`` folded in (the state is read on the host, CUDA's too: no
+    device sync), the counterpart of JAX's ``fold_in(key, axis_index)``.
+    ``generator`` then advances by one draw on every rank alike (kept on
+    its device, never read), so the next fold differs and the ranks'
+    attention seeds stay equal."""
+    state = generator.get_state().numpy().tobytes()
+    digest = hashlib.blake2b(state + int(rank).to_bytes(4, "little"),
+                             digest_size=8).digest()
+    g = torch.Generator(device=generator.device)
+    g.manual_seed(int.from_bytes(digest, "little") & (2 ** 63 - 1))
+    torch.empty(1, device=generator.device).uniform_(generator=generator)
+    return g
 
 
 def model_device(device) -> torch.device:
@@ -173,7 +245,9 @@ class ParallelAttention(nn.Module):
     """Self-attention: the interleaved qkv projection, the flash
     kernels (causal or not, with the optional boolean mask, and in
     training mode attention dropout from one seed drawn from
-    ``generator`` a call), the output projection."""
+    ``generator`` a call; under context parallelism ring attention over
+    the context group, the seed the same on every rank), the output
+    projection."""
 
     def __init__(self, cfg: GPTConfig, causal: bool = True, device=None):
         super().__init__()
@@ -198,9 +272,18 @@ class ParallelAttention(nn.Module):
         rate = (cfg.attention_dropout
                 if not deterministic and cfg.attention_dropout > 0.0 else 0.0)
         seed = attention_seed(generator, x.device) if rate else None
-        ctx = flash_attention(q, k, v, causal=self.causal,
-                              mask=attention_mask, dropout_rate=rate,
-                              dropout_seed=seed)
+        if _context_parallel(cfg):
+            # the sequence sharded over the context group: exact
+            # attention over the K/V ring, dropout at global coordinates
+            if attention_mask is not None:
+                raise AssertionError(
+                    "context_parallel supports causal masking only")
+            ctx = ring_attention(q, k, v, causal=self.causal,
+                                 dropout_rate=rate, dropout_seed=seed)
+        else:
+            ctx = flash_attention(q, k, v, causal=self.causal,
+                                  mask=attention_mask, dropout_rate=rate,
+                                  dropout_seed=seed)
         ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, -1)
         out, _ = self.dense(ctx)
         return out
@@ -220,18 +303,22 @@ class ParallelTransformerLayer(nn.Module):
         self.mlp = ParallelMLP(cfg, device=device)
 
     def forward(self, x, attention_mask=None, deterministic: bool = True,
-                generator=None):
+                generator=None, hidden_generator=None):
+        """``hidden_generator`` draws the hidden masks (default
+        ``generator``, which draws the attention seed)."""
         rate = self.cfg.hidden_dropout
+        hgen = generator if hidden_generator is None else hidden_generator
         h = self.self_attention(self.input_layernorm(x), attention_mask,
                                 deterministic, generator)
-        x = x + hidden_dropout(h, rate, deterministic, generator)
+        x = x + hidden_dropout(h, rate, deterministic, hgen)
         h = self.mlp(self.post_attention_layernorm(x), deterministic)
-        return x + hidden_dropout(h, rate, deterministic, generator)
+        return x + hidden_dropout(h, rate, deterministic, hgen)
 
 
 class GPTEmbedding(nn.Module):
     """Vocab-parallel word embedding + learned positions; tokens ``[b,
-    s]`` -> hidden ``[s, b, h]``."""
+    s]`` -> hidden ``[s, b, h]``.  Under context parallelism the tokens
+    are rank r's shard and its positions start at ``r * s``."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
@@ -246,10 +333,21 @@ class GPTEmbedding(nn.Module):
         self.position_embeddings = nn.Parameter(pos)
 
     def forward(self, tokens, deterministic: bool = True, generator=None):
+        cfg = self.cfg
         s = tokens.shape[1]
-        h = self.word_embeddings(tokens) + self.position_embeddings[None, :s]
-        return hidden_dropout(h.transpose(0, 1), self.cfg.hidden_dropout,
-                              deterministic, generator)     # [s, b, h]
+        off = 0
+        if _context_parallel(cfg):
+            off = parallel_state.get_context_parallel_rank() * s
+            if _cp() * s > cfg.max_seq_length:
+                raise ValueError(
+                    f"sequence length {_cp()} x {s} exceeds "
+                    f"max_seq_length {cfg.max_seq_length}")
+        h = self.word_embeddings(tokens) + \
+            self.position_embeddings[None, off:off + s]
+        h = _sequence_region(h.transpose(0, 1), cfg,
+                             mappings.scatter_to_sequence_parallel_region)
+        return hidden_dropout(h, cfg.hidden_dropout, deterministic,
+                              generator)                   # [s, b, h]
 
 
 def _check_config(cfg) -> None:
@@ -262,26 +360,78 @@ def _check_config(cfg) -> None:
             "head leaves each rank a rank-partial dhidden, so its grads at "
             "tp > 1 are not tp = 1's (ROADMAP queue 3, \"tied heads at "
             "tp > 1\")")
-    for flag in ("sequence_parallel", "context_parallel", "scan_layers",
-                 "expert_model_parallel"):
-        if getattr(cfg, flag, False):
-            raise NotImplementedError(
-                f"{flag} is not ported yet ({_MULTI})")
+    if getattr(cfg, "expert_model_parallel", False):
+        raise NotImplementedError(
+            f"expert_model_parallel is not ported yet ({_MULTI})")
     if getattr(cfg, "num_moe_experts", None):
         raise NotImplementedError(f"the MoE FFN is not ported yet ({_MULTI})")
 
 
+def _replayed(generator, hidden_generator):
+    """The generators a recomputed layer replays (None: none)."""
+    gens = [g for g in (generator, hidden_generator) if g is not None]
+    if len(gens) == 2 and gens[0] is gens[1]:
+        gens = gens[:1]
+    return gens or None
+
+
 def _run_layers(layers, h, attention_mask, deterministic: bool,
-                generator, recompute: bool):
+                generator, recompute: bool, hidden_generator=None):
     """``h`` through each layer in turn; with ``recompute`` each layer
-    under :func:`apex_tpu_torch.utils.remat` (the generator replayed)."""
+    under :func:`apex_tpu_torch.utils.remat` (the generators
+    replayed)."""
     for layer in layers:
         if recompute:
             h = remat(layer, h, attention_mask, deterministic, generator,
-                      generator=generator)
+                      hidden_generator,
+                      generator=_replayed(generator, hidden_generator))
         else:
-            h = layer(h, attention_mask, deterministic, generator)
+            h = layer(h, attention_mask, deterministic, generator,
+                      hidden_generator)
     return h
+
+
+class _ScanLayers(nn.Module):
+    """``num_layers`` layers as one body over stacked parameters: each
+    parameter of ``layer`` is ``[num_layers, ...]`` (JAX's ``nn.scan``
+    tree, ``layers/layer/...``), and step ``i`` runs ``layer`` on the
+    ``i``-th slices (``torch.func.functional_call``).  The layers are
+    built one by one and stacked, so one seed gives the loop layout's
+    initial weights."""
+
+    def __init__(self, cfg: GPTConfig, causal: bool = True, device=None):
+        super().__init__()
+        self.num_layers = cfg.num_layers
+        built = [ParallelTransformerLayer(cfg, causal=causal, device=device)
+                 for _ in range(cfg.num_layers)]
+        self.layer = built[0]
+        for name in [n for n, _ in self.layer.named_parameters()]:
+            stacked = torch.stack([b.get_parameter(name).detach()
+                                   for b in built])
+            owner, _, leaf = name.rpartition(".")
+            setattr(self.layer.get_submodule(owner), leaf,
+                    nn.Parameter(stacked))
+        del built
+
+    def forward(self, h, attention_mask, deterministic: bool, generator,
+                recompute: bool, hidden_generator=None):
+        # one unbind a forward: its backward is one stack, where a select
+        # a layer would add num_layers zero-filled full-stack grads
+        slices = {n: p.unbind(0) for n, p in self.layer.named_parameters()}
+
+        def step(i, h):
+            params = {n: s[i] for n, s in slices.items()}
+            return torch.func.functional_call(
+                self.layer, params, (h, attention_mask, deterministic,
+                                     generator, hidden_generator))
+
+        for i in range(self.num_layers):
+            if recompute:
+                h = remat(step, i, h,
+                          generator=_replayed(generator, hidden_generator))
+            else:
+                h = step(i, h)
+        return h
 
 
 class GPTModel(nn.Module):
@@ -289,7 +439,9 @@ class GPTModel(nn.Module):
     word embedding ``[s, b, vocab]``, or the mean cross entropy with
     ``labels [b, s]``.  Built on CUDA unless ``device="cpu"`` (or
     ``"meta"``, see :func:`model_device`).  ``deterministic=False``
-    with ``generator=`` is training mode (the module docstring)."""
+    with ``generator=`` is training mode (the module docstring).  The
+    layers are ``layer_<i>``, or with ``scan_layers`` one stacked
+    ``layers`` (:class:`_ScanLayers`)."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
@@ -297,9 +449,12 @@ class GPTModel(nn.Module):
         _check_config(cfg)
         self.cfg = cfg
         self.embedding = GPTEmbedding(cfg, device=device)
-        for i in range(cfg.num_layers):
-            setattr(self, f"layer_{i}",
-                    ParallelTransformerLayer(cfg, device=device))
+        if cfg.scan_layers:
+            self.layers = _ScanLayers(cfg, device=device)
+        else:
+            for i in range(cfg.num_layers):
+                setattr(self, f"layer_{i}",
+                        ParallelTransformerLayer(cfg, device=device))
         self.final_layernorm = FusedLayerNorm(cfg.hidden_size, device=device)
 
     def forward(self, tokens, labels=None, attention_mask=None,
@@ -309,10 +464,24 @@ class GPTModel(nn.Module):
             raise ValueError(
                 f"sequence length {tokens.shape[1]} exceeds "
                 f"max_seq_length {cfg.max_seq_length}")
-        h = self.embedding(tokens, deterministic, generator)
-        h = _run_layers([getattr(self, f"layer_{i}")
-                         for i in range(cfg.num_layers)], h, attention_mask,
-                        deterministic, generator, cfg.remat)
+        hgen = generator
+        if not deterministic and cfg.hidden_dropout > 0.0 \
+                and _context_parallel(cfg):
+            # each context rank's shard draws its own hidden masks
+            hgen = _fold_generator(_need_generator(generator),
+                                   parallel_state.get_context_parallel_rank())
+        h = self.embedding(tokens, deterministic, hgen)
+        if cfg.scan_layers:
+            h = self.layers(h, attention_mask, deterministic, generator,
+                            cfg.remat, hgen)
+        else:
+            h = _run_layers([getattr(self, f"layer_{i}")
+                             for i in range(cfg.num_layers)], h,
+                            attention_mask, deterministic, generator,
+                            cfg.remat, hgen)
+        h = _sequence_region(h, cfg, lambda t: (
+            mappings.gather_from_sequence_parallel_region(
+                t, tensor_parallel_output_grad=False)))
         h = self.final_layernorm(h)
         emb = self.embedding.word_embeddings.weight
         if labels is None:

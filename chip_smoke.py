@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases spec            # speculative decoding
     python3 chip_smoke.py --phases dp              # DDP and ZeRO, dp = 2
     python3 chip_smoke.py --phases pp_train        # pipelined, pp = 2
+    python3 chip_smoke.py --phases cp_train        # context parallel, cp = 2
 
 1. **Build.**  Prints the card's name and power limit, compiles the
    port's CUDA kernels from ``apex_tpu_torch/csrc`` (``nvcc``, sm_90a)
@@ -84,7 +85,15 @@
    into its buffer and with a page stride of 4 mod 8 (both on #7w's
    CUDA-core mode), a dense bf16 cache at ``[8, 32, 1, 8192]`` whose slot
    stride the decode kernel cannot step (the kernel on a contiguous
-   copy).
+   copy); and the fp32-output instances of #3, #3d, #4 and #4d that ring
+   attention runs, at its shard pair ``[1, 16, 4096, 128]`` bf16 (cp = 2
+   of 8192 tokens): the locally causal pair without dropout and the full
+   pair with dropout 0.1 at the second step's seed offsets (rows from
+   4096, keys from 0), each against its plain version with fp32 outputs
+   (the backward by the flash backward's gate against the exact float64
+   gradient, and two wrong plain backwards refused) and against its
+   bf16 twin (out, lse, dk and dv round to the twin's bits, dq within
+   one bf16 ulp), timed beside the twin and SDPA.
    Prints
    the max
    |diff| against its stated limit, the kernel's time, its bound (the
@@ -367,9 +376,10 @@
    for two ranks on the card, or reuses the tp phase's answer, and
    prints it; then it asks gloo for an all-reduce, a reduce-scatter and
    an all-gather on CUDA tensors and prints each answer: the port stages
-   nothing, so a refusal fails the phase).  Llama-3-8B widths at 2
-   layers (1.487e9 parameters: two ranks' dense DDP state at 4 layers
-   would not fit twice in 80 GB), bf16 parameters, dynamic loss scale.
+   nothing, so a refusal fails the phase).  Llama-3-8B widths at 1
+   layer (1.269e9 parameters; one layer leaves room for cp_train's
+   time, and two ranks' dense DDP state at 4 layers would not fit twice
+   in 80 GB), bf16 parameters, dynamic loss scale.
    The parent first takes 1 dense ``fused_adam`` step on a global
    batch of 2 x 2048 tokens and 1 ``FusedLAMB`` step (the class, over
    the model's tree) from the same weights, keeping the losses and a
@@ -416,13 +426,18 @@
    the same weights, one rank after the other, keeps its shard
    (``shard_llama_params``) and gets the batches from tensor rank 0
    (``broadcast_data``): (a) the column-parallel head, 2 steps; (b) the
-   fused vocab-parallel head (token chunk 1024), 2 steps; (c)
+   fused vocab-parallel head (token chunk 1024), 1 step; (c)
    ``APEX_TPU_TP_OVERLAP_CHUNKS=2`` at construction, 1 step from (a)'s
    first weights and batch; (d) ``RowParallelLinear`` alone at ``[2048,
    1, 7168] -> 4096`` bf16, the ring against the fused all-reduce,
    forward and backward, with and without
    ``gradient_accumulation_fusion``, and ``ring_psum`` of a ``[2048,
-   4096]`` bf16 tensor against ``all_reduce``.  Gates: the ranks'
+   4096]`` bf16 tensor against ``all_reduce``; (e) sequence parallelism:
+   ``ColumnParallelLinear -> GELU -> RowParallelLinear`` with
+   ``sequence_parallel_enabled=True`` on ``[2048, 1, 2048] -> 8192 ->
+   2048`` bf16 a rank (GPT-3 1.3B's MLP at 4096 tokens) against the same
+   pair without it on the gathered input, forward and the input and
+   weight grads.  Gates: the ranks'
    losses equal bit for bit; each loss within TOL_TP_LOSS of the
    reference's; the step-0 grads (the ranks' shards put together at the
    digest's elements) within TOL_TP_GRAD_REL relative L2 of the
@@ -431,13 +446,16 @@
    by more than lr/8 after the first step, and no element by more than
    2 lr a step (and 2 fp32 ulps of 1) after each; the norm weights'
    masters equal on both ranks bit
-   for bit after every run; (b)'s losses within TOL_TP_LOSS of (a)'s;
+   for bit after every run; (b)'s losses within TOL_TP_LOSS of (a)'s
+   and its step-0 grads held to the reference's as (a)'s are;
    (c)'s loss within TOL_TP_LOSS of (a)'s first and its grads within
    TOL_DP_GRAD of (a)'s first; (d)'s backward (dx, dw) equal bit for
    bit, its forward within TOL_TP_RING_FWD of the fused one's max (and
    whether it is equal bit for bit printed), the fp32 ``dw`` within
    TOL_TP_WGRAD_FP32 relative L2 of an fp32 product of the same bf16
-   operands, ``ring_psum`` equal to ``all_reduce`` bit for bit; a rank
+   operands, ``ring_psum`` equal to ``all_reduce`` bit for bit; (e)'s
+   output, input grad and weight grads within TOL_TP_RING_FWD of the
+   plain pair's max (and whether equal printed); a rank
    launches #3 and #4 once a layer a step, #1 and #2 2 x layers + 1
    times a step, #9 and #13 once a step at the rank's flat length, #5
    and #6 never.  Prints each rank's step times against the
@@ -483,6 +501,46 @@
    hops alone each way (gloo, staged: not an NCCL figure), the peak a
    rank, and the measured bubble share of (a) and (c) beside the
    schedule's, each beside the card's name and power limit; the ranks' launches are added to the
+   ``kernels`` line's counts.
+23. **CP train** (``cp_train``, after pp_train, before tier).  Context
+   parallelism at cp = 2 on the one card: GPT-3 1.3B widths (hidden
+   2048, 16 heads of 128, vocab 51200, LayerNorm, GELU) at 4 layers,
+   its context raised to 8192, bf16 parameters from the seed, one
+   sequence of 8192 tokens from the seed.  The parent runs (a) cp = 1:
+   one forward and backward with attention dropout 0.1 and no hidden
+   dropout, keeping the loss and a digest of the grads (every 997th
+   element of each leaf); then the same
+   weights in the ``scan_layers`` layout (``to_scan_layout``) with the
+   same generator, whose loss and grads must equal the loop layout's bit
+   for bit; and flash_attention's times at ``[1, 16, 8192, 128]``.  Two
+   spawned ranks on cuda:0 over gloo (4096 tokens a rank; ring hops
+   staged through the host, the all-to-all copied through it inside
+   gloo): (b) the same forward and backward with ``context_parallel``
+   (ring attention, the same attention seeds), the loss averaged over
+   the context group and the grads over ``get_dense_param_grad_axes()``'s
+   group; one ring attention call timed; (c) CP_ADAM_STEPS
+   ``fused_adam`` steps through ``make_train_step`` (fp32 masters,
+   dynamic loss scale, the grads all-reduced in ``grad_transform``) with
+   hidden dropout 0.1 (each rank's masks its own) and no attention
+   dropout, so the ring runs the instances without dropout; (d)
+   ``ulysses_attention`` at ``[1, 16, 4096, 128]`` bf16 a rank, causal,
+   forward and backward, against flash_attention on the gathered
+   ``[1, 16, 8192, 128]``.  Gates: (a)'s layouts bit for bit and its
+   launches (#3d and the split pair's dropout instances once a layer);
+   (b)'s loss within TOL_CP_LOSS of (a)'s and its grads within
+   TOL_CP_GRAD_REL relative L2, over all and leaf by leaf (the leaves
+   up to CP_WHOLE_LEAF elements whole); (c)'s loss falling, the ranks'
+   masters equal bit for bit after each step, #9 and #13 once a step at
+   the flat length; (d) within TOL_ATTN_OUT and TOL_FLASH_BWD_REL_L2 (bit
+   equality printed); each run's launches those worked out from the
+   ring's schedule: rank r computes r + 1 causal pairs a layer, so #3's
+   and #4's fp32-output instances (with dropout in (b), without in (c))
+   launch 4 (r + 1) times a step each, #1 and #2 9 times, and no bf16
+   flash instance inside the ring; Ulysses #3, #5 and #6 once.  Prints
+   (a)'s and a rank's times and peaks, each hop's seconds, the grads'
+   all-reduces, a ring call's forward and backward beside
+   flash_attention's at 8192, the all-to-alls' seconds, each beside the
+   card's name and power limit; the ranks' launches are added to the
    ``kernels`` line's counts.
 
 Then one ``{"kernels": [...]}`` line and, last, the
@@ -1201,16 +1259,20 @@ def phase_kernels(dev, gen):
     for off, check in ((3, _split_kernels), (4, _shim_kernels),
                        (5, _flash_fwd_rows), (6, _masked_rows),
                        (7, _fused_gpt_kernel), (8, _md_rows),
-                       (9, _wide_rows), (10, _verify_rows)):
+                       (9, _wide_rows), (10, _verify_rows),
+                       (11, _f32out_rows)):
         sgen = torch.Generator(device=dev)
         sgen.manual_seed(gen.initial_seed() + off)
         check(dev, sgen, recs)
     for r in recs.values():
         nodrop = r.pop("nodrop_ms", None)
+        twin = r.pop("twin_ms", None)
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms (eager call, host "
               f"included, {r.pop('eager_ms'):.4f} ms"
               + ("" if nodrop is None else
-                 f"; without dropout {nodrop:.4f} ms") + "), bound "
+                 f"; without dropout {nodrop:.4f} ms")
+              + ("" if twin is None else
+                 f"; its bf16-output twin {twin:.4f} ms") + "), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']}")
     torch.cuda.empty_cache()
@@ -1690,7 +1752,11 @@ def _md_rows(dev, gen, recs):
             q3[sl], k3[sl], v3[sl], do3[sl], causal, scale,
             None if mask3 is None else mask3[sl.start // h:sl.stop // h],
             rate, seed3, sl.start), bh, 8 if tag == "gpt" else 64)
-        err_b = _check_md_bwd(bwd_name, got, ref, exact)
+        # the dropout instances also row by row, as #4d is held; a
+        # causal pair's first query, whose exact dq is 0, is held by the
+        # gate alone, as #4 is
+        err_b = (_check_md_bwd if rate else _check_flash_bwd_exact)(
+            bwd_name, got, ref, exact)
         wrong_seed = seed3 + torch.tensor([1, 0, 0], dtype=torch.int32,
                                           device=dev)
 
@@ -2045,6 +2111,211 @@ def _keep_patterns(dev, seed3) -> None:
         if not all(res.values()):
             raise AssertionError(f"a kernel's keep pattern differs from the "
                                  f"plain keep mask: {res}")
+
+
+#: ring attention's shard pair at cp = 2 of GPT-3 1.3B's 8192 tokens
+#: (the cp_train phase's): [1, 16, 4096, 128] bf16, the second step's
+#: seed offsets (queries from 4096, keys from 0)
+F32_PAIR = (1, 16, 4096, 128)
+F32_OFFSETS = (4096, 0)
+#: the fp32-output instances, by counter: (row, source, replaced kernel)
+F32_KERNELS = {
+    "flash_attention_f32out": (
+        "3", "apex_tpu_torch/csrc/flash_attention_f32out.cu",
+        "apex_tpu/ops/attention.py:210"),
+    "flash_attention_drop_f32out": (
+        "3d", "apex_tpu_torch/csrc/flash_attention_f32out.cu",
+        "apex_tpu/ops/attention.py:210"),
+    "flash_attention_bwd_f32out": (
+        "4", "apex_tpu_torch/csrc/flash_attention_bwd_f32out.cu",
+        "apex_tpu/ops/attention.py:472"),
+    "flash_attention_bwd_drop_f32out": (
+        "4d", "apex_tpu_torch/csrc/flash_attention_bwd_f32out.cu",
+        "apex_tpu/ops/attention.py:472")}
+
+
+def _f32_near_twin(got32, twin) -> float:
+    """The largest |bf16(got32) - twin| over one bf16 ulp of the larger
+    magnitude plus 2^-16 of twin's max (dq's partials add in any order,
+    and near 0 a sum cancels): at most 1 passes (a rounding one fp32 ulp
+    flips is one bf16 ulp)."""
+    a, b = got32.to(torch.bfloat16).float(), twin.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulp = torch.ldexp(torch.ones_like(a), e - 8)
+    return ((a - b).abs() / (ulp + 2.0 ** -16 * b.abs().max())).max().item()
+
+
+def _f32out_rows(dev, gen, recs):
+    """The fp32-output instances of #3, #3d, #4 and #4d at ring
+    attention's shard pair (F32_PAIR, cp = 2 of 8192 tokens): the first
+    step's locally causal pair without dropout (#3's, #4's instances)
+    and the second step's full pair with dropout 0.1 at its seed
+    offsets F32_OFFSETS (#3d's, #4d's), the backward from the global
+    bf16 out and lse as the ring runs it.  Each against its plain
+    version with fp32 outputs (the forward as the masked forward is
+    held; the backward by the flash backward's gate against the exact
+    float64 gradient, each row within 2^-6 of its own max, and two wrong
+    plain backwards that the gate must refuse: a causal boundary 64
+    keys late and half the keys dropped, or with dropout the keep mask
+    transposed and the seed + 1), and against its bf16 twin on the same
+    operands (the same accumulators: out, lse, dk and dv round to the
+    twin's bits; dq within one bf16 ulp, :func:`_f32_near_twin`).  Each
+    instance's time beside its twin's, its plain version's and SDPA's
+    (with ``dropout_p`` where it drops; time only)."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    from apex_tpu_torch.ops import _build
+    bf = torch.bfloat16
+    f32 = torch.float32
+    b, h, s, d = F32_PAIR
+    bh, scale = b * h, d ** -0.5
+    q3, k3, v3, do3 = (torch.randn(bh, s, d, generator=gen, device=dev)
+                       .to(bf) for _ in range(4))
+    q4, k4, v4, do4 = (t.reshape(b, h, s, d) for t in (q3, k3, v3, do3))
+    seed3 = attn._seed_operand(-2 ** 31 + 2828, *F32_OFFSETS, device=dev)
+    step = 4
+    for causal, rate in ((True, 0.0), (False, LM_DROPOUT)):
+        md = dict(rate=rate, seed3=seed3 if rate else None)
+        tag = "d" if rate else ""
+        pair = ("t = 0, locally causal" if causal else
+                f"t = 1, full, dropout {rate} at offsets {F32_OFFSETS}")
+        before = _build.launch_counts()
+        out32, lse = attn._fwd(q3, k3, v3, causal, scale, **md,
+                               out_dtype=f32)
+        twin, twin_lse = attn._fwd(q3, k3, v3, causal, scale, **md)
+        got = attn._bwd(q3, k3, v3, twin, lse, do3, causal, scale, **md,
+                        out_dtype=f32)
+        twin_g = attn._bwd(q3, k3, v3, twin, lse, do3, causal, scale, **md)
+        counts = {k_: v_ - before[k_]
+                  for k_, v_ in _build.launch_counts().items()
+                  if v_ != before[k_]}
+        fwd_name = f"flash_attention{'_drop' if rate else ''}_f32out"
+        bwd_name = f"flash_attention_bwd{'_drop' if rate else ''}_f32out"
+        twins = (("flash_attention_drop", "flash_attention_bwd_drop")
+                 if rate else ("flash_attention", "flash_attention_bwd"))
+        if counts != {fwd_name: 1, bwd_name: 1, twins[0]: 1, twins[1]: 1}:
+            raise AssertionError(f"fp32 outputs ({pair}): the launches are "
+                                 f"{counts}")
+        print(f"flash fp32 outputs, ring pair {pair} {list(F32_PAIR)} bf16")
+
+        def plain_fwd(sl):
+            return attn._fwd_reference(q3[sl], k3[sl], v3[sl], causal, scale,
+                                       **md, bh0=sl.start, out_dtype=f32)
+
+        def plain_bwd(sl, seed_op=md["seed3"], **kw):
+            return attn._bwd_reference(
+                q3[sl], k3[sl], v3[sl], twin[sl], lse[sl], do3[sl], causal,
+                scale, rate=rate, seed3=seed_op, bh0=sl.start, out_dtype=f32,
+                **kw)
+
+        ref_out, ref_lse = _by_heads(plain_fwd, bh, step)
+        err_f = (out32 - ref_out).abs().max().item()
+        _check(f"{fwd_name} out", err_f, TOL_ATTN_OUT)
+        _check(f"{fwd_name} out (x each row's max|ref|)",
+               _slot_rel(out32.reshape(-1, d), ref_out.reshape(-1, d)),
+               TOL_PAGED_OUT)
+        _check(f"{fwd_name} lse (base 2)",
+               (lse - ref_lse).abs().max().item(), TOL_ATTN_LSE)
+        same = (torch.equal(out32.to(bf), twin), torch.equal(lse, twin_lse))
+        print(f"  {fwd_name} against its bf16 twin: out rounds to its bits "
+              f"{same[0]}, lse equal {same[1]}; fp32 values off the bf16 "
+              f"grid {bool((out32 != out32.to(bf).float()).any())}")
+        if not all(same) or out32.dtype != f32:
+            raise AssertionError(f"{fwd_name} is not its twin's accumulator")
+        del ref_out, ref_lse
+        ref = _by_heads(plain_bwd, bh, step)
+        exact = _by_heads(lambda sl: _exact_md(
+            q3[sl], k3[sl], v3[sl], do3[sl], causal, scale, None, rate,
+            md["seed3"], sl.start), bh, 2)
+        # the dropout instances also row by row, as #4d is held; a
+        # causal pair's first query, whose exact dq is 0, is held by the
+        # gate alone, as #4 is
+        err_b = (_check_md_bwd if rate else _check_flash_bwd_exact)(
+            bwd_name, got, ref, exact)
+        near = _f32_near_twin(got[0], twin_g[0])
+        same = [torch.equal(g_.to(bf), t_) for g_, t_ in zip(got[1:],
+                                                             twin_g[1:])]
+        print(f"  {bwd_name} against its bf16 twin: dk, dv round to its "
+              f"bits {same}; dq within one bf16 ulp (worst ratio "
+              f"{near:.4g}, limit 1)")
+        if not all(same) or near > 1 or any(g_.dtype != f32 for g_ in got):
+            raise AssertionError(f"{bwd_name} is not its twin's "
+                                 f"accumulators")
+        if rate:
+            wrong_seed = seed3 + torch.tensor([1, 0, 0], dtype=torch.int32,
+                                              device=dev)
+
+            def transposed():
+                with _keep_transposed():
+                    return _by_heads(plain_bwd, bh, step)
+
+            _refuse_wrong((("keep mask transposed", transposed),
+                           ("seed + 1", lambda: _by_heads(
+                               lambda sl: plain_bwd(sl, wrong_seed), bh,
+                               step))), ref, exact)
+        else:
+            _hold_wrong_backwards(lambda **kw: _by_heads(
+                lambda sl: plain_bwd(sl, **kw), bh, step), ref, exact, s)
+        del ref, exact
+        # times: the instance, its bf16 twin, its plain version, SDPA
+        sdpa = dict(dropout_p=rate, is_causal=causal)
+        fwd_ms = _time_ms(lambda: attn._fwd(q3, k3, v3, causal, scale, **md,
+                                            out_dtype=f32), 10)
+        fwd_twin = _time_ms(lambda: attn._fwd(q3, k3, v3, causal, scale,
+                                              **md), 10)
+        fwd_plain = _eager_ms(lambda: _by_heads(plain_fwd, bh, step), 1)
+        lib_f = _time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, **sdpa), 10)
+        bwd_ms = _time_ms(lambda: attn._bwd(q3, k3, v3, twin, lse, do3,
+                                            causal, scale, **md,
+                                            out_dtype=f32), 10)
+        bwd_twin = _time_ms(lambda: attn._bwd(q3, k3, v3, twin, lse, do3,
+                                              causal, scale, **md), 10)
+        bwd_plain = _eager_ms(lambda: _by_heads(plain_bwd, bh, step), 1)
+        qr, kr, vr = (t.detach().clone().requires_grad_()
+                      for t in (q4, k4, v4))
+        lib_fb = _time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qr, kr, vr, **sdpa),
+            (qr, kr, vr), do4), 10)
+        del qr, kr, vr
+        # a causal pair scores half its s^2 elements
+        live = bh * s * (s + 1) / 2 if causal else bh * s * s
+        elem = q3.numel()
+        # bytes: q, k, v (and dO) bf16 once, the fp32 outputs once, lse
+        # (and delta) fp32
+        f_bytes = 3 * elem * 2 + elem * 4 + bh * s * 4
+        b_bytes = 4 * elem * 2 + 3 * elem * 4 + 2 * bh * s * 4
+        if rate:
+            f_bound, f_by, f_terms = _md_bound(f_bytes, 4 * d * live, live)
+            b_bound, b_by, b_terms = _md_bound(b_bytes, 10 * d * live, live)
+        else:
+            (f_bound, f_by), (b_bound, b_by) = (
+                _bound(f_bytes, 4 * d * live), _bound(b_bytes, 10 * d * live))
+            f_terms = b_terms = None
+        for name, err, ms, twin_ms, plain_ms, bound, by, terms, lib in (
+                (fwd_name, err_f, fwd_ms, fwd_twin, fwd_plain, f_bound,
+                 f_by, f_terms, lib_f),
+                (bwd_name, err_b, bwd_ms, bwd_twin, bwd_plain, b_bound,
+                 b_by, b_terms, lib_fb - lib_f)):
+            row, src, repl = F32_KERNELS[name]
+            print(f"  #{row} fp32 out {name} ({pair}) on {_smi()}: kernel "
+                  f"{ms:.4f} ms, bf16 twin {twin_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, SDPA{f' (dropout_p {rate})' if rate else ''} "
+                  f"{lib:.4f} ms, bound {bound:.4f} ms ({by}"
+                  + (f"; {_terms(terms)}" if terms else "") + f"), "
+                  f"{100 * bound / ms:.1f}% of the bound")
+            recs[name] = dict(
+                name=name, route="cuda", source=src, replaces=repl,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib, twin_ms=twin_ms,
+                eager_ms=_eager_ms(
+                    (lambda: attn._fwd(q3, k3, v3, causal, scale, **md,
+                                       out_dtype=f32))
+                    if name == fwd_name else
+                    (lambda: attn._bwd(q3, k3, v3, twin, lse, do3, causal,
+                                       scale, **md, out_dtype=f32)), 4))
+        del out32, lse, twin, twin_lse, got, twin_g
+        torch.cuda.empty_cache()
+    del q3, k3, v3, do3, q4, k4, v4, do4
 
 
 def _fused_gpt_kernel(dev, gen, recs):
@@ -8325,19 +8596,20 @@ def phase_fleet(dev, seed: int, ref=None):
 
 
 #: data parallelism and ZeRO (the dp phase): two ranks on the one card,
-#: Llama-3-8B widths at 2 layers (1.487e9 parameters).  Two ranks' dense
+#: Llama-3-8B widths at 1 layer (1.269e9 parameters; one layer leaves the
+#: default run room for cp_train).  Two ranks' dense
 #: DDP state at the train phase's 4 layers (fp32 master, m and v, bf16
 #: params and grads, the flat fp32 grads: ~38.5 GB a rank before
 #: activations) does not fit twice in 80 GB; at 2 layers it is ~30 GB.
 DP = 2
-DP_LAYERS = 2
+DP_LAYERS = 1
 DP_STEPS = 1
 DP_LAMB_STEPS = 1
 #: the ZeRO state's prefetch spans (gathered and reduce-scattered one span
 #: at a time, so no full-length flat temporary is ever made)
 DP_PREFETCH = 4
 #: every DP_SAMPLE-th element of the master is the digest held against
-#: the reference (1.487e9 / 997 ~ 1.5e6 elements)
+#: the reference (1.269e9 / 997 ~ 1.3e6 elements)
 DP_SAMPLE = 997
 #: ResNet-50's stage-1 width: [32, 56, 56, 256] fp32 channel-last a rank
 DP_BN_SHAPE = (32, 56, 56, 256)
@@ -9066,7 +9338,7 @@ TP_TRAIN = 2
 #: (a) the column-parallel head's steps, (b) the fused head's, (c) the
 #: ring's (from (a)'s first weights and batch)
 TP_TRAIN_STEPS = 2
-TP_TRAIN_FUSED_STEPS = 2
+TP_TRAIN_FUSED_STEPS = 1
 TP_TRAIN_FUSED_CHUNK = 1024
 TP_TRAIN_OVERLAP = 2
 #: a loss against another's (the reference's, (a)'s): the mean of 2048
@@ -9310,6 +9582,69 @@ def _tp_row_linear(dev, seed: int, rank: int):
     return out
 
 
+#: (e) the sequence-parallel pair's shape: GPT-3 1.3B's MLP at 4096
+#: tokens, 2048 a rank
+TP_SP_TOKENS, TP_SP_HIDDEN, TP_SP_FFN = 4096, 2048, 8192
+
+
+def _tp_sp_pair(dev, seed: int, rank: int):
+    """(e) ``ColumnParallelLinear -> GELU -> RowParallelLinear`` with
+    ``sequence_parallel_enabled=True`` on this rank's ``[TP_SP_TOKENS /
+    TP_TRAIN, 1, 2048]`` rows (-> 8192 -> 2048, bf16, this rank's weight
+    shards), forward and backward, and the same pair without sequence
+    parallelism on the gathered input: each output's, input grad's and
+    weight grad's max |diff| as a share of the pair's max (the rank's
+    rows), whether they are equal, and both forward + backward times."""
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        ColumnParallelLinear, RowParallelLinear)
+    from apex_tpu_torch.transformer.testing.standalone_gpt import gelu
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 32)
+    s, hid, ffn = TP_SP_TOKENS, TP_SP_HIDDEN, TP_SP_FFN
+    x = torch.randn(s, 1, hid, generator=gen, device=dev).to(bf)
+    dy = torch.randn(s, 1, hid, generator=gen, device=dev).to(bf)
+    wc = (torch.randn(ffn, hid, generator=gen, device=dev) * hid ** -0.5)
+    bc = 0.1 * torch.randn(ffn, generator=gen, device=dev)
+    wr = (torch.randn(hid, ffn, generator=gen, device=dev) * ffn ** -0.5)
+    br = 0.1 * torch.randn(hid, generator=gen, device=dev)
+    o, rows = ffn // TP_TRAIN, s // TP_TRAIN
+    cols = slice(rank * o, (rank + 1) * o)
+    mine = slice(rank * rows, (rank + 1) * rows)
+    res = {}
+    for sp in (True, False):
+        col = ColumnParallelLinear(hid, ffn, gather_output=False,
+                                   params_dtype=bf, device=dev,
+                                   sequence_parallel_enabled=sp)
+        row = RowParallelLinear(ffn, hid, input_is_parallel=True,
+                                params_dtype=bf, device=dev,
+                                sequence_parallel_enabled=sp)
+        with torch.no_grad():
+            col.weight.copy_(wc[cols])
+            col.bias.copy_(bc[cols])
+            row.weight.copy_(wr[:, cols])
+            row.bias.copy_(br)
+        xi = (x[mine] if sp else x).clone().requires_grad_()
+        dyi = (dy[mine] if sp else dy).contiguous()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h, _ = col(xi)
+        y, _ = row(gelu(h))
+        y.backward(dyi)
+        torch.cuda.synchronize()
+        res[sp] = dict(y=y.detach(), dx=xi.grad, dwc=col.weight.grad,
+                       dwr=row.weight.grad, s=time.perf_counter() - t0)
+    out = dict(s=(res[True]["s"], res[False]["s"]))
+    for key in ("y", "dx", "dwc", "dwr"):
+        got, want = res[True][key], res[False][key]
+        if key in ("y", "dx"):
+            want = want[mine]
+        out[key] = ((got.float() - want.float()).abs().max().item()
+                    / want.float().abs().max().item(),
+                    torch.equal(got, want))
+    return out
+
+
 def _tp_train_rank(rank, tmp, seed):
     """One rank of the tp_train phase, on cuda:0 over gloo: builds the
     train phase's seeded tp = 1 weights and keeps its shard (one rank
@@ -9361,7 +9696,7 @@ def _tp_train_rank(rank, tmp, seed):
         model.cfg = dataclasses.replace(
             cfg, fused_head_xent=TP_TRAIN_FUSED_CHUNK)
         out["b"] = _tp_run("(b) fused vocab-parallel head", model, batches,
-                           TP_TRAIN_FUSED_STEPS, rank, gshapes, grads_at=())
+                           TP_TRAIN_FUSED_STEPS, rank, gshapes)
         del model
         torch.cuda.empty_cache()
         os.environ["APEX_TPU_TP_OVERLAP_CHUNKS"] = str(TP_TRAIN_OVERLAP)
@@ -9374,6 +9709,7 @@ def _tp_train_rank(rank, tmp, seed):
         del model, shard
         torch.cuda.empty_cache()
         out["d"] = _tp_row_linear(dev, seed, rank)
+        out["e"] = _tp_sp_pair(dev, seed, rank)
     finally:
         parallel_state.destroy_model_parallel()
         dist.destroy_process_group()
@@ -9513,6 +9849,10 @@ def _tp_train_gates(ranks, ref, runs, smi) -> None:
     _tp_hold_losses("tp_train (b) fused head against (a)",
                     ranks[0]["b"]["losses"],
                     a[0]["losses"][:TP_TRAIN_FUSED_STEPS], TOL_TP_LOSS)
+    # one step: its grads hold the fused head's backward
+    _grad_hold("tp_train (b) step 0", sum(r["b"]["grads"][0] for r in ranks),
+               ref["grads"], rel_gate=True, against="the tp = 1 reference's",
+               rel_tol=TOL_TP_GRAD_REL)
     # (c) the ring
     print(f"tp_train (c): overlap_chunks read at construction: "
           f"{ranks[0]['c_chunks']}")
@@ -9550,6 +9890,23 @@ def _tp_train_gates(ranks, ref, runs, smi) -> None:
               f"bit: {d['ring_psum_equal']}")
         if not d["ring_psum_equal"]:
             raise AssertionError("tp_train (d): ring_psum is not all_reduce")
+    # (e) sequence parallelism against the pair without it
+    for rank, r in enumerate(ranks):
+        e = r["e"]
+        print(f"  tp_train (e) rank {rank}: Column -> GELU -> Row with "
+              f"sequence parallelism on [{TP_SP_TOKENS // TP_TRAIN}, 1, "
+              f"{TP_SP_HIDDEN}] -> {TP_SP_FFN} -> {TP_SP_HIDDEN} bf16 against "
+              f"the pair without it on the gathered [{TP_SP_TOKENS}, 1, "
+              f"{TP_SP_HIDDEN}]: (max |diff| / max, equal) "
+              + ", ".join(f"{k} ({e[k][0]:.3e}, {e[k][1]})"
+                          for k in ("y", "dx", "dwc", "dwr"))
+              + f" (limit {TOL_TP_RING_FWD:.3e}); forward + backward "
+              f"{1e3 * e['s'][0]:.2f} ms with, {1e3 * e['s'][1]:.2f} ms "
+              f"without (gloo) [{smi}]")
+        if not all(e[k][0] <= TOL_TP_RING_FWD
+                   for k in ("y", "dx", "dwc", "dwr")):
+            raise AssertionError("tp_train (e): sequence parallelism is off "
+                                 "the pair without it")
 
 
 def phase_tp_train(dev, seed: int):
@@ -10234,6 +10591,511 @@ def phase_pp_train(dev, seed: int):
     return dict(launches=total)
 
 
+#: context-parallel training (the cp_train phase): GPT-3 1.3B widths
+#: (hidden 2048, 16 heads of 128, vocab 51200, LayerNorm, GELU) at 4
+#: layers with the context raised to 8192, bf16 parameters drawn from the
+#: seed, fp32 masters in (c); one sequence of 8192 tokens from the seed,
+#: 4096 a rank over cp = 2 ranks on the one card
+CP_TRAIN = 2
+CP_LAYERS = 4
+CP_SEQ = 8192
+#: (c)'s FusedAdam steps
+CP_ADAM_STEPS = 2
+#: (b) against (a): the loss, a mean of 8192 tokens' fp32 losses, and the
+#: grads (relative L2 of all of them and of each leaf).  Two bf16
+#: computations of one function: the ring rounds each layer's attention
+#: output once after an fp32 merge where cp = 1's kernel rounds its own,
+#: and the grads come through the fp32-output backward where cp = 1's
+#: split pair rounds dq, dk and dv to bf16, so the activations part as
+#: tp = 2's two rounded partials part from tp = 1's (TOL_TP_LOSS,
+#: TOL_TP_GRAD_REL).  In fp32 on the CPU the port's cp = 2 and 4 runs
+#: hold cp = 1's loss within 2e-5 relative and its grads within 2e-5 of
+#: each leaf's largest magnitude (tests/test_torch_context_parallel.py)
+TOL_CP_LOSS = TOL_TP_LOSS
+TOL_CP_GRAD_REL = TOL_TP_GRAD_REL
+#: a leaf this long or shorter goes into (b)'s digest whole, so that the
+#: limit holds each leaf as well as all of them (a bias sampled every
+#: DP_SAMPLE-th element keeps 2-8 elements)
+CP_WHOLE_LEAF = 1 << 16
+#: (d) Ulysses against flash_attention on the gathered sequence: the
+#: flash forward's and backward's limits (TOL_ATTN_OUT on the output,
+#: TOL_FLASH_BWD_REL_L2 on each grad); each head runs the same kernels on
+#: the same rows either way, so the bits are printed too
+#: (e) sequence parallelism inside tp_train: each output against the
+#: pair without it, as a share of its largest magnitude (TOL_TP_RING_FWD:
+#: the same GEMMs, and the reduce-scatter sums the all-reduce's two
+#: partials)
+
+
+def _cp_model(dev, seed: int, **kw):
+    """The phase's GPT (:data:`CP_LAYERS` deep, context :data:`CP_SEQ`,
+    bf16 parameters drawn by the modules' initializers from ``seed``,
+    attention dropout ``LM_DROPOUT``, no hidden dropout unless ``kw``
+    sets it)."""
+    from apex_tpu_torch.models import GPTConfig, gpt_model_provider
+    torch.manual_seed(seed)
+    cfg = GPTConfig(**{**GPT_CFG, "num_layers": CP_LAYERS,
+                       "max_seq_length": CP_SEQ,
+                       "params_dtype": torch.bfloat16,
+                       "hidden_dropout": 0.0,
+                       "attention_dropout": LM_DROPOUT, **kw})
+    return cfg, gpt_model_provider(cfg, device=dev)
+
+
+def _cp_tokens(dev, seed: int):
+    """The phase's sequence and its successors, ``[1, CP_SEQ]`` each."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 29)
+    t = torch.randint(0, GPT_CFG["vocab_size"], (1, CP_SEQ + 1),
+                      generator=gen, device=dev)
+    return t[:, :-1].contiguous(), t[:, 1:].contiguous()
+
+
+def _cp_generator(dev, seed: int):
+    """The attention-dropout stream of (a) and (b), the same on every
+    rank."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 30)
+    return gen
+
+
+def _cp_fwd_bwd(model, toks, labels, gen):
+    """One forward and backward in training mode: the loss, the seconds
+    and the flash launches."""
+    from apex_tpu_torch.ops import _build
+    model.zero_grad(set_to_none=True)
+    before = _build.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = model(toks, labels, deterministic=False, generator=gen)
+    loss.backward()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return loss.detach(), seconds, {
+        k: v - before[k] for k, v in _build.launch_counts().items()
+        if v != before[k]}
+
+
+def _cp_attention_times(dev, seed: int, ring: bool):
+    """One attention call's forward and forward + backward seconds on
+    random ``[1, 16, s, 128]`` bf16, causal, dropout ``LM_DROPOUT``: ring
+    attention over the context group at s = 4096 a rank, or
+    ``flash_attention`` at s = 8192 (cp = 1)."""
+    from apex_tpu_torch.ops import flash_attention, ring_attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 33)
+    s = CP_SEQ // CP_TRAIN if ring else CP_SEQ
+    q, k, v, do = (torch.randn(1, 16, s, 128, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    fn = ring_attention if ring else flash_attention
+    kw = dict(causal=True, dropout_rate=LM_DROPOUT, dropout_seed=1234)
+    # CUDA events around eager calls: the hops' host copies are the gaps
+    fwd = _eager_ms(lambda: fn(q, k, v, **kw), 3) / 1e3
+    both = _eager_ms(lambda: torch.autograd.grad(
+        fn(qr, kr, vr, **kw), (qr, kr, vr), do), 3) / 1e3
+    return fwd, both - fwd
+
+
+def _cp_reference(dev, seed: int):
+    """(a) cp = 1 in the parent: one forward and backward of the phase's
+    GPT on the whole sequence with attention dropout; its loss, grads
+    (their digest, :func:`_cp_digest`), seconds, launches and peak;
+    then the same weights in the scan layout (``to_scan_layout``) with
+    the same generator, whose loss and grads must equal the loop
+    layout's bit for bit; and flash_attention's times at 8192.  Frees
+    everything it built."""
+    from apex_tpu_torch.inference.weights import (load_jax_params,
+                                                  to_scan_layout)
+    toks, labels = _cp_tokens(dev, seed)
+    cfg, model = _cp_model(dev, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, seconds, launches = _cp_fwd_bwd(model, toks, labels,
+                                          _cp_generator(dev, seed))
+    peak = torch.cuda.max_memory_allocated()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    _, scan = _cp_model(dev, seed, scan_layers=True)
+    load_jax_params(scan, to_scan_layout(_param_tree(model), CP_LAYERS))
+    sloss, sseconds, slaunches = _cp_fwd_bwd(scan, toks, labels,
+                                             _cp_generator(dev, seed))
+    stacked = {n: p.grad for n, p in scan.named_parameters()}
+    unequal = []
+    for name, g in grads.items():
+        if name.startswith("layer_"):
+            i, rest = name.split(".", 1)
+            other = stacked["layers.layer." + rest][int(i[len("layer_"):])]
+        else:
+            other = stacked[name]
+        if not torch.equal(g, other):
+            unequal.append(name)
+    out = dict(loss=loss.item(), scan_loss=sloss.item(), unequal=unequal,
+               seconds=seconds, scan_seconds=sseconds, launches=launches,
+               scan_launches=slaunches, peak=peak,
+               n=sum(p.numel() for p in model.parameters()),
+               grads=_cp_digest(grads))
+    del model, scan, grads, stacked
+    torch.cuda.empty_cache()
+    out["flash_s"] = _cp_attention_times(dev, seed, ring=False)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cp_digest(grads: dict) -> dict:
+    """Each grad leaf, fp32 on the host, whole up to CP_WHOLE_LEAF
+    elements (the biases and norms) and every DP_SAMPLE-th element of
+    a larger one: the digest (b) is held to (a) on, leaf by leaf
+    (~4.3e5 of 3.2e8 elements)."""
+    return {k: g.detach().float().flatten()[
+        ::1 if g.numel() <= CP_WHOLE_LEAF else DP_SAMPLE].cpu()
+        for k, g in grads.items()}
+
+
+def _cp_launches_want(rank: int, drop: bool, steps: int = 1,
+                      update: bool = False) -> dict:
+    """A context rank's launches: its ring pairs' fp32-output instances
+    (rank r computes r + 1 pairs a layer: the causal ring skips the
+    rest), the norms, and with ``update`` the unscale and Adam; no
+    other flash kernel."""
+    suffix = "_drop" if drop else ""
+    pairs = CP_LAYERS * (rank + 1) * steps
+    want = {f"flash_attention{suffix}_f32out": pairs,
+            f"flash_attention_bwd{suffix}_f32out": pairs,
+            "layer_norm": (2 * CP_LAYERS + 1) * steps,
+            "layer_norm_bwd": (2 * CP_LAYERS + 1) * steps}
+    if update:
+        want.update(fused_scale=steps, fused_adam=steps)
+    return want
+
+
+def _cp_train_rank(rank, tmp, seed):
+    """One context rank of the cp_train phase, on cuda:0 over gloo:
+    builds the seeded weights, initialises the topology at cp =
+    CP_TRAIN, takes its 4096 tokens of the sequence and runs (b) one
+    forward and backward (attention dropout, the generator of (a)), the
+    loss averaged over the context group and the grads over
+    ``get_dense_param_grad_axes()``'s group (their digest kept,
+    :func:`_cp_digest`); one ring attention call timed; (c) CP_ADAM_STEPS
+    FusedAdam steps with hidden dropout (per-rank masks) and no
+    attention dropout; (d) Ulysses attention against flash_attention on
+    the gathered sequence.  Writes what it saw to ``tmp/rank<rank>.pt``."""
+    import datetime
+    import os
+    import torch.distributed as dist
+    from apex_tpu_torch import train_step
+    from apex_tpu_torch.ops import _build, flash_attention, ulysses_attention
+    from apex_tpu_torch.optimizers import functional
+    from apex_tpu_torch.parallel import _comm
+    from apex_tpu_torch.transformer import parallel_state
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(tmp) / "store"), CP_TRAIN), rank=rank, world_size=CP_TRAIN,
+        timeout=datetime.timedelta(seconds=600))
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        parallel_state.initialize_model_parallel(
+            context_parallel_size_=CP_TRAIN)
+        cgroup = parallel_state.get_context_parallel_group()
+        dgroup = parallel_state.resolve_group(
+            parallel_state.get_dense_param_grad_axes())
+        n = dist.get_world_size(dgroup)
+        s = CP_SEQ // CP_TRAIN
+        mine = slice(rank * s, (rank + 1) * s)
+        toks, labels = (t[:, mine].contiguous()
+                        for t in _cp_tokens(dev, seed))
+        out["staged"] = _comm.hop_staged(toks, cgroup)
+
+        def group_mean(x):
+            x = x.detach().float().reshape(1).clone()
+            return _comm.all_reduce(x, cgroup).item() / CP_TRAIN
+
+        # (b) one forward and backward against (a)
+        _, model = _cp_model(dev, seed, context_parallel=True)
+        out["setup_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _timed_collectives() as coll:
+            loss, seconds, launches = _cp_fwd_bwd(
+                model, toks, labels, _cp_generator(dev, seed))
+        peak = torch.cuda.max_memory_allocated()
+        grads = {k: p.grad.float() for k, p in model.named_parameters()}
+        t1 = time.perf_counter()
+        for g in grads.values():
+            _comm.all_reduce(g, dgroup).div_(n)
+        torch.cuda.synchronize()
+        reduce_s = time.perf_counter() - t1
+        out["b"] = dict(loss=group_mean(loss), local=loss.item(),
+                        seconds=seconds, coll=list(coll), launches=launches,
+                        peak=peak, reduce_s=reduce_s,
+                        grads=_cp_digest(grads))
+        del model, grads
+        torch.cuda.empty_cache()
+        out["ring_s"] = _cp_attention_times(dev, seed, ring=True)
+        # (c) FusedAdam steps, hidden dropout, no attention dropout
+        _, model = _cp_model(dev, seed, context_parallel=True,
+                             hidden_dropout=LM_DROPOUT, attention_dropout=0.0)
+        tx = functional.fused_adam(lr=TRAIN_LR)
+        state = train_step.init_train_state(tx, model, loss_scale="dynamic")
+
+        def reduce(flat_grads):
+            return _comm.all_reduce(flat_grads, dgroup).div_(n)
+
+        step = train_step.make_train_step(
+            lambda m, b: m(b["tokens"], b["labels"], deterministic=False,
+                           generator=b["generator"]), tx,
+            grad_transform=reduce)
+        c = dict(losses=[], local=[], step_s=[], digests=[], coll=[])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        with _kernel_lengths() as lengths:
+            for i in range(CP_ADAM_STEPS):
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(seed * 1000 + i)
+                # the first step's collectives timed; the last step's time
+                # is the rank's step time
+                timed = _timed_collectives() if i == 0 \
+                    else contextlib.nullcontext([])
+                with timed as rec:
+                    t1 = time.perf_counter()
+                    state, loss = step(state, dict(tokens=toks,
+                                                   labels=labels,
+                                                   generator=gen))
+                    torch.cuda.synchronize()
+                    c["step_s"].append(time.perf_counter() - t1)
+                c["coll"].append(list(rec))
+                c["local"].append(loss.item())
+                c["losses"].append(group_mean(loss))
+                c["digests"].append(_bits_digest(state.opt.master))
+        c.update(launches=_build.launch_counts(), lengths=lengths,
+                 n=state.opt.master.numel(),
+                 peak=torch.cuda.max_memory_allocated(),
+                 scale=state.scaler.loss_scale.item())
+        out["c"] = c
+        del state, step, model
+        torch.cuda.empty_cache()
+        # (d) Ulysses attention against flash_attention on the gathered
+        # sequence (the comparison's launches are not the main path's:
+        # (d)'s are counted before it)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 31)
+        full = [torch.randn(1, 16, CP_SEQ, 128, generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(4)]
+        q, k, v = (t[:, :, mine].contiguous().requires_grad_()
+                   for t in full[:3])
+        before = _build.launch_counts()
+        with _timed_collectives() as coll:
+            t1 = time.perf_counter()
+            o = ulysses_attention(q, k, v, causal=True)
+            o.backward(full[3][:, :, mine].contiguous())
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t1
+        launches = {k_: v_ - before[k_]
+                    for k_, v_ in _build.launch_counts().items()
+                    if v_ != before[k_]}
+        qd, kd, vd = (t.clone().requires_grad_() for t in full[:3])
+        od = flash_attention(qd, kd, vd, causal=True)
+        od.backward(full[3])
+        torch.cuda.synchronize()
+        d = dict(seconds=seconds, launches=launches,
+                 a2a=[t_ for name, t_ in coll if name == "all_to_all"],
+                 out_err=(o.float() - od[:, :, mine].float()).abs().max()
+                 .item(),
+                 out_equal=torch.equal(o, od[:, :, mine]), rel=[], equal=[])
+        for mine_t, dense_t in zip((q, k, v), (qd, kd, vd)):
+            ref = dense_t.grad[:, :, mine].float()
+            d["rel"].append(((mine_t.grad.float() - ref).norm()
+                             / ref.norm()).item())
+            d["equal"].append(torch.equal(mine_t.grad,
+                                          dense_t.grad[:, :, mine]))
+        out["d"] = d
+        del full, q, k, v, qd, kd, vd, o, od
+    finally:
+        parallel_state.destroy_model_parallel()
+        dist.destroy_process_group()
+    torch.save(out, Path(tmp) / f"rank{rank}.pt")
+
+
+def _cp_hold_launches(label, got: dict, want: dict) -> None:
+    """The flash, norm and update counters of a run are the wanted ones
+    (a flash counter not wanted must be 0: the bf16 instances do not
+    launch inside the ring)."""
+    keys = [k for k in got if k.startswith("flash_attention")] + list(want)
+    seen = {k: got.get(k, 0) for k in keys if got.get(k, 0) or k in want}
+    print(f"  {label}: launches {seen} (want {want})")
+    if seen != want:
+        raise AssertionError(f"{label}: the launches are off")
+
+
+def _cp_train_gates(ranks, ref, smi) -> None:
+    """What the parent holds the cp_train ranks to (the module
+    docstring's item 23)."""
+    # (a) the scan layout against the loop layout
+    print(f"cp_train (a) scan layout against the loop layout: loss "
+          f"{ref['scan_loss']!r} against {ref['loss']!r}, "
+          f"{len(ref['grads']) - len(ref['unequal'])}/{len(ref['grads'])} "
+          f"grads equal bit for bit")
+    if ref["scan_loss"] != ref["loss"] or ref["unequal"]:
+        raise AssertionError(f"cp_train (a): the scan layout is not the "
+                             f"loop's: {ref['unequal'][:5]}")
+    want_a = {"flash_attention_drop": CP_LAYERS,
+              "flash_attention_bwd_dq_md": CP_LAYERS,
+              "flash_attention_bwd_dkv_md": CP_LAYERS,
+              "layer_norm": 2 * CP_LAYERS + 1,
+              "layer_norm_bwd": 2 * CP_LAYERS + 1}
+    for label, got in (("(a) loop", ref["launches"]),
+                       ("(a) scan", ref["scan_launches"])):
+        _cp_hold_launches(f"cp_train {label}", got, want_a)
+    # (b) against (a)
+    b = [r["b"] for r in ranks]
+    if len({x["loss"] for x in b}) != 1:
+        raise AssertionError("cp_train (b): the ranks' mean losses differ")
+    diff = abs(b[0]["loss"] - ref["loss"])
+    print(f"cp_train (b) cp = {CP_TRAIN} against (a) cp = 1: loss "
+          f"{b[0]['loss']:.6f} (the ranks' {[round(x['local'], 6) for x in b]})"
+          f" against {ref['loss']:.6f}: |diff| {diff:.3e} (limit "
+          f"{TOL_CP_LOSS})")
+    if not diff <= TOL_CP_LOSS:
+        raise AssertionError("cp_train (b): the loss is off cp = 1's")
+    grads_b = b[0]["grads"]
+    if any(not torch.equal(x["grads"][k], grads_b[k]) for x in b
+           for k in grads_b):
+        raise AssertionError("cp_train (b): the ranks' reduced grads differ")
+    num = den = 0.0
+    worst = (0.0, "")
+    for name, want in ref["grads"].items():
+        e = float((grads_b[name] - want).double().norm() ** 2)
+        w = float(want.double().norm() ** 2)
+        num, den = num + e, den + w
+        leaf = (e / w) ** 0.5 if w > 0 else (math.inf if e > 0 else 0.0)
+        if leaf > worst[0] or not worst[1]:
+            worst = (leaf, name)
+    rel = (num / den) ** 0.5
+    print(f"  cp_train (b) grads, averaged over the data and context "
+          f"group (equal on the ranks), against (a)'s, every "
+          f"{DP_SAMPLE}th element of each leaf past {CP_WHOLE_LEAF}, the "
+          f"others whole "
+          f"({sum(g.numel() for g in grads_b.values())}): relative L2 "
+          f"{rel:.4e} over all, the worst leaf {worst[1]} {worst[0]:.4e} "
+          f"(limit {TOL_CP_GRAD_REL} on each)")
+    if not (rel <= TOL_CP_GRAD_REL and worst[0] <= TOL_CP_GRAD_REL):
+        raise AssertionError("cp_train (b): the grads are off cp = 1's")
+    for rank, r in enumerate(ranks):
+        _cp_hold_launches(f"cp_train (b) rank {rank}", r["b"]["launches"],
+                          _cp_launches_want(rank, drop=True))
+    # (c) FusedAdam steps
+    c = [r["c"] for r in ranks]
+    losses = c[0]["losses"]
+    print(f"cp_train (c) {CP_ADAM_STEPS} FusedAdam steps, hidden dropout "
+          f"{LM_DROPOUT} (per-rank masks): losses averaged over the context "
+          f"group {[round(x, 5) for x in losses]} (the ranks' own "
+          f"{[[round(x, 5) for x in r['local']] for r in c]})")
+    if any(r["losses"] != losses for r in c):
+        raise AssertionError("cp_train (c): the ranks' mean losses differ")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"cp_train (c): the loss did not fall: {losses}")
+    for i in range(CP_ADAM_STEPS):
+        if len({r["digests"][i] for r in c}) != 1:
+            raise AssertionError(f"cp_train (c): the ranks' masters differ "
+                                 f"after step {i + 1}")
+    print(f"  cp_train (c): the {CP_TRAIN} ranks' fp32 masters equal bit for "
+          f"bit after each step ({c[0]['n']} elements)")
+    for rank, r in enumerate(c):
+        _cp_hold_launches(f"cp_train (c) rank {rank}", r["launches"],
+                          _cp_launches_want(rank, drop=False,
+                                            steps=CP_ADAM_STEPS, update=True))
+        _hold_lengths(f"cp_train (c) rank {rank}", r, {
+            "fused_scale": (CP_ADAM_STEPS, r["n"]),
+            "fused_adam": (CP_ADAM_STEPS, r["n"])})
+    # (d) Ulysses
+    for rank, r in enumerate(ranks):
+        d = r["d"]
+        print(f"cp_train (d) rank {rank}: Ulysses [1, 16, {CP_SEQ // CP_TRAIN}"
+              f", 128] bf16 causal against flash_attention on [1, 16, "
+              f"{CP_SEQ}, 128]: out max|diff| {d['out_err']:.3e} (limit "
+              f"{TOL_ATTN_OUT}, equal {d['out_equal']}); dq, dk, dv relative "
+              f"L2 {[f'{x:.3e}' for x in d['rel']]} (limit "
+              f"{TOL_FLASH_BWD_REL_L2}, equal {d['equal']})")
+        if not (d["out_err"] <= TOL_ATTN_OUT
+                and max(d["rel"]) <= TOL_FLASH_BWD_REL_L2):
+            raise AssertionError("cp_train (d): Ulysses is off the dense run")
+        _cp_hold_launches(f"cp_train (d) rank {rank}", d["launches"],
+                          {"flash_attention": 1,
+                           "flash_attention_bwd_dq": 1,
+                           "flash_attention_bwd_dkv": 1})
+
+
+def phase_cp_train(dev, seed: int):
+    """Context-parallel training at cp = 2 on the one card (the module
+    docstring's item 23): the cp = 1 reference and the scan layout in the
+    parent (:func:`_cp_reference`), freed, then the two ranks
+    (:func:`_cp_train_rank`) on cuda:0 over gloo, held here.  Returns the
+    ranks' launches of (b), (c) and (d), summed."""
+    import tempfile
+    import torch.multiprocessing as mp
+    smi = _smi()
+    t_phase = time.perf_counter()
+    _card_memory("cp_train, before the reference")
+    ref = _cp_reference(dev, seed)
+    print(f"cp_train reference (a) (cp = 1, GPT-3 1.3B widths, {CP_LAYERS} "
+          f"layers, {ref['n']} parameters, bf16, one sequence of {CP_SEQ} "
+          f"tokens, attention dropout {LM_DROPOUT}): loss {ref['loss']:.6f}, "
+          f"forward + backward {ref['seconds']:.3f} s (scan layout "
+          f"{ref['scan_seconds']:.3f} s), peak {ref['peak'] / 2**30:.2f} GiB "
+          f"[{smi}]")
+    _card_memory("cp_train, before the ranks")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cpt_") as tmp_dir:
+        tmp = Path(tmp_dir)
+        t0 = time.perf_counter()
+        mp.start_processes(_cp_train_rank, nprocs=CP_TRAIN,
+                           start_method="spawn", args=(str(tmp), seed))
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(CP_TRAIN)]
+    print(f"cp_train: ring hops over gloo on CUDA tensors copy through host "
+          f"tensors: {ranks[0]['staged']}")
+    _cp_train_gates(ranks, ref, smi)
+    # the numbers
+    total: dict = {}
+    for rank, r in enumerate(ranks):
+        b, c, d = r["b"], r["c"], r["d"]
+        print(f"cp_train rank {rank}: (b) forward + backward {b['seconds']:.3f}"
+              f" s (cp = 1: {ref['seconds']:.3f} s), peak "
+              f"{b['peak'] / 2**30:.2f} GiB (cp = 1: "
+              f"{ref['peak'] / 2**30:.2f}); its ring hops (gloo, staged "
+              f"through the host; not an NCCL figure): {_pp_hops(b['coll'])};"
+              f" the grads' all-reduces {b['reduce_s']:.3f} s [{smi}]")
+        print(f"  (c) step times {[round(t, 3) for t in c['step_s']]} s (the "
+              f"last without timed collectives: the rank's step time), peak "
+              f"{c['peak'] / 2**30:.2f} GiB, flat length {c['n']}; step 1's "
+              f"collectives {_coll_line(c['coll'][0])}; {_pp_hops(c['coll'][0])}"
+              f" [{smi}]")
+        print(f"  one ring attention call [1, 16, {CP_SEQ // CP_TRAIN}, 128] "
+              f"bf16 causal, dropout {LM_DROPOUT}: forward "
+              f"{1e3 * r['ring_s'][0]:.2f} ms, backward "
+              f"{1e3 * r['ring_s'][1]:.2f} ms; flash_attention at {CP_SEQ} "
+              f"(cp = 1, the parent alone on the card): forward "
+              f"{1e3 * ref['flash_s'][0]:.2f} ms, backward "
+              f"{1e3 * ref['flash_s'][1]:.2f} ms (eager calls between CUDA "
+              f"events; the ranks share the card) [{smi}]")
+        print(f"  (d) Ulysses forward + backward {d['seconds']:.3f} s, its "
+              f"all-to-alls {[round(1e3 * t, 2) for t in d['a2a']]} ms "
+              f"(gloo, copied through the host inside the call) [{smi}]")
+        for run in (b["launches"], c["launches"], d["launches"]):
+            for k, v in run.items():
+                total[k] = total.get(k, 0) + v
+    print(f"cp_train: the ranks set up in "
+          f"{max(r['setup_s'] for r in ranks):.1f} s and ran in "
+          f"{ranks_s:.1f} s, the phase {time.perf_counter() - t_phase:.1f} s "
+          f"[{smi}]")
+    return dict(launches=total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10241,12 +11103,12 @@ def main(argv=None) -> int:
                     default="kernels,serve,gpt,bert,bert_train,gpt_train,"
                             "gpt_train_8k,profile,train,lean_train,optim,"
                             "train-check,width,spec,tp,dp,tp_train,"
-                            "pp_train,tier,fleet,shim",
+                            "pp_train,cp_train,tier,fleet,shim",
                     help="comma list of kernels, serve, gpt, bert, "
                          "bert_train, gpt_train, gpt_train_8k, profile, "
                          "train, lean_train, optim, train-check, width, "
-                         "spec, tp, dp, tp_train, pp_train, tier, fleet, "
-                         "shim, ab "
+                         "spec, tp, dp, tp_train, pp_train, cp_train, tier, "
+                         "fleet, shim, ab "
                          "(build always "
                          "runs; profile profiles the serve and the train "
                          "phases that run)")
@@ -10394,6 +11256,14 @@ def main(argv=None) -> int:
         del ppt
         torch.cuda.empty_cache()
     lap("pp_train")
+    if "cp_train" in phases:
+        cpt = phase_cp_train(dev, args.seed)
+        for key, r in recs.items():
+            r["launches"] = (r.get("launches") or 0) + cpt["launches"].get(
+                key, 0)
+        del cpt
+        torch.cuda.empty_cache()
+    lap("cp_train")
     tier_ref = None
     for phase in ("tier", "fleet"):
         if phase not in phases:

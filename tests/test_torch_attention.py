@@ -144,3 +144,84 @@ def test_flash_attention_argument_checks_match_jax(case):
                               **jkw)
     with pytest.raises(ValueError):
         tattn.flash_attention(*_t(q, k, v), **tkw)
+
+
+# -- fp32 outputs on bf16 operands (ring attention's partials) ------------
+#
+# JAX's ``_fwd`` and ``_bwd_impl`` take ``out_dtype=jnp.float32``; the
+# port's ``_fwd`` and ``_bwd`` take ``out_dtype=torch.float32``, whose
+# plain versions (the CPU route) return fp32 without rounding through
+# bf16.  Held on the same bf16 operands (one block a pair on the JAX
+# side, as the ring's shards tile), with dropout at the ring's second
+# step's offsets, within 2^-10 of each output's largest magnitude: fp32
+# on both sides, p and dS rounded to bf16 for their products on both (a
+# rounding an fp32 ulp flips moves an element by ~2^-9 of one product
+# term); an output rounded to bf16 is off by up to 2^-9 of each element.
+
+_F32_CASES = [(True, 0.0, (0, 0)), (False, 0.0, (0, 0)),
+              (True, 0.1, (0, 0)), (False, 0.1, (64, 0))]
+
+
+def _bf16_case(bh, s, d, seed):
+    rng = np.random.RandomState(seed)
+    arrs = [rng.randn(bh, s, d).astype(np.float32) for _ in range(4)]
+    j = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrs]
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in arrs]
+    return j, t
+
+
+def _close_f32(got, want, tol=2.0 ** -10):
+    got = got.detach().float().numpy()
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+@pytest.mark.parametrize("causal,rate,offs", _F32_CASES)
+def test_fwd_out_dtype_f32_matches_jax(causal, rate, offs):
+    bh, s, d = 3, 64, 32
+    (jq, jk, jv, _), (tq, tk, tv, _) = _bf16_case(bh, s, d, 11)
+    scale = d ** -0.5
+    j_out, j_lse = jattn._fwd(
+        jq, jk, jv, None, causal, scale, s, s, out_dtype=jnp.float32,
+        rate=rate, seed3=jattn._seed_operand(99, *offs) if rate else None)
+    t_out, t_lse = tattn._fwd(
+        tq, tk, tv, causal, scale, rate=rate,
+        seed3=tattn._seed_operand(99, *offs) if rate else None,
+        out_dtype=torch.float32)
+    assert t_out.dtype == torch.float32 and j_out.dtype == jnp.float32
+    _close_f32(t_out, j_out)
+    np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse),
+                               rtol=1e-5, atol=1e-4)
+    # not bf16 values: nothing rounded the output
+    assert not torch.equal(t_out, t_out.to(torch.bfloat16).float())
+    # the default stays q's type
+    assert tattn._fwd(tq, tk, tv, causal, scale)[0].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("causal,rate,offs", _F32_CASES)
+@pytest.mark.parametrize("split", [False, True])
+def test_bwd_out_dtype_f32_matches_jax(causal, rate, offs, split,
+                                       monkeypatch):
+    """Both JAX backward routes (one-pass, and the split pair past the
+    gate) with fp32 dq, dk and dv from the global bf16 out and lse."""
+    bh, s, d = 3, 64, 32
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _bf16_case(bh, s, d, 12)
+    scale = d ** -0.5
+    jseed = jattn._seed_operand(5, *offs) if rate else None
+    tseed = tattn._seed_operand(5, *offs) if rate else None
+    j_out, j_lse = jattn._fwd(jq, jk, jv, None, causal, scale, s, s,
+                              rate=rate, seed3=jseed)
+    t_out, t_lse = tattn._fwd(tq, tk, tv, causal, scale, rate=rate,
+                              seed3=tseed)
+    if split:
+        monkeypatch.setattr(jattn, "_FUSED_BWD_MAX_BYTES", 0)
+        monkeypatch.setattr(tattn, "_FUSED_BWD_MAX_BYTES", 0)
+    want = jattn._bwd_impl(jq, jk, jv, None, j_out, j_lse, jdo,
+                           causal, scale, s, s, out_dtype=jnp.float32,
+                           rate=rate, seed3=jseed)
+    got = tattn._bwd(tq, tk, tv, t_out, t_lse, tdo, causal, scale,
+                     rate=rate, seed3=tseed, out_dtype=torch.float32)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and w.dtype == jnp.float32
+        _close_f32(g, w)

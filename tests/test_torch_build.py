@@ -149,7 +149,8 @@ def test_md_forward_takes_the_persistent_warp_specialized_kernel(csrc_copy):
     assert re.search(r"launch_qmajor<D, false, ", plain)
     assert "launch_qm_ws" not in plain
     ws = _code((CSRC / "flash_qmajor_ws.cuh").read_text())
-    assert "flash_fwd_ws_kernel<D, MASK, DQ, DROP>\n      <<<" in ws
+    assert "flash_fwd_ws_kernel<D, MASK, DQ, DROP, kOpBf16, 2, F32>\n" \
+        "      <<<" in ws
     for piece in ("tma_load(", "tma_store(", "mbar_wait(", "reg_dealloc<",
                   "reg_alloc<", "bar_sync(kFwTurn + wg", "bar_arrive(kFwTurn",
                   "drop_mix(", "fold16("):

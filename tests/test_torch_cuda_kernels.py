@@ -3822,3 +3822,323 @@ def test_pipeline_1f1b_two_gloo_ranks_on_one_card(cuda, tmp_path):
                 "flash_attention": 4, "flash_attention_bwd": 4}
         assert {k: res["launches"][k] for k in want} == want, res["launches"]
     assert ranks[0]["loss"][0] == ranks[1]["loss"][0]
+
+
+# -- the fp32-output instances ring attention runs (#3, #3d, #4, #4d's) --
+#
+# On bf16 operands with out_dtype=torch.float32 the forward and the
+# one-pass backward take instances that store their fp32 accumulators
+# without a round to bf16.  Each is held against its plain version (the
+# same tolerances as the bf16 instances, the backward also against the
+# exact float64 gradient), and against its bf16 twin on the same
+# operands: the twins compute the same accumulators, so the forward's out
+# and lse and the backward's dk and dv round to the twin's bits exactly
+# (dq is added by bulk reductions in any order: :func:`_dq_near_twin`).
+# Ring attention's shard pairs are square; the dropout rows also take the
+# seed operand's offsets of the ring's second step (rows 4096 on, keys
+# from 0) and the converse.
+
+_F32_FWD_CASES = [
+    # d, rate, (row_off, col_off)
+    (32, 0.0, (0, 0)), (64, 0.0, (0, 0)), (128, 0.0, (0, 0)),
+    (64, 0.1, (0, 0)), (128, 0.1, (0, 0)), (128, 0.1, (4096, 0)),
+    (64, 0.1, (0, 4096)),
+]
+_F32_SHAPES = [(100, 100, True), (256, 256, False), (300, 300, True),
+               (256, 512, False)]
+
+
+def _f32_operands(cuda, d, sq, sk, seed, bh=6):
+    return tuple(_randn((bh, s, d), seed + i, cuda)
+                 for i, s in enumerate((sq, sk, sk, sq)))
+
+
+def _assert_f32_bwd_close(got, ref, exact):
+    """fp32 grads against the plain version's fp32 grads: within 1e-2
+    relative L2, and each element within 2^-6 |ref| + 2^-9 or no less
+    accurate than the plain version against the exact gradient."""
+    for g, r, x in zip(got, ref, exact):
+        assert g.dtype == torch.float32 and r.dtype == torch.float32
+        assert _rel_l2(g, r) <= 1e-2
+        by_element = bool(((g - r).abs() <= 2.0 ** -6 * r.abs()
+                           + 2.0 ** -9).all())
+        ge, re = g.double() - x, r.double() - x
+        by_exact = bool(ge.norm() <= 1.05 * re.norm()) and bool(
+            ge.abs().max() <= 1.25 * re.abs().max())
+        assert by_element or by_exact
+
+
+def _dq_near_twin(a32, b16):
+    """fp32 ``a32`` rounded to bf16 within one bf16 ulp of ``b16`` (of
+    the larger magnitude), plus 2^-16 of ``b16``'s max where the sum
+    cancels (the twins add dq's partials in different orders, and #4d's
+    bf16 twin scales the sum, the fp32 instance each partial)."""
+    a = a32.to(torch.bfloat16).float()
+    b = b16.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulp = torch.ldexp(torch.ones_like(a), e - 8)
+    return bool(((a - b).abs() <= ulp + 2.0 ** -16 * b.abs().max()).all())
+
+
+@pytest.mark.parametrize("d,rate,offs", _F32_FWD_CASES)
+@pytest.mark.parametrize("sq,sk,causal", _F32_SHAPES)
+def test_flash_f32out_forward_matches_plain_and_its_twin(cuda, d, rate, offs,
+                                                         sq, sk, causal):
+    q, k, v, _ = _f32_operands(cuda, d, sq, sk, 300)
+    seed3 = attn._seed_operand(-98765, *offs, device=cuda) if rate else None
+    name = "flash_attention_drop_f32out" if rate else "flash_attention_f32out"
+    md = dict(rate=rate, seed3=seed3)
+    before = _build.launch_counts()
+    got, lse = attn._fwd(q, k, v, causal, d ** -0.5, **md,
+                         out_dtype=torch.float32)
+    after = _build.launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {name: 1}
+    twin, twin_lse = attn._fwd(q, k, v, causal, d ** -0.5, **md)
+    ref, ref_lse = attn._fwd_reference(q, k, v, causal, d ** -0.5, **md,
+                                       out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and ref.dtype == torch.float32
+    assert (got - ref).abs().max().item() <= 2e-2
+    assert _row_errors(got, ref).max().item() <= 2.0 ** -6
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    assert torch.equal(got.to(torch.bfloat16), twin)
+    assert torch.equal(lse, twin_lse)
+    # the fp32 values are not bf16 values
+    assert bool((got != got.to(torch.bfloat16).float()).any())
+
+
+@pytest.mark.parametrize("d,rate,offs", _F32_FWD_CASES)
+@pytest.mark.parametrize("sq,sk,causal", _F32_SHAPES)
+def test_flash_f32out_backward_matches_plain_and_its_twin(
+        cuda, d, rate, offs, sq, sk, causal):
+    q, k, v, do = _f32_operands(cuda, d, sq, sk, 310)
+    seed3 = attn._seed_operand(424243, *offs, device=cuda) if rate else None
+    scale = d ** -0.5
+    md = dict(rate=rate, seed3=seed3)
+    # the ring's backward: the global out (q's type) and lse
+    out, lse = attn._fwd(q, k, v, causal, scale, **md)
+    name = ("flash_attention_bwd_drop_f32out" if rate
+            else "flash_attention_bwd_f32out")
+    before = _build.launch_counts()
+    got = attn._bwd(q, k, v, out, lse, do, causal, scale, **md,
+                    out_dtype=torch.float32)
+    after = _build.launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {name: 1}
+    twin = attn._bwd(q, k, v, out, lse, do, causal, scale, **md)
+    ref = attn._bwd_reference(q, k, v, out, lse, do, causal, scale, **md,
+                              out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    _assert_f32_bwd_close(got, ref, _exact_grads_md(
+        q, k, v, do, causal, scale, None, rate, seed3))
+    assert _dq_near_twin(got[0], twin[0])
+    assert torch.equal(got[1].to(torch.bfloat16), twin[1])
+    assert torch.equal(got[2].to(torch.bfloat16), twin[2])
+
+
+def test_flash_f32out_long_shard_pair(cuda):
+    """The ring's shard pair at cp = 2 of an 8192-token sequence, 4 heads
+    of GPT-3 1.3B's 16 (4096 queries against 4096 keys, d 128: the
+    one-pass gate's 2 MiB exactly), the second step's full pair with
+    dropout at rows 4096 on: the forward and backward against the plain
+    versions (4 heads a slice) and their bf16 twins."""
+    bh, s, d = 4, 4096, 128
+    q, k, v, do = _f32_operands(cuda, d, s, s, 320, bh=bh)
+    seed3 = attn._seed_operand(-2 ** 31 + 7, s, 0, device=cuda)
+    scale = d ** -0.5
+    md = dict(rate=0.1, seed3=seed3)
+    out32, lse = attn._fwd(q, k, v, False, scale, **md,
+                           out_dtype=torch.float32)
+    twin, _ = attn._fwd(q, k, v, False, scale, **md)
+    assert torch.equal(out32.to(torch.bfloat16), twin)
+    ref, _ = attn._fwd_reference(q, k, v, False, scale, **md,
+                                 out_dtype=torch.float32)
+    assert _row_errors(out32, ref).max().item() <= 2.0 ** -6
+    got = attn._bwd(q, k, v, twin, lse, do, False, scale, **md,
+                    out_dtype=torch.float32)
+    ref = attn._bwd_reference(q, k, v, twin, lse, do, False, scale, **md,
+                              out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32 and _rel_l2(g, r) <= 1e-2
+
+
+def test_flash_f32out_routes_without_an_instance_raise(cuda, monkeypatch):
+    """fp32 outputs where no instance is built (ROADMAP V10): the split
+    backward, a mask, fp16 operands on the wide family; and an
+    out_dtype other than fp32 or the operands'.  Nothing rounds or runs
+    the plain version."""
+    q, k, v, do = _f32_operands(cuda, 128, 256, 256, 330)
+    scale = 128 ** -0.5
+    out, lse = attn._fwd(q, k, v, True, scale)
+    mask3 = torch.zeros(1, 256, 256, dtype=torch.bool, device=cuda)
+    with pytest.raises(NotImplementedError, match="V10"):
+        attn._fwd(q, k, v, True, scale, mask3=mask3, out_dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="V10"):
+        attn._bwd(q, k, v, out, lse, do, True, scale, mask3=mask3,
+                  out_dtype=torch.float32)
+    h16 = [t.half() for t in (q, k, v, do)]
+    with pytest.raises(NotImplementedError, match="V10"):
+        attn._fwd(*h16[:3], True, scale, out_dtype=torch.float32)
+    monkeypatch.setattr(attn, "_FUSED_BWD_MAX_BYTES", 0)
+    with pytest.raises(NotImplementedError, match="V10"):
+        attn._bwd(q, k, v, out, lse, do, True, scale,
+                  out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="out_dtype"):
+        attn._fwd(q, k, v, True, scale, out_dtype=torch.float16)
+
+
+def _flash_instance_runs(cuda):
+    """The bf16 flash instances the fp32 parameter joined on seeded
+    inputs: #3 and #3d's forward, #4 and #4d's dk and dv (their dq is
+    added in any order), the split pair #5 and #6, and #5md and #6md
+    with dropout, at causal [2, 3, 300, 128] (d 64 for #3 and #4 too)."""
+    runs = {}
+    for d in (64, 128):
+        q, k, v, do = _f32_operands(cuda, d, 300, 300, 340 + d)
+        scale = d ** -0.5
+        seed3 = attn._seed_operand(777, device=cuda)
+        for tag, md in (("", {}), ("d", dict(rate=0.1, seed3=seed3))):
+            out, lse = attn._fwd(q, k, v, True, scale, **md)
+            runs[f"#3{tag} d{d}"] = out
+            runs[f"#3{tag} lse d{d}"] = lse
+            _, dk, dv = attn._bwd(q, k, v, out, lse, do, True, scale, **md)
+            runs[f"#4{tag} dk d{d}"] = dk
+            runs[f"#4{tag} dv d{d}"] = dv
+            delta = attn._delta(out, do)
+            args = (q, k, v, lse, delta, do, True, scale)
+            runs[f"#5{tag} d{d}"] = attn._dq_kernel(*args, **md)
+            dk, dv = attn._dkv_kernel(*args, **md)
+            runs[f"#6{tag} dk d{d}"] = dk
+            runs[f"#6{tag} dv d{d}"] = dv
+    return runs
+
+
+#: sha256 (first 16 hex digits) of :func:`_flash_instance_runs`' outputs
+#: from the kernel library as it was before the fp32-output parameter
+#: joined the four flash templates, recorded on an H100 80GB HBM3
+_FLASH_DIGESTS = {
+    "#3 d64": "a79c8f343ae124b1",
+    "#3 lse d64": "48d527eadd3557d3",
+    "#4 dk d64": "1ada2ed0a9819cb8",
+    "#4 dv d64": "2bd2e2944f33d9cf",
+    "#5 d64": "f4f79cdd328e1acf",
+    "#6 dk d64": "1ada2ed0a9819cb8",
+    "#6 dv d64": "2bd2e2944f33d9cf",
+    "#3d d64": "297bcce2c9cb06b3",
+    "#3d lse d64": "263c9525bd5ac415",
+    "#4d dk d64": "12518cbfbf3298fb",
+    "#4d dv d64": "31326f084afb5206",
+    "#5d d64": "fc56693aef461d53",
+    "#6d dk d64": "12518cbfbf3298fb",
+    "#6d dv d64": "31326f084afb5206",
+    "#3 d128": "38d3f6e99a34d1b8",
+    "#3 lse d128": "999335e8ee03cb90",
+    "#4 dk d128": "3a61106a59a2b563",
+    "#4 dv d128": "842a11f4928a7cf5",
+    "#5 d128": "ba4f2d47ec115c35",
+    "#6 dk d128": "3a61106a59a2b563",
+    "#6 dv d128": "842a11f4928a7cf5",
+    "#3d d128": "a3c1573a7cb98c79",
+    "#3d lse d128": "75580f7480ae9798",
+    "#4d dk d128": "7c7cc0ddad4f3aa9",
+    "#4d dv d128": "9433a0940656fd69",
+    "#5d d128": "6cff1868fb821256",
+    "#6d dk d128": "7c7cc0ddad4f3aa9",
+    "#6d dv d128": "9433a0940656fd69"}
+
+
+def test_flash_instance_bits_match_the_recorded_run(cuda):
+    """The fp32-output parameter joined #3's, #3d's, #4's and #4d's
+    templates under ``if constexpr``: their bf16 instances, and the split
+    pair's, give the bits they gave before."""
+    got = {k: _digest(v) for k, v in _flash_instance_runs(cuda).items()}
+    assert got == _FLASH_DIGESTS
+
+
+# -- ring and Ulysses attention: two context ranks on cuda:0 over gloo --
+#
+# NCCL refuses two ranks on one card, so the two ranks share cuda:0 over
+# gloo (ring hops staged through the host, the all-to-all copied through
+# it inside gloo).  Each rank holds half of a [1, 4, 1024, 128] bf16
+# sequence; the ring's forward and backward launch only the fp32-output
+# instances (rank 0 skips its invisible causal pair), and the shards put
+# together hold the dense flash_attention's output and grads to the bf16
+# flash tolerances (2e-2 absolute, 1e-2 relative L2).
+
+_CP_SHAPE = (1, 4, 1024, 128)
+_CP_CASES = [(True, 0.0), (False, 0.0), (True, 0.1), (False, 0.1)]
+
+
+def _cp_inputs(dev):
+    return [_randn(_CP_SHAPE, 400 + i, dev) for i in range(4)]
+
+
+def _cp_rank(rank, store, out):
+    import datetime
+    import torch.distributed as dist
+    from apex_tpu_torch.ops import ring_attention, ulysses_attention
+    from apex_tpu_torch.transformer import parallel_state as ps
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        ps.initialize_model_parallel(context_parallel_size_=2)
+        dev = torch.device("cuda", 0)
+        s = _CP_SHAPE[2] // 2
+        shard = [t[:, :, rank * s:(rank + 1) * s].contiguous()
+                 for t in _cp_inputs(dev)]
+        res = {}
+        for fn, cases in ((ring_attention, _CP_CASES),
+                          (ulysses_attention, [(True, 0.0)])):
+            for causal, rate in cases:
+                q, k, v = (t.clone().requires_grad_() for t in shard[:3])
+                before = _build.launch_counts()
+                o = fn(q, k, v, causal=causal, dropout_rate=rate,
+                       dropout_seed=1234 if rate else None)
+                o.backward(shard[3])
+                torch.cuda.synchronize()
+                after = _build.launch_counts()
+                res[(fn.__name__, causal, rate)] = dict(
+                    out=o.detach().cpu(), grads=[t.grad.cpu()
+                                                 for t in (q, k, v)],
+                    launches={n: after[n] - before[n] for n in after
+                              if after[n] != before[n]})
+    finally:
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()
+    torch.save(res, f"{out}.{rank}")
+
+
+def test_ring_and_ulysses_attention_two_ranks_on_one_card(cuda, tmp_path):
+    import torch.multiprocessing as mp
+    mp.start_processes(_cp_rank, nprocs=2, start_method="spawn",
+                       args=(str(tmp_path / "store"), str(tmp_path / "out")))
+    ranks = [torch.load(f"{tmp_path / 'out'}.{r}", weights_only=False)
+             for r in range(2)]
+    q, k, v, do = _cp_inputs(cuda)
+    for (name, causal, rate), _ in ranks[0].items():
+        qd, kd, vd = (t.clone().requires_grad_() for t in (q, k, v))
+        dense = attn.flash_attention(qd, kd, vd, causal=causal,
+                                     dropout_rate=rate,
+                                     dropout_seed=1234 if rate else None)
+        dense.backward(do)
+        got = [r[(name, causal, rate)] for r in ranks]
+        out = torch.cat([g["out"] for g in got], dim=2)
+        assert (out.float() - dense.detach().cpu().float()).abs().max() \
+            <= 2e-2
+        for i, t in enumerate((qd, kd, vd)):
+            grad = torch.cat([g["grads"][i] for g in got], dim=2)
+            assert _rel_l2(grad.float(), t.grad.cpu().float()) <= 1e-2
+        for rank, g in enumerate(got):
+            if name == "ulysses_attention":
+                want = {"flash_attention": 1, "flash_attention_bwd": 1}
+            else:
+                pairs = rank + 1 if causal else 2
+                suffix = "_drop" if rate else ""
+                want = {f"flash_attention{suffix}_f32out": pairs,
+                        f"flash_attention_bwd{suffix}_f32out": pairs}
+            assert g["launches"] == want, (name, causal, rate, rank,
+                                           g["launches"])

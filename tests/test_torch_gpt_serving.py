@@ -352,9 +352,9 @@ def test_gpt_model_logits_loss_and_mask_match_jax(model):
 
 def test_gpt_model_out_of_slice_options_raise(model):
     """Training-mode dropout runs now (a finite loss that follows the
-    generator's seed; no generator raises ValueError); remat and the
-    fused head run; scan_layers (with or without remat) and MoE still
-    raise."""
+    generator's seed; no generator raises ValueError); remat, the fused
+    head and scan_layers (with or without remat, on the same weights
+    moved to its layout) run; MoE still raises."""
     _, _, cfg, _, _ = model
     drop = gpt_model_provider(GPTConfig(**dict(CFG, hidden_dropout=0.1)),
                               device="cpu")
@@ -366,10 +366,24 @@ def test_gpt_model_out_of_slice_options_raise(model):
     assert np.isfinite(losses).all() and losses[0] == losses[1] != losses[2]
     with pytest.raises(ValueError, match="generator"):
         drop(torch.zeros(1, 4, dtype=torch.int32), deterministic=False)
-    for kw in (dict(scan_layers=True), dict(scan_layers=True, remat=True),
-               dict(num_moe_experts=4)):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            gpt_model_provider(GPTConfig(**dict(CFG, **kw)), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        gpt_model_provider(GPTConfig(**dict(CFG, num_moe_experts=4)),
+                           device="cpu")
+    from apex_tpu_torch.inference.weights import to_scan_layout
+    loop = {n: p.detach() for n, p in drop.named_parameters()}
+    tree: dict = {}
+    for name, t in loop.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t
+    for kw in (dict(scan_layers=True), dict(scan_layers=True, remat=True)):
+        sm = gpt_model_provider(GPTConfig(**dict(CFG, hidden_dropout=0.1,
+                                                 **kw)), device="cpu")
+        load_jax_params(sm, to_scan_layout(tree, CFG["num_layers"]))
+        with torch.no_grad():
+            assert sm(toks, toks).item() == drop(toks, toks).item()
     # remat and the fused head run now, on the unfused model's weights
     toks = torch.arange(8, dtype=torch.int32)[None]
     with torch.no_grad():

@@ -28,6 +28,8 @@ from apex_tpu_torch.ops.fused_update import (fused_adagrad_flat,
                                              fused_lamb_phase1_flat,
                                              fused_sgd_flat)
 from apex_tpu_torch.ops.paged_attention import fused_block_decode
+from apex_tpu_torch.ops.ring_attention import ring_attention
+from apex_tpu_torch.ops.ulysses_attention import ulysses_attention
 from apex_tpu_torch.transformer.testing import (BertConfig, GPTConfig,
                                                 LlamaConfig)
 
@@ -108,7 +110,35 @@ def test_ast_scan_no_jax_or_apex_tpu_imports():
             pp + "p2p_communication.py", pp + "schedules.py",
             pp + "utils.py", tr + "microbatches.py", tr + "amp/__init__.py",
             tr + "amp/grad_scaler.py", tr + "testing/batch_sampler.py",
-            tr + "testing/commons.py"} <= scanned
+            tr + "testing/commons.py", "apex_tpu_torch/ops/ring_attention.py",
+            "apex_tpu_torch/ops/ulysses_attention.py",
+            "apex_tpu_torch/parallel/_comm.py",
+            tr + "testing/standalone_gpt.py"} <= scanned
+
+
+def test_context_ops_call_no_plain_version():
+    """Ring and Ulysses attention reach the kernels only through the
+    routed entries (``_fwd``, ``_bwd``, ``flash_attention``), which on
+    CUDA launch a kernel or raise: no function of theirs but the ring's
+    oracle calls a plain version (a ``*_reference``), so a CUDA tensor
+    never falls back to one."""
+    called = {}
+    for name in ("ring_attention", "ulysses_attention"):
+        tree = ast.parse((PORT / "ops" / f"{name}.py").read_text())
+        for top in tree.body:
+            if not isinstance(top, (ast.FunctionDef, ast.ClassDef)) \
+                    or top.name == "ring_attention_reference":
+                continue
+            for node in ast.walk(top):
+                if isinstance(node, ast.Call):
+                    f = node.func
+                    fname = f.id if isinstance(f, ast.Name) else getattr(
+                        f, "attr", "")
+                    called.setdefault(name, set()).add(fname)
+    assert {"_fwd", "_bwd"} <= called["ring_attention"]
+    assert "flash_attention" in called["ulysses_attention"]
+    assert not [f for fs in called.values() for f in fs
+                if f.endswith("_reference")], called
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
@@ -212,6 +242,20 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(
     decode_attention(torch.randn(2, 4, 16), torch.randn(2, 2, 40, 16),
                      torch.randn(2, 2, 40, 16),
                      torch.tensor([0, 7], dtype=torch.int32), use_kernel=True)
+    # ring attention's fp32-output routes on bf16 operands (one-pass and
+    # split backward), and the context ops without a context group
+    q16 = torch.randn(2, 8, 64).to(torch.bfloat16)
+    seed3 = tattn._seed_operand(3)
+    for gate in (2 ** 21, 0):
+        monkeypatch.setattr(tattn, "_FUSED_BWD_MAX_BYTES", gate)
+        for rate in (0.0, 0.1):
+            o32, lse = tattn._fwd(q16, q16, q16, True, 0.125, rate=rate,
+                                  seed3=seed3, out_dtype=torch.float32)
+            tattn._bwd(q16, q16, q16, o32.to(torch.bfloat16), lse, q16,
+                       True, 0.125, rate=rate, seed3=seed3,
+                       out_dtype=torch.float32)
+    ring_attention(q, q, q, causal=True, axis_name=None).sum().backward()
+    ulysses_attention(q, q, q, causal=True).sum().backward()
     grads = [torch.randn(3, 5), torch.randn(7).to(torch.bfloat16)]
     for op, lists, args in (
             (mta.multi_tensor_scale, [grads], (0.5,)),
@@ -234,7 +278,9 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(
         "fused_l2norm_scale": 0, "fused_lamb1": 0, "fused_sgd": 0,
         "fused_adagrad": 0, "flash_attention_wide": 0,
         "flash_attention_wide_dq": 0, "flash_attention_wide_dkv": 0,
-        "paged_attention_wide": 0}
+        "paged_attention_wide": 0, "flash_attention_f32out": 0,
+        "flash_attention_drop_f32out": 0, "flash_attention_bwd_f32out": 0,
+        "flash_attention_bwd_drop_f32out": 0}
     assert _build._LIB is None              # nothing was built or loaded
 
 
@@ -364,10 +410,13 @@ def test_every_kernel_source_exists_and_exports_its_entry():
     # (#3), the GPT fused block (#8), the flash kernels' mask and
     # dropout instances (#3 with dropout, masked or not; #4 with a mask or
     # dropout; #5 and #6 with either), the wide family (#3w, #5w, #6w,
-    # #7w: fp32, fp16 and head dims the instances lack) and the fused
-    # blocks' tensor-parallel rank-partial instances (V6)
-    assert len(_build.KERNELS) == 30
+    # #7w: fp32, fp16 and head dims the instances lack), the fused
+    # blocks' tensor-parallel rank-partial instances (V6) and the fp32-
+    # output instances of #3, #3d, #4 and #4d (ring attention's)
+    assert len(_build.KERNELS) == 34
     assert {"flash_attention_masked", "fused_block_decode_gpt",
+            "flash_attention_f32out", "flash_attention_drop_f32out",
+            "flash_attention_bwd_f32out", "flash_attention_bwd_drop_f32out",
             "fused_block_decode_partial", "fused_block_decode_gpt_partial",
             "flash_attention_drop", "flash_attention_masked_drop",
             "flash_attention_bwd_masked", "flash_attention_bwd_drop",
@@ -452,12 +501,29 @@ def test_training_out_of_slice_options_raise(monkeypatch):
                            axis_name="data")
     # tp > 1 is ported (item 6b): without a topology to run on, a tp = 2
     # layer or loss raises, naming initialize_model_parallel (no rank
-    # quietly computes alone); sequence parallelism is still refused
+    # quietly computes alone); sequence parallelism is ported (item 6d):
+    # at tp = 1 a layer with it is the plain layer, and JAX's asserts
+    # hold (gather_output, a row input that is not parallel)
     for layer in (ColumnParallelLinear, RowParallelLinear):
         with pytest.raises(RuntimeError, match="initialize_model_parallel"):
             layer(8, 8, tensor_model_parallel_size=2, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 6"):
-            layer(8, 8, sequence_parallel_enabled=True, device="cpu")
+        with pytest.raises(RuntimeError, match="initialize_model_parallel"):
+            layer(8, 8, sequence_parallel_enabled=True,
+                  tensor_model_parallel_size=2, device="cpu")
+    x8 = torch.randn(4, 2, 8)
+    col = ColumnParallelLinear(8, 8, gather_output=False, device="cpu",
+                               sequence_parallel_enabled=True)
+    row = RowParallelLinear(8, 8, input_is_parallel=True, device="cpu",
+                            sequence_parallel_enabled=True)
+    torch.testing.assert_close(
+        row(col(x8)[0])[0], x8 @ col.weight.T @ row.weight.T
+        + col.bias @ row.weight.T + row.bias, rtol=0, atol=1e-6)
+    with pytest.raises(AssertionError, match="gather_output"):
+        ColumnParallelLinear(8, 8, sequence_parallel_enabled=True,
+                             device="cpu")(x8)
+    with pytest.raises(AssertionError, match="input_is_parallel"):
+        RowParallelLinear(8, 8, sequence_parallel_enabled=True,
+                          device="cpu")(x8)
     with pytest.raises(RuntimeError, match="initialize_model_parallel"):
         VocabParallelEmbedding(8, 8, tensor_model_parallel_size=2)
     with pytest.raises(RuntimeError, match="initialize_model_parallel"):
