@@ -1211,8 +1211,8 @@ int launch_one_pass_ws(const void* q, const void* k, const void* v,
 // The split backward's dk/dv kernel with a mask and/or dropout (the
 // pre-pass has run for MASK): one block a (key block, batch-head), the
 // longest key blocks first within groups of heads whose q and dO fit half
-// the L2.
-template <int D, bool MASK, bool DROP>
+// the L2.  F32 (dropout, no mask): dk and dv fp32.
+template <int D, bool MASK, bool DROP, bool F32 = false>
 int launch_dkv_ws(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dk, void* dv, int bh, int sq, int sk, int causal,
@@ -1231,9 +1231,10 @@ int launch_dkv_ws(const void* q, const void* k, const void* v,
   if (!e) e = bf16_tile_map(&tk, k, bh, sk, D, kBK);
   if (!e) e = bf16_tile_map(&tv, v, bh, sk, D, kBK);
   if (e) return e;
+  static_assert(!(F32 && MASK), "fp32 outputs: the instances without a mask");
   const size_t bytes = WsTiles<D, false>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_ws_kernel<D, false, MASK, DROP>,
+      flash_bwd_ws_kernel<D, false, MASK, DROP, kOpBf16, F32>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   // heads in groups of near-equal size whose q and dO fit half the L2
@@ -1242,7 +1243,7 @@ int launch_dkv_ws(const void* q, const void* k, const void* v,
   const int group = (int)((bh + ngroups - 1) / ngroups);
   const long long blocks = (long long)bh * ((sk + kBK - 1) / kBK);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_bwd_ws_kernel<D, false, MASK, DROP>
+  flash_bwd_ws_kernel<D, false, MASK, DROP, kOpBf16, F32>
       <<<(unsigned)blocks, kWsThreads, bytes, stream>>>(
       tq, tk, tv, tdo, tq, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk),

@@ -29,7 +29,13 @@ whole (replicated), the norms whole.
 :func:`to_scan_layout` and :func:`to_loop_layout` move a GPT tree
 between the loop layout (``layer_<i>/...``) and ``scan_layers``'s
 (``layers/layer/...``, each leaf stacked along a leading ``[num_layers]``
-dim), so one set of weights serves both.
+dim), so one set of weights serves both; an MoE GPT's ``mlp/router``
+and ``mlp/experts`` leaves go along.
+
+:func:`shard_moe_params` gives expert rank ``rank`` of ``ep`` its shard
+of an ep = 1 MoE GPT tree: each ``experts`` leaf's ``num_moe_experts /
+ep`` experts from ``rank * E / ep`` on (dim 0, or dim 1 of a stacked
+``scan_layers`` leaf), the router and every dense leaf whole.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ from apex_tpu_torch.utils import resolve_device
 
 __all__ = ["params_from_jax", "llama_param_shapes", "gpt_param_shapes",
            "bert_param_shapes", "load_jax_params", "shard_llama_params",
-           "to_scan_layout", "to_loop_layout"]
+           "shard_moe_params", "to_scan_layout", "to_loop_layout"]
 
 
 def _to_tensor(x, device, dtype):
@@ -99,17 +105,26 @@ def _gpt_layers(cfg, shapes: dict) -> dict:
 
 def _gpt_layer_shapes(cfg) -> dict:
     """``{path within a layer: shape}`` of the transformer layer GPT and
-    BERT share."""
+    BERT share (an MoE GPT's ``mlp`` the router and all its experts, at
+    ep = 1)."""
     hid, ffn = cfg.hidden_size, cfg.ffn_hidden_size or 4 * cfg.hidden_size
     shapes = {}
     for norm in ("input_layernorm", "post_attention_layernorm"):
         shapes[(norm, "weight")] = (hid,)
         shapes[(norm, "bias")] = (hid,)
-    for mod, (n_out, n_in) in (
-            (("self_attention", "query_key_value"), (3 * hid, hid)),
-            (("self_attention", "dense"), (hid, hid)),
-            (("mlp", "dense_h_to_4h"), (ffn, hid)),
-            (("mlp", "dense_4h_to_h"), (hid, ffn))):
+    mods = [(("self_attention", "query_key_value"), (3 * hid, hid)),
+            (("self_attention", "dense"), (hid, hid))]
+    e = getattr(cfg, "num_moe_experts", None)
+    if e:
+        shapes.update({("mlp", "router", "weight"): (e, hid),
+                       ("mlp", "experts", "w1"): (e, hid, ffn),
+                       ("mlp", "experts", "b1"): (e, 1, ffn),
+                       ("mlp", "experts", "w2"): (e, ffn, hid),
+                       ("mlp", "experts", "b2"): (e, 1, hid)})
+    else:
+        mods += [(("mlp", "dense_h_to_4h"), (ffn, hid)),
+                 (("mlp", "dense_4h_to_h"), (hid, ffn))]
+    for mod, (n_out, n_in) in mods:
         shapes[(*mod, "weight")] = (n_out, n_in)
         shapes[(*mod, "bias")] = (n_out,)
     return shapes
@@ -266,6 +281,40 @@ def load_jax_params(model, tree) -> None:
                 raise ValueError(f"{name} has shape {tuple(t.shape)} in the "
                                  f"tree, {tuple(p.shape)} in the model")
             p.copy_(t)
+
+
+def shard_moe_params(tree, ep: int, rank: int):
+    """Expert rank ``rank``'s shard of an ep = 1 MoE GPT tree (numpy
+    arrays or tensors, with or without the outer ``"params"`` key; loop
+    or scan layout) under the same key paths: each leaf under an
+    ``experts`` key keeps experts ``rank * E / ep`` to ``(rank + 1) * E /
+    ep`` (a contiguous copy), every other leaf (the router's too) is
+    shared whole.  Raises ``ValueError`` where ep does not divide E."""
+    if isinstance(tree.get("params"), dict):
+        return {**tree, "params": shard_moe_params(tree["params"], ep, rank)}
+
+    def one(path, leaf):
+        if ep == 1 or "experts" not in path:
+            return leaf
+        dim = 1 if path[:2] == ("layers", "layer") else 0
+        n = leaf.shape[dim]
+        if n % ep:
+            raise ValueError(f"ep={ep} does not divide the {n} experts of "
+                             f"{'/'.join(path)} {tuple(leaf.shape)}")
+        lo, m = rank * (n // ep), n // ep
+        if isinstance(leaf, torch.Tensor):
+            return leaf.narrow(dim, lo, m).clone(
+                memory_format=torch.contiguous_format)
+        idx = [slice(None)] * leaf.ndim
+        idx[dim] = slice(lo, lo + m)
+        return np.ascontiguousarray(np.asarray(leaf)[tuple(idx)])
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return one(path, node)
+
+    return walk(tree, ())
 
 
 _LLAMA_ROWS = ("q_proj", "gate_proj", "up_proj", "lm_head", "embed_tokens")

@@ -37,9 +37,13 @@ the one-pass backward with a mask, with or without dropout
 or dropout (``flash_attention_bwd_dkv_md``); the fp32-output instances
 that ring attention runs on bf16 operands, ``flash_attention_f32out.cu``
 the forward without and with dropout (``flash_attention_f32out``,
-``flash_attention_drop_f32out``) and ``flash_attention_bwd_f32out.cu``
+``flash_attention_drop_f32out``) and the split dq without and with
+dropout (``flash_attention_bwd_dq_f32out``,
+``flash_attention_bwd_dq_drop_f32out``), ``flash_attention_bwd_f32out.cu``
 the one-pass backward (``flash_attention_bwd_f32out``,
-``flash_attention_bwd_drop_f32out``).  The wide family, for the
+``flash_attention_bwd_drop_f32out``) and the split dk/dv without and
+with dropout (``flash_attention_bwd_dkv_f32out``,
+``flash_attention_bwd_dkv_drop_f32out``).  The wide family, for the
 operands and head dims those instances do not take: ``flash_wide.cu``
 the forward (``flash_attention_wide``), dq (``flash_attention_wide_dq``)
 and dk/dv (``flash_attention_wide_dkv``), ``paged_wide.cu`` paged decode
@@ -99,17 +103,27 @@ SOURCES = {
         "flash_attention_bwd_masked": "apex_flash_attention_bwd_masked",
         "flash_attention_bwd_drop": "apex_flash_attention_bwd_drop",
         "flash_attention_bwd_dkv_md": "apex_flash_attention_bwd_dkv_md"},
-    # the fp32-output instances of the forward (#3, #3d) and of the
-    # one-pass backward (#4, #4d) that ring attention runs on bf16
-    # operands, their own sources so that they compile beside the rest
+    # the fp32-output instances that ring attention runs on bf16
+    # operands: the forward (#3, #3d) with the split dq (#5, #5md's
+    # dropout) on the query-major templates, the one-pass backward (#4,
+    # #4d) with the split dk/dv (#6, #6md's dropout) on the key-major
+    # ones; their own sources so that they compile beside the rest
     "flash_attention_f32out.cu": {
         "flash_attention_f32out": "apex_flash_attention_fwd_f32out",
         "flash_attention_drop_f32out":
-            "apex_flash_attention_fwd_drop_f32out"},
+            "apex_flash_attention_fwd_drop_f32out",
+        "flash_attention_bwd_dq_f32out":
+            "apex_flash_attention_bwd_dq_f32out",
+        "flash_attention_bwd_dq_drop_f32out":
+            "apex_flash_attention_bwd_dq_drop_f32out"},
     "flash_attention_bwd_f32out.cu": {
         "flash_attention_bwd_f32out": "apex_flash_attention_bwd_f32out",
         "flash_attention_bwd_drop_f32out":
-            "apex_flash_attention_bwd_drop_f32out"},
+            "apex_flash_attention_bwd_drop_f32out",
+        "flash_attention_bwd_dkv_f32out":
+            "apex_flash_attention_bwd_dkv_f32out",
+        "flash_attention_bwd_dkv_drop_f32out":
+            "apex_flash_attention_bwd_dkv_drop_f32out"},
     "paged_attention.cu": {
         "paged_attention": "apex_paged_decode_attention"},
     "fused_update.cu": {"fused_scale": "apex_fused_scale",
@@ -241,6 +255,21 @@ _SIGNATURES = {
     # q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, causal, off,
     # valid_q, valid_k, scale_log2, scale, stream
     "apex_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _F, _P],
+    # as apex_flash_attention_bwd_dq's and _dkv's, dq or dk, dv fp32
+    "apex_flash_attention_bwd_dq_f32out": [_P] * 7 + [_I] * 8
+                                          + [_F, _F, _P],
+    "apex_flash_attention_bwd_dkv_f32out": [_P] * 8 + [_I] * 8
+                                           + [_F, _F, _P],
+    # q, k, v, dout, lse, delta, seed3, next_tile, dq (fp32), bh, sq, sk,
+    # d, causal, off, valid_q, valid_k, threshold, inv_keep, scale_log2,
+    # scale, stream
+    "apex_flash_attention_bwd_dq_drop_f32out": [_P] * 9 + [_I] * 9
+                                               + [_F] * 3 + [_P],
+    # q, k, v, dout, lse, delta, seed3, dk, dv (fp32), bh, sq, sk, d,
+    # causal, off, valid_q, valid_k, threshold, inv_keep, scale_log2,
+    # scale, stream
+    "apex_flash_attention_bwd_dkv_drop_f32out": [_P] * 9 + [_I] * 9
+                                                + [_F] * 3 + [_P],
     # q, k_pages, v_pages, page_table, lengths, out, part_acc, part_ml,
     # counters, slots, h, kvh, ps, d, mpps, pages, page_stride, nsplit,
     # pages_per_split, scale_log2, stream

@@ -611,20 +611,44 @@ def _split_md(kernel, q3, k3, mask3, rate, seed3, causal, causal_off, valid,
 
 
 def _dq_kernel(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
-               valid=None, mask3=None, rate=0.0, seed3=None, scratch=None):
+               valid=None, mask3=None, rate=0.0, seed3=None, scratch=None,
+               f32=False):
     """The split backward's dq kernel (operands as
     :func:`_dq_reference`'s): ``dq`` bf16, written once, no atomics.
     With a mask or dropout, its ``_md`` instance, after the mask pre-pass
-    unless ``scratch`` holds its filled result (:func:`_mask_tiles`)."""
-    name = ("flash_attention_bwd_dq" if mask3 is None and not rate
-            else "flash_attention_bwd_dq_md")
+    unless ``scratch`` holds its filled result (:func:`_mask_tiles`).
+    ``f32`` (no mask): the fp32-output instance, dq fp32 from the
+    accumulator (``flash_attention_bwd_dq_f32out``, with dropout
+    ``flash_attention_bwd_dq_drop_f32out``)."""
+    if f32:
+        if mask3 is not None:
+            raise _no_f32_instance("the masked split backward")
+        name = ("flash_attention_bwd_dq_drop_f32out" if rate
+                else "flash_attention_bwd_dq_f32out")
+    else:
+        name = ("flash_attention_bwd_dq" if mask3 is None and not rate
+                else "flash_attention_bwd_dq_md")
     dims = _kernel_args(name, q3, k3, v3, lse, do3, causal, scale,
                         causal_off, valid)
-    dq = torch.empty_like(q3)
+    dq = torch.empty(q3.shape, dtype=torch.float32 if f32 else q3.dtype,
+                     device=q3.device)
     lib = _build.library()
     ops = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
-    if name == "flash_attention_bwd_dq":
+    if f32:
+        _build.count(name)
+        if rate:
+            _, ints, floats, _keep = _md_operands(name, q3, k3.shape[1],
+                                                  None, rate, seed3)
+            next_tile = torch.empty(1, dtype=torch.int32, device=q3.device)
+            err = lib.apex_flash_attention_bwd_dq_drop_f32out(
+                *ops, seed3.data_ptr(), next_tile.data_ptr(), dq.data_ptr(),
+                *dims[:8], ints[2], floats[0], *dims[8:],
+                _build.stream_ptr(q3.device))
+        else:
+            err = lib.apex_flash_attention_bwd_dq_f32out(
+                *ops, dq.data_ptr(), *dims, _build.stream_ptr(q3.device))
+    elif name == "flash_attention_bwd_dq":
         _build.count(name)
         err = lib.apex_flash_attention_bwd_dq(
             *ops, dq.data_ptr(), *dims, _build.stream_ptr(q3.device))
@@ -643,21 +667,45 @@ def _dq_kernel(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
 
 
 def _dkv_kernel(q3, k3, v3, lse, delta, do3, causal, scale, causal_off=None,
-                valid=None, mask3=None, rate=0.0, seed3=None, scratch=None):
+                valid=None, mask3=None, rate=0.0, seed3=None, scratch=None,
+                f32=False):
     """The split backward's dk/dv kernel (operands as
     :func:`_dkv_reference`'s): ``(dk, dv)`` bf16, each written once.
     With a mask or dropout, its ``_md`` instance, after the mask pre-pass
-    unless ``scratch`` holds its filled result (:func:`_mask_tiles`)."""
-    name = ("flash_attention_bwd_dkv" if mask3 is None and not rate
-            else "flash_attention_bwd_dkv_md")
+    unless ``scratch`` holds its filled result (:func:`_mask_tiles`).
+    ``f32`` (no mask): the fp32-output instance, dk and dv fp32 from the
+    accumulators (``flash_attention_bwd_dkv_f32out``, with dropout
+    ``flash_attention_bwd_dkv_drop_f32out``)."""
+    if f32:
+        if mask3 is not None:
+            raise _no_f32_instance("the masked split backward")
+        name = ("flash_attention_bwd_dkv_drop_f32out" if rate
+                else "flash_attention_bwd_dkv_f32out")
+    else:
+        name = ("flash_attention_bwd_dkv" if mask3 is None and not rate
+                else "flash_attention_bwd_dkv_md")
     dims = _kernel_args(name, q3, k3, v3, lse, do3, causal, scale,
                         causal_off, valid)
-    dk = torch.empty_like(k3)
-    dv = torch.empty_like(v3)
+    out_dtype = torch.float32 if f32 else k3.dtype
+    dk = torch.empty(k3.shape, dtype=out_dtype, device=k3.device)
+    dv = torch.empty(v3.shape, dtype=out_dtype, device=v3.device)
     lib = _build.library()
     ops = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
-    if name == "flash_attention_bwd_dkv":
+    if f32:
+        _build.count(name)
+        if rate:
+            _, ints, floats, _keep = _md_operands(name, q3, k3.shape[1],
+                                                  None, rate, seed3)
+            err = lib.apex_flash_attention_bwd_dkv_drop_f32out(
+                *ops, seed3.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                *dims[:8], ints[2], floats[0], *dims[8:],
+                _build.stream_ptr(q3.device))
+        else:
+            err = lib.apex_flash_attention_bwd_dkv_f32out(
+                *ops, dk.data_ptr(), dv.data_ptr(), *dims,
+                _build.stream_ptr(q3.device))
+    elif name == "flash_attention_bwd_dkv":
         _build.count(name)
         err = lib.apex_flash_attention_bwd_dkv(
             *ops, dk.data_ptr(), dv.data_ptr(), *dims,
@@ -712,8 +760,8 @@ def _bwd_kernel(q3, k3, v3, o3, lse, do3, causal, scale, causal_off=None,
 
 
 #: where the fp32 outputs that no instance is built for are listed
-_V10 = ("ROADMAP queue 2, V10 (fp32 outputs of the split pair, the masked "
-        "instances and the wide family's 16-bit operands)")
+_V10 = ("ROADMAP queue 2, V10 (fp32 outputs of the masked instances and "
+        "of the wide family's 16-bit operands)")
 
 
 def _f32_out(out_dtype, dtype) -> bool:
@@ -1007,12 +1055,13 @@ def _bwd(q3, k3, v3, o3, lse, do3, causal: bool, scale: float,
     were zero-padded to an instance's (the gate reads it, as the JAX gate
     reads the unpadded one); by default the operands'.  ``out_dtype``
     (JAX's argument; default the operands' type): ``torch.float32`` on
-    bf16 operands takes the one-pass kernel's fp32-output instances
-    (:func:`_bwd_f32_kernel`, no mask), whose dq, dk and dv are never
-    rounded to bf16; the plain versions return fp32 likewise.  A CUDA
-    route with no such instance (the split pair, a mask, the wide
-    family's 16-bit operands) raises ``NotImplementedError`` (ROADMAP
-    V10)."""
+    bf16 operands takes the fp32-output instances without a mask, the
+    one-pass kernel's (:func:`_bwd_f32_kernel`) or past the gate the
+    split pair's (``f32`` of :func:`_dq_kernel` and :func:`_dkv_kernel`),
+    whose dq, dk and dv are never rounded to bf16; the plain versions
+    return fp32 likewise.  A CUDA route with no such instance (a mask,
+    the wide family's 16-bit operands) raises ``NotImplementedError``
+    (ROADMAP V10)."""
     cpu = q3.device.type == "cpu"
     f32 = _f32_out(out_dtype, q3.dtype)
     md = dict(mask3=mask3, rate=rate, seed3=seed3)
@@ -1045,8 +1094,8 @@ def _bwd(q3, k3, v3, o3, lse, do3, causal: bool, scale: float,
         return (_dq_reference(*args, **md, out_dtype=out_dtype),
                 *_dkv_reference(*args, **md, out_dtype=out_dtype))
     if f32:
-        raise _no_f32_instance("the split backward (sq * head_dim * 4 > "
-                               f"{_FUSED_BWD_MAX_BYTES} bytes)")
+        return (_dq_kernel(*args, **md, f32=True),
+                *_dkv_kernel(*args, **md, f32=True))
     if mask3 is not None:
         md["scratch"] = _mask_tiles(q3, k3.shape[1], mask3, causal,
                                     causal_off, valid)

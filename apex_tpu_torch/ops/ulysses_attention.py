@@ -11,9 +11,10 @@ Port of ``apex_tpu/ops/ulysses_attention.py``:
   independent: no cross-rank softmax algebra);
 * one all-to-all reshards the output back to ``[b, h, s/cp, d]``.
 
-Each all-to-all is a ``torch.autograd.Function`` whose backward is the
-inverse reshard (JAX's ``all_to_all`` transpose), issued through
-:func:`apex_tpu_torch.parallel._comm.all_to_all`.  ``h % cp`` must be 0.
+Each all-to-all is :func:`apex_tpu_torch.transformer.tensor_parallel.
+mappings.all_to_all` (the reshard the MoE layer's token exchange runs on
+too), whose backward is the inverse reshard (JAX's ``all_to_all``
+transpose).  ``h % cp`` must be 0.
 With dropout the seed is folded with the rank
 (:func:`~apex_tpu_torch.ops.attention.fold_rank_seed`): each rank's heads
 draw their own stream, a valid regularizer but not the unsharded run's
@@ -27,41 +28,12 @@ import torch
 import torch.distributed as dist
 
 from apex_tpu_torch.ops.attention import flash_attention, fold_rank_seed
-from apex_tpu_torch.parallel import _comm
 from apex_tpu_torch.transformer import parallel_state
 from apex_tpu_torch.transformer.parallel_state import CONTEXT_AXIS
+from apex_tpu_torch.transformer.tensor_parallel.mappings import (  # noqa: F401
+    _reshard, all_to_all)
 
 __all__ = ["ulysses_attention"]
-
-
-def _reshard(x, group, split_axis: int, concat_axis: int):
-    """JAX's tiled ``all_to_all``: ``x`` cut into n blocks along
-    ``split_axis``, block j sent to rank j, the blocks received
-    concatenated along ``concat_axis`` in rank order."""
-    n = dist.get_world_size(group)
-    xs = x.movedim(split_axis, 0)
-    xs = xs.reshape(n, xs.shape[0] // n, *xs.shape[1:]).contiguous()
-    out = _comm.all_to_all(torch.empty_like(xs), xs, group)
-    out = out.movedim(1, split_axis + 1).movedim(0, concat_axis)
-    shape = list(x.shape)
-    shape[split_axis] //= n
-    shape[concat_axis] *= n
-    return out.reshape(shape)
-
-
-class _AllToAll(torch.autograd.Function):
-    """:func:`_reshard` forward, the inverse reshard backward."""
-
-    @staticmethod
-    def forward(ctx, x, group, split_axis, concat_axis):
-        ctx.group, ctx.axes = group, (split_axis, concat_axis)
-        return _reshard(x, group, split_axis, concat_axis)
-
-    @staticmethod
-    def backward(ctx, g):
-        split_axis, concat_axis = ctx.axes
-        return (_reshard(g.contiguous(), ctx.group, concat_axis, split_axis),
-                None, None, None)
 
 
 def _context_size(axis_name):
@@ -111,7 +83,7 @@ def ulysses_attention(q, k, v, *, causal: bool = False,
             f"ulysses_attention needs heads divisible by the context "
             f"axis size: {h} % {cp} != 0 (use ring_attention otherwise)")
     # one inbound all-to-all for the stacked q/k/v, one outbound
-    qkv = _AllToAll.apply(torch.stack([q, k, v]), group, 2, 3)
+    qkv = all_to_all(torch.stack([q, k, v]), group, 2, 3)
     drop_kw = {}
     if dropout_rate:
         drop_kw = dict(dropout_rate=dropout_rate,
@@ -120,4 +92,4 @@ def ulysses_attention(q, k, v, *, causal: bool = False,
                         sm_scale=sm_scale, block_q=block_q, block_k=block_k,
                         **drop_kw)
     # [b, h/cp, s, d] -> [b, h, s/cp, d]
-    return _AllToAll.apply(o, group, 2, 1)
+    return all_to_all(o, group, 2, 1)

@@ -18,7 +18,14 @@ gather_from_tensor_model_parallel_region        all-gather(-1)  split(-1)
 scatter_to_sequence_parallel_region             split(0)   all-gather(0)
 gather_from_sequence_parallel_region            all-gather(0)  reduce-scatter(0)
 reduce_scatter_to_sequence_parallel_region      reduce-scatter(0)  all-gather(0)
+all_to_all                                      all-to-all all-to-all (inverse)
 ==============================================  =========  ===========
+
+:func:`all_to_all` is ``jax.lax.all_to_all`` over any axis (``tiled``:
+``x`` cut into n blocks along ``split_axis``, block j sent to rank j, the
+blocks received concatenated along ``concat_axis`` in rank order), whose
+backward is the inverse reshard; Ulysses attention's reshards and the
+MoE layer's token exchange over the expert axis both run on it.
 
 ``axis_name`` is a mesh-axis name (default ``"tensor"``), resolved by
 :func:`~apex_tpu_torch.transformer.parallel_state.resolve_group` (which
@@ -53,6 +60,7 @@ __all__ = [
     "scatter_to_sequence_parallel_region",
     "gather_from_sequence_parallel_region",
     "reduce_scatter_to_sequence_parallel_region",
+    "all_to_all",
     "ring_psum",
     "tp_overlap_chunks",
 ]
@@ -255,3 +263,53 @@ def reduce_scatter_to_sequence_parallel_region(x, axis_name=TENSOR_AXIS):
     """Reduce-scatter dim 0 forward / all-gather it backward."""
     return _region(x, axis_name, lambda t, grp: _reduce_scatter(t, grp, 0),
                    lambda g, grp: _gather(g, grp, 0))
+
+
+# --- all-to-all ---------------------------------------------------------------
+
+def _reshard(x, group, split_axis: int, concat_axis: int):
+    """JAX's tiled ``all_to_all``: ``x`` cut into n blocks along
+    ``split_axis``, block j sent to rank j, the blocks received
+    concatenated along ``concat_axis`` in rank order."""
+    n = dist.get_world_size(group)
+    xs = x.movedim(split_axis, 0)
+    xs = xs.reshape(n, xs.shape[0] // n, *xs.shape[1:]).contiguous()
+    out = _comm.all_to_all(torch.empty_like(xs), xs, group)
+    out = out.movedim(1, split_axis + 1).movedim(0, concat_axis)
+    shape = list(x.shape)
+    shape[split_axis] //= n
+    shape[concat_axis] *= n
+    return out.reshape(shape)
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`_reshard` forward, the inverse reshard backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.group, ctx.axes = group, (split_axis, concat_axis)
+        return _reshard(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return (_reshard(g.contiguous(), ctx.group, concat_axis, split_axis),
+                None, None, None)
+
+
+def all_to_all(x, axis_name, split_axis: int = 0, concat_axis: int = 0):
+    """``jax.lax.all_to_all(x, axis_name, split_axis, concat_axis,
+    tiled=True)``, differentiable (the backward is the inverse reshard):
+    ``x.shape[split_axis]`` must divide by the group's size n; the
+    result's ``split_axis`` is n times shorter and its ``concat_axis`` n
+    times longer.  At ``split_axis == concat_axis`` the shape is kept (the
+    untiled all-to-all with that dim of size n, as the MoE layer calls
+    it).  A group of one rank: ``x``."""
+    group = parallel_state.resolve_group(axis_name)
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of "
+                         f"{tuple(x.shape)} does not split into {n} blocks")
+    return _AllToAll.apply(x, group, split_axis, concat_axis)

@@ -15,6 +15,7 @@ are the contract.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 
 import torch
 
@@ -41,6 +42,37 @@ def _tp_rank() -> int:
     if parallel_state.model_parallel_is_initialized():
         return parallel_state.get_tensor_model_parallel_rank()
     return 0
+
+
+def _default_generator(device) -> torch.Generator:
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.cuda.init()
+        return torch.cuda.default_generators[
+            device.index if device.index is not None
+            else torch.cuda.current_device()]
+    return torch.default_generator
+
+
+def fold_generator(generator, *ranks, device=None) -> torch.Generator:
+    """A stream of ``ranks``' own, the counterpart of JAX's
+    ``fold_in(key, rank)``: a generator on ``device`` (``generator``'s
+    where None) seeded from ``generator``'s current state with ``ranks``
+    folded in.  ``generator`` is ``device``'s default one where None
+    (CUDA's where both are); its state is read on the host, CUDA's too
+    (no device sync), and it then advances by one draw on every rank
+    alike (kept on its device, never read), so the next fold differs and
+    draws after it stay equal across ranks."""
+    if generator is None:
+        generator = _default_generator(device)
+    device = generator.device if device is None else torch.device(device)
+    state = generator.get_state().numpy().tobytes()
+    raw = state + b"".join(int(r).to_bytes(4, "little") for r in ranks)
+    g = torch.Generator(device=device)
+    g.manual_seed(int.from_bytes(hashlib.blake2b(raw, digest_size=8)
+                                 .digest(), "little") & (2 ** 63 - 1))
+    torch.empty(1, device=generator.device).uniform_(generator=generator)
+    return g
 
 
 class RNGStatesTracker:

@@ -56,6 +56,7 @@ def spawn_ranks(world_size: int, fn: Callable, *args,
                 tensor_model_parallel_size: int = 1,
                 pipeline_model_parallel_size: int = 1,
                 context_parallel_size: int = 1,
+                expert_model_parallel_size: int = 1,
                 backend: str = "gloo",
                 tmp_dir: Optional[str] = None) -> list:
     """Run ``fn(rank, *args)`` in ``world_size`` spawned processes joined
@@ -64,7 +65,8 @@ def spawn_ranks(world_size: int, fn: Callable, *args,
     that raises fails the call with its traceback."""
     sizes = dict(tensor_model_parallel_size_=tensor_model_parallel_size,
                  pipeline_model_parallel_size_=pipeline_model_parallel_size,
-                 context_parallel_size_=context_parallel_size)
+                 context_parallel_size_=context_parallel_size,
+                 expert_model_parallel_size_=expert_model_parallel_size)
     with tempfile.TemporaryDirectory(prefix="apex_ranks_",
                                      dir=tmp_dir) as tmp:
         mp.start_processes(_rank_main, nprocs=world_size,

@@ -1,5 +1,5 @@
 """Standalone Megatron-style GPT of the port, at tp = 1, with context
-parallelism.
+and expert parallelism.
 
 Port of ``apex_tpu/transformer/testing/standalone_gpt.py``:
 :class:`GPTConfig` (with its ``ffn`` property), :class:`ParallelMLP`,
@@ -47,8 +47,9 @@ attention runs over the ring (:func:`apex_tpu_torch.ops.ring_attention`,
 exact; a padding mask raises, as JAX's assert does).  The attention
 seeds come from ``generator`` on every rank alike (the ring's dropout is
 the dense run's only with one seed across the ranks); the hidden masks
-from a stream with the context rank folded in (:func:`_fold_generator`),
-so each rank's shard draws its own, as JAX folds the rank into the key.
+from a stream with the context rank folded in (:func:`~apex_tpu_torch.
+transformer.tensor_parallel.random.fold_generator`), so each rank's
+shard draws its own, as JAX folds the rank into the key.
 The loss is the rank's mean; the grads are reduced over the context
 group with the data group's (``parallel_state.get_dense_param_grad_axes``).
 
@@ -67,13 +68,28 @@ The layers draw their seeds and masks from the generators in layer
 order, as the loop does: the same weights and generator give the loop's
 loss (flax's ``split_rngs`` bits are not reproduced).
 
-The MoE FFN and ``expert_model_parallel`` raise ``NotImplementedError``
-naming ROADMAP queue 1, item 6.
+``num_moe_experts``: each layer's ``mlp`` is a
+:class:`~apex_tpu_torch.transformer.moe.MoELayer` (children ``router``
+and ``experts``, so the parameters are ``layer_<i>.mlp.router.weight``
+and ``layer_<i>.mlp.experts.{w1,b1,w2,b2}``, JAX's tree paths) with
+``moe_top_k``, ``moe_capacity_factor`` and ``moe_load_balancing_type``;
+with ``expert_model_parallel`` its experts are sharded over the
+topology's expert group (``ep = get_expert_model_parallel_world_size()``,
+each rank holding ``num_moe_experts / ep``).  The router's aux losses
+are what JAX sows into ``"intermediates"``: pass ``intermediates={}`` to
+:meth:`GPTModel.forward` and it is filled with each layer's
+``layer_<i>.moe_lb_loss`` and ``layer_<i>.moe_z_loss`` (scalars), or
+under ``scan_layers`` ``layers.layer.moe_lb_loss`` and
+``layers.layer.moe_z_loss`` stacked ``[num_layers]`` (JAX's paths, its
+one-element tuples unwrapped).  They are differentiable: the caller
+scales them and adds them to the loss; a layer under ``remat`` hands
+back the forward's values once (the recompute's are discarded).  The
+grads of an expert-parallel model are reduced with
+:func:`~apex_tpu_torch.transformer.moe.reduce_moe_grads`.
 """
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 from typing import Any, Optional
 
 import torch
@@ -93,6 +109,7 @@ from apex_tpu_torch.transformer.tensor_parallel import (
     mappings,
     vocab_parallel_cross_entropy,
 )
+from apex_tpu_torch.transformer.tensor_parallel.random import fold_generator
 from apex_tpu_torch.utils import remat, resolve_device
 
 __all__ = ["GPTConfig", "ParallelMLP", "ParallelAttention",
@@ -160,23 +177,6 @@ def _sequence_region(h, cfg, region):
     if getattr(cfg, "sequence_parallel", False) and _tp() > 1:
         return region(h)
     return h
-
-
-def _fold_generator(generator, rank: int):
-    """A hidden-dropout stream of this context rank's own: a generator on
-    ``generator``'s device seeded from ``generator``'s current state with
-    ``rank`` folded in (the state is read on the host, CUDA's too: no
-    device sync), the counterpart of JAX's ``fold_in(key, axis_index)``.
-    ``generator`` then advances by one draw on every rank alike (kept on
-    its device, never read), so the next fold differs and the ranks'
-    attention seeds stay equal."""
-    state = generator.get_state().numpy().tobytes()
-    digest = hashlib.blake2b(state + int(rank).to_bytes(4, "little"),
-                             digest_size=8).digest()
-    g = torch.Generator(device=generator.device)
-    g.manual_seed(int.from_bytes(digest, "little") & (2 ** 63 - 1))
-    torch.empty(1, device=generator.device).uniform_(generator=generator)
-    return g
 
 
 def model_device(device) -> torch.device:
@@ -289,29 +289,61 @@ class ParallelAttention(nn.Module):
         return out
 
 
+def _ep() -> int:
+    if parallel_state.model_parallel_is_initialized():
+        return parallel_state.get_expert_model_parallel_world_size()
+    return 1
+
+
+def _moe_layer(cfg, device):
+    """The MoE FFN of a layer (``cfg.num_moe_experts`` set)."""
+    from apex_tpu_torch.transformer.moe import MoELayer
+    return MoELayer(
+        num_experts=cfg.num_moe_experts, hidden_size=cfg.hidden_size,
+        ffn_hidden_size=cfg.ffn, top_k=cfg.moe_top_k,
+        capacity_factor=cfg.moe_capacity_factor,
+        expert_parallel_size=_ep() if cfg.expert_model_parallel else 1,
+        tensor_parallel_size=_tp(),
+        sequence_parallel=cfg.sequence_parallel and _tp() > 1,
+        load_balancing_type=cfg.moe_load_balancing_type,
+        params_dtype=cfg.params_dtype, device=device)
+
+
 class ParallelTransformerLayer(nn.Module):
-    """Pre-LN transformer block."""
+    """Pre-LN transformer block; its ``mlp`` a :class:`ParallelMLP`, or
+    with ``num_moe_experts`` an ``MoELayer`` (``moe``)."""
 
     def __init__(self, cfg: GPTConfig, causal: bool = True, device=None):
         super().__init__()
         self.cfg = cfg
+        self.moe = bool(getattr(cfg, "num_moe_experts", None))
         self.input_layernorm = FusedLayerNorm(cfg.hidden_size, device=device)
         self.self_attention = ParallelAttention(cfg, causal=causal,
                                                 device=device)
         self.post_attention_layernorm = FusedLayerNorm(cfg.hidden_size,
                                                        device=device)
-        self.mlp = ParallelMLP(cfg, device=device)
+        self.mlp = (_moe_layer(cfg, device) if self.moe
+                    else ParallelMLP(cfg, device=device))
 
     def forward(self, x, attention_mask=None, deterministic: bool = True,
-                generator=None, hidden_generator=None):
+                generator=None, hidden_generator=None, intermediates=None):
         """``hidden_generator`` draws the hidden masks (default
-        ``generator``, which draws the attention seed)."""
+        ``generator``, which draws the attention seed).  With an MoE FFN
+        its aux losses go into ``intermediates`` (a dict, where given)
+        as ``moe_lb_loss`` and ``moe_z_loss``."""
         rate = self.cfg.hidden_dropout
         hgen = generator if hidden_generator is None else hidden_generator
         h = self.self_attention(self.input_layernorm(x), attention_mask,
                                 deterministic, generator)
         x = x + hidden_dropout(h, rate, deterministic, hgen)
-        h = self.mlp(self.post_attention_layernorm(x), deterministic)
+        h = self.post_attention_layernorm(x)
+        if self.moe:
+            h, aux = self.mlp(h, deterministic=deterministic)
+            if intermediates is not None:
+                intermediates["moe_lb_loss"] = aux["load_balancing_loss"]
+                intermediates["moe_z_loss"] = aux["z_loss"]
+        else:
+            h = self.mlp(h, deterministic)
         return x + hidden_dropout(h, rate, deterministic, hgen)
 
 
@@ -360,11 +392,6 @@ def _check_config(cfg) -> None:
             "head leaves each rank a rank-partial dhidden, so its grads at "
             "tp > 1 are not tp = 1's (ROADMAP queue 3, \"tied heads at "
             "tp > 1\")")
-    if getattr(cfg, "expert_model_parallel", False):
-        raise NotImplementedError(
-            f"expert_model_parallel is not ported yet ({_MULTI})")
-    if getattr(cfg, "num_moe_experts", None):
-        raise NotImplementedError(f"the MoE FFN is not ported yet ({_MULTI})")
 
 
 def _replayed(generator, hidden_generator):
@@ -375,19 +402,46 @@ def _replayed(generator, hidden_generator):
     return gens or None
 
 
+_AUX = ("moe_lb_loss", "moe_z_loss")
+
+
+def _layer_step(layer, h, attention_mask, deterministic: bool, generator,
+                hidden_generator=None):
+    """One layer's output, and with an MoE FFN its two aux losses: ``h``
+    or ``(h, moe_lb_loss, moe_z_loss)``, all outputs of the call (so that
+    a recompute hands back nothing twice)."""
+    if not getattr(layer, "moe", False):
+        return layer(h, attention_mask, deterministic, generator,
+                     hidden_generator)
+    aux = {}
+    h = layer(h, attention_mask, deterministic, generator, hidden_generator,
+              intermediates=aux)
+    return (h, *(aux[k] for k in _AUX))
+
+
 def _run_layers(layers, h, attention_mask, deterministic: bool,
-                generator, recompute: bool, hidden_generator=None):
+                generator, recompute: bool, hidden_generator=None,
+                intermediates=None, names=None):
     """``h`` through each layer in turn; with ``recompute`` each layer
     under :func:`apex_tpu_torch.utils.remat` (the generators
-    replayed)."""
-    for layer in layers:
+    replayed).  An MoE layer's aux losses go into ``intermediates`` (a
+    dict, where given) under ``<name>.moe_lb_loss`` and
+    ``<name>.moe_z_loss``, ``names`` the layers' names."""
+    for i, layer in enumerate(layers):
+        args = (layer, h, attention_mask, deterministic, generator,
+                hidden_generator)
         if recompute:
-            h = remat(layer, h, attention_mask, deterministic, generator,
-                      hidden_generator,
-                      generator=_replayed(generator, hidden_generator))
+            out = remat(_layer_step, *args,
+                        generator=_replayed(generator, hidden_generator))
         else:
-            h = layer(h, attention_mask, deterministic, generator,
-                      hidden_generator)
+            out = _layer_step(*args)
+        if isinstance(out, tuple):
+            h = out[0]
+            if intermediates is not None:
+                for key, v in zip(_AUX, out[1:]):
+                    intermediates[f"{names[i]}.{key}"] = v
+        else:
+            h = out
     return h
 
 
@@ -414,23 +468,38 @@ class _ScanLayers(nn.Module):
         del built
 
     def forward(self, h, attention_mask, deterministic: bool, generator,
-                recompute: bool, hidden_generator=None):
+                recompute: bool, hidden_generator=None, intermediates=None):
+        """``h`` through the layers; an MoE layer's aux losses go into
+        ``intermediates`` (where given) as ``layers.layer.moe_lb_loss``
+        and ``layers.layer.moe_z_loss``, stacked ``[num_layers]``."""
         # one unbind a forward: its backward is one stack, where a select
         # a layer would add num_layers zero-filled full-stack grads
         slices = {n: p.unbind(0) for n, p in self.layer.named_parameters()}
 
         def step(i, h):
             params = {n: s[i] for n, s in slices.items()}
-            return torch.func.functional_call(
+            aux = {}
+            h = torch.func.functional_call(
                 self.layer, params, (h, attention_mask, deterministic,
-                                     generator, hidden_generator))
+                                     generator, hidden_generator),
+                {"intermediates": aux} if self.layer.moe else {})
+            return (h, *(aux[k] for k in _AUX)) if aux else h
 
+        aux = []
         for i in range(self.num_layers):
             if recompute:
-                h = remat(step, i, h,
-                          generator=_replayed(generator, hidden_generator))
+                out = remat(step, i, h,
+                            generator=_replayed(generator, hidden_generator))
             else:
-                h = step(i, h)
+                out = step(i, h)
+            if isinstance(out, tuple):
+                h = out[0]
+                aux.append(out[1:])
+            else:
+                h = out
+        if aux and intermediates is not None:
+            for key, vals in zip(_AUX, zip(*aux)):
+                intermediates[f"layers.layer.{key}"] = torch.stack(vals)
         return h
 
 
@@ -458,7 +527,10 @@ class GPTModel(nn.Module):
         self.final_layernorm = FusedLayerNorm(cfg.hidden_size, device=device)
 
     def forward(self, tokens, labels=None, attention_mask=None,
-                deterministic: bool = True, generator=None):
+                deterministic: bool = True, generator=None,
+                intermediates=None):
+        """``intermediates``: a dict that an MoE model fills with its aux
+        losses (the module docstring; flax's ``mutable=["intermediates"]``)."""
         cfg = self.cfg
         if tokens.shape[1] > cfg.max_seq_length:
             raise ValueError(
@@ -468,17 +540,17 @@ class GPTModel(nn.Module):
         if not deterministic and cfg.hidden_dropout > 0.0 \
                 and _context_parallel(cfg):
             # each context rank's shard draws its own hidden masks
-            hgen = _fold_generator(_need_generator(generator),
-                                   parallel_state.get_context_parallel_rank())
+            hgen = fold_generator(_need_generator(generator),
+                                  parallel_state.get_context_parallel_rank())
         h = self.embedding(tokens, deterministic, hgen)
         if cfg.scan_layers:
             h = self.layers(h, attention_mask, deterministic, generator,
-                            cfg.remat, hgen)
+                            cfg.remat, hgen, intermediates)
         else:
-            h = _run_layers([getattr(self, f"layer_{i}")
-                             for i in range(cfg.num_layers)], h,
+            names = [f"layer_{i}" for i in range(cfg.num_layers)]
+            h = _run_layers([getattr(self, n) for n in names], h,
                             attention_mask, deterministic, generator,
-                            cfg.remat, hgen)
+                            cfg.remat, hgen, intermediates, names)
         h = _sequence_region(h, cfg, lambda t: (
             mappings.gather_from_sequence_parallel_region(
                 t, tensor_parallel_output_grad=False)))

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases dp              # DDP and ZeRO, dp = 2
     python3 chip_smoke.py --phases pp_train        # pipelined, pp = 2
     python3 chip_smoke.py --phases cp_train        # context parallel, cp = 2
+    python3 chip_smoke.py --phases moe_train,cp_train   # MoE at ep = 2
 
 1. **Build.**  Prints the card's name and power limit, compiles the
    port's CUDA kernels from ``apex_tpu_torch/csrc`` (``nvcc``, sm_90a)
@@ -93,7 +94,14 @@
    (the backward by the flash backward's gate against the exact float64
    gradient, and two wrong plain backwards refused) and against its
    bf16 twin (out, lse, dk and dv round to the twin's bits, dq within
-   one bf16 ulp), timed beside the twin and SDPA.
+   one bf16 ulp), timed beside the twin and SDPA; and the split pair's
+   fp32-output instances (#5 and #6, #5md's and #6md's with dropout) that
+   ring attention runs past the one-pass gate, at its shard pair ``[1,
+   16, 8192, 128]`` bf16 (cp = 2 of 16384 tokens), causal without
+   dropout and full with dropout 0.1 at rows from 8192, each against its
+   plain version by the flash backward's gate and against its bf16 twin
+   (dq, dk and dv round to the twin's bits), timed beside the twin, the
+   plain half and SDPA's backward.
    Prints
    the max
    |diff| against its stated limit, the kernel's time, its bound (the
@@ -320,7 +328,9 @@
    block's rank-partial instance, V6: 16 heads over 4 kv heads a rank),
    GPT-3 1.3B (the gpt phase's) fused (V6's GPT instance, 8 heads a
    rank) and unfused with ``spec_k=4`` and the n-gram drafter (the
-   verify fold on the shard); the first four prompts, 16 greedy tokens.
+   verify fold on the shard); the first four prompts, 11 greedy tokens
+   (the spec check's two slabs of 5 and one row more; 16 before the
+   moe_train phase).
    Each serve: the ranks' streams equal bit for bit and equal to the
    single card's (served first, in the parent) up to a first difference
    at a top-2 margin of at most 0.5; the first and last requests'
@@ -504,7 +514,8 @@
    ``kernels`` line's counts.
 23. **CP train** (``cp_train``, after pp_train, before tier).  Context
    parallelism at cp = 2 on the one card: GPT-3 1.3B widths (hidden
-   2048, 16 heads of 128, vocab 51200, LayerNorm, GELU) at 4 layers,
+   2048, 16 heads of 128, vocab 51200, LayerNorm, GELU) at CP_LAYERS = 2
+   layers (4 before the moe_train phase),
    its context raised to 8192, bf16 parameters from the seed, one
    sequence of 8192 tokens from the seed.  The parent runs (a) cp = 1:
    one forward and backward with attention dropout 0.1 and no hidden
@@ -525,23 +536,65 @@
    dropout, so the ring runs the instances without dropout; (d)
    ``ulysses_attention`` at ``[1, 16, 4096, 128]`` bf16 a rank, causal,
    forward and backward, against flash_attention on the gathered
-   ``[1, 16, 8192, 128]``.  Gates: (a)'s layouts bit for bit and its
+   ``[1, 16, 8192, 128]``; (f) one ``ring_attention`` call on a rank's
+   8192 tokens of a ``[1, 16, 16384, 128]`` bf16 sequence, causal,
+   without and with dropout 0.1 (the seed at global coordinates),
+   forward and backward, against flash_attention on the gathered
+   sequence.  Gates: (a)'s layouts bit for bit and its
    launches (#3d and the split pair's dropout instances once a layer);
    (b)'s loss within TOL_CP_LOSS of (a)'s and its grads within
    TOL_CP_GRAD_REL relative L2, over all and leaf by leaf (the leaves
    up to CP_WHOLE_LEAF elements whole); (c)'s loss falling, the ranks'
    masters equal bit for bit after each step, #9 and #13 once a step at
-   the flat length; (d) within TOL_ATTN_OUT and TOL_FLASH_BWD_REL_L2 (bit
-   equality printed); each run's launches those worked out from the
+   the flat length; (d) and (f) within TOL_ATTN_OUT and
+   TOL_FLASH_BWD_REL_L2 (bit equality printed); each run's launches those
+   worked out from the
    ring's schedule: rank r computes r + 1 causal pairs a layer, so #3's
    and #4's fp32-output instances (with dropout in (b), without in (c))
-   launch 4 (r + 1) times a step each, #1 and #2 9 times, and no bf16
-   flash instance inside the ring; Ulysses #3, #5 and #6 once.  Prints
+   launch CP_LAYERS (r + 1) times a step each, #1 and #2 2 CP_LAYERS +
+   1 times, and no bf16
+   flash instance inside the ring; Ulysses #3, #5 and #6 once; in (f)
+   #3's (or #3d's) fp32-output instance and the split pair's (5f and 6f,
+   or 5df and 6df) r + 1 times each, no bf16 split instance.  Prints
    (a)'s and a rank's times and peaks, each hop's seconds, the grads'
    all-reduces, a ring call's forward and backward beside
    flash_attention's at 8192, the all-to-alls' seconds, each beside the
    card's name and power limit; the ranks' launches are added to the
    ``kernels`` line's counts.
+24. **MoE train** (``moe_train``, after cp_train, before tier).  Expert
+   parallelism at ep = 2 on the one card: GPT-3 1.3B widths (hidden
+   2048, 16 heads of 128, ffn 8192, vocab 51200) at 4 layers with the
+   FFN made MoE at Mixtral 8x7B's routing (8 experts, top-2; capacity
+   factor 1.25, ``aux_loss`` routing), bf16 parameters from the seed and
+   the router fp32, one 2048-token sequence a rank.  Two spawned ranks
+   on cuda:0 over gloo, 4 experts each (the all-to-alls and all-reduces
+   copied through the host inside gloo).  Each rank runs (a) the ep = 1
+   model on both ranks' sequences, dropout off: each loss, each layer's
+   aux losses, the grads of loss + 0.01 sum(lb) + 0.001 sum(z) averaged
+   over the two sequences; (b) ep = 2 on the same weights
+   (``shard_moe_params``) on its sequence, its grads reduced by
+   ``reduce_moe_grads``; (c) MOE_ADAM_STEPS ``fused_adam`` steps through
+   ``make_train_step`` (fp32 masters, dynamic loss scale,
+   ``reduce_moe_grads`` over the flat grads' leaf windows) with
+   attention dropout 0.1; (d) one ``MoELayer`` at DeepSpeed-MoE's
+   1.3B+MoE-128 (128 experts, top-1) at the same widths, 2048 tokens a
+   rank, forward and backward under ``gather`` and ``onehot`` on the
+   same weights and tokens.  Gates: (b)'s loss within TOL_MOE_LOSS of
+   (a)'s on the rank's sequence and each layer's aux losses within
+   TOL_MOE_LOSS relative; its grads within TOL_MOE_GRAD_REL relative L2
+   of (a)'s average (the expert leaves the rank's slice), over all and
+   leaf by leaf (bit equality printed); the reduced dense and router
+   grads equal bit for bit on both ranks; (c)'s loss falling and the
+   dense and router masters equal bit for bit after each step; (d)
+   ``"auto"`` resolving to ``gather``, both forms' slots, drops and loads
+   equal exactly, y within TOL_MOE_WIDE_OUT and the grads within
+   TOL_FLASH_BWD_REL_L2 (bit equality printed); the launches of (a)-(c)
+   those worked out from the model: #1 and #2 9 times a forward and
+   backward, #3 and #4 (#3d and #4d in (c)) 4 times, #9 and #13 once a
+   step.  Prints each run's time, the peaks, the all-to-alls and
+   all-reduces apart, each beside the card's name and power limit; the
+   ranks' launches of (b) and (c) are added to the ``kernels`` line's
+   counts.
 
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Any failed phase raises, so the
@@ -1260,7 +1313,7 @@ def phase_kernels(dev, gen):
                        (5, _flash_fwd_rows), (6, _masked_rows),
                        (7, _fused_gpt_kernel), (8, _md_rows),
                        (9, _wide_rows), (10, _verify_rows),
-                       (11, _f32out_rows)):
+                       (11, _f32out_rows), (12, _split_f32out_rows)):
         sgen = torch.Generator(device=dev)
         sgen.manual_seed(gen.initial_seed() + off)
         check(dev, sgen, recs)
@@ -1683,6 +1736,14 @@ def _md_shapes(dev, gen):
            mask3.numel(), int(lengths.sum()), h)
 
 
+def _counts_since(before: dict) -> dict:
+    """The launch counters that moved since ``before``
+    (``_build.launch_counts()``), by how much."""
+    from apex_tpu_torch.ops import _build
+    return {k: v - before[k] for k, v in _build.launch_counts().items()
+            if v != before[k]}
+
+
 def _md_rows(dev, gen, recs):
     """The flash kernels' mask and dropout instances at the training
     paths' shapes (:func:`_md_shapes`, rate 0.1): the forward with
@@ -1715,9 +1776,7 @@ def _md_rows(dev, gen, recs):
         before = _build.launch_counts()
         out, lse = attn._fwd(q3, k3, v3, causal, scale, **md)
         got = attn._bwd(q3, k3, v3, out, lse, do3, causal, scale, **md)
-        counts = {k_: v_ - before[k_]
-                  for k_, v_ in _build.launch_counts().items()
-                  if v_ != before[k_]}
+        counts = _counts_since(before)
         if counts != {fwd_name: 1, bwd_name: 1}:
             raise AssertionError(f"{tag}: the md instances did not launch "
                                  f"alone: {counts}")
@@ -1867,8 +1926,7 @@ def _md_split_rows(dev, gen, recs, seed3):
         raise AssertionError(f"sq {s}, d {d} must take the split route")
     before = _build.launch_counts()
     got = attn._bwd(q3, k3, v3, out, lse, do3, True, scale, **md)
-    counts = {k_: v_ - before[k_] for k_, v_ in _build.launch_counts().items()
-              if v_ != before[k_]}
+    counts = _counts_since(before)
     if counts != {"flash_attention_bwd_dq_md": 1,
                   "flash_attention_bwd_dkv_md": 1}:
         raise AssertionError(f"the 8192 md backward did not take the split "
@@ -1992,8 +2050,7 @@ def _md_split_gpt8k(dev, gen, recs, seed3):
     args = (q3, k3, v3, lse, delta, do3, True, scale)
     before = _build.launch_counts()
     got = attn._bwd(q3, k3, v3, out, lse, do3, True, scale, **md)
-    counts = {k_: v_ - before[k_] for k_, v_ in _build.launch_counts().items()
-              if v_ != before[k_]}
+    counts = _counts_since(before)
     if counts != {"flash_attention_bwd_dq_md": 1,
                   "flash_attention_bwd_dkv_md": 1}:
         raise AssertionError(f"the gpt_train_8k backward did not take the "
@@ -2185,9 +2242,7 @@ def _f32out_rows(dev, gen, recs):
         got = attn._bwd(q3, k3, v3, twin, lse, do3, causal, scale, **md,
                         out_dtype=f32)
         twin_g = attn._bwd(q3, k3, v3, twin, lse, do3, causal, scale, **md)
-        counts = {k_: v_ - before[k_]
-                  for k_, v_ in _build.launch_counts().items()
-                  if v_ != before[k_]}
+        counts = _counts_since(before)
         fwd_name = f"flash_attention{'_drop' if rate else ''}_f32out"
         bwd_name = f"flash_attention_bwd{'_drop' if rate else ''}_f32out"
         twins = (("flash_attention_drop", "flash_attention_bwd_drop")
@@ -2314,6 +2369,144 @@ def _f32out_rows(dev, gen, recs):
                     (lambda: attn._bwd(q3, k3, v3, twin, lse, do3, causal,
                                        scale, **md, out_dtype=f32)), 4))
         del out32, lse, twin, twin_lse, got, twin_g
+        torch.cuda.empty_cache()
+    del q3, k3, v3, do3, q4, k4, v4, do4
+
+
+#: the split pair's fp32-output instances at ring attention's shard pair
+#: past the one-pass gate: cp = 2 of a 16384-token sequence (8192 a
+#: rank, d 128: sq * d * 4 = 4 MiB), GPT-3 1.3B's 16 heads; the second
+#: step's full pair drops at rows from 8192
+F32_SPLIT_PAIR = (1, 16, 8192, 128)
+F32_SPLIT_OFFSETS = (8192, 0)
+F32_SPLIT_KERNELS = {
+    "flash_attention_bwd_dq_f32out": (
+        "5f", "apex_tpu_torch/csrc/flash_attention_f32out.cu",
+        "apex_tpu/ops/attention.py:376", 3, 1),
+    "flash_attention_bwd_dkv_f32out": (
+        "6f", "apex_tpu_torch/csrc/flash_attention_bwd_f32out.cu",
+        "apex_tpu/ops/attention.py:408", 4, 2),
+    "flash_attention_bwd_dq_drop_f32out": (
+        "5df", "apex_tpu_torch/csrc/flash_attention_f32out.cu",
+        "apex_tpu/ops/attention.py:376", 3, 1),
+    "flash_attention_bwd_dkv_drop_f32out": (
+        "6df", "apex_tpu_torch/csrc/flash_attention_bwd_f32out.cu",
+        "apex_tpu/ops/attention.py:408", 4, 2)}
+
+
+def _split_f32out_rows(dev, gen, recs):
+    """The split pair's fp32-output instances (5f, 6f; with dropout 5df,
+    6df) at ring attention's shard pair past the one-pass gate
+    (F32_SPLIT_PAIR): the first step's locally causal pair without
+    dropout, the second step's full pair with dropout 0.1 at the seed
+    offsets F32_SPLIT_OFFSETS, the backward from the bf16 out and lse as
+    the ring runs it.  Each kernel against its plain version with fp32
+    outputs (the flash backward's gate against the exact float64
+    gradient, and each row within 2^-6 of its own max where it drops),
+    and against its bf16 twin on the same operands (#5 and #6, #5md and
+    #6md: the same accumulators, so dq, dk and dv round to the twin's
+    bits); each one's time beside its twin's, its plain version's and
+    SDPA's backward at the shape (with ``dropout_p`` where it drops;
+    time only)."""
+    attn = importlib.import_module("apex_tpu_torch.ops.attention")
+    from apex_tpu_torch.ops import _build
+    bf, f32 = torch.bfloat16, torch.float32
+    b, h, s, d = F32_SPLIT_PAIR
+    bh, scale = b * h, d ** -0.5
+    q3, k3, v3, do3 = (torch.randn(bh, s, d, generator=gen, device=dev)
+                       .to(bf) for _ in range(4))
+    q4, k4, v4, do4 = (t.reshape(b, h, s, d) for t in (q3, k3, v3, do3))
+    seed3 = attn._seed_operand(-2 ** 31 + 2929, *F32_SPLIT_OFFSETS,
+                               device=dev)
+    for causal, rate in ((True, 0.0), (False, LM_DROPOUT)):
+        md = dict(rate=rate, seed3=seed3 if rate else None)
+        drop = "_drop" if rate else ""
+        names = (f"flash_attention_bwd_dq{drop}_f32out",
+                 f"flash_attention_bwd_dkv{drop}_f32out")
+        twins = (("flash_attention_bwd_dq_md", "flash_attention_bwd_dkv_md")
+                 if rate else ("flash_attention_bwd_dq",
+                               "flash_attention_bwd_dkv"))
+        pair = ("t = 0, locally causal" if causal else
+                f"t = 1, full, dropout {rate} at offsets {F32_SPLIT_OFFSETS}")
+        out, lse = attn._fwd(q3, k3, v3, causal, scale, **md)
+        delta = attn._delta(out, do3)
+        args = (q3, k3, v3, lse, delta, do3, causal, scale)
+        before = _build.launch_counts()
+        got = attn._bwd(q3, k3, v3, out, lse, do3, causal, scale, **md,
+                        out_dtype=f32)
+        twin = attn._bwd(q3, k3, v3, out, lse, do3, causal, scale, **md)
+        counts = _counts_since(before)
+        if counts != {names[0]: 1, names[1]: 1, twins[0]: 1, twins[1]: 1}:
+            raise AssertionError(f"split fp32 outputs ({pair}): the "
+                                 f"launches are {counts}")
+        print(f"flash split backward, fp32 outputs, ring pair {pair} "
+              f"{list(F32_SPLIT_PAIR)} bf16")
+
+        def plain(sl):
+            return attn._bwd_reference(
+                q3[sl], k3[sl], v3[sl], out[sl], lse[sl], do3[sl], causal,
+                scale, rate=rate, seed3=md["seed3"], bh0=sl.start,
+                out_dtype=f32)
+
+        ref = _by_heads(plain, bh, 4)
+        exact = _by_heads(lambda sl: _exact_md(
+            q3[sl], k3[sl], v3[sl], do3[sl], causal, scale, None, rate,
+            md["seed3"], sl.start), bh, 2)
+        (_check_md_bwd if rate else _check_flash_bwd_exact)(
+            f"split fp32 ({pair})", got, ref, exact)
+        errs = [(g_ - r_).abs().max().item() for g_, r_ in zip(got, ref)]
+        same = [torch.equal(g_.to(bf), t_) for g_, t_ in zip(got, twin)]
+        print(f"  against the bf16 twins {twins}: dq, dk, dv round to their "
+              f"bits {same}; fp32 dq off the bf16 grid "
+              f"{bool((got[0] != got[0].to(bf).float()).any())}")
+        if not all(same) or any(g_.dtype != f32 for g_ in got):
+            raise AssertionError(f"split fp32 ({pair}) is not its twins' "
+                                 f"accumulators")
+        del ref, exact, got, twin
+        # times: each kernel, its bf16 twin, its plain half, SDPA's backward
+        sdpa = dict(dropout_p=rate, is_causal=causal)
+        qr, kr, vr = (t.detach().clone().requires_grad_()
+                      for t in (q4, k4, v4))
+        lib_fb = _time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qr, kr, vr, **sdpa),
+            (qr, kr, vr), do4), 4)
+        lib_f = _time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, **sdpa), 4)
+        del qr, kr, vr
+        live = bh * s * (s + 1) / 2 if causal else bh * s * s
+        elem = q3.numel()
+        for name, fn, half, err in (
+                (names[0], attn._dq_kernel, attn._dq_reference, errs[0]),
+                (names[1], attn._dkv_kernel, attn._dkv_reference,
+                 max(errs[1:]))):
+            row, src, repl, products, outs = F32_SPLIT_KERNELS[name]
+            ms = _time_ms(lambda: fn(*args, **md, f32=True), 4)
+            twin_ms = _time_ms(lambda: fn(*args, **md), 4)
+            plain_ms = _eager_ms(lambda: _by_heads(
+                lambda sl: half(*(t[sl] for t in args[:6]), *args[6:],
+                                rate=rate, seed3=md["seed3"], bh0=sl.start,
+                                out_dtype=f32), bh, 4), 1)
+            # bytes: q, k, v, dO bf16 once, lse and delta fp32, the fp32
+            # outputs once
+            nbytes = 4 * elem * 2 + 2 * bh * s * 4 + outs * elem * 4
+            flops = 2 * products * d * live
+            if rate:
+                bound, by, terms = _md_bound(nbytes, flops, live)
+            else:
+                (bound, by), terms = _bound(nbytes, flops), None
+            print(f"  #{row} split fp32 out {name} ({pair}) on {_smi()}: "
+                  f"kernel {ms:.4f} ms, bf16 twin {twin_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, SDPA's backward"
+                  f"{f' (dropout_p {rate})' if rate else ''} "
+                  f"{lib_fb - lib_f:.4f} ms, bound {bound:.4f} ms ({by}"
+                  + (f"; {_terms(terms)}" if terms else "") + f"), "
+                  f"{100 * bound / ms:.1f}% of the bound")
+            recs[name] = dict(
+                name=name, route="cuda", source=src, replaces=repl,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_fb - lib_f, twin_ms=twin_ms,
+                eager_ms=_eager_ms(lambda: fn(*args, **md, f32=True), 4))
+        del out, lse, delta, args
         torch.cuda.empty_cache()
     del q3, k3, v3, do3, q4, k4, v4, do4
 
@@ -4004,7 +4197,12 @@ def phase_gpt(dev, seed: int):
 #: each serving the first four prompts, 16 greedy tokens a request
 TP = 2
 TP_PROMPTS = 4
-TP_NEW_TOKENS = 16
+#: 16 until the moe_train phase came: a tp decode step is 0.1-0.7 s of
+#: gloo.  The spec serve's check re-feeds SPEC_CHECK_ROUNDS slabs of
+#: SPEC_S stream tokens and holds them to the single card's logits one
+#: row later, so one token more than those slabs keeps every gate (the
+#: streams, the logits along them, the launches a step)
+TP_NEW_TOKENS = SPEC_CHECK_ROUNDS * SPEC_S + 1
 #: Llama-3-8B and GPT-3 1.3B at the serve and gpt phases' geometry
 TP_LLAMA_GEO = dict(slots=8, max_seq=4096, page_size=64, num_pages=512)
 TP_GPT_GEO = dict(slots=8, max_seq=2048, page_size=64)
@@ -4047,9 +4245,9 @@ def _tp_prompts(kind, cfg, seed):
 def _tp_reference(kind, dev, seed):
     """The single-card serve the ranks are held to: its streams, decode
     tokens/s, step time and peak memory, and for every request the
-    full forward's logits along its stream (``[16, vocab]``: row j after
-    the prompt and the stream's first j tokens) as top-2 margins, whole
-    for the first and last request.  The engine and weights are freed
+    full forward's logits along its stream (``[TP_NEW_TOKENS, vocab]``:
+    row j after the prompt and the stream's first j tokens) as top-2
+    margins, whole for the first and last request.  The engine and weights are freed
     before it returns."""
     from apex_tpu_torch.inference import InferenceEngine
     cfg, params, geo = _tp_model(kind, dev, seed)
@@ -10597,7 +10795,9 @@ def phase_pp_train(dev, seed: int):
 #: seed, fp32 masters in (c); one sequence of 8192 tokens from the seed,
 #: 4096 a rank over cp = 2 ranks on the one card
 CP_TRAIN = 2
-CP_LAYERS = 4
+#: 4 until the moe_train phase came (the phase's depth cut first, every
+#: gate kept: the launches follow it)
+CP_LAYERS = 2
 CP_SEQ = 8192
 #: (c)'s FusedAdam steps
 CP_ADAM_STEPS = 2
@@ -10621,6 +10821,11 @@ CP_WHOLE_LEAF = 1 << 16
 #: flash forward's and backward's limits (TOL_ATTN_OUT on the output,
 #: TOL_FLASH_BWD_REL_L2 on each grad); each head runs the same kernels on
 #: the same rows either way, so the bits are printed too
+#: (f) one ring attention call past the one-pass gate: a sequence of
+#: this many tokens, CP_LONG_SEQ / CP_TRAIN a rank (each pair's backward
+#: the split pair's fp32-output instances), held against flash_attention
+#: on the gathered sequence by the flash limits, as (d) is
+CP_LONG_SEQ = 16384
 #: (e) sequence parallelism inside tp_train: each output against the
 #: pair without it, as a share of its largest magnitude (TOL_TP_RING_FWD:
 #: the same GEMMs, and the reduce-scatter sums the all-reduce's two
@@ -10895,9 +11100,7 @@ def _cp_train_rank(rank, tmp, seed):
             o.backward(full[3][:, :, mine].contiguous())
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t1
-        launches = {k_: v_ - before[k_]
-                    for k_, v_ in _build.launch_counts().items()
-                    if v_ != before[k_]}
+        launches = _counts_since(before)
         qd, kd, vd = (t.clone().requires_grad_() for t in full[:3])
         od = flash_attention(qd, kd, vd, causal=True)
         od.backward(full[3])
@@ -10915,10 +11118,57 @@ def _cp_train_rank(rank, tmp, seed):
                                           dense_t.grad[:, :, mine]))
         out["d"] = d
         del full, q, k, v, qd, kd, vd, o, od
+        torch.cuda.empty_cache()
+        out["f"] = _cp_long_ring(dev, seed, rank)
     finally:
         parallel_state.destroy_model_parallel()
         dist.destroy_process_group()
     torch.save(out, Path(tmp) / f"rank{rank}.pt")
+
+
+def _cp_long_ring(dev, seed: int, rank: int) -> dict:
+    """(f) on a context rank: one ring attention call on its CP_LONG_SEQ /
+    CP_TRAIN tokens of a random ``[1, 16, CP_LONG_SEQ, 128]`` bf16
+    sequence, causal, without and then with dropout LM_DROPOUT (the seed
+    at global coordinates), forward and backward, its launches and
+    hops; then flash_attention on the gathered sequence (cp = 1, its
+    launches not counted), the shard held against it."""
+    from apex_tpu_torch.ops import _build, flash_attention, ring_attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 34)
+    full = [torch.randn(1, 16, CP_LONG_SEQ, 128, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(4)]
+    s = CP_LONG_SEQ // CP_TRAIN
+    mine = slice(rank * s, (rank + 1) * s)
+    runs = {}
+    for rate in (0.0, LM_DROPOUT):
+        kw = dict(causal=True, dropout_rate=rate,
+                  dropout_seed=4321 if rate else None)
+        q, k, v = (t[:, :, mine].contiguous().requires_grad_()
+                   for t in full[:3])
+        before = _build.launch_counts()
+        with _timed_collectives() as coll:
+            t1 = time.perf_counter()
+            o = ring_attention(q, k, v, **kw)
+            o.backward(full[3][:, :, mine].contiguous())
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t1
+        launches = _counts_since(before)
+        qd, kd, vd = (t.clone().requires_grad_() for t in full[:3])
+        od = flash_attention(qd, kd, vd, **kw)
+        od.backward(full[3])
+        torch.cuda.synchronize()
+        f = dict(seconds=seconds, launches=launches, coll=list(coll),
+                 out_err=(o.float() - od[:, :, mine].float()).abs().max()
+                 .item(), out_equal=torch.equal(o, od[:, :, mine]), rel=[])
+        for mine_t, dense_t in zip((q, k, v), (qd, kd, vd)):
+            ref = dense_t.grad[:, :, mine].float()
+            f["rel"].append(((mine_t.grad.float() - ref).norm()
+                             / ref.norm()).item())
+        runs[rate] = f
+        del q, k, v, qd, kd, vd, o, od
+        torch.cuda.empty_cache()
+    return runs
 
 
 def _cp_hold_launches(label, got: dict, want: dict) -> None:
@@ -11028,6 +11278,28 @@ def _cp_train_gates(ranks, ref, smi) -> None:
                           {"flash_attention": 1,
                            "flash_attention_bwd_dq": 1,
                            "flash_attention_bwd_dkv": 1})
+    # (f) the ring past the one-pass gate
+    for rank, r in enumerate(ranks):
+        for rate, f in r["f"].items():
+            label = (f"cp_train (f) rank {rank}, dropout {rate}" if rate
+                     else f"cp_train (f) rank {rank}")
+            print(f"{label}: ring attention [1, 16, "
+                  f"{CP_LONG_SEQ // CP_TRAIN}, 128] bf16 causal against "
+                  f"flash_attention on [1, 16, {CP_LONG_SEQ}, 128]: out "
+                  f"max|diff| {f['out_err']:.3e} (limit {TOL_ATTN_OUT}, "
+                  f"equal {f['out_equal']}); dq, dk, dv relative L2 "
+                  f"{[f'{x:.3e}' for x in f['rel']]} (limit "
+                  f"{TOL_FLASH_BWD_REL_L2})")
+            if not (f["out_err"] <= TOL_ATTN_OUT
+                    and max(f["rel"]) <= TOL_FLASH_BWD_REL_L2):
+                raise AssertionError(f"{label}: the ring is off the dense "
+                                     f"run")
+            drop = "_drop" if rate else ""
+            pairs = rank + 1
+            _cp_hold_launches(label, f["launches"], {
+                f"flash_attention{drop}_f32out": pairs,
+                f"flash_attention_bwd_dq{drop}_f32out": pairs,
+                f"flash_attention_bwd_dkv{drop}_f32out": pairs})
 
 
 def phase_cp_train(dev, seed: int):
@@ -11086,10 +11358,516 @@ def phase_cp_train(dev, seed: int):
         print(f"  (d) Ulysses forward + backward {d['seconds']:.3f} s, its "
               f"all-to-alls {[round(1e3 * t, 2) for t in d['a2a']]} ms "
               f"(gloo, copied through the host inside the call) [{smi}]")
-        for run in (b["launches"], c["launches"], d["launches"]):
+        for rate, f in r["f"].items():
+            print(f"  (f) one ring call [1, 16, {CP_LONG_SEQ // CP_TRAIN}, "
+                  f"128], dropout {rate}: forward + backward "
+                  f"{f['seconds']:.3f} s, {_pp_hops(f['coll'])} [{smi}]")
+        for run in (b["launches"], c["launches"], d["launches"],
+                    *(f["launches"] for f in r["f"].values())):
             for k, v in run.items():
                 total[k] = total.get(k, 0) + v
     print(f"cp_train: the ranks set up in "
+          f"{max(r['setup_s'] for r in ranks):.1f} s and ran in "
+          f"{ranks_s:.1f} s, the phase {time.perf_counter() - t_phase:.1f} s "
+          f"[{smi}]")
+    return dict(launches=total)
+
+
+MOE_EP = 2
+MOE_LAYERS = 4
+#: Mixtral 8x7B's routing (Jiang et al. 2024, arXiv:2401.04088): 8
+#: experts, the top 2 a token
+MOE_EXPERTS, MOE_TOP_K = 8, 2
+#: a rank's sequence (GPT-3 1.3B's context)
+MOE_SEQ = 2048
+MOE_ADAM_STEPS = 2
+#: the aux losses' coefficients in (c)'s loss (Switch's load-balancing
+#: 0.01, ST-MoE's z-loss 0.001)
+MOE_LB_COEFF, MOE_Z_COEFF = 0.01, 0.001
+#: (d): DeepSpeed-MoE's "1.3B+MoE-128" (Rajbhandari et al. 2022,
+#: arXiv:2201.05596): 128 experts, top-1, at GPT-3 1.3B's widths
+MOE_WIDE_EXPERTS, MOE_WIDE_TOP_K = 128, 1
+#: (b) against (a): the loss (a mean over 2048 tokens) and each layer's
+#: aux losses (relative), and the grads (relative L2 over all and each
+#: leaf).  Two bf16 computations of one function: the dense layers run
+#: the same products on the same rows, the experts' GEMMs other shapes
+#: ([4, 1280, h] a rank at ep = 2 against [8, 640, h]), so the rows may
+#: round apart as tp = 2's partials round apart from tp = 1 (TOL_TP_LOSS,
+#: TOL_TP_GRAD_REL); in fp32 on the CPU the port's ep = 2 GPT holds the
+#: JAX GPT's loss within 2e-5 and its grads within 2e-5 of each leaf's
+#: largest magnitude (tests/test_torch_moe_parallel.py)
+TOL_MOE_LOSS = TOL_TP_LOSS
+TOL_MOE_GRAD_REL = TOL_TP_GRAD_REL
+#: (d) gather against onehot on one layer's weights and tokens: the same
+#: routing exactly; y within 2^-6 of its largest magnitude (one bf16
+#: rounding of the same products) and each grad within
+#: TOL_FLASH_BWD_REL_L2 relative L2
+TOL_MOE_WIDE_OUT = 2.0 ** -6
+
+
+def _moe_model(dev, seed: int, **kw):
+    """The phase's GPT with the MoE FFN (GPT-3 1.3B widths, MOE_LAYERS
+    deep, MOE_EXPERTS experts top MOE_TOP_K, capacity factor 1.25, bf16
+    parameters from ``seed``, the router fp32; no dropout unless ``kw``
+    sets it)."""
+    from apex_tpu_torch.models import GPTConfig, gpt_model_provider
+    torch.manual_seed(seed)
+    cfg = GPTConfig(**{**GPT_CFG, "num_layers": MOE_LAYERS,
+                       "max_seq_length": MOE_SEQ,
+                       "params_dtype": torch.bfloat16,
+                       "num_moe_experts": MOE_EXPERTS,
+                       "moe_top_k": MOE_TOP_K, **kw})
+    return cfg, gpt_model_provider(cfg, device=dev)
+
+
+def _moe_tokens(dev, seed: int):
+    """The ranks' sequences and their successors, ``[MOE_EP, MOE_SEQ]``
+    each (row r is rank r's)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 37)
+    t = torch.randint(0, GPT_CFG["vocab_size"], (MOE_EP, MOE_SEQ + 1),
+                      generator=gen, device=dev)
+    return t[:, :-1].contiguous(), t[:, 1:].contiguous()
+
+
+def _moe_loss(model, toks, labels, **kw):
+    """``(loss + MOE_LB_COEFF sum(lb) + MOE_Z_COEFF sum(z), loss, lb, z)``
+    of one forward, ``lb`` and ``z`` the layers' aux losses
+    ``[MOE_LAYERS]`` (the model's ``intermediates``)."""
+    inter: dict = {}
+    loss = model(toks, labels, intermediates=inter, **kw)
+    lb = torch.stack([inter[f"layer_{i}.moe_lb_loss"]
+                      for i in range(MOE_LAYERS)])
+    z = torch.stack([inter[f"layer_{i}.moe_z_loss"]
+                     for i in range(MOE_LAYERS)])
+    return (loss + MOE_LB_COEFF * lb.sum() + MOE_Z_COEFF * z.sum(), loss,
+            lb.detach(), z.detach())
+
+
+def _moe_dense_digests(named: dict) -> dict:
+    """The bit digests (:func:`_bits_digest`) of every leaf not under
+    ``experts``: the leaves the ranks hold alike."""
+    return {n: _bits_digest(t.contiguous().reshape(-1))
+            for n, t in named.items()
+            if ".experts." not in n}
+
+
+def _moe_wide(dev, seed: int, rank: int) -> dict:
+    """(d) on an expert rank: one MoELayer at GPT-3 1.3B's widths with
+    MOE_WIDE_EXPERTS experts, top MOE_WIDE_TOP_K, ep = MOE_EP (bf16, the
+    router fp32, capacity factor 1.25), on the rank's MOE_SEQ random
+    tokens: the routing in both forms, then forward and backward under
+    ``gather`` and under ``onehot`` on the same weights and tokens."""
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.transformer.moe import (MoELayer,
+                                                resolve_dispatch_mode)
+    from apex_tpu_torch.transformer.moe.layer import (
+        compute_dispatch_and_combine, compute_dispatch_indices)
+    bf = torch.bfloat16
+    h = GPT_CFG["hidden_size"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 40)
+    layer = MoELayer(MOE_WIDE_EXPERTS, h, 4 * h, top_k=MOE_WIDE_TOP_K,
+                     expert_parallel_size=MOE_EP, params_dtype=bf,
+                     device=dev, generator=gen)
+    cap = layer.capacity_for(MOE_SEQ)
+    xgen = torch.Generator(device=dev)
+    xgen.manual_seed(seed + 41 + rank)
+    x, dy = (torch.randn(MOE_SEQ, h, generator=xgen, device=dev).to(bf)
+             for _ in range(2))
+    e = MOE_WIDE_EXPERTS
+    with torch.no_grad():
+        gates, idx, _ = layer.router(x)
+        slot_token, token_slot, _ = compute_dispatch_indices(gates, idx, e,
+                                                             cap)
+        dispatch, _ = compute_dispatch_and_combine(gates, idx, e, cap)
+    filled = slot_token < MOE_SEQ
+    ee, cc = filled.nonzero(as_tuple=True)
+    kept = token_slot < e * cap
+    ss, kk = kept.nonzero(as_tuple=True)
+    slots_equal = (
+        int(dispatch.sum()) == int(filled.sum()) == int(kept.sum())
+        and bool((dispatch[slot_token[ee, cc], ee, cc] == 1).all())
+        and bool((dispatch[ss, token_slot[ss, kk] // cap,
+                           token_slot[ss, kk] % cap] == 1).all()))
+    del dispatch, gates, idx
+    out = dict(auto=resolve_dispatch_mode("auto", e, MOE_SEQ, cap, h),
+               layer_mode=layer.dispatch_mode, cap=cap,
+               slots_equal=slots_equal, filled=int(filled.sum()),
+               n=sum(p.numel() for p in layer.parameters()))
+    # one untimed pass a mode first: the first products of these shapes
+    # in the process pay their one-time setup
+    for mode in ("gather", "onehot"):
+        layer.dispatch_mode = mode
+        y, _ = layer(x.clone().requires_grad_())
+        y.backward(dy)
+    del y
+    first = None
+    for mode in ("gather", "onehot"):
+        layer.dispatch_mode = mode
+        layer.zero_grad(set_to_none=True)
+        xr = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = _build.launch_counts()
+        with _timed_collectives() as coll:
+            t1 = time.perf_counter()
+            y, aux = layer(xr)
+            y.backward(dy)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t1
+        run = dict(y=y.detach(), gx=xr.grad,
+                   grads={n: p.grad.clone() for n, p in
+                          layer.named_parameters()},
+                   load=aux["expert_load"].cpu(),
+                   dropped=aux["dropped_fraction"].item())
+        out[mode] = dict(seconds=seconds, peak=torch.cuda.max_memory_allocated(),
+                         a2a=[t_ for n_, t_ in coll if n_ == "all_to_all"],
+                         launches=_counts_since(before),
+                         dropped=run["dropped"])
+        if first is None:
+            first = run
+            continue
+        out["load_equal"] = torch.equal(first["load"], run["load"])
+        out["dropped_equal"] = first["dropped"] == run["dropped"]
+        out["y_err"] = ((first["y"].float() - run["y"].float()).abs().max()
+                        / first["y"].float().abs().max()).item()
+        out["rel"], out["equal"] = {}, {}
+        for name, a_, b_ in [("x", first["gx"], run["gx"])] + [
+                (n, first["grads"][n], run["grads"][n])
+                for n in first["grads"]]:
+            out["rel"][name] = ((a_.float() - b_.float()).norm()
+                                / a_.float().norm()).item()
+            out["equal"][name] = torch.equal(a_, b_)
+        out["equal"]["y"] = torch.equal(first["y"], run["y"])
+    del layer, first, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_train_rank(rank, tmp, seed):
+    """One expert rank of the moe_train phase, on cuda:0 over gloo: (a)
+    the ep = 1 model on both ranks' sequences, (b) the ep = MOE_EP model
+    on the same weights (``shard_moe_params``) on its own, its grads
+    reduced by ``reduce_moe_grads`` and held to (a)'s here (so no grads
+    cross the process), (c) MOE_ADAM_STEPS ``fused_adam`` steps with
+    attention dropout, (d) the 128-expert layer.  Writes what it saw to
+    ``tmp/rank<rank>.pt``."""
+    import datetime
+    import os
+    import torch.distributed as dist
+    from apex_tpu_torch import train_step
+    from apex_tpu_torch.inference.weights import (load_jax_params,
+                                                  shard_moe_params)
+    from apex_tpu_torch.optimizers import functional
+    from apex_tpu_torch.parallel import _comm
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.transformer import parallel_state
+    from apex_tpu_torch.transformer.moe import reduce_moe_grads
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(tmp) / "store"), MOE_EP), rank=rank, world_size=MOE_EP,
+        timeout=datetime.timedelta(seconds=600))
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        parallel_state.initialize_model_parallel(
+            expert_model_parallel_size_=MOE_EP)
+        dgroup = parallel_state.resolve_group(
+            parallel_state.get_dense_param_grad_axes())
+        toks, labels = _moe_tokens(dev, seed)
+        n_local = MOE_EXPERTS // MOE_EP
+        mine = slice(rank * n_local, (rank + 1) * n_local)
+
+        def group_mean(x):
+            x = x.detach().float().reshape(1).clone()
+            return _comm.all_reduce(x, dgroup).item() / MOE_EP
+
+        # (a) ep = 1, each rank's sequence in turn, the grads averaged
+        _, ref = _moe_model(dev, seed)
+        out["setup_s"] = time.perf_counter() - t0
+        out["n"] = sum(p.numel() for p in ref.parameters())
+        before = _build.launch_counts()
+        a = dict(loss=[], lb=[], z=[])
+        avg: dict = {}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(MOE_EP):
+            ref.zero_grad(set_to_none=True)
+            total, loss, lb, z = _moe_loss(ref, toks[i:i + 1],
+                                           labels[i:i + 1])
+            total.backward()
+            a["loss"].append(loss.item())
+            a["lb"].append(lb.float().cpu())
+            a["z"].append(z.float().cpu())
+            for n, p in ref.named_parameters():
+                if n in avg:
+                    avg[n].add_(p.grad.float())
+                else:
+                    avg[n] = p.grad.float()
+        for g in avg.values():
+            g.div_(MOE_EP)
+        torch.cuda.synchronize()
+        a.update(seconds=time.perf_counter() - t1,
+                 launches=_counts_since(before))
+        out["a"] = a
+        tree = _param_tree(ref)
+        del ref
+        torch.cuda.empty_cache()
+        # (b) ep = MOE_EP on the same weights, this rank's sequence
+        _, model = _moe_model(dev, seed, expert_model_parallel=True)
+        load_jax_params(model, shard_moe_params(tree, MOE_EP, rank))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = _build.launch_counts()
+        with _timed_collectives() as coll:
+            t1 = time.perf_counter()
+            total, loss, lb, z = _moe_loss(model, toks[rank:rank + 1],
+                                           labels[rank:rank + 1])
+            total.backward()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t1
+        launches = _counts_since(before)
+        peak = torch.cuda.max_memory_allocated()
+        grads = {n: p.grad.float() for n, p in model.named_parameters()}
+        t1 = time.perf_counter()
+        with _timed_collectives() as rcoll:
+            reduce_moe_grads(grads)
+            torch.cuda.synchronize()
+        reduce_s = time.perf_counter() - t1
+        num = den = 0.0
+        worst, equal = (0.0, ""), True
+        for n, g in grads.items():
+            want = avg[n][mine] if ".experts." in n else avg[n]
+            e_ = float((g - want).double().norm() ** 2)
+            w_ = float(want.double().norm() ** 2)
+            num, den = num + e_, den + w_
+            leaf = (e_ / w_) ** 0.5 if w_ > 0 else (math.inf if e_ else 0.0)
+            if leaf > worst[0] or not worst[1]:
+                worst = (leaf, n)
+            equal = equal and torch.equal(g, want)
+        out["b"] = dict(loss=loss.item(), lb=lb.float().cpu(),
+                        z=z.float().cpu(), mean=group_mean(loss),
+                        seconds=seconds, coll=list(coll), rcoll=list(rcoll),
+                        peak=peak, reduce_s=reduce_s, launches=launches,
+                        rel=(num / den) ** 0.5, worst=worst, equal=equal,
+                        digests=_moe_dense_digests(grads),
+                        n=sum(p.numel() for p in model.parameters()))
+        del model, grads, avg
+        torch.cuda.empty_cache()
+        # (c) FusedAdam steps at ep = MOE_EP, attention dropout
+        _, model = _moe_model(dev, seed, expert_model_parallel=True,
+                              attention_dropout=LM_DROPOUT)
+        load_jax_params(model, shard_moe_params(tree, MOE_EP, rank))
+        del tree
+        tx = functional.fused_adam(lr=TRAIN_LR)
+        state = train_step.init_train_state(tx, model, loss_scale="dynamic")
+        offsets = {".".join(re.findall(r"\['([^']*)'\]", key)): (o, n)
+                   for key, (o, n, _) in
+                   train_step.leaf_offsets(model).items()}
+
+        def reduce(flat):
+            reduce_moe_grads({k: flat[o:o + n]
+                              for k, (o, n) in offsets.items()})
+            return flat
+
+        step = train_step.make_train_step(
+            lambda m, b: _moe_loss(m, b["tokens"], b["labels"],
+                                   deterministic=False,
+                                   generator=b["generator"])[0],
+            tx, grad_transform=reduce)
+        c = dict(losses=[], local=[], step_s=[], digests=[], coll=[])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = _build.launch_counts()
+        for i in range(MOE_ADAM_STEPS):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed * 1000 + 10 * i + rank)
+            # the first step's collectives timed; the last step's time is
+            # the rank's step time
+            timed = _timed_collectives() if i == 0 \
+                else contextlib.nullcontext([])
+            with timed as rec:
+                t1 = time.perf_counter()
+                state, loss = step(state, dict(tokens=toks[rank:rank + 1],
+                                               labels=labels[rank:rank + 1],
+                                               generator=gen))
+                torch.cuda.synchronize()
+                c["step_s"].append(time.perf_counter() - t1)
+            c["coll"].append(list(rec))
+            c["local"].append(loss.item())
+            c["losses"].append(group_mean(loss))
+            master = state.opt.master
+            c["digests"].append(_moe_dense_digests(
+                {k: master[o:o + n] for k, (o, n) in offsets.items()}))
+        c.update(launches=_counts_since(before), n=state.opt.master.numel(),
+                 peak=torch.cuda.max_memory_allocated())
+        out["c"] = c
+        del state, step, model
+        torch.cuda.empty_cache()
+        # (d) the 128-expert layer, both dispatch modes
+        out["d"] = _moe_wide(dev, seed, rank)
+    finally:
+        parallel_state.destroy_model_parallel()
+        dist.destroy_process_group()
+    torch.save(out, Path(tmp) / f"rank{rank}.pt")
+
+
+def _moe_coll(rec) -> str:
+    """The all-to-alls and the all-reduces of a run: count and seconds."""
+    return _coll_line([(n, t) for n, t in rec
+                       if n in ("all_to_all", "all_reduce")])
+
+
+def _moe_train_gates(ranks, smi) -> None:
+    """What the parent holds the moe_train ranks to (the module
+    docstring's item 24)."""
+    fwd = dict(layer_norm=2 * MOE_LAYERS + 1, flash_attention=MOE_LAYERS)
+    bwd = dict(layer_norm_bwd=2 * MOE_LAYERS + 1,
+               flash_attention_bwd=MOE_LAYERS)
+    for rank, r in enumerate(ranks):
+        a, b = r["a"], r["b"]
+        # (a) and (b): the loss and each layer's aux losses
+        loss_a = a["loss"][rank]
+        print(f"moe_train (b) rank {rank}, ep = {MOE_EP} against (a) ep = 1 "
+              f"on its sequence: loss {b['loss']:.6f} against {loss_a:.6f} "
+              f"(|diff| {abs(b['loss'] - loss_a):.3e}, limit {TOL_MOE_LOSS}); "
+              f"lb {[round(float(x), 6) for x in b['lb']]} against "
+              f"{[round(float(x), 6) for x in a['lb'][rank]]}; z "
+              f"{[round(float(x), 5) for x in b['z']]} against "
+              f"{[round(float(x), 5) for x in a['z'][rank]]}")
+        if not abs(b["loss"] - loss_a) <= TOL_MOE_LOSS:
+            raise AssertionError(f"moe_train (b) rank {rank}: the loss is "
+                                 f"off ep = 1's")
+        for name in ("lb", "z"):
+            diff = (b[name] - a[name][rank]).abs()
+            lim = TOL_MOE_LOSS * torch.clamp(a[name][rank].abs(), min=1.0)
+            if not bool((diff <= lim).all()):
+                raise AssertionError(f"moe_train (b) rank {rank}: the "
+                                     f"layers' {name} losses are off ep = 1's")
+        print(f"  moe_train (b) rank {rank}: grads after reduce_moe_grads "
+              f"against (a)'s average over the two sequences (the experts "
+              f"the rank's slice), all {b['n']} elements: relative L2 "
+              f"{b['rel']:.4e} over all, the worst leaf {b['worst'][1]} "
+              f"{b['worst'][0]:.4e} (limit {TOL_MOE_GRAD_REL} on each); "
+              f"equal to (a) bit for bit {b['equal']}")
+        if not (b["rel"] <= TOL_MOE_GRAD_REL
+                and b["worst"][0] <= TOL_MOE_GRAD_REL):
+            raise AssertionError(f"moe_train (b) rank {rank}: the grads are "
+                                 f"off ep = 1's")
+        _cp_hold_launches(f"moe_train (a) rank {rank}", a["launches"],
+                          {k: MOE_EP * v for k, v in {**fwd, **bwd}.items()})
+        _cp_hold_launches(f"moe_train (b) rank {rank}", b["launches"],
+                          {**fwd, **bwd})
+    if any(r["b"]["digests"] != ranks[0]["b"]["digests"] for r in ranks):
+        raise AssertionError("moe_train (b): the reduced dense and router "
+                             "grads differ between the ranks")
+    print(f"  moe_train (b): the reduced dense and router grads equal bit for "
+          f"bit on the {MOE_EP} ranks ({len(ranks[0]['b']['digests'])} "
+          f"leaves); (b)'s mean loss {ranks[0]['b']['mean']:.6f}")
+    # (c) FusedAdam steps
+    c = [r["c"] for r in ranks]
+    losses = c[0]["losses"]
+    print(f"moe_train (c) {MOE_ADAM_STEPS} FusedAdam steps at ep = {MOE_EP}, "
+          f"attention dropout {LM_DROPOUT}, loss + {MOE_LB_COEFF} sum(lb) + "
+          f"{MOE_Z_COEFF} sum(z) averaged over the ranks "
+          f"{[round(x, 5) for x in losses]} (the ranks' own "
+          f"{[[round(x, 5) for x in r['local']] for r in c]})")
+    if any(r["losses"] != losses for r in c):
+        raise AssertionError("moe_train (c): the ranks' mean losses differ")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"moe_train (c): the loss did not fall: "
+                             f"{losses}")
+    for i in range(MOE_ADAM_STEPS):
+        if any(r["digests"][i] != c[0]["digests"][i] for r in c):
+            raise AssertionError(f"moe_train (c): the ranks' dense or router "
+                                 f"masters differ after step {i + 1}")
+    print(f"  moe_train (c): the dense and router fp32 masters equal bit for "
+          f"bit on the {MOE_EP} ranks after each step "
+          f"({len(c[0]['digests'][0])} leaves; a rank's flat length "
+          f"{c[0]['n']})")
+    for rank, r in enumerate(c):
+        _cp_hold_launches(f"moe_train (c) rank {rank}", r["launches"], {
+            "layer_norm": MOE_ADAM_STEPS * fwd["layer_norm"],
+            "layer_norm_bwd": MOE_ADAM_STEPS * bwd["layer_norm_bwd"],
+            "flash_attention_drop": MOE_ADAM_STEPS * MOE_LAYERS,
+            "flash_attention_bwd_drop": MOE_ADAM_STEPS * MOE_LAYERS,
+            "fused_scale": MOE_ADAM_STEPS, "fused_adam": MOE_ADAM_STEPS})
+    # (d) the 128-expert layer
+    for rank, r in enumerate(ranks):
+        d = r["d"]
+        print(f"moe_train (d) rank {rank}: MoELayer {MOE_WIDE_EXPERTS} experts "
+              f"top-{MOE_WIDE_TOP_K}, [{MOE_SEQ}, {GPT_CFG['hidden_size']}] "
+              f"bf16 a rank, ep = {MOE_EP} ({d['n']} parameters a rank), "
+              f"capacity {d['cap']}: \"auto\" resolves to {d['auto']!r}; "
+              f"both forms route alike {d['slots_equal']} ({d['filled']} "
+              f"slots filled), drops {d['gather']['dropped']:.4f} / "
+              f"{d['onehot']['dropped']:.4f}, loads equal {d['load_equal']}; "
+              f"gather against onehot: y max|diff| {d['y_err']:.3e} of its "
+              f"max (limit {TOL_MOE_WIDE_OUT:.3e}), the grads' relative L2 "
+              f"at most {max(d['rel'].values()):.3e} (limit "
+              f"{TOL_FLASH_BWD_REL_L2}); bit for bit "
+              f"{sorted(k for k, v in d['equal'].items() if v)}, not "
+              f"{sorted(k for k, v in d['equal'].items() if not v)}")
+        if d["auto"] != "gather" or d["layer_mode"] != "auto":
+            raise AssertionError("moe_train (d): \"auto\" did not pick gather "
+                                 "at 128 experts")
+        if not (d["slots_equal"] and d["load_equal"] and d["dropped_equal"]):
+            raise AssertionError("moe_train (d): gather and onehot route "
+                                 "differently")
+        if not (d["y_err"] <= TOL_MOE_WIDE_OUT
+                and max(d["rel"].values()) <= TOL_FLASH_BWD_REL_L2):
+            raise AssertionError("moe_train (d): gather and onehot disagree")
+
+
+def phase_moe_train(dev, seed: int):
+    """MoE training at ep = 2 on the one card (the module docstring's
+    item 24): two spawned ranks on cuda:0 over gloo
+    (:func:`_moe_train_rank`), held here.  Returns the ranks' launches of
+    (b) and (c), summed."""
+    import tempfile
+    import torch.multiprocessing as mp
+    smi = _smi()
+    t_phase = time.perf_counter()
+    _card_memory("moe_train, before the ranks")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp_dir:
+        tmp = Path(tmp_dir)
+        t0 = time.perf_counter()
+        mp.start_processes(_moe_train_rank, nprocs=MOE_EP,
+                           start_method="spawn", args=(str(tmp), seed))
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(MOE_EP)]
+    _moe_train_gates(ranks, smi)
+    total: dict = {}
+    for rank, r in enumerate(ranks):
+        a, b, c, d = r["a"], r["b"], r["c"], r["d"]
+        print(f"moe_train rank {rank} (GPT-3 1.3B widths, {MOE_LAYERS} "
+              f"layers, {MOE_EXPERTS} experts top-{MOE_TOP_K}, {r['n']} "
+              f"parameters at ep = 1, bf16): (a) ep = 1 forward + backward "
+              f"of both sequences {a['seconds']:.3f} s; (b) ep = {MOE_EP} "
+              f"forward + backward {b['seconds']:.3f} s, peak "
+              f"{b['peak'] / 2**30:.2f} GiB, {_moe_coll(b['coll'])}; "
+              f"reduce_moe_grads {b['reduce_s']:.3f} s "
+              f"({_moe_coll(b['rcoll'])}) [{smi}]")
+        print(f"  (c) step times {[round(t, 3) for t in c['step_s']]} s (the "
+              f"last without timed collectives: the rank's step time), peak "
+              f"{c['peak'] / 2**30:.2f} GiB; step 1's {_moe_coll(c['coll'][0])}"
+              f" (gloo, copied through the host inside the call; not an NCCL "
+              f"figure) [{smi}]")
+        for mode in ("gather", "onehot"):
+            print(f"  (d) {mode}: forward + backward {d[mode]['seconds']:.3f} "
+                  f"s, peak {d[mode]['peak'] / 2**30:.2f} GiB, its "
+                  f"all-to-alls {[round(1e3 * t, 2) for t in d[mode]['a2a']]}"
+                  f" ms [{smi}]")
+        for run in (b["launches"], c["launches"]):
+            for k, v in run.items():
+                total[k] = total.get(k, 0) + v
+    print(f"moe_train: the ranks set up in "
           f"{max(r['setup_s'] for r in ranks):.1f} s and ran in "
           f"{ranks_s:.1f} s, the phase {time.perf_counter() - t_phase:.1f} s "
           f"[{smi}]")
@@ -11103,12 +11881,12 @@ def main(argv=None) -> int:
                     default="kernels,serve,gpt,bert,bert_train,gpt_train,"
                             "gpt_train_8k,profile,train,lean_train,optim,"
                             "train-check,width,spec,tp,dp,tp_train,"
-                            "pp_train,cp_train,tier,fleet,shim",
+                            "pp_train,cp_train,moe_train,tier,fleet,shim",
                     help="comma list of kernels, serve, gpt, bert, "
                          "bert_train, gpt_train, gpt_train_8k, profile, "
                          "train, lean_train, optim, train-check, width, "
-                         "spec, tp, dp, tp_train, pp_train, cp_train, tier, "
-                         "fleet, shim, ab "
+                         "spec, tp, dp, tp_train, pp_train, cp_train, "
+                         "moe_train, tier, fleet, shim, ab "
                          "(build always "
                          "runs; profile profiles the serve and the train "
                          "phases that run)")
@@ -11264,6 +12042,14 @@ def main(argv=None) -> int:
         del cpt
         torch.cuda.empty_cache()
     lap("cp_train")
+    if "moe_train" in phases:
+        moe = phase_moe_train(dev, args.seed)
+        for key, r in recs.items():
+            r["launches"] = (r.get("launches") or 0) + moe["launches"].get(
+                key, 0)
+        del moe
+        torch.cuda.empty_cache()
+    lap("moe_train")
     tier_ref = None
     for phase in ("tier", "fleet"):
         if phase not in phases:

@@ -245,7 +245,9 @@ def test_md_dkv_takes_the_warp_specialized_key_major_kernel():
     assert "launch_dkv_ws<D, MASK, DROP>(" in bwd
     ws = _code((CSRC / "flash_kmajor_ws.cuh").read_text())
     launch = _function(ws, "launch_dkv_ws")
-    assert "flash_bwd_ws_kernel<D, false, MASK, DROP>" in launch
+    # (the fp32-output instances share the launch: F32 is false here)
+    assert "flash_bwd_ws_kernel<D, false, MASK, DROP, kOpBf16, F32>" \
+        in launch
     assert "group" in launch and "kL2Half" in launch
     kernel = ws[ws.index("flash_bwd_ws_kernel(const"):]
     kernel = kernel[:kernel.index("\n}\n")]

@@ -31,6 +31,7 @@ import torch.distributed as dist
 
 from apex_tpu_torch.inference.weights import load_jax_params
 from apex_tpu_torch.transformer import parallel_state as ps
+from apex_tpu_torch.transformer.tensor_parallel.random import fold_generator
 from apex_tpu_torch.transformer.testing import standalone_gpt as sgpt
 from apex_tpu_torch.transformer.testing.distributed_test_base import \
     spawn_ranks
@@ -338,10 +339,10 @@ def test_fold_generator_streams():
     g = torch.Generator().manual_seed(5)
     state = g.get_state()
     draw = lambda gen: torch.rand(8, generator=gen)       # noqa: E731
-    a0 = draw(sgpt._fold_generator(g, 0))
+    a0 = draw(fold_generator(g, 0))
     g.set_state(state)
-    a1 = draw(sgpt._fold_generator(g, 1))
+    a1 = draw(fold_generator(g, 1))
     g.set_state(state)
-    assert torch.equal(draw(sgpt._fold_generator(g, 0)), a0)
+    assert torch.equal(draw(fold_generator(g, 0)), a0)
     assert not torch.equal(a0, a1)
-    assert not torch.equal(draw(sgpt._fold_generator(g, 0)), a0)
+    assert not torch.equal(draw(fold_generator(g, 0)), a0)

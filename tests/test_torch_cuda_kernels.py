@@ -3964,11 +3964,61 @@ def test_flash_f32out_long_shard_pair(cuda):
         assert g.dtype == torch.float32 and _rel_l2(g, r) <= 1e-2
 
 
+@pytest.mark.parametrize("d,rate,offs", _F32_FWD_CASES)
+@pytest.mark.parametrize("sq,sk,causal", _F32_SHAPES)
+def test_flash_f32out_split_pair_matches_plain_and_its_twin(
+        cuda, monkeypatch, d, rate, offs, sq, sk, causal):
+    """The split pair's fp32-output instances (5f, 6f; with dropout 5df,
+    6df), the route past the one-pass gate (forced here with the gate at
+    0): one launch of each, the grads against the plain version's fp32
+    grads and the exact gradient, and against the bf16 twins on the same
+    operands (the same accumulators: each rounds to its twin's bits)."""
+    monkeypatch.setattr(attn, "_FUSED_BWD_MAX_BYTES", 0)
+    q, k, v, do = _f32_operands(cuda, d, sq, sk, 350)
+    seed3 = attn._seed_operand(-424243, *offs, device=cuda) if rate else None
+    scale = d ** -0.5
+    md = dict(rate=rate, seed3=seed3)
+    out, lse = attn._fwd(q, k, v, causal, scale, **md)
+    drop = "_drop" if rate else ""
+    before = _build.launch_counts()
+    got = attn._bwd(q, k, v, out, lse, do, causal, scale, **md,
+                    out_dtype=torch.float32)
+    after = _build.launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {
+        f"flash_attention_bwd_dq{drop}_f32out": 1,
+        f"flash_attention_bwd_dkv{drop}_f32out": 1}
+    twin = attn._bwd(q, k, v, out, lse, do, causal, scale, **md)
+    ref = attn._bwd_reference(q, k, v, out, lse, do, causal, scale, **md,
+                              out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    _assert_f32_bwd_close(got, ref, _exact_grads_md(
+        q, k, v, do, causal, scale, None, rate, seed3))
+    for g, t in zip(got, twin):
+        assert torch.equal(g.to(torch.bfloat16), t)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_f32out_split_pair_repeats_bit_for_bit(cuda, monkeypatch,
+                                                     rate):
+    """Each output of the fp32 split pair written once: two runs give the
+    same bits."""
+    monkeypatch.setattr(attn, "_FUSED_BWD_MAX_BYTES", 0)
+    q, k, v, do = _f32_operands(cuda, 128, 384, 384, 360)
+    seed3 = attn._seed_operand(77, 384, 0, device=cuda) if rate else None
+    md = dict(rate=rate, seed3=seed3)
+    out, lse = attn._fwd(q, k, v, True, 128 ** -0.5, **md)
+    runs = [attn._bwd(q, k, v, out, lse, do, True, 128 ** -0.5, **md,
+                      out_dtype=torch.float32) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 def test_flash_f32out_routes_without_an_instance_raise(cuda, monkeypatch):
-    """fp32 outputs where no instance is built (ROADMAP V10): the split
-    backward, a mask, fp16 operands on the wide family; and an
-    out_dtype other than fp32 or the operands'.  Nothing rounds or runs
-    the plain version."""
+    """fp32 outputs where no instance is built (ROADMAP V10): a mask (the
+    one-pass and the split backward's), fp16 operands on the wide
+    family; and an out_dtype other than fp32 or the operands'.  Nothing
+    rounds or runs the plain version.  The split pair without a mask
+    has its instances: past the gate it launches them."""
     q, k, v, do = _f32_operands(cuda, 128, 256, 256, 330)
     scale = 128 ** -0.5
     out, lse = attn._fwd(q, k, v, True, scale)
@@ -3983,8 +4033,17 @@ def test_flash_f32out_routes_without_an_instance_raise(cuda, monkeypatch):
         attn._fwd(*h16[:3], True, scale, out_dtype=torch.float32)
     monkeypatch.setattr(attn, "_FUSED_BWD_MAX_BYTES", 0)
     with pytest.raises(NotImplementedError, match="V10"):
-        attn._bwd(q, k, v, out, lse, do, True, scale,
+        attn._bwd(q, k, v, out, lse, do, True, scale, mask3=mask3,
                   out_dtype=torch.float32)
+    before = _build.launch_counts()
+    grads = attn._bwd(q, k, v, out, lse, do, True, scale,
+                      out_dtype=torch.float32)
+    after = _build.launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {
+        "flash_attention_bwd_dq_f32out": 1,
+        "flash_attention_bwd_dkv_f32out": 1}
+    assert all(g.dtype == torch.float32 for g in grads)
     with pytest.raises(ValueError, match="out_dtype"):
         attn._fwd(q, k, v, True, scale, out_dtype=torch.float16)
 

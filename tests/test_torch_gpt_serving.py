@@ -354,7 +354,8 @@ def test_gpt_model_out_of_slice_options_raise(model):
     """Training-mode dropout runs now (a finite loss that follows the
     generator's seed; no generator raises ValueError); remat, the fused
     head and scan_layers (with or without remat, on the same weights
-    moved to its layout) run; MoE still raises."""
+    moved to its layout) run; the MoE FFN builds and trains now (its
+    aux losses handed back), and serving it is refused, as in JAX."""
     _, _, cfg, _, _ = model
     drop = gpt_model_provider(GPTConfig(**dict(CFG, hidden_dropout=0.1)),
                               device="cpu")
@@ -366,9 +367,16 @@ def test_gpt_model_out_of_slice_options_raise(model):
     assert np.isfinite(losses).all() and losses[0] == losses[1] != losses[2]
     with pytest.raises(ValueError, match="generator"):
         drop(torch.zeros(1, 4, dtype=torch.int32), deterministic=False)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        gpt_model_provider(GPTConfig(**dict(CFG, num_moe_experts=4)),
-                           device="cpu")
+    moe_cfg = GPTConfig(**dict(CFG, num_moe_experts=4))
+    moe = gpt_model_provider(moe_cfg, device="cpu")
+    assert moe.layer_0.mlp.router.weight.shape == (4, CFG["hidden_size"])
+    inter = {}
+    with torch.no_grad():
+        assert np.isfinite(moe(toks, toks, intermediates=inter).item())
+    assert len(inter) == 2 * CFG["num_layers"]
+    from apex_tpu_torch.inference.models import check_supported
+    with pytest.raises(ValueError, match="MoE FFN decode"):
+        check_supported("gpt", moe_cfg)
     from apex_tpu_torch.inference.weights import to_scan_layout
     loop = {n: p.detach() for n, p in drop.named_parameters()}
     tree: dict = {}

@@ -113,7 +113,44 @@ def test_ast_scan_no_jax_or_apex_tpu_imports():
             tr + "testing/commons.py", "apex_tpu_torch/ops/ring_attention.py",
             "apex_tpu_torch/ops/ulysses_attention.py",
             "apex_tpu_torch/parallel/_comm.py",
-            tr + "testing/standalone_gpt.py"} <= scanned
+            tr + "testing/standalone_gpt.py", tr + "moe/__init__.py",
+            tr + "moe/router.py", tr + "moe/experts.py",
+            tr + "moe/layer.py"} <= scanned
+
+
+def test_fp32_routes_without_an_instance_raise_naming_v10(monkeypatch):
+    """The CUDA routes of fp32 outputs that still have no instance raise
+    ``NotImplementedError`` naming ROADMAP V10 before any launch: a mask
+    (the forward, the one-pass and the split backward) and the wide
+    family's 16-bit operands.  Operands on the ``meta`` device take the
+    CUDA routes without a card (only a CPU tensor takes the plain
+    version) and cannot launch."""
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.ops import attention as tattn
+    meta = dict(device="meta")
+    bf = [torch.empty(4, 64, 128, dtype=torch.bfloat16, **meta)
+          for _ in range(4)]
+    h16 = [t.half() for t in bf]
+    lse = torch.empty(4, 64, dtype=torch.float32, **meta)
+    mask3 = torch.empty(1, 64, 64, dtype=torch.bool, **meta)
+    f32 = dict(out_dtype=torch.float32)
+    calls = [
+        lambda: tattn._fwd(*bf[:3], True, 0.1, mask3=mask3, **f32),
+        lambda: tattn._fwd(*h16[:3], True, 0.1, **f32),
+        lambda: tattn._bwd(*bf[:3], bf[0], lse, bf[3], True, 0.1,
+                           mask3=mask3, **f32),
+        lambda: tattn._bwd(*h16[:3], h16[0], lse, h16[3], True, 0.1, **f32)]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="V10"):
+            call()
+    monkeypatch.setattr(tattn, "_FUSED_BWD_MAX_BYTES", 0)
+    for call in calls[2:] + [lambda: tattn._dq_kernel(
+            *bf[:3], lse, lse, bf[3], True, 0.1, mask3=mask3, f32=True),
+            lambda: tattn._dkv_kernel(
+                *bf[:3], lse, lse, bf[3], True, 0.1, mask3=mask3, f32=True)]:
+        with pytest.raises(NotImplementedError, match="V10"):
+            call()
+    assert not any(_build.launch_counts().values())
 
 
 def test_context_ops_call_no_plain_version():
@@ -280,7 +317,11 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(
         "flash_attention_wide_dq": 0, "flash_attention_wide_dkv": 0,
         "paged_attention_wide": 0, "flash_attention_f32out": 0,
         "flash_attention_drop_f32out": 0, "flash_attention_bwd_f32out": 0,
-        "flash_attention_bwd_drop_f32out": 0}
+        "flash_attention_bwd_drop_f32out": 0,
+        "flash_attention_bwd_dq_f32out": 0,
+        "flash_attention_bwd_dq_drop_f32out": 0,
+        "flash_attention_bwd_dkv_f32out": 0,
+        "flash_attention_bwd_dkv_drop_f32out": 0}
     assert _build._LIB is None              # nothing was built or loaded
 
 
@@ -412,11 +453,16 @@ def test_every_kernel_source_exists_and_exports_its_entry():
     # dropout; #5 and #6 with either), the wide family (#3w, #5w, #6w,
     # #7w: fp32, fp16 and head dims the instances lack), the fused
     # blocks' tensor-parallel rank-partial instances (V6) and the fp32-
-    # output instances of #3, #3d, #4 and #4d (ring attention's)
-    assert len(_build.KERNELS) == 34
+    # output instances of #3, #3d, #4, #4d, #5, #6 and #5md's and #6md's
+    # with dropout (ring attention's)
+    assert len(_build.KERNELS) == 38
     assert {"flash_attention_masked", "fused_block_decode_gpt",
             "flash_attention_f32out", "flash_attention_drop_f32out",
             "flash_attention_bwd_f32out", "flash_attention_bwd_drop_f32out",
+            "flash_attention_bwd_dq_f32out",
+            "flash_attention_bwd_dq_drop_f32out",
+            "flash_attention_bwd_dkv_f32out",
+            "flash_attention_bwd_dkv_drop_f32out",
             "fused_block_decode_partial", "fused_block_decode_gpt_partial",
             "flash_attention_drop", "flash_attention_masked_drop",
             "flash_attention_bwd_masked", "flash_attention_bwd_drop",
@@ -641,3 +687,6 @@ def test_chip_smoke_runs_the_lean_phase_by_default():
     # pipelined training after it
     assert phases.index("tp_train") == phases.index("dp") + 1
     assert phases.index("pp_train") == phases.index("tp_train") + 1
+    # then context-parallel and expert-parallel (MoE) training
+    assert phases.index("cp_train") == phases.index("pp_train") + 1
+    assert phases.index("moe_train") == phases.index("cp_train") + 1
